@@ -1,11 +1,12 @@
 """Benchmark configurations ported so far.
 
-Counterpart of ``pyhybridcontrol_tpu/configs/benchmarks.py``. Slice 1
-ports config 1, ``double_integrator`` (switched double-integrator MLD,
-N=10), with its ``BnbSpec`` as it is; the other configurations need
-models and condense transforms that are not ported yet. Fields the
-reference's configurations carry for paths not ported here (closed-loop
-length, scenario batch, move blocking, soft rows) come back with the
+Counterpart of ``pyhybridcontrol_tpu/configs/benchmarks.py``: config 1,
+``double_integrator`` (switched double-integrator MLD, N=10), and config
+4, ``scenario_batch`` (1024 batched instances of the same model through
+the pooled engine), each with its ``BnbSpec`` as it is. The other
+configurations need models and condense transforms that are not ported
+yet. Fields the reference's configurations carry for paths not ported
+here (closed-loop length, move blocking, soft rows) come back with the
 code that reads them.
 """
 
@@ -23,6 +24,7 @@ class BenchmarkConfig:
     description: str
     N: int
     build: Callable             # () -> (model, controller_kwargs dict)
+    batch: int = 1              # instances per batched request
     bnb: BnbSpec = dataclasses.field(default_factory=BnbSpec)
 
 
@@ -39,6 +41,12 @@ BENCHMARK_CONFIGS: Dict[str, BenchmarkConfig] = {
         description="switched double-integrator MLD, N=10, closed loop",
         N=10, build=_build_double_integrator,
         bnb=BnbSpec(capacity=512, wave_size=32, max_waves=64, qp_iters=400),
+    ),
+    "scenario_batch": BenchmarkConfig(
+        name="scenario_batch",
+        description="1024 batched MIQP instances per card (scenario MPC)",
+        N=10, batch=1024, build=_build_double_integrator,
+        bnb=BnbSpec(capacity=64, wave_size=16, max_waves=24, qp_iters=100),
     ),
 }
 

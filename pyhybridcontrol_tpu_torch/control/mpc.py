@@ -2,15 +2,19 @@
 
 Counterpart of ``pyhybridcontrol_tpu/control/mpc.py`` for the condensed
 ``bnb`` and ``enumerate`` solvers: ``build`` condenses once on the host
-in float64 and moves the problem to ``device``; ``feedback(x0)`` solves
-the MIQP there and returns the first input. The other paths of the
-reference raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+in float64 and moves the problem to ``device`` (the card unless the
+caller asks for the CPU); ``feedback(x0)`` solves the MIQP there and
+returns the first input; ``feedback_batch(x0s)`` solves a batch of
+control steps in one pooled B&B (solver/bnb_pooled.py). The other paths
+of the reference raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
 
 from typing import Optional
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -19,9 +23,11 @@ from pyhybridcontrol_tpu_torch.mld.model import MldModel
 from pyhybridcontrol_tpu_torch.ops.admm import prepare_admm_mpc
 from pyhybridcontrol_tpu_torch.ops.condense import CondensedMpc, MpcWeights
 from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec, solve_miqp_bnb
+from pyhybridcontrol_tpu_torch.solver.bnb_pooled import solve_miqp_bnb_pooled
 from pyhybridcontrol_tpu_torch.solver.enumerate import (
     solve_miqp_enumerate_device,
 )
+from pyhybridcontrol_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from pyhybridcontrol_tpu_torch.utils.structdict import StructDict
 
 _SOLVERS = ("bnb", "enumerate")
@@ -40,7 +46,7 @@ class MpcController:
                  bnb_spec: Optional[BnbSpec] = None,
                  qp_iters: int = 150,
                  rho: float = 1.0,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         if solver == "stagewise":
             _not_ported('solver="stagewise"', "stagewise O(N) frame")
         if solver not in _SOLVERS:
@@ -52,7 +58,7 @@ class MpcController:
         self.bnb_spec = bnb_spec or BnbSpec(qp_iters=qp_iters)
         self.qp_iters = qp_iters
         self.rho = rho
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._cmpc = None
         self._qp = None
         self._admm = None
@@ -166,6 +172,92 @@ class MpcController:
             z=v0[info.z_slice], v_seq=v_seq, obj=obj, found=found,
             nodes=nodes, gap=gap)
 
-    def feedback_batch(self, *a, **kw):
-        _not_ported("feedback_batch (batched requests)",
-                    "pooled engine with feedback_batch and serve --tcp")
+    def feedback_batch(self, x0s, omega_forecasts=None, price_seq=None,
+                       u_prevs=None, mesh=None, engine="auto",
+                       pooled_wave: int = 1024,
+                       pool_slots: int = 0) -> StructDict:
+        """Solve a batch of independent control steps at once.
+
+        ``engine``: "auto" or "pooled" (solver="bnb": all instances' B&B
+        nodes in one global pool, solver/bnb_pooled.py; each wave is one
+        K2 launch over ``pooled_wave`` nodes). The reference's "vmap"
+        engine, scenario trees and ``mesh`` placement are not ported.
+        ``pooled_wave``/``pool_slots`` size the pooled search; the
+        per-instance node budget matches ``bnb_spec`` (``max_waves``
+        rescales to the global wave size).
+
+        ``x0s`` (B, nx); ``omega_forecasts``/``u_prevs`` optionally carry
+        the same leading batch dimension; ``price_seq`` is shared.
+        Returns StructDict(u, delta, z, v_seq, obj, found, nodes, gap)
+        with a leading (B,) axis; ``nodes`` is the global node count.
+        """
+        self.build()
+        if mesh is not None:
+            _not_ported("feedback_batch(mesh=...)", "multi-device")
+        if engine == "auto":
+            engine = "pooled" if self.solver == "bnb" else "vmap"
+        if engine == "vmap":
+            _not_ported('feedback_batch(engine="vmap")',
+                        "closed loop and the vmap batch engine")
+        if engine != "pooled":
+            raise ValueError(f"unknown engine {engine!r}")
+        if self.solver != "bnb":
+            raise ValueError(
+                f'engine="pooled" requires solver="bnb", got '
+                f'{self.solver!r}')
+        info = self.model.info
+        x0s = self._tensor(x0s)
+        if x0s.ndim != 2 or x0s.shape[1] != info.nx:
+            raise ValueError(f"x0s must have shape (B, {info.nx}), got "
+                             f"{tuple(x0s.shape)}")
+        if omega_forecasts is not None and info.nomega == 0:
+            raise ValueError(
+                "omega_forecasts given but the model has no disturbance "
+                "channel (nomega=0)")
+        return self._feedback_batch_pooled(
+            x0s, self._tensor(omega_forecasts), self._tensor(price_seq),
+            self._tensor(u_prevs), pooled_wave, pool_slots)
+
+    def _feedback_batch_pooled(self, x0s, W, Pq, up, pooled_wave,
+                               pool_slots) -> StructDict:
+        """feedback_batch engine="pooled": batched assembly, batched
+        rollout-repair seeds, one pooled B&B over the batch."""
+        qp, admm, spec = self._qp, self._admm, self.bnb_spec
+        B = x0s.shape[0]
+        f, h = qp.assemble(x0s, W, up, Pq)
+        seed = None
+        if self._repair is not None:
+            from pyhybridcontrol_tpu_torch.solver.repair import (
+                root_repair_incumbent)
+
+            seed = root_repair_incumbent(
+                admm, qp, self._repair, x0s, f, h, W=W, price_seq=Pq,
+                qp_iters=spec.qp_iters, feas_tol=spec.feas_tol)
+        # The global wave cannot exceed the pool. The reference snaps it
+        # to its TPU kernels' 128-lane batch grain; the CUDA kernels have
+        # no grain, but the arithmetic is kept so that both packages
+        # search with the same wave size and node budget.
+        P = pool_slots or 32 * B
+        gwave = min(pooled_wave, P)
+        if gwave >= 128:
+            gwave -= gwave % 128
+        # equal per-instance node budget at the global wave size
+        gw = max(1, (B * spec.max_waves * spec.wave_size + gwave - 1)
+                 // gwave)
+        pspec = dataclasses.replace(spec, wave_size=gwave,
+                                    capacity=max(spec.capacity, gwave),
+                                    max_waves=gw)
+        res = solve_miqp_bnb_pooled(admm, qp, f, h, pspec, pool_slots=P,
+                                    init_incumbent=seed,
+                                    admm_probe=self._admm_probe)
+        v_seq = qp.full_v(res.x)                          # (B, N, nv)
+        info = self.model.info
+        v0 = v_seq[:, 0]
+        bo = res.best_open_bound
+        gap = torch.where(res.found & torch.isfinite(bo) & (bo < res.obj),
+                          (res.obj - bo)
+                          / torch.clamp_min(res.obj.abs(), 1.0), 0.0)
+        return StructDict(
+            u=v0[:, info.u_slice], delta=v0[:, info.delta_slice],
+            z=v0[:, info.z_slice], v_seq=v_seq, obj=res.obj,
+            found=res.found, nodes=res.nodes_solved.expand(B), gap=gap)

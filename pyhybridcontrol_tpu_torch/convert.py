@@ -7,6 +7,9 @@ through ``numpy.asarray`` of their fields, so this module never imports
 JAX — into the port's objects on a torch device, and ``to_numpy`` turns
 the port's objects back into numpy, so tests can feed both packages
 identical matrices and compare their outputs field by field.
+``bnb_spec`` carries a reference ``BnbSpec`` across (every field), and
+``to_numpy`` also takes a ``BnbResult`` or a ``PooledState`` of either
+package.
 """
 
 from __future__ import annotations
@@ -20,6 +23,9 @@ from pyhybridcontrol_tpu_torch.mld.info import MldInfo
 from pyhybridcontrol_tpu_torch.ops.admm import BoxQP
 from pyhybridcontrol_tpu_torch.ops.condense import DeviceQP
 from pyhybridcontrol_tpu_torch.ops.cuda_admm import KernelQP
+from pyhybridcontrol_tpu_torch.solver.bnb import BnbResult, BnbSpec
+from pyhybridcontrol_tpu_torch.solver.bnb_pooled import PooledState
+from pyhybridcontrol_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 BOXQP_ARRAYS = ("P", "A", "Kinv", "D", "E", "cost_scale", "rho_vec")
 DEVICEQP_ARRAYS = ("H", "f0", "Fx", "Fw", "Fup", "G", "h0", "Hx", "Hw",
@@ -32,8 +38,9 @@ def _t(a, device):
     return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
 
 
-def box_qp(ref, device="cpu") -> BoxQP:
+def box_qp(ref, device=DEFAULT_DEVICE) -> BoxQP:
     """A reference ``BoxQP`` (or anything with its fields) → port BoxQP."""
+    device = resolve_device(device)
     return BoxQP(**{k: _t(getattr(ref, k), device) for k in BOXQP_ARRAYS},
                  rho=float(ref.rho), sigma=float(ref.sigma),
                  alpha=float(ref.alpha), m_ineq=int(ref.m_ineq))
@@ -44,8 +51,9 @@ def mld_info(ref) -> MldInfo:
                       for f in dataclasses.fields(MldInfo)})
 
 
-def device_qp(ref, device="cpu") -> DeviceQP:
+def device_qp(ref, device=DEFAULT_DEVICE) -> DeviceQP:
     """A reference ``DeviceQP`` → port DeviceQP."""
+    device = resolve_device(device)
     return DeviceQP(
         **{k: _t(getattr(ref, k), device) for k in DEVICEQP_ARRAYS},
         binary_idx=tuple(int(i) for i in ref.binary_idx), N=int(ref.N),
@@ -65,8 +73,29 @@ def kernel_qp(ref, base: BoxQP) -> KernelQP:
                     n_pad=int(ref.n_pad), m_pad=int(ref.m_pad))
 
 
+def bnb_spec(ref) -> BnbSpec:
+    """A reference ``BnbSpec`` → port BnbSpec, every field (an option the
+    port has not got raises ``NotImplementedError`` there)."""
+    return BnbSpec(**{f.name: getattr(ref, f.name)
+                      for f in dataclasses.fields(BnbSpec)})
+
+
+def _np(v):
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
 def to_numpy(obj) -> dict:
-    """The array fields of a port BoxQP / DeviceQP / KernelQP as numpy."""
+    """The array fields of a BoxQP / DeviceQP / KernelQP of the port, or
+    every field of a ``BnbResult`` / ``PooledState`` of either package
+    (matched by class name), as numpy."""
     names = {BoxQP: BOXQP_ARRAYS, DeviceQP: DEVICEQP_ARRAYS,
-             KernelQP: KERNELQP_ARRAYS}[type(obj)]
-    return {k: getattr(obj, k).detach().cpu().numpy() for k in names}
+             KernelQP: KERNELQP_ARRAYS}.get(type(obj))
+    if names is None:
+        ours = {c.__name__: c for c in (BnbResult, PooledState)}
+        cls = ours.get(type(obj).__name__)
+        if cls is None:
+            raise TypeError(f"to_numpy: no rule for {type(obj).__name__}")
+        names = [f.name for f in dataclasses.fields(cls)]
+    return {k: _np(getattr(obj, k)) for k in names}

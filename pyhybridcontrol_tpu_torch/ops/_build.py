@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
 At first use, ``nvcc -gencode arch=compute_90a,code=sm_90a`` compiles
-``csrc/admm.cu`` into a shared library with a plain C interface under
-``build/kernels/`` of the checkout (named by a hash of the sources, so an
-edited source rebuilds), under a file lock so that concurrent processes
-build once. The library is then loaded with ``ctypes``. There is no
+every source of ``LIBRARIES`` into its own shared library with a plain C
+interface under ``build/kernels/`` of the checkout (named by a hash of the
+source, so an edited source rebuilds). The compilers run side by side,
+one process per source, under a file lock so that concurrent processes
+build once. A library is then loaded with ``ctypes``. There is no
 fallback: without ``nvcc`` the loader raises.
 
 ``nvcc`` is looked up in $CUDA_HOME/bin, $CUDA_PATH/bin, on PATH, then in
@@ -23,14 +24,17 @@ import time
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCES = (PKG_DIR / "csrc" / "admm.cu",)
+# library name -> source; K1/K2 in admm.cu, K1's split-precision phase
+# (tensor cores) in admm_mixed.cu
+LIBRARIES = {"admm": PKG_DIR / "csrc" / "admm.cu",
+             "admm_mixed": PKG_DIR / "csrc" / "admm_mixed.cu"}
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 DEFAULT_CUDA_HOMES = ("/usr/local/cuda",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIB = None
-BUILD_INFO: dict = {}     # seconds, path and compiler log of the last build
+_LIBS: dict = {}          # name -> loaded ctypes library
+BUILD_INFO: dict = {}     # seconds, paths and compiler log of the last build
 
 
 def find_nvcc(environ=None):
@@ -50,16 +54,16 @@ def find_nvcc(environ=None):
     return None
 
 
-def _digest() -> str:
+def _digest(src: Path) -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
-        h.update(src.read_bytes())
+    h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def build_library() -> Path:
-    """Compile the kernels (once per source hash) and return the path."""
+def build_libraries() -> dict:
+    """Compile every kernel source that has no library yet (once per
+    source hash, all compilers started together) and return name -> path."""
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
@@ -67,41 +71,70 @@ def build_library() -> Path:
             "are built from csrc/ at first use and need the CUDA toolkit: "
             "set CUDA_HOME or put nvcc on PATH.")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"libphc_admm_{_digest()}.so"
+    paths = {name: BUILD_DIR / f"libphc_{name}_{_digest(src)}.so"
+             for name, src in LIBRARIES.items()}
     with open(BUILD_DIR / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if not lib.exists():
-            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            out = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
-                capture_output=True, text=True)
-            if out.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({out.returncode}):\n{out.stderr[-4000:]}")
-            os.replace(tmp, lib)
+        t0 = time.perf_counter()
+        procs = {}
+        for name, lib in paths.items():
+            if not lib.exists():
+                tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+                procs[name] = (tmp, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                     str(LIBRARIES[name])],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True))
+        logs, failed = [], []
+        for name, (tmp, proc) in procs.items():
+            _, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                failed.append(f"{LIBRARIES[name].name} "
+                              f"({proc.returncode}):\n{err[-4000:]}")
+            else:
+                os.replace(tmp, paths[name])
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        if procs:
             BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                              log=out.stderr)
-        BUILD_INFO["path"] = str(lib)
-    return lib
+                              log="".join(logs))
+        BUILD_INFO["paths"] = {k: str(v) for k, v in paths.items()}
+    return paths
 
 
-def load_library():
-    """The loaded kernel library (built at first call)."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    lib = ctypes.CDLL(str(build_library()))
+def _bind_admm(lib):
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.phc_admm_smem_bytes.argtypes = [I, I, I, I]
     lib.phc_admm_smem_bytes.restype = I
-    lib.phc_error_string.argtypes = [I]
-    lib.phc_error_string.restype = ctypes.c_char_p
     # q lG uG lB uB z0G y0G z0B y0B AG MT P vec | x zG yG zB yB st
     lib.phc_admm_k1.argtypes = [P] * 19 + [I, I, I, I, Fl, Fl, P]
     lib.phc_admm_k1.restype = I
     # … vec binm MT2 vec2 | 12 outputs
     lib.phc_admm_k2.argtypes = ([P] * 28 + [I, I, I, I, I, I, Fl, Fl, Fl, P])
     lib.phc_admm_k2.restype = I
-    _LIB = lib
+
+
+def _bind_admm_mixed(lib):
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.phc_admm_mixed_smem_bytes.argtypes = [I, I]
+    lib.phc_admm_mixed_smem_bytes.restype = I
+    # q lG uG lB uB z0G y0G z0B y0B Ahi Alo Mhi Mlo vec | zG yG zB yB
+    lib.phc_admm_k1_mixed.argtypes = [P] * 18 + [I, I, I, I, Fl, P]
+    lib.phc_admm_k1_mixed.restype = I
+
+
+_BINDERS = {"admm": _bind_admm, "admm_mixed": _bind_admm_mixed}
+
+
+def load_library(name: str = "admm"):
+    """The loaded kernel library ``name`` (all are built at first call)."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    lib = ctypes.CDLL(str(build_libraries()[name]))
+    lib.phc_error_string.argtypes = [ctypes.c_int]
+    lib.phc_error_string.restype = ctypes.c_char_p
+    _BINDERS[name](lib)
+    _LIBS[name] = lib
     return lib

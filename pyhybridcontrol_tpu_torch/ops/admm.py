@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from pyhybridcontrol_tpu_torch.ops.scaling import ruiz_equilibrate
+from pyhybridcontrol_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -91,13 +92,15 @@ class AdmmResult:
 def prepare_admm(G: np.ndarray, H: np.ndarray, *, rho: float = 1.0,
                  sigma: float = 1e-6, alpha: float = 1.6,
                  q_typical: Optional[np.ndarray] = None,
-                 binary_idx=None, boost_rows=None, device="cpu") -> BoxQP:
+                 binary_idx=None, boost_rows=None,
+                 device=DEFAULT_DEVICE) -> BoxQP:
     """Host-side (float64) preparation: Ruiz equilibration + K⁻¹.
 
     ``binary_idx``: box rows of those variables get ρ·RHO_EQ_SCALE (they
     turn into equalities at fixed-binary B&B nodes). ``boost_rows``:
     near-equality big-M product rows, ×BOOST_SCALE.
     """
+    device = resolve_device(device)
     G = np.asarray(G, dtype=np.float64)
     H = np.asarray(H, dtype=np.float64)
     m, n = G.shape

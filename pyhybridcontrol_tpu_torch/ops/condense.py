@@ -33,6 +33,7 @@ import torch
 
 from pyhybridcontrol_tpu_torch.mld.info import MldInfo
 from pyhybridcontrol_tpu_torch.mld.model import MldModel
+from pyhybridcontrol_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from pyhybridcontrol_tpu_torch.utils.matrix_utils import (
     block_diag_rep,
     block_toeplitz,
@@ -160,7 +161,7 @@ class CondensedMpc:
 
     Usage:
         c = CondensedMpc(model, N, weights)
-        qp = c.device_qp(device)              # fp32 tensors on the card
+        qp = c.device_qp()                    # fp32 tensors on the card
     """
 
     def __init__(self, model: MldModel, N: int,
@@ -381,7 +382,10 @@ class CondensedMpc:
             j if ss is None else pos.get((ss[0] + 1, ss[1]), j)
             for j, ss in enumerate(stage_slot))
 
-    def device_qp(self, device="cpu", dtype=torch.float32) -> DeviceQP:
+    def device_qp(self, device=DEFAULT_DEVICE,
+                  dtype=torch.float32) -> DeviceQP:
+        device = resolve_device(device)
+
         def t(a):
             return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
                                    device=device)

@@ -25,10 +25,23 @@ the σ-form ``ops/admm.admm_solve`` at convergence, not mid-flight.
 Dispatch follows the tensor's device and nothing else: a CPU tensor runs
 the plain torch version, a CUDA tensor launches the kernel or raises.
 There is no batch-size gate and no fallback. Each kernel wrapper counts
-its launches in ``LAUNCHES``. The plain versions keep the reference's
-public layout — q (B,n), h (B,m), lb/ub (B,n) in, ``AdmmResult`` out —
-and iterate on the same padded batch-first arrays the kernels read, so
-the two compare like with like. Stats reductions accumulate in float64
+its launches in ``LAUNCHES`` (and their batch sizes in ``LAUNCH_BATCHES``).
+
+K1's split-precision option (``low_frac``, the reference's ``iters_lo``
+phase): the first ``int(iters * low_frac)`` iterations take each product
+as the manual 3-pass bf16 product  A·b ≈ Ahi·bhi + Ahi·blo + Alo·bhi
+(hi = bf16(a), lo = bf16(a − hi), fp32 accumulation). On the card that
+phase is its own kernel on the tensor cores (``csrc/admm_mixed.cu``,
+a tile of 16 problems per block); it hands its iterates to K1, which
+runs the full-precision tail, the final half step and the stats. The
+tensor-core tiles want nr and mGp in multiples of 16, so this path (plain
+version and kernel alike) runs on a copy of the prep zero-padded from the
+8 grain to 16 (``pad_kernel_qp``); zero rows and columns are inert.
+``low_frac`` stays off the B&B path, as in the reference.
+
+The plain versions keep the reference's public layout — q (B,n), h (B,m),
+lb/ub (B,n) in, ``AdmmResult`` out — and iterate on the same padded
+batch-first arrays the kernels read, so the two compare like with like. Stats reductions accumulate in float64
 in both.
 """
 
@@ -50,7 +63,12 @@ from pyhybridcontrol_tpu_torch.ops.admm import (
 )
 
 # launches per kernel wrapper (incremented only where the kernel launches)
-LAUNCHES = {"admm_k1": 0, "admm_k2": 0}
+LAUNCHES = {"admm_k1": 0, "admm_k2": 0, "admm_k1_mixed": 0}
+# batch size -> launches, per kernel wrapper (same events as LAUNCHES)
+LAUNCH_BATCHES = {k: {} for k in LAUNCHES}
+
+# row/column grain of the tensor-core tiles of the split-precision phase
+MIXED_GRAIN = 16
 
 # shared memory one thread block may use on sm_90 (227 KB)
 SMEM_MAX = 232448
@@ -59,6 +77,12 @@ SMEM_MAX = 232448
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LAUNCH_BATCHES[k].clear()
+
+
+def _count_launch(name: str, B: int):
+    LAUNCHES[name] += 1
+    LAUNCH_BATCHES[name][B] = LAUNCH_BATCHES[name].get(B, 0) + 1
 
 
 def _round_up(x: int, m: int) -> int:
@@ -161,6 +185,35 @@ def kernel_qp_for(spec: BoxQP) -> KernelQP:
     return kq
 
 
+def pad_kernel_qp(kq: KernelQP, grain: int = MIXED_GRAIN) -> KernelQP:
+    """``kq`` with nr and mGp zero-padded up to multiples of ``grain``
+    (memoized on ``kq``). New rows and columns are zero in every matrix,
+    carry l = u = 0 bounds from the packing and ρ = 1, so they stay at
+    zero through the iteration and change no output."""
+    nr, mGp = _round_up(kq.n_pad, grain), _round_up(kq.m_pad, grain)
+    if (nr, mGp) == (kq.n_pad, kq.m_pad):
+        return kq
+    got = kq.cache.get(("pad", grain))
+    if got is not None:
+        return got
+    dn, dm = nr - kq.n_pad, mGp - kq.m_pad
+
+    def vec(v, d, fill):
+        return F.pad(v, (0, d), value=fill)
+
+    M = torch.cat([F.pad(kq.M[:kq.m_pad], (0, dn, 0, dm)),
+                   F.pad(kq.M[kq.m_pad:], (0, dn, 0, dn))])
+    got = kq.cache[("pad", grain)] = KernelQP(
+        base=kq.base, AGT=F.pad(kq.AGT, (0, dm, 0, dn)), M=M,
+        P=F.pad(kq.P, (0, dn, 0, dn)), dbox=vec(kq.dbox, dn, 0.0),
+        dbox_inv=vec(kq.dbox_inv, dn, 1.0), rhoG=vec(kq.rhoG, dm, 1.0),
+        rhoG_inv=vec(kq.rhoG_inv, dm, 1.0), rhoB=vec(kq.rhoB, dn, 1.0),
+        rhoB_inv=vec(kq.rhoB_inv, dn, 1.0), EG_inv=vec(kq.EG_inv, dm, 1.0),
+        EB_inv=vec(kq.EB_inv, dn, 1.0), Dc_inv=vec(kq.Dc_inv, dn, 1.0),
+        cinv=kq.cinv, n_pad=nr, m_pad=mGp)
+    return got
+
+
 # ---- packing: original-unit (B, ·) inputs → padded scaled batch-first ----
 
 
@@ -214,17 +267,48 @@ def _init_iterates(lG, uG, lB, uB, warm4):
     return (torch.clamp(z0G, lG, uG), y0G, torch.clamp(z0B, lB, uB), y0B)
 
 
+def _bf16_split(a):
+    """fp32 → (hi, lo), both bf16 values held in fp32: hi = bf16(a),
+    lo = bf16(a − hi); hi + lo ≈ a to ~16 mantissa bits."""
+    hi = a.bfloat16().float()
+    return hi, (a - hi).bfloat16().float()
+
+
+def _mm3(A):
+    """b ↦ b·A as the manual 3-pass bf16 product
+    bhi·Ahi + blo·Ahi + bhi·Alo (the lo·lo term is below fp32 rounding).
+    bf16 × bf16 is exact in fp32, so three fp32 ``@`` of the rounded
+    operands accumulate what the tensor cores accumulate. The constant is
+    split once, the iterate operand at each call."""
+    Ahi, Alo = _bf16_split(A)
+
+    def mm(b):
+        bhi, blo = _bf16_split(b)
+        return bhi @ Ahi + blo @ Ahi + bhi @ Alo
+    return mm
+
+
 def _phase(q, lG, uG, lB, uB, AGT, M, dbox, rhoG, rhoGi, rhoB, rhoBi,
-           zG, yG, zB, yB, iters: int, alpha: float, final: bool = True):
+           zG, yG, zB, yB, iters: int, alpha: float, final: bool = True,
+           mixed: bool = False):
     """``iters`` σ=0 iterations from the (already clipped) iterates, then
     — if ``final`` — one more half step, whose ẑ and δy feed the stats.
+    ``mixed``: both products as 3-pass bf16 products (``_mm3``).
     Returns (ẑ_G, ẑ_B, z_G, y_G, z_B, y_B, δy_G, δy_B)."""
     mGp = AGT.shape[1]
     AG, MT = AGT.T, M.T
+    if mixed:
+        mmA, mmM = _mm3(AG), _mm3(MT)
+    else:
+        def mmA(w):
+            return w @ AG
+
+        def mmM(t):
+            return t @ MT
 
     def half_step(zG, yG, zB, yB):
-        t = (rhoG * zG - yG) @ AG + dbox * (rhoB * zB - yB) - q
-        u = t @ MT                                    # Â x̃, both blocks
+        t = mmA(rhoG * zG - yG) + dbox * (rhoB * zB - yB) - q
+        u = mmM(t)                                    # Â x̃, both blocks
         return u[:, :mGp], u[:, mGp:]
 
     for _ in range(iters):
@@ -278,15 +362,42 @@ def _relax(kq: KernelQP, qs, lG, uG, lB, uB, iters, iterates):
     return ztB, (zG, yG, zB, yB), _result(kq, x, zG, yG, zB, yB, *st)
 
 
+def _mixed_plain(kq: KernelQP, qs, lG, uG, lB, uB, iterates, iters_lo):
+    """Plain version of the split-precision phase: ``iters_lo`` iterations
+    with 3-pass bf16 products; returns the iterates (z_G, y_G, z_B, y_B)."""
+    return _phase(qs, lG, uG, lB, uB, kq.AGT, kq.M, kq.dbox, kq.rhoG,
+                  kq.rhoG_inv, kq.rhoB, kq.rhoB_inv, *iterates, iters_lo,
+                  kq.base.alpha, final=False, mixed=True)[2:6]
+
+
+def _solve_plain(kq: KernelQP, q, h, lb, ub, iters, iters_lo, warm):
+    """K1's function on the padded arrays of ``kq`` as it stands (no
+    re-padding): ``iters_lo`` split-precision iterations, then the
+    full-precision tail, half step and stats."""
+    qs, lG, uG, lB, uB, warm4 = _pack(kq, q, h, lb, ub, warm)
+    it = _init_iterates(lG, uG, lB, uB, warm4)
+    if iters_lo > 0:
+        it = _mixed_plain(kq, qs, lG, uG, lB, uB, it, iters_lo)
+    return _relax(kq, qs, lG, uG, lB, uB, max(iters - iters_lo, 0), it)[2]
+
+
+def _split_iters(kq: KernelQP, iters: int, low_frac: float):
+    """(prep to run on, iters_lo): the split-precision phase runs on the
+    16-padded prep."""
+    if not 0.0 <= low_frac <= 1.0:
+        raise ValueError(f"low_frac must be in [0, 1], got {low_frac}")
+    iters_lo = int(iters * low_frac)
+    return (pad_kernel_qp(kq) if iters_lo > 0 else kq), iters_lo
+
+
 def admm_solve_plain(kq: KernelQP, q, h, lb, ub, iters: int = 100,
-                     warm=None) -> AdmmResult:
+                     warm=None, low_frac: float = 0.0) -> AdmmResult:
     """Plain torch version of K1. q (B,n), h (B,m), lb/ub (B,n) in
     ORIGINAL units; ``warm`` = (x, z, y) of a previous result (x unused:
-    the σ=0 iteration has no x-carry)."""
-    qs, lG, uG, lB, uB, warm4 = _pack(kq, q, h, lb, ub, warm)
-    _, _, res = _relax(kq, qs, lG, uG, lB, uB, iters,
-                       _init_iterates(lG, uG, lB, uB, warm4))
-    return res
+    the σ=0 iteration has no x-carry). ``low_frac``: share of the
+    iterations, from the first on, run with 3-pass bf16 products."""
+    kq, iters_lo = _split_iters(kq, iters, low_frac)
+    return _solve_plain(kq, q, h, lb, ub, iters, iters_lo, warm)
 
 
 def _binaries(kq: KernelQP, binary_idx):
@@ -372,14 +483,17 @@ def _check(name, t, shape):
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def _check_launch(lib, kq, B, warm4, args, stiff: int, wave: int):
+def _check_launch(what: str, smem: int, kq, B, warm4, args):
+    """Raise on what a kernel does not take: an empty batch, a shape whose
+    constants do not fit in a block's shared memory (``smem`` bytes), or
+    inputs that are not contiguous float32 CUDA tensors of the padded
+    shapes."""
     nr, mGp = kq.n_pad, kq.m_pad
     if B < 1:
-        raise ValueError("ADMM kernel: empty batch")
-    smem = lib.phc_admm_smem_bytes(nr, mGp, wave, stiff)
+        raise ValueError(f"{what}: empty batch")
     if smem > SMEM_MAX:
         raise ValueError(
-            f"ADMM kernel: nr={nr}, mGp={mGp} needs {smem} bytes of shared "
+            f"{what}: nr={nr}, mGp={mGp} needs {smem} bytes of shared "
             f"memory per block, above the {SMEM_MAX} an sm_90 block has")
     names = ("q", "lG", "uG", "lB", "uB")
     for name, t, rows in zip(names, args, (nr, mGp, mGp, nr, nr)):
@@ -407,7 +521,8 @@ def _launch_k1(kq: KernelQP, qs, lG, uG, lB, uB, warm4, iters: int):
 
     lib = load_library()
     B = qs.shape[0]
-    _check_launch(lib, kq, B, warm4, (qs, lG, uG, lB, uB), 0, 0)
+    smem = lib.phc_admm_smem_bytes(kq.n_pad, kq.m_pad, 0, 0)
+    _check_launch("ADMM kernel", smem, kq, B, warm4, (qs, lG, uG, lB, uB))
     lay = _layout(kq)
     outs = _outputs(kq, B, qs)
     w = warm4 if warm4 is not None else (None,) * 4
@@ -419,7 +534,7 @@ def _launch_k1(kq: KernelQP, qs, lG, uG, lB, uB, warm4, iters: int):
             B, kq.n_pad, kq.m_pad, int(iters), kq.base.alpha, lay["cinv"],
             ctypes.c_void_p(stream))
     _raise_on(lib, rc, "K1 (admm_k1)")
-    LAUNCHES["admm_k1"] += 1
+    _count_launch("admm_k1", B)
     return outs
 
 
@@ -430,7 +545,8 @@ def _launch_k2(kq: KernelQP, kq2: Optional[KernelQP], binmask, qs, lG, uG,
     lib = load_library()
     B = qs.shape[0]
     p1, p2 = _split_probe(kq2, probe_iters)
-    _check_launch(lib, kq, B, warm4, (qs, lG, uG, lB, uB), int(p1 > 0), 1)
+    smem = lib.phc_admm_smem_bytes(kq.n_pad, kq.m_pad, 1, int(p1 > 0))
+    _check_launch("ADMM kernel", smem, kq, B, warm4, (qs, lG, uG, lB, uB))
     _check("binmask", binmask, (kq.n_pad,))
     lay = _layout(kq)
     lay2 = _layout(kq2) if kq2 is not None else lay
@@ -446,15 +562,65 @@ def _launch_k2(kq: KernelQP, kq2: Optional[KernelQP], binmask, qs, lG, uG,
             B, kq.n_pad, kq.m_pad, int(iters), int(p1), int(p2),
             kq.base.alpha, alpha2, lay["cinv"], ctypes.c_void_p(stream))
     _raise_on(lib, rc, "K2 (admm_k2)")
-    LAUNCHES["admm_k2"] += 1
+    _count_launch("admm_k2", B)
     return outs
 
 
+def _layout_mixed(kq: KernelQP):
+    """bf16 hi/lo pairs of Â_Gᵀ (nr, mGp) and M (mGp+nr, nr), row-major
+    as the tensor-core tiles read them."""
+    lay = kq.cache.get("layout_mixed")
+    if lay is None:
+        def pair(a):
+            hi = a.bfloat16()
+            return hi.contiguous(), (a - hi.float()).bfloat16().contiguous()
+
+        lay = kq.cache["layout_mixed"] = dict(A=pair(kq.AGT), M=pair(kq.M))
+    return lay
+
+
+def _launch_k1_mixed(kq: KernelQP, qs, lG, uG, lB, uB, warm4, iters_lo: int):
+    """The split-precision phase on the tensor cores; returns the iterates
+    (z_G, y_G, z_B, y_B) that warm-start K1's full-precision tail."""
+    from pyhybridcontrol_tpu_torch.ops._build import load_library
+
+    lib = load_library("admm_mixed")
+    nr, mGp = kq.n_pad, kq.m_pad
+    B = qs.shape[0]
+    if nr % MIXED_GRAIN or mGp % MIXED_GRAIN or min(nr, mGp) < MIXED_GRAIN:
+        raise ValueError(
+            f"split-precision ADMM kernel: nr={nr}, mGp={mGp} must be "
+            f"multiples of {MIXED_GRAIN} (pad_kernel_qp)")
+    _check_launch("split-precision ADMM kernel",
+                  lib.phc_admm_mixed_smem_bytes(nr, mGp), kq, B, warm4,
+                  (qs, lG, uG, lB, uB))
+    lay, vec = _layout_mixed(kq), _layout(kq)["vec"]
+    outs = [torch.empty((B, r), dtype=torch.float32, device=qs.device)
+            for r in (mGp, mGp, nr, nr)]
+    w = warm4 if warm4 is not None else (None,) * 4
+    with torch.cuda.device(qs.device):
+        stream = torch.cuda.current_stream(qs.device).cuda_stream
+        rc = lib.phc_admm_k1_mixed(
+            *map(_ptr, (qs, lG, uG, lB, uB, *w, *lay["A"], *lay["M"], vec,
+                        *outs)),
+            B, nr, mGp, int(iters_lo), kq.base.alpha,
+            ctypes.c_void_p(stream))
+    _raise_on(lib, rc, "K1 split-precision phase (admm_k1_mixed)")
+    _count_launch("admm_k1_mixed", B)
+    return tuple(outs)
+
+
 def admm_solve_cuda(kq: KernelQP, q, h, lb, ub, iters: int = 100,
-                    warm=None) -> AdmmResult:
-    """K1 on the card; same contract as ``admm_solve_plain``."""
+                    warm=None, low_frac: float = 0.0) -> AdmmResult:
+    """K1 on the card; same contract as ``admm_solve_plain``. With
+    ``low_frac`` > 0 the leading iterations run in the split-precision
+    tensor-core kernel, whose iterates warm-start K1 for the rest."""
+    kq, iters_lo = _split_iters(kq, iters, low_frac)
     qs, lG, uG, lB, uB, warm4 = _pack(kq, q, h, lb, ub, warm)
-    outs = _launch_k1(kq, qs, lG, uG, lB, uB, warm4, iters)
+    if iters_lo > 0:
+        warm4 = _launch_k1_mixed(kq, qs, lG, uG, lB, uB, warm4, iters_lo)
+    outs = _launch_k1(kq, qs, lG, uG, lB, uB, warm4,
+                      max(iters - iters_lo, 0))
     return _result_from_stats(kq, *outs)
 
 

@@ -3,9 +3,15 @@ from pyhybridcontrol_tpu_torch.solver.bnb import (
     BnbSpec,
     solve_miqp_bnb,
 )
+from pyhybridcontrol_tpu_torch.solver.bnb_pooled import (
+    KernelCondensedBackend,
+    PooledState,
+    solve_miqp_bnb_pooled,
+)
 from pyhybridcontrol_tpu_torch.solver.enumerate import (
     solve_miqp_enumerate_device,
 )
 
-__all__ = ["BnbResult", "BnbSpec", "solve_miqp_bnb",
+__all__ = ["BnbResult", "BnbSpec", "KernelCondensedBackend", "PooledState",
+           "solve_miqp_bnb", "solve_miqp_bnb_pooled",
            "solve_miqp_enumerate_device"]

@@ -17,22 +17,29 @@ node pool with an active mask; each wave
 
 Port decisions:
 - The reference runs the wave loop as one ``lax.while_loop``. Here it is
-  a Python loop with ONE host read per wave (the ``alive`` continue
-  test); everything else stays on the device. CUDA graphs of a
-  wave come later.
+  a Python loop with ONE host read per wave: a two-flag tensor computed at
+  the end of wave k that holds the continue test (``alive`` and the
+  ``rel_gap`` stop) and the probe gate of wave k+1 (``probe_patience``;
+  the reference's ``lax.cond`` becomes a host branch). Everything else
+  stays on the device. CUDA graphs of a wave come later.
 - JAX scatters drop out-of-bounds indices (``mode="drop"``); torch does
   not. Every pool tensor has a dump row at index ``capacity`` (the
   pseudo-cost tables one at index ``nb``): dropped writes land there and
   the dump row is never selected.
-- ``lax.top_k`` breaks ties by the lower index and ``jnp.argsort`` is
-  stable; the port selects with ``torch.sort(..., stable=True)`` and
-  slices, so CPU and CUDA runs search alike.
+- ``lax.top_k`` and ``jnp.argmax``/``argmin`` break ties by the lower
+  index and ``jnp.argsort`` is stable; the port selects with
+  ``utils/select.py`` (stable sorts, first-index arg-max/min), so CPU and
+  CUDA runs walk the same tree.
 - The pool is updated in place (the loop owns it).
-- The search runs config 1's options: pseudo-cost branching, the
-  certificate-backed node presolve (``presolve_fix``), warm starts,
-  flip-delta child bounds and an always-on dive probe. Any other
-  ``BnbSpec`` setting raises ``NotImplementedError``; the multi-device
-  hooks wait for ROADMAP queue 1, item 8.
+- Ported options: pseudo-cost and most-fractional branching, the
+  certificate-backed node presolve (``presolve_fix``) and its absence,
+  warm starts on or off, flip-delta child bounds, always-on or gated dive
+  probes (``probe_patience``), ``rel_gap`` termination, ``root_iters``,
+  the carried-plan ``init_node``, and ``pool_norm`` for the pooled engine
+  (solver/bnb_pooled.py). ``dive_slots``, ``sb_iters``/``sb_fix``,
+  ``depth_tiebreak`` and ``branching="flipdelta"`` raise
+  ``NotImplementedError``; the multi-device hooks wait for ROADMAP queue
+  1 ("multi-device").
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from pyhybridcontrol_tpu_torch.ops.cuda_admm import (
     admm_solve_auto,
     admm_wave_auto,
 )
+from pyhybridcontrol_tpu_torch.utils.select import first_arg, first_k
 
 
 @dataclasses.dataclass
@@ -99,6 +107,17 @@ class CondensedBackend:
         return admm_solve_auto(self.admm, f, h, lb, ub, iters=iters,
                                warm=warm)
 
+    def solve_probe(self, f, h, lb, ub, iters, warm=None):
+        """Dive probe on its own (the unfused composition): stiff-ρ for
+        the first half of the iterations when there is a probe prep, then
+        base-ρ, warm-chained."""
+        if self.admm_probe is None:
+            return self.solve(f, h, lb, ub, iters, warm=warm)
+        k = iters // 2
+        r1 = admm_solve_auto(self.admm_probe, f, h, lb, ub, iters=k,
+                             warm=warm)
+        return self.solve(f, h, lb, ub, iters - k, warm=(r1.x, r1.z, r1.y))
+
     def solve_wave(self, f, h, lb, ub, iters, probe_iters, warm=None):
         """Fused relaxation + dive probe (K2). Returns
         ``(relax, probe, lb_probe, ub_probe)``."""
@@ -131,18 +150,21 @@ class BnbSpec:
     gap: float = 1e-4            # absolute pruning gap margin
     inc_tol: float = 0.0         # incumbent acceptance tolerance; 0 → feas_tol
     probe_iters: int = 0         # dive-probe iterations; 0 → qp_iters
-    # the reference's other options; only their defaults are ported
     warm_start: bool = True      # children inherit parent ADMM iterates
     rel_gap: float = 0.0         # relative MIPGap termination
-    probe_patience: int = 0      # probe gating
-    branching: str = "pseudocost"
+    probe_patience: int = 0      # probe gating: 0 → probe every wave; k>0
+    # → after k waves without a better incumbent, probe every (k+1)-th
+    # wave only; leaves met on a gated wave wait for the next probing wave
+    branching: str = "pseudocost"   # or "most_frac"
     presolve_fix: bool = True    # certificate-backed node presolve
-    pool_norm: str = "none"      # pooled engine only
+    pool_norm: str = "none"      # pooled engine only: "none" | "relgap"
+    root_iters: int = 0          # root pre-solve: root_iters − qp_iters
+    # extra iterations stored as the root's warm start (needs warm_start)
+    # the reference's other options; only their defaults are ported
     depth_tiebreak: float = 0.0
     sb_iters: int = 0            # root strong branching
     sb_fix: bool = False
     dive_slots: int = 0          # diving lane
-    root_iters: int = 0          # root pre-solve
 
     def __post_init__(self):
         if self.wave_size > self.capacity:
@@ -163,11 +185,11 @@ class BnbSpec:
             raise ValueError("need 0 <= dive_slots < wave_size")
         if self.pool_norm not in ("none", "relgap"):
             raise ValueError(f"unknown pool_norm {self.pool_norm!r}")
-        ported = dict(warm_start=True, rel_gap=0.0, probe_patience=0,
-                      branching="pseudocost", presolve_fix=True,
-                      pool_norm="none", depth_tiebreak=0.0, sb_iters=0,
-                      sb_fix=False, dive_slots=0, root_iters=0)
-        bad = [k for k, v in ported.items() if getattr(self, k) != v]
+        unported = dict(depth_tiebreak=0.0, sb_iters=0, sb_fix=False,
+                        dive_slots=0)
+        bad = [k for k, v in unported.items() if getattr(self, k) != v]
+        if self.branching == "flipdelta":
+            bad.append("branching='flipdelta'")
         if bad:
             raise NotImplementedError(
                 f"BnbSpec option(s) {bad} are not ported to "
@@ -198,6 +220,8 @@ class BnbState:
     overflow: torch.Tensor     # () bool
     alive: torch.Tensor        # () bool — any active node
     dropped_min: torch.Tensor  # () f32 — min bound over overflow drops
+    probe_stale: torch.Tensor  # () i64 — waves since a probe improved
+    best_open: torch.Tensor    # () f32 — min bound over open nodes
 
 
 @dataclasses.dataclass
@@ -240,19 +264,30 @@ def _init_state(backend, spec: BnbSpec, dtype, m_total: int,
         overflow=torch.zeros((), dtype=torch.bool, device=device),
         alive=torch.ones((), dtype=torch.bool, device=device),
         dropped_min=full((), BIG),
+        probe_stale=full((), 0, torch.long),
+        best_open=full((), -BIG),
     )
 
 
-def _first_k(values, k: int, descending: bool = False):
-    """Indices of the k smallest (largest) values, ties by lower index —
-    the ``lax.top_k`` order, identical on CPU and CUDA."""
-    return torch.sort(values, descending=descending, stable=True)[1][:k]
+def _loop_flags(spec: BnbSpec, live, found_all, probe_stale, next_wave: int):
+    """The loop's one host read per wave: ``(continue, probe gate of the
+    next wave)`` as Python bools, from one two-element tensor. ``live`` is
+    the continue test on the device; ``found_all`` says whether every
+    instance has an incumbent (the gate probes until then)."""
+    if spec.probe_patience == 0:
+        return bool(live), True
+    retry = next_wave % (spec.probe_patience + 1) == 0
+    probe = ~found_all | (probe_stale < spec.probe_patience)
+    live, probe = torch.stack([live, probe]).tolist()
+    return live, probe or retry
 
 
-def _bnb_loop(backend, f, h, spec: BnbSpec,
-              init_incumbent=None) -> BnbResult:
+def _bnb_loop(backend, f, h, spec: BnbSpec, init_incumbent=None,
+              init_node=None) -> BnbResult:
     """The B&B wave loop (single device). ``init_incumbent``: optional
-    ``(obj, V, ok)`` heuristic seed (e.g. rollout repair)."""
+    ``(obj, V, ok)`` heuristic seed (e.g. rollout repair). ``init_node``:
+    optional ``(bvals, ok, x_warm|None)`` binary assignment injected as a
+    fully-fixed node in slot 1 (it rides wave 1 beside the root)."""
     nb = len(backend.binary_idx)
     dev = f.device
     if nb == 0:
@@ -270,6 +305,18 @@ def _bnb_loop(backend, f, h, spec: BnbSpec,
         s.inc_obj = torch.where(ok0, obj0.to(dtype), s.inc_obj)
         s.inc_x = torch.where(ok0, x0V.to(dtype), s.inc_x)
         s.inc_found = s.inc_found | ok0
+    if spec.root_iters > spec.qp_iters and spec.warm_start:
+        # pre-converge the root relaxation; wave 1 finishes it from there
+        r0 = backend.solve(f, h, backend.lb, backend.ub,
+                           spec.root_iters - spec.qp_iters)
+        s.x_pool[0], s.z_pool[0], s.y_pool[0] = r0.x, r0.z, r0.y
+    if init_node is not None:
+        bv0, okn, xw = init_node
+        s.active[1] = okn
+        s.fix_mask[1] = True
+        s.fix_val[1] = bv0.to(dtype)
+        if spec.warm_start and xw is not None:
+            s.x_pool[1] = xw.to(dtype)
 
     def node_bounds(fm, fv):
         """(Wb, n) lb/ub for nodes given fixed-binary masks/values."""
@@ -284,10 +331,17 @@ def _bnb_loop(backend, f, h, spec: BnbSpec,
     piters = spec.probe_iters or spec.qp_iters
     acc_tol = spec.inc_tol or spec.feas_tol
     waves = 0
-    # the continue test is the loop's one host read per wave
-    while waves < spec.max_waves and bool(s.alive):
-        _wave(backend, s, spec, fb, hb, bidx, node_bounds, piters, acc_tol)
+    live, probe = True, True      # wave 0: root active, retry wave
+    while waves < spec.max_waves and live:
+        _wave(backend, s, spec, fb, hb, bidx, node_bounds, piters, acc_tol,
+              probe)
         waves += 1
+        cont = s.alive
+        if spec.rel_gap > 0:
+            tol = spec.rel_gap * torch.clamp_min(s.inc_obj.abs(), 1.0)
+            cont = cont & ~(s.inc_found & (s.inc_obj - s.best_open <= tol))
+        live, probe = _loop_flags(spec, cont, s.inc_found, s.probe_stale,
+                                  waves)
     act = s.active[:C]
     best_open = torch.minimum(torch.where(act, s.bound[:C], BIG).min(),
                               s.dropped_min)
@@ -296,14 +350,27 @@ def _bnb_loop(backend, f, h, spec: BnbSpec,
                      overflow=s.overflow, best_open_bound=best_open)
 
 
+def _probe_candidates(backend, relax, probe, lb_p, ub_p, fb, hb, valid,
+                      acc_tol):
+    """(candidate objective or BIG, accepted) per probe. The objective is
+    clamped with the leaf's certified dual bound: a feas_tol-feasible but
+    unconverged probe can report an objective below the leaf optimum."""
+    ok = (probe.r_prim_rel < acc_tol) & valid
+    pcert = backend.node_bound(probe, fb, hb, lb_p, ub_p)
+    pobj = torch.where(torch.isfinite(pcert),
+                       torch.maximum(probe.obj, pcert), probe.obj)
+    return torch.where(ok, pobj, BIG), ok
+
+
 def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
-          piters, acc_tol):
-    """One wave; updates the pool ``s`` in place."""
+          piters, acc_tol, probe_ran: bool = True):
+    """One wave; updates the pool ``s`` in place. ``probe_ran``: the probe
+    gate, decided before the wave (K2 on probing waves, K1 on gated ones)."""
     W, C = spec.wave_size, spec.capacity
     nb = bidx.shape[0]
 
     # -- 1. best-first selection --------------------------------------------
-    sel = _first_k(torch.where(s.active[:C], s.bound[:C], BIG), W)
+    sel = first_k(torch.where(s.active[:C], s.bound[:C], BIG), W)
     valid = s.active[sel]
     fm = s.fix_mask[sel]
     fv = s.fix_val[sel]
@@ -311,22 +378,28 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
 
     # -- 2. relaxations + fused dive probe (K2) -----------------------------
     lb, ub = node_bounds(fm, fv)
-    warm = (s.x_pool[sel], s.z_pool[sel], s.y_pool[sel])
-    relax, probe, lb_p, ub_p = backend.solve_wave(
-        fb, hb, lb, ub, spec.qp_iters, piters, warm=warm)
-    probe_ok = (probe.r_prim_rel < acc_tol) & valid
-    # clamp with the leaf's certified dual bound: a feas_tol-feasible but
-    # unconverged probe can report an objective below the leaf optimum
-    pcert = backend.node_bound(probe, fb, hb, lb_p, ub_p)
-    pobj = torch.where(torch.isfinite(pcert),
-                       torch.maximum(probe.obj, pcert), probe.obj)
-    probe_obj = torch.where(probe_ok, pobj, BIG)
+    warm = ((s.x_pool[sel], s.z_pool[sel], s.y_pool[sel])
+            if spec.warm_start else None)
+    if probe_ran:
+        relax, probe, lb_p, ub_p = backend.solve_wave(
+            fb, hb, lb, ub, spec.qp_iters, piters, warm=warm)
+        probe_obj, probe_ok = _probe_candidates(
+            backend, relax, probe, lb_p, ub_p, fb, hb, valid, acc_tol)
+        probe_x = probe.x
+    else:
+        relax = backend.solve(fb, hb, lb, ub, spec.qp_iters, warm=warm)
+        probe_obj = torch.full_like(relax.obj, BIG)
+        probe_ok = torch.zeros_like(valid)
+        probe_x = torch.zeros_like(relax.x)
 
     converged = relax.r_prim_rel < spec.feas_tol
     infeasible = relax.infeas_cert | (relax.r_prim_rel > spec.infeas_tol)
-    # certified dual bound + per-binary presolve data (Falk certificate)
-    cert, flip_delta, retain_side, imp_lo, imp_hi = backend.node_cert(
-        relax, fb, hb, lb, ub)
+    # certified dual bound (+ per-binary presolve data with presolve_fix)
+    if spec.presolve_fix:
+        cert, flip_delta, retain_side, imp_lo, imp_hi = backend.node_cert(
+            relax, fb, hb, lb, ub)
+    else:
+        cert = backend.node_bound(relax, fb, hb, lb, ub)
     cert_fin = torch.isfinite(cert)
     cert = torch.where(cert_fin, cert, parent_bound)
     lower = torch.where(valid & ~infeasible,
@@ -352,35 +425,35 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
                         accumulate=True)
 
     # -- 3. incumbent update (probe candidates only) ------------------------
-    k = torch.argmin(probe_obj)
+    k = first_arg(probe_obj, largest=False)
     better = probe_obj[k] < s.inc_obj
     s.inc_obj = torch.where(better, probe_obj[k], s.inc_obj)
-    s.inc_x = torch.where(better, probe.x[k], s.inc_x)
+    s.inc_x = torch.where(better, probe_x[k], s.inc_x)
     s.inc_found = s.inc_found | (better & probe_ok[k])
     inc_obj, inc_found = s.inc_obj, s.inc_found
+    if probe_ran:
+        s.probe_stale = torch.where(better, 0, s.probe_stale + 1)
 
-    # -- 4. prune ------------------------------------------------------------
+    # -- 4. prune; on a gated wave leaf candidates wait for the next probe --
     bound_prune = lower >= inc_obj - spec.gap
-    prune = (~valid | infeasible | fully_fixed | bound_prune
-             | (converged & integral))
+    leaf = fully_fixed | (converged & integral)
+    if probe_ran:
+        prune = ~valid | infeasible | bound_prune | leaf
+    else:
+        prune = ~valid | infeasible | bound_prune
     expand = valid & ~prune
 
     # -- 4b. node presolve (certificate-backed binary fixing) ---------------
     # reduced-cost fixing: flipping binary j provably cannot beat the
     # incumbent → fix j to the tangent-retained side; implied-integrality
     # fixing: the node's implied box excludes one integral value
-    unfixed = ~fm
-    ok_node = (valid & ~infeasible)[:, None]
-    flip_bound = torch.maximum(
-        parent_bound[:, None],
-        torch.where(cert_fin[:, None], cert[:, None] + flip_delta, -BIG))
-    rc = unfixed & ok_node & inc_found & (flip_bound >= inc_obj - spec.gap)
-    imp1 = unfixed & ok_node & (imp_lo > 1e-2)
-    imp0 = unfixed & ok_node & (imp_hi < 1.0 - 1e-2)
-    newv = torch.where(imp1, 1.0, torch.where(
-        imp0, 0.0, torch.where(rc, retain_side, fv)))
-    fm2 = fm | rc | imp0 | imp1
-    fv2 = torch.where(fm, fv, newv)
+    if spec.presolve_fix:
+        fm2, fv2 = _presolve_fix(
+            fm, fv, valid & ~infeasible, parent_bound, cert, cert_fin,
+            flip_delta, retain_side, imp_lo, imp_hi, inc_found, inc_obj,
+            spec.gap)
+    else:
+        fm2, fv2 = fm, fv
 
     # -- 5. branch -----------------------------------------------------------
     child_bound = torch.where(expand, torch.maximum(parent_bound, lower),
@@ -388,16 +461,11 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
     xbc = torch.clamp(xb, 0.0, 1.0)
     # pseudo-cost product rule; vars without observations use the global
     # per-direction mean (1.0 before any → f·(1−f), most fractional)
-    pcs, pcc = s.pc_sum[:nb], s.pc_cnt[:nb]
-    cnt_tot = pcc.sum(0)                                         # (2,)
-    gavg = torch.where(cnt_tot > 0,
-                       pcs.sum(0) / torch.clamp_min(cnt_tot, 1.0), 1.0)
-    avg = pcs / torch.clamp_min(pcc, 1.0)                        # (nb,2)
-    est = torch.where(pcc > 0, avg, gavg[None, :])
-    sc = (torch.clamp_min(est[None, :, 0] * xbc, 1e-8)
-          * torch.clamp_min(est[None, :, 1] * (1.0 - xbc), 1e-8))
-    score = torch.where(fm2, -1.0, sc * torch.clamp_min(frac, 1e-4))
-    jstar = torch.argmax(score, dim=1)
+    if spec.branching == "pseudocost":
+        score = _pseudocost_score(s.pc_sum[:nb], s.pc_cnt[:nb], xbc, frac)
+    else:
+        score = frac
+    jstar = first_arg(torch.where(fm2, -1.0, score), dim=1)
     # presolve may fix everything: the node becomes its own leaf
     has_branch = (~fm2).any(dim=1)
     branch_hot = (torch.nn.functional.one_hot(jstar, nb).bool()
@@ -409,15 +477,12 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
     cbv = torch.where(has_branch, jstar, -1)
     # flip-delta child bound: the certified extra bound of the child fixed
     # to the tangent-disfavoured side of jstar
-    fd_j = torch.gather(flip_delta, 1, jstar[:, None])[:, 0]
-    rs_j = torch.gather(retain_side, 1, jstar[:, None])[:, 0]
-    flip_to1 = rs_j < 0.5
-    cb_extra = torch.where(cert_fin & has_branch,
-                           cert + torch.clamp_min(fd_j, 0.0), -BIG)
-    child0_bound = torch.where(
-        ~flip_to1, torch.maximum(child_bound, cb_extra), child_bound)
-    child1_bound = torch.where(
-        flip_to1, torch.maximum(child_bound, cb_extra), child_bound)
+    if spec.presolve_fix:
+        child0_bound, child1_bound = _flip_delta_bounds(
+            child_bound, cert, cert_fin, has_branch, flip_delta,
+            retain_side, jstar)
+    else:
+        child0_bound = child1_bound = child_bound
 
     # child-0 into the parent slot (sel holds distinct slots)
     e1 = expand[:, None]
@@ -428,17 +493,18 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
     s.branch_dir[sel] = torch.where(expand, 0, bdir)
     s.branch_frac[sel] = torch.where(expand, cbf, s.branch_frac[sel])
     s.active[sel] = expand
-    s.x_pool[sel] = relax.x
-    s.z_pool[sel] = relax.z
-    s.y_pool[sel] = relax.y
+    if spec.warm_start:
+        s.x_pool[sel] = relax.x
+        s.z_pool[sel] = relax.z
+        s.y_pool[sel] = relax.y
 
     # child-1 → free slots; the i-th best child takes the i-th free slot;
     # writes with no slot go to the dump row C
     clive = expand & has_branch
-    free_slots = _first_k(torch.where(s.active[:C], -1.0, 1.0), W,
-                          descending=True)
+    free_slots = first_k(torch.where(s.active[:C], -1.0, 1.0), W,
+                         descending=True)
     slot_free = ~s.active[free_slots]
-    src = _first_k(torch.where(clive, child1_bound, BIG), W)
+    src = first_k(torch.where(clive, child1_bound, BIG), W)
     write_ok = slot_free & clive[src]
     tgt = torch.where(write_ok, free_slots, C)
     s.fix_mask[tgt] = cfm[src]
@@ -448,26 +514,80 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
     s.branch_dir[tgt] = 1
     s.branch_frac[tgt] = cbf[src]
     s.active[tgt] = True
-    s.x_pool[tgt] = relax.x[src]
-    s.z_pool[tgt] = relax.z[src]
-    s.y_pool[tgt] = relax.y[src]
+    if spec.warm_start:
+        s.x_pool[tgt] = relax.x[src]
+        s.z_pool[tgt] = relax.z[src]
+        s.y_pool[tgt] = relax.y[src]
     s.active[C] = False
     drop_mask = clive[src] & ~slot_free
     s.overflow = s.overflow | drop_mask.any()
     s.dropped_min = torch.minimum(
         s.dropped_min, torch.where(drop_mask, child1_bound[src], BIG).min())
 
-    s.alive = s.active[:C].any()
+    act = s.active[:C]
+    s.alive = act.any()
+    s.best_open = torch.minimum(torch.where(act, s.bound[:C], BIG).min(),
+                                s.dropped_min)
     s.nodes_solved = s.nodes_solved + valid.sum()
+
+
+def _presolve_fix(fm, fv, ok_node, parent_bound, cert, cert_fin, flip_delta,
+                  retain_side, imp_lo, imp_hi, inc_found, inc_obj, gap):
+    """Node presolve from the Falk certificate's per-binary data: returns
+    the fix mask/values the node's children inherit. ``inc_found`` /
+    ``inc_obj``: the incumbent each row prunes against (scalars, or
+    per-row vectors in the pooled engine)."""
+    unfixed = ~fm
+    ok_node = ok_node[:, None]
+    if inc_obj.ndim == 1:
+        inc_found, inc_obj = inc_found[:, None], inc_obj[:, None]
+    flip_bound = torch.maximum(
+        parent_bound[:, None],
+        torch.where(cert_fin[:, None], cert[:, None] + flip_delta, -BIG))
+    rc = unfixed & ok_node & inc_found & (flip_bound >= inc_obj - gap)
+    imp1 = unfixed & ok_node & (imp_lo > 1e-2)
+    imp0 = unfixed & ok_node & (imp_hi < 1.0 - 1e-2)
+    newv = torch.where(imp1, 1.0, torch.where(
+        imp0, 0.0, torch.where(rc, retain_side, fv)))
+    return fm | rc | imp0 | imp1, torch.where(fm, fv, newv)
+
+
+def _pseudocost_score(pc_sum, pc_cnt, xbc, frac):
+    """Pseudo-cost product rule; binaries without observations use the
+    global per-direction mean (1.0 before any → f·(1−f), most fractional)."""
+    cnt_tot = pc_cnt.sum(0)                                      # (2,)
+    gavg = torch.where(cnt_tot > 0,
+                       pc_sum.sum(0) / torch.clamp_min(cnt_tot, 1.0), 1.0)
+    avg = pc_sum / torch.clamp_min(pc_cnt, 1.0)                  # (nb,2)
+    est = torch.where(pc_cnt > 0, avg, gavg[None, :])
+    sc = (torch.clamp_min(est[None, :, 0] * xbc, 1e-8)
+          * torch.clamp_min(est[None, :, 1] * (1.0 - xbc), 1e-8))
+    return sc * torch.clamp_min(frac, 1e-4)
+
+
+def _flip_delta_bounds(child_bound, cert, cert_fin, has_branch, flip_delta,
+                       retain_side, jstar):
+    """(child-0 bound, child-1 bound): the child fixed to the
+    tangent-disfavoured side of jstar leads by its certified flip delta."""
+    fd_j = torch.gather(flip_delta, 1, jstar[:, None])[:, 0]
+    rs_j = torch.gather(retain_side, 1, jstar[:, None])[:, 0]
+    flip_to1 = rs_j < 0.5
+    cb_extra = torch.where(cert_fin & has_branch,
+                           cert + torch.clamp_min(fd_j, 0.0), -BIG)
+    lifted = torch.maximum(child_bound, cb_extra)
+    return (torch.where(~flip_to1, lifted, child_bound),
+            torch.where(flip_to1, lifted, child_bound))
 
 
 def solve_miqp_bnb(admm: BoxQP, qp: DeviceQP, f, h,
                    spec: BnbSpec = BnbSpec(),
-                   init_incumbent=None,
+                   init_incumbent=None, init_node=None,
                    admm_probe: Optional[BoxQP] = None) -> BnbResult:
     """Solve  min ½VᵀHV + fᵀV  s.t. GV ≤ h, lb ≤ V ≤ ub, V[bidx] ∈ {0,1}
     on the device of ``f``. f, h from ``qp.assemble(x0, …)``.
     ``init_incumbent``: optional (obj, V, ok) heuristic seed.
+    ``init_node``: optional (bvals, ok, x_warm|None) candidate binary
+    assignment injected as a fully-fixed wave-1 node.
     ``admm_probe``: optional stiff-ρ prep for the dive probes."""
     return _bnb_loop(CondensedBackend(admm, qp, admm_probe), f, h, spec,
-                     init_incumbent=init_incumbent)
+                     init_incumbent=init_incumbent, init_node=init_node)

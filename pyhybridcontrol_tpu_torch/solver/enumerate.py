@@ -12,6 +12,7 @@ import torch
 
 from pyhybridcontrol_tpu_torch.ops.admm import BIG, BoxQP, admm_solve
 from pyhybridcontrol_tpu_torch.ops.condense import DeviceQP
+from pyhybridcontrol_tpu_torch.utils.select import first_arg
 
 
 def _all_assignments(nb: int) -> np.ndarray:
@@ -36,5 +37,5 @@ def solve_miqp_enumerate_device(spec: BoxQP, qp: DeviceQP, f, h,
                      iters=iters)
     feasible = res.r_prim_rel < feas_tol
     objs = torch.where(feasible, res.obj, BIG)
-    k = torch.argmin(objs)
+    k = first_arg(objs, largest=False)     # first minimum, as jnp.argmin
     return res.x[k], objs[k], assignments[k], feasible

@@ -13,7 +13,10 @@ reached so far; the best feasible candidate (scored with a one-step
 state-cost lookahead) advances the state. The result satisfies every
 stage constraint and is offered to the B&B as an incumbent. The
 reference's ``lax.scan`` over the horizon is a Python loop here; each
-step's candidates are one batched ``admm_solve``. Not valid under move
+step's candidates are one batched ``admm_solve``. A leading batch
+dimension of B instances (the reference vmaps) runs each stage as one
+(B·C, ·) ``admm_solve`` with a per-instance argmin and per-instance
+state: no Python loop over instances. Not valid under move
 blocking. The reference's soft-row variant waits for the soft-constraint
 transform (ROADMAP queue 1).
 """
@@ -34,6 +37,8 @@ from pyhybridcontrol_tpu_torch.ops.admm import (
     prepare_admm,
 )
 from pyhybridcontrol_tpu_torch.ops.condense import MpcWeights, _sq, _vec
+from pyhybridcontrol_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from pyhybridcontrol_tpu_torch.utils.select import first_arg
 
 
 @dataclasses.dataclass
@@ -67,9 +72,10 @@ class RepairSpec:
 def prepare_repair(model: MldModel, weights: Optional[MpcWeights] = None,
                    proximity: float = 1.0, rho: float = 1.0,
                    max_step_binaries: int = 10,
-                   device="cpu") -> Optional[RepairSpec]:
+                   device=DEFAULT_DEVICE) -> Optional[RepairSpec]:
     """Build the repair data; None if the model has no per-step binaries
     or too many to enumerate (2^nbs candidates)."""
+    device = resolve_device(device)
     w = weights or MpcWeights()
     info = model.info
     m = model.numpy_mats()
@@ -131,76 +137,87 @@ def prepare_repair(model: MldModel, weights: Optional[MpcWeights] = None,
 def repair_sequence(spec: RepairSpec, x0, u_ref_seq, W=None,
                     price_seq=None, qp_iters: int = 60,
                     feas_tol: float = 1e-3):
-    """Greedy forward repair. u_ref_seq: (N, nu_c+nz) target continuous
-    parts (w-frame). Returns (v_seq (N, nv), ok (bool tensor)).
-    price_seq: (N, nv) per-step linear cost."""
-    N = u_ref_seq.shape[0]
+    """Greedy forward repair. x0 (nx,) and u_ref_seq (N, nu_c+nz), the
+    target continuous parts (w-frame) — or both with a leading batch
+    dimension B, with W (B, N, nω). Returns (v_seq (N, nv), ok) or their
+    batched forms ((B, N, nv), (B,)). price_seq: (N, nv) per-step linear
+    cost, shared by the batch."""
+    single = x0.ndim == 1
+    if single:
+        x0, u_ref_seq = x0[None], u_ref_seq[None]
+        W = None if W is None else W[None]
+    B, N = u_ref_seq.shape[:2]
     C = spec.candidates.shape[0]
     nw_c = spec.Fw_cont.shape[1]
     nv = len(spec.cont_idx) + len(spec.bin_idx)
     dev = x0.device
 
     if W is None:
-        W = torch.zeros((N, spec.B4.shape[1]), device=dev)
+        W = torch.zeros((B, N, spec.B4.shape[1]), device=dev)
     if price_seq is None:
         price_seq = torch.zeros((N, nv), device=dev)
-    free = torch.full((C, nw_c), BIG, device=dev)
+    free = torch.full((nw_c,), BIG, device=dev)
     cand = spec.candidates
+    inst = torch.arange(B, device=dev)
 
     x = x0
     vs, oks = [], []
     for k in range(N):
-        u_ref, w_k, price = u_ref_seq[k], W[k], price_seq[k]
+        u_ref, w_k, price = u_ref_seq[:, k], W[:, k], price_seq[k]
         # rhs per candidate: f5 − E x − F4 ω − F_bin δc
-        base = spec.f5 - spec.E @ x - spec.F4 @ w_k
-        h = base[None, :] - cand @ spec.F2E.T                    # (C, nc)
+        base = spec.f5 - x @ spec.E.T - w_k @ spec.F4.T          # (B, nc)
+        h = base[:, None, :] - cand @ spec.F2E.T                 # (B, C, nc)
         if nw_c == 0:
             # all-binary stage: no stage QP, rows checked exactly
             feas = (h >= -feas_tol).all(dim=-1)
-            cont_obj = h.new_zeros(C)
-            w_sol = h.new_zeros((C, 0))
+            cont_obj = h.new_zeros((B, C))
+            w_sol = h.new_zeros((B, C, 0))
         else:
-            qv = torch.zeros(nw_c, device=dev)
-            qv[spec.u_cont_idx] = u_ref[spec.u_cont_idx]
+            qv = torch.zeros((B, nw_c), device=dev)
+            qv[:, spec.u_cont_idx] = u_ref[:, spec.u_cont_idx]
             q = -2.0 * spec.proximity * qv + spec.rw + price[spec.cont_idx]
-            res = admm_solve(spec.admm, q.expand(C, nw_c), h, -free, free,
-                             iters=qp_iters)
-            feas = res.r_prim_rel < feas_tol
-            cont_obj = res.obj
-            w_sol = res.x[:, :nw_c]
-        bin_cost = cand @ (spec.r_bin + price[spec.bin_idx])
+            res = admm_solve(
+                spec.admm, q[:, None, :].expand(B, C, nw_c).reshape(-1, nw_c),
+                h.reshape(B * C, -1), -free, free, iters=qp_iters)
+            feas = (res.r_prim_rel < feas_tol).view(B, C)
+            cont_obj = res.obj.view(B, C)
+            w_sol = res.x[:, :nw_c].view(B, C, nw_c)
+        bin_cost = cand @ (spec.r_bin + price[spec.bin_idx])     # (C,)
         # one-step-lookahead state cost per candidate
-        x_next_c = ((spec.A @ x)[None, :] + w_sol @ spec.B_cont.T
+        x_next_c = ((x @ spec.A.T)[:, None, :] + w_sol @ spec.B_cont.T
                     + cand @ spec.B_bin.T
-                    + (spec.B4 @ w_k)[None, :] + spec.b5[None, :])
+                    + (w_k @ spec.B4.T)[:, None, :] + spec.b5)
         la = (((x_next_c @ spec.Qx_la) * x_next_c).sum(-1)
               + x_next_c @ spec.qx_la)
         total = torch.where(feas, cont_obj + bin_cost + la, BIG)
-        j = torch.argmin(total)
-        wk, ck = w_sol[j], cand[j]
-        v = torch.zeros(nv, device=dev)
-        v[spec.cont_idx] = wk
-        v[spec.bin_idx] = ck
-        x = (spec.A @ x + spec.B_cont @ wk + spec.B_bin @ ck
-             + spec.B4 @ w_k + spec.b5)
+        j = first_arg(total, dim=1, largest=False)   # first min, as argmin
+        wk, ck = w_sol[inst, j], cand[j]
+        v = torch.zeros((B, nv), device=dev)
+        v[:, spec.cont_idx] = wk
+        v[:, spec.bin_idx] = ck
+        x = (x @ spec.A.T + wk @ spec.B_cont.T + ck @ spec.B_bin.T
+             + w_k @ spec.B4.T + spec.b5)
         vs.append(v)
-        oks.append(feas[j])
-    return torch.stack(vs), torch.stack(oks).all()
+        oks.append(feas[inst, j])
+    v_seq, ok = torch.stack(vs, dim=1), torch.stack(oks, dim=1).all(dim=1)
+    return (v_seq[0], ok[0]) if single else (v_seq, ok)
 
 
 def root_repair_incumbent(admm, qp, rspec: RepairSpec, x0, f, h,
                           W=None, price_seq=None, qp_iters: int = 150,
                           feas_tol: float = 1e-3, stage_iters: int = 150):
     """Root relaxation + greedy repair → B&B incumbent seed
-    ``(obj, V, ok)``; the decision V is the full per-step v sequence."""
+    ``(obj, V, ok)``; the decision V is the full per-step v sequence.
+    x0, f, h (and W) may carry a leading batch dimension: the seeds of B
+    instances at once."""
     relax = admm_solve(admm, f, h, qp.lb, qp.ub, iters=qp_iters)
-    v_seq_rel = qp.full_v(relax.x)                      # (N, nv)
-    u_ref = v_seq_rel[:, rspec.cont_idx]
+    v_seq_rel = qp.full_v(relax.x)                      # (..., N, nv)
+    u_ref = v_seq_rel[..., rspec.cont_idx]
     v_seq, ok = repair_sequence(rspec, x0, u_ref, W=W, price_seq=price_seq,
                                 qp_iters=stage_iters, feas_tol=feas_tol)
-    V = v_seq.reshape(-1)
+    V = v_seq.reshape(v_seq.shape[:-2] + (-1,))
     # validate against the FULL constraint system
-    resid = (qp.G @ V - h).max()
+    resid = (V @ qp.G.T - h).amax(dim=-1)
     ok = ok & (resid <= feas_tol)
-    obj = 0.5 * torch.dot(V, qp.H @ V) + torch.sum(f * V)
+    obj = 0.5 * (V * (V @ qp.H.T)).sum(-1) + (f * V).sum(-1)
     return obj, V, ok

@@ -36,7 +36,7 @@ def prob():
     fv = (rng.uniform(size=(B, len(bidx))) < 0.5).astype(np.float32)
     lb[:, bidx] = np.where(fm, fv, 0.0)
     ub[:, bidx] = np.where(fm, fv, 1.0)
-    return dict(js=js, ts=convert.box_qp(js), bidx=bidx,
+    return dict(js=js, ts=convert.box_qp(js, "cpu"), bidx=bidx,
                 data=(f, h, lb, ub))
 
 
@@ -133,7 +133,7 @@ def test_infeasibility_certificate_matches_reference(rng):
     n, B = 8, 16
     G = np.vstack([np.eye(n)[:1], -np.eye(n)[:1]])
     js = jadmm.prepare_admm(G, np.eye(n))
-    ts = convert.box_qp(js)
+    ts = convert.box_qp(js, "cpu")
     q = rng.normal(size=(B, n)).astype(np.float32)
     h = np.tile(np.float32([1.0, 2.0]), (B, 1))
     h[0] = [1.0, -2.0]

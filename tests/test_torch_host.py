@@ -58,7 +58,7 @@ def test_condensed_mpc_matches_reference(N):
 @pytest.mark.parametrize("N", [4, 8])
 def test_device_qp_matches_reference(N):
     jc, tc = _pair(N)
-    jq, tq = jc.device_qp(), tc.device_qp()
+    jq, tq = jc.device_qp(), tc.device_qp("cpu")
     for k, v in convert.to_numpy(tq).items():
         _exact(v, getattr(jq, k), k)       # fp32 after the cast: exact
     assert tq.binary_idx == jq.binary_idx
@@ -69,7 +69,7 @@ def test_device_qp_matches_reference(N):
 @pytest.mark.parametrize("rho", [1.0, 10.0])
 def test_prepare_admm_matches_reference(rho):
     jc, tc = _pair(6)
-    js, ts = j_prepare(jc, rho=rho), t_prepare(tc, rho=rho)
+    js, ts = j_prepare(jc, rho=rho), t_prepare(tc, rho=rho, device="cpu")
     for k, v in convert.to_numpy(ts).items():
         _exact(v, getattr(js, k), k)
     assert (ts.rho, ts.sigma, ts.alpha, ts.m_ineq) == (
@@ -80,7 +80,7 @@ def test_prepare_admm_matches_reference(rho):
 def test_prepare_kernel_qp_matches_prepare_pallas(rho):
     jc, tc = _pair(6)
     pq = prepare_pallas(j_prepare(jc, rho=rho))
-    kq = prepare_kernel_qp(t_prepare(tc, rho=rho))
+    kq = prepare_kernel_qp(t_prepare(tc, rho=rho, device="cpu"))
     assert (kq.n_pad, kq.m_pad) == (pq.n_pad, pq.m_pad)
     for k, v in convert.to_numpy(kq).items():
         ref = np.asarray(getattr(pq, k))
@@ -90,7 +90,7 @@ def test_prepare_kernel_qp_matches_prepare_pallas(rho):
 
 def test_prepare_kernel_qp_requires_diagonal_box():
     _, tc = _pair(4)
-    spec = t_prepare(tc)
+    spec = t_prepare(tc, device="cpu")
     spec.A[spec.m_ineq, 1] = 0.5          # box row 0 no longer diagonal
     with pytest.raises(ValueError, match="diagonal"):
         prepare_kernel_qp(spec)
@@ -98,7 +98,7 @@ def test_prepare_kernel_qp_requires_diagonal_box():
 
 def test_assemble_and_full_v_match_reference(rng):
     jc, tc = _pair(6)
-    jq, tq = jc.device_qp(), tc.device_qp()
+    jq, tq = jc.device_qp(), tc.device_qp("cpu")
     x0s = rng.normal(size=(16, 2)).astype(np.float32)
     jf, jh = jax.vmap(jq.assemble)(jnp.asarray(x0s))
     tf, th = tq.assemble(torch.as_tensor(x0s))
@@ -149,8 +149,8 @@ def test_convert_round_trip(rng):
     js = j_prepare(jc)
     jq = jc.device_qp()
     pq = prepare_pallas(js)
-    ts = convert.box_qp(js)
-    tq = convert.device_qp(jq)
+    ts = convert.box_qp(js, "cpu")
+    tq = convert.device_qp(jq, "cpu")
     kq = convert.kernel_qp(pq, ts)
     for obj, ref in ((ts, js), (tq, jq)):
         for k, v in convert.to_numpy(obj).items():
@@ -158,7 +158,7 @@ def test_convert_round_trip(rng):
     for k, v in convert.to_numpy(kq).items():
         _exact(v, np.asarray(getattr(pq, k)).reshape(v.shape), k)
     assert tq.info == tc.info and tq.binary_idx == jq.binary_idx
-    own = t_prepare(tc)
+    own = t_prepare(tc, device="cpu")
     for k, v in convert.to_numpy(own).items():
         _exact(v, convert.to_numpy(ts)[k], k)
     own_kq = prepare_kernel_qp(own)

@@ -47,7 +47,7 @@ def prob():
     fv = (rng.uniform(size=(B, len(bidx))) < 0.5).astype(np.float32)
     lb[:, bidx] = np.where(fm, fv, 0.0)
     ub[:, bidx] = np.where(fm, fv, 1.0)
-    ts, ts2 = convert.box_qp(js), convert.box_qp(js2)
+    ts, ts2 = convert.box_qp(js, "cpu"), convert.box_qp(js2, "cpu")
     return dict(js=js, js2=js2, ts=ts, ts2=ts2, bidx=tuple(bidx),
                 pq=pallas_for(js), pq2=pallas_for(js2),
                 kq=convert.kernel_qp(pallas_for(js), ts),
@@ -111,7 +111,7 @@ def test_plain_k1_infeasibility_certificate(rng):
     n = 8
     js = prepare_admm(np.vstack([np.eye(n)[:1], -np.eye(n)[:1]]),
                       np.eye(n))
-    ts = convert.box_qp(js)
+    ts = convert.box_qp(js, "cpu")
     q = rng.normal(size=(B, n)).astype(np.float32)
     h = np.tile(np.float32([1.0, 2.0]), (B, 1))
     h[0] = [1.0, -2.0]
@@ -190,8 +190,135 @@ def test_dispatch_follows_the_device(prob, monkeypatch):
 def test_probe_prep_must_share_the_ruiz_frame(prob):
     from pyhybridcontrol_tpu_torch.ops.admm import prepare_admm as tprep
 
-    other = tprep(np.eye(prob["ts"].n)[:3] * 7.0, np.eye(prob["ts"].n))
+    other = tprep(np.eye(prob["ts"].n)[:3] * 7.0, np.eye(prob["ts"].n),
+                  device="cpu")
     # checked once, where the B&B backend pairs the two preps
     with pytest.raises(ValueError, match="Ruiz frame"):
         CondensedBackend(prob["ts"], None, other)
     CondensedBackend(prob["ts"], None, prob["ts2"])
+
+
+# ---- K1's split-precision phase (low_frac) -------------------------------
+
+
+@pytest.fixture(scope="module")
+def prob12():
+    """The shape of the reference's own mixed-precision test
+    (tests/test_pallas_admm.py): N=12, B=128, 120 iterations, root boxes.
+    nr=40 and mGp=120 here, so the 16 grain pads both (48, 128)."""
+    rng = np.random.default_rng(3)
+    c = JCondensed(jdi.switched_double_integrator(), 12,
+                   jdi.default_weights())
+    jq, js = c.device_qp(), prepare_admm_mpc(c)
+    x0s = rng.normal(size=(B, 2)).astype(np.float32)
+    f, h = (np.array(a) for a in jax.vmap(jq.assemble)(jnp.asarray(x0s)))
+    lb = np.tile(np.asarray(jq.lb), (B, 1))
+    ub = np.tile(np.asarray(jq.ub), (B, 1))
+    pq = pallas_for(js)
+    return dict(pq=pq, kq=convert.kernel_qp(pq, convert.box_qp(js, "cpu")),
+                data=(f, h, lb, ub))
+
+
+@pytest.fixture(scope="module")
+def full12(prob12):
+    jd = tuple(map(jnp.asarray, prob12["data"]))
+    return np.array(admm_solve_pallas(prob12["pq"], *jd, iters=120,
+                                      interpret=True).obj)
+
+
+@pytest.mark.parametrize("low_frac", [0.8, 1.0])
+def test_plain_k1_mixed_matches_pallas_interpret(prob12, full12, low_frac):
+    """admm_solve_plain(low_frac=) against the Pallas kernel's iters_lo
+    phase in interpret mode: both split operands into bf16 hi/lo pairs
+    and accumulate three exact products in fp32, so they differ by
+    summation order only (obj rtol=atol=1e-4); and each tracks the
+    full-precision kernel to the reference's own 2e-3."""
+    jd = tuple(map(jnp.asarray, prob12["data"]))
+    td = tuple(map(torch.as_tensor, prob12["data"]))
+    ref = admm_solve_pallas(prob12["pq"], *jd, iters=120, interpret=True,
+                            low_frac=low_frac)
+    port = ca.admm_solve_plain(prob12["kq"], *td, iters=120,
+                               low_frac=low_frac)
+    np.testing.assert_allclose(port.obj.numpy(), np.asarray(ref.obj),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(port.x.numpy(), np.asarray(ref.x), atol=5e-3)
+    np.testing.assert_array_equal(port.infeas_cert.numpy(),
+                                  np.asarray(ref.infeas_cert))
+    np.testing.assert_allclose(port.obj.numpy(), full12, rtol=2e-3,
+                               atol=2e-3)
+    np.testing.assert_allclose(np.asarray(ref.obj), full12, rtol=2e-3,
+                               atol=2e-3)
+    # bench.py's gate on the headline configuration: max relative
+    # objective delta against full precision ≤ 1e-4
+    rel = np.abs(port.obj.numpy() - full12) / np.maximum(1.0, np.abs(full12))
+    assert rel.max() <= 1e-4
+
+
+@pytest.mark.parametrize("low_frac,warm", [(0.8, False), (1.0, False),
+                                           (0.5, True)])
+def test_zero_padding_to_16_changes_no_output(prob12, low_frac, warm):
+    """The tensor-core tiles want nr and mGp in multiples of 16; the
+    padded rows and columns are zero and inert: every output field of the
+    mixed solve is the same on the 8-padded and the 16-padded prep (fp32
+    rounding of another summation length, 1e-6)."""
+    kq = prob12["kq"]
+    kq16 = ca.pad_kernel_qp(kq)
+    assert (kq.n_pad, kq.m_pad) == (40, 120)
+    assert (kq16.n_pad, kq16.m_pad) == (48, 128)
+    assert ca.pad_kernel_qp(kq) is kq16 and ca.pad_kernel_qp(kq16) is kq16
+    assert kq16.M.shape == (128 + 48, 48) and kq16.AGT.shape == (48, 128)
+    assert torch.equal(kq16.M[128:128 + 40, :40], kq.M[120:])
+    assert not kq16.M[120:128].any() and not kq16.AGT[40:].any()
+    td = tuple(map(torch.as_tensor, prob12["data"]))
+    w = None
+    if warm:
+        r0 = ca.admm_solve_plain(kq, *td, iters=20)
+        w = (r0.x, r0.z, r0.y)
+    iters_lo = int(120 * low_frac)
+    a = ca._solve_plain(kq, *td, 120, iters_lo, w)
+    b = ca._solve_plain(kq16, *td, 120, iters_lo, w)
+    c = ca.admm_solve_plain(kq, *td, iters=120, warm=w, low_frac=low_frac)
+    for k in FIELDS:
+        ga, gb, gc = (getattr(r, k) for r in (a, b, c))
+        assert ga.shape == gb.shape
+        if k == "infeas_cert":
+            assert torch.equal(ga, gb)
+        else:
+            np.testing.assert_allclose(gb.numpy(), ga.numpy(), rtol=1e-6,
+                                       atol=1e-6, err_msg=k)
+        assert torch.equal(gb, gc)       # the public call pads by itself
+
+
+def test_mixed_split_and_low_frac_rules(prob12, rng):
+    """hi/lo split as the reference's _bf16_split; iters_lo =
+    int(iters·low_frac); low_frac=0 is the full-precision path; bad
+    fractions raise."""
+    from pyhybridcontrol_tpu.ops.pallas_admm import _bf16_split
+
+    a = rng.normal(size=(64, 7)).astype(np.float32) * 37.0
+    hi, lo = ca._bf16_split(torch.as_tensor(a))
+    jhi, jlo = _bf16_split(jnp.asarray(a))
+    np.testing.assert_array_equal(hi.numpy(),
+                                  np.asarray(jhi.astype(jnp.float32)))
+    np.testing.assert_array_equal(lo.numpy(),
+                                  np.asarray(jlo.astype(jnp.float32)))
+    assert float((hi + lo - torch.as_tensor(a)).abs().max()) <= \
+        2.0 ** -16 * np.abs(a).max()
+    kq = prob12["kq"]
+    assert ca._split_iters(kq, 120, 0.8)[1] == 96
+    assert ca._split_iters(kq, 7, 0.5)[1] == 3
+    assert ca._split_iters(kq, 120, 0.0) == (kq, 0)
+    td = tuple(t[:4] for t in map(torch.as_tensor, prob12["data"]))
+    full = ca.admm_solve_plain(kq, *td, iters=30)
+    assert torch.equal(ca.admm_solve_plain(kq, *td, iters=30,
+                                           low_frac=0.0).obj, full.obj)
+    assert not torch.equal(ca.admm_solve_plain(kq, *td, iters=30,
+                                               low_frac=1.0).x, full.x)
+    for bad in (-0.1, 1.5):
+        with pytest.raises(ValueError, match="low_frac"):
+            ca.admm_solve_plain(kq, *td, iters=30, low_frac=bad)
+    # the B&B entry points keep the option off their path
+    import inspect
+
+    for fn in (ca.admm_solve_auto, ca.admm_wave_auto, ca.admm_wave_plain):
+        assert "low_frac" not in inspect.signature(fn).parameters

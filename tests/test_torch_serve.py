@@ -49,8 +49,9 @@ def test_serve_loop_cpu():
         assert abs(resp["obj"] - (-50.6868)) <= 1e-3
         assert np.isfinite(resp["gap"]) and resp["ms"] > 0
         assert "error" in ask("this is not json")
-        batched = ask(json.dumps({"x": [[1.0, -0.5], [0.2, 0.7]]}))
-        assert "pooled engine" in batched["error"]
+        batched = ask(json.dumps({"x": [[1.0, -0.5], [12.0, 0.0]]}))
+        assert batched["batch"] == 2 and batched["found"] == [True, False]
+        assert len(batched["u"]) == 2 and len(batched["obj"]) == 2
         assert "error" in ask(json.dumps({"x": [1.0, 2.0, 3.0]}))
         assert ask(json.dumps({"x": [12.0, 0.0]}))["found"] is False
         proc.stdin.write('{"cmd": "quit"}\n')
@@ -85,7 +86,7 @@ from pyhybridcontrol_tpu_torch.control.mpc import MpcController
 from pyhybridcontrol_tpu_torch.models import (
     di_default_weights, switched_double_integrator)
 r = MpcController(switched_double_integrator(), 4, di_default_weights(),
-                  qp_iters=200).feedback([2.0, 0.0])
+                  qp_iters=200, device="cpu").feedback([2.0, 0.0])
 assert bool(r.found)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib",
@@ -136,7 +137,7 @@ def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
     """No nvcc → a clear error, never a silent CPU fallback."""
     from pyhybridcontrol_tpu_torch.ops import _build
 
-    monkeypatch.setattr(_build, "_LIB", None)
+    monkeypatch.setattr(_build, "_LIBS", {})
     monkeypatch.setattr(_build, "DEFAULT_CUDA_HOMES", (str(tmp_path),))
     for var in ("CUDA_HOME", "CUDA_PATH"):
         monkeypatch.delenv(var, raising=False)

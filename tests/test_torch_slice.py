@@ -36,7 +36,7 @@ def ctrls():
                      qp_iters=SPEC["qp_iters"])
     tc = MpcController(tdi.switched_double_integrator(), N,
                        tdi.default_weights(), bnb_spec=BnbSpec(**SPEC),
-                       qp_iters=SPEC["qp_iters"])
+                       qp_iters=SPEC["qp_iters"], device="cpu")
     jc.feedback(jnp.zeros(2))      # compile the reference once per module
     return jc, tc
 
@@ -73,7 +73,7 @@ def test_verify_golden_n8():
     """N=8, x0=[2,0]: obj ≈ −42.6865, gear bits [1,1,1,1,0,0,0,0]."""
     tc = MpcController(tdi.switched_double_integrator(), 8,
                        tdi.default_weights(), bnb_spec=BnbSpec(**SPEC),
-                       qp_iters=SPEC["qp_iters"])
+                       qp_iters=SPEC["qp_iters"], device="cpu")
     r = tc.feedback([2.0, 0.0])
     assert bool(r.found)
     assert abs(float(r.obj) - (-42.6865)) <= 1e-3
@@ -81,7 +81,7 @@ def test_verify_golden_n8():
     assert bits.tolist() == [1, 1, 1, 1, 0, 0, 0, 0]
     e = MpcController(tdi.switched_double_integrator(), 8,
                       tdi.default_weights(), solver="enumerate",
-                      qp_iters=600).feedback([2.0, 0.0])
+                      qp_iters=600, device="cpu").feedback([2.0, 0.0])
     assert abs(float(e.obj) - float(r.obj)) <= 1e-3
     assert int(e.nodes) == 2 ** 8 and float(e.gap) == 0.0
 
@@ -98,7 +98,7 @@ def test_enumerate_matches_reference():
     c = CondensedMpc(jdi.switched_double_integrator(), 5,
                      jdi.default_weights())
     jq, js = c.device_qp(), prepare_admm_mpc(c)
-    tq, ts = convert.device_qp(jq), convert.box_qp(js)
+    tq, ts = convert.device_qp(jq, "cpu"), convert.box_qp(js, "cpu")
     x0 = np.float32([-2.5, 0.7])
     jf, jh = jq.assemble(jnp.asarray(x0))
     tf, th = tq.assemble(torch.as_tensor(x0))
@@ -112,25 +112,38 @@ def test_enumerate_matches_reference():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(probe_patience=2), dict(sb_iters=10), dict(sb_fix=True),
-    dict(dive_slots=4), dict(root_iters=800), dict(pool_norm="relgap"),
-    dict(branching="most_frac"), dict(presolve_fix=False),
-    dict(warm_start=False), dict(rel_gap=0.01), dict(depth_tiebreak=1e-3)])
+    dict(sb_iters=10), dict(sb_fix=True), dict(dive_slots=4),
+    dict(branching="flipdelta"), dict(depth_tiebreak=1e-3)])
 def test_unported_bnb_options_raise(kw):
-    """Options config 1 does not use are refused, never ignored."""
+    """Options the port has not got are refused, never ignored."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BnbSpec(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(probe_patience=2), dict(root_iters=800), dict(pool_norm="relgap"),
+    dict(branching="most_frac"), dict(presolve_fix=False),
+    dict(warm_start=False), dict(rel_gap=0.01)])
+def test_ported_bnb_options_are_accepted(kw):
+    """The options the pooled engine and its tests use construct, with the
+    reference's validation (tests/test_torch_pooled.py runs each)."""
+    spec = BnbSpec(**kw)
+    assert all(getattr(spec, k) == v for k, v in kw.items())
+    for bad in (dict(rel_gap=-1.0), dict(probe_patience=-1),
+                dict(pool_norm="x"), dict(branching="x")):
+        with pytest.raises(ValueError):
+            BnbSpec(**bad)
 
 
 def test_unported_paths_raise():
     with pytest.raises(ValueError):
         BnbSpec(wave_size=600, capacity=512)
     tc = MpcController(tdi.switched_double_integrator(), 4,
-                       tdi.default_weights())
+                       tdi.default_weights(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.feedback_batch(np.zeros((2, 2)))
+        tc.feedback_batch(np.zeros((2, 2)), engine="vmap")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tc.set_soft_constraints([0])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MpcController(tdi.switched_double_integrator(), 4,
-                      solver="stagewise")
+                      solver="stagewise", device="cpu")
