@@ -104,15 +104,13 @@ def build_libraries() -> dict:
 
 
 def _bind_admm(lib):
-    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.phc_admm_smem_bytes.argtypes = [I, I, I, I]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.phc_admm_smem_bytes.argtypes = [I, I, I]      # nr, mGp, tile width
     lib.phc_admm_smem_bytes.restype = I
-    # q lG uG lB uB z0G y0G z0B y0B AG MT P vec | x zG yG zB yB st
-    lib.phc_admm_k1.argtypes = [P] * 19 + [I, I, I, I, Fl, Fl, P]
-    lib.phc_admm_k1.restype = I
-    # … vec binm MT2 vec2 | 12 outputs
-    lib.phc_admm_k2.argtypes = ([P] * 28 + [I, I, I, I, I, I, Fl, Fl, Fl, P])
-    lib.phc_admm_k2.restype = I
+    # struct Args (ops/cuda_admm.py mirrors it), tile width, threads, stream
+    for fn in (lib.phc_admm_k1, lib.phc_admm_k2):
+        fn.argtypes = [P, I, I, P]
+        fn.restype = I
 
 
 def _bind_admm_mixed(lib):

@@ -27,6 +27,15 @@ the plain torch version, a CUDA tensor launches the kernel or raises.
 There is no batch-size gate and no fallback. Each kernel wrapper counts
 its launches in ``LAUNCHES`` (and their batch sizes in ``LAUNCH_BATCHES``).
 
+On the card K1 and K2 give each thread block a tile of 8, 4 or 1 problems:
+``plan`` picks the instantiation (tile, threads, shared memory) from the
+batch size and the padded shape alone, every batch size goes through the
+kernel (the ragged last tile is masked there), and a shape whose constants
+fit no tile raises. The kernels pack and unpack themselves: they read q, h,
+lb, ub in original units (any row stride, so an expanded row is read in
+place) and warm iterates in the public (B, m+n) layout, and write x, z, y
+in that layout; the wrapper checks, allocates once and launches.
+
 K1's split-precision option (``low_frac``, the reference's ``iters_lo``
 phase): the first ``int(iters * low_frac)`` iterations take each product
 as the manual 3-pass bf16 product  A·b ≈ Ahi·bhi + Ahi·blo + Alo·bhi
@@ -40,9 +49,10 @@ version and kernel alike) runs on a copy of the prep zero-padded from the
 ``low_frac`` stays off the B&B path, as in the reference.
 
 The plain versions keep the reference's public layout — q (B,n), h (B,m),
-lb/ub (B,n) in, ``AdmmResult`` out — and iterate on the same padded
-batch-first arrays the kernels read, so the two compare like with like. Stats reductions accumulate in float64
-in both.
+lb/ub (B,n) in, ``AdmmResult`` out — and iterate on padded batch-first
+arrays made by ``_pack`` with the same single multiplications the kernels
+apply, so the two compare like with like. Stats reductions accumulate in
+float64 in both.
 """
 
 from __future__ import annotations
@@ -249,11 +259,6 @@ def _result(kq: KernelQP, x, zG, yG, zB, yB, obj, r_prim, r_rel, r_dual,
         z=torch.cat([zG[:, :m], zB[:, :n]], dim=-1))
 
 
-def _result_from_stats(kq, x, zG, yG, zB, yB, st) -> AdmmResult:
-    return _result(kq, x, zG, yG, zB, yB, st[:, 0], st[:, 1], st[:, 2],
-                   st[:, 3], st[:, 4] > 0.5)
-
-
 # ---- plain torch versions of K1 and K2 -----------------------------------
 
 
@@ -450,28 +455,133 @@ def admm_wave_plain(kq: KernelQP, kq2: Optional[KernelQP], binary_idx,
 
 # ---- CUDA launches -------------------------------------------------------
 
+# What the kernels' launch plan reckons with (csrc/admm.cu has the same
+# figures): an H100 has 132 SMs; a block is a tile of PB problems and 8 to
+# MAX_WARPS[PB] warps; a warp task of product A (t = Â_Gᵀw) and B (ẑ = M t)
+# covers ROWS_PER_TASK output rows.
+SM_COUNT = 132
+TILES = (8, 4, 1)
+ROWS_PER_TASK = (4, 16)
+MAX_WARPS = {8: 18, 4: 12, 1: 12}
+_RED = 16            # floats of reduction workspace per warp and problem
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """Instantiation of K1/K2 for one batch: problems per block, threads
+    per block and dynamic shared memory (bytes) per block."""
+
+    pb: int
+    threads: int
+    smem: int
+
+    @property
+    def warps(self) -> int:
+        return self.threads // 32
+
+
+def _strides(nr: int, mGp: int):
+    """Row strides (floats) of Â_G and Mᵀ in shared memory: padded so that
+    the lane groups of a warp, which read rows one apart, hit different
+    banks (Â_G: ≡ 4 mod 8; Mᵀ: ≡ 16 mod 32)."""
+    R = mGp + nr
+    return nr + 4, R + (48 - R % 32) % 32
+
+
+def smem_bytes(nr: int, mGp: int, pb: int) -> int:
+    """Shared memory one block of K1 or K2 needs with a tile of ``pb``
+    problems (``phc_admm_smem_bytes`` of the library gives the same):
+    Â_G and Mᵀ with padded row strides, 3 per-row vectors, and per problem
+    6 arrays of R rows, 6 of nr and the reduction workspace. K2 takes no
+    more than K1: M2ᵀ is staged over Mᵀ for the stiff phase."""
+    R = mGp + nr
+    stride_a, stride_m = _strides(nr, mGp)
+    return 4 * (mGp * stride_a + nr * stride_m + 3 * R + 2 * nr
+                + pb * (6 * R + 6 * nr + _RED * MAX_WARPS[pb]))
+
+
+def _warps(nr: int, mGp: int, pb: int) -> int:
+    """Warps per block: the count from 8 to ``MAX_WARPS[pb]`` that leaves
+    the fewest warps idle in the worse of the two products (fewest warps
+    on a tie)."""
+    rows_a, rows_b = ROWS_PER_TASK
+
+    def busy(nw):
+        share = []
+        for rows, per in ((nr, rows_a), (mGp + nr, rows_b)):
+            tasks = -(-rows // per)
+            rounds = -(-tasks // nw)
+            share.append(rows / per / (rounds * nw))
+        return min(share)
+    return max(range(8, MAX_WARPS[pb] + 1), key=lambda nw: (busy(nw), -nw))
+
+
+def plan(B: int, nr: int, mGp: int, pb: Optional[int] = None) -> LaunchPlan:
+    """The instantiation K1 and K2 run a batch of ``B`` problems with, from
+    the shapes alone: the largest tile in ``TILES`` that fits a block's
+    shared memory and still leaves about two blocks for every SM (a tile
+    of 1 where no larger one does). ``pb`` asks for one tile width. Raises
+    ValueError where nothing fits: there is no other path."""
+    if B < 1:
+        raise ValueError("ADMM kernel: empty batch")
+    if pb is not None and pb not in TILES:
+        raise ValueError(f"ADMM kernel: no instantiation with a tile of "
+                         f"{pb} problems (have {TILES})")
+    for t in (TILES if pb is None else (pb,)):
+        smem = smem_bytes(nr, mGp, t)
+        if smem > SMEM_MAX:
+            continue
+        if pb is None and t > 1 and -(-B // t) < 1.9 * SM_COUNT:
+            continue
+        return LaunchPlan(pb=t, threads=32 * _warps(nr, mGp, t), smem=smem)
+    need = smem_bytes(nr, mGp, pb or 1)
+    raise ValueError(
+        f"ADMM kernel: nr={nr}, mGp={mGp} needs {need} bytes of shared "
+        f"memory per block, above the {SMEM_MAX} an sm_90 block has")
+
+
+class _Args(ctypes.Structure):
+    """``struct PhcAdmmArgs`` of csrc/admm.cu, field by field."""
+
+    _fields_ = (
+        [(k, ctypes.c_void_p) for k in (
+            "q", "h", "lb", "ub", "z0G", "y0G", "z0B", "y0B", "AG", "MT",
+            "PT", "vec", "io", "binm", "MT2", "vec2", "x", "z", "y", "st",
+            "xp", "zp", "yp", "stp")]
+        + [(k, ctypes.c_int) for k in (
+            "sq", "sh", "slb", "sub", "sz0G", "sy0G", "sz0B", "sy0B", "B",
+            "n", "m", "nr", "mGp", "iters", "p1", "p2")]
+        + [(k, ctypes.c_float) for k in ("alpha", "alpha2", "cinv")])
+
 
 def _layout(kq: KernelQP):
-    """Device constants in the kernels' layout: Â_G as (mGp, nr) and Mᵀ
-    as (nr, mGp+nr), so neighbouring threads read neighbouring words, and
-    the per-row vectors packed as [d_box, 1/d_box, ρ_B, 1/ρ_B, 1/E_B,
-    1/(D·c) | ρ_G, 1/ρ_G, 1/E_G]."""
+    """Device constants in the kernels' layout: Â_G as (mGp, nr), Mᵀ as
+    (nr, mGp+nr) and P̂ᵀ, so neighbouring threads read neighbouring words;
+    the per-row vectors packed as ``vec`` = [d_box, 1/d_box, ρ_B, 1/ρ_B,
+    1/E_B, 1/(D·c) | ρ_G, 1/ρ_G, 1/E_G]; and what packing needs, ``io`` =
+    [c·D, E_B, D | E_G], zero in the padding (the same single products as
+    ``_pack`` and ``_result``)."""
     lay = kq.cache.get("layout")
     if lay is None:
+        spec = kq.base
+        n, m = spec.n, spec.m_ineq
         vec = torch.cat([kq.dbox, kq.dbox_inv, kq.rhoB, kq.rhoB_inv,
                          kq.EB_inv, kq.Dc_inv, kq.rhoG, kq.rhoG_inv,
                          kq.EG_inv]).contiguous()
+        io = torch.cat([F.pad(spec.cost_scale * spec.D, (0, kq.n_pad - n)),
+                        F.pad(spec.E[m:], (0, kq.n_pad - n)),
+                        F.pad(spec.D, (0, kq.n_pad - n)),
+                        F.pad(spec.E[:m], (0, kq.m_pad - m))]
+                       ).float().contiguous()
         lay = kq.cache["layout"] = dict(
             AG=kq.AGT.T.contiguous(), MT=kq.M.T.contiguous(),
-            P=kq.P.contiguous(), vec=vec, cinv=float(kq.cinv))
+            PT=kq.P.T.contiguous(), vec=vec, io=io, cinv=float(kq.cinv))
     return lay
 
 
-def _ptr(t):
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-
 def _check(name, t, shape):
+    """A float32 CUDA tensor of ``shape`` whose rows are contiguous (any
+    row stride: an expanded row is read in place). Returns the row stride."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != torch.float32:
@@ -479,35 +589,13 @@ def _check(name, t, shape):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.stride(-1) != 1 and t.shape[-1] > 1:
+        raise ValueError(f"{name}: expected contiguous rows")
+    return t.stride(0) if t.ndim == 2 and t.shape[0] > 1 else 0
 
 
-def _check_launch(what: str, smem: int, kq, B, warm4, args):
-    """Raise on what a kernel does not take: an empty batch, a shape whose
-    constants do not fit in a block's shared memory (``smem`` bytes), or
-    inputs that are not contiguous float32 CUDA tensors of the padded
-    shapes."""
-    nr, mGp = kq.n_pad, kq.m_pad
-    if B < 1:
-        raise ValueError(f"{what}: empty batch")
-    if smem > SMEM_MAX:
-        raise ValueError(
-            f"{what}: nr={nr}, mGp={mGp} needs {smem} bytes of shared "
-            f"memory per block, above the {SMEM_MAX} an sm_90 block has")
-    names = ("q", "lG", "uG", "lB", "uB")
-    for name, t, rows in zip(names, args, (nr, mGp, mGp, nr, nr)):
-        _check(name, t, (B, rows))
-    if warm4 is not None:
-        for name, t, rows in zip(("z0G", "y0G", "z0B", "y0B"), warm4,
-                                 (mGp, mGp, nr, nr)):
-            _check(name, t, (B, rows))
-
-
-def _outputs(kq, B, like):
-    nr, mGp = kq.n_pad, kq.m_pad
-    return [torch.empty((B, r), dtype=torch.float32, device=like.device)
-            for r in (nr, mGp, mGp, nr, nr, 8)]
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _raise_on(lib, rc, what):
@@ -516,54 +604,75 @@ def _raise_on(lib, rc, what):
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def _launch_k1(kq: KernelQP, qs, lG, uG, lB, uB, warm4, iters: int):
+def _warm_views(kq: KernelQP, warm):
+    """The four warm arrays (z_G, y_G, z_B, y_B) as the kernels read them.
+    ``warm`` is (x, z, y) of a previous result in the public (B, m+n)
+    layout, or the four padded arrays of the split-precision phase."""
+    if warm is None:
+        return None
+    if len(warm) == 4:
+        return warm
+    m, mt = kq.base.m_ineq, kq.base.m_total
+    _, z0, y0 = warm
+    return z0[:, :m], y0[:, :m], z0[:, m:mt], y0[:, m:mt]
+
+
+def _launch(name: str, kq: KernelQP, kq2: Optional[KernelQP], binmask,
+            q, h, lb, ub, warm, iters: int, p1: int, p2: int,
+            pb: Optional[int]):
+    """Check the inputs, allocate the outputs, launch K1 (``name`` =
+    "admm_k1") or K2 once. Returns one AdmmResult per stats block."""
     from pyhybridcontrol_tpu_torch.ops._build import load_library
 
-    lib = load_library()
-    B = qs.shape[0]
-    smem = lib.phc_admm_smem_bytes(kq.n_pad, kq.m_pad, 0, 0)
-    _check_launch("ADMM kernel", smem, kq, B, warm4, (qs, lG, uG, lB, uB))
+    spec = kq.base
+    n, m, mt = spec.n, spec.m_ineq, spec.m_total
+    B = q.shape[0]
+    pl = plan(B, kq.n_pad, kq.m_pad, pb)
+    a = _Args()
+    for k, t, cols in (("q", q, n), ("h", h, m), ("lb", lb, n),
+                       ("ub", ub, n)):
+        setattr(a, "s" + k, _check(k, t, (B, cols)))
+        setattr(a, k, t.data_ptr())
+    w4 = _warm_views(kq, warm)
+    if w4 is not None:
+        for k, t in zip(("z0G", "y0G", "z0B", "y0B"), w4):
+            rows = t.shape[1]
+            if rows < (m if k.endswith("G") else n):
+                raise ValueError(f"{k}: {rows} columns, need at least "
+                                 f"{m if k.endswith('G') else n}")
+            setattr(a, "s" + k, _check(k, t, (B, rows)))
+            setattr(a, k, t.data_ptr())
     lay = _layout(kq)
-    outs = _outputs(kq, B, qs)
-    w = warm4 if warm4 is not None else (None,) * 4
-    with torch.cuda.device(qs.device):
-        stream = torch.cuda.current_stream(qs.device).cuda_stream
-        rc = lib.phc_admm_k1(
-            *map(_ptr, (qs, lG, uG, lB, uB, *w, lay["AG"], lay["MT"],
-                        lay["P"], lay["vec"], *outs)),
-            B, kq.n_pad, kq.m_pad, int(iters), kq.base.alpha, lay["cinv"],
-            ctypes.c_void_p(stream))
-    _raise_on(lib, rc, "K1 (admm_k1)")
-    _count_launch("admm_k1", B)
-    return outs
-
-
-def _launch_k2(kq: KernelQP, kq2: Optional[KernelQP], binmask, qs, lG, uG,
-               lB, uB, warm4, iters: int, probe_iters: int):
-    from pyhybridcontrol_tpu_torch.ops._build import load_library
-
+    for k in ("AG", "MT", "PT", "vec", "io"):
+        setattr(a, k, lay[k].data_ptr())
+    wave = name == "admm_k2"
+    if wave:
+        _check("binmask", binmask, (kq.n_pad,))
+        lay2 = _layout(kq2) if kq2 is not None else lay
+        a.binm, a.MT2, a.vec2 = (binmask.data_ptr(), lay2["MT"].data_ptr(),
+                                 lay2["vec"].data_ptr())
+        a.alpha2 = (kq2 if kq2 is not None else kq).base.alpha
+    # one allocation, cut into x (B,n), z, y (B,m+n) and stats (B,8) per
+    # stats block
+    sizes = (B * n, B * mt, B * mt, B * 8) * (2 if wave else 1)
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=q.device)
+    outs = [c.view(B, -1) for c in flat.split(sizes)]
+    for k, t in zip(("x", "z", "y", "st", "xp", "zp", "yp", "stp"), outs):
+        setattr(a, k, t.data_ptr())
+    a.B, a.n, a.m, a.nr, a.mGp = B, n, m, kq.n_pad, kq.m_pad
+    a.iters, a.p1, a.p2 = int(iters), int(p1), int(p2)
+    a.alpha, a.cinv = spec.alpha, lay["cinv"]
     lib = load_library()
-    B = qs.shape[0]
-    p1, p2 = _split_probe(kq2, probe_iters)
-    smem = lib.phc_admm_smem_bytes(kq.n_pad, kq.m_pad, 1, int(p1 > 0))
-    _check_launch("ADMM kernel", smem, kq, B, warm4, (qs, lG, uG, lB, uB))
-    _check("binmask", binmask, (kq.n_pad,))
-    lay = _layout(kq)
-    lay2 = _layout(kq2) if kq2 is not None else lay
-    alpha2 = kq2.base.alpha if kq2 is not None else kq.base.alpha
-    outs = _outputs(kq, B, qs) + _outputs(kq, B, qs)
-    w = warm4 if warm4 is not None else (None,) * 4
-    with torch.cuda.device(qs.device):
-        stream = torch.cuda.current_stream(qs.device).cuda_stream
-        rc = lib.phc_admm_k2(
-            *map(_ptr, (qs, lG, uG, lB, uB, *w, lay["AG"], lay["MT"],
-                        lay["P"], lay["vec"], binmask, lay2["MT"],
-                        lay2["vec"], *outs)),
-            B, kq.n_pad, kq.m_pad, int(iters), int(p1), int(p2),
-            kq.base.alpha, alpha2, lay["cinv"], ctypes.c_void_p(stream))
-    _raise_on(lib, rc, "K2 (admm_k2)")
-    _count_launch("admm_k2", B)
-    return outs
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, "phc_" + name)(ctypes.addressof(a), pl.pb,
+                                         pl.threads, ctypes.c_void_p(stream))
+    _raise_on(lib, rc, name)
+    _count_launch(name, B)
+    return [AdmmResult(x=x, obj=st[:, 0], r_prim=st[:, 1],
+                       r_prim_rel=st[:, 2], r_dual=st[:, 3],
+                       infeas_cert=st[:, 4] > 0.5, y=y, z=z)
+            for x, z, y, st in zip(*[iter(outs)] * 4)]
 
 
 def _layout_mixed(kq: KernelQP):
@@ -591,9 +700,21 @@ def _launch_k1_mixed(kq: KernelQP, qs, lG, uG, lB, uB, warm4, iters_lo: int):
         raise ValueError(
             f"split-precision ADMM kernel: nr={nr}, mGp={mGp} must be "
             f"multiples of {MIXED_GRAIN} (pad_kernel_qp)")
-    _check_launch("split-precision ADMM kernel",
-                  lib.phc_admm_mixed_smem_bytes(nr, mGp), kq, B, warm4,
-                  (qs, lG, uG, lB, uB))
+    smem = lib.phc_admm_mixed_smem_bytes(nr, mGp)
+    if B < 1:
+        raise ValueError("split-precision ADMM kernel: empty batch")
+    if smem > SMEM_MAX:
+        raise ValueError(
+            f"split-precision ADMM kernel: nr={nr}, mGp={mGp} needs {smem} "
+            f"bytes of shared memory per block, above the {SMEM_MAX} an "
+            f"sm_90 block has")
+    names = ("q", "lG", "uG", "lB", "uB", "z0G", "y0G", "z0B", "y0B")
+    rows = (nr, mGp, mGp, nr, nr, mGp, mGp, nr, nr)
+    for name, t, r in zip(names, (qs, lG, uG, lB, uB) + tuple(warm4 or ()),
+                          rows):
+        _check(name, t, (B, r))
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
     lay, vec = _layout_mixed(kq), _layout(kq)["vec"]
     outs = [torch.empty((B, r), dtype=torch.float32, device=qs.device)
             for r in (mGp, mGp, nr, nr)]
@@ -611,28 +732,28 @@ def _launch_k1_mixed(kq: KernelQP, qs, lG, uG, lB, uB, warm4, iters_lo: int):
 
 
 def admm_solve_cuda(kq: KernelQP, q, h, lb, ub, iters: int = 100,
-                    warm=None, low_frac: float = 0.0) -> AdmmResult:
-    """K1 on the card; same contract as ``admm_solve_plain``. With
-    ``low_frac`` > 0 the leading iterations run in the split-precision
-    tensor-core kernel, whose iterates warm-start K1 for the rest."""
+                    warm=None, low_frac: float = 0.0,
+                    pb: Optional[int] = None) -> AdmmResult:
+    """K1 on the card; same contract as ``admm_solve_plain``. The kernel
+    packs and unpacks itself: the wrapper checks, allocates and launches.
+    With ``low_frac`` > 0 the leading iterations run in the split-precision
+    tensor-core kernel (on packed arrays), whose iterates warm-start K1 for
+    the rest. ``pb`` asks for one tile width instead of the plan's."""
     kq, iters_lo = _split_iters(kq, iters, low_frac)
-    qs, lG, uG, lB, uB, warm4 = _pack(kq, q, h, lb, ub, warm)
     if iters_lo > 0:
-        warm4 = _launch_k1_mixed(kq, qs, lG, uG, lB, uB, warm4, iters_lo)
-    outs = _launch_k1(kq, qs, lG, uG, lB, uB, warm4,
-                      max(iters - iters_lo, 0))
-    return _result_from_stats(kq, *outs)
+        qs, lG, uG, lB, uB, warm4 = _pack(kq, q, h, lb, ub, warm)
+        warm = _launch_k1_mixed(kq, qs, lG, uG, lB, uB, warm4, iters_lo)
+    return _launch("admm_k1", kq, None, None, q, h, lb, ub, warm,
+                   max(iters - iters_lo, 0), 0, 0, pb)[0]
 
 
 def admm_wave_cuda(kq: KernelQP, kq2: Optional[KernelQP], binary_idx,
                    q, h, lb, ub, iters: int = 100, probe_iters: int = 100,
-                   warm=None):
+                   warm=None, pb: Optional[int] = None):
     """K2 on the card; same contract as ``admm_wave_plain``."""
-    qs, lG, uG, lB, uB, warm4 = _pack(kq, q, h, lb, ub, warm)
-    outs = _launch_k2(kq, kq2, _binaries(kq, binary_idx)[1], qs, lG, uG,
-                      lB, uB, warm4, iters, probe_iters)
-    return (_result_from_stats(kq, *outs[:6]),
-            _result_from_stats(kq, *outs[6:]))
+    p1, p2 = _split_probe(kq2, probe_iters)
+    return tuple(_launch("admm_k2", kq, kq2, _binaries(kq, binary_idx)[1],
+                         q, h, lb, ub, warm, iters, p1, p2, pb))
 
 
 # ---- entry points --------------------------------------------------------

@@ -4,6 +4,12 @@ prepared data. Both run the σ=0 iteration in fp32; the port sums the
 stats in fp64. The CUDA kernels themselves are compared with these plain
 versions on the card by chip_smoke.py (a CUDA kernel has no CPU mode)."""
 
+import ctypes
+import importlib.util
+import inspect
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -318,7 +324,176 @@ def test_mixed_split_and_low_frac_rules(prob12, rng):
         with pytest.raises(ValueError, match="low_frac"):
             ca.admm_solve_plain(kq, *td, iters=30, low_frac=bad)
     # the B&B entry points keep the option off their path
-    import inspect
-
     for fn in (ca.admm_solve_auto, ca.admm_wave_auto, ca.admm_wave_plain):
         assert "low_frac" not in inspect.signature(fn).parameters
+
+
+# ---- the kernels' launch plan, packing factors and argument block --------
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _shape(N):
+    """(nr, mGp) of the double integrator at horizon N (n=3N, m=10N)."""
+    return -(-3 * N // 8) * 8, -(-10 * N // 8) * 8
+
+
+@pytest.mark.parametrize("N,B,pb,threads", [
+    (10, 1024, 4, 288),     # config-4 wave
+    (10, 32, 1, 288),       # config-1 wave
+    (20, 4096, 8, 544),     # bench primary
+    (10, 1, 1, 288), (10, 3, 1, 288), (10, 33, 1, 288), (10, 257, 1, 288),
+    (21, 8, 1, 288),        # K2 with the stiff probe at N=21
+    (26, 4096, 1, 352),     # the largest horizon that fits: one problem
+])
+def test_plan_instantiation_at_the_main_shapes(N, B, pb, threads):
+    """The plan picks the largest tile that fits and leaves ~2 blocks per
+    SM, the warps that divide the warp tasks best (9 where R is 8 more than
+    a multiple of 32, 17 of the 18 a tile of 8 may have at N=20), and
+    reckons the shared memory of that tile."""
+    nr, mGp = _shape(N)
+    pl = ca.plan(B, nr, mGp)
+    assert (pl.pb, pl.threads) == (pb, threads)
+    assert pl.smem == ca.smem_bytes(nr, mGp, pb) <= ca.SMEM_MAX
+    assert pl.warps * 32 == pl.threads and 8 <= pl.warps <= ca.MAX_WARPS[pb]
+    if pb > 1:
+        assert -(-B // pb) >= 1.9 * ca.SM_COUNT
+        bigger = [t for t in ca.TILES if t > pb]
+        assert all(-(-B // t) < 1.9 * ca.SM_COUNT
+                   or ca.smem_bytes(nr, mGp, t) > ca.SMEM_MAX
+                   for t in bigger)
+
+
+@pytest.mark.parametrize("pb", [8, 4, 1])
+def test_plan_takes_an_asked_tile_or_raises(pb):
+    nr, mGp = _shape(21)
+    pl = ca.plan(11, nr, mGp, pb)          # any batch: the edge is masked
+    assert pl.pb == pb and pl.smem <= ca.SMEM_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        ca.plan(4096, *_shape(60), pb)
+    with pytest.raises(ValueError, match="no instantiation"):
+        ca.plan(4096, nr, mGp, 2 * pb + 1)
+
+
+def test_plan_refuses_what_does_not_fit_and_empty_batches():
+    """N=27 and N=60 fit no tile: ValueError, no other path. N=26 is the
+    largest horizon of the double integrator that fits."""
+    assert ca.plan(2, *_shape(26)).smem <= ca.SMEM_MAX
+    for N in (27, 60):
+        with pytest.raises(ValueError, match="shared memory"):
+            ca.plan(2, *_shape(N))
+    with pytest.raises(ValueError, match="empty batch"):
+        ca.plan(0, *_shape(10))
+
+
+def test_plan_depends_on_shapes_alone(prob):
+    """Nothing but (B, nr, mGp) and an asked tile enters the plan: two
+    problems of one shape get one plan, and K1 and K2 share it."""
+    assert list(inspect.signature(ca.plan).parameters) == [
+        "B", "nr", "mGp", "pb"]
+    kq, kq2 = prob["kq"], prob["kq2"]
+    assert (kq.n_pad, kq.m_pad) == (kq2.n_pad, kq2.m_pad)
+    for b in (1, 32, 1024, 4096):
+        assert ca.plan(b, kq.n_pad, kq.m_pad) == ca.plan(b, kq2.n_pad,
+                                                         kq2.m_pad)
+    assert ca.plan(4096, 64, 200).pb >= ca.plan(1024, 64, 200).pb
+
+
+@pytest.mark.parametrize("nr", range(8, 129, 8))
+def test_padded_strides_spread_the_lane_groups_over_banks(nr):
+    """Â_G rows: the 8 lane groups of product A read rows one apart, 4
+    words each; Mᵀ rows: two groups one row apart, 16 words each. Their
+    words must fall in different banks."""
+    for mGp in (8, 104, 200, 216):
+        sa, sm = ca._strides(nr, mGp)
+        assert sa >= nr and sm >= mGp + nr and sa % 4 == 0 and sm % 8 == 0
+        assert {(g * sa + w) % 32 for g in range(8)
+                for w in range(4)} == set(range(32))
+        assert {(g * sm + w) % 32 for g in range(2)
+                for w in range(16)} == set(range(32))
+
+
+def test_argument_block_mirrors_the_kernel_source():
+    """``_Args`` lists the fields of ``struct PhcAdmmArgs`` in the source's
+    order, pointers then ints then floats."""
+    src = open(os.path.join(_REPO, "pyhybridcontrol_tpu_torch", "csrc",
+                            "admm.cu")).read()
+    body = src[src.index("struct PhcAdmmArgs {"):]
+    body = re.sub(r"//[^\n]*", "", body[:body.index("};")])
+    names = []
+    for decl in body.split("{", 1)[1].split(";"):
+        decl = decl.replace("const", "").replace("float", "").replace(
+            "int", "")
+        names += [w for w in re.findall(r"[A-Za-z_][A-Za-z0-9_]*", decl)]
+    assert names == [f[0] for f in ca._Args._fields_]
+    kinds = [f[1] for f in ca._Args._fields_]
+    assert kinds == ([ctypes.c_void_p] * 24 + [ctypes.c_int] * 16
+                     + [ctypes.c_float] * 3)
+    assert ctypes.sizeof(ca._Args) == 24 * 8 + 16 * 4 + 3 * 4 + 4
+
+
+def test_kernel_packing_factors_reproduce_pack_and_result_bitwise(prob, rng):
+    """The plain path's packing is unchanged (numpy fp32, written out), and
+    the factors the kernels pack with (``io``) give the same bits: one
+    multiplication per value, the ±BIG clamp on the box only."""
+    kq, spec = prob["kq"], prob["ts"]
+    n, m, nr, mGp = spec.n, spec.m_ineq, kq.n_pad, kq.m_pad
+    f, h, lb, ub = (a[:7].copy() for a in prob["data"])
+    lb[0, :3], ub[1, :3] = -np.inf, np.inf
+    z0 = rng.normal(size=(7, m + n)).astype(np.float32)
+    y0 = rng.normal(size=(7, m + n)).astype(np.float32)
+    tq, th, tlb, tub, tz, ty = map(torch.as_tensor, (f, h, lb, ub, z0, y0))
+    qs, lG, uG, lB, uB, w4 = ca._pack(kq, tq, th, tlb, tub, (None, tz, ty))
+    D, E = spec.D.numpy(), spec.E.numpy()
+    cD = (spec.cost_scale * spec.D).numpy()
+    big = np.float32(ca.BIG)
+
+    def padded(a, cols):
+        out = np.zeros((a.shape[0], cols), np.float32)
+        out[:, :a.shape[1]] = a
+        return out
+
+    want = dict(qs=padded(cD * f, nr), uG=padded(h * E[:m], mGp),
+                lG=padded(np.full((7, m), -big, np.float32), mGp),
+                lB=padded(np.clip(lb * E[m:], -big, big), nr),
+                uB=padded(np.clip(ub * E[m:], -big, big), nr))
+    for k, got in dict(qs=qs, uG=uG, lG=lG, lB=lB, uB=uB).items():
+        np.testing.assert_array_equal(got.numpy(), want[k], err_msg=k)
+    for got, src, lo, cols in ((w4[0], z0, 0, mGp), (w4[1], y0, 0, mGp),
+                               (w4[2], z0, m, nr), (w4[3], y0, m, nr)):
+        width = m if lo == 0 else n
+        np.testing.assert_array_equal(
+            got.numpy(), padded(src[:, lo:lo + width], cols))
+    # the kernels' factors: [c·D, E_B, D | E_G], zero in the padding
+    io = ca._layout(kq)["io"].numpy()
+    np.testing.assert_array_equal(io[:nr], padded(cD[None], nr)[0])
+    np.testing.assert_array_equal(io[nr:2 * nr], padded(E[None, m:], nr)[0])
+    np.testing.assert_array_equal(io[2 * nr:3 * nr], padded(D[None], nr)[0])
+    np.testing.assert_array_equal(io[3 * nr:], padded(E[None, :m], mGp)[0])
+    assert np.array_equal(ca._layout(kq)["PT"].numpy(), kq.P.numpy().T)
+    # warm iterates are read in place from the public layout
+    views = ca._warm_views(kq, (None, tz, ty))
+    assert [v.shape[1] for v in views] == [m, m, n, n]
+    assert all(v.stride(0) == m + n and v.stride(1) == 1 for v in views)
+    assert views[2].data_ptr() == tz.data_ptr() + 4 * m
+    # _result: x = D·x̃, z and y concatenated from the unpadded columns
+    xt = torch.as_tensor(rng.normal(size=(7, nr)).astype(np.float32))
+    res = ca._result(kq, xt, w4[0], w4[1], w4[2], w4[3], *([None] * 5))
+    np.testing.assert_array_equal(res.x.numpy(), D * xt.numpy()[:, :n])
+    np.testing.assert_array_equal(res.z.numpy(), z0)
+    np.testing.assert_array_equal(res.y.numpy(), y0)
+
+
+@pytest.mark.parametrize("obj,limit", [
+    (1.0, 1e-3), (-30.5, 1e-3), (-184.0, 192 * 2.0 ** -23 * 184.0),
+    (-1221.6, 192 * 2.0 ** -23 * 1221.6)])
+def test_serve_limit_follows_fp32_resolution_above_the_floor(obj, limit):
+    """chip_smoke's limit on |obj − enumeration|: 1e-3, or 192 fp32 relative
+    steps of the objective where that is more (above |obj| ≈ 43.7)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(_REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert cs.serve_limit(obj) == pytest.approx(limit, rel=1e-12)
+    lim = cs.serve_limit(np.array([1.0, -30.5, -1221.6]))
+    assert lim.shape == (3,) and lim[2] > lim[1] == lim[0] == cs.SERVE_FLOOR

@@ -1,17 +1,19 @@
-"""Mutation check of the limits that hold the split-precision kernel
-against its plain version, on the card (a development tool, not part of
-the package):
+"""Mutation check of the limits that hold the kernels against their plain
+versions, on the card (a development tool, not part of the package):
 
-    python tools/mutation_check.py
+    python tools/mutation_check.py          # the split-precision kernel
+    python tools/mutation_check.py admm     # K1 and K2
 
 Run from the root of a checkout. For each mutation it copies the package
 and ``chip_smoke.py`` into a fresh temporary directory, breaks one line of
-``csrc/admm_mixed.cu`` there, builds the broken kernel and runs
-``chip_smoke.phase_k1_mixed`` on it. A mutation is caught when that phase
-raises; the line printed for it names the field that went off its limit
-and the largest reading of every field. The unbroken copy ("none") must
-pass. The checkout itself is never touched; a mutation whose line is no
-longer in the source exactly once stops the run.
+the kernel source there (``csrc/admm_mixed.cu``, or ``csrc/admm.cu``),
+builds the broken kernel and runs the phases of ``chip_smoke`` that hold
+that kernel (``phase_k1_mixed``, or ``phase_k1``, ``phase_k2`` and
+``phase_far``). A mutation is caught when a field goes off its limit; the
+line printed for it names the first such field and the largest reading of
+every field. The unbroken copy ("none") must pass. The checkout itself is
+never touched; a mutation whose line is no longer in the source exactly
+once stops the run.
 """
 
 from __future__ import annotations
@@ -23,9 +25,20 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-KERNEL = "pyhybridcontrol_tpu_torch/csrc/admm_mixed.cu"
+CSRC = "pyhybridcontrol_tpu_torch/csrc/"
 # name -> (text to replace, replacement); each text occurs once
-MUTATIONS = {
+MUTATIONS_ADMM = {
+    "none": None,
+    "alpha − 0.1": (
+        "const float zr = alpha * u[i] + (1.f - alpha) * z[i];",
+        "const float zr = (alpha - 0.1f) * u[i] + (1.1f - alpha) * z[i];"),
+    "one iteration short": (
+        "for (int k = 0; k <= iters; ++k) {",
+        "for (int k = 1; k <= iters; ++k) {"),
+    "stiff probe dropped": ("if (a.p1 > 0) {", "if (false) {"),
+    "r_dual written as r_prim": ("out[3] = r_dual;", "out[3] = r_prim;"),
+}
+MUTATIONS_MIXED = {
     "none": None,
     "Alo·bhi pass dropped": (
         "    wmma::mma_sync(acc, al, bh, acc);\n", ""),
@@ -44,39 +57,61 @@ MUTATIONS = {
         "yv[at] = y + rho * (zr - zn);",
         "yv[at] = g ? y + rho * (zr - zn) : y;"),
 }
+# every field is read (chip_smoke's --readings mode); the first one off its
+# limit is printed
 RUN = r"""
 import sys
 import torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
-rec = {}
+cs.READINGS_ONLY = True
+dev = torch.device("cuda")
 try:
-    cs.phase_k1_mixed(torch.device("cuda"), cs.phase_rng("k1_mixed"), rec)
+    if MODE == "admm":
+        recs = {"admm_k1": {}, "admm_k2": {}}
+        cs.phase_k1(dev, cs.phase_rng("k1"), recs["admm_k1"])
+        cs.phase_k2(dev, cs.phase_rng("k2"), recs["admm_k2"])
+        cs.phase_far(dev, cs.phase_rng("far"), recs)
+    else:
+        cs.phase_k1_mixed(dev, cs.phase_rng("k1_mixed"), {})
+    if cs.OVER:
+        raise AssertionError(f"{len(cs.OVER)} readings over; first: "
+                             + cs.OVER[0])
     print("RESULT passed", flush=True)
 except AssertionError as e:
     print("RESULT caught:", e, flush=True)
-print("READINGS", " ".join(f"{k}={v:.2e}" for k, v in
-                           {**cs.READINGS.get("mixed_iterates", {}),
-                            **cs.READINGS.get("mixed", {})}.items()),
-      flush=True)
+print("READINGS", " ".join(
+    f"{r}.{k}={v:.2e}" for r in REGIMES
+    for k, v in cs.READINGS.get(r, {}).items()), flush=True)
 """
+# mode -> (kernel source, mutations, regimes whose readings are printed)
+MODES = {"mixed": ("admm_mixed.cu", MUTATIONS_MIXED,
+                   ("mixed_iterates", "mixed")),
+         "admm": ("admm.cu", MUTATIONS_ADMM, ("main", "far"))}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    mode = argv[0] if argv else "mixed"
+    if mode not in MODES or len(argv) > 1:
+        print("usage: mutation_check.py [mixed|admm]", file=sys.stderr)
+        return 2
+    kernel, mutations, regimes = MODES[mode]
+    run = f"MODE = {mode!r}\nREGIMES = {regimes!r}\n" + RUN
     failed = False
-    for name, sub in MUTATIONS.items():
+    for name, sub in mutations.items():
         with tempfile.TemporaryDirectory(prefix="phc_mutation_") as tmp:
             shutil.copytree(ROOT / "pyhybridcontrol_tpu_torch",
                             Path(tmp) / "pyhybridcontrol_tpu_torch")
             shutil.copy(ROOT / "chip_smoke.py", tmp)
             if sub is not None:
-                src = Path(tmp) / KERNEL
+                src = Path(tmp) / CSRC / kernel
                 text = src.read_text()
                 if text.count(sub[0]) != 1:
                     raise RuntimeError(f"{name}: the kernel source no longer "
                                        f"has exactly one {sub[0]!r}")
                 src.write_text(text.replace(sub[0], sub[1]))
-            out = subprocess.run([sys.executable, "-c", RUN], cwd=tmp,
+            out = subprocess.run([sys.executable, "-c", run], cwd=tmp,
                                  capture_output=True, text=True)
         lines = [ln for ln in out.stdout.splitlines()
                  if ln.startswith(("RESULT", "READINGS"))]
