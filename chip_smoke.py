@@ -31,7 +31,12 @@ Run from the root of a checkout. It builds the kernels of
      iterations), before the bf16 steps drift apart, and objective and
      solution of the whole solve at ``low_frac`` 0.8 and 1.0; then the
      reference bench's own gate: max relative objective delta of
-     ``low_frac=1.0`` against full-precision K1 ≤ 1e-4;
+     ``low_frac=1.0`` against full-precision K1 ≤ 1e-4. Both tile widths
+     of the kernel (16 and 32 problems per block) at batches that leave a
+     ragged last tile (N=12: B=1, 33, 4095; N=20: B=4095) and N=21 (a tile
+     of 16 only), one iteration at every width and the whole solve at the
+     plan's; the plan against the library's own reckoning; the wrapper
+     must refuse N=22, whose constants do not fit;
   6. no plain version behind a CUDA tensor: with the plain versions made
      to raise, ``admm_solve_auto``, ``admm_wave_auto`` and
      ``admm_solve_cuda(low_frac>0)`` still answer and count their launches;
@@ -657,12 +662,33 @@ def phase_far(dev, rng, recs):
         raise AssertionError("N=60: the wrapper must refuse the shape")
 
 
+def mixed_iterates(tag, kq16, packed, k0, tiles):
+    """The tensor-core kernel's own outputs after ONE split-precision
+    iteration from the plain version's iterates after ``k0`` of them, at
+    each tile width of ``tiles`` (None: the plan's)."""
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+
+    cold = ca._init_iterates(*packed[1:], None)
+    it = tuple(t.contiguous() for t in
+               ca._mixed_plain(kq16, *packed, cold, k0))
+    ref = ca._mixed_plain(kq16, *packed, it, 1)
+    B = packed[0].shape[0]
+    for tile in tiles:
+        pl = ca.plan_mixed(B, kq16.n_pad, kq16.m_pad, tile=tile)
+        got = ca._launch_k1_mixed(kq16, *packed, it, 1, tile=tile)
+        held(f"{tag} one split-precision it after {k0}, tile {pl.tile}",
+             "mixed_iterates",
+             dict(zip(("zG", "yG", "zB", "yB"), zip(got, ref))))
+
+
 def phase_k1_mixed(dev, rng, rec):
-    """K1 with its split-precision phase against the plain version, then
-    the relaxation sweep's gate against full-precision K1."""
+    """K1 with its split-precision phase against the plain version (both
+    tile widths, ragged batches, the shape limit), then the relaxation
+    sweep's gate against full-precision K1."""
     import torch
 
     from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+    from pyhybridcontrol_tpu_torch.ops._build import load_library
 
     print("K1 split-precision phase (admm_k1_mixed) vs plain:", flush=True)
     for N, B, iters in ((12, 128, 120), (20, 4096, 100)):
@@ -672,15 +698,8 @@ def phase_k1_mixed(dev, rng, rec):
         # the tensor-core kernel's own outputs, before the drift has grown
         kq16 = ca.pad_kernel_qp(kq)
         packed = ca._pack(kq16, f, h, lb, ub, None)[:5]
-        cold = ca._init_iterates(*packed[1:], None)
         for k0 in MIXED_WARM:
-            it = tuple(t.contiguous() for t in
-                       ca._mixed_plain(kq16, *packed, cold, k0))
-            held(f"N={N} B={B} one split-precision it after {k0}",
-                 "mixed_iterates",
-                 dict(zip(("zG", "yG", "zB", "yB"),
-                          zip(ca._launch_k1_mixed(kq16, *packed, it, 1),
-                              ca._mixed_plain(kq16, *packed, it, 1)))))
+            mixed_iterates(f"N={N} B={B}", kq16, packed, k0, (None,))
         full = ca.admm_solve_cuda(*args, iters=iters)
         for lf in (0.8, 1.0):
             got = ca.admm_solve_cuda(*args, iters=iters, low_frac=lf)
@@ -694,6 +713,55 @@ def phase_k1_mixed(dev, rng, rec):
               flush=True)
         check(gate <= MIXED_GATE, f"mixed gate: {gate:.3e} > {MIXED_GATE}")
         rec[f"n{N}_gate"] = gate
+    main_args = args
+
+    # both tile widths at batches that leave a ragged last tile, and N=21,
+    # which fits a tile of 16 only: one iteration at every width that fits,
+    # the whole solve at the plan's
+    lib = load_library("admm_mixed")
+    for N, B in ((12, 1), (12, 33), (12, 4095), (20, 4095), (21, 37)):
+        _, qp, spec, _, f, h, lb, ub = problem(N, B, dev, rng)
+        kq = ca.kernel_qp_for(spec)
+        kq16 = ca.pad_kernel_qp(kq)
+        nr, mGp = kq16.n_pad, kq16.m_pad
+        tiles = []
+        for t in ca.MIXED_TILES:
+            try:
+                tiles.append(ca.plan_mixed(B, nr, mGp, tile=t).tile)
+            except ValueError:
+                pass
+        packed = ca._pack(kq16, f, h, lb, ub, None)[:5]
+        mixed_iterates(f"N={N} B={B}", kq16, packed, MIXED_WARM[0], tiles)
+        pl = ca.plan_mixed(B, nr, mGp)
+        need = lib.phc_admm_mixed_smem_bytes(nr, mGp, pl.tile)
+        check(need == pl.smem, f"plan_mixed: N={N} B={B} reckons {pl.smem} "
+              f"bytes of shared memory, the library {need}")
+        check(lib.phc_admm_mixed_max_threads(pl.tile)
+              == ca.MIXED_MAX_THREADS[pl.tile],
+              f"plan_mixed: threads of the tile of {pl.tile} differ from "
+              f"the library's")
+        iters = 120 if N == 12 else 100
+        args = (kq, f, h, lb, ub)
+        compare(f"N={N} B={B} {iters} it low_frac=1.0 (tile {pl.tile})",
+                ca.admm_solve_cuda(*args, iters=iters, low_frac=1.0),
+                ca.admm_solve_plain(*args, iters=iters, low_frac=1.0), rec,
+                "mixed")
+        print(f"  plan_mixed N={N} B={B}: tile of {pl.tile} problems, "
+              f"{-(-B // pl.tile)} blocks of {pl.threads} threads, "
+              f"{pl.smem} bytes of shared memory per block (limit "
+              f"{ca.SMEM_MAX}); widths that fit {tiles}", flush=True)
+    # the shape limit: the wrapper refuses N=22, it does not fall back
+    _, qp, spec, _, f, h, lb, ub = problem(22, 2, dev, rng)
+    try:
+        ca.admm_solve_cuda(ca.kernel_qp_for(spec), f, h, lb, ub, iters=10,
+                           low_frac=1.0)
+    except ValueError as e:
+        print(f"  N=22 refused by the wrapper: {e}", flush=True)
+    else:
+        raise AssertionError("N=22: the split-precision wrapper must refuse "
+                             "the shape")
+    args = main_args
+    kq = args[0]
     # the bench primary is the shape the relaxation sweep gives the kernel
     times = {}
     for name, fn in (

@@ -1,60 +1,93 @@
 // K1's split-precision leading iterations for Hopper (sm_90a): the bf16
-// 3-pass products on the tensor cores. Plain C interface, loaded through
-// ctypes by pyhybridcontrol_tpu_torch/ops/_build.py.
+// 3-pass products on the tensor cores through mma.sync. Plain C interface,
+// loaded through ctypes by pyhybridcontrol_tpu_torch/ops/_build.py.
 //
 // Replaces the `iters_lo` phase of the Pallas TPU kernel `_admm_kernel`
 // (pyhybridcontrol_tpu/ops/pallas_admm.py: `_mm3`, `_bf16_split` and the
 // `half_lo` loop of `_phase`). The plain torch version beside it is
-// admm_solve_plain(low_frac=) in ops/cuda_admm.py.
+// admm_solve_plain(low_frac=) in ops/cuda_admm.py (`_mixed_plain`).
 //
 // What it computes: `iters` sigma=0 ADMM iterations in which each of the two
 // products is  A.b ~= Ahi.bhi + Ahi.blo + Alo.bhi  with
 // hi = bf16(a), lo = bf16(a - hi), bf16 inputs and fp32 accumulation. The
 // constants are split once on the host side of the call; the iterate
-// operand is split at every product. The z/y update is fp32. Only the
+// operand is split at every product. The z/y update is fp32, in the order of
+// `_phase`. The inputs are the packed arrays of `_pack` (l_G is the constant
+// -BIG of the one-sided G rows, as in K1, and is not passed). Only the
 // iterates (zG, yG, zB, yB) leave the kernel: the full-precision tail, the
 // final half step and the stats are K1 itself (phc_admm_k1 in admm.cu),
 // launched warm from these iterates by the wrapper.
 //
-// Design: the products are matrix products only if the batch is a matrix
-// dimension, so one block owns a tile of 16 problems (the N of every
-// product) and runs nvcuda::wmma 16x16x16 bf16 MMAs: t = A_G^T w_G is
-// (nr x mG)(mG x 16), u = M t is ((mG+nr) x nr)(nr x 16). nr and mG are
-// multiples of 16 (the wrapper pads with zero rows and columns, which are
-// inert). The hi/lo bf16 pairs of A_G^T and M sit in shared memory (as
-// many bytes as K1's fp32 copies), the iterate tile stays in shared memory
-// in fp32, laid out [row][problem], and is split to bf16 hi/lo where a
-// product reads it. The t product has few output tiles, so its K range is
-// split over the warps and the partial tiles are summed in the elementwise
-// pass that adds d.w_B - q and splits t; each u tile is updated (clip,
-// dual step) by the warp that computed it, straight from its accumulator.
+// Design. The batch is the N of every product, so a block owns a tile of T
+// problems (T = 16 or 32, a template parameter; ops/cuda_admm.plan_mixed
+// picks T = 32 where T = 16 would take two rounds of blocks) and has one
+// warp per 16 rows of u = M t: R/16 warps (R = mG + nr). Products are
+// mma.sync m16n8k16 bf16 -> fp32, whose accumulator layout is fixed (lane l
+// holds rows l/4 and l/4+8, problems 2(l%4) and 2(l%4)+1 of each n8 tile),
+// so a lane's (row, problem) elements of u are the same in every iteration:
+// its z, y and u live in registers for the whole solve, the update is
+// applied straight from the accumulators, and the warp then writes the next
+// product's operand (w_G = rho z - y split to bf16 hi/lo, or
+// d o (rho_B z_B - y_B) in fp32 for the box rows) to shared memory. The
+// t = A_G^T w_G product (nr x mG by mG x T) is dealt as (row tile, K slice)
+// jobs over the same warps; one pass sums the K-slice partials, adds
+// d o w_B - q and splits t. So an iteration has three barriers. Each A
+// fragment loaded feeds T/8 MMAs.
+//
+// Shared memory: the bf16 hi/lo constants with row strides 8 elements over
+// a multiple of 16 (the 8 rows of an ldmatrix phase fall in 8 different
+// 16-byte bank groups), both operand tiles [k][problem] with XOR-swizzled
+// 16-byte chunks (read by ldmatrix.trans, written as bf16 pairs, both
+// conflict-free), and in accumulator order the K-slice partials, d o w_B,
+// q and l_B, plus (rho, 1/rho, d) per row of u. A CPU test checks the
+// congruences. At nr=64, mG=208, T=32: 230,144 bytes a block.
+//
+// Registers. Five of a block's 17 warps share one SM sub-partition's 16,384
+// registers, so a thread has 96 at most (not the 120 that 65,536 / 544
+// would give). The lane's z, y, u take 48 at T = 32; l_B, rho, 1/rho and
+// d are read from shared memory once an iteration, only one B fragment is
+// live at a time, and every shared-memory access goes through a 32-bit
+// address. PERF.md has ptxas's report for both instantiations.
 //
 // What bounds it on the H100: at the bench-primary shape (nr=64, mG=208,
 // B=4096, 100 iterations) the three passes are ~75 GFLOP of bf16 MMA,
-// ~0.08 ms at the 989 TFLOP/s peak, against ~19 MB of inputs and outputs
-// (~0.006 ms at 3.35 TB/s); so operations bound it, and the kernel is far
-// from that bound: wmma fragments are
-// loaded from shared memory for every MMA, one block of 8 warps per SM
-// (222 KB of shared memory), four block-wide barriers per iteration.
-// wgmma with the constants resident in registers/shared descriptors and
-// TMA loads are later work (measured times in PERF.md).
+// ~0.08 ms at the 989 TFLOP/s dense peak, against ~19 MB of inputs and
+// outputs (~0.006 ms at 3.35 TB/s): operations bound it. T = 32 there is 128
+// blocks on 132 SMs, one round, one block of 544 threads per SM. The kernel
+// is bound by latency, not by the tensor cores: a warp's MMAs run as chains
+// of three dependent passes behind ldmatrix loads, between three
+// block-wide barriers. Measured times and the per-iteration split are in
+// PERF.md. Left for later: the t product's A fragments resident in
+// registers, wgmma with the constants in shared-memory descriptors, TMA
+// staging, clusters sharing the constants, a persistent grid, packing in
+// the kernel, and K1's tail and stats fused in.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-#define PHC_MIX_T 16       // problems per block: the N of every product
-#define PHC_MIX_WARPS 8
-#define PHC_MIX_BLOCK (32 * PHC_MIX_WARPS)
 
 namespace {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
+#define PHC_BIG 1e30f  // ops/admm.py BIG: l_G of every G row (G x <= h)
+#define BIG4 make_float4(-PHC_BIG, -PHC_BIG, -PHC_BIG, -PHC_BIG)
+
+// the widest block each instantiation is compiled for (17 and 20 warps); a
+// thread may then have 96 registers: 5 warps share one SM sub-partition
+template <int T>
+struct MaxThreads;
+template <>
+struct MaxThreads<16> {
+  static constexpr int value = 640;
+};
+template <>
+struct MaxThreads<32> {
+  static constexpr int value = 544;
+};
+
 struct Dims {
-  int nr, mG, R, nT, kT, ksplit, slots;
+  int nr, mG, R, warps, nT, kT, ksplit, jobs;
 };
 
 __host__ __device__ inline Dims make_dims(int nr, int mG) {
@@ -62,252 +95,476 @@ __host__ __device__ inline Dims make_dims(int nr, int mG) {
   d.nr = nr;
   d.mG = mG;
   d.R = nr + mG;
-  d.nT = nr / 16;   // output row tiles of t
-  d.kT = mG / 16;   // K tiles of the t product
-  d.ksplit = d.nT >= PHC_MIX_WARPS ? 1 : PHC_MIX_WARPS / d.nT;
-  if (d.ksplit > d.kT) d.ksplit = d.kT;
-  d.slots = d.nT * d.ksplit;
-  if (d.slots < PHC_MIX_WARPS) d.slots = PHC_MIX_WARPS;
+  d.warps = d.R / 16;  // one per 16 rows of u
+  d.nT = nr / 16;      // row tiles of t
+  d.kT = mG / 16;      // K tiles of the t product
+  int ks = d.warps / d.nT;
+  if (ks < 1) ks = 1;
+  if (ks > d.kT) ks = d.kT;
+  d.ksplit = ks;  // K slices per row tile of t
+  d.jobs = d.nT * ks;
   return d;
 }
 
-__host__ __device__ inline size_t smem_bytes(const Dims& d) {
-  const size_t T = PHC_MIX_T;
-  size_t b = 0;
-  b += 2 * ((size_t)d.nr * d.mG + (size_t)d.R * d.nr) * sizeof(bf16);  // A, M
-  b += 2 * ((size_t)d.mG * T + (size_t)d.nr * T) * sizeof(bf16);       // w, t
-  b += (4 * (size_t)d.mG + 5 * (size_t)d.nr) * T * sizeof(float);      // tile
-  b += (size_t)d.slots * 256 * sizeof(float);                          // stage
-  return b;
+// row strides (bf16 elements) of A_G^T and M: 8 over a multiple of 16, so
+// the 8 rows (16 bytes each) of an ldmatrix phase fall in 8 different
+// 16-byte bank groups of the 128-byte line
+__host__ __device__ inline int stride_a(const Dims& d) { return d.mG + 8; }
+__host__ __device__ inline int stride_m(const Dims& d) { return d.nr + 8; }
+
+// element (r, p) of an operand tile [rows][T problems], bf16, unpadded: the
+// 16-byte chunks of a row are XOR-swizzled by the row's place in its run of
+// 128-byte lines, which spreads both an ldmatrix.trans phase (8 rows, one
+// chunk each) and a warp's pair stores (8 rows, 4 words each) over all
+// banks
+template <int T>
+__device__ __forceinline__ int swz(int r, int p) {
+  constexpr int L = 64 / T;  // rows per 128-byte line
+  constexpr int C = T / 8;   // 16-byte chunks per row
+  return r * T + ((((p >> 3) ^ ((r / L) % C))) << 3) + (p & 7);
 }
 
+// shared memory: byte addresses (from `base`) of the bf16 tiles and of the
+// fp32 arrays kept in accumulator order ([tile][n8 tile][lane] float4s)
 struct Smem {
-  bf16 *Ahi, *Alo, *Mhi, *Mlo, *whi, *wlo, *thi, *tlo;
-  float *zG, *yG, *lG, *uG, *zB, *yB, *lB, *uB, *q, *stage;
+  uint32_t Ahi, Alo, Mhi, Mlo;  // A_G^T (nr x mG), M (R x nr), padded rows
+  uint32_t whi, wlo, thi, tlo;  // operand tiles w (mG x T), t (nr x T), swz
+  uint32_t part, dwb, q, lb;    // K-slice partials of t, d o w_B, q, l_B
+  uint32_t rows;                // per row of u: (rho, 1/rho, d_box, 0)
+  uint32_t end;
 };
 
-// every piece is a multiple of 32 bytes (nr, mG multiples of 16), which is
-// the alignment wmma wants of a fragment pointer
-__device__ Smem carve(unsigned char* base, const Dims& d) {
-  const size_t T = PHC_MIX_T;
+// every piece is a multiple of 16 bytes (ldmatrix rows, float4 accesses)
+__host__ __device__ inline Smem carve(uint32_t base, const Dims& d, int T) {
   Smem s;
-  bf16* h = reinterpret_cast<bf16*>(base);
-  s.Ahi = h;  h += (size_t)d.nr * d.mG;
-  s.Alo = h;  h += (size_t)d.nr * d.mG;
-  s.Mhi = h;  h += (size_t)d.R * d.nr;
-  s.Mlo = h;  h += (size_t)d.R * d.nr;
-  s.whi = h;  h += (size_t)d.mG * T;
-  s.wlo = h;  h += (size_t)d.mG * T;
-  s.thi = h;  h += (size_t)d.nr * T;
-  s.tlo = h;  h += (size_t)d.nr * T;
-  float* f = reinterpret_cast<float*>(h);
-  float** g[] = {&s.zG, &s.yG, &s.lG, &s.uG};
-  for (float** a : g) { *a = f; f += (size_t)d.mG * T; }
-  float** b[] = {&s.zB, &s.yB, &s.lB, &s.uB, &s.q};
-  for (float** a : b) { *a = f; f += (size_t)d.nr * T; }
-  s.stage = f;
+  uint32_t o = base;
+  s.Ahi = o;  o += 2 * d.nr * stride_a(d);
+  s.Alo = o;  o += 2 * d.nr * stride_a(d);
+  s.Mhi = o;  o += 2 * d.R * stride_m(d);
+  s.Mlo = o;  o += 2 * d.R * stride_m(d);
+  s.whi = o;  o += 2 * d.mG * T;
+  s.wlo = o;  o += 2 * d.mG * T;
+  s.thi = o;  o += 2 * d.nr * T;
+  s.tlo = o;  o += 2 * d.nr * T;
+  s.part = o; o += 4 * d.jobs * 16 * T;
+  s.dwb = o;  o += 4 * d.nr * T;
+  s.q = o;    o += 4 * d.nr * T;
+  s.lb = o;   o += 4 * d.nr * T;
+  s.rows = o; o += 16 * d.R;
+  s.end = o;
   return s;
+}
+
+__host__ __device__ inline size_t smem_bytes(const Dims& d, int T) {
+  return carve(0, d, T).end;
 }
 
 __device__ __forceinline__ float clipf(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);  // jnp.clip / torch.clamp order
 }
 
-__device__ __forceinline__ void split_bf16(float v, bf16* hi, bf16* lo) {
-  const bf16 h = __float2bfloat16_rn(v);
-  *hi = h;
-  *lo = __float2bfloat16_rn(v - __bfloat162float(h));
+// (a, b) -> bf16 hi and lo pairs as the operand tiles hold them (a in the
+// low half): hi = bf16(v), lo = bf16(v - hi)
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+// shared-memory accesses by 32-bit address (volatile: kept in program order
+// between the barriers, never hoisted out of the iteration loop)
+__device__ __forceinline__ void sts_b32(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a), "r"(v));
+}
 
-// acc += Ahi.bhi + Ahi.blo + Alo.bhi over K tiles [k0, k1); A is row-major
-// with leading dimension lda, the operand tile [K][16 problems]
-__device__ __forceinline__ void mma3(FragC& acc, const bf16* Ahi,
-                                     const bf16* Alo, int lda, const bf16* bhi,
-                                     const bf16* blo, int k0, int k1) {
-  FragA ah, al;
-  FragB bh, bl;
+__device__ __forceinline__ void sts_f4(uint32_t a, float x, float y, float z,
+                                       float w) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "f"(x),
+               "f"(y), "f"(z), "f"(w));
+}
+
+__device__ __forceinline__ float4 lds_f4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a.b, one m16n8k16 bf16 MMA with fp32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc += A.B over the K tiles [k0, k1) as the 3-pass product Ahi.Bhi +
+// Alo.Bhi + Ahi.Blo (no lo.lo pass). a_hi/a_lo: this lane's row address in
+// K tile 0 of a 16-row A tile (row lane % 16, 8 columns on for lanes 16-31),
+// so one ldmatrix.x4 gives the m16k16 fragment; b_hi/b_lo: the operand
+// tile, K rows of T problems (swz), read transposed as two n8 fragments per
+// ldmatrix.x4.trans. One B fragment is live at a time.
+template <int T>
+__device__ __forceinline__ void product(float (&acc)[T / 8][4], uint32_t a_hi,
+                                        uint32_t a_lo, uint32_t b_hi,
+                                        uint32_t b_lo, int k0, int k1,
+                                        int lane) {
+  const int kr = lane & 15, kc = (lane >> 4) * 8;
+#pragma unroll 1
   for (int kt = k0; kt < k1; ++kt) {
-    wmma::load_matrix_sync(ah, Ahi + kt * 16, lda);
-    wmma::load_matrix_sync(al, Alo + kt * 16, lda);
-    wmma::load_matrix_sync(bh, bhi + (size_t)kt * 16 * PHC_MIX_T, PHC_MIX_T);
-    wmma::load_matrix_sync(bl, blo + (size_t)kt * 16 * PHC_MIX_T, PHC_MIX_T);
-    wmma::mma_sync(acc, ah, bh, acc);
-    wmma::mma_sync(acc, ah, bl, acc);
-    wmma::mma_sync(acc, al, bh, acc);
+    uint32_t ah[4], al[4], b[4];
+    ldsm_x4(ah, a_hi + 32u * kt);
+    ldsm_x4(al, a_lo + 32u * kt);
+#pragma unroll
+    for (int np = 0; np < T / 16; ++np) {
+      // 16 rows further is a whole number of swizzle periods
+      const uint32_t bo = 2u * (kt * 16 * T + swz<T>(kr, np * 16 + kc));
+      ldsm_x4_t(b, b_hi + bo);
+      mma_bf16(acc[2 * np], ah, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], ah, b[2], b[3]);
+      mma_bf16(acc[2 * np], al, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], al, b[2], b[3]);
+      ldsm_x4_t(b, b_lo + bo);
+      mma_bf16(acc[2 * np], ah, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], ah, b[2], b[3]);
+    }
   }
 }
 
-// global (B, rows) batch-first -> shared [row][problem]; problems past the
-// end of the batch get zero data (l = u = 0: inert)
-__device__ void load_tile(float* dst, const float* src, int rows, int b0,
-                          int B, float fill) {
-  for (int idx = threadIdx.x; idx < rows * PHC_MIX_T; idx += PHC_MIX_BLOCK) {
-    const int p = idx / rows, i = idx % rows, b = b0 + p;
-    dst[i * PHC_MIX_T + p] =
-        (src != nullptr && b < B) ? src[(size_t)b * rows + i] : fill;
+// global bf16 (rows, cols) row-major -> shared with row stride `stride`,
+// 16 bytes at a time (cols is a multiple of 16)
+__device__ void stage(unsigned char* dst, const bf16* __restrict__ src,
+                      int rows, int cols, int stride) {
+  const int per = cols / 8;
+  for (int v = threadIdx.x; v < rows * per; v += blockDim.x) {
+    const int r = v / per, c = v % per;
+    reinterpret_cast<uint4*>(dst + 2 * (size_t)r * stride)[c] =
+        reinterpret_cast<const uint4*>(src + (size_t)r * cols)[c];
   }
 }
 
-__device__ void store_tile(float* dst, const float* src, int rows, int b0,
-                           int B) {
-  for (int idx = threadIdx.x; idx < rows * PHC_MIX_T; idx += PHC_MIX_BLOCK) {
-    const int p = idx / rows, i = idx % rows, b = b0 + p;
-    if (b < B) dst[(size_t)b * rows + i] = src[i * PHC_MIX_T + p];
+// a lane's place in the block: its warp's 16 rows of u (G rows, or box
+// rows: mG is a multiple of 16) and its elements [n8 tile nt][c], row
+// i0 + 8 (c >> 1) of that block of rows, problem nt * 8 + 2 (lane % 4) +
+// (c & 1)
+struct Lane {
+  int warp, lane, i0;
+  bool box;
+  uint32_t row;   // address of (rho, 1/rho, d) of row i0; + 128: i0 + 8
+  uint32_t slot;  // byte offset of a box lane's float4s in accumulator order
+};
+
+template <int T>
+__device__ __forceinline__ Lane place(int tid, uint32_t base, const Dims& d,
+                                      const Smem& s) {
+  Lane p;
+  p.warp = tid >> 5;
+  p.lane = tid & 31;
+  p.box = p.warp * 16 >= d.mG;
+  p.i0 = p.warp * 16 - (p.box ? d.mG : 0) + (p.lane >> 2);
+  p.row = base + s.rows + 16u * (p.warp * 16 + (p.lane >> 2));
+  p.slot = 16u * (p.box ? (p.warp - d.mG / 16) * (T / 8) * 32 + p.lane : 0);
+  return p;
+}
+
+// a value read anew through an opaque move: what an iteration computes
+// from it is not hoisted out of the loop into registers that would stay
+// live across it (the lane's state needs them)
+__device__ __forceinline__ uint32_t opaque(uint32_t v) {
+  uint32_t r;
+  asm volatile("mov.b32 %0, %1;\n" : "=r"(r) : "r"(v));
+  return r;
+}
+
+// the next product's operand from the lane's z, y: w_G = rho z - y split
+// to bf16 hi/lo, or d o (rho_B z_B - y_B) in fp32 for the box rows
+template <int T>
+__device__ __forceinline__ void emit(uint32_t base, const Smem& s,
+                                     const Lane& p, const float4 (&rc)[2],
+                                     const float (&z)[T / 8][4],
+                                     const float (&y)[T / 8][4]) {
+  if (!p.box) {
+#pragma unroll
+    for (int nt = 0; nt < T / 8; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t at =
+            2u * swz<T>(p.i0 + 8 * h, nt * 8 + 2 * (p.lane & 3));
+        uint32_t wh, wl;
+        split2(rc[h].x * z[nt][2 * h] - y[nt][2 * h],
+               rc[h].x * z[nt][2 * h + 1] - y[nt][2 * h + 1], wh, wl);
+        sts_b32(base + s.whi + at, wh);
+        sts_b32(base + s.wlo + at, wl);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < T / 8; ++nt) {
+      float e[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        e[c] = rc[c >> 1].z * (rc[c >> 1].x * z[nt][c] - y[nt][c]);
+      sts_f4(base + s.dwb + p.slot + 512u * nt, e[0], e[1], e[2], e[3]);
+    }
   }
 }
 
-__global__ void __launch_bounds__(PHC_MIX_BLOCK)
-admm_mixed_kernel(const float* __restrict__ q, const float* __restrict__ lG,
-                  const float* __restrict__ uG, const float* __restrict__ lB,
-                  const float* __restrict__ uB, const float* __restrict__ z0G,
-                  const float* __restrict__ y0G, const float* __restrict__ z0B,
-                  const float* __restrict__ y0B, const bf16* __restrict__ Ahi,
-                  const bf16* __restrict__ Alo, const bf16* __restrict__ Mhi,
-                  const bf16* __restrict__ Mlo, const float* __restrict__ vec,
-                  float* zG, float* yG, float* zB, float* yB, int B, int nr,
-                  int mG, int iters, float alpha) {
+// d (the shape's dims) and s (the shared-memory layout from address 0) come
+// as parameters: the constant bank holds them, not registers
+template <int T>
+__global__ void __launch_bounds__(MaxThreads<T>::value, 1)
+admm_mixed_kernel(const float* __restrict__ q, const float* __restrict__ uG,
+                  const float* __restrict__ lB, const float* __restrict__ uB,
+                  const float* __restrict__ z0G, const float* __restrict__ y0G,
+                  const float* __restrict__ z0B, const float* __restrict__ y0B,
+                  const bf16* __restrict__ Ahi, const bf16* __restrict__ Alo,
+                  const bf16* __restrict__ Mhi, const bf16* __restrict__ Mlo,
+                  const float* __restrict__ vec, float* zG, float* yG,
+                  float* zB, float* yB, const Dims d, const Smem s, int B,
+                  int iters, float alpha) {
+  constexpr int NT = T / 8;  // n8 tiles of the problem tile
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Dims d = make_dims(nr, mG);
-  const Smem s = carve(smem_raw, d);
-  const int T = PHC_MIX_T;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b0 = blockIdx.x * T;
-  // per-row constants, packed as for K1: [dbox, 1/dbox, rhoB, 1/rhoB, 1/E_B,
-  // 1/(D c) | rhoG, 1/rhoG, 1/E_G]
-  const float* dbox = vec;
-  const float* rhoB = vec + 2 * nr;
-  const float* rhoBi = vec + 3 * nr;
-  const float* rhoG = vec + 6 * nr;
-  const float* rhoGi = vec + 6 * nr + mG;
+  const uint32_t sb = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const int nr = d.nr, mG = d.mG;
+  const int items = d.nT * NT * 32;  // float4 items of t in accumulator order
 
-  for (int i = tid; i < nr * mG; i += PHC_MIX_BLOCK) {
-    s.Ahi[i] = Ahi[i];
-    s.Alo[i] = Alo[i];
+  {
+    const int b0 = blockIdx.x * T;
+    stage(smem_raw + s.Ahi, Ahi, nr, mG, stride_a(d));
+    stage(smem_raw + s.Alo, Alo, nr, mG, stride_a(d));
+    stage(smem_raw + s.Mhi, Mhi, d.R, nr, stride_m(d));
+    stage(smem_raw + s.Mlo, Mlo, d.R, nr, stride_m(d));
+    // per row of u: (rho, 1/rho, d_box, 0), from vec packed as for K1:
+    // [dbox, 1/dbox, rhoB, 1/rhoB, 1/E_B, 1/(D c) | rhoG, 1/rhoG, 1/E_G]
+    float4* const rows4 = reinterpret_cast<float4*>(smem_raw + s.rows);
+    for (int r = threadIdx.x; r < d.R; r += blockDim.x) {
+      const int j = r - mG;
+      rows4[r] = r < mG ? make_float4(vec[6 * nr + r], vec[6 * nr + mG + r],
+                                      0.f, 0.f)
+                        : make_float4(vec[2 * nr + j], vec[3 * nr + j],
+                                      vec[j], 0.f);
+    }
+    // q and l_B in accumulator order (problems past the end of the batch: 0)
+    float4* const q4 = reinterpret_cast<float4*>(smem_raw + s.q);
+    float4* const lb4 = reinterpret_cast<float4*>(smem_raw + s.lb);
+    for (int v = threadIdx.x; v < items; v += blockDim.x) {
+      const int ln = v & 31, nt = (v >> 5) % NT, jt = (v >> 5) / NT;
+      const int j = jt * 16 + (ln >> 2), b = b0 + nt * 8 + 2 * (ln & 3);
+      float e[4], l[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int bc = b + (c & 1);
+        const size_t at = (size_t)bc * nr + j + 8 * (c >> 1);
+        e[c] = bc < B ? q[at] : 0.f;
+        l[c] = bc < B ? lB[at] : 0.f;
+      }
+      q4[v] = make_float4(e[0], e[1], e[2], e[3]);
+      lb4[v] = make_float4(l[0], l[1], l[2], l[3]);
+    }
   }
-  for (int i = tid; i < d.R * nr; i += PHC_MIX_BLOCK) {
-    s.Mhi[i] = Mhi[i];
-    s.Mlo[i] = Mlo[i];
-  }
-  load_tile(s.lG, lG, mG, b0, B, 0.f);
-  load_tile(s.uG, uG, mG, b0, B, 0.f);
-  load_tile(s.zG, z0G, mG, b0, B, 0.f);
-  load_tile(s.yG, y0G, mG, b0, B, 0.f);
-  load_tile(s.lB, lB, nr, b0, B, 0.f);
-  load_tile(s.uB, uB, nr, b0, B, 0.f);
-  load_tile(s.zB, z0B, nr, b0, B, 0.f);
-  load_tile(s.yB, y0B, nr, b0, B, 0.f);
-  load_tile(s.q, q, nr, b0, B, 0.f);
   __syncthreads();
-  for (int idx = tid; idx < mG * T; idx += PHC_MIX_BLOCK)
-    s.zG[idx] = clipf(s.zG[idx], s.lG[idx], s.uG[idx]);
-  for (int idx = tid; idx < nr * T; idx += PHC_MIX_BLOCK)
-    s.zB[idx] = clipf(s.zB[idx], s.lB[idx], s.uB[idx]);
+
+  // the lane's z, y and u stay in registers for the whole solve; l_B is
+  // read from the box lane's slots of s.lb, l_G is the constant -BIG
+  float z[NT][4], y[NT][4], hi[NT][4];
+  {
+    const Lane p = place<T>(threadIdx.x, sb, d, s);
+    const int b0 = blockIdx.x * T, rows = p.box ? nr : mG;
+    const float* usrc = p.box ? uB : uG;
+    const float* zsrc = p.box ? z0B : z0G;
+    const float* ysrc = p.box ? y0B : y0G;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float4 l4 =
+          p.box ? lds_f4(sb + s.lb + p.slot + 512u * nt) : BIG4;
+      const float lo[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int b = b0 + nt * 8 + 2 * (p.lane & 3) + (c & 1);
+        const size_t at = (size_t)b * rows + p.i0 + 8 * (c >> 1);
+        const bool in = b < B;
+        hi[nt][c] = in ? usrc[at] : 0.f;
+        z[nt][c] = clipf(in && zsrc ? zsrc[at] : 0.f, lo[c], hi[nt][c]);
+        y[nt][c] = in && ysrc ? ysrc[at] : 0.f;
+      }
+    }
+    const float4 rc[2] = {lds_f4(p.row), lds_f4(p.row + 128u)};
+    emit<T>(sb, s, p, rc, z, y);
+  }
   __syncthreads();
 
   for (int k = 0; k < iters; ++k) {
-    // 1. w_G = rho z - y, split to bf16 hi/lo
-    for (int idx = tid; idx < mG * T; idx += PHC_MIX_BLOCK) {
-      const int i = idx / T;
-      split_bf16(rhoG[i] * s.zG[idx] - s.yG[idx], s.whi + idx, s.wlo + idx);
-    }
-    __syncthreads();
-    // 2. partial tiles of A_G^T w_G: output tile jt, K slice ks
-    for (int job = warp; job < d.nT * d.ksplit; job += PHC_MIX_WARPS) {
+    const int tid = (int)opaque(threadIdx.x);
+    const uint32_t base = opaque(sb);
+    const Lane p = place<T>(tid, base, d, s);
+    // 1. partial tiles of t = A_G^T w_G: row tile jt, K slice ks
+    for (int job = p.warp; job < d.jobs; job += d.warps) {
       const int jt = job / d.ksplit, ks = job % d.ksplit;
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-      mma3(acc, s.Ahi + (size_t)jt * 16 * mG, s.Alo + (size_t)jt * 16 * mG, mG,
-           s.whi, s.wlo, ks * d.kT / d.ksplit, (ks + 1) * d.kT / d.ksplit);
-      wmma::store_matrix_sync(s.stage + (size_t)job * 256, acc, 16,
-                              wmma::mem_row_major);
+      const uint32_t a =
+          2u * ((jt * 16 + (p.lane & 15)) * stride_a(d) + (p.lane >> 4) * 8);
+      float acc[NT][4] = {};
+      product<T>(acc, base + s.Ahi + a, base + s.Alo + a, base + s.whi,
+                 base + s.wlo, ks * d.kT / d.ksplit,
+                 (ks + 1) * d.kT / d.ksplit, p.lane);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        sts_f4(base + s.part + 16u * ((job * NT + nt) * 32 + p.lane),
+               acc[nt][0], acc[nt][1], acc[nt][2], acc[nt][3]);
     }
     __syncthreads();
-    // 3. t = sum of the partials + d o w_B - q, split to bf16 hi/lo
-    for (int idx = tid; idx < nr * T; idx += PHC_MIX_BLOCK) {
-      const int j = idx / T, p = idx % T;
-      const float* part =
-          s.stage + (size_t)(j / 16) * d.ksplit * 256 + (j % 16) * 16 + p;
-      float acc = 0.f;
-      for (int ks = 0; ks < d.ksplit; ++ks) acc += part[ks * 256];
-      const float wB = rhoB[j] * s.zB[idx] - s.yB[idx];
-      split_bf16(acc + dbox[j] * wB - s.q[idx], s.thi + idx, s.tlo + idx);
-    }
-    __syncthreads();
-    // 4. u = M t, one 16-row tile per warp, then that tile's z/y update
-    for (int rt = warp; rt < d.R / 16; rt += PHC_MIX_WARPS) {
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-      mma3(acc, s.Mhi + (size_t)rt * 16 * nr, s.Mlo + (size_t)rt * 16 * nr, nr,
-           s.thi, s.tlo, 0, nr / 16);
-      float* st = s.stage + warp * 256;
-      wmma::store_matrix_sync(st, acc, 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = rt * 16 + e / 16, p = e % 16;
-        const bool g = row < mG;
-        const int i = g ? row : row - mG;
-        const int at = i * T + p;
-        float* zv = g ? s.zG : s.zB;
-        float* yv = g ? s.yG : s.yB;
-        const float rho = g ? rhoG[i] : rhoB[i];
-        const float rhoi = g ? rhoGi[i] : rhoBi[i];
-        const float lo = (g ? s.lG : s.lB)[at], hi = (g ? s.uG : s.uB)[at];
-        const float z = zv[at], y = yv[at];
-        const float zr = alpha * st[e] + (1.f - alpha) * z;
-        const float zn = clipf(zr + y * rhoi, lo, hi);
-        zv[at] = zn;
-        yv[at] = y + rho * (zr - zn);
+    // 2. t = sum of the partials + d o w_B - q, split to bf16 hi/lo
+    for (int v = tid; v < items; v += blockDim.x) {
+      const int ln = v & 31, nt = (v >> 5) % NT, jt = (v >> 5) / NT;
+      const uint32_t pa =
+          base + s.part + 16u * ((jt * d.ksplit * NT + nt) * 32 + ln);
+      float4 a = lds_f4(pa);
+      for (int ks = 1; ks < d.ksplit; ++ks) {
+        const float4 b = lds_f4(pa + 16u * ks * NT * 32);
+        a.x += b.x;
+        a.y += b.y;
+        a.z += b.z;
+        a.w += b.w;
       }
-      __syncwarp();
+      const float4 dw = lds_f4(base + s.dwb + 16u * v);
+      const float4 qq = lds_f4(base + s.q + 16u * v);
+      const int j = jt * 16 + (ln >> 2), pp = nt * 8 + 2 * (ln & 3);
+      uint32_t th, tl;
+      split2(a.x + dw.x - qq.x, a.y + dw.y - qq.y, th, tl);
+      sts_b32(base + s.thi + 2u * swz<T>(j, pp), th);
+      sts_b32(base + s.tlo + 2u * swz<T>(j, pp), tl);
+      split2(a.z + dw.z - qq.z, a.w + dw.w - qq.w, th, tl);
+      sts_b32(base + s.thi + 2u * swz<T>(j + 8, pp), th);
+      sts_b32(base + s.tlo + 2u * swz<T>(j + 8, pp), tl);
     }
+    __syncthreads();
+    // 3. u = M t for this warp's rows, then the z/y update from the
+    // accumulators (alpha relaxation, clip, dual step), then the operand
+    float acc[NT][4] = {};
+    {
+      const uint32_t a = 2u * ((p.warp * 16 + (p.lane & 15)) * stride_m(d) +
+                               (p.lane >> 4) * 8);
+      product<T>(acc, base + s.Mhi + a, base + s.Mlo + a, base + s.thi,
+                 base + s.tlo, 0, nr / 16, p.lane);
+    }
+    const float4 rc[2] = {lds_f4(p.row), lds_f4(p.row + 128u)};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float4 l4 =
+          p.box ? lds_f4(base + s.lb + p.slot + 512u * nt) : BIG4;
+      const float lo[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float rho = rc[c >> 1].x, rhoi = rc[c >> 1].y;
+        const float zr = alpha * acc[nt][c] + (1.f - alpha) * z[nt][c];
+        const float zn = clipf(zr + y[nt][c] * rhoi, lo[c], hi[nt][c]);
+        y[nt][c] = y[nt][c] + rho * (zr - zn);
+        z[nt][c] = zn;
+      }
+    }
+    emit<T>(base, s, p, rc, z, y);
     __syncthreads();
   }
 
-  store_tile(zG, s.zG, mG, b0, B);
-  store_tile(yG, s.yG, mG, b0, B);
-  store_tile(zB, s.zB, nr, b0, B);
-  store_tile(yB, s.yB, nr, b0, B);
+  {
+    const Lane p = place<T>((int)opaque(threadIdx.x), sb, d, s);
+    const int b0 = (int)opaque(blockIdx.x) * T, rows = p.box ? nr : mG;
+    float* zdst = p.box ? zB : zG;
+    float* ydst = p.box ? yB : yG;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int b = b0 + nt * 8 + 2 * (p.lane & 3) + (c & 1);
+        if (b < B) {
+          const size_t at = (size_t)b * rows + p.i0 + 8 * (c >> 1);
+          zdst[at] = z[nt][c];
+          ydst[at] = y[nt][c];
+        }
+      }
+    }
+  }
+}
+
+template <int T>
+int launch(const float* q, const float* uG, const float* lB, const float* uB,
+           const float* z0G, const float* y0G, const float* z0B,
+           const float* y0B, const void* Ahi, const void* Alo,
+           const void* Mhi, const void* Mlo, const float* vec, float* zG,
+           float* yG, float* zB, float* yB, int B, int nr, int mG, int iters,
+           float alpha, cudaStream_t st) {
+  const Dims d = make_dims(nr, mG);
+  const int threads = 32 * d.warps;
+  if (threads > MaxThreads<T>::value) return (int)cudaErrorInvalidValue;
+  const Smem s = carve(0, d, T);
+  int rc = (int)cudaFuncSetAttribute(
+      (const void*)admm_mixed_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.end);
+  if (rc) return rc;
+  const int grid = (B + T - 1) / T;
+  admm_mixed_kernel<T><<<grid, threads, s.end, st>>>(
+      q, uG, lB, uB, z0G, y0G, z0B, y0B, (const bf16*)Ahi, (const bf16*)Alo,
+      (const bf16*)Mhi, (const bf16*)Mlo, vec, zG, yG, zB, yB, d, s, B, iters,
+      alpha);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// dynamic shared memory one block needs (nr, mG multiples of 16)
-int phc_admm_mixed_smem_bytes(int nr, int mG) {
-  return (int)smem_bytes(make_dims(nr, mG));
+// dynamic shared memory one block of tile T needs (nr, mG multiples of 16)
+int phc_admm_mixed_smem_bytes(int nr, int mG, int T) {
+  return (int)smem_bytes(make_dims(nr, mG), T);
+}
+
+// threads the instantiation of tile T is compiled for (0: no such tile)
+int phc_admm_mixed_max_threads(int T) {
+  return T == 16 ? MaxThreads<16>::value
+                 : T == 32 ? MaxThreads<32>::value : 0;
 }
 
 const char* phc_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-int phc_admm_k1_mixed(const float* q, const float* lG, const float* uG,
+int phc_admm_k1_mixed(const float* q, const float* uG,
                       const float* lB, const float* uB, const float* z0G,
                       const float* y0G, const float* z0B, const float* y0B,
                       const void* Ahi, const void* Alo, const void* Mhi,
                       const void* Mlo, const float* vec, float* zG, float* yG,
                       float* zB, float* yB, int B, int nr, int mG, int iters,
-                      float alpha, void* stream) {
-  if (nr < 16 || mG < 16 || nr % 16 || mG % 16)
+                      float alpha, int T, void* stream) {
+  if (B < 1 || nr < 16 || mG < 16 || nr % 16 || mG % 16)
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = smem_bytes(make_dims(nr, mG));
-  if (bytes > 48 * 1024) {
-    int rc = (int)cudaFuncSetAttribute(
-        (const void*)admm_mixed_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (rc) return rc;
-  }
-  const int grid = (B + PHC_MIX_T - 1) / PHC_MIX_T;
-  admm_mixed_kernel<<<grid, PHC_MIX_BLOCK, bytes, (cudaStream_t)stream>>>(
-      q, lG, uG, lB, uB, z0G, y0G, z0B, y0B, (const bf16*)Ahi,
-      (const bf16*)Alo, (const bf16*)Mhi, (const bf16*)Mlo, vec, zG, yG, zB,
-      yB, B, nr, mG, iters, alpha);
-  return (int)cudaGetLastError();
+  if (T == 16)
+    return launch<16>(q, uG, lB, uB, z0G, y0G, z0B, y0B, Ahi, Alo, Mhi,
+                      Mlo, vec, zG, yG, zB, yB, B, nr, mG, iters, alpha,
+                      (cudaStream_t)stream);
+  if (T == 32)
+    return launch<32>(q, uG, lB, uB, z0G, y0G, z0B, y0B, Ahi, Alo, Mhi,
+                      Mlo, vec, zG, yG, zB, yB, B, nr, mG, iters, alpha,
+                      (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -41,7 +41,8 @@ phase): the first ``int(iters * low_frac)`` iterations take each product
 as the manual 3-pass bf16 product  A·b ≈ Ahi·bhi + Ahi·blo + Alo·bhi
 (hi = bf16(a), lo = bf16(a − hi), fp32 accumulation). On the card that
 phase is its own kernel on the tensor cores (``csrc/admm_mixed.cu``,
-a tile of 16 problems per block); it hands its iterates to K1, which
+a tile of 16 or 32 problems per block, ``plan_mixed``); it hands its
+iterates to K1, which
 runs the full-precision tail, the final half step and the stats. The
 tensor-core tiles want nr and mGp in multiples of 16, so this path (plain
 version and kernel alike) runs on a copy of the prep zero-padded from the
@@ -688,26 +689,117 @@ def _layout_mixed(kq: KernelQP):
     return lay
 
 
-def _launch_k1_mixed(kq: KernelQP, qs, lG, uG, lB, uB, warm4, iters_lo: int):
-    """The split-precision phase on the tensor cores; returns the iterates
-    (z_G, y_G, z_B, y_B) that warm-start K1's full-precision tail."""
-    from pyhybridcontrol_tpu_torch.ops._build import load_library
+# The split-precision kernel's instantiations (csrc/admm_mixed.cu has the
+# same figures): a block owns a tile of T problems and has one warp per 16
+# rows of u = M t; each tile width is compiled for at most this many threads.
+MIXED_TILES = (32, 16)
+MIXED_MAX_THREADS = {32: 544, 16: 640}
 
-    lib = load_library("admm_mixed")
-    nr, mGp = kq.n_pad, kq.m_pad
-    B = qs.shape[0]
-    if nr % MIXED_GRAIN or mGp % MIXED_GRAIN or min(nr, mGp) < MIXED_GRAIN:
-        raise ValueError(
-            f"split-precision ADMM kernel: nr={nr}, mGp={mGp} must be "
-            f"multiples of {MIXED_GRAIN} (pad_kernel_qp)")
-    smem = lib.phc_admm_mixed_smem_bytes(nr, mGp)
+
+@dataclasses.dataclass(frozen=True)
+class MixedPlan:
+    """Instantiation of the split-precision kernel for one batch: problems
+    per block, threads per block and dynamic shared memory (bytes)."""
+
+    tile: int
+    threads: int
+    smem: int
+
+
+def mixed_strides(nr: int, mGp: int):
+    """Row strides (bf16 elements) of Â_Gᵀ and M in shared memory: 8 over a
+    multiple of 16, so the 8 rows (16 bytes each) of an ``ldmatrix`` phase
+    fall in 8 different 16-byte bank groups. (The operand tiles are not
+    padded: their 16-byte chunks are XOR-swizzled.)"""
+    return mGp + 8, nr + 8
+
+
+def _mixed_jobs(nr: int, mGp: int) -> int:
+    """(row tile, K slice) jobs of the t = Â_Gᵀw product: as many K slices
+    per row tile as the warps allow, at most one per K tile."""
+    warps, n_t, k_t = (nr + mGp) // 16, nr // 16, mGp // 16
+    return n_t * min(k_t, max(1, warps // n_t))
+
+
+def mixed_smem_bytes(nr: int, mGp: int, tile: int) -> int:
+    """Shared memory one block of the split-precision kernel needs with a
+    tile of ``tile`` problems (``phc_admm_mixed_smem_bytes`` gives the
+    same): the bf16 hi/lo pairs of Â_Gᵀ and M and of both operand tiles with
+    padded strides, both operand tiles, in fp32 the K-slice partials of t,
+    d∘w_B, q and l_B, and (ρ, 1/ρ, d_box, 0) per row of u."""
+    sa, sm = mixed_strides(nr, mGp)
+    R = mGp + nr
+    return (4 * (nr * sa + R * sm) + 4 * R * tile
+            + 4 * tile * (16 * _mixed_jobs(nr, mGp) + 3 * nr) + 16 * R)
+
+
+def plan_mixed(B: int, nr: int, mGp: int, sm_count: int = SM_COUNT,
+               tile: Optional[int] = None) -> MixedPlan:
+    """The instantiation the split-precision kernel runs a batch of ``B``
+    problems with, from the batch size, the 16-padded shape and the card's
+    SM count alone: a tile of 32 problems where a tile of 16 would take more
+    than one round of blocks (⌈B/16⌉ > ``sm_count``) and 32 fits, else 16.
+    ``tile`` asks for one width. Every batch goes through the kernel (the
+    ragged last tile is masked there). Raises ValueError where nothing
+    fits: there is no other path."""
+    what = "split-precision ADMM kernel"
     if B < 1:
-        raise ValueError("split-precision ADMM kernel: empty batch")
+        raise ValueError(f"{what}: empty batch")
+    if nr % MIXED_GRAIN or mGp % MIXED_GRAIN or min(nr, mGp) < MIXED_GRAIN:
+        raise ValueError(f"{what}: nr={nr}, mGp={mGp} must be multiples of "
+                         f"{MIXED_GRAIN} (pad_kernel_qp)")
+    if tile is not None and tile not in MIXED_TILES:
+        raise ValueError(f"{what}: no instantiation with a tile of {tile} "
+                         f"problems (have {MIXED_TILES})")
+    threads = 2 * (nr + mGp)
+
+    def fits(t):
+        return (mixed_smem_bytes(nr, mGp, t) <= SMEM_MAX
+                and threads <= MIXED_MAX_THREADS[t])
+
+    if tile is None:
+        tile = 32 if -(-B // 16) > sm_count and fits(32) else 16
+    smem = mixed_smem_bytes(nr, mGp, tile)
     if smem > SMEM_MAX:
         raise ValueError(
-            f"split-precision ADMM kernel: nr={nr}, mGp={mGp} needs {smem} "
-            f"bytes of shared memory per block, above the {SMEM_MAX} an "
-            f"sm_90 block has")
+            f"{what}: nr={nr}, mGp={mGp} needs {smem} bytes of shared memory "
+            f"per block with a tile of {tile}, above the {SMEM_MAX} an sm_90 "
+            f"block has")
+    if threads > MIXED_MAX_THREADS[tile]:
+        raise ValueError(
+            f"{what}: nr={nr}, mGp={mGp} needs {threads} threads per block, "
+            f"above the {MIXED_MAX_THREADS[tile]} the tile of {tile} is "
+            f"built for")
+    return MixedPlan(tile=tile, threads=threads, smem=smem)
+
+
+_SM_COUNTS: dict = {}
+
+
+def _sm_count(dev) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    got = _SM_COUNTS.get(idx)
+    if got is None:
+        got = _SM_COUNTS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return got
+
+
+def _launch_k1_mixed(kq: KernelQP, qs, lG, uG, lB, uB, warm4, iters_lo: int,
+                     tile: Optional[int] = None):
+    """The split-precision phase on the tensor cores; returns the iterates
+    (z_G, y_G, z_B, y_B) that warm-start K1's full-precision tail. ``tile``
+    asks for one tile width instead of the plan's. The arrays are
+    ``_pack``'s: the kernel takes l_G as the constant −BIG of the G rows
+    (G x ≤ h, as K1 does) and does not read ``lG``; on the zero-padded rows,
+    where ``_pack`` puts 0, M's rows are zero and z stays 0 either way."""
+    from pyhybridcontrol_tpu_torch.ops._build import load_library
+
+    nr, mGp = kq.n_pad, kq.m_pad
+    B = qs.shape[0]
+    if qs.device.type != "cuda":
+        raise ValueError(f"qs: expected a CUDA tensor, got {qs.device}")
+    pl = plan_mixed(B, nr, mGp, _sm_count(qs.device), tile)
     names = ("q", "lG", "uG", "lB", "uB", "z0G", "y0G", "z0B", "y0B")
     rows = (nr, mGp, mGp, nr, nr, mGp, mGp, nr, nr)
     for name, t, r in zip(names, (qs, lG, uG, lB, uB) + tuple(warm4 or ()),
@@ -715,6 +807,7 @@ def _launch_k1_mixed(kq: KernelQP, qs, lG, uG, lB, uB, warm4, iters_lo: int):
         _check(name, t, (B, r))
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
+    lib = load_library("admm_mixed")
     lay, vec = _layout_mixed(kq), _layout(kq)["vec"]
     outs = [torch.empty((B, r), dtype=torch.float32, device=qs.device)
             for r in (mGp, mGp, nr, nr)]
@@ -722,9 +815,9 @@ def _launch_k1_mixed(kq: KernelQP, qs, lG, uG, lB, uB, warm4, iters_lo: int):
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream(qs.device).cuda_stream
         rc = lib.phc_admm_k1_mixed(
-            *map(_ptr, (qs, lG, uG, lB, uB, *w, *lay["A"], *lay["M"], vec,
+            *map(_ptr, (qs, uG, lB, uB, *w, *lay["A"], *lay["M"], vec,
                         *outs)),
-            B, nr, mGp, int(iters_lo), kq.base.alpha,
+            B, nr, mGp, int(iters_lo), kq.base.alpha, pl.tile,
             ctypes.c_void_p(stream))
     _raise_on(lib, rc, "K1 split-precision phase (admm_k1_mixed)")
     _count_launch("admm_k1_mixed", B)

@@ -497,3 +497,226 @@ def test_serve_limit_follows_fp32_resolution_above_the_floor(obj, limit):
     assert cs.serve_limit(obj) == pytest.approx(limit, rel=1e-12)
     lim = cs.serve_limit(np.array([1.0, -30.5, -1221.6]))
     assert lim.shape == (3,) and lim[2] > lim[1] == lim[0] == cs.SERVE_FLOOR
+
+
+# ---- the split-precision kernel's plan, strides and lane ownership -------
+
+
+def _shape16(N):
+    """(nr, mGp) of the double integrator at horizon N on the 16 grain of
+    the split-precision kernel."""
+    return tuple(-(-d // 16) * 16 for d in _shape(N))
+
+
+@pytest.mark.parametrize("N,B,sms,tile", [
+    (20, 4096, 132, 32),    # bench primary: one round of 128 blocks
+    (20, 4095, 132, 32),    # ragged last tile
+    (20, 128, 132, 16),     # chip_smoke's small batches
+    (20, 2112, 132, 16),    # ⌈B/16⌉ = 132 blocks: one round already
+    (20, 2113, 132, 32),
+    (20, 4096, 264, 16),    # a card with twice the SMs
+    (12, 1, 132, 16), (12, 33, 132, 16), (12, 4095, 132, 32),
+    (21, 4096, 132, 16),    # a tile of 32 does not fit N=21
+])
+def test_plan_mixed_picks_the_tile(N, B, sms, tile):
+    """A tile of 32 problems where 16 would take more than one round of
+    blocks (⌈B/16⌉ > SMs) and 32 fits, else 16; one warp per 16 rows of
+    u; the reckoned shared memory fits an sm_90 block."""
+    nr, mGp = _shape16(N)
+    pl = ca.plan_mixed(B, nr, mGp, sms)
+    assert pl.tile == tile
+    assert pl.threads == 2 * (nr + mGp) <= ca.MIXED_MAX_THREADS[tile]
+    assert pl.smem == ca.mixed_smem_bytes(nr, mGp, tile) <= ca.SMEM_MAX
+    for t in ca.MIXED_TILES:                 # an asked width, where it fits
+        if ca.mixed_smem_bytes(nr, mGp, t) <= ca.SMEM_MAX and \
+                pl.threads <= ca.MIXED_MAX_THREADS[t]:
+            assert ca.plan_mixed(B, nr, mGp, sms, tile=t).tile == t
+
+
+def test_plan_mixed_refuses_what_does_not_fit_and_empty_batches():
+    """N=21 is the largest horizon of the double integrator that fits (a
+    tile of 16, 194,048 bytes; the bench primary's tile of 32 takes
+    230,144); N=22 raises, as do an empty batch, a width with no
+    instantiation, a forced tile that does not fit and shapes off the 16
+    grain: ValueError, no other path."""
+    assert ca.mixed_smem_bytes(*_shape16(20), 32) == 230144
+    assert ca.mixed_smem_bytes(*_shape16(21), 16) == 194048
+    fits = [N for N in range(4, 40)
+            if ca.mixed_smem_bytes(*_shape16(N), 16) <= ca.SMEM_MAX]
+    assert max(fits) == 21
+    with pytest.raises(ValueError, match="shared memory"):
+        ca.plan_mixed(2, *_shape16(22))
+    with pytest.raises(ValueError, match="shared memory"):
+        ca.plan_mixed(4096, *_shape16(21), tile=32)
+    with pytest.raises(ValueError, match="empty batch"):
+        ca.plan_mixed(0, *_shape16(12))
+    with pytest.raises(ValueError, match="no instantiation"):
+        ca.plan_mixed(64, *_shape16(12), tile=8)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ca.plan_mixed(64, 40, 120)
+    with pytest.raises(ValueError, match="threads"):
+        ca.plan_mixed(64, 16, 640)          # 656 rows: 41 warps
+
+
+def test_plan_mixed_depends_on_shapes_alone():
+    """Nothing but (B, nr, mGp), the SM count and an asked width enters the
+    plan; the instantiations' thread limits are the source's."""
+    assert list(inspect.signature(ca.plan_mixed).parameters) == [
+        "B", "nr", "mGp", "sm_count", "tile"]
+    assert ca.plan_mixed(4096, 64, 208) == ca.plan_mixed(4096, 64, 208, 132)
+    src = open(os.path.join(_REPO, "pyhybridcontrol_tpu_torch", "csrc",
+                            "admm_mixed.cu")).read()
+    got = {int(t): int(v) for t, v in re.findall(
+        r"struct MaxThreads<(\d+)> \{\s*static constexpr int value = (\d+);",
+        src)}
+    assert got == ca.MIXED_MAX_THREADS
+    assert set(got) == set(ca.MIXED_TILES)
+
+
+def _bank_groups(stride_bytes, rows=8):
+    """16-byte bank groups (of the 8 in 128 bytes) hit by ``rows`` rows of
+    16 bytes at ``stride_bytes``."""
+    return {(r * stride_bytes // 16) % 8 for r in range(rows)}
+
+
+def _swz(tile, r, p):
+    """Mirror of the kernel's ``swz``: element (r, p) of an operand tile
+    [rows][tile] whose 16-byte chunks are XOR-swizzled by the row's place
+    in its run of 128-byte lines."""
+    lines, chunks = 64 // tile, tile // 8
+    return r * tile + (((p >> 3) ^ ((r // lines) % chunks)) << 3) + (p & 7)
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("N", range(2, 22))
+def test_mixed_strides_keep_ldmatrix_phases_conflict_free(N, tile):
+    """Each ldmatrix phase reads 8 rows of 16 bytes. Â_Gᵀ and M rows (the
+    A fragments): every stride 8 elements over a multiple of 16 puts them
+    in 8 different bank groups. The operand tiles (B fragments, rows kt·16
+    + lane%16, chunk 2np + lane/16): the swizzle does, and it is a
+    permutation of each row; the lanes' bf16-pair stores of an operand
+    (rows 8a + lane/4, words lane%4 of chunk nt) hit 32 different banks."""
+    nr, mGp = _shape16(N)
+    for stride in ca.mixed_strides(nr, mGp):
+        assert stride % 16 == 8
+        assert _bank_groups(2 * stride) == set(range(8))
+    for r in range(64):
+        assert sorted(_swz(tile, r, p) for p in range(tile)) == list(
+            range(r * tile, (r + 1) * tile))
+        # a K tile further on keeps the swizzle (the kernel adds 16·T)
+        assert all(_swz(tile, r + 16, p) == _swz(tile, r, p) + 16 * tile
+                   for p in range(tile))
+    for kt in range(3):
+        for np_ in range(tile // 16):
+            for half in (0, 1):          # lanes 0-15, lanes 16-31
+                for phase in (0, 8):     # the 8 lanes of one ldmatrix phase
+                    addrs = [2 * _swz(tile, kt * 16 + phase + i,
+                                      np_ * 16 + half * 8) for i in range(8)]
+                    assert all(a % 16 == 0 for a in addrs)
+                    assert {a // 16 % 8 for a in addrs} == set(range(8))
+    for a in range(4):
+        for nt in range(tile // 8):
+            banks = {2 * _swz(tile, 8 * a + ln // 4, nt * 8 + 2 * (ln % 4))
+                     // 4 % 32 for ln in range(32)}
+            assert len(banks) == 32
+
+
+def _mixed_ownership(nr, mGp, tile):
+    """Mirror of the kernel's lane -> elements of u for the m16n8k16
+    accumulator: warp w owns rows 16w.. of u; lane l holds, for each n8
+    tile nt and accumulator register c, row 16w + l/4 + 8(c/2) and
+    problem 8nt + 2(l%4) + c%2. Returns {(row, problem): (w, l, nt, c)}."""
+    own = {}
+    for w in range((nr + mGp) // 16):
+        for ln in range(32):
+            for nt in range(tile // 8):
+                for c in range(4):
+                    key = (16 * w + ln // 4 + 8 * (c // 2),
+                           8 * nt + 2 * (ln % 4) + c % 2)
+                    assert key not in own
+                    own[key] = (w, ln, nt, c)
+    return own
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("N", [12, 20])
+def test_mixed_lane_ownership_covers_u_once(N, tile):
+    """Every (row, problem) of u is one lane's register, once; a warp's
+    rows are all G rows or all box rows; the accumulator-order arrays of
+    t (q, d∘w_B, the K-slice partials: item v = (row tile, n8 tile, lane))
+    name the same elements the box-row warps own; and the t product's
+    (row tile, K slice) jobs cover every K tile of every row tile once."""
+    nr, mGp = _shape16(N)
+    own = _mixed_ownership(nr, mGp, tile)
+    assert set(own) == {(r, p) for r in range(nr + mGp)
+                        for p in range(tile)}
+    for w in range((nr + mGp) // 16):
+        assert len({16 * w + i >= mGp for i in range(16)}) == 1
+    nt_count = tile // 8
+    for v in range(nr // 16 * nt_count * 32):
+        ln, nt, jt = v % 32, (v // 32) % nt_count, v // 32 // nt_count
+        for c in range(4):
+            j = jt * 16 + ln // 4 + 8 * (c // 2)
+            p = nt * 8 + 2 * (ln % 4) + c % 2
+            assert own[(mGp + j, p)] == (mGp // 16 + jt, ln, nt, c)
+    warps, n_t, k_t = (nr + mGp) // 16, nr // 16, mGp // 16
+    jobs = ca._mixed_jobs(nr, mGp)
+    assert n_t <= jobs <= warps and jobs % n_t == 0
+    ks = jobs // n_t
+    cover = [(jt, kt) for job in range(jobs)
+             for jt in [job // ks]
+             for kt in range(job % ks * k_t // ks, (job % ks + 1) * k_t // ks)]
+    assert sorted(cover) == [(jt, kt) for jt in range(n_t)
+                             for kt in range(k_t)]
+
+
+def test_mixed_binding_mirrors_the_kernel_source():
+    """The ctypes binding of the split-precision library gives each
+    exported function of ``admm_mixed.cu`` its parameters in the source's
+    order (pointers as c_void_p, ints as c_int, floats as c_float), and the
+    wrapper passes as many arguments."""
+    from pyhybridcontrol_tpu_torch.ops import _build
+
+    src = open(os.path.join(_REPO, "pyhybridcontrol_tpu_torch", "csrc",
+                            "admm_mixed.cu")).read()
+    src = src[src.index('extern "C" {'):]
+
+    class Fn:
+        pass
+
+    class Lib:
+        def __init__(self):
+            for name in re.findall(r"\n\w[\w\s\*]*?\b(phc_\w+)\(", src):
+                setattr(self, name, Fn())
+
+    lib = Lib()
+    _build._bind_admm_mixed(lib)
+    kinds = {"void*": ctypes.c_void_p, "float*": ctypes.c_void_p,
+             "int": ctypes.c_int, "float": ctypes.c_float}
+    for name, params in re.findall(r"\n\w[\w\s\*]*?\b(phc_admm\w+)\(([^)]*)\)",
+                                   src):
+        want = []
+        for decl in params.split(","):
+            decl = decl.replace("const", "").split()
+            kind = decl[0].rstrip("*") + ("*" if "*" in "".join(decl) else "")
+            want.append(kinds[kind])
+        assert getattr(lib, name).argtypes == want, name
+    n_args = len(lib.phc_admm_k1_mixed.argtypes)
+    call = inspect.getsource(ca._launch_k1_mixed)
+    call = call[call.index("lib.phc_admm_k1_mixed("):]
+    ptrs = re.search(r"_ptr, \(([^)]*)\)", call).group(1)
+    n_ptrs = sum(1 for _ in re.finditer(r"\*?[\w\[\]\"]+", ptrs))
+    # the pointers: qs uG lB uB, the four warm arrays (*w), Ahi Alo (*A),
+    # Mhi Mlo (*M), vec, the four outputs (*outs)
+    stars = dict(w=4, outs=4)
+    count = 0
+    for tok in [t.strip() for t in ptrs.replace("\n", " ").split(",")]:
+        if not tok:
+            continue
+        if tok.startswith("*lay"):
+            count += 2
+        elif tok.startswith("*"):
+            count += stars[tok[1:]]
+        else:
+            count += 1
+    assert n_ptrs and count + 7 == n_args

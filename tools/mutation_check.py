@@ -41,21 +41,25 @@ MUTATIONS_ADMM = {
 MUTATIONS_MIXED = {
     "none": None,
     "Alo·bhi pass dropped": (
-        "    wmma::mma_sync(acc, al, bh, acc);\n", ""),
+        "      mma_bf16(acc[2 * np], al, b[0], b[1]);\n"
+        "      mma_bf16(acc[2 * np + 1], al, b[2], b[3]);\n", ""),
     "Ahi·blo pass dropped": (
-        "    wmma::mma_sync(acc, ah, bl, acc);\n", ""),
+        "      ldsm_x4_t(b, b_lo + bo);\n"
+        "      mma_bf16(acc[2 * np], ah, b[0], b[1]);\n"
+        "      mma_bf16(acc[2 * np + 1], ah, b[2], b[3]);\n", ""),
     "iterate rounded to bf16 once, not split": (
-        "*lo = __float2bfloat16_rn(v - __bfloat162float(h));",
-        "*lo = __float2bfloat16_rn(0.f);"),
+        "__floats2bfloat162_rn(a - hf.x, b - hf.y);",
+        "__floats2bfloat162_rn(0.f, 0.f);"),
     "alpha − 0.1": (
-        "const float zr = alpha * st[e] + (1.f - alpha) * z;",
-        "const float zr = (alpha - 0.1f) * st[e] + (1.1f - alpha) * z;"),
+        "const float zr = alpha * acc[nt][c] + (1.f - alpha) * z[nt][c];",
+        "const float zr = (alpha - 0.1f) * acc[nt][c]"
+        " + (1.1f - alpha) * z[nt][c];"),
     "one iteration short": (
         "for (int k = 0; k < iters; ++k) {",
         "for (int k = 0; k < iters - 1; ++k) {"),
     "y not updated in the box block": (
-        "yv[at] = y + rho * (zr - zn);",
-        "yv[at] = g ? y + rho * (zr - zn) : y;"),
+        "y[nt][c] = y[nt][c] + rho * (zr - zn);",
+        "y[nt][c] = p.box ? y[nt][c] : y[nt][c] + rho * (zr - zn);"),
 }
 # every field is read (chip_smoke's --readings mode); the first one off its
 # limit is printed
