@@ -681,6 +681,55 @@ def mixed_iterates(tag, kq16, packed, k0, tiles):
              dict(zip(("zG", "yG", "zB", "yB"), zip(got, ref))))
 
 
+def mixed_tiles_and_limit(dev, rng, rec):
+    """The split-precision kernel's tile widths at batches that leave a
+    ragged last tile, and its shape limit."""
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+    from pyhybridcontrol_tpu_torch.ops._build import load_library
+
+    # both tile widths at batches that leave a ragged last tile, and N=21,
+    # which fits a tile of 16 only: one iteration at every width that fits,
+    # the whole solve at the plan's
+    lib = load_library("admm_mixed")
+    for N, B in ((12, 1), (12, 33), (12, 4095), (20, 4095), (21, 37)):
+        _, qp, spec, _, f, h, lb, ub = problem(N, B, dev, rng)
+        kq = ca.kernel_qp_for(spec)
+        kq16 = ca.pad_kernel_qp(kq)
+        nr, mGp = kq16.n_pad, kq16.m_pad
+        tiles = []
+        for t in ca.MIXED_TILES:
+            try:
+                tiles.append(ca.plan_mixed(B, nr, mGp, tile=t).tile)
+            except ValueError:
+                pass
+        packed = ca._pack(kq16, f, h, lb, ub, None)[:5]
+        mixed_iterates(f"N={N} B={B}", kq16, packed, MIXED_WARM[0], tiles)
+        pl = ca.plan_mixed(B, nr, mGp)
+        need = lib.phc_admm_mixed_smem_bytes(nr, mGp, pl.tile)
+        check(need == pl.smem, f"plan_mixed: N={N} B={B} reckons {pl.smem} "
+              f"bytes of shared memory, the library {need}")
+        iters = 120 if N == 12 else 100
+        args = (kq, f, h, lb, ub)
+        compare(f"N={N} B={B} {iters} it low_frac=1.0 (tile {pl.tile})",
+                ca.admm_solve_cuda(*args, iters=iters, low_frac=1.0),
+                ca.admm_solve_plain(*args, iters=iters, low_frac=1.0), rec,
+                "mixed")
+        print(f"  plan_mixed N={N} B={B}: tile of {pl.tile} problems, "
+              f"{-(-B // pl.tile)} blocks of {pl.threads} threads, "
+              f"{pl.smem} bytes of shared memory per block (limit "
+              f"{ca.SMEM_MAX}); widths that fit {tiles}", flush=True)
+    # the shape limit: the wrapper refuses N=22, it does not fall back
+    _, qp, spec, _, f, h, lb, ub = problem(22, 2, dev, rng)
+    try:
+        ca.admm_solve_cuda(ca.kernel_qp_for(spec), f, h, lb, ub, iters=10,
+                           low_frac=1.0)
+    except ValueError as e:
+        print(f"  N=22 refused by the wrapper: {e}", flush=True)
+    else:
+        raise AssertionError("N=22: the split-precision wrapper must refuse "
+                             "the shape")
+
+
 def phase_k1_mixed(dev, rng, rec):
     """K1 with its split-precision phase against the plain version (both
     tile widths, ragged batches, the shape limit), then the relaxation
@@ -688,7 +737,6 @@ def phase_k1_mixed(dev, rng, rec):
     import torch
 
     from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
-    from pyhybridcontrol_tpu_torch.ops._build import load_library
 
     print("K1 split-precision phase (admm_k1_mixed) vs plain:", flush=True)
     for N, B, iters in ((12, 128, 120), (20, 4096, 100)):
@@ -713,55 +761,6 @@ def phase_k1_mixed(dev, rng, rec):
               flush=True)
         check(gate <= MIXED_GATE, f"mixed gate: {gate:.3e} > {MIXED_GATE}")
         rec[f"n{N}_gate"] = gate
-    main_args = args
-
-    # both tile widths at batches that leave a ragged last tile, and N=21,
-    # which fits a tile of 16 only: one iteration at every width that fits,
-    # the whole solve at the plan's
-    lib = load_library("admm_mixed")
-    for N, B in ((12, 1), (12, 33), (12, 4095), (20, 4095), (21, 37)):
-        _, qp, spec, _, f, h, lb, ub = problem(N, B, dev, rng)
-        kq = ca.kernel_qp_for(spec)
-        kq16 = ca.pad_kernel_qp(kq)
-        nr, mGp = kq16.n_pad, kq16.m_pad
-        tiles = []
-        for t in ca.MIXED_TILES:
-            try:
-                tiles.append(ca.plan_mixed(B, nr, mGp, tile=t).tile)
-            except ValueError:
-                pass
-        packed = ca._pack(kq16, f, h, lb, ub, None)[:5]
-        mixed_iterates(f"N={N} B={B}", kq16, packed, MIXED_WARM[0], tiles)
-        pl = ca.plan_mixed(B, nr, mGp)
-        need = lib.phc_admm_mixed_smem_bytes(nr, mGp, pl.tile)
-        check(need == pl.smem, f"plan_mixed: N={N} B={B} reckons {pl.smem} "
-              f"bytes of shared memory, the library {need}")
-        check(lib.phc_admm_mixed_max_threads(pl.tile)
-              == ca.MIXED_MAX_THREADS[pl.tile],
-              f"plan_mixed: threads of the tile of {pl.tile} differ from "
-              f"the library's")
-        iters = 120 if N == 12 else 100
-        args = (kq, f, h, lb, ub)
-        compare(f"N={N} B={B} {iters} it low_frac=1.0 (tile {pl.tile})",
-                ca.admm_solve_cuda(*args, iters=iters, low_frac=1.0),
-                ca.admm_solve_plain(*args, iters=iters, low_frac=1.0), rec,
-                "mixed")
-        print(f"  plan_mixed N={N} B={B}: tile of {pl.tile} problems, "
-              f"{-(-B // pl.tile)} blocks of {pl.threads} threads, "
-              f"{pl.smem} bytes of shared memory per block (limit "
-              f"{ca.SMEM_MAX}); widths that fit {tiles}", flush=True)
-    # the shape limit: the wrapper refuses N=22, it does not fall back
-    _, qp, spec, _, f, h, lb, ub = problem(22, 2, dev, rng)
-    try:
-        ca.admm_solve_cuda(ca.kernel_qp_for(spec), f, h, lb, ub, iters=10,
-                           low_frac=1.0)
-    except ValueError as e:
-        print(f"  N=22 refused by the wrapper: {e}", flush=True)
-    else:
-        raise AssertionError("N=22: the split-precision wrapper must refuse "
-                             "the shape")
-    args = main_args
-    kq = args[0]
     # the bench primary is the shape the relaxation sweep gives the kernel
     times = {}
     for name, fn in (
@@ -794,6 +793,7 @@ def phase_k1_mixed(dev, rng, rec):
           f"{rec['lf08_plain_ms']:.3f} ms, bound "
           f"{rec['lf08_bound_ms']:.4f} ms; full-precision K1 "
           f"{rec['full_ms']:.3f} ms", flush=True)
+    mixed_tiles_and_limit(dev, rng, rec)
     return args
 
 

@@ -537,12 +537,6 @@ int phc_admm_mixed_smem_bytes(int nr, int mG, int T) {
   return (int)smem_bytes(make_dims(nr, mG), T);
 }
 
-// threads the instantiation of tile T is compiled for (0: no such tile)
-int phc_admm_mixed_max_threads(int T) {
-  return T == 16 ? MaxThreads<16>::value
-                 : T == 32 ? MaxThreads<32>::value : 0;
-}
-
 const char* phc_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -117,8 +117,6 @@ def _bind_admm_mixed(lib):
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.phc_admm_mixed_smem_bytes.argtypes = [I, I, I]   # nr, mG, tile
     lib.phc_admm_mixed_smem_bytes.restype = I
-    lib.phc_admm_mixed_max_threads.argtypes = [I]         # tile
-    lib.phc_admm_mixed_max_threads.restype = I
     # q uG lB uB z0G y0G z0B y0B Ahi Alo Mhi Mlo vec | zG yG zB yB, then
     # B nr mG iters alpha tile stream
     lib.phc_admm_k1_mixed.argtypes = [P] * 17 + [I, I, I, I, Fl, I, P]

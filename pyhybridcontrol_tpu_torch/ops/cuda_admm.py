@@ -773,18 +773,6 @@ def plan_mixed(B: int, nr: int, mGp: int, sm_count: int = SM_COUNT,
     return MixedPlan(tile=tile, threads=threads, smem=smem)
 
 
-_SM_COUNTS: dict = {}
-
-
-def _sm_count(dev) -> int:
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    got = _SM_COUNTS.get(idx)
-    if got is None:
-        got = _SM_COUNTS[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return got
-
-
 def _launch_k1_mixed(kq: KernelQP, qs, lG, uG, lB, uB, warm4, iters_lo: int,
                      tile: Optional[int] = None):
     """The split-precision phase on the tensor cores; returns the iterates
@@ -797,9 +785,6 @@ def _launch_k1_mixed(kq: KernelQP, qs, lG, uG, lB, uB, warm4, iters_lo: int,
 
     nr, mGp = kq.n_pad, kq.m_pad
     B = qs.shape[0]
-    if qs.device.type != "cuda":
-        raise ValueError(f"qs: expected a CUDA tensor, got {qs.device}")
-    pl = plan_mixed(B, nr, mGp, _sm_count(qs.device), tile)
     names = ("q", "lG", "uG", "lB", "uB", "z0G", "y0G", "z0B", "y0B")
     rows = (nr, mGp, mGp, nr, nr, mGp, mGp, nr, nr)
     for name, t, r in zip(names, (qs, lG, uG, lB, uB) + tuple(warm4 or ()),
@@ -807,6 +792,8 @@ def _launch_k1_mixed(kq: KernelQP, qs, lG, uG, lB, uB, warm4, iters_lo: int,
         _check(name, t, (B, r))
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
+    pl = plan_mixed(B, nr, mGp, torch.cuda.get_device_properties(
+        qs.device).multi_processor_count, tile)
     lib = load_library("admm_mixed")
     lay, vec = _layout_mixed(kq), _layout(kq)["vec"]
     outs = [torch.empty((B, r), dtype=torch.float32, device=qs.device)

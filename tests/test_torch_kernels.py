@@ -9,6 +9,7 @@ import importlib.util
 import inspect
 import os
 import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -681,15 +682,9 @@ def test_mixed_binding_mirrors_the_kernel_source():
                             "admm_mixed.cu")).read()
     src = src[src.index('extern "C" {'):]
 
-    class Fn:
-        pass
-
-    class Lib:
-        def __init__(self):
-            for name in re.findall(r"\n\w[\w\s\*]*?\b(phc_\w+)\(", src):
-                setattr(self, name, Fn())
-
-    lib = Lib()
+    lib = types.SimpleNamespace(**{
+        name: types.SimpleNamespace()
+        for name in re.findall(r"\n\w[\w\s\*]*?\b(phc_\w+)\(", src)})
     _build._bind_admm_mixed(lib)
     kinds = {"void*": ctypes.c_void_p, "float*": ctypes.c_void_p,
              "int": ctypes.c_int, "float": ctypes.c_float}
@@ -701,22 +696,11 @@ def test_mixed_binding_mirrors_the_kernel_source():
             kind = decl[0].rstrip("*") + ("*" if "*" in "".join(decl) else "")
             want.append(kinds[kind])
         assert getattr(lib, name).argtypes == want, name
-    n_args = len(lib.phc_admm_k1_mixed.argtypes)
+    # the wrapper's call: the pointers (starred groups by their sizes), then
+    # B nr mG iters alpha tile stream
     call = inspect.getsource(ca._launch_k1_mixed)
-    call = call[call.index("lib.phc_admm_k1_mixed("):]
-    ptrs = re.search(r"_ptr, \(([^)]*)\)", call).group(1)
-    n_ptrs = sum(1 for _ in re.finditer(r"\*?[\w\[\]\"]+", ptrs))
-    # the pointers: qs uG lB uB, the four warm arrays (*w), Ahi Alo (*A),
-    # Mhi Mlo (*M), vec, the four outputs (*outs)
-    stars = dict(w=4, outs=4)
-    count = 0
-    for tok in [t.strip() for t in ptrs.replace("\n", " ").split(",")]:
-        if not tok:
-            continue
-        if tok.startswith("*lay"):
-            count += 2
-        elif tok.startswith("*"):
-            count += stars[tok[1:]]
-        else:
-            count += 1
-    assert n_ptrs and count + 7 == n_args
+    ptrs = re.search(r"_ptr, \((.*?)\)\)", call, re.S).group(1)
+    sizes = {"*w": 4, "*outs": 4, '*lay["A"]': 2, '*lay["M"]': 2}
+    n_ptrs = sum(sizes.get(tok.strip(), 1) for tok in ptrs.split(",")
+                 if tok.strip())
+    assert n_ptrs + 7 == len(lib.phc_admm_k1_mixed.argtypes)
