@@ -16,12 +16,12 @@ Run from the root of a checkout. It builds the kernels of
   4. K1 and K2 far from convergence (config 1, 30 iterations, 15+15 probe
      iterations), where a wrong step — over-relaxation, iteration count,
      a swapped output — shows, at batch sizes 1, 3, 32, 33 and 257, with
-     and without the stiff probe; and the shape limit: the wrapper must
-     refuse, not fall back, where the constants do not fit in shared
-     memory (N=60); every problem-tile instantiation of K1/K2 (8, 4, 1
-     problems per block) at batches that are no multiple of the tile, and
-     the instantiation, threads and shared memory the wrapper's plan
-     picks at each main shape;
+     and without the stiff probe; and the shape limit: asked to stage
+     constants that do not fit in shared memory (N=60), the wrapper must
+     refuse, not fall back, and the plan streams them; every problem-tile
+     instantiation of K1/K2 (8, 4, 1 problems per block) at batches
+     that are no multiple of the tile, and the instantiation, threads and
+     shared memory the wrapper's plan picks at each main shape;
   5. K1's split-precision phase (``low_frac``, bf16 3-pass products on
      the tensor cores) against its plain version at the reference test's
      shape (N=12, B=128, 120 iterations) and at the bench primary (N=20,
@@ -35,11 +35,13 @@ Run from the root of a checkout. It builds the kernels of
      of the kernel (16 and 32 problems per block) at batches that leave a
      ragged last tile (N=12: B=1, 33, 4095; N=20: B=4095) and N=21 (a tile
      of 16 only), one iteration at every width and the whole solve at the
-     plan's; the plan against the library's own reckoning; the wrapper
-     must refuse N=22, whose constants do not fit;
+     plan's; the plan against the library's own reckoning; its plan
+     must refuse N=22, whose constants do not fit, which routes to K1's
+     split mode (phase 10);
   6. no plain version behind a CUDA tensor: with the plain versions made
      to raise, ``admm_solve_auto``, ``admm_wave_auto`` and
-     ``admm_solve_cuda(low_frac>0)`` still answer and count their launches;
+     ``admm_solve_cuda(low_frac>0)`` still answer and count their launches,
+     at N=10 and at N=27 (streamed variants, split mode);
   7. the single-state serving path: the port's serve stdin loop, in process,
      on ``--config double_integrator --device cuda`` — a ping, four
      feasible states, one state outside the box, quit. Every feasible
@@ -58,12 +60,31 @@ Run from the root of a checkout. It builds the kernels of
      incumbents: objectives within ``serve_limit`` of the request's; the probe gate
      closes on the second only, where K1 must launch at B=1024. Then the
      relaxation sweep that uses the split-precision phase (N=20, B=4096,
-     ``low_frac=1.0``).
+     ``low_frac=1.0``);
+  9. K1/K2 with the constants streamed from device memory (shapes whose
+     Â_G and Mᵀ a block cannot stage) against their plain versions:
+     random problems of the sizes of the double integrator at N=27 and of
+     the reference bench's configs 3, 4b, 4c and 2 at B = 1, 37 and 300;
+     the streamed variant forced at N=26 against the staged one; the
+     times at the N=27 paths' shapes;
+ 10. K1's split mode (the split-precision phase where the tensor-core
+     kernel refuses the shape, N ≥ 22): one split iteration from the
+     plain version's iterates, the whole solve's objective and solution
+     at N=22, 24 and 27, and the bench's 1e-4 gate at N=24;
+ 11. config 1 of the reference bench as a closed loop: N=10, T=20 from
+     [2, 0], B&B (capacity 256, wave 32, 48 waves, 200 iterations, probe
+     at ρ=10); ms per control step, found share, mean nodes; held against
+     the port's enumeration loop (total cost rtol 2e-3, states 1e-2);
+ 12. the N=27 double integrator: a closed loop of 4 steps (K2 streamed)
+     that must find every step, follow the dynamics and end nearer the
+     origin, then the relaxation sweep at ``low_frac=1.0`` (K1 streamed in
+     split mode) against its plain version.
 
 Launch counts are kept per path: they are set to 0 just before each of
 the served config-1 requests, the served 1024-state request, the
-bench-spec pooled call, the pooled call with carried incumbents and the
-relaxation sweep, and read just after it; launches made to compare a
+bench-spec pooled call, the pooled call with carried incumbents, the
+relaxation sweep, the config-1 closed loop, the N=27 closed loop and the
+N=27 sweep, and read just after it; launches made to compare a
 kernel with its plain version or with enumeration fall in none of them.
 A kernel's ``launches`` is its sum over these paths, ``launches_by_path``
 the counts apart, and ``on_main_path`` says whether a served request
@@ -84,8 +105,8 @@ the card's peak rate for their type (NVIDIA H100 SXM data sheet).
 
 Any failed check raises, so the script exits non-zero. It exits non-zero
 without a result when no CUDA device is present or when the package is
-missing beside it. The last two lines are the kernels JSON and
-{"ok": true, "device": {...}}.
+missing beside it. The last lines are the closed loops' JSON, the card's
+name and power limit, the kernels JSON and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -95,19 +116,27 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SOURCES = {"admm_k1": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
            "admm_k2": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
-           "admm_k1_mixed": "pyhybridcontrol_tpu_torch/csrc/admm_mixed.cu"}
+           "admm_k1_mixed": "pyhybridcontrol_tpu_torch/csrc/admm_mixed.cu",
+           "admm_k1_streamed": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
+           "admm_k2_streamed": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
+           "admm_k1_split": "pyhybridcontrol_tpu_torch/csrc/admm.cu"}
 REPLACES = {"admm_k1": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
             "admm_k2": "pyhybridcontrol_tpu/ops/pallas_admm.py:357",
-            "admm_k1_mixed": "pyhybridcontrol_tpu/ops/pallas_admm.py:180"}
+            "admm_k1_mixed": "pyhybridcontrol_tpu/ops/pallas_admm.py:180",
+            "admm_k1_streamed": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
+            "admm_k2_streamed": "pyhybridcontrol_tpu/ops/pallas_admm.py:357",
+            "admm_k1_split": "pyhybridcontrol_tpu/ops/pallas_admm.py:180"}
 # the driven paths, in order; the first two are served requests
 SERVED = ("serve_config1", "serve_batch_request")
 PATHS = SERVED + ("pooled_bench_spec", "pooled_carried_incumbents",
-                  "relax_sweep_low_frac")
+                  "relax_sweep_low_frac", "closed_loop_config1",
+                  "closed_loop_N27", "relax_sweep_N27_low_frac")
 # peak rates of one H100 SXM at 700 W (NVIDIA data sheet): fp32 outside
 # the tensor cores, dense bf16 in them, HBM3
 PEAK = dict(fp32=67e12, bf16=989e12, hbm=3.35e12)
@@ -143,6 +172,13 @@ LIMITS = {
                 r_prim_rel=3e-2, r_dual=0.7),
     "mixed": dict(obj=1e-4, x=0.1),
     "mixed_iterates": dict(zG=3e-3, yG=8e-2, zB=3e-3, yB=1e-3),
+    # the double integrator at the staging cap and above (N=26-27): a
+    # longer horizon is worse conditioned, so the same fp32 noise grows
+    # more in 100-400 iterations (the plain version's own fp32-vs-fp64
+    # difference: tests/test_torch_kernels.py::
+    # test_fp32_noise_grows_with_the_horizon); 4x the "main" limits
+    "large": dict(obj=6e-4, x=1.6e-3, z=1.6e-3, y=6e-2, r_prim=0.8,
+                  r_prim_rel=0.8, r_dual=16.0),
 }
 # the iterate check starts from the plain version's iterates after these
 # many split-precision iterations
@@ -640,7 +676,8 @@ def phase_far(dev, rng, recs):
     for N, B in ((10, BATCH), (10, 32), (20, 4096), (21, 8)):
         kq = ca.kernel_qp_for(problem(N, 1, dev, rng)[2])
         pl = ca.plan(B, kq.n_pad, kq.m_pad)
-        need = lib.phc_admm_smem_bytes(kq.n_pad, kq.m_pad, pl.pb)
+        need = lib.phc_admm_smem_bytes(kq.n_pad, kq.m_pad, pl.pb,
+                                       int(pl.streamed))
         check(need == pl.smem, f"plan: N={N} B={B} reckons {pl.smem} bytes "
               f"of shared memory, the library {need}")
         print(f"  plan N={N} B={B}: tile of {pl.pb} problems, "
@@ -649,17 +686,25 @@ def phase_far(dev, rng, recs):
               f"the same for K1 and K2", flush=True)
     fits = [N for N in range(20, 40) if ca.smem_bytes(
         -(-3 * N // 8) * 8, -(-10 * N // 8) * 8, 1) <= ca.SMEM_MAX]
-    print(f"  largest horizon of this model whose constants fit: N="
-          f"{max(fits)}", flush=True)
+    print(f"  largest horizon of this model whose constants a block can "
+          f"stage: N={max(fits)}", flush=True)
+    # above it the plan streams the constants (phase_streamed holds that
+    # variant); asked to stage them, the wrapper refuses, it does not fall
+    # back
     _, qp, spec, spec_p, f, h, lb, ub = problem(60, 2, dev, rng)
-    args = (ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p), qp.binary_idx,
-            f, h, lb, ub)
+    kq = ca.kernel_qp_for(spec)
+    args = (kq, ca.kernel_qp_for(spec_p), qp.binary_idx, f, h, lb, ub)
     try:
-        ca.admm_wave_cuda(*args, **kw)
+        ca.admm_wave_cuda(*args, streamed=False, **kw)
     except ValueError as e:
-        print(f"  N=60 refused by the wrapper: {e}", flush=True)
+        print(f"  N=60 with staged constants refused by the wrapper: {e}",
+              flush=True)
     else:
-        raise AssertionError("N=60: the wrapper must refuse the shape")
+        raise AssertionError("N=60: the wrapper must refuse to stage the "
+                             "constants")
+    pl = ca.plan(2, kq.n_pad, kq.m_pad)
+    check(pl.streamed, f"N=60: the plan must stream the constants: {pl}")
+    print(f"  plan N=60 B=2: {pl}", flush=True)
 
 
 def mixed_iterates(tag, kq16, packed, k0, tiles):
@@ -718,16 +763,20 @@ def mixed_tiles_and_limit(dev, rng, rec):
               f"{-(-B // pl.tile)} blocks of {pl.threads} threads, "
               f"{pl.smem} bytes of shared memory per block (limit "
               f"{ca.SMEM_MAX}); widths that fit {tiles}", flush=True)
-    # the shape limit: the wrapper refuses N=22, it does not fall back
+    # the shape limit: the tensor-core kernel refuses N=22, where the
+    # split-precision phase runs in K1's split mode (phase_split)
     _, qp, spec, _, f, h, lb, ub = problem(22, 2, dev, rng)
+    kq16 = ca.pad_kernel_qp(ca.kernel_qp_for(spec))
     try:
-        ca.admm_solve_cuda(ca.kernel_qp_for(spec), f, h, lb, ub, iters=10,
-                           low_frac=1.0)
+        ca.plan_mixed(2, kq16.n_pad, kq16.m_pad)
     except ValueError as e:
-        print(f"  N=22 refused by the wrapper: {e}", flush=True)
+        print(f"  N=22 refused by the tensor-core kernel's plan: {e}",
+              flush=True)
     else:
-        raise AssertionError("N=22: the split-precision wrapper must refuse "
-                             "the shape")
+        raise AssertionError("N=22: the tensor-core plan must refuse the "
+                             "shape")
+    check(ca.split_route(kq16.n_pad, kq16.m_pad) == "k1_split",
+          "N=22: the split-precision phase must route to K1's split mode")
 
 
 def phase_k1_mixed(dev, rng, rec):
@@ -807,11 +856,13 @@ def phase_dispatch(dev, rng):
         raise AssertionError("a CUDA tensor reached a plain version")
 
     _, qp, spec, spec_p, f, h, lb, ub = problem(10, 48, dev, rng)
+    _, qp27, spec27, spec27_p, f27, h27, lb27, ub27 = problem(27, 8, dev, rng)
     saved = {k: getattr(ca, k) for k in
              ("admm_solve_plain", "admm_wave_plain", "_solve_plain",
               "_mixed_plain", "_relax", "_phase")}
     for k in saved:
         setattr(ca, k, refuse)
+    none = dict.fromkeys(ca.LAUNCHES, 0)
     try:
         ca.reset_launch_counts()
         ca.admm_solve_auto(spec, f, h, lb, ub, iters=10)
@@ -821,14 +872,384 @@ def phase_dispatch(dev, rng):
         check(ca.LAUNCHES["admm_k2"] == 1, "admm_wave_auto: no K2 launch")
         ca.admm_solve_cuda(ca.kernel_qp_for(spec), f, h, lb, ub, iters=10,
                            low_frac=0.5)
-        check(ca.LAUNCHES == {"admm_k1": 2, "admm_k2": 1,
+        check(ca.LAUNCHES == {**none, "admm_k1": 2, "admm_k2": 1,
                               "admm_k1_mixed": 1},
               f"admm_solve_cuda(low_frac): launches {ca.LAUNCHES}")
+        # above the shared-memory cap: the streamed variants and split mode
+        ca.reset_launch_counts()
+        ca.admm_solve_auto(spec27, f27, h27, lb27, ub27, iters=10)
+        ca.admm_wave_auto(spec27, spec27_p, qp27.binary_idx, f27, h27, lb27,
+                          ub27, iters=10, probe_iters=10)
+        ca.admm_solve_cuda(ca.kernel_qp_for(spec27), f27, h27, lb27, ub27,
+                           iters=10, low_frac=0.5)
+        check(ca.LAUNCHES == {**none, "admm_k1_streamed": 2,
+                              "admm_k2_streamed": 1, "admm_k1_split": 1},
+              f"N=27: launches {ca.LAUNCHES}")
     finally:
         for k, v in saved.items():
             setattr(ca, k, v)
     print(f"no plain version behind a CUDA tensor: launches {ca.LAUNCHES}, "
           f"batch sizes {ca.LAUNCH_BATCHES}", flush=True)
+
+
+# (n, m) of the shapes whose constants a block cannot stage: the double
+# integrator at N=27 and the reference bench's configs 3, 4b, 4c and 2/2b
+# (their condensed sizes; random problems of these sizes stand in for the
+# configurations, which the port does not build yet)
+BIG_SHAPES = {"N27": (81, 270), "config3": (108, 216), "config4b": (120, 216),
+              "config4c": (120, 444), "config2": (220, 680)}
+BIG_BATCHES = (1, 37, 300)
+SPLIT_HORIZONS = (22, 24, 27)     # K1's split mode, above the tensor cores'
+
+
+def random_problem(n, m, B, dev, rng, fix_frac=0.3):
+    """A random box-QP of n variables and m rows G x ≤ h: H = MMᵀ/n + I,
+    G with unit-variance rows, h feasible for a point of the box with a
+    margin, |x| ≤ 1, the first n/5 variables binary (node boxes fixing
+    ``fix_frac`` of them). Returns prepared specs (ρ and stiff ρ), the
+    binary indices and a batch of B problems (q, h, lb, ub)."""
+    import numpy as np
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops.admm import prepare_admm
+
+    Mh = rng.normal(size=(n, n))
+    H = Mh @ Mh.T / n + np.eye(n)
+    G = rng.normal(size=(m, n)) / np.sqrt(n)
+    nb = max(1, n // 5)
+    spec = prepare_admm(G, H, device=dev)
+    spec_p = prepare_admm(G, H, rho=10.0, device=dev)
+    xf = rng.uniform(-0.5, 0.5, size=(B, n))
+    xf[:, :nb] = rng.uniform(0.0, 1.0, size=(B, nb))
+    h = xf @ G.T + rng.uniform(0.1, 1.0, size=(B, m))
+    q = rng.normal(size=(B, n))
+    lb, ub = -np.ones((B, n)), np.ones((B, n))
+    fm = rng.uniform(size=(B, nb)) < fix_frac
+    fv = (rng.uniform(size=(B, nb)) < 0.5).astype(float)
+    lb[:, :nb] = np.where(fm, fv, 0.0)
+    ub[:, :nb] = np.where(fm, fv, 1.0)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    return spec, spec_p, tuple(range(nb)), t(q), t(h), t(lb), t(ub)
+
+
+def timed(rec, pre, wrapper, plain, work):
+    """Wrapper ms, kernels-alone ms, plain ms and the bound of one shape
+    into ``rec`` under keys prefixed ``pre``."""
+    rec[pre + "ms"] = cuda_ms(wrapper)
+    rec[pre + "kernel_ms"] = kernel_ms(wrapper)
+    rec[pre + "plain_ms"] = cuda_ms(plain)
+    rec[pre + "bound_ms"], by = bound(*work)
+    print(f"  {pre.rstrip('_') or 'main shape'}: wrapper "
+          f"{rec[pre + 'ms']:.3f} ms, kernel alone "
+          f"{rec[pre + 'kernel_ms']:.3f} ms, plain "
+          f"{rec[pre + 'plain_ms']:.3f} ms, bound "
+          f"{rec[pre + 'bound_ms']:.4f} ms ({by})", flush=True)
+    return by
+
+
+def phase_streamed(dev, rng, recs):
+    """K1 and K2 with the constants streamed from device memory (L2)
+    against their plain versions at the five shapes a block cannot stage
+    (random problems, "main" limits, B = 1, 37, 300); the forced streamed
+    variant against the staged one at N=26; the times at the main paths'
+    shapes (N=27: K1 at B=4096, 100 iterations; K2 at the closed loop's
+    wave, B=32, 200 + 100/100 iterations)."""
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+    from pyhybridcontrol_tpu_torch.ops._build import load_library
+
+    r1, r2 = recs["admm_k1_streamed"], recs["admm_k2_streamed"]
+    print("K1/K2 with streamed constants (admm_k1_streamed, "
+          "admm_k2_streamed) vs plain:", flush=True)
+    for name, (n, m) in BIG_SHAPES.items():
+        for B in BIG_BATCHES:
+            spec, spec_p, bidx, q, h, lb, ub = random_problem(
+                n, m, B, dev, rng)
+            kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
+            pl = ca.plan(B, kq.n_pad, kq.m_pad)
+            check(pl.streamed, f"{name}: the plan must stream, got {pl}")
+            need = load_library().phc_admm_smem_bytes(kq.n_pad, kq.m_pad,
+                                                      pl.pb, 1)
+            check(need == pl.smem, f"{name}: the plan reckons {pl.smem} "
+                  f"bytes of shared memory, the library {need}")
+            tag = f"{name} (n={n}, m={m}) B={B} tile {pl.pb}"
+            args = (kq, q, h, lb, ub)
+            compare("K1 " + tag, ca.admm_solve_cuda(*args, iters=100),
+                    ca.admm_solve_plain(*args, iters=100), r1)
+            wargs = (kq, kq2, bidx, q, h, lb, ub)
+            kw = dict(iters=100, probe_iters=100)
+            compare_probe("K2 " + tag, ca.admm_wave_cuda(*wargs, **kw),
+                          ca.admm_wave_plain(*wargs, **kw),
+                          types.SimpleNamespace(binary_idx=bidx), lb, ub,
+                          r2)
+        # the time at a few hundred problems, where the card is filled
+        timed(r1, f"{name}_", lambda: ca.admm_solve_cuda(*args, iters=100),
+              lambda: ca.admm_solve_plain(*args, iters=100),
+              admm_work(kq.n_pad, kq.m_pad, 300, products=101, stats=1,
+                        warm=False))
+
+    # N=26: the largest staged shape, forced through the streamed variant
+    _, qp, spec, spec_p, f, h, lb, ub = problem(26, 4096, dev, rng,
+                                                 fix_frac=0.3)
+    kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
+    args = (kq, f, h, lb, ub)
+    staged = ca.admm_solve_cuda(*args, iters=100)
+    # at the same tile the two variants run the same arithmetic in the
+    # same order: bitwise the same results
+    check(torch_equal(ca.admm_solve_cuda(*args, iters=100, pb=1,
+                                         streamed=True), staged),
+          "N=26: streamed and staged K1 with a tile of 1 differ")
+    # the streamed plan's tile of 8 sums in another order: N=26's noise
+    streamed = ca.admm_solve_cuda(*args, iters=100, streamed=True)
+    compare("K1 N=26 B=4096 streamed (tile 8) vs staged (tile 1)",
+            streamed, staged, r1, "large")
+    print(f"  N=26: plans staged {ca.plan(4096, kq.n_pad, kq.m_pad)}, "
+          f"streamed {ca.plan(4096, kq.n_pad, kq.m_pad, streamed=True)}; "
+          f"with a tile of 1 both bitwise equal", flush=True)
+    for st in (False, True):
+        r1[f"n26_{'streamed' if st else 'staged'}_kernel_ms"] = kernel_ms(
+            lambda: ca.admm_solve_cuda(*args, iters=100, streamed=st))
+    print(f"  N=26 B=4096 100 it, kernel alone: staged "
+          f"{r1['n26_staged_kernel_ms']:.3f} ms, streamed "
+          f"{r1['n26_streamed_kernel_ms']:.3f} ms", flush=True)
+    wargs = (kq, kq2, qp.binary_idx, f[:300], h[:300], lb[:300], ub[:300])
+    kw = dict(iters=100, probe_iters=100)
+    got, ref = (ca.admm_wave_cuda(*wargs, pb=1, streamed=st, **kw)
+                for st in (True, False))
+    check(torch_equal(got[0], ref[0]) and torch_equal(got[1], ref[1]),
+          "N=26: streamed and staged K2 with a tile of 1 differ")
+    compare_probe("K2 N=26 B=300 streamed vs staged",
+                  ca.admm_wave_cuda(*wargs, streamed=True, **kw),
+                  ca.admm_wave_cuda(*wargs, streamed=False, **kw), qp,
+                  lb[:300], ub[:300], r2, "large")
+
+    # the main paths' shapes at N=27
+    _, qp, spec, spec_p, f, h, lb, ub = problem(27, 4096, dev, rng)
+    kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
+    args = (kq, f, h, lb, ub)
+    compare("K1 N=27 B=4096 100 it", ca.admm_solve_cuda(*args, iters=100),
+            ca.admm_solve_plain(*args, iters=100), r1, "large")
+    r1["bound_by"] = timed(
+        r1, "", lambda: ca.admm_solve_cuda(*args, iters=100),
+        lambda: ca.admm_solve_plain(*args, iters=100),
+        admm_work(kq.n_pad, kq.m_pad, 4096, products=101, stats=1,
+                  warm=False))
+    r1["library_ms"] = None
+    _, qp, spec, spec_p, f, h, lb, ub = problem(27, 32, dev, rng,
+                                                 fix_frac=0.3)
+    kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
+    wargs = (kq, kq2, qp.binary_idx, f, h, lb, ub)
+    kw = dict(iters=200, probe_iters=200)
+    ref = ca.admm_wave_plain(*wargs, **kw)
+    warm = (ref[0].x, ref[0].z, ref[0].y)
+    compare_probe("K2 N=27 B=32 200+100/100 it warm",
+                  ca.admm_wave_cuda(*wargs, warm=warm, **kw),
+                  ca.admm_wave_plain(*wargs, warm=warm, **kw), qp, lb, ub, r2,
+                  "large")
+    r2["bound_by"] = timed(
+        r2, "", lambda: ca.admm_wave_cuda(*wargs, warm=warm, **kw),
+        lambda: ca.admm_wave_plain(*wargs, warm=warm, **kw),
+        admm_work(kq.n_pad, kq.m_pad, 32, products=402, stats=2, warm=True,
+                  stiff=True, outputs=2))
+    r2["library_ms"] = None
+
+
+def torch_equal(a, b):
+    import torch
+
+    return all(torch.equal(getattr(a, k), getattr(b, k))
+               for k in ("x", "z", "y", "obj"))
+
+
+def phase_split(dev, rng, rec):
+    """K1 in split mode (the split-precision phase above N=21) against its
+    plain version: after ONE split iteration from the plain version's
+    iterates, on the whole solve's obj and x, at N=22, 24 and 27; the
+    bench's gate (low_frac=1.0 against full-precision K1, 1e-4) at N=24;
+    and its time at the sweep's shape (N=27, B=4096, 100 iterations)."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+
+    print("K1 split mode (admm_k1_split) vs plain:", flush=True)
+    for N in SPLIT_HORIZONS:
+        _, qp, spec, _, f, h, lb, ub = problem(N, 300, dev, rng)
+        kq = ca.kernel_qp_for(spec)
+        kq16 = ca.pad_kernel_qp(kq)
+        check(ca.split_route(kq16.n_pad, kq16.m_pad) == "k1_split",
+              f"N={N}: low_frac must route to K1's split mode")
+        m, n = spec.m_ineq, spec.n
+        packed = ca._pack(kq16, f, h, lb, ub, None)[:5]
+        cold = ca._init_iterates(*packed[1:], None)
+        it = tuple(t.contiguous() for t in
+                   ca._mixed_plain(kq16, *packed, cold, MIXED_WARM[0]))
+        ref = ca._mixed_plain(kq16, *packed, it, 1)
+        got = ca.admm_solve_cuda(kq, f, h, lb, ub, iters=1, warm=it,
+                                 low_frac=1.0)
+        held(f"N={N} B=300 one split iteration after {MIXED_WARM[0]} "
+             f"(plan {ca.plan(300, kq16.n_pad, kq16.m_pad)})",
+             "mixed_iterates",
+             dict(zG=(got.z[:, :m], ref[0][:, :m]),
+                  yG=(got.y[:, :m], ref[1][:, :m]),
+                  zB=(got.z[:, m:], ref[2][:, :n]),
+                  yB=(got.y[:, m:], ref[3][:, :n])))
+        args = (kq, f, h, lb, ub)
+        for lf in (0.8, 1.0):
+            compare(f"N={N} B=300 100 it low_frac={lf}",
+                    ca.admm_solve_cuda(*args, iters=100, low_frac=lf),
+                    ca.admm_solve_plain(*args, iters=100, low_frac=lf), rec,
+                    "mixed")
+        if N == 24:
+            full = ca.admm_solve_cuda(*args, iters=100)
+            got = ca.admm_solve_cuda(*args, iters=100, low_frac=1.0)
+            gate = float(((got.obj - full.obj).abs()
+                          / torch.clamp_min(full.obj.abs(), 1.0)).max())
+            print(f"  N=24 B=300: low_frac=1.0 vs full-precision K1, max "
+                  f"relative objective delta {gate:.2e} (gate "
+                  f"{MIXED_GATE:.0e})", flush=True)
+            check(gate <= MIXED_GATE, f"split gate: {gate:.3e} > "
+                  f"{MIXED_GATE}")
+            rec["n24_gate"] = gate
+    # the sweep's shape
+    _, qp, spec, _, f, h, lb, ub = problem(27, 4096, dev, rng)
+    kq = ca.kernel_qp_for(spec)
+    args = (kq, f, h, lb, ub)
+    compare("N=27 B=4096 100 it low_frac=1.0",
+            ca.admm_solve_cuda(*args, iters=100, low_frac=1.0),
+            ca.admm_solve_plain(*args, iters=100, low_frac=1.0), rec,
+            "mixed")
+    rec["bound_by"] = timed(
+        rec, "", lambda: ca.admm_solve_cuda(*args, iters=100, low_frac=1.0),
+        lambda: ca.admm_solve_plain(*args, iters=100, low_frac=1.0),
+        admm_work(kq.n_pad, kq.m_pad, 4096, products=1, stats=1,
+                  warm=False, lo_products=100))
+    rec["library_ms"] = None
+    return args
+
+
+CL_SPEC = dict(capacity=256, wave_size=32, max_waves=48, qp_iters=200)
+CL_T = 20           # config 1 of the reference bench: T=20 from [2, 0]
+CL_T27 = 4
+
+
+def closed_loop_steps(N, dev):
+    """Config 1's bench step at horizon N (B&B with the probe prepared at
+    ρ=10) and the enumeration step that holds it, on the card."""
+    from pyhybridcontrol_tpu_torch.loop import make_mpc_step
+    from pyhybridcontrol_tpu_torch.models import (
+        di_default_weights, switched_double_integrator)
+    from pyhybridcontrol_tpu_torch.ops.admm import prepare_admm_mpc
+    from pyhybridcontrol_tpu_torch.ops.condense import CondensedMpc
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    model = switched_double_integrator()
+    c = CondensedMpc(model, N, di_default_weights())
+    qp, admm = c.device_qp(dev), prepare_admm_mpc(c, device=dev)
+    step = make_mpc_step(model, qp, admm, method="bnb",
+                         bnb_spec=BnbSpec(**CL_SPEC),
+                         admm_probe=prepare_admm_mpc(c, rho=10.0,
+                                                     device=dev))
+    return model, step, (model, qp, admm)
+
+
+def phase_closed_loop(dev):
+    """Config 1 of the reference bench as the port runs it: the switched
+    double integrator, N=10, T=20 from [2, 0], B&B with capacity 256, wave
+    32, 48 waves, 200 iterations and the probe at ρ=10. ms per control
+    step (host clock around a run that ends in a synchronise, best of 3
+    after a warm-up), found share, mean nodes; held against the port's
+    enumeration loop on the card (600 iterations): total cost within
+    rtol 2e-3, states within 1e-2."""
+    import numpy as np
+    import torch
+
+    from pyhybridcontrol_tpu_torch.loop import closed_loop, make_mpc_step
+
+    print("closed loop, config 1 (N=10, T=20):", flush=True)
+    model, step, (m, qp, admm) = closed_loop_steps(10, dev)
+    x0 = [2.0, 0.0]
+    closed_loop(model, step, x0, T=2)                 # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, _ = drive(PATHS[5], lambda: closed_loop(model, step, x0,
+                                                     T=CL_T))
+        times.append(time.perf_counter() - t0)
+    ms = 1e3 * min(times) / CL_T
+    check(PATH_LAUNCHES[PATHS[5]]["admm_k2"] > 0,
+          "closed loop: K2 was never launched")
+    found = float(res.found.float().mean())
+    nodes = float(res.nodes.float().mean())
+    print(f"  {ms:.2f} ms per control step (runs of "
+          f"{', '.join(f'{1e3 * t:.1f}' for t in times)} ms for {CL_T} "
+          f"steps), found share {found:.3f}, mean nodes {nodes:.1f}",
+          flush=True)
+    enum = make_mpc_step(m, qp, admm, method="enumerate", qp_iters=600)
+    ref = closed_loop(model, enum, x0, T=CL_T)
+    tot, tot_ref = float(res.objs.sum()), float(ref.objs.sum())
+    dx = float((res.xs - ref.xs).abs().max())
+    print(f"  total cost {tot:.4f}, enumeration {tot_ref:.4f} (rel "
+          f"{abs(tot - tot_ref) / abs(tot_ref):.2e}, limit 2e-3); max |Δx| "
+          f"{dx:.2e} (limit 1e-2 + 1e-2·|x|)", flush=True)
+    check(bool(res.found.all()), "closed loop: a step without a plan")
+    check(abs(tot - tot_ref) <= 2e-3 * abs(tot_ref),
+          f"closed loop: total cost {tot} vs enumeration {tot_ref}")
+    check(np.allclose(res.xs.cpu().numpy(), ref.xs.cpu().numpy(),
+                      rtol=1e-2, atol=1e-2),
+          f"closed loop: states off enumeration's by {dx}")
+    return dict(ms_per_control_step=ms, found_frac=found, mean_nodes=nodes,
+                run_ms=[1e3 * t for t in times], total_cost=tot,
+                total_cost_enumeration=tot_ref)
+
+
+def phase_closed_loop_n27(dev, sweep_args, rec):
+    """The N=27 double integrator, whose constants no block can stage: a
+    short closed loop (T=4, config 1's B&B spec, K2 streamed) that must
+    find every step, follow the dynamics and move the state toward the
+    origin; then the relaxation sweep at low_frac=1.0 (K1 streamed, in
+    split mode), held against its plain version."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.loop import closed_loop
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+
+    print(f"closed loop, N=27 (T={CL_T27}):", flush=True)
+    model, step, _ = closed_loop_steps(27, dev)
+    x0 = [2.0, 0.0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, batches = drive(PATHS[6], lambda: closed_loop(model, step, x0,
+                                                       T=CL_T27))
+    ms = 1e3 * (time.perf_counter() - t0) / CL_T27
+    got = PATH_LAUNCHES[PATHS[6]]
+    check(got["admm_k2_streamed"] > 0 and got["admm_k2"] == 0,
+          f"closed loop N=27: K2 must run streamed, launches {got}")
+    md = model.to(dev)
+    for k in range(CL_T27):
+        want = md.step_v(res.xs[k], res.vs[k])
+        check(bool(torch.allclose(res.xs[k + 1], want, rtol=1e-5,
+                                  atol=1e-6)),
+              f"closed loop N=27: step {k} does not follow the dynamics")
+    check(bool(res.found.all()), "closed loop N=27: a step without a plan")
+    norms = res.xs.norm(dim=-1).tolist()
+    check(norms[-1] < norms[0], f"closed loop N=27: |x| {norms}")
+    print(f"  {ms:.1f} ms per control step, nodes "
+          f"{res.nodes.tolist()}, |x| {[round(v, 4) for v in norms]}, "
+          f"objectives {[round(v, 3) for v in res.objs.tolist()]}",
+          flush=True)
+    sweep, _ = drive(PATHS[7], lambda: ca.admm_solve_cuda(
+        *sweep_args, iters=100, low_frac=1.0))
+    check(PATH_LAUNCHES[PATHS[7]] == {
+        **dict.fromkeys(ca.LAUNCHES, 0), "admm_k1_streamed": 1,
+        "admm_k1_split": 1}, f"N=27 sweep: launches "
+        f"{PATH_LAUNCHES[PATHS[7]]}")
+    compare("N=27 sweep low_frac=1.0", sweep, ca.admm_solve_plain(
+        *sweep_args, iters=100, low_frac=1.0), rec, "mixed")
+    return dict(ms_per_control_step=ms, nodes=res.nodes.tolist(),
+                total_cost=float(res.objs.sum()))
 
 
 PATH_LAUNCHES = {}   # path -> launch counts of that path alone
@@ -984,8 +1405,8 @@ def phase_serve_batch(dev, sweep_args):
     sweep, _ = drive(PATHS[4], lambda: ca.admm_solve_cuda(
         *sweep_args, iters=100, low_frac=1.0))
     check(bool(torch.isfinite(sweep.obj).all()), "relax sweep: non-finite")
-    check(PATH_LAUNCHES[PATHS[4]] == {"admm_k1": 1, "admm_k2": 0,
-                                      "admm_k1_mixed": 1},
+    check(PATH_LAUNCHES[PATHS[4]] == {**dict.fromkeys(ca.LAUNCHES, 0),
+                                      "admm_k1": 1, "admm_k1_mixed": 1},
           f"relax sweep: launches {PATH_LAUNCHES[PATHS[4]]}")
 
 
@@ -1080,6 +1501,9 @@ def main(argv=None):
     phase_far(dev, phase_rng("far"), recs)
     sweep_args = phase_k1_mixed(dev, phase_rng("k1_mixed"),
                                 recs["admm_k1_mixed"])
+    phase_streamed(dev, phase_rng("streamed"), recs)
+    sweep27_args = phase_split(dev, phase_rng("split"),
+                               recs["admm_k1_split"])
     for regime, seen in READINGS.items():
         print(f"largest error, {regime} (limit): " + " ".join(
             f"{k}={v:.2e} ({LIMITS[regime][k]:.0e})"
@@ -1090,6 +1514,10 @@ def main(argv=None):
     phase_dispatch(dev, phase_rng("dispatch"))
     phase_serve(dev)
     phase_serve_batch(dev, sweep_args)
+    loops = dict(config1=phase_closed_loop(dev),
+                 N27=phase_closed_loop_n27(dev, sweep27_args,
+                                           recs["admm_k1_split"]))
+    print(json.dumps({"closed_loop": loops}), flush=True)
     kernels = []
     for k, r in recs.items():
         r["launches_by_path"] = {p: PATH_LAUNCHES[p][k] for p in PATHS}

@@ -19,6 +19,7 @@ Layer map (bottom → top), as in the reference:
     ops/        condensation, Ruiz scaling, ADMM (torch), CUDA kernels
     solver/     enumeration, rollout repair, branch-and-bound
     control/    MpcController
+    loop/       receding-horizon closed loop (single and pooled batch)
     configs/    benchmark configurations
     serve.py    stdin serving loop
 """

@@ -5,9 +5,9 @@ Counterpart of ``pyhybridcontrol_tpu/control/mpc.py`` for the condensed
 in float64 and moves the problem to ``device`` (the card unless the
 caller asks for the CPU); ``feedback(x0)`` solves the MIQP there and
 returns the first input; ``feedback_batch(x0s)`` solves a batch of
-control steps in one pooled B&B (solver/bnb_pooled.py). The other paths
-of the reference raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+control steps in one pooled B&B (solver/bnb_pooled.py), or instance by
+instance (engine "vmap"). The other paths of the reference raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -109,9 +109,11 @@ class MpcController:
 
     # -- feedback ------------------------------------------------------------
     def _tensor(self, a):
-        return (None if a is None
-                else torch.as_tensor(np.asarray(a, np.float32),
-                                     device=self.device))
+        if a is None:
+            return None
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device, torch.float32)
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
 
     def feedback(self, x0, omega_forecast=None, price_seq=None,
                  u_prev=None) -> StructDict:
@@ -178,10 +180,14 @@ class MpcController:
                        pool_slots: int = 0) -> StructDict:
         """Solve a batch of independent control steps at once.
 
-        ``engine``: "auto" or "pooled" (solver="bnb": all instances' B&B
-        nodes in one global pool, solver/bnb_pooled.py; each wave is one
-        K2 launch over ``pooled_wave`` nodes). The reference's "vmap"
-        engine, scenario trees and ``mesh`` placement are not ported.
+        ``engine``: "pooled" (solver="bnb": all instances' B&B nodes in
+        one global pool, solver/bnb_pooled.py; each wave is one K2 launch
+        over ``pooled_wave`` nodes), "vmap" (one ``feedback`` per
+        instance, in a loop: the reference vmaps independent
+        per-instance searches, so the results are the same function;
+        ``torch.func.vmap`` cannot carry the wave loop's host reads) or
+        "auto" (pooled for solver="bnb", else vmap). Scenario trees and
+        ``mesh`` placement are not ported.
         ``pooled_wave``/``pool_slots`` size the pooled search; the
         per-instance node budget matches ``bnb_spec`` (``max_waves``
         rescales to the global wave size).
@@ -196,12 +202,9 @@ class MpcController:
             _not_ported("feedback_batch(mesh=...)", "multi-device")
         if engine == "auto":
             engine = "pooled" if self.solver == "bnb" else "vmap"
-        if engine == "vmap":
-            _not_ported('feedback_batch(engine="vmap")',
-                        "closed loop and the vmap batch engine")
-        if engine != "pooled":
+        if engine not in ("pooled", "vmap"):
             raise ValueError(f"unknown engine {engine!r}")
-        if self.solver != "bnb":
+        if engine == "pooled" and self.solver != "bnb":
             raise ValueError(
                 f'engine="pooled" requires solver="bnb", got '
                 f'{self.solver!r}')
@@ -214,9 +217,21 @@ class MpcController:
             raise ValueError(
                 "omega_forecasts given but the model has no disturbance "
                 "channel (nomega=0)")
-        return self._feedback_batch_pooled(
-            x0s, self._tensor(omega_forecasts), self._tensor(price_seq),
-            self._tensor(u_prevs), pooled_wave, pool_slots)
+        W, Pq = self._tensor(omega_forecasts), self._tensor(price_seq)
+        up = self._tensor(u_prevs)
+        if engine == "vmap":
+            return self._feedback_batch_each(x0s, W, Pq, up)
+        return self._feedback_batch_pooled(x0s, W, Pq, up, pooled_wave,
+                                           pool_slots)
+
+    def _feedback_batch_each(self, x0s, W, Pq, up) -> StructDict:
+        """feedback_batch engine="vmap": ``feedback`` of each instance, the
+        fields stacked on a leading (B,) axis."""
+        outs = [self.feedback(x0s[i], None if W is None else W[i], Pq,
+                              None if up is None else up[i])
+                for i in range(x0s.shape[0])]
+        return StructDict({k: torch.stack([o[k] for o in outs])
+                           for k in outs[0]})
 
     def _feedback_batch_pooled(self, x0s, W, Pq, up, pooled_wave,
                                pool_slots) -> StructDict:

@@ -64,6 +64,23 @@
 //    products of the same routine (P̂ᵀ read from L2, coalesced), the row
 //    reductions are split over all threads and combined across warps in
 //    shared memory, sums in fp64.
+//  - Streamed variant (template flag STREAM) for shapes whose constants do
+//    not fit a block: the tile's iterates stay in shared memory, Â_G, Mᵀ
+//    and K2's M2ᵀ are read from device memory (L2 holds them: config 2's
+//    are ~1.5 MB of the H100's 50 MB) in the same padded layout as the
+//    staged copies, so the products are the same code on another pointer.
+//    The plan (ops/cuda_admm.py) takes it only where a tile of one problem
+//    with staged constants would not fit.
+//  - Split mode (template flag SPLIT of K1 and of `phase`): the first
+//    iters_lo iterations take each product as the reference's _mm3 does,
+//    hi = bf16(a), lo = bf16(a − hi), Ahi·bhi + Ahi·blo + Alo·bhi with fp32
+//    accumulation, on the CUDA cores (each bf16×bf16 product is exact in
+//    fp32); then the full-precision iterations, the half step and the
+//    stats as usual. It serves the split-precision phase (low_frac) at the
+//    shapes the tensor-core kernel of admm_mixed.cu refuses (N ≥ 22 of the
+//    double integrator); the operand splits are recomputed per use, three
+//    FMAs per product term: simple, right, and about 4× the work of a
+//    full-precision iteration.
 // What is left: the matrix words of a thread's slice are the same in every
 // iteration and could live in registers (needs compile-time nr, mGp: one
 // build per shape); constants are staged with plain loads (cp.async.bulk
@@ -72,6 +89,7 @@
 // exact fp32 product (3×TF32 or bf16 splits, the batch as the N dimension).
 // Measured times are in PERF.md.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -85,7 +103,8 @@ struct PhcAdmmArgs {
   const float *q, *h, *lb, *ub;
   // warm iterates (null: cold), G rows and box rows apart
   const float *z0G, *y0G, *z0B, *y0B;
-  // constants: Â_G (mGp,nr), Mᵀ (nr,R), P̂ᵀ (nr,nr), the per-row vectors
+  // constants: Â_G (mGp,nr) and Mᵀ (nr,R) with the padded row strides
+  // stride_A(nr) and stride_M(R), P̂ᵀ (nr,nr), the per-row vectors
   // vec = [dbox, 1/dbox, ρ_B, 1/ρ_B, 1/E_B, 1/(D·c) | ρ_G, 1/ρ_G, 1/E_G]
   // and io = [c·D, E_B, D | E_G] (nr, nr, nr, mGp)
   const float *AG, *MT, *PT, *vec, *io;
@@ -96,7 +115,8 @@ struct PhcAdmmArgs {
   // row strides (in floats; 0 for a row shared by the batch) of q, h, lb,
   // ub and of the four warm arrays
   int sq, sh, slb, sub, sz0G, sy0G, sz0B, sy0B;
-  int B, n, m, nr, mGp, iters, p1, p2;
+  // iters_lo: split-mode iterations (K1) before the `iters` full ones
+  int B, n, m, nr, mGp, iters, iters_lo, p1, p2;
   float alpha, alpha2, cinv;
 };
 
@@ -131,16 +151,21 @@ __host__ __device__ inline int stride_M(int R) {
   return R + (48 - R % 32) % 32;                      // ≡ 16 mod 32
 }
 
-__host__ __device__ inline size_t smem_floats(int nr, int mGp, int PB) {
+// streamed: Â_G and Mᵀ stay in device memory and take no shared memory
+__host__ __device__ inline size_t smem_floats(int nr, int mGp, int PB,
+                                              bool streamed) {
   const size_t R = (size_t)mGp + nr;
-  return (size_t)mGp * stride_A(nr) + (size_t)nr * stride_M((int)R) +
-         3 * R + 2 * (size_t)nr +
+  const size_t consts = streamed ? 0
+                        : (size_t)mGp * stride_A(nr) +
+                              (size_t)nr * stride_M((int)R);
+  return consts + 3 * R + 2 * (size_t)nr +
          (size_t)PB * (6 * R + 6 * (size_t)nr + PHC_RED * max_warps(PB));
 }
 
 // shared-memory carve-up; per-problem arrays are [row][PB]
 struct Smem {
   float *AG, *MT;                    // constants, padded row strides AS, RS
+                                     // (device memory, read only, if STREAM)
   float *rho, *rhoi, *einv;          // R each: G rows then box rows
   float *dbox, *dboxi;               // nr each
   float *z, *y, *w, *lo, *hi, *dy;   // R·PB each; w holds ẑ after a half step
@@ -149,14 +174,19 @@ struct Smem {
   int AS, RS;
 };
 
-template <int PB>
-__device__ __forceinline__ Smem carve(float* p, int nr, int mGp) {
+template <int PB, bool STREAM>
+__device__ __forceinline__ Smem carve(float* p, const Args& a) {
   Smem s;
-  const int R = mGp + nr;
+  const int nr = a.nr, mGp = a.mGp, R = mGp + nr;
   s.AS = stride_A(nr);
   s.RS = stride_M(R);
-  s.AG = p;  p += (size_t)mGp * s.AS;
-  s.MT = p;  p += (size_t)nr * s.RS;
+  if constexpr (STREAM) {
+    s.AG = const_cast<float*>(a.AG);
+    s.MT = const_cast<float*>(a.MT);
+  } else {
+    s.AG = p;  p += (size_t)mGp * s.AS;
+    s.MT = p;  p += (size_t)nr * s.RS;
+  }
   s.rho = p;  p += R;
   s.rhoi = p;  p += R;
   s.einv = p;  p += R;
@@ -213,6 +243,12 @@ __device__ __forceinline__ void vstore(float* p, const float (&d)[W]) {
   }
 }
 
+// hi = bf16(x), lo = bf16(x − hi) as floats (x − hi is exact in fp32)
+__device__ __forceinline__ void bf16_split(float x, float& hi, float& lo) {
+  hi = __bfloat162float(__float2bfloat16_rn(x));
+  lo = __bfloat162float(__float2bfloat16_rn(x - hi));
+}
+
 // Shuffle reduce-scatter of N partial sums over the lane groups that differ
 // in the lane bits M, M/2, ..., G: while more than one sum is live, each
 // step sends one half and keeps the other (`off` moves to the kept half);
@@ -246,8 +282,9 @@ struct Reduce {
 // out[o][p] = Σ_c Mat[c·stride + o] · vec[c·PB + p] for o < O, p < PB, depth
 // K (a multiple of KS), dealt over the block in warp tasks; epi(o, p, v)
 // receives W = min(PB, max(RT·PB/KS, 1)) sums of row o, problems p..p+W-1.
+// SPLIT: each term as the three bf16 products hi·hi + hi·lo + lo·hi.
 // Every warp must call it (shuffles); barriers are the caller's.
-template <int PB, int RT, int KS, class Epi>
+template <int PB, int RT, int KS, bool SPLIT = false, class Epi>
 __device__ __forceinline__ void product(const float* __restrict__ Mat,
                                         int stride,
                                         const float* __restrict__ vec, int K,
@@ -273,11 +310,29 @@ __device__ __forceinline__ void product(const float* __restrict__ Mat,
       float a[RT], v[PB];
       vload<RT>(a, mp);
       vload<PB>(v, vp);
+      if constexpr (SPLIT) {
+        float ah[RT], al[RT];
 #pragma unroll
-      for (int r = 0; r < RT; ++r)
+        for (int r = 0; r < RT; ++r) bf16_split(a[r], ah[r], al[r]);
 #pragma unroll
-        for (int p = 0; p < PB; ++p)
-          acc[r * PB + p] = fmaf(a[r], v[p], acc[r * PB + p]);
+        for (int p = 0; p < PB; ++p) {
+          float vh, vl;
+          bf16_split(v[p], vh, vl);
+#pragma unroll
+          for (int r = 0; r < RT; ++r) {
+            float& c = acc[r * PB + p];
+            c = fmaf(ah[r], vh, c);
+            c = fmaf(ah[r], vl, c);
+            c = fmaf(al[r], vh, c);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < RT; ++r)
+#pragma unroll
+          for (int p = 0; p < PB; ++p)
+            acc[r * PB + p] = fmaf(a[r], v[p], acc[r * PB + p]);
+      }
       mp += (size_t)KS * stride;
       vp += KS * PB;
     }
@@ -299,9 +354,10 @@ __device__ __forceinline__ void product(const float* __restrict__ Mat,
 
 // `iters` σ=0 iterations from the iterates in shared memory, then -- if
 // `final_half` -- one more half step whose ẑ goes to s.w and δy to s.dy
-// (the iterates stay those of the last full iteration). Mirrors _phase of
-// the reference and of ops/cuda_admm.py. Ends on a barrier.
-template <int PB>
+// (the iterates stay those of the last full iteration). SPLIT: both
+// products in split mode. Mirrors _phase of the reference and of
+// ops/cuda_admm.py. Ends on a barrier.
+template <int PB, bool SPLIT>
 __device__ __forceinline__ void phase(const Smem& s, int nr, int mGp,
                                       int iters, float alpha,
                                       bool final_half) {
@@ -314,7 +370,7 @@ __device__ __forceinline__ void phase(const Smem& s, int nr, int mGp,
     const bool last = (k == iters);
     if (last && !final_half) break;
     // t = Â_Gᵀ w_G + d∘w_B − q̂
-    product<PB, C::A_RT, C::A_KS>(
+    product<PB, C::A_RT, C::A_KS, SPLIT>(
         s.AG, s.AS, s.w, mGp, nr, [&](int j, int p, const auto& v) {
           constexpr int W = sizeof(v) / sizeof(float);
           const int o = j * PB + p;
@@ -328,7 +384,7 @@ __device__ __forceinline__ void phase(const Smem& s, int nr, int mGp,
         });
     __syncthreads();
     // ẑ = M t, fused with the update of the rows a lane owns
-    product<PB, C::B_RT, C::B_KS>(
+    product<PB, C::B_RT, C::B_KS, SPLIT>(
         s.MT, s.RS, s.t, nr, R, [&](int r, int p, const auto& u) {
           constexpr int W = sizeof(u) / sizeof(float);
           const int o = r * PB + p;
@@ -484,15 +540,13 @@ __device__ __forceinline__ void stats(const Smem& s, const Args& a, int b0,
   __syncthreads();
 }
 
-// rows of src (cols wide, a multiple of 4) into dst with row stride ds
-__device__ __forceinline__ void stage(float* dst, int ds, const float* src,
-                                      int rows, int cols) {
-  const int c4 = cols / 4;
-  for (int idx = threadIdx.x; idx < rows * c4; idx += blockDim.x) {
-    const int r = idx / c4, c = (idx % c4) * 4;
-    *reinterpret_cast<float4*>(dst + (size_t)r * ds + c) =
-        *reinterpret_cast<const float4*>(src + (size_t)r * cols + c);
-  }
+// `count` floats (a multiple of 4) of a constant, already in its padded
+// layout, from device memory into shared memory
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      int count) {
+  for (int i = 4 * threadIdx.x; i < count; i += 4 * blockDim.x)
+    *reinterpret_cast<float4*>(dst + i) =
+        *reinterpret_cast<const float4*>(src + i);
 }
 
 // ρ and 1/ρ of all R rows from a packed per-row vector
@@ -505,15 +559,17 @@ __device__ __forceinline__ void stage_rho(const Smem& s, const float* vec,
   }
 }
 
-// constants, then the tile's problems: scaled data, bounds and the clipped
-// initial iterates. Rows past m and n and problems past B are inert
-// (l = u = 0, q = 0).
-template <int PB>
+// constants (Â_G and Mᵀ unless STREAM), then the tile's problems: scaled
+// data, bounds and the clipped initial iterates. Rows past m and n and
+// problems past B are inert (l = u = 0, q = 0).
+template <int PB, bool STREAM>
 __device__ __forceinline__ void load_tile(const Smem& s, const Args& a,
                                           int b0) {
   const int nr = a.nr, mGp = a.mGp, R = mGp + nr, n = a.n, m = a.m;
-  stage(s.AG, s.AS, a.AG, mGp, nr);
-  stage(s.MT, s.RS, a.MT, nr, R);
+  if constexpr (!STREAM) {
+    stage(s.AG, a.AG, mGp * s.AS);
+    stage(s.MT, a.MT, nr * s.RS);
+  }
   stage_rho(s, a.vec, nr, mGp);
   for (int r = threadIdx.x; r < R; r += blockDim.x)
     s.einv[r] = r < mGp ? a.vec[6 * nr + 2 * mGp + r] : a.vec[4 * nr + r - mGp];
@@ -588,18 +644,20 @@ __device__ __forceinline__ void store_tile(const Smem& s, const Args& a,
   stats<PB>(s, a, b0, st);
 }
 
-// K1 (WAVE false) or K2 on the tile of blockIdx.x
-template <int PB, bool WAVE>
+// K1 (WAVE false) or K2 on the tile of blockIdx.x; SPLIT (K1 only): the
+// first iters_lo iterations in split mode
+template <int PB, bool STREAM, bool WAVE, bool SPLIT>
 __device__ __forceinline__ void solve_tile(const Args& a) {
   extern __shared__ __align__(16) float smem[];
-  const int nr = a.nr, mGp = a.mGp, R = mGp + nr;
-  const Smem s = carve<PB>(smem, nr, mGp);
+  const int nr = a.nr, mGp = a.mGp;
+  const Smem s = carve<PB, STREAM>(smem, a);
   const int b0 = blockIdx.x * PB;
-  load_tile<PB>(s, a, b0);
+  load_tile<PB, STREAM>(s, a, b0);
   __syncthreads();
 
   // ---- relaxation ----
-  phase<PB>(s, nr, mGp, a.iters, a.alpha, true);
+  if constexpr (SPLIT) phase<PB, true>(s, nr, mGp, a.iters_lo, a.alpha, false);
+  phase<PB, false>(s, nr, mGp, a.iters, a.alpha, true);
   store_tile<PB>(s, a, b0, a.x, a.z, a.y, a.st);
   if constexpr (WAVE) {
     // ---- probe bounds: binaries fixed to the rounded relaxation ----
@@ -622,35 +680,44 @@ __device__ __forceinline__ void solve_tile(const Args& a) {
     // ---- probe: stiff-ρ then base-ρ, warm-chained in shared memory ----
     if (a.p1 > 0) {
       // M2ᵀ and the stiff ρ take Mᵀ's and ρ's place for this phase only
-      stage(s.MT, s.RS, a.MT2, nr, R);
+      // (streamed: the phase reads M2ᵀ where it lies)
+      Smem s2 = s;
+      if constexpr (STREAM)
+        s2.MT = const_cast<float*>(a.MT2);
+      else
+        stage(s.MT, a.MT2, nr * s.RS);
       stage_rho(s, a.vec2, nr, mGp);
       __syncthreads();
-      phase<PB>(s, nr, mGp, a.p1, a.alpha2, false);
-      stage(s.MT, s.RS, a.MT, nr, R);
+      phase<PB, false>(s2, nr, mGp, a.p1, a.alpha2, false);
+      if constexpr (!STREAM) stage(s.MT, a.MT, nr * s.RS);
       stage_rho(s, a.vec, nr, mGp);
     }
     __syncthreads();
-    phase<PB>(s, nr, mGp, a.p2, a.alpha, true);
+    phase<PB, false>(s, nr, mGp, a.p2, a.alpha, true);
     store_tile<PB>(s, a, b0, a.xp, a.zp, a.yp, a.stp);
   }
 }
 
-template <int PB>
+template <int PB, bool STREAM, bool SPLIT>
 __global__ void __launch_bounds__(Cfg<PB>::WARPS * 32)
 admm_k1_kernel(const Args a) {
-  solve_tile<PB, false>(a);
+  solve_tile<PB, STREAM, false, SPLIT>(a);
 }
 
-template <int PB>
+template <int PB, bool STREAM>
 __global__ void __launch_bounds__(Cfg<PB>::WARPS * 32)
 admm_k2_kernel(const Args a) {
-  solve_tile<PB, true>(a);
+  solve_tile<PB, STREAM, true, false>(a);
 }
 
-template <int PB, bool WAVE>
+template <int PB, bool STREAM, bool WAVE, bool SPLIT>
 int launch(const Args& a, int threads, cudaStream_t stream) {
-  const size_t bytes = smem_floats(a.nr, a.mGp, PB) * sizeof(float);
-  void (*kernel)(const Args) = WAVE ? admm_k2_kernel<PB> : admm_k1_kernel<PB>;
+  const size_t bytes = smem_floats(a.nr, a.mGp, PB, STREAM) * sizeof(float);
+  void (*kernel)(const Args);
+  if constexpr (WAVE)
+    kernel = admm_k2_kernel<PB, STREAM>;
+  else
+    kernel = admm_k1_kernel<PB, STREAM, SPLIT>;
   if (bytes > 48 * 1024) {
     const int rc = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -660,15 +727,35 @@ int launch(const Args& a, int threads, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// the instantiation of one tile width: staged or streamed, split or not
+template <int PB, bool WAVE>
+int launch_variant(const Args& a, bool streamed, cudaStream_t st,
+                   int threads) {
+  if constexpr (WAVE) {
+    return streamed ? launch<PB, true, true, false>(a, threads, st)
+                    : launch<PB, false, true, false>(a, threads, st);
+  } else {
+    const bool split = a.iters_lo > 0;
+    if (streamed)
+      return split ? launch<PB, true, false, true>(a, threads, st)
+                   : launch<PB, true, false, false>(a, threads, st);
+    return split ? launch<PB, false, false, true>(a, threads, st)
+                 : launch<PB, false, false, false>(a, threads, st);
+  }
+}
+
 template <bool WAVE>
-int launch_pb(const Args& a, int pb, int threads, void* stream) {
+int launch_pb(const Args& a, int pb, int streamed, int threads,
+              void* stream) {
   if (threads < 32 || threads > max_warps(pb) * 32 || threads % 32)
     return (int)cudaErrorInvalidConfiguration;
+  if (a.iters_lo < 0 || (WAVE && a.iters_lo != 0))
+    return (int)cudaErrorInvalidValue;      // split mode is K1's alone
   cudaStream_t st = (cudaStream_t)stream;
   switch (pb) {
-    case 1: return launch<1, WAVE>(a, threads, st);
-    case 4: return launch<4, WAVE>(a, threads, st);
-    case 8: return launch<8, WAVE>(a, threads, st);
+    case 1: return launch_variant<1, WAVE>(a, streamed != 0, st, threads);
+    case 4: return launch_variant<4, WAVE>(a, streamed != 0, st, threads);
+    case 8: return launch_variant<8, WAVE>(a, streamed != 0, st, threads);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -678,23 +765,27 @@ int launch_pb(const Args& a, int pb, int threads, void* stream) {
 extern "C" {
 
 // dynamic shared memory one block of K1 or K2 needs with a tile of pb
-// problems (the same for both: M2ᵀ is staged over Mᵀ)
-int phc_admm_smem_bytes(int nr, int mGp, int pb) {
-  return (int)(smem_floats(nr, mGp, pb) * sizeof(float));
+// problems, constants staged (streamed = 0) or read from device memory
+// (the same for both kernels: M2ᵀ is staged over Mᵀ)
+int phc_admm_smem_bytes(int nr, int mGp, int pb, int streamed) {
+  return (int)(smem_floats(nr, mGp, pb, streamed != 0) * sizeof(float));
 }
 
 const char* phc_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// K1 on a batch: `a` as the wrapper filled it, pb and threads from its plan
-int phc_admm_k1(const PhcAdmmArgs* a, int pb, int threads, void* stream) {
-  return launch_pb<false>(*a, pb, threads, stream);
+// K1 on a batch: `a` as the wrapper filled it (a->iters_lo > 0: split
+// mode first); pb, streamed and threads from its plan
+int phc_admm_k1(const PhcAdmmArgs* a, int pb, int streamed, int threads,
+                void* stream) {
+  return launch_pb<false>(*a, pb, streamed, threads, stream);
 }
 
 // K2 (relaxation, probe bounds, two-phase probe) on a batch
-int phc_admm_k2(const PhcAdmmArgs* a, int pb, int threads, void* stream) {
-  return launch_pb<true>(*a, pb, threads, stream);
+int phc_admm_k2(const PhcAdmmArgs* a, int pb, int streamed, int threads,
+                void* stream) {
+  return launch_pb<true>(*a, pb, streamed, threads, stream);
 }
 
 }  // extern "C"

@@ -72,6 +72,16 @@ class MldModel:
                            for k, v in full.items()})
         return cls(mats=full, info=info)
 
+    def to(self, device) -> "MldModel":
+        """The same model with its matrices on ``device`` (itself where
+        they already are)."""
+        device = torch.device(device)
+        if self.mats.A.device == device:
+            return self
+        return MldModel(mats=StructDict({k: v.to(device)
+                                         for k, v in self.mats.items()}),
+                        info=self.info)
+
     def numpy_mats(self) -> StructDict:
         """Host float64 copy of the matrix bundle (condensation input)."""
         return StructDict({k: v.detach().cpu().numpy().astype(np.float64)
@@ -96,6 +106,11 @@ class MldModel:
             if val is not None and mat.shape[1] > 0:
                 y = y + val @ mat.T
         return y
+
+    def step_v(self, x, v, omega=None):
+        """One step driven by the stacked decision v = [u; δ; z]."""
+        u, delta, z = self.info.split_v(v)
+        return self.step(x, u, delta, z, omega)
 
     def lsim(self, x0, v_seq, omega_seq=None):
         """Simulate T steps under a decision sequence. v_seq: (T, nv);

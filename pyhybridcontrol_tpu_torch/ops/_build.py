@@ -105,11 +105,13 @@ def build_libraries() -> dict:
 
 def _bind_admm(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.phc_admm_smem_bytes.argtypes = [I, I, I]      # nr, mGp, tile width
+    # nr, mGp, tile width, streamed
+    lib.phc_admm_smem_bytes.argtypes = [I, I, I, I]
     lib.phc_admm_smem_bytes.restype = I
-    # struct Args (ops/cuda_admm.py mirrors it), tile width, threads, stream
+    # struct Args (ops/cuda_admm.py mirrors it), tile width, streamed,
+    # threads, stream
     for fn in (lib.phc_admm_k1, lib.phc_admm_k2):
-        fn.argtypes = [P, I, I, P]
+        fn.argtypes = [P, I, I, I, P]
         fn.restype = I
 
 

@@ -25,28 +25,39 @@ the σ-form ``ops/admm.admm_solve`` at convergence, not mid-flight.
 Dispatch follows the tensor's device and nothing else: a CPU tensor runs
 the plain torch version, a CUDA tensor launches the kernel or raises.
 There is no batch-size gate and no fallback. Each kernel wrapper counts
-its launches in ``LAUNCHES`` (and their batch sizes in ``LAUNCH_BATCHES``).
+its launches in ``LAUNCHES`` (and their batch sizes in ``LAUNCH_BATCHES``),
+once under each variant a launch runs: "admm_k1"/"admm_k2" for the
+staged full-precision kernels, "admm_k1_streamed"/"admm_k2_streamed" for
+the streamed ones, "admm_k1_split" for K1 in split mode (a streamed K1
+launch in split mode counts under both of its variants).
 
 On the card K1 and K2 give each thread block a tile of 8, 4 or 1 problems:
-``plan`` picks the instantiation (tile, threads, shared memory) from the
-batch size and the padded shape alone, every batch size goes through the
-kernel (the ragged last tile is masked there), and a shape whose constants
-fit no tile raises. The kernels pack and unpack themselves: they read q, h,
-lb, ub in original units (any row stride, so an expanded row is read in
-place) and warm iterates in the public (B, m+n) layout, and write x, z, y
-in that layout; the wrapper checks, allocates once and launches.
+``plan`` picks the instantiation (tile, threads, shared memory, staged or
+streamed constants) from the batch size and the padded shape alone, and
+every batch size goes through the kernel (the ragged last tile is masked
+there). Where a block cannot hold Â_G and Mᵀ (the double integrator from
+N=27, the reference bench's configs 2, 3, 4b and 4c) the streamed variant
+reads them from device memory, which the H100's L2 serves, and keeps only
+the tile's iterates in shared memory. The kernels pack and unpack
+themselves: they read q, h, lb, ub in original units (any row stride, so
+an expanded row is read in place) and warm iterates in the public (B,
+m+n) layout, and write x, z, y in that layout; the wrapper checks,
+allocates once and launches.
 
 K1's split-precision option (``low_frac``, the reference's ``iters_lo``
 phase): the first ``int(iters * low_frac)`` iterations take each product
 as the manual 3-pass bf16 product  A·b ≈ Ahi·bhi + Ahi·blo + Alo·bhi
-(hi = bf16(a), lo = bf16(a − hi), fp32 accumulation). On the card that
-phase is its own kernel on the tensor cores (``csrc/admm_mixed.cu``,
-a tile of 16 or 32 problems per block, ``plan_mixed``); it hands its
-iterates to K1, which
-runs the full-precision tail, the final half step and the stats. The
-tensor-core tiles want nr and mGp in multiples of 16, so this path (plain
-version and kernel alike) runs on a copy of the prep zero-padded from the
-8 grain to 16 (``pad_kernel_qp``); zero rows and columns are inert.
+(hi = bf16(a), lo = bf16(a − hi), fp32 accumulation). On the card
+``split_route`` picks, from the shape alone, where that phase runs: its
+own kernel on the tensor cores (``csrc/admm_mixed.cu``, a tile of 16 or
+32 problems per block, ``plan_mixed``), which hands its iterates to K1
+for the full-precision tail, the final half step and the stats; or,
+where that kernel's constants do not fit a block (N ≥ 22 of the double
+integrator), K1 itself in split mode, the same arithmetic on the CUDA
+cores, followed in the same launch by the tail. The tensor-core tiles
+want nr and mGp in multiples of 16, so this path (plain version and
+kernels alike) runs on a copy of the prep zero-padded from the 8 grain
+to 16 (``pad_kernel_qp``); zero rows and columns are inert.
 ``low_frac`` stays off the B&B path, as in the reference.
 
 The plain versions keep the reference's public layout — q (B,n), h (B,m),
@@ -74,7 +85,8 @@ from pyhybridcontrol_tpu_torch.ops.admm import (
 )
 
 # launches per kernel wrapper (incremented only where the kernel launches)
-LAUNCHES = {"admm_k1": 0, "admm_k2": 0, "admm_k1_mixed": 0}
+LAUNCHES = {"admm_k1": 0, "admm_k2": 0, "admm_k1_mixed": 0,
+            "admm_k1_streamed": 0, "admm_k2_streamed": 0, "admm_k1_split": 0}
 # batch size -> launches, per kernel wrapper (same events as LAUNCHES)
 LAUNCH_BATCHES = {k: {} for k in LAUNCHES}
 
@@ -470,11 +482,13 @@ _RED = 16            # floats of reduction workspace per warp and problem
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """Instantiation of K1/K2 for one batch: problems per block, threads
-    per block and dynamic shared memory (bytes) per block."""
+    per block, dynamic shared memory (bytes) per block, and whether Â_G
+    and Mᵀ are read from device memory (streamed) instead of staged."""
 
     pb: int
     threads: int
     smem: int
+    streamed: bool = False
 
     @property
     def warps(self) -> int:
@@ -489,15 +503,17 @@ def _strides(nr: int, mGp: int):
     return nr + 4, R + (48 - R % 32) % 32
 
 
-def smem_bytes(nr: int, mGp: int, pb: int) -> int:
+def smem_bytes(nr: int, mGp: int, pb: int, streamed: bool = False) -> int:
     """Shared memory one block of K1 or K2 needs with a tile of ``pb``
     problems (``phc_admm_smem_bytes`` of the library gives the same):
-    Â_G and Mᵀ with padded row strides, 3 per-row vectors, and per problem
-    6 arrays of R rows, 6 of nr and the reduction workspace. K2 takes no
-    more than K1: M2ᵀ is staged over Mᵀ for the stiff phase."""
+    Â_G and Mᵀ with padded row strides (not in the streamed variant), 3
+    per-row vectors, and per problem 6 arrays of R rows, 6 of nr and the
+    reduction workspace. K2 takes no more than K1: M2ᵀ is staged over Mᵀ
+    for the stiff phase, or read where it lies."""
     R = mGp + nr
     stride_a, stride_m = _strides(nr, mGp)
-    return 4 * (mGp * stride_a + nr * stride_m + 3 * R + 2 * nr
+    consts = 0 if streamed else mGp * stride_a + nr * stride_m
+    return 4 * (consts + 3 * R + 2 * nr
                 + pb * (6 * R + 6 * nr + _RED * MAX_WARPS[pb]))
 
 
@@ -517,25 +533,30 @@ def _warps(nr: int, mGp: int, pb: int) -> int:
     return max(range(8, MAX_WARPS[pb] + 1), key=lambda nw: (busy(nw), -nw))
 
 
-def plan(B: int, nr: int, mGp: int, pb: Optional[int] = None) -> LaunchPlan:
+def plan(B: int, nr: int, mGp: int, pb: Optional[int] = None,
+         streamed: Optional[bool] = None) -> LaunchPlan:
     """The instantiation K1 and K2 run a batch of ``B`` problems with, from
     the shapes alone: the largest tile in ``TILES`` that fits a block's
     shared memory and still leaves about two blocks for every SM (a tile
-    of 1 where no larger one does). ``pb`` asks for one tile width. Raises
+    of 1 where no larger one does), with Â_G and Mᵀ staged in shared
+    memory wherever that fits, else streamed from device memory. ``pb``
+    asks for one tile width, ``streamed`` for one variant. Raises
     ValueError where nothing fits: there is no other path."""
     if B < 1:
         raise ValueError("ADMM kernel: empty batch")
     if pb is not None and pb not in TILES:
         raise ValueError(f"ADMM kernel: no instantiation with a tile of "
                          f"{pb} problems (have {TILES})")
-    for t in (TILES if pb is None else (pb,)):
-        smem = smem_bytes(nr, mGp, t)
-        if smem > SMEM_MAX:
-            continue
-        if pb is None and t > 1 and -(-B // t) < 1.9 * SM_COUNT:
-            continue
-        return LaunchPlan(pb=t, threads=32 * _warps(nr, mGp, t), smem=smem)
-    need = smem_bytes(nr, mGp, pb or 1)
+    for st in ((False, True) if streamed is None else (bool(streamed),)):
+        for t in (TILES if pb is None else (pb,)):
+            smem = smem_bytes(nr, mGp, t, st)
+            if smem > SMEM_MAX:
+                continue
+            if pb is None and t > 1 and -(-B // t) < 1.9 * SM_COUNT:
+                continue
+            return LaunchPlan(pb=t, threads=32 * _warps(nr, mGp, t),
+                              smem=smem, streamed=st)
+    need = smem_bytes(nr, mGp, pb or 1, bool(streamed))
     raise ValueError(
         f"ADMM kernel: nr={nr}, mGp={mGp} needs {need} bytes of shared "
         f"memory per block, above the {SMEM_MAX} an sm_90 block has")
@@ -551,13 +572,16 @@ class _Args(ctypes.Structure):
             "xp", "zp", "yp", "stp")]
         + [(k, ctypes.c_int) for k in (
             "sq", "sh", "slb", "sub", "sz0G", "sy0G", "sz0B", "sy0B", "B",
-            "n", "m", "nr", "mGp", "iters", "p1", "p2")]
+            "n", "m", "nr", "mGp", "iters", "iters_lo", "p1", "p2")]
         + [(k, ctypes.c_float) for k in ("alpha", "alpha2", "cinv")])
 
 
 def _layout(kq: KernelQP):
-    """Device constants in the kernels' layout: Â_G as (mGp, nr), Mᵀ as
-    (nr, mGp+nr) and P̂ᵀ, so neighbouring threads read neighbouring words;
+    """Device constants in the kernels' layout: Â_G as (mGp, nr) and Mᵀ as
+    (nr, mGp+nr), each with its shared-memory row stride (``_strides``,
+    zero in the pad columns: the staged kernels copy them as they lie, the
+    streamed ones read them in place), and P̂ᵀ, so neighbouring threads
+    read neighbouring words;
     the per-row vectors packed as ``vec`` = [d_box, 1/d_box, ρ_B, 1/ρ_B,
     1/E_B, 1/(D·c) | ρ_G, 1/ρ_G, 1/E_G]; and what packing needs, ``io`` =
     [c·D, E_B, D | E_G], zero in the padding (the same single products as
@@ -574,8 +598,10 @@ def _layout(kq: KernelQP):
                         F.pad(spec.D, (0, kq.n_pad - n)),
                         F.pad(spec.E[:m], (0, kq.m_pad - m))]
                        ).float().contiguous()
+        sa, sm = _strides(kq.n_pad, kq.m_pad)
         lay = kq.cache["layout"] = dict(
-            AG=kq.AGT.T.contiguous(), MT=kq.M.T.contiguous(),
+            AG=F.pad(kq.AGT.T, (0, sa - kq.n_pad)).contiguous(),
+            MT=F.pad(kq.M.T, (0, sm - kq.m_pad - kq.n_pad)).contiguous(),
             PT=kq.P.T.contiguous(), vec=vec, io=io, cinv=float(kq.cinv))
     return lay
 
@@ -620,15 +646,17 @@ def _warm_views(kq: KernelQP, warm):
 
 def _launch(name: str, kq: KernelQP, kq2: Optional[KernelQP], binmask,
             q, h, lb, ub, warm, iters: int, p1: int, p2: int,
-            pb: Optional[int]):
+            pb: Optional[int], streamed: Optional[bool] = None,
+            iters_lo: int = 0):
     """Check the inputs, allocate the outputs, launch K1 (``name`` =
-    "admm_k1") or K2 once. Returns one AdmmResult per stats block."""
+    "admm_k1"; ``iters_lo`` split-mode iterations before ``iters`` full
+    ones) or K2 once. Returns one AdmmResult per stats block."""
     from pyhybridcontrol_tpu_torch.ops._build import load_library
 
     spec = kq.base
     n, m, mt = spec.n, spec.m_ineq, spec.m_total
     B = q.shape[0]
-    pl = plan(B, kq.n_pad, kq.m_pad, pb)
+    pl = plan(B, kq.n_pad, kq.m_pad, pb, streamed)
     a = _Args()
     for k, t, cols in (("q", q, n), ("h", h, m), ("lb", lb, n),
                        ("ub", ub, n)):
@@ -661,15 +689,20 @@ def _launch(name: str, kq: KernelQP, kq2: Optional[KernelQP], binmask,
     for k, t in zip(("x", "z", "y", "st", "xp", "zp", "yp", "stp"), outs):
         setattr(a, k, t.data_ptr())
     a.B, a.n, a.m, a.nr, a.mGp = B, n, m, kq.n_pad, kq.m_pad
-    a.iters, a.p1, a.p2 = int(iters), int(p1), int(p2)
+    a.iters, a.iters_lo = int(iters), int(iters_lo)
+    a.p1, a.p2 = int(p1), int(p2)
     a.alpha, a.cinv = spec.alpha, lay["cinv"]
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, "phc_" + name)(ctypes.addressof(a), pl.pb,
-                                         pl.threads, ctypes.c_void_p(stream))
+                                         int(pl.streamed), pl.threads,
+                                         ctypes.c_void_p(stream))
     _raise_on(lib, rc, name)
-    _count_launch(name, B)
+    variants = ([name + "_streamed"] if pl.streamed else []) + (
+        ["admm_k1_split"] if iters_lo > 0 else [])
+    for k in variants or [name]:
+        _count_launch(k, B)
     return [AdmmResult(x=x, obj=st[:, 0], r_prim=st[:, 1],
                        r_prim_rel=st[:, 2], r_dual=st[:, 3],
                        infeas_cert=st[:, 4] > 0.5, y=y, z=z)
@@ -731,6 +764,17 @@ def mixed_smem_bytes(nr: int, mGp: int, tile: int) -> int:
     R = mGp + nr
     return (4 * (nr * sa + R * sm) + 4 * R * tile
             + 4 * tile * (16 * _mixed_jobs(nr, mGp) + 3 * nr) + 16 * R)
+
+
+def split_route(nr: int, mGp: int) -> str:
+    """Where the split-precision phase of K1 runs on the card, from the
+    16-padded shape alone: "tensor_cores" (the ``mma.sync`` kernel of
+    ``csrc/admm_mixed.cu``) where its tile of 16 problems fits a block,
+    else "k1_split" (K1 in split mode, constants staged or streamed as
+    ``plan`` decides)."""
+    fits = (mixed_smem_bytes(nr, mGp, 16) <= SMEM_MAX
+            and 2 * (nr + mGp) <= MIXED_MAX_THREADS[16])
+    return "tensor_cores" if fits else "k1_split"
 
 
 def plan_mixed(B: int, nr: int, mGp: int, sm_count: int = SM_COUNT,
@@ -813,27 +857,33 @@ def _launch_k1_mixed(kq: KernelQP, qs, lG, uG, lB, uB, warm4, iters_lo: int,
 
 def admm_solve_cuda(kq: KernelQP, q, h, lb, ub, iters: int = 100,
                     warm=None, low_frac: float = 0.0,
-                    pb: Optional[int] = None) -> AdmmResult:
+                    pb: Optional[int] = None,
+                    streamed: Optional[bool] = None) -> AdmmResult:
     """K1 on the card; same contract as ``admm_solve_plain``. The kernel
     packs and unpacks itself: the wrapper checks, allocates and launches.
-    With ``low_frac`` > 0 the leading iterations run in the split-precision
-    tensor-core kernel (on packed arrays), whose iterates warm-start K1 for
-    the rest. ``pb`` asks for one tile width instead of the plan's."""
+    With ``low_frac`` > 0 the leading iterations run where ``split_route``
+    says: in the tensor-core kernel (on packed arrays), whose iterates
+    warm-start K1 for the rest, or in K1's own split mode, in the same
+    launch as the rest. ``pb`` and ``streamed`` ask for one tile width or
+    one variant instead of the plan's."""
     kq, iters_lo = _split_iters(kq, iters, low_frac)
-    if iters_lo > 0:
+    if iters_lo > 0 and split_route(kq.n_pad, kq.m_pad) == "tensor_cores":
         qs, lG, uG, lB, uB, warm4 = _pack(kq, q, h, lb, ub, warm)
         warm = _launch_k1_mixed(kq, qs, lG, uG, lB, uB, warm4, iters_lo)
+        iters, iters_lo = iters - iters_lo, 0
     return _launch("admm_k1", kq, None, None, q, h, lb, ub, warm,
-                   max(iters - iters_lo, 0), 0, 0, pb)[0]
+                   max(iters - iters_lo, 0), 0, 0, pb, streamed,
+                   iters_lo)[0]
 
 
 def admm_wave_cuda(kq: KernelQP, kq2: Optional[KernelQP], binary_idx,
                    q, h, lb, ub, iters: int = 100, probe_iters: int = 100,
-                   warm=None, pb: Optional[int] = None):
+                   warm=None, pb: Optional[int] = None,
+                   streamed: Optional[bool] = None):
     """K2 on the card; same contract as ``admm_wave_plain``."""
     p1, p2 = _split_probe(kq2, probe_iters)
     return tuple(_launch("admm_k2", kq, kq2, _binaries(kq, binary_idx)[1],
-                         q, h, lb, ub, warm, iters, p1, p2, pb))
+                         q, h, lb, ub, warm, iters, p1, p2, pb, streamed))
 
 
 # ---- entry points --------------------------------------------------------

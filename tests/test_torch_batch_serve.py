@@ -162,7 +162,8 @@ def test_feedback_batch_matches_reference_and_single_feedback(ctrls):
 
 def test_feedback_batch_wave_budget_and_refusals(ctrls, monkeypatch):
     """The wave arithmetic of the reference (wave snapped to a multiple
-    of 128, equal per-instance node budget) and what still raises."""
+    of 128, equal per-instance node budget), the "vmap" engine (one
+    ``feedback`` per instance) and what still raises."""
     from pyhybridcontrol_tpu_torch.control import mpc
 
     _, tc = ctrls
@@ -182,9 +183,13 @@ def test_feedback_batch_wave_budget_and_refusals(ctrls, monkeypatch):
     with pytest.raises(RuntimeError, match="stop here"):
         tc.feedback_batch(x0s[:2], pooled_wave=1024)
     assert got["P"] == 64 and got["spec"].wave_size == 64
+    calls = []
+    monkeypatch.setattr(tc, "feedback", lambda x, W, P, up: calls.append(
+        x) or {"obj": x.sum()})
+    assert torch.equal(tc.feedback_batch(x0s[:3] + 1.0, engine="vmap").obj,
+                       torch.full((3,), 2.0))
+    assert len(calls) == 3
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*vmap"):
-        tc.feedback_batch(x0s, engine="vmap")
     with pytest.raises(NotImplementedError, match="ROADMAP.*multi-device"):
         tc.feedback_batch(x0s, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP.*scenario trees"):
@@ -196,8 +201,7 @@ def test_feedback_batch_wave_budget_and_refusals(ctrls, monkeypatch):
     en = MpcController(tdi.switched_double_integrator(), 4,
                        tdi.default_weights(), solver="enumerate",
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        en.feedback_batch(x0s)               # auto → the vmap engine
+    assert en.feedback_batch(x0s[:2]).obj.shape == (2,)   # auto → vmap
     with pytest.raises(ValueError, match="bnb"):
         en.feedback_batch(x0s, engine="pooled")
 
@@ -397,13 +401,15 @@ def test_cuda_tensors_always_launch_the_kernels():
     lb, ub = qp.lb.expand(B, -1), qp.ub.expand(B, -1)
     ca.reset_launch_counts()
     ca.admm_solve_auto(spec, f, h, lb, ub, iters=20)
-    assert ca.LAUNCHES == {"admm_k1": 1, "admm_k2": 0, "admm_k1_mixed": 0}
+    none = dict.fromkeys(ca.LAUNCHES, 0)
+    assert ca.LAUNCHES == {**none, "admm_k1": 1}
     ca.admm_wave_auto(spec, None, qp.binary_idx, f, h, lb, ub, iters=20,
                       probe_iters=20)
     assert ca.LAUNCHES["admm_k2"] == 1
     ca.admm_solve_cuda(ca.kernel_qp_for(spec), f, h, lb.contiguous(),
                        ub.contiguous(), iters=20, low_frac=0.5)
-    assert ca.LAUNCHES == {"admm_k1": 2, "admm_k2": 1, "admm_k1_mixed": 1}
+    assert ca.LAUNCHES == {**none, "admm_k1": 2, "admm_k2": 1,
+                           "admm_k1_mixed": 1}
     assert ca.LAUNCH_BATCHES["admm_k1_mixed"] == {B: 1}
 
 

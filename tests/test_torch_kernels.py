@@ -367,22 +367,36 @@ def test_plan_instantiation_at_the_main_shapes(N, B, pb, threads):
 
 @pytest.mark.parametrize("pb", [8, 4, 1])
 def test_plan_takes_an_asked_tile_or_raises(pb):
+    """An asked tile is taken with staged constants where they fit, else
+    streamed; asked for staged constants that do not fit, or for a width
+    with no instantiation, the plan raises."""
     nr, mGp = _shape(21)
     pl = ca.plan(11, nr, mGp, pb)          # any batch: the edge is masked
-    assert pl.pb == pb and pl.smem <= ca.SMEM_MAX
+    assert pl.pb == pb and pl.smem <= ca.SMEM_MAX and not pl.streamed
     with pytest.raises(ValueError, match="shared memory"):
-        ca.plan(4096, *_shape(60), pb)
+        ca.plan(4096, *_shape(60), pb, streamed=False)
+    pl = ca.plan(4096, *_shape(60), pb)
+    assert pl.pb == pb and pl.streamed
+    assert pl.smem == ca.smem_bytes(*_shape(60), pb, True) <= ca.SMEM_MAX
     with pytest.raises(ValueError, match="no instantiation"):
         ca.plan(4096, nr, mGp, 2 * pb + 1)
 
 
 def test_plan_refuses_what_does_not_fit_and_empty_batches():
-    """N=27 and N=60 fit no tile: ValueError, no other path. N=26 is the
-    largest horizon of the double integrator that fits."""
+    """N=26 is the largest horizon of the double integrator whose
+    constants a block can stage; N=27 and N=60 take the streamed variant
+    (their iterates fit); a shape whose iterates fit no tile even with the
+    constants streamed, and an empty batch, raise: ValueError, no other
+    path."""
+    assert not ca.plan(2, *_shape(26)).streamed
     assert ca.plan(2, *_shape(26)).smem <= ca.SMEM_MAX
     for N in (27, 60):
         with pytest.raises(ValueError, match="shared memory"):
-            ca.plan(2, *_shape(N))
+            ca.plan(2, *_shape(N), streamed=False)
+        pl = ca.plan(2, *_shape(N))
+        assert pl.streamed and pl.pb == 1 and pl.smem <= ca.SMEM_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        ca.plan(2, 2048, 4096)
     with pytest.raises(ValueError, match="empty batch"):
         ca.plan(0, *_shape(10))
 
@@ -391,7 +405,7 @@ def test_plan_depends_on_shapes_alone(prob):
     """Nothing but (B, nr, mGp) and an asked tile enters the plan: two
     problems of one shape get one plan, and K1 and K2 share it."""
     assert list(inspect.signature(ca.plan).parameters) == [
-        "B", "nr", "mGp", "pb"]
+        "B", "nr", "mGp", "pb", "streamed"]
     kq, kq2 = prob["kq"], prob["kq2"]
     assert (kq.n_pad, kq.m_pad) == (kq2.n_pad, kq2.m_pad)
     for b in (1, 32, 1024, 4096):
@@ -428,9 +442,9 @@ def test_argument_block_mirrors_the_kernel_source():
         names += [w for w in re.findall(r"[A-Za-z_][A-Za-z0-9_]*", decl)]
     assert names == [f[0] for f in ca._Args._fields_]
     kinds = [f[1] for f in ca._Args._fields_]
-    assert kinds == ([ctypes.c_void_p] * 24 + [ctypes.c_int] * 16
+    assert kinds == ([ctypes.c_void_p] * 24 + [ctypes.c_int] * 17
                      + [ctypes.c_float] * 3)
-    assert ctypes.sizeof(ca._Args) == 24 * 8 + 16 * 4 + 3 * 4 + 4
+    assert ctypes.sizeof(ca._Args) == 24 * 8 + 17 * 4 + 3 * 4
 
 
 def test_kernel_packing_factors_reproduce_pack_and_result_bitwise(prob, rng):
@@ -704,3 +718,242 @@ def test_mixed_binding_mirrors_the_kernel_source():
     n_ptrs = sum(sizes.get(tok.strip(), 1) for tok in ptrs.split(",")
                  if tok.strip())
     assert n_ptrs + 7 == len(lib.phc_admm_k1_mixed.argtypes)
+
+
+# ---- shapes above the shared-memory cap: the streamed variant ------------
+
+# (n, m) of the shapes a block cannot stage, and the bytes a tile of one
+# problem would need with staged constants: the double integrator at N=27,
+# the reference bench's config 3 (DEWH, N=24, move blocking, soft), 4b
+# (DEWH, N=24, soft), 4c (scenario tree, S=4, N=10) and 2/2b (PWA hull,
+# N=20)
+BIG_SHAPES = {"N27": (81, 270, 246176), "config3": (108, 216, 266912),
+              "config4b": (120, 216, 285120), "config4c": (120, 444, 531424),
+              "config2": (220, 680, 1477792)}
+
+
+@pytest.mark.parametrize("name", sorted(BIG_SHAPES))
+def test_plan_streams_the_constants_where_a_block_cannot_stage_them(name):
+    """The five shapes take the streamed variant at every batch size: a
+    tile of 1 below ~2 blocks per SM, else the largest whose iterates fit
+    (config 2: a tile of 8 needs 238,432 bytes, so 4)."""
+    n, m, staged = BIG_SHAPES[name]
+    nr, mGp = -(-n // 8) * 8, -(-m // 8) * 8
+    assert ca.smem_bytes(nr, mGp, 1) == staged > ca.SMEM_MAX
+    for B, pb in ((1, 1), (37, 1), (300, 1),
+                  (4096, 4 if name == "config2" else 8)):
+        pl = ca.plan(B, nr, mGp)
+        assert pl.streamed and pl.pb == pb, (B, pl)
+        assert pl.smem == ca.smem_bytes(nr, mGp, pb, True) <= ca.SMEM_MAX
+        assert pl.threads == 32 * ca._warps(nr, mGp, pb)
+    assert ca.smem_bytes(224, 680, 8, True) == 238432 > ca.SMEM_MAX
+
+
+@pytest.mark.parametrize("N", range(1, 27))
+def test_plan_stages_every_shape_it_staged_before(N):
+    """Up to N=26 every batch size keeps the staged instantiation it had
+    (the largest staged tile that fits and leaves ~2 blocks per SM)."""
+    nr, mGp = _shape(N)
+    for B in (1, 32, 300, 1024, 4096):
+        pl = ca.plan(B, nr, mGp)
+        assert not pl.streamed
+        want = next(t for t in ca.TILES
+                    if ca.smem_bytes(nr, mGp, t) <= ca.SMEM_MAX
+                    and (t == 1 or -(-B // t) >= 1.9 * ca.SM_COUNT))
+        assert pl.pb == want and pl.smem == ca.smem_bytes(nr, mGp, want)
+
+
+def _source_smem_bytes():
+    """``smem_floats`` of csrc/admm.cu read from the source text and
+    evaluated in Python: the helpers it calls (stride_A, stride_M,
+    max_warps through the Cfg tables) and its own statements, C casts
+    dropped and the ternary turned into Python's."""
+    src = open(os.path.join(_REPO, "pyhybridcontrol_tpu_torch", "csrc",
+                            "admm.cu")).read()
+    warps = {int(t): int(w) for t, w in re.findall(
+        r"struct Cfg<(\d+)> \{\s*enum \{[^}]*WARPS = (\d+)", src)}
+    red = int(re.search(r"#define PHC_RED (\d+)", src).group(1))
+
+    def body(sig):
+        text = re.search(re.escape(sig) + r"\s*\{(.*?)\n\}", src,
+                         re.S).group(1)
+        text = re.sub(r"//[^\n]*", "", text)
+        text = re.sub(r"\((size_t|int)\)", "", text).replace("const size_t",
+                                                             "")
+        text = re.sub(r"(\w+) \? (\w+)\s*:", r"\2 if \1 else ", text)
+        stmts = [" ".join(st.split()) for st in text.split(";")
+                 if st.strip()]
+        return "\n".join("    " + st for st in stmts)
+
+    code = ("def stride_A(nr):\n" + body("inline int stride_A(int nr)")
+            + "\ndef stride_M(R):\n" + body("inline int stride_M(int R)")
+            + "\ndef smem_floats(nr, mGp, PB, streamed):\n"
+            + body("inline size_t smem_floats(int nr, int mGp, int PB,\n"
+                   "                                              bool "
+                   "streamed)"))
+    env = dict(max_warps=warps.__getitem__, PHC_RED=red)
+    exec(code, env)
+    return warps, red, lambda nr, mGp, pb, st: 4 * env["smem_floats"](
+        nr, mGp, pb, st)
+
+
+def test_smem_bytes_follows_the_kernel_source_for_both_variants():
+    """The wrapper's shared-memory reckoning and the source's
+    ``smem_floats`` (what ``phc_admm_smem_bytes`` returns and the launch
+    asks for) agree for staged and streamed constants, every tile, over
+    the double integrator's horizons and the five large shapes."""
+    warps, red, src_bytes = _source_smem_bytes()
+    assert warps == ca.MAX_WARPS and red == ca._RED
+    shapes = [_shape(N) for N in range(1, 61)] + [
+        (-(-n // 8) * 8, -(-m // 8) * 8) for n, m, _ in BIG_SHAPES.values()]
+    for nr, mGp in shapes:
+        for pb in ca.TILES:
+            for st in (False, True):
+                assert src_bytes(nr, mGp, pb, st) == ca.smem_bytes(
+                    nr, mGp, pb, st), (nr, mGp, pb, st)
+    # the kernels' device layout carries the shared-memory strides
+    assert src_bytes(88, 272, 1, False) - src_bytes(88, 272, 1, True) == \
+        4 * (272 * ca._strides(88, 272)[0] + 88 * ca._strides(88, 272)[1])
+
+
+def test_device_layout_carries_the_padded_strides(prob):
+    """Â_G and Mᵀ lie in device memory with the shared-memory row strides
+    (zero in the pad columns): the staged kernels copy them flat, the
+    streamed ones read them in place."""
+    kq = prob["kq"]
+    nr, mGp = kq.n_pad, kq.m_pad
+    sa, sm = ca._strides(nr, mGp)
+    lay = ca._layout(kq)
+    assert lay["AG"].shape == (mGp, sa) and lay["MT"].shape == (nr, sm)
+    assert torch.equal(lay["AG"][:, :nr], kq.AGT.T)
+    assert torch.equal(lay["MT"][:, :mGp + nr], kq.M.T)
+    assert not lay["AG"][:, nr:].any() and not lay["MT"][:, mGp + nr:].any()
+    assert lay["AG"].is_contiguous() and lay["MT"].is_contiguous()
+
+
+@pytest.mark.parametrize("N", range(2, 28))
+def test_low_frac_route_follows_the_shape(N):
+    """The split-precision phase runs on the tensor cores up to N=21 and
+    in K1's split mode from N=22 (staged to N=26, streamed at N=27), from
+    the 16-padded shape alone, with a plan for every batch size: no shape
+    is refused."""
+    nr, mGp = _shape16(N)
+    route = ca.split_route(nr, mGp)
+    assert route == ("tensor_cores" if N <= 21 else "k1_split")
+    for B in (1, 37, 4096):
+        if route == "tensor_cores":
+            assert ca.plan_mixed(B, nr, mGp).threads == 2 * (nr + mGp)
+        else:
+            with pytest.raises(ValueError):
+                ca.plan_mixed(B, nr, mGp)
+        assert ca.plan(B, nr, mGp).streamed == (N >= 27)
+
+
+def _split_product_mirror(A, b):
+    """The kernel's split-mode product, term by term as ``product<...,
+    SPLIT>`` accumulates it: for each depth index c the three exact bf16
+    products ah·bh, ah·bl, al·bh added in that order in fp32. A (K, O),
+    b (B, K) -> (B, O)."""
+    ah, al = ca._bf16_split(A)
+    bh, bl = ca._bf16_split(b)
+    acc = torch.zeros(b.shape[0], A.shape[1])
+    for c in range(A.shape[0]):
+        for x, y in ((ah, bh), (ah, bl), (al, bh)):
+            acc = acc + y[:, c:c + 1] * x[c]
+    return acc
+
+
+def test_plain_split_mode_arithmetic_equals_mm3(prob12, rng):
+    """The split mode's arithmetic (three exact bf16 products per term,
+    fp32 accumulation) gives ``_mm3``'s products to fp32 rounding of the
+    sum, on both products of an iteration at the N=12 shape; dropping the
+    lo·hi pass is far outside that."""
+    kq = ca.pad_kernel_qp(prob12["kq"])
+    for A, K in ((kq.AGT.T, kq.m_pad), (kq.M.T, kq.n_pad)):
+        b = torch.as_tensor(rng.normal(0, 3.0, size=(6, K)).astype(
+            np.float32))
+        got = _split_product_mirror(A, b)
+        want = ca._mm3(A)(b)
+        scale = (b.abs() @ A.abs()) * K * 2.0 ** -23
+        assert bool(((got - want).abs() <= scale + 1e-30).all())
+        bh, bl = ca._bf16_split(b)
+        ah = ca._bf16_split(A)[0]
+        two = bh @ ah + bl @ ah
+        assert float((two - want).abs().max()) > 10 * float(scale.max())
+    # one iteration of the plain split phase equals the same iteration
+    # written with the mirror's products
+    td = tuple(t[:6] for t in map(torch.as_tensor, prob12["data"]))
+    qs, lG, uG, lB, uB, _ = ca._pack(kq, *td, None)
+    it = ca._init_iterates(lG, uG, lB, uB, None)
+    zG, yG, zB, yB = ca._mixed_plain(kq, qs, lG, uG, lB, uB, it, 1)
+    alpha = kq.base.alpha
+    t = (_split_product_mirror(kq.AGT.T, kq.rhoG * it[0] - it[1])
+         + kq.dbox * (kq.rhoB * it[2] - it[3]) - qs)
+    u = _split_product_mirror(kq.M.T, t)
+    zr = alpha * u[:, kq.m_pad:] + (1 - alpha) * it[2]
+    want_zB = torch.clamp(zr + it[3] * kq.rhoB_inv, lB, uB)
+    np.testing.assert_allclose(zB.numpy(), want_zB.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_plain_split_precision_above_n21_passes_the_gate():
+    """At N=24, where K1's split mode serves ``low_frac`` on the card, the
+    plain version's split-precision solve tracks full precision within
+    the reference bench's gate (max relative objective delta 1e-4) on
+    seeded states."""
+    from pyhybridcontrol_tpu_torch.models import (
+        di_default_weights, switched_double_integrator)
+    from pyhybridcontrol_tpu_torch.ops.admm import (
+        prepare_admm_mpc as tprep)
+    from pyhybridcontrol_tpu_torch.ops.condense import CondensedMpc
+
+    c = CondensedMpc(switched_double_integrator(), 24, di_default_weights())
+    qp = c.device_qp("cpu")
+    kq = ca.kernel_qp_for(tprep(c, device="cpu"))
+    assert ca.split_route(*_shape16(24)) == "k1_split"
+    x0s = torch.as_tensor(np.random.default_rng(4).normal(
+        size=(16, 2)).astype(np.float32))
+    f, h = qp.assemble(x0s)
+    args = (kq, f, h, qp.lb.expand(16, -1), qp.ub.expand(16, -1))
+    full = ca.admm_solve_plain(*args, iters=100)
+    lo = ca.admm_solve_plain(*args, iters=100, low_frac=1.0)
+    rel = ((lo.obj - full.obj).abs() / full.obj.abs().clamp_min(1.0)).max()
+    assert float(rel) <= 1e-4
+
+
+def test_fp32_noise_grows_with_the_horizon():
+    """Why chip_smoke holds the double integrator above the staging cap to
+    a "large" regime (4× "main"): the plain version's own difference from
+    the same iteration in fp64 grows with the horizon's conditioning. At
+    N=27 it is over twice that at N=20 in x, and over thrice in y, on the
+    same seeded states."""
+    import dataclasses
+
+    from pyhybridcontrol_tpu_torch.models import (
+        di_default_weights, switched_double_integrator)
+    from pyhybridcontrol_tpu_torch.ops.admm import (
+        prepare_admm_mpc as tprep)
+    from pyhybridcontrol_tpu_torch.ops.condense import CondensedMpc
+
+    def noise(N):
+        c = CondensedMpc(switched_double_integrator(), N,
+                         di_default_weights())
+        qp = c.device_qp("cpu")
+        kq = ca.kernel_qp_for(tprep(c, device="cpu"))
+        kd = ca.KernelQP(**{
+            f.name: (getattr(kq, f.name).double()
+                     if isinstance(getattr(kq, f.name), torch.Tensor)
+                     else getattr(kq, f.name))
+            for f in dataclasses.fields(kq)})
+        x0s = torch.as_tensor(np.random.default_rng(7).normal(
+            size=(64, 2)).astype(np.float32))
+        f, h = qp.assemble(x0s)
+        lb, ub = qp.lb.expand(64, -1), qp.ub.expand(64, -1)
+        r32 = ca.admm_solve_plain(kq, f, h, lb, ub, iters=100)
+        r64 = ca._solve_plain(kd, f.double(), h.double(), lb.double(),
+                              ub.double(), 100, 0, None)
+        return [float((getattr(r32, k).double() - getattr(r64, k)).abs()
+                      .max()) for k in ("x", "y")]
+
+    (x20, y20), (x27, y27) = noise(20), noise(27)
+    assert x27 > 2 * x20 and y27 > 3 * y20

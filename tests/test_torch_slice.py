@@ -141,7 +141,7 @@ def test_unported_paths_raise():
     tc = MpcController(tdi.switched_double_integrator(), 4,
                        tdi.default_weights(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.feedback_batch(np.zeros((2, 2)), engine="vmap")
+        tc.feedback_batch(np.zeros((2, 2)), mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tc.set_soft_constraints([0])
     with pytest.raises(NotImplementedError, match="ROADMAP"):

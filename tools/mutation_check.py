@@ -3,15 +3,16 @@ versions, on the card (a development tool, not part of the package):
 
     python tools/mutation_check.py          # the split-precision kernel
     python tools/mutation_check.py admm     # K1 and K2
+    python tools/mutation_check.py streamed # K1/K2 streamed, K1 split mode
 
 Run from the root of a checkout. For each mutation it copies the package
 and ``chip_smoke.py`` into a fresh temporary directory, breaks one line of
 the kernel source there (``csrc/admm_mixed.cu``, or ``csrc/admm.cu``),
 builds the broken kernel and runs the phases of ``chip_smoke`` that hold
-that kernel (``phase_k1_mixed``, or ``phase_k1``, ``phase_k2`` and
-``phase_far``). A mutation is caught when a field goes off its limit; the
-line printed for it names the first such field and the largest reading of
-every field. The unbroken copy ("none") must pass. The checkout itself is
+that kernel (``phase_k1_mixed``; ``phase_k1``, ``phase_k2`` and
+``phase_far``; or ``phase_streamed`` and ``phase_split``). A mutation
+is caught when a field goes off its limit; the line printed for it names
+the first such field and the largest reading of every field. The unbroken copy ("none") must pass. The checkout itself is
 never touched; a mutation whose line is no longer in the source exactly
 once stops the run.
 """
@@ -37,6 +38,16 @@ MUTATIONS_ADMM = {
         "for (int k = 1; k <= iters; ++k) {"),
     "stiff probe dropped": ("if (a.p1 > 0) {", "if (false) {"),
     "r_dual written as r_prim": ("out[3] = r_dual;", "out[3] = r_prim;"),
+}
+MUTATIONS_STREAMED = {
+    "none": None,
+    "streamed stiff phase reads Mᵀ, not M2ᵀ": (
+        "s2.MT = const_cast<float*>(a.MT2);", "s2.MT = s.MT;"),
+    "split mode: lo·hi pass dropped": ("c = fmaf(al[r], vh, c);", ""),
+    "split mode: hi·lo pass dropped": ("c = fmaf(ah[r], vl, c);", ""),
+    "split mode: one split iteration short": (
+        "phase<PB, true>(s, nr, mGp, a.iters_lo, a.alpha, false);",
+        "phase<PB, true>(s, nr, mGp, a.iters_lo - 1, a.alpha, false);"),
 }
 MUTATIONS_MIXED = {
     "none": None,
@@ -71,11 +82,14 @@ import chip_smoke as cs
 cs.READINGS_ONLY = True
 dev = torch.device("cuda")
 try:
+    recs = {k: {} for k in cs.REPLACES}
     if MODE == "admm":
-        recs = {"admm_k1": {}, "admm_k2": {}}
         cs.phase_k1(dev, cs.phase_rng("k1"), recs["admm_k1"])
         cs.phase_k2(dev, cs.phase_rng("k2"), recs["admm_k2"])
         cs.phase_far(dev, cs.phase_rng("far"), recs)
+    elif MODE == "streamed":
+        cs.phase_streamed(dev, cs.phase_rng("streamed"), recs)
+        cs.phase_split(dev, cs.phase_rng("split"), recs["admm_k1_split"])
     else:
         cs.phase_k1_mixed(dev, cs.phase_rng("k1_mixed"), {})
     if cs.OVER:
@@ -91,14 +105,17 @@ print("READINGS", " ".join(
 # mode -> (kernel source, mutations, regimes whose readings are printed)
 MODES = {"mixed": ("admm_mixed.cu", MUTATIONS_MIXED,
                    ("mixed_iterates", "mixed")),
-         "admm": ("admm.cu", MUTATIONS_ADMM, ("main", "far"))}
+         "admm": ("admm.cu", MUTATIONS_ADMM, ("main", "far")),
+         "streamed": ("admm.cu", MUTATIONS_STREAMED,
+                      ("main", "large", "mixed_iterates", "mixed"))}
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     mode = argv[0] if argv else "mixed"
     if mode not in MODES or len(argv) > 1:
-        print("usage: mutation_check.py [mixed|admm]", file=sys.stderr)
+        print("usage: mutation_check.py [mixed|admm|streamed]",
+              file=sys.stderr)
         return 2
     kernel, mutations, regimes = MODES[mode]
     run = f"MODE = {mode!r}\nREGIMES = {regimes!r}\n" + RUN
