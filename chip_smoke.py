@@ -62,11 +62,16 @@ Run from the root of a checkout. It builds the kernels of
      relaxation sweep that uses the split-precision phase (N=20, B=4096,
      ``low_frac=1.0``);
   9. K1/K2 with the constants streamed from device memory (shapes whose
-     Â_G and Mᵀ a block cannot stage) against their plain versions:
+     Â_G and Mᵀ a block cannot stage) against their plain versions: the
+     real condensed problems of the reference bench's configs 2 (n=220,
+     m=680), 3 (108/239) and 4b (120/216) at seeded states and node boxes,
      random problems of the sizes of the double integrator at N=27 and of
-     the reference bench's configs 3, 4b, 4c and 2 at B = 1, 37 and 300;
-     the streamed variant forced at N=26 against the staged one; the
-     times at the N=27 paths' shapes;
+     config 4c, at B = 1, 37 and 300; the streamed variant forced at N=26
+     against the staged one; the times at the N=27 paths' shapes; then
+     streamed K2 at the waves of the config-2 call (B=128, 200 + 600
+     iterations), config 3's loop (B=64) and config 4b's loop (B=1024),
+     and streamed K1 on the gated waves of configs 2 and 4b, each with its
+     plan and times;
  10. K1's split mode (the split-precision phase where the tensor-core
      kernel refuses the shape, N ≥ 22): one split iteration from the
      plain version's iterates, the whole solve's objective and solution
@@ -78,14 +83,34 @@ Run from the root of a checkout. It builds the kernels of
  12. the N=27 double integrator: a closed loop of 4 steps (K2 streamed)
      that must find every step, follow the dynamics and end nearer the
      origin, then the relaxation sweep at ``low_frac=1.0`` (K1 streamed in
-     split mode) against its plain version.
+     split mode) against its plain version;
+ 13. config 2 served: ``--config pwa_actuator`` (PWA spring, hull, N=20)
+     through the stdin loop — a ping, three states, one outside the box
+     (found=false), quit; each plan held in fp64 against the port's
+     CondensedMpc (G V ≤ h, box, binaries 0/1, within the B&B's own
+     feas_tol) and its objective recomputed from the plan (serve_limit);
+ 14. the reference bench's config-2 and config-2b calls from [1.5, 0]
+     (repair seed, probe at ρ=10, wave 128, 200 + 600 iterations,
+     probe_patience=3; 2b: rel_gap 0.02, capacity 8192, 128 waves): ms
+     per solve, nodes, objective, certified gap, the plan in fp64;
+ 15. an exact hold where enumeration reaches: config 2's hull frame at
+     N=4 (12 binaries) and config 3's frame at N=6 (15 binaries), five
+     states each — B&B within serve_limit of the port's enumeration on the
+     card, the enumeration within 1e-3 of the port's fp64 oracle;
+ 16. config 3 of the bench as a closed loop (DEWH, min-up 2, blocks of
+     two steps, soft comfort band; N=24, T=12 from [55, 0], seeded draws):
+     found share 1.0, every step's plan feasible in fp64, ms per control
+     step; the golden thermal_uc_N12_T8 replayed (total cost, rtol 2e-3);
+ 17. config 4b: 1024 DEWH instances in a pooled closed loop (N=24, T=8,
+     wave 1024, pool 8·B): found share 1.0, every K1/K2 launch at B=1024,
+     64 first-step plans feasible in fp64, control steps/s, MIQP/s; the
+     golden dewh_loop_B8_N12_T4 replayed.
 
-Launch counts are kept per path: they are set to 0 just before each of
-the served config-1 requests, the served 1024-state request, the
-bench-spec pooled call, the pooled call with carried incumbents, the
-relaxation sweep, the config-1 closed loop, the N=27 closed loop and the
-N=27 sweep, and read just after it; launches made to compare a
-kernel with its plain version or with enumeration fall in none of them.
+Each phase prints its wall time, and the run its total. Launch counts are
+kept per path (PATHS): set to 0 just before each served request set, the
+pooled calls, the relaxation sweeps, the closed loops and the config-2
+calls, and read just after it; launches made to compare a kernel with its
+plain version or with enumeration fall in none of them.
 A kernel's ``launches`` is its sum over these paths, ``launches_by_path``
 the counts apart, and ``on_main_path`` says whether a served request
 launched it.
@@ -132,11 +157,13 @@ REPLACES = {"admm_k1": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
             "admm_k1_streamed": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
             "admm_k2_streamed": "pyhybridcontrol_tpu/ops/pallas_admm.py:357",
             "admm_k1_split": "pyhybridcontrol_tpu/ops/pallas_admm.py:180"}
-# the driven paths, in order; the first two are served requests
-SERVED = ("serve_config1", "serve_batch_request")
+# the driven paths, in order; SERVED are the served requests
+SERVED = ("serve_config1", "serve_batch_request", "config2_serve")
 PATHS = SERVED + ("pooled_bench_spec", "pooled_carried_incumbents",
                   "relax_sweep_low_frac", "closed_loop_config1",
-                  "closed_loop_N27", "relax_sweep_N27_low_frac")
+                  "closed_loop_N27", "relax_sweep_N27_low_frac",
+                  "config2_call", "config2b_call", "config3_loop",
+                  "config4b_loop")
 # peak rates of one H100 SXM at 700 W (NVIDIA data sheet): fp32 outside
 # the tensor cores, dense bf16 in them, HBM3
 PEAK = dict(fp32=67e12, bf16=989e12, hbm=3.35e12)
@@ -179,6 +206,14 @@ LIMITS = {
     # test_fp32_noise_grows_with_the_horizon); 4x the "main" limits
     "large": dict(obj=6e-4, x=1.6e-3, z=1.6e-3, y=6e-2, r_prim=0.8,
                   r_prim_rel=0.8, r_dual=16.0),
+    # the waves of configs 2, 3 and 4b (real frames; probes of 150-600
+    # iterations at fixed binaries, whose rows bind as implied equalities):
+    # the plain version's own probe is further from fp64 there — config 2:
+    # x 1.3e-3 (2.4e-3 under a one-ulp change of q̂), y 1.9e-2; config 3:
+    # r_dual 2.2 (2.4); config 4b: obj 1.2e-4 (4.3e-4), y 6.7e-3 — read on
+    # the CPU at the same seeds; 3x those on obj, x and z, "large" on the rest
+    "wave_probe": dict(obj=1.3e-3, x=7e-3, z=7e-3, y=6e-2, r_prim=0.8,
+                       r_prim_rel=0.8, r_dual=16.0),
 }
 # the iterate check starts from the plain version's iterates after these
 # many split-precision iterations
@@ -373,6 +408,17 @@ def problem(N, B, dev, rng, fix_frac=0.0):
     x0s = torch.as_tensor(rng.normal(size=(B, 2)).astype(np.float32),
                           device=dev)
     f, h = qp.assemble(x0s)
+    lb, ub = node_boxes(qp, B, rng, fix_frac)
+    return c, qp, spec, spec_p, f, h, lb, ub
+
+
+def node_boxes(qp, B, rng, fix_frac):
+    """(B, n) box bounds of B&B nodes of ``qp``: each fixes ``fix_frac`` of
+    its binaries at random (none with fix_frac=0)."""
+    import numpy as np
+    import torch
+
+    dev = qp.lb.device
     lb = qp.lb.expand(B, qp.n).clone()
     ub = qp.ub.expand(B, qp.n).clone()
     if fix_frac > 0:
@@ -384,7 +430,7 @@ def problem(N, B, dev, rng, fix_frac=0.0):
         fv_t = torch.as_tensor(fv, device=dev)
         lb[:, bidx] = torch.where(fm_t, fv_t, 0.0)
         ub[:, bidx] = torch.where(fm_t, fv_t, 1.0)
-    return c, qp, spec, spec_p, f, h, lb, ub
+    return lb, ub
 
 
 def phase_rng(name):
@@ -418,16 +464,89 @@ def held(tag, regime, pairs):
               f"{limits[k]:.1e}")
 
 
+# The infeasibility certificate (ops/admm.py) is three threshold tests on the
+# last dual step: ‖Âᵀδy‖∞ and the support sum at most 1e-4·‖δy‖∞, the gap
+# sum at most −1e-4·‖δy‖∞. Âᵀδy ≈ 0 is a cancellation, so those ratios carry
+# fp32 noise of their own size: the plain version in fp32 and in fp64 differ
+# by up to 3.6x in ‖Âᵀδy‖∞/‖δy‖∞ on config 3's node probes (B=300 of phase
+# 9: 49 instances have a ratio within 4x of its threshold; the bits agree).
+# Kernel and plain version must give the
+# same bits except on instances where the plain version's ratio lies within
+# a factor CERT_BAND of its threshold, at most CERT_SHARE of a batch (the
+# largest share read on the card: 48 of 1023, config 4b's wave probes).
+CERT_EPS = 1e-4
+CERT_BAND = 4.0
+CERT_SHARE = 0.12
+_CERT_NEAR = {}   # id(plain certificate bits) -> (bits, near-threshold mask)
+
+
+def certificate_with_margins(certificate):
+    """``certificate`` (ops/admm.py's infeasibility_certificate) that also
+    files, for the bits it returns, which instances lie near a threshold
+    (CERT_BAND): the plain versions reach it, the kernels do not."""
+    import torch
+
+    def wrapped(dy, Atdy, l, u):
+        bits = certificate(dy, Atdy, l, u)
+        dn = dy.abs().amax(dim=-1).double().clamp_min(1e-300)
+        dyp = torch.clamp_min(dy, 0.0).double()
+        dyn = torch.clamp_max(dy, 0.0).double()
+        fin_u, fin_l = u < 0.9e30, l > -0.9e30
+        ratios = (Atdy.double() / dn,
+                  (torch.where(~fin_u, dyp, 0.0).sum(-1)
+                   + torch.where(~fin_l, -dyn, 0.0).sum(-1)) / dn,
+                  -(torch.where(fin_u, u.double() * dyp, 0.0).sum(-1)
+                    + torch.where(fin_l, l.double() * dyn, 0.0).sum(-1)) / dn)
+        near = torch.zeros_like(bits)
+        for r in ratios:
+            near |= (r >= CERT_EPS / CERT_BAND) & (r <= CERT_EPS * CERT_BAND)
+        _CERT_NEAR[id(bits)] = (bits, near)
+        return bits
+    return wrapped
+
+
+def file_certificate_margins():
+    """Route the plain versions' certificate through
+    ``certificate_with_margins`` (once per process)."""
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+
+    if not getattr(ca.infeasibility_certificate, "files_margins", False):
+        ca.infeasibility_certificate = certificate_with_margins(
+            ca.infeasibility_certificate)
+        ca.infeasibility_certificate.files_margins = True
+
+
+def certs_held(tag, got, ref):
+    """The kernel's certificate bits against the plain version's (see
+    CERT_BAND)."""
+    import torch
+
+    differ = got.infeas_cert != ref.infeas_cert
+    if not bool(differ.any()):
+        return
+    filed = _CERT_NEAR.get(id(ref.infeas_cert))
+    near = filed[1] if filed is not None else torch.zeros_like(differ)
+    n = int(differ.sum())
+    print(f"  {tag}: {n} of {differ.numel()} certificate bits differ, on "
+          f"instances whose plain ratios lie within {CERT_BAND:g}x of "
+          f"their threshold", flush=True)
+    ok = bool(near[differ].all()) and n <= max(1, CERT_SHARE
+                                                 * differ.numel())
+    what = (f"{tag}: infeasibility certificate bits differ ({n}, "
+            f"{int((differ & ~near).sum())} away from the thresholds)")
+    if READINGS_ONLY and not ok:
+        OVER.append(what)
+    else:
+        check(ok, what)
+
+
 def compare(tag, got, ref, record, regime="main"):
     """Kernel result vs plain result (AdmmResult), on every field the
     regime has a limit for; raises if a field is off its limit or the
-    certificate bits differ."""
-    import torch
-
+    certificate bits differ (certs_held)."""
     held(tag + f" certs={int(got.infeas_cert.sum())}", regime,
          {k: (getattr(got, k), getattr(ref, k)) for k in LIMITS[regime]})
-    check(torch.equal(got.infeas_cert, ref.infeas_cert),
-          f"{tag}: infeasibility certificate bits differ")
+    certs_held(tag, got, ref)
     record["max_abs_err"] = max(record.get("max_abs_err", 0.0),
                                 float((got.obj - ref.obj).abs().max()),
                                 float((got.x - ref.x).abs().max()))
@@ -441,9 +560,15 @@ def compare(tag, got, ref, record, regime="main"):
 # within FLIP_BAND of 0.5 in the plain version's relaxation.
 FLIP_SHARE = 2e-3
 FLIP_BAND = 2e-3
+# The hull encoding of config 2 puts region binaries at 0.5 wherever a state
+# lies on a guard boundary, so its waves hold many such binaries: 6 of 128
+# instances of the config-2 wave rounded one differently (each within 4.1e-6
+# of 0.5). Its share is 3x that reading.
+FLIP_SHARE_HULL = 0.15
 
 
-def compare_probe(tag, got, ref, qp, lb, ub, record, regime="main"):
+def compare_probe(tag, got, ref, qp, lb, ub, record, regime="main",
+                  flip_share=FLIP_SHARE):
     """K2's (relax, probe) against the plain version's: the relaxation on
     every instance, the probe on the instances whose binaries both rounded
     the same way (see FLIP_SHARE)."""
@@ -467,7 +592,7 @@ def compare_probe(tag, got, ref, qp, lb, ub, record, regime="main"):
               f"relaxed binary within {off:.1e} of 0.5 to the other side; "
               f"probe held on the rest", flush=True)
         for ok, what in (
-                (flips <= max(1, FLIP_SHARE * same.numel()),
+                (flips <= max(1, flip_share * same.numel()),
                  f"{tag}: {flips} instances with probe bounds that differ"),
                 (off <= FLIP_BAND, f"{tag}: a binary {off:.2e} from 0.5 "
                  f"was rounded differently")):
@@ -477,6 +602,10 @@ def compare_probe(tag, got, ref, qp, lb, ub, record, regime="main"):
                 check(ok, what)
     got_p, ref_p = (AdmmResult(**{k: v[same] for k, v in vars(r).items()})
                     for r in (got[1], ref[1]))
+    filed = _CERT_NEAR.get(id(ref[1].infeas_cert))
+    if filed is not None:
+        _CERT_NEAR[id(ref_p.infeas_cert)] = (ref_p.infeas_cert,
+                                             filed[1][same])
     compare(tag + " probe", got_p, ref_p, record, regime)
 
 
@@ -893,11 +1022,13 @@ def phase_dispatch(dev, rng):
 
 
 # (n, m) of the shapes whose constants a block cannot stage: the double
-# integrator at N=27 and the reference bench's configs 3, 4b, 4c and 2/2b
-# (their condensed sizes; random problems of these sizes stand in for the
-# configurations, which the port does not build yet)
-BIG_SHAPES = {"N27": (81, 270), "config3": (108, 216), "config4b": (120, 216),
+# integrator at N=27 and the reference bench's configs 3, 4b, 4c and 2/2b.
+# Configs 2, 3 and 4b are their real condensed problems (REAL_CONFIGS);
+# N=27 and config 4c (not built yet: scenario trees) are random problems of
+# their sizes
+BIG_SHAPES = {"N27": (81, 270), "config3": (108, 239), "config4b": (120, 216),
               "config4c": (120, 444), "config2": (220, 680)}
+REAL_CONFIGS = ("config2", "config3", "config4b")
 BIG_BATCHES = (1, 37, 300)
 SPLIT_HORIZONS = (22, 24, 27)     # K1's split mode, above the tensor cores'
 
@@ -935,6 +1066,133 @@ def random_problem(n, m, B, dev, rng, fix_frac=0.3):
     return spec, spec_p, tuple(range(nb)), t(q), t(h), t(lb), t(ub)
 
 
+# The reference bench's configurations 2/2b, 3 and 4b as the port builds
+# them (bench.py:453-512, 515-554, 596-653, 861-928)
+DEWH_N = 24             # configs 3 and 4b
+DEWH_ROWS = 7           # DEWH stage rows; rows 0 and 1 are the comfort band
+# A plan is feasible in fp64 where every row of G V ≤ h and of the box holds
+# within the B&B's own acceptance tolerance (BnbSpec.feas_tol, on the
+# per-row relative residual the solver reports), and every binary is within
+# it of 0 or 1.
+FEAS_TOL = 1e-3
+
+
+def bench_frame(name, N=None):
+    """(model, weights, CondensedMpc) of the reference bench's ``name``:
+    "config2", the PWA spring in its hull encoding with the on/off actuator
+    (N=20); "config3", DEWH with min-up 2, blocks of two steps and the soft
+    comfort band (N=24); "config4b", DEWH with the soft comfort band
+    (N=24). ``N`` shortens the horizon."""
+    from pyhybridcontrol_tpu_torch.models import (
+        dewh_model, dewh_weights, min_up_down_rows, pwa_spring_mld,
+        pwa_weights)
+    from pyhybridcontrol_tpu_torch.ops.condense import CondensedMpc
+
+    if name == "config2":
+        model, w = pwa_spring_mld(on_off=True, formulation="hull"), \
+            pwa_weights()
+        return model, w, CondensedMpc(model, N or 20, w)
+    N = N or DEWH_N
+    model, w = dewh_model(), dewh_weights()
+    c = CondensedMpc(model, N, w)
+    if name == "config3":
+        c = (c.with_extra_constraints(*min_up_down_rows(N, model.info.nv,
+                                                        min_up=2))
+             .with_move_blocking([k // 2 for k in range(N)]))
+    return model, w, c.with_soft_constraints(
+        dewh_soft_rows(N), lin_pen=5.0, quad_pen=1.0)
+
+
+def dewh_soft_rows(N):
+    return [k * DEWH_ROWS + r for k in range(N) for r in (0, 1)]
+
+
+def bench_data(name, N, B, rng, T=0):
+    """Seeded data of B instances of ``name`` for a horizon N and T steps:
+    states (B, nx), hot-water draws (B, N+T, 1) (25% of steps draw half a
+    unit, as the bench's) and flat 0.15 $/kWh prices (N+T, nv); no draws
+    nor prices for config 2."""
+    import numpy as np
+
+    from pyhybridcontrol_tpu_torch.models import (
+        DewhParams, dewh_energy_price_seq)
+
+    if name == "config2":
+        return (rng.uniform([-2.0, -1.0], [2.0, 1.0], (B, 2))
+                .astype(np.float32), None, None)
+    x0s = np.stack([rng.uniform(50.0, 62.0, B),
+                    rng.integers(0, 2, B)], axis=1).astype(np.float32)
+    draws = (0.5 * (rng.uniform(0, 1, (B, N + T, 1)) < 0.25)
+             ).astype(np.float32)
+    prices = dewh_energy_price_seq(np.full(N + T, 0.15), DewhParams(),
+                                   nv=2).astype(np.float32)
+    return x0s, draws, prices
+
+
+def flip_share(name):
+    return FLIP_SHARE_HULL if name == "config2" else FLIP_SHARE
+
+
+def on_card(dev, *arrays):
+    import torch
+
+    return tuple(None if a is None else torch.as_tensor(a, device=dev)
+                 for a in arrays)
+
+
+def real_problem(name, B, dev, rng, fix_frac=0.3):
+    """The condensed problem of ``name`` (``bench_frame``) at B seeded
+    states, as ``random_problem`` returns one: prepared specs (ρ and stiff
+    ρ=10), binary indices, (f, h) and B&B-node boxes fixing ``fix_frac`` of
+    the binaries."""
+    from pyhybridcontrol_tpu_torch.ops.admm import prepare_admm_mpc
+
+    _, _, c = bench_frame(name)
+    qp = c.device_qp(dev)
+    x0s, W, P = on_card(dev, *bench_data(name, c.N, B, rng))
+    f, h = qp.assemble(x0s, W, price_seq=P)
+    lb, ub = node_boxes(qp, B, rng, fix_frac)
+    return (prepare_admm_mpc(c, device=dev),
+            prepare_admm_mpc(c, rho=10.0, device=dev), qp.binary_idx, f, h,
+            lb, ub)
+
+
+def plan_reading(c, V, x0, W=None, P=None):
+    """fp64 reading of decision V of frame ``c`` at state x0: (the largest
+    relative violation of G V ≤ h and of the box — per row over
+    max(1, |row value|), as the solver's r_prim_rel — the largest distance
+    of a binary from 0/1, the objective ½VᵀHV + fᵀV)."""
+    import numpy as np
+
+    f, h = c.assemble_np(x0, W, price_seq=P)
+    V = np.asarray(V, np.float64)
+    GV = c.G @ V
+    rows = np.maximum(GV - h, 0.0) / np.maximum(1.0, np.abs(GV))
+    box = (np.maximum(np.maximum(c.lb - V, V - c.ub), 0.0)
+           / np.maximum(1.0, np.abs(V)))
+    vb = V[c.binary_idx]
+    return (float(max(rows.max(), box.max())),
+            float(np.abs(vb - np.round(vb)).max()),
+            float(0.5 * V @ c.H @ V + f @ V))
+
+
+def plans_feasible(tag, c, plans):
+    """Every (V, x0, W, P) of ``plans`` feasible in fp64 (FEAS_TOL);
+    prints the worst readings. Returns the recomputed objectives."""
+    worst, wbits, objs = 0.0, 0.0, []
+    for V, x0, W, P in plans:
+        feas, bits, obj = plan_reading(c, V, x0, W, P)
+        worst, wbits = max(worst, feas), max(wbits, bits)
+        objs.append(obj)
+    print(f"  {tag}: {len(plans)} plans in fp64, worst relative row/box "
+          f"violation {worst:.2e}, worst binary off 0/1 {wbits:.2e} "
+          f"(limit {FEAS_TOL:.0e})", flush=True)
+    check(worst <= FEAS_TOL, f"{tag}: a plan violates G V ≤ h or its box "
+          f"by {worst:.3e}")
+    check(wbits <= FEAS_TOL, f"{tag}: a binary is {wbits:.3e} off 0/1")
+    return objs
+
+
 def timed(rec, pre, wrapper, plain, work):
     """Wrapper ms, kernels-alone ms, plain ms and the bound of one shape
     into ``rec`` under keys prefixed ``pre``."""
@@ -953,7 +1211,8 @@ def timed(rec, pre, wrapper, plain, work):
 def phase_streamed(dev, rng, recs):
     """K1 and K2 with the constants streamed from device memory (L2)
     against their plain versions at the five shapes a block cannot stage
-    (random problems, "main" limits, B = 1, 37, 300); the forced streamed
+    (the real problems of configs 2, 3 and 4b, random ones of N=27's and
+    config 4c's sizes; "main" limits, B = 1, 37, 300); the forced streamed
     variant against the staged one at N=26; the times at the main paths'
     shapes (N=27: K1 at B=4096, 100 iterations; K2 at the closed loop's
     wave, B=32, 200 + 100/100 iterations)."""
@@ -965,8 +1224,15 @@ def phase_streamed(dev, rng, recs):
           "admm_k2_streamed) vs plain:", flush=True)
     for name, (n, m) in BIG_SHAPES.items():
         for B in BIG_BATCHES:
-            spec, spec_p, bidx, q, h, lb, ub = random_problem(
-                n, m, B, dev, rng)
+            if name in REAL_CONFIGS:
+                spec, spec_p, bidx, q, h, lb, ub = real_problem(
+                    name, B, dev, rng)
+                check((spec.P.shape[0], spec.m_ineq) == (n, m),
+                      f"{name}: the frame is {spec.P.shape[0]}/"
+                      f"{spec.m_ineq}, not {n}/{m}")
+            else:
+                spec, spec_p, bidx, q, h, lb, ub = random_problem(
+                    n, m, B, dev, rng)
             kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
             pl = ca.plan(B, kq.n_pad, kq.m_pad)
             check(pl.streamed, f"{name}: the plan must stream, got {pl}")
@@ -983,7 +1249,7 @@ def phase_streamed(dev, rng, recs):
             compare_probe("K2 " + tag, ca.admm_wave_cuda(*wargs, **kw),
                           ca.admm_wave_plain(*wargs, **kw),
                           types.SimpleNamespace(binary_idx=bidx), lb, ub,
-                          r2)
+                          r2, flip_share=flip_share(name))
         # the time at a few hundred problems, where the card is filled
         timed(r1, f"{name}_", lambda: ca.admm_solve_cuda(*args, iters=100),
               lambda: ca.admm_solve_plain(*args, iters=100),
@@ -1175,11 +1441,11 @@ def phase_closed_loop(dev):
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res, _ = drive(PATHS[5], lambda: closed_loop(model, step, x0,
+        res, _ = drive("closed_loop_config1", lambda: closed_loop(model, step, x0,
                                                      T=CL_T))
         times.append(time.perf_counter() - t0)
     ms = 1e3 * min(times) / CL_T
-    check(PATH_LAUNCHES[PATHS[5]]["admm_k2"] > 0,
+    check(PATH_LAUNCHES["closed_loop_config1"]["admm_k2"] > 0,
           "closed loop: K2 was never launched")
     found = float(res.found.float().mean())
     nodes = float(res.nodes.float().mean())
@@ -1221,10 +1487,10 @@ def phase_closed_loop_n27(dev, sweep_args, rec):
     x0 = [2.0, 0.0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res, batches = drive(PATHS[6], lambda: closed_loop(model, step, x0,
+    res, batches = drive("closed_loop_N27", lambda: closed_loop(model, step, x0,
                                                        T=CL_T27))
     ms = 1e3 * (time.perf_counter() - t0) / CL_T27
-    got = PATH_LAUNCHES[PATHS[6]]
+    got = PATH_LAUNCHES["closed_loop_N27"]
     check(got["admm_k2_streamed"] > 0 and got["admm_k2"] == 0,
           f"closed loop N=27: K2 must run streamed, launches {got}")
     md = model.to(dev)
@@ -1240,12 +1506,12 @@ def phase_closed_loop_n27(dev, sweep_args, rec):
           f"{res.nodes.tolist()}, |x| {[round(v, 4) for v in norms]}, "
           f"objectives {[round(v, 3) for v in res.objs.tolist()]}",
           flush=True)
-    sweep, _ = drive(PATHS[7], lambda: ca.admm_solve_cuda(
+    sweep, _ = drive("relax_sweep_N27_low_frac", lambda: ca.admm_solve_cuda(
         *sweep_args, iters=100, low_frac=1.0))
-    check(PATH_LAUNCHES[PATHS[7]] == {
+    check(PATH_LAUNCHES["relax_sweep_N27_low_frac"] == {
         **dict.fromkeys(ca.LAUNCHES, 0), "admm_k1_streamed": 1,
         "admm_k1_split": 1}, f"N=27 sweep: launches "
-        f"{PATH_LAUNCHES[PATHS[7]]}")
+        f"{PATH_LAUNCHES["relax_sweep_N27_low_frac"]}")
     compare("N=27 sweep low_frac=1.0", sweep, ca.admm_solve_plain(
         *sweep_args, iters=100, low_frac=1.0), rec, "mixed")
     return dict(ms_per_control_step=ms, nodes=res.nodes.tolist(),
@@ -1253,6 +1519,7 @@ def phase_closed_loop_n27(dev, sweep_args, rec):
 
 
 PATH_LAUNCHES = {}   # path -> launch counts of that path alone
+PATH_BATCHES = {}    # path -> {kernel: {batch size: launches}} of that path
 
 
 def drive(path, fn):
@@ -1263,11 +1530,13 @@ def drive(path, fn):
 
     from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
 
+    check(path in PATHS, f"drive: {path} is not a path")
     ca.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
     PATH_LAUNCHES[path] = dict(ca.LAUNCHES)
     batches = {k: dict(v) for k, v in ca.LAUNCH_BATCHES.items() if v}
+    PATH_BATCHES[path] = batches
     print(f"  launches on {path}: {PATH_LAUNCHES[path]}, batch sizes "
           f"{batches}", flush=True)
     return out, batches
@@ -1301,9 +1570,9 @@ def phase_serve_batch(dev, sweep_args):
     lines = [json.dumps({"x": x0s.tolist(), "id": "batch"}),
              '{"cmd": "quit"}']
     out = io.StringIO()
-    _, batches = drive(SERVED[1], lambda: serve.stdin_loop(
+    _, batches = drive("serve_batch_request", lambda: serve.stdin_loop(
         ctrl, ready, inp=io.StringIO("\n".join(lines) + "\n"), out=out))
-    served = PATH_LAUNCHES[SERVED[1]]
+    served = PATH_LAUNCHES["serve_batch_request"]
     replies = [json.loads(s) for s in out.getvalue().splitlines()]
     check(len(replies) == 2 and replies[0].get("ready") is True,
           "serve_batch: expected a ready line and one reply")
@@ -1390,24 +1659,24 @@ def phase_serve_batch(dev, sweep_args):
     # the Pallas kernels in interpret mode gates none of its 38 waves on
     # these states: tests/test_torch_pooled.py holds the two together).
     # The count is printed as measured and not checked.
-    res, _ = timed4(PATHS[2], "")
+    res, _ = timed4("pooled_bench_spec", "")
     # A re-solve that carries its incumbents (a receding-horizon step does)
     # finds few better ones, so some of its probes are gated and those
     # waves run K1 alone. How many is up to the data: 4 of 38 waves on the
     # states of seed 0, where it is checked; 0-4 on those of seeds 1-7,
     # where the count is printed as measured.
-    _, k1 = timed4(PATHS[3], ", incumbents carried",
+    _, k1 = timed4("pooled_carried_incumbents", ", incumbents carried",
                    (res.obj, res.x, res.found))
     check(k1 > 0 or SEED != 0,
           "pooled call: K1 never launched on the gated waves")
 
     # the relaxation sweep that uses the split-precision phase
-    sweep, _ = drive(PATHS[4], lambda: ca.admm_solve_cuda(
+    sweep, _ = drive("relax_sweep_low_frac", lambda: ca.admm_solve_cuda(
         *sweep_args, iters=100, low_frac=1.0))
     check(bool(torch.isfinite(sweep.obj).all()), "relax sweep: non-finite")
-    check(PATH_LAUNCHES[PATHS[4]] == {**dict.fromkeys(ca.LAUNCHES, 0),
+    check(PATH_LAUNCHES["relax_sweep_low_frac"] == {**dict.fromkeys(ca.LAUNCHES, 0),
                                       "admm_k1": 1, "admm_k1_mixed": 1},
-          f"relax sweep: launches {PATH_LAUNCHES[PATHS[4]]}")
+          f"relax sweep: launches {PATH_LAUNCHES["relax_sweep_low_frac"]}")
 
 
 def phase_serve(dev):
@@ -1425,9 +1694,9 @@ def phase_serve(dev):
     lines += [json.dumps({"x": OUT_OF_BOX, "id": "out_of_box"}),
               '{"cmd": "quit"}']
     out = io.StringIO()
-    drive(SERVED[0], lambda: serve.stdin_loop(
+    drive("serve_config1", lambda: serve.stdin_loop(
         ctrl, ready, inp=io.StringIO("\n".join(lines) + "\n"), out=out))
-    launches = PATH_LAUNCHES[SERVED[0]]
+    launches = PATH_LAUNCHES["serve_config1"]
     replies = [json.loads(s) for s in out.getvalue().splitlines()]
     check(replies[0].get("ready") is True, "serve: no ready line")
     check(replies[1] == {"pong": True}, "serve: ping not answered")
@@ -1451,6 +1720,498 @@ def phase_serve(dev):
     check("error" not in bad and bad["found"] is False,
           f"serve: out-of-box state must come back found=false, got {bad}")
     print(f"  x0={OUT_OF_BOX}: found=false ms={bad['ms']}", flush=True)
+
+
+# K2 (and K1 on probe-gated waves) at the shapes the new paths give them:
+# (config, wave size B, relaxation iterations, probe iterations, gated
+# waves on that path, limits regime)
+PATH_SHAPES = (("config2", 128, 200, 600, True, "wave_probe"),
+               ("config3", 64, 200, 200, False, "wave_probe"),
+               ("config4b", 1024, 150, 150, True, "wave_probe"))
+
+
+def phase_streamed_paths(dev, rng, recs):
+    """Streamed K2 at the waves of the config-2 call (B=128, 200 + 600
+    probe iterations), config 3's loop (B=64, 200 + 200) and config 4b's
+    pooled loop (B=1024, 150 + 150), warm-started as every wave after the
+    root is, and streamed K1 on the probe-gated waves of configs 2 and 4b:
+    each against its plain version ("main" limits) on real node problems,
+    its plan, and its times and bound."""
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+
+    r1, r2 = recs["admm_k1_streamed"], recs["admm_k2_streamed"]
+    print("K1/K2 streamed at the new paths' shapes:", flush=True)
+    for name, B, iters, piters, gated, regime in PATH_SHAPES:
+        spec, spec_p, bidx, q, h, lb, ub = real_problem(name, B, dev, rng)
+        kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
+        pl = ca.plan(B, kq.n_pad, kq.m_pad)
+        check(pl.streamed, f"{name} B={B}: the plan must stream, got {pl}")
+        print(f"  plan {name} (n={spec.P.shape[0]}, m={spec.m_ineq}, padded "
+              f"{kq.n_pad}/{kq.m_pad}) B={B}: tile of {pl.pb} problems, "
+              f"{-(-B // pl.pb)} blocks of {pl.threads} threads, {pl.smem} "
+              f"bytes of shared memory, streamed {pl.streamed}", flush=True)
+        wargs = (kq, kq2, bidx, q, h, lb, ub)
+        kw = dict(iters=iters, probe_iters=piters)
+        cold = ca.admm_wave_plain(*wargs, **kw)
+        warm = (cold[0].x, cold[0].z, cold[0].y)
+        tag = f"{name} B={B} {iters}+{piters} it warm"
+        compare_probe("K2 " + tag, ca.admm_wave_cuda(*wargs, warm=warm, **kw),
+                      ca.admm_wave_plain(*wargs, warm=warm, **kw),
+                      types.SimpleNamespace(binary_idx=bidx), lb, ub, r2,
+                      regime, flip_share=flip_share(name))
+        timed(r2, f"{name}_wave_",
+              lambda: ca.admm_wave_cuda(*wargs, warm=warm, **kw),
+              lambda: ca.admm_wave_plain(*wargs, warm=warm, **kw),
+              admm_work(kq.n_pad, kq.m_pad, B, products=iters + piters + 2,
+                        stats=2, warm=True, stiff=True, outputs=2))
+        if not gated:
+            continue
+        args = (kq, q, h, lb, ub)
+        compare(f"K1 {name} B={B} {iters} it warm",
+                ca.admm_solve_cuda(*args, iters=iters, warm=warm),
+                ca.admm_solve_plain(*args, iters=iters, warm=warm), r1,
+                regime)
+        timed(r1, f"{name}_gated_",
+              lambda: ca.admm_solve_cuda(*args, iters=iters, warm=warm),
+              lambda: ca.admm_solve_plain(*args, iters=iters, warm=warm),
+              admm_work(kq.n_pad, kq.m_pad, B, products=iters + 1, stats=1,
+                        warm=True))
+
+
+def recorded(step, log):
+    """``step`` (a closed loop's control step) with each call's
+    (x, W, price_seq, V) appended to ``log``."""
+    def rec(x, W=None, price_seq=None, u_prev=None, prev=None):
+        out = step(x, W, price_seq, u_prev, prev=prev)
+        log.append((x, W, price_seq, out[4]))
+        return out
+
+    for k in ("carries_plan", "n_dec", "device"):
+        setattr(rec, k, getattr(step, k))
+    return rec
+
+
+def np_or_none(t):
+    return None if t is None else t.double().cpu().numpy()
+
+
+def launched_at(path, kernels, B):
+    """Every launch of ``kernels`` on ``path`` had batch B."""
+    got = {k: v for k, v in PATH_BATCHES[path].items() if k in kernels}
+    check(all(set(v) == {B} for v in got.values()),
+          f"{path}: launches not all at B={B}: {got}")
+
+
+CFG2_STATES = ([1.5, 0.0], [-1.0, 0.5], [0.8, -1.2])
+CFG2_OUT_OF_BOX = [6.0, 0.0]     # the spring's box is |x| ≤ 5
+
+
+def phase_config2_serve(dev):
+    """Config 2 served: ``serve --config pwa_actuator --device cuda``
+    through the stdin loop — a ping, three states, one outside the box
+    (found=false), quit. Each returned plan is held in fp64 against the
+    port's CondensedMpc (G V ≤ h, the box, binaries 0/1: FEAS_TOL) and its
+    objective recomputed from V against the reported one (serve_limit);
+    streamed K2 must launch."""
+    from pyhybridcontrol_tpu_torch import serve
+
+    print("serve --config pwa_actuator --device cuda:", flush=True)
+    t0 = time.perf_counter()
+    ctrl, ready = serve.build_controller("pwa_actuator", "bnb", dev.type)
+    print(f"  controller built + warmup solve: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    c = ctrl.condensed
+    check(c.nV == c.N * c.info.nv, "config 2: the decision is not the plain "
+          "per-step frame")
+    sols = []
+    feedback = ctrl.feedback     # record each served solve's plan
+
+    def keep(*a, **kw):
+        sols.append(feedback(*a, **kw))
+        return sols[-1]
+
+    ctrl.feedback = keep
+    lines = ['{"cmd": "ping"}']
+    lines += [json.dumps({"x": x, "id": i}) for i, x in enumerate(CFG2_STATES)]
+    lines += [json.dumps({"x": CFG2_OUT_OF_BOX, "id": "out_of_box"}),
+              '{"cmd": "quit"}']
+    out = io.StringIO()
+    try:
+        drive("config2_serve", lambda: serve.stdin_loop(
+            ctrl, ready, inp=io.StringIO("\n".join(lines) + "\n"), out=out))
+    finally:
+        del ctrl.feedback
+    launches = PATH_LAUNCHES["config2_serve"]
+    replies = [json.loads(s) for s in out.getvalue().splitlines()]
+    check(replies[0].get("ready") is True, "config2 serve: no ready line")
+    check(replies[1] == {"pong": True}, "config2 serve: ping not answered")
+    check(len(replies) == 2 + len(CFG2_STATES) + 1,
+          "config2 serve: missing replies")
+    check(launches["admm_k2_streamed"] > 0,
+          f"config2 serve: streamed K2 was never launched: {launches}")
+    diffs, refs = [], []
+    for x, r, sol in zip(CFG2_STATES, replies[2:], sols):
+        check("error" not in r and r["found"], f"config2 serve: {x}: {r}")
+        V = sol.v_seq.reshape(-1).double().cpu().numpy()
+        (obj,) = plans_feasible(f"x0={x}", c, [(V, x, None, None)])
+        print(f"  x0={x}: obj={r['obj']:.6f} (fp64 from the plan "
+              f"{obj:.6f}), gap {r['gap']:.2e}, ms={r['ms']}", flush=True)
+        diffs.append(abs(obj - r["obj"]))
+        refs.append(obj)
+    serve_reading("config2 serve, fp64 objective of the plan", diffs, refs)
+    bad = replies[-1]
+    check("error" not in bad and bad["found"] is False,
+          f"config2 serve: the out-of-box state must be found=false: {bad}")
+    print(f"  x0={CFG2_OUT_OF_BOX}: found=false ms={bad['ms']}", flush=True)
+
+
+def phase_config2_calls(dev):
+    """The reference bench's config-2 call (bench.py:482-495) from [1.5, 0]:
+    the repair seed at 400 iterations, the probe at ρ=10, capacity 1024,
+    wave 128, 16 waves, 200 + 600 iterations, gap 1e-3, probe_patience=3;
+    then config 2b's (bench.py:904-906): rel_gap=0.02, capacity 8192, 128
+    waves. ms per solve (after the bench's warm-up), nodes, objective and
+    certified relative gap; each plan feasible in fp64."""
+    import numpy as np
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops.admm import prepare_admm_mpc
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec, solve_miqp_bnb
+    from pyhybridcontrol_tpu_torch.solver.repair import (
+        prepare_repair, root_repair_incumbent)
+
+    model, w, c = bench_frame("config2")
+    qp = c.device_qp(dev)
+    admm = prepare_admm_mpc(c, device=dev)
+    admm_p = prepare_admm_mpc(c, rho=10.0, device=dev)
+    rspec = prepare_repair(model, w, device=dev)
+    x0 = torch.tensor([1.5, 0.0], device=dev)
+    base = dict(wave_size=128, qp_iters=200, probe_iters=600, gap=1e-3,
+                probe_patience=3)
+    specs = (("config2_call", BnbSpec(capacity=1024, max_waves=16, **base)),
+             ("config2b_call", BnbSpec(capacity=8192, max_waves=128,
+                                       rel_gap=0.02, **base)))
+
+    def fb(spec):
+        f, h = qp.assemble(x0)
+        seed = root_repair_incumbent(admm, qp, rspec, x0, f, h, qp_iters=400)
+        return solve_miqp_bnb(admm, qp, f, h, spec, init_incumbent=seed,
+                              admm_probe=admm_p)
+
+    fb(specs[0][1])                                  # warm-up, as the bench's
+    out = {}
+    for path, spec in specs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r, _ = drive(path, lambda: fb(spec))
+        ms = 1e3 * (time.perf_counter() - t0)
+        obj, bo = float(r.obj), float(r.best_open_bound)
+        gap = ((obj - bo) / max(1.0, abs(obj))
+               if np.isfinite(bo) and bo < obj else 0.0)
+        got = PATH_LAUNCHES[path]
+        print(f"  {path}: {ms:.1f} ms per solve, {r.waves} waves, "
+              f"{int(r.nodes_solved)} nodes, objective {obj:.4f}, certified "
+              f"rel. gap {gap:.4f}, overflow {bool(r.overflow)}, streamed "
+              f"K2 {got['admm_k2_streamed']} and K1 (gated waves) "
+              f"{got['admm_k1_streamed']} launches", flush=True)
+        check(bool(r.found), f"{path}: no plan found")
+        check(got["admm_k2_streamed"] > 0, f"{path}: no streamed K2: {got}")
+        check(got["admm_k2_streamed"] + got["admm_k1_streamed"] == r.waves,
+              f"{path}: {r.waves} waves, launches {got}")
+        launched_at(path, ("admm_k1_streamed", "admm_k2_streamed"), 128)
+        plans_feasible(path, c, [(r.x.double().cpu().numpy(), [1.5, 0.0],
+                                  None, None)])
+        out[path] = dict(ms_per_solve=ms, waves=r.waves,
+                         nodes=int(r.nodes_solved), objective=obj,
+                         certified_rel_gap=gap)
+    g2, g2b = out["config2_call"], out["config2b_call"]
+    if g2b["certified_rel_gap"] <= 0.02:
+        print(f"  config 2b ended on a certified gap "
+              f"{g2b['certified_rel_gap']:.4f} ≤ 0.02", flush=True)
+    else:
+        check(g2b["waves"] == 128, "config 2b: gap above 0.02 before the "
+              "wave cap")
+        print(f"  config 2b: the wave cap (128) ended it at a certified gap "
+              f"{g2b['certified_rel_gap']:.4f}", flush=True)
+    check(g2b["objective"] <= g2["objective"]
+          + float(serve_limit(g2["objective"])),
+          "config 2b: a longer search ended on a worse plan")
+    return out
+
+
+def leaf_oracle(c, f, h, bits):
+    """fp64 oracle objective of the leaf of ``c`` whose binaries are
+    ``bits`` (the reduced QP in the free variables, as the enumeration
+    oracle solves it); inf where the leaf is infeasible."""
+    import numpy as np
+
+    from pyhybridcontrol_tpu_torch.solver.oracle import solve_qp_oracle
+
+    b = c.binary_idx
+    fr = np.setdiff1d(np.arange(c.nV), b)
+    r = solve_qp_oracle(c.H[np.ix_(fr, fr)], f[fr] + c.H[np.ix_(fr, b)] @ bits,
+                        c.G[:, fr], h - c.G[:, b] @ bits, c.lb[fr], c.ub[fr])
+    if r.status != "optimal":
+        return np.inf
+    return r.obj + 0.5 * bits @ c.H[np.ix_(b, b)] @ bits + f[b] @ bits
+
+
+HOLD_STATES = 5
+HOLD_LEAVES = 8     # best device-enumeration leaves re-solved by the oracle
+# enumeration's ADMM iterations: the hull frame's leaves (per-region copies
+# and aggregation rows) converge slower, so config 2 takes the 1500 of the
+# reference's own PWA enumeration test (tests/test_mld.py)
+HOLD_ITERS = {"config2": 1500, "config3": 600}
+
+
+def phase_exact_hold(dev):
+    """Where enumeration reaches (≤ 15 binaries): config 2's hull frame at
+    N=4 (12 binaries) and config 3's frame at N=6 (extra rows, blocking,
+    soft rows: 15 binaries), five seeded states each. Through the
+    controller on the card, B&B (the config's spec) within serve_limit of
+    the port's enumeration (HOLD_ITERS iterations); the enumeration within 1e-3
+    (relative, floor 1) of the port's fp64 oracle on the host, which
+    re-solves the best HOLD_LEAVES leaves of the enumeration exactly."""
+    import numpy as np
+    import torch
+
+    from pyhybridcontrol_tpu_torch.configs import get_config
+    from pyhybridcontrol_tpu_torch.control.mpc import MpcController
+    from pyhybridcontrol_tpu_torch.models import min_up_down_rows
+    from pyhybridcontrol_tpu_torch.ops.admm import BIG, admm_solve
+    from pyhybridcontrol_tpu_torch.solver.enumerate import _all_assignments
+
+    for name, N, cfg in (("config2", 4, "pwa_actuator"),
+                         ("config3", 6, "thermal_uc")):
+        model, w, c = bench_frame(name, N)
+        nb = len(c.binary_idx)
+        check(nb <= 15, f"{name} N={N}: {nb} binaries")
+        spec = get_config(cfg).bnb
+        iters = HOLD_ITERS[name]
+        ctrls = [MpcController(model, N, w, solver=s, bnb_spec=spec,
+                               qp_iters=q, device=dev)
+                 for s, q in (("bnb", spec.qp_iters), ("enumerate", iters))]
+        for ct in ctrls:
+            if name == "config3":
+                ct.set_extra_constraints(*min_up_down_rows(N, 2, min_up=2))
+                ct.set_move_blocking([k // 2 for k in range(N)])
+                ct.set_soft_constraints(dewh_soft_rows(N), 5.0, 1.0)
+            check(np.array_equal(ct.condensed.G, c.G), f"{name}: the "
+                  "controller's frame is not the bench's")
+        rng = phase_rng(f"exact_hold_{name}")
+        x0s, W, P = bench_data(name, N, HOLD_STATES, rng)
+        asg = torch.as_tensor(_all_assignments(nb), device=dev)
+        qp, admm = ctrls[1].device_qp, ctrls[1].admm
+        lb = qp.lb.expand(len(asg), qp.n).clone()
+        ub = qp.ub.expand(len(asg), qp.n).clone()
+        bidx = torch.as_tensor(qp.binary_idx, device=dev)
+        lb[:, bidx], ub[:, bidx] = asg, asg
+        d_bnb, d_orc, refs = [], [], []
+        for i in range(HOLD_STATES):
+            Wi = None if W is None else W[i]
+            rb, re = (ct.feedback(x0s[i], Wi, P) for ct in ctrls)
+            check(bool(rb.found) and bool(re.found), f"{name} state {i}: "
+                  f"found B&B {bool(rb.found)}, enumeration "
+                  f"{bool(re.found)}")
+            d_bnb.append(abs(float(rb.obj) - float(re.obj)))
+            refs.append(float(re.obj))
+            # the enumeration's leaves: the best HOLD_LEAVES, exactly
+            f, h = qp.assemble(*on_card(dev, x0s[i], Wi), price_seq=on_card(
+                dev, P)[0])
+            res = admm_solve(admm, f.expand(len(asg), -1),
+                             h.expand(len(asg), -1), lb, ub, iters=iters)
+            objs = torch.where(res.r_prim_rel < 1e-3, res.obj, BIG)
+            best = torch.argsort(objs)[:HOLD_LEAVES].tolist()
+            fo, ho = c.assemble_np(x0s[i], Wi, price_seq=P)
+            orc = min(leaf_oracle(c, fo, ho, asg[k].double().cpu().numpy())
+                      for k in best if float(objs[k]) < BIG)
+            d_orc.append(abs(float(re.obj) - orc) / max(1.0, abs(orc)))
+            print(f"  {name} N={N} ({nb} binaries) x0={x0s[i].tolist()}: B&B "
+                  f"{float(rb.obj):.5f} ({int(rb.nodes)} nodes), enumeration "
+                  f"{float(re.obj):.5f}, fp64 oracle {orc:.5f}", flush=True)
+        serve_reading(f"{name} N={N}: B&B vs enumeration", d_bnb, refs)
+        worst = max(d_orc)
+        print(f"  {name} N={N}: enumeration vs fp64 oracle, worst relative "
+              f"{worst:.2e} (limit 1e-3)", flush=True)
+        check(worst <= 1e-3, f"{name}: enumeration {worst:.3e} off the "
+              "fp64 oracle")
+
+
+def golden_replay(tag, res, name, T=None):
+    """Total cost of a loop run on the card against a committed golden of
+    the reference (rtol 2e-3, tests/test_goldens.py's); the state error is
+    printed as a reading."""
+    import numpy as np
+
+    g = np.load(ROOT / "tests" / "golden" / name)
+    cost, want = float(res.objs.sum()), float(g["total_cost"])
+    dx = float(np.abs(res.xs.cpu().numpy() - g["xs"]).max())
+    print(f"  {tag} replayed: total cost {cost:.4f}, golden {want:.4f} (rel "
+          f"{abs(cost - want) / abs(want):.2e}, limit 2e-3); max |Δx| "
+          f"{dx:.2e} (a reading)", flush=True)
+    check(bool(res.found.all()), f"{tag} replay: a step without a plan")
+    check(abs(cost - want) <= 2e-3 * abs(want) + 2e-3,
+          f"{tag} replay: total cost {cost} vs golden {want}")
+
+
+CFG3_T = 12
+
+
+def phase_config3_loop(dev):
+    """Config 3 of the reference bench as a closed loop (bench.py:515-551):
+    N=24, T=12 from [55, 0], seeded draws, flat 0.15 prices, capacity 512,
+    wave 64, 32 waves, 200 iterations, probe at ρ=10. Found share 1.0,
+    every step's plan feasible in fp64, ms per control step; then the
+    golden thermal_uc_N12_T8 replayed on the card."""
+    import numpy as np
+    import torch
+
+    from pyhybridcontrol_tpu_torch.loop import closed_loop, make_mpc_step
+    from pyhybridcontrol_tpu_torch.ops.admm import prepare_admm_mpc
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    print(f"closed loop, config 3 (N={DEWH_N}, T={CFG3_T}):", flush=True)
+    model, w, c = bench_frame("config3")
+    qp = c.device_qp(dev)
+    step = make_mpc_step(model, qp, prepare_admm_mpc(c, device=dev),
+                         method="bnb",
+                         bnb_spec=BnbSpec(capacity=512, wave_size=64,
+                                          max_waves=32, qp_iters=200,
+                                          gap=1e-3),
+                         admm_probe=prepare_admm_mpc(c, rho=10.0,
+                                                     device=dev))
+    rng = phase_rng("config3_loop")
+    _, draws, prices = bench_data("config3", DEWH_N, 1, rng, T=CFG3_T)
+    log = []
+    run = recorded(step, log)
+    x0 = [55.0, 0.0]
+    closed_loop(model, run, x0, 1, omega_traj=draws[0][:DEWH_N + 1],
+                price_traj=prices[:DEWH_N + 1])           # warm-up
+    log.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, _ = drive("config3_loop", lambda: closed_loop(
+        model, run, x0, CFG3_T, omega_traj=draws[0], price_traj=prices))
+    ms = 1e3 * (time.perf_counter() - t0) / CFG3_T
+    got = PATH_LAUNCHES["config3_loop"]
+    check(got["admm_k2_streamed"] > 0 and got["admm_k2"] == 0,
+          f"config 3 loop: K2 must run streamed, launches {got}")
+    launched_at("config3_loop", ("admm_k2_streamed",), 64)
+    found = float(res.found.float().mean())
+    print(f"  {ms:.2f} ms per control step, found share {found:.3f}, nodes "
+          f"{res.nodes.tolist()}, T {[round(v, 2) for v in res.xs[:, 0].tolist()]}",
+          flush=True)
+    check(found == 1.0, "config 3 loop: a step without a plan")
+    plans_feasible("config 3 loop", c, [
+        (V.double().cpu().numpy(), x.double().cpu().numpy(), np_or_none(W),
+         np_or_none(P)) for x, W, P, V in log])
+    out = dict(ms_per_control_step=ms, found_frac=found,
+               nodes=res.nodes.tolist(), total_cost=float(res.objs.sum()))
+
+    # the committed golden: N=12, T=8, draws of default_rng(7)
+    model, w, c12 = bench_frame("config3", 12)
+    step = make_mpc_step(model, c12.device_qp(dev),
+                         prepare_admm_mpc(c12, device=dev), method="bnb",
+                         bnb_spec=BnbSpec(capacity=256, wave_size=32,
+                                          qp_iters=300, max_waves=24,
+                                          gap=1e-3))
+    g_rng = np.random.default_rng(7)
+    g_draws = (0.5 * (g_rng.uniform(0, 1, (20, 1)) < 0.25)).astype(np.float32)
+    res = closed_loop(model, step, x0, 8, omega_traj=g_draws,
+                      price_traj=prices[:20])
+    golden_replay("config 3 golden (N=12, T=8)", res, "thermal_uc_N12_T8.npz")
+    return out
+
+
+CFG4B_B, CFG4B_T = 1024, 8
+CFG4B_SAMPLE = tuple(range(0, CFG4B_B, 16))    # 64 plans held in fp64
+
+
+def phase_config4b_loop(dev):
+    """Config 4b of the reference bench (bench.py:596-653): 1024 DEWH
+    instances in a pooled closed loop, T=8, N=24, pool 8·B, wave 1024,
+    capacity 1024, 1024 waves at most, 150 iterations, probe_patience=3,
+    the probe at ρ=10. Found share 1.0, every K2 (and K1) launch at
+    B=1024, the first-step plans of 64 instances feasible in fp64; control
+    steps/s, MIQP/s, nodes. Then the golden dewh_loop_B8_N12_T4 replayed."""
+    import numpy as np
+    import torch
+
+    from pyhybridcontrol_tpu_torch.loop import (
+        closed_loop_batch, make_mpc_step_batch)
+    from pyhybridcontrol_tpu_torch.ops.admm import prepare_admm_mpc
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    B, T = CFG4B_B, CFG4B_T
+    print(f"pooled closed loop, config 4b (B={B}, N={DEWH_N}, T={T}):",
+          flush=True)
+
+    def step_of(c, B, spec):
+        return make_mpc_step_batch(
+            model, c.device_qp(dev), prepare_admm_mpc(c, device=dev),
+            bnb_spec=spec, pool_slots=8 * B,
+            admm_probe=prepare_admm_mpc(c, rho=10.0, device=dev))
+
+    model, w, c = bench_frame("config4b")
+    log = []
+    step = recorded(step_of(c, B, BnbSpec(capacity=1024, wave_size=1024,
+                                          max_waves=1024, qp_iters=150,
+                                          probe_patience=3)), log)
+    rng = phase_rng("config4b_loop")
+    _, draws, prices = bench_data("config4b", DEWH_N, B, rng, T=T)
+    x0s = np.tile(np.array([55.0, 0.0], np.float32), (B, 1))
+    x0s[:, 0] += rng.uniform(-3, 3, B).astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, _ = drive("config4b_loop", lambda: closed_loop_batch(
+        model, step, x0s, T, omega_trajs=draws, price_traj=prices))
+    dt = time.perf_counter() - t0
+    got = PATH_LAUNCHES["config4b_loop"]
+    check(got["admm_k2_streamed"] > 0 and got["admm_k2"] == 0,
+          f"config 4b loop: K2 must run streamed, launches {got}")
+    launched_at("config4b_loop", ("admm_k2_streamed", "admm_k1_streamed"), B)
+    found = float(res.found.float().mean())
+    nodes = int(res.nodes.sum())
+    print(f"  {dt:.2f} s: {T / dt:.3f} control steps/s, {B * T / dt:.1f} "
+          f"MIQP/s, {nodes} nodes ({nodes / dt:.0f} nodes/s), found share "
+          f"{found:.4f}, streamed K2 {got['admm_k2_streamed']} and K1 (gated "
+          f"waves) {got['admm_k1_streamed']} launches", flush=True)
+    check(found == 1.0, "config 4b loop: an instance-step without a plan")
+    x, _, P, V = log[0]
+    plans_feasible("config 4b loop, first step", c, [
+        (V[i].double().cpu().numpy(), x0s[i], draws[i, :DEWH_N], prices[:DEWH_N])
+        for i in CFG4B_SAMPLE])
+    out = dict(seconds=dt, control_steps_per_s=T / dt, miqp_per_s=B * T / dt,
+               nodes=nodes, found_frac=found)
+
+    # the committed golden: B=8, N=12, T=4, draws and states of
+    # default_rng(11), pool 32·B
+    _, _, c12 = bench_frame("config4b", 12)
+    g = np.random.default_rng(11)
+    g_draws = (0.5 * (g.uniform(0, 1, (8, 16, 1)) < 0.25)).astype(np.float32)
+    g_x0s = np.tile(np.array([55.0, 0.0], np.float32), (8, 1))
+    g_x0s[:, 0] += g.uniform(-3, 3, 8).astype(np.float32)
+    gstep = make_mpc_step_batch(
+        model, c12.device_qp(dev), prepare_admm_mpc(c12, device=dev),
+        bnb_spec=BnbSpec(capacity=256, wave_size=64, max_waves=256,
+                         qp_iters=150, probe_patience=3), pool_slots=32 * 8,
+        admm_probe=prepare_admm_mpc(c12, rho=10.0, device=dev))
+    res = closed_loop_batch(model, gstep, g_x0s, 4, omega_trajs=g_draws,
+                            price_traj=prices[:16])
+    golden_replay("DEWH pooled loop golden (B=8, N=12, T=4)", res,
+                  "dewh_loop_B8_N12_T4.npz")
+    return out
+
+
+T_START = time.perf_counter()
+
+
+def phase(name, fn, *args):
+    """Run one phase and print its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[phase {name}: {time.perf_counter() - t0:.1f} s]", flush=True)
+    return out
 
 
 def main(argv=None):
@@ -1481,6 +2242,7 @@ def main(argv=None):
     sys.path.insert(0, str(ROOT))
     from pyhybridcontrol_tpu_torch.ops import _build
 
+    file_certificate_margins()
     dev = torch.device("cuda")
     gpu = gpu_line()
     print(gpu, flush=True)
@@ -1496,14 +2258,16 @@ def main(argv=None):
 
     recs = {k: dict(name=k, route="cuda", source=SOURCES[k], replaces=v)
             for k, v in REPLACES.items()}
-    phase_k1(dev, phase_rng("k1"), recs["admm_k1"])
-    phase_k2(dev, phase_rng("k2"), recs["admm_k2"])
-    phase_far(dev, phase_rng("far"), recs)
-    sweep_args = phase_k1_mixed(dev, phase_rng("k1_mixed"),
-                                recs["admm_k1_mixed"])
-    phase_streamed(dev, phase_rng("streamed"), recs)
-    sweep27_args = phase_split(dev, phase_rng("split"),
-                               recs["admm_k1_split"])
+    phase("K1", phase_k1, dev, phase_rng("k1"), recs["admm_k1"])
+    phase("K2", phase_k2, dev, phase_rng("k2"), recs["admm_k2"])
+    phase("far", phase_far, dev, phase_rng("far"), recs)
+    sweep_args = phase("split-precision", phase_k1_mixed, dev,
+                       phase_rng("k1_mixed"), recs["admm_k1_mixed"])
+    phase("streamed", phase_streamed, dev, phase_rng("streamed"), recs)
+    phase("streamed at the paths' shapes", phase_streamed_paths, dev,
+          phase_rng("streamed_paths"), recs)
+    sweep27_args = phase("split mode", phase_split, dev, phase_rng("split"),
+                         recs["admm_k1_split"])
     for regime, seen in READINGS.items():
         print(f"largest error, {regime} (limit): " + " ".join(
             f"{k}={v:.2e} ({LIMITS[regime][k]:.0e})"
@@ -1511,13 +2275,21 @@ def main(argv=None):
     if OVER:
         print("off their limits:\n  " + "\n  ".join(OVER), flush=True)
         return 1
-    phase_dispatch(dev, phase_rng("dispatch"))
-    phase_serve(dev)
-    phase_serve_batch(dev, sweep_args)
-    loops = dict(config1=phase_closed_loop(dev),
-                 N27=phase_closed_loop_n27(dev, sweep27_args,
-                                           recs["admm_k1_split"]))
-    print(json.dumps({"closed_loop": loops}), flush=True)
+    phase("dispatch", phase_dispatch, dev, phase_rng("dispatch"))
+    phase("serve config 1", phase_serve, dev)
+    phase("serve config 4", phase_serve_batch, dev, sweep_args)
+    loops = dict(config1=phase("closed loop config 1", phase_closed_loop,
+                               dev),
+                 N27=phase("closed loop N=27", phase_closed_loop_n27, dev,
+                           sweep27_args, recs["admm_k1_split"]))
+    phase("serve config 2", phase_config2_serve, dev)
+    calls = phase("config 2/2b calls", phase_config2_calls, dev)
+    phase("exact hold", phase_exact_hold, dev)
+    loops["config3"] = phase("closed loop config 3", phase_config3_loop, dev)
+    loops["config4b"] = phase("pooled loop config 4b", phase_config4b_loop,
+                              dev)
+    print(json.dumps({"closed_loop": loops, "calls": calls}), flush=True)
+    print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
     kernels = []
     for k, r in recs.items():
         r["launches_by_path"] = {p: PATH_LAUNCHES[p][k] for p in PATHS}

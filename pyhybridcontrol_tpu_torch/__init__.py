@@ -7,17 +7,19 @@ easy to find. It imports ``torch`` and never ``jax``. The host side
 device side is torch fp32, and the two batched ADMM kernels are CUDA C++
 for Hopper (``csrc/admm.cu``, loaded by ``ops/_build.py``).
 
-Slice 1 covers the serve path of benchmark config 1: MLD model →
-condensation → B&B MIQP on the card → first input
-(``python -m pyhybridcontrol_tpu_torch.serve --config double_integrator``).
+It serves benchmark configs 1–4: MLD model → condensation (and its
+transforms) → B&B MIQP on the card → first input
+(``python -m pyhybridcontrol_tpu_torch.serve --config double_integrator``,
+``pwa_actuator``, ``thermal_uc``, ``scenario_batch``).
 
 Layer map (bottom → top), as in the reference:
 
     utils/      StructDict, block-matrix assembly
-    mld/        MldInfo, MldModel
-    models/     switched double integrator
-    ops/        condensation, Ruiz scaling, ADMM (torch), CUDA kernels
-    solver/     enumeration, rollout repair, branch-and-bound
+    mld/        MldInfo, MldModel, PWA → MLD, parameterized templates
+    models/     switched double integrator, PWA spring, DEWH water heater
+    ops/        condensation and its transforms, root presolve, Ruiz
+                scaling, ADMM (torch), CUDA kernels
+    solver/     enumeration, rollout repair, branch-and-bound, fp64 oracle
     control/    MpcController
     loop/       receding-horizon closed loop (single and pooled batch)
     configs/    benchmark configurations

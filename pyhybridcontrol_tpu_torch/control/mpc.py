@@ -6,13 +6,16 @@ in float64 and moves the problem to ``device`` (the card unless the
 caller asks for the CPU); ``feedback(x0)`` solves the MIQP there and
 returns the first input; ``feedback_batch(x0s)`` solves a batch of
 control steps in one pooled B&B (solver/bnb_pooled.py), or instance by
-instance (engine "vmap"). The other paths of the reference raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+instance (engine "vmap"). The setters (weights, horizon, soft rows, move
+blocking, terminal set, horizon-coupled rows) bump a version, and
+``build`` condenses again on the next call. The other paths of the
+reference raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import dataclasses
 
@@ -59,31 +62,78 @@ class MpcController:
         self.qp_iters = qp_iters
         self.rho = rho
         self.device = resolve_device(device)
+        self._soft = None          # (rows, lin_pen, quad_pen)
+        self._blocking = None      # groups
+        self._terminal = None      # (E_N, f_N)
+        self._extra = None         # (A_v, b, B_x, B_w)
+        self._version = 0
+        self._built_version = None
         self._cmpc = None
         self._qp = None
         self._admm = None
         self._admm_probe = None
-        self._repair = None
+        self._repair = None        # (RepairSpec, layout) or None
 
-    # -- configuration the port does not have yet ----------------------------
-    def set_soft_constraints(self, *a, **kw):
-        _not_ported("set_soft_constraints", "condense transforms")
+    # -- configuration (each bumps the version → rebuild on next use) --------
+    def set_std_obj_weights(self, **kw) -> "MpcController":
+        """Update per-class weights (fields of ``MpcWeights``)."""
+        for k, v in kw.items():
+            if not hasattr(self.weights, k):
+                raise AttributeError(f"unknown weight {k!r}")
+            setattr(self.weights, k, v)
+        self._version += 1
+        return self
 
-    def set_move_blocking(self, *a, **kw):
-        _not_ported("set_move_blocking", "condense transforms")
+    def set_horizon(self, N: int) -> "MpcController":
+        self.N = N
+        self._version += 1
+        return self
 
-    def set_extra_constraints(self, *a, **kw):
-        _not_ported("set_extra_constraints", "condense transforms")
+    def set_soft_constraints(self, rows: Sequence[int], lin_pen=1e3,
+                             quad_pen=0.0) -> "MpcController":
+        self._soft = (list(rows), lin_pen, quad_pen)
+        self._version += 1
+        return self
+
+    def set_move_blocking(self, groups: Sequence[int]) -> "MpcController":
+        self._blocking = list(groups)
+        self._version += 1
+        return self
+
+    def set_terminal_constraint(self, E_N, f_N) -> "MpcController":
+        self._terminal = (np.asarray(E_N), np.asarray(f_N))
+        self._version += 1
+        return self
+
+    def set_extra_constraints(self, A_v, b, B_x=None, B_w=None
+                              ) -> "MpcController":
+        """Horizon-coupled rows in full-v layout (e.g. min-up/down
+        unit-commitment logic — models/dewh.py ``min_up_down_rows``)."""
+        self._extra = (np.asarray(A_v), np.asarray(b), B_x, B_w)
+        self._version += 1
+        return self
 
     def set_scenario_tree(self, *a, **kw):
         _not_ported("set_scenario_tree", "scenario trees")
 
     # -- build ---------------------------------------------------------------
     def build(self) -> "MpcController":
-        """Condense + prepare solver data (once)."""
-        if self._cmpc is not None:
+        """Condense + prepare solver data (once per configuration
+        version). The transforms apply in the reference's order: extra
+        rows, then move blocking, then soft rows."""
+        if self._built_version == self._version and self._cmpc is not None:
             return self
-        c = CondensedMpc(self.model, self.N, self.weights)
+        term = {}
+        if self._terminal is not None:
+            term = dict(terminal_E=self._terminal[0],
+                        terminal_f=self._terminal[1])
+        c = CondensedMpc(self.model, self.N, self.weights, **term)
+        if self._extra is not None:
+            c = c.with_extra_constraints(*self._extra)
+        if self._blocking is not None:
+            c = c.with_move_blocking(self._blocking)
+        if self._soft is not None:
+            c = c.with_soft_constraints(*self._soft)
         dev = self.device
         self._qp = c.device_qp(dev)
         self._admm = prepare_admm_mpc(c, rho=self.rho, device=dev)
@@ -92,20 +142,54 @@ class MpcController:
         self._admm_probe = (prepare_admm_mpc(c, rho=self.rho * 10.0,
                                              device=dev)
                             if self.solver == "bnb" else None)
-        # rollout-repair incumbent heuristic (full per-step v frame)
+        # rollout-repair incumbent heuristic: valid only when the decision
+        # frame is the full per-step v (optionally + slacks)
         self._repair = None
-        if self.solver == "bnb" and self.model.info.nxb == 0:
+        if (self.solver == "bnb" and self._blocking is None
+                and self.model.info.nxb == 0):
             from pyhybridcontrol_tpu_torch.solver.repair import prepare_repair
 
-            self._repair = prepare_repair(self.model, self.weights,
-                                          device=dev)
+            rkw = {}
+            if self._soft is not None:
+                rows, lin, quad = self._soft
+                nc = self.model.info.ncons
+                rkw = dict(soft_rows=sorted({r % nc for r in rows}),
+                           soft_lin=float(np.mean(np.atleast_1d(lin))),
+                           soft_quad=float(np.mean(np.atleast_1d(quad))))
+            rspec = prepare_repair(self.model, self.weights, device=dev,
+                                   **rkw)
+            if rspec is not None:
+                self._repair = (rspec,
+                                "soft" if self._soft is not None else "plain")
         self._cmpc = c
+        self._built_version = self._version
         return self
 
     @property
     def condensed(self) -> CondensedMpc:
         self.build()
         return self._cmpc
+
+    @property
+    def device_qp(self):
+        self.build()
+        return self._qp
+
+    @property
+    def admm(self):
+        self.build()
+        return self._admm
+
+    @property
+    def admm_probe(self):
+        self.build()
+        return self._admm_probe
+
+    @property
+    def repair(self):
+        """``(RepairSpec, layout)`` of the rollout-repair seed, or None."""
+        self.build()
+        return self._repair
 
     # -- feedback ------------------------------------------------------------
     def _tensor(self, a):
@@ -146,9 +230,10 @@ class MpcController:
                 from pyhybridcontrol_tpu_torch.solver.repair import (
                     root_repair_incumbent)
 
+                rspec, layout = self._repair
                 seed = root_repair_incumbent(
-                    admm, qp, self._repair, x0, f, h, W=W, price_seq=Pq,
-                    qp_iters=self.bnb_spec.qp_iters,
+                    admm, qp, rspec, x0, f, h, W=W, price_seq=Pq,
+                    qp_iters=self.bnb_spec.qp_iters, layout=layout,
                     feas_tol=self.bnb_spec.feas_tol)
             res = solve_miqp_bnb(admm, qp, f, h, self.bnb_spec,
                                  init_incumbent=seed,
@@ -245,9 +330,11 @@ class MpcController:
             from pyhybridcontrol_tpu_torch.solver.repair import (
                 root_repair_incumbent)
 
+            rspec, layout = self._repair
             seed = root_repair_incumbent(
-                admm, qp, self._repair, x0s, f, h, W=W, price_seq=Pq,
-                qp_iters=spec.qp_iters, feas_tol=spec.feas_tol)
+                admm, qp, rspec, x0s, f, h, W=W, price_seq=Pq,
+                qp_iters=spec.qp_iters, layout=layout,
+                feas_tol=spec.feas_tol)
         # The global wave cannot exceed the pool. The reference snaps it
         # to its TPU kernels' 128-lane batch grain; the CUDA kernels have
         # no grain, but the arithmetic is kept so that both packages

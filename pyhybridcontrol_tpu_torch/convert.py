@@ -9,7 +9,9 @@ the port's objects back into numpy, so tests can feed both packages
 identical matrices and compare their outputs field by field.
 ``bnb_spec`` carries a reference ``BnbSpec`` across (every field), and
 ``to_numpy`` also takes a ``BnbResult`` or a ``PooledState`` of either
-package.
+package. ``mld_model`` carries a reference ``MldModel`` across, and
+``condensed`` a reference ``CondensedMpc`` as it stands after its
+transforms, so both packages can be fed one frame.
 """
 
 from __future__ import annotations
@@ -20,8 +22,13 @@ import numpy as np
 import torch
 
 from pyhybridcontrol_tpu_torch.mld.info import MldInfo
+from pyhybridcontrol_tpu_torch.mld.model import MldModel
 from pyhybridcontrol_tpu_torch.ops.admm import BoxQP
-from pyhybridcontrol_tpu_torch.ops.condense import DeviceQP
+from pyhybridcontrol_tpu_torch.ops.condense import (
+    CondensedMpc,
+    DeviceQP,
+    MpcWeights,
+)
 from pyhybridcontrol_tpu_torch.ops.cuda_admm import KernelQP
 from pyhybridcontrol_tpu_torch.solver.bnb import BnbResult, BnbSpec
 from pyhybridcontrol_tpu_torch.solver.bnb_pooled import PooledState
@@ -30,6 +37,8 @@ from pyhybridcontrol_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_devic
 BOXQP_ARRAYS = ("P", "A", "Kinv", "D", "E", "cost_scale", "rho_vec")
 DEVICEQP_ARRAYS = ("H", "f0", "Fx", "Fw", "Fup", "G", "h0", "Hx", "Hw",
                    "lb", "ub", "T_full")
+CONDENSED_ARRAYS = ("H", "f0", "Fx", "Fw", "Fup", "G", "h0", "Hx", "Hw",
+                    "lb", "ub", "binary_mask", "T_full", "z_rows")
 KERNELQP_ARRAYS = ("AGT", "M", "P", "dbox", "dbox_inv", "rhoG", "rhoG_inv",
                    "rhoB", "rhoB_inv", "EG_inv", "EB_inv", "Dc_inv")
 
@@ -49,6 +58,31 @@ def box_qp(ref, device=DEFAULT_DEVICE) -> BoxQP:
 def mld_info(ref) -> MldInfo:
     return MldInfo(**{f.name: getattr(ref, f.name)
                       for f in dataclasses.fields(MldInfo)})
+
+
+def mld_model(ref) -> MldModel:
+    """A reference ``MldModel`` → port MldModel (the same 18 matrices)."""
+    return MldModel.from_matrices(
+        mld_info(ref.info),
+        **{k: np.asarray(v, np.float64) for k, v in ref.mats.items()})
+
+
+def condensed(ref) -> CondensedMpc:
+    """A reference ``CondensedMpc``, transforms applied → port
+    CondensedMpc with the same float64 arrays (nothing is recomputed)."""
+    c = CondensedMpc.__new__(CondensedMpc)
+    c.model = mld_model(ref.model)
+    c.info = mld_info(ref.info)
+    c.N = int(ref.N)
+    c.weights = MpcWeights(**{
+        f.name: (None if getattr(ref.weights, f.name) is None
+                 else np.asarray(getattr(ref.weights, f.name)))
+        for f in dataclasses.fields(MpcWeights)})
+    for k in CONDENSED_ARRAYS:
+        setattr(c, k, np.array(getattr(ref, k)))
+    c.n_soft = int(ref.n_soft)
+    c.n_state_aux = int(ref.n_state_aux)
+    return c
 
 
 def device_qp(ref, device=DEFAULT_DEVICE) -> DeviceQP:

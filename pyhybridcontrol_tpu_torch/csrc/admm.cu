@@ -33,13 +33,17 @@
 //    one 16-byte load brings four problems of a row. A thread accumulates a
 //    register tile of RT rows × PB problems: a matrix word feeds PB FMAs, an
 //    iterate vector RT. Loads issued per FMA: PB=8 3/8 and 3/16 (the
-//    two products), PB=4 2/4 and 2/8, PB=1 2/1 as before -- that
+//    two products), PB=4 2/4 and 2/8, PB=1 2/1 and 2/4 -- that
 //    instantiation serves batches too small to fill the card, where the
-//    dependent chain of one iteration, not throughput, sets the time.
+//    dependent chain of one iteration, not throughput, sets the time. Its
+//    ẑ = M t takes four rows a thread and the depth over 8 lane groups:
+//    serial chains of nr/8 FMAs, not nr/2 (PERF.md has the times).
 //  - Work is dealt in warp tasks: a warp takes RT·32/KS output rows (4 of t,
-//    16 of ẑ) and splits the depth over KS lane groups (interleaved, so the
-//    lanes of a group read neighbouring words; the row strides of Â_G and Mᵀ
-//    are padded so that the groups hit different banks). The partial sums
+//    16 of ẑ) and splits the depth over KS lane groups (the lanes of a
+//    group read neighbouring words; the row strides of Â_G and Mᵀ are
+//    padded so that the groups hit different banks), interleaved over the
+//    depth; the rows of t and Mᵀ lie permuted (t_row) so that each group of
+//    ẑ = M t sums a contiguous run of variables. The partial sums
 //    are reduced inside the product by a shuffle reduce-scatter, after which
 //    every lane owns a share of the task's outputs and runs their update: no
 //    reduce pass, two barriers an iteration, and the serial FMA chain of an
@@ -135,7 +139,7 @@ template <> struct Cfg<4> {
   enum { A_RT = 1, A_KS = 8, B_RT = 2, B_KS = 4, WARPS = 12 };
 };
 template <> struct Cfg<1> {
-  enum { A_RT = 1, A_KS = 8, B_RT = 1, B_KS = 2, WARPS = 12 };
+  enum { A_RT = 1, A_KS = 8, B_RT = 4, B_KS = 8, WARPS = 12 };
 };
 __host__ __device__ inline int max_warps(int PB) {
   return PB == 8 ? (int)Cfg<8>::WARPS
@@ -352,6 +356,21 @@ __device__ __forceinline__ void product(const float* __restrict__ Mat,
   }
 }
 
+// Row of t (and of Mᵀ, laid out to match by ops/cuda_admm.py) that holds
+// variable j: ẑ = M t deals its depth to KS lane groups, one row in KS
+// each, and this order makes those rows a contiguous run of variables. Terms
+// that cancel sit next to each other in ẑ = M t (a variable's column and its
+// neighbours'); dealt out in variable order they fell into different
+// groups, whose partial sums grew large and rounded: on config 3's blocked
+// DEWH frame x came out ~7x further from fp64 than the plain version's
+// after one half step, and on config 4b's wave x was 7.3e-4 from the plain
+// version, whose own x moves 1.2e-4 under a one-ulp change of q̂ (PERF.md).
+template <int KS>
+__device__ __forceinline__ int t_row(int j, int nr) {
+  const int kc = nr / KS;
+  return (j % kc) * KS + j / kc;
+}
+
 // `iters` σ=0 iterations from the iterates in shared memory, then -- if
 // `final_half` -- one more half step whose ẑ goes to s.w and δy to s.dy
 // (the iterates stay those of the last full iteration). SPLIT: both
@@ -380,7 +399,7 @@ __device__ __forceinline__ void phase(const Smem& s, int nr, int mGp,
           const float d = s.dbox[j];
 #pragma unroll
           for (int i = 0; i < W; ++i) t[i] = v[i] + d * wb[i] - q[i];
-          vstore<W>(s.t + o, t);
+          vstore<W>(s.t + t_row<C::B_KS>(j, nr) * PB + p, t);
         });
     __syncthreads();
     // ẑ = M t, fused with the update of the rows a lane owns

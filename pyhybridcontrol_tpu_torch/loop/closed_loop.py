@@ -76,8 +76,9 @@ def make_mpc_step(model: MldModel, qp: DeviceQP, admm: BoxQP,
 
     ``method``: "bnb" (wave-parallel B&B) or "enumerate" (exact, 2^nb
     batched QPs of ``qp_iters`` iterations). ``repair``: optional
-    ``(RepairSpec, "plain")`` — seeds the B&B incumbent with the greedy
-    rollout repair (solver/repair.py). ``shift_warm``: when the caller
+    ``(RepairSpec, layout)`` with layout "plain" or "soft" — seeds the B&B
+    incumbent with the greedy rollout repair (solver/repair.py).
+    ``shift_warm``: when the caller
     passes the previous step's ``prev=(V, ok)`` (``closed_loop`` carries
     it), the previous plan's binaries shifted one stage are injected as a
     fully-fixed wave-1 node: its relaxation is the fixed-binary
@@ -92,11 +93,8 @@ def make_mpc_step(model: MldModel, qp: DeviceQP, admm: BoxQP,
             root_repair_incumbent)
 
         rspec, layout = repair
-        if layout != "plain":
-            raise NotImplementedError(
-                f"repair layout {layout!r} is not ported to "
-                "pyhybridcontrol_tpu_torch yet (ROADMAP queue 1: condense "
-                "transforms)")
+        if layout not in ("plain", "soft"):
+            raise ValueError(f"repair cannot seed layout {layout!r}")
     use_shift = method == "bnb" and _uses_shift(qp, shift_warm)
 
     def step(x, W=None, price_seq=None, u_prev=None, prev=None):
@@ -110,7 +108,8 @@ def make_mpc_step(model: MldModel, qp: DeviceQP, admm: BoxQP,
         if rspec is not None:
             seed = root_repair_incumbent(
                 admm, qp, rspec, x, f, h, W=W, price_seq=price_seq,
-                qp_iters=spec.qp_iters, feas_tol=spec.feas_tol)
+                qp_iters=spec.qp_iters, layout=layout,
+                feas_tol=spec.feas_tol)
         init_node = (_shifted_node(qp, *prev)
                      if use_shift and prev is not None else None)
         res = solve_miqp_bnb(admm, qp, f, h, spec, init_incumbent=seed,

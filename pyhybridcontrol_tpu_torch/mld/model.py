@@ -107,6 +107,16 @@ class MldModel:
                 y = y + val @ mat.T
         return y
 
+    def constraint_residual(self, x, u=None, delta=None, z=None,
+                            omega=None):
+        """E x + F1 u + F2 δ + F3 z + F4 ω − f5 (≤ 0 when feasible)."""
+        m = self.mats
+        r = x @ m.E.T - m.f5[:, 0]
+        for mat, val in ((m.F1, u), (m.F2, delta), (m.F3, z), (m.F4, omega)):
+            if val is not None and mat.shape[1] > 0:
+                r = r + val @ mat.T
+        return r
+
     def step_v(self, x, v, omega=None):
         """One step driven by the stacked decision v = [u; δ; z]."""
         u, delta, z = self.info.split_v(v)

@@ -1,8 +1,8 @@
 """Horizon condensation: MLD model + horizon N → one MIQP per control step.
 
-Counterpart of ``pyhybridcontrol_tpu/ops/condense.py`` (base
-``CondensedMpc``, ``assemble_np``, ``device_qp`` and ``DeviceQP``). The
-host builder is the reference's numpy float64 code unchanged; only the
+Counterpart of ``pyhybridcontrol_tpu/ops/condense.py``: ``CondensedMpc``
+with its transforms, ``assemble_np``, ``device_qp`` and ``DeviceQP``. The
+host code is the reference's numpy float64 code unchanged; only the
 device form differs: ``DeviceQP`` holds fp32 torch tensors on one device
 and assembles the per-step data with torch matmuls (TF32 is off — see
 ops/admm.py).
@@ -18,15 +18,16 @@ constraints  E x_k + Fv v_k + F4 ω_k ≤ f5  become
     G V ≤ h0 + Hx x0 + Hω W,
     G = Ē Γ̃v + F̄v,  h0 = f̄5 − Ē Γ̃c,  Hx = −Ē Φ̃,  Hω = −(Ē Γ̃ω + F̄ω).
 
-The transforms (move blocking, soft constraints, extra rows, root
-presolve), the terminal set and per-variable v bounds are not ported yet
-(ROADMAP queue 1).
+An optional terminal set E_N x_N ≤ f_N appends rows; ``v_lb``/``v_ub``
+bound the continuous entries of every v_k. The transforms — horizon-
+coupled extra rows, move blocking, soft constraints and the root
+presolve (ops/presolve.py) — each return a new ``CondensedMpc``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +43,6 @@ from pyhybridcontrol_tpu_torch.utils.matrix_utils import (
 from pyhybridcontrol_tpu_torch.utils.structdict import StructDict
 
 BIG = 1e30  # fp32-safe stand-in for ±inf in box bounds
-REG = 1e-8  # Hessian regularization (the reference's default)
 
 
 @dataclasses.dataclass
@@ -161,11 +161,18 @@ class CondensedMpc:
 
     Usage:
         c = CondensedMpc(model, N, weights)
+        c = c.with_move_blocking(groups)      # optional, before soft
+        c = c.with_soft_constraints(rows, lin_pen, quad_pen)  # optional
         qp = c.device_qp()                    # fp32 tensors on the card
     """
 
     def __init__(self, model: MldModel, N: int,
-                 weights: Optional[MpcWeights] = None):
+                 weights: Optional[MpcWeights] = None,
+                 v_lb: Optional[np.ndarray] = None,
+                 v_ub: Optional[np.ndarray] = None,
+                 terminal_E: Optional[np.ndarray] = None,
+                 terminal_f: Optional[np.ndarray] = None,
+                 reg: float = 1e-8):
         self.model = model
         self.info = info = model.info
         self.N = N
@@ -204,6 +211,16 @@ class CondensedMpc:
         h0 = f5_bar - E_bar @ Gc_t
         Hx = -E_bar @ Phi_t
         Hw = -(E_bar @ Gw_t + Fw_bar)
+
+        # ---- optional terminal constraint  E_N x_N ≤ f_N ----
+        if terminal_E is not None:
+            EN = np.atleast_2d(np.asarray(terminal_E, dtype=np.float64))
+            fN = np.asarray(terminal_f, dtype=np.float64).reshape(-1)
+            rowN = slice((N - 1) * nx, N * nx)
+            G = np.vstack([G, EN @ Gv[rowN]])
+            h0 = np.concatenate([h0, fN - EN @ Gc[rowN]])
+            Hx = np.vstack([Hx, -EN @ Phi[rowN]])
+            Hw = np.vstack([Hw, -EN @ Gw[rowN]])
 
         # ---- objective ----
         w = self.weights
@@ -268,7 +285,7 @@ class CondensedMpc:
             Fup = -2.0 * DS.T @ np.vstack(
                 [Rdu] + [np.zeros((nu, nu))] * (N - 1))
 
-        H = 0.5 * (H + H.T) + REG * np.eye(N * nv)
+        H = 0.5 * (H + H.T) + reg * np.eye(N * nv)
 
         # ---- variable bounds ----
         lb = np.full(N * nv, -np.inf)
@@ -276,8 +293,8 @@ class CondensedMpc:
         vb = info.v_binary_mask
         for k in range(N):
             s = slice(k * nv, (k + 1) * nv)
-            lb[s] = np.where(vb, 0.0, -np.inf)
-            ub[s] = np.where(vb, 1.0, np.inf)
+            lb[s] = np.where(vb, 0.0, v_lb if v_lb is not None else -np.inf)
+            ub[s] = np.where(vb, 1.0, v_ub if v_ub is not None else np.inf)
 
         self.H, self.f0, self.Fx, self.Fw, self.Fup = H, f0, Fx, Fw, Fup
         self.G, self.h0, self.Hx, self.Hw = G, h0, Hx, Hw
@@ -306,7 +323,7 @@ class CondensedMpc:
             self.n_state_aux = na
             nV0 = self.H.shape[0]
             self.H = np.block([[self.H, np.zeros((nV0, na))],
-                               [np.zeros((na, nV0)), REG * np.eye(na)]])
+                               [np.zeros((na, nV0)), reg * np.eye(na)]])
             self.f0 = np.concatenate([self.f0, np.zeros(na)])
             self.Fx = np.vstack([self.Fx, np.zeros((na, nx))])
             self.Fw = np.vstack([self.Fw, np.zeros((na, self.Fw.shape[1]))])
@@ -327,6 +344,138 @@ class CondensedMpc:
                 [self.T_full, np.zeros((self.T_full.shape[0], na))])
             self.z_rows = np.concatenate(
                 [self.z_rows, base + np.arange(2 * na)])
+
+    # -- transforms ------------------------------------------------------------
+    def _clone(self) -> "CondensedMpc":
+        c = CondensedMpc.__new__(CondensedMpc)
+        c.__dict__.update(self.__dict__)
+        return c
+
+    def with_move_blocking(self, groups: Sequence[int],
+                           block_deltas: bool = False) -> "CondensedMpc":
+        """Move blocking: hold the INPUT u constant within step-groups;
+        δ and z stay per-step (they are consequences of the trajectory:
+        blocking a startup indicator δ makes any turn-on infeasible).
+        ``groups[k]`` is the block id of step k (nondecreasing, from 0).
+        Binary inputs shrink from N·nub to B·nub branching variables.
+        ``block_deltas=True`` blocks u and δ jointly."""
+        info, N, nv = self.info, self.N, self.info.nv
+        groups = list(groups)
+        if len(groups) != N:
+            raise ValueError("groups must have length N")
+        B = max(groups) + 1
+        nblk = info.nu + (info.ndelta if block_deltas else 0)
+        nstep = nv - nblk                    # per-step: (δ,) z
+        nVb = B * nblk + N * nstep
+        T = np.zeros((N * nv, nVb))
+        for k in range(N):
+            g = groups[k]
+            T[k * nv : k * nv + nblk,
+              g * nblk : (g + 1) * nblk] = np.eye(nblk)
+            T[k * nv + nblk : (k + 1) * nv,
+              B * nblk + k * nstep : B * nblk + (k + 1) * nstep] = (
+                np.eye(nstep))
+        n_extra = self.nV - N * nv    # binary-state aux cols stay 1:1
+        if n_extra:
+            T = np.block([[T, np.zeros((N * nv, n_extra))],
+                          [np.zeros((n_extra, T.shape[1])),
+                           np.eye(n_extra)]])
+        return self._apply_T(T)
+
+    def _apply_T(self, T: np.ndarray) -> "CondensedMpc":
+        c = self._clone()
+        c.H = 0.5 * ((T.T @ self.H @ T) + (T.T @ self.H @ T).T)
+        c.f0 = T.T @ self.f0
+        c.Fx = T.T @ self.Fx
+        c.Fw = T.T @ self.Fw
+        c.Fup = T.T @ self.Fup
+        c.G = self.G @ T
+        c.T_full = self.T_full @ T
+        # bounds/binaries: column j of T selects rows of the old decision
+        nVb = T.shape[1]
+        lb = np.full(nVb, -np.inf)
+        ub = np.full(nVb, np.inf)
+        bm = np.zeros(nVb, dtype=bool)
+        for j in range(nVb):
+            rows = np.nonzero(T[:, j])[0]
+            lb[j] = np.max(self.lb[rows])
+            ub[j] = np.min(self.ub[rows])
+            bm[j] = bool(np.any(self.binary_mask[rows]))
+        c.lb, c.ub, c.binary_mask = lb, ub, bm
+        return c
+
+    def with_root_presolve(self, passes: int = 3) -> "CondensedMpc":
+        """Root presolve (ops/presolve.py): fp64 interval bound
+        tightening + big-M coefficient tightening over the constant-rhs
+        rows. The MIQP's binary slices are kept exactly, so the optimum is
+        unchanged while every relaxation in the tree gets tighter. Apply
+        it last (it reads the final G/lb/ub frame); row and column layout
+        are unchanged."""
+        from pyhybridcontrol_tpu_torch.ops.presolve import tighten_condensed
+
+        const_rows = ((np.abs(self.Hx).sum(axis=1) == 0)
+                      & (np.abs(self.Hw).sum(axis=1) == 0))
+        G, h0, lb, ub = tighten_condensed(
+            self.G, self.h0, self.lb, self.ub, self.binary_mask,
+            const_rows, passes=passes)
+        c = self._clone()
+        c.G, c.h0, c.lb, c.ub = G, h0, lb, ub
+        return c
+
+    def with_extra_constraints(self, A_v: np.ndarray, b: np.ndarray,
+                               B_x: Optional[np.ndarray] = None,
+                               B_w: Optional[np.ndarray] = None
+                               ) -> "CondensedMpc":
+        """Append horizon-coupled rows ``A_v · V_full ≤ b + B_x x0 + B_w W``
+        with ``A_v`` in the FULL per-step-v layout (N·nv columns):
+        cross-step logic such as min-up/min-down unit commitment, which
+        MLD stage rows (one step each) cannot express."""
+        A_v = np.atleast_2d(np.asarray(A_v, np.float64))
+        r = A_v.shape[0]
+        if A_v.shape[1] != self.T_full.shape[0]:
+            raise ValueError(
+                f"A_v has {A_v.shape[1]} cols, expected "
+                f"{self.T_full.shape[0]} (N*nv full-v layout)")
+        c = self._clone()
+        c.G = np.vstack([self.G, A_v @ self.T_full])
+        c.h0 = np.concatenate([self.h0, np.asarray(b, np.float64).reshape(r)])
+        Bx = (np.zeros((r, self.Hx.shape[1])) if B_x is None
+              else np.atleast_2d(np.asarray(B_x, np.float64)))
+        Bw = (np.zeros((r, self.Hw.shape[1])) if B_w is None
+              else np.atleast_2d(np.asarray(B_w, np.float64)))
+        c.Hx = np.vstack([self.Hx, Bx])
+        c.Hw = np.vstack([self.Hw, Bw])
+        return c
+
+    def with_soft_constraints(self, rows: Sequence[int],
+                              lin_pen=1e3, quad_pen=0.0) -> "CondensedMpc":
+        """Soften constraint ``rows`` with slacks s ≥ 0 (upper bound +inf):
+        G_r V − s_r ≤ h_r, penalty  lin_penᵀ s + sᵀ diag(quad_pen) s (the
+        no-½ user cost convention of MpcWeights)."""
+        rows = np.asarray(list(rows), dtype=int)
+        ns = len(rows)
+        nV = self.H.shape[0]
+        lam = _vec(lin_pen, ns)
+        mu = _vec(quad_pen, ns)
+        c = self._clone()
+        c.H = np.block([
+            [self.H, np.zeros((nV, ns))],
+            [np.zeros((ns, nV)), 2.0 * np.diag(mu) + 1e-8 * np.eye(ns)]])
+        c.f0 = np.concatenate([self.f0, lam])
+        c.Fx = np.vstack([self.Fx, np.zeros((ns, self.Fx.shape[1]))])
+        c.Fw = np.vstack([self.Fw, np.zeros((ns, self.Fw.shape[1]))])
+        c.Fup = np.vstack([self.Fup, np.zeros((ns, self.Fup.shape[1]))])
+        Ssel = np.zeros((self.G.shape[0], ns))
+        Ssel[rows, np.arange(ns)] = 1.0
+        c.G = np.hstack([self.G, -Ssel])
+        c.T_full = np.hstack([self.T_full,
+                              np.zeros((self.T_full.shape[0], ns))])
+        c.lb = np.concatenate([self.lb, np.zeros(ns)])
+        c.ub = np.concatenate([self.ub, np.full(ns, np.inf)])
+        c.binary_mask = np.concatenate([self.binary_mask,
+                                        np.zeros(ns, dtype=bool)])
+        c.n_soft = self.n_soft + ns
+        return c
 
     # -- host-side assembly (oracle path, float64) --------------------------
     def assemble_np(self, x0, W=None, u_prev=None, price_seq=None):

@@ -475,6 +475,9 @@ def admm_wave_plain(kq: KernelQP, kq2: Optional[KernelQP], binary_idx,
 SM_COUNT = 132
 TILES = (8, 4, 1)
 ROWS_PER_TASK = (4, 16)
+# lane groups over which ẑ = M t deals its depth, per tile (B_KS of the
+# source's Cfg tables): the rows of Mᵀ lie permuted to match (depth_rows)
+B_KS = {8: 4, 4: 4, 1: 8}
 MAX_WARPS = {8: 18, 4: 12, 1: 12}
 _RED = 16            # floats of reduction workspace per warp and problem
 
@@ -576,12 +579,22 @@ class _Args(ctypes.Structure):
         + [(k, ctypes.c_float) for k in ("alpha", "alpha2", "cinv")])
 
 
+def depth_rows(nr: int, ks: int) -> np.ndarray:
+    """Variable held by each of the nr rows of t and Mᵀ when ẑ = M t deals
+    its depth to ``ks`` lane groups, one row in ``ks`` each: row p holds
+    variable (p mod ks)·(nr/ks) + p div ks, so every group sums a
+    contiguous run of variables (the kernel's ``t_row`` is the inverse)."""
+    p = np.arange(nr)
+    return (p % ks) * (nr // ks) + p // ks
+
+
 def _layout(kq: KernelQP):
     """Device constants in the kernels' layout: Â_G as (mGp, nr) and Mᵀ as
     (nr, mGp+nr), each with its shared-memory row stride (``_strides``,
     zero in the pad columns: the staged kernels copy them as they lie, the
-    streamed ones read them in place), and P̂ᵀ, so neighbouring threads
-    read neighbouring words;
+    streamed ones read them in place) — Mᵀ once per lane-group count of
+    ``B_KS``, its rows in ``depth_rows`` order — and P̂ᵀ, so neighbouring
+    threads read neighbouring words;
     the per-row vectors packed as ``vec`` = [d_box, 1/d_box, ρ_B, 1/ρ_B,
     1/E_B, 1/(D·c) | ρ_G, 1/ρ_G, 1/E_G]; and what packing needs, ``io`` =
     [c·D, E_B, D | E_G], zero in the padding (the same single products as
@@ -599,9 +612,12 @@ def _layout(kq: KernelQP):
                         F.pad(spec.E[:m], (0, kq.m_pad - m))]
                        ).float().contiguous()
         sa, sm = _strides(kq.n_pad, kq.m_pad)
+        MT = F.pad(kq.M.T, (0, sm - kq.m_pad - kq.n_pad))
         lay = kq.cache["layout"] = dict(
             AG=F.pad(kq.AGT.T, (0, sa - kq.n_pad)).contiguous(),
-            MT=F.pad(kq.M.T, (0, sm - kq.m_pad - kq.n_pad)).contiguous(),
+            MT={ks: MT[torch.as_tensor(depth_rows(kq.n_pad, ks),
+                                       device=MT.device)].contiguous()
+                for ks in set(B_KS.values())},
             PT=kq.P.T.contiguous(), vec=vec, io=io, cinv=float(kq.cinv))
     return lay
 
@@ -672,13 +688,16 @@ def _launch(name: str, kq: KernelQP, kq2: Optional[KernelQP], binmask,
             setattr(a, "s" + k, _check(k, t, (B, rows)))
             setattr(a, k, t.data_ptr())
     lay = _layout(kq)
-    for k in ("AG", "MT", "PT", "vec", "io"):
+    for k in ("AG", "PT", "vec", "io"):
         setattr(a, k, lay[k].data_ptr())
+    ks = B_KS[pl.pb]
+    a.MT = lay["MT"][ks].data_ptr()
     wave = name == "admm_k2"
     if wave:
         _check("binmask", binmask, (kq.n_pad,))
         lay2 = _layout(kq2) if kq2 is not None else lay
-        a.binm, a.MT2, a.vec2 = (binmask.data_ptr(), lay2["MT"].data_ptr(),
+        a.binm, a.MT2, a.vec2 = (binmask.data_ptr(),
+                                 lay2["MT"][ks].data_ptr(),
                                  lay2["vec"].data_ptr())
         a.alpha2 = (kq2 if kq2 is not None else kq).base.alpha
     # one allocation, cut into x (B,n), z, y (B,m+n) and stats (B,8) per

@@ -50,7 +50,10 @@ import numpy as np
 
 def build_controller(config: str, solver: str = "bnb", device="cuda"):
     """Build the controller of ``config`` on ``device`` and run one warmup
-    solve (kernel build and first launch). Returns (ctrl, ready line)."""
+    solve (kernel build and first launch). Returns (ctrl, ready line).
+    The config's soft rows are softened (penalties 5.0 linear, 1.0
+    quadratic) as the reference's serve does; like it, serve applies no
+    move blocking (the reference's ``run.py`` does)."""
     from pyhybridcontrol_tpu_torch.configs import get_config
     from pyhybridcontrol_tpu_torch.control.mpc import MpcController
 
@@ -58,6 +61,9 @@ def build_controller(config: str, solver: str = "bnb", device="cuda"):
     model, ckw = cfg.build()
     ctrl = MpcController(model, cfg.N, solver=solver, bnb_spec=cfg.bnb,
                          qp_iters=cfg.bnb.qp_iters, device=device, **ckw)
+    if cfg.soft_rows:
+        ctrl.set_soft_constraints(list(cfg.soft_rows), lin_pen=5.0,
+                                  quad_pen=1.0)
     ctrl.build()
     ctrl.feedback(np.zeros(model.info.nx, np.float32))
     ready = {"ready": True, "config": cfg.name, "nx": model.info.nx,

@@ -11,7 +11,13 @@ from pyhybridcontrol_tpu_torch.solver.bnb_pooled import (
 from pyhybridcontrol_tpu_torch.solver.enumerate import (
     solve_miqp_enumerate_device,
 )
+from pyhybridcontrol_tpu_torch.solver.oracle import (
+    OracleResult,
+    solve_miqp_enumeration_oracle,
+    solve_qp_oracle,
+)
 
 __all__ = ["BnbResult", "BnbSpec", "KernelCondensedBackend", "PooledState",
            "solve_miqp_bnb", "solve_miqp_bnb_pooled",
-           "solve_miqp_enumerate_device"]
+           "solve_miqp_enumerate_device", "OracleResult",
+           "solve_qp_oracle", "solve_miqp_enumeration_oracle"]

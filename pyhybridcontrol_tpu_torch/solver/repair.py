@@ -16,9 +16,10 @@ reference's ``lax.scan`` over the horizon is a Python loop here; each
 step's candidates are one batched ``admm_solve``. A leading batch
 dimension of B instances (the reference vmaps) runs each stage as one
 (B·C, ·) ``admm_solve`` with a per-instance argmin and per-instance
-state: no Python loop over instances. Not valid under move
-blocking. The reference's soft-row variant waits for the soft-constraint
-transform (ROADMAP queue 1).
+state: no Python loop over instances. Not valid under move blocking.
+Stage rows the controller softened (``soft_rows``) may be violated at a
+penalty: they get slacks in the stage QP, and the seed fills the soft
+frame's slack columns from the row violations (``layout="soft"``).
 """
 
 from __future__ import annotations
@@ -65,16 +66,28 @@ class RepairSpec:
     cont_idx: torch.Tensor      # (nu_c + nz,) positions in v
     bin_idx: torch.Tensor       # (nbs,) positions in v
     u_cont_idx: torch.Tensor    # (nu_c,) positions of continuous u in w
+    # soft-row handling (stage-local): hard-row mask + penalties
+    hard_mask: torch.Tensor     # (nc,) bool — rows enforced exactly
+    soft_lin: torch.Tensor      # (nc,) linear penalty (0 on hard rows)
+    soft_quad: torch.Tensor     # (nc,)
+    slack_lin: torch.Tensor     # (ns,) linear penalty in slack order
     proximity: float
     nbs: int
+    n_slack: int
 
 
 def prepare_repair(model: MldModel, weights: Optional[MpcWeights] = None,
                    proximity: float = 1.0, rho: float = 1.0,
                    max_step_binaries: int = 10,
+                   soft_rows=None, soft_lin: float = 5.0,
+                   soft_quad: float = 1.0,
                    device=DEFAULT_DEVICE) -> Optional[RepairSpec]:
     """Build the repair data; None if the model has no per-step binaries
-    or too many to enumerate (2^nbs candidates)."""
+    or too many to enumerate (2^nbs candidates).
+
+    ``soft_rows``: stage-LOCAL constraint-row indices that the controller
+    softened — the repair then allows (and penalizes) their violation
+    too, instead of declaring such candidates infeasible."""
     device = resolve_device(device)
     w = weights or MpcWeights()
     info = model.info
@@ -104,13 +117,32 @@ def prepare_repair(model: MldModel, weights: Optional[MpcWeights] = None,
     if w.x_ref is not None:
         qx_la = qx_la - 2.0 * (Qx_la @ _vec(w.x_ref, info.nx))
 
+    nc = info.ncons
+    soft = np.zeros(nc, dtype=bool)
+    if soft_rows is not None:
+        soft[np.asarray(list(soft_rows), int)] = True
+    lam = np.where(soft, soft_lin, 0.0)
+    mu = np.where(soft, soft_quad, 0.0)
+
     nw_c = int(cont_mask.sum())
     Rw = 2.0 * Rv[np.ix_(cont_mask, cont_mask)]
     u_cont_in_w = np.nonzero(np.arange(nv)[cont_mask] < info.nu)[0]
     for i in u_cont_in_w:
         Rw[i, i] += 2.0 * proximity
-    admm = prepare_admm(F_cont, Rw + 1e-6 * np.eye(nw_c), rho=rho,
-                        device=device)
+    # slack variables for the soft rows extend the stage QP
+    ns = int(soft.sum()) if nw_c > 0 else 0
+    if ns:
+        Ssel = np.zeros((nc, ns))
+        Ssel[np.nonzero(soft)[0], np.arange(ns)] = 1.0
+        Rw_ext = np.zeros((nw_c + ns, nw_c + ns))
+        Rw_ext[:nw_c, :nw_c] = Rw
+        Rw_ext[nw_c:, nw_c:] = 2.0 * np.diag(mu[soft])
+        admm = prepare_admm(np.hstack([F_cont, -Ssel]),
+                            Rw_ext + 1e-6 * np.eye(nw_c + ns), rho=rho,
+                            device=device)
+    else:
+        admm = prepare_admm(F_cont, Rw + 1e-6 * np.eye(nw_c), rho=rho,
+                            device=device)
 
     codes = np.arange(2 ** nbs, dtype=np.uint32)
     cand = ((codes[:, None] >> np.arange(nbs)[None, :]) & 1
@@ -131,7 +163,11 @@ def prepare_repair(model: MldModel, weights: Optional[MpcWeights] = None,
         b5=f32(m.b5[:, 0]), Rw=f32(Rw), rw=f32(rv[cont_mask]),
         r_bin=f32(rv[vb]), Qx_la=f32(Qx_la), qx_la=f32(qx_la),
         cont_idx=i64(np.nonzero(cont_mask)[0]), bin_idx=i64(np.nonzero(vb)[0]),
-        u_cont_idx=i64(u_cont_in_w), proximity=float(proximity), nbs=nbs)
+        u_cont_idx=i64(u_cont_in_w),
+        hard_mask=torch.as_tensor(~soft, device=device),
+        soft_lin=f32(lam), soft_quad=f32(mu),
+        slack_lin=f32(lam[soft] if ns else np.zeros(0)),
+        proximity=float(proximity), nbs=nbs, n_slack=ns)
 
 
 def repair_sequence(spec: RepairSpec, x0, u_ref_seq, W=None,
@@ -156,7 +192,11 @@ def repair_sequence(spec: RepairSpec, x0, u_ref_seq, W=None,
         W = torch.zeros((B, N, spec.B4.shape[1]), device=dev)
     if price_seq is None:
         price_seq = torch.zeros((N, nv), device=dev)
-    free = torch.full((nw_c,), BIG, device=dev)
+    # stage-QP box: free continuous parts, slacks ≥ 0
+    nw_tot = nw_c + spec.n_slack
+    hi = torch.full((nw_tot,), BIG, device=dev)
+    lo = -hi
+    lo[nw_c:] = 0.0
     cand = spec.candidates
     inst = torch.arange(B, device=dev)
 
@@ -168,17 +208,23 @@ def repair_sequence(spec: RepairSpec, x0, u_ref_seq, W=None,
         base = spec.f5 - x @ spec.E.T - w_k @ spec.F4.T          # (B, nc)
         h = base[:, None, :] - cand @ spec.F2E.T                 # (B, C, nc)
         if nw_c == 0:
-            # all-binary stage: no stage QP, rows checked exactly
-            feas = (h >= -feas_tol).all(dim=-1)
-            cont_obj = h.new_zeros((B, C))
+            # all-binary stage: no stage QP — hard rows checked exactly,
+            # soft rows penalized
+            viol = torch.clamp_min(-h, 0.0)                      # (B, C, nc)
+            feas = torch.where(spec.hard_mask, h >= -feas_tol,
+                               True).all(dim=-1)
+            cont_obj = viol @ spec.soft_lin + (viol * viol) @ spec.soft_quad
             w_sol = h.new_zeros((B, C, 0))
         else:
             qv = torch.zeros((B, nw_c), device=dev)
             qv[:, spec.u_cont_idx] = u_ref[:, spec.u_cont_idx]
             q = -2.0 * spec.proximity * qv + spec.rw + price[spec.cont_idx]
+            if spec.n_slack:
+                q = torch.cat([q, spec.slack_lin.expand(B, -1)], dim=1)
             res = admm_solve(
-                spec.admm, q[:, None, :].expand(B, C, nw_c).reshape(-1, nw_c),
-                h.reshape(B * C, -1), -free, free, iters=qp_iters)
+                spec.admm,
+                q[:, None, :].expand(B, C, nw_tot).reshape(-1, nw_tot),
+                h.reshape(B * C, -1), lo, hi, iters=qp_iters)
             feas = (res.r_prim_rel < feas_tol).view(B, C)
             cont_obj = res.obj.view(B, C)
             w_sol = res.x[:, :nw_c].view(B, C, nw_c)
@@ -205,18 +251,31 @@ def repair_sequence(spec: RepairSpec, x0, u_ref_seq, W=None,
 
 def root_repair_incumbent(admm, qp, rspec: RepairSpec, x0, f, h,
                           W=None, price_seq=None, qp_iters: int = 150,
-                          feas_tol: float = 1e-3, stage_iters: int = 150):
+                          layout: str = "plain", feas_tol: float = 1e-3,
+                          stage_iters: int = 150):
     """Root relaxation + greedy repair → B&B incumbent seed
-    ``(obj, V, ok)``; the decision V is the full per-step v sequence.
-    x0, f, h (and W) may carry a leading batch dimension: the seeds of B
-    instances at once."""
+    ``(obj, V, ok)`` in the solver's decision frame. x0, f, h (and W) may
+    carry a leading batch dimension: the seeds of B instances at once.
+
+    ``layout``: "plain" (decision == full per-step v) or "soft" (decision
+    == [v_flat; slacks], slacks filled from the row violations). Move-
+    blocked problems cannot be seeded this way (repaired sequences are not
+    blocked): callers must not ask for a repair there."""
+    if layout not in ("plain", "soft"):
+        raise ValueError(f"repair cannot seed layout {layout!r}")
     relax = admm_solve(admm, f, h, qp.lb, qp.ub, iters=qp_iters)
     v_seq_rel = qp.full_v(relax.x)                      # (..., N, nv)
     u_ref = v_seq_rel[..., rspec.cont_idx]
     v_seq, ok = repair_sequence(rspec, x0, u_ref, W=W, price_seq=price_seq,
                                 qp_iters=stage_iters, feas_tol=feas_tol)
     V = v_seq.reshape(v_seq.shape[:-2] + (-1,))
-    # validate against the FULL constraint system
+    if layout == "soft":
+        # soft rows carry −I on the slack block: s_r = max(0, violation)
+        nvf = V.shape[-1]
+        viol = torch.clamp_min(V @ qp.G[:, :nvf].T - h, 0.0)
+        V = torch.cat([V, viol @ -qp.G[:, nvf:]], dim=-1)
+    # validate against the FULL constraint system (incl. horizon-coupled
+    # rows the per-step repair does not see)
     resid = (V @ qp.G.T - h).amax(dim=-1)
     ok = ok & (resid <= feas_tol)
     obj = 0.5 * (V * (V @ qp.H.T)).sum(-1) + (f * V).sum(-1)

@@ -349,7 +349,7 @@ def test_scenario_batch_config_matches_reference():
     assert convert.bnb_spec(j.bnb) == t.bnb
     assert get_config("double_integrator").batch == 1
     with pytest.raises(KeyError):
-        get_config("thermal_uc")
+        get_config("sharded_bnb")
 
 
 def _no_card():

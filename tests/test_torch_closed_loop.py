@@ -38,6 +38,7 @@ from pyhybridcontrol_tpu_torch.loop import (
 from pyhybridcontrol_tpu_torch.ops.admm import prepare_admm_mpc
 from pyhybridcontrol_tpu_torch.ops.condense import CondensedMpc
 from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+from pyhybridcontrol_tpu_torch.solver.repair import prepare_repair
 
 torch.set_num_threads(2)
 
@@ -247,8 +248,18 @@ def test_step_options_the_port_refuses():
     model, qp, admm, _ = _port(3)
     with pytest.raises(ValueError, match="method"):
         make_mpc_step(model, qp, admm, method="nope")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mpc_step(model, qp, admm, repair=(None, "soft"))
+    # the soft layout is ported: a soft frame's step takes the soft seed
+    soft = CondensedMpc(model, 3, tdi.default_weights()
+                        ).with_soft_constraints([6, 7], 5.0, 1.0)
+    rspec = prepare_repair(model, tdi.default_weights(), soft_rows=[6, 7],
+                           device="cpu")
+    step = make_mpc_step(model, soft.device_qp("cpu"),
+                         prepare_admm_mpc(soft, device="cpu"),
+                         bnb_spec=BnbSpec(capacity=64, wave_size=16),
+                         repair=(rspec, "soft"))
+    assert bool(closed_loop(model, step, X0, T=1).found.all())
+    with pytest.raises(ValueError, match="layout"):
+        make_mpc_step(model, qp, admm, repair=(rspec, "blocked"))
     with pytest.raises(ValueError, match="T must"):
         closed_loop(model, make_mpc_step(model, qp, admm), X0, T=0)
 

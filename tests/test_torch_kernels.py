@@ -588,6 +588,48 @@ def test_plan_mixed_depends_on_shapes_alone():
     assert set(got) == set(ca.MIXED_TILES)
 
 
+def test_rows_per_task_mirror_the_kernel_source():
+    """The plan's ROWS_PER_TASK is the source's RT·32/KS of both products
+    for every tile width, B_KS is the source's B_KS (the layout permutes
+    Mᵀ for it), and product B (ẑ = M t, depth nr) splits its depth over at
+    least 4 lane groups everywhere (the tile of 1 once took 2)."""
+    src = open(os.path.join(_REPO, "pyhybridcontrol_tpu_torch", "csrc",
+                            "admm.cu")).read()
+    cfg = {int(t): dict(re.findall(r"(\w+) = (\d+)", body))
+           for t, body in re.findall(
+               r"struct Cfg<(\d+)> \{\s*enum \{([^}]*)\}", src)}
+    assert set(cfg) == set(ca.TILES)
+    for pb, c in cfg.items():
+        c = {k: int(v) for k, v in c.items()}
+        assert (c["A_RT"] * 32 // c["A_KS"],
+                c["B_RT"] * 32 // c["B_KS"]) == ca.ROWS_PER_TASK, pb
+        assert c["B_KS"] >= 4 and c["WARPS"] == ca.MAX_WARPS[pb], pb
+        assert c["B_KS"] == ca.B_KS[pb], pb
+    assert "vstore<W>(s.t + t_row<C::B_KS>(j, nr) * PB + p, t);" in src
+
+
+@pytest.mark.parametrize("nr", range(8, 257, 8))
+def test_depth_rows_give_each_lane_group_a_run_of_variables(nr):
+    """``depth_rows`` (the layout's Mᵀ order) is a permutation, the inverse
+    of the kernel's t_row (mirrored here from the source), and lane group g
+    of ẑ = M t — rows g, g+ks, g+2ks, … — sums variables g·nr/ks … in
+    order: cancelling neighbour terms share a partial sum."""
+    src = open(os.path.join(_REPO, "pyhybridcontrol_tpu_torch", "csrc",
+                            "admm.cu")).read()
+    body = re.search(r"int t_row\(int j, int nr\) \{(.*?)\n\}", src,
+                     re.S).group(1)
+    assert "const int kc = nr / KS;" in body
+    assert "return (j % kc) * KS + j / kc;" in body
+    for ks in set(ca.B_KS.values()):
+        rows = ca.depth_rows(nr, ks)
+        assert sorted(rows) == list(range(nr))
+        kc = nr // ks
+        t_row = [(j % kc) * ks + j // kc for j in range(nr)]
+        assert all(rows[t_row[j]] == j for j in range(nr))
+        for g in range(ks):
+            assert list(rows[g::ks]) == list(range(g * kc, (g + 1) * kc))
+
+
 def _bank_groups(stride_bytes, rows=8):
     """16-byte bank groups (of the 8 in 128 bytes) hit by ``rows`` rows of
     16 bytes at ``stride_bytes``."""
@@ -824,11 +866,16 @@ def test_device_layout_carries_the_padded_strides(prob):
     nr, mGp = kq.n_pad, kq.m_pad
     sa, sm = ca._strides(nr, mGp)
     lay = ca._layout(kq)
-    assert lay["AG"].shape == (mGp, sa) and lay["MT"].shape == (nr, sm)
+    assert lay["AG"].shape == (mGp, sa)
     assert torch.equal(lay["AG"][:, :nr], kq.AGT.T)
-    assert torch.equal(lay["MT"][:, :mGp + nr], kq.M.T)
-    assert not lay["AG"][:, nr:].any() and not lay["MT"][:, mGp + nr:].any()
-    assert lay["AG"].is_contiguous() and lay["MT"].is_contiguous()
+    assert not lay["AG"][:, nr:].any() and lay["AG"].is_contiguous()
+    assert set(lay["MT"]) == set(ca.B_KS.values())
+    for ks, MT in lay["MT"].items():
+        # Mᵀ's rows in depth_rows order: row p holds variable rows[p]
+        rows = ca.depth_rows(nr, ks)
+        assert MT.shape == (nr, sm) and MT.is_contiguous()
+        assert torch.equal(MT[:, :mGp + nr], kq.M.T[torch.as_tensor(rows)])
+        assert not MT[:, mGp + nr:].any()
 
 
 @pytest.mark.parametrize("N", range(2, 28))

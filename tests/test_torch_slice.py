@@ -142,8 +142,11 @@ def test_unported_paths_raise():
                        tdi.default_weights(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tc.feedback_batch(np.zeros((2, 2)), mesh=object())
+    # soft rows are ported: the setter configures, the next build softens
+    assert tc.set_soft_constraints([6, 7], lin_pen=5.0, quad_pen=1.0) is tc
+    assert tc.condensed.n_soft == 2 and tc.repair[1] == "soft"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.set_soft_constraints([0])
+        tc.set_scenario_tree(object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MpcController(tdi.switched_double_integrator(), 4,
                       solver="stagewise", device="cpu")

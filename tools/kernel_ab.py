@@ -11,7 +11,8 @@ temporary directory, builds its own kernels there and is timed by the same
 worker, in the order parent, change, change, parent. Times are CUDA events
 recorded just before and after each call into a kernel library (so the
 wrapper's packing, checks and allocations are outside), median of 7 after a
-warm-up, at the shapes of PERF.md's kernel table; each shape is also run
+warm-up, at the shapes of PERF.md's kernel table (N=27: the streamed
+variant, a tile of 1); each shape is also run
 with twice the iterations, which splits its time into a part per iteration
 and a fixed part (staging, loads, stats, stores). The split-precision row
 ("K1mixed", ``low_frac=1.0``) times ``phc_admm_k1_mixed`` alone; K1's
@@ -100,7 +101,8 @@ def alone(fn, names, reps=7):
 out = {}
 for kind, N, B, iters in (("K2", 10, 1024, 100), ("K2", 10, 32, 400),
                           ("K2", 20, 4096, 100), ("K1", 20, 4096, 100),
-                          ("K1mixed", 20, 4096, 100), ("K1", 10, 1024, 100)):
+                          ("K1mixed", 20, 4096, 100), ("K1", 10, 1024, 100),
+                          ("K2", 27, 32, 200), ("K1", 27, 300, 100)):
     _, qp, spec, spec_p, f, h, lb, ub = cs.problem(
         N, B, dev, cs.phase_rng(f"ab{N}_{B}"), fix_frac=0.3)
     kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
