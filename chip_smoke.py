@@ -54,12 +54,13 @@ Run from the root of a checkout. It builds the kernels of
      through the stdin loop. The reply is list-valued; the out-of-box
      instance is found=false; on a fixed sample of 64 instances ``found``
      and the objective (``serve_limit``) agree with the enumeration
-     controller on the card; every K2 launch had B=1024. Then ``solve_miqp_bnb_pooled`` with
-     the reference bench's config-4 spec (wave 1024, probe_patience=3,
-     pool 8·B), once from nothing and once carrying the first call's
-     incumbents: objectives within ``serve_limit`` of the request's; the probe gate
-     closes on the second only, where K1 must launch at B=1024. Then the
-     relaxation sweep that uses the split-precision phase (N=20, B=4096,
+     controller on the card; every K2 launch had B=1024. Then
+     ``solve_miqp_bnb_pooled`` with the reference bench's config-4 spec
+     (wave 1024, probe_patience=3, pool 8·B), once from nothing and once
+     carrying the first call's incumbents: objectives within
+     ``serve_limit`` of the request's; the probe gate closes on the
+     second only, where K1 must launch at B=1024. Then the relaxation
+     sweep that uses the split-precision phase (N=20, B=4096,
      ``low_frac=1.0``);
   9. K1/K2 with the constants streamed from device memory (shapes whose
      Â_G and Mᵀ a block cannot stage) against their plain versions: the
@@ -71,7 +72,8 @@ Run from the root of a checkout. It builds the kernels of
      streamed K2 at the waves of the config-2 call (B=128, 200 + 600
      iterations), config 3's loop (B=64) and config 4b's loop (B=1024),
      and streamed K1 on the gated waves of configs 2 and 4b, each with its
-     plan and times;
+     plan and times (the relaxations at the "main" limits, the long probes
+     of those waves at "wave_probe");
  10. K1's split mode (the split-precision phase where the tensor-core
      kernel refuses the shape, N ≥ 22): one split iteration from the
      plain version's iterates, the whole solve's objective and solution
@@ -96,7 +98,8 @@ Run from the root of a checkout. It builds the kernels of
  15. an exact hold where enumeration reaches: config 2's hull frame at
      N=4 (12 binaries) and config 3's frame at N=6 (15 binaries), five
      states each — B&B within serve_limit of the port's enumeration on the
-     card, the enumeration within 1e-3 of the port's fp64 oracle;
+     card, the enumeration within 1e-3 of the port's fp64 oracle (a
+     branch and bound on fp64 QP solves that picks its leaves itself);
  16. config 3 of the bench as a closed loop (DEWH, min-up 2, blocks of
      two steps, soft comfort band; N=24, T=12 from [55, 0], seeded draws):
      found share 1.0, every step's plan feasible in fp64, ms per control
@@ -117,7 +120,8 @@ launched it.
 
 Every kernel result is held against its plain version field by field:
 obj, x, z, y, r_prim, r_prim_rel and r_dual within LIMITS, certificate
-bits identical. Every phase draws its problems from a generator of its
+bits identical (on the real frames of configs 2, 3 and 4b, they may
+differ on instances near a threshold: CERT_BAND). Every phase draws its problems from a generator of its
 own (``--seed N`` moves them all), so no phase's problems depend on what
 ran before it. ``--readings`` reads every field of every kernel comparison
 without stopping at the first one off its limit, lists those, and fails:
@@ -470,66 +474,75 @@ def held(tag, regime, pairs):
 # fp32 noise of their own size: the plain version in fp32 and in fp64 differ
 # by up to 3.6x in ‖Âᵀδy‖∞/‖δy‖∞ on config 3's node probes (B=300 of phase
 # 9: 49 instances have a ratio within 4x of its threshold; the bits agree).
-# Kernel and plain version must give the
-# same bits except on instances where the plain version's ratio lies within
-# a factor CERT_BAND of its threshold, at most CERT_SHARE of a batch (the
-# largest share read on the card: 48 of 1023, config 4b's wave probes).
+# Kernel and plain version give the same bits (compare), except on the real
+# frames of configs 2, 3 and 4b, where a reading showed the need (config
+# 4b's waves: up to 48 of 1023 probe bits): there they may differ only on
+# instances whose plain ratio lies within a factor CERT_BAND of its
+# threshold, at most CERT_SHARE of a batch (cert_near).
 CERT_EPS = 1e-4
 CERT_BAND = 4.0
 CERT_SHARE = 0.12
-_CERT_NEAR = {}   # id(plain certificate bits) -> (bits, near-threshold mask)
 
 
-def certificate_with_margins(certificate):
-    """``certificate`` (ops/admm.py's infeasibility_certificate) that also
-    files, for the bits it returns, which instances lie near a threshold
-    (CERT_BAND): the plain versions reach it, the kernels do not."""
+def cert_near(plain, ref, binary_idx=None):
+    """(B,) mask of the instances of the plain version's result ``ref``
+    whose certificate ratios lie within CERT_BAND of a threshold.
+    ``plain`` is the plain call's (kq, q, h, lb, ub): its last half step
+    runs again from ref's final iterates, which gives the certificate's
+    inputs (a K2 probe: ``binary_idx``, whose iterates sit at their probe
+    values, fix the probe's box). Checks that these inputs give ref's bits
+    back away from the thresholds."""
     import torch
 
-    def wrapped(dy, Atdy, l, u):
-        bits = certificate(dy, Atdy, l, u)
-        dn = dy.abs().amax(dim=-1).double().clamp_min(1e-300)
-        dyp = torch.clamp_min(dy, 0.0).double()
-        dyn = torch.clamp_max(dy, 0.0).double()
-        fin_u, fin_l = u < 0.9e30, l > -0.9e30
-        ratios = (Atdy.double() / dn,
-                  (torch.where(~fin_u, dyp, 0.0).sum(-1)
-                   + torch.where(~fin_l, -dyn, 0.0).sum(-1)) / dn,
-                  -(torch.where(fin_u, u.double() * dyp, 0.0).sum(-1)
-                    + torch.where(fin_l, l.double() * dyn, 0.0).sum(-1)) / dn)
-        near = torch.zeros_like(bits)
-        for r in ratios:
-            near |= (r >= CERT_EPS / CERT_BAND) & (r <= CERT_EPS * CERT_BAND)
-        _CERT_NEAR[id(bits)] = (bits, near)
-        return bits
-    return wrapped
-
-
-def file_certificate_margins():
-    """Route the plain versions' certificate through
-    ``certificate_with_margins`` (once per process)."""
     from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
 
-    if not getattr(ca.infeasibility_certificate, "files_margins", False):
-        ca.infeasibility_certificate = certificate_with_margins(
-            ca.infeasibility_certificate)
-        ca.infeasibility_certificate.files_margins = True
+    kq, q, h, lb, ub = plain
+    qs, lG, uG, lB, uB, (zG, yG, zB, yB) = ca._pack(
+        kq, q, h, lb, ub, (ref.x, ref.z, ref.y))
+    if binary_idx is not None:
+        fixed = ca._binaries(kq, binary_idx)[1] > 0
+        lB, uB = torch.where(fixed, zB, lB), torch.where(fixed, zB, uB)
+    *_, dyG, dyB = ca._phase(
+        qs, lG, uG, lB, uB, kq.AGT, kq.M, kq.dbox, kq.rhoG, kq.rhoG_inv,
+        kq.rhoB, kq.rhoB_inv, zG, yG, zB, yB, 0, kq.base.alpha)
+    dy, l, u = (torch.cat(p, -1) for p in ((dyG, dyB), (lG, lB), (uG, uB)))
+    Atdy = (dyG @ kq.AGT.T + kq.dbox * dyB).abs().amax(-1)
+    dn = dy.abs().amax(dim=-1).double().clamp_min(1e-300)
+    dyp = torch.clamp_min(dy, 0.0).double()
+    dyn = torch.clamp_max(dy, 0.0).double()
+    fin_u, fin_l = u < 0.9e30, l > -0.9e30
+    near = torch.zeros_like(ref.infeas_cert)
+    for r in (Atdy.double() / dn,
+              (torch.where(~fin_u, dyp, 0.0).sum(-1)
+               + torch.where(~fin_l, -dyn, 0.0).sum(-1)) / dn,
+              -(torch.where(fin_u, u.double() * dyp, 0.0).sum(-1)
+                + torch.where(fin_l, l.double() * dyn, 0.0).sum(-1)) / dn):
+        near |= (r >= CERT_EPS / CERT_BAND) & (r <= CERT_EPS * CERT_BAND)
+    bits = ca.infeasibility_certificate(dy, Atdy, l, u)
+    check(not bool(((bits != ref.infeas_cert) & ~near).any()),
+          "cert_near: the plain version's last half step, run again, "
+          "gives other certificate bits")
+    return near
 
 
-def certs_held(tag, got, ref):
-    """The kernel's certificate bits against the plain version's (see
-    CERT_BAND)."""
+def certs_held(tag, got, ref, near=None):
+    """The kernel's certificate bits equal to the plain version's; with
+    ``near`` (a callable giving cert_near's mask), they may differ on
+    instances near a threshold (CERT_BAND, CERT_SHARE)."""
     import torch
 
+    if near is None:
+        check(torch.equal(got.infeas_cert, ref.infeas_cert),
+              f"{tag}: infeasibility certificate bits differ")
+        return
     differ = got.infeas_cert != ref.infeas_cert
     if not bool(differ.any()):
         return
-    filed = _CERT_NEAR.get(id(ref.infeas_cert))
-    near = filed[1] if filed is not None else torch.zeros_like(differ)
+    near = near()
     n = int(differ.sum())
-    print(f"  {tag}: {n} of {differ.numel()} certificate bits differ, on "
-          f"instances whose plain ratios lie within {CERT_BAND:g}x of "
-          f"their threshold", flush=True)
+    print(f"  {tag}: {n} of {differ.numel()} certificate bits differ, "
+          f"{int((differ & near).sum())} on instances whose plain ratios "
+          f"lie within {CERT_BAND:g}x of their threshold", flush=True)
     ok = bool(near[differ].all()) and n <= max(1, CERT_SHARE
                                                  * differ.numel())
     what = (f"{tag}: infeasibility certificate bits differ ({n}, "
@@ -540,13 +553,14 @@ def certs_held(tag, got, ref):
         check(ok, what)
 
 
-def compare(tag, got, ref, record, regime="main"):
+def compare(tag, got, ref, record, regime="main", near=None):
     """Kernel result vs plain result (AdmmResult), on every field the
     regime has a limit for; raises if a field is off its limit or the
-    certificate bits differ (certs_held)."""
+    certificate bits differ (certs_held: with ``near``, a callable giving
+    cert_near's mask, they may differ near a threshold)."""
     held(tag + f" certs={int(got.infeas_cert.sum())}", regime,
          {k: (getattr(got, k), getattr(ref, k)) for k in LIMITS[regime]})
-    certs_held(tag, got, ref)
+    certs_held(tag, got, ref, near)
     record["max_abs_err"] = max(record.get("max_abs_err", 0.0),
                                 float((got.obj - ref.obj).abs().max()),
                                 float((got.x - ref.x).abs().max()))
@@ -568,15 +582,19 @@ FLIP_SHARE_HULL = 0.15
 
 
 def compare_probe(tag, got, ref, qp, lb, ub, record, regime="main",
-                  flip_share=FLIP_SHARE):
+                  flip_share=FLIP_SHARE, probe_regime=None, plain=None):
     """K2's (relax, probe) against the plain version's: the relaxation on
-    every instance, the probe on the instances whose binaries both rounded
-    the same way (see FLIP_SHARE)."""
+    every instance (limits of ``regime``), the probe on the instances whose
+    binaries both rounded the same way (see FLIP_SHARE; limits of
+    ``probe_regime``, by default ``regime``). With ``plain``, the plain
+    call's (kq, q, h, lb, ub), certificate bits may differ near a threshold
+    (cert_near)."""
     import torch
 
     from pyhybridcontrol_tpu_torch.ops.admm import AdmmResult
 
-    compare(tag + " relax", got[0], ref[0], record, regime)
+    compare(tag + " relax", got[0], ref[0], record, regime,
+            None if plain is None else lambda: cert_near(plain, ref[0]))
     bidx = torch.as_tensor(qp.binary_idx, device=lb.device)
 
     def rounded(res):
@@ -602,11 +620,9 @@ def compare_probe(tag, got, ref, qp, lb, ub, record, regime="main",
                 check(ok, what)
     got_p, ref_p = (AdmmResult(**{k: v[same] for k, v in vars(r).items()})
                     for r in (got[1], ref[1]))
-    filed = _CERT_NEAR.get(id(ref[1].infeas_cert))
-    if filed is not None:
-        _CERT_NEAR[id(ref_p.infeas_cert)] = (ref_p.infeas_cert,
-                                             filed[1][same])
-    compare(tag + " probe", got_p, ref_p, record, regime)
+    compare(tag + " probe", got_p, ref_p, record, probe_regime or regime,
+            None if plain is None
+            else lambda: cert_near(plain, ref[1], qp.binary_idx)[same])
 
 
 READINGS = {}   # largest error per regime and field over the run
@@ -1242,14 +1258,17 @@ def phase_streamed(dev, rng, recs):
                   f"bytes of shared memory, the library {need}")
             tag = f"{name} (n={n}, m={m}) B={B} tile {pl.pb}"
             args = (kq, q, h, lb, ub)
-            compare("K1 " + tag, ca.admm_solve_cuda(*args, iters=100),
-                    ca.admm_solve_plain(*args, iters=100), r1)
+            # the real frames' certificate bits may differ near a threshold
+            plain = args if name in REAL_CONFIGS else None
+            ref = ca.admm_solve_plain(*args, iters=100)
+            compare("K1 " + tag, ca.admm_solve_cuda(*args, iters=100), ref,
+                    r1, near=plain and (lambda: cert_near(plain, ref)))
             wargs = (kq, kq2, bidx, q, h, lb, ub)
             kw = dict(iters=100, probe_iters=100)
             compare_probe("K2 " + tag, ca.admm_wave_cuda(*wargs, **kw),
                           ca.admm_wave_plain(*wargs, **kw),
                           types.SimpleNamespace(binary_idx=bidx), lb, ub,
-                          r2, flip_share=flip_share(name))
+                          r2, flip_share=flip_share(name), plain=plain)
         # the time at a few hundred problems, where the card is filled
         timed(r1, f"{name}_", lambda: ca.admm_solve_cuda(*args, iters=100),
               lambda: ca.admm_solve_plain(*args, iters=100),
@@ -1441,8 +1460,8 @@ def phase_closed_loop(dev):
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res, _ = drive("closed_loop_config1", lambda: closed_loop(model, step, x0,
-                                                     T=CL_T))
+        res, _ = drive("closed_loop_config1",
+                       lambda: closed_loop(model, step, x0, T=CL_T))
         times.append(time.perf_counter() - t0)
     ms = 1e3 * min(times) / CL_T
     check(PATH_LAUNCHES["closed_loop_config1"]["admm_k2"] > 0,
@@ -1487,8 +1506,8 @@ def phase_closed_loop_n27(dev, sweep_args, rec):
     x0 = [2.0, 0.0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res, batches = drive("closed_loop_N27", lambda: closed_loop(model, step, x0,
-                                                       T=CL_T27))
+    res, batches = drive("closed_loop_N27",
+                         lambda: closed_loop(model, step, x0, T=CL_T27))
     ms = 1e3 * (time.perf_counter() - t0) / CL_T27
     got = PATH_LAUNCHES["closed_loop_N27"]
     check(got["admm_k2_streamed"] > 0 and got["admm_k2"] == 0,
@@ -1511,7 +1530,7 @@ def phase_closed_loop_n27(dev, sweep_args, rec):
     check(PATH_LAUNCHES["relax_sweep_N27_low_frac"] == {
         **dict.fromkeys(ca.LAUNCHES, 0), "admm_k1_streamed": 1,
         "admm_k1_split": 1}, f"N=27 sweep: launches "
-        f"{PATH_LAUNCHES["relax_sweep_N27_low_frac"]}")
+        f"{PATH_LAUNCHES['relax_sweep_N27_low_frac']}")
     compare("N=27 sweep low_frac=1.0", sweep, ca.admm_solve_plain(
         *sweep_args, iters=100, low_frac=1.0), rec, "mixed")
     return dict(ms_per_control_step=ms, nodes=res.nodes.tolist(),
@@ -1674,9 +1693,9 @@ def phase_serve_batch(dev, sweep_args):
     sweep, _ = drive("relax_sweep_low_frac", lambda: ca.admm_solve_cuda(
         *sweep_args, iters=100, low_frac=1.0))
     check(bool(torch.isfinite(sweep.obj).all()), "relax sweep: non-finite")
-    check(PATH_LAUNCHES["relax_sweep_low_frac"] == {**dict.fromkeys(ca.LAUNCHES, 0),
-                                      "admm_k1": 1, "admm_k1_mixed": 1},
-          f"relax sweep: launches {PATH_LAUNCHES["relax_sweep_low_frac"]}")
+    check(PATH_LAUNCHES["relax_sweep_low_frac"] == {
+        **dict.fromkeys(ca.LAUNCHES, 0), "admm_k1": 1, "admm_k1_mixed": 1},
+          f"relax sweep: launches {PATH_LAUNCHES['relax_sweep_low_frac']}")
 
 
 def phase_serve(dev):
@@ -1724,10 +1743,11 @@ def phase_serve(dev):
 
 # K2 (and K1 on probe-gated waves) at the shapes the new paths give them:
 # (config, wave size B, relaxation iterations, probe iterations, gated
-# waves on that path, limits regime)
-PATH_SHAPES = (("config2", 128, 200, 600, True, "wave_probe"),
-               ("config3", 64, 200, 200, False, "wave_probe"),
-               ("config4b", 1024, 150, 150, True, "wave_probe"))
+# waves on that path). The relaxations are held to the "main" limits, the
+# probes to "wave_probe".
+PATH_SHAPES = (("config2", 128, 200, 600, True),
+               ("config3", 64, 200, 200, False),
+               ("config4b", 1024, 150, 150, True))
 
 
 def phase_streamed_paths(dev, rng, recs):
@@ -1735,13 +1755,14 @@ def phase_streamed_paths(dev, rng, recs):
     probe iterations), config 3's loop (B=64, 200 + 200) and config 4b's
     pooled loop (B=1024, 150 + 150), warm-started as every wave after the
     root is, and streamed K1 on the probe-gated waves of configs 2 and 4b:
-    each against its plain version ("main" limits) on real node problems,
-    its plan, and its times and bound."""
+    each against its plain version on real node problems ("main" limits
+    on the relaxations, "wave_probe" on the probes; certificate bits may
+    differ near a threshold), its plan, and its times and bound."""
     from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
 
     r1, r2 = recs["admm_k1_streamed"], recs["admm_k2_streamed"]
     print("K1/K2 streamed at the new paths' shapes:", flush=True)
-    for name, B, iters, piters, gated, regime in PATH_SHAPES:
+    for name, B, iters, piters, gated in PATH_SHAPES:
         spec, spec_p, bidx, q, h, lb, ub = real_problem(name, B, dev, rng)
         kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
         pl = ca.plan(B, kq.n_pad, kq.m_pad)
@@ -1750,6 +1771,7 @@ def phase_streamed_paths(dev, rng, recs):
               f"{kq.n_pad}/{kq.m_pad}) B={B}: tile of {pl.pb} problems, "
               f"{-(-B // pl.pb)} blocks of {pl.threads} threads, {pl.smem} "
               f"bytes of shared memory, streamed {pl.streamed}", flush=True)
+        args = (kq, q, h, lb, ub)
         wargs = (kq, kq2, bidx, q, h, lb, ub)
         kw = dict(iters=iters, probe_iters=piters)
         cold = ca.admm_wave_plain(*wargs, **kw)
@@ -1758,7 +1780,8 @@ def phase_streamed_paths(dev, rng, recs):
         compare_probe("K2 " + tag, ca.admm_wave_cuda(*wargs, warm=warm, **kw),
                       ca.admm_wave_plain(*wargs, warm=warm, **kw),
                       types.SimpleNamespace(binary_idx=bidx), lb, ub, r2,
-                      regime, flip_share=flip_share(name))
+                      flip_share=flip_share(name), probe_regime="wave_probe",
+                      plain=args)
         timed(r2, f"{name}_wave_",
               lambda: ca.admm_wave_cuda(*wargs, warm=warm, **kw),
               lambda: ca.admm_wave_plain(*wargs, warm=warm, **kw),
@@ -1766,11 +1789,10 @@ def phase_streamed_paths(dev, rng, recs):
                         stats=2, warm=True, stiff=True, outputs=2))
         if not gated:
             continue
-        args = (kq, q, h, lb, ub)
+        ref = ca.admm_solve_plain(*args, iters=iters, warm=warm)
         compare(f"K1 {name} B={B} {iters} it warm",
-                ca.admm_solve_cuda(*args, iters=iters, warm=warm),
-                ca.admm_solve_plain(*args, iters=iters, warm=warm), r1,
-                regime)
+                ca.admm_solve_cuda(*args, iters=iters, warm=warm), ref, r1,
+                near=lambda: cert_near(args, ref))
         timed(r1, f"{name}_gated_",
               lambda: ca.admm_solve_cuda(*args, iters=iters, warm=warm),
               lambda: ca.admm_solve_plain(*args, iters=iters, warm=warm),
@@ -1956,8 +1978,60 @@ def leaf_oracle(c, f, h, bits):
     return r.obj + 0.5 * bits @ c.H[np.ix_(b, b)] @ bits + f[b] @ bits
 
 
+def lp_feasible(G, h, lb, ub):
+    """Whether G x ≤ h, lb ≤ x ≤ ub has a point (HiGHS, fp64)."""
+    import numpy as np
+    from scipy.optimize import linprog
+
+    bounds = [(lo if lo > -1e29 else None, hi if hi < 1e29 else None)
+              for lo, hi in zip(lb, ub)]
+    return linprog(np.zeros(len(lb)), A_ub=G, b_ub=h, bounds=bounds,
+                   method="highs").status != 2
+
+
+def oracle_bnb(c, f, h):
+    """(fp64 optimum, nodes) of frame ``c``'s MIQP at (f, h): depth-first
+    branch and bound on the port's fp64 QP oracle. The oracle itself picks
+    the leaves it solves (leaf_oracle): a node is pruned when HiGHS finds
+    its box empty or its exact relaxation bound reaches the incumbent, and
+    branches on its most fractional binary. Exact as enumerating all 2^nb
+    leaves is (tests/test_torch_kernels.py holds it to
+    solve_miqp_enumeration_oracle), at a few dozen nodes."""
+    import numpy as np
+
+    from pyhybridcontrol_tpu_torch.solver.oracle import solve_qp_oracle
+
+    b = np.asarray(c.binary_idx)
+    best, nodes, stack = np.inf, 0, [(c.lb.copy(), c.ub.copy())]
+    while stack:
+        lb, ub = stack.pop()
+        nodes += 1
+        if not lp_feasible(c.G, h, lb, ub):
+            continue
+        r = solve_qp_oracle(c.H, f, c.G, h, lb, ub)
+        free = ub[b] > lb[b]
+        if r.status == "optimal":
+            if r.obj >= best - 1e-9 * max(1.0, abs(best)):
+                continue
+            frac = np.abs(r.x[b] - np.round(r.x[b]))
+            if frac.max() <= 1e-6 or not free.any():
+                best = min(best, leaf_oracle(c, f, h, np.round(r.x[b])))
+                continue
+        elif not free.any():     # no bound: solve the leaf itself
+            best = min(best, leaf_oracle(c, f, h, lb[b]))
+            continue
+        else:                    # no bound: branch on a free binary
+            frac = free.astype(float)
+        j = b[int(np.argmax(np.where(free, frac, -1.0)))]
+        near = round(float(r.x[j])) if r.status == "optimal" else 0
+        for v in (1 - near, near):      # the nearer child first
+            lo, hi = lb.copy(), ub.copy()
+            lo[j] = hi[j] = v
+            stack.append((lo, hi))
+    return best, nodes
+
+
 HOLD_STATES = 5
-HOLD_LEAVES = 8     # best device-enumeration leaves re-solved by the oracle
 # enumeration's ADMM iterations: the hull frame's leaves (per-region copies
 # and aggregation rows) converge slower, so config 2 takes the 1500 of the
 # reference's own PWA enumeration test (tests/test_mld.py)
@@ -1969,17 +2043,14 @@ def phase_exact_hold(dev):
     N=4 (12 binaries) and config 3's frame at N=6 (extra rows, blocking,
     soft rows: 15 binaries), five seeded states each. Through the
     controller on the card, B&B (the config's spec) within serve_limit of
-    the port's enumeration (HOLD_ITERS iterations); the enumeration within 1e-3
-    (relative, floor 1) of the port's fp64 oracle on the host, which
-    re-solves the best HOLD_LEAVES leaves of the enumeration exactly."""
+    the port's enumeration (HOLD_ITERS iterations); the enumeration within
+    1e-3 (relative, floor 1) of the port's fp64 oracle on the host, which
+    finds the optimum on its own (oracle_bnb)."""
     import numpy as np
-    import torch
 
     from pyhybridcontrol_tpu_torch.configs import get_config
     from pyhybridcontrol_tpu_torch.control.mpc import MpcController
     from pyhybridcontrol_tpu_torch.models import min_up_down_rows
-    from pyhybridcontrol_tpu_torch.ops.admm import BIG, admm_solve
-    from pyhybridcontrol_tpu_torch.solver.enumerate import _all_assignments
 
     for name, N, cfg in (("config2", 4, "pwa_actuator"),
                          ("config3", 6, "thermal_uc")):
@@ -1987,10 +2058,10 @@ def phase_exact_hold(dev):
         nb = len(c.binary_idx)
         check(nb <= 15, f"{name} N={N}: {nb} binaries")
         spec = get_config(cfg).bnb
-        iters = HOLD_ITERS[name]
         ctrls = [MpcController(model, N, w, solver=s, bnb_spec=spec,
                                qp_iters=q, device=dev)
-                 for s, q in (("bnb", spec.qp_iters), ("enumerate", iters))]
+                 for s, q in (("bnb", spec.qp_iters),
+                              ("enumerate", HOLD_ITERS[name]))]
         for ct in ctrls:
             if name == "config3":
                 ct.set_extra_constraints(*min_up_down_rows(N, 2, min_up=2))
@@ -2000,12 +2071,6 @@ def phase_exact_hold(dev):
                   "controller's frame is not the bench's")
         rng = phase_rng(f"exact_hold_{name}")
         x0s, W, P = bench_data(name, N, HOLD_STATES, rng)
-        asg = torch.as_tensor(_all_assignments(nb), device=dev)
-        qp, admm = ctrls[1].device_qp, ctrls[1].admm
-        lb = qp.lb.expand(len(asg), qp.n).clone()
-        ub = qp.ub.expand(len(asg), qp.n).clone()
-        bidx = torch.as_tensor(qp.binary_idx, device=dev)
-        lb[:, bidx], ub[:, bidx] = asg, asg
         d_bnb, d_orc, refs = [], [], []
         for i in range(HOLD_STATES):
             Wi = None if W is None else W[i]
@@ -2015,20 +2080,13 @@ def phase_exact_hold(dev):
                   f"{bool(re.found)}")
             d_bnb.append(abs(float(rb.obj) - float(re.obj)))
             refs.append(float(re.obj))
-            # the enumeration's leaves: the best HOLD_LEAVES, exactly
-            f, h = qp.assemble(*on_card(dev, x0s[i], Wi), price_seq=on_card(
-                dev, P)[0])
-            res = admm_solve(admm, f.expand(len(asg), -1),
-                             h.expand(len(asg), -1), lb, ub, iters=iters)
-            objs = torch.where(res.r_prim_rel < 1e-3, res.obj, BIG)
-            best = torch.argsort(objs)[:HOLD_LEAVES].tolist()
-            fo, ho = c.assemble_np(x0s[i], Wi, price_seq=P)
-            orc = min(leaf_oracle(c, fo, ho, asg[k].double().cpu().numpy())
-                      for k in best if float(objs[k]) < BIG)
+            orc, nodes = oracle_bnb(c, *c.assemble_np(x0s[i], Wi,
+                                                      price_seq=P))
             d_orc.append(abs(float(re.obj) - orc) / max(1.0, abs(orc)))
             print(f"  {name} N={N} ({nb} binaries) x0={x0s[i].tolist()}: B&B "
                   f"{float(rb.obj):.5f} ({int(rb.nodes)} nodes), enumeration "
-                  f"{float(re.obj):.5f}, fp64 oracle {orc:.5f}", flush=True)
+                  f"{float(re.obj):.5f}, fp64 oracle {orc:.5f} ({nodes} "
+                  f"nodes)", flush=True)
         serve_reading(f"{name} N={N}: B&B vs enumeration", d_bnb, refs)
         worst = max(d_orc)
         print(f"  {name} N={N}: enumeration vs fp64 oracle, worst relative "
@@ -2099,8 +2157,8 @@ def phase_config3_loop(dev):
     launched_at("config3_loop", ("admm_k2_streamed",), 64)
     found = float(res.found.float().mean())
     print(f"  {ms:.2f} ms per control step, found share {found:.3f}, nodes "
-          f"{res.nodes.tolist()}, T {[round(v, 2) for v in res.xs[:, 0].tolist()]}",
-          flush=True)
+          f"{res.nodes.tolist()}, T "
+          f"{[round(v, 2) for v in res.xs[:, 0].tolist()]}", flush=True)
     check(found == 1.0, "config 3 loop: a step without a plan")
     plans_feasible("config 3 loop", c, [
         (V.double().cpu().numpy(), x.double().cpu().numpy(), np_or_none(W),
@@ -2179,8 +2237,8 @@ def phase_config4b_loop(dev):
     check(found == 1.0, "config 4b loop: an instance-step without a plan")
     x, _, P, V = log[0]
     plans_feasible("config 4b loop, first step", c, [
-        (V[i].double().cpu().numpy(), x0s[i], draws[i, :DEWH_N], prices[:DEWH_N])
-        for i in CFG4B_SAMPLE])
+        (V[i].double().cpu().numpy(), x0s[i], draws[i, :DEWH_N],
+         prices[:DEWH_N]) for i in CFG4B_SAMPLE])
     out = dict(seconds=dt, control_steps_per_s=T / dt, miqp_per_s=B * T / dt,
                nodes=nodes, found_frac=found)
 
@@ -2242,7 +2300,6 @@ def main(argv=None):
     sys.path.insert(0, str(ROOT))
     from pyhybridcontrol_tpu_torch.ops import _build
 
-    file_certificate_margins()
     dev = torch.device("cuda")
     gpu = gpu_line()
     print(gpu, flush=True)

@@ -505,13 +505,75 @@ def test_kernel_packing_factors_reproduce_pack_and_result_bitwise(prob, rng):
 def test_serve_limit_follows_fp32_resolution_above_the_floor(obj, limit):
     """chip_smoke's limit on |obj − enumeration|: 1e-3, or 192 fp32 relative
     steps of the objective where that is more (above |obj| ≈ 43.7)."""
+    cs = _chip_smoke()
+    assert cs.serve_limit(obj) == pytest.approx(limit, rel=1e-12)
+    lim = cs.serve_limit(np.array([1.0, -30.5, -1221.6]))
+    assert lim.shape == (3,) and lim[2] > lim[1] == lim[0] == cs.SERVE_FLOOR
+
+
+def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(_REPO, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    assert cs.serve_limit(obj) == pytest.approx(limit, rel=1e-12)
-    lim = cs.serve_limit(np.array([1.0, -30.5, -1221.6]))
-    assert lim.shape == (3,) and lim[2] > lim[1] == lim[0] == cs.SERVE_FLOOR
+    return cs
+
+
+@pytest.mark.parametrize("name", ["config2", "config3", "config4b"])
+def test_cert_near_gives_the_plain_bits_back(name):
+    """chip_smoke's certificate rule on a real frame (16 node problems of
+    the config, 150 + 150 iterations): the plain version's last half step,
+    run again from its final iterates, gives its certificate bits back
+    (cert_near checks that, for the relaxation and the probe); a bit that
+    differs passes near a threshold only, and not at all by default."""
+    from pyhybridcontrol_tpu_torch.ops.admm import AdmmResult
+
+    cs = _chip_smoke()
+    spec, spec_p, bidx, q, h, lb, ub = cs.real_problem(
+        name, 16, torch.device("cpu"), cs.phase_rng("streamed_paths"))
+    kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
+    plain = (kq, q, h, lb, ub)
+    relax, probe = ca.admm_wave_plain(kq, kq2, bidx, q, h, lb, ub,
+                                      iters=150, probe_iters=150)
+    for ref, b in ((relax, None), (probe, bidx)):
+        near = cs.cert_near(plain, ref, b)
+        assert near.shape == ref.infeas_cert.shape
+        assert near.dtype == torch.bool
+        for i, passes in ((int(torch.nonzero(~near)[0]), False),
+                          *(((int(torch.nonzero(near)[0]), True),)
+                            if near.any() else ())):
+            bits = ref.infeas_cert.clone()
+            bits[i] = ~bits[i]
+            got = AdmmResult(**{**vars(ref), "infeas_cert": bits})
+            with pytest.raises(AssertionError):
+                cs.certs_held(name, got, ref)
+            if passes:
+                cs.certs_held(name, got, ref, lambda: near)
+            else:
+                with pytest.raises(AssertionError):
+                    cs.certs_held(name, got, ref, lambda: near)
+
+
+@pytest.mark.parametrize("name", ["config2", "config3"])
+def test_fp64_bnb_oracle_matches_enumeration_oracle(name):
+    """chip_smoke's exact hold: its fp64 branch and bound (oracle_bnb)
+    finds the optimum that enumerating every leaf finds, on the bench
+    frame at N=1 at two of the hold's states (rel = abs = 1e-9)."""
+    from pyhybridcontrol_tpu_torch.solver.oracle import (
+        solve_miqp_enumeration_oracle)
+
+    cs = _chip_smoke()
+    _, _, c = cs.bench_frame(name, 1)
+    x0s, W, P = cs.bench_data(name, 1, 2, cs.phase_rng(f"exact_hold_{name}"))
+    for i in range(2):
+        f, h = c.assemble_np(x0s[i], None if W is None else W[i],
+                             price_seq=P)
+        got, nodes = cs.oracle_bnb(c, f, h)
+        want = solve_miqp_enumeration_oracle(c.H, f, c.G, h, c.lb, c.ub,
+                                             c.binary_idx)
+        assert want.status == "optimal"
+        assert got == pytest.approx(want.obj, rel=1e-9, abs=1e-9)
+        assert 1 <= nodes < 2 ** (len(c.binary_idx) + 1)
 
 
 # ---- the split-precision kernel's plan, strides and lane ownership -------
@@ -766,10 +828,11 @@ def test_mixed_binding_mirrors_the_kernel_source():
 
 # (n, m) of the shapes a block cannot stage, and the bytes a tile of one
 # problem would need with staged constants: the double integrator at N=27,
-# the reference bench's config 3 (DEWH, N=24, move blocking, soft), 4b
+# the reference bench's config 3 (DEWH, N=24, min-up rows, move blocking,
+# soft), 4b
 # (DEWH, N=24, soft), 4c (scenario tree, S=4, N=10) and 2/2b (PWA hull,
 # N=20)
-BIG_SHAPES = {"N27": (81, 270, 246176), "config3": (108, 216, 266912),
+BIG_SHAPES = {"N27": (81, 270, 246176), "config3": (108, 239, 293248),
               "config4b": (120, 216, 285120), "config4c": (120, 444, 531424),
               "config2": (220, 680, 1477792)}
 

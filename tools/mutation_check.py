@@ -80,7 +80,6 @@ import torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
 cs.READINGS_ONLY = True
-cs.file_certificate_margins()
 dev = torch.device("cuda")
 try:
     recs = {k: {} for k in cs.REPLACES}
