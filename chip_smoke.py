@@ -65,15 +65,20 @@ Run from the root of a checkout. It builds the kernels of
   9. K1/K2 with the constants streamed from device memory (shapes whose
      Â_G and Mᵀ a block cannot stage) against their plain versions: the
      real condensed problems of the reference bench's configs 2 (n=220,
-     m=680), 3 (108/239) and 4b (120/216) at seeded states and node boxes,
-     random problems of the sizes of the double integrator at N=27 and of
-     config 4c, at B = 1, 37 and 300; the streamed variant forced at N=26
-     against the staged one; the times at the N=27 paths' shapes; then
-     streamed K2 at the waves of the config-2 call (B=128, 200 + 600
-     iterations), config 3's loop (B=64) and config 4b's loop (B=1024),
-     and streamed K1 on the gated waves of configs 2 and 4b, each with its
-     plan and times (the relaxations at the "main" limits, the long probes
-     of those waves at "wave_probe");
+     m=680), 3 (108/239), 4b (120/216) and 4c (the dense joint frame of
+     its scenario tree, 120/444, node boxes fixing whole information-set
+     groups) at seeded states and node boxes, a random problem of the
+     size of the double integrator at N=27, at B = 1, 37 and 300; the
+     streamed variant forced at N=26 against the staged one; the times at
+     the N=27 paths' shapes; then streamed K2 at the waves of the config-2
+     call (B=128, 200 + 600 iterations), config 3's loop (B=64) and config
+     4b's loop (B=1024), and streamed K1 on the gated waves of configs 2
+     and 4b, each with its plan and times (the relaxations at the "main"
+     limits, the long probes of those waves at "wave_probe"); then config
+     4c's waves at "main": streamed K1 at its pooled wave (B=1024: the
+     relaxation, 100 iterations, and the probe on group-rounded boxes, 200
+     iterations at ρ·10 then 200 at ρ) and streamed K2 at the wave of a
+     single-instance dense-tree ``feedback`` (B=64, 100 + 200/200);
  10. K1's split mode (the split-precision phase where the tensor-core
      kernel refuses the shape, N ≥ 22): one split iteration from the
      plain version's iterates, the whole solve's objective and solution
@@ -107,12 +112,29 @@ Run from the root of a checkout. It builds the kernels of
  17. config 4b: 1024 DEWH instances in a pooled closed loop (N=24, T=8,
      wave 1024, pool 8·B): found share 1.0, every K1/K2 launch at B=1024,
      64 first-step plans feasible in fp64, control steps/s, MIQP/s; the
-     golden dewh_loop_B8_N12_T4 replayed.
+     golden dewh_loop_B8_N12_T4 replayed;
+ 18. config 4c of the reference bench (bench.py:654-701): 256 scenario-tree
+     MIQPs (the double integrator with a velocity disturbance, S=4, N=10,
+     branching at steps 1 and 5) through ``feedback_batch(engine=
+     "pooled")`` with rep-map branching, 3 repetitions: the wave path by
+     its true name ("unfused K1 relax + probe": every K1 launch at
+     B=1024, no K2), found share 1.0, 32 plans feasible in fp64 against the
+     port's joint frame (non-anticipativity rows included), 16 instances
+     within ``serve_limit`` of the port's single-instance ``feedback`` on
+     the same tree (K2 at B=64, per-coordinate branching); tree-MIQP/s,
+     mean objective beside the reference's recorded −288.5737, waves,
+     nodes;
+ 19. exact holds of the tree paths: tests/test_bnb_pooled.py's S=2, N=4
+     tree through the pool within 1e-3 of the port's fp64 oracle, and the
+     consensus tree (plain torch ADMM) on tests/test_consensus_tree.py's
+     fixture (S=4, N=6) against the dense joint build (objective 2e-3,
+     first input 2e-2).
 
 Each phase prints its wall time, and the run its total. Launch counts are
 kept per path (PATHS): set to 0 just before each served request set, the
-pooled calls, the relaxation sweeps, the closed loops and the config-2
-calls, and read just after it; launches made to compare a kernel with its
+pooled calls, the relaxation sweeps, the closed loops, the config-2 calls,
+config 4c's call and its single-instance feedbacks, and read just after
+it; launches made to compare a kernel with its
 plain version or with enumeration fall in none of them.
 A kernel's ``launches`` is its sum over these paths, ``launches_by_path``
 the counts apart, and ``on_main_path`` says whether a served request
@@ -167,7 +189,7 @@ PATHS = SERVED + ("pooled_bench_spec", "pooled_carried_incumbents",
                   "relax_sweep_low_frac", "closed_loop_config1",
                   "closed_loop_N27", "relax_sweep_N27_low_frac",
                   "config2_call", "config2b_call", "config3_loop",
-                  "config4b_loop")
+                  "config4b_loop", "config4c_call", "config4c_feedback")
 # peak rates of one H100 SXM at 700 W (NVIDIA data sheet): fp32 outside
 # the tensor cores, dense bf16 in them, HBM3
 PEAK = dict(fp32=67e12, bf16=989e12, hbm=3.35e12)
@@ -416,9 +438,11 @@ def problem(N, B, dev, rng, fix_frac=0.0):
     return c, qp, spec, spec_p, f, h, lb, ub
 
 
-def node_boxes(qp, B, rng, fix_frac):
+def node_boxes(qp, B, rng, fix_frac, groups=None):
     """(B, n) box bounds of B&B nodes of ``qp``: each fixes ``fix_frac`` of
-    its binaries at random (none with fix_frac=0)."""
+    its binaries at random (none with fix_frac=0); with ``groups`` (the
+    group id of each binary) it fixes that fraction of the groups, each
+    to one value for all its members."""
     import numpy as np
     import torch
 
@@ -426,9 +450,11 @@ def node_boxes(qp, B, rng, fix_frac):
     lb = qp.lb.expand(B, qp.n).clone()
     ub = qp.ub.expand(B, qp.n).clone()
     if fix_frac > 0:
-        nb = qp.n_binary
-        fm = rng.uniform(size=(B, nb)) < fix_frac
-        fv = (rng.uniform(size=(B, nb)) < 0.5).astype(np.float32)
+        ng = qp.n_binary if groups is None else int(max(groups)) + 1
+        fm = rng.uniform(size=(B, ng)) < fix_frac
+        fv = (rng.uniform(size=(B, ng)) < 0.5).astype(np.float32)
+        if groups is not None:
+            fm, fv = fm[:, groups], fv[:, groups]
         bidx = torch.as_tensor(qp.binary_idx, device=dev)
         fm_t = torch.as_tensor(fm, device=dev)
         fv_t = torch.as_tensor(fv, device=dev)
@@ -1039,12 +1065,15 @@ def phase_dispatch(dev, rng):
 
 # (n, m) of the shapes whose constants a block cannot stage: the double
 # integrator at N=27 and the reference bench's configs 3, 4b, 4c and 2/2b.
-# Configs 2, 3 and 4b are their real condensed problems (REAL_CONFIGS);
-# N=27 and config 4c (not built yet: scenario trees) are random problems of
-# their sizes
+# Configs 2, 3, 4b and 4c are their real condensed problems (REAL_CONFIGS;
+# config 4c the dense joint frame of its scenario tree, with node boxes
+# that fix whole information-set groups, as its pool does); N=27 is a
+# random problem of its size. The certificate bits may differ near a
+# threshold on the frames of CERT_FRAMES only (CERT_BAND).
 BIG_SHAPES = {"N27": (81, 270), "config3": (108, 239), "config4b": (120, 216),
               "config4c": (120, 444), "config2": (220, 680)}
-REAL_CONFIGS = ("config2", "config3", "config4b")
+REAL_CONFIGS = ("config2", "config3", "config4b", "config4c")
+CERT_FRAMES = ("config2", "config3", "config4b")
 BIG_BATCHES = (1, 37, 300)
 SPLIT_HORIZONS = (22, 24, 27)     # K1's split mode, above the tensor cores'
 
@@ -1098,12 +1127,19 @@ def bench_frame(name, N=None):
     "config2", the PWA spring in its hull encoding with the on/off actuator
     (N=20); "config3", DEWH with min-up 2, blocks of two steps and the soft
     comfort band (N=24); "config4b", DEWH with the soft comfort band
-    (N=24). ``N`` shortens the horizon."""
+    (N=24); "config4c", the dense joint frame of config 4c's scenario tree
+    (S=4, N=10). ``N`` shortens the horizon."""
     from pyhybridcontrol_tpu_torch.models import (
-        dewh_model, dewh_weights, min_up_down_rows, pwa_spring_mld,
-        pwa_weights)
+        di_default_weights, dewh_model, dewh_weights, min_up_down_rows,
+        pwa_spring_mld, pwa_weights)
     from pyhybridcontrol_tpu_torch.ops.condense import CondensedMpc
+    from pyhybridcontrol_tpu_torch.ops.scenario_tree import (
+        build_scenario_tree_qp)
 
+    if name == "config4c":
+        model, w = omega_model(), di_default_weights()
+        return model, w, build_scenario_tree_qp(
+            CondensedMpc(model, CFG4C_N, w), config4c_tree()[0])
     if name == "config2":
         model, w = pwa_spring_mld(on_off=True, formulation="hull"), \
             pwa_weights()
@@ -1117,6 +1153,53 @@ def bench_frame(name, N=None):
              .with_move_blocking([k // 2 for k in range(N)]))
     return model, w, c.with_soft_constraints(
         dewh_soft_rows(N), lin_pen=5.0, quad_pen=1.0)
+
+
+# Config 4c of the reference bench (bench.py:654-705): scenario-tree MIQPs of
+# the double integrator with an additive velocity disturbance, S=4
+# scenarios of N=10 steps branching at steps 1 and 5 (tree-consistent paths
+# of default_rng(13), sd 0.2), each one instance of the dense joint frame
+# (n=120, m=444, 40 binaries in 29 information-set groups), pooled with
+# rep-map branching
+CFG4C_S, CFG4C_N, CFG4C_STEPS = 4, 10, (1, 5)
+
+
+def omega_model():
+    """The switched double integrator with an additive disturbance on its
+    velocity (config 4c's model and the reference tree tests')."""
+    import numpy as np
+
+    from pyhybridcontrol_tpu_torch.mld.info import MldInfo
+    from pyhybridcontrol_tpu_torch.mld.model import MldModel
+    from pyhybridcontrol_tpu_torch.models import switched_double_integrator
+
+    base = switched_double_integrator()
+    m = base.numpy_mats()
+    return MldModel.from_matrices(
+        MldInfo(nx=2, nu=1, ndelta=1, nz=1, nomega=1, ny=2,
+                ncons=base.info.ncons),
+        A=m.A, B1=m.B1, B3=m.B3, B4=np.array([[0.0], [1.0]]), C=m.C,
+        E=m.E, F1=m.F1, F2=m.F2, F3=m.F3, f5=m.f5)
+
+
+def config4c_tree():
+    """(tree, rng) of config 4c: the bench's rng after it drew the paths,
+    from which the bench then draws its states."""
+    import numpy as np
+
+    from pyhybridcontrol_tpu_torch.ops.scenario_tree import (
+        ScenarioTree, tree_consistent_paths)
+
+    rng = np.random.default_rng(13)
+    paths = tree_consistent_paths(rng, CFG4C_S, CFG4C_N, CFG4C_STEPS, sd=0.2)
+    return ScenarioTree.from_branching(paths, branch_steps=CFG4C_STEPS), rng
+
+
+def config4c_groups():
+    """Information-set group of each binary of config 4c's joint frame."""
+    from pyhybridcontrol_tpu_torch.ops.scenario_tree import tree_branch_map
+
+    return tree_branch_map(bench_frame("config4c")[2], config4c_tree()[0])
 
 
 def dewh_soft_rows(N):
@@ -1136,6 +1219,10 @@ def bench_data(name, N, B, rng, T=0):
     if name == "config2":
         return (rng.uniform([-2.0, -1.0], [2.0, 1.0], (B, 2))
                 .astype(np.float32), None, None)
+    if name == "config4c":      # states as the bench's; the tree's paths
+        x0s = rng.normal(size=(B, 2)).astype(np.float32)
+        W = config4c_tree()[0].omega_paths.reshape(1, -1, 1)
+        return x0s, np.repeat(W, B, axis=0).astype(np.float32), None
     x0s = np.stack([rng.uniform(50.0, 62.0, B),
                     rng.integers(0, 2, B)], axis=1).astype(np.float32)
     draws = (0.5 * (rng.uniform(0, 1, (B, N + T, 1)) < 0.25)
@@ -1167,7 +1254,8 @@ def real_problem(name, B, dev, rng, fix_frac=0.3):
     qp = c.device_qp(dev)
     x0s, W, P = on_card(dev, *bench_data(name, c.N, B, rng))
     f, h = qp.assemble(x0s, W, price_seq=P)
-    lb, ub = node_boxes(qp, B, rng, fix_frac)
+    lb, ub = node_boxes(qp, B, rng, fix_frac,
+                        config4c_groups() if name == "config4c" else None)
     return (prepare_admm_mpc(c, device=dev),
             prepare_admm_mpc(c, rho=10.0, device=dev), qp.binary_idx, f, h,
             lb, ub)
@@ -1259,7 +1347,7 @@ def phase_streamed(dev, rng, recs):
             tag = f"{name} (n={n}, m={m}) B={B} tile {pl.pb}"
             args = (kq, q, h, lb, ub)
             # the real frames' certificate bits may differ near a threshold
-            plain = args if name in REAL_CONFIGS else None
+            plain = args if name in CERT_FRAMES else None
             ref = ca.admm_solve_plain(*args, iters=100)
             compare("K1 " + tag, ca.admm_solve_cuda(*args, iters=100), ref,
                     r1, near=plain and (lambda: cert_near(plain, ref)))
@@ -1800,6 +1888,321 @@ def phase_streamed_paths(dev, rng, recs):
                         warm=True))
 
 
+def group_probe_boxes(qp, groups, lb, ub, x):
+    """The pooled engine's probe boxes under a branch map: every binary of
+    a group the node leaves free fixed to the rounded mean of the group's
+    relaxed values (half to even), the node's fixed groups kept."""
+    import numpy as np
+    import torch
+
+    dev = lb.device
+    bidx = torch.as_tensor(qp.binary_idx, device=dev)
+    g = torch.as_tensor(np.asarray(groups), device=dev)
+    ng = int(g.max()) + 1
+    Mavg = torch.zeros((len(groups), ng), device=dev)
+    Mavg[torch.arange(len(groups), device=dev), g] = 1.0
+    Mavg /= Mavg.sum(0, keepdim=True)
+    mean = torch.round(torch.clamp(x[:, bidx] @ Mavg, 0.0, 1.0))[:, g]
+    fixed = lb[:, bidx] == ub[:, bidx]
+    val = torch.where(fixed, lb[:, bidx], mean)
+    lbp, ubp = lb.clone(), ub.clone()
+    lbp[:, bidx], ubp[:, bidx] = val, val
+    return lbp, ubp
+
+
+def phase_tree_shapes(dev, rng, recs):
+    """Streamed K1 at config 4c's pooled wave (bench.py:679-690: B=1024,
+    warm): the relaxation (100 iterations) and the probe the pool runs
+    under rep-map branching (every binary fixed to its group's rounded
+    mean; 200 iterations at ρ·10, then 200 at ρ, warm from the
+    relaxation); and streamed K2 at the wave of a single-instance dense
+    tree ``feedback`` (B=64, 100 + 200/200 iterations, per-coordinate
+    rounding). Each against its plain version on config 4c's joint frame
+    at group-fixed node boxes, all at the "main" limits (the plain
+    version's own fp32-vs-fp64 difference on this probe is under a tenth
+    of them: tools/plain_noise.py), with its plan, times and bound."""
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+
+    r1, r2 = recs["admm_k1_streamed"], recs["admm_k2_streamed"]
+    print("K1/K2 streamed at config 4c's waves:", flush=True)
+    groups = config4c_groups()
+    B = 1024
+    spec, spec_p, bidx, q, h, lb, ub = real_problem("config4c", B, dev, rng)
+    kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
+    pl = ca.plan(B, kq.n_pad, kq.m_pad)
+    check(pl.streamed, f"config4c B={B}: the plan must stream, got {pl}")
+    print(f"  plan config4c (n={spec.P.shape[0]}, m={spec.m_ineq}, padded "
+          f"{kq.n_pad}/{kq.m_pad}) B={B}: tile of {pl.pb} problems, "
+          f"{-(-B // pl.pb)} blocks of {pl.threads} threads, {pl.smem} bytes "
+          f"of shared memory", flush=True)
+    args = (kq, q, h, lb, ub)
+    cold = ca.admm_solve_plain(*args, iters=100)
+    warm = (cold.x, cold.z, cold.y)
+    ref = ca.admm_solve_plain(*args, iters=100, warm=warm)
+    compare(f"K1 config4c relaxation B={B} 100 it warm",
+            ca.admm_solve_cuda(*args, iters=100, warm=warm), ref, r1)
+    timed(r1, "config4c_relax_",
+          lambda: ca.admm_solve_cuda(*args, iters=100, warm=warm),
+          lambda: ca.admm_solve_plain(*args, iters=100, warm=warm),
+          admm_work(kq.n_pad, kq.m_pad, B, products=101, stats=1, warm=True))
+    lbp, ubp = group_probe_boxes(types.SimpleNamespace(binary_idx=bidx),
+                                 groups, lb, ub, ref.x)
+    pw = (ref.x, ref.z, ref.y)
+
+    def probe(solve):
+        a = solve(kq2, q, h, lbp, ubp, iters=200, warm=pw)
+        return a, solve(kq, q, h, lbp, ubp, iters=200, warm=(a.x, a.z, a.y))
+
+    got, want = probe(ca.admm_solve_cuda), probe(ca.admm_solve_plain)
+    compare(f"K1 config4c probe B={B} 200 it at ρ·10 warm", got[0], want[0],
+            r1)
+    # the base half from the same iterates, so that the comparison holds
+    # one launch, not the drift of the first
+    w1 = (want[0].x, want[0].z, want[0].y)
+    compare(f"K1 config4c probe B={B} then 200 it at ρ warm",
+            ca.admm_solve_cuda(kq, q, h, lbp, ubp, iters=200, warm=w1),
+            want[1], r1)
+    b1, o1 = admm_work(kq.n_pad, kq.m_pad, B, products=201, stats=1,
+                       warm=True, stiff=True)
+    b2, o2 = admm_work(kq.n_pad, kq.m_pad, B, products=201, stats=1,
+                       warm=True)
+    timed(r1, "config4c_probe_", lambda: probe(ca.admm_solve_cuda),
+          lambda: probe(ca.admm_solve_plain),
+          (b1 + b2, {"fp32": o1["fp32"] + o2["fp32"]}))
+
+    Bw = CFG4C_SPEC["wave_size"]
+    spec, spec_p, bidx, q, h, lb, ub = real_problem("config4c", Bw, dev, rng)
+    kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
+    wargs = (kq, kq2, bidx, q, h, lb, ub)
+    kw = dict(iters=100, probe_iters=400)
+    cold = ca.admm_wave_plain(*wargs, **kw)
+    warm = (cold[0].x, cold[0].z, cold[0].y)
+    compare_probe(f"K2 config4c B={Bw} 100+200/200 it warm",
+                  ca.admm_wave_cuda(*wargs, warm=warm, **kw),
+                  ca.admm_wave_plain(*wargs, warm=warm, **kw),
+                  types.SimpleNamespace(binary_idx=bidx), lb, ub, r2)
+    timed(r2, "config4c_wave_",
+          lambda: ca.admm_wave_cuda(*wargs, warm=warm, **kw),
+          lambda: ca.admm_wave_plain(*wargs, warm=warm, **kw),
+          admm_work(kq.n_pad, kq.m_pad, Bw, products=502, stats=2,
+                    warm=True, stiff=True, outputs=2))
+
+
+CFG4C_B = 256
+CFG4C_SPEC = dict(capacity=1024, wave_size=64, max_waves=64, qp_iters=100,
+                  probe_iters=400, probe_patience=3)
+CFG4C_REPS = 3
+CFG4C_PLANS = tuple(range(0, CFG4C_B, 8))     # 32 plans held in fp64
+CFG4C_HELD = tuple(range(0, CFG4C_B, 16))     # 16 held to single feedback
+# the mean objective the reference recorded for this call
+# (BENCH_DETAILS.json:101); printed beside the port's, not a limit
+CFG4C_REF_MEAN_OBJ = -288.5737
+
+
+def phase_config4c_call(dev, recs):
+    """Config 4c of the reference bench (bench.py:654-701) on the card:
+    256 states of default_rng(13) after its tree's paths, each one
+    scenario-tree MIQP of the dense joint frame, through
+    ``feedback_batch(engine="pooled", pooled_wave=1024, pool_slots=8·B)``
+    with rep-map branching, 3 repetitions. Every K1 launch at B=1024 and
+    no K2 launch; found share 1.0; 32 plans feasible in fp64 against the
+    port's joint frame (G V ≤ h with the non-anticipativity rows, the box,
+    binaries 0/1); 16 instances held to the port's single-instance
+    ``feedback`` on the same tree (K2, per-coordinate branching), within
+    1e-3 relative (floor 1), the reference's tolerance between its pooled
+    and per-instance engines (tests/test_bnb_pooled.py), and never below
+    the single search's certified bound by more. The two searches end on
+    different leaves (the pooled rep-map search mostly on worse ones, also
+    against single searches of 1024 waves: tools/tree_search_ab.py), so
+    ``serve_limit`` is printed as a reading only.
+    Tree-MIQP/s, mean objective, waves, nodes, and K1's share of the call
+    reckoned from its launches and the kernel-alone times of
+    ``phase_tree_shapes`` (``recs``)."""
+    import numpy as np
+    import torch
+
+    import pyhybridcontrol_tpu_torch.control.mpc as mpc
+    from pyhybridcontrol_tpu_torch.control.mpc import MpcController
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    tree, rng = config4c_tree()
+    model, w, c = bench_frame("config4c")
+    B = CFG4C_B
+    print(f"config 4c call (B={B} trees, S={CFG4C_S}, N={CFG4C_N}, frame "
+          f"{c.nV}/{c.G.shape[0]}, {len(c.binary_idx)} binaries in "
+          f"{int(max(config4c_groups())) + 1} groups):", flush=True)
+    ctrl = MpcController(model, CFG4C_N, w, device=dev)
+    ctrl.set_scenario_tree(tree)
+    ctrl.bnb_spec = BnbSpec(**CFG4C_SPEC)
+    check(np.array_equal(ctrl.condensed.G, c.G),
+          "config 4c: the controller's frame is not the bench's")
+    x0s = rng.normal(size=(B, 2)).astype(np.float32)
+    xs = torch.as_tensor(x0s, device=dev)
+    results = []
+    orig = mpc.solve_miqp_bnb_pooled
+
+    def spy(*a, **kw):
+        results.append(orig(*a, **kw))
+        return results[-1]
+
+    def solve():
+        return ctrl.feedback_batch(xs, engine="pooled", pooled_wave=1024,
+                                   pool_slots=8 * B)
+
+    times = []
+    mpc.solve_miqp_bnb_pooled = spy
+    try:
+        for rep in range(CFG4C_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if rep == 0:
+                res, _ = drive("config4c_call", solve)
+            else:
+                res = solve()
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        mpc.solve_miqp_bnb_pooled = orig
+    waves = results[0].waves
+    check(all(r.waves == waves for r in results), "config 4c: repetitions "
+          f"ran {[r.waves for r in results]} waves")
+    got = PATH_LAUNCHES["config4c_call"]
+    k1 = got["admm_k1_streamed"]
+    probing = (k1 - waves) // 2      # relaxation, + two probe halves
+    path = ("unfused K1 relax + probe"
+            if got["admm_k2"] + got["admm_k2_streamed"] == 0 and k1 else
+            "other")
+    check(path == "unfused K1 relax + probe" and got["admm_k1"] == 0,
+          f"config 4c: the waves must run streamed K1 only, launches {got}")
+    check(k1 == waves + 2 * probing and 0 < probing <= waves,
+          f"config 4c: {k1} K1 launches in {waves} waves")
+    launched_at("config4c_call", ("admm_k1_streamed",), 1024)
+    dt = sorted(times)[len(times) // 2]
+    found = float(res.found.float().mean())
+    objs = res.obj.double().cpu().numpy()
+    nodes = int(res.nodes[0])
+    r1 = recs["admm_k1_streamed"]
+    k1_s = 1e-3 * (waves * r1["config4c_relax_kernel_ms"]
+                   + probing * r1["config4c_probe_kernel_ms"])
+    print(f"  wave path: {path}; {[round(t, 3) for t in times]} s, median "
+          f"{dt:.3f} s: {B / dt:.1f} tree-MIQP/s; {waves} waves ({probing} "
+          f"probing, {waves - probing} gated), {nodes} nodes, {k1} K1 "
+          f"launches, K1 ~{k1_s:.2f} s of the call ({100 * k1_s / dt:.0f}%, "
+          f"launches × kernel-alone times), the rest pool machinery; found "
+          f"share {found:.4f}; mean objective {objs.mean():.4f} (the "
+          f"reference recorded {CFG4C_REF_MEAN_OBJ})", flush=True)
+    check(found == 1.0, "config 4c: a tree without a plan")
+    W = tree.omega_paths.reshape(-1, 1)
+    plans_feasible("config 4c", c, [
+        (res.v_seq[i].reshape(-1).double().cpu().numpy(), x0s[i], W, None)
+        for i in CFG4C_PLANS])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single, _ = drive("config4c_feedback",
+                      lambda: [ctrl.feedback(xs[i]) for i in CFG4C_HELD])
+    ms1 = 1e3 * (time.perf_counter() - t0) / len(CFG4C_HELD)
+    got1 = PATH_LAUNCHES["config4c_feedback"]
+    check(got1["admm_k2_streamed"] > 0 and got1["admm_k2"] == 0,
+          f"config 4c feedback: K2 must run streamed, launches {got1}")
+    launched_at("config4c_feedback", ("admm_k2_streamed",
+                                      "admm_k1_streamed"),
+                CFG4C_SPEC["wave_size"])
+    check(all(bool(r.found) for r in single),
+          "config 4c feedback: an instance without a plan")
+    ref = np.array([float(r.obj) for r in single])
+    scale = np.maximum(1.0, np.abs(ref))
+    lower = ref - np.array([float(r.gap) for r in single]) * scale
+    pooled = objs[list(CFG4C_HELD)]
+    rel = np.abs(pooled - ref) / scale
+    capped = sum(float(r.gap) > 0 for r in single)
+    lim = serve_limit(ref)
+    print(f"  single-instance feedback: {ms1:.0f} ms a tree, "
+          f"{got1['admm_k2_streamed'] + got1['admm_k1_streamed']} waves for "
+          f"{len(CFG4C_HELD)} trees, {capped} ended with a certified gap "
+          f"> 0; pooled lower on {int((pooled < ref).sum())}, worst relative "
+          f"|Δobj| {rel.max():.2e} (limit 1e-3); |Δobj| within serve_limit "
+          f"on {int((np.abs(pooled - ref) <= lim).sum())} of "
+          f"{len(CFG4C_HELD)}, worst {np.abs(pooled - ref).max():.2e} (a "
+          f"reading)", flush=True)
+    check(rel.max() <= 1e-3, f"config 4c: pooled {rel.max():.3e} off the "
+          "single-instance feedback")
+    check(bool((pooled >= lower - 1e-3 * scale).all()), "config 4c: a pooled "
+          "objective below the single search's certified bound")
+    return dict(batch=B, S=CFG4C_S, N=CFG4C_N, wave_path=path,
+                seconds=times, tree_miqp_per_s=B / dt, found_frac=found,
+                mean_obj=float(objs.mean()), waves=waves,
+                probing_waves=probing, nodes=nodes, k1_launches=k1,
+                k1_share=k1_s / dt, feedback_ms=ms1)
+
+
+def phase_tree_hold(dev):
+    """Exact holds of the tree paths on the card: tests/test_bnb_pooled.py's
+    S=2, N=4 tree (branching at 1) through the pool (rep-map branching,
+    its spec) within 1e-3 (relative, floor 1) of the port's fp64 oracle on
+    the joint frame (oracle_bnb); the consensus tree on
+    tests/test_consensus_tree.py's fixture (S=4, N=6, branching at 1 and
+    3, from [2, 0]) against the dense joint build: objective within 2e-3,
+    first input within 2e-2, the consensus first stage shared."""
+    import numpy as np
+
+    from pyhybridcontrol_tpu_torch.control.mpc import MpcController
+    from pyhybridcontrol_tpu_torch.models import di_default_weights
+    from pyhybridcontrol_tpu_torch.ops.scenario_tree import ScenarioTree
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    model, w = omega_model(), di_default_weights()
+    tree = ScenarioTree.from_branching(
+        np.random.default_rng(3).normal(0.0, 0.3, size=(2, 4, 1)),
+        branch_steps=(1,))
+    ctrl = MpcController(model, 4, w, device=dev)
+    ctrl.set_scenario_tree(tree)
+    ctrl.bnb_spec = BnbSpec(capacity=512, wave_size=32, qp_iters=600,
+                            probe_iters=3000, max_waves=48)
+    x0s = np.array([[2.0, 0.0], [-1.5, 1.0]], np.float32)
+    t0 = time.perf_counter()
+    res = ctrl.feedback_batch(x0s, engine="pooled", pooled_wave=128,
+                              pool_slots=1024)
+    ms = 1e3 * (time.perf_counter() - t0)
+    joint, W = ctrl.condensed, tree.omega_paths.reshape(-1, 1)
+    for i, x0 in enumerate(x0s):
+        orc, nodes = oracle_bnb(joint, *joint.assemble_np(x0, W))
+        rel = abs(float(res.obj[i]) - orc) / max(1.0, abs(orc))
+        print(f"  pooled tree S=2 N=4 x0={x0.tolist()}: {float(res.obj[i]):.5f}"
+              f", fp64 oracle {orc:.5f} ({nodes} nodes), relative {rel:.2e} "
+              f"(limit 1e-3); the call {ms:.0f} ms", flush=True)
+        check(bool(res.found[i]) and rel <= 1e-3,
+              f"pooled tree instance {i}: {rel:.3e} off the fp64 oracle")
+
+    tree = ScenarioTree.from_branching(
+        np.random.default_rng(3).normal(0.0, 0.3, size=(4, 6, 1)),
+        branch_steps=(1, 3))
+    spec = BnbSpec(capacity=256, wave_size=32, max_waves=48, qp_iters=600,
+                   probe_iters=3000)
+    out = {}
+    for consensus in (False, True):
+        ct = MpcController(model, 6, w, bnb_spec=spec, qp_iters=600,
+                           device=dev)
+        ct.set_scenario_tree(tree, consensus=consensus)
+        t0 = time.perf_counter()
+        out[consensus] = r = ct.feedback([2.0, 0.0])
+        print(f"  {'consensus' if consensus else 'dense joint'} tree S=4 "
+              f"N=6 from [2, 0]: objective {float(r.obj):.5f}, u "
+              f"{r.u.tolist()}, {int(r.nodes)} nodes, "
+              f"{1e3 * (time.perf_counter() - t0):.0f} ms", flush=True)
+        check(bool(r.found), "tree hold: no plan found")
+    dense, cons = out[False], out[True]
+    d_obj = abs(float(cons.obj) - float(dense.obj))
+    d_u = float((cons.u - dense.u).abs().max())
+    spread = float(np.ptp(cons.v_seq.reshape(4, 6, -1)[:, 0, 0].cpu()
+                          .numpy()))
+    print(f"  consensus vs dense joint: |Δobj| {d_obj:.2e} (limit "
+          f"{2e-3 * (1 + abs(float(dense.obj))):.2e}), |Δu| {d_u:.2e} "
+          f"(2e-2), first-stage spread {spread:.2e} (1e-3)", flush=True)
+    check(d_obj <= 2e-3 * (1 + abs(float(dense.obj))) and d_u <= 2e-2
+          and spread < 1e-3, "consensus tree off the dense joint build")
+
+
 def recorded(step, log):
     """``step`` (a closed loop's control step) with each call's
     (x, W, price_seq, V) appended to ``log``."""
@@ -2323,6 +2726,8 @@ def main(argv=None):
     phase("streamed", phase_streamed, dev, phase_rng("streamed"), recs)
     phase("streamed at the paths' shapes", phase_streamed_paths, dev,
           phase_rng("streamed_paths"), recs)
+    phase("streamed at config 4c's waves", phase_tree_shapes, dev,
+          phase_rng("tree_shapes"), recs)
     sweep27_args = phase("split mode", phase_split, dev, phase_rng("split"),
                          recs["admm_k1_split"])
     for regime, seen in READINGS.items():
@@ -2345,6 +2750,9 @@ def main(argv=None):
     loops["config3"] = phase("closed loop config 3", phase_config3_loop, dev)
     loops["config4b"] = phase("pooled loop config 4b", phase_config4b_loop,
                               dev)
+    calls["config4c_call"] = phase("config 4c call", phase_config4c_call,
+                                   dev, recs)
+    phase("tree hold", phase_tree_hold, dev)
     print(json.dumps({"closed_loop": loops, "calls": calls}), flush=True)
     print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
     kernels = []

@@ -10,7 +10,10 @@ for Hopper (``csrc/admm.cu``, loaded by ``ops/_build.py``).
 It serves benchmark configs 1–4: MLD model → condensation (and its
 transforms) → B&B MIQP on the card → first input
 (``python -m pyhybridcontrol_tpu_torch.serve --config double_integrator``,
-``pwa_actuator``, ``thermal_uc``, ``scenario_batch``).
+``pwa_actuator``, ``thermal_uc``, ``scenario_batch``), and stochastic MPC
+over scenario trees (``MpcController.set_scenario_tree``: the dense joint
+frame, batched through the pool with rep-map branching, or the consensus
+tree).
 
 Layer map (bottom → top), as in the reference:
 
@@ -18,7 +21,8 @@ Layer map (bottom → top), as in the reference:
     mld/        MldInfo, MldModel, PWA → MLD, parameterized templates
     models/     switched double integrator, PWA spring, DEWH water heater
     ops/        condensation and its transforms, root presolve, Ruiz
-                scaling, ADMM (torch), CUDA kernels
+                scaling, ADMM (torch), CUDA kernels, scenario trees
+                (dense joint frame, consensus ADMM)
     solver/     enumeration, rollout repair, branch-and-bound, fp64 oracle
     control/    MpcController
     loop/       receding-horizon closed loop (single and pooled batch)

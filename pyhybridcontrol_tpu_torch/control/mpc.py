@@ -7,10 +7,14 @@ caller asks for the CPU); ``feedback(x0)`` solves the MIQP there and
 returns the first input; ``feedback_batch(x0s)`` solves a batch of
 control steps in one pooled B&B (solver/bnb_pooled.py), or instance by
 instance (engine "vmap"). The setters (weights, horizon, soft rows, move
-blocking, terminal set, horizon-coupled rows) bump a version, and
-``build`` condenses again on the next call. The other paths of the
-reference raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+blocking, terminal set, horizon-coupled rows, scenario tree) bump a
+version, and ``build`` condenses again on the next call. A scenario tree
+is either the dense joint frame (ops/scenario_tree.py; ``feedback``
+branches per coordinate through K2, the pooled engine branches per
+information set through K1) or the consensus tree (ops/consensus_tree.py,
+plain torch ADMM). The other paths of the reference (the stagewise frame,
+trees across devices, ``mesh``) raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -66,6 +70,10 @@ class MpcController:
         self._blocking = None      # groups
         self._terminal = None      # (E_N, f_N)
         self._extra = None         # (A_v, b, B_x, B_w)
+        self._tree = None          # ScenarioTree (stochastic MPC)
+        self._tree_consensus = False
+        self._tqp = None           # consensus-tree preps (ρ, stiff ρ)
+        self._tqp_probe = None
         self._version = 0
         self._built_version = None
         self._cmpc = None
@@ -113,28 +121,82 @@ class MpcController:
         self._version += 1
         return self
 
-    def set_scenario_tree(self, *a, **kw):
-        _not_ported("set_scenario_tree", "scenario trees")
+    def set_scenario_tree(self, tree, consensus: bool = False,
+                          scen_mesh=None) -> "MpcController":
+        """Stochastic MPC over an ``ops.scenario_tree.ScenarioTree``: the
+        joint problem couples S probability-weighted scenario copies under
+        non-anticipativity; ``feedback`` returns the shared first-stage
+        input and takes the tree's own disturbance paths as the forecast.
+        ``v_seq`` is the stacked (S·N, nv) scenario plan.
+
+        ``consensus=False``: one dense joint condensed QP. ``consensus=
+        True``: per-scenario QPs coupled by group means inside the ADMM
+        (ops/consensus_tree.py). ``scen_mesh`` (one tree across devices)
+        is not ported."""
+        if scen_mesh is not None:
+            _not_ported("set_scenario_tree(scen_mesh=...)",
+                        "item 9, multi-device")
+        if self.solver == "stagewise":
+            _not_ported("scenario trees on the stagewise frame",
+                        "items 6 and 7, stagewise O(N) frame and "
+                        "ops/stagewise_tree.py")
+        g0 = np.asarray(tree.groups)[:, 0]
+        if not np.all(g0 == g0[0]):
+            raise ValueError(
+                "scenario tree branches at step 0: every scenario is its "
+                "own information set, so there is no shared first-stage "
+                "input for feedback to return. Branch at step >= 1 "
+                "(here-and-now control requires a common step-0 decision)")
+        self._tree = tree
+        self._tree_consensus = bool(consensus)
+        self._version += 1
+        return self
 
     # -- build ---------------------------------------------------------------
     def build(self) -> "MpcController":
         """Condense + prepare solver data (once per configuration
         version). The transforms apply in the reference's order: extra
-        rows, then move blocking, then soft rows."""
+        rows, then move blocking, then soft rows. A scenario tree takes
+        none of them."""
         if self._built_version == self._version and self._cmpc is not None:
             return self
+        tree = self._tree
+        if tree is not None and (
+                self._soft is not None or self._blocking is not None
+                or self._extra is not None or self._terminal is not None):
+            raise ValueError(
+                "scenario-tree MPC composes with plain stage problems; "
+                "apply soft/blocking/extra/terminal transforms to the "
+                "joint problem via ops.scenario_tree directly")
         term = {}
         if self._terminal is not None:
             term = dict(terminal_E=self._terminal[0],
                         terminal_f=self._terminal[1])
         c = CondensedMpc(self.model, self.N, self.weights, **term)
+        dev = self.device
+        if tree is not None and self._tree_consensus:
+            from pyhybridcontrol_tpu_torch.ops.consensus_tree import (
+                prepare_tree_consensus)
+
+            self._tqp = prepare_tree_consensus(c, tree, rho=self.rho,
+                                               device=dev)
+            self._tqp_probe = prepare_tree_consensus(
+                c, tree, rho=self.rho * 10.0, device=dev)
+            self._qp = self._admm = self._admm_probe = self._repair = None
+            self._cmpc = c
+            self._built_version = self._version
+            return self
+        if tree is not None:
+            from pyhybridcontrol_tpu_torch.ops.scenario_tree import (
+                build_scenario_tree_qp)
+
+            c = build_scenario_tree_qp(c, tree)
         if self._extra is not None:
             c = c.with_extra_constraints(*self._extra)
         if self._blocking is not None:
             c = c.with_move_blocking(self._blocking)
         if self._soft is not None:
             c = c.with_soft_constraints(*self._soft)
-        dev = self.device
         self._qp = c.device_qp(dev)
         self._admm = prepare_admm_mpc(c, rho=self.rho, device=dev)
         # stiff-rho prep for dive probes (same Ruiz frame): fixed-binary
@@ -143,10 +205,10 @@ class MpcController:
                                              device=dev)
                             if self.solver == "bnb" else None)
         # rollout-repair incumbent heuristic: valid only when the decision
-        # frame is the full per-step v (optionally + slacks)
+        # frame is the full per-step v (optionally + slacks) of one scenario
         self._repair = None
         if (self.solver == "bnb" and self._blocking is None
-                and self.model.info.nxb == 0):
+                and tree is None and self.model.info.nxb == 0):
             from pyhybridcontrol_tpu_torch.solver.repair import prepare_repair
 
             rkw = {}
@@ -204,7 +266,11 @@ class MpcController:
         """One control step: measure → solve MIQP → first input.
 
         Returns StructDict(u, delta, z, v_seq, obj, found, nodes, gap) of
-        tensors on the controller's device.
+        tensors on the controller's device (a consensus tree returns no
+        ``gap``: its node bounds are not certified). Under a scenario tree
+        ``omega_forecast`` defaults to the tree's own paths, ``price_seq``
+        may have N rows (weighted by the probabilities) or S·N, and
+        ``v_seq`` is the stacked (S·N, nv) plan.
         """
         self.build()
         info = self.model.info
@@ -216,10 +282,20 @@ class MpcController:
             raise ValueError(
                 "omega_forecast given but the model has no disturbance "
                 "channel (nomega=0)")
-        if price_seq is not None and np.shape(price_seq)[0] != self.N:
-            raise ValueError(
-                f"price_seq must have N={self.N} rows (per control step), "
-                f"got {np.shape(price_seq)}")
+        tree = self._tree
+        if price_seq is not None:
+            S = tree.S if tree is not None else 1
+            if np.shape(price_seq)[0] not in (self.N, S * self.N):
+                raise ValueError(
+                    f"price_seq must have N={self.N} rows (per control "
+                    f"step), got {np.shape(price_seq)}")
+        if tree is not None and self._tree_consensus:
+            return self._feedback_tree_consensus(x0, price_seq, u_prev)
+        if tree is not None:
+            if omega_forecast is None:
+                omega_forecast = self._tree_omega()
+            if price_seq is not None and np.shape(price_seq)[0] == self.N:
+                price_seq = self._tree_prices(price_seq)
         qp, admm = self._qp, self._admm
         W, Pq = self._tensor(omega_forecast), self._tensor(price_seq)
         up = self._tensor(u_prev)
@@ -267,12 +343,13 @@ class MpcController:
 
         ``engine``: "pooled" (solver="bnb": all instances' B&B nodes in
         one global pool, solver/bnb_pooled.py; each wave is one K2 launch
-        over ``pooled_wave`` nodes), "vmap" (one ``feedback`` per
-        instance, in a loop: the reference vmaps independent
-        per-instance searches, so the results are the same function;
-        ``torch.func.vmap`` cannot carry the wave loop's host reads) or
-        "auto" (pooled for solver="bnb", else vmap). Scenario trees and
-        ``mesh`` placement are not ported.
+        over ``pooled_wave`` nodes — under a dense scenario tree, with
+        rep-map branching, K1 launches of the relaxation and the probe),
+        "vmap" (one ``feedback`` per instance, in a loop: the reference
+        vmaps independent per-instance searches, so the results are the
+        same function; ``torch.func.vmap`` cannot carry the wave loop's
+        host reads) or "auto" (pooled for solver="bnb" without a consensus
+        tree, else vmap). ``mesh`` placement is not ported.
         ``pooled_wave``/``pool_slots`` size the pooled search; the
         per-instance node budget matches ``bnb_spec`` (``max_waves``
         rescales to the global wave size).
@@ -285,14 +362,20 @@ class MpcController:
         self.build()
         if mesh is not None:
             _not_ported("feedback_batch(mesh=...)", "multi-device")
+        consensus = self._tree is not None and self._tree_consensus
         if engine == "auto":
-            engine = "pooled" if self.solver == "bnb" else "vmap"
+            engine = ("pooled" if self.solver == "bnb" and not consensus
+                      else "vmap")
         if engine not in ("pooled", "vmap"):
             raise ValueError(f"unknown engine {engine!r}")
         if engine == "pooled" and self.solver != "bnb":
             raise ValueError(
                 f'engine="pooled" requires solver="bnb", got '
                 f'{self.solver!r}')
+        if engine == "pooled" and consensus:
+            raise ValueError('engine="pooled" supports dense-joint '
+                             "scenario trees (rep-map branching); batch "
+                             "consensus trees through the vmap engine")
         info = self.model.info
         x0s = self._tensor(x0s)
         if x0s.ndim != 2 or x0s.shape[1] != info.nx:
@@ -318,12 +401,44 @@ class MpcController:
         return StructDict({k: torch.stack([o[k] for o in outs])
                            for k in outs[0]})
 
+    def _tree_omega(self):
+        """The tree's own disturbance paths, stacked scenario-major:
+        (S·N, nω), or None for a model without disturbances."""
+        t = self._tree
+        if not t.omega_paths.size:
+            return None
+        return np.asarray(t.omega_paths, np.float32).reshape(t.S * t.N, -1)
+
+    def _tree_prices(self, price_seq):
+        """(N, nv) single-scenario prices → the joint frame's (S·N, nv),
+        weighted by the scenario probabilities."""
+        from pyhybridcontrol_tpu_torch.ops.scenario_tree import (
+            tree_price_seq)
+
+        if isinstance(price_seq, torch.Tensor):
+            price_seq = price_seq.cpu().numpy()
+        return tree_price_seq(self._tree, np.asarray(price_seq))
+
     def _feedback_batch_pooled(self, x0s, W, Pq, up, pooled_wave,
                                pool_slots) -> StructDict:
         """feedback_batch engine="pooled": batched assembly, batched
-        rollout-repair seeds, one pooled B&B over the batch."""
+        rollout-repair seeds, one pooled B&B over the batch. A dense
+        scenario tree is one MIQP of the joint frame per instance, branched
+        once per information-set group (``tree_branch_map``), with the
+        tree's paths as every instance's forecast."""
         qp, admm, spec = self._qp, self._admm, self.bnb_spec
         B = x0s.shape[0]
+        branch_map = None
+        if self._tree is not None:
+            from pyhybridcontrol_tpu_torch.ops.scenario_tree import (
+                tree_branch_map)
+
+            branch_map = tree_branch_map(self._cmpc, self._tree)
+            if W is None and self._tree_omega() is not None:
+                W = self._tensor(self._tree_omega()).expand(
+                    B, -1, -1)
+            if Pq is not None and Pq.shape[0] == self.N:
+                Pq = self._tensor(self._tree_prices(Pq))
         f, h = qp.assemble(x0s, W, up, Pq)
         seed = None
         if self._repair is not None:
@@ -351,7 +466,8 @@ class MpcController:
                                     max_waves=gw)
         res = solve_miqp_bnb_pooled(admm, qp, f, h, pspec, pool_slots=P,
                                     init_incumbent=seed,
-                                    admm_probe=self._admm_probe)
+                                    admm_probe=self._admm_probe,
+                                    branch_map=branch_map)
         v_seq = qp.full_v(res.x)                          # (B, N, nv)
         info = self.model.info
         v0 = v_seq[:, 0]
@@ -363,3 +479,24 @@ class MpcController:
             u=v0[:, info.u_slice], delta=v0[:, info.delta_slice],
             z=v0[:, info.z_slice], v_seq=v_seq, obj=res.obj,
             found=res.found, nodes=res.nodes_solved.expand(B), gap=gap)
+
+    def _feedback_tree_consensus(self, x0, price_seq, u_prev) -> StructDict:
+        """Consensus-ADMM tree MIQP (ops/consensus_tree.py): per-scenario
+        QPs with non-anticipativity through group means. The tree supplies
+        its own disturbance paths; ``price_seq`` is the single-scenario
+        (N, nv) sequence, unweighted (the iteration carries the
+        probabilities)."""
+        from pyhybridcontrol_tpu_torch.ops.consensus_tree import (
+            assemble_tree, solve_tree_miqp)
+
+        tqp, info = self._tqp, self.model.info
+        f, h = assemble_tree(tqp, x0, price_seq=self._tensor(price_seq),
+                             u_prev=self._tensor(u_prev))
+        res = solve_tree_miqp(tqp, f, h, self.bnb_spec,
+                              tqp_probe=self._tqp_probe)
+        V = res.x.reshape(tqp.S, tqp.N, info.nv)
+        v0 = V[0, 0]
+        return StructDict(
+            u=v0[info.u_slice], delta=v0[info.delta_slice],
+            z=v0[info.z_slice], v_seq=V.reshape(tqp.S * tqp.N, info.nv),
+            obj=res.obj, found=res.found, nodes=res.nodes_solved)

@@ -11,7 +11,9 @@ identical matrices and compare their outputs field by field.
 ``to_numpy`` also takes a ``BnbResult`` or a ``PooledState`` of either
 package. ``mld_model`` carries a reference ``MldModel`` across, and
 ``condensed`` a reference ``CondensedMpc`` as it stands after its
-transforms, so both packages can be fed one frame.
+transforms, so both packages can be fed one frame; ``scenario_tree`` a
+reference ``ScenarioTree``, so both packages can build their tree frames
+from one tree.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from pyhybridcontrol_tpu_torch.ops.condense import (
     MpcWeights,
 )
 from pyhybridcontrol_tpu_torch.ops.cuda_admm import KernelQP
+from pyhybridcontrol_tpu_torch.ops.scenario_tree import ScenarioTree
 from pyhybridcontrol_tpu_torch.solver.bnb import BnbResult, BnbSpec
 from pyhybridcontrol_tpu_torch.solver.bnb_pooled import PooledState
 from pyhybridcontrol_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
@@ -83,6 +86,14 @@ def condensed(ref) -> CondensedMpc:
     c.n_soft = int(ref.n_soft)
     c.n_state_aux = int(ref.n_state_aux)
     return c
+
+
+def scenario_tree(ref) -> ScenarioTree:
+    """A reference ``ScenarioTree`` → port ScenarioTree (the same paths,
+    probabilities and groups, as numpy arrays)."""
+    return ScenarioTree(omega_paths=np.array(ref.omega_paths, np.float64),
+                        probs=np.array(ref.probs, np.float64),
+                        groups=np.array(ref.groups, int))
 
 
 def device_qp(ref, device=DEFAULT_DEVICE) -> DeviceQP:

@@ -92,13 +92,15 @@ class AdmmResult:
 def prepare_admm(G: np.ndarray, H: np.ndarray, *, rho: float = 1.0,
                  sigma: float = 1e-6, alpha: float = 1.6,
                  q_typical: Optional[np.ndarray] = None,
-                 binary_idx=None, boost_rows=None,
+                 binary_idx=None, boost_rows=None, eq_rows=None,
                  device=DEFAULT_DEVICE) -> BoxQP:
     """Host-side (float64) preparation: Ruiz equilibration + K⁻¹.
 
     ``binary_idx``: box rows of those variables get ρ·RHO_EQ_SCALE (they
-    turn into equalities at fixed-binary B&B nodes). ``boost_rows``:
-    near-equality big-M product rows, ×BOOST_SCALE.
+    turn into equalities at fixed-binary B&B nodes). ``eq_rows``:
+    constraint rows that are true equalities (the consensus tree's
+    selector rows), the same boost. ``boost_rows``: near-equality big-M
+    product rows, ×BOOST_SCALE.
     """
     device = resolve_device(device)
     G = np.asarray(G, dtype=np.float64)
@@ -113,6 +115,8 @@ def prepare_admm(G: np.ndarray, H: np.ndarray, *, rho: float = 1.0,
     rho_vec = np.full(m + n, float(rho))
     if binary_idx is not None and len(binary_idx):
         rho_vec[m + np.asarray(binary_idx, int)] = rho * RHO_EQ_SCALE
+    if eq_rows is not None and len(eq_rows):
+        rho_vec[np.asarray(eq_rows, int)] = rho * RHO_EQ_SCALE
     if boost_rows is not None and len(boost_rows):
         rho_vec[np.asarray(boost_rows, int)] *= BOOST_SCALE
     K = Ph + sigma * np.eye(n) + (Ah.T * rho_vec[None, :]) @ Ah

@@ -31,6 +31,11 @@ Port decisions:
   ``utils/select.py`` (stable sorts, first-index arg-max/min), so CPU and
   CUDA runs walk the same tree.
 - The pool is updated in place (the loop owns it).
+- Backend hooks are read as the reference reads them: a backend without
+  ``solve_wave`` (the consensus tree's ``TreeBackend``) runs solve →
+  round → ``solve_probe``; without ``node_bound`` its node bounds are
+  uncertified (the relaxation's objective where it converged, else the
+  parent's); ``node_cert`` runs only with ``presolve_fix``.
 - Ported options: pseudo-cost and most-fractional branching, the
   certificate-backed node presolve (``presolve_fix``) and its absence,
   warm starts on or off, flip-delta child bounds, always-on or gated dive
@@ -352,14 +357,30 @@ def _bnb_loop(backend, f, h, spec: BnbSpec, init_incumbent=None,
 
 def _probe_candidates(backend, relax, probe, lb_p, ub_p, fb, hb, valid,
                       acc_tol):
-    """(candidate objective or BIG, accepted) per probe. The objective is
-    clamped with the leaf's certified dual bound: a feas_tol-feasible but
-    unconverged probe can report an objective below the leaf optimum."""
+    """(candidate objective or BIG, accepted) per probe. With a
+    ``node_bound`` the objective is clamped with the leaf's certified dual
+    bound: a feas_tol-feasible but unconverged probe can report an
+    objective below the leaf optimum."""
     ok = (probe.r_prim_rel < acc_tol) & valid
-    pcert = backend.node_bound(probe, fb, hb, lb_p, ub_p)
-    pobj = torch.where(torch.isfinite(pcert),
-                       torch.maximum(probe.obj, pcert), probe.obj)
+    pobj = probe.obj
+    node_bound = getattr(backend, "node_bound", None)
+    if node_bound is not None:
+        pcert = node_bound(probe, fb, hb, lb_p, ub_p)
+        pobj = torch.where(torch.isfinite(pcert),
+                           torch.maximum(pobj, pcert), pobj)
     return torch.where(ok, pobj, BIG), ok
+
+
+def _relax_then_probe(backend, fb, hb, lb, ub, iters, piters, warm,
+                      rounded_bounds):
+    """The unfused wave: the relaxation, then the dive probe on the node
+    bounds ``rounded_bounds(relax)`` returns, warm from the relaxation.
+    Returns ``(relax, probe, lb_probe, ub_probe)`` as ``solve_wave``."""
+    relax = backend.solve(fb, hb, lb, ub, iters, warm=warm)
+    lb_p, ub_p = rounded_bounds(relax)
+    probe = backend.solve_probe(fb, hb, lb_p, ub_p, piters,
+                                warm=(relax.x, relax.z, relax.y))
+    return relax, probe, lb_p, ub_p
 
 
 def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
@@ -380,9 +401,27 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
     lb, ub = node_bounds(fm, fv)
     warm = ((s.x_pool[sel], s.z_pool[sel], s.y_pool[sel])
             if spec.warm_start else None)
+    # the hooks a backend may lack (as the reference reads them): without
+    # ``solve_wave`` the wave runs solve → round → solve_probe; without
+    # ``node_bound`` the node bound is uncertified (relax.obj where
+    # converged, else the parent's); ``node_cert`` only with presolve_fix
+    solve_wave = getattr(backend, "solve_wave", None)
+    node_bound = getattr(backend, "node_bound", None)
+    node_cert = (getattr(backend, "node_cert", None)
+                 if spec.presolve_fix else None)
     if probe_ran:
-        relax, probe, lb_p, ub_p = backend.solve_wave(
-            fb, hb, lb, ub, spec.qp_iters, piters, warm=warm)
+        if solve_wave is not None:
+            relax, probe, lb_p, ub_p = solve_wave(
+                fb, hb, lb, ub, spec.qp_iters, piters, warm=warm)
+        else:
+            def rounded_bounds(r):
+                pv = torch.where(fm, fv, torch.round(
+                    torch.clamp(r.x[:, bidx], 0.0, 1.0)))
+                return node_bounds(torch.ones_like(fm), pv)
+
+            relax, probe, lb_p, ub_p = _relax_then_probe(
+                backend, fb, hb, lb, ub, spec.qp_iters, piters, warm,
+                rounded_bounds)
         probe_obj, probe_ok = _probe_candidates(
             backend, relax, probe, lb_p, ub_p, fb, hb, valid, acc_tol)
         probe_x = probe.x
@@ -395,15 +434,23 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
     converged = relax.r_prim_rel < spec.feas_tol
     infeasible = relax.infeas_cert | (relax.r_prim_rel > spec.infeas_tol)
     # certified dual bound (+ per-binary presolve data with presolve_fix)
-    if spec.presolve_fix:
-        cert, flip_delta, retain_side, imp_lo, imp_hi = backend.node_cert(
+    presolve = node_cert is not None
+    certified = presolve or node_bound is not None
+    if presolve:
+        cert, flip_delta, retain_side, imp_lo, imp_hi = node_cert(
             relax, fb, hb, lb, ub)
+    elif certified:
+        cert = node_bound(relax, fb, hb, lb, ub)
+    if certified:
+        cert_fin = torch.isfinite(cert)
+        cert = torch.where(cert_fin, cert, parent_bound)
+        lower = torch.where(valid & ~infeasible,
+                            torch.maximum(parent_bound, cert), BIG)
     else:
-        cert = backend.node_bound(relax, fb, hb, lb, ub)
-    cert_fin = torch.isfinite(cert)
-    cert = torch.where(cert_fin, cert, parent_bound)
-    lower = torch.where(valid & ~infeasible,
-                        torch.maximum(parent_bound, cert), BIG)
+        # uncertified: relax.obj only where converged, else the parent's
+        lower = torch.where(valid & converged, relax.obj,
+                            torch.where(valid & ~infeasible, parent_bound,
+                                        BIG))
 
     xb = relax.x[:, bidx]
     rounded = torch.round(torch.clamp(xb, 0.0, 1.0))
@@ -436,6 +483,8 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
 
     # -- 4. prune; on a gated wave leaf candidates wait for the next probe --
     bound_prune = lower >= inc_obj - spec.gap
+    if not certified:
+        bound_prune = bound_prune & converged
     leaf = fully_fixed | (converged & integral)
     if probe_ran:
         prune = ~valid | infeasible | bound_prune | leaf
@@ -447,7 +496,7 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
     # reduced-cost fixing: flipping binary j provably cannot beat the
     # incumbent → fix j to the tangent-retained side; implied-integrality
     # fixing: the node's implied box excludes one integral value
-    if spec.presolve_fix:
+    if presolve:
         fm2, fv2 = _presolve_fix(
             fm, fv, valid & ~infeasible, parent_bound, cert, cert_fin,
             flip_delta, retain_side, imp_lo, imp_hi, inc_found, inc_obj,
@@ -456,8 +505,14 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
         fm2, fv2 = fm, fv
 
     # -- 5. branch -----------------------------------------------------------
-    child_bound = torch.where(expand, torch.maximum(parent_bound, lower),
-                              parent_bound)
+    # certified bounds hold at any iterate; the uncertified one only where
+    # the relaxation converged
+    if certified:
+        child_bound = torch.where(expand, torch.maximum(parent_bound, lower),
+                                  parent_bound)
+    else:
+        child_bound = torch.maximum(
+            parent_bound, torch.where(converged, lower, parent_bound))
     xbc = torch.clamp(xb, 0.0, 1.0)
     # pseudo-cost product rule; vars without observations use the global
     # per-direction mean (1.0 before any → f·(1−f), most fractional)
@@ -477,7 +532,7 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
     cbv = torch.where(has_branch, jstar, -1)
     # flip-delta child bound: the certified extra bound of the child fixed
     # to the tangent-disfavoured side of jstar
-    if spec.presolve_fix:
+    if presolve:
         child0_bound, child1_bound = _flip_delta_bounds(
             child_bound, cert, cert_fin, has_branch, flip_delta,
             retain_side, jstar)

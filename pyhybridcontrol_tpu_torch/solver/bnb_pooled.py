@@ -2,8 +2,8 @@
 condensed matrices, per-instance f/h — a batch of scenarios or a batched
 control step) solved in ONE global node pool.
 
-Counterpart of ``pyhybridcontrol_tpu/solver/bnb_pooled.py`` for
-``branch_map=None``. All instances' open nodes live in one (P,)-slot pool
+Counterpart of ``pyhybridcontrol_tpu/solver/bnb_pooled.py``. All
+instances' open nodes live in one (P,)-slot pool
 tagged with an instance id; each wave selects the globally best
 ``wave_size`` nodes (instances that finished simply stop contributing)
 and relaxes and probes them as a single (W, n) batch: one K2 launch per
@@ -21,21 +21,23 @@ device operations):
   child scatter per wave. The integer ids (inst, branch_var, depth) are
   stored as f32, exact up to 2^24, and converted with ``.long()`` only
   after the gather.
-- ``node`` (P+1, nb+n+2·mt) f32: fixenc ‖ x ‖ z ‖ y, where fixenc is
-  −1 = unfixed, 0/1 = fixed value.
-- ``pc`` (nb+1, 2 dirs, 2): [..., 0] the sum of per-unit degradations,
+- ``node`` (P+1, nbr+n+2·mt) f32: fixenc ‖ x ‖ z ‖ y, where fixenc is
+  −1 = unfixed, 0/1 = fixed value, one per branching group (nbr = nb
+  without a ``branch_map``).
+- ``pc`` (nbr+1, 2 dirs, 2): [..., 0] the sum of per-unit degradations,
   [..., 1] the observation count — one scatter-add per wave.
 - ``inc_xf`` (B+1, n+1): incumbent plan with ``found`` as the trailing
   0/1 column — one winner scatter.
 
 Port decisions:
 - JAX scatters drop out-of-bounds indices; here every scattered tensor
-  has one dump row (index P, nb or B) that takes the dropped writes and is
-  never read. A non-accumulating ``index_put_`` with duplicate indices is
-  nondeterministic on CUDA, so duplicates may only ever land on a dump
+  has one dump row (index P, nbr or B) that takes the dropped writes and
+  is never read. A non-accumulating ``index_put_`` with duplicate indices
+  is nondeterministic on CUDA, so duplicates may only ever land on a dump
   row: selected slots are distinct, the incumbent winner is unique per
   instance (lowest wave row), child-1 targets are distinct free slots.
-  ``SCATTER_HOOK`` lets a test watch every such scatter.
+  ``SCATTER_HOOK`` lets a test watch every such scatter, and the
+  pseudo-cost scatter-add ("pc", where duplicates are the normal case).
 - Scatter-min is ``scatter_reduce_(..., "amin", include_self=True)``;
   duplicate indices are the normal case there (many wave rows of one
   instance).
@@ -48,12 +50,21 @@ Port decisions:
   wave before.
 - A backend without ``solve_wave`` runs the unfused relax → probe
   composition (``solve`` then ``solve_probe``), as the reference does;
-  ``CondensedBackend`` always has the fused wave, and on a CUDA tensor it
-  always launches K2 — there is no batch gate.
-- ``branch_map`` (scenario trees, rep-map branching) raises
-  ``NotImplementedError`` (ROADMAP queue 1, "scenario trees"), and so
-  does ``dive_slots`` > 0, which the reference's pooled engine silently
-  ignores.
+  ``CondensedBackend`` has the fused wave, and on a CUDA tensor it
+  launches K2 — there is no batch gate.
+- ``branch_map`` (scenario-tree instances of the dense joint frame,
+  ops/scenario_tree.py): the pool stores one fix-encoding per
+  information-set group and one branching decision fixes every member
+  binary (``rep_of`` gathers the group's value into each member's box).
+  Member relaxation values are averaged per group (``Mavg``, exact fp32)
+  before fractionality and probe rounding, which rounds half to even as
+  ``jnp.round`` does. Under a branch map the wave runs the unfused
+  composition — on the card a K1 relaxation and the two-part probe, K1
+  at ρ·10 then at ρ (K2 rounds per coordinate) — and no node presolve
+  fixing (per-coordinate flip deltas do not certify a group flip); the
+  certified node bound is kept.
+- ``dive_slots`` > 0 raises ``NotImplementedError``; the reference's
+  pooled engine silently ignores it.
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from pyhybridcontrol_tpu_torch.ops.admm import BIG, BoxQP
@@ -74,6 +86,7 @@ from pyhybridcontrol_tpu_torch.solver.bnb import (
     _presolve_fix,
     _probe_candidates,
     _pseudocost_score,
+    _relax_then_probe,
 )
 from pyhybridcontrol_tpu_torch.utils.select import first_arg, first_k
 
@@ -85,26 +98,31 @@ _BOUND, _DEPTH, _BVAR, _BDIR, _BFRAC, _INST, _ACTIVE, _PAD = range(8)
 KernelCondensedBackend = CondensedBackend
 
 # test hook: called as SCATTER_HOOK(name, index, dump_row) before every
-# non-accumulating scatter of the wave
+# non-accumulating scatter of the wave, and before the pseudo-cost
+# scatter-add (name "pc": there duplicate indices are the normal case)
 SCATTER_HOOK = None
 
 
-def _put(dst, idx, src, name: str):
-    """``dst[idx] = src`` where duplicates of ``idx`` may only be the dump
-    row (the last row of ``dst``)."""
+def _put(dst, idx, src, name: str, accumulate: bool = False):
+    """``dst[idx] = src`` (``+=`` with ``accumulate``), where a
+    non-accumulating write may duplicate only the dump row (the last row
+    of ``dst``)."""
     if SCATTER_HOOK is not None:
-        SCATTER_HOOK(name, idx, dst.shape[0] - 1)
-    dst[idx] = src
+        SCATTER_HOOK(name, idx[0] if accumulate else idx, dst.shape[0] - 1)
+    if accumulate:
+        dst.index_put_(idx, src, accumulate=True)
+    else:
+        dst[idx] = src
 
 
 @dataclasses.dataclass
 class PooledState:
     """Packed pool (see the module docstring) and loop bookkeeping. Rows
-    P, nb and B of the scattered tensors are dump rows."""
+    P, nbr and B of the scattered tensors are dump rows."""
 
     meta: torch.Tensor         # (P+1, 8) f32 packed per-node metadata
-    node: torch.Tensor         # (P+1, nb+n+2mt) f32: fixenc ‖ x ‖ z ‖ y
-    pc: torch.Tensor           # (nb+1, 2, 2) shared pseudo-costs
+    node: torch.Tensor         # (P+1, nbr+n+2mt) f32: fixenc ‖ x ‖ z ‖ y
+    pc: torch.Tensor           # (nbr+1, 2, 2) shared pseudo-costs
     inc_obj: torch.Tensor      # (B,) per-instance incumbent objective
     inc_xf: torch.Tensor       # (B+1, n+1) incumbent plan ‖ found
     nodes_solved: torch.Tensor  # () i64
@@ -117,9 +135,10 @@ class PooledState:
     #                            children per instance
 
 
-def _init_pool(backend, f, spec: BnbSpec, P: int) -> PooledState:
+def _init_pool(backend, f, nb: int, P: int) -> PooledState:
+    """B roots in slots 0..B-1; ``nb`` fix-encodings a node."""
     B, n = f.shape
-    nb, mt = len(backend.binary_idx), backend.warm_size
+    mt = backend.warm_size
     dev, dtype = f.device, f.dtype
     meta = torch.zeros((P + 1, 8), dtype=dtype, device=dev)
     meta[:, _BOUND] = -BIG
@@ -147,12 +166,8 @@ def _pooled_loop(backend, f, h, spec: BnbSpec, pool_slots: int,
                  return_state: bool = False):
     """f (B, n), h (B, m_ineq). Returns a BnbResult with (B,)-leading
     incumbent fields and global wave/node counters (and the final
-    :class:`PooledState` with ``return_state``)."""
-    if branch_map is not None:
-        raise NotImplementedError(
-            "branch_map (scenario-tree instances in the pool) is not "
-            "ported to pyhybridcontrol_tpu_torch yet (ROADMAP queue 1: "
-            "scenario trees)")
+    :class:`PooledState` with ``return_state``). ``branch_map``: optional
+    (nb,) information-set group id of each binary (module docstring)."""
     if spec.dive_slots > 0:
         raise NotImplementedError(
             "dive_slots is not ported to the pooled engine (ROADMAP queue "
@@ -169,9 +184,27 @@ def _pooled_loop(backend, f, h, spec: BnbSpec, pool_slots: int,
         raise ValueError(f"wave_size ({W}) cannot exceed pool_slots ({P})")
     bidx = torch.as_tensor(backend.binary_idx, dtype=torch.long, device=dev)
     rows = torch.arange(W, device=dev)
+    rep_of = Mavg = None
+    nbr = nb
+    if branch_map is not None:
+        bm = np.asarray(branch_map, np.int64)
+        if bm.shape != (nb,):
+            raise ValueError(f"branch_map must have one group id per "
+                             f"binary ({nb}), got shape {bm.shape}")
+        nbr = int(bm.max()) + 1
+        rep_of = torch.as_tensor(bm, device=dev)
+        # column-normalised membership: xb @ Mavg are the group means
+        Mavg_np = np.zeros((nb, nbr), np.float32)
+        Mavg_np[np.arange(nb), bm] = 1.0
+        Mavg_np /= np.maximum(Mavg_np.sum(axis=0, keepdims=True), 1.0)
+        Mavg = torch.as_tensor(Mavg_np, device=dev)
 
     def node_bounds(enc):
+        """(Wb, n) boxes of fix-encodings ``enc`` (Wb, nbr): a group's
+        value is gathered into every member's box."""
         Wb = enc.shape[0]
+        if rep_of is not None:
+            enc = enc[:, rep_of]
         lb = backend.lb.expand(Wb, n).clone()
         ub = backend.ub.expand(Wb, n).clone()
         fixed = torch.clamp_min(enc, 0.0)
@@ -179,8 +212,14 @@ def _pooled_loop(backend, f, h, spec: BnbSpec, pool_slots: int,
         ub[:, bidx] = torch.where(enc >= 0.0, fixed, 1.0)
         return lb, ub
 
+    def binaries(x):
+        """The binaries of x (Wb, n): (Wb, nbr) group means under a
+        branch map."""
+        xb = x[:, bidx]
+        return xb if Mavg is None else xb @ Mavg
+
     # ---- init: B roots in slots 0..B-1 -------------------------------------
-    s = _init_pool(backend, f, spec, P)
+    s = _init_pool(backend, f, nbr, P)
     if init_incumbent is not None:
         obj0, x0V, ok0 = init_incumbent
         s.inc_obj = torch.where(ok0, obj0.to(dtype), s.inc_obj)
@@ -190,9 +229,9 @@ def _pooled_loop(backend, f, h, spec: BnbSpec, pool_slots: int,
                       dim=-1),
             s.inc_xf[:B])
     if spec.root_iters > spec.qp_iters and spec.warm_start:
-        lb0, ub0 = node_bounds(s.node[:B, :nb])
+        lb0, ub0 = node_bounds(s.node[:B, :nbr])
         r0 = backend.solve(f, h, lb0, ub0, spec.root_iters - spec.qp_iters)
-        s.node[:B, nb:] = torch.cat([r0.x, r0.z, r0.y], dim=-1).to(dtype)
+        s.node[:B, nbr:] = torch.cat([r0.x, r0.z, r0.y], dim=-1).to(dtype)
     if init_node is not None:
         # carried-plan warm start per instance: fully-fixed candidate
         # assignments in slots B..2B-1 (bound −BIG → they ride wave 1;
@@ -201,13 +240,17 @@ def _pooled_loop(backend, f, h, spec: BnbSpec, pool_slots: int,
         bv0, okn, xw = init_node
         s.meta[B:2 * B, _INST] = torch.arange(B, dtype=dtype, device=dev)
         s.meta[B:2 * B, _ACTIVE] = okn.to(dtype)
-        s.node[B:2 * B, :nb] = torch.clamp(bv0.to(dtype), 0.0, 1.0)
+        s.node[B:2 * B, :nbr] = torch.clamp(bv0.to(dtype), 0.0, 1.0)
         if spec.warm_start and xw is not None:
-            s.node[B:2 * B, nb:nb + n] = xw.to(dtype)
+            s.node[B:2 * B, nbr:nbr + n] = xw.to(dtype)
 
     piters = spec.probe_iters or spec.qp_iters
     acc_tol = spec.inc_tol or spec.feas_tol
-    solve_wave = getattr(backend, "solve_wave", None)
+    # in-kernel probe rounding is per coordinate: no fused wave under a
+    # branch map, nor presolve fixing (per-coordinate flip deltas)
+    solve_wave = (getattr(backend, "solve_wave", None) if rep_of is None
+                  else None)
+    presolve = spec.presolve_fix and rep_of is None
 
     def wave(probe_ran: bool):
         # -- 1. global best-first selection ----------------------------------
@@ -229,7 +272,7 @@ def _pooled_loop(backend, f, h, spec: BnbSpec, pool_slots: int,
         ni = m_sel[:, _INST].long()
         parent_bound = m_sel[:, _BOUND]
         n_sel = s.node[sel]                   # ONE gather: enc ‖ x ‖ z ‖ y
-        enc = n_sel[:, :nb]
+        enc = n_sel[:, :nbr]
         fm = enc >= 0.0
         fv = torch.clamp_min(enc, 0.0)
 
@@ -238,21 +281,17 @@ def _pooled_loop(backend, f, h, spec: BnbSpec, pool_slots: int,
         lb, ub = node_bounds(enc)
         warm = None
         if spec.warm_start:
-            w_sel = n_sel[:, nb:]
+            w_sel = n_sel[:, nbr:]
             warm = (w_sel[:, :n], w_sel[:, n:n + mt], w_sel[:, n + mt:])
         if probe_ran:
             if solve_wave is not None:
                 relax, probe, lb_p, ub_p = solve_wave(
                     fb, hb, lb, ub, spec.qp_iters, piters, warm=warm)
             else:
-                relax = backend.solve(fb, hb, lb, ub, spec.qp_iters,
-                                      warm=warm)
-                pv = torch.where(fm, fv, torch.round(
-                    torch.clamp(relax.x[:, bidx], 0.0, 1.0)))
-                lb_p, ub_p = node_bounds(pv)
-                probe = backend.solve_probe(
-                    fb, hb, lb_p, ub_p, piters,
-                    warm=(relax.x, relax.z, relax.y))
+                relax, probe, lb_p, ub_p = _relax_then_probe(
+                    backend, fb, hb, lb, ub, spec.qp_iters, piters, warm,
+                    lambda r: node_bounds(torch.where(fm, fv, torch.round(
+                        torch.clamp(binaries(r.x), 0.0, 1.0)))))
             cand, probe_ok = _probe_candidates(
                 backend, relax, probe, lb_p, ub_p, fb, hb, valid, acc_tol)
             probe_x = probe.x
@@ -266,7 +305,7 @@ def _pooled_loop(backend, f, h, spec: BnbSpec, pool_slots: int,
         infeasible = relax.infeas_cert | (relax.r_prim_rel > spec.infeas_tol)
         # certified dual bound (+ per-binary presolve data), valid for ANY
         # iterate; a non-finite certificate falls back to the parent bound
-        if spec.presolve_fix:
+        if presolve:
             cert, flip_delta, retain_side, imp_lo, imp_hi = \
                 backend.node_cert(relax, fb, hb, lb, ub)
         else:
@@ -276,13 +315,13 @@ def _pooled_loop(backend, f, h, spec: BnbSpec, pool_slots: int,
         lower = torch.where(valid & ~infeasible,
                             torch.maximum(parent_bound, cert), BIG)
 
-        xb = relax.x[:, bidx]
+        xb = binaries(relax.x)
         rounded = torch.round(torch.clamp(xb, 0.0, 1.0))
         frac = torch.where(fm, 0.0, torch.abs(xb - rounded))
         integral = frac.amax(dim=1) < spec.int_tol
         fully_fixed = fm.all(dim=1)
 
-        # -- 2b. shared pseudo-cost observation (dump row nb) ----------------
+        # -- 2b. shared pseudo-cost observation (dump row nbr) ---------------
         bv = m_sel[:, _BVAR].long()
         bdir = m_sel[:, _BDIR].long()
         bf = torch.clamp(m_sel[:, _BFRAC], 0.0, 1.0)
@@ -290,10 +329,9 @@ def _pooled_loop(backend, f, h, spec: BnbSpec, pool_slots: int,
         gain = torch.clamp_min(lower - parent_bound, 0.0)
         denom = torch.where(bdir == 1, 1.0 - bf, bf)
         contrib = torch.where(obs, gain / torch.clamp_min(denom, 1e-3), 0.0)
-        bv_safe = torch.where(obs, bv, nb)
-        s.pc.index_put_((bv_safe, bdir),
-                        torch.stack([contrib, obs.to(dtype)], dim=-1),
-                        accumulate=True)
+        _put(s.pc, (torch.where(obs, bv, nbr), bdir),
+             torch.stack([contrib, obs.to(dtype)], dim=-1), "pc",
+             accumulate=True)
 
         # -- 3. per-instance incumbent update (probe candidates only):
         # scatter-min on obj, then a unique-winner scatter for the plan
@@ -328,7 +366,7 @@ def _pooled_loop(backend, f, h, spec: BnbSpec, pool_slots: int,
 
         # -- 4b. node presolve (the per-INSTANCE incumbent gates the
         # reduced-cost test) -------------------------------------------------
-        if spec.presolve_fix:
+        if presolve:
             fm2, fv2 = _presolve_fix(
                 fm, fv, valid & ~infeasible, parent_bound, cert, cert_fin,
                 flip_delta, retain_side, imp_lo, imp_hi, inc_found_i, inc_i,
@@ -341,15 +379,15 @@ def _pooled_loop(backend, f, h, spec: BnbSpec, pool_slots: int,
                                   parent_bound)
         xbc = torch.clamp(xb, 0.0, 1.0)
         if spec.branching == "pseudocost":
-            score = _pseudocost_score(s.pc[:nb, :, 0], s.pc[:nb, :, 1], xbc,
-                                      frac)
+            score = _pseudocost_score(s.pc[:nbr, :, 0], s.pc[:nbr, :, 1],
+                                      xbc, frac)
         else:
             score = frac
         jstar = first_arg(torch.where(fm2, -1.0, score), dim=1)
         # presolve may fix EVERYTHING: child-0 keeps (fm2, fv2) as its own
         # leaf, child-1 is dead
         has_branch = (~fm2).any(dim=1)
-        branch_hot = (torch.nn.functional.one_hot(jstar, nb).bool()
+        branch_hot = (torch.nn.functional.one_hot(jstar, nbr).bool()
                       & has_branch[:, None])
         enc2 = torch.where(fm2, fv2, -1.0)    # post-presolve encoding
         cenc0 = torch.where(branch_hot, 0.0, enc2)
@@ -357,7 +395,7 @@ def _pooled_loop(backend, f, h, spec: BnbSpec, pool_slots: int,
         cdepth = m_sel[:, _DEPTH] + 1.0
         cbf = torch.gather(xbc, 1, jstar[:, None])[:, 0]
         cbv = torch.where(has_branch, jstar, -1).to(dtype)
-        if spec.presolve_fix:
+        if presolve:
             child0_bound, child1_bound = _flip_delta_bounds(
                 child_bound, cert, cert_fin, has_branch, flip_delta,
                 retain_side, jstar)
@@ -376,7 +414,7 @@ def _pooled_loop(backend, f, h, spec: BnbSpec, pool_slots: int,
         _put(s.meta, sel, torch.where(expand[:, None], m_child0, m_closed),
              "meta_parent")
         w_new = (torch.cat([relax.x, relax.z, relax.y], dim=-1).to(dtype)
-                 if spec.warm_start else n_sel[:, nb:])
+                 if spec.warm_start else n_sel[:, nbr:])
         _put(s.node, sel,
              torch.cat([torch.where(expand[:, None], cenc0, enc), w_new],
                        dim=-1), "node_parent")
@@ -451,9 +489,12 @@ def solve_miqp_bnb_pooled(admm: BoxQP, qp: DeviceQP, f, h,
 
     ``pool_slots``: total pool size (0 → 32·B). ``init_incumbent``:
     optional per-instance ``(obj (B,), V (B, n), ok (B,))`` seed.
-    ``init_node``: optional ``(bvals (B, nb), ok (B,), x_warm (B, n) |
-    None)`` carried-plan candidates. ``branch_map`` (scenario-tree
-    instances) is not ported and raises.
+    ``init_node``: optional ``(bvals (B, nbr), ok (B,), x_warm (B, n) |
+    None)`` carried-plan candidates (one value per group under a branch
+    map). ``branch_map``: optional (nb,) information-set group id of each
+    binary, for scenario-tree instances (ops/scenario_tree.py
+    ``tree_branch_map``): one branching decision then fixes every member
+    binary of its group.
 
     Returns a BnbResult whose x/obj/found/best_open_bound carry the (B,)
     instance axis; waves/nodes_solved are global counters. With

@@ -192,8 +192,10 @@ def test_feedback_batch_wave_budget_and_refusals(ctrls, monkeypatch):
     monkeypatch.undo()
     with pytest.raises(NotImplementedError, match="ROADMAP.*multi-device"):
         tc.feedback_batch(x0s, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*scenario trees"):
-        tc.set_scenario_tree(None)
+    # scenario trees are ported (tests/test_torch_scenario_tree.py); one
+    # across devices is not
+    with pytest.raises(NotImplementedError, match="ROADMAP.*multi-device"):
+        tc.set_scenario_tree(None, scen_mesh=object())
     with pytest.raises(ValueError, match="engine"):
         tc.feedback_batch(x0s, engine="nope")
     with pytest.raises(ValueError, match="shape"):

@@ -409,10 +409,15 @@ def test_non_accumulating_scatters_hit_only_the_dump_row_twice(
     """A non-accumulating index_put_ with duplicate indices is
     nondeterministic on CUDA: in every wave, duplicates of such a scatter
     may only be the dump row (winners are unique per instance, selected
-    and free slots are distinct)."""
+    and free slots are distinct). The hook also sees the pseudo-cost
+    scatter-add ("pc"), which accumulates: its misses go to the dump row."""
     seen = {}
 
     def hook(name, idx, dump):
+        assert int(idx.min()) >= 0 and int(idx.max()) <= dump, name
+        if name == "pc":
+            seen[name] = seen.get(name, 0) + int((idx == dump).sum())
+            return
         vals, counts = torch.unique(idx, return_counts=True)
         dup = vals[counts > 1]
         assert dup.numel() == 0 or dup.tolist() == [dump], (name, dup)
@@ -426,7 +431,8 @@ def test_non_accumulating_scatters_hit_only_the_dump_row_twice(
         admm_probe=prob["tp"])
     assert bool(res.found.all())
     assert set(seen) == {"inc_xf", "meta_parent", "node_parent",
-                         "meta_child1", "node_child1"}
+                         "meta_child1", "node_child1", "pc"}
+    assert seen["pc"] > 0                    # unobserved rows are dumped
     assert seen["meta_parent"] == 0          # selected slots are real slots
     assert seen["inc_xf"] > 0 and seen["meta_child1"] > 0   # drops happen
 
@@ -485,9 +491,11 @@ def test_pooled_state_layout_and_result_fields(prob):
 def test_pooled_refusals(prob):
     _, (tf, th) = _data(prob, 4, 3)
     args = (prob["ts"], prob["tq"], tf, th)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*scenario trees"):
+    # branch_map is ported (tests/test_torch_scenario_tree.py): one group
+    # id per binary, else it refuses
+    with pytest.raises(ValueError, match="branch_map"):
         solve_miqp_bnb_pooled(*args, BnbSpec(**SMALL),
-                              branch_map=np.arange(8))
+                              branch_map=np.arange(7))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BnbSpec(**dict(SMALL, dive_slots=2))
     spec = BnbSpec(**SMALL)

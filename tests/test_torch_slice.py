@@ -145,7 +145,12 @@ def test_unported_paths_raise():
     # soft rows are ported: the setter configures, the next build softens
     assert tc.set_soft_constraints([6, 7], lin_pen=5.0, quad_pen=1.0) is tc
     assert tc.condensed.n_soft == 2 and tc.repair[1] == "soft"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # scenario trees are ported (tests/test_torch_scenario_tree.py); a tree
+    # across devices and the stagewise tree frame are not
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+        tc.set_scenario_tree(object(), scen_mesh=object())
+    tc.solver = "stagewise"
+    with pytest.raises(NotImplementedError, match="ROADMAP.*items 6 and 7"):
         tc.set_scenario_tree(object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MpcController(tdi.switched_double_integrator(), 4,

@@ -430,8 +430,12 @@ def test_controller_rebuilds_on_each_setter_and_binary_states_skip_repair():
     assert c.device_qp.n == c.condensed.nV and c.admm_probe is not None
     with pytest.raises(AttributeError, match="weight"):
         c.set_std_obj_weights(Qnope=1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c.set_scenario_tree(object())
+    # a scenario tree takes no transform (as in the reference)
+    from pyhybridcontrol_tpu_torch.ops.scenario_tree import ScenarioTree
+
+    c.set_scenario_tree(ScenarioTree.from_branching(np.zeros((2, 4, 1))))
+    with pytest.raises(ValueError, match="transforms"):
+        c.build()
 
 
 def test_convert_carries_a_transformed_frame():

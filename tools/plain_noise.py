@@ -1,0 +1,150 @@
+"""The plain version's own fp32 noise on config 4c's pooled wave (a
+development tool, not part of the package; runs on the CPU):
+
+    python tools/plain_noise.py [--batch B] [--seed S]
+
+Builds config 4c's dense joint frame (the reference bench's tree: S=4,
+N=10, branching at steps 1 and 5), draws B seeded states and B&B-node
+boxes that fix 30% of the information-set groups, and runs the plain
+version of K1 (``ops/cuda_admm.admm_solve_plain``) in float32 and the same
+iteration in float64 on the wave the pooled engine runs under rep-map
+branching: the relaxation (100 iterations, warm from 100 cold), the probe
+on the boxes that fix every group to its rounded mean (200 iterations at
+ρ·10, then 200 at ρ, warm from the relaxation), and that probe again
+after a one-ulp change of q. Prints, per field, the error
+``chip_smoke.py`` holds a kernel to — max |Δ| / max(|ref|, floor), floor
+1 for obj/x/z/y and 1e-3 for the residuals — of float32 against float64.
+Where these readings are well under the "main" limits, the kernels are
+held to "main" there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+FLOOR = dict(obj=1.0, x=1.0, z=1.0, y=1.0, r_prim=1e-3, r_prim_rel=1e-3,
+             r_dual=1e-3)
+
+
+def _double(kq):
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+
+    return ca.KernelQP(**{
+        f.name: (getattr(kq, f.name).double()
+                 if isinstance(getattr(kq, f.name), torch.Tensor)
+                 else getattr(kq, f.name))
+        for f in dataclasses.fields(kq)})
+
+
+def _errors(got, ref):
+    return {k: float(((getattr(got, k).double() - getattr(ref, k)).abs()
+                      / getattr(ref, k).abs().clamp_min(v)).max())
+            for k, v in FLOOR.items()}
+
+
+def readings(B=300, seed=5):
+    """{stage: {field: error}} of float32 against float64 (see the module
+    docstring)."""
+    from pyhybridcontrol_tpu_torch.mld.info import MldInfo
+    from pyhybridcontrol_tpu_torch.mld.model import MldModel
+    from pyhybridcontrol_tpu_torch.models import (
+        di_default_weights, switched_double_integrator)
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+    from pyhybridcontrol_tpu_torch.ops import scenario_tree as st
+    from pyhybridcontrol_tpu_torch.ops.admm import prepare_admm_mpc
+    from pyhybridcontrol_tpu_torch.ops.condense import CondensedMpc
+
+    base = switched_double_integrator()
+    m = base.numpy_mats()
+    model = MldModel.from_matrices(
+        MldInfo(nx=2, nu=1, ndelta=1, nz=1, nomega=1, ny=2,
+                ncons=base.info.ncons),
+        A=m.A, B1=m.B1, B3=m.B3, B4=np.array([[0.0], [1.0]]), C=m.C,
+        E=m.E, F1=m.F1, F2=m.F2, F3=m.F3, f5=m.f5)
+    tree = st.ScenarioTree.from_branching(
+        st.tree_consistent_paths(np.random.default_rng(13), 4, 10, (1, 5),
+                                 sd=0.2), branch_steps=(1, 5))
+    c = st.build_scenario_tree_qp(
+        CondensedMpc(model, 10, di_default_weights()), tree)
+    groups = st.tree_branch_map(c, tree)
+    ng = int(groups.max()) + 1
+    qp = c.device_qp("cpu")
+    kq = ca.kernel_qp_for(prepare_admm_mpc(c, device="cpu"))
+    kq2 = ca.kernel_qp_for(prepare_admm_mpc(c, rho=10.0, device="cpu"))
+    kd, kd2 = _double(kq), _double(kq2)
+
+    rng = np.random.default_rng(seed)
+    x0s = torch.as_tensor(rng.normal(size=(B, 2)).astype(np.float32))
+    W = torch.as_tensor(tree.omega_paths.reshape(1, -1, 1),
+                        dtype=torch.float32).expand(B, -1, -1)
+    f, h = qp.assemble(x0s, W)
+    bidx = torch.as_tensor(qp.binary_idx)
+    g = torch.as_tensor(groups)
+    fm = torch.as_tensor(rng.uniform(size=(B, ng)) < 0.3)[:, g]
+    fv = torch.as_tensor((rng.uniform(size=(B, ng)) < 0.5)
+                         .astype(np.float32))[:, g]
+    lb, ub = qp.lb.expand(B, -1).clone(), qp.ub.expand(B, -1).clone()
+    lb[:, bidx] = torch.where(fm, fv, 0.0)
+    ub[:, bidx] = torch.where(fm, fv, 1.0)
+
+    def solve(k, a, b, lo, hi, iters, warm):
+        if k.AGT.dtype == torch.float64:
+            return ca._solve_plain(k, a.double(), b.double(), lo.double(),
+                                   hi.double(), iters, 0,
+                                   tuple(w.double() for w in warm))
+        return ca.admm_solve_plain(k, a, b, lo, hi, iters=iters, warm=warm)
+
+    out = {}
+    cold = ca.admm_solve_plain(kq, f, h, lb, ub, iters=100)
+    warm = (cold.x, cold.z, cold.y)
+    r32 = solve(kq, f, h, lb, ub, 100, warm)
+    out["relaxation, 100 it warm"] = _errors(r32, solve(kd, f, h, lb, ub,
+                                                        100, warm))
+    Mavg = torch.zeros((len(groups), ng))
+    Mavg[torch.arange(len(groups)), g] = 1.0
+    Mavg /= Mavg.sum(0, keepdim=True)
+    val = torch.where(fm, fv, torch.round(torch.clamp(
+        r32.x[:, bidx] @ Mavg, 0.0, 1.0))[:, g])
+    lbp, ubp = lb.clone(), ub.clone()
+    lbp[:, bidx], ubp[:, bidx] = val, val
+    pw = (r32.x, r32.z, r32.y)
+
+    def probe(k, k2, q):
+        a = solve(k2, q, h, lbp, ubp, 200, pw)
+        return a, solve(k, q, h, lbp, ubp, 200, (a.x, a.z, a.y))
+
+    p32, p64 = probe(kq, kq2, f), probe(kd, kd2, f)
+    out["probe, 200 it at rho*10 warm"] = _errors(p32[0], p64[0])
+    out["probe, then 200 it at rho"] = _errors(p32[1], p64[1])
+    out["probe, one ulp of q (float32 both)"] = _errors(
+        probe(kq, kq2, f * (1 + 2.0 ** -23))[1], p32[1])
+    out["probe converged share (r_prim_rel < 1e-3)"] = float(
+        (p32[1].r_prim_rel < 1e-3).float().mean())
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=300)
+    ap.add_argument("--seed", type=int, default=5)
+    a = ap.parse_args(argv)
+    torch.set_num_threads(4)
+    for stage, errs in readings(a.batch, a.seed).items():
+        if isinstance(errs, float):
+            print(f"{stage}: {errs:.3f}")
+        else:
+            print(f"{stage}: " + " ".join(f"{k}={v:.2e}"
+                                          for k, v in errs.items()))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
