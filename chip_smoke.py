@@ -129,11 +129,36 @@ Run from the root of a checkout. It builds the kernels of
      consensus tree (plain torch ADMM) on tests/test_consensus_tree.py's
      fixture (S=4, N=6) against the dense joint build (objective 2e-3,
      first input 2e-2).
+ 20. K4, the stagewise sweep (``csrc/stagewise.cu``), against its plain
+     version (``ops/stagewise._solve_K``, torch ops on the card), run with
+     the kernel phases (after 10) so that ``--readings`` reads it: config
+     6's long-arm frame (P=64: a wave of 8 nodes × S=8, N=120, b=5) at ρ
+     and ρ·10, staged and through L2, its parity arm's (P=64, N=4), a
+     double-integrator frame at N=40 with P = 1, 33, 257 and the PWA hull
+     model (b=13) at N=20, within the "sweep" limit; then the whole
+     stagewise tree relaxation (150 iterations) and the 1000-iteration
+     probe at ρ·10 on config 6's frame through K4 against the plain
+     sweeps, within "main", certificate bits identical. K4 alone, its
+     wrapper and the plain sweeps timed, its bound, its chain floor, and
+     ``torch.linalg.lu_solve`` on the dense LU of K as the library call;
+ 21. config 6 of the reference bench (bench.py:742-816), nothing cut, with
+     the plain sweeps made to raise: the parity arm (S=2, N=4) within 1e-3
+     of the port's fp64 oracle on the dense joint frame; the long arm
+     (S=8, N=120 branching at 1, 40, 80, Σu ≤ 60; capacity 64, wave 8, 6
+     waves, 150 + 1000 iterations at ρ·10) one warm-up and the median of
+     3, its objective within 1e-3 of the JAX package's recorded one, its
+     plan feasible in fp64 (dynamics, stage rows, binaries, shared u/δ in
+     every information set, the budget on every path), every launch K4 at
+     a multiple of S; ``serve --config double_integrator --solver
+     stagewise`` through the stdin loop (a ping, three states, one out of
+     the box), objectives within ``serve_limit`` of the port's condensed
+     enumeration plan valued in the stagewise frame.
 
 Each phase prints its wall time, and the run its total. Launch counts are
 kept per path (PATHS): set to 0 just before each served request set, the
 pooled calls, the relaxation sweeps, the closed loops, the config-2 calls,
-config 4c's call and its single-instance feedbacks, and read just after
+config 4c's call and its single-instance feedbacks, config 6's two arms
+and the served stagewise requests, and read just after
 it; launches made to compare a kernel with its
 plain version or with enumeration fall in none of them.
 A kernel's ``launches`` is its sum over these paths, ``launches_by_path``
@@ -162,6 +187,7 @@ name and power limit, the kernels JSON and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import subprocess
@@ -176,20 +202,26 @@ SOURCES = {"admm_k1": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
            "admm_k1_mixed": "pyhybridcontrol_tpu_torch/csrc/admm_mixed.cu",
            "admm_k1_streamed": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
            "admm_k2_streamed": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
-           "admm_k1_split": "pyhybridcontrol_tpu_torch/csrc/admm.cu"}
+           "admm_k1_split": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
+           "stagewise_k4": "pyhybridcontrol_tpu_torch/csrc/stagewise.cu"}
 REPLACES = {"admm_k1": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
             "admm_k2": "pyhybridcontrol_tpu/ops/pallas_admm.py:357",
             "admm_k1_mixed": "pyhybridcontrol_tpu/ops/pallas_admm.py:180",
             "admm_k1_streamed": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
             "admm_k2_streamed": "pyhybridcontrol_tpu/ops/pallas_admm.py:357",
-            "admm_k1_split": "pyhybridcontrol_tpu/ops/pallas_admm.py:180"}
+            "admm_k1_split": "pyhybridcontrol_tpu/ops/pallas_admm.py:180",
+            # K4 has no TPU kernel behind it: the reference's sweep is the
+            # plain-XLA lax.scan pair of _solve_K
+            "stagewise_k4": "pyhybridcontrol_tpu/ops/stagewise.py:586"}
 # the driven paths, in order; SERVED are the served requests
-SERVED = ("serve_config1", "serve_batch_request", "config2_serve")
+SERVED = ("serve_config1", "serve_batch_request", "config2_serve",
+          "serve_stagewise")
 PATHS = SERVED + ("pooled_bench_spec", "pooled_carried_incumbents",
                   "relax_sweep_low_frac", "closed_loop_config1",
                   "closed_loop_N27", "relax_sweep_N27_low_frac",
                   "config2_call", "config2b_call", "config3_loop",
-                  "config4b_loop", "config4c_call", "config4c_feedback")
+                  "config4b_loop", "config4c_call", "config4c_feedback",
+                  "config6_parity", "config6_long")
 # peak rates of one H100 SXM at 700 W (NVIDIA data sheet): fp32 outside
 # the tensor cores, dense bf16 in them, HBM3
 PEAK = dict(fp32=67e12, bf16=989e12, hbm=3.35e12)
@@ -240,6 +272,10 @@ LIMITS = {
     # the CPU at the same seeds; 3x those on obj, x and z, "large" on the rest
     "wave_probe": dict(obj=1.3e-3, x=7e-3, z=7e-3, y=6e-2, r_prim=0.8,
                        r_prim_rel=0.8, r_dual=16.0),
+    # K4 against the plain sweeps (one solve, both fp32 summing each row in
+    # column order; phase 20): 3.4x the largest reading of seeds 0-7 on an
+    # H100, 1.79e-7 (tools/k4_readings.py)
+    "sweep": dict(x=6e-7),
 }
 # the iterate check starts from the plain version's iterates after these
 # many split-precision iterations
@@ -318,7 +354,8 @@ def cuda_ms(fn, reps=5):
 
 
 KERNEL_FUNCTIONS = (("admm", "phc_admm_k1"), ("admm", "phc_admm_k2"),
-                    ("admm_mixed", "phc_admm_k1_mixed"))
+                    ("admm_mixed", "phc_admm_k1_mixed"),
+                    ("stagewise", "phc_sw_solve_k"))
 
 
 def kernel_ms(fn, reps=5):
@@ -644,7 +681,8 @@ def compare_probe(tag, got, ref, qp, lb, ub, record, regime="main",
                 OVER.append(what)
             else:
                 check(ok, what)
-    got_p, ref_p = (AdmmResult(**{k: v[same] for k, v in vars(r).items()})
+    got_p, ref_p = (AdmmResult(**{k: None if v is None else v[same]
+                                  for k, v in vars(r).items()})
                     for r in (got[1], ref[1]))
     compare(tag + " probe", got_p, ref_p, record, probe_regime or regime,
             None if plain is None
@@ -1917,7 +1955,8 @@ def phase_tree_shapes(dev, rng, recs):
     mean; 200 iterations at ρ·10, then 200 at ρ, warm from the
     relaxation); and streamed K2 at the wave of a single-instance dense
     tree ``feedback`` (B=64, 100 + 200/200 iterations, per-coordinate
-    rounding). Each against its plain version on config 4c's joint frame
+    rounding), and streamed K1 at that tree's gated waves (B=64, 100
+    iterations warm). Each against its plain version on config 4c's joint frame
     at group-fixed node boxes, all at the "main" limits (the plain
     version's own fp32-vs-fp64 difference on this probe is under a tenth
     of them: tools/plain_noise.py), with its plan, times and bound."""
@@ -1986,6 +2025,15 @@ def phase_tree_shapes(dev, rng, recs):
           lambda: ca.admm_wave_plain(*wargs, warm=warm, **kw),
           admm_work(kq.n_pad, kq.m_pad, Bw, products=502, stats=2,
                     warm=True, stiff=True, outputs=2))
+    # K1 on the same tree's gated single-instance waves (B=64, 100 it warm)
+    args = (kq, q, h, lb, ub)
+    compare(f"K1 config4c gated wave B={Bw} 100 it warm",
+            ca.admm_solve_cuda(*args, iters=100, warm=warm),
+            ca.admm_solve_plain(*args, iters=100, warm=warm), r1)
+    timed(r1, "config4c_gated_",
+          lambda: ca.admm_solve_cuda(*args, iters=100, warm=warm),
+          lambda: ca.admm_solve_plain(*args, iters=100, warm=warm),
+          admm_work(kq.n_pad, kq.m_pad, Bw, products=101, stats=1, warm=True))
 
 
 CFG4C_B = 256
@@ -2664,6 +2712,538 @@ def phase_config4b_loop(dev):
     return out
 
 
+# ---- the stagewise frame: K4 and bench config 6 (phases 20-21) -----------
+
+CFG6_N, CFG6_S, CFG6_STEPS = 120, 8, (1, 40, 80)
+CFG6_BUDGET = 60.0          # Σ_k u_k ≤ 60 on every scenario path
+CFG6_SPEC = dict(capacity=64, wave_size=8, max_waves=6, qp_iters=150,
+                 probe_iters=1000, gap=1e-3)
+CFG6_PARITY_SPEC = dict(capacity=512, wave_size=32, qp_iters=600,
+                        probe_iters=3000, max_waves=48)
+# the JAX package's objective of the long arm (tools/config6_reference.py,
+# on the CPU): the port is held within 1e-3 relative of it
+CFG6_REF_OBJ = 6.9574198722839355
+CFG6_REPS = 3
+X0_6 = (2.0, 0.0)
+SERVE_SW_STATES = STATES[:3]
+# the nodes of phase 20's whole-solve hold: a wave of 8 at config 6's
+# frame, 30% of the information-set representatives fixed at random
+K4_HOLD_FIX = 0.3
+
+
+def config6_trees():
+    """(parity tree, long tree) of config 6: S=2, N=4 branching at 1 from
+    default_rng(11), then S=8, N=120 branching at 1, 40, 80 on
+    tree-consistent paths of the same generator (bench.py:744-781)."""
+    import numpy as np
+
+    from pyhybridcontrol_tpu_torch.ops.scenario_tree import (
+        ScenarioTree, tree_consistent_paths)
+
+    rng = np.random.default_rng(11)
+    tree_s = ScenarioTree.from_branching(
+        rng.normal(0.0, 0.3, size=(2, 4, 1)), branch_steps=(1,))
+    tree_l = ScenarioTree.from_branching(
+        tree_consistent_paths(rng, CFG6_S, CFG6_N, CFG6_STEPS, sd=0.2),
+        branch_steps=CFG6_STEPS)
+    return tree_s, tree_l
+
+
+def config6_extra(N):
+    """The long arm's horizon-coupled row: Σ_k u_k ≤ 60."""
+    import numpy as np
+
+    A_v = np.zeros((1, N * 3))
+    A_v[0, 0::3] = 1.0
+    return (A_v, np.array([CFG6_BUDGET]), None, None)
+
+
+def config6_preps(dev, tree, extra=None):
+    """The stagewise tree preps at ρ and ρ·10 (the probes') of config 6."""
+    from pyhybridcontrol_tpu_torch.models import di_default_weights
+    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+        prepare_stagewise_tree)
+
+    kw = {} if extra is None else dict(extra=extra)
+    return tuple(prepare_stagewise_tree(omega_model(), tree,
+                                        di_default_weights(), rho=r,
+                                        device=dev, **kw)
+                 for r in (1.0, 10.0))
+
+
+def k4_frames(dev):
+    """(tag, key, prep, P) of every shape phase 20 holds K4 at: config 6's
+    long-arm frame (a wave of 8 nodes × S=8) and its parity arm's (a wave
+    of 32 × S=2), each at ρ and ρ·10; a single double-integrator frame at
+    N=40 with P = 1, 33, 257; the PWA hull model (b=13) at N=20."""
+    from pyhybridcontrol_tpu_torch.models import (
+        di_default_weights, switched_double_integrator)
+    from pyhybridcontrol_tpu_torch.models.pwa_examples import (
+        pwa_spring_mld, pwa_weights)
+    from pyhybridcontrol_tpu_torch.ops.stagewise import prepare_stagewise
+
+    tree_s, tree_l = config6_trees()
+    out = []
+    for tag, key, preps, P in (
+            ("config 6 long arm", "cfg6", config6_preps(
+                dev, tree_l, config6_extra(CFG6_N)), 64),
+            ("config 6 parity arm", "cfg6_parity",
+             config6_preps(dev, tree_s), 64)):
+        for swt, rho in zip(preps, ("ρ", "ρ·10")):
+            out.append((f"{tag} {rho}", key if rho == "ρ" else key + "_stiff",
+                        swt.sw, P))
+    sw40 = prepare_stagewise(switched_double_integrator(), 40,
+                             di_default_weights(), device=dev)
+    for P in (1, 33, 257):
+        out.append((f"double integrator N=40", f"n40_p{P}", sw40, P))
+    hull = prepare_stagewise(pwa_spring_mld(on_off=True, formulation="hull"),
+                             20, pwa_weights(), device=dev)
+    out.append(("PWA hull N=20", "hull", hull, 64))
+    return out
+
+
+def k4_work(P, N, b):
+    """(bytes, {type: operations}) of one K4 call: r and x once, the three
+    factor arrays once; per problem and stage b² FMAs forward and 2·b²
+    backward, and 2·b subtractions."""
+    return (4 * (2 * P * N * b + 3 * N * b * b),
+            dict(fp32=P * N * (6 * b * b + 2 * b)))
+
+
+def k4_chain_ms(N, b):
+    """Reckoned floor of one problem's dependent chain in K4: 2·N stages,
+    each a chain of b FMAs (4 cycles), one shuffle (~25 cycles) and one
+    shared-memory load (~30 cycles) at the 1.98 GHz boost clock. The
+    latencies are assumed round figures, not measured."""
+    return 1e3 * 2 * N * (4 * b + 25 + 30) / 1.98e9
+
+
+def dense_K(sw):
+    """K = P + σI + Aᵀdiag(ρ)A of a stagewise prep as a dense (N·b, N·b)
+    fp64 matrix, applied to the unit vectors through the operators."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
+
+    sw64 = tsw.stagewise_double(sw)
+    n = sw.N * sw.b
+    E = torch.eye(n, dtype=torch.float64, device=sw.device).reshape(
+        n, sw.N, sw.b)
+    KE = (tsw._apply_P(sw64, E) + sw.sigma * E
+          + tsw._apply_AT(sw64, sw64.rho_rows * tsw._apply_A(sw64, E)))
+    return KE.reshape(n, n).T
+
+
+@contextlib.contextmanager
+def plain_sweep():
+    """Inside: the stagewise solves run the plain sweeps (``_solve_K``, torch
+    ops on the card) instead of K4."""
+    from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
+
+    orig = tsw.sw_solve_k_auto
+    tsw.sw_solve_k_auto = lambda r, factors: tsw._solve_K(None, r, factors)
+    try:
+        yield
+    finally:
+        tsw.sw_solve_k_auto = orig
+
+
+@contextlib.contextmanager
+def no_plain_sweep():
+    """Inside: the plain sweeps raise, so a stagewise path on the card that
+    reached them would fail."""
+    from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
+
+    orig = tsw._solve_K
+
+    def refuse(*a, **kw):
+        raise AssertionError("a stagewise solve on the card ran the plain "
+                             "sweeps, not K4")
+
+    tsw._solve_K = refuse
+    try:
+        yield
+    finally:
+        tsw._solve_K = orig
+
+
+def node_wave(swt, ext_u, rng, W, fix_frac):
+    """A wave of W nodes of a stagewise tree: the backend, the broadcast
+    (f, h) and node boxes with ``fix_frac`` of the representatives fixed
+    at random (node 0 the root)."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+        StagewiseTreeBackend, assemble_stagewise_tree,
+        pack_stagewise_tree_data)
+
+    x0 = torch.tensor(X0_6, device=swt.probs.device)
+    be = StagewiseTreeBackend(swt, ext_u=ext_u)
+    fb, hb = be.broadcast_data(*pack_stagewise_tree_data(
+        *assemble_stagewise_tree(swt, x0)), W)
+    lb = be.lb.expand(W, -1).clone()
+    ub = be.ub.expand(W, -1).clone()
+    reps = torch.as_tensor(be.binary_idx, device=lb.device)
+    fix = torch.as_tensor(rng.random((W, len(reps))) < fix_frac,
+                          device=lb.device)
+    fix[0] = False
+    val = torch.as_tensor(rng.integers(0, 2, (W, len(reps))),
+                          dtype=lb.dtype, device=lb.device)
+    lb[:, reps] = torch.where(fix, val, lb[:, reps])
+    ub[:, reps] = torch.where(fix, val, ub[:, reps])
+    return be, fb, hb, lb, ub
+
+
+def phase_k4(dev, rng, rec):
+    """K4 against its plain version (``_solve_K``, torch ops) on the card at
+    every shape of ``k4_frames``, staged and (at config 6's long arm) with
+    the factors read through L2; then the whole stagewise tree relaxation
+    (150 iterations, "main" limits) and the 1000-iteration probe at ρ·10
+    on config 6's frame, K4 against the plain sweeps, certificate bits
+    identical. Times of K4 alone, of its wrapper and of the plain sweeps,
+    its bound, its chain floor and ``torch.linalg.lu_solve`` on the dense
+    LU of K at config 6's main shape."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
+    from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
+    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+        assemble_stagewise_tree_ext)
+
+    print("K4 (stagewise sweep) vs plain:", flush=True)
+    frames = k4_frames(dev)
+    for tag, key, sw, P in frames:
+        N, b = sw.N, sw.b
+        r = torch.as_tensor(rng.normal(size=(P, N, b)), dtype=torch.float32,
+                            device=dev)
+        ref = tsw._solve_K(sw, r)
+        for staged in ((None, False) if key == "cfg6" else (None,)):
+            pl = cs.plan_sweep(P, N, b, staged)
+            x = cs.sw_solve_k_cuda(r, sw.factors, staged=staged)
+            held(f"{tag} P={P} N={N} b={b} (bmax {pl.bmax}, "
+                 f"{'staged' if pl.staged else 'through L2'}, {pl.warps} "
+                 "warps a block)", "sweep", {"x": (x, ref)})
+            rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0),
+                                     float((x - ref).abs().max()))
+
+        def wrapper():
+            return cs.sw_solve_k_cuda(r, sw.factors)
+
+        def plain():
+            return tsw._solve_K(sw, r)
+
+        pre = "" if key == "cfg6" else key + "_"
+        by = timed(rec, pre, wrapper, plain, k4_work(P, N, b))
+        rec[pre + "chain_ms"] = k4_chain_ms(N, b)
+        if key == "cfg6":
+            rec["bound_by"] = by
+            K = dense_K(sw).float()
+            LU, piv = torch.linalg.lu_factor(K)
+            rhs = r.reshape(P, N * b).T.contiguous()
+            rec["library_ms"] = cuda_ms(
+                lambda: torch.linalg.lu_solve(LU, piv, rhs))
+            print(f"  chain floor {rec['chain_ms']:.4f} ms (2N={2 * N} "
+                  f"stages); torch.linalg.lu_solve on the dense LU of K "
+                  f"({N * b}², {P} right-hand sides): "
+                  f"{rec['library_ms']:.3f} ms", flush=True)
+
+    tree_l = config6_trees()[1]
+    swt, swtp = config6_preps(dev, tree_l, config6_extra(CFG6_N))
+    x0 = torch.tensor(X0_6, device=dev)
+    eu = assemble_stagewise_tree_ext(swt, x0)
+    W = CFG6_SPEC["wave_size"]
+    be, fb, hb, lb, ub = node_wave(swt, eu, rng, W, K4_HOLD_FIX)
+    iters, piters = CFG6_SPEC["qp_iters"], CFG6_SPEC["probe_iters"]
+    t0 = time.perf_counter()
+    got = be.solve(fb, hb, lb, ub, iters)
+    torch.cuda.synchronize()
+    t_k4 = time.perf_counter() - t0
+    with plain_sweep():
+        t0 = time.perf_counter()
+        ref = be.solve(fb, hb, lb, ub, iters)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+    compare(f"config 6 relaxation, {W} nodes × S={CFG6_S}, {iters} it",
+            got, ref, rec, "main")
+    # the probe: every representative fixed to the plain relaxation's
+    # rounded value, at ρ·10, warm from the relaxation (both from ref's)
+    reps = torch.as_tensor(be.binary_idx, device=dev)
+    pv = torch.round(torch.clamp(ref.x[:, reps], 0.0, 1.0))
+    lbp, ubp = lb.clone(), ub.clone()
+    lbp[:, reps] = ubp[:, reps] = pv
+    bp = type(be)(swtp, ext_u=eu)
+    warm = (ref.x, ref.z, ref.y)
+    got_p = bp.solve(fb, hb, lbp, ubp, piters, warm=warm)
+    with plain_sweep():
+        ref_p = bp.solve(fb, hb, lbp, ubp, piters, warm=warm)
+    compare(f"config 6 probe at ρ·10, {piters} it", got_p, ref_p, rec,
+            "main")
+    print(f"  the relaxation ({iters} it, P={W * CFG6_S}): {t_k4:.3f} s "
+          f"through K4, {t_plain:.3f} s through the plain sweeps", flush=True)
+
+
+def plan6_feasible(tag, model, tree, x0, xi, budget=None, tol=FEAS_TOL):
+    """A stagewise tree plan xi (S, N, b) in fp64: each scenario's dynamics
+    on its own path, its stage rows and box, binaries in {0, 1}, u and δ
+    equal across the scenarios of an information set, and (with
+    ``budget``) Σ_k u_k ≤ budget on every path; within ``tol``."""
+    import numpy as np
+
+    m = model.numpy_mats()
+    info = model.info
+    nv = info.nv
+    Bv = np.hstack([m.B1, m.B2, m.B3])
+    Fv = np.hstack([m.F1, m.F2, m.F3])
+    xi = np.asarray(xi, np.float64)
+    om = np.asarray(tree.omega_paths, np.float64)
+    worst = 0.0
+    for s in range(tree.S):
+        x = np.asarray(x0, np.float64)
+        for k in range(tree.N):
+            v, xn = xi[s, k, :nv], xi[s, k, nv:]
+            dyn = xn - (m.A @ x + Bv @ v + m.b5[:, 0] + m.B4 @ om[s, k])
+            ineq = m.E @ x + Fv @ v - (m.f5[:, 0] - m.F4 @ om[s, k])
+            worst = max(worst, np.abs(dyn).max(), ineq.max())
+            x = xn
+    vb = xi[:, :, :nv][:, :, info.v_binary_mask]
+    bin_err = np.abs(vb - np.round(vb)).max()
+    box_err = max(np.max(-vb), np.max(vb - 1.0), 0.0)
+    g = np.asarray(tree.groups)
+    nud = info.nu + info.ndelta
+    na = max(np.ptp(xi[g[:, k] == gid, k, :nud], axis=0).max()
+             for k in range(tree.N) for gid in np.unique(g[:, k]))
+    over = (xi[:, :, 0].sum(axis=1).max() - budget) if budget else -np.inf
+    print(f"  {tag}: dynamics/stage rows {worst:.2e}, binaries {bin_err:.2e}"
+          f", box {box_err:.2e}, non-anticipativity {na:.2e}"
+          + (f", budget Σu - {budget:g} = {over:.2e}" if budget else "")
+          + f" (limit {tol:g})", flush=True)
+    check(max(worst, bin_err, box_err, na, over) <= tol,
+          f"{tag}: the plan is not feasible in fp64")
+
+
+def stagewise_value(sw, q, model, x0, V):
+    """The stagewise objective ½ξᵀPξ + qᵀξ (fp64) of a plan V (N, nv): its
+    states simulated from x0, ξ_k = [v_k; x_{k+1}]."""
+    import numpy as np
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
+
+    m = model.numpy_mats()
+    Bv = np.hstack([m.B1, m.B2, m.B3])
+    x, xs = np.asarray(x0, np.float64), []
+    for k in range(sw.N):
+        x = m.A @ x + Bv @ V[k] + m.b5[:, 0]
+        xs.append(x)
+    xi = torch.as_tensor(np.concatenate([V, np.array(xs)], axis=1),
+                         device=sw.device)
+    sw64 = tsw.stagewise_double(sw)
+    return float(0.5 * (xi * tsw._apply_P(sw64, xi)).sum()
+                 + (q.double() * xi).sum())
+
+
+def only_k4(path, multiple):
+    """Every launch on ``path`` was K4's, each at a P that is a multiple of
+    ``multiple``."""
+    got = PATH_LAUNCHES[path]
+    check(got["stagewise_k4"] > 0 and all(
+        v == 0 for k, v in got.items() if k != "stagewise_k4"),
+        f"{path}: K4 and nothing else must launch, launches {got}")
+    sizes = PATH_BATCHES[path]["stagewise_k4"]
+    check(all(P % multiple == 0 for P in sizes),
+          f"{path}: K4 launched at P = {sorted(sizes)}, not multiples of "
+          f"{multiple}")
+
+
+def profile_wave(swt, eu):
+    """One relaxation of a long-arm wave (8 nodes × S=8, 150 iterations:
+    the solve is ~46 of these, relaxations and probes alike) under
+    torch.profiler: device operations, K4's launches and device time, busy
+    time, and the idle share against the same call unprofiled (median of
+    3 on the host clock). A whole solve holds ~360k device operations,
+    more than the profiler takes in within the time limit."""
+    import numpy as np
+    import torch
+
+    from pyhybridcontrol_tpu_torch.profile_serve import profile_request
+
+    be, fb, hb, lb, ub = node_wave(swt, eu, np.random.default_rng(SEED),
+                                   CFG6_SPEC["wave_size"], K4_HOLD_FIX)
+
+    def run():
+        return be.solve(fb, hb, lb, ub, CFG6_SPEC["qp_iters"])
+
+    run()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    prof = profile_request(run)
+    prof["ms"] = sorted(times)[1]
+    prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["ms"]
+    print(f"  one wave's relaxation ({CFG6_SPEC['qp_iters']} it, P="
+          f"{CFG6_SPEC['wave_size'] * CFG6_S}) under torch.profiler: "
+          f"{prof['device_ops']} device operations, busy "
+          f"{prof['device_busy_ms']:.2f} ms of {prof['ms']:.2f} ms "
+          f"unprofiled (idle share {prof['idle_share']:.3f}); K4 "
+          f"{prof['k4_launches']} launches, {prof['k4_device_ms']:.2f} ms "
+          "on the device", flush=True)
+    check(prof["k4_launches"] == CFG6_SPEC["qp_iters"],
+          f"config 6 profile: {prof['k4_launches']} K4 kernels on the "
+          f"device for {CFG6_SPEC['qp_iters']} iterations")
+    return prof
+
+
+def phase_config6(dev):
+    """Config 6 of the reference bench (bench.py:742-816) through the port,
+    nothing cut, with the plain sweeps made to raise: the parity arm
+    (S=2, N=4) within 1e-3 of the port's fp64 oracle on the dense joint
+    frame; the long arm (S=8, N=120, Σu ≤ 60) one warm-up and the median
+    of 3, its objective within 1e-3 of the JAX package's, its plan
+    feasible in fp64, every launch K4 at a multiple of S=8; and
+    ``serve --config double_integrator --solver stagewise`` through the
+    stdin loop, its objectives within ``serve_limit`` of the port's
+    condensed enumeration plan valued in the stagewise frame."""
+    import numpy as np
+    import torch
+
+    from pyhybridcontrol_tpu_torch import serve
+    from pyhybridcontrol_tpu_torch.control.mpc import MpcController
+    from pyhybridcontrol_tpu_torch.models import di_default_weights
+    from pyhybridcontrol_tpu_torch.ops.condense import CondensedMpc
+    from pyhybridcontrol_tpu_torch.ops.scenario_tree import (
+        build_scenario_tree_qp)
+    from pyhybridcontrol_tpu_torch.ops.stagewise import assemble_stagewise
+    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+        assemble_stagewise_tree, assemble_stagewise_tree_ext,
+        solve_tree_miqp_stagewise)
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    model, w = omega_model(), di_default_weights()
+    tree_s, tree_l = config6_trees()
+    x0 = torch.tensor(X0_6, device=dev)
+    out = {}
+    with no_plain_sweep():
+        # (a) parity arm
+        swt, swtp = config6_preps(dev, tree_s)
+        data = assemble_stagewise_tree(swt, x0)
+        t0 = time.perf_counter()
+        rs, _ = drive("config6_parity", lambda: solve_tree_miqp_stagewise(
+            swt, *data, BnbSpec(**CFG6_PARITY_SPEC), swt_probe=swtp))
+        ms_par = 1e3 * (time.perf_counter() - t0)
+        only_k4("config6_parity", tree_s.S)
+        joint = build_scenario_tree_qp(CondensedMpc(model, 4, w), tree_s)
+        fo, ho = joint.assemble_np(np.asarray(X0_6),
+                                   tree_s.omega_paths.reshape(8, 1))
+        orc, onodes = oracle_bnb(joint, fo, ho)
+        V = (rs.x.reshape(2, 4, swt.sw.b)[:, :, :swt.sw.nv].reshape(-1)
+             .double().cpu().numpy())
+        dev_obj = float(0.5 * V @ joint.H @ V + fo @ V)
+        rel = abs(dev_obj - orc) / max(1.0, abs(orc))
+        print(f"config 6 parity arm (S=2, N=4): {ms_par:.0f} ms, found "
+              f"{bool(rs.found)}, {int(rs.nodes_solved)} nodes, {rs.waves} "
+              f"waves; plan on the joint frame {dev_obj:.6f}, fp64 oracle "
+              f"{orc:.6f} ({onodes} nodes), relative {rel:.2e} (limit 1e-3)",
+              flush=True)
+        check(bool(rs.found) and rel <= 1e-3,
+              f"config 6 parity arm: {rel:.3e} off the fp64 oracle")
+        out["parity"] = dict(ms=ms_par, device_obj=dev_obj, oracle_obj=orc,
+                             rel_delta=rel)
+
+        # (b) long arm
+        swt, swtp = config6_preps(dev, tree_l, config6_extra(CFG6_N))
+        data = assemble_stagewise_tree(swt, x0)
+        eu = assemble_stagewise_tree_ext(swt, x0)
+        spec = BnbSpec(**CFG6_SPEC)
+
+        def solve():
+            return solve_tree_miqp_stagewise(swt, *data, spec,
+                                             swt_probe=swtp, ext_u=eu)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, _ = drive("config6_long", solve)
+        warm_s = time.perf_counter() - t0
+        only_k4("config6_long", CFG6_S)
+        k4 = PATH_LAUNCHES["config6_long"]["stagewise_k4"]
+        times = []
+        for _ in range(CFG6_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = solve()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            check(float(r.obj) == float(res.obj), "config 6: repetitions "
+                  "ended on different plans")
+        ms = 1e3 * sorted(times)[len(times) // 2]
+        obj = float(res.obj)
+        rel = abs(obj - CFG6_REF_OBJ) / max(1.0, abs(CFG6_REF_OBJ))
+        print(f"config 6 long arm (S={CFG6_S}, N={CFG6_N}, one coupled row): "
+              f"warm-up {warm_s:.3f} s, {[round(t, 3) for t in times]} s, "
+              f"median {ms:.1f} ms a solve; found {bool(res.found)}, "
+              f"{int(res.nodes_solved)} nodes, {res.waves} waves, {k4} K4 "
+              f"launches (P={sorted(PATH_BATCHES['config6_long']['stagewise_k4'])}"
+              f"); objective {obj:.7f}, the JAX package's {CFG6_REF_OBJ:.7f}, "
+              f"relative {rel:.2e} (limit 1e-3)", flush=True)
+        check(bool(res.found) and rel <= 1e-3,
+              f"config 6 long arm: objective {obj} off the reference's")
+        plan6_feasible("config 6 long arm plan", model, tree_l, X0_6,
+                       res.x.reshape(CFG6_S, CFG6_N, swt.sw.b).cpu(),
+                       budget=CFG6_BUDGET)
+        prof = profile_wave(swt, eu)
+        out["long"] = dict(N=CFG6_N, S=CFG6_S, n_ext=1, ms_per_solve=ms,
+                           seconds=times, nodes=int(res.nodes_solved),
+                           waves=res.waves, found=bool(res.found),
+                           objective=obj, k4_launches=k4, profile=prof)
+
+        # (c) the single-instance path: serve --solver stagewise
+        print("serve --config double_integrator --solver stagewise:",
+              flush=True)
+        t0 = time.perf_counter()
+        ctrl, ready = serve.build_controller("double_integrator",
+                                             "stagewise", dev.type)
+        print(f"  controller built + warmup solve: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        lines = ['{"cmd": "ping"}']
+        lines += [json.dumps({"x": x}) for x in SERVE_SW_STATES]
+        lines += [json.dumps({"x": OUT_OF_BOX}), '{"cmd": "quit"}']
+        buf = io.StringIO()
+        drive("serve_stagewise", lambda: serve.stdin_loop(
+            ctrl, ready, inp=io.StringIO("\n".join(lines) + "\n"), out=buf))
+    only_k4("serve_stagewise", 1)
+    replies = [json.loads(s) for s in buf.getvalue().splitlines()]
+    check(replies[1] == {"pong": True}, "serve stagewise: ping not answered")
+    check(len(replies) == 2 + len(SERVE_SW_STATES) + 1,
+          "serve stagewise: missing replies")
+    enum = MpcController(ctrl.model, ctrl.N, ctrl.weights,
+                         solver="enumerate", qp_iters=600, device=dev)
+    diffs, refs = [], []
+    for x, r in zip(SERVE_SW_STATES, replies[2:]):
+        check("error" not in r and r["found"],
+              f"serve stagewise: x0={x} not solved: {r}")
+        ref = enum.feedback(x)
+        xt = torch.tensor(x, device=dev)
+        q = assemble_stagewise(ctrl.stagewise, xt)[0]
+        val = stagewise_value(ctrl.stagewise, q, ctrl.model, x,
+                              ref.v_seq.double().cpu().numpy())
+        d = abs(r["obj"] - val)
+        print(f"  x0={x}: obj={r['obj']:.6f}, the enumeration's plan in the "
+              f"stagewise frame {val:.6f} |Δ|={d:.2e} ms={r['ms']}",
+              flush=True)
+        diffs.append(d)
+        refs.append(val)
+    serve_reading("serve stagewise vs enumeration", diffs, refs)
+    bad = replies[-1]
+    check("error" not in bad and bad["found"] is False,
+          f"serve stagewise: out-of-box state must come back found=false, "
+          f"got {bad}")
+    out["serve_ms"] = [r["ms"] for r in replies[2:]]
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -2708,8 +3288,8 @@ def main(argv=None):
     print(gpu, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    _build.load_library()
-    _build.load_library("admm_mixed")
+    for lib in _build.LIBRARIES:
+        _build.load_library(lib)
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
           f"({_build.BUILD_INFO.get('paths')})", flush=True)
     for line in _build.BUILD_INFO.get("log", "").splitlines():
@@ -2730,6 +3310,7 @@ def main(argv=None):
           phase_rng("tree_shapes"), recs)
     sweep27_args = phase("split mode", phase_split, dev, phase_rng("split"),
                          recs["admm_k1_split"])
+    phase("K4", phase_k4, dev, phase_rng("k4"), recs["stagewise_k4"])
     for regime, seen in READINGS.items():
         print(f"largest error, {regime} (limit): " + " ".join(
             f"{k}={v:.2e} ({LIMITS[regime][k]:.0e})"
@@ -2753,6 +3334,7 @@ def main(argv=None):
     calls["config4c_call"] = phase("config 4c call", phase_config4c_call,
                                    dev, recs)
     phase("tree hold", phase_tree_hold, dev)
+    calls["config6"] = phase("config 6", phase_config6, dev)
     print(json.dumps({"closed_loop": loops, "calls": calls}), flush=True)
     print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
     kernels = []

@@ -4,8 +4,9 @@ The JAX package ``pyhybridcontrol_tpu`` stays in the repository as the
 reference; this package mirrors its module names so each counterpart is
 easy to find. It imports ``torch`` and never ``jax``. The host side
 (condensation, equilibration, KKT factorizations) is numpy float64, the
-device side is torch fp32, and the two batched ADMM kernels are CUDA C++
-for Hopper (``csrc/admm.cu``, loaded by ``ops/_build.py``).
+device side is torch fp32, and the kernels are CUDA C++ for Hopper
+(``csrc/``, loaded by ``ops/_build.py``): the batched ADMM kernels of the
+condensed frame and the stagewise frame's block-tridiagonal sweep.
 
 It serves benchmark configs 1–4: MLD model → condensation (and its
 transforms) → B&B MIQP on the card → first input
@@ -13,7 +14,8 @@ transforms) → B&B MIQP on the card → first input
 ``pwa_actuator``, ``thermal_uc``, ``scenario_batch``), and stochastic MPC
 over scenario trees (``MpcController.set_scenario_tree``: the dense joint
 frame, batched through the pool with rep-map branching, or the consensus
-tree).
+tree), and long horizons on the stagewise O(N) frame
+(``solver="stagewise"``, with or without a tree).
 
 Layer map (bottom → top), as in the reference:
 
@@ -22,7 +24,8 @@ Layer map (bottom → top), as in the reference:
     models/     switched double integrator, PWA spring, DEWH water heater
     ops/        condensation and its transforms, root presolve, Ruiz
                 scaling, ADMM (torch), CUDA kernels, scenario trees
-                (dense joint frame, consensus ADMM)
+                (dense joint frame, consensus ADMM), the stagewise frame
+                and its tree
     solver/     enumeration, rollout repair, branch-and-bound, fp64 oracle
     control/    MpcController
     loop/       receding-horizon closed loop (single and pooled batch)

@@ -1,20 +1,25 @@
 """MpcController: the user-facing receding-horizon controller.
 
-Counterpart of ``pyhybridcontrol_tpu/control/mpc.py`` for the condensed
-``bnb`` and ``enumerate`` solvers: ``build`` condenses once on the host
-in float64 and moves the problem to ``device`` (the card unless the
-caller asks for the CPU); ``feedback(x0)`` solves the MIQP there and
-returns the first input; ``feedback_batch(x0s)`` solves a batch of
-control steps in one pooled B&B (solver/bnb_pooled.py), or instance by
-instance (engine "vmap"). The setters (weights, horizon, soft rows, move
-blocking, terminal set, horizon-coupled rows, scenario tree) bump a
-version, and ``build`` condenses again on the next call. A scenario tree
-is either the dense joint frame (ops/scenario_tree.py; ``feedback``
-branches per coordinate through K2, the pooled engine branches per
-information set through K1) or the consensus tree (ops/consensus_tree.py,
-plain torch ADMM). The other paths of the reference (the stagewise frame,
-trees across devices, ``mesh``) raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+Counterpart of ``pyhybridcontrol_tpu/control/mpc.py``: ``build``
+prepares the problem once on the host in float64 and moves it to
+``device`` (the card unless the caller asks for the CPU); ``feedback(x0)``
+solves the MIQP there and returns the first input; ``feedback_batch(x0s)``
+solves a batch of control steps in one pooled B&B (solver/bnb_pooled.py),
+or instance by instance (engine "vmap"). The setters (weights, horizon,
+soft rows, move blocking, terminal set, horizon-coupled rows, scenario
+tree) bump a version, and ``build`` prepares again on the next call.
+
+Solvers: "bnb" and "enumerate" on the condensed frame; "stagewise" on the
+O(N) block-tridiagonal frame (ops/stagewise.py, B&B through
+solver/bnb_stagewise.py, the sweep K4 on the card), where soft rows, move
+blocking, terminal sets and horizon-coupled rows ride natively.
+A condensed scenario tree is either the dense joint frame
+(ops/scenario_tree.py; ``feedback`` branches per coordinate through K2,
+the pooled engine branches per information set through K1) or the
+consensus tree (ops/consensus_tree.py, plain torch ADMM); under
+solver="stagewise" a tree is always the stagewise consensus tree
+(ops/stagewise_tree.py). Trees across devices and ``mesh`` placement
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from pyhybridcontrol_tpu_torch.solver.enumerate import (
 from pyhybridcontrol_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from pyhybridcontrol_tpu_torch.utils.structdict import StructDict
 
-_SOLVERS = ("bnb", "enumerate")
+_SOLVERS = ("bnb", "enumerate", "stagewise")
 
 
 def _not_ported(what: str, item: str):
@@ -53,9 +58,8 @@ class MpcController:
                  bnb_spec: Optional[BnbSpec] = None,
                  qp_iters: int = 150,
                  rho: float = 1.0,
+                 sw_parallel: bool = False,
                  device=DEFAULT_DEVICE):
-        if solver == "stagewise":
-            _not_ported('solver="stagewise"', "stagewise O(N) frame")
         if solver not in _SOLVERS:
             raise ValueError(f"unknown solver {solver!r}")
         self.model = model
@@ -65,6 +69,9 @@ class MpcController:
         self.bnb_spec = bnb_spec or BnbSpec(qp_iters=qp_iters)
         self.qp_iters = qp_iters
         self.rho = rho
+        # stagewise only: the log-depth sweeps (ops/stagewise.py
+        # _solve_K_assoc) instead of the sequential ones
+        self.sw_parallel = sw_parallel
         self.device = resolve_device(device)
         self._soft = None          # (rows, lin_pen, quad_pen)
         self._blocking = None      # groups
@@ -74,6 +81,10 @@ class MpcController:
         self._tree_consensus = False
         self._tqp = None           # consensus-tree preps (ρ, stiff ρ)
         self._tqp_probe = None
+        self._sw = None            # stagewise preps (ρ, stiff ρ)
+        self._sw_probe = None
+        self._swt = None           # stagewise-tree preps (ρ, stiff ρ)
+        self._swt_probe = None
         self._version = 0
         self._built_version = None
         self._cmpc = None
@@ -131,15 +142,15 @@ class MpcController:
 
         ``consensus=False``: one dense joint condensed QP. ``consensus=
         True``: per-scenario QPs coupled by group means inside the ADMM
-        (ops/consensus_tree.py). ``scen_mesh`` (one tree across devices)
-        is not ported."""
+        (ops/consensus_tree.py). With solver="stagewise" the tree rides
+        the O(N) frame (ops/stagewise_tree.py, always the consensus
+        formulation; ``consensus`` is ignored) and composes with soft
+        rows, move blocking, terminal sets and horizon-coupled rows (per
+        scenario: the budget holds on every path). ``scen_mesh`` (one
+        tree across devices) is not ported."""
         if scen_mesh is not None:
             _not_ported("set_scenario_tree(scen_mesh=...)",
                         "item 9, multi-device")
-        if self.solver == "stagewise":
-            _not_ported("scenario trees on the stagewise frame",
-                        "items 6 and 7, stagewise O(N) frame and "
-                        "ops/stagewise_tree.py")
         g0 = np.asarray(tree.groups)[:, 0]
         if not np.all(g0 == g0[0]):
             raise ValueError(
@@ -156,10 +167,12 @@ class MpcController:
     def build(self) -> "MpcController":
         """Condense + prepare solver data (once per configuration
         version). The transforms apply in the reference's order: extra
-        rows, then move blocking, then soft rows. A scenario tree takes
-        none of them."""
-        if self._built_version == self._version and self._cmpc is not None:
+        rows, then move blocking, then soft rows. A condensed scenario tree
+        takes none of them; the stagewise frame takes them all."""
+        if self._built_version == self._version:
             return self
+        if self.solver == "stagewise":
+            return self._build_stagewise()
         tree = self._tree
         if tree is not None and (
                 self._soft is not None or self._blocking is not None
@@ -227,6 +240,45 @@ class MpcController:
         self._built_version = self._version
         return self
 
+    def _build_stagewise(self) -> "MpcController":
+        """The stagewise frame (or, under a scenario tree, the stagewise
+        consensus tree) at ρ and the stiff ρ·10 of the dive probes; both
+        carry the extra rows, with bordered factors of their own."""
+        kw = dict(soft=self._soft, blocking=self._blocking,
+                  terminal=self._terminal, extra=self._extra,
+                  device=self.device)
+        self._cmpc = self._qp = self._admm = self._admm_probe = None
+        self._repair = self._tqp = self._tqp_probe = None
+        self._sw = self._sw_probe = self._swt = self._swt_probe = None
+        if self._tree is not None:
+            from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+                prepare_stagewise_tree)
+
+            if self._tree.N != self.N:
+                raise ValueError(
+                    f"tree N={self._tree.N} != horizon N={self.N}")
+            self._swt, self._swt_probe = (
+                prepare_stagewise_tree(self.model, self._tree, self.weights,
+                                       rho=r, **kw)
+                for r in (self.rho, self.rho * 10.0))
+        else:
+            from pyhybridcontrol_tpu_torch.ops.stagewise import (
+                prepare_stagewise)
+
+            self._sw, self._sw_probe = (
+                prepare_stagewise(self.model, self.N, self.weights, rho=r,
+                                  **kw)
+                for r in (self.rho, self.rho * 10.0))
+        self._built_version = self._version
+        return self
+
+    @property
+    def stagewise(self):
+        """The stagewise prep (``StagewiseQP``, or ``StagewiseTreeQP``
+        under a scenario tree) of solver="stagewise"."""
+        self.build()
+        return self._swt if self._tree is not None else self._sw
+
     @property
     def condensed(self) -> CondensedMpc:
         self.build()
@@ -267,10 +319,12 @@ class MpcController:
 
         Returns StructDict(u, delta, z, v_seq, obj, found, nodes, gap) of
         tensors on the controller's device (a consensus tree returns no
-        ``gap``: its node bounds are not certified). Under a scenario tree
+        ``gap``: its node bounds are not certified; the stagewise frame
+        adds ``x_seq``, the planned states). Under a scenario tree
         ``omega_forecast`` defaults to the tree's own paths, ``price_seq``
-        may have N rows (weighted by the probabilities) or S·N, and
-        ``v_seq`` is the stacked (S·N, nv) plan.
+        may have N rows (weighted by the probabilities; unweighted under
+        solver="stagewise") or S·N, and ``v_seq`` is the stacked (S·N, nv)
+        plan.
         """
         self.build()
         info = self.model.info
@@ -289,6 +343,11 @@ class MpcController:
                 raise ValueError(
                     f"price_seq must have N={self.N} rows (per control "
                     f"step), got {np.shape(price_seq)}")
+        if self.solver == "stagewise":
+            if tree is not None:
+                return self._feedback_tree_stagewise(x0, price_seq, u_prev)
+            return self._feedback_stagewise(x0, omega_forecast, price_seq,
+                                            u_prev)
         if tree is not None and self._tree_consensus:
             return self._feedback_tree_consensus(x0, price_seq, u_prev)
         if tree is not None:
@@ -316,12 +375,7 @@ class MpcController:
                                  admm_probe=self._admm_probe)
             x, obj, found = res.x, res.obj, res.found
             nodes = res.nodes_solved
-            # certified relative optimality gap (0 when the frontier was
-            # exhausted; folds overflow-dropped bounds)
-            bo = res.best_open_bound
-            gap = torch.where(found & torch.isfinite(bo) & (bo < obj),
-                              (obj - bo) / torch.clamp_min(obj.abs(), 1.0),
-                              0.0)
+            gap = self._gap(res)
         else:
             x, obj, _, feas = solve_miqp_enumerate_device(
                 admm, qp, f, h, iters=self.qp_iters)
@@ -348,8 +402,8 @@ class MpcController:
         "vmap" (one ``feedback`` per instance, in a loop: the reference
         vmaps independent per-instance searches, so the results are the
         same function; ``torch.func.vmap`` cannot carry the wave loop's
-        host reads) or "auto" (pooled for solver="bnb" without a consensus
-        tree, else vmap). ``mesh`` placement is not ported.
+        host reads; every solver) or "auto" (pooled for solver="bnb"
+        without a consensus tree, else vmap). ``mesh`` placement is not ported.
         ``pooled_wave``/``pool_slots`` size the pooled search; the
         per-instance node budget matches ``bnb_spec`` (``max_waves``
         rescales to the global wave size).
@@ -471,14 +525,11 @@ class MpcController:
         v_seq = qp.full_v(res.x)                          # (B, N, nv)
         info = self.model.info
         v0 = v_seq[:, 0]
-        bo = res.best_open_bound
-        gap = torch.where(res.found & torch.isfinite(bo) & (bo < res.obj),
-                          (res.obj - bo)
-                          / torch.clamp_min(res.obj.abs(), 1.0), 0.0)
         return StructDict(
             u=v0[:, info.u_slice], delta=v0[:, info.delta_slice],
             z=v0[:, info.z_slice], v_seq=v_seq, obj=res.obj,
-            found=res.found, nodes=res.nodes_solved.expand(B), gap=gap)
+            found=res.found, nodes=res.nodes_solved.expand(B),
+            gap=self._gap(res))
 
     def _feedback_tree_consensus(self, x0, price_seq, u_prev) -> StructDict:
         """Consensus-ADMM tree MIQP (ops/consensus_tree.py): per-scenario
@@ -500,3 +551,64 @@ class MpcController:
             u=v0[info.u_slice], delta=v0[info.delta_slice],
             z=v0[info.z_slice], v_seq=V.reshape(tqp.S * tqp.N, info.nv),
             obj=res.obj, found=res.found, nodes=res.nodes_solved)
+
+    def _gap(self, res):
+        """Certified relative optimality gap of a B&B result (0 when the
+        frontier was exhausted; folds overflow-dropped bounds)."""
+        bo = res.best_open_bound
+        return torch.where(res.found & torch.isfinite(bo) & (bo < res.obj),
+                           (res.obj - bo)
+                           / torch.clamp_min(res.obj.abs(), 1.0), 0.0)
+
+    def _feedback_stagewise(self, x0, omega_forecast, price_seq, u_prev):
+        """The MIQP on the stagewise O(N) frame (solver/bnb_stagewise.py)."""
+        from pyhybridcontrol_tpu_torch.ops.stagewise import (
+            assemble_stagewise, assemble_stagewise_ext)
+        from pyhybridcontrol_tpu_torch.solver.bnb_stagewise import (
+            solve_miqp_bnb_stagewise)
+
+        sw, info = self._sw, self.model.info
+        W = self._tensor(omega_forecast)
+        q, l, u = assemble_stagewise(sw, x0, W, self._tensor(price_seq),
+                                     u_prev=self._tensor(u_prev))
+        ext_u = assemble_stagewise_ext(sw, x0, W) if sw.n_ext else None
+        res = solve_miqp_bnb_stagewise(sw, q, l, u, self.bnb_spec,
+                                       sw_probe=self._sw_probe,
+                                       parallel_sweeps=self.sw_parallel,
+                                       ext_u=ext_u)
+        xi = res.x.reshape(sw.N, sw.b)
+        v_seq = xi[:, :sw.nv]
+        v0 = v_seq[0]
+        return StructDict(
+            u=v0[info.u_slice], delta=v0[info.delta_slice],
+            z=v0[info.z_slice], v_seq=v_seq, obj=res.obj, found=res.found,
+            nodes=res.nodes_solved, gap=self._gap(res), x_seq=xi[:, sw.nv:])
+
+    def _feedback_tree_stagewise(self, x0, price_seq, u_prev):
+        """Scenario-tree MIQP on the stagewise O(N) frame
+        (ops/stagewise_tree.py): per-scenario block-tridiagonal
+        relaxations and the group-mean consensus prox. The tree supplies
+        its own disturbance paths; ``price_seq`` is the single-scenario
+        (N, nv) sequence, unweighted (the probabilities live in the
+        iteration)."""
+        from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+            assemble_stagewise_tree, assemble_stagewise_tree_ext,
+            solve_tree_miqp_stagewise)
+
+        swt, info = self._swt, self.model.info
+        sw = swt.sw
+        q, l, u = assemble_stagewise_tree(
+            swt, x0, price_seq=self._tensor(price_seq),
+            u_prev=self._tensor(u_prev))
+        ext_u = assemble_stagewise_tree_ext(swt, x0) if sw.n_ext else None
+        res = solve_tree_miqp_stagewise(
+            swt, q, l, u, self.bnb_spec, swt_probe=self._swt_probe,
+            parallel_sweeps=self.sw_parallel, ext_u=ext_u)
+        xi = res.x.reshape(swt.S, sw.N, sw.b)
+        v_seq = xi[:, :, :sw.nv]
+        v0 = v_seq[0, 0]
+        return StructDict(
+            u=v0[info.u_slice], delta=v0[info.delta_slice],
+            z=v0[info.z_slice], v_seq=v_seq.reshape(swt.S * sw.N, info.nv),
+            obj=res.obj, found=res.found, nodes=res.nodes_solved,
+            gap=self._gap(res), x_seq=xi[:, :, sw.nv:])

@@ -13,7 +13,10 @@ package. ``mld_model`` carries a reference ``MldModel`` across, and
 ``condensed`` a reference ``CondensedMpc`` as it stands after its
 transforms, so both packages can be fed one frame; ``scenario_tree`` a
 reference ``ScenarioTree``, so both packages can build their tree frames
-from one tree.
+from one tree. ``stagewise_qp`` and ``stagewise_tree_qp`` carry a
+reference stagewise prep (``StagewiseQP``, ``StagewiseTreeQP``) across, so
+the port's device half can be held against the reference on identical
+data, apart from the port's own host build.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from pyhybridcontrol_tpu_torch.ops.condense import (
 )
 from pyhybridcontrol_tpu_torch.ops.cuda_admm import KernelQP
 from pyhybridcontrol_tpu_torch.ops.scenario_tree import ScenarioTree
+from pyhybridcontrol_tpu_torch.ops.stagewise import StagewiseQP
+from pyhybridcontrol_tpu_torch.ops.stagewise_tree import StagewiseTreeQP
 from pyhybridcontrol_tpu_torch.solver.bnb import BnbResult, BnbSpec
 from pyhybridcontrol_tpu_torch.solver.bnb_pooled import PooledState
 from pyhybridcontrol_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
@@ -94,6 +99,35 @@ def scenario_tree(ref) -> ScenarioTree:
     return ScenarioTree(omega_paths=np.array(ref.omega_paths, np.float64),
                         probs=np.array(ref.probs, np.float64),
                         groups=np.array(ref.groups, int))
+
+
+def stagewise_qp(ref, device=DEFAULT_DEVICE) -> StagewiseQP:
+    """A reference ``StagewiseQP`` → port StagewiseQP: every array field as
+    fp32 (None stays None), the static fields as they are."""
+    device = resolve_device(device)
+    kw = {}
+    for f in dataclasses.fields(StagewiseQP):
+        if f.name == "cache":
+            continue
+        v = getattr(ref, f.name)
+        if isinstance(v, tuple):
+            kw[f.name] = tuple(int(i) for i in v)
+        elif v is None or isinstance(v, (bool, int, float)):
+            kw[f.name] = v
+        else:
+            kw[f.name] = _t(v, device)
+    return StagewiseQP(**kw)
+
+
+def stagewise_tree_qp(ref, device=DEFAULT_DEVICE) -> StagewiseTreeQP:
+    """A reference ``StagewiseTreeQP`` → port StagewiseTreeQP over the
+    carried-across stagewise prep."""
+    device = resolve_device(device)
+    return StagewiseTreeQP(
+        sw=stagewise_qp(ref.sw, device), M=_t(ref.M, device),
+        probs=_t(ref.probs, device), omega=_t(ref.omega, device),
+        S=int(ref.S), binary_reps=tuple(int(i) for i in ref.binary_reps),
+        rep_map=tuple(int(i) for i in ref.rep_map))
 
 
 def device_qp(ref, device=DEFAULT_DEVICE) -> DeviceQP:

@@ -25,9 +25,10 @@ from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 # library name -> source; K1/K2 in admm.cu, K1's split-precision phase
-# (tensor cores) in admm_mixed.cu
+# (tensor cores) in admm_mixed.cu, K4 (the stagewise sweep) in stagewise.cu
 LIBRARIES = {"admm": PKG_DIR / "csrc" / "admm.cu",
-             "admm_mixed": PKG_DIR / "csrc" / "admm_mixed.cu"}
+             "admm_mixed": PKG_DIR / "csrc" / "admm_mixed.cu",
+             "stagewise": PKG_DIR / "csrc" / "stagewise.cu"}
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 DEFAULT_CUDA_HOMES = ("/usr/local/cuda",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -125,7 +126,17 @@ def _bind_admm_mixed(lib):
     lib.phc_admm_k1_mixed.restype = I
 
 
-_BINDERS = {"admm": _bind_admm, "admm_mixed": _bind_admm_mixed}
+def _bind_stagewise(lib):
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.phc_sw_smem_bytes.argtypes = [I, I, I, I]   # N, b, warps, staged
+    lib.phc_sw_smem_bytes.restype = I
+    # r L Uinv C | x, then P N b warps staged bmax stream
+    lib.phc_sw_solve_k.argtypes = [P] * 5 + [I] * 6 + [P]
+    lib.phc_sw_solve_k.restype = I
+
+
+_BINDERS = {"admm": _bind_admm, "admm_mixed": _bind_admm_mixed,
+            "stagewise": _bind_stagewise}
 
 
 def load_library(name: str = "admm"):

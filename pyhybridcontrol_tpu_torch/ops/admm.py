@@ -87,6 +87,9 @@ class AdmmResult:
     #   certificate from the last dual step δy
     y: torch.Tensor          # (..., m̄) dual (scaled) — for warm starts
     z: torch.Tensor          # (..., m̄)
+    # the stagewise frame's horizon-coupled extra rows (ops/stagewise.py)
+    z_ext: Optional[torch.Tensor] = None   # (..., r)
+    y_ext: Optional[torch.Tensor] = None   # (..., r)
 
 
 def prepare_admm(G: np.ndarray, H: np.ndarray, *, rho: float = 1.0,

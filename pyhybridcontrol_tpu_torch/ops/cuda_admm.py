@@ -84,9 +84,11 @@ from pyhybridcontrol_tpu_torch.ops.admm import (
     infeasibility_certificate,
 )
 
-# launches per kernel wrapper (incremented only where the kernel launches)
+# launches per kernel wrapper (incremented only where the kernel launches;
+# "stagewise_k4" by ops/cuda_stagewise.py)
 LAUNCHES = {"admm_k1": 0, "admm_k2": 0, "admm_k1_mixed": 0,
-            "admm_k1_streamed": 0, "admm_k2_streamed": 0, "admm_k1_split": 0}
+            "admm_k1_streamed": 0, "admm_k2_streamed": 0, "admm_k1_split": 0,
+            "stagewise_k4": 0}
 # batch size -> launches, per kernel wrapper (same events as LAUNCHES)
 LAUNCH_BATCHES = {k: {} for k in LAUNCHES}
 
@@ -937,7 +939,8 @@ def admm_solve_auto(spec: BoxQP, q, h, lb, ub, iters: int = 100,
     fn = _route(q, admm_solve_plain, admm_solve_cuda)
     res = fn(kernel_qp_for(spec), q, hb, lbb, ubb, iters=iters, warm=warm)
     if single:
-        res = AdmmResult(**{k: v[0] for k, v in vars(res).items()})
+        res = AdmmResult(**{k: None if v is None else v[0]
+                            for k, v in vars(res).items()})
     return res
 
 

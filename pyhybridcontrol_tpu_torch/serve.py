@@ -390,7 +390,8 @@ def stdin_loop(ctrl, ready, inp=None, out=None):
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="pyhybridcontrol_tpu_torch.serve")
     ap.add_argument("--config", required=True)
-    ap.add_argument("--solver", default="bnb", choices=["bnb", "enumerate"])
+    ap.add_argument("--solver", default="bnb",
+                    choices=["bnb", "enumerate", "stagewise"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--tcp", type=int, default=None, metavar="PORT",
                     help="serve line-delimited JSON on a TCP socket (0 = "

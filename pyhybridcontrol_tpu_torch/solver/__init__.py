@@ -3,6 +3,10 @@ from pyhybridcontrol_tpu_torch.solver.bnb import (
     BnbSpec,
     solve_miqp_bnb,
 )
+from pyhybridcontrol_tpu_torch.solver.bnb_stagewise import (
+    StagewiseBackend,
+    solve_miqp_bnb_stagewise,
+)
 from pyhybridcontrol_tpu_torch.solver.bnb_pooled import (
     KernelCondensedBackend,
     PooledState,
@@ -28,7 +32,8 @@ def __getattr__(name):
 
 
 __all__ = ["BnbResult", "BnbSpec", "KernelCondensedBackend", "PooledState",
-           "solve_miqp_bnb", "solve_miqp_bnb_pooled",
+           "StagewiseBackend", "solve_miqp_bnb", "solve_miqp_bnb_pooled",
+           "solve_miqp_bnb_stagewise",
            "solve_miqp_enumerate_device", "OracleResult",
            "solve_qp_oracle", "solve_miqp_enumeration_oracle",
            "solve_tree_miqp"]

@@ -415,8 +415,14 @@ def test_scenario_tree_refusals():
     tc = MpcController(TM, N, tdi.default_weights(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
         tc.set_scenario_tree(tt, consensus=True, scen_mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MpcController(TM, N, solver="stagewise", device="cpu")
+    sc = MpcController(TM, N, solver="stagewise", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+        sc.set_scenario_tree(tt, scen_mesh=object())
+    from pyhybridcontrol_tpu_torch.ops import stagewise_tree as tswt
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+        tswt.stagewise_tree_admm_solve(None, None, None, None,
+                                       scen_mesh=object())
     step0 = tst.ScenarioTree.from_branching(np.zeros((2, N, 1)),
                                             branch_steps=(0,))
     with pytest.raises(ValueError, match="step 0"):

@@ -145,13 +145,20 @@ def test_unported_paths_raise():
     # soft rows are ported: the setter configures, the next build softens
     assert tc.set_soft_constraints([6, 7], lin_pen=5.0, quad_pen=1.0) is tc
     assert tc.condensed.n_soft == 2 and tc.repair[1] == "soft"
-    # scenario trees are ported (tests/test_torch_scenario_tree.py); a tree
-    # across devices and the stagewise tree frame are not
+    # scenario trees (tests/test_torch_scenario_tree.py) and the stagewise
+    # frame with its tree (tests/test_torch_stagewise*.py) are ported; a
+    # tree across devices is not, on either frame
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
         tc.set_scenario_tree(object(), scen_mesh=object())
-    tc.solver = "stagewise"
-    with pytest.raises(NotImplementedError, match="ROADMAP.*items 6 and 7"):
-        tc.set_scenario_tree(object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    sc = MpcController(tdi.switched_double_integrator(), 4,
+                       solver="stagewise", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+        sc.set_scenario_tree(object(), scen_mesh=object())
+    from pyhybridcontrol_tpu_torch.ops import stagewise_tree as tswt
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+        tswt.solve_tree_miqp_stagewise(None, None, None, None,
+                                       scen_mesh=object())
+    with pytest.raises(ValueError, match="unknown solver"):
         MpcController(tdi.switched_double_integrator(), 4,
-                      solver="stagewise", device="cpu")
+                      solver="stagewise_dense", device="cpu")

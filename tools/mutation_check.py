@@ -4,13 +4,15 @@ versions, on the card (a development tool, not part of the package):
     python tools/mutation_check.py          # the split-precision kernel
     python tools/mutation_check.py admm     # K1 and K2
     python tools/mutation_check.py streamed # K1/K2 streamed, K1 split mode
+    python tools/mutation_check.py stagewise   # K4, the stagewise sweep
 
 Run from the root of a checkout. For each mutation it copies the package
 and ``chip_smoke.py`` into a fresh temporary directory, breaks one line of
-the kernel source there (``csrc/admm_mixed.cu``, or ``csrc/admm.cu``),
-builds the broken kernel and runs the phases of ``chip_smoke`` that hold
-that kernel (``phase_k1_mixed``; ``phase_k1``, ``phase_k2`` and
-``phase_far``; or ``phase_streamed`` and ``phase_split``). A mutation
+the kernel source there (``csrc/admm_mixed.cu``, ``csrc/admm.cu`` or
+``csrc/stagewise.cu``), builds the broken kernel and runs the phases of
+``chip_smoke`` that hold that kernel (``phase_k1_mixed``; ``phase_k1``,
+``phase_k2`` and ``phase_far``; ``phase_streamed`` and ``phase_split``;
+or ``phase_k4``). A mutation
 is caught when a field goes off its limit; the line printed for it names
 the first such field and the largest reading of every field. The unbroken copy ("none") must pass. The checkout itself is
 never touched; a mutation whose line is no longer in the source exactly
@@ -72,6 +74,22 @@ MUTATIONS_MIXED = {
         "y[nt][c] = y[nt][c] + rho * (zr - zn);",
         "y[nt][c] = p.box ? y[nt][c] : y[nt][c] + rho * (zr - zn);"),
 }
+MUTATIONS_STAGEWISE = {
+    "none": None,
+    "forward sweep: column 0 of L dropped": (
+        "if (i < b) acc[t] = fmaf(Lk[i * b + j], yj, acc[t]);",
+        "if (i < b && j > 0) acc[t] = fmaf(Lk[i * b + j], yj, acc[t]);"),
+    "backward sweep: last column of C dropped": (
+        "if (i < b) c[t] = fmaf(Ck[i * b + j], xj, c[t]);",
+        "if (i < b && j + 1 < b) c[t] = fmaf(Ck[i * b + j], xj, c[t]);"),
+    "y_k not kept for the backward sweep": ("yk[i] = prev[t];", ""),
+    "forward sweep reads the next stage's L": (
+        "const float* Lk = L + (size_t)k * bb;",
+        "const float* Lk = L + (size_t)((k + 1) % N) * bb;"),
+    "backward sweep stops before stage 0": (
+        "for (int k = N - 1; k >= 0; --k) {",
+        "for (int k = N - 1; k >= 1; --k) {"),
+}
 # every field is read (chip_smoke's --readings mode); the first one off its
 # limit is printed
 RUN = r"""
@@ -90,6 +108,8 @@ try:
     elif MODE == "streamed":
         cs.phase_streamed(dev, cs.phase_rng("streamed"), recs)
         cs.phase_split(dev, cs.phase_rng("split"), recs["admm_k1_split"])
+    elif MODE == "stagewise":
+        cs.phase_k4(dev, cs.phase_rng("k4"), recs["stagewise_k4"])
     else:
         cs.phase_k1_mixed(dev, cs.phase_rng("k1_mixed"), {})
     if cs.OVER:
@@ -107,14 +127,16 @@ MODES = {"mixed": ("admm_mixed.cu", MUTATIONS_MIXED,
                    ("mixed_iterates", "mixed")),
          "admm": ("admm.cu", MUTATIONS_ADMM, ("main", "far")),
          "streamed": ("admm.cu", MUTATIONS_STREAMED,
-                      ("main", "large", "mixed_iterates", "mixed"))}
+                      ("main", "large", "mixed_iterates", "mixed")),
+         "stagewise": ("stagewise.cu", MUTATIONS_STAGEWISE,
+                       ("sweep", "main"))}
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     mode = argv[0] if argv else "mixed"
     if mode not in MODES or len(argv) > 1:
-        print("usage: mutation_check.py [mixed|admm|streamed]",
+        print("usage: mutation_check.py [mixed|admm|streamed|stagewise]",
               file=sys.stderr)
         return 2
     kernel, mutations, regimes = MODES[mode]

@@ -1,7 +1,9 @@
-"""The plain version's own fp32 noise on config 4c's pooled wave (a
-development tool, not part of the package; runs on the CPU):
+"""The plain version's own fp32 noise on config 4c's pooled wave, or on
+config 6's stagewise wave (a development tool, not part of the package;
+runs on the CPU):
 
     python tools/plain_noise.py [--batch B] [--seed S]
+    python tools/plain_noise.py --stagewise [--seed S]
 
 Builds config 4c's dense joint frame (the reference bench's tree: S=4,
 N=10, branching at steps 1 and 5), draws B seeded states and B&B-node
@@ -16,6 +18,15 @@ after a one-ulp change of q. Prints, per field, the error
 1 for obj/x/z/y and 1e-3 for the residuals — of float32 against float64.
 Where these readings are well under the "main" limits, the kernels are
 held to "main" there.
+
+``--stagewise``: config 6's long-arm frame (S=8, N=120, Σu ≤ 60;
+``chip_smoke.config6_trees``) and a wave of 8 nodes with 30% of the
+information-set representatives fixed at random (``chip_smoke.node_wave``,
+seeded by S): the stagewise tree relaxation (150 iterations) and the probe
+(every representative fixed to its rounded value, 1000 iterations at ρ·10,
+warm from the relaxation) through the plain sweeps, in float32 against
+float64, and the probe again after a one-ulp change of q — what phase 20
+of ``chip_smoke.py`` holds K4's whole solve to.
 """
 
 from __future__ import annotations
@@ -131,13 +142,66 @@ def readings(B=300, seed=5):
     return out
 
 
+def _double_tree(swt):
+    """A stagewise tree prep in float64 (its own operator cache)."""
+    from pyhybridcontrol_tpu_torch.ops.stagewise import stagewise_double
+
+    return dataclasses.replace(swt, sw=stagewise_double(swt.sw),
+                               M=swt.M.double(),
+                               probs=swt.probs.double(),
+                               omega=swt.omega.double())
+
+
+def stagewise_readings(seed=5):
+    """{stage: {field: error}} of float32 against float64 on config 6's
+    stagewise wave (see the module docstring)."""
+    import chip_smoke as cs
+
+    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+        StagewiseTreeBackend, assemble_stagewise_tree_ext)
+
+    tree_l = cs.config6_trees()[1]
+    swt, swtp = cs.config6_preps("cpu", tree_l, cs.config6_extra(cs.CFG6_N))
+    x0 = torch.tensor(cs.X0_6)
+    eu = assemble_stagewise_tree_ext(swt, x0)
+    be, fb, hb, lb, ub = cs.node_wave(swt, eu, np.random.default_rng(seed),
+                                      cs.CFG6_SPEC["wave_size"],
+                                      cs.K4_HOLD_FIX)
+    be64 = StagewiseTreeBackend(_double_tree(swt), ext_u=eu.double())
+    bp = StagewiseTreeBackend(swtp, ext_u=eu)
+    bp64 = StagewiseTreeBackend(_double_tree(swtp), ext_u=eu.double())
+    iters, piters = cs.CFG6_SPEC["qp_iters"], cs.CFG6_SPEC["probe_iters"]
+    d = tuple(a.double() for a in (fb, hb, lb, ub))
+    out = {}
+    r32 = be.solve(fb, hb, lb, ub, iters)
+    out[f"relaxation, {iters} it"] = _errors(r32, be64.solve(*d, iters))
+    reps = torch.as_tensor(be.binary_idx)
+    pv = torch.round(torch.clamp(r32.x[:, reps], 0.0, 1.0))
+    lbp, ubp = lb.clone(), ub.clone()
+    lbp[:, reps] = ubp[:, reps] = pv
+    warm = (r32.x, r32.z, r32.y)
+    p32 = bp.solve(fb, hb, lbp, ubp, piters, warm=warm)
+    p64 = bp64.solve(fb.double(), hb.double(), lbp.double(), ubp.double(),
+                     piters, warm=tuple(w.double() for w in warm))
+    out[f"probe, {piters} it at rho*10 warm"] = _errors(p32, p64)
+    out["probe, one ulp of q (float32 both)"] = _errors(
+        bp.solve(fb * (1 + 2.0 ** -23), hb, lbp, ubp, piters, warm=warm),
+        p32)
+    out["probe converged share (r_prim_rel < 1e-3)"] = float(
+        (p32.r_prim_rel < 1e-3).float().mean())
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=300)
     ap.add_argument("--seed", type=int, default=5)
+    ap.add_argument("--stagewise", action="store_true")
     a = ap.parse_args(argv)
     torch.set_num_threads(4)
-    for stage, errs in readings(a.batch, a.seed).items():
+    got = (stagewise_readings(a.seed) if a.stagewise
+           else readings(a.batch, a.seed))
+    for stage, errs in got.items():
         if isinstance(errs, float):
             print(f"{stage}: {errs:.3f}")
         else:
