@@ -134,8 +134,9 @@ Run from the root of a checkout. It builds the kernels of
      the kernel phases (after 10) so that ``--readings`` reads it: config
      6's long-arm frame (P=64: a wave of 8 nodes × S=8, N=120, b=5) at ρ
      and ρ·10, staged and through L2, its parity arm's (P=64, N=4), a
-     double-integrator frame at N=40 with P = 1, 33, 257 and the PWA hull
-     model (b=13) at N=20, within the "sweep" limit; then the whole
+     double-integrator frame at N=40 with P = 1, 33, 257, the PWA hull
+     model (b=13) at N=20, within the "sweep" limit, and random factors
+     at b = 20, 40, 100 (the wider instantiations), within "sweep_wide"; then the whole
      stagewise tree relaxation (150 iterations) and the 1000-iteration
      probe at ρ·10 on config 6's frame through K4 against the plain
      sweeps, within "main", certificate bits identical. K4 alone, its
@@ -152,7 +153,9 @@ Run from the root of a checkout. It builds the kernels of
      a multiple of S; ``serve --config double_integrator --solver
      stagewise`` through the stdin loop (a ping, three states, one out of
      the box), objectives within ``serve_limit`` of the port's condensed
-     enumeration plan valued in the stagewise frame.
+     enumeration plan valued in the stagewise frame; and the stagewise
+     controller with soft rows, move blocking, a terminal set and a budget
+     row at once (N=8), on the card within 1e-3 of the same on the CPU.
 
 Each phase prints its wall time, and the run its total. Launch counts are
 kept per path (PATHS): set to 0 just before each served request set, the
@@ -221,7 +224,7 @@ PATHS = SERVED + ("pooled_bench_spec", "pooled_carried_incumbents",
                   "closed_loop_N27", "relax_sweep_N27_low_frac",
                   "config2_call", "config2b_call", "config3_loop",
                   "config4b_loop", "config4c_call", "config4c_feedback",
-                  "config6_parity", "config6_long")
+                  "config6_parity", "config6_long", "stagewise_transforms")
 # peak rates of one H100 SXM at 700 W (NVIDIA data sheet): fp32 outside
 # the tensor cores, dense bf16 in them, HBM3
 PEAK = dict(fp32=67e12, bf16=989e12, hbm=3.35e12)
@@ -276,6 +279,10 @@ LIMITS = {
     # column order; phase 20): 3.4x the largest reading of seeds 0-7 on an
     # H100, 1.79e-7 (tools/k4_readings.py)
     "sweep": dict(x=6e-7),
+    # the same at the wide instantiations' random factors (b = 20-100:
+    # longer rows, more rounding): 3x the largest reading of seeds 0-7,
+    # 5.36e-7 at b=100
+    "sweep_wide": dict(x=1.6e-6),
 }
 # the iterate check starts from the plain version's iterates after these
 # many split-precision iterations
@@ -2802,6 +2809,24 @@ def k4_frames(dev):
     return out
 
 
+# the wider instantiations (bmax 32, 64, 128), which no model of the repo
+# reaches yet: random factors of a stable recursion, held but not timed
+K4_WIDE = ((20, 8), (40, 6), (100, 4))        # (b, N), each at P=8
+
+
+def k4_wide(dev, rng):
+    """(tag, factors, P) of the wide shapes: L, U⁻¹, C with entries of
+    N(0, 0.3²/b), so the sweeps neither grow nor vanish."""
+    import torch
+
+    out = []
+    for b, N in K4_WIDE:
+        f = torch.as_tensor(rng.normal(0.0, 0.3 / b ** 0.5, (3, N, b, b)),
+                            dtype=torch.float32, device=dev)
+        out.append((f"random factors b={b}, N={N}", tuple(f.unbind(0)), 8))
+    return out
+
+
 def k4_work(P, N, b):
     """(bytes, {type: operations}) of one K4 call: r and x once, the three
     factor arrays once; per problem and stage b² FMAs forward and 2·b²
@@ -2946,6 +2971,18 @@ def phase_k4(dev, rng, rec):
                   f"stages); torch.linalg.lu_solve on the dense LU of K "
                   f"({N * b}², {P} right-hand sides): "
                   f"{rec['library_ms']:.3f} ms", flush=True)
+
+    for tag, factors, P in k4_wide(dev, rng):
+        N, b = factors[0].shape[:2]
+        r = torch.as_tensor(rng.normal(size=(P, N, b)), dtype=torch.float32,
+                            device=dev)
+        ref = tsw._solve_K(None, r, factors)
+        staged = cs.plan_sweep(P, N, b).staged
+        for st in ((True, False) if staged else (False,)):
+            pl = cs.plan_sweep(P, N, b, st)
+            held(f"{tag} P={P} (bmax {pl.bmax}, "
+                 f"{'staged' if st else 'through L2'})", "sweep_wide",
+                 {"x": (cs.sw_solve_k_cuda(r, factors, staged=st), ref)})
 
     tree_l = config6_trees()[1]
     swt, swtp = config6_preps(dev, tree_l, config6_extra(CFG6_N))
@@ -3106,13 +3143,16 @@ def phase_config6(dev):
     feasible in fp64, every launch K4 at a multiple of S=8; and
     ``serve --config double_integrator --solver stagewise`` through the
     stdin loop, its objectives within ``serve_limit`` of the port's
-    condensed enumeration plan valued in the stagewise frame."""
+    condensed enumeration plan valued in the stagewise frame; the
+    stagewise controller with every stage-row transform and a budget row,
+    the card against the CPU."""
     import numpy as np
     import torch
 
     from pyhybridcontrol_tpu_torch import serve
     from pyhybridcontrol_tpu_torch.control.mpc import MpcController
-    from pyhybridcontrol_tpu_torch.models import di_default_weights
+    from pyhybridcontrol_tpu_torch.models import (
+        di_default_weights, switched_double_integrator)
     from pyhybridcontrol_tpu_torch.ops.condense import CondensedMpc
     from pyhybridcontrol_tpu_torch.ops.scenario_tree import (
         build_scenario_tree_qp)
@@ -3241,10 +3281,61 @@ def phase_config6(dev):
           f"serve stagewise: out-of-box state must come back found=false, "
           f"got {bad}")
     out["serve_ms"] = [r["ms"] for r in replies[2:]]
+
+    # (d) soft rows, move blocking, a terminal set and an input budget at
+    # once through the stagewise controller: the card against the CPU
+    spec = BnbSpec(capacity=128, wave_size=16, qp_iters=300, max_waves=24,
+                   probe_iters=600)
+    A_v = np.zeros((1, 8 * 3))
+    A_v[0, 0::3] = 1.0
+    prices = np.zeros((8, 3), np.float32)
+    prices[:, 0] = 0.1
+    kw = dict(price_seq=prices, u_prev=np.array([0.2], np.float32))
+
+    def transforms(device):
+        c = MpcController(switched_double_integrator(), 8, w,
+                          solver="stagewise", bnb_spec=spec, device=device)
+        c.set_soft_constraints([1, 9], lin_pen=5.0, quad_pen=1.0)
+        c.set_move_blocking([0, 0, 1, 1, 2, 2, 3, 3])
+        c.set_terminal_constraint(np.array([[1.0, 0.0]]), np.array([1.0]))
+        c.set_extra_constraints(A_v, np.array([-0.5]))
+        return c.feedback([1.0, -0.5], **kw)
+
+    t0 = time.perf_counter()
+    with no_plain_sweep():
+        got, _ = drive("stagewise_transforms", lambda: transforms(dev))
+    ms = 1e3 * (time.perf_counter() - t0)
+    only_k4("stagewise_transforms", 1)
+    ref = transforms("cpu")
+    rel = abs(float(got.obj) - float(ref.obj)) / max(1.0, abs(float(ref.obj)))
+    du = float((got.u.cpu() - ref.u).abs().max())
+    print(f"stagewise controller, soft rows + blocking + terminal set + "
+          f"budget row (N=8): card {float(got.obj):.6f} in {ms:.0f} ms, "
+          f"CPU {float(ref.obj):.6f}, relative {rel:.2e} (limit 1e-3), "
+          f"|Δu| {du:.2e} (3e-2)", flush=True)
+    check(bool(got.found) and bool(ref.found) and rel <= 1e-3 and du <= 3e-2,
+          "stagewise transforms: the card's solve is off the CPU's")
+    out["transforms"] = dict(ms=ms, obj=float(got.obj), cpu_obj=float(ref.obj))
     return out
 
 
 T_START = time.perf_counter()
+
+
+def ptxas_report(log):
+    """The ``-Xptxas -v`` lines on registers and spills, each after the
+    kernel instantiation it belongs to (its mangled name, less the
+    anonymous namespace)."""
+    import re
+
+    fn = "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+", "",
+                        m.group(1))[:48]
+        elif "registers" in line or "bytes stack" in line:
+            yield f"{fn}: {line.strip()}"
 
 
 def phase(name, fn, *args):
@@ -3292,9 +3383,8 @@ def main(argv=None):
         _build.load_library(lib)
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
           f"({_build.BUILD_INFO.get('paths')})", flush=True)
-    for line in _build.BUILD_INFO.get("log", "").splitlines():
-        if "registers" in line or "bytes stack" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    for line in ptxas_report(_build.BUILD_INFO.get("log", "")):
+        print(f"  ptxas: {line}", flush=True)
 
     recs = {k: dict(name=k, route="cuda", source=SOURCES[k], replaces=v)
             for k, v in REPLACES.items()}

@@ -43,9 +43,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     _build.load_library("stagewise")
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in _build.BUILD_INFO.get("log", "").splitlines():
-        if "registers" in line or "bytes stack" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    for line in cs.ptxas_report(_build.BUILD_INFO.get("log", "")):
+        print(f"  ptxas: {line}", flush=True)
     cs.READINGS_ONLY = True
     rec = {}
     for seed in seeds:
