@@ -3134,6 +3134,51 @@ def profile_wave(swt, eu):
     return prof
 
 
+def profile_config6_solve(dev):
+    """One whole solve of config 6's long arm under torch.profiler (run by
+    ``tools/k4_readings.py --profile``, not by ``main``: its ~360k device
+    operations take minutes to collect): device operations, K4's launches
+    and device time, busy time and the idle share against the median of
+    3 unprofiled solves."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+        assemble_stagewise_tree, assemble_stagewise_tree_ext,
+        solve_tree_miqp_stagewise)
+    from pyhybridcontrol_tpu_torch.profile_serve import profile_request
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    swt, swtp = config6_preps(dev, config6_trees()[1], config6_extra(CFG6_N))
+    x0 = torch.tensor(X0_6, device=dev)
+    data = assemble_stagewise_tree(swt, x0)
+    eu = assemble_stagewise_tree_ext(swt, x0)
+
+    def solve():
+        return solve_tree_miqp_stagewise(swt, *data, BnbSpec(**CFG6_SPEC),
+                                         swt_probe=swtp, ext_u=eu)
+
+    solve()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    prof = profile_request(solve)
+    prof["ms"] = sorted(times)[1]
+    prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["ms"]
+    print(f"config 6 long arm, one solve under torch.profiler: "
+          f"{prof['device_ops']} device operations, busy "
+          f"{prof['device_busy_ms']:.1f} ms of {prof['ms']:.1f} ms unprofiled "
+          f"(median of {[round(t, 1) for t in times]}): idle share "
+          f"{prof['idle_share']:.3f}; K4 {prof['k4_launches']} launches, "
+          f"{prof['k4_device_ms']:.1f} ms on the device", flush=True)
+    check(prof["k4_launches"] > 0 and prof["k1_launches"] == 0
+          and prof["k2_launches"] == 0, "config 6 profile: launches")
+    return prof
+
+
 def phase_config6(dev):
     """Config 6 of the reference bench (bench.py:742-816) through the port,
     nothing cut, with the plain sweeps made to raise: the parity arm

@@ -2,14 +2,15 @@
 the "sweep" limit of ``chip_smoke.py`` and the whole-solve holds of its
 phase 20 are set):
 
-    python tools/k4_readings.py [--seeds 0-7] [--config6]
+    python tools/k4_readings.py [--seeds 0-7] [--config6] [--profile]
 
 Builds the kernels, then runs ``chip_smoke.phase_k4`` once per seed with
 ``--readings`` semantics (every field read, none stopping the run) and
 prints, per regime, the largest error of every field over the seeds, and
 the fields off their limits. ``--config6`` then runs phase 21 (config 6's
 two arms and the served stagewise requests) once, as ``chip_smoke.py``
-does.
+does; ``--profile`` then profiles one whole solve of config 6's long arm
+(``chip_smoke.profile_config6_solve``: device operations, idle share).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", default="0-7")
     ap.add_argument("--config6", action="store_true")
+    ap.add_argument("--profile", action="store_true")
     a = ap.parse_args(argv)
     lo, _, hi = a.seeds.partition("-")
     seeds = range(int(lo), int(hi or lo) + 1)
@@ -59,6 +61,8 @@ def main(argv=None):
     if a.config6:
         cs.READINGS_ONLY = False
         cs.phase("config 6", cs.phase_config6, dev)
+    if a.profile:
+        cs.phase("config 6 profile", cs.profile_config6_solve, dev)
     return 1 if cs.OVER else 0
 
 
