@@ -133,13 +133,16 @@ Run from the root of a checkout. It builds the kernels of
      version (``ops/stagewise._solve_K``, torch ops on the card), run with
      the kernel phases (after 10) so that ``--readings`` reads it: config
      6's long-arm frame (P=64: a wave of 8 nodes × S=8, N=120, b=5) at ρ
-     and ρ·10, staged and through L2, its parity arm's (P=64, N=4), a
-     double-integrator frame at N=40 with P = 1, 33, 257, the PWA hull
-     model (b=13) at N=20, within the "sweep" limit, and random factors
-     at b = 20, 40, 100 (the wider instantiations), within "sweep_wide"; then the whole
-     stagewise tree relaxation (150 iterations) and the 1000-iteration
-     probe at ρ·10 on config 6's frame through K4 against the plain
-     sweeps, within "main", certificate bits identical. K4 alone, its
+     and ρ·10, staged and through L2, its parity arm's (P=64, N=4), the
+     frames of phase 21's served double integrator (P=32, N=10) and of
+     its transforms hold (P=16, N=8) at ρ and ρ·10, a double-integrator
+     frame at N=40 with P = 1, 33, 257, the PWA hull model (b=13) at
+     N=20, within the "sweep" limit, and random factors at b = 20, 40,
+     100 (the wider instantiations), within "sweep_wide"; then the whole
+     stagewise tree relaxation (150 iterations; each path warm, median of
+     3) and the 1000-iteration probe at ρ·10 on config 6's frame through
+     K4 against the plain sweeps, within "main", certificate bits
+     identical. K4 alone, its
      wrapper and the plain sweeps timed, its bound, its chain floor, and
      ``torch.linalg.lu_solve`` on the dense LU of K as the library call;
  21. config 6 of the reference bench (bench.py:742-816), nothing cut, with
@@ -2778,11 +2781,39 @@ def config6_preps(dev, tree, extra=None):
                  for r in (1.0, 10.0))
 
 
+def sw_transforms_controller(device):
+    """The stagewise controller of phase 21's transforms hold (N=8, wave
+    16): soft rows, move blocking, a terminal set and an input budget
+    Σu ≤ −0.5 at once, built."""
+    import numpy as np
+
+    from pyhybridcontrol_tpu_torch.control.mpc import MpcController
+    from pyhybridcontrol_tpu_torch.models import (
+        di_default_weights, switched_double_integrator)
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    spec = BnbSpec(capacity=128, wave_size=16, qp_iters=300, max_waves=24,
+                   probe_iters=600)
+    A_v = np.zeros((1, 8 * 3))
+    A_v[0, 0::3] = 1.0
+    c = MpcController(switched_double_integrator(), 8, di_default_weights(),
+                      solver="stagewise", bnb_spec=spec, device=device)
+    c.set_soft_constraints([1, 9], lin_pen=5.0, quad_pen=1.0)
+    c.set_move_blocking([0, 0, 1, 1, 2, 2, 3, 3])
+    c.set_terminal_constraint(np.array([[1.0, 0.0]]), np.array([1.0]))
+    c.set_extra_constraints(A_v, np.array([-0.5]))
+    return c.build()
+
+
 def k4_frames(dev):
     """(tag, key, prep, P) of every shape phase 20 holds K4 at: config 6's
     long-arm frame (a wave of 8 nodes × S=8) and its parity arm's (a wave
-    of 32 × S=2), each at ρ and ρ·10; a single double-integrator frame at
-    N=40 with P = 1, 33, 257; the PWA hull model (b=13) at N=20."""
+    of 32 × S=2); the frames of phase 21's other stagewise paths at their
+    wave: the served double integrator (N=10, P=32) and the transforms
+    hold (soft rows, blocking, terminal set, budget row; N=8, P=16); each
+    at ρ and ρ·10; a single double-integrator frame at N=40 with P = 1,
+    33, 257; the PWA hull model (b=13) at N=20."""
+    from pyhybridcontrol_tpu_torch import serve
     from pyhybridcontrol_tpu_torch.models import (
         di_default_weights, switched_double_integrator)
     from pyhybridcontrol_tpu_torch.models.pwa_examples import (
@@ -2799,6 +2830,13 @@ def k4_frames(dev):
         for swt, rho in zip(preps, ("ρ", "ρ·10")):
             out.append((f"{tag} {rho}", key if rho == "ρ" else key + "_stiff",
                         swt.sw, P))
+    for tag, key, c in (
+            ("served double integrator", "serve_sw", serve.make_controller(
+                "double_integrator", "stagewise", dev.type)),
+            ("transforms hold", "transforms", sw_transforms_controller(dev))):
+        for sw, rho in ((c._sw, "ρ"), (c._sw_probe, "ρ·10")):
+            out.append((f"{tag} {rho}", key if rho == "ρ" else key + "_stiff",
+                        sw, c.bnb_spec.wave_size))
     sw40 = prepare_stagewise(switched_double_integrator(), 40,
                              di_default_weights(), device=dev)
     for P in (1, 33, 257):
@@ -2865,12 +2903,12 @@ def plain_sweep():
     ops on the card) instead of K4."""
     from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
 
-    orig = tsw.sw_solve_k_auto
-    tsw.sw_solve_k_auto = lambda r, factors: tsw._solve_K(None, r, factors)
+    orig = tsw.sw_solve_k_cuda
+    tsw.sw_solve_k_cuda = lambda r, factors: tsw._solve_K(None, r, factors)
     try:
         yield
     finally:
-        tsw.sw_solve_k_auto = orig
+        tsw.sw_solve_k_cuda = orig
 
 
 @contextlib.contextmanager
@@ -2991,15 +3029,15 @@ def phase_k4(dev, rng, rec):
     W = CFG6_SPEC["wave_size"]
     be, fb, hb, lb, ub = node_wave(swt, eu, rng, W, K4_HOLD_FIX)
     iters, piters = CFG6_SPEC["qp_iters"], CFG6_SPEC["probe_iters"]
-    t0 = time.perf_counter()
-    got = be.solve(fb, hb, lb, ub, iters)
-    torch.cuda.synchronize()
-    t_k4 = time.perf_counter() - t0
+
+    def relax():
+        return be.solve(fb, hb, lb, ub, iters)
+
+    got = relax()
+    t_k4 = wall_median(relax)
     with plain_sweep():
-        t0 = time.perf_counter()
-        ref = be.solve(fb, hb, lb, ub, iters)
-        torch.cuda.synchronize()
-        t_plain = time.perf_counter() - t0
+        ref = relax()
+        t_plain = wall_median(relax)
     compare(f"config 6 relaxation, {W} nodes × S={CFG6_S}, {iters} it",
             got, ref, rec, "main")
     # the probe: every representative fixed to the plain relaxation's
@@ -3015,8 +3053,24 @@ def phase_k4(dev, rng, rec):
         ref_p = bp.solve(fb, hb, lbp, ubp, piters, warm=warm)
     compare(f"config 6 probe at ρ·10, {piters} it", got_p, ref_p, rec,
             "main")
-    print(f"  the relaxation ({iters} it, P={W * CFG6_S}): {t_k4:.3f} s "
-          f"through K4, {t_plain:.3f} s through the plain sweeps", flush=True)
+    print(f"  the relaxation ({iters} it, P={W * CFG6_S}), each warm, median "
+          f"of 3: {t_k4:.3f} s through K4, {t_plain:.3f} s through the plain "
+          "sweeps", flush=True)
+
+
+def wall_median(fn, reps=3):
+    """Median host-clock seconds of ``reps`` calls of ``fn``, each ended by
+    a synchronise (the caller warms ``fn`` first)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[reps // 2]
 
 
 def plan6_feasible(tag, model, tree, x0, xi, budget=None, tol=FEAS_TOL):
@@ -3134,51 +3188,6 @@ def profile_wave(swt, eu):
     return prof
 
 
-def profile_config6_solve(dev):
-    """One whole solve of config 6's long arm under torch.profiler (run by
-    ``tools/k4_readings.py --profile``, not by ``main``: its ~360k device
-    operations take minutes to collect): device operations, K4's launches
-    and device time, busy time and the idle share against the median of
-    3 unprofiled solves."""
-    import torch
-
-    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
-        assemble_stagewise_tree, assemble_stagewise_tree_ext,
-        solve_tree_miqp_stagewise)
-    from pyhybridcontrol_tpu_torch.profile_serve import profile_request
-    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
-
-    swt, swtp = config6_preps(dev, config6_trees()[1], config6_extra(CFG6_N))
-    x0 = torch.tensor(X0_6, device=dev)
-    data = assemble_stagewise_tree(swt, x0)
-    eu = assemble_stagewise_tree_ext(swt, x0)
-
-    def solve():
-        return solve_tree_miqp_stagewise(swt, *data, BnbSpec(**CFG6_SPEC),
-                                         swt_probe=swtp, ext_u=eu)
-
-    solve()
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        solve()
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    prof = profile_request(solve)
-    prof["ms"] = sorted(times)[1]
-    prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["ms"]
-    print(f"config 6 long arm, one solve under torch.profiler: "
-          f"{prof['device_ops']} device operations, busy "
-          f"{prof['device_busy_ms']:.1f} ms of {prof['ms']:.1f} ms unprofiled "
-          f"(median of {[round(t, 1) for t in times]}): idle share "
-          f"{prof['idle_share']:.3f}; K4 {prof['k4_launches']} launches, "
-          f"{prof['k4_device_ms']:.1f} ms on the device", flush=True)
-    check(prof["k4_launches"] > 0 and prof["k1_launches"] == 0
-          and prof["k2_launches"] == 0, "config 6 profile: launches")
-    return prof
-
-
 def phase_config6(dev):
     """Config 6 of the reference bench (bench.py:742-816) through the port,
     nothing cut, with the plain sweeps made to raise: the parity arm
@@ -3196,8 +3205,7 @@ def phase_config6(dev):
 
     from pyhybridcontrol_tpu_torch import serve
     from pyhybridcontrol_tpu_torch.control.mpc import MpcController
-    from pyhybridcontrol_tpu_torch.models import (
-        di_default_weights, switched_double_integrator)
+    from pyhybridcontrol_tpu_torch.models import di_default_weights
     from pyhybridcontrol_tpu_torch.ops.condense import CondensedMpc
     from pyhybridcontrol_tpu_torch.ops.scenario_tree import (
         build_scenario_tree_qp)
@@ -3329,22 +3337,12 @@ def phase_config6(dev):
 
     # (d) soft rows, move blocking, a terminal set and an input budget at
     # once through the stagewise controller: the card against the CPU
-    spec = BnbSpec(capacity=128, wave_size=16, qp_iters=300, max_waves=24,
-                   probe_iters=600)
-    A_v = np.zeros((1, 8 * 3))
-    A_v[0, 0::3] = 1.0
     prices = np.zeros((8, 3), np.float32)
     prices[:, 0] = 0.1
     kw = dict(price_seq=prices, u_prev=np.array([0.2], np.float32))
 
     def transforms(device):
-        c = MpcController(switched_double_integrator(), 8, w,
-                          solver="stagewise", bnb_spec=spec, device=device)
-        c.set_soft_constraints([1, 9], lin_pen=5.0, quad_pen=1.0)
-        c.set_move_blocking([0, 0, 1, 1, 2, 2, 3, 3])
-        c.set_terminal_constraint(np.array([[1.0, 0.0]]), np.array([1.0]))
-        c.set_extra_constraints(A_v, np.array([-0.5]))
-        return c.feedback([1.0, -0.5], **kw)
+        return sw_transforms_controller(device).feedback([1.0, -0.5], **kw)
 
     t0 = time.perf_counter()
     with no_plain_sweep():

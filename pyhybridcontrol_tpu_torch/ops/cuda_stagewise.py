@@ -1,15 +1,16 @@
 """K4: the block-tridiagonal sweep K⁻¹r of the stagewise frame (CUDA C++,
-``csrc/stagewise.cu``), its plan and the device-dispatching entry point.
+``csrc/stagewise.cu``), its plan and its wrapper.
 
 No TPU kernel stands behind K4: the reference runs the sweep as two
 ``lax.scan`` loops that XLA compiles into one device loop
 (``pyhybridcontrol_tpu/ops/stagewise.py::_solve_K``). Its plain version is
 ``ops/stagewise.py::_solve_K``, a Python loop over the stages.
 
-``sw_solve_k_auto(r, factors)`` dispatches on the tensor's device and on
-nothing else: a CPU tensor runs the plain version, a CUDA tensor launches
-the kernel or raises. r is (…, N, b) fp32, the factors (L, U⁻¹, C) are
-(N, b, b) fp32 on the same device, shared by every problem of the batch.
+``ops/stagewise._solve_K_bordered`` dispatches on the tensor's device and
+on nothing else: a CPU tensor runs the plain version, a CUDA tensor
+launches the kernel (``sw_solve_k_cuda``) or raises. r is (…, N, b) fp32,
+the factors (L, U⁻¹, C) are (N, b, b) fp32 on the same device, shared by
+every problem of the batch.
 Each launch counts once in ``cuda_admm.LAUNCHES["stagewise_k4"]`` (and its
 problem count P in ``LAUNCH_BATCHES``).
 
@@ -130,13 +131,3 @@ def sw_solve_k_cuda(r, factors, staged: Optional[bool] = None):
     _count_launch("stagewise_k4", P)
     return x.reshape(r.shape)
 
-
-def sw_solve_k_auto(r, factors):
-    """K⁻¹ r: K4 on a CUDA tensor, the plain sweeps on a CPU tensor."""
-    if r.device.type == "cpu":
-        from pyhybridcontrol_tpu_torch.ops import stagewise
-
-        return stagewise._solve_K(None, r, factors)
-    if r.device.type == "cuda":
-        return sw_solve_k_cuda(r, factors)
-    raise ValueError(f"no stagewise sweep for device {r.device}")

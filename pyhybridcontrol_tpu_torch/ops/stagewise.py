@@ -39,10 +39,11 @@ Cw = (diag(1/ρₑ) + Aext K⁻¹ Aextᵀ)⁻¹ prefactored on the host.
 
 Port decisions:
 - ``_solve_K`` is a Python loop over the stages: the plain version of K4.
-  The x-update's sweep goes through ``cuda_stagewise.sw_solve_k_auto``,
-  which dispatches on the tensor's device (a CUDA tensor launches K4 or
-  raises, a CPU tensor runs ``_solve_K``); the ADMM iteration and
-  everything around the sweep stay in torch.
+  The x-update (``_solve_K_bordered``) dispatches its sweep on the
+  tensor's device: a CUDA tensor launches K4
+  (``cuda_stagewise.sw_solve_k_cuda``) or raises, a CPU tensor runs
+  ``_solve_K``; the ADMM iteration and everything around the sweep stay
+  in torch.
 - ``_solve_K_assoc`` (``parallel_sweeps=True``) is a log-depth prefix over
   affine maps in torch: another algorithm the caller picks, not a fallback.
 - The objective, the infeasibility certificate's support and gap sums and
@@ -61,7 +62,7 @@ import torch.nn.functional as F
 from pyhybridcontrol_tpu_torch.mld.model import MldModel
 from pyhybridcontrol_tpu_torch.ops.admm import AdmmResult, _implied_box
 from pyhybridcontrol_tpu_torch.ops.condense import MpcWeights, _sq, _vec
-from pyhybridcontrol_tpu_torch.ops.cuda_stagewise import sw_solve_k_auto
+from pyhybridcontrol_tpu_torch.ops.cuda_stagewise import sw_solve_k_cuda
 from pyhybridcontrol_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 BIG = 1e30
@@ -591,9 +592,17 @@ def _solve_K_assoc(sw: StagewiseQP, r, factors=None):
 def _solve_K_bordered(sw: StagewiseQP, t, parallel_sweeps: bool = False):
     """(K + Aextᵀ diag(ρₑ) Aext)⁻¹ t, the x-update solve: Woodbury on top
     of the sweeps, x = K⁻¹t − KiU·(Cw·(Aext·K⁻¹t)), with the prepared
-    fp64 factors KiU and Cw. Assumes the prepared K."""
-    base = (_solve_K_assoc(sw, t) if parallel_sweeps
-            else sw_solve_k_auto(t, sw.factors))
+    fp64 factors KiU and Cw. Assumes the prepared K. The sweeps: the
+    log-depth ones if asked, else K4 on a CUDA tensor and the plain ones on
+    a CPU tensor."""
+    if parallel_sweeps:
+        base = _solve_K_assoc(sw, t)
+    elif t.device.type == "cpu":
+        base = _solve_K(sw, t)
+    elif t.device.type == "cuda":
+        base = sw_solve_k_cuda(t, sw.factors)
+    else:
+        raise ValueError(f"no stagewise sweep for device {t.device}")
     if not sw.n_ext:
         return base
     s = torch.einsum("rkb,...kb->...r", sw.Aext, base)

@@ -48,12 +48,11 @@ import time
 import numpy as np
 
 
-def build_controller(config: str, solver: str = "bnb", device="cuda"):
-    """Build the controller of ``config`` on ``device`` and run one warmup
-    solve (kernel build and first launch). Returns (ctrl, ready line).
-    The config's soft rows are softened (penalties 5.0 linear, 1.0
-    quadratic) as the reference's serve does; like it, serve applies no
-    move blocking (the reference's ``run.py`` does)."""
+def make_controller(config: str, solver: str = "bnb", device="cuda"):
+    """The built controller of ``config`` on ``device``, as served. The
+    config's soft rows are softened (penalties 5.0 linear, 1.0 quadratic)
+    as the reference's serve does; like it, serve applies no move blocking
+    (the reference's ``run.py`` does)."""
     from pyhybridcontrol_tpu_torch.configs import get_config
     from pyhybridcontrol_tpu_torch.control.mpc import MpcController
 
@@ -64,10 +63,17 @@ def build_controller(config: str, solver: str = "bnb", device="cuda"):
     if cfg.soft_rows:
         ctrl.set_soft_constraints(list(cfg.soft_rows), lin_pen=5.0,
                                   quad_pen=1.0)
-    ctrl.build()
+    return ctrl.build()
+
+
+def build_controller(config: str, solver: str = "bnb", device="cuda"):
+    """``make_controller`` and one warmup solve (kernel build and first
+    launch). Returns (ctrl, ready line)."""
+    ctrl = make_controller(config, solver, device)
+    model = ctrl.model
     ctrl.feedback(np.zeros(model.info.nx, np.float32))
-    ready = {"ready": True, "config": cfg.name, "nx": model.info.nx,
-             "nu": model.info.nu, "N": cfg.N, "device": str(ctrl.device)}
+    ready = {"ready": True, "config": config, "nx": model.info.nx,
+             "nu": model.info.nu, "N": ctrl.N, "device": str(ctrl.device)}
     return ctrl, ready
 
 

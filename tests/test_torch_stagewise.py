@@ -396,9 +396,9 @@ def test_sweep_smem_mirrors_the_kernel_source():
 
 
 def test_sweep_dispatch_follows_the_device(monkeypatch, rng):
-    """A CPU tensor runs the plain sweeps and never the loader, and counts
-    no launch; the kernel wrapper refuses a CPU tensor; a device with no
-    kernel raises."""
+    """The x-update's sweep on a CPU tensor runs the plain sweeps and never
+    the loader, and counts no launch; the kernel wrapper refuses a CPU
+    tensor; a device with no kernel raises."""
     from pyhybridcontrol_tpu_torch.ops import _build
 
     monkeypatch.setattr(_build, "load_library",
@@ -406,13 +406,12 @@ def test_sweep_dispatch_follows_the_device(monkeypatch, rng):
     ts = tsw.prepare_stagewise(TM, N, tdi.default_weights(), device="cpu")
     r = torch.as_tensor(rng.normal(size=(3, N, ts.b)), dtype=torch.float32)
     before = dict(ca.LAUNCHES)
-    assert torch.equal(cs.sw_solve_k_auto(r, ts.factors),
-                       tsw._solve_K(ts, r))
+    assert torch.equal(tsw._solve_K_bordered(ts, r), tsw._solve_K(ts, r))
     assert ca.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA tensor"):
         cs.sw_solve_k_cuda(r, ts.factors)
     with pytest.raises(ValueError, match="no stagewise sweep"):
-        cs.sw_solve_k_auto(r.to("meta"), ts.factors)
+        tsw._solve_K_bordered(ts, r.to("meta"))
 
 
 @pytest.mark.cuda
