@@ -18,7 +18,8 @@ Run from the root of a checkout. It builds the kernels of
      a swapped output — shows, at batch sizes 1, 3, 32, 33 and 257, with
      and without the stiff probe; and the shape limit: asked to stage
      constants that do not fit in shared memory (N=60), the wrapper must
-     refuse, not fall back, and the plan streams them; every problem-tile
+     refuse, not fall back, and the plan deals them over a cluster; every
+     problem-tile
      instantiation of K1/K2 (8, 4, 1 problems per block) at batches
      that are no multiple of the tile, and the instantiation, threads and
      shared memory the wrapper's plan picks at each main shape;
@@ -41,7 +42,7 @@ Run from the root of a checkout. It builds the kernels of
   6. no plain version behind a CUDA tensor: with the plain versions made
      to raise, ``admm_solve_auto``, ``admm_wave_auto`` and
      ``admm_solve_cuda(low_frac>0)`` still answer and count their launches,
-     at N=10 and at N=27 (streamed variants, split mode);
+     at N=10 and at N=27 (resident variants, split mode);
   7. the single-state serving path: the port's serve stdin loop, in process,
      on ``--config double_integrator --device cuda`` — a ping, four
      feasible states, one state outside the box, quit. Every feasible
@@ -62,34 +63,40 @@ Run from the root of a checkout. It builds the kernels of
      second only, where K1 must launch at B=1024. Then the relaxation
      sweep that uses the split-precision phase (N=20, B=4096,
      ``low_frac=1.0``);
-  9. K1/K2 with the constants streamed from device memory (shapes whose
-     Â_G and Mᵀ a block cannot stage) against their plain versions: the
-     real condensed problems of the reference bench's configs 2 (n=220,
-     m=680), 3 (108/239), 4b (120/216) and 4c (the dense joint frame of
-     its scenario tree, 120/444, node boxes fixing whole information-set
-     groups) at seeded states and node boxes, a random problem of the
-     size of the double integrator at N=27, at B = 1, 37 and 300; the
-     streamed variant forced at N=26 against the staged one; the times at
-     the N=27 paths' shapes; then streamed K2 at the waves of the config-2
-     call (B=128, 200 + 600 iterations), config 3's loop (B=64) and config
-     4b's loop (B=1024), and streamed K1 on the gated waves of configs 2
-     and 4b, each with its plan and times (the relaxations at the "main"
-     limits, the long probes of those waves at "wave_probe"); then config
-     4c's waves at "main": streamed K1 at its pooled wave (B=1024: the
+  9. K1/K2 where a block cannot stage Â_G and Mᵀ, with the constants
+     resident over a thread-block cluster (the plan's variant): first one
+     cluster barrier's cost at C = 1 to 16; then against their plain
+     versions and, bitwise on x, z and y (stats within 1e-12, certificate
+     bits identical), against the L2-streamed variant forced at the tile
+     that sums in the same order: the real condensed problems of the
+     reference bench's configs 2 (n=220, m=680), 3 (108/239), 4b
+     (120/216) and 4c (the dense joint frame of its scenario tree,
+     120/444, node boxes fixing whole information-set groups) at seeded
+     states and node boxes, a random problem of the size of the double
+     integrator at N=27, at B = 1, 37 and 300; the streamed and resident
+     variants forced at N=26 against the staged one; the times at the N=27
+     paths' shapes; then resident K2 at the waves of the config-2 call
+     (B=128, 200 + 600 iterations), the served config-2 request (B=64,
+     400 + 400), config 3's loop (B=64) and config 4b's loop (B=1024), and
+     resident K1 on the gated waves of configs 2 and 4b, each with its
+     plan and both variants' times (the relaxations at the "main" limits,
+     the long probes of those waves at "wave_probe"); then config 4c's
+     waves at "main": resident K1 at its pooled wave (B=1024: the
      relaxation, 100 iterations, and the probe on group-rounded boxes, 200
-     iterations at ρ·10 then 200 at ρ) and streamed K2 at the wave of a
+     iterations at ρ·10 then 200 at ρ) and resident K2 at the wave of a
      single-instance dense-tree ``feedback`` (B=64, 100 + 200/200);
  10. K1's split mode (the split-precision phase where the tensor-core
      kernel refuses the shape, N ≥ 22): one split iteration from the
      plain version's iterates, the whole solve's objective and solution
-     at N=22, 24 and 27, and the bench's 1e-4 gate at N=24;
+     at N=22, 24 and 27, and the bench's 1e-4 gate at N=24; at N=27
+     (resident) bitwise against the L2-streamed variant;
  11. config 1 of the reference bench as a closed loop: N=10, T=20 from
      [2, 0], B&B (capacity 256, wave 32, 48 waves, 200 iterations, probe
      at ρ=10); ms per control step, found share, mean nodes; held against
      the port's enumeration loop (total cost rtol 2e-3, states 1e-2);
- 12. the N=27 double integrator: a closed loop of 4 steps (K2 streamed)
+ 12. the N=27 double integrator: a closed loop of 4 steps (K2 resident)
      that must find every step, follow the dynamics and end nearer the
-     origin, then the relaxation sweep at ``low_frac=1.0`` (K1 streamed in
+     origin, then the relaxation sweep at ``low_frac=1.0`` (K1 resident in
      split mode) against its plain version;
  13. config 2 served: ``--config pwa_actuator`` (PWA spring, hull, N=20)
      through the stdin loop — a ping, three states, one outside the box
@@ -169,7 +176,9 @@ it; launches made to compare a kernel with its
 plain version or with enumeration fall in none of them.
 A kernel's ``launches`` is its sum over these paths, ``launches_by_path``
 the counts apart, and ``on_main_path`` says whether a served request
-launched it.
+launched it. Every kernel launches on some path, but for the L2-streamed
+K1/K2 (FORCED_ONLY), which must launch on none: every real frame's K1/K2
+launch is the resident variant.
 
 Every kernel result is held against its plain version field by field:
 obj, x, z, y, r_prim, r_prim_rel and r_dual within LIMITS, certificate
@@ -206,6 +215,8 @@ ROOT = Path(__file__).resolve().parent
 SOURCES = {"admm_k1": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
            "admm_k2": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
            "admm_k1_mixed": "pyhybridcontrol_tpu_torch/csrc/admm_mixed.cu",
+           "admm_k1_resident": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
+           "admm_k2_resident": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
            "admm_k1_streamed": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
            "admm_k2_streamed": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
            "admm_k1_split": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
@@ -213,12 +224,19 @@ SOURCES = {"admm_k1": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
 REPLACES = {"admm_k1": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
             "admm_k2": "pyhybridcontrol_tpu/ops/pallas_admm.py:357",
             "admm_k1_mixed": "pyhybridcontrol_tpu/ops/pallas_admm.py:180",
+            "admm_k1_resident": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
+            "admm_k2_resident": "pyhybridcontrol_tpu/ops/pallas_admm.py:357",
             "admm_k1_streamed": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
             "admm_k2_streamed": "pyhybridcontrol_tpu/ops/pallas_admm.py:357",
             "admm_k1_split": "pyhybridcontrol_tpu/ops/pallas_admm.py:180",
             # K4 has no TPU kernel behind it: the reference's sweep is the
             # plain-XLA lax.scan pair of _solve_K
             "stagewise_k4": "pyhybridcontrol_tpu/ops/stagewise.py:586"}
+# K1/K2 with the constants streamed from L2 in every iteration: the plan
+# takes it for no shape of the driven paths (a cluster holds each), so it
+# runs only where a phase forces it, to hold the resident variant against
+# it; it must launch on no path
+FORCED_ONLY = ("admm_k1_streamed", "admm_k2_streamed")
 # the driven paths, in order; SERVED are the served requests
 SERVED = ("serve_config1", "serve_batch_request", "config2_serve",
           "serve_stagewise")
@@ -896,7 +914,7 @@ def phase_far(dev, rng, recs):
         kq = ca.kernel_qp_for(problem(N, 1, dev, rng)[2])
         pl = ca.plan(B, kq.n_pad, kq.m_pad)
         need = lib.phc_admm_smem_bytes(kq.n_pad, kq.m_pad, pl.pb,
-                                       int(pl.streamed))
+                                       int(pl.streamed), pl.cluster)
         check(need == pl.smem, f"plan: N={N} B={B} reckons {pl.smem} bytes "
               f"of shared memory, the library {need}")
         print(f"  plan N={N} B={B}: tile of {pl.pb} problems, "
@@ -907,9 +925,9 @@ def phase_far(dev, rng, recs):
         -(-3 * N // 8) * 8, -(-10 * N // 8) * 8, 1) <= ca.SMEM_MAX]
     print(f"  largest horizon of this model whose constants a block can "
           f"stage: N={max(fits)}", flush=True)
-    # above it the plan streams the constants (phase_streamed holds that
-    # variant); asked to stage them, the wrapper refuses, it does not fall
-    # back
+    # above it the plan deals the constants over a cluster (phase_streamed
+    # holds that variant); asked to stage them, the wrapper refuses, it does
+    # not fall back
     _, qp, spec, spec_p, f, h, lb, ub = problem(60, 2, dev, rng)
     kq = ca.kernel_qp_for(spec)
     args = (kq, ca.kernel_qp_for(spec_p), qp.binary_idx, f, h, lb, ub)
@@ -922,7 +940,8 @@ def phase_far(dev, rng, recs):
         raise AssertionError("N=60: the wrapper must refuse to stage the "
                              "constants")
     pl = ca.plan(2, kq.n_pad, kq.m_pad)
-    check(pl.streamed, f"N=60: the plan must stream the constants: {pl}")
+    check(pl.cluster > 1, f"N=60: the plan must hold the constants over a "
+          f"cluster: {pl}")
     print(f"  plan N=60 B=2: {pl}", flush=True)
 
 
@@ -1094,15 +1113,15 @@ def phase_dispatch(dev, rng):
         check(ca.LAUNCHES == {**none, "admm_k1": 2, "admm_k2": 1,
                               "admm_k1_mixed": 1},
               f"admm_solve_cuda(low_frac): launches {ca.LAUNCHES}")
-        # above the shared-memory cap: the streamed variants and split mode
+        # above the shared-memory cap: the resident variants and split mode
         ca.reset_launch_counts()
         ca.admm_solve_auto(spec27, f27, h27, lb27, ub27, iters=10)
         ca.admm_wave_auto(spec27, spec27_p, qp27.binary_idx, f27, h27, lb27,
                           ub27, iters=10, probe_iters=10)
         ca.admm_solve_cuda(ca.kernel_qp_for(spec27), f27, h27, lb27, ub27,
                            iters=10, low_frac=0.5)
-        check(ca.LAUNCHES == {**none, "admm_k1_streamed": 2,
-                              "admm_k2_streamed": 1, "admm_k1_split": 1},
+        check(ca.LAUNCHES == {**none, "admm_k1_resident": 2,
+                              "admm_k2_resident": 1, "admm_k1_split": 1},
               f"N=27: launches {ca.LAUNCHES}")
     finally:
         for k, v in saved.items():
@@ -1360,20 +1379,153 @@ def timed(rec, pre, wrapper, plain, work):
     return by
 
 
-def phase_streamed(dev, rng, recs):
-    """K1 and K2 with the constants streamed from device memory (L2)
-    against their plain versions at the five shapes a block cannot stage
-    (the real problems of configs 2, 3 and 4b, random ones of N=27's and
-    config 4c's sizes; "main" limits, B = 1, 37, 300); the forced streamed
-    variant against the staged one at N=26; the times at the main paths'
-    shapes (N=27: K1 at B=4096, 100 iterations; K2 at the closed loop's
-    wave, B=32, 200 + 100/100 iterations)."""
+# the resident variant's stats against the L2-streamed one's at the same
+# tile: the same per-row values, summed per CTA and then across the CTAs in
+# fp64 (another order than one block's), so within this relative limit
+STATS_REL = 1e-12
+
+
+def held_bitwise(tag, got, ref):
+    """The resident variant (``got``) against the L2-streamed one forced at
+    the same tile (``ref``): x, z and y bitwise equal (every output is the
+    same task of the same routine in the same order), the stats within
+    STATS_REL relative, certificate bits identical. Returns the largest
+    relative stats difference."""
+    import torch
+
+    for k in ("x", "z", "y"):
+        check(torch.equal(getattr(got, k), getattr(ref, k)),
+              f"{tag}: {k} differs from the L2-streamed variant at the same "
+              f"tile")
+    worst = 0.0
+    for k in ("obj", "r_prim", "r_prim_rel", "r_dual"):
+        g, r = getattr(got, k).double(), getattr(ref, k).double()
+        rel = (g - r).abs() / torch.clamp_min(r.abs(), 1e-300)
+        worst = max(worst, float(rel.max()))
+    check(worst <= STATS_REL, f"{tag}: stats {worst:.3e} (relative) off the "
+          f"L2-streamed variant's")
+    check(torch.equal(got.infeas_cert, ref.infeas_cert),
+          f"{tag}: certificate bits differ from the L2-streamed variant's")
+    BITWISE[0] += 1
+    BITWISE[1] = max(BITWISE[1], worst)
+    return worst
+
+
+BITWISE = [0, 0.0]   # resident-vs-streamed holds passed, largest stats Δ
+
+
+def l2(kq, pl):
+    """Arguments that force the L2-streamed variant at the tile that sums
+    as the resident plan ``pl`` does: its own tile where a block holds
+    that tile's iterates, else the largest smaller one with the same lane
+    groups (tiles of 8 and 4 run the same products, row for row)."""
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+
+    t = next(t for t in ca.TILES if t <= pl.pb
+             and ca.B_KS[t] == ca.B_KS[pl.pb]
+             and ca.smem_bytes(kq.n_pad, kq.m_pad, t, True) <= ca.SMEM_MAX)
+    return dict(pb=t, streamed=True)
+
+
+def timed_variants(r_res, r_str, pre, resident, streamed, plain, work):
+    """``timed`` of the resident wrapper into ``r_res`` and the L2-streamed
+    one forced at the same tile (alone and wrapper) into ``r_str``, under
+    keys prefixed ``pre``."""
+    by = timed(r_res, pre, resident, plain, work)
+    r_str[pre + "kernel_ms"] = kernel_ms(streamed)
+    r_str[pre + "ms"] = cuda_ms(streamed)
+    r_str[pre + "bound_ms"] = r_res[pre + "bound_ms"]
+    print(f"  {pre.rstrip('_') or 'main shape'}: L2-streamed at the same "
+          f"tile, kernel alone {r_str[pre + 'kernel_ms']:.3f} ms, wrapper "
+          f"{r_str[pre + 'ms']:.3f} ms", flush=True)
+    return by
+
+
+def plan_line(name, kq, B, wave=True, split=False):
+    """The plan of ``name`` at B, which must be resident, with the clusters
+    the card holds at once; printed."""
     from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
     from pyhybridcontrol_tpu_torch.ops._build import load_library
 
-    r1, r2 = recs["admm_k1_streamed"], recs["admm_k2_streamed"]
-    print("K1/K2 with streamed constants (admm_k1_streamed, "
-          "admm_k2_streamed) vs plain:", flush=True)
+    pl = ca.plan(B, kq.n_pad, kq.m_pad)
+    check(pl.cluster > 1 and not pl.streamed,
+          f"{name} B={B}: the plan must hold the constants over a cluster, "
+          f"got {pl}")
+    need = load_library().phc_admm_smem_bytes(kq.n_pad, kq.m_pad, pl.pb, 0,
+                                              pl.cluster)
+    check(need == pl.smem, f"{name}: the plan reckons {pl.smem} bytes of "
+          f"shared memory, the library {need}")
+    cap = ca.cluster_capacity(kq, wave, split, pl)
+    print(f"  plan {name} (padded {kq.n_pad}/{kq.m_pad}) B={B}: tile of "
+          f"{pl.pb} problems, {-(-B // pl.pb)} clusters of {pl.cluster} CTAs "
+          f"of {pl.threads} threads, {pl.smem} bytes of shared memory a CTA, "
+          f"{cap} clusters at once on the card", flush=True)
+    return pl, cap
+
+
+def cluster_barrier_ns(rec, threads=256, iters=2000):
+    """One cluster barrier's cost (ns) at C = 1, 2, 4, 8, 16: a kernel that
+    passes only barriers, timed with ``iters`` and 2·``iters`` of them (CUDA
+    events; the difference over ``iters``), with one cluster and with 132/C
+    clusters; with the release / acquire semantics of ``cluster.sync()``
+    (the fence that makes writes into other CTAs seen) and relaxed."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(C, clusters, n, relaxed):
+        rc = lib.phc_cluster_sync_bench(C, clusters, threads, n, relaxed,
+                                        stream)
+        check(rc == 0, f"cluster barrier bench C={C}: "
+              f"{lib.phc_error_string(rc).decode()}")
+
+    out = {}
+    for C in (1, 2, 4, 8, 16):
+        for relaxed in (0, 1):
+            for label, clusters in (("one", 1), ("card", 132 // C)):
+                run(C, clusters, 10, relaxed)
+                ts = []
+                for n in (iters, 2 * iters):
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    run(C, clusters, n, relaxed)
+                    e1.record()
+                    torch.cuda.synchronize()
+                    ts.append(e0.elapsed_time(e1))
+                key = label + ("_relaxed" if relaxed else "")
+                out.setdefault(C, {})[key] = 1e6 * (ts[1] - ts[0]) / iters
+        o = out[C]
+        print(f"  cluster barrier, C={C} ({threads} threads a CTA), release/"
+              f"acquire: one cluster {o['one']:.1f} ns, {132 // C} clusters "
+              f"{o['card']:.1f} ns; relaxed: {o['one_relaxed']:.1f} / "
+              f"{o['card_relaxed']:.1f} ns", flush=True)
+    rec["cluster_barrier_ns"] = out
+
+
+def phase_streamed(dev, rng, recs):
+    """K1 and K2 at the five shapes a block cannot stage (the real problems
+    of configs 2, 3, 4b and 4c, a random one of N=27's size; B = 1, 37,
+    300): the plan's resident variant (a cluster holds the constants)
+    against the plain versions ("main" limits) and, bitwise on x, z and y,
+    against the L2-streamed variant forced at the same tile; both
+    variants' times at B=300; the L2-streamed and the resident variants
+    forced at N=26 against the staged one (bitwise at a tile of 1); the
+    times at the N=27 paths' shapes (K1 at B=4096, 100 iterations; K2 at
+    the closed loop's wave, B=32, 200 + 100/100 iterations). First, one
+    cluster barrier's cost at C = 1 to 16."""
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+
+    r1, r2 = recs["admm_k1_resident"], recs["admm_k2_resident"]
+    s1, s2 = recs["admm_k1_streamed"], recs["admm_k2_streamed"]
+    print("cluster barrier microbenchmark:", flush=True)
+    cluster_barrier_ns(r2)
+    print("K1/K2 with the constants over a cluster (admm_k1_resident, "
+          "admm_k2_resident) vs plain, and vs L2-streamed at the same tile:",
+          flush=True)
     for name, (n, m) in BIG_SHAPES.items():
         for B in BIG_BATCHES:
             if name in REAL_CONFIGS:
@@ -1386,95 +1538,132 @@ def phase_streamed(dev, rng, recs):
                 spec, spec_p, bidx, q, h, lb, ub = random_problem(
                     n, m, B, dev, rng)
             kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
-            pl = ca.plan(B, kq.n_pad, kq.m_pad)
-            check(pl.streamed, f"{name}: the plan must stream, got {pl}")
-            need = load_library().phc_admm_smem_bytes(kq.n_pad, kq.m_pad,
-                                                      pl.pb, 1)
-            check(need == pl.smem, f"{name}: the plan reckons {pl.smem} "
-                  f"bytes of shared memory, the library {need}")
-            tag = f"{name} (n={n}, m={m}) B={B} tile {pl.pb}"
+            pl, _ = plan_line(name, kq, B)
+            forced = l2(kq, pl)
+            tag = f"{name} (n={n}, m={m}) B={B} tile {pl.pb} C={pl.cluster}"
             args = (kq, q, h, lb, ub)
             # the real frames' certificate bits may differ near a threshold
             plain = args if name in CERT_FRAMES else None
             ref = ca.admm_solve_plain(*args, iters=100)
-            compare("K1 " + tag, ca.admm_solve_cuda(*args, iters=100), ref,
-                    r1, near=plain and (lambda: cert_near(plain, ref)))
+            got = ca.admm_solve_cuda(*args, iters=100)
+            compare("K1 " + tag, got, ref, r1,
+                    near=plain and (lambda: cert_near(plain, ref)))
+            held_bitwise("K1 " + tag, got, ca.admm_solve_cuda(
+                *args, iters=100, **forced))
             wargs = (kq, kq2, bidx, q, h, lb, ub)
             kw = dict(iters=100, probe_iters=100)
-            compare_probe("K2 " + tag, ca.admm_wave_cuda(*wargs, **kw),
-                          ca.admm_wave_plain(*wargs, **kw),
+            got = ca.admm_wave_cuda(*wargs, **kw)
+            compare_probe("K2 " + tag, got, ca.admm_wave_plain(*wargs, **kw),
                           types.SimpleNamespace(binary_idx=bidx), lb, ub,
                           r2, flip_share=flip_share(name), plain=plain)
+            st = ca.admm_wave_cuda(*wargs, **forced, **kw)
+            held_bitwise("K2 relaxation " + tag, got[0], st[0])
+            held_bitwise("K2 probe " + tag, got[1], st[1])
         # the time at a few hundred problems, where the card is filled
-        timed(r1, f"{name}_", lambda: ca.admm_solve_cuda(*args, iters=100),
-              lambda: ca.admm_solve_plain(*args, iters=100),
-              admm_work(kq.n_pad, kq.m_pad, 300, products=101, stats=1,
-                        warm=False))
+        timed_variants(
+            r1, s1, f"{name}_", lambda: ca.admm_solve_cuda(*args, iters=100),
+            lambda: ca.admm_solve_cuda(*args, iters=100, **forced),
+            lambda: ca.admm_solve_plain(*args, iters=100),
+            admm_work(kq.n_pad, kq.m_pad, 300, products=101, stats=1,
+                      warm=False))
+    print(f"  resident vs L2-streamed: {BITWISE[0]} holds bitwise on x, z, "
+          f"y; largest relative stats difference {BITWISE[1]:.2e} (limit "
+          f"{STATS_REL:.0e})", flush=True)
 
-    # N=26: the largest staged shape, forced through the streamed variant
+    # N=26: the largest staged shape, forced through the other variants
     _, qp, spec, spec_p, f, h, lb, ub = problem(26, 4096, dev, rng,
                                                  fix_frac=0.3)
     kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
     args = (kq, f, h, lb, ub)
     staged = ca.admm_solve_cuda(*args, iters=100)
-    # at the same tile the two variants run the same arithmetic in the
-    # same order: bitwise the same results
+    # at the same tile the variants run the same arithmetic in the same
+    # order: bitwise the same results
     check(torch_equal(ca.admm_solve_cuda(*args, iters=100, pb=1,
                                          streamed=True), staged),
           "N=26: streamed and staged K1 with a tile of 1 differ")
+    held_bitwise("K1 N=26 B=4096 resident (C=2, tile 1) vs staged (tile 1)",
+                 ca.admm_solve_cuda(*args, iters=100, pb=1, cluster=2),
+                 staged)
     # the streamed plan's tile of 8 sums in another order: N=26's noise
     streamed = ca.admm_solve_cuda(*args, iters=100, streamed=True)
     compare("K1 N=26 B=4096 streamed (tile 8) vs staged (tile 1)",
-            streamed, staged, r1, "large")
+            streamed, staged, s1, "large")
     print(f"  N=26: plans staged {ca.plan(4096, kq.n_pad, kq.m_pad)}, "
           f"streamed {ca.plan(4096, kq.n_pad, kq.m_pad, streamed=True)}; "
-          f"with a tile of 1 both bitwise equal", flush=True)
+          f"with a tile of 1 staged, streamed and resident bitwise equal",
+          flush=True)
     for st in (False, True):
-        r1[f"n26_{'streamed' if st else 'staged'}_kernel_ms"] = kernel_ms(
+        s1[f"n26_{'streamed' if st else 'staged'}_kernel_ms"] = kernel_ms(
             lambda: ca.admm_solve_cuda(*args, iters=100, streamed=st))
-    print(f"  N=26 B=4096 100 it, kernel alone: staged "
-          f"{r1['n26_staged_kernel_ms']:.3f} ms, streamed "
-          f"{r1['n26_streamed_kernel_ms']:.3f} ms", flush=True)
+    r1["n26_resident_kernel_ms"] = kernel_ms(
+        lambda: ca.admm_solve_cuda(*args, iters=100, pb=8, cluster=2))
+    print(f"  N=26 B=4096 100 it, kernel alone: staged (tile 1) "
+          f"{s1['n26_staged_kernel_ms']:.3f} ms, streamed (tile 8) "
+          f"{s1['n26_streamed_kernel_ms']:.3f} ms, resident (C=2, tile 8) "
+          f"{r1['n26_resident_kernel_ms']:.3f} ms", flush=True)
     wargs = (kq, kq2, qp.binary_idx, f[:300], h[:300], lb[:300], ub[:300])
     kw = dict(iters=100, probe_iters=100)
     got, ref = (ca.admm_wave_cuda(*wargs, pb=1, streamed=st, **kw)
                 for st in (True, False))
     check(torch_equal(got[0], ref[0]) and torch_equal(got[1], ref[1]),
           "N=26: streamed and staged K2 with a tile of 1 differ")
+    got = ca.admm_wave_cuda(*wargs, pb=1, cluster=2, **kw)
+    held_bitwise("K2 relaxation N=26 B=300 resident vs staged", got[0],
+                 ref[0])
+    held_bitwise("K2 probe N=26 B=300 resident vs staged", got[1], ref[1])
     compare_probe("K2 N=26 B=300 streamed vs staged",
                   ca.admm_wave_cuda(*wargs, streamed=True, **kw),
                   ca.admm_wave_cuda(*wargs, streamed=False, **kw), qp,
-                  lb[:300], ub[:300], r2, "large")
+                  lb[:300], ub[:300], s2, "large")
 
     # the main paths' shapes at N=27
     _, qp, spec, spec_p, f, h, lb, ub = problem(27, 4096, dev, rng)
     kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
     args = (kq, f, h, lb, ub)
-    compare("K1 N=27 B=4096 100 it", ca.admm_solve_cuda(*args, iters=100),
+    pl, _ = plan_line("N=27", kq, 4096, wave=False)
+    forced = l2(kq, pl)
+    got = ca.admm_solve_cuda(*args, iters=100)
+    compare("K1 N=27 B=4096 100 it", got,
             ca.admm_solve_plain(*args, iters=100), r1, "large")
-    r1["bound_by"] = timed(
-        r1, "", lambda: ca.admm_solve_cuda(*args, iters=100),
-        lambda: ca.admm_solve_plain(*args, iters=100),
-        admm_work(kq.n_pad, kq.m_pad, 4096, products=101, stats=1,
-                  warm=False))
-    r1["library_ms"] = None
+    held_bitwise("K1 N=27 B=4096 100 it", got, ca.admm_solve_cuda(
+        *args, iters=100, **forced))
+    work = admm_work(kq.n_pad, kq.m_pad, 4096, products=101, stats=1,
+                     warm=False)
+    r1["bound_by"] = timed(r1, "", lambda: ca.admm_solve_cuda(*args,
+                                                              iters=100),
+                           lambda: ca.admm_solve_plain(*args, iters=100),
+                           work)
+    print("  the same, L2-streamed:", flush=True)
+    s1["bound_by"] = timed(s1, "", lambda: ca.admm_solve_cuda(
+        *args, iters=100, **forced),
+        lambda: ca.admm_solve_plain(*args, iters=100), work)
+    r1["library_ms"] = s1["library_ms"] = None
     _, qp, spec, spec_p, f, h, lb, ub = problem(27, 32, dev, rng,
                                                  fix_frac=0.3)
     kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
     wargs = (kq, kq2, qp.binary_idx, f, h, lb, ub)
     kw = dict(iters=200, probe_iters=200)
+    pl, _ = plan_line("N=27", kq, 32)
+    forced = l2(kq, pl)
     ref = ca.admm_wave_plain(*wargs, **kw)
     warm = (ref[0].x, ref[0].z, ref[0].y)
-    compare_probe("K2 N=27 B=32 200+100/100 it warm",
-                  ca.admm_wave_cuda(*wargs, warm=warm, **kw),
+    got = ca.admm_wave_cuda(*wargs, warm=warm, **kw)
+    compare_probe("K2 N=27 B=32 200+100/100 it warm", got,
                   ca.admm_wave_plain(*wargs, warm=warm, **kw), qp, lb, ub, r2,
                   "large")
+    st = ca.admm_wave_cuda(*wargs, warm=warm, **forced, **kw)
+    held_bitwise("K2 relaxation N=27 B=32", got[0], st[0])
+    held_bitwise("K2 probe N=27 B=32", got[1], st[1])
+    work = admm_work(kq.n_pad, kq.m_pad, 32, products=402, stats=2, warm=True,
+                     stiff=True, outputs=2)
     r2["bound_by"] = timed(
         r2, "", lambda: ca.admm_wave_cuda(*wargs, warm=warm, **kw),
-        lambda: ca.admm_wave_plain(*wargs, warm=warm, **kw),
-        admm_work(kq.n_pad, kq.m_pad, 32, products=402, stats=2, warm=True,
-                  stiff=True, outputs=2))
-    r2["library_ms"] = None
+        lambda: ca.admm_wave_plain(*wargs, warm=warm, **kw), work)
+    print("  the same, L2-streamed:", flush=True)
+    s2["bound_by"] = timed(
+        s2, "", lambda: ca.admm_wave_cuda(*wargs, warm=warm, **forced, **kw),
+        lambda: ca.admm_wave_plain(*wargs, warm=warm, **kw), work)
+    r2["library_ms"] = s2["library_ms"] = None
 
 
 def torch_equal(a, b):
@@ -1494,7 +1683,8 @@ def phase_split(dev, rng, rec):
 
     from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
 
-    print("K1 split mode (admm_k1_split) vs plain:", flush=True)
+    print("K1 split mode (admm_k1_split) vs plain; at N=27 resident, held "
+          "bitwise against the L2-streamed variant:", flush=True)
     for N in SPLIT_HORIZONS:
         _, qp, spec, _, f, h, lb, ub = problem(N, 300, dev, rng)
         kq = ca.kernel_qp_for(spec)
@@ -1541,11 +1731,23 @@ def phase_split(dev, rng, rec):
             ca.admm_solve_cuda(*args, iters=100, low_frac=1.0),
             ca.admm_solve_plain(*args, iters=100, low_frac=1.0), rec,
             "mixed")
+    kq16 = ca.pad_kernel_qp(kq)
+    pl, _ = plan_line("N=27 split mode", kq16, 4096, wave=False, split=True)
+    forced = l2(kq16, pl)
+    for lf in (0.5, 1.0):
+        held_bitwise(f"K1 split mode N=27 B=4096 low_frac={lf}",
+                     ca.admm_solve_cuda(*args, iters=100, low_frac=lf),
+                     ca.admm_solve_cuda(*args, iters=100, low_frac=lf,
+                                        **forced))
     rec["bound_by"] = timed(
         rec, "", lambda: ca.admm_solve_cuda(*args, iters=100, low_frac=1.0),
         lambda: ca.admm_solve_plain(*args, iters=100, low_frac=1.0),
         admm_work(kq.n_pad, kq.m_pad, 4096, products=1, stats=1,
                   warm=False, lo_products=100))
+    rec["streamed_kernel_ms"] = kernel_ms(lambda: ca.admm_solve_cuda(
+        *args, iters=100, low_frac=1.0, **forced))
+    print(f"  N=27 split mode, L2-streamed at the same tile: kernel alone "
+          f"{rec['streamed_kernel_ms']:.3f} ms", flush=True)
     rec["library_ms"] = None
     return args
 
@@ -1628,9 +1830,9 @@ def phase_closed_loop(dev):
 
 def phase_closed_loop_n27(dev, sweep_args, rec):
     """The N=27 double integrator, whose constants no block can stage: a
-    short closed loop (T=4, config 1's B&B spec, K2 streamed) that must
+    short closed loop (T=4, config 1's B&B spec, K2 resident) that must
     find every step, follow the dynamics and move the state toward the
-    origin; then the relaxation sweep at low_frac=1.0 (K1 streamed, in
+    origin; then the relaxation sweep at low_frac=1.0 (K1 resident, in
     split mode), held against its plain version."""
     import torch
 
@@ -1646,8 +1848,8 @@ def phase_closed_loop_n27(dev, sweep_args, rec):
                          lambda: closed_loop(model, step, x0, T=CL_T27))
     ms = 1e3 * (time.perf_counter() - t0) / CL_T27
     got = PATH_LAUNCHES["closed_loop_N27"]
-    check(got["admm_k2_streamed"] > 0 and got["admm_k2"] == 0,
-          f"closed loop N=27: K2 must run streamed, launches {got}")
+    check(got["admm_k2_resident"] > 0 and got["admm_k2"] == 0,
+          f"closed loop N=27: K2 must run resident, launches {got}")
     md = model.to(dev)
     for k in range(CL_T27):
         want = md.step_v(res.xs[k], res.vs[k])
@@ -1664,7 +1866,7 @@ def phase_closed_loop_n27(dev, sweep_args, rec):
     sweep, _ = drive("relax_sweep_N27_low_frac", lambda: ca.admm_solve_cuda(
         *sweep_args, iters=100, low_frac=1.0))
     check(PATH_LAUNCHES["relax_sweep_N27_low_frac"] == {
-        **dict.fromkeys(ca.LAUNCHES, 0), "admm_k1_streamed": 1,
+        **dict.fromkeys(ca.LAUNCHES, 0), "admm_k1_resident": 1,
         "admm_k1_split": 1}, f"N=27 sweep: launches "
         f"{PATH_LAUNCHES['relax_sweep_N27_low_frac']}")
     compare("N=27 sweep low_frac=1.0", sweep, ca.admm_solve_plain(
@@ -1877,63 +2079,102 @@ def phase_serve(dev):
     print(f"  x0={OUT_OF_BOX}: found=false ms={bad['ms']}", flush=True)
 
 
-# K2 (and K1 on probe-gated waves) at the shapes the new paths give them:
-# (config, wave size B, relaxation iterations, probe iterations, gated
-# waves on that path). The relaxations are held to the "main" limits, the
-# probes to "wave_probe".
-PATH_SHAPES = (("config2", 128, 200, 600, True),
-               ("config3", 64, 200, 200, False),
-               ("config4b", 1024, 150, 150, True))
+# K2 (and K1 on probe-gated waves) at the shapes the real frames' paths give
+# them: (config, wave size B, relaxation iterations, probe iterations, gated
+# waves on that path, the relaxation's regime). The relaxations are held to
+# the "main" limits, the probes to "wave_probe". Config 2 at B=64, 400 +
+# 400 is the served request's wave: there the plain version's own
+# relaxation is 3.6e-4 to 7.8e-4 from fp64 in x, above "main"'s 4e-4, and a
+# one-ulp change of q moves it by 1.5e-4 to 2.5e-4 (tools/plain_noise.py
+# --served, seeds 0-7, CPU), so its relaxation is held to "wave_probe", the
+# limits of the real frames' waves whose plain version is itself that far
+# from fp64 (and bitwise to the L2-streamed variant, as every shape). At 400
+# iterations more hull binaries settle at 0.5: the plain version in float32
+# rounds one otherwise than in float64 on 3.1% to 14.1% of the instances
+# (same readings), so its probe is held where kernel and plain version
+# round alike, on a share of flips 3x that reading (FLIP_SHARE_SERVED); the
+# band (every flip within FLIP_BAND of 0.5) is unchanged.
+FLIP_SHARE_SERVED = 0.42
+PATH_SHAPES = (("config2", 128, 200, 600, True, "main", FLIP_SHARE_HULL),
+               ("config3", 64, 200, 200, False, "main", FLIP_SHARE),
+               ("config4b", 1024, 150, 150, True, "main", FLIP_SHARE),
+               ("config2", 64, 400, 400, False, "wave_probe",
+                FLIP_SHARE_SERVED))
 
 
 def phase_streamed_paths(dev, rng, recs):
-    """Streamed K2 at the waves of the config-2 call (B=128, 200 + 600
-    probe iterations), config 3's loop (B=64, 200 + 200) and config 4b's
-    pooled loop (B=1024, 150 + 150), warm-started as every wave after the
-    root is, and streamed K1 on the probe-gated waves of configs 2 and 4b:
-    each against its plain version on real node problems ("main" limits
-    on the relaxations, "wave_probe" on the probes; certificate bits may
-    differ near a threshold), its plan, and its times and bound."""
+    """Resident K2 at the waves of the config-2 call (B=128, 200 + 600
+    probe iterations), the served config-2 request (B=64, 400 + 400),
+    config 3's loop (B=64, 200 + 200) and config 4b's pooled loop (B=1024,
+    150 + 150), warm-started as every wave after the root is, and resident
+    K1 on the probe-gated waves of configs 2 and 4b: each against its plain
+    version on real node problems ("main" limits on the relaxations but the
+    served shape's, "wave_probe" on the probes; PATH_SHAPES says why;
+    certificate bits may differ near a
+    threshold) and bitwise against the L2-streamed variant at the same
+    tile, its plan, and both variants' times beside the bound."""
     from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
 
-    r1, r2 = recs["admm_k1_streamed"], recs["admm_k2_streamed"]
-    print("K1/K2 streamed at the new paths' shapes:", flush=True)
-    for name, B, iters, piters, gated in PATH_SHAPES:
+    r1, r2 = recs["admm_k1_resident"], recs["admm_k2_resident"]
+    s1, s2 = recs["admm_k1_streamed"], recs["admm_k2_streamed"]
+    print("K1/K2 resident at the real frames' path shapes:", flush=True)
+    for name, B, iters, piters, gated, regime, flips in PATH_SHAPES:
         spec, spec_p, bidx, q, h, lb, ub = real_problem(name, B, dev, rng)
         kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
-        pl = ca.plan(B, kq.n_pad, kq.m_pad)
-        check(pl.streamed, f"{name} B={B}: the plan must stream, got {pl}")
-        print(f"  plan {name} (n={spec.P.shape[0]}, m={spec.m_ineq}, padded "
-              f"{kq.n_pad}/{kq.m_pad}) B={B}: tile of {pl.pb} problems, "
-              f"{-(-B // pl.pb)} blocks of {pl.threads} threads, {pl.smem} "
-              f"bytes of shared memory, streamed {pl.streamed}", flush=True)
+        pl, cap = plan_line(name, kq, B)
+        forced = l2(kq, pl)
+        r2[f"{name}_B{B}_plan"] = dict(pb=pl.pb, cluster=pl.cluster,
+                                       threads=pl.threads, smem=pl.smem,
+                                       clusters_at_once=cap)
         args = (kq, q, h, lb, ub)
         wargs = (kq, kq2, bidx, q, h, lb, ub)
         kw = dict(iters=iters, probe_iters=piters)
         cold = ca.admm_wave_plain(*wargs, **kw)
         warm = (cold[0].x, cold[0].z, cold[0].y)
         tag = f"{name} B={B} {iters}+{piters} it warm"
-        compare_probe("K2 " + tag, ca.admm_wave_cuda(*wargs, warm=warm, **kw),
+        got = ca.admm_wave_cuda(*wargs, warm=warm, **kw)
+        compare_probe("K2 " + tag, got,
                       ca.admm_wave_plain(*wargs, warm=warm, **kw),
                       types.SimpleNamespace(binary_idx=bidx), lb, ub, r2,
-                      flip_share=flip_share(name), probe_regime="wave_probe",
+                      regime, flip_share=flips, probe_regime="wave_probe",
                       plain=args)
-        timed(r2, f"{name}_wave_",
-              lambda: ca.admm_wave_cuda(*wargs, warm=warm, **kw),
-              lambda: ca.admm_wave_plain(*wargs, warm=warm, **kw),
-              admm_work(kq.n_pad, kq.m_pad, B, products=iters + piters + 2,
-                        stats=2, warm=True, stiff=True, outputs=2))
+        st = ca.admm_wave_cuda(*wargs, warm=warm, **forced,
+                               **kw)
+        held_bitwise("K2 relaxation " + tag, got[0], st[0])
+        held_bitwise("K2 probe " + tag, got[1], st[1])
+        timed_variants(
+            r2, s2, f"{name}_B{B}_wave_",
+            lambda: ca.admm_wave_cuda(*wargs, warm=warm, **kw),
+            lambda: ca.admm_wave_cuda(*wargs, warm=warm, **forced, **kw),
+            lambda: ca.admm_wave_plain(*wargs, warm=warm, **kw),
+            admm_work(kq.n_pad, kq.m_pad, B, products=iters + piters + 2,
+                      stats=2, warm=True, stiff=True, outputs=2))
+        # where the plan took a larger cluster for a wider tile, the time
+        # of a tile of 1 over the smallest cluster that holds one
+        C1 = ca.plan(1, kq.n_pad, kq.m_pad).cluster
+        if pl.cluster != C1:
+            key = f"{name}_B{B}_wave_C{C1}_tile1_kernel_ms"
+            r2[key] = kernel_ms(lambda: ca.admm_wave_cuda(
+                *wargs, warm=warm, pb=1, cluster=C1, **kw))
+            print(f"  {name} B={B}: a tile of 1 over {C1} CTAs instead, "
+                  f"kernel alone {r2[key]:.3f} ms", flush=True)
         if not gated:
             continue
         ref = ca.admm_solve_plain(*args, iters=iters, warm=warm)
-        compare(f"K1 {name} B={B} {iters} it warm",
-                ca.admm_solve_cuda(*args, iters=iters, warm=warm), ref, r1,
+        got = ca.admm_solve_cuda(*args, iters=iters, warm=warm)
+        compare(f"K1 {name} B={B} {iters} it warm", got, ref, r1,
                 near=lambda: cert_near(args, ref))
-        timed(r1, f"{name}_gated_",
-              lambda: ca.admm_solve_cuda(*args, iters=iters, warm=warm),
-              lambda: ca.admm_solve_plain(*args, iters=iters, warm=warm),
-              admm_work(kq.n_pad, kq.m_pad, B, products=iters + 1, stats=1,
-                        warm=True))
+        held_bitwise(f"K1 {name} B={B} {iters} it warm", got,
+                     ca.admm_solve_cuda(*args, iters=iters, warm=warm,
+                                        **forced))
+        timed_variants(
+            r1, s1, f"{name}_B{B}_gated_",
+            lambda: ca.admm_solve_cuda(*args, iters=iters, warm=warm),
+            lambda: ca.admm_solve_cuda(*args, iters=iters, warm=warm,
+                                       **forced),
+            lambda: ca.admm_solve_plain(*args, iters=iters, warm=warm),
+            admm_work(kq.n_pad, kq.m_pad, B, products=iters + 1, stats=1,
+                      warm=True))
 
 
 def group_probe_boxes(qp, groups, lb, ub, x):
@@ -1959,52 +2200,61 @@ def group_probe_boxes(qp, groups, lb, ub, x):
 
 
 def phase_tree_shapes(dev, rng, recs):
-    """Streamed K1 at config 4c's pooled wave (bench.py:679-690: B=1024,
+    """Resident K1 at config 4c's pooled wave (bench.py:679-690: B=1024,
     warm): the relaxation (100 iterations) and the probe the pool runs
     under rep-map branching (every binary fixed to its group's rounded
     mean; 200 iterations at ρ·10, then 200 at ρ, warm from the
-    relaxation); and streamed K2 at the wave of a single-instance dense
+    relaxation); and resident K2 at the wave of a single-instance dense
     tree ``feedback`` (B=64, 100 + 200/200 iterations, per-coordinate
-    rounding), and streamed K1 at that tree's gated waves (B=64, 100
-    iterations warm). Each against its plain version on config 4c's joint frame
-    at group-fixed node boxes, all at the "main" limits (the plain
+    rounding), and resident K1 at that tree's gated waves (B=64, 100
+    iterations warm). Each against its plain version on config 4c's joint
+    frame at group-fixed node boxes, all at the "main" limits (the plain
     version's own fp32-vs-fp64 difference on this probe is under a tenth
-    of them: tools/plain_noise.py), with its plan, times and bound."""
+    of them: tools/plain_noise.py), and bitwise against the L2-streamed
+    variant at the same tile, with its plan and both variants' times."""
     from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
 
-    r1, r2 = recs["admm_k1_streamed"], recs["admm_k2_streamed"]
-    print("K1/K2 streamed at config 4c's waves:", flush=True)
+    r1, r2 = recs["admm_k1_resident"], recs["admm_k2_resident"]
+    s1, s2 = recs["admm_k1_streamed"], recs["admm_k2_streamed"]
+    print("K1/K2 resident at config 4c's waves:", flush=True)
     groups = config4c_groups()
     B = 1024
     spec, spec_p, bidx, q, h, lb, ub = real_problem("config4c", B, dev, rng)
     kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
-    pl = ca.plan(B, kq.n_pad, kq.m_pad)
-    check(pl.streamed, f"config4c B={B}: the plan must stream, got {pl}")
-    print(f"  plan config4c (n={spec.P.shape[0]}, m={spec.m_ineq}, padded "
-          f"{kq.n_pad}/{kq.m_pad}) B={B}: tile of {pl.pb} problems, "
-          f"{-(-B // pl.pb)} blocks of {pl.threads} threads, {pl.smem} bytes "
-          f"of shared memory", flush=True)
+    pl, cap = plan_line("config4c", kq, B, wave=False)
+    forced = l2(kq, pl)
+    r1["config4c_B1024_plan"] = dict(pb=pl.pb, cluster=pl.cluster,
+                                     threads=pl.threads, smem=pl.smem,
+                                     clusters_at_once=cap)
     args = (kq, q, h, lb, ub)
     cold = ca.admm_solve_plain(*args, iters=100)
     warm = (cold.x, cold.z, cold.y)
     ref = ca.admm_solve_plain(*args, iters=100, warm=warm)
-    compare(f"K1 config4c relaxation B={B} 100 it warm",
-            ca.admm_solve_cuda(*args, iters=100, warm=warm), ref, r1)
-    timed(r1, "config4c_relax_",
-          lambda: ca.admm_solve_cuda(*args, iters=100, warm=warm),
-          lambda: ca.admm_solve_plain(*args, iters=100, warm=warm),
-          admm_work(kq.n_pad, kq.m_pad, B, products=101, stats=1, warm=True))
+    got = ca.admm_solve_cuda(*args, iters=100, warm=warm)
+    compare(f"K1 config4c relaxation B={B} 100 it warm", got, ref, r1)
+    held_bitwise(f"K1 config4c relaxation B={B}", got, ca.admm_solve_cuda(
+        *args, iters=100, warm=warm, **forced))
+    timed_variants(
+        r1, s1, "config4c_relax_",
+        lambda: ca.admm_solve_cuda(*args, iters=100, warm=warm),
+        lambda: ca.admm_solve_cuda(*args, iters=100, warm=warm, **forced),
+        lambda: ca.admm_solve_plain(*args, iters=100, warm=warm),
+        admm_work(kq.n_pad, kq.m_pad, B, products=101, stats=1, warm=True))
     lbp, ubp = group_probe_boxes(types.SimpleNamespace(binary_idx=bidx),
                                  groups, lb, ub, ref.x)
     pw = (ref.x, ref.z, ref.y)
 
-    def probe(solve):
-        a = solve(kq2, q, h, lbp, ubp, iters=200, warm=pw)
-        return a, solve(kq, q, h, lbp, ubp, iters=200, warm=(a.x, a.z, a.y))
+    def probe(solve, **kw):
+        a = solve(kq2, q, h, lbp, ubp, iters=200, warm=pw, **kw)
+        return a, solve(kq, q, h, lbp, ubp, iters=200, warm=(a.x, a.z, a.y),
+                        **kw)
 
     got, want = probe(ca.admm_solve_cuda), probe(ca.admm_solve_plain)
     compare(f"K1 config4c probe B={B} 200 it at ρ·10 warm", got[0], want[0],
             r1)
+    st = probe(ca.admm_solve_cuda, **forced)
+    held_bitwise(f"K1 config4c probe B={B} at ρ·10", got[0], st[0])
+    held_bitwise(f"K1 config4c probe B={B} then at ρ", got[1], st[1])
     # the base half from the same iterates, so that the comparison holds
     # one launch, not the drift of the first
     w1 = (want[0].x, want[0].z, want[0].y)
@@ -2015,35 +2265,51 @@ def phase_tree_shapes(dev, rng, recs):
                        warm=True, stiff=True)
     b2, o2 = admm_work(kq.n_pad, kq.m_pad, B, products=201, stats=1,
                        warm=True)
-    timed(r1, "config4c_probe_", lambda: probe(ca.admm_solve_cuda),
-          lambda: probe(ca.admm_solve_plain),
-          (b1 + b2, {"fp32": o1["fp32"] + o2["fp32"]}))
+    timed_variants(r1, s1, "config4c_probe_",
+                   lambda: probe(ca.admm_solve_cuda),
+                   lambda: probe(ca.admm_solve_cuda, **forced),
+                   lambda: probe(ca.admm_solve_plain),
+                   (b1 + b2, {"fp32": o1["fp32"] + o2["fp32"]}))
 
     Bw = CFG4C_SPEC["wave_size"]
     spec, spec_p, bidx, q, h, lb, ub = real_problem("config4c", Bw, dev, rng)
     kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
+    pl, _ = plan_line("config4c", kq, Bw)
+    forced = l2(kq, pl)
     wargs = (kq, kq2, bidx, q, h, lb, ub)
     kw = dict(iters=100, probe_iters=400)
     cold = ca.admm_wave_plain(*wargs, **kw)
     warm = (cold[0].x, cold[0].z, cold[0].y)
-    compare_probe(f"K2 config4c B={Bw} 100+200/200 it warm",
-                  ca.admm_wave_cuda(*wargs, warm=warm, **kw),
+    got = ca.admm_wave_cuda(*wargs, warm=warm, **kw)
+    compare_probe(f"K2 config4c B={Bw} 100+200/200 it warm", got,
                   ca.admm_wave_plain(*wargs, warm=warm, **kw),
                   types.SimpleNamespace(binary_idx=bidx), lb, ub, r2)
-    timed(r2, "config4c_wave_",
-          lambda: ca.admm_wave_cuda(*wargs, warm=warm, **kw),
-          lambda: ca.admm_wave_plain(*wargs, warm=warm, **kw),
-          admm_work(kq.n_pad, kq.m_pad, Bw, products=502, stats=2,
-                    warm=True, stiff=True, outputs=2))
+    st = ca.admm_wave_cuda(*wargs, warm=warm, **forced, **kw)
+    held_bitwise(f"K2 relaxation config4c B={Bw}", got[0], st[0])
+    held_bitwise(f"K2 probe config4c B={Bw}", got[1], st[1])
+    timed_variants(
+        r2, s2, "config4c_wave_",
+        lambda: ca.admm_wave_cuda(*wargs, warm=warm, **kw),
+        lambda: ca.admm_wave_cuda(*wargs, warm=warm, **forced, **kw),
+        lambda: ca.admm_wave_plain(*wargs, warm=warm, **kw),
+        admm_work(kq.n_pad, kq.m_pad, Bw, products=502, stats=2,
+                  warm=True, stiff=True, outputs=2))
     # K1 on the same tree's gated single-instance waves (B=64, 100 it warm)
     args = (kq, q, h, lb, ub)
-    compare(f"K1 config4c gated wave B={Bw} 100 it warm",
-            ca.admm_solve_cuda(*args, iters=100, warm=warm),
+    got = ca.admm_solve_cuda(*args, iters=100, warm=warm)
+    compare(f"K1 config4c gated wave B={Bw} 100 it warm", got,
             ca.admm_solve_plain(*args, iters=100, warm=warm), r1)
-    timed(r1, "config4c_gated_",
-          lambda: ca.admm_solve_cuda(*args, iters=100, warm=warm),
-          lambda: ca.admm_solve_plain(*args, iters=100, warm=warm),
-          admm_work(kq.n_pad, kq.m_pad, Bw, products=101, stats=1, warm=True))
+    held_bitwise(f"K1 config4c gated wave B={Bw}", got, ca.admm_solve_cuda(
+        *args, iters=100, warm=warm, **forced))
+    timed_variants(
+        r1, s1, "config4c_gated_",
+        lambda: ca.admm_solve_cuda(*args, iters=100, warm=warm),
+        lambda: ca.admm_solve_cuda(*args, iters=100, warm=warm, **forced),
+        lambda: ca.admm_solve_plain(*args, iters=100, warm=warm),
+        admm_work(kq.n_pad, kq.m_pad, Bw, products=101, stats=1, warm=True))
+    print(f"  resident vs L2-streamed so far: {BITWISE[0]} holds bitwise on "
+          f"x, z, y; largest relative stats difference {BITWISE[1]:.2e}",
+          flush=True)
 
 
 CFG4C_B = 256
@@ -2125,21 +2391,21 @@ def phase_config4c_call(dev, recs):
     check(all(r.waves == waves for r in results), "config 4c: repetitions "
           f"ran {[r.waves for r in results]} waves")
     got = PATH_LAUNCHES["config4c_call"]
-    k1 = got["admm_k1_streamed"]
+    k1 = got["admm_k1_resident"]
     probing = (k1 - waves) // 2      # relaxation, + two probe halves
     path = ("unfused K1 relax + probe"
-            if got["admm_k2"] + got["admm_k2_streamed"] == 0 and k1 else
+            if got["admm_k2"] + got["admm_k2_resident"] == 0 and k1 else
             "other")
     check(path == "unfused K1 relax + probe" and got["admm_k1"] == 0,
-          f"config 4c: the waves must run streamed K1 only, launches {got}")
+          f"config 4c: the waves must run resident K1 only, launches {got}")
     check(k1 == waves + 2 * probing and 0 < probing <= waves,
           f"config 4c: {k1} K1 launches in {waves} waves")
-    launched_at("config4c_call", ("admm_k1_streamed",), 1024)
+    launched_at("config4c_call", ("admm_k1_resident",), 1024)
     dt = sorted(times)[len(times) // 2]
     found = float(res.found.float().mean())
     objs = res.obj.double().cpu().numpy()
     nodes = int(res.nodes[0])
-    r1 = recs["admm_k1_streamed"]
+    r1 = recs["admm_k1_resident"]
     k1_s = 1e-3 * (waves * r1["config4c_relax_kernel_ms"]
                    + probing * r1["config4c_probe_kernel_ms"])
     print(f"  wave path: {path}; {[round(t, 3) for t in times]} s, median "
@@ -2161,10 +2427,10 @@ def phase_config4c_call(dev, recs):
                       lambda: [ctrl.feedback(xs[i]) for i in CFG4C_HELD])
     ms1 = 1e3 * (time.perf_counter() - t0) / len(CFG4C_HELD)
     got1 = PATH_LAUNCHES["config4c_feedback"]
-    check(got1["admm_k2_streamed"] > 0 and got1["admm_k2"] == 0,
-          f"config 4c feedback: K2 must run streamed, launches {got1}")
-    launched_at("config4c_feedback", ("admm_k2_streamed",
-                                      "admm_k1_streamed"),
+    check(got1["admm_k2_resident"] > 0 and got1["admm_k2"] == 0,
+          f"config 4c feedback: K2 must run resident, launches {got1}")
+    launched_at("config4c_feedback", ("admm_k2_resident",
+                                      "admm_k1_resident"),
                 CFG4C_SPEC["wave_size"])
     check(all(bool(r.found) for r in single),
           "config 4c feedback: an instance without a plan")
@@ -2176,7 +2442,7 @@ def phase_config4c_call(dev, recs):
     capped = sum(float(r.gap) > 0 for r in single)
     lim = serve_limit(ref)
     print(f"  single-instance feedback: {ms1:.0f} ms a tree, "
-          f"{got1['admm_k2_streamed'] + got1['admm_k1_streamed']} waves for "
+          f"{got1['admm_k2_resident'] + got1['admm_k1_resident']} waves for "
           f"{len(CFG4C_HELD)} trees, {capped} ended with a certified gap "
           f"> 0; pooled lower on {int((pooled < ref).sum())}, worst relative "
           f"|Δobj| {rel.max():.2e} (limit 1e-3); |Δobj| within serve_limit "
@@ -2295,7 +2561,7 @@ def phase_config2_serve(dev):
     (found=false), quit. Each returned plan is held in fp64 against the
     port's CondensedMpc (G V ≤ h, the box, binaries 0/1: FEAS_TOL) and its
     objective recomputed from V against the reported one (serve_limit);
-    streamed K2 must launch."""
+    resident K2 must launch."""
     from pyhybridcontrol_tpu_torch import serve
 
     print("serve --config pwa_actuator --device cuda:", flush=True)
@@ -2330,8 +2596,8 @@ def phase_config2_serve(dev):
     check(replies[1] == {"pong": True}, "config2 serve: ping not answered")
     check(len(replies) == 2 + len(CFG2_STATES) + 1,
           "config2 serve: missing replies")
-    check(launches["admm_k2_streamed"] > 0,
-          f"config2 serve: streamed K2 was never launched: {launches}")
+    check(launches["admm_k2_resident"] > 0,
+          f"config2 serve: resident K2 was never launched: {launches}")
     diffs, refs = [], []
     for x, r, sol in zip(CFG2_STATES, replies[2:], sols):
         check("error" not in r and r["found"], f"config2 serve: {x}: {r}")
@@ -2394,14 +2660,14 @@ def phase_config2_calls(dev):
         got = PATH_LAUNCHES[path]
         print(f"  {path}: {ms:.1f} ms per solve, {r.waves} waves, "
               f"{int(r.nodes_solved)} nodes, objective {obj:.4f}, certified "
-              f"rel. gap {gap:.4f}, overflow {bool(r.overflow)}, streamed "
-              f"K2 {got['admm_k2_streamed']} and K1 (gated waves) "
-              f"{got['admm_k1_streamed']} launches", flush=True)
+              f"rel. gap {gap:.4f}, overflow {bool(r.overflow)}, resident "
+              f"K2 {got['admm_k2_resident']} and K1 (gated waves) "
+              f"{got['admm_k1_resident']} launches", flush=True)
         check(bool(r.found), f"{path}: no plan found")
-        check(got["admm_k2_streamed"] > 0, f"{path}: no streamed K2: {got}")
-        check(got["admm_k2_streamed"] + got["admm_k1_streamed"] == r.waves,
+        check(got["admm_k2_resident"] > 0, f"{path}: no resident K2: {got}")
+        check(got["admm_k2_resident"] + got["admm_k1_resident"] == r.waves,
               f"{path}: {r.waves} waves, launches {got}")
-        launched_at(path, ("admm_k1_streamed", "admm_k2_streamed"), 128)
+        launched_at(path, ("admm_k1_resident", "admm_k2_resident"), 128)
         plans_feasible(path, c, [(r.x.double().cpu().numpy(), [1.5, 0.0],
                                   None, None)])
         out[path] = dict(ms_per_solve=ms, waves=r.waves,
@@ -2613,9 +2879,9 @@ def phase_config3_loop(dev):
         model, run, x0, CFG3_T, omega_traj=draws[0], price_traj=prices))
     ms = 1e3 * (time.perf_counter() - t0) / CFG3_T
     got = PATH_LAUNCHES["config3_loop"]
-    check(got["admm_k2_streamed"] > 0 and got["admm_k2"] == 0,
-          f"config 3 loop: K2 must run streamed, launches {got}")
-    launched_at("config3_loop", ("admm_k2_streamed",), 64)
+    check(got["admm_k2_resident"] > 0 and got["admm_k2"] == 0,
+          f"config 3 loop: K2 must run resident, launches {got}")
+    launched_at("config3_loop", ("admm_k2_resident",), 64)
     found = float(res.found.float().mean())
     print(f"  {ms:.2f} ms per control step, found share {found:.3f}, nodes "
           f"{res.nodes.tolist()}, T "
@@ -2686,15 +2952,15 @@ def phase_config4b_loop(dev):
         model, step, x0s, T, omega_trajs=draws, price_traj=prices))
     dt = time.perf_counter() - t0
     got = PATH_LAUNCHES["config4b_loop"]
-    check(got["admm_k2_streamed"] > 0 and got["admm_k2"] == 0,
-          f"config 4b loop: K2 must run streamed, launches {got}")
-    launched_at("config4b_loop", ("admm_k2_streamed", "admm_k1_streamed"), B)
+    check(got["admm_k2_resident"] > 0 and got["admm_k2"] == 0,
+          f"config 4b loop: K2 must run resident, launches {got}")
+    launched_at("config4b_loop", ("admm_k2_resident", "admm_k1_resident"), B)
     found = float(res.found.float().mean())
     nodes = int(res.nodes.sum())
     print(f"  {dt:.2f} s: {T / dt:.3f} control steps/s, {B * T / dt:.1f} "
           f"MIQP/s, {nodes} nodes ({nodes / dt:.0f} nodes/s), found share "
-          f"{found:.4f}, streamed K2 {got['admm_k2_streamed']} and K1 (gated "
-          f"waves) {got['admm_k1_streamed']} launches", flush=True)
+          f"{found:.4f}, resident K2 {got['admm_k2_resident']} and K1 (gated "
+          f"waves) {got['admm_k1_resident']} launches", flush=True)
     check(found == 1.0, "config 4b loop: an instance-step without a plan")
     x, _, P, V = log[0]
     plans_feasible("config 4b loop, first step", c, [
@@ -2965,7 +3231,7 @@ def phase_k4(dev, rng, rec):
     on config 6's frame, K4 against the plain sweeps, certificate bits
     identical. Times of K4 alone, of its wrapper and of the plain sweeps,
     its bound, its chain floor and ``torch.linalg.lu_solve`` on the dense
-    LU of K at config 6's main shape."""
+    LU of K at every shape."""
     import torch
 
     from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
@@ -3000,15 +3266,15 @@ def phase_k4(dev, rng, rec):
         rec[pre + "chain_ms"] = k4_chain_ms(N, b)
         if key == "cfg6":
             rec["bound_by"] = by
-            K = dense_K(sw).float()
-            LU, piv = torch.linalg.lu_factor(K)
-            rhs = r.reshape(P, N * b).T.contiguous()
-            rec["library_ms"] = cuda_ms(
-                lambda: torch.linalg.lu_solve(LU, piv, rhs))
-            print(f"  chain floor {rec['chain_ms']:.4f} ms (2N={2 * N} "
-                  f"stages); torch.linalg.lu_solve on the dense LU of K "
-                  f"({N * b}², {P} right-hand sides): "
-                  f"{rec['library_ms']:.3f} ms", flush=True)
+        K = dense_K(sw).float()
+        LU, piv = torch.linalg.lu_factor(K)
+        rhs = r.reshape(P, N * b).T.contiguous()
+        rec[pre + "library_ms"] = cuda_ms(
+            lambda: torch.linalg.lu_solve(LU, piv, rhs))
+        print(f"  chain floor {rec[pre + 'chain_ms']:.4f} ms (2N={2 * N} "
+              f"stages); torch.linalg.lu_solve on the dense LU of K "
+              f"({N * b}², {P} right-hand sides): "
+              f"{rec[pre + 'library_ms']:.3f} ms", flush=True)
 
     for tag, factors, P in k4_wide(dev, rng):
         N, b = factors[0].shape[:2]
@@ -3475,7 +3741,12 @@ def main(argv=None):
         r["launches_by_path"] = {p: PATH_LAUNCHES[p][k] for p in PATHS}
         r["launches"] = sum(r["launches_by_path"].values())
         r["on_main_path"] = any(PATH_LAUNCHES[p][k] > 0 for p in SERVED)
-        check(r["launches"] > 0, f"{k} was launched on none of the paths")
+        if k in FORCED_ONLY:
+            check(r["launches"] == 0, f"{k} launched on a driven path: "
+                  f"{r['launches_by_path']}")
+        else:
+            check(r["launches"] > 0, f"{k} was launched on none of the "
+                  f"paths")
         kernels.append(r)
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

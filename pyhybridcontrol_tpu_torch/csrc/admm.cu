@@ -68,13 +68,40 @@
 //    products of the same routine (P̂ᵀ read from L2, coalesced), the row
 //    reductions are split over all threads and combined across warps in
 //    shared memory, sums in fp64.
-//  - Streamed variant (template flag STREAM) for shapes whose constants do
-//    not fit a block: the tile's iterates stay in shared memory, Â_G, Mᵀ
-//    and K2's M2ᵀ are read from device memory (L2 holds them: config 2's
-//    are ~1.5 MB of the H100's 50 MB) in the same padded layout as the
-//    staged copies, so the products are the same code on another pointer.
-//    The plan (ops/cuda_admm.py) takes it only where a tile of one problem
-//    with staged constants would not fit.
+//  - Streamed variant (template flag STREAM): the tile's iterates stay in
+//    shared memory, Â_G, Mᵀ and K2's M2ᵀ are read from device memory (L2
+//    holds them) in the same padded layout as the staged copies, so the
+//    products are the same code on another pointer. Every block reads the
+//    whole matrix set in every iteration, so L2's rate bounds it (1.4 to
+//    5.9 TB/s of constants on the real frames, 3-30x its bound: PERF.md). The
+//    plan (ops/cuda_admm.py) takes it only for shapes no cluster of 16 holds;
+//    chip_smoke.py forces it to hold the resident variant against it.
+//  - Resident variant (the cl_* functions and *_resident_kernel, kept apart
+//    from the block's: folded into one body, the block variants lost
+//    registers and occupancy) for shapes whose constants do not fit one
+//    block: a thread-block cluster of C CTAs (2-16) owns one tile, and each
+//    CTA keeps a slice of the constants in its shared memory for the whole
+//    launch, copied once with cp.async.bulk (completion on an mbarrier).
+//    The slices follow the output rows: a CTA owns whole warp tasks of both
+//    products (deal_start), i.e. the columns of Â_G of its rows of t and
+//    the columns of Mᵀ of its rows of ẑ, each with a padded stride of its
+//    own width (same bank rule). Per-row state (z, y, l, u, δy, ρ) lives
+//    only on the CTA that owns the row; w (ẑ after a half step) and t are
+//    needed whole as the depth vectors of the next product, so after each
+//    product a CTA sends its rows into every other CTA's copy (distributed
+//    shared memory: w's, a contiguous run, by one bulk copy a CTA; t's,
+//    rows t_row apart, by st.async stores), each completing bytes on the
+//    receiver's mbarrier, and a CTA waits for the bytes of the others. No
+//    cluster barrier runs inside the iterations: its release fence is what
+//    costs (0.39-0.72 µs a barrier, 0.04-0.05 relaxed; PERF.md). Every
+//    output is the same task of the same routine over the same depth in the
+//    same order, so x, z and y are bitwise those of the other variants at
+//    the same tile; the stats sum each CTA's rows, then rank 0 sums the
+//    CTAs (fp64, another order). K2's stiff phase copies each CTA's M2ᵀ
+//    slice over its Mᵀ slice and back, as the staged variant does. The plan
+//    takes the largest tile that, over the smallest cluster whose CTAs hold
+//    it, still gives ~2 CTAs per SM: an iteration's exchange and waits cost
+//    about as much for a tile of 8 as for 1.
 //  - Split mode (template flag SPLIT of K1 and of `phase`): the first
 //    iters_lo iterations take each product as the reference's _mm3 does,
 //    hi = bf16(a), lo = bf16(a − hi), Ahi·bhi + Ahi·blo + Alo·bhi with fp32
@@ -85,20 +112,23 @@
 //    double integrator); the operand splits are recomputed per use, three
 //    FMAs per product term: simple, right, and about 4× the work of a
 //    full-precision iteration.
-// What is left: the matrix words of a thread's slice are the same in every
-// iteration and could live in registers (needs compile-time nr, mGp: one
-// build per shape); constants are staged with plain loads (cp.async.bulk
-// would overlap them with the first iterations); a second tile per block
-// sharing the constants (more warps in flight at N=20); tensor cores for an
-// exact fp32 product (3×TF32 or bf16 splits, the batch as the N dimension).
-// Measured times are in PERF.md.
+// What is left: tensor cores for the exact products (3×TF32 or bf16 splits,
+// the batch as the N dimension, wgmma with the resident slices behind
+// descriptors); fewer bytes between the CTAs (w's box rows are needed by
+// the CTA that owns the matching row of t only); matrix words of a
+// thread's slice in registers (one build per shape); the split mode's
+// products on the tensor cores above N=21. Measured times are in PERF.md.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #define PHC_BIG 1e30f
 #define PHC_RED 16  // floats of reduction workspace per warp and problem
+
+namespace cg = cooperative_groups;
 
 // One launch's arguments; ops/cuda_admm.py mirrors the layout field by
 // field (ctypes.Structure), so the order here is part of the interface.
@@ -108,7 +138,9 @@ struct PhcAdmmArgs {
   // warm iterates (null: cold), G rows and box rows apart
   const float *z0G, *y0G, *z0B, *y0B;
   // constants: Â_G (mGp,nr) and Mᵀ (nr,R) with the padded row strides
-  // stride_A(nr) and stride_M(R), P̂ᵀ (nr,nr), the per-row vectors
+  // stride_A(nr) and stride_M(R) (resident variant: the C slices one after
+  // the other, each with the strides of its own width), P̂ᵀ (nr,nr), the
+  // per-row vectors
   // vec = [dbox, 1/dbox, ρ_B, 1/ρ_B, 1/E_B, 1/(D·c) | ρ_G, 1/ρ_G, 1/E_G]
   // and io = [c·D, E_B, D | E_G] (nr, nr, nr, mGp)
   const float *AG, *MT, *PT, *vec, *io;
@@ -128,6 +160,10 @@ namespace {
 
 typedef PhcAdmmArgs Args;
 
+// output rows of one warp task: product A (rows of t) and B (rows of ẑ),
+// RT·32/KS of every Cfg below; the resident variant deals whole tasks
+constexpr int TASK_A = 4, TASK_B = 16;
+
 // tile shapes per problem-tile width: product A (t = Â_Gᵀw, depth mGp) and
 // product B (ẑ = M t, depth nr); RT rows per thread, depth over KS lanes;
 // WARPS: the most warps a block may have (the register budget follows)
@@ -141,10 +177,29 @@ template <> struct Cfg<4> {
 template <> struct Cfg<1> {
   enum { A_RT = 1, A_KS = 8, B_RT = 4, B_KS = 8, WARPS = 12 };
 };
+template <int PB> struct TaskRows {
+  static_assert(Cfg<PB>::A_RT * 32 / Cfg<PB>::A_KS == TASK_A &&
+                    Cfg<PB>::B_RT * 32 / Cfg<PB>::B_KS == TASK_B,
+                "warp tasks of every tile must cover TASK_A / TASK_B rows");
+};
+template struct TaskRows<8>;
+template struct TaskRows<4>;
+template struct TaskRows<1>;
+
 __host__ __device__ inline int max_warps(int PB) {
   return PB == 8 ? (int)Cfg<8>::WARPS
                  : (PB == 4 ? (int)Cfg<4>::WARPS : (int)Cfg<1>::WARPS);
 }
+
+// the most warps a CTA of the resident variant may have: fewer than a
+// block's at a tile of 8 (its CTAs own fewer tasks), so that K2's three
+// phases fit in 128 registers, not 96, and do not spill
+constexpr int RESIDENT_WARPS_8 = 16;
+__host__ __device__ inline int resident_warps(int PB) {
+  return PB == 8 ? RESIDENT_WARPS_8 : max_warps(PB);
+}
+
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 
 // shared-memory row strides: Â_G rows so that the KS=8 lane groups of
 // product A hit different banks, Mᵀ rows so that two groups 1 row apart do
@@ -153,6 +208,12 @@ __host__ __device__ inline int stride_A(int nr) {
 }
 __host__ __device__ inline int stride_M(int R) {
   return R + (48 - R % 32) % 32;                      // ≡ 16 mod 32
+}
+
+// the same rule for a resident CTA's slice of w columns (a multiple of 4:
+// ≡ 4 mod 8 with the least padding; stride_M serves every multiple of 8)
+__host__ __device__ inline int slice_stride_A(int w) {
+  return w + (12 - w % 8) % 8;
 }
 
 // streamed: Â_G and Mᵀ stay in device memory and take no shared memory
@@ -164,6 +225,55 @@ __host__ __device__ inline size_t smem_floats(int nr, int mGp, int PB,
                               (size_t)nr * stride_M((int)R);
   return consts + 3 * R + 2 * (size_t)nr +
          (size_t)PB * (6 * R + 6 * (size_t)nr + PHC_RED * max_warps(PB));
+}
+
+// first warp task of rank k when n tasks are dealt to C CTAs: contiguous
+// runs, the first n % C ranks one task more (so rank 0 owns the most)
+__host__ __device__ inline int deal_start(int n, int C, int k) {
+  return k * (n / C) + imin(k, n % C);
+}
+
+// The rows a CTA owns. A block of the staged or streamed variant owns
+// every row (C = 1); a CTA of a cluster owns whole warp tasks of both
+// products: tasks [a0, a1) of product A are the rows [jA, jA + nA) of t,
+// tasks [b0, b1) of product B the rows [rB, rB + nB) of ẑ (the last task
+// may run past R: its lanes there are idle).
+struct Part {
+  int a0, a1, b0, b1, jA, nA, rB, nB;
+};
+
+__host__ __device__ inline Part part_of(int nr, int mGp, int C, int k) {
+  Part q;
+  const int R = mGp + nr;
+  const int na = nr / TASK_A;
+  const int nb = (R + TASK_B - 1) / TASK_B;
+  q.a0 = deal_start(na, C, k);
+  q.a1 = deal_start(na, C, k + 1);
+  q.b0 = deal_start(nb, C, k);
+  q.b1 = deal_start(nb, C, k + 1);
+  q.jA = TASK_A * q.a0;
+  q.nA = TASK_A * (q.a1 - q.a0);
+  q.rB = TASK_B * q.b0;
+  q.nB = imin(TASK_B * q.b1, R) - q.rB;
+  return q;
+}
+
+// the resident variant with C CTAs a tile: what one CTA needs (every CTA
+// takes rank 0's, the largest part): three mbarriers, the slices of Â_G and
+// Mᵀ,
+// ρ, 1/ρ, 1/E of its rows of ẑ, d_box of its rows of t, 1/d_box, and per
+// problem w and the gather buffer (R), t and x (nr), z, y, l, u, δy of its
+// rows of ẑ, q, P̂x, Âᵀy, Âᵀδy of its rows of t, and the reductions of the
+// warps and of the cluster's CTAs
+__host__ __device__ inline size_t cluster_smem_floats(int nr, int mGp, int PB,
+                                                      int C) {
+  const Part q = part_of(nr, mGp, C, 0);
+  const size_t R = (size_t)mGp + nr;
+  const size_t consts = (size_t)mGp * slice_stride_A(q.nA) +
+                        (size_t)nr * stride_M(q.nB);
+  return 8 + consts + 3 * (size_t)q.nB + (size_t)q.nA + (size_t)nr +
+         (size_t)PB * (2 * R + 2 * (size_t)nr + 5 * (size_t)q.nB +
+                       4 * (size_t)q.nA + PHC_RED * (resident_warps(PB) + C));
 }
 
 // shared-memory carve-up; per-problem arrays are [row][PB]
@@ -283,31 +393,33 @@ struct Reduce {
   }
 };
 
-// out[o][p] = Σ_c Mat[c·stride + o] · vec[c·PB + p] for o < O, p < PB, depth
-// K (a multiple of KS), dealt over the block in warp tasks; epi(o, p, v)
-// receives W = min(PB, max(RT·PB/KS, 1)) sums of row o, problems p..p+W-1.
+// out[o][p] = Σ_c Mat[c·stride + o − col0] · vec[c·PB + p] for the rows o
+// of warp tasks [t0, t1) (o < O), p < PB, depth K (a multiple of KS), the
+// tasks dealt over the block's warps; Mat holds the columns from col0 on
+// (a CTA's slice; 0: the whole matrix). epi(o, p, v) receives W =
+// min(PB, max(RT·PB/KS, 1)) sums of row o, problems p..p+W-1.
 // SPLIT: each term as the three bf16 products hi·hi + hi·lo + lo·hi.
 // Every warp must call it (shuffles); barriers are the caller's.
 template <int PB, int RT, int KS, bool SPLIT = false, class Epi>
 __device__ __forceinline__ void product(const float* __restrict__ Mat,
                                         int stride,
                                         const float* __restrict__ vec, int K,
-                                        int O, Epi epi) {
+                                        int O, int t0, int t1, int col0,
+                                        Epi epi) {
   constexpr int G = 32 / KS, RPT = RT * G, N = RT * PB;
   constexpr int NF = (N / KS > 0) ? N / KS : 1;
   constexpr int W = NF < PB ? NF : PB;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   const int ks = lane / G, rgl = lane % G;
-  const int ntasks = (O + RPT - 1) / RPT;
-  for (int task = warp; task < ntasks; task += nw) {
+  for (int task = t0 + warp; task < t1; task += nw) {
     int o0 = task * RPT + rgl * RT;
     const bool valid = o0 < O;   // O is a multiple of 8: whole groups
-    if (!valid) o0 = 0;
+    if (!valid) o0 = col0;
     float acc[N];
 #pragma unroll
     for (int i = 0; i < N; ++i) acc[i] = 0.f;
-    const float* mp = Mat + (size_t)ks * stride + o0;
+    const float* mp = Mat + (size_t)ks * stride + (o0 - col0);
     const float* vp = vec + ks * PB;
 #pragma unroll 4
     for (int c = ks; c < K; c += KS) {
@@ -354,6 +466,17 @@ __device__ __forceinline__ void product(const float* __restrict__ Mat,
       }
     }
   }
+}
+
+
+template <int PB, int RT, int KS, bool SPLIT = false, class Epi>
+__device__ __forceinline__ void product(const float* __restrict__ Mat,
+                                        int stride,
+                                        const float* __restrict__ vec, int K,
+                                        int O, Epi epi) {
+  constexpr int RPT = RT * (32 / KS);
+  product<PB, RT, KS, SPLIT>(Mat, stride, vec, K, O, 0, (O + RPT - 1) / RPT,
+                             0, epi);
 }
 
 // Row of t (and of Mᵀ, laid out to match by ops/cuda_admm.py) that holds
@@ -717,6 +840,650 @@ __device__ __forceinline__ void solve_tile(const Args& a) {
   }
 }
 
+// ---- the resident variant: one tile over a thread-block cluster ----
+// The same iteration as `phase`, `stats`, `load_tile`, `store_tile` and
+// `solve_tile` above, kept apart from them: folded into one body with the
+// block's, the staged K2 at a tile of 4 took 126 registers where it takes
+// 74, one block an SM where it holds two, and its wave ran 45% slower.
+
+// shared-memory carve-up of a cluster's CTA; per-problem arrays are
+// [row][PB], "own" arrays hold the rows of the CTA's Part; every array has
+// the size of rank 0's part, so that w, t, g and red lie at the same
+// offsets in every CTA of the cluster
+struct CSmem {
+  float *AG, *MT;                    // this CTA's slices, row strides AS, RS
+  float *rho, *rhoi, *einv;          // own rows of ẑ: G rows then box rows
+  float *dbox;                       // own rows of t
+  float *dboxi;                      // nr
+  float *z, *y, *lo, *hi, *dy;       // own rows of ẑ, ·PB
+  float *w, *g;                      // R·PB: w holds ẑ after a half step; g
+                                     // gathers y and δy for the stats
+  float *q, *Px, *Aty, *Atdy;        // own rows of t, ·PB
+  float *t, *x;                      // nr·PB each
+  float *red;                        // PHC_RED·(most warps + C)·PB
+  uint64_t* bar;                     // mbarriers: bulk copies, t's, w's
+  int AS, RS;
+};
+
+template <int PB>
+__device__ __forceinline__ CSmem cl_carve(float* p, const Args& a,
+                                          const Part& own, int C) {
+  CSmem s;
+  const int nr = a.nr, mGp = a.mGp, R = mGp + nr;
+  const Part big = part_of(nr, mGp, C, 0);
+  const int nA = big.nA, nB = big.nB;
+  s.bar = reinterpret_cast<uint64_t*>(p);  p += 8;
+  s.w = p;  p += R * PB;
+  s.t = p;  p += nr * PB;
+  s.g = p;  p += R * PB;
+  s.red = p;  p += PHC_RED * (resident_warps(PB) + C) * PB;
+  s.z = p;  p += nB * PB;
+  s.y = p;  p += nB * PB;
+  s.lo = p;  p += nB * PB;
+  s.hi = p;  p += nB * PB;
+  s.dy = p;  p += nB * PB;
+  s.q = p;  p += nA * PB;
+  s.Px = p;  p += nA * PB;
+  s.Aty = p;  p += nA * PB;
+  s.Atdy = p;  p += nA * PB;
+  s.x = p;  p += nr * PB;
+  s.rho = p;  p += nB;
+  s.rhoi = p;  p += nB;
+  s.einv = p;  p += nB;
+  s.dbox = p;  p += nA;
+  s.dboxi = p;  p += nr;
+  s.AS = slice_stride_A(own.nA);
+  s.RS = stride_M(own.nB);
+  s.AG = p;  p += (size_t)mGp * s.AS;
+  s.MT = p;
+  return s;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// one thread copies `count` floats (a multiple of 4) of the device layout
+// into shared memory with bulk copies that complete on `bar` (the caller
+// announced the bytes with bar_expect)
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          int count, uint64_t* bar) {
+  constexpr int CHUNK = 8192;          // floats a copy
+  for (int i = 0; i < count; i += CHUNK) {
+    const int bytes = 4 * imin(CHUNK, count - i);
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst + i)),
+        "l"(src + i), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also expects `bytes` of bulk copies; before async
+// writes over shared memory the generic proxy has read, a proxy fence
+__device__ __forceinline__ void bar_expect(uint64_t* bar, int bytes) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// every thread: wait for the phase of parity `parity` to complete
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// a cluster barrier (arrive.release, wait.acquire: the writes into other
+// CTAs' shared memory are seen after it)
+__device__ __forceinline__ void cluster_sync() { cg::this_cluster().sync(); }
+
+// A CTA writes what it computed into every other CTA's shared memory
+// (distributed shared memory), all threads together: `count` floats (a
+// multiple of 4) from src to the same place as dst in the others (dst: an
+// address in this CTA's shared memory); seen after a cluster barrier
+__device__ __forceinline__ void publish(float* dst, const float* src,
+                                        int count) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks(), me = (int)cl.block_rank();
+  const int n4 = count / 4;
+  for (int i = threadIdx.x; i < (C - 1) * n4; i += blockDim.x) {
+    const int k = i / n4, e = 4 * (i - k * n4);
+    int r = me + 1 + k;                // the others, starting past this one
+    if (r >= C) r -= C;
+    *reinterpret_cast<float4*>(cl.map_shared_rank(dst + e, r)) =
+        *reinterpret_cast<const float4*>(src + e);
+  }
+}
+
+// In the iterations the CTAs exchange t and w without a barrier: each
+// store into another CTA (st.async, or a bulk copy) completes bytes on that
+// CTA's mbarrier of t (bar[1]) or of w (bar[2]), where its thread 0
+// announced what it expects from the others in this round, and a CTA waits
+// for that phase. A round's sends follow the sender's wait for the other
+// vector from every CTA, which those sent after their last read of this
+// one: one buffer each is enough, and no release fence is paid.
+__device__ __forceinline__ uint32_t mapa(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+template <int V>
+__device__ __forceinline__ void st_async(uint32_t a, const float* v,
+                                         uint32_t bar) {
+  if constexpr (V == 1) {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+        "[%2];\n" ::"r"(a),
+        "r"(__float_as_uint(v[0])), "r"(bar)
+        : "memory");
+  } else {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+        "{%1, %2, %3, %4}, [%5];\n" ::"r"(a),
+        "r"(__float_as_uint(v[0])), "r"(__float_as_uint(v[1])),
+        "r"(__float_as_uint(v[2])), "r"(__float_as_uint(v[3])), "r"(bar)
+        : "memory");
+  }
+}
+
+// this CTA's round of one exchange: thread 0 announces the bytes the
+// others send (one arrival)
+__device__ __forceinline__ void expect_bytes(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// the own rows of t (PB floats at t_row) into every other CTA, completing
+// bytes on their mbarrier `bar`
+template <int PB, int KS>
+__device__ __forceinline__ void send_t(float* t, const Part& pt, int nr,
+                                       uint64_t* bar) {
+  constexpr int V = PB < 4 ? PB : 4, NV = PB / V;
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks(), me = (int)cl.block_rank();
+  const int n = pt.nA * NV;
+  for (int i = threadIdx.x; i < (C - 1) * n; i += blockDim.x) {
+    const int k = i / n, e = i - k * n;
+    int r = me + 1 + k;
+    if (r >= C) r -= C;
+    const int o = t_row<KS>(pt.jA + e / NV, nr) * PB + V * (e % NV);
+    st_async<V>(mapa(t + o, r), t + o, mapa(bar, r));
+  }
+}
+
+// `count` floats (a multiple of 4, 16-byte aligned) at p into every other
+// CTA, one bulk copy each (thread k sends to the k-th next rank), completing
+// bytes on their mbarrier `bar`. The caller has fenced its writes of p for
+// the async proxy and passed a barrier.
+__device__ __forceinline__ void send(float* p, int count, uint64_t* bar) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks(), me = (int)cl.block_rank();
+  if ((int)threadIdx.x < C - 1) {
+    int r = me + 1 + (int)threadIdx.x;
+    if (r >= C) r -= C;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::"
+        "bytes [%0], [%1], %2, [%3];\n" ::"r"(mapa(p, r)),
+        "r"(smem_addr(p)), "r"(4 * count), "r"(mapa(bar, r))
+        : "memory");
+  }
+}
+
+// `iters` iterations and the final half step as `phase` does, on the rows
+// of the Part; w and t reach the other CTAs through the exchange above
+// (`parity`: the exchanges' phase, carried from one call to the next).
+// Ends on a cluster barrier.
+template <int PB, bool SPLIT>
+__device__ __forceinline__ void cl_phase(const CSmem& s, const Part& pt,
+                                         int nr, int mGp, int iters,
+                                         float alpha, bool final_half,
+                                         uint32_t& parity) {
+  typedef Cfg<PB> C;
+  const int R = mGp + nr;
+  for (int idx = threadIdx.x; idx < pt.nB * PB; idx += blockDim.x)
+    s.w[pt.rB * PB + idx] = s.rho[idx / PB] * s.z[idx] - s.y[idx];
+  __syncthreads();
+  publish(s.w + pt.rB * PB, s.w + pt.rB * PB, pt.nB * PB);
+  cluster_sync();
+  for (int k = 0; k <= iters; ++k) {
+    const bool last = (k == iters);
+    if (last && !final_half) break;
+    // t = Â_Gᵀ w_G + d∘w_B − q̂ on the own rows of t
+    product<PB, C::A_RT, C::A_KS, SPLIT>(
+        s.AG, s.AS, s.w, mGp, nr, pt.a0, pt.a1, pt.jA,
+        [&](int j, int p, const auto& v) {
+          constexpr int W = sizeof(v) / sizeof(float);
+          const int o = j * PB + p, ol = (j - pt.jA) * PB + p;
+          float wb[W], q[W], t[W];
+          vload<W>(wb, s.w + mGp * PB + o);
+          vload<W>(q, s.q + ol);
+          const float d = s.dbox[j - pt.jA];
+#pragma unroll
+          for (int i = 0; i < W; ++i) t[i] = v[i] + d * wb[i] - q[i];
+          vstore<W>(s.t + t_row<C::B_KS>(j, nr) * PB + p, t);
+        });
+    __syncthreads();
+    if (threadIdx.x == 0) expect_bytes(s.bar + 1, 4 * (nr - pt.nA) * PB);
+    send_t<PB, C::B_KS>(s.t, pt, nr, s.bar + 1);
+    bar_wait(s.bar + 1, parity & 1);
+    // ẑ = M t on the own rows, fused with their update
+    product<PB, C::B_RT, C::B_KS, SPLIT>(
+        s.MT, s.RS, s.t, nr, R, pt.b0, pt.b1, pt.rB,
+        [&](int r, int p, const auto& u) {
+          constexpr int W = sizeof(u) / sizeof(float);
+          const int o = (r - pt.rB) * PB + p;
+          float z[W], y[W], lo[W], hi[W], wn[W];
+          vload<W>(z, s.z + o);
+          vload<W>(y, s.y + o);
+          vload<W>(lo, s.lo + o);
+          vload<W>(hi, s.hi + o);
+          const float rho = s.rho[r - pt.rB], rhoi = s.rhoi[r - pt.rB];
+#pragma unroll
+          for (int i = 0; i < W; ++i) {
+            const float zr = alpha * u[i] + (1.f - alpha) * z[i];
+            const float zn = clipf(zr + y[i] * rhoi, lo[i], hi[i]);
+            const float dy = rho * (zr - zn);
+            if (last) {
+              wn[i] = u[i];
+              y[i] = dy;
+            } else {
+              z[i] = zn;
+              y[i] = y[i] + dy;
+              wn[i] = rho * zn - y[i];
+            }
+          }
+          vstore<W>(s.w + r * PB + p, wn);
+          if (last) {
+            vstore<W>(s.dy + o, y);
+          } else {
+            vstore<W>(s.z + o, z);
+            vstore<W>(s.y + o, y);
+          }
+        });
+    // w's rows leave by bulk copy (async proxy): fence the writes first
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) expect_bytes(s.bar + 2, 4 * (R - pt.nB) * PB);
+    send(s.w + pt.rB * PB, pt.nB * PB, s.bar + 2);
+    bar_wait(s.bar + 2, parity & 1);
+    parity ^= 1;
+  }
+  cluster_sync();
+}
+
+// one reduction record: four fp64 sums, then five fp32 maxima
+__device__ __forceinline__ void record_put(float* f, double xpx, double qx,
+                                           double support, double gap,
+                                           float r_prim, float r_rel,
+                                           float r_dual, float dy_norm,
+                                           float atdy) {
+  double* d = reinterpret_cast<double*>(f);   // 8-byte aligned: PHC_RED even
+  d[0] = xpx;  d[1] = qx;  d[2] = support;  d[3] = gap;
+  f[8] = r_prim;  f[9] = r_rel;  f[10] = r_dual;  f[11] = dy_norm;
+  f[12] = atdy;
+}
+
+// the records f[0], f[stride], ... f[(count-1)·stride], in order
+__device__ __forceinline__ void record_sum(const float* f, int count,
+                                           int stride, double& xpx,
+                                           double& qx, double& support,
+                                           double& gap, float& r_prim,
+                                           float& r_rel, float& r_dual,
+                                           float& dy_norm, float& atdy) {
+  r_prim = r_rel = r_dual = dy_norm = atdy = 0.f;
+  xpx = qx = support = gap = 0.0;
+  for (int w = 0; w < count; ++w, f += stride) {
+    const double* d = reinterpret_cast<const double*>(f);
+    xpx += d[0];  qx += d[1];  support += d[2];  gap += d[3];
+    r_prim = fmaxf(r_prim, f[8]);
+    r_rel = fmaxf(r_rel, f[9]);
+    r_dual = fmaxf(r_dual, f[10]);
+    dy_norm = fmaxf(dy_norm, f[11]);
+    atdy = fmaxf(atdy, f[12]);
+  }
+}
+
+// the own rows of src (a per-row array of the Part) into dst (R·PB) of
+// every CTA of the cluster (seen after a cluster barrier)
+template <int PB>
+__device__ __forceinline__ void gather(float* dst, const float* src,
+                                       const Part& pt) {
+  for (int idx = threadIdx.x; idx < pt.nB * PB; idx += blockDim.x)
+    dst[pt.rB * PB + idx] = src[idx];
+  publish(dst + pt.rB * PB, src, pt.nB * PB);
+}
+
+// `stats` of a cluster's tile: P̂x, Âᵀy, Âᵀδy on the own rows of t (y and
+// δy gathered whole into g first), each CTA's row reductions over its own
+// rows, then rank 0 sums the CTAs' records in rank order. Ends on a
+// cluster barrier.
+template <int PB>
+__device__ __forceinline__ void cl_stats(const CSmem& s, const Part& pt,
+                                         const Args& a, int b0, float* st) {
+  typedef Cfg<PB> C;
+  const int nr = a.nr, mGp = a.mGp, R = mGp + nr;
+  const float* dci = a.vec + 5 * nr;
+  gather<PB>(s.g, s.y, pt);
+  cluster_sync();
+  product<PB, C::A_RT, C::A_KS>(
+      a.PT, nr, s.x, nr, nr, pt.a0, pt.a1, 0,
+      [&](int j, int p, const auto& v) {
+        constexpr int W = sizeof(v) / sizeof(float);
+        vstore<W>(s.Px + (j - pt.jA) * PB + p, v);
+      });
+  product<PB, C::A_RT, C::A_KS>(
+      s.AG, s.AS, s.g, mGp, nr, pt.a0, pt.a1, pt.jA,
+      [&](int j, int p, const auto& v) {
+        constexpr int W = sizeof(v) / sizeof(float);
+        float yb[W], r[W];
+        vload<W>(yb, s.g + mGp * PB + j * PB + p);
+#pragma unroll
+        for (int i = 0; i < W; ++i) r[i] = v[i] + s.dbox[j - pt.jA] * yb[i];
+        vstore<W>(s.Aty + (j - pt.jA) * PB + p, r);
+      });
+  cluster_sync();
+  gather<PB>(s.g, s.dy, pt);
+  cluster_sync();
+  product<PB, C::A_RT, C::A_KS>(
+      s.AG, s.AS, s.g, mGp, nr, pt.a0, pt.a1, pt.jA,
+      [&](int j, int p, const auto& v) {
+        constexpr int W = sizeof(v) / sizeof(float);
+        float yb[W], r[W];
+        vload<W>(yb, s.g + mGp * PB + j * PB + p);
+#pragma unroll
+        for (int i = 0; i < W; ++i) r[i] = v[i] + s.dbox[j - pt.jA] * yb[i];
+        vstore<W>(s.Atdy + (j - pt.jA) * PB + p, r);
+      });
+  __syncthreads();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  const int p = tid % PB;
+  float r_prim = 0.f, r_rel = 0.f, r_dual = 0.f, dy_norm = 0.f, atdy = 0.f;
+  double xpx = 0.0, qx = 0.0, support = 0.0, gap = 0.0;
+  for (int i = tid / PB; i < pt.nB; i += blockDim.x / PB) {
+    const int o = i * PB + p;
+    const float zt = s.w[(pt.rB + i) * PB + p], lo = s.lo[o], hi = s.hi[o];
+    const float ei = s.einv[i], dy = s.dy[o];
+    const float viol = fabsf(zt - clipf(zt, lo, hi)) * ei;
+    r_prim = fmaxf(r_prim, viol);
+    r_rel = fmaxf(r_rel, viol / fmaxf(1.f, fabsf(zt * ei)));
+    dy_norm = fmaxf(dy_norm, fabsf(dy));
+    const double dyp = (double)fmaxf(dy, 0.f), dyn = (double)fminf(dy, 0.f);
+    const bool finu = hi < 0.9f * PHC_BIG, finl = lo > -0.9f * PHC_BIG;
+    support += (finu ? 0.0 : dyp) + (finl ? 0.0 : -dyn);
+    gap += (finu ? (double)hi * dyp : 0.0) + (finl ? (double)lo * dyn : 0.0);
+  }
+  for (int i = tid / PB; i < pt.nA; i += blockDim.x / PB) {
+    const int j = pt.jA + i, oj = i * PB + p;
+    const float x = s.x[j * PB + p], q = s.q[oj], px = s.Px[oj];
+    r_dual = fmaxf(r_dual, fabsf((px + q + s.Aty[oj]) * dci[j]));
+    atdy = fmaxf(atdy, fabsf(s.Atdy[oj]));
+    xpx += (double)x * (double)px;
+    qx += (double)q * (double)x;
+  }
+  r_prim = group_max(r_prim, PB);
+  r_rel = group_max(r_rel, PB);
+  r_dual = group_max(r_dual, PB);
+  dy_norm = group_max(dy_norm, PB);
+  atdy = group_max(atdy, PB);
+  xpx = group_sum(xpx, PB);
+  qx = group_sum(qx, PB);
+  support = group_sum(support, PB);
+  gap = group_sum(gap, PB);
+  if (lane < PB)
+    record_put(s.red + (size_t)(warp * PB + p) * PHC_RED, xpx, qx, support,
+               gap, r_prim, r_rel, r_dual, dy_norm, atdy);
+  __syncthreads();
+  // this CTA's record into rank 0's slots, then rank 0 sums them
+  cg::cluster_group cl = cg::this_cluster();
+  const int nc = (int)cl.num_blocks();
+  float* slots = s.red + (size_t)resident_warps(PB) * PB * PHC_RED;
+  const bool live = tid < PB && b0 + tid < a.B;
+  if (live) {
+    record_sum(s.red + (size_t)tid * PHC_RED, nw, PB * PHC_RED, xpx, qx,
+               support, gap, r_prim, r_rel, r_dual, dy_norm, atdy);
+    record_put(cl.map_shared_rank(
+                   slots + (size_t)(cl.block_rank() * PB + tid) * PHC_RED, 0),
+               xpx, qx, support, gap, r_prim, r_rel, r_dual, dy_norm, atdy);
+  }
+  cluster_sync();
+  if (live && cl.block_rank() == 0) {
+    record_sum(slots + (size_t)tid * PHC_RED, nc, PB * PHC_RED, xpx, qx,
+               support, gap, r_prim, r_rel, r_dual, dy_norm, atdy);
+    const double eps_c = 1e-4, dn = (double)dy_norm;
+    const bool cert = dn > 1e-12 && (double)atdy <= eps_c * dn &&
+                      support <= eps_c * dn && gap <= -eps_c * dn;
+    float* out = st + (size_t)(b0 + tid) * 8;
+    out[0] = (float)((0.5 * xpx + qx) * (double)a.cinv);
+    out[1] = r_prim;
+    out[2] = r_rel;
+    out[3] = r_dual;
+    out[4] = cert ? 1.f : 0.f;
+    out[5] = out[6] = out[7] = 0.f;
+  }
+  cluster_sync();
+}
+
+// ρ and 1/ρ of the own rows of ẑ from a packed per-row vector
+__device__ __forceinline__ void cl_stage_rho(const CSmem& s, const float* vec,
+                                             const Part& pt, int nr,
+                                             int mGp) {
+  for (int i = threadIdx.x; i < pt.nB; i += blockDim.x) {
+    const int r = pt.rB + i;
+    const bool g = r < mGp;
+    s.rho[i] = g ? vec[6 * nr + r] : vec[2 * nr + r - mGp];
+    s.rhoi[i] = g ? vec[6 * nr + mGp + r] : vec[3 * nr + r - mGp];
+  }
+}
+
+// `load_tile` on the own rows (the CTA's slices of the constants arrive by
+// bulk copy): scaled data, bounds and the clipped initial iterates
+template <int PB>
+__device__ __forceinline__ void cl_load_tile(const CSmem& s, const Part& pt,
+                                             const Args& a, int b0) {
+  const int nr = a.nr, mGp = a.mGp, n = a.n, m = a.m;
+  cl_stage_rho(s, a.vec, pt, nr, mGp);
+  for (int i = threadIdx.x; i < pt.nB; i += blockDim.x) {
+    const int r = pt.rB + i;
+    s.einv[i] = r < mGp ? a.vec[6 * nr + 2 * mGp + r]
+                        : a.vec[4 * nr + r - mGp];
+  }
+  for (int j = threadIdx.x; j < nr; j += blockDim.x) {
+    if (j >= pt.jA && j < pt.jA + pt.nA) s.dbox[j - pt.jA] = a.vec[j];
+    s.dboxi[j] = a.vec[nr + j];
+  }
+  const float *qsc = a.io, *eb = a.io + nr, *eg = a.io + 3 * nr;
+  for (int idx = threadIdx.x; idx < pt.nB * PB; idx += blockDim.x) {
+    const int p = idx / pt.nB, i = idx % pt.nB;   // rows fastest: coalesced
+    const int r = pt.rB + i;
+    const size_t b = (size_t)b0 + p;
+    const bool live = b < (size_t)a.B;
+    float lo = 0.f, hi = 0.f, z0 = 0.f, y0 = 0.f;
+    if (r < mGp) {
+      if (live && r < m) {
+        lo = -PHC_BIG;
+        hi = a.h[b * a.sh + r] * eg[r];
+        if (a.z0G) z0 = a.z0G[b * a.sz0G + r];
+        if (a.y0G) y0 = a.y0G[b * a.sy0G + r];
+      }
+    } else {
+      const int j = r - mGp;
+      if (live && j < n) {
+        lo = clipf(a.lb[b * a.slb + j] * eb[j], -PHC_BIG, PHC_BIG);
+        hi = clipf(a.ub[b * a.sub + j] * eb[j], -PHC_BIG, PHC_BIG);
+        if (a.z0B) z0 = a.z0B[b * a.sz0B + j];
+        if (a.y0B) y0 = a.y0B[b * a.sy0B + j];
+      }
+    }
+    const int o = i * PB + p;
+    s.lo[o] = lo;
+    s.hi[o] = hi;
+    s.z[o] = clipf(z0, lo, hi);
+    s.y[o] = y0;
+  }
+  for (int idx = threadIdx.x; idx < pt.nA * PB; idx += blockDim.x) {
+    const int p = idx / pt.nA, i = idx % pt.nA;
+    const int j = pt.jA + i;
+    const size_t b = (size_t)b0 + p;
+    s.q[i * PB + p] =
+        b < (size_t)a.B && j < n ? a.q[b * a.sq + j] * qsc[j] : 0.f;
+  }
+}
+
+// x̃ = ẑ_B / d into s.x (every row); x = D·x̃, z and y of the own rows and
+// the stats of the tile's problems to device memory
+template <int PB>
+__device__ __forceinline__ void cl_store_tile(const CSmem& s, const Part& pt,
+                                              const Args& a, int b0, float* x,
+                                              float* z, float* y, float* st) {
+  const int nr = a.nr, mGp = a.mGp, n = a.n, m = a.m;
+  const int mt = m + n;
+  const float* dsc = a.io + 2 * nr;
+  for (int idx = threadIdx.x; idx < pt.nB * PB; idx += blockDim.x) {
+    const int p = idx / pt.nB, i = idx % pt.nB;
+    const int r = pt.rB + i;
+    const size_t b = (size_t)b0 + p;
+    const bool live = b < (size_t)a.B;
+    const int o = i * PB + p;
+    if (r < mGp) {
+      if (live && r < m) {
+        z[b * mt + r] = s.z[o];
+        y[b * mt + r] = s.y[o];
+      }
+    } else {
+      const int j = r - mGp;
+      if (live && j < n) {
+        x[b * n + j] = dsc[j] * (s.w[r * PB + p] * s.dboxi[j]);
+        z[b * mt + m + j] = s.z[o];
+        y[b * mt + m + j] = s.y[o];
+      }
+    }
+  }
+  for (int idx = threadIdx.x; idx < nr * PB; idx += blockDim.x)
+    s.x[idx] = s.w[mGp * PB + idx] * s.dboxi[idx / PB];
+  __syncthreads();
+  cl_stats<PB>(s, pt, a, b0, st);
+}
+
+// `solve_tile` for rank `block_rank` of the cluster of blockIdx.x: the
+// CTA's slices of Â_G and Mᵀ (and M2ᵀ for K2's stiff phase) by bulk copy
+template <int PB, bool WAVE, bool SPLIT>
+__device__ __forceinline__ void cl_solve_tile(const Args& a) {
+  extern __shared__ __align__(16) float smem[];
+  const int nr = a.nr, mGp = a.mGp;
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const Part pt = part_of(nr, mGp, C, rank);
+  const CSmem s = cl_carve<PB>(smem, a, pt, C);
+  const int b0 = (blockIdx.x / C) * PB;
+  // where this CTA's slices lie in the device layout
+  size_t offA = 0, offM = 0;
+  for (int k = 0; k < rank; ++k) {
+    const Part o = part_of(nr, mGp, C, k);
+    offA += (size_t)mGp * slice_stride_A(o.nA);
+    offM += (size_t)nr * stride_M(o.nB);
+  }
+  const int nAG = mGp * s.AS, nMT = nr * s.RS;
+  uint32_t parity = 0, xpar = 0;     // bulk copies', exchanges' phases
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 3; ++i) bar_init(s.bar + i);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    bar_expect(s.bar, 4 * (nAG + nMT));
+    bulk_copy(s.AG, a.AG + offA, nAG, s.bar);
+    bulk_copy(s.MT, a.MT + offM, nMT, s.bar);
+  }
+  cl_load_tile<PB>(s, pt, a, b0);
+  bar_wait(s.bar, parity);
+  parity ^= 1;
+  cluster_sync();     // every CTA started: distributed memory is safe
+
+  // ---- relaxation ----
+  if constexpr (SPLIT)
+    cl_phase<PB, true>(s, pt, nr, mGp, a.iters_lo, a.alpha, false, xpar);
+  cl_phase<PB, false>(s, pt, nr, mGp, a.iters, a.alpha, true, xpar);
+  cl_store_tile<PB>(s, pt, a, b0, a.x, a.z, a.y, a.st);
+  if constexpr (WAVE) {
+    // ---- probe bounds on the own box rows (as `solve_tile`) ----
+    for (int idx = threadIdx.x; idx < pt.nB * PB; idx += blockDim.x) {
+      const int i = idx / PB, r = pt.rB + i, p = idx % PB;
+      if (r < mGp) continue;
+      const int j = r - mGp;
+      float lo = s.lo[idx], hi = s.hi[idx];
+      if (a.binm[j] > 0.f) {
+        const float xo = clipf(s.w[r * PB + p], lo, hi) * s.einv[i];
+        const float pv = rintf(clipf(xo, 0.f, 1.f)) / s.einv[i];
+        lo = pv;
+        hi = pv;
+        s.lo[idx] = lo;
+        s.hi[idx] = hi;
+      }
+      s.z[idx] = clipf(s.z[idx], lo, hi);
+    }
+    // ---- probe: stiff-ρ then base-ρ; the M2ᵀ slice over the Mᵀ one ----
+    if (a.p1 > 0) {
+      if (threadIdx.x == 0) {
+        bar_expect(s.bar, 4 * nMT);
+        bulk_copy(s.MT, a.MT2 + offM, nMT, s.bar);
+      }
+      cl_stage_rho(s, a.vec2, pt, nr, mGp);
+      bar_wait(s.bar, parity);
+      parity ^= 1;
+      __syncthreads();
+      cl_phase<PB, false>(s, pt, nr, mGp, a.p1, a.alpha2, false, xpar);
+      if (threadIdx.x == 0) {
+        bar_expect(s.bar, 4 * nMT);
+        bulk_copy(s.MT, a.MT + offM, nMT, s.bar);
+      }
+      cl_stage_rho(s, a.vec, pt, nr, mGp);
+      bar_wait(s.bar, parity);
+      parity ^= 1;
+    }
+    __syncthreads();
+    cl_phase<PB, false>(s, pt, nr, mGp, a.p2, a.alpha, true, xpar);
+    cl_store_tile<PB>(s, pt, a, b0, a.xp, a.zp, a.yp, a.stp);
+  }
+}
+
+// threads a CTA of the resident variant may have
+template <int PB> struct ResidentThreads {
+  enum { N = 32 * (PB == 8 ? RESIDENT_WARPS_8 : (int)Cfg<PB>::WARPS) };
+};
+
+template <int PB, bool SPLIT>
+__global__ void __launch_bounds__(ResidentThreads<PB>::N)
+admm_k1_resident_kernel(const Args a) {
+  cl_solve_tile<PB, false, SPLIT>(a);
+}
+
+template <int PB>
+__global__ void __launch_bounds__(ResidentThreads<PB>::N)
+admm_k2_resident_kernel(const Args a) {
+  cl_solve_tile<PB, true, false>(a);
+}
+
 template <int PB, bool STREAM, bool SPLIT>
 __global__ void __launch_bounds__(Cfg<PB>::WARPS * 32)
 admm_k1_kernel(const Args a) {
@@ -729,6 +1496,21 @@ admm_k2_kernel(const Args a) {
   solve_tile<PB, STREAM, true, false>(a);
 }
 
+// cudaFuncSetAttribute of a kernel for `bytes` of dynamic shared memory and,
+// above 8 CTAs, a non-portable cluster size
+template <class F>
+int allow(F kernel, size_t bytes, int cluster) {
+  if (bytes > 48 * 1024) {
+    const int rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (rc) return rc;
+  }
+  if (cluster > 8)
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return 0;
+}
+
 template <int PB, bool STREAM, bool WAVE, bool SPLIT>
 int launch(const Args& a, int threads, cudaStream_t stream) {
   const size_t bytes = smem_floats(a.nr, a.mGp, PB, STREAM) * sizeof(float);
@@ -737,24 +1519,67 @@ int launch(const Args& a, int threads, cudaStream_t stream) {
     kernel = admm_k2_kernel<PB, STREAM>;
   else
     kernel = admm_k1_kernel<PB, STREAM, SPLIT>;
-  if (bytes > 48 * 1024) {
-    const int rc = (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (rc) return rc;
-  }
+  const int rc = allow(kernel, bytes, 1);
+  if (rc) return rc;
   kernel<<<(a.B + PB - 1) / PB, threads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// the instantiation of one tile width: staged or streamed, split or not
+// the resident variant over clusters of `cluster` CTAs; or, if
+// `max_clusters`, how many such clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters)
+template <int PB, bool WAVE, bool SPLIT>
+int launch_resident(const Args& a, int threads, int cluster,
+                    cudaStream_t stream, int* max_clusters) {
+  const size_t bytes =
+      cluster_smem_floats(a.nr, a.mGp, PB, cluster) * sizeof(float);
+  void (*kernel)(const Args);
+  if constexpr (WAVE)
+    kernel = admm_k2_resident_kernel<PB>;
+  else
+    kernel = admm_k1_resident_kernel<PB, SPLIT>;
+  int rc = allow(kernel, bytes, cluster);
+  if (rc) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(((a.B + PB - 1) / PB) * cluster), 1, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters) {
+    cfg.gridDim = dim3((unsigned)cluster, 1, 1);
+    return (int)cudaOccupancyMaxActiveClusters(max_clusters,
+                                               (const void*)kernel, &cfg);
+  }
+  rc = (int)cudaLaunchKernelEx(&cfg, kernel, a);
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+// the instantiation of one tile width: staged, streamed or resident, split
+// or not
 template <int PB, bool WAVE>
-int launch_variant(const Args& a, bool streamed, cudaStream_t st,
-                   int threads) {
+int launch_variant(const Args& a, bool streamed, int cluster,
+                   cudaStream_t st, int threads, int* maxc) {
+  const bool split = a.iters_lo > 0;
+  if (cluster > 1) {
+    if constexpr (WAVE)
+      return launch_resident<PB, true, false>(a, threads, cluster, st, maxc);
+    return split ? launch_resident<PB, false, true>(a, threads, cluster, st,
+                                                    maxc)
+                 : launch_resident<PB, false, false>(a, threads, cluster, st,
+                                                     maxc);
+  }
+  if (maxc) return (int)cudaErrorInvalidValue;
   if constexpr (WAVE) {
     return streamed ? launch<PB, true, true, false>(a, threads, st)
                     : launch<PB, false, true, false>(a, threads, st);
   } else {
-    const bool split = a.iters_lo > 0;
     if (streamed)
       return split ? launch<PB, true, false, true>(a, threads, st)
                    : launch<PB, true, false, false>(a, threads, st);
@@ -763,20 +1588,49 @@ int launch_variant(const Args& a, bool streamed, cudaStream_t st,
   }
 }
 
+// a cluster size the resident variant takes at this shape: 2 to 16, and
+// every CTA owns at least one warp task of each product
+bool cluster_ok(int nr, int mGp, int cluster) {
+  if (cluster == 1) return true;
+  if (cluster != 2 && cluster != 4 && cluster != 8 && cluster != 16)
+    return false;
+  return nr / TASK_A >= cluster &&
+         (mGp + nr + TASK_B - 1) / TASK_B >= cluster;
+}
+
 template <bool WAVE>
-int launch_pb(const Args& a, int pb, int streamed, int threads,
-              void* stream) {
-  if (threads < 32 || threads > max_warps(pb) * 32 || threads % 32)
+int launch_pb(const Args& a, int pb, int streamed, int cluster, int threads,
+              void* stream, int* maxc) {
+  if (threads < 32 || threads % 32 ||
+      threads > (cluster > 1 ? resident_warps(pb) : max_warps(pb)) * 32)
     return (int)cudaErrorInvalidConfiguration;
   if (a.iters_lo < 0 || (WAVE && a.iters_lo != 0))
     return (int)cudaErrorInvalidValue;      // split mode is K1's alone
+  if (!cluster_ok(a.nr, a.mGp, cluster) || (cluster > 1 && streamed))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (pb) {
-    case 1: return launch_variant<1, WAVE>(a, streamed != 0, st, threads);
-    case 4: return launch_variant<4, WAVE>(a, streamed != 0, st, threads);
-    case 8: return launch_variant<8, WAVE>(a, streamed != 0, st, threads);
+    case 1: return launch_variant<1, WAVE>(a, streamed != 0, cluster, st,
+                                           threads, maxc);
+    case 4: return launch_variant<4, WAVE>(a, streamed != 0, cluster, st,
+                                           threads, maxc);
+    case 8: return launch_variant<8, WAVE>(a, streamed != 0, cluster, st,
+                                           threads, maxc);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// `iters` cluster barriers, nothing else: what one costs, with release /
+// acquire semantics (as the kernels' barriers) or relaxed (no fence)
+__global__ void cluster_sync_kernel(int iters, int relaxed) {
+  cg::cluster_group cl = cg::this_cluster();
+  if (relaxed) {
+    for (int i = 0; i < iters; ++i)
+      asm volatile("barrier.cluster.arrive.relaxed;\n"
+                   "barrier.cluster.wait;\n" ::: "memory");
+  } else {
+    for (int i = 0; i < iters; ++i) cl.sync();
+  }
 }
 
 }  // namespace
@@ -784,9 +1638,12 @@ int launch_pb(const Args& a, int pb, int streamed, int threads,
 extern "C" {
 
 // dynamic shared memory one block of K1 or K2 needs with a tile of pb
-// problems, constants staged (streamed = 0) or read from device memory
-// (the same for both kernels: M2ᵀ is staged over Mᵀ)
-int phc_admm_smem_bytes(int nr, int mGp, int pb, int streamed) {
+// problems, constants staged (streamed = 0), read from device memory
+// (streamed = 1) or dealt over a cluster of `cluster` CTAs (cluster > 1;
+// per CTA); the same for both kernels: M2ᵀ is staged over Mᵀ
+int phc_admm_smem_bytes(int nr, int mGp, int pb, int streamed, int cluster) {
+  if (cluster > 1)
+    return (int)(cluster_smem_floats(nr, mGp, pb, cluster) * sizeof(float));
   return (int)(smem_floats(nr, mGp, pb, streamed != 0) * sizeof(float));
 }
 
@@ -795,16 +1652,58 @@ const char* phc_error_string(int code) {
 }
 
 // K1 on a batch: `a` as the wrapper filled it (a->iters_lo > 0: split
-// mode first); pb, streamed and threads from its plan
-int phc_admm_k1(const PhcAdmmArgs* a, int pb, int streamed, int threads,
-                void* stream) {
-  return launch_pb<false>(*a, pb, streamed, threads, stream);
+// mode first); pb, streamed, cluster and threads from its plan
+int phc_admm_k1(const PhcAdmmArgs* a, int pb, int streamed, int cluster,
+                int threads, void* stream) {
+  return launch_pb<false>(*a, pb, streamed, cluster, threads, stream,
+                          nullptr);
 }
 
 // K2 (relaxation, probe bounds, two-phase probe) on a batch
-int phc_admm_k2(const PhcAdmmArgs* a, int pb, int streamed, int threads,
-                void* stream) {
-  return launch_pb<true>(*a, pb, streamed, threads, stream);
+int phc_admm_k2(const PhcAdmmArgs* a, int pb, int streamed, int cluster,
+                int threads, void* stream) {
+  return launch_pb<true>(*a, pb, streamed, cluster, threads, stream,
+                         nullptr);
+}
+
+// clusters of the resident K1 (wave 0; split: split mode) or K2 with this
+// shape, tile, cluster size and threads that the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0: it cannot run), or −(CUDA error)
+int phc_admm_max_clusters(int wave, int split, int nr, int mGp, int pb,
+                          int cluster, int threads) {
+  PhcAdmmArgs a = {};
+  a.B = pb;
+  a.nr = nr;
+  a.mGp = mGp;
+  a.iters_lo = split ? 1 : 0;
+  int n = 0;
+  const int rc = wave ? launch_pb<true>(a, pb, 0, cluster, threads, nullptr,
+                                        &n)
+                      : launch_pb<false>(a, pb, 0, cluster, threads, nullptr,
+                                         &n);
+  return rc ? -rc : n;
+}
+
+// `clusters` clusters of `cluster` CTAs of `threads` threads, each passing
+// `iters` cluster barriers (the barrier microbenchmark; relaxed: without
+// the release / acquire fence)
+int phc_cluster_sync_bench(int cluster, int clusters, int threads, int iters,
+                           int relaxed, void* stream) {
+  int rc = allow(cluster_sync_kernel, 0, cluster);
+  if (rc) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(cluster * clusters), 1, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  rc = (int)cudaLaunchKernelEx(&cfg, cluster_sync_kernel, iters, relaxed);
+  return rc ? rc : (int)cudaGetLastError();
 }
 
 }  // extern "C"

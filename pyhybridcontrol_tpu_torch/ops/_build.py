@@ -106,14 +106,20 @@ def build_libraries() -> dict:
 
 def _bind_admm(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
-    # nr, mGp, tile width, streamed
-    lib.phc_admm_smem_bytes.argtypes = [I, I, I, I]
+    # nr, mGp, tile width, streamed, cluster
+    lib.phc_admm_smem_bytes.argtypes = [I, I, I, I, I]
     lib.phc_admm_smem_bytes.restype = I
     # struct Args (ops/cuda_admm.py mirrors it), tile width, streamed,
-    # threads, stream
+    # cluster, threads, stream
     for fn in (lib.phc_admm_k1, lib.phc_admm_k2):
-        fn.argtypes = [P, I, I, I, P]
+        fn.argtypes = [P, I, I, I, I, P]
         fn.restype = I
+    # wave, split, nr, mGp, tile width, cluster, threads
+    lib.phc_admm_max_clusters.argtypes = [I] * 7
+    lib.phc_admm_max_clusters.restype = I
+    # cluster, clusters, threads, iterations, relaxed, stream
+    lib.phc_cluster_sync_bench.argtypes = [I, I, I, I, I, P]
+    lib.phc_cluster_sync_bench.restype = I
 
 
 def _bind_admm_mixed(lib):

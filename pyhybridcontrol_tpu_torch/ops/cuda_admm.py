@@ -27,18 +27,25 @@ the plain torch version, a CUDA tensor launches the kernel or raises.
 There is no batch-size gate and no fallback. Each kernel wrapper counts
 its launches in ``LAUNCHES`` (and their batch sizes in ``LAUNCH_BATCHES``),
 once under each variant a launch runs: "admm_k1"/"admm_k2" for the
-staged full-precision kernels, "admm_k1_streamed"/"admm_k2_streamed" for
-the streamed ones, "admm_k1_split" for K1 in split mode (a streamed K1
-launch in split mode counts under both of its variants).
+staged full-precision kernels, "admm_k1_resident"/"admm_k2_resident" for
+the cluster variant, "admm_k1_streamed"/"admm_k2_streamed" for the L2-
+streamed one, "admm_k1_split" for K1 in split mode (a resident or streamed
+K1 launch in split mode counts under both of its variants).
 
-On the card K1 and K2 give each thread block a tile of 8, 4 or 1 problems:
-``plan`` picks the instantiation (tile, threads, shared memory, staged or
-streamed constants) from the batch size and the padded shape alone, and
-every batch size goes through the kernel (the ragged last tile is masked
-there). Where a block cannot hold Â_G and Mᵀ (the double integrator from
-N=27, the reference bench's configs 2, 3, 4b and 4c) the streamed variant
-reads them from device memory, which the H100's L2 serves, and keeps only
-the tile's iterates in shared memory. The kernels pack and unpack
+On the card K1 and K2 give each tile of 8, 4 or 1 problems a thread block
+or a thread-block cluster: ``plan`` picks the instantiation (tile,
+threads, shared memory, where the constants live) from the batch size and
+the padded shape alone, and every batch size goes through the kernel (the
+ragged last tile is masked there). Where one block holds Â_G and Mᵀ they
+are staged in its shared memory. Where it cannot (the double integrator
+from N=27, the reference bench's configs 2, 3, 4b and 4c) the resident
+variant deals them over a cluster of C = 2 to 16 CTAs: each CTA keeps the
+columns of its own output rows for the whole launch (``_cluster_layout``
+stores each CTA's slice contiguously) and the CTAs exchange the iterates
+through distributed shared memory; its x, z and y are bitwise those of the
+other variants at the same tile. The L2-streamed variant (constants read
+from device memory in every iteration) is left for shapes no cluster of 16
+holds and for holding the resident one against it. The kernels pack and unpack
 themselves: they read q, h, lb, ub in original units (any row stride, so
 an expanded row is read in place) and warm iterates in the public (B,
 m+n) layout, and write x, z, y in that layout; the wrapper checks,
@@ -87,6 +94,7 @@ from pyhybridcontrol_tpu_torch.ops.admm import (
 # launches per kernel wrapper (incremented only where the kernel launches;
 # "stagewise_k4" by ops/cuda_stagewise.py)
 LAUNCHES = {"admm_k1": 0, "admm_k2": 0, "admm_k1_mixed": 0,
+            "admm_k1_resident": 0, "admm_k2_resident": 0,
             "admm_k1_streamed": 0, "admm_k2_streamed": 0, "admm_k1_split": 0,
             "stagewise_k4": 0}
 # batch size -> launches, per kernel wrapper (same events as LAUNCHES)
@@ -477,35 +485,86 @@ def admm_wave_plain(kq: KernelQP, kq2: Optional[KernelQP], binary_idx,
 SM_COUNT = 132
 TILES = (8, 4, 1)
 ROWS_PER_TASK = (4, 16)
+# CTAs of a cluster the resident variant may take (above 8: non-portable)
+CLUSTERS = (2, 4, 8, 16)
 # lane groups over which ẑ = M t deals its depth, per tile (B_KS of the
 # source's Cfg tables): the rows of Mᵀ lie permuted to match (depth_rows)
 B_KS = {8: 4, 4: 4, 1: 8}
 MAX_WARPS = {8: 18, 4: 12, 1: 12}
+# the most warps a CTA of the resident variant may have (resident_warps of
+# the source: 16 at a tile of 8, so that K2 fits 128 registers)
+MAX_WARPS_RESIDENT = {8: 16, 4: 12, 1: 12}
 _RED = 16            # floats of reduction workspace per warp and problem
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """Instantiation of K1/K2 for one batch: problems per block, threads
-    per block, dynamic shared memory (bytes) per block, and whether Â_G
-    and Mᵀ are read from device memory (streamed) instead of staged."""
+    """Instantiation of K1/K2 for one batch: problems per tile, threads
+    per block (CTA), dynamic shared memory (bytes) per block, and where Â_G
+    and Mᵀ live: staged in each block, read from device memory (streamed),
+    or dealt over a cluster of ``cluster`` CTAs (resident, cluster > 1)."""
 
     pb: int
     threads: int
     smem: int
     streamed: bool = False
+    cluster: int = 1
 
     @property
     def warps(self) -> int:
         return self.threads // 32
+
+    @property
+    def staged(self) -> bool:
+        return not self.streamed and self.cluster == 1
+
+
+def stride_a(w: int) -> int:
+    """Row stride (floats) of a matrix of ``w`` columns read by product A
+    (Â_G): ≡ 4 mod 8, so its 8 lane groups, rows one apart, hit different
+    banks (``stride_A`` of the source)."""
+    return w + (12 - w % 8) % 8
+
+
+def stride_m(w: int) -> int:
+    """Row stride of a matrix of ``w`` columns read by product B (Mᵀ):
+    ≡ 16 mod 32, so two lane groups one row apart hit different banks."""
+    return w + (48 - w % 32) % 32
 
 
 def _strides(nr: int, mGp: int):
     """Row strides (floats) of Â_G and Mᵀ in shared memory: padded so that
     the lane groups of a warp, which read rows one apart, hit different
     banks (Â_G: ≡ 4 mod 8; Mᵀ: ≡ 16 mod 32)."""
+    return stride_a(nr), stride_m(mGp + nr)
+
+
+def deal_start(n: int, C: int, k: int) -> int:
+    """First of the ``n`` warp tasks that rank ``k`` of a cluster of ``C``
+    owns: contiguous runs, the first n mod C ranks one task more (the
+    source's ``deal_start``)."""
+    return k * (n // C) + min(k, n % C)
+
+
+def rank_rows(nr: int, mGp: int, C: int, k: int):
+    """(jA, nA, rB, nB) of rank ``k`` of a cluster of ``C``: it owns rows
+    [jA, jA + nA) of t (whole tasks of product A) and [rB, rB + nB) of ẑ
+    (whole tasks of product B; the last one may end at R). The source's
+    ``part_of``."""
     R = mGp + nr
-    return nr + 4, R + (48 - R % 32) % 32
+    rows_a, rows_b = ROWS_PER_TASK
+    na, nb = nr // rows_a, -(-R // rows_b)
+    a0, a1 = deal_start(na, C, k), deal_start(na, C, k + 1)
+    b0, b1 = deal_start(nb, C, k), deal_start(nb, C, k + 1)
+    return (rows_a * a0, rows_a * (a1 - a0), rows_b * b0,
+            min(rows_b * b1, R) - rows_b * b0)
+
+
+def cluster_fits(nr: int, mGp: int, C: int) -> bool:
+    """A cluster of ``C`` CTAs can take this shape: every rank owns at
+    least one warp task of each product."""
+    rows_a, rows_b = ROWS_PER_TASK
+    return C in CLUSTERS and nr // rows_a >= C and -(-(mGp + nr) // rows_b) >= C
 
 
 def smem_bytes(nr: int, mGp: int, pb: int, streamed: bool = False) -> int:
@@ -522,46 +581,104 @@ def smem_bytes(nr: int, mGp: int, pb: int, streamed: bool = False) -> int:
                 + pb * (6 * R + 6 * nr + _RED * MAX_WARPS[pb]))
 
 
-def _warps(nr: int, mGp: int, pb: int) -> int:
-    """Warps per block: the count from 8 to ``MAX_WARPS[pb]`` that leaves
-    the fewest warps idle in the worse of the two products (fewest warps
-    on a tie)."""
+def cluster_smem_bytes(nr: int, mGp: int, pb: int, C: int) -> int:
+    """Shared memory one CTA of the resident variant needs with a tile of
+    ``pb`` problems over a cluster of ``C`` (``phc_admm_smem_bytes`` gives
+    the same): rank 0's part, the largest — its slices of Â_G and Mᵀ with
+    the strides of their widths, ρ, 1/ρ, 1/E of its rows of ẑ, d_box of its
+    rows of t, 1/d_box, three mbarriers, and per problem w and the gather
+    buffer (R), t and x (nr), five arrays of its rows of ẑ, four of its
+    rows of t, and the reductions of the warps and of the C CTAs."""
+    _, nA, _, nB = rank_rows(nr, mGp, C, 0)
+    R = mGp + nr
+    consts = mGp * stride_a(nA) + nr * stride_m(nB)
+    return 4 * (8 + consts + 3 * nB + nA + nr
+                + pb * (2 * R + 2 * nr + 5 * nB + 4 * nA
+                        + _RED * (MAX_WARPS_RESIDENT[pb] + C)))
+
+
+def _warps(nr: int, mGp: int, pb: int, C: int = 1) -> int:
+    """Warps per block (CTA): the count from 8 to ``MAX_WARPS[pb]`` that
+    leaves the fewest warps idle in the worse of the two products (fewest
+    warps on a tie); in a cluster of ``C``, over the tasks of rank 0, up to
+    ``MAX_WARPS_RESIDENT[pb]``."""
     rows_a, rows_b = ROWS_PER_TASK
+    _, nA, _, nB = rank_rows(nr, mGp, C, 0)
 
     def busy(nw):
         share = []
-        for rows, per in ((nr, rows_a), (mGp + nr, rows_b)):
+        for rows, per in ((nA, rows_a), (nB, rows_b)):
             tasks = -(-rows // per)
             rounds = -(-tasks // nw)
             share.append(rows / per / (rounds * nw))
         return min(share)
-    return max(range(8, MAX_WARPS[pb] + 1), key=lambda nw: (busy(nw), -nw))
+    most = (MAX_WARPS if C == 1 else MAX_WARPS_RESIDENT)[pb]
+    return max(range(8, most + 1), key=lambda nw: (busy(nw), -nw))
 
 
 def plan(B: int, nr: int, mGp: int, pb: Optional[int] = None,
-         streamed: Optional[bool] = None) -> LaunchPlan:
+         streamed: Optional[bool] = None,
+         cluster: Optional[int] = None) -> LaunchPlan:
     """The instantiation K1 and K2 run a batch of ``B`` problems with, from
-    the shapes alone: the largest tile in ``TILES`` that fits a block's
-    shared memory and still leaves about two blocks for every SM (a tile
-    of 1 where no larger one does), with Â_G and Mᵀ staged in shared
-    memory wherever that fits, else streamed from device memory. ``pb``
-    asks for one tile width, ``streamed`` for one variant. Raises
-    ValueError where nothing fits: there is no other path."""
+    the shapes alone. Â_G and Mᵀ staged in each block wherever a block
+    holds them, with the largest tile in ``TILES`` that fits and still
+    leaves about two blocks for every SM (a tile of 1 where no larger one
+    does); else resident: the largest tile that, over the smallest cluster
+    in ``CLUSTERS`` whose CTAs hold their slices and its state, still gives
+    about two CTAs for every SM (a tile of 1 over the smallest cluster that
+    holds one where none does); else streamed from device memory, tiled as
+    the staged variant. ``pb`` asks for one tile
+    width, ``streamed`` for the staged (False) or the streamed (True)
+    variant alone, ``cluster`` for the resident one over that many CTAs.
+    Raises ValueError where nothing fits: there is no other path."""
     if B < 1:
         raise ValueError("ADMM kernel: empty batch")
     if pb is not None and pb not in TILES:
         raise ValueError(f"ADMM kernel: no instantiation with a tile of "
                          f"{pb} problems (have {TILES})")
-    for st in ((False, True) if streamed is None else (bool(streamed),)):
+    if cluster is not None and (streamed is not None
+                                or not cluster_fits(nr, mGp, cluster)):
+        raise ValueError(f"ADMM kernel: no resident instantiation over "
+                         f"{cluster} CTAs at nr={nr}, mGp={mGp}")
+
+    def tile(fits, ctas):
         for t in (TILES if pb is None else (pb,)):
-            smem = smem_bytes(nr, mGp, t, st)
-            if smem > SMEM_MAX:
-                continue
-            if pb is None and t > 1 and -(-B // t) < 1.9 * SM_COUNT:
-                continue
+            if fits(t) and (pb is not None or t == 1
+                            or -(-B // t) * ctas >= 1.9 * SM_COUNT):
+                return t
+        return None
+
+    if cluster is None:
+        for st in ((False,) if streamed is None else (bool(streamed),)):
+            t = tile(lambda t: smem_bytes(nr, mGp, t, st) <= SMEM_MAX, 1)
+            if t is not None:
+                return LaunchPlan(pb=t, threads=32 * _warps(nr, mGp, t),
+                                  smem=smem_bytes(nr, mGp, t, st),
+                                  streamed=st)
+    if streamed is None:
+        def smallest(t):
+            """the smallest cluster whose CTAs hold a tile of t"""
+            return next((C for C in (CLUSTERS if cluster is None
+                                     else (cluster,))
+                         if cluster_fits(nr, mGp, C)
+                         and cluster_smem_bytes(nr, mGp, t, C) <= SMEM_MAX),
+                        None)
+
+        for t in (TILES if pb is None else (pb,)):
+            C = smallest(t)
+            if C is not None and (pb is not None or t == 1
+                                  or -(-B // t) * C >= 1.9 * SM_COUNT):
+                return LaunchPlan(pb=t, threads=32 * _warps(nr, mGp, t, C),
+                                  smem=cluster_smem_bytes(nr, mGp, t, C),
+                                  cluster=C)
+    if streamed is None and cluster is None:
+        t = tile(lambda t: smem_bytes(nr, mGp, t, True) <= SMEM_MAX, 1)
+        if t is not None:
             return LaunchPlan(pb=t, threads=32 * _warps(nr, mGp, t),
-                              smem=smem, streamed=st)
-    need = smem_bytes(nr, mGp, pb or 1, bool(streamed))
+                              smem=smem_bytes(nr, mGp, t, True),
+                              streamed=True)
+    need = (cluster_smem_bytes(nr, mGp, pb or 1, cluster) if cluster
+            else smem_bytes(nr, mGp, pb or 1, bool(streamed)))
     raise ValueError(
         f"ADMM kernel: nr={nr}, mGp={mGp} needs {need} bytes of shared "
         f"memory per block, above the {SMEM_MAX} an sm_90 block has")
@@ -624,6 +741,31 @@ def _layout(kq: KernelQP):
     return lay
 
 
+def _cluster_layout(kq: KernelQP, C: int):
+    """Â_G and Mᵀ (every lane-group count of ``B_KS``) of ``_layout`` dealt
+    over a cluster of ``C`` CTAs, as the resident variant copies them: for
+    each rank in turn (``rank_rows``), the columns of its rows of t as an
+    (mGp, stride_a(nA)) block, and the columns of its rows of ẑ as an
+    (nr, stride_m(nB)) block, zero in the pad columns; each kind's blocks
+    one after the other in one flat tensor (memoized on ``kq``)."""
+    key = ("cluster_layout", C)
+    got = kq.cache.get(key)
+    if got is None:
+        lay = _layout(kq)
+        parts = [rank_rows(kq.n_pad, kq.m_pad, C, k) for k in range(C)]
+
+        def deal(mat, first, count, stride):
+            return torch.cat([
+                F.pad(mat[:, p[first]:p[first] + p[count]],
+                      (0, stride(p[count]) - p[count])).reshape(-1)
+                for p in parts])
+
+        got = kq.cache[key] = dict(
+            AG=deal(lay["AG"], 0, 1, stride_a),
+            MT={ks: deal(MT, 2, 3, stride_m) for ks, MT in lay["MT"].items()})
+    return got
+
+
 def _check(name, t, shape):
     """A float32 CUDA tensor of ``shape`` whose rows are contiguous (any
     row stride: an expanded row is read in place). Returns the row stride."""
@@ -649,6 +791,33 @@ def _raise_on(lib, rc, what):
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
+def cluster_capacity(kq: KernelQP, wave: bool, split: bool,
+                     pl: LaunchPlan) -> int:
+    """Clusters of the resident plan ``pl`` at ``kq``'s shape (K2 if
+    ``wave``, K1 in split mode if ``split``) that the card of ``kq`` holds
+    at once (cudaOccupancyMaxActiveClusters, memoized on ``kq``). Raises
+    where it holds none or the query fails: such a plan cannot run, and
+    nothing falls back."""
+    from pyhybridcontrol_tpu_torch.ops._build import load_library
+
+    key = ("cluster_capacity", wave, split, pl)
+    got = kq.cache.get(key)
+    if got is None:
+        lib = load_library()
+        got = lib.phc_admm_max_clusters(int(wave), int(split), kq.n_pad,
+                                        kq.m_pad, pl.pb, pl.cluster,
+                                        pl.threads)
+        if got < 0:
+            _raise_on(lib, -got, "resident ADMM kernel occupancy query")
+        if got == 0:
+            raise RuntimeError(
+                f"resident ADMM kernel: the card holds no cluster of "
+                f"{pl.cluster} CTAs of {pl.threads} threads and {pl.smem} "
+                f"bytes of shared memory")
+        kq.cache[key] = got
+    return got
+
+
 def _warm_views(kq: KernelQP, warm):
     """The four warm arrays (z_G, y_G, z_B, y_B) as the kernels read them.
     ``warm`` is (x, z, y) of a previous result in the public (B, m+n)
@@ -665,7 +834,7 @@ def _warm_views(kq: KernelQP, warm):
 def _launch(name: str, kq: KernelQP, kq2: Optional[KernelQP], binmask,
             q, h, lb, ub, warm, iters: int, p1: int, p2: int,
             pb: Optional[int], streamed: Optional[bool] = None,
-            iters_lo: int = 0):
+            iters_lo: int = 0, cluster: Optional[int] = None):
     """Check the inputs, allocate the outputs, launch K1 (``name`` =
     "admm_k1"; ``iters_lo`` split-mode iterations before ``iters`` full
     ones) or K2 once. Returns one AdmmResult per stats block."""
@@ -674,7 +843,7 @@ def _launch(name: str, kq: KernelQP, kq2: Optional[KernelQP], binmask,
     spec = kq.base
     n, m, mt = spec.n, spec.m_ineq, spec.m_total
     B = q.shape[0]
-    pl = plan(B, kq.n_pad, kq.m_pad, pb, streamed)
+    pl = plan(B, kq.n_pad, kq.m_pad, pb, streamed, cluster)
     a = _Args()
     for k, t, cols in (("q", q, n), ("h", h, m), ("lb", lb, n),
                        ("ub", ub, n)):
@@ -690,17 +859,24 @@ def _launch(name: str, kq: KernelQP, kq2: Optional[KernelQP], binmask,
             setattr(a, "s" + k, _check(k, t, (B, rows)))
             setattr(a, k, t.data_ptr())
     lay = _layout(kq)
-    for k in ("AG", "PT", "vec", "io"):
+    for k in ("PT", "vec", "io"):
         setattr(a, k, lay[k].data_ptr())
     ks = B_KS[pl.pb]
-    a.MT = lay["MT"][ks].data_ptr()
+
+    def consts(kq_):
+        """(Â_G, Mᵀ) as this plan's variant reads them"""
+        got = (_cluster_layout(kq_, pl.cluster) if pl.cluster > 1
+               else _layout(kq_))
+        return got["AG"], got["MT"][ks]
+
+    AG, MT = consts(kq)
+    a.AG, a.MT = AG.data_ptr(), MT.data_ptr()
     wave = name == "admm_k2"
     if wave:
         _check("binmask", binmask, (kq.n_pad,))
-        lay2 = _layout(kq2) if kq2 is not None else lay
-        a.binm, a.MT2, a.vec2 = (binmask.data_ptr(),
-                                 lay2["MT"][ks].data_ptr(),
-                                 lay2["vec"].data_ptr())
+        kq2 = kq2 if kq2 is not None else kq
+        a.binm, a.MT2, a.vec2 = (binmask.data_ptr(), consts(kq2)[1].data_ptr(),
+                                 _layout(kq2)["vec"].data_ptr())
         a.alpha2 = (kq2 if kq2 is not None else kq).base.alpha
     # one allocation, cut into x (B,n), z, y (B,m+n) and stats (B,8) per
     # stats block
@@ -715,12 +891,15 @@ def _launch(name: str, kq: KernelQP, kq2: Optional[KernelQP], binmask,
     a.alpha, a.cinv = spec.alpha, lay["cinv"]
     lib = load_library()
     with torch.cuda.device(q.device):
+        if pl.cluster > 1:
+            cluster_capacity(kq, wave, iters_lo > 0, pl)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, "phc_" + name)(ctypes.addressof(a), pl.pb,
-                                         int(pl.streamed), pl.threads,
-                                         ctypes.c_void_p(stream))
+                                         int(pl.streamed), pl.cluster,
+                                         pl.threads, ctypes.c_void_p(stream))
     _raise_on(lib, rc, name)
     variants = ([name + "_streamed"] if pl.streamed else []) + (
+        [name + "_resident"] if pl.cluster > 1 else []) + (
         ["admm_k1_split"] if iters_lo > 0 else [])
     for k in variants or [name]:
         _count_launch(k, B)
@@ -879,14 +1058,15 @@ def _launch_k1_mixed(kq: KernelQP, qs, lG, uG, lB, uB, warm4, iters_lo: int,
 def admm_solve_cuda(kq: KernelQP, q, h, lb, ub, iters: int = 100,
                     warm=None, low_frac: float = 0.0,
                     pb: Optional[int] = None,
-                    streamed: Optional[bool] = None) -> AdmmResult:
+                    streamed: Optional[bool] = None,
+                    cluster: Optional[int] = None) -> AdmmResult:
     """K1 on the card; same contract as ``admm_solve_plain``. The kernel
     packs and unpacks itself: the wrapper checks, allocates and launches.
     With ``low_frac`` > 0 the leading iterations run where ``split_route``
     says: in the tensor-core kernel (on packed arrays), whose iterates
     warm-start K1 for the rest, or in K1's own split mode, in the same
-    launch as the rest. ``pb`` and ``streamed`` ask for one tile width or
-    one variant instead of the plan's."""
+    launch as the rest. ``pb``, ``streamed`` and ``cluster`` ask for one
+    tile width or one variant instead of the plan's (``plan``)."""
     kq, iters_lo = _split_iters(kq, iters, low_frac)
     if iters_lo > 0 and split_route(kq.n_pad, kq.m_pad) == "tensor_cores":
         qs, lG, uG, lB, uB, warm4 = _pack(kq, q, h, lb, ub, warm)
@@ -894,17 +1074,19 @@ def admm_solve_cuda(kq: KernelQP, q, h, lb, ub, iters: int = 100,
         iters, iters_lo = iters - iters_lo, 0
     return _launch("admm_k1", kq, None, None, q, h, lb, ub, warm,
                    max(iters - iters_lo, 0), 0, 0, pb, streamed,
-                   iters_lo)[0]
+                   iters_lo, cluster)[0]
 
 
 def admm_wave_cuda(kq: KernelQP, kq2: Optional[KernelQP], binary_idx,
                    q, h, lb, ub, iters: int = 100, probe_iters: int = 100,
                    warm=None, pb: Optional[int] = None,
-                   streamed: Optional[bool] = None):
+                   streamed: Optional[bool] = None,
+                   cluster: Optional[int] = None):
     """K2 on the card; same contract as ``admm_wave_plain``."""
     p1, p2 = _split_probe(kq2, probe_iters)
     return tuple(_launch("admm_k2", kq, kq2, _binaries(kq, binary_idx)[1],
-                         q, h, lb, ub, warm, iters, p1, p2, pb, streamed))
+                         q, h, lb, ub, warm, iters, p1, p2, pb, streamed,
+                         cluster=cluster))
 
 
 # ---- entry points --------------------------------------------------------

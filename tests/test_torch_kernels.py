@@ -368,33 +368,42 @@ def test_plan_instantiation_at_the_main_shapes(N, B, pb, threads):
 @pytest.mark.parametrize("pb", [8, 4, 1])
 def test_plan_takes_an_asked_tile_or_raises(pb):
     """An asked tile is taken with staged constants where they fit, else
-    streamed; asked for staged constants that do not fit, or for a width
+    resident over the smallest cluster whose CTAs hold it, or streamed
+    when asked; asked for staged constants that do not fit, or for a width
     with no instantiation, the plan raises."""
     nr, mGp = _shape(21)
     pl = ca.plan(11, nr, mGp, pb)          # any batch: the edge is masked
-    assert pl.pb == pb and pl.smem <= ca.SMEM_MAX and not pl.streamed
+    assert pl.pb == pb and pl.smem <= ca.SMEM_MAX and pl.staged
     with pytest.raises(ValueError, match="shared memory"):
         ca.plan(4096, *_shape(60), pb, streamed=False)
     pl = ca.plan(4096, *_shape(60), pb)
-    assert pl.pb == pb and pl.streamed
+    assert pl.pb == pb and pl.cluster > 1 and not pl.streamed
+    assert pl.smem == ca.cluster_smem_bytes(*_shape(60), pb,
+                                            pl.cluster) <= ca.SMEM_MAX
+    assert all(ca.cluster_smem_bytes(*_shape(60), pb, C) > ca.SMEM_MAX
+               for C in ca.CLUSTERS if C < pl.cluster)
+    pl = ca.plan(4096, *_shape(60), pb, streamed=True)
+    assert pl.pb == pb and pl.streamed and pl.cluster == 1
     assert pl.smem == ca.smem_bytes(*_shape(60), pb, True) <= ca.SMEM_MAX
     with pytest.raises(ValueError, match="no instantiation"):
         ca.plan(4096, nr, mGp, 2 * pb + 1)
+    with pytest.raises(ValueError, match="no resident instantiation"):
+        ca.plan(4096, *_shape(60), pb, cluster=3)
 
 
 def test_plan_refuses_what_does_not_fit_and_empty_batches():
     """N=26 is the largest horizon of the double integrator whose
-    constants a block can stage; N=27 and N=60 take the streamed variant
-    (their iterates fit); a shape whose iterates fit no tile even with the
+    constants a block can stage; N=27 and N=60 take the resident variant
+    (a cluster holds them); a shape whose iterates fit no tile even with the
     constants streamed, and an empty batch, raise: ValueError, no other
     path."""
-    assert not ca.plan(2, *_shape(26)).streamed
+    assert ca.plan(2, *_shape(26)).staged
     assert ca.plan(2, *_shape(26)).smem <= ca.SMEM_MAX
     for N in (27, 60):
         with pytest.raises(ValueError, match="shared memory"):
             ca.plan(2, *_shape(N), streamed=False)
         pl = ca.plan(2, *_shape(N))
-        assert pl.streamed and pl.pb == 1 and pl.smem <= ca.SMEM_MAX
+        assert pl.cluster > 1 and pl.pb == 1 and pl.smem <= ca.SMEM_MAX
     with pytest.raises(ValueError, match="shared memory"):
         ca.plan(2, 2048, 4096)
     with pytest.raises(ValueError, match="empty batch"):
@@ -405,7 +414,7 @@ def test_plan_depends_on_shapes_alone(prob):
     """Nothing but (B, nr, mGp) and an asked tile enters the plan: two
     problems of one shape get one plan, and K1 and K2 share it."""
     assert list(inspect.signature(ca.plan).parameters) == [
-        "B", "nr", "mGp", "pb", "streamed"]
+        "B", "nr", "mGp", "pb", "streamed", "cluster"]
     kq, kq2 = prob["kq"], prob["kq2"]
     assert (kq.n_pad, kq.m_pad) == (kq2.n_pad, kq2.m_pad)
     for b in (1, 32, 1024, 4096):
@@ -668,6 +677,8 @@ def test_rows_per_task_mirror_the_kernel_source():
         assert c["B_KS"] >= 4 and c["WARPS"] == ca.MAX_WARPS[pb], pb
         assert c["B_KS"] == ca.B_KS[pb], pb
     assert "vstore<W>(s.t + t_row<C::B_KS>(j, nr) * PB + p, t);" in src
+    tasks = dict(re.findall(r"(TASK_[AB]) = (\d+)", src))
+    assert (int(tasks["TASK_A"]), int(tasks["TASK_B"])) == ca.ROWS_PER_TASK
 
 
 @pytest.mark.parametrize("nr", range(8, 257, 8))
@@ -837,21 +848,71 @@ BIG_SHAPES = {"N27": (81, 270, 246176), "config3": (108, 239, 293248),
               "config2": (220, 680, 1477792)}
 
 
+# the smallest cluster whose CTAs hold each of those shapes' constants and a
+# tile of 1 (config 2: 16 CTAs hold a tile of 8)
+BIG_CLUSTER = {"N27": 2, "config3": 2, "config4b": 2, "config4c": 4,
+               "config2": 8}
+
+
+def _big(name):
+    n, m, _ = BIG_SHAPES[name]
+    return -(-n // 8) * 8, -(-m // 8) * 8
+
+
 @pytest.mark.parametrize("name", sorted(BIG_SHAPES))
 def test_plan_streams_the_constants_where_a_block_cannot_stage_them(name):
-    """The five shapes take the streamed variant at every batch size: a
-    tile of 1 below ~2 blocks per SM, else the largest whose iterates fit
-    (config 2: a tile of 8 needs 238,432 bytes, so 4)."""
+    """The five shapes no block can stage take the resident variant at
+    every batch size: a tile of 1 over the cluster of BIG_CLUSTER below ~2
+    CTAs per SM, else the largest tile that its smallest cluster holds
+    with ~2 CTAs per SM (config 2: a tile of 8 over 16 CTAs from B=128).
+    Forced to stream the constants from L2, they keep the tiles the
+    streamed variant had (config 2: a tile of 8 needs 238,432 bytes, so
+    4)."""
     n, m, staged = BIG_SHAPES[name]
-    nr, mGp = -(-n // 8) * 8, -(-m // 8) * 8
+    nr, mGp = _big(name)
     assert ca.smem_bytes(nr, mGp, 1) == staged > ca.SMEM_MAX
+    big = name == "config2"
+    for B, pb, C in ((1, 1, BIG_CLUSTER[name]), (37, 1, BIG_CLUSTER[name]),
+                     (300, 8 if big else 4 if name == "config4c" else 1,
+                      16 if big else BIG_CLUSTER[name]),
+                     (4096, 8, 16 if big else BIG_CLUSTER[name])):
+        pl = ca.plan(B, nr, mGp)
+        assert pl.cluster == C and pl.pb == pb and not pl.streamed, (B, pl)
+        assert pl.smem == ca.cluster_smem_bytes(nr, mGp, pb, C) <= ca.SMEM_MAX
+        assert pl.threads == 32 * ca._warps(nr, mGp, pb, C)
     for B, pb in ((1, 1), (37, 1), (300, 1),
                   (4096, 4 if name == "config2" else 8)):
-        pl = ca.plan(B, nr, mGp)
-        assert pl.streamed and pl.pb == pb, (B, pl)
+        pl = ca.plan(B, nr, mGp, streamed=True)
+        assert pl.streamed and pl.cluster == 1 and pl.pb == pb, (B, pl)
         assert pl.smem == ca.smem_bytes(nr, mGp, pb, True) <= ca.SMEM_MAX
         assert pl.threads == 32 * ca._warps(nr, mGp, pb)
     assert ca.smem_bytes(224, 680, 8, True) == 238432 > ca.SMEM_MAX
+
+
+@pytest.mark.parametrize("name", sorted(BIG_SHAPES))
+def test_plan_picks_cluster_and_tile_from_shapes_alone(name):
+    """At every batch size of the paths (1 to 4096) the resident plan of
+    a real frame is the largest tile that, over the smallest cluster whose
+    CTAs hold their slices and its state, still gives ~2 CTAs per SM (a
+    tile of 1 where none does); each pick fits a CTA's shared memory, and
+    the same (B, shape) gives the same plan."""
+    nr, mGp = _big(name)
+
+    def smallest(t):
+        return next((c for c in ca.CLUSTERS if ca.cluster_fits(nr, mGp, c)
+                     and ca.cluster_smem_bytes(nr, mGp, t, c) <= ca.SMEM_MAX),
+                    None)
+
+    for B in (1, 37, 64, 128, 300, 1024, 4096):
+        pl = ca.plan(B, nr, mGp)
+        pb, C = next((t, smallest(t)) for t in ca.TILES
+                     if smallest(t) and (t == 1 or -(-B // t) * smallest(t)
+                                         >= 1.9 * ca.SM_COUNT))
+        assert (pl.cluster, pl.pb) == (C, pb), (B, pl)
+        assert pl.smem == ca.cluster_smem_bytes(nr, mGp, pb, C)
+        assert pl.smem <= ca.SMEM_MAX
+        assert 8 <= pl.warps <= ca.MAX_WARPS_RESIDENT[pb]
+        assert pl == ca.plan(B, nr, mGp)
 
 
 @pytest.mark.parametrize("N", range(1, 27))
@@ -868,36 +929,62 @@ def test_plan_stages_every_shape_it_staged_before(N):
         assert pl.pb == want and pl.smem == ca.smem_bytes(nr, mGp, want)
 
 
-def _source_smem_bytes():
-    """``smem_floats`` of csrc/admm.cu read from the source text and
-    evaluated in Python: the helpers it calls (stride_A, stride_M,
-    max_warps through the Cfg tables) and its own statements, C casts
-    dropped and the ternary turned into Python's."""
+def _source_function(src, sig):
+    """The body of the C function whose declaration ends in ``sig`` as the
+    lines of a Python function body: comments, C casts and declarations'
+    types dropped, a ``Part`` made a namespace, integer division kept."""
+    text = re.search(re.escape(sig) + r"\s*\{(.*?)\n\}", src,
+                     re.S).group(1)
+    text = re.sub(r"//[^\n]*", "", text)
+    text = re.sub(r"\((size_t|int)\)", "", text)
+    text = re.sub(r"\bconst (size_t|int|Part) ", "", text)
+    text = text.replace("Part q;", "q = Part();").replace(" / ", " // ")
+    text = re.sub(r"(\w+) \? (\w+)\s*:", r"\2 if \1 else ", text)
+    stmts = [" ".join(st.split()) for st in text.split(";") if st.strip()]
+    return "\n".join("    " + st for st in stmts)
+
+
+def _source_env():
+    """The source's helpers of the shared-memory reckoning and the row
+    split, evaluated in Python: stride_A, stride_M, slice_stride_A,
+    smem_floats, deal_start, part_of and cluster_smem_floats, with
+    max_warps through the Cfg tables, PHC_RED, TASK_A and TASK_B."""
     src = open(os.path.join(_REPO, "pyhybridcontrol_tpu_torch", "csrc",
                             "admm.cu")).read()
     warps = {int(t): int(w) for t, w in re.findall(
         r"struct Cfg<(\d+)> \{\s*enum \{[^}]*WARPS = (\d+)", src)}
     red = int(re.search(r"#define PHC_RED (\d+)", src).group(1))
-
-    def body(sig):
-        text = re.search(re.escape(sig) + r"\s*\{(.*?)\n\}", src,
-                         re.S).group(1)
-        text = re.sub(r"//[^\n]*", "", text)
-        text = re.sub(r"\((size_t|int)\)", "", text).replace("const size_t",
-                                                             "")
-        text = re.sub(r"(\w+) \? (\w+)\s*:", r"\2 if \1 else ", text)
-        stmts = [" ".join(st.split()) for st in text.split(";")
-                 if st.strip()]
-        return "\n".join("    " + st for st in stmts)
-
-    code = ("def stride_A(nr):\n" + body("inline int stride_A(int nr)")
-            + "\ndef stride_M(R):\n" + body("inline int stride_M(int R)")
-            + "\ndef smem_floats(nr, mGp, PB, streamed):\n"
-            + body("inline size_t smem_floats(int nr, int mGp, int PB,\n"
-                   "                                              bool "
-                   "streamed)"))
-    env = dict(max_warps=warps.__getitem__, PHC_RED=red)
+    tasks = {k: int(v) for k, v in re.findall(r"(TASK_[AB]) = (\d+)", src)}
+    funcs = (("stride_A", "nr", "inline int stride_A(int nr)"),
+             ("stride_M", "R", "inline int stride_M(int R)"),
+             ("slice_stride_A", "w", "inline int slice_stride_A(int w)"),
+             ("smem_floats", "nr, mGp, PB, streamed",
+              "inline size_t smem_floats(int nr, int mGp, int PB,\n"
+              "                                              bool streamed)"),
+             ("deal_start", "n, C, k",
+              "inline int deal_start(int n, int C, int k)"),
+             ("part_of", "nr, mGp, C, k",
+              "inline Part part_of(int nr, int mGp, int C, int k)"),
+             ("cluster_smem_floats", "nr, mGp, PB, C",
+              "inline size_t cluster_smem_floats(int nr, int mGp, int PB,\n"
+              "                                                      int C)"))
+    code = "\n".join(f"def {name}({args}):\n" + _source_function(src, sig)
+                     for name, args, sig in funcs)
+    cap8 = int(re.search(r"RESIDENT_WARPS_8 = (\d+);", src).group(1))
+    env = dict(max_warps=warps.__getitem__, PHC_RED=red, imin=min,
+               Part=types.SimpleNamespace, **tasks,
+               resident_warps=lambda pb: cap8 if pb == 8 else warps[pb])
+    assert re.search(r"return PB == 8 \? RESIDENT_WARPS_8 : max_warps\(PB\);",
+                     src)
+    assert {8: cap8, 4: warps[4], 1: warps[1]} == ca.MAX_WARPS_RESIDENT
     exec(code, env)
+    return warps, red, env
+
+
+def _source_smem_bytes():
+    """``smem_floats`` of csrc/admm.cu read from the source text and
+    evaluated in Python (``_source_env``), in bytes."""
+    warps, red, env = _source_env()
     return warps, red, lambda nr, mGp, pb, st: 4 * env["smem_floats"](
         nr, mGp, pb, st)
 
@@ -919,6 +1006,166 @@ def test_smem_bytes_follows_the_kernel_source_for_both_variants():
     # the kernels' device layout carries the shared-memory strides
     assert src_bytes(88, 272, 1, False) - src_bytes(88, 272, 1, True) == \
         4 * (272 * ca._strides(88, 272)[0] + 88 * ca._strides(88, 272)[1])
+
+
+def _cluster_shapes():
+    """(nr, mGp) of the double integrator's horizons 1-60 and the five
+    large shapes."""
+    return [_shape(N) for N in range(1, 61)] + [_big(k) for k in BIG_SHAPES]
+
+
+def test_cluster_smem_bytes_follows_the_kernel_source():
+    """The wrapper's reckoning of the resident variant and the source's
+    ``cluster_smem_floats`` (what ``phc_admm_smem_bytes`` returns for a
+    cluster and the launch asks for) agree for every tile and cluster size
+    a shape takes; they reckon with rank 0's part, and no rank owns more
+    rows or larger slices than rank 0."""
+    _, _, env = _source_env()
+    n_checked = 0
+    for nr, mGp in _cluster_shapes():
+        for C in ca.CLUSTERS:
+            if not ca.cluster_fits(nr, mGp, C):
+                continue
+            for pb in ca.TILES:
+                assert 4 * env["cluster_smem_floats"](nr, mGp, pb, C) == \
+                    ca.cluster_smem_bytes(nr, mGp, pb, C), (nr, mGp, pb, C)
+                n_checked += 1
+            parts = [ca.rank_rows(nr, mGp, C, k) for k in range(C)]
+            consts = [mGp * ca.stride_a(nA) + nr * ca.stride_m(nB)
+                      for _, nA, _, nB in parts]
+            assert consts[0] == max(consts)
+            assert parts[0][1] == max(p[1] for p in parts)
+            assert parts[0][3] == max(p[3] for p in parts)
+    assert n_checked > 500
+
+
+def test_cluster_rows_give_every_output_row_to_one_cta():
+    """The source's row split (``deal_start``, ``part_of``, read from the
+    text): in every cluster size a shape takes, the ranks own every row of
+    t and of ẑ exactly once, in whole warp tasks (TASK_A rows of t, TASK_B
+    of ẑ, the last task of ẑ cut at R), contiguous and in rank order; each
+    rank owns at least one task of both products; the wrapper's
+    ``rank_rows`` is the same split."""
+    _, _, env = _source_env()
+    rows_a, rows_b = ca.ROWS_PER_TASK
+    for nr, mGp in _cluster_shapes():
+        R = mGp + nr
+        for C in (1,) + ca.CLUSTERS:
+            if C > 1 and not ca.cluster_fits(nr, mGp, C):
+                continue
+            own_t, own_z = [], []
+            for k in range(C):
+                q = env["part_of"](nr, mGp, C, k)
+                assert (q.jA, q.nA, q.rB, q.nB) == ca.rank_rows(nr, mGp, C,
+                                                                 k)
+                assert (q.jA, q.nA) == (rows_a * q.a0,
+                                        rows_a * (q.a1 - q.a0))
+                assert q.rB == rows_b * q.b0 and q.nB == min(
+                    rows_b * q.b1, R) - q.rB
+                assert q.a1 > q.a0 and q.b1 > q.b0
+                own_t += range(q.jA, q.jA + q.nA)
+                own_z += range(q.rB, q.rB + q.nB)
+            assert own_t == list(range(nr)) and own_z == list(range(R))
+
+
+def test_slice_strides_spread_the_lane_groups_over_banks():
+    """A CTA's slice of Â_G (a multiple of 4 columns) and of Mᵀ (a
+    multiple of 8) takes the bank rule of the whole matrices: rows one
+    apart in different banks, the least padding that does it."""
+    env = _source_env()[2]
+    for w in range(4, 1025, 4):
+        sa = ca.stride_a(w)
+        assert sa == env["slice_stride_A"](w)
+        if w % 8 == 0:
+            assert ca.stride_m(w) == env["stride_M"](w)
+        assert w <= sa < w + 8 and sa % 4 == 0
+        assert {(g * sa + c) % 32 for g in range(8)
+                for c in range(4)} == set(range(32))
+        if w % 8 == 0:
+            sm = ca.stride_m(w)
+            assert w <= sm < w + 32 and sm % 8 == 0
+            assert {(g * sm + c) % 32 for g in range(2)
+                    for c in range(16)} == set(range(32))
+
+
+@pytest.fixture(scope="module")
+def config2_kq():
+    """The kernel prep of config 2's real frame (the PWA spring in its
+    hull encoding, N=20: n=220, m=680), built on the CPU as chip_smoke.py
+    builds it."""
+    from pyhybridcontrol_tpu_torch.ops.admm import prepare_admm_mpc
+
+    _, _, c = _chip_smoke().bench_frame("config2")
+    return ca.kernel_qp_for(prepare_admm_mpc(c, device="cpu"))
+
+
+@pytest.mark.parametrize("C", [8, 16])
+def test_cluster_layout_puts_back_config2_frame(config2_kq, C):
+    """The per-CTA slices of ``_cluster_layout`` at config 2's real frame
+    (C=8, the plan's, and 16), read back with each rank's rows and
+    strides, are the padded Â_G and Mᵀ of ``_layout`` (each lane-group
+    count), with zeros in every slice's pad columns and nothing else."""
+    kq = config2_kq
+    nr, mGp = kq.n_pad, kq.m_pad
+    assert (nr, mGp) == _big("config2")
+    lay, cl = ca._layout(kq), ca._cluster_layout(kq, C)
+    got_ag, pos = [], 0
+    for k in range(C):
+        jA, nA, _, _ = ca.rank_rows(nr, mGp, C, k)
+        sa = ca.stride_a(nA)
+        block = cl["AG"][pos:pos + mGp * sa].view(mGp, sa)
+        assert not block[:, nA:].any()
+        got_ag.append(block[:, :nA])
+        pos += mGp * sa
+    assert pos == cl["AG"].numel()
+    assert torch.equal(torch.cat(got_ag, 1), lay["AG"][:, :nr])
+    assert torch.equal(torch.cat(got_ag, 1), kq.AGT.T)
+    assert set(cl["MT"]) == set(lay["MT"])
+    for ks, flat in cl["MT"].items():
+        got, pos = [], 0
+        for k in range(C):
+            _, _, rB, nB = ca.rank_rows(nr, mGp, C, k)
+            sm = ca.stride_m(nB)
+            block = flat[pos:pos + nr * sm].view(nr, sm)
+            assert not block[:, nB:].any()
+            got.append(block[:, :nB])
+            pos += nr * sm
+        assert pos == flat.numel()
+        assert torch.equal(torch.cat(got, 1), lay["MT"][ks][:, :mGp + nr])
+
+
+def test_admm_binding_mirrors_the_kernel_source():
+    """The ctypes binding of ``admm.cu`` gives each exported function its
+    parameters in the source's order (pointers as c_void_p, ints as
+    c_int), and the wrapper passes a launch as many arguments."""
+    from pyhybridcontrol_tpu_torch.ops import _build
+
+    src = open(os.path.join(_REPO, "pyhybridcontrol_tpu_torch", "csrc",
+                            "admm.cu")).read()
+    src = src[src.index('extern "C" {'):]
+    found = re.findall(r"\n\w[\w\s\*]*?\b(phc_(?!error)\w+)\(([^)]*)\)",
+                       src)
+    assert {name for name, _ in found} == {
+        "phc_admm_smem_bytes", "phc_admm_k1", "phc_admm_k2",
+        "phc_admm_max_clusters", "phc_cluster_sync_bench"}
+    lib = types.SimpleNamespace(**{
+        name: types.SimpleNamespace() for name, _ in found})
+    _build._bind_admm(lib)
+    kinds = {"void*": ctypes.c_void_p, "PhcAdmmArgs*": ctypes.c_void_p,
+             "int": ctypes.c_int}
+    for name, params in found:
+        want = []
+        for decl in params.split(","):
+            decl = decl.replace("const", "").split()
+            kind = decl[0].rstrip("*") + ("*" if "*" in "".join(decl) else "")
+            want.append(kinds[kind])
+        assert getattr(lib, name).argtypes == want, name
+    call = inspect.getsource(ca._launch)
+    args = re.search(r'getattr\(lib, "phc_" \+ name\)\((.*?)\)\n', call,
+                     re.S).group(1)
+    assert len(re.findall(r"ctypes\.addressof\(a\)|pl\.\w+(?:\)|,)|"
+                          r"ctypes\.c_void_p\(stream\)", args)) == \
+        len(lib.phc_admm_k1.argtypes)
 
 
 def test_device_layout_carries_the_padded_strides(prob):
@@ -944,7 +1191,7 @@ def test_device_layout_carries_the_padded_strides(prob):
 @pytest.mark.parametrize("N", range(2, 28))
 def test_low_frac_route_follows_the_shape(N):
     """The split-precision phase runs on the tensor cores up to N=21 and
-    in K1's split mode from N=22 (staged to N=26, streamed at N=27), from
+    in K1's split mode from N=22 (staged to N=26, resident at N=27), from
     the 16-padded shape alone, with a plan for every batch size: no shape
     is refused."""
     nr, mGp = _shape16(N)
@@ -956,7 +1203,7 @@ def test_low_frac_route_follows_the_shape(N):
         else:
             with pytest.raises(ValueError):
                 ca.plan_mixed(B, nr, mGp)
-        assert ca.plan(B, nr, mGp).streamed == (N >= 27)
+        assert ca.plan(B, nr, mGp).staged == (N < 27)
 
 
 def _split_product_mirror(A, b):

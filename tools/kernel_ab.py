@@ -1,8 +1,8 @@
 """Kernel-alone times of K1, K2 and the split-precision kernel of two
-checkouts on one card, in one run (a development tool, not part of the
-package):
+checkouts on one card, in one run, and the end-to-end times of the real
+frames' paths (a development tool, not part of the package):
 
-    python tools/kernel_ab.py --parent DIR [--ablate]
+    python tools/kernel_ab.py --parent DIR [--ablate] [--e2e]
 
 Run from the root of a checkout ("change"); DIR is a checkout of the commit
 to compare with ("parent", for example ``git archive`` of it unpacked into
@@ -11,8 +11,9 @@ temporary directory, builds its own kernels there and is timed by the same
 worker, in the order parent, change, change, parent. Times are CUDA events
 recorded just before and after each call into a kernel library (so the
 wrapper's packing, checks and allocations are outside), median of 7 after a
-warm-up, at the shapes of PERF.md's kernel table (N=27: the streamed
-variant, a tile of 1); each shape is also run
+warm-up, at the shapes of PERF.md's kernel table (N=27 and the real
+frames of configs 2, 3, 4b and 4c: the plan's variant, L2-streamed in
+the parent of the cluster variant, resident since); each shape is also run
 with twice the iterations, which splits its time into a part per iteration
 and a fixed part (staging, loads, stats, stores). The split-precision row
 ("K1mixed", ``low_frac=1.0``) times ``phc_admm_k1_mixed`` alone; K1's
@@ -25,6 +26,13 @@ of one product taken out (results are wrong, times are what is left): in
 ``csrc/admm_mixed.cu`` the tensor-core loop of the t or the u = M t
 product. That gives the time each loop costs per iteration, and what
 barriers, reductions and the row update cost.
+
+``--e2e`` also runs, per tree and in the same order, the real frames'
+paths end to end (host clock around work that ends in a synchronise):
+three served config-2 requests (``serve --config pwa_actuator``, the
+reply's ms), the config-2 and 2b calls and config 3's and 4b's loops
+(``chip_smoke.py``'s phases 14, 16 and 17, their checks included) and two
+repetitions of the config-4c call (256 trees, ``feedback_batch`` pooled).
 
 Prints one JSON line per run and a table at the end.
 """
@@ -42,19 +50,23 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 CSRC = "pyhybridcontrol_tpu_torch/csrc/"
 # ablation -> (kernel source, [(text, replacement), ...]): the loop of one
-# product, by the text each tree's source has it in (exactly one of the
-# texts must occur, once)
+# product, by the texts each tree's source has it in (the block variants'
+# and the resident variant's; each found occurs once, and at least one)
 ABLATIONS = {
     "no loop A": ("admm.cu", [
         ("for (int i = sl; i < mGp; i += S) acc = fmaf(s.AG[i * nr + j], "
          "s.wG[i], acc);", ""),
         ("s.AG, s.AS, s.w, mGp, nr, [&](int j, int p, const auto& v) {",
-         "s.AG, s.AS, s.w, 0, nr, [&](int j, int p, const auto& v) {")]),
+         "s.AG, s.AS, s.w, 0, nr, [&](int j, int p, const auto& v) {"),
+        ("s.AG, s.AS, s.w, mGp, nr, pt.a0, pt.a1, pt.jA,",
+         "s.AG, s.AS, s.w, 0, nr, pt.a0, pt.a1, pt.jA,")]),
     "no loop B": ("admm.cu", [
         ("for (int c = 0; c < nr; ++c) u = fmaf(MT[c * R + r], s.t[c], u);",
          ""),
         ("s.MT, s.RS, s.t, nr, R, [&](int r, int p, const auto& u) {",
-         "s.MT, s.RS, s.t, 0, R, [&](int r, int p, const auto& u) {")]),
+         "s.MT, s.RS, s.t, 0, R, [&](int r, int p, const auto& u) {"),
+        ("s.MT, s.RS, s.t, nr, R, pt.b0, pt.b1, pt.rB,",
+         "s.MT, s.RS, s.t, 0, R, pt.b0, pt.b1, pt.rB,")]),
     "mixed: no t loop": ("admm_mixed.cu", [
         ("mma3(acc, s.Ahi", "if (0) mma3(acc, s.Ahi"),
         ("product<T>(acc, base + s.Ahi", "if (0) product<T>(acc, base + s.Ahi")]),
@@ -128,29 +140,111 @@ for kind, N, B, iters in (("K2", 10, 1024, 100), ("K2", 10, 32, 400),
             continue
         out[f"{kind} N={N} B={B} x{mult}"] = (
             alone(fn, (("phc_admm_k1", "phc_admm_k2"),))[0], n_it)
+
+# the real frames' path shapes (warm from 50 plain iterations); "K1probe":
+# the two launches of config 4c's probe (ρ·10, then ρ, chained)
+for kind, name, B, iters, piters in (
+        ("K2", "config2", 128, 200, 600), ("K2", "config2", 64, 400, 400),
+        ("K2", "config3", 64, 200, 200), ("K2", "config4b", 1024, 150, 150),
+        ("K1", "config2", 128, 200, 0), ("K1", "config4b", 1024, 150, 0),
+        ("K1", "config4c", 1024, 100, 0), ("K1probe", "config4c", 1024, 200, 200),
+        ("K2", "config4c", 64, 100, 400)):
+    spec, spec_p, bidx, f, h, lb, ub = cs.real_problem(
+        name, B, dev, cs.phase_rng(f"ab_{name}_{B}"))
+    kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
+    r0 = ca.admm_solve_plain(kq, f, h, lb, ub, iters=50)
+    warm = (r0.x, r0.z, r0.y)
+    for mult in (1, 2):
+        it, pit = iters * mult, piters * mult
+        if kind == "K2":
+            fn = lambda: ca.admm_wave_cuda(kq, kq2, bidx, f, h, lb, ub,
+                                           iters=it, probe_iters=pit,
+                                           warm=warm)
+            n_it = it + pit + 2
+        elif kind == "K1":
+            fn = lambda: ca.admm_solve_cuda(kq, f, h, lb, ub, iters=it,
+                                            warm=warm)
+            n_it = it + 1
+        else:
+            def fn():
+                a = ca.admm_solve_cuda(kq2, f, h, lb, ub, iters=it, warm=warm)
+                return ca.admm_solve_cuda(kq, f, h, lb, ub, iters=pit,
+                                          warm=(a.x, a.z, a.y))
+            n_it = it + pit + 2
+        out[f"{kind} {name} B={B} {iters}+{piters} x{mult}"] = (
+            alone(fn, (("phc_admm_k1", "phc_admm_k2"),))[0], n_it)
+
+if E2E:
+    import io
+    import time
+    import numpy as np
+    from pyhybridcontrol_tpu_torch import serve
+    from pyhybridcontrol_tpu_torch.control.mpc import MpcController
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    e2e = {}
+    ctrl, ready = serve.build_controller("pwa_actuator", "bnb", "cuda")
+    lines = [json.dumps({"x": x}) for x in cs.CFG2_STATES]
+    buf = io.StringIO()
+    serve.stdin_loop(ctrl, ready, inp=io.StringIO(
+        "\n".join(lines + ['{"cmd": "quit"}']) + "\n"), out=buf)
+    e2e["config2 served request ms"] = [
+        json.loads(ln)["ms"] for ln in buf.getvalue().splitlines()[1:]]
+    calls = cs.phase_config2_calls(dev)
+    e2e["config2 call ms"] = calls["config2_call"]["ms_per_solve"]
+    e2e["config2b call ms"] = calls["config2b_call"]["ms_per_solve"]
+    e2e["config3 loop ms/step"] = cs.phase_config3_loop(dev)[
+        "ms_per_control_step"]
+    e2e["config4b loop s"] = cs.phase_config4b_loop(dev)["seconds"]
+    tree, rng = cs.config4c_tree()
+    model, w, c = cs.bench_frame("config4c")
+    ctrl = MpcController(model, cs.CFG4C_N, w, device=dev)
+    ctrl.set_scenario_tree(tree)
+    ctrl.bnb_spec = BnbSpec(**cs.CFG4C_SPEC)
+    xs = torch.as_tensor(rng.normal(size=(cs.CFG4C_B, 2)).astype(np.float32),
+                         device=dev)
+    e2e["config4c call s"] = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctrl.feedback_batch(xs, engine="pooled", pooled_wave=1024,
+                            pool_slots=8 * cs.CFG4C_B)
+        torch.cuda.synchronize()
+        e2e["config4c call s"].append(time.perf_counter() - t0)
+    print("E2E " + json.dumps(e2e), flush=True)
 print("AB " + json.dumps(out), flush=True)
 """
 
 
-def run_tree(tree: Path, subs) -> dict:
+def run_tree(tree: Path, subs, e2e=False) -> dict:
     with tempfile.TemporaryDirectory(prefix="phc_ab_") as tmp:
         shutil.copytree(tree / "pyhybridcontrol_tpu_torch",
                         Path(tmp) / "pyhybridcontrol_tpu_torch")
         shutil.copy(tree / "chip_smoke.py", tmp)
+        if e2e:                  # the loops replay committed goldens
+            shutil.copytree(tree / "tests" / "golden",
+                            Path(tmp) / "tests" / "golden")
         if subs:
             kernel, subs = subs
             src = Path(tmp) / CSRC / kernel
             text = src.read_text()
             hits = [(a, b) for a, b in subs if text.count(a) == 1]
-            if len(hits) != 1:
-                raise RuntimeError(f"{tree}: {len(hits)} of the ablation's "
-                                   f"texts found in the kernel source")
-            src.write_text(text.replace(*hits[0]))
-        got = subprocess.run([sys.executable, "-c", WORKER], cwd=tmp,
+            if not hits:
+                raise RuntimeError(f"{tree}: none of the ablation's texts "
+                                   f"found in the kernel source")
+            for a, b in hits:          # each variant's copy of the loop
+                text = text.replace(a, b)
+            src.write_text(text)
+        got = subprocess.run([sys.executable, "-c",
+                              f"E2E = {e2e}\n" + WORKER], cwd=tmp,
                              capture_output=True, text=True)
+    res = {}
     for line in got.stdout.splitlines():
+        if line.startswith("E2E "):
+            res["e2e"] = json.loads(line[4:])
         if line.startswith("AB "):
-            return json.loads(line[3:])
+            res.update(json.loads(line[3:]))
+            return res
     raise RuntimeError(f"{tree}: worker failed:\n{got.stderr[-3000:]}")
 
 
@@ -158,6 +252,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--e2e", action="store_true")
     args = ap.parse_args()
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -167,7 +262,7 @@ def main() -> int:
     trees = {"parent": args.parent.resolve(), "change": ROOT}
     runs = []
     for name in ("parent", "change", "change", "parent"):
-        res = run_tree(trees[name], None)
+        res = run_tree(trees[name], None, args.e2e)
         runs.append((name, "full", res))
         print(json.dumps({"tree": name, "variant": "full", "ms": res}),
               flush=True)
@@ -180,6 +275,11 @@ def main() -> int:
                                   "ms": res}), flush=True)
     print(f"\n{gpu}\nkernel alone, ms (per iteration µs | fixed ms, from the "
           f"run with twice the iterations)")
+    if args.e2e:
+        print("\nend to end (host clock)")
+        for key in runs[0][2]["e2e"]:
+            print(f"  {key}: " + "; ".join(
+                f"{name} {res['e2e'][key]}" for name, _, res in runs[:4]))
     shapes = [k[:-3] for k in runs[0][2] if k.endswith(" x1")]
     for shape in shapes:
         print(shape)

@@ -3,7 +3,7 @@ versions, on the card (a development tool, not part of the package):
 
     python tools/mutation_check.py          # the split-precision kernel
     python tools/mutation_check.py admm     # K1 and K2
-    python tools/mutation_check.py streamed # K1/K2 streamed, K1 split mode
+    python tools/mutation_check.py streamed # K1/K2 resident and streamed, split mode
     python tools/mutation_check.py stagewise   # K4, the stagewise sweep
 
 Run from the root of a checkout. For each mutation it copies the package
@@ -29,7 +29,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 CSRC = "pyhybridcontrol_tpu_torch/csrc/"
-# name -> (text to replace, replacement); each text occurs once
+# name -> (text to replace, replacement), or a list of them; a text occurs
+# once, or twice where the resident variant of admm.cu has its own copy of
+# the line (every copy is broken)
 MUTATIONS_ADMM = {
     "none": None,
     "alpha − 0.1": (
@@ -47,9 +49,24 @@ MUTATIONS_STREAMED = {
         "s2.MT = const_cast<float*>(a.MT2);", "s2.MT = s.MT;"),
     "split mode: lo·hi pass dropped": ("c = fmaf(al[r], vh, c);", ""),
     "split mode: hi·lo pass dropped": ("c = fmaf(ah[r], vl, c);", ""),
-    "split mode: one split iteration short": (
-        "phase<PB, true>(s, nr, mGp, a.iters_lo, a.alpha, false);",
-        "phase<PB, true>(s, nr, mGp, a.iters_lo - 1, a.alpha, false);"),
+    "split mode: one split iteration short": [
+        ("phase<PB, true>(s, nr, mGp, a.iters_lo, a.alpha, false);",
+         "phase<PB, true>(s, nr, mGp, a.iters_lo - 1, a.alpha, false);"),
+        ("cl_phase<PB, true>(s, pt, nr, mGp, a.iters_lo, a.alpha, false, "
+         "xpar);", "cl_phase<PB, true>(s, pt, nr, mGp, a.iters_lo - 1, "
+         "a.alpha, false, xpar);")],
+    "resident stiff phase keeps Mᵀ": (
+        "bulk_copy(s.MT, a.MT2 + offM, nMT, s.bar);",
+        "bulk_copy(s.MT, a.MT + offM, nMT, s.bar);"),
+    # the same bytes reach the other CTAs (a dropped send would hang the
+    # wait for them), taken from the next row of t
+    "resident: t sent from the wrong rows": (
+        "st_async<V>(mapa(t + o, r), t + o, mapa(bar, r));",
+        "st_async<V>(mapa(t + o, r), t + (o + PB) % (nr * PB), "
+        "mapa(bar, r));"),
+    "resident: the last CTA's stats record dropped": (
+        "record_sum(slots + (size_t)tid * PHC_RED, nc, PB * PHC_RED,",
+        "record_sum(slots + (size_t)tid * PHC_RED, nc - 1, PB * PHC_RED,"),
 }
 MUTATIONS_MIXED = {
     "none": None,
@@ -150,10 +167,12 @@ def main(argv=None) -> int:
             if sub is not None:
                 src = Path(tmp) / CSRC / kernel
                 text = src.read_text()
-                if text.count(sub[0]) != 1:
-                    raise RuntimeError(f"{name}: the kernel source no longer "
-                                       f"has exactly one {sub[0]!r}")
-                src.write_text(text.replace(sub[0], sub[1]))
+                for old, new in (sub if isinstance(sub, list) else [sub]):
+                    if text.count(old) not in (1, 2):
+                        raise RuntimeError(f"{name}: the kernel source has "
+                                           f"{text.count(old)} of {old!r}")
+                    text = text.replace(old, new)
+                src.write_text(text)
             out = subprocess.run([sys.executable, "-c", run], cwd=tmp,
                                  capture_output=True, text=True)
         lines = [ln for ln in out.stdout.splitlines()

@@ -1,9 +1,10 @@
-"""The plain version's own fp32 noise on config 4c's pooled wave, or on
-config 6's stagewise wave (a development tool, not part of the package;
-runs on the CPU):
+"""The plain version's own fp32 noise on config 4c's pooled wave, on
+config 6's stagewise wave, or on the served config-2 request's wave (a
+development tool, not part of the package; runs on the CPU):
 
     python tools/plain_noise.py [--batch B] [--seed S]
     python tools/plain_noise.py --stagewise [--seed S]
+    python tools/plain_noise.py --served [--seed S]
 
 Builds config 4c's dense joint frame (the reference bench's tree: S=4,
 N=10, branching at steps 1 and 5), draws B seeded states and B&B-node
@@ -27,6 +28,13 @@ seeded by S): the stagewise tree relaxation (150 iterations) and the probe
 warm from the relaxation) through the plain sweeps, in float32 against
 float64, and the probe again after a one-ulp change of q — what phase 20
 of ``chip_smoke.py`` holds K4's whole solve to.
+
+``--served``: config 2's real frame (``chip_smoke.real_problem``, 64
+seeded states and node boxes, seeded by S) and the wave a served request
+runs: the relaxation of 400 iterations, warm from 400 cold, in float32
+against float64, and again after a one-ulp change of q, with the share of
+instances that round a relaxed binary otherwise — what phase 9 of
+``chip_smoke.py`` holds resident K2 at that shape to.
 """
 
 from __future__ import annotations
@@ -192,14 +200,52 @@ def stagewise_readings(seed=5):
     return out
 
 
+def served_readings(seed=5, B=64, iters=400):
+    """{stage: {field: error}} of float32 against float64 on the served
+    config-2 request's relaxation (see the module docstring)."""
+    import chip_smoke as cs
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+
+    spec, _, _, f, h, lb, ub = cs.real_problem(
+        "config2", B, "cpu", np.random.default_rng(seed))
+    kq = ca.kernel_qp_for(spec)
+    kd = _double(kq)
+    cold = ca.admm_solve_plain(kq, f, h, lb, ub, iters=iters)
+    warm = (cold.x, cold.z, cold.y)
+    r32 = ca.admm_solve_plain(kq, f, h, lb, ub, iters=iters, warm=warm)
+    r64 = ca._solve_plain(kd, f.double(), h.double(), lb.double(),
+                          ub.double(), iters, 0,
+                          tuple(w.double() for w in warm))
+    r1 = ca.admm_solve_plain(kq, f * (1 + 2.0 ** -23), h, lb, ub,
+                             iters=iters, warm=warm)
+    bidx = torch.as_tensor(cs.bench_frame("config2")[2].binary_idx)
+
+    def rounded(res):
+        return torch.round(torch.clamp(torch.clamp(
+            res.x[:, bidx], lb[:, bidx], ub[:, bidx]), 0.0, 1.0))
+
+    def flips(a, b):
+        d = rounded(a) != rounded(b)
+        return float(d.any(-1).float().mean())
+
+    return {f"relaxation, {iters} it warm": _errors(r32, r64),
+            "relaxation, one ulp of q (float32 both)": _errors(r1, r32),
+            "share of instances rounding a binary otherwise, float32 vs "
+            "float64": flips(r32, r64),
+            "the same, one ulp of q (float32 both)": flips(r1, r32)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=300)
     ap.add_argument("--seed", type=int, default=5)
     ap.add_argument("--stagewise", action="store_true")
+    ap.add_argument("--served", action="store_true")
     a = ap.parse_args(argv)
     torch.set_num_threads(4)
     got = (stagewise_readings(a.seed) if a.stagewise
+           else served_readings(a.seed) if a.served
            else readings(a.batch, a.seed))
     for stage, errs in got.items():
         if isinstance(errs, float):

@@ -81,8 +81,8 @@ def on_card():
             ca.reset_launch_counts()
             r = ct.feedback(xs[i])
             torch.cuda.synchronize()
-            waves = (ca.LAUNCHES["admm_k2_streamed"]
-                     + ca.LAUNCHES["admm_k1_streamed"])
+            waves = (ca.LAUNCHES["admm_k2_resident"]
+                     + ca.LAUNCHES["admm_k1_resident"])
             rows.append((i, float(r.obj), float(r.gap), int(r.nodes), waves))
         ref = np.array([r[1] for r in rows])
         p = pooled[list(cs.CFG4C_HELD)]
