@@ -11,8 +11,9 @@ tree) bump a version, and ``build`` prepares again on the next call.
 
 Solvers: "bnb" and "enumerate" on the condensed frame; "stagewise" on the
 O(N) block-tridiagonal frame (ops/stagewise.py, B&B through
-solver/bnb_stagewise.py, the sweep K4 on the card), where soft rows, move
-blocking, terminal sets and horizon-coupled rows ride natively.
+solver/bnb_stagewise.py, each relaxation one K5 launch on the card), where
+soft rows, move blocking, terminal sets and horizon-coupled rows ride
+natively.
 A condensed scenario tree is either the dense joint frame
 (ops/scenario_tree.py; ``feedback`` branches per coordinate through K2,
 the pooled engine branches per information set through K1) or the

@@ -1,6 +1,9 @@
-// K4: the block-tridiagonal sweep of the stagewise frame for Hopper
-// (sm_90a), with a plain C interface loaded through ctypes by
-// pyhybridcontrol_tpu_torch/ops/_build.py.
+// The stagewise frame's kernels for Hopper (sm_90a), with a plain C
+// interface loaded through ctypes by pyhybridcontrol_tpu_torch/ops/_build.py:
+// K4, the block-tridiagonal sweep, and K5, the fused stagewise ADMM loop
+// that runs K4's sweep as its inner routine.
+//
+// ---- K4: the sweep -------------------------------------------------------
 //
 // No TPU kernel stands behind it: the reference solves K ξ = r in every
 // stagewise ADMM iteration with two length-N lax.scan sweeps that XLA
@@ -26,7 +29,7 @@
 // anything. What bounds it is the dependent chain: 2·N stages, each a
 // b-row matrix-vector product on the previous stage's result.
 //
-// The design:
+// The design (block_sweep below, which K5 runs too):
 //  - One warp per problem. Lane i owns rows i, i+32, … of each block; the
 //    block size is bounded at compile time (BMAX: 8, 16, 32, 64 or 128, the
 //    smallest at or above b) so that the column loops unroll, and the lanes
@@ -45,16 +48,87 @@
 //    (STAGED = false). The wrapper's plan (ops/cuda_stagewise.plan_sweep)
 //    picks BMAX, the variant and the warps a block (4, 2 or 1) from the
 //    shapes alone. Shared-memory arrays start at multiples of 4 words.
+//
+// ---- K5: the stagewise ADMM loop -----------------------------------------
+//
+// What it replaces: the reference's jax.lax.fori_loop over the stagewise
+// ADMM iteration (stagewise_admm_solve, pyhybridcontrol_tpu/ops/stagewise.py,
+// loop at :1011, body :987-1009), plain XLA, no Pallas. Its plain version is
+// _admm_iterations in pyhybridcontrol_tpu_torch/ops/stagewise.py (torch ops
+// around the plain sweeps, ~51 launches an iteration plus the sweeps').
+//
+// What it computes, for P problems of horizon N, block b and m rows a
+// stage, in groups of S scenarios that share a consensus prox (S = 1
+// without one), `iters` iterations of
+//   t  = σx − q + Aᵀ(ρz − y) + Aextᵀ(ρₑz_e − y_e)
+//   x  = K⁻¹t − KiU·(Cw·(Aext·K⁻¹t))          (the bordered Woodbury x-update)
+//   zr = αAx + (1−α)z
+//   z  = box(zr + y/ρ) on hard rows; the penalty prox on soft rows; the
+//        p-weighted group mean over the scenarios on the trailing n_cons
+//        rows (with a group mean)
+//   y  = y + ρ(zr − z)
+//   z_e = min(αAext·x + (1−α)z_e + y_e/ρₑ, u_e), y_e likewise (one-sided)
+// from the warm (x, z, y, z_e, y_e), returning them with the last
+// iteration's dy and dy_e. A ξ_k-rows = J ξ_k + M_k ξ_{k−1}: J (m, b) is
+// shared; M_k = Mc for k ≥ 1 (the dynamics' −A and the inequalities' E on
+// x_k) minus tie[k, j] on the blocking rows' column blk[j]; M_0 multiplies
+// data (x_0) and is zero. All fp32; the wrapper (ops/cuda_stagewise.py)
+// packs the constants.
+//
+// What bounds it on the H100. Per iteration and problem the work is a
+// sweep (2·N dependent stages) and O(N·m·b) row work; the bytes are the
+// state once in and out per launch (4–5 MB at config 6's wave). So the
+// bound is the chain: `iters` sweeps in sequence, ~9 µs an iteration at
+// N=120 by K4's reckoned floor, against ~1 ms an iteration that the torch
+// loop around K4 cost on the host.
+//
+// The design:
+//  - One CTA per problem (scenario), a node's S scenarios one thread-block
+//    cluster (S ≤ 8, the portable size). Warp 0 runs the sweep
+//    (block_sweep, K4's code) out of shared memory; the factors are staged
+//    there once per launch where they fit (STAGED), not once per
+//    iteration. A CTA of its own per scenario keeps every sweep warp alone
+//    with its SM's shared-memory pipe, and spreads the row work over S
+//    SMs a node (one CTA holding a node's 8 scenarios ran its sweeps at
+//    half K4's pace and its rows on 8 SMs of 132).
+//  - The state lives on chip for the launch: z, y, l and u in shared
+//    memory by row then stage (37 KB a scenario at config 6), so the 32
+//    stages of a warp read one row from 32 banks.
+//  - Row work is owned stage by stage: thread k owns stage k (k, k + 32·W,
+//    … past the CTA's threads) and every row of it through every
+//    iteration; only the owner reads or writes a row's z, y, l, u. It
+//    computes its rows' zr and updates, then at once their new w = ρz − y
+//    into Jᵀw (its t_k) and, for k ≥ 1, M_kᵀw (t_{k−1}'s share, kept
+//    apart in `mb` and added by the sweep as it reads t_{k−1}): no pass
+//    reads z and y twice.
+//  - Barriers an iteration: the block's after the sweep (x and the
+//    Woodbury coefficient in shared memory); then, with a group mean, one
+//    cluster barrier (release/acquire) after the row work, past which each
+//    CTA reads the consensus rows' zr + y/ρ of its peers from their shared
+//    memory (double-buffered by iteration, so that no second cluster
+//    barrier guards the overwrite), else the block's where the extra rows
+//    need the CTA's sums of Aext·x; and the block's once t is complete.
+//    The extra rows' z_e, y_e are kept in every thread of the CTA, each
+//    computing the same update from the same sums in the same order.
+//  - J and Mc are staged with rows padded to BMAX words and read as
+//    16-byte broadcasts.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxWarps = 4;
+constexpr int kRMax = 4;          // extra (horizon-coupled) rows K5 takes
+// the most threads a K5 CTA has: 512 at BMAX 8, 256 at 16 (the per-stage
+// register arrays double)
+constexpr int admm_max_threads(int bmax) { return bmax <= 8 ? 512 : 256; }
 
 __host__ __device__ inline size_t pad4(size_t n) { return (n + 3) & ~size_t(3); }
 
@@ -82,38 +156,105 @@ __device__ inline void copy_in(float* dst, const float* __restrict__ src,
   }
 }
 
-template <int BMAX, bool STAGED>
-__global__ void __launch_bounds__(32 * kMaxWarps)
-sw_solve_k_kernel(const float* __restrict__ r, const float* __restrict__ Lg,
-                  const float* __restrict__ Ug, const float* __restrict__ Cg,
-                  float* __restrict__ x, int P, int N, int b) {
-  constexpr int R = (BMAX + 31) / 32;           // rows a lane owns
-  extern __shared__ __align__(16) float smem[];
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+// K4's sweep for one problem, run by one whole warp: x = K⁻¹ r with r in
+// ys (shared memory, N·b words, overwritten by y), plus add[k·b + i] on
+// each r_k row where ADD (K5's M-part of t, kept apart); x (N·b words) in
+// shared or device memory. NB columns a row: B0 where the block size is
+// known at compile time (B0 = b), else BMAX, the columns past b then
+// adding fmaf(0, 0) — the sums are those of the b columns, in column
+// order, bit for bit. Up to BMAX 16 a lane holds its row of the next
+// stage's factors (and of y) in registers while the current stage's chain
+// runs, so that no load waits on it, and the lanes past b compute along
+// (their coefficients and values are 0) so that the warp never diverges
+// on the chain: a stage is NB shuffles issued together, NB dependent
+// FMAs and a subtraction.
+template <int BMAX, int B0, bool ADD>
+__device__ inline void sweep_rows(float* ys, const float* add,
+                                  const float* L, const float* U,
+                                  const float* C, float* xp, int N, int b,
+                                  int lane) {
+  constexpr int NB = B0 ? B0 : BMAX;
   const int bb = b * b;
-  const float* L = Lg;
-  const float* U = Ug;
-  const float* C = Cg;
-  float* ys = smem;
-  if (STAGED) {
-    const int n = N * bb;
-    const size_t np = pad4(n);
-    copy_in(smem, Lg, n, threadIdx.x, blockDim.x);
-    copy_in(smem + np, Ug, n, threadIdx.x, blockDim.x);
-    copy_in(smem + 2 * np, Cg, n, threadIdx.x, blockDim.x);
-    L = smem;
-    U = smem + np;
-    C = smem + 2 * np;
-    ys = smem + 3 * np;
+  const bool row = lane < b;
+  const int lo = row ? lane * b : 0;   // this lane's row of a factor block
+
+  // ---- forward sweep: y_k = r_k − L_k y_{k−1}, in place over r_k ----
+  float Lc[NB], Ln[NB];
+  float rc = 0.0f, rn = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) Lc[j] = (row && j < b) ? L[lo + j] : 0.0f;
+  if (row) rc = ADD ? ys[lane] + add[lane] : ys[lane];
+  float prev = 0.0f;
+#pragma unroll 2
+  for (int k = 0; k < N; ++k) {
+    if (k + 1 < N) {
+      const float* Lk = L + (size_t)(k + 1) * bb + lo;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) Ln[j] = (row && j < b) ? Lk[j] : 0.0f;
+      const int e = (k + 1) * b + lane;
+      if (row) rn = ADD ? ys[e] + add[e] : ys[e];
+    }
+    float acc = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      acc = fmaf(Lc[j], __shfl_sync(kFull, prev, j), acc);
+    prev = rc - acc;     // exactly 0 past b: no branch before the shuffles
+    if (row) ys[k * b + lane] = prev;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) Lc[j] = Ln[j];
+    rc = rn;
   }
-  const int p = blockIdx.x * warps + warp;
-  ys += warp * pad4((size_t)N * b);
-  if (p < P) copy_in(ys, r + (size_t)p * N * b, N * b, lane, 32);
-  __syncthreads();
-  if (p >= P) return;  // whole warps leave, after the block's only barrier
-  float* xp = x + (size_t)p * N * b;
+  __syncwarp();
+
+  // ---- backward sweep: x_k = U⁻¹_k y_k − C_k x_{k+1} ----
+  float Uc[NB], Cc[NB], yc[NB], Un[NB], Cn[NB], yn[NB];
+  {
+    const size_t o = (size_t)(N - 1) * bb + lo;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      Uc[j] = (row && j < b) ? U[o + j] : 0.0f;
+      Cc[j] = (row && j < b) ? C[o + j] : 0.0f;
+      yc[j] = j < b ? ys[(N - 1) * b + j] : 0.0f;
+    }
+  }
+  float nxt = 0.0f;
+#pragma unroll 2
+  for (int k = N - 1; k >= 0; --k) {
+    if (k >= 1) {
+      const size_t o = (size_t)(k - 1) * bb + lo;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        Un[j] = (row && j < b) ? U[o + j] : 0.0f;
+        Cn[j] = (row && j < b) ? C[o + j] : 0.0f;
+        yn[j] = j < b ? ys[(k - 1) * b + j] : 0.0f;
+      }
+    }
+    float a = 0.0f, c = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) a = fmaf(Uc[j], yc[j], a);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      c = fmaf(Cc[j], __shfl_sync(kFull, nxt, j), c);
+    nxt = a - c;         // exactly 0 past b
+    if (row) xp[(size_t)k * b + lane] = nxt;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      Uc[j] = Un[j];
+      Cc[j] = Cn[j];
+      yc[j] = yn[j];
+    }
+  }
+}
+
+// the same sweep for BMAX 32 to 128: lane i owns rows i, i+32, …, each
+// stage's coefficients read where they are used
+template <int BMAX, bool ADD>
+__device__ inline void sweep_wide(float* ys, const float* add,
+                                  const float* L, const float* U,
+                                  const float* C, float* xp, int N, int b,
+                                  int lane) {
+  constexpr int R = (BMAX + 31) / 32;           // rows a lane owns
+  const int bb = b * b;
 
   // ---- forward sweep: y_k = r_k − L_k y_{k−1}, in place over r_k ----
   float prev[R];
@@ -130,13 +271,12 @@ sw_solve_k_kernel(const float* __restrict__ r, const float* __restrict__ Lg,
 #pragma unroll
       for (int l = 0; l < (BMAX - 32 * s < 32 ? BMAX - 32 * s : 32); ++l) {
         const int j = s * 32 + l;
-        if (j < b) {  // uniform over the warp
-          const float yj = __shfl_sync(kFull, prev[s], l);
+        const float yj = __shfl_sync(kFull, prev[s], l);
 #pragma unroll
-          for (int t = 0; t < R; ++t) {
-            const int i = t * 32 + lane;
-            if (i < b) acc[t] = fmaf(Lk[i * b + j], yj, acc[t]);
-          }
+        for (int t = 0; t < R; ++t) {
+          const int i = t * 32 + lane;
+          const float Lij = (i < b && j < b) ? Lk[i * b + j] : 0.0f;
+          acc[t] = fmaf(Lij, yj, acc[t]);
         }
       }
     }
@@ -144,7 +284,8 @@ sw_solve_k_kernel(const float* __restrict__ r, const float* __restrict__ Lg,
     for (int t = 0; t < R; ++t) {
       const int i = t * 32 + lane;
       if (i < b) {
-        prev[t] = yk[i] - acc[t];
+        const float rk = ADD ? yk[i] + add[k * b + i] : yk[i];
+        prev[t] = rk - acc[t];
         yk[i] = prev[t];
       } else {
         prev[t] = 0.0f;
@@ -169,13 +310,12 @@ sw_solve_k_kernel(const float* __restrict__ r, const float* __restrict__ Lg,
     }
 #pragma unroll
     for (int j = 0; j < BMAX; ++j) {
-      if (j < b) {
-        const float yj = yk[j];
+      const float yj = j < b ? yk[j] : 0.0f;
 #pragma unroll
-        for (int t = 0; t < R; ++t) {
-          const int i = t * 32 + lane;
-          if (i < b) a[t] = fmaf(Uk[i * b + j], yj, a[t]);
-        }
+      for (int t = 0; t < R; ++t) {
+        const int i = t * 32 + lane;
+        const float Uij = (i < b && j < b) ? Uk[i * b + j] : 0.0f;
+        a[t] = fmaf(Uij, yj, a[t]);
       }
     }
 #pragma unroll
@@ -183,13 +323,12 @@ sw_solve_k_kernel(const float* __restrict__ r, const float* __restrict__ Lg,
 #pragma unroll
       for (int l = 0; l < (BMAX - 32 * s < 32 ? BMAX - 32 * s : 32); ++l) {
         const int j = s * 32 + l;
-        if (j < b) {
-          const float xj = __shfl_sync(kFull, nxt[s], l);
+        const float xj = __shfl_sync(kFull, nxt[s], l);
 #pragma unroll
-          for (int t = 0; t < R; ++t) {
-            const int i = t * 32 + lane;
-            if (i < b) c[t] = fmaf(Ck[i * b + j], xj, c[t]);
-          }
+        for (int t = 0; t < R; ++t) {
+          const int i = t * 32 + lane;
+          const float Cij = (i < b && j < b) ? Ck[i * b + j] : 0.0f;
+          c[t] = fmaf(Cij, xj, c[t]);
         }
       }
     }
@@ -206,15 +345,59 @@ sw_solve_k_kernel(const float* __restrict__ r, const float* __restrict__ Lg,
   }
 }
 
+template <int BMAX, int B0, bool ADD>
+__device__ inline void block_sweep(float* ys, const float* add,
+                                   const float* L, const float* U,
+                                   const float* C, float* xp, int N, int b,
+                                   int lane) {
+  if constexpr (BMAX <= 16)
+    sweep_rows<BMAX, B0, ADD>(ys, add, L, U, C, xp, N, b, lane);
+  else
+    sweep_wide<BMAX, ADD>(ys, add, L, U, C, xp, N, b, lane);
+}
+
+template <int BMAX, int B0, bool STAGED>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+sw_solve_k_kernel(const float* __restrict__ r, const float* __restrict__ Lg,
+                  const float* __restrict__ Ug, const float* __restrict__ Cg,
+                  float* __restrict__ x, int P, int N, int b) {
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const float* L = Lg;
+  const float* U = Ug;
+  const float* C = Cg;
+  float* ys = smem;
+  if (STAGED) {
+    const int n = N * b * b;
+    const size_t np = pad4(n);
+    copy_in(smem, Lg, n, threadIdx.x, blockDim.x);
+    copy_in(smem + np, Ug, n, threadIdx.x, blockDim.x);
+    copy_in(smem + 2 * np, Cg, n, threadIdx.x, blockDim.x);
+    L = smem;
+    U = smem + np;
+    C = smem + 2 * np;
+    ys = smem + 3 * np;
+  }
+  const int p = blockIdx.x * warps + warp;
+  ys += warp * pad4((size_t)N * b);
+  if (p < P) copy_in(ys, r + (size_t)p * N * b, N * b, lane, 32);
+  __syncthreads();
+  if (p >= P) return;  // whole warps leave, after the block's only barrier
+  block_sweep<BMAX, B0, false>(ys, nullptr, L, U, C, x + (size_t)p * N * b,
+                               N, b, lane);
+}
+
 size_t smem_bytes(int N, int b, int warps, int staged) {
   return sizeof(float) * ((staged ? 3 * pad4((size_t)N * b * b) : 0) +
                           (size_t)warps * pad4((size_t)N * b));
 }
 
-template <int BMAX, bool STAGED>
+template <int BMAX, int B0, bool STAGED>
 int launch(const float* r, const float* L, const float* U, const float* C,
            float* x, int P, int N, int b, int warps, cudaStream_t stream) {
-  auto kernel = sw_solve_k_kernel<BMAX, STAGED>;
+  auto kernel = sw_solve_k_kernel<BMAX, B0, STAGED>;
   const size_t bytes = smem_bytes(N, b, warps, STAGED);
   if (bytes > 48 * 1024) {
     const int rc = (int)cudaFuncSetAttribute(
@@ -226,12 +409,606 @@ int launch(const float* r, const float* L, const float* U, const float* C,
   return (int)cudaGetLastError();
 }
 
+// b = 5 (every model of the repo on the stagewise frame) has an
+// instantiation of its own, with no padded column on the chain
 template <int BMAX>
 int launch_b(const float* r, const float* L, const float* U, const float* C,
              float* x, int P, int N, int b, int warps, int staged,
              cudaStream_t stream) {
-  return staged ? launch<BMAX, true>(r, L, U, C, x, P, N, b, warps, stream)
-                : launch<BMAX, false>(r, L, U, C, x, P, N, b, warps, stream);
+  if (BMAX == 8 && b == 5)
+    return staged ? launch<8, 5, true>(r, L, U, C, x, P, N, b, warps, stream)
+                  : launch<8, 5, false>(r, L, U, C, x, P, N, b, warps,
+                                        stream);
+  return staged ? launch<BMAX, 0, true>(r, L, U, C, x, P, N, b, warps, stream)
+                : launch<BMAX, 0, false>(r, L, U, C, x, P, N, b, warps,
+                                         stream);
+}
+
+// ---- K5 ------------------------------------------------------------------
+
+}  // namespace
+
+extern "C" {
+
+// the arguments of K5 (ops/cuda_stagewise.py mirrors it field by field).
+// Per problem, contiguous: q, x0, x (P, N, b); l, u, z0, y0, z, y, dy
+// (P, N, m); ze0, ye0, ext_u, ze, ye, dye (P, n_ext). Constants: L, U, C
+// (N, b, b); J, Mc (m, b); tie (N, n_blk) and blk (n_blk) the blocking
+// rows' coefficients and columns; rows (3, m, N): ρ, the soft rows' linear
+// and quadratic penalties, by row then stage; Aext (n_ext, N, b), KiU
+// (N, b, n_ext), Cw (n_ext, n_ext), rho_e (n_ext); gM (S, S, N) the group
+// mean's weights (mean = 1; problem p is scenario p mod S of its group).
+struct PhcSwAdmmArgs {
+  const float* q;
+  const float* l;
+  const float* u;
+  const float* x0;
+  const float* z0;
+  const float* y0;
+  const float* ze0;
+  const float* ye0;
+  const float* ext_u;
+  const float* L;
+  const float* U;
+  const float* C;
+  const float* J;
+  const float* Mc;
+  const float* tie;
+  const int* blk;
+  const float* rows;
+  const float* Aext;
+  const float* KiU;
+  const float* Cw;
+  const float* rho_e;
+  const float* gM;
+  float* x;
+  float* z;
+  float* y;
+  float* dy;
+  float* ze;
+  float* ye;
+  float* dye;
+  int P, N, b, m, S, n_blk, blk0, n_ext, n_cons, mean, iters;
+  float sigma, alpha;
+};
+
+}  // extern "C"
+
+namespace {
+
+// word offsets of a K5 CTA's shared memory; every array starts at a
+// multiple of 4 words: the constants, the scenario's group-mean weights,
+// its z, y, l, u (by row, then stage), t (y in place), mb, x, the
+// consensus rows' buffers (two, with a group mean), the Woodbury
+// coefficient and the per-warp sums
+struct AdmmLayout {
+  size_t L, U, C, J, Mc, tie, blk, Aext, KiU, Cw, rho_e, gM, z, y, l, u, t,
+      mb, xb, cb, corr, red, total;
+};
+
+__host__ __device__ inline AdmmLayout admm_layout(int N, int b, int m, int S,
+                                                  int n_blk, int r,
+                                                  int n_cons, int mean,
+                                                  int warps, int staged,
+                                                  int bmax) {
+  AdmmLayout a;
+  size_t o = 0;
+  const size_t f = staged ? pad4((size_t)N * b * b) : 0;
+  const size_t zn = pad4((size_t)m * N), tn = pad4((size_t)N * b);
+  a.L = o; o += f;
+  a.U = o; o += f;
+  a.C = o; o += f;
+  a.J = o; o += pad4((size_t)m * bmax);
+  a.Mc = o; o += pad4((size_t)m * bmax);
+  a.tie = o; o += pad4((size_t)N * n_blk);
+  a.blk = o; o += pad4(n_blk);
+  a.Aext = o; o += pad4((size_t)r * N * b);
+  a.KiU = o; o += pad4((size_t)N * b * r);
+  a.Cw = o; o += pad4((size_t)r * r);
+  a.rho_e = o; o += pad4(r);
+  a.gM = o; o += mean ? pad4((size_t)S * N) : 0;
+  a.z = o; o += zn;
+  a.y = o; o += zn;
+  a.l = o; o += zn;
+  a.u = o; o += zn;
+  a.t = o; o += tn;
+  a.mb = o; o += tn;
+  a.xb = o; o += tn;
+  a.cb = o; o += mean ? 2 * pad4((size_t)N * n_cons) : 0;
+  a.corr = o; o += kRMax;
+  a.red = o; o += (size_t)kRMax * warps;
+  a.total = o;
+  return a;
+}
+
+// row i of a matrix staged with rows of BMAX words: 16-byte broadcasts
+template <int BMAX>
+__device__ inline void load_row(float (&v)[BMAX], const float* rowp) {
+  const float4* p4 = reinterpret_cast<const float4*>(rowp);
+#pragma unroll
+  for (int c4 = 0; c4 < BMAX / 4; ++c4) {
+    const float4 w = p4[c4];
+    v[4 * c4] = w.x;
+    v[4 * c4 + 1] = w.y;
+    v[4 * c4 + 2] = w.z;
+    v[4 * c4 + 3] = w.w;
+  }
+}
+
+// x_k = (K⁻¹t)_k − KiU_k·corr (the Woodbury term; corr is 0 before the
+// first iteration, which leaves the warm x as it is)
+template <int BMAX>
+__device__ inline void x_stage(float (&xk)[BMAX], const float* xb,
+                               const float* KiU, const float* corr, int k,
+                               int b, int r) {
+#pragma unroll
+  for (int c = 0; c < BMAX; ++c) {
+    xk[c] = 0.0f;
+    if (c < b) {
+      float cr = 0.0f;
+      for (int j = 0; j < r; ++j)
+        cr = fmaf(KiU[(k * b + c) * r + j], corr[j], cr);
+      xk[c] = xb[k * b + c] - cr;
+    }
+  }
+}
+
+// one row's w into t_k's Jᵀw (acc) and, at k ≥ 1, t_{k−1}'s M_kᵀw (mm),
+// over the NB columns (B0 where b is known at compile time)
+template <int BMAX, int NB>
+__device__ inline void row_transpose(float (&acc)[BMAX], float (&mm)[BMAX],
+                                     const float (&jr)[BMAX],
+                                     const float (&mr)[BMAX], float w,
+                                     int k, int i, const float* tie,
+                                     const int* blk, int n_blk, int blk0) {
+#pragma unroll
+  for (int c = 0; c < NB; ++c) acc[c] = fmaf(jr[c], w, acc[c]);
+  if (k >= 1) {
+#pragma unroll
+    for (int c = 0; c < NB; ++c) mm[c] = fmaf(mr[c], w, mm[c]);
+    const int j = i - blk0;
+    if (j >= 0 && j < n_blk) {
+      const int cj = blk[j];
+      const float tw = -tie[k * n_blk + j];
+#pragma unroll
+      for (int c = 0; c < BMAX; ++c)
+        if (c == cj) mm[c] = fmaf(tw, w, mm[c]);
+    }
+  }
+}
+
+// t_k += Aext_kᵀ(ρₑz_e − y_e)
+template <int BMAX>
+__device__ inline void add_ext(float (&acc)[BMAX], const float* Aext,
+                               const float* rho_e, const float (&ze)[kRMax],
+                               const float (&ye)[kRMax], int k, int N, int b,
+                               int r) {
+#pragma unroll
+  for (int j = 0; j < kRMax; ++j) {
+    if (j < r) {
+      const float we = rho_e[j] * ze[j] - ye[j];
+#pragma unroll
+      for (int c = 0; c < BMAX; ++c)
+        if (c < b) acc[c] = fmaf(Aext[(j * N + k) * b + c], we, acc[c]);
+    }
+  }
+}
+
+// v summed over the tps lanes of each aligned group of a warp (tps a
+// power of 2 up to 32), every lane of the group left with the sum
+template <int BMAX>
+__device__ inline void group_sum(float (&v)[BMAX], int tps) {
+  for (int o = tps >> 1; o > 0; o >>= 1)
+#pragma unroll
+    for (int c = 0; c < BMAX; ++c) v[c] += __shfl_xor_sync(kFull, v[c], o);
+}
+
+template <int BMAX, int B0, bool STAGED>
+__global__ void __launch_bounds__(BMAX <= 8 ? 512 : 256)
+sw_admm_kernel(const PhcSwAdmmArgs a, int tps) {
+  extern __shared__ __align__(16) float smem[];
+  const int N = a.N, b = a.b, m = a.m, S = a.S, r = a.n_ext;
+  const int nb = a.n_blk, nc = a.n_cons;
+  const int mc = a.mean ? m - nc : m;           // first group-mean row
+  const int tid = threadIdx.x, T = blockDim.x, W = T >> 5;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int G = T / tps;                        // stages a round
+  const int g = tid / tps, jl = tid - g * tps;  // group, lane in the group
+  constexpr int NB = B0 ? B0 : BMAX;            // columns a row's products
+  const AdmmLayout lay = admm_layout(N, b, m, S, nb, r, nc, a.mean, W,
+                                     STAGED, BMAX);
+  const size_t p = blockIdx.x;                  // this CTA's problem
+  const int s = a.mean ? (int)(p % S) : 0;      // its scenario in the group
+
+  // ---- constants into shared memory, once per launch ----
+  const float* L = a.L;
+  const float* U = a.U;
+  const float* C = a.C;
+  if (STAGED) {
+    copy_in(smem + lay.L, a.L, N * b * b, tid, T);
+    copy_in(smem + lay.U, a.U, N * b * b, tid, T);
+    copy_in(smem + lay.C, a.C, N * b * b, tid, T);
+    L = smem + lay.L;
+    U = smem + lay.U;
+    C = smem + lay.C;
+  }
+  float* J = smem + lay.J;
+  float* Mc = smem + lay.Mc;
+  for (int e = tid; e < m * BMAX; e += T) {
+    const int i = e / BMAX, c = e - i * BMAX;
+    J[e] = c < b ? __ldg(a.J + i * b + c) : 0.0f;
+    Mc[e] = c < b ? __ldg(a.Mc + i * b + c) : 0.0f;
+  }
+  float* tie = smem + lay.tie;
+  int* blk = reinterpret_cast<int*>(smem + lay.blk);
+  if (nb) copy_in(tie, a.tie, N * nb, tid, T);
+  for (int j = tid; j < nb; j += T) blk[j] = __ldg(a.blk + j);
+  float* Aext = smem + lay.Aext;
+  float* KiU = smem + lay.KiU;
+  float* Cw = smem + lay.Cw;
+  float* rho_e = smem + lay.rho_e;
+  if (r) {
+    copy_in(Aext, a.Aext, r * N * b, tid, T);
+    copy_in(KiU, a.KiU, N * b * r, tid, T);
+    copy_in(Cw, a.Cw, r * r, tid, T);
+    copy_in(rho_e, a.rho_e, r, tid, T);
+  }
+  float* gM = smem + lay.gM;                    // gM[s, t, k] as [t·N + k]
+  if (a.mean) copy_in(gM, a.gM + (size_t)s * S * N, S * N, tid, T);
+
+  // ---- the warm state ----
+  float* zs = smem + lay.z;
+  float* ysc = smem + lay.y;
+  float* ls = smem + lay.l;
+  float* us = smem + lay.u;
+  float* tb = smem + lay.t;
+  float* mb = smem + lay.mb;
+  float* xb = smem + lay.xb;
+  float* corr = smem + lay.corr;
+  float* red = smem + lay.red;
+  const size_t ncb = pad4((size_t)N * nc);
+  const float* rho_t = a.rows;
+  const float* lin_t = rho_t + (size_t)m * N;
+  const float* quad_t = lin_t + (size_t)m * N;
+  const float* qp = a.q + p * N * b;
+  for (int e = tid; e < N * b; e += T) {
+    xb[e] = __ldg(a.x0 + p * N * b + e);
+    mb[e] = 0.0f;
+  }
+  if (tid < kRMax) corr[tid] = 0.0f;
+  for (int k = g; k < N; k += G) {
+    const size_t o = (p * N + k) * m;
+    for (int i = jl; i < m; i += tps) {
+      zs[i * N + k] = __ldg(a.z0 + o + i);
+      ysc[i * N + k] = __ldg(a.y0 + o + i);
+      ls[i * N + k] = __ldg(a.l + o + i);
+      us[i * N + k] = __ldg(a.u + o + i);
+    }
+  }
+  float ze[kRMax], ye[kRMax];
+#pragma unroll
+  for (int j = 0; j < kRMax; ++j) {
+    ze[j] = j < r ? __ldg(a.ze0 + p * r + j) : 0.0f;
+    ye[j] = j < r ? __ldg(a.ye0 + p * r + j) : 0.0f;
+  }
+  __syncthreads();
+
+  // ---- t of the warm state ----
+  // A stage's rows are dealt to the tps lanes of its group (lane jl owns
+  // rows jl, jl + tps, …); the rounds over the stages are as many for
+  // every lane, so that the group sums reach every lane of a warp.
+  for (int k0 = 0; k0 < N; k0 += G) {
+    const int k = k0 + g;
+    const bool on = k < N;
+    float xk[BMAX], acc[BMAX], mm[BMAX], jr[BMAX], mr[BMAX];
+#pragma unroll
+    for (int c = 0; c < BMAX; ++c) acc[c] = mm[c] = 0.0f;
+    if (on) {
+      x_stage<BMAX>(xk, xb, KiU, corr, k, b, r);
+      if (jl == 0) {
+#pragma unroll
+        for (int c = 0; c < BMAX; ++c)
+          if (c < b) acc[c] = a.sigma * xk[c] - __ldg(qp + k * b + c);
+        add_ext<BMAX>(acc, Aext, rho_e, ze, ye, k, N, b, r);
+      }
+      for (int i = jl; i < m; i += tps) {
+        load_row<BMAX>(jr, J + i * BMAX);
+        load_row<BMAX>(mr, Mc + i * BMAX);
+        const float w =
+            __ldg(rho_t + i * N + k) * zs[i * N + k] - ysc[i * N + k];
+        row_transpose<BMAX, NB>(acc, mm, jr, mr, w, k, i, tie, blk, nb,
+                                a.blk0);
+      }
+    }
+    group_sum<BMAX>(acc, tps);
+    group_sum<BMAX>(mm, tps);
+    if (on && jl == 0) {
+#pragma unroll
+      for (int c = 0; c < BMAX; ++c) {
+        if (c < b) {
+          tb[k * b + c] = acc[c];
+          if (k >= 1) mb[(k - 1) * b + c] = mm[c];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  for (int it = 0; it < a.iters; ++it) {
+    const bool last = it == a.iters - 1;
+    float* cb = smem + lay.cb + (it & 1) * ncb;   // this iteration's buffer
+    // ---- x = K⁻¹t (warp 0), the Woodbury coefficient ----
+    if (warp == 0) {
+      block_sweep<BMAX, B0, true>(tb, mb, L, U, C, xb, N, b, lane);
+      if (r) {
+        __syncwarp();
+        float sv[kRMax];
+#pragma unroll
+        for (int j = 0; j < kRMax; ++j) sv[j] = 0.0f;
+        for (int e = lane; e < N * b; e += 32) {
+          const float xe = xb[e];
+#pragma unroll
+          for (int j = 0; j < kRMax; ++j)
+            if (j < r) sv[j] = fmaf(Aext[j * N * b + e], xe, sv[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < kRMax; ++j)
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            sv[j] += __shfl_xor_sync(kFull, sv[j], o);
+        if (lane < r) {
+          float cv = 0.0f;
+#pragma unroll
+          for (int j = 0; j < kRMax; ++j)
+            if (j < r) cv = fmaf(Cw[lane * r + j], sv[j], cv);
+          corr[lane] = cv;
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- the rows: zr, the z and y updates, and the new w into t ----
+    float pe[kRMax];
+#pragma unroll
+    for (int j = 0; j < kRMax; ++j) pe[j] = 0.0f;
+    for (int k0 = 0; k0 < N; k0 += G) {
+      const int k = k0 + g;
+      const bool on = k < N;
+      float xk[BMAX], xm[BMAX], acc[BMAX], mm[BMAX], jr[BMAX], mr[BMAX];
+#pragma unroll
+      for (int c = 0; c < BMAX; ++c) acc[c] = mm[c] = 0.0f;
+      if (on) {
+        x_stage<BMAX>(xk, xb, KiU, corr, k, b, r);
+        if (k >= 1) {
+          x_stage<BMAX>(xm, xb, KiU, corr, k - 1, b, r);
+        } else {
+#pragma unroll
+          for (int c = 0; c < BMAX; ++c) xm[c] = 0.0f;
+        }
+        if (jl == 0) {
+#pragma unroll
+          for (int j = 0; j < kRMax; ++j)
+            if (j < r)
+#pragma unroll
+              for (int c = 0; c < BMAX; ++c)
+                if (c < b)
+                  pe[j] = fmaf(Aext[(j * N + k) * b + c], xk[c], pe[j]);
+#pragma unroll
+          for (int c = 0; c < BMAX; ++c)
+            if (c < b) acc[c] = a.sigma * xk[c] - __ldg(qp + k * b + c);
+        }
+        for (int i = jl; i < m; i += tps) {
+          load_row<BMAX>(jr, J + i * BMAX);
+          load_row<BMAX>(mr, Mc + i * BMAX);
+          // J ξ_k and M_k ξ_{k−1} in two chains
+          float ax = 0.0f, am = 0.0f;
+#pragma unroll
+          for (int c = 0; c < NB; ++c) ax = fmaf(jr[c], xk[c], ax);
+          if (k >= 1) {
+#pragma unroll
+            for (int c = 0; c < NB; ++c) am = fmaf(mr[c], xm[c], am);
+            const int j = i - a.blk0;
+            if (j >= 0 && j < nb) {
+              const int cj = blk[j];
+              float xv = 0.0f;
+#pragma unroll
+              for (int c = 0; c < BMAX; ++c)
+                if (c == cj) xv = xm[c];
+              am = fmaf(-tie[k * nb + j], xv, am);
+            }
+          }
+          const int o = i * N + k;
+          const float z = zs[o], y = ysc[o], rho = __ldg(rho_t + o);
+          const float lo = ls[o], hi = us[o];
+          const float lin = __ldg(lin_t + o), quad = __ldg(quad_t + o);
+          const float zr = a.alpha * (ax + am) + (1.0f - a.alpha) * z;
+          const float sv = zr + y / rho;
+          // every row kind computed, one kept: no divergence in a group
+          // the penalty prox: min lin·t + quad·t² + ρ/2(z−s)², t = (z−u)₊
+          const float tt = (rho * (sv - hi) - lin) / (rho + 2.0f * quad);
+          const float zsoft = sv > hi ? hi + fmaxf(tt, 0.0f) : fmaxf(sv, lo);
+          const float zbox = fminf(fmaxf(sv, lo), hi);
+          const bool cons = i >= mc;   // the group mean waits for every
+                                       // scenario (phase below)
+          const float zn = (lin > 0.0f || quad > 0.0f) ? zsoft : zbox;
+          const float yn = y + rho * (zr - zn);
+          if (cons) cb[k * nc + (i - mc)] = sv;
+          if (last && !cons) a.dy[(p * N + k) * m + i] = yn - y;
+          zs[o] = cons ? zr : zn;
+          ysc[o] = cons ? y : yn;
+          row_transpose<BMAX, NB>(acc, mm, jr, mr,
+                                  cons ? 0.0f : rho * zn - yn, k, i, tie,
+                                  blk, nb, a.blk0);
+        }
+      }
+      group_sum<BMAX>(acc, tps);
+      group_sum<BMAX>(mm, tps);
+      if (on && jl == 0) {
+#pragma unroll
+        for (int c = 0; c < BMAX; ++c) {
+          if (c < b) {
+            tb[k * b + c] = acc[c];
+            if (k >= 1) mb[(k - 1) * b + c] = mm[c];
+          }
+        }
+      }
+    }
+    if (r) {
+#pragma unroll
+      for (int j = 0; j < kRMax; ++j)
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          pe[j] += __shfl_xor_sync(kFull, pe[j], o);
+      if (lane < r) {
+        float v = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kRMax; ++j)
+          if (j == lane) v = pe[j];
+        red[warp * kRMax + lane] = v;
+      }
+    }
+    if (a.mean) {
+      cg::this_cluster().sync();   // every scenario's zr + y/ρ is out
+    } else if (r) {
+      __syncthreads();
+    } else {
+      __syncthreads();
+      continue;                    // t is complete
+    }
+
+    // ---- the extra rows (every thread, the same sums) ----
+#pragma unroll
+    for (int j = 0; j < kRMax; ++j) {
+      if (j < r) {
+        float axe = 0.0f;
+        for (int w = 0; w < W; ++w) axe += red[w * kRMax + j];
+        const float zr = a.alpha * axe + (1.0f - a.alpha) * ze[j];
+        const float zn = fminf(zr + ye[j] / rho_e[j],
+                               __ldg(a.ext_u + p * r + j));
+        const float yn = ye[j] + rho_e[j] * (zr - zn);
+        if (last && tid == 0) a.dye[p * r + j] = yn - ye[j];
+        ze[j] = zn;
+        ye[j] = yn;
+      }
+    }
+    // ---- the group mean over the scenarios' buffers, and t completed ----
+    cg::cluster_group cl = cg::this_cluster();
+    for (int k0 = 0; k0 < N; k0 += G) {
+      const int k = k0 + g;
+      const bool on = k < N;
+      float acc[BMAX], jr[BMAX];
+#pragma unroll
+      for (int c = 0; c < BMAX; ++c) acc[c] = 0.0f;
+      if (on && a.mean) {
+        for (int i = mc + (jl + tps - mc % tps) % tps; i < m; i += tps) {
+          const int jc = i - mc;   // the consensus rows this lane owns
+          float zn = 0.0f;
+          for (int t = 0; t < S; ++t) {
+            const float* cbt =
+                t == s ? cb : cl.map_shared_rank(cb, (unsigned)t);
+            zn = fmaf(gM[t * N + k], cbt[k * nc + jc], zn);
+          }
+          const int o = i * N + k;
+          const float zr = zs[o], y = ysc[o], rho = __ldg(rho_t + o);
+          const float yn = y + rho * (zr - zn);
+          if (last) a.dy[(p * N + k) * m + i] = yn - y;
+          zs[o] = zn;
+          ysc[o] = yn;
+          // the consensus rows have no M part: Jᵀw alone
+          load_row<BMAX>(jr, J + i * BMAX);
+          const float w = rho * zn - yn;
+#pragma unroll
+          for (int c = 0; c < NB; ++c) acc[c] = fmaf(jr[c], w, acc[c]);
+        }
+      }
+      if (a.mean) group_sum<BMAX>(acc, tps);
+      if (on && jl == 0) {
+#pragma unroll
+        for (int c = 0; c < BMAX; ++c)
+          if (c < b) acc[c] += tb[k * b + c];
+        add_ext<BMAX>(acc, Aext, rho_e, ze, ye, k, N, b, r);
+#pragma unroll
+        for (int c = 0; c < BMAX; ++c)
+          if (c < b) tb[k * b + c] = acc[c];
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- out: x, z, y (and dy, dy_e when no iteration ran) ----
+  for (int k = g; k < N; k += G) {
+    if (jl == 0) {
+      float xk[BMAX];
+      x_stage<BMAX>(xk, xb, KiU, corr, k, b, r);
+#pragma unroll
+      for (int c = 0; c < BMAX; ++c)
+        if (c < b) a.x[(p * N + k) * b + c] = xk[c];
+    }
+    const size_t o = (p * N + k) * m;
+    for (int i = jl; i < m; i += tps) {
+      a.z[o + i] = zs[i * N + k];
+      a.y[o + i] = ysc[i * N + k];
+      if (a.iters == 0) a.dy[o + i] = 0.0f;
+    }
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int j = 0; j < kRMax; ++j) {
+      if (j < r) {
+        a.ze[p * r + j] = ze[j];
+        a.ye[p * r + j] = ye[j];
+        if (a.iters == 0) a.dye[p * r + j] = 0.0f;
+      }
+    }
+  }
+  // the peers may still read this CTA's consensus buffer
+  if (a.mean) cg::this_cluster().sync();
+}
+
+size_t admm_smem_bytes(int N, int b, int m, int S, int n_blk, int r,
+                       int n_cons, int mean, int warps, int staged,
+                       int bmax) {
+  return sizeof(float) * admm_layout(N, b, m, S, n_blk, r, n_cons, mean,
+                                     warps, staged, bmax).total;
+}
+
+// one CTA a problem, 32·warps threads in groups of tps a stage, clusters of
+// S CTAs with a group mean
+template <int BMAX, int B0, bool STAGED>
+int launch_admm(const PhcSwAdmmArgs& a, int warps, int tps,
+                cudaStream_t stream) {
+  auto kernel = sw_admm_kernel<BMAX, B0, STAGED>;
+  const size_t bytes = admm_smem_bytes(a.N, a.b, a.m, a.S, a.n_blk, a.n_ext,
+                                       a.n_cons, a.mean, warps, STAGED, BMAX);
+  if (bytes > 48 * 1024) {
+    const int rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (rc) return rc;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)a.P, 1, 1);
+  cfg.blockDim = dim3((unsigned)(32 * warps), 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)(a.mean ? a.S : 1);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int rc = (int)cudaLaunchKernelEx(&cfg, kernel, a, tps);
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+template <int BMAX>
+int launch_admm_b(const PhcSwAdmmArgs& a, int warps, int tps, int staged,
+                  cudaStream_t s) {
+  if (BMAX == 8 && a.b == 5)
+    return staged ? launch_admm<8, 5, true>(a, warps, tps, s)
+                  : launch_admm<8, 5, false>(a, warps, tps, s);
+  return staged ? launch_admm<BMAX, 0, true>(a, warps, tps, s)
+                : launch_admm<BMAX, 0, false>(a, warps, tps, s);
 }
 
 }  // namespace
@@ -258,6 +1035,35 @@ int phc_sw_solve_k(const float* r, const float* L, const float* U,
     case 32: return launch_b<32>(r, L, U, C, x, P, N, b, warps, staged, s);
     case 64: return launch_b<64>(r, L, U, C, x, P, N, b, warps, staged, s);
     case 128: return launch_b<128>(r, L, U, C, x, P, N, b, warps, staged, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// dynamic shared memory of one K5 CTA (admm_layout)
+int phc_sw_admm_smem_bytes(int N, int b, int m, int S, int n_blk, int n_ext,
+                           int n_cons, int mean, int warps, int staged,
+                           int bmax) {
+  return (int)admm_smem_bytes(N, b, m, S, n_blk, n_ext, n_cons, mean, warps,
+                              staged, bmax);
+}
+
+// K5: a->iters stagewise ADMM iterations for a->P problems in one launch,
+// one CTA of 32·warps threads a problem, a stage's rows over the tps lanes
+// of a group (a power of 2 up to 32), clusters of a->S CTAs with a group
+// mean; bmax = the compiled bound on b (8 or 16)
+int phc_sw_admm(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
+                int bmax, void* stream) {
+  if (a->P < 1 || a->N < 1 || a->b < 1 || a->b > bmax || a->m < 1 ||
+      a->S < 1 || a->S > 8 || a->P % a->S || a->n_ext < 0 ||
+      a->n_ext > kRMax || a->iters < 0 || warps < 1 ||
+      32 * warps > admm_max_threads(bmax) || tps < 1 || tps > 32 ||
+      (tps & (tps - 1)) ||
+      (a->mean && (a->n_cons < 1 || a->n_cons > a->m)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (bmax) {
+    case 8: return launch_admm_b<8>(*a, warps, tps, staged, s);
+    case 16: return launch_admm_b<16>(*a, warps, tps, staged, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -25,7 +25,8 @@ from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 # library name -> source; K1/K2 in admm.cu, K1's split-precision phase
-# (tensor cores) in admm_mixed.cu, K4 (the stagewise sweep) in stagewise.cu
+# (tensor cores) in admm_mixed.cu, K4 (the stagewise sweep) and K5 (the
+# stagewise ADMM loop) in stagewise.cu
 LIBRARIES = {"admm": PKG_DIR / "csrc" / "admm.cu",
              "admm_mixed": PKG_DIR / "csrc" / "admm_mixed.cu",
              "stagewise": PKG_DIR / "csrc" / "stagewise.cu"}
@@ -139,6 +140,13 @@ def _bind_stagewise(lib):
     # r L Uinv C | x, then P N b warps staged bmax stream
     lib.phc_sw_solve_k.argtypes = [P] * 5 + [I] * 6 + [P]
     lib.phc_sw_solve_k.restype = I
+    # N b m S n_blk n_ext n_cons mean warps staged bmax
+    lib.phc_sw_admm_smem_bytes.argtypes = [I] * 11
+    lib.phc_sw_admm_smem_bytes.restype = I
+    # struct PhcSwAdmmArgs (ops/cuda_stagewise.py mirrors it), warps,
+    # lanes a stage, staged, bmax, stream
+    lib.phc_sw_admm.argtypes = [P, I, I, I, I, P]
+    lib.phc_sw_admm.restype = I
 
 
 _BINDERS = {"admm": _bind_admm, "admm_mixed": _bind_admm_mixed,

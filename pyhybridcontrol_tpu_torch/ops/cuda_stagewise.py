@@ -1,25 +1,39 @@
-"""K4: the block-tridiagonal sweep K⁻¹r of the stagewise frame (CUDA C++,
-``csrc/stagewise.cu``), its plan and its wrapper.
+"""The stagewise frame's kernels (CUDA C++, ``csrc/stagewise.cu``): K4, the
+block-tridiagonal sweep K⁻¹r, and K5, the fused stagewise ADMM loop; their
+plans and their wrappers.
 
-No TPU kernel stands behind K4: the reference runs the sweep as two
-``lax.scan`` loops that XLA compiles into one device loop
-(``pyhybridcontrol_tpu/ops/stagewise.py::_solve_K``). Its plain version is
-``ops/stagewise.py::_solve_K``, a Python loop over the stages.
+No TPU kernel stands behind either. The reference runs the sweep as two
+``lax.scan`` loops (``pyhybridcontrol_tpu/ops/stagewise.py::_solve_K``) and
+the ADMM iterations as one ``jax.lax.fori_loop`` (``stagewise_admm_solve``,
+``:1011``) that XLA compiles into one device loop. K4's plain version is
+``ops/stagewise.py::_solve_K``, a Python loop over the stages; K5's is
+``ops/stagewise.py::_admm_iterations``, torch ops around the plain sweeps.
 
-``ops/stagewise._solve_K_bordered`` dispatches on the tensor's device and
-on nothing else: a CPU tensor runs the plain version, a CUDA tensor
-launches the kernel (``sw_solve_k_cuda``) or raises. r is (…, N, b) fp32,
-the factors (L, U⁻¹, C) are (N, b, b) fp32 on the same device, shared by
-every problem of the batch.
-Each launch counts once in ``cuda_admm.LAUNCHES["stagewise_k4"]`` (and its
-problem count P in ``LAUNCH_BATCHES``).
+``ops/stagewise.stagewise_admm_solve`` dispatches on the tensor's device
+and on nothing else: a CPU tensor runs the plain loop, a CUDA tensor
+launches K5 once (``sw_admm_cuda``) or raises. K4 keeps its standalone
+launch (``sw_solve_k_cuda``, r (…, N, b) fp32, the factors (L, U⁻¹, C)
+(N, b, b) fp32 on the same device, shared by every problem of the batch);
+no solve calls it any more, and K5 runs its sweep as a device routine.
+Each launch counts once in ``cuda_admm.LAUNCHES["stagewise_k4"]`` or
+``["stagewise_k5"]`` (and its problem count P in ``LAUNCH_BATCHES``).
 
-``plan_sweep`` picks the instantiation from the shapes alone: the compiled
+``plan_sweep`` picks K4's instantiation from the shapes alone: the compiled
 bound on the block size (8, 16, 32, 64 or 128, the smallest at or above b),
 whether a block stages the three factor arrays in shared memory beside its
 warps' r/y buffers, and the warps (problems) a block: 4, 2 or 1, the most
 that fit. b above 128, or a horizon whose r/y buffer does not fit one
 block, has no instantiation and raises.
+
+``plan_admm`` picks K5's from the shapes alone: the bound on b (8 or 16, as
+K4's ladder starts), the lanes a stage (the most, a power of 2 up to 32,
+that the CTA's 512 threads, 256 at 16, give every stage at once) and the
+warps a CTA, and staged factors where they fit its shared memory beside the
+scenario's z, y, l, u and buffers. A CTA holds one problem (a scenario); a
+group of S scenarios with a group mean (a tree node) is one cluster of S
+CTAs. b above 16, more than 4 extra rows, a group above the 8 CTAs of a
+portable cluster, or a scenario whose state does not fit a CTA's shared
+memory have no instantiation and raise.
 """
 
 from __future__ import annotations
@@ -28,6 +42,7 @@ import ctypes
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from pyhybridcontrol_tpu_torch.ops.cuda_admm import (
@@ -39,6 +54,10 @@ from pyhybridcontrol_tpu_torch.ops.cuda_admm import (
 
 SWEEP_WARPS = (4, 2, 1)          # problems (warps) a block, most first
 SWEEP_BMAX = (8, 16, 32, 64, 128)   # compiled bounds on the block size
+ADMM_BMAX = (8, 16)              # K5's compiled bounds on the block size
+ADMM_THREADS = {8: 512, 16: 256}   # the most threads a K5 CTA has
+ADMM_CLUSTER = 8                 # the most scenarios a group (a portable cluster)
+ADMM_RMAX = 4                    # extra rows K5 takes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,3 +150,221 @@ def sw_solve_k_cuda(r, factors, staged: Optional[bool] = None):
     _count_launch("stagewise_k4", P)
     return x.reshape(r.shape)
 
+
+
+@dataclasses.dataclass(frozen=True)
+class AdmmPlan:
+    """Instantiation of K5 for one call: the compiled bound on b, staged
+    factors, warps a CTA, lanes a stage (its rows dealt over them), CTAs a
+    cluster and dynamic shared memory a CTA (bytes)."""
+
+    bmax: int
+    staged: bool
+    warps: int
+    tps: int
+    cluster: int
+    smem: int
+
+
+def admm_smem_bytes(N: int, b: int, m: int, S: int, n_blk: int, n_ext: int,
+                    n_cons: int, mean: bool, warps: int, staged: bool,
+                    bmax: int) -> int:
+    """Shared memory of one K5 CTA (``phc_sw_admm_smem_bytes`` gives the
+    same): the factors if staged, J and Mc with rows of bmax words, the
+    blocking rows' ties and columns, Aext, KiU, Cw and ρₑ, the scenario's
+    row of group-mean weights, its z, y, l and u (m·N words each), t, its
+    M part and x (N·b words each), two consensus-row buffers with a group
+    mean, and 4·(1 + warps) words of Woodbury coefficient and sums; each
+    array padded to a multiple of 4 words."""
+    f = _pad4(N * b * b) if staged else 0
+    words = (3 * f + 2 * _pad4(m * bmax) + _pad4(N * n_blk) + _pad4(n_blk)
+             + 2 * _pad4(n_ext * N * b) + _pad4(n_ext * n_ext) + _pad4(n_ext)
+             + (_pad4(S * N) if mean else 0) + 4 * _pad4(m * N)
+             + 3 * _pad4(N * b) + (2 * _pad4(N * n_cons) if mean else 0)
+             + ADMM_RMAX * (1 + warps))
+    return 4 * words
+
+
+def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
+              n_ext: int = 0, n_cons: int = 0, mean: bool = False,
+              staged: Optional[bool] = None) -> AdmmPlan:
+    """The instantiation K5 runs P problems with: horizon N, block b, m rows
+    a stage, n_blk blocking rows and n_ext extra rows; with ``mean``, in
+    groups of S scenarios (a group mean over the trailing n_cons rows), a
+    cluster each. A stage's rows over ``tps`` lanes, the most (a power of
+    2 up to 32) with every stage in one round of the CTA's threads, staged
+    factors where they fit. ``staged`` forces one variant: no path sets
+    it, ``chip_smoke.py`` holds the unstaged one with it at shapes whose
+    factors fit (as it does K4's). Raises ValueError, with the shape,
+    where nothing fits: there is no other path."""
+    shape = (f"P={P}, N={N}, b={b}, m={m}, S={S}, n_blk={n_blk}, "
+             f"n_ext={n_ext}, n_cons={n_cons}")
+    what = f"K5 (stagewise ADMM) at {shape}"
+    if min(P, N, b, m, S) < 1:
+        raise ValueError(f"{what}: empty shape")
+    bmax = next((v for v in ADMM_BMAX if b <= v), None)
+    if bmax is None:
+        raise ValueError(f"{what}: block size b={b} above the "
+                         f"{ADMM_BMAX[-1]} the kernel is built for")
+    if n_ext > ADMM_RMAX:
+        raise ValueError(f"{what}: {n_ext} extra rows, above the "
+                         f"{ADMM_RMAX} the kernel takes")
+    if mean and not 1 <= n_cons <= m:
+        raise ValueError(f"{what}: a group mean needs 1 to m consensus rows")
+    if not mean and S != 1:
+        raise ValueError(f"{what}: groups of scenarios come with a group "
+                         f"mean")
+    if P % S:
+        raise ValueError(f"{what}: P is no multiple of the group of S")
+    if S > ADMM_CLUSTER:
+        raise ValueError(f"{what}: a group of S={S} scenarios is a cluster "
+                         f"of {S} CTAs, above the {ADMM_CLUSTER} of a "
+                         f"portable cluster")
+    most = ADMM_THREADS[bmax]
+    tps = 32
+    while tps > 1 and N * tps > most:
+        tps //= 2
+    warps = min(most, -(-N * tps // 32) * 32) // 32
+    for st in ((True, False) if staged is None else (bool(staged),)):
+        smem = admm_smem_bytes(N, b, m, S, n_blk, n_ext, n_cons, mean, warps,
+                               st, bmax)
+        if smem <= SMEM_MAX:
+            return AdmmPlan(bmax=bmax, staged=st, warps=warps, tps=tps,
+                            cluster=S, smem=smem)
+    raise ValueError(f"{what}: needs {smem} bytes of shared memory a CTA, "
+                     f"above the {SMEM_MAX} an sm_90 CTA has")
+
+
+def admm_constants(sw) -> dict:
+    """K5's constants of the prep ``sw`` (``ops/stagewise.StagewiseQP``), in
+    the kernel's layout, on the prep's device (built once, cached on the
+    prep): J (m, b), and Mc (m, b), the stage rows' block on ξ_{k−1} for
+    k ≥ 1 without the blocking rows (the dynamics' −A and the inequalities'
+    E on x_k), whose −tie[k, j] on column blk[j] the kernel adds (tie
+    (N, n_blk), blk (n_blk,) int32, blk0 their first row); rows (3, m, N):
+    ρ, the soft rows' linear and quadratic penalties, by row then stage;
+    and with extra rows Aext (n_ext, N, b), KiU (N, b, n_ext), Cw and ρₑ."""
+    key = ("k5", sw.device)
+    got = sw.cache.get(key)
+    if got is not None:
+        return got
+    nx, nc, nv, b, m = sw.nx, sw.nc, sw.nv, sw.b, sw.m_k
+    opts = dict(dtype=torch.float32, device=sw.device)
+    J = torch.zeros((m, b), **opts)
+    J[:nx, :nv] = -sw.Bv
+    J[:nx, nv:] = torch.eye(nx, **opts)
+    J[nx:nx + nc, :nv] = sw.Fv
+    i0 = nx + nc + b
+    J[nx + nc:i0] = torch.eye(b, **opts)
+    for j, cj in enumerate(sw.blk_cols):
+        J[i0 + j, cj] = 1.0
+    i1 = i0 + sw.n_blk
+    J[i1:i1 + sw.n_term, nv:] = sw.Et
+    J[i1 + sw.n_term:, :sw.n_cons] = torch.eye(sw.n_cons, **opts)
+    Mc = torch.zeros((m, b), **opts)
+    Mc[:nx, nv:] = -sw.A_dyn
+    Mc[nx:nx + nc, nv:] = sw.E
+    c = dict(J=J, Mc=Mc, blk0=i0,
+             tie=sw.tie.float().contiguous() if sw.n_blk else None,
+             blk=(torch.tensor(sw.blk_cols, dtype=torch.int32,
+                               device=sw.device) if sw.n_blk else None),
+             rows=torch.stack([sw.rho_rows.T, sw.soft_lin.T,
+                               sw.soft_quad.T]).float().contiguous())
+    if sw.n_ext:
+        c.update(Aext=sw.Aext.float().contiguous(),
+                 KiU=sw.KiU.float().contiguous(),
+                 Cw=sw.Cw.float().contiguous(),
+                 rho_ext=sw.rho_ext.float().contiguous())
+    sw.cache[key] = c
+    return c
+
+
+class _AdmmArgs(ctypes.Structure):
+    """``struct PhcSwAdmmArgs`` of csrc/stagewise.cu, field by field."""
+
+    _fields_ = (
+        [(k, ctypes.c_void_p) for k in (
+            "q", "l", "u", "x0", "z0", "y0", "ze0", "ye0", "ext_u", "L",
+            "U", "C", "J", "Mc", "tie", "blk", "rows", "Aext", "KiU", "Cw",
+            "rho_e", "gM", "x", "z", "y", "dy", "ze", "ye", "dye")]
+        + [(k, ctypes.c_int) for k in (
+            "P", "N", "b", "m", "S", "n_blk", "blk0", "n_ext", "n_cons",
+            "mean", "iters")]
+        + [(k, ctypes.c_float) for k in ("sigma", "alpha")])
+
+
+def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
+                 consensus_M=None, staged: Optional[bool] = None):
+    """K5 on the card: ``iters`` stagewise ADMM iterations of the prep
+    ``sw`` in one launch, from the warm carries. x and q (…, N, b), z, y,
+    l and u (…, N, m_k) with one batch (z already inside [l, u]); with
+    extra rows z_e, y_e and ext_u (…, n_ext); ``consensus_M`` (S, S, N)
+    the group mean over the last batch axis (S scenarios); ``staged``
+    forces one variant (``plan_admm``). Returns (x, z, y, dy, z_e, y_e,
+    dy_e) as ``ops/stagewise._admm_iterations`` does. Checks, allocates
+    the outputs and launches once."""
+    from pyhybridcontrol_tpu_torch.ops._build import load_library
+
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"K5: expected a CUDA tensor, got {dev}")
+    N, b, m, r = sw.N, sw.b, sw.m_k, sw.n_ext
+    batch = tuple(torch.broadcast_shapes(*(t.shape[:-2]
+                                           for t in (q, l, u, x, z, y))))
+    mean = consensus_M is not None and sw.n_cons > 0
+    S = consensus_M.shape[0] if mean else 1
+    if mean and batch[-1:] != (S,):
+        raise ValueError(f"K5: the group mean runs over S={S} scenarios, "
+                         f"the batch is {batch}")
+    P = int(np.prod(batch)) if batch else 1
+
+    def flat(name, t, tail):
+        t = t.expand(batch + tail).reshape((P,) + tail)
+        t = t.to(torch.float32).contiguous()
+        _check(name, t, (P,) + tail, dev)
+        return t
+
+    q, x0 = flat("q", q, (N, b)), flat("x", x, (N, b))
+    l, u, z0, y0 = (flat(k, t, (N, m)) for k, t in
+                    (("l", l), ("u", u), ("z", z), ("y", y)))
+    c = admm_constants(sw)
+    for name, f in zip(("L", "Uinv", "C"), sw.factors):
+        _check(name, f, (N, b, b), dev)
+    pl = plan_admm(P, N, b, m, S, sw.n_blk, r, sw.n_cons, mean, staged)
+    out = [torch.empty((P, N, b), dtype=torch.float32, device=dev)]
+    out += [torch.empty((P, N, m), dtype=torch.float32, device=dev)
+            for _ in range(3)]
+    ext = dict(ze0=None, ye0=None, ext_u=None, ze=None, ye=None, dye=None)
+    if r:
+        ext.update(ze0=flat("z_e", z_e, (r,)), ye0=flat("y_e", y_e, (r,)),
+                   ext_u=flat("ext_u", ext_u, (r,)))
+        ext.update({k: torch.empty((P, r), dtype=torch.float32, device=dev)
+                    for k in ("ze", "ye", "dye")})
+    gM = consensus_M.float().contiguous() if mean else None
+    if mean:
+        _check("consensus_M", gM, (S, S, N), dev)
+    ptrs = dict(q=q, l=l, u=u, x0=x0, z0=z0, y0=y0, L=sw.L, U=sw.Uinv,
+                C=sw.C, J=c["J"], Mc=c["Mc"], tie=c["tie"], blk=c["blk"],
+                rows=c["rows"], Aext=c.get("Aext"), KiU=c.get("KiU"),
+                Cw=c.get("Cw"), rho_e=c.get("rho_ext"), gM=gM, x=out[0],
+                z=out[1], y=out[2], dy=out[3], **ext)
+    args = _AdmmArgs(**{k: _ptr(v).value for k, v in ptrs.items()},
+                     P=P, N=N, b=b, m=m, S=S, n_blk=sw.n_blk,
+                     blk0=c["blk0"], n_ext=r, n_cons=sw.n_cons,
+                     mean=int(mean), iters=int(iters), sigma=sw.sigma,
+                     alpha=sw.alpha)
+    lib = load_library("stagewise")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.phc_sw_admm(ctypes.addressof(args), pl.warps, pl.tps,
+                             int(pl.staged), pl.bmax,
+                             ctypes.c_void_p(stream))
+    _raise_on(lib, rc, "K5 (stagewise ADMM)")
+    _count_launch("stagewise_k5", P)
+    shapes = ((N, b), (N, m), (N, m), (N, m))
+    res = [t.reshape(batch + sh) for t, sh in zip(out, shapes)]
+    if r:
+        res += [ext[k].reshape(batch + (r,)) for k in ("ze", "ye", "dye")]
+    else:
+        res += [None, None, None]
+    return tuple(res)

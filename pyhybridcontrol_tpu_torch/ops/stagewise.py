@@ -4,8 +4,9 @@ Counterpart of ``pyhybridcontrol_tpu/ops/stagewise.py``. The host half
 (``prepare_stagewise``: stage blocks, the fp64 block LU of K, soft, blocking,
 terminal and consensus rows, the bordered Woodbury factors of horizon-coupled
 rows) is the reference's numpy float64 code; the device half is plain torch
-on fp32 data, with one kernel: the block-tridiagonal sweep K⁻¹r (K4,
-``ops/cuda_stagewise.py``, ``csrc/stagewise.cu``).
+on fp32 data around one kernel on the card: K5, the whole fixed-iteration
+ADMM loop in one launch (``ops/cuda_stagewise.py``, ``csrc/stagewise.cu``),
+which runs the block-tridiagonal sweep K⁻¹r of K4 as its inner routine.
 
 Formulation. Stage variables ξ_k = [v_k; x_{k+1}], k = 0…N−1 (block size
 b = nv + nx; states are not eliminated). OSQP-form rows per stage:
@@ -39,13 +40,16 @@ Cw = (diag(1/ρₑ) + Aext K⁻¹ Aextᵀ)⁻¹ prefactored on the host.
 
 Port decisions:
 - ``_solve_K`` is a Python loop over the stages: the plain version of K4.
-  The x-update (``_solve_K_bordered``) dispatches its sweep on the
-  tensor's device: a CUDA tensor launches K4
-  (``cuda_stagewise.sw_solve_k_cuda``) or raises, a CPU tensor runs
-  ``_solve_K``; the ADMM iteration and everything around the sweep stay
-  in torch.
+  ``_admm_iterations`` is the ADMM loop in torch around a sweep the caller
+  names (``_solve_K`` or ``_solve_K_assoc``): the plain version of K5.
+  ``stagewise_admm_solve`` dispatches the loop on the tensor's device: a
+  CUDA tensor launches K5 once (``cuda_stagewise.sw_admm_cuda``) or
+  raises, a CPU tensor runs ``_admm_iterations`` with ``_solve_K``; the
+  set-up before the loop and the residuals, objective and certificate
+  after it stay in torch.
 - ``_solve_K_assoc`` (``parallel_sweeps=True``) is a log-depth prefix over
-  affine maps in torch: another algorithm the caller picks, not a fallback.
+  affine maps in torch: another algorithm the caller picks, not a
+  fallback, so it runs the plain loop on either device.
 - The objective, the infeasibility certificate's support and gap sums and
   the dual bound's sums accumulate in float64, as in ops/admm.py.
 """
@@ -62,7 +66,7 @@ import torch.nn.functional as F
 from pyhybridcontrol_tpu_torch.mld.model import MldModel
 from pyhybridcontrol_tpu_torch.ops.admm import AdmmResult, _implied_box
 from pyhybridcontrol_tpu_torch.ops.condense import MpcWeights, _sq, _vec
-from pyhybridcontrol_tpu_torch.ops.cuda_stagewise import sw_solve_k_cuda
+from pyhybridcontrol_tpu_torch.ops.cuda_stagewise import sw_admm_cuda
 from pyhybridcontrol_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 BIG = 1e30
@@ -589,20 +593,12 @@ def _solve_K_assoc(sw: StagewiseQP, r, factors=None):
     return torch.movedim(xs, 0, -2)
 
 
-def _solve_K_bordered(sw: StagewiseQP, t, parallel_sweeps: bool = False):
+def _solve_K_bordered(sw: StagewiseQP, t, sweep):
     """(K + Aextᵀ diag(ρₑ) Aext)⁻¹ t, the x-update solve: Woodbury on top
     of the sweeps, x = K⁻¹t − KiU·(Cw·(Aext·K⁻¹t)), with the prepared
-    fp64 factors KiU and Cw. Assumes the prepared K. The sweeps: the
-    log-depth ones if asked, else K4 on a CUDA tensor and the plain ones on
-    a CPU tensor."""
-    if parallel_sweeps:
-        base = _solve_K_assoc(sw, t)
-    elif t.device.type == "cpu":
-        base = _solve_K(sw, t)
-    elif t.device.type == "cuda":
-        base = sw_solve_k_cuda(t, sw.factors)
-    else:
-        raise ValueError(f"no stagewise sweep for device {t.device}")
+    fp64 factors KiU and Cw. Assumes the prepared K. ``sweep(sw, t)`` is
+    K⁻¹t: ``_solve_K`` or ``_solve_K_assoc``."""
+    base = sweep(sw, t)
     if not sw.n_ext:
         return base
     s = torch.einsum("rkb,...kb->...r", sw.Aext, base)
@@ -817,73 +813,48 @@ def _with_box(sw: StagewiseQP, l, u, lb_xi, ub_xi):
     return l, u
 
 
-def stagewise_admm_solve(sw: StagewiseQP, q, l, u, iters: int = 200,
-                         lb_xi=None, ub_xi=None, warm=None,
-                         parallel_sweeps: bool = False,
-                         consensus_z=None, ext_u=None,
-                         warm_ext=None) -> AdmmResult:
-    """Fixed-iteration ADMM in the stagewise frame. q (…, N, b), l/u
-    (…, N, m_k) from ``assemble_stagewise``; optional node boxes
-    lb_xi/ub_xi (…, N, b) override the box-row bounds (B&B); ``warm``:
-    (x, z, y) of a prior result in this frame. ``parallel_sweeps``: solve
-    Kξ = t by ``_solve_K_assoc`` instead of the sweeps. ``consensus_z``:
-    optional callable replacing the z-update on the trailing ``n_cons``
-    rows (the scenario group mean; their residual then measures |Ax − z|
-    and their dy leaves the certificate). ``ext_u`` (…, r): required with
-    extra rows (``assemble_stagewise_ext``); their z/y come back in
-    ``res.z_ext``/``res.y_ext``; ``warm_ext``: (z_ext, y_ext) of a prior
-    result."""
-    if lb_xi is not None:
-        l, u = _with_box(sw, l, u, lb_xi, ub_xi)
+def _admm_iterations(sw: StagewiseQP, q, l, u, x, z, y, z_e, y_e, ext_u,
+                     iters: int, consensus_M=None, sweep=None):
+    """``iters`` stagewise ADMM iterations in torch from the carries (x, z,
+    y) and, with extra rows, (z_e, y_e): the plain version of K5 (the
+    reference's ``fori_loop`` body). z starts inside [l, u]; q, l, u, ext_u
+    broadcast to the carries' batch. ``sweep(sw, t)`` is K⁻¹t (``_solve_K``,
+    the default, or ``_solve_K_assoc``). ``consensus_M`` (S, S, N): the
+    z-update of the trailing ``n_cons`` rows is the p-weighted group mean
+    over the scenario axis (dim −3 of the (…, S, N, n_cons) block). Returns
+    (x, z, y, dy, z_e, y_e, dy_e): dy and dy_e the last iteration's dual
+    steps (zeros after no iteration); the extra rows' three are None
+    without extra rows."""
+    sweep = _solve_K if sweep is None else sweep
     rho = sw.rho_rows
     alpha, sigma = sw.alpha, sw.sigma
     soft = (sw.soft_lin > 0) | (sw.soft_quad > 0)     # (N, m_k)
-    any_soft = sw.has_soft
-    batch = torch.broadcast_shapes(q.shape[:-2], l.shape[:-2])
-    if warm is None:
-        x = q.new_zeros(batch + (sw.N, sw.b))
-        z = torch.clamp(q.new_zeros(batch + (sw.N, sw.m_k)), l, u)
-        y = q.new_zeros(batch + (sw.N, sw.m_k))
-    else:
-        x, z, y = warm
-        z = torch.clamp(z, l, u)
-
-    r_ext = sw.n_ext
-    if r_ext:
-        if ext_u is None:
-            raise ValueError("sw has n_ext extra rows: pass ext_u from "
-                             "assemble_stagewise_ext")
-        rho_e = sw.rho_ext
-        if warm_ext is None:
-            z_e = torch.clamp_max(q.new_zeros(batch + (r_ext,)), ext_u)
-            y_e = torch.zeros_like(z_e)
-        else:
-            z_e, y_e = warm_ext
-            z_e = torch.minimum(z_e, ext_u)
     mc = sw.m_k - sw.n_cons                           # consensus rows
+    r_ext = sw.n_ext
+    rho_e = sw.rho_ext
 
     def z_update(s):
         """Box projection on hard rows; the exact penalty prox on soft rows
         (upper side: min lin·t + quad·t² + ρ/2(z−s)², t = (z−u)₊); the
         group mean on the trailing n_cons rows."""
         z_new = torch.clamp(s, l, u)
-        if any_soft:
+        if sw.has_soft:
             t = (rho * (s - u) - sw.soft_lin) / (rho + 2.0 * sw.soft_quad)
             z_soft = torch.where(s > u, u + t.clamp_min(0.0),
                                  torch.maximum(s, l))
             z_new = torch.where(soft, z_soft, z_new)
-        if consensus_z is not None and sw.n_cons:
-            z_new = torch.cat([z_new[..., :mc], consensus_z(s[..., mc:])],
-                              dim=-1)
+        if consensus_M is not None and sw.n_cons:
+            z_new = torch.cat([z_new[..., :mc], torch.einsum(
+                "stk,...tkj->...skj", consensus_M, s[..., mc:])], dim=-1)
         return z_new
 
     dy = torch.zeros_like(y)
-    dy_e = None
+    dy_e = torch.zeros_like(y_e) if r_ext else None
     for it in range(iters):
         t = sigma * x - q + _apply_AT(sw, rho * z - y)
         if r_ext:
             t = t + torch.einsum("rkb,...r->...kb", sw.Aext, rho_e * z_e - y_e)
-        x = _solve_K_bordered(sw, t, parallel_sweeps)
+        x = _solve_K_bordered(sw, t, sweep)
         zr = alpha * _apply_A(sw, x) + (1.0 - alpha) * z
         z = z_update(zr + y / rho)
         y_new = y + rho * (zr - z)
@@ -898,8 +869,112 @@ def stagewise_admm_solve(sw: StagewiseQP, q, l, u, iters: int = 200,
             if it == iters - 1:
                 dy_e = y_e_new - y_e
             y_e = y_e_new
-    if r_ext and dy_e is None:
-        dy_e = torch.zeros_like(y_e)
+    return x, z, y, dy, z_e, y_e, dy_e
+
+
+def _certificate(sw: StagewiseQP, dy, dy_e, l, u, ext_u):
+    """The primal-infeasibility certificate (ops/admm.py) of the last dual
+    steps dy (…, N, m_k) and, with extra rows, dy_e (…, r): (cert, ratios),
+    ratios (…, 3) the three quantities it tests over ‖δy‖∞ — ‖Aᵀδy‖∞ and
+    the support sum (each at most 1e-4 for a certificate) and minus the gap
+    sum (at least 1e-4). Soft rows can never witness infeasibility, nor can
+    the consensus rows (cross-scenario infeasibility is not certified), so
+    their dy is masked out."""
+    if sw.has_soft:
+        dy = torch.where((sw.soft_lin > 0) | (sw.soft_quad > 0), 0.0, dy)
+    if sw.n_cons:
+        mc = sw.m_k - sw.n_cons
+        dy = torch.cat([dy[..., :mc], torch.zeros_like(dy[..., mc:])],
+                       dim=-1)
+    dy_norm = dy.abs().amax(dim=(-2, -1)).double()
+    Atdy_full = _apply_AT(sw, dy)
+    if sw.n_ext:
+        Atdy_full = Atdy_full + torch.einsum("rkb,...r->...kb", sw.Aext,
+                                             dy_e)
+    Atdy = Atdy_full.abs().amax(dim=(-2, -1)).double()
+    fin_u = u < 0.9 * BIG
+    fin_l = l > -0.9 * BIG
+    dyp = dy.clamp_min(0.0).double()
+    dyn_ = dy.clamp_max(0.0).double()
+    support = (torch.where(~fin_u, dyp, 0.0).sum(dim=(-2, -1))
+               + torch.where(~fin_l, -dyn_, 0.0).sum(dim=(-2, -1)))
+    gap_term = (torch.where(fin_u, u.double() * dyp, 0.0).sum(dim=(-2, -1))
+                + torch.where(fin_l, l.double() * dyn_, 0.0).sum(dim=(-2, -1)))
+    if sw.n_ext:
+        # extra rows are one-sided: a negative dy_e witnesses the unbounded
+        # lower side; a positive one adds u_e (finite) to the gap term
+        dy_norm = torch.maximum(dy_norm, dy_e.abs().amax(dim=-1).double())
+        dyp_e = dy_e.clamp_min(0.0).double()
+        fin_ue = ext_u < 0.9 * BIG
+        support = (support + (-dy_e.clamp_max(0.0).double()).sum(-1)
+                   + torch.where(~fin_ue, dyp_e, 0.0).sum(-1))
+        gap_term = gap_term + torch.where(
+            fin_ue, ext_u.double() * dyp_e, 0.0).sum(-1)
+    eps_c = 1e-4
+    cert = ((dy_norm > 1e-12) & (Atdy <= eps_c * dy_norm)
+            & (support <= eps_c * dy_norm)
+            & (gap_term <= -eps_c * dy_norm))
+    dn = dy_norm.clamp_min(1e-300)
+    return cert, torch.stack([Atdy / dn, support / dn, -gap_term / dn], -1)
+
+
+def stagewise_admm_solve(sw: StagewiseQP, q, l, u, iters: int = 200,
+                         lb_xi=None, ub_xi=None, warm=None,
+                         parallel_sweeps: bool = False,
+                         consensus_M=None, ext_u=None,
+                         warm_ext=None) -> AdmmResult:
+    """Fixed-iteration ADMM in the stagewise frame. q (…, N, b), l/u
+    (…, N, m_k) from ``assemble_stagewise``; optional node boxes
+    lb_xi/ub_xi (…, N, b) override the box-row bounds (B&B); ``warm``:
+    (x, z, y) of a prior result in this frame. The iterations run as one
+    launch of K5 on a CUDA tensor and as ``_admm_iterations`` (torch, the
+    plain sweeps) on a CPU tensor; another device raises.
+    ``parallel_sweeps``: solve Kξ = t by ``_solve_K_assoc`` instead of the
+    sweeps, an algorithm of its own that runs the torch loop on either
+    device. ``consensus_M`` (S, S, N): the p-weighted group-mean weights
+    (``StagewiseTreeQP.M``) that replace the z-update on the trailing
+    ``n_cons`` rows over the scenario axis, dim −3 (their residual then
+    measures |Ax − z| and their dy leaves the certificate). ``ext_u``
+    (…, r): required with extra rows (``assemble_stagewise_ext``); their
+    z/y come back in ``res.z_ext``/``res.y_ext``; ``warm_ext``: (z_ext,
+    y_ext) of a prior result."""
+    if lb_xi is not None:
+        l, u = _with_box(sw, l, u, lb_xi, ub_xi)
+    soft = (sw.soft_lin > 0) | (sw.soft_quad > 0)     # (N, m_k)
+    any_soft = sw.has_soft
+    batch = torch.broadcast_shapes(q.shape[:-2], l.shape[:-2])
+    if warm is None:
+        x = q.new_zeros(batch + (sw.N, sw.b))
+        z = torch.clamp(q.new_zeros(batch + (sw.N, sw.m_k)), l, u)
+        y = q.new_zeros(batch + (sw.N, sw.m_k))
+    else:
+        x, z, y = warm
+        z = torch.clamp(z, l, u)
+
+    r_ext = sw.n_ext
+    z_e = y_e = None
+    if r_ext:
+        if ext_u is None:
+            raise ValueError("sw has n_ext extra rows: pass ext_u from "
+                             "assemble_stagewise_ext")
+        if warm_ext is None:
+            z_e = torch.clamp_max(q.new_zeros(batch + (r_ext,)), ext_u)
+            y_e = torch.zeros_like(z_e)
+        else:
+            z_e, y_e = warm_ext
+            z_e = torch.minimum(z_e, ext_u)
+    mc = sw.m_k - sw.n_cons                           # consensus rows
+
+    carries = (sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters, consensus_M)
+    if parallel_sweeps:
+        out = _admm_iterations(*carries, sweep=_solve_K_assoc)
+    elif q.device.type == "cpu":
+        out = _admm_iterations(*carries, sweep=_solve_K)
+    elif q.device.type == "cuda":
+        out = sw_admm_cuda(*carries)
+    else:
+        raise ValueError(f"no stagewise ADMM for device {q.device}")
+    x, z, y, dy, z_e, y_e, dy_e = out
 
     Ax = _apply_A(sw, x)
     # hard rows: distance to the box; soft rows: the split gap |Ax − z|
@@ -907,7 +982,7 @@ def stagewise_admm_solve(sw: StagewiseQP, q, l, u, iters: int = 200,
     viol = torch.abs(Ax - torch.clamp(Ax, l, u))
     if any_soft:
         viol = torch.where(soft, torch.abs(Ax - z), viol)
-    if consensus_z is not None and sw.n_cons:
+    if consensus_M is not None and sw.n_cons:
         # consensus rows: the non-anticipativity residual (z = group mean)
         viol = torch.cat([viol[..., :mc], torch.abs(Ax - z)[..., mc:]],
                          dim=-1)
@@ -928,42 +1003,7 @@ def stagewise_admm_solve(sw: StagewiseQP, q, l, u, iters: int = 200,
         sviol = torch.where(soft, torch.clamp_min(Ax - u, 0.0), 0.0)
         obj = obj + _dsum(sw.soft_lin * sviol + sw.soft_quad * sviol * sviol)
     obj = obj.float()
-    # primal-infeasibility certificate (ops/admm.py): soft rows can never
-    # witness infeasibility, nor can the consensus rows (cross-scenario
-    # infeasibility is not certified), so their dy is masked out
-    if any_soft:
-        dy = torch.where(soft, 0.0, dy)
-    if sw.n_cons:
-        dy = torch.cat([dy[..., :mc], torch.zeros_like(dy[..., mc:])],
-                       dim=-1)
-    dy_norm = dy.abs().amax(dim=(-2, -1)).double()
-    Atdy_full = _apply_AT(sw, dy)
-    if r_ext:
-        Atdy_full = Atdy_full + torch.einsum("rkb,...r->...kb", sw.Aext,
-                                             dy_e)
-    Atdy = Atdy_full.abs().amax(dim=(-2, -1)).double()
-    fin_u = u < 0.9 * BIG
-    fin_l = l > -0.9 * BIG
-    dyp = dy.clamp_min(0.0).double()
-    dyn_ = dy.clamp_max(0.0).double()
-    support = (torch.where(~fin_u, dyp, 0.0).sum(dim=(-2, -1))
-               + torch.where(~fin_l, -dyn_, 0.0).sum(dim=(-2, -1)))
-    gap_term = (torch.where(fin_u, u.double() * dyp, 0.0).sum(dim=(-2, -1))
-                + torch.where(fin_l, l.double() * dyn_, 0.0).sum(dim=(-2, -1)))
-    if r_ext:
-        # extra rows are one-sided: a negative dy_e witnesses the unbounded
-        # lower side; a positive one adds u_e (finite) to the gap term
-        dy_norm = torch.maximum(dy_norm, dy_e.abs().amax(dim=-1).double())
-        dyp_e = dy_e.clamp_min(0.0).double()
-        fin_ue = ext_u < 0.9 * BIG
-        support = (support + (-dy_e.clamp_max(0.0).double()).sum(-1)
-                   + torch.where(~fin_ue, dyp_e, 0.0).sum(-1))
-        gap_term = gap_term + torch.where(
-            fin_ue, ext_u.double() * dyp_e, 0.0).sum(-1)
-    eps_c = 1e-4
-    cert = ((dy_norm > 1e-12) & (Atdy <= eps_c * dy_norm)
-            & (support <= eps_c * dy_norm)
-            & (gap_term <= -eps_c * dy_norm))
+    cert = _certificate(sw, dy, dy_e, l, u, ext_u)[0]
     return AdmmResult(x=x, obj=obj, r_prim=r_prim, r_prim_rel=r_rel,
                       r_dual=r_dual, infeas_cert=cert, y=y, z=z,
                       z_ext=(z_e if r_ext else None),

@@ -14,9 +14,11 @@ consensus splitting with the stagewise block-tridiagonal frame
     ops/consensus_tree.py: in scaled duals every scenario runs the standard
     iteration and only the consensus prox sees p);
   - non-anticipativity is ``n_cons = nu + nδ`` consensus selector rows per
-    stage, stage-local, so K and its sweeps (K4 on the card) are untouched;
-    their z-update is the p-weighted group mean over the scenarios that
-    share the stage-k information set;
+    stage, stage-local, so K and its sweeps are untouched; their z-update
+    is the p-weighted group mean over the scenarios that share the stage-k
+    information set, with the weights ``M`` handed to
+    ``stagewise_admm_solve`` as a tensor (on the card K5 runs a node's
+    scenarios in one block and takes the mean between two barriers);
   - B&B branches on information-set representative coordinates, and the
     backend expands their bounds to every member scenario (one gather
     through ``rep_map``).
@@ -167,16 +169,6 @@ def assemble_stagewise_tree_ext(swt: StagewiseTreeQP, x0):
                         for W in swt.omega])
 
 
-def _group_mean(swt: StagewiseTreeQP):
-    """Consensus prox for ``stagewise_admm_solve``: the p-weighted group
-    mean over the scenario axis (dim −3 of the (…, S, N, n_cons) block)."""
-
-    def consensus_z(s_cons):
-        return torch.einsum("stk,...tkj->...skj", swt.M, s_cons)
-
-    return consensus_z
-
-
 def stagewise_tree_admm_solve(swt: StagewiseTreeQP, q, l, u,
                               iters: int = 200, lb_xi=None, ub_xi=None,
                               warm=None, parallel_sweeps: bool = False,
@@ -191,7 +183,7 @@ def stagewise_tree_admm_solve(swt: StagewiseTreeQP, q, l, u,
     res = stagewise_admm_solve(
         swt.sw, q, l, u, iters=iters, lb_xi=lb_xi, ub_xi=ub_xi,
         warm=warm, parallel_sweeps=parallel_sweeps,
-        consensus_z=_group_mean(swt), ext_u=ext_u, warm_ext=warm_ext)
+        consensus_M=swt.M, ext_u=ext_u, warm_ext=warm_ext)
     return dataclasses.replace(
         res,
         obj=(swt.probs.double() * res.obj.double()).sum(-1).float(),

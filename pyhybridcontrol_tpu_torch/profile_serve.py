@@ -87,7 +87,7 @@ def _busy_us(events) -> float:
 
 
 def profile_request(run) -> dict:
-    """``run()`` once under torch.profiler: device operations, K1/K2/K4
+    """``run()`` once under torch.profiler: device operations, K1/K2/K4/K5
     launches and device time, device busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -99,7 +99,7 @@ def profile_request(run) -> dict:
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     out = {"device_ops": len(dev), "device_busy_ms": _busy_us(dev) / 1e3}
     for k, name in (("k1", "admm_k1"), ("k2", "admm_k2"),
-                    ("k4", "sw_solve_k")):
+                    ("k4", "sw_solve_k"), ("k5", "sw_admm")):
         ev = [e for e in dev if name in e.name]
         out[f"{k}_launches"] = len(ev)
         out[f"{k}_device_ms"] = sum(e.time_range.elapsed_us()

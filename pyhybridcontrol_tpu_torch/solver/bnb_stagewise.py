@@ -2,8 +2,9 @@
 
 Counterpart of ``pyhybridcontrol_tpu/solver/bnb_stagewise.py``: the wave
 loop of solver/bnb.py through the backend protocol, with node relaxations
-solved by the block-tridiagonal stagewise ADMM (ops/stagewise.py, whose
-sweep is K4 on the card) instead of the condensed kernels. Memory and work
+solved by the block-tridiagonal stagewise ADMM (ops/stagewise.py: on the
+card one K5 launch a relaxation or probe) instead of the condensed
+kernels. Memory and work
 per iteration are O(N·b²), so horizons in the hundreds stay on the card.
 
 ``StagewiseBackend`` has no ``solve_wave`` and no ``node_cert``: each wave

@@ -1,6 +1,7 @@
-"""The port's stagewise O(N) frame (ops/stagewise.py) and the plan and
-dispatch of its sweep kernel K4 (ops/cuda_stagewise.py), against the
-reference's ops/stagewise.py, on the CPU.
+"""The port's stagewise O(N) frame (ops/stagewise.py) and the plans and
+dispatch of its kernels K4 (the sweep) and K5 (the ADMM loop)
+(ops/cuda_stagewise.py), against the reference's ops/stagewise.py, on the
+CPU.
 
 Inputs are drawn from numpy seeds and go to both packages. The host build
 is held array by array (the same fp64 numpy code, rounded once to fp32:
@@ -10,7 +11,10 @@ equal to 1e-6). The device half runs on the reference's prep carried across
 ``stagewise_admm_solve`` at fixed iterations as tests/test_torch_admm.py
 holds ``admm_solve`` (objective 1e-4 relative, x, z and y 1e-3, residuals
 1e-2 relative with a 1e-4 floor, identical certificate bits); the dual
-bound 1e-4 relative (the port sums it in fp64, the reference in fp32)."""
+bound 1e-4 relative (the port sums it in fp64, the reference in fp32).
+K5's constant packing is held by one iteration rebuilt from the packed
+buffers, indexed as the kernel indexes them, against the plain iteration
+(both in fp64 on the same fp32 values: 1e-6, relative with floor 1)."""
 
 import dataclasses
 
@@ -396,9 +400,10 @@ def test_sweep_smem_mirrors_the_kernel_source():
 
 
 def test_sweep_dispatch_follows_the_device(monkeypatch, rng):
-    """The x-update's sweep on a CPU tensor runs the plain sweeps and never
-    the loader, and counts no launch; the kernel wrapper refuses a CPU
-    tensor; a device with no kernel raises."""
+    """The solve's sweeps on a CPU tensor are the plain ones, inside the
+    plain loop: it never reaches the loader and counts no launch, and the
+    x-update with the plain sweep is the plain sweep; K4's wrapper refuses
+    a CPU tensor; a device with no kernel raises."""
     from pyhybridcontrol_tpu_torch.ops import _build
 
     monkeypatch.setattr(_build, "load_library",
@@ -406,12 +411,16 @@ def test_sweep_dispatch_follows_the_device(monkeypatch, rng):
     ts = tsw.prepare_stagewise(TM, N, tdi.default_weights(), device="cpu")
     r = torch.as_tensor(rng.normal(size=(3, N, ts.b)), dtype=torch.float32)
     before = dict(ca.LAUNCHES)
-    assert torch.equal(tsw._solve_K_bordered(ts, r), tsw._solve_K(ts, r))
+    assert torch.equal(tsw._solve_K_bordered(ts, r, tsw._solve_K),
+                       tsw._solve_K(ts, r))
+    q, l, u = tsw.assemble_stagewise(ts, torch.as_tensor(X0))
+    tsw.stagewise_admm_solve(ts, q, l, u, iters=3)
     assert ca.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA tensor"):
         cs.sw_solve_k_cuda(r, ts.factors)
-    with pytest.raises(ValueError, match="no stagewise sweep"):
-        tsw._solve_K_bordered(ts, r.to("meta"))
+    with pytest.raises(ValueError, match="no stagewise ADMM"):
+        tsw.stagewise_admm_solve(ts, q.to("meta"), l.to("meta"),
+                                 u.to("meta"), iters=3)
 
 
 @pytest.mark.cuda
@@ -429,3 +438,417 @@ def test_k4_matches_its_plain_version_on_the_card(rng):
         x = cs.sw_solve_k_cuda(r, ts.factors, staged=staged)
         assert ca.LAUNCHES["stagewise_k4"] == 1
         _close(x.cpu().numpy(), ref.cpu().numpy(), 1e-5)
+
+
+# ---- K5: plan, dispatch and constant packing (the kernel runs only on
+# the card) ----
+
+
+# (P, N, b, m, S, n_blk, n_ext, n_cons, mean) -> (bmax, staged, warps,
+# lanes a stage, cluster) at the four driven shapes: config 6's long arm (a wave of 8
+# nodes × S=8, the budget row) and parity arm (32 × S=2), serve --solver
+# stagewise (config 1, a wave of 32) and the transforms hold (soft rows,
+# blocking, terminal set, budget row; a wave of 16)
+DRIVEN = {
+    "config6_long": ((64, 120, 5, 19, 8, 0, 1, 2, True),
+                     (8, True, 15, 4, 8)),
+    "config6_parity": ((64, 4, 5, 19, 2, 0, 0, 2, True), (8, True, 4, 32, 2)),
+    "serve_stagewise": ((32, 10, 5, 17, 1, 0, 0, 0, False),
+                        (8, True, 10, 32, 1)),
+    "transforms": ((16, 8, 5, 19, 1, 1, 1, 0, False), (8, True, 8, 32, 1)),
+}
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), "..",
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("path", list(DRIVEN))
+def test_admm_plan_at_the_driven_shapes(path):
+    shape, want = DRIVEN[path]
+    P, N_, b, m, S, n_blk, n_ext, n_cons, mean = shape
+    pl = cs.plan_admm(*shape)
+    assert (pl.bmax, pl.staged, pl.warps, pl.tps, pl.cluster) == want
+    assert pl.smem == cs.admm_smem_bytes(N_, b, m, S, n_blk, n_ext, n_cons,
+                                         mean, pl.warps, pl.staged, pl.bmax)
+    assert pl.smem <= ca.SMEM_MAX
+    assert 32 * pl.warps <= cs.ADMM_THREADS[pl.bmax]
+    assert pl.cluster <= cs.ADMM_CLUSTER
+    # every stage's lanes in one round of the CTA's threads
+    assert 32 * pl.warps >= N_ * pl.tps and 32 % pl.tps == 0
+    # the plan depends on the shapes alone, not on how many groups
+    assert cs.plan_admm(S, *shape[1:]) == pl
+
+
+def test_admm_plan_shapes_are_the_preps():
+    """The driven shapes' rows and extra rows are what the preps have:
+    config 6's frame (19 rows a stage, 2 consensus rows, 1 budget row), the
+    served double integrator's (17) and the transforms hold's (19, one
+    blocking row)."""
+    smoke = _chip_smoke()
+    cpu = torch.device("cpu")
+    sw = smoke.config6_preps(cpu, smoke.config6_trees()[0])[0].sw
+    assert (sw.N, sw.b, sw.m_k, sw.n_cons, sw.n_ext) == (4, 5, 19, 2, 0)
+    plain = tsw.prepare_stagewise(TM, 10, tdi.default_weights(), device="cpu")
+    assert (plain.b, plain.m_k, plain.n_blk) == (5, 17, 0)
+    c = smoke.sw_transforms_controller("cpu")
+    assert (c._sw.N, c._sw.m_k, c._sw.n_blk, c._sw.n_ext) == (8, 19, 1, 1)
+
+
+# the wider blocks phase 22 of chip_smoke.py holds K5 at, off the driven
+# paths: the PWA hull model as ``serve --config pwa_actuator --solver
+# stagewise`` builds it (b=13: bmax 16, a wave of 64) and the double
+# integrator with a second force (b=6: bmax 8 without b=5's instantiation,
+# a wave of 16); (N, b, m, P) and the plan's (bmax, warps, tps)
+WIDER = {"hull": ((20, 13, 49, 64), (16, 5, 8)),
+         "di_two_forces": ((10, 6, 20, 16), (8, 10, 32))}
+
+
+@pytest.mark.parametrize("key", list(WIDER))
+def test_admm_plan_at_the_wider_blocks(key):
+    """The preps phase 22 builds have the shapes above; the plan stages
+    their factors, and forcing the unstaged variant (as phase 22 does)
+    keeps the threads and drops the factors' shared memory."""
+    from pyhybridcontrol_tpu_torch import serve
+
+    smoke = _chip_smoke()
+    (N_, b, m, P), want = WIDER[key]
+    if key == "hull":
+        sw = serve.make_controller("pwa_actuator", "stagewise", "cpu")._sw
+    else:
+        sw = tsw.prepare_stagewise(smoke.di_two_forces(), 10,
+                                   tdi.default_weights(), device="cpu")
+    assert (sw.N, sw.b, sw.m_k, sw.n_blk, sw.n_ext) == (N_, b, m, 0, 0)
+    assert key in smoke.K5_UNSTAGED
+    pl = cs.plan_admm(P, N_, b, m)
+    assert (pl.bmax, pl.warps, pl.tps) == want and pl.staged
+    st = cs.plan_admm(P, N_, b, m, staged=False)
+    assert (st.bmax, st.warps, st.tps, st.staged) == want + (False,)
+    assert pl.smem - st.smem == 4 * 3 * (-(-N_ * b * b // 4) * 4)
+
+
+def test_admm_plan_refuses_what_has_no_instantiation():
+    with pytest.raises(ValueError, match=r"P=4, N=10, b=17.*above the 16"):
+        cs.plan_admm(4, 10, 17, 30)
+    with pytest.raises(ValueError, match="extra rows"):
+        cs.plan_admm(4, 10, 5, 17, n_ext=5)
+    with pytest.raises(ValueError, match="S=16 scenarios.*portable"):
+        cs.plan_admm(64, 10, 5, 19, S=16, n_cons=2, mean=True)
+    with pytest.raises(ValueError, match="group mean"):
+        cs.plan_admm(16, 10, 5, 17, S=2)
+    with pytest.raises(ValueError, match="multiple"):
+        cs.plan_admm(9, 10, 5, 19, S=2, n_cons=2, mean=True)
+    with pytest.raises(ValueError, match="empty"):
+        cs.plan_admm(0, 10, 5, 17)
+    with pytest.raises(ValueError, match=r"N=2000.*shared memory"):
+        cs.plan_admm(8, 2000, 5, 19, S=8, n_cons=2, mean=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        cs.plan_admm(8, 600, 5, 17, staged=True)
+
+
+def test_admm_smem_mirrors_the_kernel_source():
+    """``admm_smem_bytes`` mirrors ``admm_layout`` of csrc/stagewise.cu
+    array by array (each padded to a multiple of 4 words, J and Mc in rows
+    of bmax words); the warp, cluster and extra-row caps and the dispatched
+    bounds are the kernel's; ``_AdmmArgs`` is the C struct field by
+    field."""
+    import os
+
+    src = open(os.path.join(os.path.dirname(__file__), "..",
+                            "pyhybridcontrol_tpu_torch", "csrc",
+                            "stagewise.cu")).read()
+    for line in (
+            "const size_t f = staged ? pad4((size_t)N * b * b) : 0;",
+            "const size_t zn = pad4((size_t)m * N), tn = pad4((size_t)N * b);",
+            "a.J = o; o += pad4((size_t)m * bmax);",
+            "a.Mc = o; o += pad4((size_t)m * bmax);",
+            "a.tie = o; o += pad4((size_t)N * n_blk);",
+            "a.blk = o; o += pad4(n_blk);",
+            "a.Aext = o; o += pad4((size_t)r * N * b);",
+            "a.KiU = o; o += pad4((size_t)N * b * r);",
+            "a.Cw = o; o += pad4((size_t)r * r);",
+            "a.rho_e = o; o += pad4(r);",
+            "a.gM = o; o += mean ? pad4((size_t)S * N) : 0;",
+            "a.u = o; o += zn;",
+            "a.xb = o; o += tn;",
+            "a.cb = o; o += mean ? 2 * pad4((size_t)N * n_cons) : 0;",
+            "a.corr = o; o += kRMax;",
+            "a.red = o; o += (size_t)kRMax * warps;",
+            "constexpr int kRMax = 4;",
+            "return bmax <= 8 ? 512 : 256;",
+            "a->S > 8"):
+        assert line in src, line
+    for m in cs.ADMM_BMAX:
+        assert f"case {m}: return launch_admm_b<{m}>" in src
+    assert (cs.ADMM_RMAX, cs.ADMM_CLUSTER) == (4, 8)
+    assert cs.ADMM_THREADS == {8: 512, 16: 256}
+    # config 6's long arm, word by word: factors 3·3000, J/Mc 2·152,
+    # Aext/KiU 2·600, Cw 4, ρₑ 4, the group mean's row 960, z/y/l/u
+    # 4·2280, t/mb/x 3·600, the consensus buffers 2·240, 4·(1+15)
+    assert cs.admm_smem_bytes(120, 5, 19, 8, 0, 1, 2, True, 15, True, 8) == \
+        4 * (9000 + 304 + 1200 + 4 + 4 + 960 + 9120 + 1800 + 480 + 64)
+    # every _AdmmArgs field is one of the C struct's, in its order
+    body = src[src.index("struct PhcSwAdmmArgs {"):]
+    body = body[:body.index("};")]
+    names = [f for f, _ in cs._AdmmArgs._fields_]
+    assert names[:29] == [ln.strip().rstrip(";").split("*")[-1].strip()
+                          for ln in body.splitlines()[1:30]]
+    assert names[29:] == ["P", "N", "b", "m", "S", "n_blk", "blk0", "n_ext",
+                          "n_cons", "mean", "iters", "sigma", "alpha"]
+    assert "int P, N, b, m, S, n_blk, blk0, n_ext, n_cons, mean, iters;" in \
+        body and "float sigma, alpha;" in body
+
+
+def test_admm_dispatch_follows_the_device(monkeypatch):
+    """A whole CPU solve with every row kind (soft, blocking, terminal,
+    extra rows, the group mean) runs ``_admm_iterations`` once with the
+    plain sweeps and never K5's wrapper or the loader; K5's wrapper
+    refuses a CPU tensor; ``parallel_sweeps`` is the plain loop with the
+    log-depth sweeps."""
+    from pyhybridcontrol_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "load_library",
+                        lambda *a: pytest.fail("CPU path reached the loader"))
+    monkeypatch.setattr(tsw, "sw_admm_cuda",
+                        lambda *a, **k: pytest.fail("CPU path reached K5"))
+    seen = []
+    orig = tsw._admm_iterations
+
+    def spy(*a, **kw):
+        seen.append(kw["sweep"])
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(tsw, "_admm_iterations", spy)
+    ts, (q, l, u), ue, M = _k5_problem("all", 1.0, np.random.default_rng(2))
+    before = dict(ca.LAUNCHES)
+    tsw.stagewise_admm_solve(ts, q, l, u, iters=4, ext_u=ue, consensus_M=M)
+    tsw.stagewise_admm_solve(ts, q, l, u, iters=4, ext_u=ue, consensus_M=M,
+                             parallel_sweeps=True)
+    assert seen == [tsw._solve_K, tsw._solve_K_assoc]
+    assert ca.LAUNCHES == before
+    x = torch.zeros(q.shape)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cs.sw_admm_cuda(ts, q, l, u, x, l, l, None, None, None, 3)
+
+
+@pytest.mark.parametrize("x0", [(12.0, 0.0), (2.0, 0.0)])
+def test_certificate_ratios_give_its_bits(x0):
+    """``_certificate``'s ratios (what phase 22 of chip_smoke.py reads to
+    tell a threshold's neighbourhood) decide its bits: ‖Aᵀδy‖∞ and the
+    support sum at most 1e-4·‖δy‖∞, minus the gap sum at least that; and
+    they are the solve's. From outside the double integrator's |x| ≤ 10
+    box (every problem infeasible) the solve certifies, from inside it
+    does not."""
+    ts = tsw.prepare_stagewise(TM, 10, tdi.default_weights(), device="cpu")
+    q, l, u = tsw.assemble_stagewise(ts, torch.tensor(x0))
+    q, l, u = (t.expand((4,) + t.shape).clone() for t in (q, l, u))
+    res = tsw.stagewise_admm_solve(ts, q, l, u, iters=300)
+    z0 = torch.clamp(torch.zeros_like(l), l, u)
+    out = tsw._admm_iterations(ts, q, l, u, torch.zeros_like(q), z0,
+                               torch.zeros_like(l), None, None, None, 300)
+    cert, r = tsw._certificate(ts, out[3], out[6], l, u, None)
+    assert torch.equal(cert, res.infeas_cert)
+    assert torch.equal(cert, (r[:, 0] <= 1e-4) & (r[:, 1] <= 1e-4)
+                       & (r[:, 2] >= 1e-4))
+    assert bool(cert.all()) == (x0[0] > 10.0) and (bool(cert.any())
+                                                    == (x0[0] > 10.0))
+
+
+# feature -> prepare_stagewise options of K5's packing holds; "all" has every
+# row kind at once and the group mean over S=3 scenarios
+K5_FEATURES = {
+    "plain": {},
+    "soft": dict(soft=FEATURES["soft"]["soft"]),
+    "blocking": FEATURES["blocking"],
+    "terminal": FEATURES["terminal"],
+    "extra": dict(extra=_budget(0.5)),
+    "consensus": dict(consensus=2),
+    "all": dict(soft=FEATURES["soft"]["soft"], blocking=[0, 0, 1, 1, 2, 2,
+                                                         3, 3],
+                terminal=FEATURES["terminal"]["terminal"],
+                extra=_budget(0.5), consensus=2),
+}
+K5_S = 3
+
+
+def _k5_problem(feature, rho, rng):
+    """A prep with ``feature``'s rows, a batch of 2 × S scenarios of data
+    (random disturbances, a consensus group of S where the feature has
+    consensus rows) and random group-mean weights."""
+    kw = dict(K5_FEATURES[feature])
+    ts = tsw.prepare_stagewise(TM, N, tdi.default_weights(), rho=rho,
+                               device="cpu", **kw)
+    x0 = torch.as_tensor(X0)
+    Ws = torch.as_tensor(rng.normal(0.0, 0.3, size=(2, K5_S, N, 1)),
+                         dtype=torch.float32)
+    data = [tsw.assemble_stagewise(ts, x0, W) for W in Ws.reshape(-1, N, 1)]
+    q, l, u = (torch.stack(a).reshape((2, K5_S) + a[0].shape)
+               for a in zip(*data))
+    ue = None
+    if ts.n_ext:
+        ue = torch.stack([tsw.assemble_stagewise_ext(ts, x0, W)
+                          for W in Ws.reshape(-1, N, 1)]).reshape(2, K5_S, -1)
+    M = None
+    if ts.n_cons:
+        w = torch.as_tensor(rng.uniform(0.1, 1.0, size=(K5_S, K5_S, N)),
+                            dtype=torch.float32)
+        M = w / w.sum(dim=1, keepdim=True)
+    return ts, (q, l, u), ue, M
+
+
+def _k5_iteration(ts, c, q, l, u, x, z, y, ze, ye, ue, M):
+    """One iteration as K5 computes it, from the packed buffers ``c``
+    (``cuda_stagewise.admm_constants``) indexed as the kernel indexes them
+    (flat offsets), in the dtype of the carries: the forward/backward
+    sweeps are K4's (``_solve_K``)."""
+    dt = x.dtype
+    N_, b, m, r, nb = ts.N, ts.b, ts.m_k, ts.n_ext, ts.n_blk
+    J = c["J"].to(dt).reshape(-1)
+    Mc = c["Mc"].to(dt).reshape(-1)
+    rows = c["rows"].to(dt).reshape(-1)
+    ik = np.arange(m)[:, None] * N_ + np.arange(N_)[None, :]   # [i][k]
+    rho, lin, quad = (rows[w * m * N_ + ik].T for w in range(3))   # (N, m)
+    ic = np.arange(m)[:, None] * b + np.arange(b)[None, :]         # [i][c]
+    Jm, Mm = J[ic], Mc[ic]                                         # (m, b)
+    tie = c["tie"].to(dt).reshape(-1) if nb else None
+    blk = c["blk"].tolist() if nb else []
+    mc = m - ts.n_cons if M is not None else m
+
+    def m_block(k):
+        """M_k as the kernel applies it (k ≥ 1): Mc and the ties."""
+        Mk = Mm.clone()
+        for j, cj in enumerate(blk):
+            Mk[c["blk0"] + j, cj] -= tie[k * nb + j]
+        return Mk
+
+    def t_of(x, z, y, ze, ye):
+        w = rho * z - y
+        t = ts.sigma * x - q + torch.einsum("ic,...ki->...kc", Jm, w)
+        for k in range(1, N_):
+            t[..., k - 1, :] += w[..., k, :] @ m_block(k)
+        if r:
+            A = c["Aext"].to(dt).reshape(-1)
+            kc = np.arange(N_)[:, None] * b + np.arange(b)[None, :]
+            we = c["rho_ext"].to(dt) * ze - ye
+            for j in range(r):
+                t = t + A[j * N_ * b + kc] * we[..., j, None, None]
+        return t
+
+    t = t_of(x, z, y, ze, ye)
+    base = tsw._solve_K(ts, t, tuple(f.to(dt) for f in ts.factors))
+    xn = base
+    if r:
+        A = c["Aext"].to(dt).reshape(-1)
+        Cw = c["Cw"].to(dt).reshape(-1)
+        KiU = c["KiU"].to(dt).reshape(-1)
+        flat = base.reshape(base.shape[:-2] + (N_ * b,))
+        sv = torch.stack([(A[j * N_ * b:(j + 1) * N_ * b] * flat).sum(-1)
+                          for j in range(r)], dim=-1)
+        corr = torch.stack([sum(Cw[i * r + j] * sv[..., j] for j in range(r))
+                            for i in range(r)], dim=-1)
+        e = np.arange(N_ * b)
+        kiu = torch.stack([KiU[e * r + j] for j in range(r)], dim=-1)
+        xn = (flat - (kiu * corr[..., None, :]).sum(-1)).reshape(base.shape)
+    ax = torch.einsum("ic,...kc->...ki", Jm, xn)
+    for k in range(1, N_):
+        ax[..., k, :] += xn[..., k - 1, :] @ m_block(k).T
+    zr = ts.alpha * ax + (1 - ts.alpha) * z
+    sv = zr + y / rho
+    soft = (lin > 0) | (quad > 0)
+    tt = (rho * (sv - u) - lin) / (rho + 2 * quad)
+    zn = torch.where(soft, torch.where(sv > u, u + tt.clamp_min(0),
+                                       torch.maximum(sv, l)),
+                     torch.minimum(torch.maximum(sv, l), u))
+    if mc < m:
+        g = M.to(dt).reshape(-1)
+        S_ = M.shape[0]
+        for s_ in range(S_):
+            for k in range(N_):
+                zn[..., s_, k, mc:] = sum(
+                    g[(s_ * S_ + t_) * N_ + k] * sv[..., t_, k, mc:]
+                    for t_ in range(S_))
+    yn = y + rho * (zr - zn)
+    out = [xn, zn, yn, yn - y]
+    if r:
+        A = c["Aext"].to(dt).reshape(-1)
+        flat = xn.reshape(xn.shape[:-2] + (N_ * b,))
+        axe = torch.stack([(A[j * N_ * b:(j + 1) * N_ * b] * flat).sum(-1)
+                           for j in range(r)], dim=-1)
+        rho_e = c["rho_ext"].to(dt)
+        zre = ts.alpha * axe + (1 - ts.alpha) * ze
+        zen = torch.minimum(zre + ye / rho_e, ue)
+        yen = ye + rho_e * (zre - zen)
+        out += [zen, yen, yen - ye]
+    return out
+
+
+@pytest.mark.parametrize("feature", list(K5_FEATURES))
+def test_k5_constant_packing_rebuilds_one_iteration(feature):
+    """K5's packed constants (the buffers its wrapper passes), read at the
+    kernel's flat offsets, rebuild the stage blocks J and M_k and one ADMM
+    iteration from random carries within 1e-6 of the plain iteration
+    (``_admm_iterations``, one iteration; both in fp64 on the same fp32
+    values)."""
+    rng = np.random.default_rng(5)
+    ts, (q, l, u), ue, M = _k5_problem(feature, 1.0, rng)
+    c = cs.admm_constants(ts)
+    Jr, Mr, _ = tsw._row_blocks(ts)
+    assert torch.equal(c["J"], Jr)
+    Mk = c["Mc"].expand(ts.N, -1, -1).clone()
+    Mk[0] = 0.0
+    for j, cj in enumerate(ts.blk_cols):
+        Mk[:, c["blk0"] + j, cj] -= ts.tie[:, j]
+    assert torch.equal(Mk, Mr)
+    d64 = tsw.stagewise_double(ts)
+    q, l, u = (a.double() for a in (q, l, u))
+    x = torch.as_tensor(rng.normal(size=q.shape))
+    z = torch.clamp(torch.as_tensor(rng.normal(0.0, 2.0, size=l.shape)),
+                    l, u)
+    y = torch.as_tensor(rng.normal(size=l.shape))
+    ze = ye = None
+    if ts.n_ext:
+        ue = ue.double()
+        ze = torch.minimum(torch.as_tensor(rng.normal(size=ue.shape)), ue)
+        ye = torch.as_tensor(rng.normal(size=ue.shape))
+    Md = M.double() if M is not None else None
+    want = tsw._admm_iterations(d64, q, l, u, x, z, y, ze, ye, ue, 1, Md)
+    got = _k5_iteration(ts, c, q, l, u, x, z, y, ze, ye, ue, Md)
+    for name, g, w in zip(("x", "z", "y", "dy", "z_e", "y_e", "dy_e"), got,
+                          want):
+        _close(g.numpy(), w.numpy(), 1e-6)
+
+
+@pytest.mark.cuda
+def test_k5_matches_its_plain_version_on_the_card():
+    """On the card K5 launches once a call and agrees with the plain loop
+    (both fp32, 60 iterations cold, then 40 warm from its result) within
+    1e-3 (relative, floor 1) on every output, with every row kind and the
+    group mean."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    ts, (q, l, u), ue, M = _k5_problem("all", 1.0, np.random.default_rng(3))
+    ts = tsw.prepare_stagewise(TM, N, tdi.default_weights(), device="cuda",
+                               **K5_FEATURES["all"])
+    q, l, u, ue, M = (a.cuda() for a in (q, l, u, ue, M))
+    x = torch.zeros_like(q)
+    z = torch.clamp(torch.zeros_like(l), l, u)
+    y = torch.zeros_like(l)
+    ze = torch.clamp_max(torch.zeros_like(ue), ue)
+    ye = torch.zeros_like(ue)
+    for iters in (60, 40):
+        ca.reset_launch_counts()
+        got = cs.sw_admm_cuda(ts, q, l, u, x, z, y, ze, ye, ue, iters, M)
+        assert ca.LAUNCHES["stagewise_k5"] == 1
+        want = tsw._admm_iterations(ts, q, l, u, x, z, y, ze, ye, ue, iters,
+                                    M)
+        for g, w in zip(got, want):
+            _close(g.cpu().numpy(), w.cpu().numpy(), 1e-3)
+        x, z, y, _, ze, ye, _ = want

@@ -166,6 +166,52 @@ def test_tree_backend_solve_and_node_bound_match_reference():
     _close(tn.numpy(), jn, 2e-3)
 
 
+# the row kinds composed on a tree (S=2, N=4) with the group mean and a warm
+# start: soft stage rows with the budget row, and with move blocking and a
+# terminal set too
+TREE_MIXES = {
+    "soft+extra": {},
+    "soft+extra+blocking+terminal": dict(
+        blocking=[0, 0, 1, 1],
+        terminal=(np.array([[1.0, 0.0]]), np.array([1.5]))),
+}
+
+
+@pytest.mark.parametrize("mix", list(TREE_MIXES))
+def test_tree_soft_extra_rows_and_warm_start_match_reference(mix):
+    """Soft rows, a per-scenario budget row and the consensus group mean at
+    once, through both packages' tree solves: 150 iterations cold, then 60
+    warm from the reference's iterate (x, z, y and the extra rows' z/y)."""
+    jt, tt = _tree(S=2, N=4, steps=(1,), seed=7)
+    N, nv, nc = 4, 3, JM.info.ncons
+    A_v = np.zeros((1, N * nv))
+    A_v[0, 0::nv] = 1.0
+    kw = dict(soft=(np.array([1, nc + 2, 3 * nc]), 20.0, 2.0),
+              extra=(A_v, np.array([-0.8])), **TREE_MIXES[mix])
+    js = jst.prepare_stagewise_tree(JM, jt, JW, **kw)
+    ts = convert.stagewise_tree_qp(js, "cpu")
+    assert ts.sw.has_soft and ts.sw.n_ext == 1 and ts.sw.n_cons == 2
+    jd = jst.assemble_stagewise_tree(js, jnp.asarray(X0))
+    td = tst.assemble_stagewise_tree(ts, torch.as_tensor(X0))
+    je = jst.assemble_stagewise_tree_ext(js, jnp.asarray(X0))
+    te = tst.assemble_stagewise_tree_ext(ts, torch.as_tensor(X0))
+    jr = jst.stagewise_tree_admm_solve(js, *jd, iters=150, ext_u=je)
+    tr = tst.stagewise_tree_admm_solve(ts, *td, iters=150, ext_u=te)
+    for k in ("obj", "x", "z", "y", "z_ext", "y_ext"):
+        _close(getattr(tr, k).numpy(), getattr(jr, k), 1e-3)
+    jw = jst.stagewise_tree_admm_solve(
+        js, *jd, iters=60, ext_u=je, warm=(jr.x, jr.z, jr.y),
+        warm_ext=(jr.z_ext, jr.y_ext))
+    w = [torch.as_tensor(np.array(a)) for a in
+         (jr.x, jr.z, jr.y, jr.z_ext, jr.y_ext)]
+    tw = tst.stagewise_tree_admm_solve(ts, *td, iters=60, ext_u=te,
+                                       warm=tuple(w[:3]),
+                                       warm_ext=tuple(w[3:]))
+    for k in ("obj", "x", "z", "y", "z_ext", "y_ext"):
+        _close(getattr(tw, k).numpy(), getattr(jw, k), 1e-3)
+    assert bool(tw.infeas_cert) == bool(jw.infeas_cert)
+
+
 def test_tree_miqp_matches_reference():
     """Bench config 6's parity arm (S=2, N=4, branching at 1, paths of
     default_rng(11)) through both packages' stagewise tree B&B."""

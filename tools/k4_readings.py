@@ -1,19 +1,22 @@
-"""Readings of K4 against its plain version over seeds, on the card (how
-the "sweep" limit of ``chip_smoke.py`` and the whole-solve holds of its
-phase 20 are set):
+"""Readings of K4 and K5 against their plain versions over seeds, on the
+card (how the "sweep" and "k5" limits of ``chip_smoke.py`` and the
+whole-solve holds of its phase 20 are set):
 
     python tools/k4_readings.py [--seeds 0-7] [--config6] [--plain-solve]
                                 [--profile]
 
-Builds the kernels, then runs ``chip_smoke.phase_k4`` once per seed with
-``--readings`` semantics (every field read, none stopping the run) and
-prints, per regime, the largest error of every field over the seeds, and
-the fields off their limits. ``--config6`` then runs phase 21 (config 6's
-two arms and the served stagewise requests) once, as ``chip_smoke.py``
-does; ``--plain-solve`` times one solve of config 6's long arm through K4
-and one through the plain sweeps (each after a warm-up solve through K4);
-``--profile`` profiles one whole solve of the long arm (device
-operations, idle share).
+Builds the kernels, then runs ``chip_smoke.phase_k4`` and
+``chip_smoke.phase_k5`` (both timed at the first seed only) once per seed
+with ``--readings`` semantics (every field read, none stopping the run)
+and prints, per regime, the largest error of every field over the seeds,
+and the fields off their limits. ``--config6`` then runs phase 21 (config
+6's two arms and the served stagewise requests) once, as ``chip_smoke.py``
+does; ``--plain-solve`` times solves of config 6's long arm in turns:
+through K5, through the torch loop with K4 (the path K5 replaced), through
+that loop again and through K5 again (each route warmed up first), then
+one through the torch loop with the plain sweeps; ``--profile`` profiles
+one whole solve of the long arm through K5 (device operations, busy time,
+idle share).
 """
 
 from __future__ import annotations
@@ -61,31 +64,37 @@ def time_solve(solve):
 
 
 def plain_solve(dev):
-    """One solve of config 6's long arm through K4 and one through the
-    plain sweeps, after a warm-up solve through K4: seconds, nodes and
-    objectives of both."""
+    """Solves of config 6's long arm in turns, K5 and the torch loop with
+    K4 (the route K5 replaced) each after a warm-up solve of its own: K5,
+    that loop, that loop again, K5 again; then one through the torch loop
+    with the plain sweeps (~70 s, not warmed up). Seconds, nodes and
+    objectives of each."""
+    import contextlib
+
     import chip_smoke as cs
 
     solve = config6_long_solver(dev)
-    solve()
-    res, t_k4 = time_solve(solve)
-    with cs.plain_sweep():
-        ref, t_plain = time_solve(solve)
-    print(f"config 6 long arm, one solve: {t_k4:.3f} s through K4 "
-          f"({int(res.nodes_solved)} nodes, objective {float(res.obj):.7f}),"
-          f" {t_plain:.3f} s through the plain sweeps "
-          f"({int(ref.nodes_solved)} nodes, objective "
-          f"{float(ref.obj):.7f}): {t_plain / t_k4:.2f}x", flush=True)
-    cs.check(bool(res.found) and bool(ref.found),
-             "config 6 plain solve: no plan found")
+    routes = {"K5": contextlib.nullcontext,
+              "torch loop + K4": lambda: cs.torch_loop(cs.k4_sweep),
+              "torch loop + plain sweeps": cs.torch_loop}
+    seen = {}
+    for name in ("K5", "torch loop + K4", "torch loop + K4", "K5",
+                 "torch loop + plain sweeps"):
+        with routes[name]():
+            if name not in seen and "plain" not in name:
+                solve()
+            res, t = time_solve(solve)
+        seen.setdefault(name, []).append(t)
+        print(f"config 6 long arm, one solve through {name}: {t:.3f} s "
+              f"({int(res.nodes_solved)} nodes, {res.waves} waves, "
+              f"objective {float(res.obj):.7f})", flush=True)
+        cs.check(bool(res.found), f"config 6 through {name}: no plan")
 
 
 def profile_config6_solve(dev):
-    """One whole solve of config 6's long arm under torch.profiler (its
-    ~360k device operations take minutes to collect, too long for
-    ``chip_smoke.py``): device operations, K4's launches and device time,
-    busy time and the idle share against the median of 3 unprofiled
-    solves."""
+    """One whole solve of config 6's long arm through K5 under
+    torch.profiler: device operations, K5's launches and device time, busy
+    time and the idle share against the median of 3 unprofiled solves."""
     import chip_smoke as cs
     from pyhybridcontrol_tpu_torch.profile_serve import profile_request
 
@@ -99,10 +108,11 @@ def profile_config6_solve(dev):
           f"{prof['device_ops']} device operations, busy "
           f"{prof['device_busy_ms']:.1f} ms of {prof['ms']:.1f} ms unprofiled "
           f"(median of {[round(t, 1) for t in times]}): idle share "
-          f"{prof['idle_share']:.3f}; K4 {prof['k4_launches']} launches, "
-          f"{prof['k4_device_ms']:.1f} ms on the device", flush=True)
-    cs.check(prof["k4_launches"] > 0 and prof["k1_launches"] == 0
-             and prof["k2_launches"] == 0, "config 6 profile: launches")
+          f"{prof['idle_share']:.3f}; K5 {prof['k5_launches']} launches, "
+          f"{prof['k5_device_ms']:.1f} ms on the device", flush=True)
+    cs.check(prof["k5_launches"] > 0 and all(
+        prof[f"k{i}_launches"] == 0 for i in (1, 2, 4)),
+        "config 6 profile: launches")
     return prof
 
 
@@ -132,11 +142,12 @@ def main(argv=None):
     for line in cs.ptxas_report(_build.BUILD_INFO.get("log", "")):
         print(f"  ptxas: {line}", flush=True)
     cs.READINGS_ONLY = True
-    rec = {}
     for seed in seeds:
         cs.SEED = seed
+        cs.TIMINGS = seed == seeds[0]       # the times at the first seed
         print(f"seed {seed}:", flush=True)
-        cs.phase_k4(dev, cs.phase_rng("k4"), rec)
+        for name, fn in (("k4", cs.phase_k4), ("k5", cs.phase_k5)):
+            cs.phase(name, fn, dev, cs.phase_rng(name), {})
     for regime, seen in cs.READINGS.items():
         print(f"largest error over seeds {a.seeds}, {regime} (limit): "
               + " ".join(f"{k}={v:.2e} ({cs.LIMITS[regime][k]:.0e})"

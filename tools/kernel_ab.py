@@ -3,6 +3,7 @@ checkouts on one card, in one run, and the end-to-end times of the real
 frames' paths (a development tool, not part of the package):
 
     python tools/kernel_ab.py --parent DIR [--ablate] [--e2e]
+    python tools/kernel_ab.py --parent DIR --stagewise
 
 Run from the root of a checkout ("change"); DIR is a checkout of the commit
 to compare with ("parent", for example ``git archive`` of it unpacked into
@@ -33,6 +34,13 @@ three served config-2 requests (``serve --config pwa_actuator``, the
 reply's ms), the config-2 and 2b calls and config 3's and 4b's loops
 (``chip_smoke.py``'s phases 14, 16 and 17, their checks included) and two
 repetitions of the config-4c call (256 trees, ``feedback_batch`` pooled).
+
+``--stagewise`` runs, per tree and in the same order, ``chip_smoke.py``'s
+phase 21 instead (its checks included): config 6's parity arm (ms), its
+long arm (a warm-up and the median of 3 solves, ms a solve), the three
+served ``--solver stagewise`` requests (the replies' ms) and the
+stagewise transforms hold (ms), with the device's idle share over one
+long-arm wave's relaxation.
 
 Prints one JSON line per run and a table at the end.
 """
@@ -216,6 +224,41 @@ print("AB " + json.dumps(out), flush=True)
 """
 
 
+STAGEWISE_WORKER = r"""
+import json, sys
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from pyhybridcontrol_tpu_torch.ops import _build
+
+for lib in _build.LIBRARIES:
+    _build.load_library(lib)
+out = cs.phase_config6(torch.device("cuda"))
+print("SW " + json.dumps({
+    "parity ms": out["parity"]["ms"],
+    "long arm ms a solve": out["long"]["ms_per_solve"],
+    "long arm s": out["long"]["seconds"],
+    "long arm wave idle share": out["long"]["profile"]["idle_share"],
+    "served ms": out["serve_ms"],
+    "transforms ms": out["transforms"]["ms"]}), flush=True)
+"""
+
+
+def run_stagewise(tree: Path) -> dict:
+    """Phase 21 of ``tree``'s chip_smoke.py in a copy of it: its times."""
+    with tempfile.TemporaryDirectory(prefix="phc_ab_") as tmp:
+        shutil.copytree(tree / "pyhybridcontrol_tpu_torch",
+                        Path(tmp) / "pyhybridcontrol_tpu_torch")
+        shutil.copy(tree / "chip_smoke.py", tmp)
+        got = subprocess.run([sys.executable, "-c", STAGEWISE_WORKER],
+                             cwd=tmp, capture_output=True, text=True)
+    for line in got.stdout.splitlines():
+        if line.startswith("SW "):
+            return json.loads(line[3:])
+    raise RuntimeError(f"{tree}: stagewise worker failed:\n"
+                       f"{got.stdout[-2000:]}\n{got.stderr[-3000:]}")
+
+
 def run_tree(tree: Path, subs, e2e=False) -> dict:
     with tempfile.TemporaryDirectory(prefix="phc_ab_") as tmp:
         shutil.copytree(tree / "pyhybridcontrol_tpu_torch",
@@ -253,6 +296,7 @@ def main() -> int:
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--e2e", action="store_true")
+    ap.add_argument("--stagewise", action="store_true")
     args = ap.parse_args()
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -260,6 +304,17 @@ def main() -> int:
         check=True).stdout.strip()
     print(gpu, flush=True)
     trees = {"parent": args.parent.resolve(), "change": ROOT}
+    if args.stagewise:
+        runs = []
+        for name in ("parent", "change", "change", "parent"):
+            res = run_stagewise(trees[name])
+            runs.append((name, res))
+            print(json.dumps({"tree": name, "stagewise": res}), flush=True)
+        print(f"\n{gpu}\nstagewise paths, host clock")
+        for key in runs[0][1]:
+            print(f"  {key}: " + "; ".join(f"{name} {res[key]}"
+                                           for name, res in runs))
+        return 0
     runs = []
     for name in ("parent", "change", "change", "parent"):
         res = run_tree(trees[name], None, args.e2e)

@@ -4,7 +4,7 @@ versions, on the card (a development tool, not part of the package):
     python tools/mutation_check.py          # the split-precision kernel
     python tools/mutation_check.py admm     # K1 and K2
     python tools/mutation_check.py streamed # K1/K2 resident and streamed, split mode
-    python tools/mutation_check.py stagewise   # K4, the stagewise sweep
+    python tools/mutation_check.py stagewise   # K4 (the sweep) and K5
 
 Run from the root of a checkout. For each mutation it copies the package
 and ``chip_smoke.py`` into a fresh temporary directory, breaks one line of
@@ -12,7 +12,9 @@ the kernel source there (``csrc/admm_mixed.cu``, ``csrc/admm.cu`` or
 ``csrc/stagewise.cu``), builds the broken kernel and runs the phases of
 ``chip_smoke`` that hold that kernel (``phase_k1_mixed``; ``phase_k1``,
 ``phase_k2`` and ``phase_far``; ``phase_streamed`` and ``phase_split``;
-or ``phase_k4``). A mutation
+or ``phase_k4`` for the sweep's lines and ``phase_k5`` for K5's, both for
+the unbroken copy, without their timings; there the copies build
+``stagewise.cu`` alone, all side by side before the holds). A mutation
 is caught when a field goes off its limit; the line printed for it names
 the first such field and the largest reading of every field. The unbroken copy ("none") must pass. The checkout itself is
 never touched; a mutation whose line is no longer in the source exactly
@@ -21,10 +23,12 @@ once stops the run.
 
 from __future__ import annotations
 
+import os
 import shutil
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -94,18 +98,45 @@ MUTATIONS_MIXED = {
 MUTATIONS_STAGEWISE = {
     "none": None,
     "forward sweep: column 0 of L dropped": (
-        "if (i < b) acc[t] = fmaf(Lk[i * b + j], yj, acc[t]);",
-        "if (i < b && j > 0) acc[t] = fmaf(Lk[i * b + j], yj, acc[t]);"),
+        "for (int j = 0; j < NB; ++j) Ln[j] = (row && j < b) ? Lk[j] : 0.0f;",
+        "for (int j = 0; j < NB; ++j) Ln[j] = (row && j < b && j > 0) ? "
+        "Lk[j] : 0.0f;"),
     "backward sweep: last column of C dropped": (
-        "if (i < b) c[t] = fmaf(Ck[i * b + j], xj, c[t]);",
-        "if (i < b && j + 1 < b) c[t] = fmaf(Ck[i * b + j], xj, c[t]);"),
-    "y_k not kept for the backward sweep": ("yk[i] = prev[t];", ""),
-    "forward sweep reads the next stage's L": (
-        "const float* Lk = L + (size_t)k * bb;",
-        "const float* Lk = L + (size_t)((k + 1) % N) * bb;"),
+        "Cn[j] = (row && j < b) ? C[o + j] : 0.0f;",
+        "Cn[j] = (row && j + 1 < b) ? C[o + j] : 0.0f;"),
+    "y_k not kept for the backward sweep": (
+        "ys[k * b + lane] = prev;", ""),
+    "forward sweep reads the stage after the next's L": (
+        "const float* Lk = L + (size_t)(k + 1) * bb + lo;",
+        "const float* Lk = L + (size_t)((k + 2) % N) * bb + lo;"),
     "backward sweep stops before stage 0": (
         "for (int k = N - 1; k >= 0; --k) {",
         "for (int k = N - 1; k >= 1; --k) {"),
+}
+# K5's own lines (the sweep above is K5's too); phase 22 must catch each
+MUTATIONS_K5 = {
+    "none": None,
+    "group mean dropped (each scenario keeps its own)": (
+        "zn = fmaf(gM[t * N + k], cbt[k * nc + jc], zn);",
+        "zn = t == s ? cbt[k * nc + jc] : zn;"),
+    "Woodbury term dropped": ("corr[lane] = cv;", "corr[lane] = 0.0f;"),
+    "M part of t dropped": (
+        "if (k >= 1) mb[(k - 1) * b + c] = mm[c];",
+        "if (k >= 1) mb[(k - 1) * b + c] = 0.0f;"),
+    "soft rows boxed, not proxed": (
+        "const float zn = (lin > 0.0f || quad > 0.0f) ? zsoft : zbox;",
+        "const float zn = zbox;"),
+    "extra rows' y_e not updated": ("        ye[j] = yn;\n", ""),
+    "one iteration short": (
+        "for (int it = 0; it < a.iters; ++it) {",
+        "for (int it = 1; it < a.iters; ++it) {"),
+    "the M part of t summed over one lane of a stage": (
+        "group_sum<BMAX>(mm, tps);\n      if (on && jl == 0) {",
+        "if (on && jl == 0) {"),
+    "dy of the second-to-last iteration": (
+        "if (last && !cons) a.dy[(p * N + k) * m + i] = yn - y;",
+        "if (it == a.iters - 2 && !cons) a.dy[(p * N + k) * m + i] = "
+        "yn - y;"),
 }
 # every field is read (chip_smoke's --readings mode); the first one off its
 # limit is printed
@@ -114,6 +145,10 @@ import sys
 import torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
+from pyhybridcontrol_tpu_torch.ops import _build
+if MODE == "stagewise":
+    _build.LIBRARIES = {"stagewise": _build.LIBRARIES["stagewise"]}
+    cs.TIMINGS = False
 cs.READINGS_ONLY = True
 dev = torch.device("cuda")
 try:
@@ -126,7 +161,10 @@ try:
         cs.phase_streamed(dev, cs.phase_rng("streamed"), recs)
         cs.phase_split(dev, cs.phase_rng("split"), recs["admm_k1_split"])
     elif MODE == "stagewise":
-        cs.phase_k4(dev, cs.phase_rng("k4"), recs["stagewise_k4"])
+        if "k4" in PHASES:
+            cs.phase_k4(dev, cs.phase_rng("k4"), recs["stagewise_k4"])
+        if "k5" in PHASES:
+            cs.phase_k5(dev, cs.phase_rng("k5"), recs["stagewise_k5"])
     else:
         cs.phase_k1_mixed(dev, cs.phase_rng("k1_mixed"), {})
     if cs.OVER:
@@ -145,8 +183,30 @@ MODES = {"mixed": ("admm_mixed.cu", MUTATIONS_MIXED,
          "admm": ("admm.cu", MUTATIONS_ADMM, ("main", "far")),
          "streamed": ("admm.cu", MUTATIONS_STREAMED,
                       ("main", "large", "mixed_iterates", "mixed")),
-         "stagewise": ("stagewise.cu", MUTATIONS_STAGEWISE,
-                       ("sweep", "main"))}
+         "stagewise": ("stagewise.cu",
+                       {**MUTATIONS_STAGEWISE,
+                        **{f"K5: {k}": v for k, v in MUTATIONS_K5.items()
+                           if v is not None}},
+                       ("sweep", "main", "k5", "k5_wide", "k5_soft",
+                        "k5_infeasible"))}
+# the stagewise copies build their one library side by side first
+BUILD = r"""
+import sys
+sys.path.insert(0, ".")
+from pyhybridcontrol_tpu_torch.ops import _build
+_build.LIBRARIES = {"stagewise": _build.LIBRARIES["stagewise"]}
+_build.build_libraries()
+"""
+
+
+def phases_of(mode, name):
+    """The phases that hold a mutation of ``mode`` (stagewise: K5's lines
+    phase 22, the sweep's phase 20, the unbroken copy both)."""
+    if mode != "stagewise":
+        return ()
+    if name == "none":
+        return ("k4", "k5")
+    return ("k5",) if name.startswith("K5: ") else ("k4",)
 
 
 def main(argv=None) -> int:
@@ -157,15 +217,16 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     kernel, mutations, regimes = MODES[mode]
-    run = f"MODE = {mode!r}\nREGIMES = {regimes!r}\n" + RUN
     failed = False
-    for name, sub in mutations.items():
-        with tempfile.TemporaryDirectory(prefix="phc_mutation_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="phc_mutation_") as root:
+        dirs = []
+        for i, (name, sub) in enumerate(mutations.items()):
+            tmp = Path(root) / str(i)
             shutil.copytree(ROOT / "pyhybridcontrol_tpu_torch",
-                            Path(tmp) / "pyhybridcontrol_tpu_torch")
+                            tmp / "pyhybridcontrol_tpu_torch")
             shutil.copy(ROOT / "chip_smoke.py", tmp)
             if sub is not None:
-                src = Path(tmp) / CSRC / kernel
+                src = tmp / CSRC / kernel
                 text = src.read_text()
                 for old, new in (sub if isinstance(sub, list) else [sub]):
                     if text.count(old) not in (1, 2):
@@ -173,15 +234,30 @@ def main(argv=None) -> int:
                                            f"{text.count(old)} of {old!r}")
                     text = text.replace(old, new)
                 src.write_text(text)
+            dirs.append(tmp)
+        if mode == "stagewise":
+            builds = []
+            for tmp in dirs:
+                while len([b for b in builds if b.poll() is None]) >= (
+                        os.cpu_count() or 1):
+                    time.sleep(1)
+                builds.append(subprocess.Popen(
+                    [sys.executable, "-c", BUILD], cwd=tmp,
+                    stdout=subprocess.DEVNULL, stderr=subprocess.PIPE))
+            for b in builds:
+                b.wait()
+        for tmp, (name, sub) in zip(dirs, mutations.items()):
+            run = (f"MODE = {mode!r}\nREGIMES = {regimes!r}\n"
+                   f"PHASES = {phases_of(mode, name)!r}\n" + RUN)
             out = subprocess.run([sys.executable, "-c", run], cwd=tmp,
                                  capture_output=True, text=True)
-        lines = [ln for ln in out.stdout.splitlines()
-                 if ln.startswith(("RESULT", "READINGS"))]
-        print(f"{name}: " + (" | ".join(lines) or out.stderr[-2000:]),
-              flush=True)
-        caught = any(ln.startswith("RESULT caught") for ln in lines)
-        passed = any(ln.startswith("RESULT passed") for ln in lines)
-        failed |= not (passed if sub is None else caught)
+            lines = [ln for ln in out.stdout.splitlines()
+                     if ln.startswith(("RESULT", "READINGS"))]
+            print(f"{name}: " + (" | ".join(lines) or out.stderr[-2000:]),
+                  flush=True)
+            caught = any(ln.startswith("RESULT caught") for ln in lines)
+            passed = any(ln.startswith("RESULT passed") for ln in lines)
+            failed |= not (passed if sub is None else caught)
     return 1 if failed else 0
 
 
