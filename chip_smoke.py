@@ -190,21 +190,52 @@ Run from the root of a checkout. It builds the kernels of
      blocks also with the unstaged variant forced; certificate bits equal
      to those of the plain loop's carries but near a threshold; K5 alone,
      its wrapper and the plain loop timed at each shape, its roofline
-     bound and its chain floor (iterations × ``k4_chain_ms``).
+     bound and its chain floor (iterations × ``k4_chain_ms``);
+ 23. K2 at the waves the user-facing surfaces give it, run with the kernel
+     phases (after 22), warm, against its plain version on node problems
+     of each frame ("microgrid" and "surfaces" limits): the micro-grid
+     coordinator's aggregate frame at 4 agents (N=24, 480/888, B=32,
+     200 + 200 iterations, stiff probe), where no cluster holds the
+     constants and
+     the plan streams them from L2, and at 3 agents (360/672, resident
+     over 16 CTAs; also bitwise against the L2-streamed variant), a dual
+     round of the decentralized agents (8 × a wave of 16, staged) and
+     config 5's global wave (512 × 64 nodes of N=20, 300 + 300, staged);
+     each with its plan and times beside the bound;
+ 24. ``python -m pyhybridcontrol_tpu_torch.run`` in process through
+     ``main(argv)`` at full width: config 1 at T=40 with ``--log`` (read
+     back), config 3 for 8 steps, config 2 for 3, configs 4 (B=1024) and
+     5 (B=512, N=20: a global wave of 32,768 nodes and a pool of 524,288,
+     on one card) as one pooled batch each (every K2 launch at the global
+     wave), found share 1.0 on each; config 1 for 6 steps in chunks of 2
+     with snapshots, within rtol 1e-4 of the unchunked study, resumed to 8
+     steps and again (a no-op);
+ 25. the micro-grid coordinator at its N=24 with the example's spec and
+     P_max = (M−1)·3 kW: 3 agents for 4 steps (resident K2), 4 for 2 (the
+     L2-streamed K2, which no other driven path takes): the coupling held
+     each step, each plan feasible in fp64, each visited state's
+     objective at N=2 within MG_ORACLE_REL of the fp64 oracle;
+ 26. the decentralized micro-grid, 8 agents at N=8, 3 steps: every dual
+     round one pooled B&B whose every K2 launch covers all agents' wave,
+     the coupling held after rationing, λ printed;
+ 27. the five examples' ``main`` at small arguments.
 
 Each phase prints its wall time, and the run its total. Launch counts are
 kept per path (PATHS): set to 0 just before each served request set, the
 pooled calls, the relaxation sweeps, the closed loops, the config-2 calls,
 config 4c's call and its single-instance feedbacks, config 6's two arms
-and the served stagewise requests, and read just after
+and the served stagewise requests, each ``run`` invocation, the
+checkpoint/resume study, each micro-grid run, the decentralized run and
+the examples, and read just after
 it; launches made to compare a kernel with its
 plain version or with enumeration fall in none of them.
 A kernel's ``launches`` is its sum over these paths, ``launches_by_path``
 the counts apart, and ``on_main_path`` says whether a served request
 launched it. Every kernel launches on some path, but for the L2-streamed
-K1/K2 and K4 (FORCED_ONLY), which must launch on none: every real frame's
-K1/K2 launch is the resident variant, and every stagewise solve runs K5,
-K4's sweep inside it.
+K1 and K4 (FORCED_ONLY), which must launch on none: no driven path gates
+a wave of a frame that no cluster holds, and every stagewise solve runs
+K5, K4's sweep inside it. The L2-streamed K2 launches on the 4-agent
+micro-grid only.
 
 Every kernel result is held against its plain version field by field:
 obj, x, z, y, r_prim, r_prim_rel and r_dual within LIMITS, certificate
@@ -261,12 +292,13 @@ REPLACES = {"admm_k1": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
             # stagewise ADMM loop a plain-XLA fori_loop
             "stagewise_k4": "pyhybridcontrol_tpu/ops/stagewise.py:586",
             "stagewise_k5": "pyhybridcontrol_tpu/ops/stagewise.py:1011"}
-# K1/K2 with the constants streamed from L2 in every iteration: the plan
-# takes it for no shape of the driven paths (a cluster holds each), so it
-# runs only where a phase forces it, to hold the resident variant against
-# it; K4, the standalone sweep, which K5 runs inside its loop: phase 20
-# holds it; neither must launch on a path
-FORCED_ONLY = ("admm_k1_streamed", "admm_k2_streamed", "stagewise_k4")
+# K1 with the constants streamed from L2 in every iteration: the plan
+# takes it only where a cluster cannot hold the constants (the 4-agent
+# micro-grid's K2 waves do; no driven path gates a wave there),
+# so it runs only where a phase forces it, to hold the resident variant
+# against it; K4, the standalone sweep, which K5 runs inside its loop:
+# phase 20 holds it; neither must launch on a path
+FORCED_ONLY = ("admm_k1_streamed", "stagewise_k4")
 # the driven paths, in order; SERVED are the served requests
 SERVED = ("serve_config1", "serve_batch_request", "config2_serve",
           "serve_stagewise")
@@ -275,7 +307,10 @@ PATHS = SERVED + ("pooled_bench_spec", "pooled_carried_incumbents",
                   "closed_loop_N27", "relax_sweep_N27_low_frac",
                   "config2_call", "config2b_call", "config3_loop",
                   "config4b_loop", "config4c_call", "config4c_feedback",
-                  "config6_parity", "config6_long", "stagewise_transforms")
+                  "config6_parity", "config6_long", "stagewise_transforms",
+                  "run_config1", "run_config3", "run_config2", "run_config4",
+                  "run_config5", "run_checkpoint_resume", "microgrid_M3",
+                  "microgrid_M4", "decentralized", "examples")
 # peak rates of one H100 SXM at 700 W (NVIDIA data sheet): fp32 outside
 # the tensor cores, dense bf16 in them, HBM3
 PEAK = dict(fp32=67e12, bf16=989e12, hbm=3.35e12)
@@ -354,6 +389,18 @@ LIMITS = {
     # at the infeasible wave, whose y grows every iteration (dy = y⁺ − y
     # carries y's rounding): x 1.55e-5, z 3.98e-5, y 1.72e-4, dy 1.83
     "k5_infeasible": dict(x=4.7e-5, z=1.2e-4, y=5.2e-4, dy=5.5),
+    # K2 at the surfaces' waves (phase 23), relaxation and probe, 3x the
+    # largest reading of seeds 0-7 on an H100 (tools/surface_readings.py):
+    # the micro-grid coordinator's aggregate frames (3 and 4 agents, N=24;
+    # the 4-agent one L2-streamed): obj 1.30e-3, x 4.23e-4, z 1.04e-3, y
+    # 4.21e-2, r_prim 3.83e-2, r_prim_rel 9.25e-5, r_dual 1.09
+    "microgrid": dict(obj=3.9e-3, x=1.3e-3, z=3.1e-3, y=0.13, r_prim=0.12,
+                      r_prim_rel=2.8e-4, r_dual=3.3),
+    # the decentralized agents' wave and config 5's global wave (N=20,
+    # 300 + 300 iterations): obj 2.34e-4, x 2.07e-4, z 3.03e-4, y 1.83e-2,
+    # r_prim and r_prim_rel 0.107, r_dual 9.98
+    "surfaces": dict(obj=7e-4, x=6.2e-4, z=9.1e-4, y=5.5e-2, r_prim=0.32,
+                     r_prim_rel=0.32, r_dual=30.0),
 }
 # the iterate check starts from the plain version's iterates after these
 # many split-precision iterations
@@ -624,6 +671,24 @@ def held(tag, regime, pairs):
 CERT_EPS = 1e-4
 CERT_BAND = 4.0
 CERT_SHARE = 0.12
+# The decentralized agents' wave (phase 23; DEWH at N=8, soft band, about
+# half of the nodes infeasible) reads kernel-vs-plain certificate bits
+# that differ where the plain ratio ‖Âᵀδy‖∞/‖δy‖∞ lies 6.5x and 8.5x below
+# its threshold (seeds 3 and 2 of 0-7, one bit each; the kernel's final
+# iterates put the same ratio 4x and 1.3x above it): 3x the largest
+# reading, there only
+CERT_BAND_DEC = 26.0
+
+
+@contextlib.contextmanager
+def cert_band(band):
+    """CERT_BAND set to ``band`` inside the block."""
+    global CERT_BAND
+    saved, CERT_BAND = CERT_BAND, band
+    try:
+        yield
+    finally:
+        CERT_BAND = saved
 
 
 def cert_near(plain, ref, binary_idx=None):
@@ -725,6 +790,11 @@ FLIP_BAND = 2e-3
 # instances of the config-2 wave rounded one differently (each within 4.1e-6
 # of 0.5). Its share is 3x that reading.
 FLIP_SHARE_HULL = 0.15
+# The decentralized agents' wave rounds a relaxed binary otherwise than the
+# plain version on 2 of 128 instances (seeds 3 and 4 of 0-7, each within
+# 2.4e-6 of 0.5; the plain version's own fp32-vs-fp64 rounding differs on
+# up to 3 of 128, tools/plain_noise.py --decentralized): 3x that reading
+FLIP_SHARE_DEC = 0.047
 
 
 def compare_probe(tag, got, ref, qp, lb, ub, record, regime="main",
@@ -4018,6 +4088,457 @@ def phase_config6(dev):
     return out
 
 
+# ---- the user-facing surfaces ----------------------------------------------
+
+# the micro-grid coordinator of agents/micro_grid.py at its own horizon,
+# with the example's spec (examples/micro_grid_study.py) and room for all
+# heaters but one, so the coupling binds: (agents, steps) of each run
+MG_N = 24
+MG_SPEC = dict(capacity=256, wave_size=32, qp_iters=200)
+MG_RUNS = ((3, 4), (4, 2))
+# each visited state's objective is held against the fp64 oracle at this
+# reduced horizon (the 216-288 binaries of N=24 are out of its reach)
+MG_ORACLE_N = 2
+# B&B (fp32 ADMM, 200 iterations a node, its absolute gap 1e-4) against
+# the fp64 optimum: relative, floor 1
+MG_ORACLE_REL = 1e-3
+# the decentralized micro-grid: agents at its own N=8 and spec, room for
+# half of the heaters, and its steps
+DEC_M, DEC_STEPS = 8, 3
+K2_VARIANTS = ("admm_k2", "admm_k2_resident", "admm_k2_streamed")
+# config 5 (run --config sharded_bnb): 512 instances of N=20 pooled, a
+# global wave of 512 × 64 nodes, 300 + 300 iterations a wave
+CFG5_WAVE = 512 * 64
+
+
+def microgrid(M, N, dev):
+    """The coordinator of M default DEWH agents at horizon N on ``dev``:
+    the TOU tariff, P_max = (M−1)·3 kW, the example's spec."""
+    from pyhybridcontrol_tpu_torch.agents.micro_grid import (
+        MicroGridCoordinator)
+    from pyhybridcontrol_tpu_torch.models.dewh import DewhParams
+    from pyhybridcontrol_tpu_torch.models.grid import (
+        GridParams, default_tou_profile)
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    grid = GridParams(P_max=(M - 1) * 3000.0,
+                      tou_prices=default_tou_profile())
+    return MicroGridCoordinator([DewhParams() for _ in range(M)], grid,
+                                N=N, solver="bnb",
+                                bnb_spec=BnbSpec(**MG_SPEC), device=dev)
+
+
+def surface_problem(name, B, dev, rng, fix_frac=0.3):
+    """Node problems of a surface path's frame at B seeded states, as
+    ``real_problem`` returns them (prepared specs at ρ and at the probe's
+    ρ, or None where the path's probe runs at ρ; binary indices; f, h;
+    node boxes fixing ``fix_frac`` of the binaries):
+    "microgrid_M3"/"microgrid_M4", the coordinator's aggregate frame
+    (N=24, soft comfort bands; each heater at 50–62 °C with a seeded
+    binary state, the tariff from step 0); "decentralized", the agents'
+    shared DEWH frame (N=8, soft comfort band; per-agent prices with a
+    seeded congestion price); "config5", the double integrator at N=20."""
+    import numpy as np
+    import torch
+
+    if name == "config5":
+        _, qp, spec, spec_p, f, h, lb, ub = problem(20, B, dev, rng,
+                                                    fix_frac)
+        return spec, spec_p, qp.binary_idx, f, h, lb, ub
+    if name == "decentralized":
+        from pyhybridcontrol_tpu_torch.agents.decentralized import (
+            DecentralizedMicroGrid)
+        from pyhybridcontrol_tpu_torch.models.dewh import DewhParams
+
+        d = DecentralizedMicroGrid([DewhParams()] * 2, device=dev)
+        qp, spec, spec_p = d.qp, d.admm, None
+        x0s = np.stack([rng.uniform(50.0, 62.0, B), rng.integers(0, 2, B)],
+                       axis=1)
+        prices = np.zeros((B, d.N, qp.info.nv))
+        prices[:, :, 0] = rng.uniform(0.0, 1.5, (B, d.N))
+    else:
+        M = int(name[-1])
+        mg = microgrid(M, MG_N, dev)
+        qp, spec, spec_p = (mg.controller.device_qp, mg.controller.admm,
+                            mg.controller.admm_probe)
+        x0s = np.concatenate([np.stack([rng.uniform(50.0, 62.0, B),
+                                        rng.integers(0, 2, B)], axis=1)
+                              for _ in range(M)], axis=1)
+        prices = mg.price_seq()
+    x0s, prices = on_card(dev, x0s.astype(np.float32),
+                          prices.astype(np.float32))
+    f, h = qp.assemble(x0s, None, None, prices)
+    lb, ub = node_boxes(qp, B, rng, fix_frac)
+    return spec, spec_p, qp.binary_idx, f, h, lb, ub
+
+
+# (name, wave, iterations, probe iterations, the plan's variant, limits,
+# flip share, certificate band); the micro-grid probes are stiff (ρ·10
+# then ρ), the decentralized ones at ρ
+SURFACE_SHAPES = (
+    ("microgrid_M4", 32, 200, 200, "streamed", "microgrid", FLIP_SHARE,
+     CERT_BAND),
+    ("microgrid_M3", 32, 200, 200, "resident", "microgrid", FLIP_SHARE,
+     CERT_BAND),
+    ("decentralized", DEC_M * 16, 200, 200, "staged", "surfaces",
+     FLIP_SHARE_DEC, CERT_BAND_DEC),
+    ("config5", CFG5_WAVE, 300, 300, "staged", "surfaces", FLIP_SHARE,
+     CERT_BAND))
+
+
+def phase_surface_shapes(dev, rng, recs):
+    """K2 at the waves the surfaces' paths give it, warm-started as every
+    wave after the root is, each against its plain version on node
+    problems of its frame ("microgrid" limits on the micro-grid frames'
+    relaxation and probe, "surfaces" on the others; certificate bits may
+    differ near a threshold on the DEWH frames, CERT_BAND_DEC and
+    FLIP_SHARE_DEC on the decentralized wave): the 4-agent micro-grid
+    (N=24: 480/888, where a cluster cannot hold the constants, so the plan
+    streams them from L2), the 3-agent one
+    (360/672, resident over 16 CTAs; bitwise against the L2-streamed
+    variant at the same tile too), a dual round of the decentralized
+    agents (8 × a wave of 16, staged) and config 5's global wave (512 × 64
+    nodes of N=20, 300 + 300 iterations, staged). Each with its plan and,
+    with TIMINGS, its times beside the bound."""
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+
+    print("K2 at the surfaces' waves:", flush=True)
+    for name, B, iters, piters, variant, regime, flips, band in \
+            SURFACE_SHAPES:
+        spec, spec_p, bidx, q, h, lb, ub = surface_problem(name, B, dev, rng)
+        kq = ca.kernel_qp_for(spec)
+        kq2 = None if spec_p is None else ca.kernel_qp_for(spec_p)
+        pl = ca.plan(B, kq.n_pad, kq.m_pad)
+        got_variant = ("streamed" if pl.streamed else
+                       "resident" if pl.cluster > 1 else "staged")
+        print(f"  plan {name} (padded {kq.n_pad}/{kq.m_pad}) B={B}: {pl}",
+              flush=True)
+        check(got_variant == variant, f"{name}: the plan picks the "
+              f"{got_variant} variant, not the {variant} one")
+        key = {"staged": "admm_k2", "resident": "admm_k2_resident",
+               "streamed": "admm_k2_streamed"}[variant]
+        rec = recs[key]
+        rec[f"{name}_B{B}_plan"] = dict(pb=pl.pb, cluster=pl.cluster,
+                                        threads=pl.threads, smem=pl.smem)
+        wargs = (kq, kq2, bidx, q, h, lb, ub)
+        kw = dict(iters=iters, probe_iters=piters)
+        cold = ca.admm_wave_plain(*wargs, **kw)
+        warm = (cold[0].x, cold[0].z, cold[0].y)
+        tag = f"K2 {name} B={B} {iters}+{piters} it warm"
+        got = ca.admm_wave_cuda(*wargs, warm=warm, **kw)
+        with cert_band(band):
+            compare_probe(tag, got,
+                          ca.admm_wave_plain(*wargs, warm=warm, **kw),
+                          types.SimpleNamespace(binary_idx=bidx), lb, ub,
+                          rec, regime, flip_share=flips,
+                          plain=(None if name == "config5"
+                                 else (kq, q, h, lb, ub)))
+        if variant == "resident":
+            forced = l2(kq, pl)
+            st = ca.admm_wave_cuda(*wargs, warm=warm, **forced, **kw)
+            held_bitwise("relaxation " + tag, got[0], st[0])
+            held_bitwise("probe " + tag, got[1], st[1])
+        if not TIMINGS:
+            continue
+        timed(rec, f"{name}_B{B}_wave_",
+              lambda: ca.admm_wave_cuda(*wargs, warm=warm, **kw),
+              lambda: ca.admm_wave_plain(*wargs, warm=warm, **kw),
+              admm_work(kq.n_pad, kq.m_pad, B, products=iters + piters + 2,
+                        stats=2, warm=True, stiff=kq2 is not None,
+                        outputs=2))
+
+
+def run_cli(path, argv, dev):
+    """``run_cli_inner(argv, dev)`` as the driven path ``path``; its wall
+    time printed."""
+    t0 = time.perf_counter()
+    line, _ = drive(path, lambda: run_cli_inner(argv, dev))
+    print(f"  ({time.perf_counter() - t0:.2f} s)", flush=True)
+    return line
+
+
+def phase_run_cli(dev):
+    """``python -m pyhybridcontrol_tpu_torch.run`` in process through
+    ``main(argv)`` on the card, at full width: config 1 at its T=40 with
+    ``--log`` (one JSONL record a step, read back); config 3 (move
+    blocking, soft band, min-up rows) for 8 steps; config 2 (hull, N=20)
+    for 3; configs 4 (B=1024) and 5 (B=512, N=20: a global wave of 32,768
+    nodes and a pool of 524,288) as one pooled batch each, every K2 launch
+    at the global wave; then config 1 for 6 steps in chunks of 2 with
+    snapshots, within rtol 1e-4 of the unchunked 6-step study (the
+    reference test's bound, tests/test_cli.py), resumed to 8 steps
+    (resumed_from 6) and resumed again (a no-op). Every line's found
+    share is 1.0."""
+    import tempfile
+
+    import numpy as np
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        log = str(Path(tmp) / "run.jsonl")
+        r1 = run_cli("run_config1", ["--config", "double_integrator",
+                                     "--log", log], dev)
+        recs = [json.loads(s) for s in open(log)]
+        check([r["step"] for r in recs] == list(range(40)),
+              f"run --log: {len(recs)} records for 40 steps")
+        tot = sum(r["obj"] for r in recs)
+        check(abs(tot - r1["total_cost"]) <= 1e-5 * abs(tot),
+              f"run --log: the records sum to {tot}, the line says "
+              f"{r1['total_cost']}")
+        print(f"  --log: {len(recs)} records read back, objectives sum to "
+              f"{tot:.4f}", flush=True)
+        out["config1"] = r1
+        out["config3"] = run_cli("run_config3", ["--config", "thermal_uc",
+                                                 "--steps", "8"], dev)
+        out["config2"] = run_cli("run_config2", ["--config", "pwa_actuator",
+                                                 "--steps", "3"], dev)
+        out["config4"] = run_cli("run_config4", ["--config",
+                                                 "scenario_batch"], dev)
+        launched_at("run_config4", K2_VARIANTS, 1024 * 16)
+        out["config5"] = r5 = run_cli("run_config5", ["--config",
+                                                      "sharded_bnb"], dev)
+        launched_at("run_config5", K2_VARIANTS, CFG5_WAVE)
+        check((r5["batch"], r5["global_wave"], r5["pool_slots"])
+              == (512, CFG5_WAVE, 512 * 1024),
+              f"config 5: batch, wave and pool {r5}")
+        print(f"  config 5: pool of {r5['pool_slots']} nodes, "
+              f"{r5['pool_bytes'] / 2**30:.3f} GiB", flush=True)
+        for k, r in out.items():
+            check(r["found_frac"] == 1.0, f"run {k}: found share "
+                  f"{r['found_frac']}")
+            check(PATH_LAUNCHES[f"run_{k}"]["admm_k2"]
+                  + PATH_LAUNCHES[f"run_{k}"]["admm_k2_resident"] > 0,
+                  f"run {k}: K2 was never launched")
+        ckpt = str(Path(tmp) / "study.ckpt")
+        base = ["--config", "double_integrator"]
+        chunk = ["--checkpoint", ckpt, "--checkpoint-every", "2"]
+
+        def study():
+            return [run_cli_inner(base + ["--steps", "6"], dev),
+                    run_cli_inner(base + ["--steps", "6"] + chunk, dev),
+                    run_cli_inner(base + ["--steps", "8", "--resume"]
+                                  + chunk, dev),
+                    run_cli_inner(base + ["--steps", "8", "--resume"]
+                                  + chunk, dev)]
+
+        (plain, got, res, again), _ = drive("run_checkpoint_resume", study)
+    rel = abs(got["total_cost"] - plain["total_cost"]) / abs(
+        plain["total_cost"])
+    print(f"  chunked total cost {got['total_cost']:.6f}, unchunked "
+          f"{plain['total_cost']:.6f} (rel {rel:.2e}, limit 1e-4); resumed "
+          f"from {res['resumed_from']} for {res['steps']} steps; again: "
+          f"{again}", flush=True)
+    check(got["resumed_from"] == 0 and got["steps"] == 6,
+          f"chunked study: {got}")
+    check(rel <= 1e-4, f"chunked study: total cost rel {rel:.3e} off the "
+          "unchunked one")
+    check(res["resumed_from"] == 6 and res["steps"] == 2
+          and res["found_frac"] == 1.0 and np.isfinite(res["total_cost"]),
+          f"resumed study: {res}")
+    check(again["steps"] == 0 and again["resumed_from"] == 8,
+          f"finished study resumed: {again}")
+    out["checkpoint_resume"] = dict(chunked=got, unchunked=plain,
+                                    resumed=res)
+    return out
+
+
+def run_cli_inner(argv, dev):
+    """``run.main(argv)`` in process on ``dev``: its JSON line, printed
+    and parsed."""
+    from pyhybridcontrol_tpu_torch import run
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run.main(argv + ["--device", dev.type])
+    check(rc == 0, f"run {' '.join(argv)}: exit code {rc}")
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(f"  run {' '.join(argv)}: {line}", flush=True)
+    return json.loads(line)
+
+
+@contextlib.contextmanager
+def bnb_plans(log):
+    """Every ``solve_miqp_bnb`` the controller runs appends its result's
+    decision vector to ``log`` (host fp64)."""
+    from pyhybridcontrol_tpu_torch.control import mpc
+
+    orig = mpc.solve_miqp_bnb
+
+    def rec(*a, **kw):
+        res = orig(*a, **kw)
+        log.append(res.x.double().cpu().numpy())
+        return res
+
+    mpc.solve_miqp_bnb = rec
+    try:
+        yield log
+    finally:
+        mpc.solve_miqp_bnb = orig
+
+
+def k2_variant(path):
+    return [k for k in K2_VARIANTS if PATH_LAUNCHES[path][k]]
+
+
+def phase_micro_grid(dev):
+    """The micro-grid coordinator (agents/micro_grid.py) at its own N=24
+    with the example's spec, P_max = (M−1)·3 kW: 3 agents for 4 steps
+    (aggregate frame 360/672, 216 binaries: resident K2), then 4 for 2
+    (480/888, 288 binaries: the L2-streamed K2), from 52+i °C with seeded
+    draws. Each step's applied total power within P_max; each plan
+    feasible in fp64 (FEAS_TOL) on the controller's frame; each visited
+    state's objective at N=MG_ORACLE_N (the coordinator at that horizon
+    on the card) within MG_ORACLE_REL of the port's fp64 oracle; the K2
+    variant that ran, per M."""
+    import numpy as np
+
+    out = {}
+    for M, steps in MG_RUNS:
+        path = f"microgrid_M{M}"
+        mg = microgrid(M, MG_N, dev)
+        mg.reset([np.array([52.0 + i, 0.0]) for i in range(M)])
+        rng = phase_rng(path)
+        draws = (rng.uniform(0, 1, (steps, M)) < 0.2) * 0.5
+        visited, sols, Vs = [], [], []
+
+        def run_steps():
+            for k in range(steps):
+                visited.append((mg.x.double().cpu().numpy(), mg.price_seq(),
+                                mg.k))
+                sols.append(mg.sim_step(omega_k=draws[k]))
+
+        t0 = time.perf_counter()
+        with bnb_plans(Vs):
+            drive(path, run_steps)
+        wall = time.perf_counter() - t0
+        P_max = mg.grid.P_max
+        powers = [s.total_power for s in sols]
+        print(f"  {M} agents, N={MG_N}, {steps} steps: {wall:.2f} s "
+              f"({1e3 * wall / steps:.0f} ms a step), total power "
+              f"{powers} W (P_max {P_max:.0f}), objectives "
+              f"{[round(float(s.obj), 4) for s in sols]}, K2 variant "
+              f"{k2_variant(path)}", flush=True)
+        check(all(p <= P_max for p in powers), f"{path}: coupling "
+              f"violated: {powers}")
+        check(all(bool(s.found) for s in sols), f"{path}: a step without "
+              "a plan")
+        want = "admm_k2_streamed" if M == 4 else "admm_k2_resident"
+        check(k2_variant(path) == [want], f"{path}: K2 ran as "
+              f"{k2_variant(path)}, not {want}")
+        c = mg.controller.condensed
+        plans_feasible(f"{path} plans", c,
+                       [(V, x, None, P) for V, (x, P, _) in zip(Vs, visited)])
+        # the objective at the reduced horizon against the fp64 oracle
+        small = microgrid(M, MG_ORACLE_N, dev)
+        cs = small.controller.condensed
+        d, refs = [], []
+        for x, _, k in visited:
+            small.reset(x.reshape(M, 2))
+            small.k = k
+            sol = small.feedback()
+            P = small.price_seq()
+            orc, nodes = oracle_bnb(cs, *cs.assemble_np(x, price_seq=P))
+            d.append(abs(float(sol.obj) - orc) / max(1.0, abs(orc)))
+            refs.append(orc)
+            print(f"  {M} agents at N={MG_ORACLE_N} "
+                  f"({len(cs.binary_idx)} binaries), step {k}: B&B "
+                  f"{float(sol.obj):.5f}, fp64 oracle {orc:.5f} ({nodes} "
+                  f"nodes)", flush=True)
+        print(f"  {path}: B&B vs fp64 oracle at N={MG_ORACLE_N}, worst "
+              f"relative {max(d):.2e} (limit {MG_ORACLE_REL:.0e})",
+              flush=True)
+        check(max(d) <= MG_ORACLE_REL, f"{path}: B&B {max(d):.3e} off the "
+              "fp64 oracle")
+        out[path] = dict(s_per_step=wall / steps, total_power=powers,
+                         objs=[float(s.obj) for s in sols],
+                         k2=k2_variant(path), oracle_rel=max(d))
+    return out
+
+
+def phase_decentralized(dev):
+    """The decentralized micro-grid (agents/decentralized.py): DEC_M
+    agents at its own N=8 and spec, from 50+0.2·i °C, room for half of
+    the heaters, DEC_STEPS steps with seeded draws. Every dual round is
+    one pooled B&B over all agents: each K2 launch over the global wave
+    of DEC_M × 16 nodes (``launched_at``); after rationing the coupling
+    holds; λ printed."""
+    import numpy as np
+
+    from pyhybridcontrol_tpu_torch.agents.decentralized import (
+        DecentralizedMicroGrid)
+    from pyhybridcontrol_tpu_torch.models.dewh import DewhParams
+    from pyhybridcontrol_tpu_torch.models.grid import (
+        GridParams, default_tou_profile)
+
+    grid = GridParams(P_max=DEC_M // 2 * 3000.0,
+                      tou_prices=default_tou_profile())
+    dmg = DecentralizedMicroGrid([DewhParams() for _ in range(DEC_M)], grid,
+                                 device=dev)
+    dmg.reset([np.array([50.0 + 0.2 * i, 0.0]) for i in range(DEC_M)])
+    rng = phase_rng("decentralized")
+    draws = (rng.uniform(0, 1, (DEC_STEPS, DEC_M)) < 0.2) * 0.3
+    t0 = time.perf_counter()
+    sols, _ = drive("decentralized", lambda: [dmg.sim_step(omega_k=w)
+                                              for w in draws])
+    wall = time.perf_counter() - t0
+    for k, s in enumerate(sols):
+        print(f"  step {k}: u {s.u.astype(int).tolist()}, power "
+              f"{s.agg_power:.0f} W (P_max {grid.P_max:.0f}), λ "
+              f"{np.round(s.lam, 4).tolist()}", flush=True)
+        check(s.agg_power <= grid.P_max + 1e-6, f"decentralized step {k}: "
+              f"coupling violated after rationing ({s.agg_power})")
+        check(s.found, f"decentralized step {k}: an agent without a plan")
+    W = DEC_M * dmg.bnb_spec.wave_size
+    launched_at("decentralized", K2_VARIANTS, W)
+    check(sum(PATH_LAUNCHES["decentralized"][k] for k in K2_VARIANTS) > 0,
+          "decentralized: K2 was never launched")
+    print(f"  {DEC_M} agents, {DEC_STEPS} steps: {wall:.2f} s; every K2 "
+          f"launch over all {DEC_M} agents' wave (B={W}): "
+          f"{PATH_BATCHES['decentralized']}", flush=True)
+    return dict(s_per_step=wall / DEC_STEPS,
+                lam=[s.lam.tolist() for s in sols],
+                power=[s.agg_power for s in sols])
+
+
+EXAMPLE_ARGS = {
+    "double_integrator_study": ["--steps", "8"],
+    "dewh_dsm_study": ["--hours", "3"],
+    "micro_grid_study": ["--steps", "3", "--agents", "2"],
+    "scenario_tree_study": ["--scenarios", "2", "--horizon", "4"],
+    "pwa_formulation_study": ["--N", "6", "--waves", "6"],
+}
+EXAMPLE_MARKS = {
+    "double_integrator_study": "all steps solved: True",
+    "dewh_dsm_study": "all MIQPs solved: True",
+    "micro_grid_study": "agent 0 history",
+    "scenario_tree_study": "study ok: True",
+    "pwa_formulation_study": "hull <= bigm: True",
+}
+
+
+def phase_examples(dev):
+    """Each of the five examples' ``main`` on the card at small arguments
+    (those of tests/test_examples.py), its closing line checked."""
+    import importlib
+
+    def all_examples():
+        for name, args in EXAMPLE_ARGS.items():
+            mod = importlib.import_module(
+                f"pyhybridcontrol_tpu_torch.examples.{name}")
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                mod.main(args + ["--device", dev.type])
+            text = buf.getvalue()
+            last = text.strip().splitlines()[-1]
+            print(f"  {name} {' '.join(args)}: {time.perf_counter() - t0:.2f}"
+                  f" s, ...{last}", flush=True)
+            check(EXAMPLE_MARKS[name] in text, f"{name}: "
+                  f"'{EXAMPLE_MARKS[name]}' not in its output:\n{text}")
+
+    drive("examples", all_examples)
+
+
 T_START = time.perf_counter()
 
 
@@ -4101,6 +4622,8 @@ def main(argv=None):
                          recs["admm_k1_split"])
     phase("K4", phase_k4, dev, phase_rng("k4"), recs["stagewise_k4"])
     phase("K5", phase_k5, dev, phase_rng("k5"), recs["stagewise_k5"])
+    phase("K2 at the surfaces' waves", phase_surface_shapes, dev,
+          phase_rng("surface_shapes"), recs)
     for regime, seen in READINGS.items():
         print(f"largest error, {regime} (limit): " + " ".join(
             f"{k}={v:.2e} ({LIMITS[regime][k]:.0e})"
@@ -4125,6 +4648,11 @@ def main(argv=None):
                                    dev, recs)
     phase("tree hold", phase_tree_hold, dev)
     calls["config6"] = phase("config 6", phase_config6, dev)
+    calls["run"] = phase("run CLI", phase_run_cli, dev)
+    calls["micro_grid"] = phase("micro-grid", phase_micro_grid, dev)
+    calls["decentralized"] = phase("decentralized micro-grid",
+                                   phase_decentralized, dev)
+    phase("examples", phase_examples, dev)
     print(json.dumps({"closed_loop": loops, "calls": calls}), flush=True)
     print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
     kernels = []

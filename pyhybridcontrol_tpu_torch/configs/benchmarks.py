@@ -1,4 +1,5 @@
-"""Benchmark configurations ported so far.
+"""The five benchmark configurations, declarative, with their builders.
+Run one with ``python -m pyhybridcontrol_tpu_torch.run --config <name>``.
 
 Counterpart of ``pyhybridcontrol_tpu/configs/benchmarks.py``:
 
@@ -7,10 +8,15 @@ Counterpart of ``pyhybridcontrol_tpu/configs/benchmarks.py``:
 3. thermal_uc          DEWH thermal MLD, unit-commitment logic, move
                        blocking, N=24
 4. scenario_batch      1024 batched MIQP instances per card
+5. sharded_bnb         512 instances of the N=20 double integrator, a
+                       large pool (the reference shards it with a bound
+                       all-reduce)
 
 each with its ``BnbSpec``, closed-loop length, move-blocking groups and
-soft rows as the reference has them. ``sharded_bnb`` (config 5) waits for
-the multi-device port (ROADMAP queue 1).
+soft rows as the reference has them. Config 5 runs on one card as one
+pooled batch (``run.py``), as the reference's ``run.py`` runs it on one
+chip; only the pool sharded across cards (``parallel/sharded_bnb.py``)
+waits for the multi-device slice (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -92,12 +98,18 @@ BENCHMARK_CONFIGS: Dict[str, BenchmarkConfig] = {
         N=10, T=1, batch=1024, build=_build_double_integrator,
         bnb=BnbSpec(capacity=64, wave_size=16, max_waves=24, qp_iters=100),
     ),
+    "sharded_bnb": BenchmarkConfig(
+        name="sharded_bnb",
+        description="≥4096 nodes/scenarios sharded with bound all-reduce",
+        N=20, T=1, batch=512, build=_build_double_integrator,
+        bnb=BnbSpec(capacity=1024, wave_size=64, max_waves=64, qp_iters=300),
+    ),
 }
 
 
 def get_config(name: str) -> BenchmarkConfig:
     if name not in BENCHMARK_CONFIGS:
         raise KeyError(
-            f"unknown config {name!r}; available in the port: "
+            f"unknown config {name!r}; available: "
             f"{sorted(BENCHMARK_CONFIGS)}")
     return BENCHMARK_CONFIGS[name]

@@ -416,7 +416,8 @@ class MpcController:
         """
         self.build()
         if mesh is not None:
-            _not_ported("feedback_batch(mesh=...)", "multi-device")
+            _not_ported("feedback_batch(mesh=...)",
+                        "the multi-device slice")
         consensus = self._tree is not None and self._tree_consensus
         if engine == "auto":
             engine = ("pooled" if self.solver == "bnb" and not consensus

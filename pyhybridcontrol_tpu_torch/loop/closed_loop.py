@@ -217,24 +217,48 @@ def make_mpc_step_batch(model: MldModel, qp: DeviceQP, admm: BoxQP,
                         bnb_spec: Optional[BnbSpec] = None,
                         pool_slots: int = 0,
                         admm_probe: Optional[BoxQP] = None,
-                        shift_warm: bool = True) -> Callable:
-    """Batched control step over B scenarios through the POOLED B&B
-    (solver/bnb_pooled.py): per step all B instances' nodes share one
-    pool, and every wave is one K2 launch over many instances.
+                        shift_warm: bool = True, method: str = "bnb",
+                        qp_iters: int = 100, repair=None) -> Callable:
+    """Batched control step over B scenarios: with ``method="bnb"``
+    through the POOLED B&B (solver/bnb_pooled.py): per step all B
+    instances' nodes share one pool, and every wave is one K2 launch over
+    many instances; with ``method="enumerate"`` one batched enumeration of
+    B·2^nb QPs of ``qp_iters`` iterations.
 
     ``step(xs (B,nx), Ws (B,N,nω)|None, price_seq (N,nv)|None,
     u_prevs (B,nu)|None, prev=(V (B,n), ok (B,))|None) → (v0 (B,nv), obj,
     found, nodes, V)``. ``prev`` injects each instance's previous plan,
-    binaries shifted one stage, as a fully-fixed wave-1 node."""
+    binaries shifted one stage, as a fully-fixed wave-1 node. ``repair``:
+    optional ``(RepairSpec, layout)`` — the batched rollout-repair seeds
+    of the B instances."""
+    if method not in ("bnb", "enumerate"):
+        raise ValueError(f"unknown method {method!r}")
     spec = bnb_spec or BnbSpec()
-    use_shift = _uses_shift(qp, shift_warm)
+    use_shift = method == "bnb" and _uses_shift(qp, shift_warm)
+    if repair is not None:
+        from pyhybridcontrol_tpu_torch.solver.repair import (
+            root_repair_incumbent)
+
+        rspec, layout = repair
 
     def step(xs, Ws=None, price_seq=None, u_prevs=None, prev=None):
         f, h = qp.assemble(xs, Ws, u_prevs, price_seq)
+        if method == "enumerate":
+            xV, obj, _, feas = solve_miqp_enumerate_device(
+                admm, qp, f, h, iters=qp_iters)
+            return (qp.full_v(xV)[:, 0], obj, feas.any(-1),
+                    torch.zeros((), dtype=torch.long, device=f.device), xV)
+        seed = None
+        if repair is not None:
+            seed = root_repair_incumbent(
+                admm, qp, rspec, xs, f, h, W=Ws, price_seq=price_seq,
+                qp_iters=spec.qp_iters, layout=layout,
+                feas_tol=spec.feas_tol)
         init_node = (_shifted_node(qp, *prev)
                      if use_shift and prev is not None else None)
         res = solve_miqp_bnb_pooled(admm, qp, f, h, spec,
                                     pool_slots=pool_slots,
+                                    init_incumbent=seed,
                                     init_node=init_node,
                                     admm_probe=admm_probe)
         v_seq = qp.full_v(res.x)                        # (B, N, nv)

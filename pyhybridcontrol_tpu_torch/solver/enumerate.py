@@ -24,18 +24,28 @@ def _all_assignments(nb: int) -> np.ndarray:
 def solve_miqp_enumerate_device(spec: BoxQP, qp: DeviceQP, f, h,
                                 iters: int = 100, feas_tol: float = 1e-3):
     """Exact-enumeration MIQP. Returns (x*, obj*, bits*, feasible_mask);
-    f/h from ``qp.assemble``."""
+    f/h from ``qp.assemble``. A leading batch axis on f/h, (B, n) and
+    (B, m), enumerates B instances in one batched solve of B·2^nb QPs;
+    every result then carries it."""
     assignments = torch.as_tensor(_all_assignments(qp.n_binary),
                                   device=f.device)
     bidx = torch.as_tensor(qp.binary_idx, dtype=torch.long, device=f.device)
-    B = assignments.shape[0]
-    lb = qp.lb.expand(B, qp.n).clone()
-    ub = qp.ub.expand(B, qp.n).clone()
+    K = assignments.shape[0]
+    lead = tuple(f.shape[:-1])
+    B = int(np.prod(lead, dtype=np.int64))
+    lb = qp.lb.expand(K, qp.n).clone()
+    ub = qp.ub.expand(K, qp.n).clone()
     lb[:, bidx] = assignments
     ub[:, bidx] = assignments
-    res = admm_solve(spec, f.expand(B, qp.n), h.expand(B, qp.m), lb, ub,
+    fb = f.reshape(B, 1, qp.n).expand(B, K, qp.n).reshape(B * K, qp.n)
+    hb = h.reshape(B, 1, qp.m).expand(B, K, qp.m).reshape(B * K, qp.m)
+    res = admm_solve(spec, fb, hb, lb.repeat(B, 1), ub.repeat(B, 1),
                      iters=iters)
-    feasible = res.r_prim_rel < feas_tol
-    objs = torch.where(feasible, res.obj, BIG)
+    feasible = (res.r_prim_rel < feas_tol).reshape(lead + (K,))
+    objs = torch.where(feasible, res.obj.reshape(lead + (K,)), BIG)
     k = first_arg(objs, largest=False)     # first minimum, as jnp.argmin
-    return res.x[k], objs[k], assignments[k], feasible
+    x = res.x.reshape(lead + (K, qp.n))
+    pick = k[..., None, None].expand(lead + (1, qp.n))
+    return (torch.gather(x, -2, pick)[..., 0, :],
+            torch.gather(objs, -1, k[..., None])[..., 0], assignments[k],
+            feasible)

@@ -1,4 +1,5 @@
-"""Device resolution shared by the port's entry points.
+"""Device resolution shared by the port's entry points, and the copy of
+a result to the host.
 
 Every entry point that takes a ``device`` defaults to the card
 (``"cuda"``) and raises when there is none; nothing carries on on the CPU
@@ -7,9 +8,18 @@ unless the caller asks for ``device="cpu"``, as the CPU tests do.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = "cuda"
+
+
+def to_numpy(v) -> np.ndarray:
+    """A host numpy array of ``v`` (a tensor on any device, or anything
+    numpy takes)."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
 
 
 def resolve_device(device=DEFAULT_DEVICE) -> torch.device:

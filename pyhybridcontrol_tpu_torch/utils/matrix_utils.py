@@ -19,6 +19,21 @@ def atleast_2d_col(a, dtype=None):
     return a
 
 
+def block_diag(blocks):
+    """Dense block-diagonal of a list of 2-D arrays."""
+    blocks = [np.asarray(b) for b in blocks]
+    if not blocks:
+        return np.zeros((0, 0))
+    out = np.zeros((sum(b.shape[0] for b in blocks),
+                    sum(b.shape[1] for b in blocks)), dtype=blocks[0].dtype)
+    r = c = 0
+    for b in blocks:
+        out[r:r + b.shape[0], c:c + b.shape[1]] = b
+        r += b.shape[0]
+        c += b.shape[1]
+    return out
+
+
 def block_diag_rep(block, n):
     """Block-diagonal with ``block`` repeated ``n`` times."""
     block = np.asarray(block)

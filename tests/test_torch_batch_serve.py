@@ -350,8 +350,12 @@ def test_scenario_batch_config_matches_reference():
         "scenario_batch", 10, 1024)
     assert convert.bnb_spec(j.bnb) == t.bnb
     assert get_config("double_integrator").batch == 1
-    with pytest.raises(KeyError):
-        get_config("sharded_bnb")
+    # config 5 runs on one card as one pooled batch (run.py)
+    t5, j5 = get_config("sharded_bnb"), j_get_config("sharded_bnb")
+    assert (t5.N, t5.T, t5.batch) == (j5.N, j5.T, j5.batch) == (20, 1, 512)
+    assert convert.bnb_spec(j5.bnb) == t5.bnb
+    with pytest.raises(KeyError, match="definitely_not"):
+        get_config("definitely_not")
 
 
 def _no_card():

@@ -1,10 +1,12 @@
 """The plain version's own fp32 noise on config 4c's pooled wave, on
-config 6's stagewise wave, or on the served config-2 request's wave (a
-development tool, not part of the package; runs on the CPU):
+config 6's stagewise wave, on the served config-2 request's wave, or on
+the decentralized micro-grid agents' wave (a development tool, not part
+of the package; runs on the CPU):
 
     python tools/plain_noise.py [--batch B] [--seed S]
     python tools/plain_noise.py --stagewise [--seed S]
     python tools/plain_noise.py --served [--seed S]
+    python tools/plain_noise.py --decentralized [--seed S]
 
 Builds config 4c's dense joint frame (the reference bench's tree: S=4,
 N=10, branching at steps 1 and 5), draws B seeded states and B&B-node
@@ -35,6 +37,15 @@ runs: the relaxation of 400 iterations, warm from 400 cold, in float32
 against float64, and again after a one-ulp change of q, with the share of
 instances that round a relaxed binary otherwise — what phase 9 of
 ``chip_smoke.py`` holds resident K2 at that shape to.
+
+``--decentralized``: the decentralized agents' wave as phase 23 of
+``chip_smoke.py`` draws it at ``--seed`` (``chip_smoke.surface_problem``:
+128 nodes of the DEWH frame at N=8, 200 + 200 iterations at ρ, warm from a
+cold wave), K2's plain version in float32 against float64: the field
+errors, the instances that round a relaxed binary otherwise, and the
+certificate bits that differ, with how many of those lie outside
+``chip_smoke.CERT_BAND`` of their threshold — what FLIP_SHARE_DEC and
+CERT_BAND_DEC are read against.
 """
 
 from __future__ import annotations
@@ -236,16 +247,60 @@ def served_readings(seed=5, B=64, iters=400):
             "the same, one ulp of q (float32 both)": flips(r1, r32)}
 
 
+def decentralized_readings(seed=0):
+    """{stage: errors or count} of K2's plain version in float32 against
+    float64 on the decentralized agents' wave (see the module
+    docstring)."""
+    import chip_smoke as cs
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+
+    cs.SEED = seed
+    rng = cs.phase_rng("surface_shapes")
+    for name, B, *_ in cs.SURFACE_SHAPES[:2]:     # the draws before it
+        cs.surface_problem(name, B, "cpu", rng)
+    name, B, iters, piters, *_ = cs.SURFACE_SHAPES[2]
+    spec, _, bidx, f, h, lb, ub = cs.surface_problem(name, B, "cpu", rng)
+    kq = ca.kernel_qp_for(spec)
+    kd = _double(kq)
+    kw = dict(iters=iters, probe_iters=piters)
+    cold = ca.admm_wave_plain(kq, None, bidx, f, h, lb, ub, **kw)
+    warm = (cold[0].x, cold[0].z, cold[0].y)
+    r32 = ca.admm_wave_plain(kq, None, bidx, f, h, lb, ub, warm=warm, **kw)
+    r64 = ca.admm_wave_plain(kd, None, bidx, f.double(), h.double(),
+                             lb.double(), ub.double(),
+                             warm=tuple(w.double() for w in warm), **kw)
+    b = torch.as_tensor(bidx)
+
+    def rounded(res):
+        return torch.round(torch.clamp(torch.clamp(
+            res.x[:, b].float(), lb[:, b], ub[:, b]), 0.0, 1.0))
+
+    out = {"relaxation, float32 vs float64": _errors(r32[0], r64[0]),
+           "instances rounding a binary otherwise": float(
+               (rounded(r32[0]) != rounded(r64[0])).any(-1).sum())}
+    for i, stage in ((0, "relaxation"), (1, "probe")):
+        differ = r32[i].infeas_cert != r64[i].infeas_cert
+        near = cs.cert_near((kq, f, h, lb, ub), r32[i],
+                            None if i == 0 else bidx)
+        out[f"{stage}: certificate bits that differ"] = float(differ.sum())
+        out[f"{stage}: of those outside CERT_BAND"] = float(
+            (differ & ~near).sum())
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=300)
     ap.add_argument("--seed", type=int, default=5)
     ap.add_argument("--stagewise", action="store_true")
     ap.add_argument("--served", action="store_true")
+    ap.add_argument("--decentralized", action="store_true")
     a = ap.parse_args(argv)
     torch.set_num_threads(4)
     got = (stagewise_readings(a.seed) if a.stagewise
            else served_readings(a.seed) if a.served
+           else decentralized_readings(a.seed) if a.decentralized
            else readings(a.batch, a.seed))
     for stage, errs in got.items():
         if isinstance(errs, float):
