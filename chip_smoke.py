@@ -218,12 +218,34 @@ Run from the root of a checkout. It builds the kernels of
  26. the decentralized micro-grid, 8 agents at N=8, 3 steps: every dual
      round one pooled B&B whose every K2 launch covers all agents' wave,
      the coupling held after rationing, λ printed;
- 27. the five examples' ``main`` at small arguments.
+ 27. the five examples' ``main`` at small arguments;
+ 28. K1 at root strong branching's batch, run with the kernel phases
+     (after 23): config 2's 120 candidate children of the root (each one
+     binary fixed), 400 iterations warm from the root relaxation, against
+     its plain version ("strong_branching" limits, certificate bits
+     identical: ``sb_fix`` fixes binaries from them), timed beside its
+     bound;
+ 29. config 2's search arms after the config-2/2b calls
+     (scripts/config2_sb_ab.py's config-2 arm: capacity 2048, wave 128, 64
+     waves, 200 + 600 iterations, rel_gap 0.02): none, sb_iters=400,
+     + sb_fix, + root_iters=3200 and dive_slots=16, depth_tiebreak=1e-2,
+     flipdelta, each a path: plans feasible in fp64, waves = K2 + gated
+     K1, strong branching's one K1 launch at B=120 apart, no arm's
+     certified lower bound above another's objective (serve_limit), the
+     JAX package's CPU readings printed beside; K2 held and timed on the
+     dive lane's last wave;
+ 30. config 2's split cuts (host fp64, the trust box [0.5, −1]–[2.5, 1])
+     and arm (d) on the cut frame: its plan feasible on both frames, its
+     objective no lower than the arms' certified bounds, K2 held and timed
+     on its last wave, an x0 outside the box refused on host and card;
+ 31. ``condense_device`` on the card against the host fp64 build (config
+     6's model at N=120; 64 DEWH variants at N=24 in one batched call) and
+     ``affine_scan_rollout`` against an fp64 simulation ("condense").
 
 Each phase prints its wall time, and the run its total. Launch counts are
 kept per path (PATHS): set to 0 just before each served request set, the
 pooled calls, the relaxation sweeps, the closed loops, the config-2 calls,
-config 4c's call and its single-instance feedbacks, config 6's two arms
+config 2's search arms and its cut-frame arm, config 4c's call and its single-instance feedbacks, config 6's two arms
 and the served stagewise requests, each ``run`` invocation, the
 checkpoint/resume study, each micro-grid run, the decentralized run and
 the examples, and read just after
@@ -305,7 +327,10 @@ SERVED = ("serve_config1", "serve_batch_request", "config2_serve",
 PATHS = SERVED + ("pooled_bench_spec", "pooled_carried_incumbents",
                   "relax_sweep_low_frac", "closed_loop_config1",
                   "closed_loop_N27", "relax_sweep_N27_low_frac",
-                  "config2_call", "config2b_call", "config3_loop",
+                  "config2_call", "config2b_call", "config2_sb_a",
+                  "config2_sb_b", "config2_sb_c", "config2_sb_d",
+                  "config2_sb_e", "config2_sb_f", "config2_cut",
+                  "config3_loop",
                   "config4b_loop", "config4c_call", "config4c_feedback",
                   "config6_parity", "config6_long", "stagewise_transforms",
                   "run_config1", "run_config3", "run_config2", "run_config4",
@@ -401,6 +426,23 @@ LIMITS = {
     # r_prim and r_prim_rel 0.107, r_dual 9.98
     "surfaces": dict(obj=7e-4, x=6.2e-4, z=9.1e-4, y=5.5e-2, r_prim=0.32,
                      r_prim_rel=0.32, r_dual=30.0),
+    # K1 at root strong branching's batch (config 2's 120 candidate
+    # children, 400 iterations warm from the root), 3x the largest reading
+    # of seeds 0-7 on an H100 (tools/sb_readings.py): obj 2.94e-6, x
+    # 3.57e-4, z 3.58e-4, y 2.67e-3, r_prim and r_prim_rel 3.56e-4, r_dual
+    # 2.52e-3 — the plain version's own fp32-vs-fp64 there: x 3.4e-4, y
+    # 3.2e-3, r_dual 2.2e-3 (tools/plain_noise.py --strong-branching)
+    "strong_branching": dict(obj=9e-6, x=1.1e-3, z=1.1e-3, y=8e-3,
+                             r_prim=1.1e-3, r_prim_rel=1.1e-3, r_dual=7.6e-3),
+    # device condensation (ops/condense_scan.py) against the host fp64
+    # build, error relative to max |ref| per operator (config 6's model at
+    # N=120 reads 0: its matrices are exact in fp32; the 64 DEWH variants
+    # at N=24 set these) and the N=120 rollout (xs): 3x the largest
+    # reading of seeds 0-7 on an H100 (tools/sb_readings.py), 5.70e-7,
+    # 5.33e-7, 5.28e-7, 4.04e-7, 5.16e-7, 5.33e-7, 5.11e-7, 3.17e-7, 1.27e-6
+    "condense": dict(Phi=1.7e-6, Gv=1.6e-6, Gw=1.6e-6, Gc=1.2e-6,
+                     Phi_t=1.5e-6, Gv_t=1.6e-6, Gw_t=1.5e-6, Gc_t=9.5e-7,
+                     xs=3.8e-6),
 }
 # the iterate check starts from the plain version's iterates after these
 # many split-precision iterations
@@ -2813,6 +2855,472 @@ def phase_config2_calls(dev):
     return out
 
 
+# ---- config 2's search options, its cut frame, device condensation -------
+# scripts/config2_sb_ab.py's config-2 arm: the PWA spring (hull), N=20, the
+# repair seed at 400 iterations, the probe prep at ρ=10, from [1.5, 0], to
+# the certified 2% stop
+CFG2_SB_SPEC = dict(capacity=2048, wave_size=128, max_waves=64,
+                    qp_iters=200, probe_iters=600, gap=1e-3,
+                    probe_patience=3, rel_gap=0.02)
+CFG2_SB = dict(sb_iters=400)
+CFG2_ARMS = {"a": {}, "b": CFG2_SB, "c": dict(CFG2_SB, sb_fix=True),
+             "d": dict(CFG2_SB, sb_fix=True, root_iters=3200,
+                       dive_slots=16),
+             "e": dict(depth_tiebreak=1e-2),
+             "f": dict(branching="flipdelta")}
+CFG2_X0 = [1.5, 0.0]
+# the x0 trust box of config 2's split cuts (tests/test_cuts.py's, around
+# CFG2_X0); cut generation takes the defaults (3 rounds of 8, no tilts)
+TRUST_BOX = ([0.5, -1.0], [2.5, 1.0])
+# the JAX package's readings of the same arms on the CPU (objective, nodes,
+# waves, best open bound; tools/config2_sb_reference.py); "cut": arm d on
+# the reference's own cut frame. A reading printed beside the port's, not
+# a gate: the two may walk other trees
+CFG2_ARMS_REF = {
+    "a": (61.004432678222656, 5561, 52, 59.82452392578125),
+    "b": (61.022605895996094, 6169, 64, 58.65373229980469),
+    "c": (61.00474166870117, 7423, 64, 58.65326690673828),
+    "d": (61.59383773803711, 7333, 64, 60.299102783203125),
+    "e": (60.991615295410156, 6457, 59, 59.79573440551758),
+    "f": (61.78522491455078, 7379, 64, 58.05635070800781),
+    "cut": (61.95021438598633, 7423, 64, 58.70197677612305),
+}
+
+
+def cfg2_setup(dev, c=None):
+    """Config 2's solve on ``dev`` (frame ``c``, else the bench's):
+    (frame, DeviceQP, ADMM prep, probe prep at ρ=10, repair spec)."""
+    from pyhybridcontrol_tpu_torch.ops.admm import prepare_admm_mpc
+    from pyhybridcontrol_tpu_torch.solver.repair import prepare_repair
+
+    model, w, c0 = bench_frame("config2")
+    c = c0 if c is None else c
+    return types.SimpleNamespace(
+        c=c, qp=c.device_qp(dev), admm=prepare_admm_mpc(c, device=dev),
+        admm_p=prepare_admm_mpc(c, rho=10.0, device=dev),
+        rspec=prepare_repair(model, w, device=dev))
+
+
+def cfg2_solve(st, spec, x0):
+    """One config-2 solve as the bench's call: assemble, repair seed, B&B."""
+    from pyhybridcontrol_tpu_torch.solver.bnb import solve_miqp_bnb
+    from pyhybridcontrol_tpu_torch.solver.repair import root_repair_incumbent
+
+    f, h = st.qp.assemble(x0)
+    seed = root_repair_incumbent(st.admm, st.qp, st.rspec, x0, f, h,
+                                 qp_iters=400)
+    return solve_miqp_bnb(st.admm, st.qp, f, h, spec, init_incumbent=seed,
+                          admm_probe=st.admm_p)
+
+
+@contextlib.contextmanager
+def captured(method, log):
+    """``CondensedBackend.<method>`` with each call's (backend, args,
+    kwargs) appended to ``log`` inside the block."""
+    from pyhybridcontrol_tpu_torch.solver.bnb import CondensedBackend
+
+    orig = getattr(CondensedBackend, method)
+
+    def call(self, *a, **kw):
+        log.append((self, a, kw))
+        return orig(self, *a, **kw)
+
+    setattr(CondensedBackend, method, call)
+    try:
+        yield log
+    finally:
+        setattr(CondensedBackend, method, orig)
+
+
+def sb_batch(st, x0):
+    """The candidate batch of root strong branching at x0 as K1 gets it:
+    ``_bnb_loop`` with no wave (the root relaxation, then the 2·nb
+    children, binary j fixed to 0 and to 1, 400 iterations warm from the
+    root), its ``solve_cert`` call captured. Returns (q, h, lb, ub, warm)."""
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+    from pyhybridcontrol_tpu_torch.solver.bnb import (
+        BnbSpec, CondensedBackend, _bnb_loop)
+
+    log = []
+    f, h = st.qp.assemble(x0)
+    with captured("solve_cert", log):
+        _bnb_loop(CondensedBackend(st.admm, st.qp, st.admm_p), f, h,
+                  BnbSpec(**dict(CFG2_SB_SPEC, **CFG2_ARMS["c"],
+                                 max_waves=0)))
+    (_, (q, hh, lb, ub, iters), kw), = log
+    check(iters == CFG2_SB["sb_iters"], f"sb_batch: {iters} iterations")
+    hb, lbb, ubb, warm = ca._batch(q, hh, lb, ub, kw["warm"], st.admm.m_ineq)
+    return q, hb, lbb, ubb, warm
+
+
+def variant(kernel, pl):
+    """The launch-count name of ``kernel`` ("admm_k1" or "admm_k2") under
+    plan ``pl``."""
+    return kernel + ("_streamed" if pl.streamed else "_resident"
+                     if pl.cluster > 1 else "")
+
+
+def phase_sb_batch(dev, rng, recs):
+    """K1 at root strong branching's batch: config 2's 2·nb = 120
+    candidate children of the root (each one binary fixed), 400 iterations
+    warm from the root relaxation, from CFG2_X0 at seed 0 and a state drawn
+    in the trust box otherwise; against its plain version on every output
+    ("strong_branching" limits) and on the certificate bits exactly:
+    ``sb_fix`` fixes binaries from them. Times the shape beside its
+    bound."""
+    import numpy as np
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+
+    x0 = (CFG2_X0 if SEED == 0
+          else rng.uniform(*TRUST_BOX).astype(np.float32).tolist())
+    print(f"K1 at the strong-branching batch (config 2, x0={x0}):",
+          flush=True)
+    st = cfg2_setup(dev)
+    q, h, lb, ub, warm = sb_batch(st, torch.tensor(x0, device=dev))
+    B, iters = q.shape[0], CFG2_SB["sb_iters"]
+    kq = ca.kernel_qp_for(st.admm)
+    pl = ca.plan(B, kq.n_pad, kq.m_pad)
+    rec = recs[variant("admm_k1", pl)]
+    args = (kq, q, h, lb, ub)
+    got = ca.admm_solve_cuda(*args, iters=iters, warm=warm)
+    ref = ca.admm_solve_plain(*args, iters=iters, warm=warm)
+    compare(f"K1 strong-branching batch B={B} {iters} it warm", got, ref,
+            rec, "strong_branching")
+    rec["config2_sb_plan"] = dict(B=B, pb=pl.pb, cluster=pl.cluster,
+                                  threads=pl.threads, smem=pl.smem)
+    print(f"  plan B={B}: {variant('admm_k1', pl)}, tile {pl.pb}, cluster "
+          f"{pl.cluster}", flush=True)
+    if TIMINGS:
+        timed(rec, f"config2_sb_B{B}_",
+              lambda: ca.admm_solve_cuda(*args, iters=iters, warm=warm),
+              lambda: ca.admm_solve_plain(*args, iters=iters, warm=warm),
+              admm_work(kq.n_pad, kq.m_pad, B, products=iters + 1, stats=1,
+                        warm=True))
+
+
+def hold_wave(tag, call, recs, pre):
+    """K2 on one wave the path gave it (``captured("solve_wave")``'s
+    entry) against its plain version: the relaxation on "main", the probe
+    on "wave_probe", FLIP_SHARE_HULL (config 2's hull binaries at 0.5),
+    certificate bits as phase 9's; and its times under keys ``pre``.
+    Returns the record's name."""
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+
+    be, (f, h, lb, ub, iters, piters), kw = call
+    kq, kq2 = ca.kernel_qp_for(be.admm), ca.kernel_qp_for(be.admm_probe)
+    hb, lbb, ubb, warm = ca._batch(f, h, lb, ub, kw.get("warm"),
+                                   be.admm.m_ineq)
+    B = f.shape[0]
+    pl = ca.plan(B, kq.n_pad, kq.m_pad)
+    name = variant("admm_k2", pl)
+    wargs = (kq, kq2, be.binary_idx, f, hb, lbb, ubb)
+    kwi = dict(iters=iters, probe_iters=piters, warm=warm)
+    compare_probe(f"K2 {tag} B={B} {iters}+{piters} it warm",
+                  ca.admm_wave_cuda(*wargs, **kwi),
+                  ca.admm_wave_plain(*wargs, **kwi),
+                  types.SimpleNamespace(binary_idx=be.binary_idx), lbb, ubb,
+                  recs[name], "main", flip_share=FLIP_SHARE_HULL,
+                  probe_regime="wave_probe", plain=(kq, f, hb, lbb, ubb))
+    recs[name][pre + "plan"] = dict(B=B, pb=pl.pb, cluster=pl.cluster,
+                                    threads=pl.threads, smem=pl.smem,
+                                    n_pad=kq.n_pad, m_pad=kq.m_pad)
+    timed(recs[name], pre, lambda: ca.admm_wave_cuda(*wargs, **kwi),
+          lambda: ca.admm_wave_plain(*wargs, **kwi),
+          admm_work(kq.n_pad, kq.m_pad, B, products=iters + piters + 2,
+                    stats=2, warm=True, stiff=True, outputs=2))
+    return name
+
+
+def arm_reading(path, kw, r, ms, c, sb_batch_size):
+    """Print and check one arm's solve: found, its plan feasible in fp64,
+    the waves = K2 + gated K1 launches (at the wave), root strong
+    branching's one K1 launch at its batch and the root solves at B=1
+    apart. Returns the reading."""
+    import numpy as np
+
+    got = PATH_LAUNCHES[path]
+    k1 = PATH_BATCHES[path].get("admm_k1_resident", {})
+    W = CFG2_SB_SPEC["wave_size"]
+    gated, sbl, roots = k1.get(W, 0), k1.get(sb_batch_size, 0), k1.get(1, 0)
+    sb = kw.get("sb_iters", 0) > 0
+    want_roots = int(sb) + int(kw.get("root_iters", 0)
+                               > CFG2_SB_SPEC["qp_iters"])
+    obj, bo = float(r.obj), float(r.best_open_bound)
+    gap = ((obj - bo) / max(1.0, abs(obj))
+           if np.isfinite(bo) and bo < obj else 0.0)
+    ref = CFG2_ARMS_REF.get(path.rsplit("_", 1)[-1])
+    print(f"  {path} {kw}: {ms:.1f} ms, {r.waves} waves, "
+          f"{int(r.nodes_solved)} nodes, objective {obj:.4f}, certified "
+          f"rel. gap {gap:.4f}, best open bound {bo:.4f}; resident K2 "
+          f"{got['admm_k2_resident']} (B={W}), resident K1 {gated} gated "
+          f"(B={W}) + {sbl} strong-branching (B={sb_batch_size}) + {roots} "
+          f"root (B=1)" + (f"; the JAX package on the CPU: objective "
+                           f"{ref[0]:.4f}, {ref[1]} nodes, {ref[2]} waves, "
+                           f"best open bound {ref[3]:.4f}" if ref else ""),
+          flush=True)
+    check(bool(r.found), f"{path}: no plan found")
+    others = {k: v for k, v in got.items() if v and k not in
+              ("admm_k1_resident", "admm_k2_resident")}
+    check(not others, f"{path}: other kernels launched: {others}")
+    check(set(k1) <= {W, sb_batch_size, 1}, f"{path}: K1 batches {k1}")
+    check(got["admm_k2_resident"] + gated == r.waves,
+          f"{path}: {r.waves} waves, launches {got}, K1 batches {k1}")
+    check(sbl == int(sb), f"{path}: {sbl} strong-branching launches")
+    check(roots == want_roots, f"{path}: {roots} root solves, want "
+          f"{want_roots}")
+    launched_at(path, ("admm_k2_resident",), W)
+    (fobj,) = plans_feasible(path, c, [(r.x.double().cpu().numpy(), CFG2_X0,
+                                        None, None)])
+    return dict(ms_per_solve=ms, waves=r.waves, nodes=int(r.nodes_solved),
+                objective=obj, objective_fp64=fobj, best_open_bound=bo,
+                certified_rel_gap=gap, k2=got["admm_k2_resident"],
+                k1_gated=gated, k1_strong_branching=sbl, k1_root=roots)
+
+
+def certified_low(o):
+    """A certified lower bound on the MIQP's optimum from one arm: the best
+    open bound, or the incumbent less the pruning gap where the search
+    closed every node below it."""
+    return min(o["best_open_bound"], o["objective"] - CFG2_SB_SPEC["gap"])
+
+
+def phase_config2_arms(dev, recs):
+    """Config 2's search arms (scripts/config2_sb_ab.py's config-2 arm):
+    (a) none, (b) sb_iters=400, (c) (b) + sb_fix, (d) root_iters=3200 + (c)
+    + dive_slots=16, (e) depth_tiebreak=1e-2, (f) branching="flipdelta";
+    each driven once after one warm-up solve of (d), as its own path. Each
+    plan feasible in fp64; every arm solves the same MIQP, so the largest
+    certified lower bound of an arm lies at most serve_limit above the
+    smallest objective. K2 is held on the last wave of the warm-up's dive
+    lane (its deepest nodes)."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    st = cfg2_setup(dev)
+    x0 = torch.tensor(CFG2_X0, device=dev)
+    B_sb = 2 * st.qp.n_binary
+    waves = []
+    with captured("solve_wave", waves):
+        cfg2_solve(st, BnbSpec(**CFG2_SB_SPEC, **CFG2_ARMS["d"]), x0)
+    out = {}
+    for arm, kw in CFG2_ARMS.items():
+        spec = BnbSpec(**CFG2_SB_SPEC, **kw)
+        path = f"config2_sb_{arm}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r, _ = drive(path, lambda: cfg2_solve(st, spec, x0))
+        out[arm] = arm_reading(path, kw, r, 1e3 * (time.perf_counter() - t0),
+                               st.c, B_sb)
+    low = max(certified_low(o) for o in out.values())
+    best = min(o["objective"] for o in out.values())
+    print(f"  across the arms: largest certified lower bound {low:.4f}, "
+          f"smallest objective {best:.4f}", flush=True)
+    check(low <= best + float(serve_limit(best)),
+          f"config 2 arms: a certified lower bound {low:.4f} above an "
+          f"objective {best:.4f}")
+    hold_wave("config 2 arm d, last dive-lane wave", waves[-1], recs,
+              "config2_dive_wave_")
+    return out
+
+
+def phase_config2_cut(dev, recs, arms):
+    """Config 2's split cuts (ops/cuts.py, the defaults, TRUST_BOX around
+    CFG2_X0), generated on the host in fp64, then arm (d) on the cut
+    frame: its plan feasible in fp64 on the cut frame and on the original
+    one, its objective no lower than the uncut arms' largest certified
+    lower bound less serve_limit, the K2 variant its plan picked held and
+    timed on its last wave; an x0 outside the box refused on the host and
+    on the card."""
+    import numpy as np
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+    from pyhybridcontrol_tpu_torch.ops.cuts import with_split_cuts
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    _, _, c = bench_frame("config2")
+    t0 = time.perf_counter()
+    cut, d = with_split_cuts(c, *TRUST_BOX, CFG2_X0,
+                             return_diagnostics=True)
+    gen_s = time.perf_counter() - t0
+    print(f"  split cuts: {d.n_cuts} in {d.rounds} rounds, {gen_s:.2f} s on "
+          f"the host; root bound {d.root_bound_before:.4f} → "
+          f"{d.root_bound_after:.4f}; frame {cut.nV}/{cut.G.shape[0]}"
+          + (f" ({d.notes})" if d.notes else ""), flush=True)
+    check(d.n_cuts > 0, "config 2: no split cut generated")
+    st = cfg2_setup(dev, cut)
+    kq = ca.kernel_qp_for(st.admm)
+    W = CFG2_SB_SPEC["wave_size"]
+    x0 = torch.tensor(CFG2_X0, device=dev)
+    spec = BnbSpec(**CFG2_SB_SPEC, **CFG2_ARMS["d"])
+    cfg2_solve(st, spec, x0)                          # warm-up
+    waves = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with captured("solve_wave", waves):
+        r, _ = drive("config2_cut", lambda: cfg2_solve(st, spec, x0))
+    ms = 1e3 * (time.perf_counter() - t0)
+    obj, bo = float(r.obj), float(r.best_open_bound)
+    got = PATH_LAUNCHES["config2_cut"]
+    ref = CFG2_ARMS_REF.get("cut")
+    print(f"  arm d on the cut frame: {ms:.1f} ms, {r.waves} waves, "
+          f"{int(r.nodes_solved)} nodes, objective {obj:.4f}, best open "
+          f"bound {bo:.4f}; launches {({k: v for k, v in got.items() if v})}"
+          + (f"; the JAX package on the CPU: objective {ref[0]:.4f}, "
+             f"{ref[1]} nodes, {ref[2]} waves, best open bound {ref[3]:.4f}"
+             if ref else ""), flush=True)
+    check(bool(r.found), "config 2 cut frame: no plan found")
+    k2n = sum(v for k, v in got.items() if k.startswith("admm_k2"))
+    k1w = sum(v.get(W, 0) for k, v in PATH_BATCHES["config2_cut"].items()
+              if k.startswith("admm_k1"))
+    check(k2n + k1w == r.waves, f"config 2 cut frame: {r.waves} waves, "
+          f"launches {PATH_BATCHES['config2_cut']}")
+    V = r.x.double().cpu().numpy()
+    (fcut,) = plans_feasible("config2_cut on the cut frame", cut,
+                             [(V, CFG2_X0, None, None)])
+    (forig,) = plans_feasible("config2_cut on the original frame", c,
+                              [(V, CFG2_X0, None, None)])
+    low = max(certified_low(o) for o in arms.values())
+    check(forig >= low - float(serve_limit(low)),
+          f"config 2 cut frame: objective {forig:.4f} below the uncut "
+          f"arms' certified lower bound {low:.4f}")
+    k2 = hold_wave("config 2 cut frame, last wave", waves[-1], recs,
+                   "config2_cut_wave_")
+    check(got[k2] > 0, f"config 2 cut frame: {k2} never launched: {got}")
+    print(f"  the cut frame's waves: {k2} (padded {kq.n_pad}/{kq.m_pad}), "
+          f"{got[k2]} launches at B={W}", flush=True)
+    outside = [TRUST_BOX[1][0] + 0.5, 0.0]
+    for what, fn in (("assemble_np", lambda: cut.assemble_np(outside)),
+                     ("DeviceQP.assemble", lambda: st.qp.assemble(
+                         torch.tensor(outside, device=dev)))):
+        try:
+            fn()
+        except ValueError as e:
+            check("trust box" in str(e), f"{what}: {e}")
+        else:
+            check(False, f"{what}: x0={outside} outside the trust box taken")
+    print(f"  x0={outside} outside the trust box: refused on the host and "
+          f"on the card", flush=True)
+    return dict(cuts=d.n_cuts, rounds=d.rounds, gen_s=gen_s,
+                root_bound_before=d.root_bound_before,
+                root_bound_after=d.root_bound_after, ms_per_solve=ms,
+                waves=r.waves, nodes=int(r.nodes_solved), objective=obj,
+                objective_fp64=fcut, best_open_bound=bo, k2_variant=k2,
+                k2_launches=got[k2])
+
+
+CONDENSE_NAMES = ("Phi", "Gv", "Gw", "Gc", "Phi_t", "Gv_t", "Gw_t", "Gc_t")
+CONDENSE_VARIANTS = 64      # DEWH parameter variants condensed in one call
+CFG6_N = 120
+
+
+def max_rel(got, ref):
+    """max |got − ref| / max |ref| (the absolute error where ref is 0)."""
+    import numpy as np
+
+    got = got.double().cpu().numpy()
+    ref = np.asarray(ref, np.float64)
+    if got.size == 0:
+        return 0.0
+    scale = float(np.abs(ref).max())
+    return float(np.abs(got - ref).max() / (scale if scale > 0 else 1.0))
+
+
+def held_rel(tag, regime, errs):
+    """Errors relative to max |ref| within the regime's limits."""
+    limits, seen = LIMITS[regime], READINGS.setdefault(regime, {})
+    for k, v in errs.items():
+        seen[k] = max(seen.get(k, 0.0), v)
+    print(f"  {tag}: " + " ".join(f"{k}={v:.2e}" for k, v in errs.items()),
+          flush=True)
+    for k, v in errs.items():
+        what = f"{tag}: {k} off by {v:.3e}, limit {limits[k]:.1e}"
+        if v > limits[k] and READINGS_ONLY:
+            OVER.append(what)
+        else:
+            check(v <= limits[k], what)
+
+
+def phase_condense(dev, rng):
+    """Device condensation (ops/condense_scan.py) on the card against the
+    host fp64 build (``CondensedMpc.pred``): config 6's model (the double
+    integrator with a velocity disturbance) at N=120; config 3's DEWH at
+    N=24 over CONDENSE_VARIANTS parameter variants (C_w, UA, P_h, T_amb
+    each scaled by U(0.8, 1.2)) in one batched call; and
+    ``affine_scan_rollout`` at N=120 against an fp64 simulation. Errors
+    relative to max |ref| ("condense" limits); times of the device build
+    and of the host one."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pyhybridcontrol_tpu_torch.mld.model import MldModel
+    from pyhybridcontrol_tpu_torch.models import (
+        DewhParams, dewh_model, dewh_weights, di_default_weights)
+    from pyhybridcontrol_tpu_torch.ops.condense import CondensedMpc
+    from pyhybridcontrol_tpu_torch.ops.condense_scan import (
+        affine_scan_rollout, condense_device)
+    from pyhybridcontrol_tpu_torch.utils.structdict import StructDict
+
+    out = {}
+    model = omega_model()
+    t0 = time.perf_counter()
+    host = CondensedMpc(model, CFG6_N, di_default_weights()).pred
+    host_s = time.perf_counter() - t0
+    dm = model.to(dev)
+    got = condense_device(dm, CFG6_N)
+    held_rel(f"condense_device config 6 N={CFG6_N}", "condense",
+             {k: max_rel(got[k], host[k]) for k in CONDENSE_NAMES})
+    out["config6"] = dict(ms=cuda_ms(lambda: condense_device(dm, CFG6_N)),
+                          host_build_s=host_s)
+    base = DewhParams()
+    params = [dataclasses.replace(base, **{
+        k: getattr(base, k) * float(rng.uniform(0.8, 1.2))
+        for k in ("C_w", "UA", "P_h", "T_amb")})
+        for _ in range(CONDENSE_VARIANTS)]
+    models = [dewh_model(p) for p in params]
+    stacked = MldModel(mats=StructDict({
+        k: torch.stack([m.mats[k] for m in models]).to(dev)
+        for k in models[0].mats}), info=models[0].info)
+    t0 = time.perf_counter()
+    hosts = [CondensedMpc(m, DEWH_N, dewh_weights()).pred for m in models]
+    host_s = time.perf_counter() - t0
+    got = condense_device(stacked, DEWH_N)
+    held_rel(f"condense_device config 3's DEWH N={DEWH_N}, "
+             f"{CONDENSE_VARIANTS} variants", "condense",
+             {k: max(max_rel(got[k][i], hosts[i][k])
+                     for i in range(CONDENSE_VARIANTS))
+              for k in CONDENSE_NAMES})
+    out["config3_variants"] = dict(
+        ms=cuda_ms(lambda: condense_device(stacked, DEWH_N)),
+        host_build_s=host_s)
+    m = model.numpy_mats()
+    nv = model.info.nv
+    v = rng.uniform(-1.0, 1.0, (CFG6_N, nv)).astype(np.float32)
+    w = rng.normal(0.0, 0.2, (CFG6_N, 1)).astype(np.float32)
+    x0 = np.array([2.0, 0.0], np.float32)
+    Bv = np.hstack([m.B1, m.B2, m.B3])
+    x, ref = x0.astype(np.float64), []
+    for k in range(CFG6_N):
+        x = m.A @ x + Bv @ v[k] + m.B4 @ w[k] + m.b5[:, 0]
+        ref.append(x)
+    args = on_card(dev, x0, v, w)
+    held_rel(f"affine_scan_rollout config 6 N={CFG6_N}", "condense",
+             {"xs": max_rel(affine_scan_rollout(dm, *args), np.array(ref))})
+    out["rollout_ms"] = cuda_ms(lambda: affine_scan_rollout(dm, *args))
+    print(f"  condense_device: config 6 N={CFG6_N} "
+          f"{out['config6']['ms']:.3f} ms (host fp64 build "
+          f"{out['config6']['host_build_s']:.2f} s); DEWH N={DEWH_N} × "
+          f"{CONDENSE_VARIANTS} {out['config3_variants']['ms']:.3f} ms (host "
+          f"{out['config3_variants']['host_build_s']:.2f} s); "
+          f"affine_scan_rollout {out['rollout_ms']:.3f} ms", flush=True)
+    return out
+
+
 def leaf_oracle(c, f, h, bits):
     """fp64 oracle objective of the leaf of ``c`` whose binaries are
     ``bits`` (the reduced QP in the free variables, as the enumeration
@@ -4624,6 +5132,8 @@ def main(argv=None):
     phase("K5", phase_k5, dev, phase_rng("k5"), recs["stagewise_k5"])
     phase("K2 at the surfaces' waves", phase_surface_shapes, dev,
           phase_rng("surface_shapes"), recs)
+    phase("K1 at the strong-branching batch", phase_sb_batch, dev,
+          phase_rng("sb_batch"), recs)
     for regime, seen in READINGS.items():
         print(f"largest error, {regime} (limit): " + " ".join(
             f"{k}={v:.2e} ({LIMITS[regime][k]:.0e})"
@@ -4640,6 +5150,12 @@ def main(argv=None):
                            sweep27_args, recs["admm_k1_split"]))
     phase("serve config 2", phase_config2_serve, dev)
     calls = phase("config 2/2b calls", phase_config2_calls, dev)
+    calls["config2_sb"] = phase("config 2 search options",
+                                phase_config2_arms, dev, recs)
+    calls["config2_cut"] = phase("config 2 cut frame", phase_config2_cut,
+                                 dev, recs, calls["config2_sb"])
+    calls["condense_device"] = phase("device condensation", phase_condense,
+                                     dev, phase_rng("condense"))
     phase("exact hold", phase_exact_hold, dev)
     loops["config3"] = phase("closed loop config 3", phase_config3_loop, dev)
     loops["config4b"] = phase("pooled loop config 4b", phase_config4b_loop,

@@ -329,6 +329,8 @@ class MpcController:
         """
         self.build()
         info = self.model.info
+        if self._cmpc is not None and not isinstance(x0, torch.Tensor):
+            self._cmpc.check_x0(x0)      # a frame with cuts: its trust box
         x0 = self._tensor(x0)
         if x0.ndim != 1 or x0.shape[0] != info.nx:
             raise ValueError(f"x0 must have shape ({info.nx},), got "

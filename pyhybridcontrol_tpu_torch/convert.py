@@ -153,8 +153,7 @@ def kernel_qp(ref, base: BoxQP) -> KernelQP:
 
 
 def bnb_spec(ref) -> BnbSpec:
-    """A reference ``BnbSpec`` → port BnbSpec, every field (an option the
-    port has not got raises ``NotImplementedError`` there)."""
+    """A reference ``BnbSpec`` → port BnbSpec, every field."""
     return BnbSpec(**{f.name: getattr(ref, f.name)
                       for f in dataclasses.fields(BnbSpec)})
 

@@ -118,6 +118,8 @@ class DeviceQP:
     N: int
     info: MldInfo
     binary_shift: Tuple[int, ...] = ()
+    # (lo, hi) x0 trust box of a frame with split cuts (ops/cuts.py)
+    x0_box: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     @property
     def n(self) -> int:
@@ -133,7 +135,14 @@ class DeviceQP:
 
     def assemble(self, x0, W=None, u_prev=None, price_seq=None):
         """Feedback-time RHS assembly: returns (f, h); leading batch dims
-        of x0 / W broadcast."""
+        of x0 / W broadcast. A frame with a trust box refuses an x0
+        outside it (one host read)."""
+        if self.x0_box is not None:
+            lo, hi = self.x0_box
+            if bool(((x0 < lo) | (x0 > hi)).any()):
+                raise ValueError(
+                    f"an x0 lies outside the trust box [{lo.tolist()}, "
+                    f"{hi.tolist()}] the frame's split cuts are valid on")
         f = self.f0 + x0 @ self.Fx.T
         h = self.h0 + x0 @ self.Hx.T
         if W is not None and self.Fw.shape[-1] > 0:
@@ -165,6 +174,10 @@ class CondensedMpc:
         c = c.with_soft_constraints(rows, lin_pen, quad_pen)  # optional
         qp = c.device_qp()                    # fp32 tensors on the card
     """
+
+    # (lo, hi) float64 x0 trust box: set by ops/cuts.with_split_cuts,
+    # carried by every transform; None on a frame without cuts
+    x0_box = None
 
     def __init__(self, model: MldModel, N: int,
                  weights: Optional[MpcWeights] = None,
@@ -478,7 +491,21 @@ class CondensedMpc:
         return c
 
     # -- host-side assembly (oracle path, float64) --------------------------
+    def check_x0(self, x0):
+        """Raise a ValueError where x0 lies outside the frame's trust box
+        (a frame without cuts takes every x0)."""
+        if self.x0_box is None:
+            return
+        x0 = np.asarray(x0, np.float64)
+        lo, hi = self.x0_box
+        if np.any(x0 < lo) or np.any(x0 > hi):
+            raise ValueError(
+                f"x0 {x0.tolist()} lies outside the trust box "
+                f"[{lo.tolist()}, {hi.tolist()}] the frame's split cuts "
+                "are valid on")
+
     def assemble_np(self, x0, W=None, u_prev=None, price_seq=None):
+        self.check_x0(x0)
         f = self.f0 + self.Fx @ np.asarray(x0, dtype=np.float64)
         h = self.h0 + self.Hx @ np.asarray(x0, dtype=np.float64)
         if W is not None and self.Fw.shape[1] > 0:
@@ -550,6 +577,8 @@ class CondensedMpc:
             N=self.N,
             info=self.info,
             binary_shift=self._binary_shift_perm(),
+            x0_box=(None if self.x0_box is None
+                    else tuple(t(b) for b in self.x0_box)),
         )
 
     @property

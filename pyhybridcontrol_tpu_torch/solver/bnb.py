@@ -36,15 +36,24 @@ Port decisions:
   round → ``solve_probe``; without ``node_bound`` its node bounds are
   uncertified (the relaxation's objective where it converged, else the
   parent's); ``node_cert`` runs only with ``presolve_fix``.
-- Ported options: pseudo-cost and most-fractional branching, the
-  certificate-backed node presolve (``presolve_fix``) and its absence,
-  warm starts on or off, flip-delta child bounds, always-on or gated dive
-  probes (``probe_patience``), ``rel_gap`` termination, ``root_iters``,
-  the carried-plan ``init_node``, and ``pool_norm`` for the pooled engine
-  (solver/bnb_pooled.py). ``dive_slots``, ``sb_iters``/``sb_fix``,
-  ``depth_tiebreak`` and ``branching="flipdelta"`` raise
-  ``NotImplementedError``; the multi-device hooks wait for ROADMAP queue
-  1 ("multi-device").
+- Every ``BnbSpec`` option of the reference is ported: pseudo-cost,
+  most-fractional and flip-delta branching, the certificate-backed node
+  presolve (``presolve_fix``) and its absence, warm starts on or off,
+  flip-delta child bounds, always-on or gated dive probes
+  (``probe_patience``), ``rel_gap`` termination, ``root_iters``, the
+  carried-plan ``init_node``, the depth tie-break (``depth_tiebreak``),
+  the diving lane (``dive_slots``), root strong branching
+  (``sb_iters``/``sb_fix``), and ``pool_norm`` for the pooled engine
+  (solver/bnb_pooled.py, which refuses the four search options the
+  reference's pooled engine ignores). The multi-device hooks wait for
+  ROADMAP queue 1 item 4.
+- The diving lane: the reference points short-frontier picks at the
+  out-of-bounds slot so that their scatters drop; here they select the
+  dump row C with ``valid`` false (``bnb_pooled.SCATTER_HOOK`` sees
+  these scatters as "bnb_parent" and "bnb_child1").
+- Root strong branching runs its 2·nb candidate children as one batch
+  padded to a grain of 8 (the reference's grain off the TPU), through
+  ``solve_cert``, which is ``solve`` here: on the card one K1 launch.
 """
 
 from __future__ import annotations
@@ -112,6 +121,14 @@ class CondensedBackend:
         return admm_solve_auto(self.admm, f, h, lb, ub, iters=iters,
                                warm=warm)
 
+    def solve_cert(self, f, h, lb, ub, iters, warm=None):
+        """Certificate-grade batched solve: root strong branching fixes
+        binaries and lifts the root bound off these certificates. The
+        reference keeps it off its Pallas kernel, which sums the
+        certificate in plain fp32; K1 sums it in fp64, as its plain
+        version does, so here it is ``solve``: K1 on the card."""
+        return self.solve(f, h, lb, ub, iters, warm=warm)
+
     def solve_probe(self, f, h, lb, ub, iters, warm=None):
         """Dive probe on its own (the unfused composition): stiff-ρ for
         the first half of the iterations when there is a probe prep, then
@@ -160,16 +177,23 @@ class BnbSpec:
     probe_patience: int = 0      # probe gating: 0 → probe every wave; k>0
     # → after k waves without a better incumbent, probe every (k+1)-th
     # wave only; leaves met on a gated wave wait for the next probing wave
-    branching: str = "pseudocost"   # or "most_frac"
+    branching: str = "pseudocost"   # or "most_frac", or "flipdelta"
+    # (the Falk certificate's flip delta × fractionality; needs
+    # presolve_fix, else most-fractional)
     presolve_fix: bool = True    # certificate-backed node presolve
     pool_norm: str = "none"      # pooled engine only: "none" | "relgap"
+    depth_tiebreak: float = 0.0  # selection priority bound − dt·depth:
+    # diving on bound plateaus (search order only)
+    sb_iters: int = 0            # root strong branching: all 2·nb
+    # candidate children solved as one batch of sb_iters iterations, warm
+    # from the root; seeds the pseudo-costs
+    sb_fix: bool = False         # + fix binaries from the candidates'
+    # infeasibility certificates (or the incumbent) and lift the root
+    # bound to max_j min(cert_j0, cert_j1)
+    dive_slots: int = 0          # wave slots for the deepest active nodes
+    # not picked best-first (the diving lane; search order only)
     root_iters: int = 0          # root pre-solve: root_iters − qp_iters
     # extra iterations stored as the root's warm start (needs warm_start)
-    # the reference's other options; only their defaults are ported
-    depth_tiebreak: float = 0.0
-    sb_iters: int = 0            # root strong branching
-    sb_fix: bool = False
-    dive_slots: int = 0          # diving lane
 
     def __post_init__(self):
         if self.wave_size > self.capacity:
@@ -190,16 +214,6 @@ class BnbSpec:
             raise ValueError("need 0 <= dive_slots < wave_size")
         if self.pool_norm not in ("none", "relgap"):
             raise ValueError(f"unknown pool_norm {self.pool_norm!r}")
-        unported = dict(depth_tiebreak=0.0, sb_iters=0, sb_fix=False,
-                        dive_slots=0)
-        bad = [k for k, v in unported.items() if getattr(self, k) != v]
-        if self.branching == "flipdelta":
-            bad.append("branching='flipdelta'")
-        if bad:
-            raise NotImplementedError(
-                f"BnbSpec option(s) {bad} are not ported to "
-                "pyhybridcontrol_tpu_torch yet (ROADMAP queue 1, item "
-                "'BnbSpec options'); leave them at their defaults")
 
 
 @dataclasses.dataclass
@@ -213,6 +227,7 @@ class BnbState:
     y_pool: torch.Tensor       # (C+1, m̄) parent dual (scaled frame)
     bound: torch.Tensor        # (C+1,) parent relaxation lower bound
     active: torch.Tensor       # (C+1,) bool
+    depth: torch.Tensor        # (C+1,) i64
     branch_var: torch.Tensor   # (C+1,) i64 — binary branched on (−1: root)
     branch_dir: torch.Tensor   # (C+1,) i64 — 0 / 1
     branch_frac: torch.Tensor  # (C+1,) f32 — parent's relaxed value
@@ -257,6 +272,7 @@ def _init_state(backend, spec: BnbSpec, dtype, m_total: int,
         y_pool=full((C + 1, m_total), 0.0),
         bound=full((C + 1,), -BIG),
         active=active,
+        depth=full((C + 1,), 0, torch.long),
         branch_var=full((C + 1,), -1, torch.long),
         branch_dir=full((C + 1,), 0, torch.long),
         branch_frac=full((C + 1,), 0.5),
@@ -332,6 +348,8 @@ def _bnb_loop(backend, f, h, spec: BnbSpec, init_incumbent=None,
         ub[:, bidx] = torch.where(fm, fv, 1.0)
         return lb, ub
 
+    if spec.sb_iters > 0 and getattr(backend, "node_bound", None) is not None:
+        _root_strong_branching(backend, s, spec, f, h, bidx, node_bounds)
     fb, hb = backend.broadcast_data(f, h, W)
     piters = spec.probe_iters or spec.qp_iters
     acc_tol = spec.inc_tol or spec.feas_tol
@@ -390,9 +408,8 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
     W, C = spec.wave_size, spec.capacity
     nb = bidx.shape[0]
 
-    # -- 1. best-first selection --------------------------------------------
-    sel = first_k(torch.where(s.active[:C], s.bound[:C], BIG), W)
-    valid = s.active[sel]
+    # -- 1. best-first selection (+ the diving lane) ------------------------
+    sel, valid = _select(s, spec)
     fm = s.fix_mask[sel]
     fv = s.fix_val[sel]
     parent_bound = s.bound[sel]
@@ -518,6 +535,10 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
     # per-direction mean (1.0 before any → f·(1−f), most fractional)
     if spec.branching == "pseudocost":
         score = _pseudocost_score(s.pc_sum[:nb], s.pc_cnt[:nb], xbc, frac)
+    elif spec.branching == "flipdelta" and presolve:
+        # the certified flip delta of the tangent-disfavoured child, blended
+        # with fractionality; without presolve data: most fractional
+        score = flip_delta * torch.clamp_min(frac, 1e-4)
     else:
         score = frac
     jstar = first_arg(torch.where(fm2, -1.0, score), dim=1)
@@ -530,6 +551,7 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
     cfv1 = torch.where(branch_hot, 1.0, fv2)
     cbf = torch.gather(xbc, 1, jstar[:, None])[:, 0]
     cbv = torch.where(has_branch, jstar, -1)
+    cdepth = s.depth[sel] + 1
     # flip-delta child bound: the certified extra bound of the child fixed
     # to the tangent-disfavoured side of jstar
     if presolve:
@@ -539,11 +561,14 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
     else:
         child0_bound = child1_bound = child_bound
 
-    # child-0 into the parent slot (sel holds distinct slots)
+    # child-0 into the parent slot (sel holds distinct slots, but for the
+    # diving lane's short-frontier picks, which all select the dump row C)
+    _watch("bnb_parent", sel, C)
     e1 = expand[:, None]
     s.fix_mask[sel] = torch.where(e1, cfm, fm)
     s.fix_val[sel] = torch.where(e1, cfv0, fv)
     s.bound[sel] = torch.where(expand, child0_bound, child_bound)
+    s.depth[sel] = cdepth
     s.branch_var[sel] = torch.where(expand, cbv, bv)
     s.branch_dir[sel] = torch.where(expand, 0, bdir)
     s.branch_frac[sel] = torch.where(expand, cbf, s.branch_frac[sel])
@@ -562,9 +587,11 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
     src = first_k(torch.where(clive, child1_bound, BIG), W)
     write_ok = slot_free & clive[src]
     tgt = torch.where(write_ok, free_slots, C)
+    _watch("bnb_child1", tgt, C)
     s.fix_mask[tgt] = cfm[src]
     s.fix_val[tgt] = cfv1[src]
     s.bound[tgt] = child1_bound[src]
+    s.depth[tgt] = cdepth[src]
     s.branch_var[tgt] = cbv[src]
     s.branch_dir[tgt] = 1
     s.branch_frac[tgt] = cbf[src]
@@ -584,6 +611,107 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
     s.best_open = torch.minimum(torch.where(act, s.bound[:C], BIG).min(),
                                 s.dropped_min)
     s.nodes_solved = s.nodes_solved + valid.sum()
+
+
+def _select(s: BnbState, spec: BnbSpec):
+    """(slots, valid) of one wave: the W best-priority active nodes, the
+    priority bound − depth_tiebreak·depth, ties by lower slot. With
+    ``dive_slots`` = k the last k picks are the deepest active nodes not
+    picked best-first (ties: best bound); where fewer remain, the surplus
+    picks select the dump row C with ``valid`` false."""
+    W, C = spec.wave_size, spec.capacity
+    active, bound = s.active[:C], s.bound[:C]
+    pri = bound
+    if spec.depth_tiebreak > 0:
+        pri = pri - spec.depth_tiebreak * s.depth[:C]
+    pri = torch.where(active, pri, BIG)
+    if spec.dive_slots == 0:
+        sel = first_k(pri, W)
+        return sel, s.active[sel]
+    k = spec.dive_slots
+    sel_b = first_k(pri, W - k)
+    taken = torch.zeros_like(active)
+    taken[sel_b] = True
+    dive_pri = torch.where(
+        active & ~taken,
+        s.depth[:C].to(bound.dtype) - torch.clamp(bound, -BIG, BIG) * 1e-9,
+        -BIG)
+    sel_d = first_k(dive_pri, k, descending=True)
+    real = dive_pri[sel_d] > -BIG
+    sel_d = torch.where(real, sel_d, C)
+    sel = torch.cat([sel_b, sel_d])
+    return sel, torch.cat([s.active[sel_b], s.active[sel_d] & real])
+
+
+def _root_strong_branching(backend, s: BnbState, spec: BnbSpec, f, h, bidx,
+                           node_bounds):
+    """Batched root strong branching (``sb_iters``): the root relaxation,
+    then all 2·nb candidate children (binary j fixed to 0, then to 1) as
+    one batch of ``sb_iters`` iterations warm from the root, padded to a
+    grain of 8 (the padding rows re-solve candidate 0 and are dropped).
+    Their certified bounds seed the pseudo-costs; with ``sb_fix`` a side
+    whose child is certified infeasible (or cannot beat the incumbent)
+    fixes the binary to the other side at the root, and the root bound
+    rises to max_j min(cert_j0, cert_j1). Only the dual infeasibility
+    certificate fixes: a large residual is just unconverged."""
+    nb = bidx.shape[0]
+    node_bound = backend.node_bound
+    lb, ub = backend.lb, backend.ub
+    warm0 = ((s.x_pool[0], s.z_pool[0], s.y_pool[0])
+             if spec.warm_start and spec.root_iters > spec.qp_iters else None)
+    r_root = backend.solve(f, h, lb, ub, spec.qp_iters, warm=warm0)
+    rb = node_bound(r_root, f, h, lb, ub)
+    root_bound = torch.where(torch.isfinite(rb), rb, -BIG)
+    xb0 = torch.clamp(r_root.x[bidx], 0.0, 1.0)
+    SB = 2 * nb
+    SBW = max(-(-SB // 8) * 8, 8)
+    rows = torch.arange(SBW, device=bidx.device)
+    fmc = torch.nn.functional.one_hot(rows % nb, nb).bool()
+    one = (rows >= nb) & (rows < SB)
+    fvc = torch.where(fmc & one[:, None], 1.0, 0.0).to(s.fix_val.dtype)
+    lbc, ubc = node_bounds(fmc, fvc)
+    fc, hc = backend.broadcast_data(f, h, SBW)
+    warmc = tuple(v.expand((SBW,) + v.shape)
+                  for v in (r_root.x, r_root.z, r_root.y))
+    solve_c = getattr(backend, "solve_cert", backend.solve)
+    rc = solve_c(fc, hc, lbc, ubc, spec.sb_iters, warm=warmc)
+    certc = node_bound(rc, fc, hc, lbc, ubc)
+    certc = torch.where(torch.isfinite(certc),
+                        torch.maximum(certc, root_bound), root_bound)
+    infc = rc.infeas_cert
+    certc = torch.where(infc, BIG, certc)
+    cert0, cert1 = certc[:nb], certc[nb:SB]
+    inf0, inf1 = infc[:nb], infc[nb:SB]
+    # pseudo-cost seeding with real per-unit degradations; an infeasible
+    # child counts as the largest finite gain observed (at least 1)
+    gain0 = torch.clamp_min(torch.where(inf0, 0.0, cert0) - root_bound, 0.0)
+    gain1 = torch.clamp_min(torch.where(inf1, 0.0, cert1) - root_bound, 0.0)
+    gmax = torch.clamp_min(torch.maximum(gain0, gain1).max(), 1.0)
+    gain0 = torch.where(inf0, gmax, gain0)
+    gain1 = torch.where(inf1, gmax, gain1)
+    s.pc_sum[:nb, 0] += gain0 / torch.clamp_min(xb0, 1e-3)
+    s.pc_sum[:nb, 1] += gain1 / torch.clamp_min(1.0 - xb0, 1e-3)
+    s.pc_cnt[:nb] += 1.0
+    if spec.sb_fix:
+        beat = s.inc_obj - spec.gap
+        lose0 = inf0 | (s.inc_found & (cert0 >= beat))
+        lose1 = inf1 | (s.inc_found & (cert1 >= beat))
+        fixj = lose0 | lose1
+        s.fix_val[0] = torch.where(fixj, torch.where(lose0, 1.0, 0.0),
+                                   s.fix_val[0])
+        s.fix_mask[0] |= fixj
+        lift = torch.maximum(torch.minimum(cert0, cert1).max(), root_bound)
+        s.bound[0] = torch.maximum(s.bound[0], lift)
+    if spec.warm_start:
+        s.x_pool[0], s.z_pool[0], s.y_pool[0] = r_root.x, r_root.z, r_root.y
+
+
+def _watch(name: str, idx, dump_row: int):
+    """Show a pool scatter to ``bnb_pooled.SCATTER_HOOK`` (a test hook)."""
+    from pyhybridcontrol_tpu_torch.solver import bnb_pooled
+
+    if bnb_pooled.SCATTER_HOOK is not None:
+        bnb_pooled.SCATTER_HOOK(name, idx, dump_row)
 
 
 def _presolve_fix(fm, fv, ok_node, parent_bound, cert, cert_fin, flip_delta,

@@ -63,8 +63,11 @@ Port decisions:
   at ρ·10 then at ρ (K2 rounds per coordinate) — and no node presolve
   fixing (per-coordinate flip deltas do not certify a group flip); the
   certified node bound is kept.
-- ``dive_slots`` > 0 raises ``NotImplementedError``; the reference's
-  pooled engine silently ignores it.
+- The single-instance loop's search options ``dive_slots``,
+  ``sb_iters``/``sb_fix``, ``depth_tiebreak`` and
+  ``branching="flipdelta"`` raise ``NotImplementedError`` here: the
+  reference's pooled engine silently ignores the first three and runs
+  flip-delta as most-fractional.
 """
 
 from __future__ import annotations
@@ -168,10 +171,17 @@ def _pooled_loop(backend, f, h, spec: BnbSpec, pool_slots: int,
     incumbent fields and global wave/node counters (and the final
     :class:`PooledState` with ``return_state``). ``branch_map``: optional
     (nb,) information-set group id of each binary (module docstring)."""
-    if spec.dive_slots > 0:
+    bad = [k for k, v in (("dive_slots", spec.dive_slots > 0),
+                          ("sb_iters", spec.sb_iters > 0),
+                          ("sb_fix", spec.sb_fix),
+                          ("depth_tiebreak", spec.depth_tiebreak > 0),
+                          ("branching='flipdelta'",
+                           spec.branching == "flipdelta")) if v]
+    if bad:
         raise NotImplementedError(
-            "dive_slots is not ported to the pooled engine (ROADMAP queue "
-            "1: BnbSpec options); the reference's pooled engine ignores it")
+            f"the pooled engine does not run the search option(s) {bad} "
+            "(the reference's pooled engine ignores them; ROADMAP decision): "
+            "solve single instances with solve_miqp_bnb")
     B, n = f.shape
     nb = len(backend.binary_idx)
     P, W, mt = pool_slots, spec.wave_size, backend.warm_size

@@ -496,12 +496,12 @@ def test_pooled_refusals(prob):
     with pytest.raises(ValueError, match="branch_map"):
         solve_miqp_bnb_pooled(*args, BnbSpec(**SMALL),
                               branch_map=np.arange(7))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BnbSpec(**dict(SMALL, dive_slots=2))
-    spec = BnbSpec(**SMALL)
-    object.__setattr__(spec, "dive_slots", 2)     # past the constructor
-    with pytest.raises(NotImplementedError, match="pooled.*ROADMAP"):
-        solve_miqp_bnb_pooled(*args, spec)
+    # the single-instance search options: the reference's pooled engine
+    # ignores them (flip-delta runs as most-fractional); the port's refuses
+    for kw in (dict(dive_slots=2), dict(sb_iters=50), dict(sb_fix=True),
+               dict(depth_tiebreak=1e-2), dict(branching="flipdelta")):
+        with pytest.raises(NotImplementedError, match="pooled.*ROADMAP"):
+            solve_miqp_bnb_pooled(*args, BnbSpec(**dict(SMALL, **kw)))
     with pytest.raises(ValueError, match="2\\*B"):
         solve_miqp_bnb_pooled(*args, BnbSpec(**SMALL), pool_slots=7)
     with pytest.raises(ValueError, match="pool_slots"):
@@ -538,5 +538,7 @@ def test_bnb_spec_is_carried_across_field_by_field():
     names = {f.name for f in dataclasses.fields(JSpec)}
     assert names == {f.name for f in dataclasses.fields(BnbSpec)}
     assert all(getattr(t, k) == getattr(j, k) for k in names)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert.bnb_spec(JSpec(sb_iters=5))
+    j = JSpec(sb_iters=5, sb_fix=True, dive_slots=4, depth_tiebreak=1e-3,
+              branching="flipdelta")
+    t = convert.bnb_spec(j)
+    assert all(getattr(t, k) == getattr(j, k) for k in names)

@@ -443,11 +443,13 @@ def test_scenario_tree_refusals():
         tst.build_scenario_tree_qp(
             CondensedMpc(TM, N, tdi.default_weights()).with_move_blocking(
                 [0, 0, 1, 1]), tt)
-    spec = BnbSpec(capacity=64, wave_size=16, max_waves=4, qp_iters=50)
-    object.__setattr__(spec, "dive_slots", 2)        # past the constructor
     qp = tj.device_qp("cpu")
     f, h = qp.assemble(torch.zeros(1, 2))
-    with pytest.raises(NotImplementedError, match="pooled.*ROADMAP"):
-        bnb_pooled.solve_miqp_bnb_pooled(
-            prepare_admm_mpc(tj, device="cpu"), qp, f, h, spec,
-            branch_map=tst.tree_branch_map(tj, tt))
+    for kw in (dict(dive_slots=2), dict(sb_iters=50), dict(sb_fix=True),
+               dict(depth_tiebreak=1e-2), dict(branching="flipdelta")):
+        spec = BnbSpec(capacity=64, wave_size=16, max_waves=4, qp_iters=50,
+                       **kw)
+        with pytest.raises(NotImplementedError, match="pooled.*ROADMAP"):
+            bnb_pooled.solve_miqp_bnb_pooled(
+                prepare_admm_mpc(tj, device="cpu"), qp, f, h, spec,
+                branch_map=tst.tree_branch_map(tj, tt))

@@ -115,9 +115,19 @@ def test_enumerate_matches_reference():
     dict(sb_iters=10), dict(sb_fix=True), dict(dive_slots=4),
     dict(branching="flipdelta"), dict(depth_tiebreak=1e-3)])
 def test_unported_bnb_options_raise(kw):
-    """Options the port has not got are refused, never ignored."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BnbSpec(**kw)
+    """The search options the port once refused: the spec accepts each,
+    convert.bnb_spec carries it from a reference spec, the single-instance
+    loop runs it (tests/test_torch_search_options.py holds each against
+    the reference), and the pooled engine, where the reference ignores
+    it, still raises."""
+    from pyhybridcontrol_tpu_torch import convert
+    from pyhybridcontrol_tpu_torch.solver.bnb_pooled import _pooled_loop
+
+    spec = BnbSpec(**kw)
+    assert all(getattr(spec, k) == v for k, v in kw.items())
+    assert convert.bnb_spec(JSpec(**kw)) == spec
+    with pytest.raises(NotImplementedError, match="pooled"):
+        _pooled_loop(None, torch.zeros(1, 1), torch.zeros(1, 1), spec, 2)
 
 
 @pytest.mark.parametrize("kw", [

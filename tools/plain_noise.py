@@ -7,6 +7,7 @@ of the package; runs on the CPU):
     python tools/plain_noise.py --stagewise [--seed S]
     python tools/plain_noise.py --served [--seed S]
     python tools/plain_noise.py --decentralized [--seed S]
+    python tools/plain_noise.py --strong-branching [--seed S]
 
 Builds config 4c's dense joint frame (the reference bench's tree: S=4,
 N=10, branching at steps 1 and 5), draws B seeded states and B&B-node
@@ -46,6 +47,14 @@ errors, the instances that round a relaxed binary otherwise, and the
 certificate bits that differ, with how many of those lie outside
 ``chip_smoke.CERT_BAND`` of their threshold — what FLIP_SHARE_DEC and
 CERT_BAND_DEC are read against.
+
+``--strong-branching``: root strong branching's candidate batch on config
+2 as ``chip_smoke.phase_sb_batch`` draws it at ``--seed`` (the 120
+children of the root, each one binary fixed, 400 iterations warm from the
+root relaxation), K1's plain version in float32 against float64: the
+field errors and the certificate bits that differ (``sb_fix`` fixes
+binaries from them) — what the "strong_branching" limits are read
+against.
 """
 
 from __future__ import annotations
@@ -289,6 +298,31 @@ def decentralized_readings(seed=0):
     return out
 
 
+def strong_branching_readings(seed=0):
+    """{stage: errors or count} of K1's plain version in float32 against
+    float64 on the strong-branching batch (see the module docstring)."""
+    import chip_smoke as cs
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+
+    cs.SEED = seed
+    rng = cs.phase_rng("sb_batch")
+    x0 = (cs.CFG2_X0 if seed == 0
+          else rng.uniform(*cs.TRUST_BOX).astype(np.float32).tolist())
+    st = cs.cfg2_setup("cpu")
+    q, h, lb, ub, warm = cs.sb_batch(st, torch.tensor(x0))
+    kq = ca.kernel_qp_for(st.admm)
+    iters = cs.CFG2_SB["sb_iters"]
+    r32 = ca.admm_solve_plain(kq, q, h, lb, ub, iters=iters, warm=warm)
+    r64 = ca._solve_plain(_double(kq), q.double(), h.double(), lb.double(),
+                          ub.double(), iters, 0,
+                          tuple(w.double() for w in warm))
+    return {f"candidates, {iters} it warm, x0={x0}": _errors(r32, r64),
+            "certificate bits set (float32)": float(r32.infeas_cert.sum()),
+            "certificate bits that differ": float(
+                (r32.infeas_cert != r64.infeas_cert).sum())}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=300)
@@ -296,11 +330,13 @@ def main(argv=None):
     ap.add_argument("--stagewise", action="store_true")
     ap.add_argument("--served", action="store_true")
     ap.add_argument("--decentralized", action="store_true")
+    ap.add_argument("--strong-branching", action="store_true")
     a = ap.parse_args(argv)
     torch.set_num_threads(4)
     got = (stagewise_readings(a.seed) if a.stagewise
            else served_readings(a.seed) if a.served
            else decentralized_readings(a.seed) if a.decentralized
+           else strong_branching_readings(a.seed) if a.strong_branching
            else readings(a.batch, a.seed))
     for stage, errs in got.items():
         if isinstance(errs, float):
