@@ -240,7 +240,34 @@ Run from the root of a checkout. It builds the kernels of
      on its last wave, an x0 outside the box refused on host and card;
  31. ``condense_device`` on the card against the host fp64 build (config
      6's model at N=120; 64 DEWH variants at N=24 in one batched call) and
-     ``affine_scan_rollout`` against an fp64 simulation ("condense").
+     ``affine_scan_rollout`` against an fp64 simulation ("condense");
+ 32. K2 at the per-rank waves of phase 33 that no other phase holds (run
+     with the kernel phases, after 28): config 5's pool wave on its frame
+     (the PWA spring, big-M, N=14; B=256, 300 + 300 iterations) and the
+     slice of ``feedback_batch(mesh=)`` (the N=20 double integrator at the
+     pooled engine's global wave of 1024), warm, against the plain
+     version ("md_pool" and "wave_probe", "md_slice" limits); phase 20
+     holds K4 at a rank's half of config 6's wave (P=32);
+ 33. the multi-device layer (parallel/): one world of 8 ranks spawned on
+     the card (one card, so gloo; payloads staged through the host) and
+     sub-meshes of its first 2, 4 and 8 ranks, single-card references
+     first: config 5's sharded pool (scripts/config5_pool4096.py: 8 ranks
+     × 512 slots, wave 256, 40 waves, 300 iterations, repair seed) found
+     with the same objective bitwise on every rank and within 1e-3 of one
+     card at 4096 slots; the N=10 double integrator at P=2 and 4, an
+     out-of-box state (found on no rank) and the ``rel_gap`` stop, within
+     ``serve_limit`` of one card; ``feedback_batch(mesh=)`` at config 5's
+     batch (512 × N=20 over 4 ranks) within 1e-3 per instance of one card;
+     ``condense_horizon_sharded`` at config 6's model, N=120, over 4 ranks
+     ("condense" limits); the consensus tree of phase 19 (S=4) over 2 and
+     4 ranks within 5e-3 of one card (4 waves of 300 + 600 iterations);
+     config 6's long arm over 2 ranks (the torch loop with K4 an
+     iteration, one all_reduce an iteration; 3 waves) within 1e-3 of K5's
+     objective on one card at the same cap; then a one-rank NCCL
+     world whose sharded B&B is the unsharded loop bitwise. Per path: the
+     ranks, waves, ms a wave, collective calls, bytes and ms, K1, K2 and
+     K4 launches a rank. Eight ranks time-slicing one card measure the
+     machinery, not scaling.
 
 Each phase prints its wall time, and the run its total. Launch counts are
 kept per path (PATHS): set to 0 just before each served request set, the
@@ -248,15 +275,17 @@ pooled calls, the relaxation sweeps, the closed loops, the config-2 calls,
 config 2's search arms and its cut-frame arm, config 4c's call and its single-instance feedbacks, config 6's two arms
 and the served stagewise requests, each ``run`` invocation, the
 checkpoint/resume study, each micro-grid run, the decentralized run and
-the examples, and read just after
-it; launches made to compare a kernel with its
+the examples and each path of the multi-device phase (summed over its
+ranks, each rank's counts set to 0 just before and read just after), and
+read just after it; launches made to compare a kernel with its
 plain version or with enumeration fall in none of them.
 A kernel's ``launches`` is its sum over these paths, ``launches_by_path``
 the counts apart, and ``on_main_path`` says whether a served request
 launched it. Every kernel launches on some path, but for the L2-streamed
-K1 and K4 (FORCED_ONLY), which must launch on none: no driven path gates
-a wave of a frame that no cluster holds, and every stagewise solve runs
-K5, K4's sweep inside it. The L2-streamed K2 launches on the 4-agent
+K1 (FORCED_ONLY), which must launch on none: no driven path gates a wave
+of a frame that no cluster holds. On one card every stagewise solve runs
+K5, K4's sweep inside it; K4 launches on its own on the stagewise tree
+over ranks (phase 33). The L2-streamed K2 launches on the 4-agent
 micro-grid only.
 
 Every kernel result is held against its plain version field by field:
@@ -318,9 +347,10 @@ REPLACES = {"admm_k1": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
 # takes it only where a cluster cannot hold the constants (the 4-agent
 # micro-grid's K2 waves do; no driven path gates a wave there),
 # so it runs only where a phase forces it, to hold the resident variant
-# against it; K4, the standalone sweep, which K5 runs inside its loop:
-# phase 20 holds it; neither must launch on a path
-FORCED_ONLY = ("admm_k1_streamed", "stagewise_k4")
+# against it; it must launch on no path. (K4, the standalone sweep, runs
+# inside K5 on one card and on its own under a scenario mesh: the
+# stagewise tree over ranks launches it once an iteration.)
+FORCED_ONLY = ("admm_k1_streamed",)
 # the driven paths, in order; SERVED are the served requests
 SERVED = ("serve_config1", "serve_batch_request", "config2_serve",
           "serve_stagewise")
@@ -335,7 +365,10 @@ PATHS = SERVED + ("pooled_bench_spec", "pooled_carried_incumbents",
                   "config6_parity", "config6_long", "stagewise_transforms",
                   "run_config1", "run_config3", "run_config2", "run_config4",
                   "run_config5", "run_checkpoint_resume", "microgrid_M3",
-                  "microgrid_M4", "decentralized", "examples")
+                  "microgrid_M4", "decentralized", "examples",
+                  "md_config5_pool", "md_di_pool", "md_feedback_batch",
+                  "md_condense", "md_consensus_tree", "md_stagewise_tree",
+                  "md_nccl")
 # peak rates of one H100 SXM at 700 W (NVIDIA data sheet): fp32 outside
 # the tensor cores, dense bf16 in them, HBM3
 PEAK = dict(fp32=67e12, bf16=989e12, hbm=3.35e12)
@@ -426,6 +459,21 @@ LIMITS = {
     # r_prim and r_prim_rel 0.107, r_dual 9.98
     "surfaces": dict(obj=7e-4, x=6.2e-4, z=9.1e-4, y=5.5e-2, r_prim=0.32,
                      r_prim_rel=0.32, r_dual=30.0),
+    # K2 at the multi-device phase's per-rank waves (phase 32), 3x the
+    # largest reading of seeds 0-7 on an H100 80GB HBM3 at 700 W
+    # (tools/surface_readings.py --md): config 5's pool wave (the PWA
+    # spring, N=14, B=256, 300 + 300 iterations), its relaxation: obj
+    # 2.25e-5, x 2.05e-4, z 2.04e-4, y 1.36e-3, r_prim 8.91e-5, r_prim_rel
+    # 1.04e-4, r_dual 9.13e-5 ("main" holds x and z at under 2x that; its
+    # probe reads at most a seventh of "wave_probe", which holds it)
+    "md_pool": dict(obj=6.8e-5, x=6.2e-4, z=6.2e-4, y=4.1e-3,
+                    r_prim=2.7e-4, r_prim_rel=3.2e-4, r_dual=2.8e-4),
+    # the feedback_batch(mesh=) slice (N=20, B=1024, 300 + 300),
+    # relaxation and probe: obj 4.03e-5, x 1.34e-4, z 2.52e-4, y 2.55e-2
+    # (the probe; "surfaces" would hold it at about 2x), r_prim and
+    # r_prim_rel 5.34e-2, r_dual 3.70
+    "md_slice": dict(obj=1.3e-4, x=4.1e-4, z=7.6e-4, y=7.7e-2, r_prim=0.17,
+                     r_prim_rel=0.17, r_dual=12.0),
     # K1 at root strong branching's batch (config 2's 120 candidate
     # children, 400 iterations warm from the root), 3x the largest reading
     # of seeds 0-7 on an H100 (tools/sb_readings.py): obj 2.94e-6, x
@@ -1359,10 +1407,11 @@ FEAS_TOL = 1e-3
 def bench_frame(name, N=None):
     """(model, weights, CondensedMpc) of the reference bench's ``name``:
     "config2", the PWA spring in its hull encoding with the on/off actuator
-    (N=20); "config3", DEWH with min-up 2, blocks of two steps and the soft
-    comfort band (N=24); "config4b", DEWH with the soft comfort band
-    (N=24); "config4c", the dense joint frame of config 4c's scenario tree
-    (S=4, N=10). ``N`` shortens the horizon."""
+    (N=20); "config5", the same spring big-M encoded at N=14
+    (scripts/config5_pool4096.py); "config3", DEWH with min-up 2, blocks
+    of two steps and the soft comfort band (N=24); "config4b", DEWH with
+    the soft comfort band (N=24); "config4c", the dense joint frame of
+    config 4c's scenario tree (S=4, N=10). ``N`` shortens the horizon."""
     from pyhybridcontrol_tpu_torch.models import (
         di_default_weights, dewh_model, dewh_weights, min_up_down_rows,
         pwa_spring_mld, pwa_weights)
@@ -1378,6 +1427,9 @@ def bench_frame(name, N=None):
         model, w = pwa_spring_mld(on_off=True, formulation="hull"), \
             pwa_weights()
         return model, w, CondensedMpc(model, N or 20, w)
+    if name == "config5":
+        model, w = pwa_spring_mld(on_off=True), pwa_weights()
+        return model, w, CondensedMpc(model, N or MD_CFG5_N, w)
     N = N or DEWH_N
     model, w = dewh_model(), dewh_weights()
     c = CondensedMpc(model, N, w)
@@ -1450,7 +1502,7 @@ def bench_data(name, N, B, rng, T=0):
     from pyhybridcontrol_tpu_torch.models import (
         DewhParams, dewh_energy_price_seq)
 
-    if name == "config2":
+    if name in ("config2", "config5"):
         return (rng.uniform([-2.0, -1.0], [2.0, 1.0], (B, 2))
                 .astype(np.float32), None, None)
     if name == "config4c":      # states as the bench's; the tree's paths
@@ -2960,6 +3012,56 @@ def variant(kernel, pl):
                      if pl.cluster > 1 else "")
 
 
+def phase_md_shapes(dev, rng, recs):
+    """K2 at the per-rank waves of the multi-device phase that no other
+    phase holds, warm, against its plain version: config 5's pool wave on
+    its frame (the PWA spring, big-M, N=14; B=256, 300 + 300 iterations:
+    relaxation "md_pool", probe "wave_probe", FLIP_SHARE_HULL, certificate
+    bits as the real frames'), and the wave of ``feedback_batch(mesh=)``'s
+    slice (128 instances of the N=20 double integrator: the pooled
+    engine's global wave of 1024, 300 + 300; "md_slice"); each with its
+    plan and, with TIMINGS, its times. LIMITS has the readings the two
+    regimes rest on. (K4 at a rank's half of config 6's wave is in phase
+    20.)"""
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+
+    print("K2 at the ranks' shapes (multi-device phase):", flush=True)
+    spec, spec_p, bidx, q, h, lb, ub = real_problem("config5", 256, dev, rng)
+    _, qp20, s20, s20p, f20, h20, lb20, ub20 = problem(20, 1024, dev, rng,
+                                                       fix_frac=0.3)
+    for (tag, key, kq, kq2, bi, qq, hh, lo, hi, B, regime, probe_regime,
+         flips) in (
+            ("config 5 pool wave", "md_cfg5", ca.kernel_qp_for(spec),
+             ca.kernel_qp_for(spec_p), bidx, q, h, lb, ub, 256, "md_pool",
+             "wave_probe", FLIP_SHARE_HULL),
+            ("feedback_batch slice", "md_fb", ca.kernel_qp_for(s20),
+             ca.kernel_qp_for(s20p), qp20.binary_idx, f20, h20, lb20, ub20,
+             1024, "md_slice", "md_slice", FLIP_SHARE)):
+        pl = ca.plan(B, kq.n_pad, kq.m_pad)
+        name = variant("admm_k2", pl)
+        wargs = (kq, kq2, bi, qq, hh, lo, hi)
+        kw = dict(iters=300, probe_iters=300)
+        cold = ca.admm_wave_plain(*wargs, **kw)
+        warm = (cold[0].x, cold[0].z, cold[0].y)
+        compare_probe(f"K2 {tag} B={B} 300+300 it warm",
+                      ca.admm_wave_cuda(*wargs, warm=warm, **kw),
+                      ca.admm_wave_plain(*wargs, warm=warm, **kw),
+                      types.SimpleNamespace(binary_idx=bi), lo, hi,
+                      recs[name], regime, flip_share=flips,
+                      probe_regime=probe_regime, plain=(kq, qq, hh, lo, hi))
+        recs[name][key + "_plan"] = dict(B=B, pb=pl.pb, cluster=pl.cluster,
+                                         threads=pl.threads, smem=pl.smem)
+        print(f"  {tag}: {name}, tile {pl.pb}, cluster {pl.cluster}, "
+              f"{pl.threads} threads, {pl.smem} B shared", flush=True)
+        if not TIMINGS:
+            continue
+        timed(recs[name], key + "_",
+              lambda: ca.admm_wave_cuda(*wargs, warm=warm, **kw),
+              lambda: ca.admm_wave_plain(*wargs, warm=warm, **kw),
+              admm_work(kq.n_pad, kq.m_pad, B, products=602, stats=2,
+                        warm=True, stiff=True, outputs=2))
+
+
 def phase_sb_batch(dev, rng, recs):
     """K1 at root strong branching's batch: config 2's 2·nb = 120
     candidate children of the root (each one binary fixed), 400 iterations
@@ -3721,10 +3823,13 @@ def k4_frames(dev):
     from pyhybridcontrol_tpu_torch.ops.stagewise import prepare_stagewise
 
     tree_s, tree_l = config6_trees()
+    long = config6_preps(dev, tree_l, config6_extra(CFG6_N))
     out = []
+    # the long arm's wave (8 nodes × S=8), and one rank's half of it when
+    # the tree's scenarios are split over 2 ranks (multi-device phase)
     for tag, key, preps, P in (
-            ("config 6 long arm", "cfg6", config6_preps(
-                dev, tree_l, config6_extra(CFG6_N)), 64),
+            ("config 6 long arm", "cfg6", long, 64),
+            ("config 6 long arm, a rank's half", "cfg6_rank", long, 32),
             ("config 6 parity arm", "cfg6_parity",
              config6_preps(dev, tree_s), 64)):
         for swt, rho in zip(preps, ("ρ", "ρ·10")):
@@ -5047,6 +5152,475 @@ def phase_examples(dev):
     drive("examples", all_examples)
 
 
+# ---- multi-device: the world of ranks on the card (parallel/) -------------
+
+MD_WORLD = 8            # ranks of the phase's world; one card, so gloo
+MD_TIMEOUT = 420.0      # s: the world's limit and its collectives'
+# config 5 of scripts/config5_pool4096.py: the PWA spring (on/off, big-M),
+# N=14, 42 binaries, from [1.5, 0], repair-seeded; 8 ranks × 512 slots,
+# wave 256, 40 waves, 300 iterations, warm starts; held against one card
+# at capacity 4096, wave 256
+MD_CFG5_N, MD_CFG5_X0 = 14, (1.5, 0.0)
+MD_CFG5_SPEC = dict(capacity=512, wave_size=256, max_waves=40, qp_iters=300)
+MD_CFG5_SINGLE = dict(capacity=4096, wave_size=256, max_waves=40,
+                      qp_iters=300)
+MD_CFG5_JAX_CPU = 79.5026   # that script's docstring: JAX, 8 CPU devices
+# the N=10 double integrator at P=2 and 4 (capacity and wave per rank),
+# held against one card at P × the capacity
+MD_DI_N = 10
+MD_DI_SPEC = dict(capacity=128, wave_size=32, max_waves=48, qp_iters=200)
+MD_DI_GAP = dict(MD_DI_SPEC, max_waves=64, rel_gap=1e-6, probe_patience=2)
+# feedback_batch(mesh=) at config 5's batch: 512 states of the N=20 double
+# integrator over 4 ranks, config 5's spec, the pooled engine on each slice
+MD_FB_B, MD_FB_N, MD_FB_P = 512, 20, 4
+MD_FB_SPEC = dict(capacity=1024, wave_size=64, max_waves=64, qp_iters=300)
+# the consensus tree of phase "tree hold" (S=4, N=6), the search capped at
+# 4 waves of 300 + 600 iterations: every ADMM iteration of a split tree is
+# one all_reduce through the host, ~5 ms with 4 ranks on one H100 (8 waves
+# of 600 + 1500 took 177 s at P=2 and 4 there; PERF.md)
+MD_TREE_SPEC = dict(capacity=256, wave_size=32, max_waves=4, qp_iters=300,
+                    probe_iters=600)
+# config 6's long arm over 2 ranks, its B&B capped at 3 of the arm's 6
+# waves (one host-staged all_reduce an ADMM iteration, 2–5 ms with two
+# ranks on one H100); the single-card K5 reference takes the same cap
+MD_CFG6_SPEC = dict(CFG6_SPEC, max_waves=3)
+K1_VARIANTS = ("admm_k1", "admm_k1_resident", "admm_k1_streamed",
+               "admm_k1_split")
+
+
+def md_bnb(r):
+    """A BnbResult's fields as host values."""
+    return dict(obj=float(r.obj), found=bool(r.found),
+                nodes=int(r.nodes_solved), waves=int(r.waves),
+                overflow=bool(r.overflow), bound=float(r.best_open_bound),
+                x=r.x.cpu().numpy())
+
+
+def md_di(dev):
+    """(qp, admm, f, h at [2, 0], f, h at the out-of-box [12, 0]) of the
+    N=10 double integrator."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.models import (
+        di_default_weights, switched_double_integrator)
+    from pyhybridcontrol_tpu_torch.ops.admm import prepare_admm_mpc
+    from pyhybridcontrol_tpu_torch.ops.condense import CondensedMpc
+
+    c = CondensedMpc(switched_double_integrator(), MD_DI_N,
+                     di_default_weights())
+    qp, admm = c.device_qp(dev), prepare_admm_mpc(c, device=dev)
+    return (qp, admm, *qp.assemble(torch.tensor(STATES[0], device=dev)),
+            *qp.assemble(torch.tensor(OUT_OF_BOX, device=dev)))
+
+
+def md_cfg5(dev):
+    """(qp, admm, f, h, repair seed) of config 5 at [1.5, 0]."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops.admm import prepare_admm_mpc
+    from pyhybridcontrol_tpu_torch.solver.repair import (
+        prepare_repair, root_repair_incumbent)
+
+    model, w, c = bench_frame("config5")
+    qp, admm = c.device_qp(dev), prepare_admm_mpc(c, device=dev)
+    x0 = torch.tensor(MD_CFG5_X0, device=dev)
+    f, h = qp.assemble(x0)
+    seed = root_repair_incumbent(admm, qp, prepare_repair(model, w,
+                                                          device=dev),
+                                 x0, f, h, qp_iters=300)
+    return qp, admm, f, h, seed
+
+
+def md_tree():
+    """Phase "tree hold"'s consensus fixture: S=4, N=6, branching at 1, 3."""
+    import numpy as np
+
+    from pyhybridcontrol_tpu_torch.ops.scenario_tree import ScenarioTree
+
+    return ScenarioTree.from_branching(
+        np.random.default_rng(3).normal(0.0, 0.3, size=(4, 6, 1)),
+        branch_steps=(1, 3))
+
+
+def md_tree_controller(dev, scen_mesh=None):
+    from pyhybridcontrol_tpu_torch.control.mpc import MpcController
+    from pyhybridcontrol_tpu_torch.models import di_default_weights
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    ct = MpcController(omega_model(), 6, di_default_weights(),
+                       bnb_spec=BnbSpec(**MD_TREE_SPEC), qp_iters=600,
+                       device=dev)
+    ct.set_scenario_tree(md_tree(), consensus=True, scen_mesh=scen_mesh)
+    return ct.build()
+
+
+def md_fb_controller(dev):
+    from pyhybridcontrol_tpu_torch.control.mpc import MpcController
+    from pyhybridcontrol_tpu_torch.models import (
+        di_default_weights, switched_double_integrator)
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    return MpcController(switched_double_integrator(), MD_FB_N,
+                         di_default_weights(),
+                         bnb_spec=BnbSpec(**MD_FB_SPEC), device=dev).build()
+
+
+def md_cfg6(dev):
+    """(swt, swt_probe, (q, l, u), ext_u) of config 6's long arm."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+        assemble_stagewise_tree, assemble_stagewise_tree_ext)
+
+    swt, swtp = config6_preps(dev, config6_trees()[1],
+                              config6_extra(CFG6_N))
+    x0 = torch.tensor(X0_6, device=dev)
+    return (swt, swtp, assemble_stagewise_tree(swt, x0),
+            assemble_stagewise_tree_ext(swt, x0))
+
+
+def md_rank_body(x0s_fb):
+    """One rank of the multi-device phase's world (every rank runs the
+    same code; sub-meshes of the first 2, 4 or 8 ranks). Per path: its
+    result, its wall time on this rank, its launch counts and batch sizes
+    (set to 0 just before the path and read just after) and its
+    collectives' calls, bytes and seconds."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+    from pyhybridcontrol_tpu_torch.ops.condense_scan import (
+        condense_horizon_sharded)
+    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+        solve_tree_miqp_stagewise)
+    from pyhybridcontrol_tpu_torch.parallel import (
+        STATS, in_mesh, make_mesh, reset_stats)
+    from pyhybridcontrol_tpu_torch.parallel.mesh import mesh_backend
+    from pyhybridcontrol_tpu_torch.parallel.sharded_bnb import (
+        solve_miqp_bnb_sharded)
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pool = {P: make_mesh([("pool", P)]) for P in (2, 4, MD_WORLD)}
+    scen = {P: make_mesh([("scen", P)]) for P in (2, 4)}
+    hz = make_mesh([("hz", 4)])
+    out = {"rank": dist.get_rank(), "backend": mesh_backend(pool[2]),
+           "paths": {}}
+
+    def path(name, mesh, fn):
+        if not in_mesh(mesh):
+            return
+        torch.cuda.synchronize()
+        ca.reset_launch_counts()
+        reset_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["paths"][name] = dict(
+            res=res, wall=time.perf_counter() - t0,
+            launches=dict(ca.LAUNCHES),
+            batches={k: dict(v) for k, v in ca.LAUNCH_BATCHES.items() if v},
+            stats=dict(STATS), size=mesh.size())
+
+    qp, admm, f, h, seed = md_cfg5(dev)
+    path("md_config5_pool", pool[MD_WORLD], lambda: md_bnb(
+        solve_miqp_bnb_sharded(admm, qp, f, h, BnbSpec(**MD_CFG5_SPEC),
+                               pool[MD_WORLD], init_incumbent=seed)))
+    if not in_mesh(pool[4]):
+        return out
+    qp, admm, f, h, f_out, h_out = md_di(dev)
+
+    def di_cases():
+        res = {}
+        for P in (2, 4):
+            if in_mesh(pool[P]):
+                res[f"p{P}"] = md_bnb(solve_miqp_bnb_sharded(
+                    admm, qp, f, h, BnbSpec(**MD_DI_SPEC), pool[P]))
+        if in_mesh(pool[2]):
+            res["out_of_box"] = md_bnb(solve_miqp_bnb_sharded(
+                admm, qp, f_out, h_out, BnbSpec(**MD_DI_SPEC), pool[2]))
+        res["rel_gap"] = md_bnb(solve_miqp_bnb_sharded(
+            admm, qp, f, h, BnbSpec(**MD_DI_GAP), pool[4]))
+        return res
+
+    path("md_di_pool", pool[4], di_cases)
+    ctrl = md_fb_controller(dev)
+    path("md_feedback_batch", scen[MD_FB_P], lambda: {
+        k: v.cpu().numpy() for k, v in ctrl.feedback_batch(
+            x0s_fb, mesh=scen[MD_FB_P]).items()
+        if k in ("obj", "found", "u")})
+    path("md_condense", hz, lambda: [t.cpu().numpy() for t in
+                                     condense_horizon_sharded(
+                                         omega_model().to(dev), CFG6_N, hz)])
+    trees = {P: md_tree_controller(dev, (scen[P], "scen"))
+             for P in (2, 4) if in_mesh(scen[P])}
+
+    def tree_cases():
+        res = {}
+        for P, ct in trees.items():
+            r = ct.feedback(list(X0_6))
+            res[f"p{P}"] = dict(obj=float(r.obj), found=bool(r.found),
+                                u=r.u.cpu().numpy(), nodes=int(r.nodes))
+        return res
+
+    path("md_consensus_tree", scen[4], tree_cases)
+    if in_mesh(scen[2]):
+        swt, swtp, data, eu = md_cfg6(dev)
+        path("md_stagewise_tree", scen[2], lambda: md_bnb(
+            solve_tree_miqp_stagewise(swt, *data, BnbSpec(**MD_CFG6_SPEC),
+                                      swt_probe=swtp, ext_u=eu,
+                                      scen_mesh=(scen[2], "scen"))))
+    return out
+
+
+def md_nccl_body():
+    """A world of one rank on its own card: NCCL. The sharded B&B over a
+    one-rank mesh is the unsharded loop, bitwise."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+    from pyhybridcontrol_tpu_torch.parallel import (
+        STATS, make_mesh, reset_stats)
+    from pyhybridcontrol_tpu_torch.parallel.mesh import mesh_backend
+    from pyhybridcontrol_tpu_torch.parallel.sharded_bnb import (
+        solve_miqp_bnb_sharded)
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec, solve_miqp_bnb
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh([("pool", 1)])
+    qp, admm, f, h, _, _ = md_di(dev)
+    torch.cuda.synchronize()
+    ca.reset_launch_counts()
+    reset_stats()
+    t0 = time.perf_counter()
+    r = solve_miqp_bnb_sharded(admm, qp, f, h, BnbSpec(**MD_DI_SPEC), mesh)
+    torch.cuda.synchronize()
+    path = dict(res=md_bnb(r), wall=time.perf_counter() - t0,
+                launches=dict(ca.LAUNCHES),
+                batches={k: dict(v) for k, v in ca.LAUNCH_BATCHES.items()
+                         if v},
+                stats=dict(STATS), size=1)
+    plain = md_bnb(solve_miqp_bnb(admm, qp, f, h, BnbSpec(**MD_DI_SPEC)))
+    return dict(backend=mesh_backend(mesh), paths={"md_nccl": path},
+                plain=plain)
+
+
+def md_record(name, ranks):
+    """The path's launch counts and batch sizes summed over its ranks into
+    PATH_LAUNCHES / PATH_BATCHES; prints the path's line. Returns the
+    ranks' path records."""
+    recs = [r["paths"][name] for r in ranks if name in r["paths"]]
+    check(len(recs) == recs[0]["size"], f"{name}: {len(recs)} ranks "
+          f"reported, the mesh has {recs[0]['size']}")
+    PATH_LAUNCHES[name] = {k: sum(p["launches"][k] for p in recs)
+                           for k in recs[0]["launches"]}
+    batches = {}
+    for p in recs:
+        for k, v in p["batches"].items():
+            for b, n in v.items():
+                batches.setdefault(k, {})
+                batches[k][b] = batches[k].get(b, 0) + n
+    PATH_BATCHES[name] = batches
+
+    def per_rank(kernels):
+        return [sum(p["launches"][k] for k in kernels) for p in recs]
+
+    res = recs[0]["res"]
+    waves = res.get("waves") if isinstance(res, dict) else None
+    st = recs[0]["stats"]
+    wall = max(p["wall"] for p in recs)
+    line = (f"  {name}: {len(recs)} ranks, {wall:.2f} s; "
+            f"K1 {per_rank(K1_VARIANTS)}, "
+            f"K2 {per_rank(K2_VARIANTS)}, K4 {per_rank(('stagewise_k4',))} "
+            f"launches a rank (batch sizes {batches}); rank 0's collectives "
+            f"{st['calls']} calls, {st['bytes']} bytes, "
+            f"{1e3 * st['seconds']:.1f} ms")
+    if waves:
+        line += (f"; {waves} waves, {1e3 * wall / waves:.2f} ms a wave, "
+                 f"{st['calls'] / waves:.1f} collectives, "
+                 f"{st['bytes'] / waves:.0f} bytes and "
+                 f"{1e3 * st['seconds'] / waves:.2f} ms of them a wave")
+    print(line, flush=True)
+    return recs
+
+
+def md_same(name, recs, keys=("obj", "found")):
+    """The path's result bitwise equal on every rank (replicated)."""
+    import numpy as np
+
+    first = recs[0]["res"]
+    for p in recs[1:]:
+        for k in keys:
+            check(np.array_equal(np.asarray(p["res"][k]),
+                                 np.asarray(first[k])),
+                  f"{name}: ranks disagree on {k}")
+
+
+def phase_multi_device(dev):
+    """The multi-device layer on the card: one world of MD_WORLD ranks on
+    the one card (gloo, payloads through the host) and sub-meshes of its
+    first 2, 4 and 8 ranks; then a one-rank world over NCCL. Single-card
+    references first, in this process. Eight ranks time-sliced on one card
+    measure the machinery (collectives, lock-step), not scaling."""
+    import numpy as np
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops.condense import CondensedMpc
+    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+        solve_tree_miqp_stagewise)
+    from pyhybridcontrol_tpu_torch.parallel import backend_for, spawn
+    from pyhybridcontrol_tpu_torch.models import di_default_weights
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec, solve_miqp_bnb
+
+    t_phase = time.perf_counter()
+    ref = {}
+
+    def timed_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    qp, admm, f, h, seed = md_cfg5(dev)
+    ref["cfg5"], s5 = timed_s(lambda: md_bnb(solve_miqp_bnb(
+        admm, qp, f, h, BnbSpec(**MD_CFG5_SINGLE), init_incumbent=seed)))
+    qp, admm, f, h, _, _ = md_di(dev)
+    ref["di"] = md_bnb(solve_miqp_bnb(admm, qp, f, h, BnbSpec(**dict(
+        MD_DI_SPEC, capacity=4 * MD_DI_SPEC["capacity"]))))
+    x0s = phase_rng("md_feedback_batch").uniform(
+        -2.0, 2.0, (MD_FB_B, 2)).astype(np.float32)
+    ctrl = md_fb_controller(dev)
+    fb, s_fb = timed_s(lambda: ctrl.feedback_batch(x0s))
+    ref["tree"] = md_tree_controller(dev).feedback(list(X0_6))
+    swt, swtp, data, eu = md_cfg6(dev)
+    ref["cfg6"] = md_bnb(solve_tree_miqp_stagewise(
+        swt, *data, BnbSpec(**MD_CFG6_SPEC), swt_probe=swtp, ext_u=eu))
+    host = CondensedMpc(omega_model(), CFG6_N, di_default_weights()).pred
+    del ctrl, swt, swtp, data
+    torch.cuda.empty_cache()
+    print(f"  single card: config 5 {s5:.2f} s, feedback_batch B={MD_FB_B} "
+          f"{s_fb:.2f} s", flush=True)
+
+    backend = backend_for(MD_WORLD, "cuda")
+    check(backend == "gloo", f"{MD_WORLD} ranks on one card: {backend}")
+    t0 = time.perf_counter()
+    ranks = spawn(md_rank_body, MD_WORLD, (x0s,), "cuda",
+                  timeout=MD_TIMEOUT)
+    world_s = time.perf_counter() - t0
+    print(f"  world of {MD_WORLD} ranks ({ranks[0]['backend']}, one card): "
+          f"{world_s:.1f} s, spawn and set-up included", flush=True)
+    check(all(r["backend"] == "gloo" for r in ranks), "the world is not "
+          "gloo")
+    out = dict(world_s=world_s, backend="gloo", world=MD_WORLD)
+
+    # config 5's pool over 8 ranks
+    recs = md_record("md_config5_pool", ranks)
+    md_same("md_config5_pool", recs, ("obj", "found", "x", "nodes", "waves"))
+    r, s = recs[0]["res"], ref["cfg5"]
+    rel = abs(r["obj"] - s["obj"]) / max(1.0, abs(s["obj"]))
+    print(f"  config 5, {MD_WORLD} × {MD_CFG5_SPEC['capacity']} slots, wave "
+          f"{MD_CFG5_SPEC['wave_size']}: found {r['found']}, objective "
+          f"{r['obj']:.5f} on every rank, {r['nodes']} nodes, {r['waves']} "
+          f"waves, overflow {r['overflow']}; one card at 4096: "
+          f"{s['obj']:.5f} ({s['nodes']} nodes, {s['waves']} waves), "
+          f"relative {rel:.2e} (limit 1e-3); the JAX package's CPU reading "
+          f"{MD_CFG5_JAX_CPU}", flush=True)
+    check(r["found"] and s["found"] and rel <= 1e-3,
+          "config 5's sharded pool off the single card")
+    check(sum(p["launches"][k] for p in recs for k in K2_VARIANTS) > 0,
+          "config 5's pool launched no K2")
+    out["config5"] = dict(obj=r["obj"], single_obj=s["obj"],
+                          nodes=r["nodes"], waves=r["waves"],
+                          wall_s=max(p["wall"] for p in recs),
+                          stats=recs[0]["stats"])
+
+    # the double integrator at P=2 and 4
+    recs = md_record("md_di_pool", ranks)
+    res = {k: [p["res"][k] for p in recs if k in p["res"]]
+           for k in ("p2", "p4", "out_of_box", "rel_gap")}
+    for k, rs in res.items():
+        check(all(x["obj"] == rs[0]["obj"] for x in rs),
+              f"md_di_pool {k}: ranks disagree")
+        print(f"  double integrator N={MD_DI_N} {k}: found {rs[0]['found']}"
+              f", objective {rs[0]['obj']:.5f}, {rs[0]['nodes']} nodes, "
+              f"{rs[0]['waves']} waves; one card {ref['di']['obj']:.5f}",
+              flush=True)
+    for k in ("p2", "p4", "rel_gap"):
+        got = res[k][0]
+        check(got["found"] and abs(got["obj"] - ref["di"]["obj"])
+              <= serve_limit(ref["di"]["obj"]), f"md_di_pool {k} off")
+    check(not res["out_of_box"][0]["found"], "out-of-box state found")
+
+    # feedback_batch(mesh=) at config 5's batch
+    recs = md_record("md_feedback_batch", ranks)
+    md_same("md_feedback_batch", recs, ("obj", "found", "u"))
+    got = recs[0]["res"]
+    want_obj = fb.obj.cpu().numpy()
+    d = np.abs(got["obj"] - want_obj) / np.maximum(1.0, np.abs(want_obj))
+    print(f"  feedback_batch B={MD_FB_B} over {MD_FB_P} ranks: found share "
+          f"{got['found'].mean():.3f}, worst relative objective against one "
+          f"card {d.max():.2e} (limit 1e-3)", flush=True)
+    check(np.array_equal(got["found"], fb.found.cpu().numpy())
+          and d.max() <= 1e-3, "feedback_batch(mesh=) off the single card")
+    out["feedback_batch"] = dict(worst_rel=float(d.max()),
+                                 wall_s=max(p["wall"] for p in recs))
+
+    # horizon-sharded condensation
+    recs = md_record("md_condense", ranks)
+    phi = np.concatenate([p["res"][0] for p in recs])
+    gv = np.concatenate([p["res"][1] for p in recs])
+    held_rel(f"condense_horizon_sharded config 6 N={CFG6_N} over 4 ranks",
+             "condense", {"Phi": max_rel(torch.as_tensor(phi), host["Phi"]),
+                          "Gv": max_rel(torch.as_tensor(gv), host["Gv"])})
+
+    # the consensus tree over 2 and 4 ranks
+    recs = md_record("md_consensus_tree", ranks)
+    want = float(ref["tree"].obj)
+    for k in ("p2", "p4"):
+        rs = [p["res"][k] for p in recs if k in p["res"]]
+        check(all(x["obj"] == rs[0]["obj"] for x in rs),
+              f"consensus tree {k}: ranks disagree")
+        d = abs(rs[0]["obj"] - want)
+        print(f"  consensus tree S=4 N=6 {k}: objective {rs[0]['obj']:.5f} "
+              f"({rs[0]['nodes']} nodes), one card {want:.5f}, |Δ| {d:.2e} "
+              f"(limit {5e-3 * max(1.0, abs(want)):.2e})", flush=True)
+        check(rs[0]["found"] and d <= 5e-3 * max(1.0, abs(want)),
+              f"consensus tree {k} off the single card")
+
+    # config 6's stagewise tree over 2 ranks: K4 an iteration
+    recs = md_record("md_stagewise_tree", ranks)
+    md_same("md_stagewise_tree", recs, ("obj", "found", "x"))
+    r, s = recs[0]["res"], ref["cfg6"]
+    rel = abs(r["obj"] - s["obj"]) / max(1.0, abs(s["obj"]))
+    print(f"  config 6 tree over 2 ranks (K4 sweeps): objective "
+          f"{r['obj']:.6f}, {r['nodes']} nodes, {r['waves']} waves; one card "
+          f"(K5) {s['obj']:.6f}, relative {rel:.2e} (limit 1e-3)",
+          flush=True)
+    check(r["found"] and rel <= 1e-3, "config 6 tree over ranks off K5's")
+    check(all(p["launches"]["stagewise_k4"] > 0 for p in recs),
+          "the stagewise tree over ranks launched no K4")
+    out["config6_tree"] = dict(obj=r["obj"], k5_obj=s["obj"],
+                               wall_s=max(p["wall"] for p in recs),
+                               stats=recs[0]["stats"])
+
+    # a one-rank NCCL world
+    check(backend_for(1, "cuda") == "nccl", "one rank on its card: not NCCL")
+    nccl = spawn(md_nccl_body, 1, (), "cuda", timeout=120)
+    recs = md_record("md_nccl", nccl)
+    got, plain = recs[0]["res"], nccl[0]["plain"]
+    print(f"  one-rank world: backend {nccl[0]['backend']}, sharded "
+          f"{got['obj']:.6f} against the unsharded loop {plain['obj']:.6f}",
+          flush=True)
+    check(nccl[0]["backend"] == "nccl", "the one-rank world is not NCCL")
+    check(got["obj"] == plain["obj"] and np.array_equal(got["x"], plain["x"])
+          and got["nodes"] == plain["nodes"],
+          "one-rank mesh: not the unsharded loop")
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -5134,6 +5708,8 @@ def main(argv=None):
           phase_rng("surface_shapes"), recs)
     phase("K1 at the strong-branching batch", phase_sb_batch, dev,
           phase_rng("sb_batch"), recs)
+    phase("K2 at the ranks' shapes", phase_md_shapes, dev,
+          phase_rng("md_shapes"), recs)
     for regime, seen in READINGS.items():
         print(f"largest error, {regime} (limit): " + " ".join(
             f"{k}={v:.2e} ({LIMITS[regime][k]:.0e})"
@@ -5169,6 +5745,7 @@ def main(argv=None):
     calls["decentralized"] = phase("decentralized micro-grid",
                                    phase_decentralized, dev)
     phase("examples", phase_examples, dev)
+    calls["multi_device"] = phase("multi-device", phase_multi_device, dev)
     print(json.dumps({"closed_loop": loops, "calls": calls}), flush=True)
     print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
     kernels = []

@@ -15,8 +15,9 @@ Counterpart of ``pyhybridcontrol_tpu/configs/benchmarks.py``:
 each with its ``BnbSpec``, closed-loop length, move-blocking groups and
 soft rows as the reference has them. Config 5 runs on one card as one
 pooled batch (``run.py``), as the reference's ``run.py`` runs it on one
-chip; only the pool sharded across cards (``parallel/sharded_bnb.py``)
-waits for the multi-device slice (ROADMAP queue 1).
+chip; its sharded pool, one MIQP's nodes over the ranks of a mesh, is
+``parallel.sharded_bnb.solve_miqp_bnb_sharded`` (scripts/config5_pool4096.py
+of the reference: 8 ranks × 512 slots).
 """
 
 from __future__ import annotations

@@ -19,8 +19,11 @@ A condensed scenario tree is either the dense joint frame
 the pooled engine branches per information set through K1) or the
 consensus tree (ops/consensus_tree.py, plain torch ADMM); under
 solver="stagewise" a tree is always the stagewise consensus tree
-(ops/stagewise_tree.py). Trees across devices and ``mesh`` placement
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+(ops/stagewise_tree.py).
+Across ranks (parallel/): ``feedback_batch(mesh=)`` solves each rank's
+slice of the batch and gathers the results on every rank;
+``set_scenario_tree(scen_mesh=)`` splits a consensus tree's (or a
+stagewise tree's) scenarios over ranks.
 """
 
 from __future__ import annotations
@@ -44,12 +47,6 @@ from pyhybridcontrol_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_devic
 from pyhybridcontrol_tpu_torch.utils.structdict import StructDict
 
 _SOLVERS = ("bnb", "enumerate", "stagewise")
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to pyhybridcontrol_tpu_torch yet "
-        f"(ROADMAP queue 1: {item})")
 
 
 class MpcController:
@@ -80,6 +77,7 @@ class MpcController:
         self._extra = None         # (A_v, b, B_x, B_w)
         self._tree = None          # ScenarioTree (stochastic MPC)
         self._tree_consensus = False
+        self._scen_mesh = None     # (mesh, axis) or mesh: tree over ranks
         self._tqp = None           # consensus-tree preps (ρ, stiff ρ)
         self._tqp_probe = None
         self._sw = None            # stagewise preps (ρ, stiff ρ)
@@ -147,11 +145,12 @@ class MpcController:
         the O(N) frame (ops/stagewise_tree.py, always the consensus
         formulation; ``consensus`` is ignored) and composes with soft
         rows, move blocking, terminal sets and horizon-coupled rows (per
-        scenario: the budget holds on every path). ``scen_mesh`` (one
-        tree across devices) is not ported."""
-        if scen_mesh is not None:
-            _not_ported("set_scenario_tree(scen_mesh=...)",
-                        "item 9, multi-device")
+        scenario: the budget holds on every path). ``scen_mesh``
+        ((mesh, axis), or a mesh with a "scen" axis): the consensus and
+        stagewise trees split their scenarios over the ranks (every rank
+        calls ``feedback`` with the same state and gets the same plan);
+        the dense joint frame is one QP and ignores it, as in the
+        reference."""
         g0 = np.asarray(tree.groups)[:, 0]
         if not np.all(g0 == g0[0]):
             raise ValueError(
@@ -161,6 +160,7 @@ class MpcController:
                 "(here-and-now control requires a common step-0 decision)")
         self._tree = tree
         self._tree_consensus = bool(consensus)
+        self._scen_mesh = scen_mesh
         self._version += 1
         return self
 
@@ -406,7 +406,10 @@ class MpcController:
         vmaps independent per-instance searches, so the results are the
         same function; ``torch.func.vmap`` cannot carry the wave loop's
         host reads; every solver) or "auto" (pooled for solver="bnb"
-        without a consensus tree, else vmap). ``mesh`` placement is not ported.
+        without a consensus tree, else vmap). ``mesh``: a mesh with a
+        "scen" axis; every rank passes the whole batch, solves its slice
+        (P must divide B) with the engine "auto" picks for that slice, and
+        gets the whole gathered result.
         ``pooled_wave``/``pool_slots`` size the pooled search; the
         per-instance node budget matches ``bnb_spec`` (``max_waves``
         rescales to the global wave size).
@@ -417,9 +420,6 @@ class MpcController:
         with a leading (B,) axis; ``nodes`` is the global node count.
         """
         self.build()
-        if mesh is not None:
-            _not_ported("feedback_batch(mesh=...)",
-                        "the multi-device slice")
         consensus = self._tree is not None and self._tree_consensus
         if engine == "auto":
             engine = ("pooled" if self.solver == "bnb" and not consensus
@@ -445,6 +445,16 @@ class MpcController:
                 "channel (nomega=0)")
         W, Pq = self._tensor(omega_forecasts), self._tensor(price_seq)
         up = self._tensor(u_prevs)
+        if mesh is not None:
+            from pyhybridcontrol_tpu_torch.parallel.mesh import (
+                scenario_sharding)
+
+            sh = scenario_sharding(mesh, "scen")
+            part = self.feedback_batch(
+                sh.local(x0s), None if W is None else sh.local(W), Pq,
+                None if up is None else sh.local(up), engine=engine,
+                pooled_wave=pooled_wave, pool_slots=pool_slots)
+            return sh.gather(part)
         if engine == "vmap":
             return self._feedback_batch_each(x0s, W, Pq, up)
         return self._feedback_batch_pooled(x0s, W, Pq, up, pooled_wave,
@@ -548,7 +558,8 @@ class MpcController:
         f, h = assemble_tree(tqp, x0, price_seq=self._tensor(price_seq),
                              u_prev=self._tensor(u_prev))
         res = solve_tree_miqp(tqp, f, h, self.bnb_spec,
-                              tqp_probe=self._tqp_probe)
+                              tqp_probe=self._tqp_probe,
+                              scen_mesh=self._scen_mesh)
         V = res.x.reshape(tqp.S, tqp.N, info.nv)
         v0 = V[0, 0]
         return StructDict(
@@ -607,7 +618,8 @@ class MpcController:
         ext_u = assemble_stagewise_tree_ext(swt, x0) if sw.n_ext else None
         res = solve_tree_miqp_stagewise(
             swt, q, l, u, self.bnb_spec, swt_probe=self._swt_probe,
-            parallel_sweeps=self.sw_parallel, ext_u=ext_u)
+            parallel_sweeps=self.sw_parallel, scen_mesh=self._scen_mesh,
+            ext_u=ext_u)
         xi = res.x.reshape(swt.S, sw.N, sw.b)
         v_seq = xi[:, :, :sw.nv]
         v0 = v_seq[0, 0]

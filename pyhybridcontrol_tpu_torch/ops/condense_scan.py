@@ -11,8 +11,9 @@ is the framework's sequence axis; the tools:
     the host fp64 build (ops/condense.py, the accuracy path) it takes
     model matrices with a leading batch axis, so per-instance model
     variations (parameter sweeps) condense in one call;
-  * ``condense_horizon_sharded`` — block rows over a mesh axis: waits for
-    the multi-device slice and raises.
+  * ``condense_horizon_sharded`` — the block rows of Φ and Γv over a mesh
+    axis: rank d builds the rows of steps [d·N/P, (d+1)·N/P) from the
+    replicated power table (the O(N²) blocks are what it splits).
 
 Port decisions:
 - The reference scans with ``lax.associative_scan``; torch has none, so
@@ -133,9 +134,28 @@ def condense_device(model: MldModel, N: int) -> dict:
 
 
 def condense_horizon_sharded(model: MldModel, N: int, mesh, axis: str = "hz"):
-    """Γ operators with block rows sharded over ``mesh[axis]``: the
-    across-cards half of device condensation. Not ported yet."""
-    raise NotImplementedError(
-        "condense_horizon_sharded shards block rows across cards: it waits "
-        "for ROADMAP queue 1 item 4 (multi-device); condense_device builds "
-        "the same operators on one card")
+    """Γ operators with block rows sharded over ``mesh[axis]``: this rank
+    builds the rows of steps [d·N/P, (d+1)·N/P) and returns its local rows
+    ``(Phi (N/P·nx, nx), Gv (N/P·nx, N·nv))`` of ``condense_device``'s
+    Phi and Gv, as the reference's ``shard_body`` does. Every rank builds
+    the (N+1)-entry power table; no collective runs. Raises unless P
+    divides N."""
+    from pyhybridcontrol_tpu_torch.parallel.mesh import AxisComm
+
+    comm = AxisComm(mesh, axis)
+    P, d = comm.size, comm.rank
+    if N % P:
+        raise ValueError(f"N={N} must divide by mesh axis {P}")
+    info, m = model.info, model.mats
+    nx, Nl = info.nx, N // P
+    Bv = torch.cat([m.B1, m.B2, m.B3], dim=-1)
+    pw = matrix_power_scan(m.A, N)                 # (N+1, nx, nx)
+    k = d * Nl + torch.arange(Nl, device=pw.device)[:, None]   # global steps
+    j = torch.arange(N, device=pw.device)[None, :]
+    dd = k - j
+    mask = dd >= 0
+    blocks = pw[torch.clamp(dd, min=0)] @ Bv
+    blocks = torch.where(mask[:, :, None, None], blocks, 0.0)
+    Gv_rows = blocks.transpose(1, 2).reshape(Nl * nx, N * Bv.shape[-1])
+    Phi_rows = pw[1 + d * Nl:1 + (d + 1) * Nl].reshape(Nl * nx, nx)
+    return Phi_rows, Gv_rows

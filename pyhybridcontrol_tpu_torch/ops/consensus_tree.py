@@ -1,9 +1,9 @@
-"""Scenario-tree MIQP by consensus ADMM, on one device.
+"""Scenario-tree MIQP by consensus ADMM, on one device or with the
+scenario axis over ranks.
 
-Counterpart of ``pyhybridcontrol_tpu/ops/consensus_tree.py`` without
-``scen_mesh`` (the scenario axis across devices waits for ROADMAP queue 1
-item 9, "multi-device"). The reference's ADMM here is plain XLA, so this
-is plain torch on the card; the host build is its numpy float64 code.
+Counterpart of ``pyhybridcontrol_tpu/ops/consensus_tree.py``. The
+reference's ADMM here is plain XLA, so this is plain torch on the card;
+the host build is its numpy float64 code.
 
 The dense joint build (ops/scenario_tree.py) forms one O((S·N·nv)²)
 condensed H. This module never forms the joint problem: each scenario
@@ -36,6 +36,16 @@ infeasible if any scenario alone is; the sums accumulate in float64, as
 everywhere in the port). Cross-scenario consensus infeasibility is not
 certified — such nodes stay unconverged and are resolved by deeper
 fixing, never by a wrong prune.
+
+``scen_mesh`` ((mesh, axis), or a mesh whose axis is "scen"): each rank
+holds S/P scenarios of every node (P must divide S). In every ADMM
+iteration the group mean is a local partial sum over the rank's
+scenarios, one ``all_reduce(SUM)`` and the rank's own rows
+(parallel/mesh.py ``sharded_group_mean``); after the solve one
+all_gather returns every scenario's iterates and statistics, so the
+residuals are maxima and the certificate an OR over all scenarios, as on
+one device. The B&B loop runs replicated on data broadcast from the
+first rank.
 """
 
 from __future__ import annotations
@@ -57,14 +67,6 @@ from pyhybridcontrol_tpu_torch.ops.condense import CondensedMpc, DeviceQP
 from pyhybridcontrol_tpu_torch.ops.scenario_tree import ScenarioTree
 from pyhybridcontrol_tpu_torch.solver.bnb import BnbResult, BnbSpec, _bnb_loop
 from pyhybridcontrol_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
-
-
-def _no_scen_mesh(scen_mesh):
-    if scen_mesh is not None:
-        raise NotImplementedError(
-            "scen_mesh (the scenario axis across devices) is not ported to "
-            "pyhybridcontrol_tpu_torch yet (ROADMAP queue 1, item 9: "
-            "multi-device)")
 
 
 @dataclasses.dataclass
@@ -181,9 +183,19 @@ def tree_admm_solve(tqp: TreeConsensusQP, f, h, lb, ub, iters: int = 200,
     lb/ub (…, S, nV). Returns a per-problem AdmmResult: x keeps the
     scenario axis (…, S, nV); obj = Σ_s p_s J_s; the residuals are maxima
     over scenarios (the consensus rows measure |Ax − group mean|).
-    ``scen_mesh`` (the scenario axis across devices) is not ported."""
-    _no_scen_mesh(scen_mesh)
+    ``scen_mesh``: the scenario axis over ranks (module docstring); every
+    rank passes the full data and gets the full result."""
     spec = tqp.admm
+    sh = None
+    if scen_mesh is not None:
+        from pyhybridcontrol_tpu_torch.parallel.mesh import (
+            scenario_shard, sharded_group_mean)
+
+        sh = scenario_shard(scen_mesh, tqp.S)
+        f, h, lb, ub = (sh.local(t, t.ndim - 2) for t in (f, h, lb, ub))
+        if warm is not None:
+            warm = tuple(sh.local(t, t.ndim - 2) for t in warm)
+        mean_rows = sharded_group_mean(sh, tqp.M, tqp.S)
     rho, alpha, sigma = spec.rho_vec, spec.alpha, spec.sigma
     c = spec.cost_scale
     qh = c * spec.D * f
@@ -212,6 +224,8 @@ def tree_admm_solve(tqp: TreeConsensusQP, f, h, lb, ub, iters: int = 200,
     def group_mean(v):
         """p-weighted mean over information sets. v (…, S, ncr)."""
         vk = v.reshape(v.shape[:-1] + (tqp.N, tqp.nud))
+        if sh is not None:
+            return mean_rows(vk).reshape(v.shape)
         out = torch.einsum("stk,...tkj->...skj", tqp.M, vk)
         return out.reshape(v.shape)
 
@@ -235,22 +249,30 @@ def tree_admm_solve(tqp: TreeConsensusQP, f, h, lb, ub, iters: int = 200,
     # the non-anticipativity residual
     viol[..., c0:c1] = torch.abs(Ax - z)[..., c0:c1]
     viol = viol / spec.E
-    r_prim = viol.amax(dim=(-2, -1))
-    r_rel = (viol / torch.clamp_min(Ax_orig.abs(), 1.0)).amax(dim=(-2, -1))
+    # per scenario, then over scenarios (maxima and an OR are exact in any
+    # order, so the split axis changes no bit of them)
+    r_prim_s = viol.amax(dim=-1)
+    r_rel_s = (viol / torch.clamp_min(Ax_orig.abs(), 1.0)).amax(dim=-1)
     Px = x @ spec.P.T
     dual = (Px + qh + y @ A) / (spec.D * c)
-    r_dual = dual.abs().amax(dim=(-2, -1))
+    r_dual_s = dual.abs().amax(dim=-1)
     obj_s = (0.5 * (x.double() * Px.double()).sum(-1)
              + (qh.double() * x.double()).sum(-1)) / c.double()
-    obj = (tqp.probs.double() * obj_s).sum(-1).float()
 
     # per-scenario infeasibility certificate, consensus dy masked
     dyc = dy.clone()
     dyc[..., c0:c1] = 0.0
     cert_s = infeasibility_certificate(
         dyc, (dyc @ A).abs().amax(dim=-1), l_, u_)
-    return AdmmResult(x=spec.D * x, obj=obj, r_prim=r_prim,
-                      r_prim_rel=r_rel, r_dual=r_dual,
+    x = spec.D * x
+    if sh is not None:
+        x, z, y, obj_s, r_prim_s, r_rel_s, r_dual_s, cert_s = sh.gather(
+            [x, z, y, obj_s, r_prim_s, r_rel_s, r_dual_s, cert_s],
+            dim=x.ndim - 2)
+    obj = (tqp.probs.double() * obj_s).sum(-1).float()
+    return AdmmResult(x=x, obj=obj, r_prim=r_prim_s.amax(dim=-1),
+                      r_prim_rel=r_rel_s.amax(dim=-1),
+                      r_dual=r_dual_s.amax(dim=-1),
                       infeas_cert=cert_s.any(dim=-1), y=y, z=z)
 
 
@@ -266,6 +288,7 @@ class TreeBackend:
 
     tqp: TreeConsensusQP
     tqp_probe: Optional[TreeConsensusQP] = None
+    scen_mesh: object = None
 
     def __post_init__(self):
         self._rep = torch.as_tensor(self.tqp.rep_map, dtype=torch.long,
@@ -303,7 +326,8 @@ class TreeBackend:
             xw, zw, yw = warm
             warm = (xw.reshape(batch + (S, nV)), zw.reshape(batch + (S, -1)),
                     yw.reshape(batch + (S, -1)))
-        res = tree_admm_solve(tqp, fr, hr, lb, ub, iters=iters, warm=warm)
+        res = tree_admm_solve(tqp, fr, hr, lb, ub, iters=iters, warm=warm,
+                              scen_mesh=self.scen_mesh)
         return dataclasses.replace(
             res, x=res.x.reshape(batch + (self.n,)),
             z=res.z.reshape(batch + (self.warm_size,)),
@@ -312,8 +336,8 @@ class TreeBackend:
     def solve_probe(self, f, h, lb, ub, iters, warm=None):
         if self.tqp_probe is None:
             return self.solve(f, h, lb, ub, iters, warm=warm)
-        return TreeBackend(self.tqp_probe).solve(f, h, lb, ub, iters,
-                                                 warm=warm)
+        return TreeBackend(self.tqp_probe, scen_mesh=self.scen_mesh).solve(
+            f, h, lb, ub, iters, warm=warm)
 
     def broadcast_data(self, f, h, W):
         return f.expand(W, -1), h.expand(W, -1)
@@ -326,7 +350,14 @@ def solve_tree_miqp(tqp: TreeConsensusQP, f, h, spec: BnbSpec = BnbSpec(),
     """B&B over the consensus-tree MIQP on the device of ``f``. (f, h) from
     ``assemble_tree`` ((S, nV) / (S, m̄g), flattened here). Returns a
     BnbResult whose x is the flat (S·nV) joint plan (reshape to (S, nV)).
-    ``scen_mesh`` (one tree across devices) is not ported."""
-    _no_scen_mesh(scen_mesh)
-    return _bnb_loop(TreeBackend(tqp, tqp_probe), f.reshape(-1),
-                     h.reshape(-1), spec, init_incumbent=init_incumbent)
+    ``scen_mesh``: the scenario axis over ranks (module docstring); every
+    rank calls it with the same arguments."""
+    f, h = f.reshape(-1), h.reshape(-1)
+    if scen_mesh is not None:
+        from pyhybridcontrol_tpu_torch.parallel.mesh import (
+            replicated, scenario_shard)
+
+        f, h, init_incumbent = replicated(
+            scenario_shard(scen_mesh, tqp.S).comm, f, h, init_incumbent)
+    return _bnb_loop(TreeBackend(tqp, tqp_probe, scen_mesh), f, h, spec,
+                     init_incumbent=init_incumbent)

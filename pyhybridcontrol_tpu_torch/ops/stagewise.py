@@ -562,12 +562,13 @@ def _solve_K(sw: StagewiseQP, r, factors=None):
     return torch.stack(xs, dim=-2).reshape(r.shape)
 
 
-def _affine_prefix(M, v):
+def _affine_prefix(M, v, with_maps: bool = False):
     """All prefixes of the affine recurrence y_k = M_k y_{k−1} + v_k
     (y_{−1} = 0) in O(log N) depth: affine maps compose associatively,
     (M_b, v_b)∘(M_a, v_a) = (M_b M_a, M_b v_a + v_b), and a Hillis-Steele
     scan applies that composition at doubling distances. M: (N, b, b);
-    v: (N, …, b) with the batch axes between the scan and vector axes."""
+    v: (N, …, b) with the batch axes between the scan and vector axes.
+    ``with_maps``: also the prefix products M_k ⋯ M_0, as (M, v)."""
     N = M.shape[0]
     d = 1
     while d < N:
@@ -576,7 +577,7 @@ def _affine_prefix(M, v):
         v = torch.cat([v[:d], torch.einsum("cij,c...j->c...i", Mb, va) + vb])
         M = torch.cat([M[:d], Mb @ Ma])
         d *= 2
-    return v
+    return (M, v) if with_maps else v
 
 
 def _solve_K_assoc(sw: StagewiseQP, r, factors=None):
@@ -591,6 +592,77 @@ def _solve_K_assoc(sw: StagewiseQP, r, factors=None):
     vy = torch.einsum("cij,c...j->c...i", Uf, ys)
     xs = _affine_prefix(-Cf.flip(0), vy.flip(0)).flip(0)
     return torch.movedim(xs, 0, -2)
+
+
+def _exclusive_carries(maps, dtype):
+    """Carry-in of each block of a chained affine recurrence: ``maps`` is
+    the pair (M (P, b, b), v (P, …, b)) of the blocks' whole maps
+    y_out = M y_in + v in chain order; returns (P, …, b), the carry-in of
+    block p composed from blocks 0..p−1 (zero for block 0)."""
+    M, v = maps
+    c = torch.zeros_like(v[0])
+    out = [c]
+    for p in range(M.shape[0] - 1):
+        c = torch.einsum("ij,...j->...i", M[p], c) + v[p]
+        out.append(c)
+    return torch.stack(out).to(dtype)
+
+
+def solve_K_horizon_sharded(sw: StagewiseQP, r, mesh, axis: str = "hz",
+                            factors=None):
+    """K⁻¹ r with the horizon split over ``mesh[axis]``: rank d holds the
+    N/P stages [d·N/P, (d+1)·N/P) of r (…, N/P, b) and returns those
+    stages of x. Each sweep is the log-depth scan of ``_solve_K_assoc``
+    over the rank's stages from a zero carry, one all_gather of every
+    rank's whole block map (b×b and the batch's b-vector), an exclusive
+    prefix over the ranks (forward: earlier stages; backward: later
+    ones), and the carry applied through the prefix maps. ``factors``:
+    the full (L, U⁻¹, C), default the prep's; raises unless P divides
+    N."""
+    from pyhybridcontrol_tpu_torch.parallel.mesh import AxisComm
+
+    comm = AxisComm(mesh, axis)
+    P, d = comm.size, comm.rank
+    Lf, Uf, Cf = factors if factors is not None else sw.factors
+    N = Lf.shape[0]
+    if N % P:
+        raise ValueError(f"N={N} does not split over the {P} ranks of "
+                         f"axis {axis!r}")
+    Nl = N // P
+    if r.shape[-2] != Nl:
+        raise ValueError(f"r holds {r.shape[-2]} stages; a rank holds {Nl}")
+    lo = d * Nl
+    Lf, Uf, Cf = Lf[lo:lo + Nl], Uf[lo:lo + Nl], Cf[lo:lo + Nl]
+
+    def sweep(Ms, v):
+        """The block's prefix maps from a zero carry, and every rank's
+        whole block map after one all_gather."""
+        Mp, vp = _affine_prefix(Ms, v, with_maps=True)
+        got = comm.all_gather(torch.cat([Mp[-1].reshape(-1),
+                                         vp[-1].reshape(-1)]))
+        b = Ms.shape[-1]
+        return Mp, vp, (got[:, :b * b].reshape(P, b, b),
+                        got[:, b * b:].reshape((P,) + vp.shape[1:]))
+
+    # forward: y_k = r_k − L_k y_{k−1}, carries from the earlier ranks
+    Mp, vp, maps = sweep(-Lf, torch.movedim(r, -2, 0))
+    cin = _exclusive_carries(maps, r.dtype)[d]
+    ys = torch.einsum("cij,...j->c...i", Mp, cin) + vp
+    # backward: x_k = U⁻¹_k y_k − C_k x_{k+1}, flipped; carries from the
+    # later ranks, so the chain runs in reversed rank order
+    vy = torch.einsum("cij,c...j->c...i", Uf, ys)
+    Mq, vq, (Mall, vall) = sweep(-Cf.flip(0), vy.flip(0))
+    cin = _exclusive_carries((Mall.flip(0), vall.flip(0)),
+                             r.dtype)[P - 1 - d]
+    xs = (torch.einsum("cij,...j->c...i", Mq, cin) + vq).flip(0)
+    return torch.movedim(xs, 0, -2)
+
+
+def _k4_sweep(sw: StagewiseQP, t):
+    """K⁻¹t through K4 (the stagewise sweep kernel) on the card."""
+    from pyhybridcontrol_tpu_torch.ops.cuda_stagewise import sw_solve_k_cuda
+
+    return sw_solve_k_cuda(t.contiguous(), sw.factors)
 
 
 def _solve_K_bordered(sw: StagewiseQP, t, sweep):
@@ -819,9 +891,11 @@ def _admm_iterations(sw: StagewiseQP, q, l, u, x, z, y, z_e, y_e, ext_u,
     y) and, with extra rows, (z_e, y_e): the plain version of K5 (the
     reference's ``fori_loop`` body). z starts inside [l, u]; q, l, u, ext_u
     broadcast to the carries' batch. ``sweep(sw, t)`` is K⁻¹t (``_solve_K``,
-    the default, or ``_solve_K_assoc``). ``consensus_M`` (S, S, N): the
+    the default, ``_solve_K_assoc`` or K4). ``consensus_M`` (S, S, N): the
     z-update of the trailing ``n_cons`` rows is the p-weighted group mean
-    over the scenario axis (dim −3 of the (…, S, N, n_cons) block). Returns
+    over the scenario axis (dim −3 of the (…, S, N, n_cons) block); or a
+    function of that block that returns the means (the scenario axis split
+    over ranks: ops/stagewise_tree.py). Returns
     (x, z, y, dy, z_e, y_e, dy_e): dy and dy_e the last iteration's dual
     steps (zeros after no iteration); the extra rows' three are None
     without extra rows."""
@@ -843,7 +917,10 @@ def _admm_iterations(sw: StagewiseQP, q, l, u, x, z, y, z_e, y_e, ext_u,
             z_soft = torch.where(s > u, u + t.clamp_min(0.0),
                                  torch.maximum(s, l))
             z_new = torch.where(soft, z_soft, z_new)
-        if consensus_M is not None and sw.n_cons:
+        if callable(consensus_M) and sw.n_cons:
+            z_new = torch.cat([z_new[..., :mc], consensus_M(s[..., mc:])],
+                              dim=-1)
+        elif consensus_M is not None and sw.n_cons:
             z_new = torch.cat([z_new[..., :mc], torch.einsum(
                 "stk,...tkj->...skj", consensus_M, s[..., mc:])], dim=-1)
         return z_new
@@ -934,7 +1011,10 @@ def stagewise_admm_solve(sw: StagewiseQP, q, l, u, iters: int = 200,
     device. ``consensus_M`` (S, S, N): the p-weighted group-mean weights
     (``StagewiseTreeQP.M``) that replace the z-update on the trailing
     ``n_cons`` rows over the scenario axis, dim −3 (their residual then
-    measures |Ax − z| and their dy leaves the certificate). ``ext_u``
+    measures |Ax − z| and their dy leaves the certificate); a function in
+    its place computes the means itself (the scenario axis split over
+    ranks): no one launch holds a mean that crosses ranks, so then the
+    torch loop runs, its sweep K4 on the card. ``ext_u``
     (…, r): required with extra rows (``assemble_stagewise_ext``); their
     z/y come back in ``res.z_ext``/``res.y_ext``; ``warm_ext``: (z_ext,
     y_ext) of a prior result."""
@@ -968,6 +1048,8 @@ def stagewise_admm_solve(sw: StagewiseQP, q, l, u, iters: int = 200,
     carries = (sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters, consensus_M)
     if parallel_sweeps:
         out = _admm_iterations(*carries, sweep=_solve_K_assoc)
+    elif callable(consensus_M) and q.device.type == "cuda":
+        out = _admm_iterations(*carries, sweep=_k4_sweep)
     elif q.device.type == "cpu":
         out = _admm_iterations(*carries, sweep=_solve_K)
     elif q.device.type == "cuda":

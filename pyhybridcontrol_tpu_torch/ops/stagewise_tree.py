@@ -1,9 +1,8 @@
 """Long-horizon scenario-tree MIQP: consensus ADMM over the stagewise O(N)
-frame, on one device.
+frame, on one device or with the scenario axis over ranks.
 
-Counterpart of ``pyhybridcontrol_tpu/ops/stagewise_tree.py`` without
-``scen_mesh`` (the scenario axis across devices waits for ROADMAP queue 1
-item 9, "multi-device"). The dense joint build (ops/scenario_tree.py) is
+Counterpart of ``pyhybridcontrol_tpu/ops/stagewise_tree.py``. The dense
+joint build (ops/scenario_tree.py) is
 O((S·N·nv)²) and the condensed consensus tree (ops/consensus_tree.py)
 carries a dense per-scenario KKT inverse; this module composes the
 consensus splitting with the stagewise block-tridiagonal frame
@@ -30,6 +29,16 @@ coupling, so the p-weighted sum of the per-scenario dual bounds is a valid
 lower bound of the tree node. ``StagewiseTreeBackend`` has no
 ``solve_wave`` and no ``node_cert``, so each B&B wave runs the unfused
 relax → round → probe.
+
+``scen_mesh`` ((mesh, axis), or a mesh whose axis is "scen"): each rank
+holds S/P scenarios of every node (P must divide S). The group mean then
+crosses ranks in every ADMM iteration: a local partial sum over the rank's
+scenarios, one ``all_reduce(SUM)``, the rank's own rows. K5 keeps a
+node's scenarios in one cluster and cannot hold that, so the iterations
+run as the torch loop with K4 as its sweep (ops/stagewise.py). After the
+solve one all_gather returns every scenario's iterates and statistics to
+every rank, and the B&B loop runs replicated over the joint decision, on
+data broadcast from the first rank, so every rank takes the same waves.
 """
 
 from __future__ import annotations
@@ -54,14 +63,6 @@ from pyhybridcontrol_tpu_torch.ops.stagewise import (
 )
 from pyhybridcontrol_tpu_torch.solver.bnb import BnbResult, BnbSpec, _bnb_loop
 from pyhybridcontrol_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
-
-
-def _no_scen_mesh(scen_mesh):
-    if scen_mesh is not None:
-        raise NotImplementedError(
-            "scen_mesh (the scenario axis across devices) is not ported to "
-            "pyhybridcontrol_tpu_torch yet (ROADMAP queue 1, item 9: "
-            "multi-device)")
 
 
 @dataclasses.dataclass
@@ -178,12 +179,38 @@ def stagewise_tree_admm_solve(swt: StagewiseTreeQP, q, l, u,
     per-problem AdmmResult: x keeps the scenario axis (…, S, N, b),
     obj = Σ_s p_s J_s, the residuals are maxima over scenarios (consensus
     rows measure the non-anticipativity gap), and a node is certified
-    infeasible if any scenario alone is. ``scen_mesh`` is not ported."""
-    _no_scen_mesh(scen_mesh)
+    infeasible if any scenario alone is. ``scen_mesh``: the scenario axis
+    over ranks (module docstring); every rank passes the full data and
+    gets the full result."""
+    consensus = swt.M
+    if scen_mesh is not None:
+        from pyhybridcontrol_tpu_torch.parallel.mesh import (
+            scenario_shard, sharded_group_mean)
+
+        sh = scenario_shard(scen_mesh, swt.S)
+
+        def loc(t, dim):
+            return None if t is None else sh.local(t, t.ndim + dim)
+
+        q, l, u, lb_xi, ub_xi = (loc(t, -3) for t in (q, l, u, lb_xi, ub_xi))
+        if warm is not None:
+            warm = tuple(loc(t, -3) for t in warm)
+        if warm_ext is not None:
+            warm_ext = tuple(loc(t, -2) for t in warm_ext)
+        ext_u = loc(ext_u, -2)
+        consensus = sharded_group_mean(sh, swt.M, swt.S)
     res = stagewise_admm_solve(
         swt.sw, q, l, u, iters=iters, lb_xi=lb_xi, ub_xi=ub_xi,
         warm=warm, parallel_sweeps=parallel_sweeps,
-        consensus_M=swt.M, ext_u=ext_u, warm_ext=warm_ext)
+        consensus_M=consensus, ext_u=ext_u, warm_ext=warm_ext)
+    if scen_mesh is not None:
+        # every scenario's iterates and statistics, in one all_gather
+        keys = [k for k in ("x", "z", "y", "obj", "r_prim", "r_prim_rel",
+                            "r_dual", "infeas_cert", "z_ext", "y_ext")
+                if getattr(res, k) is not None]
+        full = sh.gather([getattr(res, k) for k in keys],
+                         dim=res.obj.ndim - 1)
+        res = dataclasses.replace(res, **dict(zip(keys, full)))
     return dataclasses.replace(
         res,
         obj=(swt.probs.double() * res.obj.double()).sum(-1).float(),
@@ -204,6 +231,7 @@ class StagewiseTreeBackend:
     swt_probe: Optional[StagewiseTreeQP] = None
     ext_u: Optional[torch.Tensor] = None
     parallel_sweeps: bool = False
+    scen_mesh: object = None
 
     def __post_init__(self):
         self._rep = torch.as_tensor(self.swt.rep_map, dtype=torch.long,
@@ -259,7 +287,7 @@ class StagewiseTreeBackend:
         res = stagewise_tree_admm_solve(
             self.swt, q, l, u, iters=iters, lb_xi=lb_xi, ub_xi=ub_xi,
             warm=warm, parallel_sweeps=self.parallel_sweeps,
-            ext_u=self.ext_u, warm_ext=warm_ext)
+            scen_mesh=self.scen_mesh, ext_u=self.ext_u, warm_ext=warm_ext)
         m_st = self.swt.S * sw.N * sw.m_k
         z_flat = res.z.reshape(batch + (m_st,))
         y_flat = res.y.reshape(batch + (m_st,))
@@ -277,8 +305,8 @@ class StagewiseTreeBackend:
             return self.solve(f, h, lb, ub, iters, warm=warm)
         return StagewiseTreeBackend(
             self.swt_probe, ext_u=self.ext_u,
-            parallel_sweeps=self.parallel_sweeps).solve(f, h, lb, ub, iters,
-                                                        warm=warm)
+            parallel_sweeps=self.parallel_sweeps,
+            scen_mesh=self.scen_mesh).solve(f, h, lb, ub, iters, warm=warm)
 
     def node_bound(self, res, f, h, lb, ub):
         """p-weighted sum of the per-scenario dual bounds: valid because
@@ -320,10 +348,18 @@ def solve_tree_miqp_stagewise(swt: StagewiseTreeQP, q, l, u,
     v_k = ξ_k[:nv]). ``swt_probe``: stiff-ρ prep for the dive probes.
     ``ext_u``: per-scenario extra-row bounds (S, r)
     (``assemble_stagewise_tree_ext``), required when the prep carries
-    horizon-coupled rows. ``scen_mesh`` is not ported."""
-    _no_scen_mesh(scen_mesh)
+    horizon-coupled rows. ``scen_mesh``: the scenario axis over ranks
+    (module docstring); every rank calls it with the same arguments."""
     f, h = pack_stagewise_tree_data(q, l, u)
+    if scen_mesh is not None:
+        from pyhybridcontrol_tpu_torch.parallel.mesh import (
+            replicated, scenario_shard)
+
+        f, h, ext_u, init_incumbent = replicated(
+            scenario_shard(scen_mesh, swt.S).comm, f, h, ext_u,
+            init_incumbent)
     return _bnb_loop(
         StagewiseTreeBackend(swt, swt_probe, ext_u=ext_u,
-                             parallel_sweeps=parallel_sweeps),
+                             parallel_sweeps=parallel_sweeps,
+                             scen_mesh=scen_mesh),
         f, h, spec, init_incumbent=init_incumbent)

@@ -45,8 +45,15 @@ Port decisions:
   the diving lane (``dive_slots``), root strong branching
   (``sb_iters``/``sb_fix``), and ``pool_norm`` for the pooled engine
   (solver/bnb_pooled.py, which refuses the four search options the
-  reference's pooled engine ignores). The multi-device hooks wait for
-  ROADMAP queue 1 item 4.
+  reference's pooled engine ignores).
+- The multi-device hooks of the reference (``exchange_children``,
+  ``reduce_incumbent``, ``global_any_active``, ``reduce_min``) are
+  ``_bnb_loop``'s ``hooks`` (``LoopHooks``) and its ``root_device_pred``
+  is ``root_here``, with its semantics; parallel/sharded_bnb.py fills
+  them with collectives over a mesh axis. The continue test reads the reduced flags, so every rank
+  takes the same number of waves; the probe gate reads the rank's own
+  ``probe_stale``, as each device's ``lax.cond`` does in the reference
+  (no collective depends on it). Without hooks the loop is what it was.
 - The diving lane: the reference points short-frontier picks at the
   out-of-bounds slot so that their scatters drop; here they select the
   dump row C with ``valid`` false (``bnb_pooled.SCATTER_HOOK`` sees
@@ -216,6 +223,24 @@ class BnbSpec:
             raise ValueError(f"unknown pool_norm {self.pool_norm!r}")
 
 
+@dataclasses.dataclass(frozen=True)
+class LoopHooks:
+    """The multi-device seams of the wave loop (None: single device).
+
+      exchange_children(dict) — permute the child-1 batch across ranks
+        before its scatter into the pool (load balancing);
+      reduce_incumbent(obj, x, found) — the best incumbent over ranks;
+      global_any_active(bool) — OR of "any node active" over ranks;
+      reduce_min(x) — min over ranks of the best open bound, so that the
+        ``rel_gap`` stop and the final bound read the global one.
+    """
+
+    exchange_children: Optional[object] = None
+    reduce_incumbent: Optional[object] = None
+    global_any_active: Optional[object] = None
+    reduce_min: Optional[object] = None
+
+
 @dataclasses.dataclass
 class BnbState:
     """Node pool (C+1 rows: row C is the dump row) and search scalars."""
@@ -304,11 +329,15 @@ def _loop_flags(spec: BnbSpec, live, found_all, probe_stale, next_wave: int):
 
 
 def _bnb_loop(backend, f, h, spec: BnbSpec, init_incumbent=None,
-              init_node=None) -> BnbResult:
-    """The B&B wave loop (single device). ``init_incumbent``: optional
-    ``(obj, V, ok)`` heuristic seed (e.g. rollout repair). ``init_node``:
-    optional ``(bvals, ok, x_warm|None)`` binary assignment injected as a
-    fully-fixed node in slot 1 (it rides wave 1 beside the root)."""
+              init_node=None, hooks: LoopHooks = LoopHooks(),
+              root_here: bool = True) -> BnbResult:
+    """The B&B wave loop. ``init_incumbent``: optional ``(obj, V, ok)``
+    heuristic seed (e.g. rollout repair). ``init_node``: optional
+    ``(bvals, ok, x_warm|None)`` binary assignment injected as a
+    fully-fixed node in slot 1 (it rides wave 1 beside the root).
+    ``hooks``: the multi-device seams; ``root_here``: whether this rank's
+    pool starts with the root (and the ``init_node``), the reference's
+    ``root_device_pred``."""
     nb = len(backend.binary_idx)
     dev = f.device
     if nb == 0:
@@ -321,6 +350,9 @@ def _bnb_loop(backend, f, h, spec: BnbSpec, init_incumbent=None,
     W, C = spec.wave_size, spec.capacity
     dtype = f.dtype
     s = _init_state(backend, spec, dtype, backend.warm_size, dev)
+    if not root_here:
+        # SPMD: only the root rank's pool starts with the root node
+        s.active[0] = False
     if init_incumbent is not None:
         obj0, x0V, ok0 = init_incumbent
         s.inc_obj = torch.where(ok0, obj0.to(dtype), s.inc_obj)
@@ -333,7 +365,7 @@ def _bnb_loop(backend, f, h, spec: BnbSpec, init_incumbent=None,
         s.x_pool[0], s.z_pool[0], s.y_pool[0] = r0.x, r0.z, r0.y
     if init_node is not None:
         bv0, okn, xw = init_node
-        s.active[1] = okn
+        s.active[1] = okn & root_here
         s.fix_mask[1] = True
         s.fix_val[1] = bv0.to(dtype)
         if spec.warm_start and xw is not None:
@@ -357,7 +389,7 @@ def _bnb_loop(backend, f, h, spec: BnbSpec, init_incumbent=None,
     live, probe = True, True      # wave 0: root active, retry wave
     while waves < spec.max_waves and live:
         _wave(backend, s, spec, fb, hb, bidx, node_bounds, piters, acc_tol,
-              probe)
+              probe, hooks)
         waves += 1
         cont = s.alive
         if spec.rel_gap > 0:
@@ -368,6 +400,8 @@ def _bnb_loop(backend, f, h, spec: BnbSpec, init_incumbent=None,
     act = s.active[:C]
     best_open = torch.minimum(torch.where(act, s.bound[:C], BIG).min(),
                               s.dropped_min)
+    if hooks.reduce_min is not None:
+        best_open = hooks.reduce_min(best_open)
     return BnbResult(x=s.inc_x, obj=s.inc_obj, found=s.inc_found,
                      waves=waves, nodes_solved=s.nodes_solved,
                      overflow=s.overflow, best_open_bound=best_open)
@@ -402,9 +436,11 @@ def _relax_then_probe(backend, fb, hb, lb, ub, iters, piters, warm,
 
 
 def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
-          piters, acc_tol, probe_ran: bool = True):
+          piters, acc_tol, probe_ran: bool = True,
+          hooks: LoopHooks = LoopHooks()):
     """One wave; updates the pool ``s`` in place. ``probe_ran``: the probe
-    gate, decided before the wave (K2 on probing waves, K1 on gated ones)."""
+    gate, decided before the wave (K2 on probing waves, K1 on gated ones).
+    ``hooks``: the multi-device seams."""
     W, C = spec.wave_size, spec.capacity
     nb = bidx.shape[0]
 
@@ -494,9 +530,12 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
     s.inc_obj = torch.where(better, probe_obj[k], s.inc_obj)
     s.inc_x = torch.where(better, probe_x[k], s.inc_x)
     s.inc_found = s.inc_found | (better & probe_ok[k])
-    inc_obj, inc_found = s.inc_obj, s.inc_found
     if probe_ran:
         s.probe_stale = torch.where(better, 0, s.probe_stale + 1)
+    if hooks.reduce_incumbent is not None:
+        s.inc_obj, s.inc_x, s.inc_found = hooks.reduce_incumbent(
+            s.inc_obj, s.inc_x, s.inc_found)
+    inc_obj, inc_found = s.inc_obj, s.inc_found
 
     # -- 4. prune; on a gated wave leaf candidates wait for the next probe --
     bound_prune = lower >= inc_obj - spec.gap
@@ -579,37 +618,49 @@ def _wave(backend, s: BnbState, spec: BnbSpec, fb, hb, bidx, node_bounds,
         s.y_pool[sel] = relax.y
 
     # child-1 → free slots; the i-th best child takes the i-th free slot;
-    # writes with no slot go to the dump row C
-    clive = expand & has_branch
+    # writes with no slot go to the dump row C. Across ranks the batch is
+    # exchanged first: a received child with ``live`` false is a dead one
+    # and takes the dump row like any other
+    c1 = dict(fm=cfm, fv=cfv1, bound=child1_bound, depth=cdepth,
+              live=expand & has_branch, bv=cbv, bf=cbf)
+    if spec.warm_start:
+        c1.update(xw=relax.x, zw=relax.z, yw=relax.y)
+    if hooks.exchange_children is not None:
+        c1 = hooks.exchange_children(c1)
+    clive, cb1 = c1["live"], c1["bound"]
     free_slots = first_k(torch.where(s.active[:C], -1.0, 1.0), W,
                          descending=True)
     slot_free = ~s.active[free_slots]
-    src = first_k(torch.where(clive, child1_bound, BIG), W)
+    src = first_k(torch.where(clive, cb1, BIG), W)
     write_ok = slot_free & clive[src]
     tgt = torch.where(write_ok, free_slots, C)
     _watch("bnb_child1", tgt, C)
-    s.fix_mask[tgt] = cfm[src]
-    s.fix_val[tgt] = cfv1[src]
-    s.bound[tgt] = child1_bound[src]
-    s.depth[tgt] = cdepth[src]
-    s.branch_var[tgt] = cbv[src]
+    s.fix_mask[tgt] = c1["fm"][src]
+    s.fix_val[tgt] = c1["fv"][src]
+    s.bound[tgt] = cb1[src]
+    s.depth[tgt] = c1["depth"][src]
+    s.branch_var[tgt] = c1["bv"][src]
     s.branch_dir[tgt] = 1
-    s.branch_frac[tgt] = cbf[src]
+    s.branch_frac[tgt] = c1["bf"][src]
     s.active[tgt] = True
     if spec.warm_start:
-        s.x_pool[tgt] = relax.x[src]
-        s.z_pool[tgt] = relax.z[src]
-        s.y_pool[tgt] = relax.y[src]
+        s.x_pool[tgt] = c1["xw"][src]
+        s.z_pool[tgt] = c1["zw"][src]
+        s.y_pool[tgt] = c1["yw"][src]
     s.active[C] = False
     drop_mask = clive[src] & ~slot_free
     s.overflow = s.overflow | drop_mask.any()
     s.dropped_min = torch.minimum(
-        s.dropped_min, torch.where(drop_mask, child1_bound[src], BIG).min())
+        s.dropped_min, torch.where(drop_mask, cb1[src], BIG).min())
 
     act = s.active[:C]
     s.alive = act.any()
+    if hooks.global_any_active is not None:
+        s.alive = hooks.global_any_active(s.alive)
     s.best_open = torch.minimum(torch.where(act, s.bound[:C], BIG).min(),
                                 s.dropped_min)
+    if hooks.reduce_min is not None:
+        s.best_open = hooks.reduce_min(s.best_open)
     s.nodes_solved = s.nodes_solved + valid.sum()
 
 

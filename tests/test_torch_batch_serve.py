@@ -17,6 +17,7 @@ import os
 import re
 import socket
 import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -190,12 +191,11 @@ def test_feedback_batch_wave_budget_and_refusals(ctrls, monkeypatch):
                        torch.full((3,), 2.0))
     assert len(calls) == 3
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*multi-device"):
-        tc.feedback_batch(x0s, mesh=object())
-    # scenario trees are ported (tests/test_torch_scenario_tree.py); one
-    # across devices is not
-    with pytest.raises(NotImplementedError, match="ROADMAP.*multi-device"):
-        tc.set_scenario_tree(None, scen_mesh=object())
+    # a batch over ranks (tests/test_torch_sharded_scenarios.py) needs a
+    # mesh with a "scen" axis
+    no_scen = types.SimpleNamespace(mesh_dim_names=("pool",))
+    with pytest.raises(ValueError, match="no axis 'scen'"):
+        tc.feedback_batch(x0s, mesh=no_scen)
     with pytest.raises(ValueError, match="engine"):
         tc.feedback_batch(x0s, engine="nope")
     with pytest.raises(ValueError, match="shape"):

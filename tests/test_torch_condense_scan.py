@@ -108,8 +108,27 @@ def test_condense_device_batched_over_models():
 
 
 def test_condense_horizon_sharded_matches():
-    """The sharded build waits for the multi-device slice: it raises and
-    names ROADMAP queue 1 item 4."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    """Two ranks (gloo, tests/torch_parallel_ranks.py) each build the block
+    rows of four of the N=8 steps; stacked, they are ``condense_device``'s
+    Phi and Gv and the reference's ``condense_horizon_sharded`` over a
+    two-device mesh. A mesh without the axis is refused."""
+    import types
+
+    import torch_parallel_ranks as R
+    from pyhybridcontrol_tpu.parallel import make_mesh as j_mesh
+    from pyhybridcontrol_tpu_torch.parallel import spawn
+
+    rows = spawn(R.condense_rows, 2, (8,), "cpu", timeout=120)
+    full = condense_device(switched_double_integrator(), 8)
+    jphi, jgv = jcs.condense_horizon_sharded(j_di(), 8, j_mesh([("hz", 2)]))
+    for k, (name, jref) in enumerate((("Phi", jphi), ("Gv", jgv))):
+        got = np.concatenate([r[k] for r in rows])
+        assert got.shape == tuple(full[name].shape)
+        np.testing.assert_allclose(got, full[name].numpy(), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(got, np.asarray(jref), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+    with pytest.raises(ValueError, match="no axis 'hz'"):
         condense_horizon_sharded(switched_double_integrator(), 8,
-                                 mesh=object())
+                                 types.SimpleNamespace(
+                                     mesh_dim_names=("pool",)))

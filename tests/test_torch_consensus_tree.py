@@ -12,6 +12,7 @@ reference's tests/test_consensus_tree.py (objective 2e-3, first input
 (tests/test_scenario_tree.py)."""
 
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -320,11 +321,14 @@ def test_bnb_loop_without_wave_or_bound_hooks_matches_reference(
 def test_tree_refusals_and_defaults(preps):
     jt, tt, jq, tq, _ = preps
     f, h = tct.assemble_tree(tq, torch.tensor([2.0, 0.0]))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        tct.solve_tree_miqp(tq, f, h, scen_mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+    # the tree over ranks (tests/test_torch_sharded_scenarios.py) needs a
+    # mesh with the named axis
+    no_scen = types.SimpleNamespace(mesh_dim_names=("pool",))
+    with pytest.raises(ValueError, match="no axis 'scen'"):
+        tct.solve_tree_miqp(tq, f, h, scen_mesh=no_scen)
+    with pytest.raises(ValueError, match="no axis 'hz'"):
         tct.tree_admm_solve(tq, f, h, tq.qp.lb.expand(4, -1),
-                            tq.qp.ub.expand(4, -1), scen_mesh=object())
+                            tq.qp.ub.expand(4, -1), scen_mesh=(no_scen, "hz"))
     c = CondensedMpc(TM, 6, tdi.default_weights())
     with pytest.raises(ValueError, match="full-v"):
         tct.prepare_tree_consensus(c.with_move_blocking([0, 0, 1, 1, 2, 2]),

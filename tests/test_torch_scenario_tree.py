@@ -12,6 +12,8 @@ floor 1) of the fp64 enumeration oracle on the joint frame
 (tests/test_bnb_pooled.py). Results are compared on objectives and plans,
 never on node counts."""
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -413,16 +415,22 @@ def test_one_branching_decision_fixes_every_member(monkeypatch):
 def test_scenario_tree_refusals():
     jt, tt, N = _trees("S2_N4")
     tc = MpcController(TM, N, tdi.default_weights(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        tc.set_scenario_tree(tt, consensus=True, scen_mesh=object())
+    # trees over ranks (tests/test_torch_sharded_scenarios.py): the mesh
+    # is kept, and one without a "scen" axis is refused at the solve
+    no_scen = types.SimpleNamespace(mesh_dim_names=("pool",))
+    tc.set_scenario_tree(tt, consensus=True, scen_mesh=no_scen)
+    with pytest.raises(ValueError, match="no axis 'scen'"):
+        tc.feedback(np.array([1.0, 0.0], np.float32))
     sc = MpcController(TM, N, solver="stagewise", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        sc.set_scenario_tree(tt, scen_mesh=object())
+    sc.set_scenario_tree(tt, scen_mesh=no_scen)
+    with pytest.raises(ValueError, match="no axis 'scen'"):
+        sc.feedback(np.array([1.0, 0.0], np.float32))
     from pyhybridcontrol_tpu_torch.ops import stagewise_tree as tswt
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        tswt.stagewise_tree_admm_solve(None, None, None, None,
-                                       scen_mesh=object())
+    swt = sc.stagewise
+    q, l, u = tswt.assemble_stagewise_tree(swt, torch.tensor([1.0, 0.0]))
+    with pytest.raises(ValueError, match="no axis 'scen'"):
+        tswt.stagewise_tree_admm_solve(swt, q, l, u, scen_mesh=no_scen)
     step0 = tst.ScenarioTree.from_branching(np.zeros((2, N, 1)),
                                             branch_steps=(0,))
     with pytest.raises(ValueError, match="step 0"):

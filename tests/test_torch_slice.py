@@ -8,6 +8,8 @@ the packages (both solve to the B&B's feas_tol with fp32 iterates); each
 within 1e-3 of the oracle. Node counts are not compared: search order
 legitimately differs (ROADMAP)."""
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -150,25 +152,23 @@ def test_unported_paths_raise():
         BnbSpec(wave_size=600, capacity=512)
     tc = MpcController(tdi.switched_double_integrator(), 4,
                        tdi.default_weights(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.feedback_batch(np.zeros((2, 2)), mesh=object())
+    # batches and trees over ranks are ported (tests/test_torch_parallel.py,
+    # tests/test_torch_sharded_scenarios.py): a mesh without the axis they
+    # split is refused
+    no_scen = types.SimpleNamespace(mesh_dim_names=("pool",))
+    with pytest.raises(ValueError, match="no axis 'scen'"):
+        tc.feedback_batch(np.zeros((2, 2)), mesh=no_scen)
     # soft rows are ported: the setter configures, the next build softens
     assert tc.set_soft_constraints([6, 7], lin_pen=5.0, quad_pen=1.0) is tc
     assert tc.condensed.n_soft == 2 and tc.repair[1] == "soft"
     # scenario trees (tests/test_torch_scenario_tree.py) and the stagewise
-    # frame with its tree (tests/test_torch_stagewise*.py) are ported; a
-    # tree across devices is not, on either frame
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        tc.set_scenario_tree(object(), scen_mesh=object())
-    sc = MpcController(tdi.switched_double_integrator(), 4,
-                       solver="stagewise", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        sc.set_scenario_tree(object(), scen_mesh=object())
-    from pyhybridcontrol_tpu_torch.ops import stagewise_tree as tswt
+    # frame with its tree (tests/test_torch_stagewise*.py) are ported, on
+    # one card or over ranks; a stagewise tree over ranks needs the mesh's
+    # axis too
+    from pyhybridcontrol_tpu_torch.parallel.mesh import scenario_shard
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        tswt.solve_tree_miqp_stagewise(None, None, None, None,
-                                       scen_mesh=object())
+    with pytest.raises(ValueError, match="no axis 'scen'"):
+        scenario_shard(no_scen, 4)
     with pytest.raises(ValueError, match="unknown solver"):
         MpcController(tdi.switched_double_integrator(), 4,
                       solver="stagewise_dense", device="cpu")

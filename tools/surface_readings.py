@@ -2,7 +2,7 @@
 seeds, on the card (how the "surfaces" limits of ``chip_smoke.py`` are
 set), and one run of the surfaces' paths:
 
-    python tools/surface_readings.py [--seeds 0-7] [--paths]
+    python tools/surface_readings.py [--seeds 0-7] [--paths] [--md]
 
 Builds the kernels, then runs ``chip_smoke.phase_surface_shapes`` (the
 4- and 3-agent micro-grid waves, the decentralized agents' wave and config
@@ -12,7 +12,10 @@ prints, per regime, the largest error of every field over the seeds and
 the fields off their limits. ``--paths`` then runs the surfaces' phases
 once, as ``chip_smoke.py`` does: the ``run`` CLI on configs 1–5 with
 checkpoint/resume and the log, the micro-grid coordinator at 3 and 4
-agents, the decentralized micro-grid and the examples.
+agents, the decentralized micro-grid and the examples. ``--md`` reads the
+multi-device phase's per-rank waves instead
+(``chip_smoke.phase_md_shapes``: config 5's pool wave and the
+``feedback_batch(mesh=)`` slice; how their limits are set).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", default="0-7")
     ap.add_argument("--paths", action="store_true")
+    ap.add_argument("--md", action="store_true")
     a = ap.parse_args(argv)
     lo, _, hi = a.seeds.partition("-")
     seeds = range(int(lo), int(hi or lo) + 1)
@@ -54,8 +58,12 @@ def main(argv=None):
         cs.SEED = seed
         cs.TIMINGS = seed == seeds[0]       # the times at the first seed
         print(f"seed {seed}:", flush=True)
-        cs.phase("surface shapes", cs.phase_surface_shapes, dev,
-                 cs.phase_rng("surface_shapes"), recs)
+        if a.md:
+            cs.phase("md shapes", cs.phase_md_shapes, dev,
+                     cs.phase_rng("md_shapes"), recs)
+        else:
+            cs.phase("surface shapes", cs.phase_surface_shapes, dev,
+                     cs.phase_rng("surface_shapes"), recs)
     for regime, seen in cs.READINGS.items():
         print(f"largest error over seeds {a.seeds}, {regime} (limit): "
               + " ".join(f"{k}={v:.2e} ({cs.LIMITS[regime][k]:.0e})"
