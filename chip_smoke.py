@@ -267,7 +267,21 @@ Run from the root of a checkout. It builds the kernels of
      world whose sharded B&B is the unsharded loop bitwise. Per path: the
      ranks, waves, ms a wave, collective calls, bytes and ms, K1, K2 and
      K4 launches a rank. Eight ranks time-slicing one card measure the
-     machinery, not scaling.
+     machinery, not scaling;
+ 34. the mixed schedule, run with the kernel phases (after 32), one path
+     (``mixed_schedule``): ``admm_solve_mixed`` at the bench's mixed
+     section's shape (N=20, B=4096, 100 iterations) at low_frac 0.8 (the
+     tensor-core split phase, then K1's tail) and 1.0 (as in the
+     reference, one full-precision solve), and at N=27, 0.8 (K1's split
+     mode and its tail in one launch); ``BoxQP.precision`` "high" at N=20
+     and "default" (the one-pass split phase, a variant of both kernels)
+     at N=20 and N=27; ``admm_solve_batch`` at config 1's shape (N=10, one
+     state's 1-D q over enumeration's 2^10 boxes, 400 iterations). Every
+     launch against its plain version ("mixed", "mixed_1pass", "main"),
+     the one-pass kernels' own outputs after one iteration
+     ("mixed_iterates_1pass"), the objectives against a full-precision K1
+     solve beside the bench's 1e-4 gate (a reading), each case timed
+     beside its bound.
 
 Each phase prints its wall time, and the run its total. Launch counts are
 kept per path (PATHS): set to 0 just before each served request set, the
@@ -275,9 +289,9 @@ pooled calls, the relaxation sweeps, the closed loops, the config-2 calls,
 config 2's search arms and its cut-frame arm, config 4c's call and its single-instance feedbacks, config 6's two arms
 and the served stagewise requests, each ``run`` invocation, the
 checkpoint/resume study, each micro-grid run, the decentralized run and
-the examples and each path of the multi-device phase (summed over its
-ranks, each rank's counts set to 0 just before and read just after), and
-read just after it; launches made to compare a kernel with its
+the examples, each path of the multi-device phase (summed over its
+ranks, each rank's counts set to 0 just before and read just after) and
+the mixed schedule's calls, and read just after it; launches made to compare a kernel with its
 plain version or with enumeration fall in none of them.
 A kernel's ``launches`` is its sum over these paths, ``launches_by_path``
 the counts apart, and ``on_main_path`` says whether a served request
@@ -293,9 +307,12 @@ obj, x, z, y, r_prim, r_prim_rel and r_dual within LIMITS, certificate
 bits identical (on the real frames of configs 2, 3 and 4b, they may
 differ on instances near a threshold: CERT_BAND). Every phase draws its problems from a generator of its
 own (``--seed N`` moves them all), so no phase's problems depend on what
-ran before it. ``--readings`` reads every field of every kernel comparison
-without stopping at the first one off its limit, lists those, and fails:
-it is how the limits are set, over several seeds. Each kernel's line
+ran before it. ``--readings`` runs the kernel phases alone (through phase
+34), reads every field of every kernel comparison without stopping at the
+first one off its limit, prints the largest reading of each regime, each
+held probe's instances that round a relaxed binary otherwise and each
+held certificate's differing bits, lists the fields off their limits and
+exits 1 if there are any: it is how the limits are set, over seeds 0-7. Each kernel's line
 carries its time at the shape the main path gives it -- ``ms`` around the
 wrapper call (checks, allocation, launch), ``kernel_ms`` around the launch
 alone -- its plain version's time and its bound: the larger of the
@@ -328,6 +345,9 @@ SOURCES = {"admm_k1": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
            "admm_k1_streamed": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
            "admm_k2_streamed": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
            "admm_k1_split": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
+           "admm_k1_mixed_1pass":
+               "pyhybridcontrol_tpu_torch/csrc/admm_mixed.cu",
+           "admm_k1_split_1pass": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
            "stagewise_k4": "pyhybridcontrol_tpu_torch/csrc/stagewise.cu",
            "stagewise_k5": "pyhybridcontrol_tpu_torch/csrc/stagewise.cu"}
 REPLACES = {"admm_k1": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
@@ -338,6 +358,10 @@ REPLACES = {"admm_k1": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
             "admm_k1_streamed": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
             "admm_k2_streamed": "pyhybridcontrol_tpu/ops/pallas_admm.py:357",
             "admm_k1_split": "pyhybridcontrol_tpu/ops/pallas_admm.py:180",
+            # the one-pass split phase: the reference's "default" precision,
+            # one bf16 MXU pass a product of its XLA iteration (BoxQP.precision)
+            "admm_k1_mixed_1pass": "pyhybridcontrol_tpu/ops/admm.py:247",
+            "admm_k1_split_1pass": "pyhybridcontrol_tpu/ops/admm.py:247",
             # K4 and K5 have no TPU kernel behind them: the reference's
             # sweep is the plain-XLA lax.scan pair of _solve_K, its
             # stagewise ADMM loop a plain-XLA fori_loop
@@ -368,7 +392,7 @@ PATHS = SERVED + ("pooled_bench_spec", "pooled_carried_incumbents",
                   "microgrid_M4", "decentralized", "examples",
                   "md_config5_pool", "md_di_pool", "md_feedback_batch",
                   "md_condense", "md_consensus_tree", "md_stagewise_tree",
-                  "md_nccl")
+                  "md_nccl", "mixed_schedule")
 # peak rates of one H100 SXM at 700 W (NVIDIA data sheet): fp32 outside
 # the tensor cores, dense bf16 in them, HBM3
 PEAK = dict(fp32=67e12, bf16=989e12, hbm=3.35e12)
@@ -405,6 +429,19 @@ LIMITS = {
                 r_prim_rel=3e-2, r_dual=0.7),
     "mixed": dict(obj=1e-4, x=0.1),
     "mixed_iterates": dict(zG=3e-3, yG=8e-2, zB=3e-3, yB=1e-3),
+    # the one-pass split phase (BoxQP.precision "default", the mixed
+    # schedule's low_precision="default"; phase 34): each operand is
+    # rounded to bf16 alone, so a last-bit difference of an operand moves
+    # its product by a whole bf16 step (2^-9 relative, not the 2^-17 of
+    # three passes), and 100 one-pass iterations wander within a noise
+    # ball of O(1) in x: the plain version against itself after a one-ulp
+    # change of q reads obj 3.54e-3, x 1.44 (tools/plain_noise.py
+    # --one-pass, seeds 0-7, CPU; three passes: 3.10e-5, 5.77e-2). 3x the
+    # largest kernel-vs-plain reading of seeds 0-7 on an H100 80GB HBM3 at
+    # 700 W: the whole solve obj 4.86e-3, x 1.49; after one iteration zG
+    # 1.32e-3, yG 3.41e-3, zB 1.32e-3, yB 1.19e-6 (the tight hold)
+    "mixed_1pass": dict(obj=1.5e-2, x=4.5),
+    "mixed_iterates_1pass": dict(zG=4e-3, yG=1.1e-2, zB=4e-3, yB=3.6e-6),
     # the double integrator at the staging cap and above (N=26-27): a
     # longer horizon is worse conditioned, so the same fp32 noise grows
     # more in 100-400 iterations (the plain version's own fp32-vs-fp64
@@ -417,9 +454,23 @@ LIMITS = {
     # the plain version's own probe is further from fp64 there — config 2:
     # x 1.3e-3 (2.4e-3 under a one-ulp change of q̂), y 1.9e-2; config 3:
     # r_dual 2.2 (2.4); config 4b: obj 1.2e-4 (4.3e-4), y 6.7e-3 — read on
-    # the CPU at the same seeds; 3x those on obj, x and z, "large" on the rest
-    "wave_probe": dict(obj=1.3e-3, x=7e-3, z=7e-3, y=6e-2, r_prim=0.8,
-                       r_prim_rel=0.8, r_dual=16.0),
+    # the CPU at the same seeds; 3x those on obj, x and z. The residuals: 3x
+    # the largest kernel-vs-plain reading of seeds 0-7 on an H100 80GB HBM3
+    # at 700 W, r_prim 1.29e-2, r_dual 4.15 (were "large"'s 0.8 and 16),
+    # where the plain version's own probes read up to 1.75e-2 and 4.20
+    # (tools/plain_noise.py --paths, seeds 0-7, CPU)
+    "wave_probe": dict(obj=1.3e-3, x=7e-3, z=7e-3, y=6e-2, r_prim=3.9e-2,
+                       r_prim_rel=3.9e-2, r_dual=12.5),
+    # K2's probes on the real frames with certificate rules at phase 9's
+    # shapes (configs 2, 3, 4b; B = 1, 37, 300; 100 + 100 iterations, cold):
+    # "main" but for the residuals, 3x the largest kernel-vs-plain reading of
+    # seeds 0-7 on an H100 80GB HBM3 at 700 W: r_prim 5.33e-3, r_prim_rel
+    # 6.77e-3, r_dual 5.8 (config 3, B=300, where "main"'s 4.0 refused
+    # seeds 4 and 6; config 4b's B=300 read 5.16 at seed 7); the plain
+    # version's own float32 against float64 there reads r_prim up to
+    # 1.24e-2, r_dual up to 3.66 (tools/plain_noise.py --big-shapes, CPU)
+    "real_probe": dict(obj=1.5e-4, x=4e-4, z=4e-4, y=1.5e-2, r_prim=2e-2,
+                       r_prim_rel=2e-2, r_dual=18.0),
     # K4 against the plain sweeps (one solve, both fp32 summing each row in
     # column order; phase 20): 3.4x the largest reading of seeds 0-7 on an
     # H100, 1.79e-7 (tools/k4_readings.py)
@@ -465,7 +516,7 @@ LIMITS = {
     # spring, N=14, B=256, 300 + 300 iterations), its relaxation: obj
     # 2.25e-5, x 2.05e-4, z 2.04e-4, y 1.36e-3, r_prim 8.91e-5, r_prim_rel
     # 1.04e-4, r_dual 9.13e-5 ("main" holds x and z at under 2x that; its
-    # probe reads at most a seventh of "wave_probe", which holds it)
+    # probe is held at "wave_probe")
     "md_pool": dict(obj=6.8e-5, x=6.2e-4, z=6.2e-4, y=4.1e-3,
                     r_prim=2.7e-4, r_prim_rel=3.2e-4, r_dual=2.8e-4),
     # the feedback_batch(mesh=) slice (N=20, B=1024, 300 + 300),
@@ -568,8 +619,10 @@ def cuda_ms(fn, reps=5):
     return sorted(times)[len(times) // 2]
 
 
-KERNEL_FUNCTIONS = (("admm", "phc_admm_k1"), ("admm", "phc_admm_k2"),
+KERNEL_FUNCTIONS = (("admm", "phc_admm_k1"), ("admm", "phc_admm_k1_1pass"),
+                    ("admm", "phc_admm_k2"),
                     ("admm_mixed", "phc_admm_k1_mixed"),
+                    ("admm_mixed", "phc_admm_k1_mixed_1pass"),
                     ("stagewise", "phc_sw_solve_k"),
                     ("stagewise", "phc_sw_admm"))
 
@@ -616,12 +669,13 @@ def kernel_ms(fn, reps=5):
 
 
 def admm_work(nr, mGp, B, products, stats, warm, stiff=False, lo_products=0,
-              outputs=1):
+              outputs=1, lo_passes=3):
     """(bytes, {type: operations}) of a batched σ=0 ADMM kernel call, from
     its shapes: each input read once, each output written once; one
     product pair (Â_Gᵀw, M t) is 2·(mGp·nr + (mGp+nr)·nr) operations per
     problem, a stats block 2·nr² + 4·mGp·nr. ``lo_products`` of the
-    products are 3-pass bf16 (tensor cores)."""
+    products are ``lo_passes``-pass bf16 (tensor cores; one pass reads the
+    hi constants alone)."""
     R = mGp + nr
     per_problem_in = 3 * nr + 2 * mGp + (2 * R if warm else 0)
     per_problem_out = outputs * (3 * nr + 2 * mGp + 8)
@@ -629,12 +683,13 @@ def admm_work(nr, mGp, B, products, stats, warm, stiff=False, lo_products=0,
     if stiff:
         consts += nr * R + 6 * nr + 3 * mGp + nr
     if lo_products:
-        consts += mGp * nr + nr * R      # bf16 hi/lo pairs: 2 × 2 bytes
+        # bf16 hi/lo pairs: 2 × 2 bytes an element; hi alone: 2 bytes
+        consts += (mGp * nr + nr * R) * (1 if lo_passes == 3 else 0.5)
     pair = 2 * (mGp * nr + R * nr)
     ops = dict(fp32=B * (products * pair
                          + stats * (2 * nr * nr + 4 * mGp * nr)))
     if lo_products:
-        ops["bf16"] = B * lo_products * 3 * pair
+        ops["bf16"] = B * lo_products * lo_passes * pair
     return 4 * (B * (per_problem_in + per_problem_out) + consts), ops
 
 
@@ -768,6 +823,12 @@ CERT_SHARE = 0.12
 # iterates put the same ratio 4x and 1.3x above it): 3x the largest
 # reading, there only
 CERT_BAND_DEC = 26.0
+# Config 3's loop wave (B=64, 200 + 200; phase 9): kernel and plain version
+# differ in a probe's certificate bit on an instance whose plain ratio lies
+# 4.69x from its threshold (seed 5 of 0-7; the others within 1.65x), where
+# the plain version's own float32 against float64 differs within 3.18x
+# (tools/plain_noise.py --paths): 3x the largest reading, there only
+CERT_BAND_CFG3 = 14.0
 
 
 @contextlib.contextmanager
@@ -783,12 +844,20 @@ def cert_band(band):
 
 def cert_near(plain, ref, binary_idx=None):
     """(B,) mask of the instances of the plain version's result ``ref``
-    whose certificate ratios lie within CERT_BAND of a threshold.
-    ``plain`` is the plain call's (kq, q, h, lb, ub): its last half step
-    runs again from ref's final iterates, which gives the certificate's
-    inputs (a K2 probe: ``binary_idx``, whose iterates sit at their probe
-    values, fix the probe's box). Checks that these inputs give ref's bits
-    back away from the thresholds."""
+    whose certificate ratios lie within CERT_BAND of a threshold
+    (``cert_factor``)."""
+    return cert_factor(plain, ref, binary_idx) <= CERT_BAND
+
+
+def cert_factor(plain, ref, binary_idx=None):
+    """(B,) factor within which the certificate ratios of each instance of
+    the plain version's result ``ref`` lie of their threshold: the least
+    over the three ratios of max(r/ε, ε/r) (infinite where no ratio is
+    positive). ``plain`` is the plain call's (kq, q, h, lb, ub): its last
+    half step runs again from ref's final iterates, which gives the
+    certificate's inputs (a K2 probe: ``binary_idx``, whose iterates sit
+    at their probe values, fix the probe's box). Checks that these inputs
+    give ref's bits back away from the thresholds (CERT_BAND)."""
     import torch
 
     from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
@@ -808,24 +877,28 @@ def cert_near(plain, ref, binary_idx=None):
     dyp = torch.clamp_min(dy, 0.0).double()
     dyn = torch.clamp_max(dy, 0.0).double()
     fin_u, fin_l = u < 0.9e30, l > -0.9e30
-    near = torch.zeros_like(ref.infeas_cert)
+    factor = torch.full(ref.infeas_cert.shape, float("inf"),
+                        dtype=torch.float64, device=dy.device)
     for r in (Atdy.double() / dn,
               (torch.where(~fin_u, dyp, 0.0).sum(-1)
                + torch.where(~fin_l, -dyn, 0.0).sum(-1)) / dn,
               -(torch.where(fin_u, u.double() * dyp, 0.0).sum(-1)
                 + torch.where(fin_l, l.double() * dyn, 0.0).sum(-1)) / dn):
-        near |= (r >= CERT_EPS / CERT_BAND) & (r <= CERT_EPS * CERT_BAND)
+        pos = r > 0
+        f = torch.where(pos, torch.maximum(r / CERT_EPS, CERT_EPS / r.where(
+            pos, 1.0)), float("inf"))
+        factor = torch.minimum(factor, f)
     bits = ca.infeasibility_certificate(dy, Atdy, l, u)
-    check(not bool(((bits != ref.infeas_cert) & ~near).any()),
+    check(not bool(((bits != ref.infeas_cert) & (factor > CERT_BAND)).any()),
           "cert_near: the plain version's last half step, run again, "
           "gives other certificate bits")
-    return near
+    return factor
 
 
 def certs_held(tag, got, ref, near=None):
     """The kernel's certificate bits equal to the plain version's; with
-    ``near`` (a callable giving cert_near's mask), they may differ on
-    instances near a threshold (CERT_BAND, CERT_SHARE)."""
+    ``near`` (a callable giving cert_factor's factors, or a mask), they
+    may differ on instances near a threshold (CERT_BAND, CERT_SHARE)."""
     import torch
 
     if near is None:
@@ -840,8 +913,15 @@ def certs_held(tag, got, ref, near=None):
     if not bool(differ.any()):
         return
     near = near()
+    far = float("nan")
+    if near.dtype != torch.bool:
+        far = float(near[differ].max())      # the farthest differing bit
+        near = near <= CERT_BAND
     n = int(differ.sum())
-    print(f"  {tag}: {n} of {differ.numel()} certificate bits differ, "
+    CERT_READINGS.append((tag, n, int((differ & near).sum()),
+                          differ.numel(), far))
+    print(f"  {tag}: {n} of {differ.numel()} certificate bits differ "
+          f"(the farthest within {far:.3g}x of its threshold), "
           f"{int((differ & near).sum())} on instances whose plain ratios "
           f"lie within {CERT_BAND:g}x of their threshold", flush=True)
     ok = bool(near[differ].all()) and n <= max(1, CERT_SHARE
@@ -880,6 +960,12 @@ FLIP_BAND = 2e-3
 # instances of the config-2 wave rounded one differently (each within 4.1e-6
 # of 0.5). Its share is 3x that reading.
 FLIP_SHARE_HULL = 0.15
+# Config 4b's pooled wave (B=1024, 150 + 150; phase 9): kernel and plain
+# version round a relaxed binary otherwise on 1 to 6 of 1024 instances over
+# seeds 0-7 (each within 3.7e-6 of 0.5), where the plain version's own
+# float32 against float64 does on 1 to 5 (within 4.7e-6; tools/plain_noise.py
+# --config4b, CPU): 3x the largest reading, at this wave only
+FLIP_SHARE_4B = 0.018
 # The decentralized agents' wave rounds a relaxed binary otherwise than the
 # plain version on 2 of 128 instances (seeds 3 and 4 of 0-7, each within
 # 2.4e-6 of 0.5; the plain version's own fp32-vs-fp64 rounding differs on
@@ -900,7 +986,7 @@ def compare_probe(tag, got, ref, qp, lb, ub, record, regime="main",
     from pyhybridcontrol_tpu_torch.ops.admm import AdmmResult
 
     compare(tag + " relax", got[0], ref[0], record, regime,
-            None if plain is None else lambda: cert_near(plain, ref[0]))
+            None if plain is None else lambda: cert_factor(plain, ref[0]))
     bidx = torch.as_tensor(qp.binary_idx, device=lb.device)
 
     def rounded(res):
@@ -910,8 +996,10 @@ def compare_probe(tag, got, ref, qp, lb, ub, record, regime="main",
     differ = rounded(got[0]) != rounded(ref[0])
     same = ~differ.any(-1)
     flips = int((~same).sum())
+    off = (float((ref[0].x[:, bidx][differ] - 0.5).abs().max()) if flips
+           else 0.0)
+    FLIP_READINGS.append((tag, flips, same.numel(), off, flip_share))
     if flips:
-        off = float((ref[0].x[:, bidx][differ] - 0.5).abs().max())
         print(f"  {tag}: {flips} of {same.numel()} instances round a "
               f"relaxed binary within {off:.1e} of 0.5 to the other side; "
               f"probe held on the rest", flush=True)
@@ -929,10 +1017,16 @@ def compare_probe(tag, got, ref, qp, lb, ub, record, regime="main",
                     for r in (got[1], ref[1]))
     compare(tag + " probe", got_p, ref_p, record, probe_regime or regime,
             None if plain is None
-            else lambda: cert_near(plain, ref[1], qp.binary_idx)[same])
+            else lambda: cert_factor(plain, ref[1], qp.binary_idx)[same])
 
 
 READINGS = {}   # largest error per regime and field over the run
+# per held probe: (tag, instances rounding a binary otherwise, batch, the
+# farthest of those binaries from 0.5, the share allowed); per held
+# certificate: (tag, bits that differ, of those near a threshold, batch,
+# the factor within which the farthest of them lies of its threshold)
+FLIP_READINGS = []
+CERT_READINGS = []
 # --readings: a field off its limit is listed in OVER instead of stopping
 # the run, so that one run reads every field (the run then fails at its end)
 READINGS_ONLY = False
@@ -1766,7 +1860,7 @@ def phase_streamed(dev, rng, recs):
             ref = ca.admm_solve_plain(*args, iters=100)
             got = ca.admm_solve_cuda(*args, iters=100)
             compare("K1 " + tag, got, ref, r1,
-                    near=plain and (lambda: cert_near(plain, ref)))
+                    near=plain and (lambda: cert_factor(plain, ref)))
             held_bitwise("K1 " + tag, got, ca.admm_solve_cuda(
                 *args, iters=100, **forced))
             wargs = (kq, kq2, bidx, q, h, lb, ub)
@@ -1774,7 +1868,8 @@ def phase_streamed(dev, rng, recs):
             got = ca.admm_wave_cuda(*wargs, **kw)
             compare_probe("K2 " + tag, got, ca.admm_wave_plain(*wargs, **kw),
                           types.SimpleNamespace(binary_idx=bidx), lb, ub,
-                          r2, flip_share=flip_share(name), plain=plain)
+                          r2, flip_share=flip_share(name), plain=plain,
+                          probe_regime=plain and "real_probe")
             st = ca.admm_wave_cuda(*wargs, **forced, **kw)
             held_bitwise("K2 relaxation " + tag, got[0], st[0])
             held_bitwise("K2 probe " + tag, got[1], st[1])
@@ -1969,6 +2064,187 @@ def phase_split(dev, rng, rec):
           f"{rec['streamed_kernel_ms']:.3f} ms", flush=True)
     rec["library_ms"] = None
     return args
+
+
+# The two-phase precision schedule (ops.admm.admm_solve_mixed) at the
+# bench's mixed-section shape (bench.py:296-330: N=20, B=4096, 100
+# iterations) at the reference's low_frac range, and at N=27 (K1's split
+# mode); BoxQP.precision "high" and "default" (the one-pass split phase)
+# at the same shapes; admm_solve_batch at config 1's shape. low_frac=1.0
+# leaves no tail, and there, as in the reference, the schedule is one
+# full-precision solve.
+SCHEDULE_ITERS = 100
+SCHEDULE_LOW_FRAC = (0.8, 1.0)
+
+
+def one_pass_iterates(tag, kq, args, k0):
+    """The one-pass split phase's own outputs after ONE iteration from the
+    plain version's iterates after ``k0`` of them, against the plain
+    version's ("mixed_iterates_1pass"): the tensor-core kernel where
+    ``split_route`` takes it, else K1's split mode (one iteration, no
+    tail)."""
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+
+    kq16 = ca.pad_kernel_qp(kq)
+    packed = ca._pack(kq16, *args, None)[:5]
+    cold = ca._init_iterates(*packed[1:], None)
+    it = tuple(t.contiguous() for t in
+               ca._mixed_plain(kq16, *packed, cold, k0, passes=1))
+    ref = ca._mixed_plain(kq16, *packed, it, 1, passes=1)
+    m, n = kq.base.m_ineq, kq.base.n
+    if ca.split_route(kq16.n_pad, kq16.m_pad) == "tensor_cores":
+        got = ca._launch_k1_mixed(kq16, *packed, it, 1, passes=1)
+        pairs = dict(zip(("zG", "yG", "zB", "yB"), zip(got, ref)))
+    else:
+        r = ca.admm_solve_cuda(kq, *args, iters=1, warm=it, low_frac=1.0,
+                               lo_passes=1)
+        pairs = dict(zG=(r.z[:, :m], ref[0][:, :m]),
+                     yG=(r.y[:, :m], ref[1][:, :m]),
+                     zB=(r.z[:, m:], ref[2][:, :n]),
+                     yB=(r.y[:, m:], ref[3][:, :n]))
+    held(f"{tag} one one-pass iteration after {k0}", "mixed_iterates_1pass",
+         pairs)
+
+
+def phase_mixed_schedule(dev, rng, recs):
+    """The entry points of the mixed schedule on the card, one path
+    (``mixed_schedule``): ``admm_solve_mixed`` at N=20, B=4096, 100
+    iterations, low_frac 0.8 (the tensor-core split phase, then K1's tail)
+    and 1.0 (one full-precision K1 solve), and at N=27, low_frac 0.8 (K1's
+    split mode and its tail in one launch); ``BoxQP.precision`` "high" at
+    N=20 and "default" (the one-pass split phase) at N=20 and N=27;
+    ``admm_solve_batch`` at config 1's shape (N=10, one state's 1-D q over
+    the 2^10 boxes of enumeration, 400 iterations). Then each launch held
+    against its plain version ("mixed" for three passes, "mixed_1pass" for
+    one, "main" at full precision), the one-pass kernels' own outputs after
+    one iteration ("mixed_iterates_1pass"), the objectives against a
+    full-precision K1 solve of the same problems beside the bench's 1e-4
+    gate (a reading), and each case timed beside its bound."""
+    import dataclasses
+
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+    from pyhybridcontrol_tpu_torch.ops.admm import (
+        admm_solve_batch, admm_solve_mixed)
+    from pyhybridcontrol_tpu_torch.solver.enumerate import _all_assignments
+
+    print("the mixed schedule and BoxQP.precision (path mixed_schedule):",
+          flush=True)
+    it = SCHEDULE_ITERS
+    _, _, s20, _, *a20 = problem(20, 4096, dev, rng)
+    _, _, s27, _, *a27 = problem(27, 4096, dev, rng)
+    _, qp10, s10, _, f10, h10, _, _ = problem(10, 1, dev, rng)
+    asg = torch.as_tensor(_all_assignments(qp10.n_binary), device=dev)
+    B10 = asg.shape[0]
+    bidx = torch.as_tensor(qp10.binary_idx, device=dev)
+    lb10 = qp10.lb.expand(B10, qp10.n).clone()
+    ub10 = qp10.ub.expand(B10, qp10.n).clone()
+    lb10[:, bidx] = asg
+    ub10[:, bidx] = asg
+    q10, h1 = f10[0], h10[0]
+    a10 = (q10.expand(B10, -1), h1.expand(B10, -1), lb10, ub10)
+
+    def at(spec, precision):
+        return dataclasses.replace(spec, precision=precision, cache={})
+
+    hi20, one20, one27 = at(s20, "high"), at(s20, "default"), at(s27,
+                                                                 "default")
+    kq20, kq27, kq10 = (ca.kernel_qp_for(s) for s in (s20, s27, s10))
+    # case: (entry-point call, plain version, regime, bound's work)
+    cases = {
+        "N=20 low_frac=0.8": (
+            lambda: admm_solve_mixed(s20, *a20, iters=it, low_frac=0.8),
+            lambda: ca.admm_solve_plain(kq20, *a20, iters=it, low_frac=0.8),
+            "mixed", admm_work(kq20.n_pad, kq20.m_pad, 4096, products=21,
+                               stats=1, warm=False, lo_products=80)),
+        "N=20 low_frac=1.0": (
+            lambda: admm_solve_mixed(s20, *a20, iters=it, low_frac=1.0),
+            lambda: ca.admm_solve_plain(kq20, *a20, iters=it),
+            "main", admm_work(kq20.n_pad, kq20.m_pad, 4096, products=it + 1,
+                              stats=1, warm=False)),
+        "N=27 low_frac=0.8": (
+            lambda: admm_solve_mixed(s27, *a27, iters=it, low_frac=0.8),
+            lambda: ca.admm_solve_plain(kq27, *a27, iters=it, low_frac=0.8),
+            "mixed", admm_work(kq27.n_pad, kq27.m_pad, 4096, products=21,
+                               stats=1, warm=False, lo_products=80)),
+        'N=20 precision="high"': (
+            lambda: ca.admm_solve_auto(hi20, *a20, iters=it),
+            lambda: ca.admm_solve_plain(kq20, *a20, iters=it, low_frac=1.0),
+            "mixed", admm_work(kq20.n_pad, kq20.m_pad, 4096, products=1,
+                               stats=1, warm=False, lo_products=it)),
+        'N=20 precision="default"': (
+            lambda: ca.admm_solve_auto(one20, *a20, iters=it),
+            lambda: ca.admm_solve_plain(kq20, *a20, iters=it, low_frac=1.0,
+                                        lo_passes=1),
+            "mixed_1pass", admm_work(kq20.n_pad, kq20.m_pad, 4096,
+                                     products=1, stats=1, warm=False,
+                                     lo_products=it, lo_passes=1)),
+        'N=27 precision="default"': (
+            lambda: ca.admm_solve_auto(one27, *a27, iters=it),
+            lambda: ca.admm_solve_plain(kq27, *a27, iters=it, low_frac=1.0,
+                                        lo_passes=1),
+            "mixed_1pass", admm_work(kq27.n_pad, kq27.m_pad, 4096,
+                                     products=1, stats=1, warm=False,
+                                     lo_products=it, lo_passes=1)),
+        "N=10 B=1024 admm_solve_batch, 1-D q": (
+            lambda: admm_solve_batch(s10, q10, h1, lb10, ub10, iters=400),
+            lambda: ca.admm_solve_plain(kq10, *a10, iters=400),
+            "main", admm_work(kq10.n_pad, kq10.m_pad, B10, products=401,
+                              stats=1, warm=False)),
+    }
+    got, _ = drive("mixed_schedule",
+                   lambda: {k: c[0]() for k, c in cases.items()})
+    want = {**dict.fromkeys(ca.LAUNCHES, 0), "admm_k1": 5,
+            "admm_k1_mixed": 2, "admm_k1_mixed_1pass": 1,
+            "admm_k1_resident": 2, "admm_k1_split": 1,
+            "admm_k1_split_1pass": 1}
+    check(PATH_LAUNCHES["mixed_schedule"] == want,
+          f"mixed_schedule: launches {PATH_LAUNCHES['mixed_schedule']}, "
+          f"want {want}")
+    # each launch against its plain version; the one-pass kernels' own
+    # outputs after one iteration
+    keys = {'N=20 precision="default"': "admm_k1_mixed_1pass",
+            'N=27 precision="default"': "admm_k1_split_1pass",
+            "N=27 low_frac=0.8": "admm_k1_split",
+            "N=20 low_frac=1.0": "admm_k1",
+            "N=10 B=1024 admm_solve_batch, 1-D q": "admm_k1"}
+    for case, (_, plain, regime, _) in cases.items():
+        compare(f"{case}, {it if 'N=10' not in case else 400} it",
+                got[case], plain(), recs[keys.get(case, "admm_k1_mixed")],
+                regime)
+    for k0 in MIXED_WARM:
+        one_pass_iterates("N=20 B=4096", kq20, a20, k0)
+        one_pass_iterates("N=27 B=4096", kq27, a27, k0)
+    # the bench's gate, as a reading: objectives against full precision
+    full = {20: got["N=20 low_frac=1.0"],
+            27: ca.admm_solve_cuda(kq27, *a27, iters=it)}
+    gate = {}
+    for case in ("N=20 low_frac=0.8", "N=27 low_frac=0.8",
+                 'N=20 precision="high"', 'N=20 precision="default"',
+                 'N=27 precision="default"'):
+        ref = full[27 if case.startswith("N=27") else 20]
+        gate[case] = float(((got[case].obj - ref.obj).abs()
+                            / torch.clamp_min(ref.obj.abs(), 1.0)).max())
+        print(f"  {case}: max relative objective delta against "
+              f"full-precision K1 {gate[case]:.2e} (the bench's gate "
+              f"{MIXED_GATE:.0e}; a reading)", flush=True)
+    out = dict(gate=gate, launches=PATH_LAUNCHES["mixed_schedule"])
+    if not TIMINGS:
+        return out
+    for case, (call, plain, _, work) in cases.items():
+        r = out[case] = dict(ms=cuda_ms(call), kernel_ms=kernel_ms(call),
+                             plain_ms=cuda_ms(plain))
+        r["bound_ms"], r["bound_by"] = bound(*work)
+        print(f"  {case}: wrapper {r['ms']:.3f} ms, kernels alone "
+              f"{r['kernel_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    recs["admm_k1_mixed"]["mixed_schedule"] = out
+    for case, key in (('N=20 precision="default"', "admm_k1_mixed_1pass"),
+                      ('N=27 precision="default"', "admm_k1_split_1pass")):
+        recs[key].update(out[case], shape=f"{case}, B=4096, {it} it",
+                         library_ms=None)
+    return out
 
 
 CL_SPEC = dict(capacity=256, wave_size=32, max_waves=48, qp_iters=200)
@@ -2314,11 +2590,14 @@ def phase_serve(dev):
 # round alike, on a share of flips 3x that reading (FLIP_SHARE_SERVED); the
 # band (every flip within FLIP_BAND of 0.5) is unchanged.
 FLIP_SHARE_SERVED = 0.42
-PATH_SHAPES = (("config2", 128, 200, 600, True, "main", FLIP_SHARE_HULL),
-               ("config3", 64, 200, 200, False, "main", FLIP_SHARE),
-               ("config4b", 1024, 150, 150, True, "main", FLIP_SHARE),
+PATH_SHAPES = (("config2", 128, 200, 600, True, "main", FLIP_SHARE_HULL,
+                CERT_BAND),
+               ("config3", 64, 200, 200, False, "main", FLIP_SHARE,
+                CERT_BAND_CFG3),
+               ("config4b", 1024, 150, 150, True, "main", FLIP_SHARE_4B,
+                CERT_BAND),
                ("config2", 64, 400, 400, False, "wave_probe",
-                FLIP_SHARE_SERVED))
+                FLIP_SHARE_SERVED, CERT_BAND))
 
 
 def phase_streamed_paths(dev, rng, recs):
@@ -2337,7 +2616,7 @@ def phase_streamed_paths(dev, rng, recs):
     r1, r2 = recs["admm_k1_resident"], recs["admm_k2_resident"]
     s1, s2 = recs["admm_k1_streamed"], recs["admm_k2_streamed"]
     print("K1/K2 resident at the real frames' path shapes:", flush=True)
-    for name, B, iters, piters, gated, regime, flips in PATH_SHAPES:
+    for name, B, iters, piters, gated, regime, flips, band in PATH_SHAPES:
         spec, spec_p, bidx, q, h, lb, ub = real_problem(name, B, dev, rng)
         kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
         pl, cap = plan_line(name, kq, B)
@@ -2352,11 +2631,12 @@ def phase_streamed_paths(dev, rng, recs):
         warm = (cold[0].x, cold[0].z, cold[0].y)
         tag = f"{name} B={B} {iters}+{piters} it warm"
         got = ca.admm_wave_cuda(*wargs, warm=warm, **kw)
-        compare_probe("K2 " + tag, got,
-                      ca.admm_wave_plain(*wargs, warm=warm, **kw),
-                      types.SimpleNamespace(binary_idx=bidx), lb, ub, r2,
-                      regime, flip_share=flips, probe_regime="wave_probe",
-                      plain=args)
+        with cert_band(band):
+            compare_probe("K2 " + tag, got,
+                          ca.admm_wave_plain(*wargs, warm=warm, **kw),
+                          types.SimpleNamespace(binary_idx=bidx), lb, ub, r2,
+                          regime, flip_share=flips,
+                          probe_regime="wave_probe", plain=args)
         st = ca.admm_wave_cuda(*wargs, warm=warm, **forced,
                                **kw)
         held_bitwise("K2 relaxation " + tag, got[0], st[0])
@@ -2382,7 +2662,7 @@ def phase_streamed_paths(dev, rng, recs):
         ref = ca.admm_solve_plain(*args, iters=iters, warm=warm)
         got = ca.admm_solve_cuda(*args, iters=iters, warm=warm)
         compare(f"K1 {name} B={B} {iters} it warm", got, ref, r1,
-                near=lambda: cert_near(args, ref))
+                near=lambda: cert_factor(args, ref))
         held_bitwise(f"K1 {name} B={B} {iters} it warm", got,
                      ca.admm_solve_cuda(*args, iters=iters, warm=warm,
                                         **forced))
@@ -2771,6 +3051,15 @@ def launched_at(path, kernels, B):
 
 
 CFG2_STATES = ([1.5, 0.0], [-1.0, 0.5], [0.8, -1.2])
+# the JAX package's objectives of the config-2 and 2b calls and of the
+# served states (in CFG2_STATES's order, after the serve loop's warm-up at
+# x = 0) on the CPU (tools/config2_reference.py): printed beside the port's,
+# a reading and not a gate, since the wave-capped searches may legitimately
+# walk other trees
+CFG2_REF_OBJ = {"config2_call": 61.35150146484375,
+                "config2b_call": 61.004432678222656,
+                "config2_serve": (61.4104118347168, 22.4517765045166,
+                                  23.083187103271484)}
 CFG2_OUT_OF_BOX = [6.0, 0.0]     # the spring's box is |x| ≤ 5
 
 
@@ -2818,12 +3107,15 @@ def phase_config2_serve(dev):
     check(launches["admm_k2_resident"] > 0,
           f"config2 serve: resident K2 was never launched: {launches}")
     diffs, refs = [], []
-    for x, r, sol in zip(CFG2_STATES, replies[2:], sols):
+    for x, r, sol, jref in zip(CFG2_STATES, replies[2:], sols,
+                               CFG2_REF_OBJ["config2_serve"]):
         check("error" not in r and r["found"], f"config2 serve: {x}: {r}")
         V = sol.v_seq.reshape(-1).double().cpu().numpy()
         (obj,) = plans_feasible(f"x0={x}", c, [(V, x, None, None)])
         print(f"  x0={x}: obj={r['obj']:.6f} (fp64 from the plan "
-              f"{obj:.6f}), gap {r['gap']:.2e}, ms={r['ms']}", flush=True)
+              f"{obj:.6f}; the JAX package on the CPU {jref:.6f}, relative "
+              f"{(r['obj'] - jref) / max(1.0, abs(jref)):+.2e}), gap "
+              f"{r['gap']:.2e}, ms={r['ms']}", flush=True)
         diffs.append(abs(obj - r["obj"]))
         refs.append(obj)
     serve_reading("config2 serve, fp64 objective of the plan", diffs, refs)
@@ -2877,8 +3169,11 @@ def phase_config2_calls(dev):
         gap = ((obj - bo) / max(1.0, abs(obj))
                if np.isfinite(bo) and bo < obj else 0.0)
         got = PATH_LAUNCHES[path]
+        jref = CFG2_REF_OBJ[path]
         print(f"  {path}: {ms:.1f} ms per solve, {r.waves} waves, "
-              f"{int(r.nodes_solved)} nodes, objective {obj:.4f}, certified "
+              f"{int(r.nodes_solved)} nodes, objective {obj:.4f} (the JAX "
+              f"package on the CPU {jref:.4f}, relative "
+              f"{(obj - jref) / max(1.0, abs(jref)):+.2e}), certified "
               f"rel. gap {gap:.4f}, overflow {bool(r.overflow)}, resident "
               f"K2 {got['admm_k2_resident']} and K1 (gated waves) "
               f"{got['admm_k1_resident']} launches", flush=True)
@@ -2891,7 +3186,7 @@ def phase_config2_calls(dev):
                                   None, None)])
         out[path] = dict(ms_per_solve=ms, waves=r.waves,
                          nodes=int(r.nodes_solved), objective=obj,
-                         certified_rel_gap=gap)
+                         jax_objective=jref, certified_rel_gap=gap)
     g2, g2b = out["config2_call"], out["config2b_call"]
     if g2b["certified_rel_gap"] <= 0.02:
         print(f"  config 2b ended on a certified gap "
@@ -5640,6 +5935,24 @@ def ptxas_report(log):
             yield f"{fn}: {line.strip()}"
 
 
+def print_flip_and_cert_readings():
+    """--readings: every held probe's instances that round a relaxed
+    binary otherwise (with the share allowed) and every held certificate's
+    differing bits (with those near a threshold)."""
+    for tag, flips, B, off, share in FLIP_READINGS:
+        if flips:
+            print(f"flips, {tag}: {flips} of {B} ({flips / B:.4f}; allowed "
+                  f"{max(1, share * B):g}), farthest {off:.2e} from 0.5",
+                  flush=True)
+    for tag, n, near, B, far in CERT_READINGS:
+        print(f"certificate bits, {tag}: {n} of {B} differ ({n / B:.4f}), "
+              f"{near} near a threshold, the farthest within {far:.3g}x",
+              flush=True)
+    print(f"probes held: {len(FLIP_READINGS)}, with flips: "
+          f"{sum(1 for r in FLIP_READINGS if r[1])}; certificates held near "
+          f"a threshold: {len(CERT_READINGS)}", flush=True)
+
+
 def phase(name, fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -5710,13 +6023,20 @@ def main(argv=None):
           phase_rng("sb_batch"), recs)
     phase("K2 at the ranks' shapes", phase_md_shapes, dev,
           phase_rng("md_shapes"), recs)
+    calls = dict(mixed_schedule=phase("mixed schedule", phase_mixed_schedule,
+                                      dev, phase_rng("mixed_schedule"),
+                                      recs))
     for regime, seen in READINGS.items():
         print(f"largest error, {regime} (limit): " + " ".join(
             f"{k}={v:.2e} ({LIMITS[regime][k]:.0e})"
             for k, v in seen.items()), flush=True)
+    if READINGS_ONLY:
+        print_flip_and_cert_readings()
     if OVER:
         print("off their limits:\n  " + "\n  ".join(OVER), flush=True)
         return 1
+    if READINGS_ONLY:
+        return 0
     phase("dispatch", phase_dispatch, dev, phase_rng("dispatch"))
     phase("serve config 1", phase_serve, dev)
     phase("serve config 4", phase_serve_batch, dev, sweep_args)
@@ -5725,7 +6045,7 @@ def main(argv=None):
                  N27=phase("closed loop N=27", phase_closed_loop_n27, dev,
                            sweep27_args, recs["admm_k1_split"]))
     phase("serve config 2", phase_config2_serve, dev)
-    calls = phase("config 2/2b calls", phase_config2_calls, dev)
+    calls.update(phase("config 2/2b calls", phase_config2_calls, dev))
     calls["config2_sb"] = phase("config 2 search options",
                                 phase_config2_arms, dev, recs)
     calls["config2_cut"] = phase("config 2 cut frame", phase_config2_cut,

@@ -46,7 +46,10 @@ Layer map (bottom → top), as in the reference:
 
 __version__ = "0.1.0"
 
-from pyhybridcontrol_tpu_torch.utils.structdict import StructDict
+from pyhybridcontrol_tpu_torch.utils.structdict import (
+    StructDict,
+    named_struct_dict,
+)
 from pyhybridcontrol_tpu_torch.mld.info import MldInfo, VarTypes
 from pyhybridcontrol_tpu_torch.mld.model import MldModel
 from pyhybridcontrol_tpu_torch.mld.pwa import PwaRegion, PwaSystem, pwa_to_mld
@@ -70,8 +73,8 @@ from pyhybridcontrol_tpu_torch.loop.closed_loop import (
 from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec, solve_miqp_bnb
 
 __all__ = [
-    "StructDict", "MldInfo", "MldModel", "VarTypes", "PwaRegion",
-    "PwaSystem", "pwa_to_mld", "MldTemplate", "aggregate_mld",
+    "StructDict", "named_struct_dict", "MldInfo", "MldModel", "VarTypes",
+    "PwaRegion", "PwaSystem", "pwa_to_mld", "MldTemplate", "aggregate_mld",
     "CondensedMpc", "DeviceQP", "MpcWeights", "MpcController",
     "Agent", "ControlledAgent", "MpcAgent", "closed_loop", "make_mpc_step",
     "BnbSpec", "solve_miqp_bnb", "__version__",

@@ -102,16 +102,18 @@
 //    takes the largest tile that, over the smallest cluster whose CTAs hold
 //    it, still gives ~2 CTAs per SM: an iteration's exchange and waits cost
 //    about as much for a tile of 8 as for 1.
-//  - Split mode (template flag SPLIT of K1 and of `phase`): the first
-//    iters_lo iterations take each product as the reference's _mm3 does,
-//    hi = bf16(a), lo = bf16(a − hi), Ahi·bhi + Ahi·blo + Alo·bhi with fp32
-//    accumulation, on the CUDA cores (each bf16×bf16 product is exact in
-//    fp32); then the full-precision iterations, the half step and the
-//    stats as usual. It serves the split-precision phase (low_frac) at the
-//    shapes the tensor-core kernel of admm_mixed.cu refuses (N ≥ 22 of the
-//    double integrator); the operand splits are recomputed per use, three
-//    FMAs per product term: simple, right, and about 4× the work of a
-//    full-precision iteration.
+//  - Split mode (template parameter LO of K1 and of `phase`: 3 or 1 bf16
+//    passes; 0 is full precision): the first iters_lo iterations take each
+//    product as the reference's _mm3 does, hi = bf16(a), lo = bf16(a − hi),
+//    Ahi·bhi + Ahi·blo + Alo·bhi with fp32 accumulation, on the CUDA cores
+//    (each bf16×bf16 product is exact in fp32); then the full-precision
+//    iterations, the half step and the stats as usual. It serves the
+//    split-precision phase (low_frac) at the shapes the tensor-core kernel
+//    of admm_mixed.cu refuses (N ≥ 22 of the double integrator); the
+//    operand splits are recomputed per use, three FMAs per product term:
+//    simple, right, and about 4× the work of a full-precision iteration.
+//    LO = 1 (entry point phc_admm_k1_1pass) keeps the Ahi·bhi pass alone:
+//    the reference's XLA "default" precision (one bf16 MXU pass).
 // What is left: tensor cores for the exact products (3×TF32 or bf16 splits,
 // the batch as the N dimension, wgmma with the resident slices behind
 // descriptors); fewer bytes between the CTAs (w's box rows are needed by
@@ -357,10 +359,15 @@ __device__ __forceinline__ void vstore(float* p, const float (&d)[W]) {
   }
 }
 
+// hi = bf16(x) as a float
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // hi = bf16(x), lo = bf16(x − hi) as floats (x − hi is exact in fp32)
 __device__ __forceinline__ void bf16_split(float x, float& hi, float& lo) {
-  hi = __bfloat162float(__float2bfloat16_rn(x));
-  lo = __bfloat162float(__float2bfloat16_rn(x - hi));
+  hi = bf16_round(x);
+  lo = bf16_round(x - hi);
 }
 
 // Shuffle reduce-scatter of N partial sums over the lane groups that differ
@@ -398,9 +405,10 @@ struct Reduce {
 // tasks dealt over the block's warps; Mat holds the columns from col0 on
 // (a CTA's slice; 0: the whole matrix). epi(o, p, v) receives W =
 // min(PB, max(RT·PB/KS, 1)) sums of row o, problems p..p+W-1.
-// SPLIT: each term as the three bf16 products hi·hi + hi·lo + lo·hi.
+// LO = 3: each term as the three bf16 products hi·hi + hi·lo + lo·hi;
+// LO = 1: as hi·hi alone; LO = 0: the fp32 product.
 // Every warp must call it (shuffles); barriers are the caller's.
-template <int PB, int RT, int KS, bool SPLIT = false, class Epi>
+template <int PB, int RT, int KS, int LO = 0, class Epi>
 __device__ __forceinline__ void product(const float* __restrict__ Mat,
                                         int stride,
                                         const float* __restrict__ vec, int K,
@@ -426,7 +434,18 @@ __device__ __forceinline__ void product(const float* __restrict__ Mat,
       float a[RT], v[PB];
       vload<RT>(a, mp);
       vload<PB>(v, vp);
-      if constexpr (SPLIT) {
+      if constexpr (LO == 1) {
+        float ah[RT];
+#pragma unroll
+        for (int r = 0; r < RT; ++r) ah[r] = bf16_round(a[r]);
+#pragma unroll
+        for (int p = 0; p < PB; ++p) {
+          const float vh = bf16_round(v[p]);
+#pragma unroll
+          for (int r = 0; r < RT; ++r)
+            acc[r * PB + p] = fmaf(ah[r], vh, acc[r * PB + p]);
+        }
+      } else if constexpr (LO == 3) {
         float ah[RT], al[RT];
 #pragma unroll
         for (int r = 0; r < RT; ++r) bf16_split(a[r], ah[r], al[r]);
@@ -469,13 +488,13 @@ __device__ __forceinline__ void product(const float* __restrict__ Mat,
 }
 
 
-template <int PB, int RT, int KS, bool SPLIT = false, class Epi>
+template <int PB, int RT, int KS, int LO = 0, class Epi>
 __device__ __forceinline__ void product(const float* __restrict__ Mat,
                                         int stride,
                                         const float* __restrict__ vec, int K,
                                         int O, Epi epi) {
   constexpr int RPT = RT * (32 / KS);
-  product<PB, RT, KS, SPLIT>(Mat, stride, vec, K, O, 0, (O + RPT - 1) / RPT,
+  product<PB, RT, KS, LO>(Mat, stride, vec, K, O, 0, (O + RPT - 1) / RPT,
                              0, epi);
 }
 
@@ -496,10 +515,10 @@ __device__ __forceinline__ int t_row(int j, int nr) {
 
 // `iters` σ=0 iterations from the iterates in shared memory, then -- if
 // `final_half` -- one more half step whose ẑ goes to s.w and δy to s.dy
-// (the iterates stay those of the last full iteration). SPLIT: both
-// products in split mode. Mirrors _phase of the reference and of
-// ops/cuda_admm.py. Ends on a barrier.
-template <int PB, bool SPLIT>
+// (the iterates stay those of the last full iteration). LO > 0: both
+// products in split mode of LO passes. Mirrors _phase of the reference and
+// of ops/cuda_admm.py. Ends on a barrier.
+template <int PB, int LO>
 __device__ __forceinline__ void phase(const Smem& s, int nr, int mGp,
                                       int iters, float alpha,
                                       bool final_half) {
@@ -512,7 +531,7 @@ __device__ __forceinline__ void phase(const Smem& s, int nr, int mGp,
     const bool last = (k == iters);
     if (last && !final_half) break;
     // t = Â_Gᵀ w_G + d∘w_B − q̂
-    product<PB, C::A_RT, C::A_KS, SPLIT>(
+    product<PB, C::A_RT, C::A_KS, LO>(
         s.AG, s.AS, s.w, mGp, nr, [&](int j, int p, const auto& v) {
           constexpr int W = sizeof(v) / sizeof(float);
           const int o = j * PB + p;
@@ -526,7 +545,7 @@ __device__ __forceinline__ void phase(const Smem& s, int nr, int mGp,
         });
     __syncthreads();
     // ẑ = M t, fused with the update of the rows a lane owns
-    product<PB, C::B_RT, C::B_KS, SPLIT>(
+    product<PB, C::B_RT, C::B_KS, LO>(
         s.MT, s.RS, s.t, nr, R, [&](int r, int p, const auto& u) {
           constexpr int W = sizeof(u) / sizeof(float);
           const int o = r * PB + p;
@@ -786,9 +805,9 @@ __device__ __forceinline__ void store_tile(const Smem& s, const Args& a,
   stats<PB>(s, a, b0, st);
 }
 
-// K1 (WAVE false) or K2 on the tile of blockIdx.x; SPLIT (K1 only): the
-// first iters_lo iterations in split mode
-template <int PB, bool STREAM, bool WAVE, bool SPLIT>
+// K1 (WAVE false) or K2 on the tile of blockIdx.x; LO > 0 (K1 only): the
+// first iters_lo iterations in split mode of LO passes
+template <int PB, bool STREAM, bool WAVE, int LO>
 __device__ __forceinline__ void solve_tile(const Args& a) {
   extern __shared__ __align__(16) float smem[];
   const int nr = a.nr, mGp = a.mGp;
@@ -798,8 +817,9 @@ __device__ __forceinline__ void solve_tile(const Args& a) {
   __syncthreads();
 
   // ---- relaxation ----
-  if constexpr (SPLIT) phase<PB, true>(s, nr, mGp, a.iters_lo, a.alpha, false);
-  phase<PB, false>(s, nr, mGp, a.iters, a.alpha, true);
+  if constexpr (LO > 0)
+    phase<PB, LO>(s, nr, mGp, a.iters_lo, a.alpha, false);
+  phase<PB, 0>(s, nr, mGp, a.iters, a.alpha, true);
   store_tile<PB>(s, a, b0, a.x, a.z, a.y, a.st);
   if constexpr (WAVE) {
     // ---- probe bounds: binaries fixed to the rounded relaxation ----
@@ -830,12 +850,12 @@ __device__ __forceinline__ void solve_tile(const Args& a) {
         stage(s.MT, a.MT2, nr * s.RS);
       stage_rho(s, a.vec2, nr, mGp);
       __syncthreads();
-      phase<PB, false>(s2, nr, mGp, a.p1, a.alpha2, false);
+      phase<PB, 0>(s2, nr, mGp, a.p1, a.alpha2, false);
       if constexpr (!STREAM) stage(s.MT, a.MT, nr * s.RS);
       stage_rho(s, a.vec, nr, mGp);
     }
     __syncthreads();
-    phase<PB, false>(s, nr, mGp, a.p2, a.alpha, true);
+    phase<PB, 0>(s, nr, mGp, a.p2, a.alpha, true);
     store_tile<PB>(s, a, b0, a.xp, a.zp, a.yp, a.stp);
   }
 }
@@ -1055,7 +1075,7 @@ __device__ __forceinline__ void send(float* p, int count, uint64_t* bar) {
 // of the Part; w and t reach the other CTAs through the exchange above
 // (`parity`: the exchanges' phase, carried from one call to the next).
 // Ends on a cluster barrier.
-template <int PB, bool SPLIT>
+template <int PB, int LO>
 __device__ __forceinline__ void cl_phase(const CSmem& s, const Part& pt,
                                          int nr, int mGp, int iters,
                                          float alpha, bool final_half,
@@ -1071,7 +1091,7 @@ __device__ __forceinline__ void cl_phase(const CSmem& s, const Part& pt,
     const bool last = (k == iters);
     if (last && !final_half) break;
     // t = Â_Gᵀ w_G + d∘w_B − q̂ on the own rows of t
-    product<PB, C::A_RT, C::A_KS, SPLIT>(
+    product<PB, C::A_RT, C::A_KS, LO>(
         s.AG, s.AS, s.w, mGp, nr, pt.a0, pt.a1, pt.jA,
         [&](int j, int p, const auto& v) {
           constexpr int W = sizeof(v) / sizeof(float);
@@ -1089,7 +1109,7 @@ __device__ __forceinline__ void cl_phase(const CSmem& s, const Part& pt,
     send_t<PB, C::B_KS>(s.t, pt, nr, s.bar + 1);
     bar_wait(s.bar + 1, parity & 1);
     // ẑ = M t on the own rows, fused with their update
-    product<PB, C::B_RT, C::B_KS, SPLIT>(
+    product<PB, C::B_RT, C::B_KS, LO>(
         s.MT, s.RS, s.t, nr, R, pt.b0, pt.b1, pt.rB,
         [&](int r, int p, const auto& u) {
           constexpr int W = sizeof(u) / sizeof(float);
@@ -1389,7 +1409,7 @@ __device__ __forceinline__ void cl_store_tile(const CSmem& s, const Part& pt,
 
 // `solve_tile` for rank `block_rank` of the cluster of blockIdx.x: the
 // CTA's slices of Â_G and Mᵀ (and M2ᵀ for K2's stiff phase) by bulk copy
-template <int PB, bool WAVE, bool SPLIT>
+template <int PB, bool WAVE, int LO>
 __device__ __forceinline__ void cl_solve_tile(const Args& a) {
   extern __shared__ __align__(16) float smem[];
   const int nr = a.nr, mGp = a.mGp;
@@ -1421,9 +1441,9 @@ __device__ __forceinline__ void cl_solve_tile(const Args& a) {
   cluster_sync();     // every CTA started: distributed memory is safe
 
   // ---- relaxation ----
-  if constexpr (SPLIT)
-    cl_phase<PB, true>(s, pt, nr, mGp, a.iters_lo, a.alpha, false, xpar);
-  cl_phase<PB, false>(s, pt, nr, mGp, a.iters, a.alpha, true, xpar);
+  if constexpr (LO > 0)
+    cl_phase<PB, LO>(s, pt, nr, mGp, a.iters_lo, a.alpha, false, xpar);
+  cl_phase<PB, 0>(s, pt, nr, mGp, a.iters, a.alpha, true, xpar);
   cl_store_tile<PB>(s, pt, a, b0, a.x, a.z, a.y, a.st);
   if constexpr (WAVE) {
     // ---- probe bounds on the own box rows (as `solve_tile`) ----
@@ -1452,7 +1472,7 @@ __device__ __forceinline__ void cl_solve_tile(const Args& a) {
       bar_wait(s.bar, parity);
       parity ^= 1;
       __syncthreads();
-      cl_phase<PB, false>(s, pt, nr, mGp, a.p1, a.alpha2, false, xpar);
+      cl_phase<PB, 0>(s, pt, nr, mGp, a.p1, a.alpha2, false, xpar);
       if (threadIdx.x == 0) {
         bar_expect(s.bar, 4 * nMT);
         bulk_copy(s.MT, a.MT + offM, nMT, s.bar);
@@ -1462,7 +1482,7 @@ __device__ __forceinline__ void cl_solve_tile(const Args& a) {
       parity ^= 1;
     }
     __syncthreads();
-    cl_phase<PB, false>(s, pt, nr, mGp, a.p2, a.alpha, true, xpar);
+    cl_phase<PB, 0>(s, pt, nr, mGp, a.p2, a.alpha, true, xpar);
     cl_store_tile<PB>(s, pt, a, b0, a.xp, a.zp, a.yp, a.stp);
   }
 }
@@ -1472,28 +1492,28 @@ template <int PB> struct ResidentThreads {
   enum { N = 32 * (PB == 8 ? RESIDENT_WARPS_8 : (int)Cfg<PB>::WARPS) };
 };
 
-template <int PB, bool SPLIT>
+template <int PB, int LO>
 __global__ void __launch_bounds__(ResidentThreads<PB>::N)
 admm_k1_resident_kernel(const Args a) {
-  cl_solve_tile<PB, false, SPLIT>(a);
+  cl_solve_tile<PB, false, LO>(a);
 }
 
 template <int PB>
 __global__ void __launch_bounds__(ResidentThreads<PB>::N)
 admm_k2_resident_kernel(const Args a) {
-  cl_solve_tile<PB, true, false>(a);
+  cl_solve_tile<PB, true, 0>(a);
 }
 
-template <int PB, bool STREAM, bool SPLIT>
+template <int PB, bool STREAM, int LO>
 __global__ void __launch_bounds__(Cfg<PB>::WARPS * 32)
 admm_k1_kernel(const Args a) {
-  solve_tile<PB, STREAM, false, SPLIT>(a);
+  solve_tile<PB, STREAM, false, LO>(a);
 }
 
 template <int PB, bool STREAM>
 __global__ void __launch_bounds__(Cfg<PB>::WARPS * 32)
 admm_k2_kernel(const Args a) {
-  solve_tile<PB, STREAM, true, false>(a);
+  solve_tile<PB, STREAM, true, 0>(a);
 }
 
 // cudaFuncSetAttribute of a kernel for `bytes` of dynamic shared memory and,
@@ -1511,14 +1531,14 @@ int allow(F kernel, size_t bytes, int cluster) {
   return 0;
 }
 
-template <int PB, bool STREAM, bool WAVE, bool SPLIT>
+template <int PB, bool STREAM, bool WAVE, int LO>
 int launch(const Args& a, int threads, cudaStream_t stream) {
   const size_t bytes = smem_floats(a.nr, a.mGp, PB, STREAM) * sizeof(float);
   void (*kernel)(const Args);
   if constexpr (WAVE)
     kernel = admm_k2_kernel<PB, STREAM>;
   else
-    kernel = admm_k1_kernel<PB, STREAM, SPLIT>;
+    kernel = admm_k1_kernel<PB, STREAM, LO>;
   const int rc = allow(kernel, bytes, 1);
   if (rc) return rc;
   kernel<<<(a.B + PB - 1) / PB, threads, bytes, stream>>>(a);
@@ -1528,7 +1548,7 @@ int launch(const Args& a, int threads, cudaStream_t stream) {
 // the resident variant over clusters of `cluster` CTAs; or, if
 // `max_clusters`, how many such clusters the card holds at once
 // (cudaOccupancyMaxActiveClusters)
-template <int PB, bool WAVE, bool SPLIT>
+template <int PB, bool WAVE, int LO>
 int launch_resident(const Args& a, int threads, int cluster,
                     cudaStream_t stream, int* max_clusters) {
   const size_t bytes =
@@ -1537,7 +1557,7 @@ int launch_resident(const Args& a, int threads, int cluster,
   if constexpr (WAVE)
     kernel = admm_k2_resident_kernel<PB>;
   else
-    kernel = admm_k1_resident_kernel<PB, SPLIT>;
+    kernel = admm_k1_resident_kernel<PB, LO>;
   int rc = allow(kernel, bytes, cluster);
   if (rc) return rc;
   cudaLaunchConfig_t cfg = {};
@@ -1561,30 +1581,34 @@ int launch_resident(const Args& a, int threads, int cluster,
   return rc ? rc : (int)cudaGetLastError();
 }
 
-// the instantiation of one tile width: staged, streamed or resident, split
-// or not
+// K1 of one tile width and split mode: staged, streamed or resident
+template <int PB, int LO>
+int launch_k1(const Args& a, bool streamed, int cluster, cudaStream_t st,
+              int threads, int* maxc) {
+  if (cluster > 1)
+    return launch_resident<PB, false, LO>(a, threads, cluster, st, maxc);
+  if (maxc) return (int)cudaErrorInvalidValue;
+  return streamed ? launch<PB, true, false, LO>(a, threads, st)
+                  : launch<PB, false, false, LO>(a, threads, st);
+}
+
+// the instantiation of one tile width: staged, streamed or resident; K1 in
+// split mode of `passes` (3 or 1) bf16 passes or not
 template <int PB, bool WAVE>
 int launch_variant(const Args& a, bool streamed, int cluster,
-                   cudaStream_t st, int threads, int* maxc) {
-  const bool split = a.iters_lo > 0;
-  if (cluster > 1) {
-    if constexpr (WAVE)
-      return launch_resident<PB, true, false>(a, threads, cluster, st, maxc);
-    return split ? launch_resident<PB, false, true>(a, threads, cluster, st,
-                                                    maxc)
-                 : launch_resident<PB, false, false>(a, threads, cluster, st,
-                                                     maxc);
-  }
-  if (maxc) return (int)cudaErrorInvalidValue;
+                   cudaStream_t st, int threads, int* maxc, int passes) {
   if constexpr (WAVE) {
-    return streamed ? launch<PB, true, true, false>(a, threads, st)
-                    : launch<PB, false, true, false>(a, threads, st);
+    if (cluster > 1)
+      return launch_resident<PB, true, 0>(a, threads, cluster, st, maxc);
+    if (maxc) return (int)cudaErrorInvalidValue;
+    return streamed ? launch<PB, true, true, 0>(a, threads, st)
+                    : launch<PB, false, true, 0>(a, threads, st);
   } else {
-    if (streamed)
-      return split ? launch<PB, true, false, true>(a, threads, st)
-                   : launch<PB, true, false, false>(a, threads, st);
-    return split ? launch<PB, false, false, true>(a, threads, st)
-                 : launch<PB, false, false, false>(a, threads, st);
+    if (a.iters_lo == 0)
+      return launch_k1<PB, 0>(a, streamed, cluster, st, threads, maxc);
+    return passes == 1
+               ? launch_k1<PB, 1>(a, streamed, cluster, st, threads, maxc)
+               : launch_k1<PB, 3>(a, streamed, cluster, st, threads, maxc);
   }
 }
 
@@ -1600,22 +1624,23 @@ bool cluster_ok(int nr, int mGp, int cluster) {
 
 template <bool WAVE>
 int launch_pb(const Args& a, int pb, int streamed, int cluster, int threads,
-              void* stream, int* maxc) {
+              void* stream, int* maxc, int passes = 3) {
   if (threads < 32 || threads % 32 ||
       threads > (cluster > 1 ? resident_warps(pb) : max_warps(pb)) * 32)
     return (int)cudaErrorInvalidConfiguration;
   if (a.iters_lo < 0 || (WAVE && a.iters_lo != 0))
     return (int)cudaErrorInvalidValue;      // split mode is K1's alone
+  if (passes != 1 && passes != 3) return (int)cudaErrorInvalidValue;
   if (!cluster_ok(a.nr, a.mGp, cluster) || (cluster > 1 && streamed))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (pb) {
     case 1: return launch_variant<1, WAVE>(a, streamed != 0, cluster, st,
-                                           threads, maxc);
+                                           threads, maxc, passes);
     case 4: return launch_variant<4, WAVE>(a, streamed != 0, cluster, st,
-                                           threads, maxc);
+                                           threads, maxc, passes);
     case 8: return launch_variant<8, WAVE>(a, streamed != 0, cluster, st,
-                                           threads, maxc);
+                                           threads, maxc, passes);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1652,11 +1677,19 @@ const char* phc_error_string(int code) {
 }
 
 // K1 on a batch: `a` as the wrapper filled it (a->iters_lo > 0: split
-// mode first); pb, streamed, cluster and threads from its plan
+// mode of three bf16 passes first); pb, streamed, cluster and threads from
+// its plan
 int phc_admm_k1(const PhcAdmmArgs* a, int pb, int streamed, int cluster,
                 int threads, void* stream) {
   return launch_pb<false>(*a, pb, streamed, cluster, threads, stream,
                           nullptr);
+}
+
+// the same with a split mode of one bf16 pass (Ahi·bhi alone)
+int phc_admm_k1_1pass(const PhcAdmmArgs* a, int pb, int streamed,
+                      int cluster, int threads, void* stream) {
+  return launch_pb<false>(*a, pb, streamed, cluster, threads, stream,
+                          nullptr, 1);
 }
 
 // K2 (relaxation, probe bounds, two-phase probe) on a batch
@@ -1666,9 +1699,10 @@ int phc_admm_k2(const PhcAdmmArgs* a, int pb, int streamed, int cluster,
                          nullptr);
 }
 
-// clusters of the resident K1 (wave 0; split: split mode) or K2 with this
-// shape, tile, cluster size and threads that the card holds at once
-// (cudaOccupancyMaxActiveClusters; 0: it cannot run), or −(CUDA error)
+// clusters of the resident K1 (wave 0; split: split mode of that many bf16
+// passes, 3 or 1, 0: none) or K2 with this shape, tile, cluster size and
+// threads that the card holds at once (cudaOccupancyMaxActiveClusters; 0:
+// it cannot run), or −(CUDA error)
 int phc_admm_max_clusters(int wave, int split, int nr, int mGp, int pb,
                           int cluster, int threads) {
   PhcAdmmArgs a = {};
@@ -1680,7 +1714,7 @@ int phc_admm_max_clusters(int wave, int split, int nr, int mGp, int pb,
   const int rc = wave ? launch_pb<true>(a, pb, 0, cluster, threads, nullptr,
                                         &n)
                       : launch_pb<false>(a, pb, 0, cluster, threads, nullptr,
-                                         &n);
+                                         &n, split == 1 ? 1 : 3);
   return rc ? -rc : n;
 }
 

@@ -18,6 +18,12 @@
 // final half step and the stats are K1 itself (phc_admm_k1 in admm.cu),
 // launched warm from these iterates by the wrapper.
 //
+// A one-pass variant (template parameter PASSES = 1, entry point
+// phc_admm_k1_mixed_1pass) keeps the Ahi.bhi pass alone: the reference's
+// XLA "default" precision, one bf16 pass of the TPU's MXU a product
+// (BoxQP.precision = "default" there and in the port). It stages no lo
+// constants and writes no lo operands; the layout is the same.
+//
 // Design. The batch is the N of every product, so a block owns a tile of T
 // problems (T = 16 or 32, a template parameter; ops/cuda_admm.plan_mixed
 // picks T = 32 where T = 16 would take two rounds of blocks) and has one
@@ -219,12 +225,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // acc += A.B over the K tiles [k0, k1) as the 3-pass product Ahi.Bhi +
-// Alo.Bhi + Ahi.Blo (no lo.lo pass). a_hi/a_lo: this lane's row address in
+// Alo.Bhi + Ahi.Blo (no lo.lo pass), or Ahi.Bhi alone (PASSES = 1; a_lo,
+// b_lo unread). a_hi/a_lo: this lane's row address in
 // K tile 0 of a 16-row A tile (row lane % 16, 8 columns on for lanes 16-31),
 // so one ldmatrix.x4 gives the m16k16 fragment; b_hi/b_lo: the operand
 // tile, K rows of T problems (swz), read transposed as two n8 fragments per
 // ldmatrix.x4.trans. One B fragment is live at a time.
-template <int T>
+template <int T, int PASSES>
 __device__ __forceinline__ void product(float (&acc)[T / 8][4], uint32_t a_hi,
                                         uint32_t a_lo, uint32_t b_hi,
                                         uint32_t b_lo, int k0, int k1,
@@ -234,7 +241,7 @@ __device__ __forceinline__ void product(float (&acc)[T / 8][4], uint32_t a_hi,
   for (int kt = k0; kt < k1; ++kt) {
     uint32_t ah[4], al[4], b[4];
     ldsm_x4(ah, a_hi + 32u * kt);
-    ldsm_x4(al, a_lo + 32u * kt);
+    if constexpr (PASSES == 3) ldsm_x4(al, a_lo + 32u * kt);
 #pragma unroll
     for (int np = 0; np < T / 16; ++np) {
       // 16 rows further is a whole number of swizzle periods
@@ -242,11 +249,13 @@ __device__ __forceinline__ void product(float (&acc)[T / 8][4], uint32_t a_hi,
       ldsm_x4_t(b, b_hi + bo);
       mma_bf16(acc[2 * np], ah, b[0], b[1]);
       mma_bf16(acc[2 * np + 1], ah, b[2], b[3]);
-      mma_bf16(acc[2 * np], al, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], al, b[2], b[3]);
-      ldsm_x4_t(b, b_lo + bo);
-      mma_bf16(acc[2 * np], ah, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], ah, b[2], b[3]);
+      if constexpr (PASSES == 3) {
+        mma_bf16(acc[2 * np], al, b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], al, b[2], b[3]);
+        ldsm_x4_t(b, b_lo + bo);
+        mma_bf16(acc[2 * np], ah, b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], ah, b[2], b[3]);
+      }
     }
   }
 }
@@ -297,8 +306,9 @@ __device__ __forceinline__ uint32_t opaque(uint32_t v) {
 }
 
 // the next product's operand from the lane's z, y: w_G = rho z - y split
-// to bf16 hi/lo, or d o (rho_B z_B - y_B) in fp32 for the box rows
-template <int T>
+// to bf16 hi/lo (hi alone for PASSES = 1), or d o (rho_B z_B - y_B) in fp32
+// for the box rows
+template <int T, int PASSES>
 __device__ __forceinline__ void emit(uint32_t base, const Smem& s,
                                      const Lane& p, const float4 (&rc)[2],
                                      const float (&z)[T / 8][4],
@@ -314,7 +324,7 @@ __device__ __forceinline__ void emit(uint32_t base, const Smem& s,
         split2(rc[h].x * z[nt][2 * h] - y[nt][2 * h],
                rc[h].x * z[nt][2 * h + 1] - y[nt][2 * h + 1], wh, wl);
         sts_b32(base + s.whi + at, wh);
-        sts_b32(base + s.wlo + at, wl);
+        if constexpr (PASSES == 3) sts_b32(base + s.wlo + at, wl);
       }
     }
   } else {
@@ -331,7 +341,7 @@ __device__ __forceinline__ void emit(uint32_t base, const Smem& s,
 
 // d (the shape's dims) and s (the shared-memory layout from address 0) come
 // as parameters: the constant bank holds them, not registers
-template <int T>
+template <int T, int PASSES>
 __global__ void __launch_bounds__(MaxThreads<T>::value, 1)
 admm_mixed_kernel(const float* __restrict__ q, const float* __restrict__ uG,
                   const float* __restrict__ lB, const float* __restrict__ uB,
@@ -351,9 +361,11 @@ admm_mixed_kernel(const float* __restrict__ q, const float* __restrict__ uG,
   {
     const int b0 = blockIdx.x * T;
     stage(smem_raw + s.Ahi, Ahi, nr, mG, stride_a(d));
-    stage(smem_raw + s.Alo, Alo, nr, mG, stride_a(d));
     stage(smem_raw + s.Mhi, Mhi, d.R, nr, stride_m(d));
-    stage(smem_raw + s.Mlo, Mlo, d.R, nr, stride_m(d));
+    if constexpr (PASSES == 3) {
+      stage(smem_raw + s.Alo, Alo, nr, mG, stride_a(d));
+      stage(smem_raw + s.Mlo, Mlo, d.R, nr, stride_m(d));
+    }
     // per row of u: (rho, 1/rho, d_box, 0), from vec packed as for K1:
     // [dbox, 1/dbox, rhoB, 1/rhoB, 1/E_B, 1/(D c) | rhoG, 1/rhoG, 1/E_G]
     float4* const rows4 = reinterpret_cast<float4*>(smem_raw + s.rows);
@@ -409,7 +421,7 @@ admm_mixed_kernel(const float* __restrict__ q, const float* __restrict__ uG,
       }
     }
     const float4 rc[2] = {lds_f4(p.row), lds_f4(p.row + 128u)};
-    emit<T>(sb, s, p, rc, z, y);
+    emit<T, PASSES>(sb, s, p, rc, z, y);
   }
   __syncthreads();
 
@@ -423,7 +435,8 @@ admm_mixed_kernel(const float* __restrict__ q, const float* __restrict__ uG,
       const uint32_t a =
           2u * ((jt * 16 + (p.lane & 15)) * stride_a(d) + (p.lane >> 4) * 8);
       float acc[NT][4] = {};
-      product<T>(acc, base + s.Ahi + a, base + s.Alo + a, base + s.whi,
+      product<T, PASSES>(acc, base + s.Ahi + a, base + s.Alo + a,
+                         base + s.whi,
                  base + s.wlo, ks * d.kT / d.ksplit,
                  (ks + 1) * d.kT / d.ksplit, p.lane);
 #pragma unroll
@@ -451,10 +464,12 @@ admm_mixed_kernel(const float* __restrict__ q, const float* __restrict__ uG,
       uint32_t th, tl;
       split2(a.x + dw.x - qq.x, a.y + dw.y - qq.y, th, tl);
       sts_b32(base + s.thi + 2u * swz<T>(j, pp), th);
-      sts_b32(base + s.tlo + 2u * swz<T>(j, pp), tl);
+      if constexpr (PASSES == 3)
+        sts_b32(base + s.tlo + 2u * swz<T>(j, pp), tl);
       split2(a.z + dw.z - qq.z, a.w + dw.w - qq.w, th, tl);
       sts_b32(base + s.thi + 2u * swz<T>(j + 8, pp), th);
-      sts_b32(base + s.tlo + 2u * swz<T>(j + 8, pp), tl);
+      if constexpr (PASSES == 3)
+        sts_b32(base + s.tlo + 2u * swz<T>(j + 8, pp), tl);
     }
     __syncthreads();
     // 3. u = M t for this warp's rows, then the z/y update from the
@@ -463,7 +478,8 @@ admm_mixed_kernel(const float* __restrict__ q, const float* __restrict__ uG,
     {
       const uint32_t a = 2u * ((p.warp * 16 + (p.lane & 15)) * stride_m(d) +
                                (p.lane >> 4) * 8);
-      product<T>(acc, base + s.Mhi + a, base + s.Mlo + a, base + s.thi,
+      product<T, PASSES>(acc, base + s.Mhi + a, base + s.Mlo + a,
+                         base + s.thi,
                  base + s.tlo, 0, nr / 16, p.lane);
     }
     const float4 rc[2] = {lds_f4(p.row), lds_f4(p.row + 128u)};
@@ -481,7 +497,7 @@ admm_mixed_kernel(const float* __restrict__ q, const float* __restrict__ uG,
         z[nt][c] = zn;
       }
     }
-    emit<T>(base, s, p, rc, z, y);
+    emit<T, PASSES>(base, s, p, rc, z, y);
     __syncthreads();
   }
 
@@ -505,7 +521,7 @@ admm_mixed_kernel(const float* __restrict__ q, const float* __restrict__ uG,
   }
 }
 
-template <int T>
+template <int T, int PASSES>
 int launch(const float* q, const float* uG, const float* lB, const float* uB,
            const float* z0G, const float* y0G, const float* z0B,
            const float* y0B, const void* Ahi, const void* Alo,
@@ -517,15 +533,37 @@ int launch(const float* q, const float* uG, const float* lB, const float* uB,
   if (threads > MaxThreads<T>::value) return (int)cudaErrorInvalidValue;
   const Smem s = carve(0, d, T);
   int rc = (int)cudaFuncSetAttribute(
-      (const void*)admm_mixed_kernel<T>,
+      (const void*)admm_mixed_kernel<T, PASSES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.end);
   if (rc) return rc;
   const int grid = (B + T - 1) / T;
-  admm_mixed_kernel<T><<<grid, threads, s.end, st>>>(
+  admm_mixed_kernel<T, PASSES><<<grid, threads, s.end, st>>>(
       q, uG, lB, uB, z0G, y0G, z0B, y0B, (const bf16*)Ahi, (const bf16*)Alo,
       (const bf16*)Mhi, (const bf16*)Mlo, vec, zG, yG, zB, yB, d, s, B, iters,
       alpha);
   return (int)cudaGetLastError();
+}
+
+// the instantiation of tile width T (16 or 32) and PASSES
+template <int PASSES>
+int dispatch(const float* q, const float* uG, const float* lB,
+             const float* uB, const float* z0G, const float* y0G,
+             const float* z0B, const float* y0B, const void* Ahi,
+             const void* Alo, const void* Mhi, const void* Mlo,
+             const float* vec, float* zG, float* yG, float* zB, float* yB,
+             int B, int nr, int mG, int iters, float alpha, int T,
+             cudaStream_t st) {
+  if (B < 1 || nr < 16 || mG < 16 || nr % 16 || mG % 16)
+    return (int)cudaErrorInvalidValue;
+  if (T == 16)
+    return launch<16, PASSES>(q, uG, lB, uB, z0G, y0G, z0B, y0B, Ahi, Alo,
+                              Mhi, Mlo, vec, zG, yG, zB, yB, B, nr, mG,
+                              iters, alpha, st);
+  if (T == 32)
+    return launch<32, PASSES>(q, uG, lB, uB, z0G, y0G, z0B, y0B, Ahi, Alo,
+                              Mhi, Mlo, vec, zG, yG, zB, yB, B, nr, mG,
+                              iters, alpha, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -541,6 +579,7 @@ const char* phc_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// the split phase of three bf16 passes a product
 int phc_admm_k1_mixed(const float* q, const float* uG,
                       const float* lB, const float* uB, const float* z0G,
                       const float* y0G, const float* z0B, const float* y0B,
@@ -548,17 +587,24 @@ int phc_admm_k1_mixed(const float* q, const float* uG,
                       const void* Mlo, const float* vec, float* zG, float* yG,
                       float* zB, float* yB, int B, int nr, int mG, int iters,
                       float alpha, int T, void* stream) {
-  if (B < 1 || nr < 16 || mG < 16 || nr % 16 || mG % 16)
-    return (int)cudaErrorInvalidValue;
-  if (T == 16)
-    return launch<16>(q, uG, lB, uB, z0G, y0G, z0B, y0B, Ahi, Alo, Mhi,
-                      Mlo, vec, zG, yG, zB, yB, B, nr, mG, iters, alpha,
-                      (cudaStream_t)stream);
-  if (T == 32)
-    return launch<32>(q, uG, lB, uB, z0G, y0G, z0B, y0B, Ahi, Alo, Mhi,
-                      Mlo, vec, zG, yG, zB, yB, B, nr, mG, iters, alpha,
-                      (cudaStream_t)stream);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<3>(q, uG, lB, uB, z0G, y0G, z0B, y0B, Ahi, Alo, Mhi, Mlo,
+                     vec, zG, yG, zB, yB, B, nr, mG, iters, alpha, T,
+                     (cudaStream_t)stream);
+}
+
+// the same with one bf16 pass a product (Alo, Mlo unread)
+int phc_admm_k1_mixed_1pass(const float* q, const float* uG,
+                            const float* lB, const float* uB,
+                            const float* z0G, const float* y0G,
+                            const float* z0B, const float* y0B,
+                            const void* Ahi, const void* Alo,
+                            const void* Mhi, const void* Mlo,
+                            const float* vec, float* zG, float* yG,
+                            float* zB, float* yB, int B, int nr, int mG,
+                            int iters, float alpha, int T, void* stream) {
+  return dispatch<1>(q, uG, lB, uB, z0G, y0G, z0B, y0B, Ahi, Alo, Mhi, Mlo,
+                     vec, zG, yG, zB, yB, B, nr, mG, iters, alpha, T,
+                     (cudaStream_t)stream);
 }
 
 }  // extern "C"

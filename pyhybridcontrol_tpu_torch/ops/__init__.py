@@ -2,6 +2,8 @@ from pyhybridcontrol_tpu_torch.ops.admm import (
     AdmmResult,
     BoxQP,
     admm_solve,
+    admm_solve_batch,
+    admm_solve_mixed,
     prepare_admm,
     prepare_admm_mpc,
 )
@@ -39,7 +41,8 @@ def __getattr__(name):
 
 
 __all__ = [
-    "AdmmResult", "BoxQP", "admm_solve", "prepare_admm", "prepare_admm_mpc",
+    "AdmmResult", "BoxQP", "admm_solve", "admm_solve_batch",
+    "admm_solve_mixed", "prepare_admm", "prepare_admm_mpc",
     "CondensedMpc", "DeviceQP", "MpcWeights",
     "admm_solve_auto", "admm_wave_auto", "prepare_kernel_qp",
     "tighten_condensed",

@@ -112,10 +112,10 @@ def _bind_admm(lib):
     lib.phc_admm_smem_bytes.restype = I
     # struct Args (ops/cuda_admm.py mirrors it), tile width, streamed,
     # cluster, threads, stream
-    for fn in (lib.phc_admm_k1, lib.phc_admm_k2):
+    for fn in (lib.phc_admm_k1, lib.phc_admm_k1_1pass, lib.phc_admm_k2):
         fn.argtypes = [P, I, I, I, I, P]
         fn.restype = I
-    # wave, split, nr, mGp, tile width, cluster, threads
+    # wave, split passes (0: none), nr, mGp, tile width, cluster, threads
     lib.phc_admm_max_clusters.argtypes = [I] * 7
     lib.phc_admm_max_clusters.restype = I
     # cluster, clusters, threads, iterations, relaxed, stream
@@ -129,8 +129,9 @@ def _bind_admm_mixed(lib):
     lib.phc_admm_mixed_smem_bytes.restype = I
     # q uG lB uB z0G y0G z0B y0B Ahi Alo Mhi Mlo vec | zG yG zB yB, then
     # B nr mG iters alpha tile stream
-    lib.phc_admm_k1_mixed.argtypes = [P] * 17 + [I, I, I, I, Fl, I, P]
-    lib.phc_admm_k1_mixed.restype = I
+    for fn in (lib.phc_admm_k1_mixed, lib.phc_admm_k1_mixed_1pass):
+        fn.argtypes = [P] * 17 + [I, I, I, I, Fl, I, P]
+        fn.restype = I
 
 
 def _bind_stagewise(lib):

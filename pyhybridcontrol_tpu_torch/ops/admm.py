@@ -20,6 +20,13 @@ Port decisions:
   ``BoxQP.dd_cert`` are not ported.
 - There is no ``pallas_mode``: kernel dispatch follows the tensor's
   device alone (ops/cuda_admm.py).
+- ``BoxQP.precision`` is the reference's matmul precision of the
+  iterations: "highest" exact fp32 products, "high" the 3-pass bf16
+  product, "default" one bf16 pass. The reference's XLA takes them from
+  the TPU's MXU; here the passes are made explicit (``bf16_product``): K1
+  runs them in its split-precision phase on the card, and the σ-form
+  ``admm_solve`` below emulates them in torch. The stats and certificates
+  keep exact products.
 """
 
 from __future__ import annotations
@@ -38,8 +45,35 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 BIG = 1e30
-RHO_EQ_SCALE = 10.0   # ρ boost of binary box rows (equalities at leaves)
-BOOST_SCALE = 30.0    # ρ boost of big-M product rows
+RHO_EQ_SCALE = 10.0   # default ρ boost of binary box rows (equalities at leaves)
+BOOST_SCALE = 30.0    # default ρ boost of big-M product rows
+# bf16 passes a product takes at each matmul precision (0: exact fp32)
+PRECISION_PASSES = {"highest": 0, "high": 3, "default": 1}
+
+
+def bf16_split(a):
+    """fp32 → (hi, lo), both bf16 values held in fp32: hi = bf16(a),
+    lo = bf16(a − hi); hi + lo ≈ a to ~16 mantissa bits."""
+    hi = a.bfloat16().float()
+    return hi, (a - hi).bfloat16().float()
+
+
+def bf16_product(A, passes: int):
+    """b ↦ b·A as ``passes`` bf16 passes with fp32 accumulation: 3 is
+    bhi·Ahi + blo·Ahi + bhi·Alo (the lo·lo term is below fp32 rounding),
+    1 is bhi·Ahi alone. bf16 × bf16 is exact in fp32, so fp32 ``@`` of the
+    rounded operands accumulates what the tensor cores accumulate. The
+    constant is split once, the iterate operand at each call."""
+    if passes not in (1, 3):
+        raise ValueError(f"bf16_product: 1 or 3 passes, got {passes}")
+    Ahi, Alo = bf16_split(A)
+    if passes == 1:
+        return lambda b: b.bfloat16().float() @ Ahi
+
+    def mm(b):
+        bhi, blo = bf16_split(b)
+        return bhi @ Ahi + blo @ Ahi + bhi @ Alo
+    return mm
 
 
 @dataclasses.dataclass
@@ -59,6 +93,12 @@ class BoxQP:
     sigma: float
     alpha: float
     m_ineq: int              # rows of G
+    # matmul precision of the iterations (PRECISION_PASSES): "highest"
+    # exact fp32, "high" 3-pass bf16, "default" 1-pass bf16
+    precision: str = "highest"
+    # accepted for the reference's signature; the certificate sums are
+    # float64 whatever its value (the card has fp64)
+    dd_cert: bool = False
     # derived per-spec data (the kernel prep of ops/cuda_admm.py)
     cache: dict = dataclasses.field(default_factory=dict, repr=False,
                                     compare=False)
@@ -95,16 +135,23 @@ class AdmmResult:
 def prepare_admm(G: np.ndarray, H: np.ndarray, *, rho: float = 1.0,
                  sigma: float = 1e-6, alpha: float = 1.6,
                  q_typical: Optional[np.ndarray] = None,
-                 binary_idx=None, boost_rows=None, eq_rows=None,
-                 device=DEFAULT_DEVICE) -> BoxQP:
+                 binary_idx=None, rho_eq_scale: float = RHO_EQ_SCALE,
+                 boost_rows=None, boost_scale: float = BOOST_SCALE,
+                 eq_rows=None, precision: str = "highest",
+                 dd_cert: bool = False, device=DEFAULT_DEVICE) -> BoxQP:
     """Host-side (float64) preparation: Ruiz equilibration + K⁻¹.
 
-    ``binary_idx``: box rows of those variables get ρ·RHO_EQ_SCALE (they
+    ``binary_idx``: box rows of those variables get ρ·rho_eq_scale (they
     turn into equalities at fixed-binary B&B nodes). ``eq_rows``:
     constraint rows that are true equalities (the consensus tree's
     selector rows), the same boost. ``boost_rows``: near-equality big-M
-    product rows, ×BOOST_SCALE.
+    product rows, ×boost_scale. ``precision``: the matmul precision of the
+    iterations (``BoxQP.precision``). ``dd_cert`` is accepted and changes
+    nothing: both values give the same float64 certificate sums.
     """
+    if precision not in PRECISION_PASSES:
+        raise ValueError(f"unknown precision {precision!r} (have "
+                         f"{tuple(PRECISION_PASSES)})")
     device = resolve_device(device)
     G = np.asarray(G, dtype=np.float64)
     H = np.asarray(H, dtype=np.float64)
@@ -117,11 +164,11 @@ def prepare_admm(G: np.ndarray, H: np.ndarray, *, rho: float = 1.0,
     Ah = E[:, None] * A * D[None, :]
     rho_vec = np.full(m + n, float(rho))
     if binary_idx is not None and len(binary_idx):
-        rho_vec[m + np.asarray(binary_idx, int)] = rho * RHO_EQ_SCALE
+        rho_vec[m + np.asarray(binary_idx, int)] = rho * rho_eq_scale
     if eq_rows is not None and len(eq_rows):
-        rho_vec[np.asarray(eq_rows, int)] = rho * RHO_EQ_SCALE
+        rho_vec[np.asarray(eq_rows, int)] = rho * rho_eq_scale
     if boost_rows is not None and len(boost_rows):
-        rho_vec[np.asarray(boost_rows, int)] *= BOOST_SCALE
+        rho_vec[np.asarray(boost_rows, int)] *= boost_scale
     K = Ph + sigma * np.eye(n) + (Ah.T * rho_vec[None, :]) @ Ah
     Kinv = np.linalg.inv(K)
 
@@ -132,7 +179,7 @@ def prepare_admm(G: np.ndarray, H: np.ndarray, *, rho: float = 1.0,
     return BoxQP(P=t(Ph), A=t(Ah), Kinv=t(Kinv), D=t(D), E=t(E),
                  cost_scale=t(c), rho_vec=t(rho_vec),
                  rho=float(rho), sigma=float(sigma), alpha=float(alpha),
-                 m_ineq=m)
+                 m_ineq=m, precision=precision, dd_cert=bool(dd_cert))
 
 
 def prepare_admm_mpc(cmpc, **kw) -> BoxQP:
@@ -188,7 +235,8 @@ def admm_solve(spec: BoxQP, q, h, lb, ub, iters: int = 100,
     σ-form ADMM iterations. Inputs in ORIGINAL units; q/h/lb/ub may carry
     identical leading batch dims. ``x``/``obj``/residuals are returned in
     original units, ``y``/``z`` in the scaled frame (reuse only as
-    ``warm``, which is ``(res.x, res.z, res.y)`` of a previous result)."""
+    ``warm``, which is ``(res.x, res.z, res.y)`` of a previous result).
+    The iterations take their products at ``spec.precision``."""
     rho, alpha, sigma = spec.rho_vec, spec.alpha, spec.sigma
     c = spec.cost_scale
     qh = c * spec.D * q
@@ -206,11 +254,23 @@ def admm_solve(spec: BoxQP, q, h, lb, ub, iters: int = 100,
         y = y0w
 
     A, AT, KinvT = spec.A, spec.A.T, spec.Kinv.T
+    passes = PRECISION_PASSES[spec.precision]
+    if passes:
+        mmA, mmK, mmAT = (bf16_product(M, passes) for M in (A, KinvT, AT))
+    else:
+        def mmA(w):
+            return w @ A
+
+        def mmK(v):
+            return v @ KinvT
+
+        def mmAT(v):
+            return v @ AT
     dy = torch.zeros_like(y)
     for _ in range(iters):
         w = rho * z - y
-        xt = (sigma * x - qh + w @ A) @ KinvT
-        zt = xt @ AT
+        xt = mmK(sigma * x - qh + mmA(w))
+        zt = mmAT(xt)
         zr = alpha * zt + (1.0 - alpha) * z
         z_new = torch.clamp(zr + y / rho, l, u)
         y_new = y + rho * (zr - z_new)
@@ -353,3 +413,49 @@ def _implied_box(A, u, lbh, ubh, passes: int = 2):
         ubh = torch.minimum(ubh, torch.clamp(ub_cand.amin(dim=-2), -BIG, BIG))
         lbh = torch.maximum(lbh, torch.clamp(lb_cand.amax(dim=-2), -BIG, BIG))
     return lbh, ubh
+
+
+def admm_solve_batch(spec: BoxQP, q, h, lb, ub, iters: int = 100
+                     ) -> AdmmResult:
+    """Explicit-batch convenience: q (B,n) or (n,), h (B,m) or (m,),
+    lb/ub (B,n); a 1-D q or h is broadcast to lb's batch. Batched σ=0
+    ADMM through ``ops.cuda_admm.admm_solve_auto``: K1 on a CUDA tensor,
+    its plain version on a CPU tensor."""
+    from pyhybridcontrol_tpu_torch.ops.cuda_admm import admm_solve_auto
+
+    B = lb.shape[0]
+    qb = q.expand(B, q.shape[-1]) if q.ndim == 1 else q
+    hb = h.expand(B, h.shape[-1]) if h.ndim == 1 else h
+    return admm_solve_auto(spec, qb, hb, lb, ub, iters=iters)
+
+
+def admm_solve_mixed(spec: BoxQP, q, h, lb, ub, iters: int = 100,
+                     low_frac: float = 0.8, low_precision: str = "high",
+                     warm=None) -> AdmmResult:
+    """Two-phase precision schedule: the first ``k = int(iters·low_frac)``
+    iterations at ``low_precision`` ("high": 3-pass bf16 products,
+    "default": one pass), the tail at the spec's own precision,
+    warm-chained; ``k ≤ 0`` or ``k ≥ iters`` is one solve at the spec's
+    precision, as in the reference. Batched σ=0 ADMM as
+    ``ops.cuda_admm.admm_solve_auto``: where the spec is at "highest" the
+    schedule is ONE K1 call with ``iters_lo = k`` (the split phase on the
+    tensor cores up to N=21, K1's split mode above), which equals the
+    reference's two chained solves because the σ=0 iteration carries no
+    x; where the spec itself is split, two calls, chained on (z, y)."""
+    from pyhybridcontrol_tpu_torch.ops.cuda_admm import (
+        _solve_auto, admm_solve_auto)
+
+    if low_precision not in PRECISION_PASSES:
+        raise ValueError(f"unknown low_precision {low_precision!r} (have "
+                         f"{tuple(PRECISION_PASSES)})")
+    k = int(iters * low_frac)
+    lo = PRECISION_PASSES[low_precision]
+    hi = PRECISION_PASSES[spec.precision]
+    if k <= 0 or k >= iters or lo == hi:
+        return admm_solve_auto(spec, q, h, lb, ub, iters=iters, warm=warm)
+    if hi == 0:
+        return _solve_auto(spec, q, h, lb, ub, iters, warm, low_frac, lo)
+    r1 = _solve_auto(spec, q, h, lb, ub, k, warm, 1.0 if lo else 0.0,
+                     lo or 3)
+    return admm_solve_auto(spec, q, h, lb, ub, iters=iters - k,
+                           warm=(r1.x, r1.z, r1.y))

@@ -30,7 +30,9 @@ once under each variant a launch runs: "admm_k1"/"admm_k2" for the
 staged full-precision kernels, "admm_k1_resident"/"admm_k2_resident" for
 the cluster variant, "admm_k1_streamed"/"admm_k2_streamed" for the L2-
 streamed one, "admm_k1_split" for K1 in split mode (a resident or streamed
-K1 launch in split mode counts under both of its variants).
+K1 launch in split mode counts under both of its variants); the one-pass
+split phase (below) counts as "admm_k1_mixed_1pass" and
+"admm_k1_split_1pass" instead of "admm_k1_mixed" and "admm_k1_split".
 
 On the card K1 and K2 give each tile of 8, 4 or 1 problems a thread block
 or a thread-block cluster: ``plan`` picks the instantiation (tile,
@@ -67,6 +69,15 @@ kernels alike) runs on a copy of the prep zero-padded from the 8 grain
 to 16 (``pad_kernel_qp``); zero rows and columns are inert.
 ``low_frac`` stays off the B&B path, as in the reference.
 
+The split phase has a one-pass variant (``lo_passes=1``: bhi·Ahi alone,
+the reference's XLA "default" precision on the TPU's MXU), compiled beside
+the three-pass one in both kernels. ``admm_solve_auto`` runs every
+iteration in the split phase where ``BoxQP.precision`` is "high" (three
+passes) or "default" (one), and ``ops.admm.admm_solve_mixed`` runs its
+two-phase schedule as one K1 call with ``iters_lo = int(iters·low_frac)``.
+K2 takes no split phase: a spec whose precision is not "highest" is
+refused on a wave.
+
 The plain versions keep the reference's public layout — q (B,n), h (B,m),
 lb/ub (B,n) in, ``AdmmResult`` out — and iterate on padded batch-first
 arrays made by ``_pack`` with the same single multiplications the kernels
@@ -86,8 +97,11 @@ import torch.nn.functional as F
 
 from pyhybridcontrol_tpu_torch.ops.admm import (
     BIG,
+    PRECISION_PASSES,
     AdmmResult,
     BoxQP,
+    bf16_product,
+    bf16_split,
     infeasibility_certificate,
 )
 
@@ -96,6 +110,7 @@ from pyhybridcontrol_tpu_torch.ops.admm import (
 LAUNCHES = {"admm_k1": 0, "admm_k2": 0, "admm_k1_mixed": 0,
             "admm_k1_resident": 0, "admm_k2_resident": 0,
             "admm_k1_streamed": 0, "admm_k2_streamed": 0, "admm_k1_split": 0,
+            "admm_k1_mixed_1pass": 0, "admm_k1_split_1pass": 0,
             "stagewise_k4": 0, "stagewise_k5": 0}
 # batch size -> launches, per kernel wrapper (same events as LAUNCHES)
 LAUNCH_BATCHES = {k: {} for k in LAUNCHES}
@@ -146,6 +161,14 @@ class KernelQP:
     m_pad: int
     cache: dict = dataclasses.field(default_factory=dict, repr=False,
                                     compare=False)
+
+    @property
+    def n(self) -> int:
+        return self.base.n
+
+    @property
+    def m_ineq(self) -> int:
+        return self.base.m_ineq
 
 
 def prepare_kernel_qp(spec: BoxQP) -> KernelQP:
@@ -295,38 +318,27 @@ def _init_iterates(lG, uG, lB, uB, warm4):
     return (torch.clamp(z0G, lG, uG), y0G, torch.clamp(z0B, lB, uB), y0B)
 
 
-def _bf16_split(a):
-    """fp32 → (hi, lo), both bf16 values held in fp32: hi = bf16(a),
-    lo = bf16(a − hi); hi + lo ≈ a to ~16 mantissa bits."""
-    hi = a.bfloat16().float()
-    return hi, (a - hi).bfloat16().float()
+_bf16_split = bf16_split
 
 
 def _mm3(A):
     """b ↦ b·A as the manual 3-pass bf16 product
-    bhi·Ahi + blo·Ahi + bhi·Alo (the lo·lo term is below fp32 rounding).
-    bf16 × bf16 is exact in fp32, so three fp32 ``@`` of the rounded
-    operands accumulate what the tensor cores accumulate. The constant is
-    split once, the iterate operand at each call."""
-    Ahi, Alo = _bf16_split(A)
-
-    def mm(b):
-        bhi, blo = _bf16_split(b)
-        return bhi @ Ahi + blo @ Ahi + bhi @ Alo
-    return mm
+    bhi·Ahi + blo·Ahi + bhi·Alo (``ops.admm.bf16_product``)."""
+    return bf16_product(A, 3)
 
 
 def _phase(q, lG, uG, lB, uB, AGT, M, dbox, rhoG, rhoGi, rhoB, rhoBi,
            zG, yG, zB, yB, iters: int, alpha: float, final: bool = True,
-           mixed: bool = False):
+           passes: int = 0):
     """``iters`` σ=0 iterations from the (already clipped) iterates, then
     — if ``final`` — one more half step, whose ẑ and δy feed the stats.
-    ``mixed``: both products as 3-pass bf16 products (``_mm3``).
+    ``passes``: both products as 3-pass (``_mm3``) or 1-pass bf16
+    products; 0: exact fp32 products.
     Returns (ẑ_G, ẑ_B, z_G, y_G, z_B, y_B, δy_G, δy_B)."""
     mGp = AGT.shape[1]
     AG, MT = AGT.T, M.T
-    if mixed:
-        mmA, mmM = _mm3(AG), _mm3(MT)
+    if passes:
+        mmA, mmM = bf16_product(AG, passes), bf16_product(MT, passes)
     else:
         def mmA(w):
             return w @ AG
@@ -390,42 +402,50 @@ def _relax(kq: KernelQP, qs, lG, uG, lB, uB, iters, iterates):
     return ztB, (zG, yG, zB, yB), _result(kq, x, zG, yG, zB, yB, *st)
 
 
-def _mixed_plain(kq: KernelQP, qs, lG, uG, lB, uB, iterates, iters_lo):
+def _mixed_plain(kq: KernelQP, qs, lG, uG, lB, uB, iterates, iters_lo,
+                 passes: int = 3):
     """Plain version of the split-precision phase: ``iters_lo`` iterations
-    with 3-pass bf16 products; returns the iterates (z_G, y_G, z_B, y_B)."""
+    with ``passes``-pass bf16 products; returns the iterates (z_G, y_G,
+    z_B, y_B)."""
     return _phase(qs, lG, uG, lB, uB, kq.AGT, kq.M, kq.dbox, kq.rhoG,
                   kq.rhoG_inv, kq.rhoB, kq.rhoB_inv, *iterates, iters_lo,
-                  kq.base.alpha, final=False, mixed=True)[2:6]
+                  kq.base.alpha, final=False, passes=passes)[2:6]
 
 
-def _solve_plain(kq: KernelQP, q, h, lb, ub, iters, iters_lo, warm):
+def _solve_plain(kq: KernelQP, q, h, lb, ub, iters, iters_lo, warm,
+                 passes: int = 3):
     """K1's function on the padded arrays of ``kq`` as it stands (no
-    re-padding): ``iters_lo`` split-precision iterations, then the
-    full-precision tail, half step and stats."""
+    re-padding): ``iters_lo`` split-precision iterations of ``passes``
+    passes, then the full-precision tail, half step and stats."""
     qs, lG, uG, lB, uB, warm4 = _pack(kq, q, h, lb, ub, warm)
     it = _init_iterates(lG, uG, lB, uB, warm4)
     if iters_lo > 0:
-        it = _mixed_plain(kq, qs, lG, uG, lB, uB, it, iters_lo)
+        it = _mixed_plain(kq, qs, lG, uG, lB, uB, it, iters_lo, passes)
     return _relax(kq, qs, lG, uG, lB, uB, max(iters - iters_lo, 0), it)[2]
 
 
-def _split_iters(kq: KernelQP, iters: int, low_frac: float):
+def _split_iters(kq: KernelQP, iters: int, low_frac: float,
+                 lo_passes: int = 3):
     """(prep to run on, iters_lo): the split-precision phase runs on the
     16-padded prep."""
     if not 0.0 <= low_frac <= 1.0:
         raise ValueError(f"low_frac must be in [0, 1], got {low_frac}")
+    if lo_passes not in (1, 3):
+        raise ValueError(f"lo_passes must be 1 or 3, got {lo_passes}")
     iters_lo = int(iters * low_frac)
     return (pad_kernel_qp(kq) if iters_lo > 0 else kq), iters_lo
 
 
 def admm_solve_plain(kq: KernelQP, q, h, lb, ub, iters: int = 100,
-                     warm=None, low_frac: float = 0.0) -> AdmmResult:
+                     warm=None, low_frac: float = 0.0,
+                     lo_passes: int = 3) -> AdmmResult:
     """Plain torch version of K1. q (B,n), h (B,m), lb/ub (B,n) in
     ORIGINAL units; ``warm`` = (x, z, y) of a previous result (x unused:
     the σ=0 iteration has no x-carry). ``low_frac``: share of the
-    iterations, from the first on, run with 3-pass bf16 products."""
-    kq, iters_lo = _split_iters(kq, iters, low_frac)
-    return _solve_plain(kq, q, h, lb, ub, iters, iters_lo, warm)
+    iterations, from the first on, run with ``lo_passes``-pass (3 or 1)
+    bf16 products."""
+    kq, iters_lo = _split_iters(kq, iters, low_frac, lo_passes)
+    return _solve_plain(kq, q, h, lb, ub, iters, iters_lo, warm, lo_passes)
 
 
 def _binaries(kq: KernelQP, binary_idx):
@@ -792,19 +812,20 @@ def _raise_on(lib, rc, what):
 
 
 def cluster_capacity(kq: KernelQP, wave: bool, split: bool,
-                     pl: LaunchPlan) -> int:
+                     pl: LaunchPlan, lo_passes: int = 3) -> int:
     """Clusters of the resident plan ``pl`` at ``kq``'s shape (K2 if
-    ``wave``, K1 in split mode if ``split``) that the card of ``kq`` holds
-    at once (cudaOccupancyMaxActiveClusters, memoized on ``kq``). Raises
-    where it holds none or the query fails: such a plan cannot run, and
-    nothing falls back."""
+    ``wave``, K1 in split mode of ``lo_passes`` passes if ``split``) that
+    the card of ``kq`` holds at once (cudaOccupancyMaxActiveClusters,
+    memoized on ``kq``). Raises where it holds none or the query fails:
+    such a plan cannot run, and nothing falls back."""
     from pyhybridcontrol_tpu_torch.ops._build import load_library
 
-    key = ("cluster_capacity", wave, split, pl)
+    passes = lo_passes if split else 0
+    key = ("cluster_capacity", wave, passes, pl)
     got = kq.cache.get(key)
     if got is None:
         lib = load_library()
-        got = lib.phc_admm_max_clusters(int(wave), int(split), kq.n_pad,
+        got = lib.phc_admm_max_clusters(int(wave), passes, kq.n_pad,
                                         kq.m_pad, pl.pb, pl.cluster,
                                         pl.threads)
         if got < 0:
@@ -834,10 +855,12 @@ def _warm_views(kq: KernelQP, warm):
 def _launch(name: str, kq: KernelQP, kq2: Optional[KernelQP], binmask,
             q, h, lb, ub, warm, iters: int, p1: int, p2: int,
             pb: Optional[int], streamed: Optional[bool] = None,
-            iters_lo: int = 0, cluster: Optional[int] = None):
+            iters_lo: int = 0, cluster: Optional[int] = None,
+            lo_passes: int = 3):
     """Check the inputs, allocate the outputs, launch K1 (``name`` =
-    "admm_k1"; ``iters_lo`` split-mode iterations before ``iters`` full
-    ones) or K2 once. Returns one AdmmResult per stats block."""
+    "admm_k1"; ``iters_lo`` split-mode iterations of ``lo_passes`` bf16
+    passes before ``iters`` full ones) or K2 once. Returns one AdmmResult
+    per stats block."""
     from pyhybridcontrol_tpu_torch.ops._build import load_library
 
     spec = kq.base
@@ -890,17 +913,19 @@ def _launch(name: str, kq: KernelQP, kq2: Optional[KernelQP], binmask,
     a.p1, a.p2 = int(p1), int(p2)
     a.alpha, a.cinv = spec.alpha, lay["cinv"]
     lib = load_library()
+    one = iters_lo > 0 and lo_passes == 1
     with torch.cuda.device(q.device):
         if pl.cluster > 1:
-            cluster_capacity(kq, wave, iters_lo > 0, pl)
+            cluster_capacity(kq, wave, iters_lo > 0, pl, lo_passes)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = getattr(lib, "phc_" + name)(ctypes.addressof(a), pl.pb,
-                                         int(pl.streamed), pl.cluster,
-                                         pl.threads, ctypes.c_void_p(stream))
+        rc = getattr(lib, "phc_" + name + ("_1pass" if one else ""))(
+            ctypes.addressof(a), pl.pb, int(pl.streamed), pl.cluster,
+            pl.threads, ctypes.c_void_p(stream))
     _raise_on(lib, rc, name)
+    split = "admm_k1_split" + ("_1pass" if one else "")
     variants = ([name + "_streamed"] if pl.streamed else []) + (
         [name + "_resident"] if pl.cluster > 1 else []) + (
-        ["admm_k1_split"] if iters_lo > 0 else [])
+        [split] if iters_lo > 0 else [])
     for k in variants or [name]:
         _count_launch(k, B)
     return [AdmmResult(x=x, obj=st[:, 0], r_prim=st[:, 1],
@@ -1018,10 +1043,11 @@ def plan_mixed(B: int, nr: int, mGp: int, sm_count: int = SM_COUNT,
 
 
 def _launch_k1_mixed(kq: KernelQP, qs, lG, uG, lB, uB, warm4, iters_lo: int,
-                     tile: Optional[int] = None):
-    """The split-precision phase on the tensor cores; returns the iterates
-    (z_G, y_G, z_B, y_B) that warm-start K1's full-precision tail. ``tile``
-    asks for one tile width instead of the plan's. The arrays are
+                     tile: Optional[int] = None, passes: int = 3):
+    """The split-precision phase on the tensor cores (``passes`` bf16
+    passes a product, 3 or 1); returns the iterates (z_G, y_G, z_B, y_B)
+    that warm-start K1's full-precision tail. ``tile`` asks for one tile
+    width instead of the plan's. The arrays are
     ``_pack``'s: the kernel takes l_G as the constant −BIG of the G rows
     (G x ≤ h, as K1 does) and does not read ``lG``; on the zero-padded rows,
     where ``_pack`` puts 0, M's rows are zero and z stays 0 either way."""
@@ -1039,19 +1065,20 @@ def _launch_k1_mixed(kq: KernelQP, qs, lG, uG, lB, uB, warm4, iters_lo: int,
     pl = plan_mixed(B, nr, mGp, torch.cuda.get_device_properties(
         qs.device).multi_processor_count, tile)
     lib = load_library("admm_mixed")
+    name = "admm_k1_mixed" + ("_1pass" if passes == 1 else "")
     lay, vec = _layout_mixed(kq), _layout(kq)["vec"]
     outs = [torch.empty((B, r), dtype=torch.float32, device=qs.device)
             for r in (mGp, mGp, nr, nr)]
     w = warm4 if warm4 is not None else (None,) * 4
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream(qs.device).cuda_stream
-        rc = lib.phc_admm_k1_mixed(
+        rc = getattr(lib, "phc_" + name)(
             *map(_ptr, (qs, uG, lB, uB, *w, *lay["A"], *lay["M"], vec,
                         *outs)),
             B, nr, mGp, int(iters_lo), kq.base.alpha, pl.tile,
             ctypes.c_void_p(stream))
-    _raise_on(lib, rc, "K1 split-precision phase (admm_k1_mixed)")
-    _count_launch("admm_k1_mixed", B)
+    _raise_on(lib, rc, f"K1 split-precision phase ({name})")
+    _count_launch(name, B)
     return tuple(outs)
 
 
@@ -1059,22 +1086,25 @@ def admm_solve_cuda(kq: KernelQP, q, h, lb, ub, iters: int = 100,
                     warm=None, low_frac: float = 0.0,
                     pb: Optional[int] = None,
                     streamed: Optional[bool] = None,
-                    cluster: Optional[int] = None) -> AdmmResult:
+                    cluster: Optional[int] = None,
+                    lo_passes: int = 3) -> AdmmResult:
     """K1 on the card; same contract as ``admm_solve_plain``. The kernel
     packs and unpacks itself: the wrapper checks, allocates and launches.
     With ``low_frac`` > 0 the leading iterations run where ``split_route``
     says: in the tensor-core kernel (on packed arrays), whose iterates
     warm-start K1 for the rest, or in K1's own split mode, in the same
     launch as the rest. ``pb``, ``streamed`` and ``cluster`` ask for one
-    tile width or one variant instead of the plan's (``plan``)."""
-    kq, iters_lo = _split_iters(kq, iters, low_frac)
+    tile width or one variant instead of the plan's (``plan``).
+    ``lo_passes``: bf16 passes a product of the split phase (3 or 1)."""
+    kq, iters_lo = _split_iters(kq, iters, low_frac, lo_passes)
     if iters_lo > 0 and split_route(kq.n_pad, kq.m_pad) == "tensor_cores":
         qs, lG, uG, lB, uB, warm4 = _pack(kq, q, h, lb, ub, warm)
-        warm = _launch_k1_mixed(kq, qs, lG, uG, lB, uB, warm4, iters_lo)
+        warm = _launch_k1_mixed(kq, qs, lG, uG, lB, uB, warm4, iters_lo,
+                                passes=lo_passes)
         iters, iters_lo = iters - iters_lo, 0
     return _launch("admm_k1", kq, None, None, q, h, lb, ub, warm,
                    max(iters - iters_lo, 0), 0, 0, pb, streamed,
-                   iters_lo, cluster)[0]
+                   iters_lo, cluster, lo_passes)[0]
 
 
 def admm_wave_cuda(kq: KernelQP, kq2: Optional[KernelQP], binary_idx,
@@ -1110,7 +1140,18 @@ def admm_solve_auto(spec: BoxQP, q, h, lb, ub, iters: int = 100,
                     warm=None) -> AdmmResult:
     """Batched σ=0 ADMM (same contract as ``ops.admm.admm_solve``): K1 on
     a CUDA tensor, its plain version on a CPU tensor. A 1-D ``q`` is a
-    batch of one."""
+    batch of one. Where ``spec.precision`` is "high" or "default", every
+    iteration runs in K1's split phase with 3 or 1 bf16 passes a
+    product."""
+    passes = PRECISION_PASSES[spec.precision]
+    return _solve_auto(spec, q, h, lb, ub, iters, warm,
+                       1.0 if passes else 0.0, passes or 3)
+
+
+def _solve_auto(spec: BoxQP, q, h, lb, ub, iters, warm, low_frac: float,
+                lo_passes: int) -> AdmmResult:
+    """``admm_solve_auto`` with the split phase given: the first
+    ``int(iters·low_frac)`` iterations at ``lo_passes`` bf16 passes."""
     single = q.ndim == 1
     if single:
         q = q[None]
@@ -1119,7 +1160,8 @@ def admm_solve_auto(spec: BoxQP, q, h, lb, ub, iters: int = 100,
                          f"{tuple(q.shape)}")
     hb, lbb, ubb, warm = _batch(q, h, lb, ub, warm, spec.m_ineq)
     fn = _route(q, admm_solve_plain, admm_solve_cuda)
-    res = fn(kernel_qp_for(spec), q, hb, lbb, ubb, iters=iters, warm=warm)
+    res = fn(kernel_qp_for(spec), q, hb, lbb, ubb, iters=iters, warm=warm,
+             low_frac=low_frac, lo_passes=lo_passes)
     if single:
         res = AdmmResult(**{k: None if v is None else v[0]
                             for k, v in vars(res).items()})
@@ -1132,7 +1174,13 @@ def admm_wave_auto(spec: BoxQP, spec_probe: Optional[BoxQP], binary_idx,
     """One B&B wave: relaxation + dive probe through K2 (CUDA tensor) or
     its plain version (CPU tensor), for any batch size. Returns
     ``(relax, probe, lb_probe, ub_probe)``; the probe bounds (original
-    units) feed the caller's certified probe clamp."""
+    units) feed the caller's certified probe clamp. K2 has no split
+    phase, as the reference's wave kernel has none: a spec whose
+    ``precision`` is not "highest" raises."""
+    for s_ in (spec, spec_probe):
+        if s_ is not None and s_.precision != "highest":
+            raise ValueError(f"admm_wave_auto: precision={s_.precision!r}: "
+                             f"K2 runs every wave at full precision")
     hb, lbb, ubb, warm = _batch(q, h, lb, ub, warm, spec.m_ineq)
     fn = _route(q, admm_wave_plain, admm_wave_cuda)
     kq = kernel_qp_for(spec)

@@ -999,7 +999,7 @@ def stagewise_admm_solve(sw: StagewiseQP, q, l, u, iters: int = 200,
                          lb_xi=None, ub_xi=None, warm=None,
                          parallel_sweeps: bool = False,
                          consensus_M=None, ext_u=None,
-                         warm_ext=None) -> AdmmResult:
+                         warm_ext=None, consensus_z=None) -> AdmmResult:
     """Fixed-iteration ADMM in the stagewise frame. q (…, N, b), l/u
     (…, N, m_k) from ``assemble_stagewise``; optional node boxes
     lb_xi/ub_xi (…, N, b) override the box-row bounds (B&B); ``warm``:
@@ -1014,10 +1014,18 @@ def stagewise_admm_solve(sw: StagewiseQP, q, l, u, iters: int = 200,
     measures |Ax − z| and their dy leaves the certificate); a function in
     its place computes the means itself (the scenario axis split over
     ranks): no one launch holds a mean that crosses ranks, so then the
-    torch loop runs, its sweep K4 on the card. ``ext_u``
+    torch loop runs, its sweep K4 on the card. ``consensus_z``: the
+    reference's name for such a function (the group-mean prox of the
+    consensus rows, ``s[..., mc:]`` ↦ z); it takes ``consensus_M``'s place.
+    ``ext_u``
     (…, r): required with extra rows (``assemble_stagewise_ext``); their
     z/y come back in ``res.z_ext``/``res.y_ext``; ``warm_ext``: (z_ext,
     y_ext) of a prior result."""
+    if consensus_z is not None:
+        if consensus_M is not None:
+            raise ValueError("stagewise_admm_solve: pass consensus_M or "
+                             "consensus_z, not both")
+        consensus_M = consensus_z
     if lb_xi is not None:
         l, u = _with_box(sw, l, u, lb_xi, ub_xi)
     soft = (sw.soft_lin > 0) | (sw.soft_quad > 0)     # (N, m_k)

@@ -9,9 +9,7 @@ numpy code, on the port's own ``ops/scaling.py`` and scipy's HiGHS
     float64, KKT solves by dense LU. Small problems only (oracle path).
   * ``solve_miqp_enumeration_oracle``: exact MIQP by enumerating all 2^nb
     binary assignments, reducing each to a continuous QP.
-
-The reference's optional ``cvxpy_cross_check`` is left out: it needs
-cvxpy, which neither this package nor its tests depend on.
+  * ``cvxpy_cross_check``: the optional cvxpy cross-check, import-guarded.
 """
 
 from __future__ import annotations
@@ -241,3 +239,25 @@ def solve_miqp_enumeration_oracle(H, f, G, h, lb, ub, binary_idx,
             x[bidx] = b
             best = OracleResult(x, total, "optimal", binaries=b.copy())
     return best
+
+
+def cvxpy_cross_check(H, f, G, h, lb, ub, binary_idx):  # pragma: no cover
+    """Optional cross-check against cvxpy (and its MIQP solver) when
+    installed; returns None where cvxpy is not. Neither this package nor
+    its tests depend on cvxpy, so the tests hold only the None branch."""
+    try:
+        import cvxpy as cp
+    except ImportError:
+        return None
+    n = len(f)
+    x = cp.Variable(n)
+    constraints = [G @ x <= h, x >= lb, x <= ub]
+    for i in binary_idx:
+        # cvxpy declares Boolean variables at construction: each binary
+        # is a separate Boolean variable tied to x by an equality
+        bi = cp.Variable(boolean=True)
+        constraints.append(x[i] == bi)
+    prob = cp.Problem(
+        cp.Minimize(0.5 * cp.quad_form(x, H) + f @ x), constraints)
+    prob.solve()
+    return OracleResult(x.value, prob.value, prob.status)

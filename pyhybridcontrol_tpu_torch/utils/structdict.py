@@ -2,7 +2,9 @@
 
 Counterpart of ``pyhybridcontrol_tpu/utils/structdict.py`` without the
 pytree registration: PyTorch runs eagerly, so matrix bundles and results
-are ordinary dicts of tensors or numpy arrays.
+are ordinary dicts of tensors or numpy arrays. ``named_struct_dict``
+classes are therefore registered as nothing either; they keep their type
+name and field order through ``copy``, ``update_new`` and ``sub_struct``.
 """
 
 from __future__ import annotations
@@ -34,9 +36,41 @@ class StructDict(dict):
         items = ", ".join(f"{k}={_short(v)}" for k, v in sorted(self.items()))
         return f"{type(self).__name__}({items})"
 
+    def copy(self):
+        return type(self)(self)
+
+    def update_new(self, *args, **kwargs):
+        """Return a copy with the given updates applied (functional update)."""
+        out = self.copy()
+        out.update(*args, **kwargs)
+        return out
+
+    def sub_struct(self, keys):
+        """Return a StructDict of this type restricted to ``keys``."""
+        return type(self)({k: self[k] for k in keys})
+
 
 def _short(v):
     shape = getattr(v, "shape", None)
     if shape is not None:
         return f"{type(v).__name__}{tuple(shape)}"
     return repr(v)
+
+
+def named_struct_dict(name: str, *field_names):
+    """Create a named StructDict subclass with a default field order:
+    positional arguments map onto ``field_names`` in order, keywords are
+    added after them, and more positional arguments than fields raise
+    ``TypeError``. No pytree is registered (see the module docstring)."""
+    fields = tuple(field_names)
+
+    def __init__(self, *args, **kwargs):
+        if args and len(args) > len(fields):
+            raise TypeError(
+                f"{name} takes at most {len(fields)} positional args"
+            )
+        dict.__init__(self, zip(fields, args))
+        dict.update(self, kwargs)
+
+    return type(name, (StructDict,), {"__init__": __init__, "_fields": fields,
+                                      "__slots__": ()})

@@ -1146,8 +1146,8 @@ def test_admm_binding_mirrors_the_kernel_source():
     found = re.findall(r"\n\w[\w\s\*]*?\b(phc_(?!error)\w+)\(([^)]*)\)",
                        src)
     assert {name for name, _ in found} == {
-        "phc_admm_smem_bytes", "phc_admm_k1", "phc_admm_k2",
-        "phc_admm_max_clusters", "phc_cluster_sync_bench"}
+        "phc_admm_smem_bytes", "phc_admm_k1", "phc_admm_k1_1pass",
+        "phc_admm_k2", "phc_admm_max_clusters", "phc_cluster_sync_bench"}
     lib = types.SimpleNamespace(**{
         name: types.SimpleNamespace() for name, _ in found})
     _build._bind_admm(lib)
@@ -1161,8 +1161,9 @@ def test_admm_binding_mirrors_the_kernel_source():
             want.append(kinds[kind])
         assert getattr(lib, name).argtypes == want, name
     call = inspect.getsource(ca._launch)
-    args = re.search(r'getattr\(lib, "phc_" \+ name\)\((.*?)\)\n', call,
-                     re.S).group(1)
+    args = re.search(r'getattr\(lib, "phc_" \+ name'
+                     r'(?: \+ \(\"_1pass\" if one else ""\))?\)\((.*?)\)\n',
+                     call, re.S).group(1)
     assert len(re.findall(r"ctypes\.addressof\(a\)|pl\.\w+(?:\)|,)|"
                           r"ctypes\.c_void_p\(stream\)", args)) == \
         len(lib.phc_admm_k1.argtypes)

@@ -1,13 +1,18 @@
 """The plain version's own fp32 noise on config 4c's pooled wave, on
-config 6's stagewise wave, on the served config-2 request's wave, or on
-the decentralized micro-grid agents' wave (a development tool, not part
-of the package; runs on the CPU):
+config 6's stagewise wave, on the served config-2 request's wave, on the
+decentralized micro-grid agents' wave, on config 4b's pooled wave, or of
+the one-pass split phase (a development tool, not part of the package;
+runs on the CPU):
 
     python tools/plain_noise.py [--batch B] [--seed S]
     python tools/plain_noise.py --stagewise [--seed S]
     python tools/plain_noise.py --served [--seed S]
     python tools/plain_noise.py --decentralized [--seed S]
     python tools/plain_noise.py --strong-branching [--seed S]
+    python tools/plain_noise.py --config4b [--seed S]
+    python tools/plain_noise.py --paths [--seed S]
+    python tools/plain_noise.py --big-shapes [--seed S]
+    python tools/plain_noise.py --one-pass [--seed S]
 
 Builds config 4c's dense joint frame (the reference bench's tree: S=4,
 N=10, branching at steps 1 and 5), draws B seeded states and B&B-node
@@ -55,6 +60,31 @@ root relaxation), K1's plain version in float32 against float64: the
 field errors and the certificate bits that differ (``sb_fix`` fixes
 binaries from them) — what the "strong_branching" limits are read
 against.
+
+``--config4b``: config 4b's pooled wave as phase 9 of ``chip_smoke.py``
+draws it at ``--seed`` (``chip_smoke.real_problem`` after the config-2 and
+config-3 draws before it: 1024 nodes of the DEWH frame at N=24, 150 + 150
+iterations, the stiff probe prep, warm from a cold wave), K2's plain
+version in float32 against float64: the field errors of the relaxation and
+of the probe (on the instances that round alike), the instances that
+round a relaxed binary otherwise (with the farthest such binary from
+0.5), and the certificate bits that differ with the factor within which
+the farthest of them lies of its threshold (``chip_smoke.cert_factor``) —
+what FLIP_SHARE at B=1024 is read against. ``--paths``: the same at every
+path shape of phase 9 (``chip_smoke.PATH_SHAPES``: the config-2 call's
+wave, config 3's loop wave, config 4b's wave, the served config-2 wave),
+what their probes' limits and config 3's certificate band are read
+against. ``--big-shapes``: the same at phase 9's B=300
+shapes of the real frames (configs 3, 4b and 2; 100 + 100 iterations,
+cold), what the "real_probe" limits are read against.
+
+``--one-pass``: the problems of phase 34 of ``chip_smoke.py`` at
+``--seed`` (the double integrator at N=20 and N=27, B=4096, every one of
+100 iterations in the split phase): K1's plain version with one bf16 pass
+a product and with three, each against itself after a one-ulp change of q
+— the spread of the iterates the split phase's own rounding gives, what
+the "mixed_1pass" limits are read against (float64 has no bf16 passes to
+compare with).
 """
 
 from __future__ import annotations
@@ -323,6 +353,117 @@ def strong_branching_readings(seed=0):
                 (r32.infeas_cert != r64.infeas_cert).sum())}
 
 
+def _wave_readings(problem, iters, piters, warm_start):
+    """{stage: errors or count} of K2's plain version in float32 against
+    float64 on the wave of ``problem`` (``chip_smoke.real_problem``'s
+    tuple), warm from a cold wave or cold."""
+    import chip_smoke as cs
+
+    from pyhybridcontrol_tpu_torch.ops import admm as tadmm
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+
+    spec, spec_p, bidx, f, h, lb, ub = problem
+    kq, kq2 = ca.kernel_qp_for(spec), ca.kernel_qp_for(spec_p)
+    kw = dict(iters=iters, probe_iters=piters)
+    warm = None
+    if warm_start:
+        cold = ca.admm_wave_plain(kq, kq2, bidx, f, h, lb, ub, **kw)
+        warm = (cold[0].x, cold[0].z, cold[0].y)
+    r32 = ca.admm_wave_plain(kq, kq2, bidx, f, h, lb, ub, warm=warm, **kw)
+    r64 = ca.admm_wave_plain(_double(kq), _double(kq2), bidx, f.double(),
+                             h.double(), lb.double(), ub.double(),
+                             warm=None if warm is None
+                             else tuple(w.double() for w in warm), **kw)
+    b = torch.as_tensor(bidx)
+
+    def rounded(res):
+        return torch.round(torch.clamp(torch.clamp(
+            res.x[:, b].float(), lb[:, b], ub[:, b]), 0.0, 1.0))
+
+    differ = rounded(r32[0]) != rounded(r64[0])
+    same = ~differ.any(-1)
+    out = {"relaxation": _errors(r32[0], r64[0]),
+           "probe (instances rounding alike)": _errors(*(
+               tadmm.AdmmResult(**{k: None if v is None else v[same]
+                                   for k, v in vars(r).items()})
+               for r in (r32[1], r64[1]))),
+           "instances rounding a binary otherwise": float((~same).sum()),
+           "the farthest such binary from 0.5": float(
+               (r64[0].x[:, b][differ] - 0.5).abs().max()) if bool(
+                   differ.any()) else 0.0}
+    for i, stage in ((0, "relaxation"), (1, "probe")):
+        bits = r32[i].infeas_cert != r64[i].infeas_cert
+        out[f"{stage}: certificate bits that differ"] = float(bits.sum())
+        if bool(bits.any()):
+            factor = cs.cert_factor((kq, f, h, lb, ub), r32[i],
+                                    None if i == 0 else bidx)
+            out[f"{stage}: the farthest within this factor of its "
+                f"threshold"] = float(factor[bits].max())
+    return out
+
+
+def path_wave_readings(seed, only=None):
+    """``_wave_readings`` at phase 9's path shapes
+    (``chip_smoke.PATH_SHAPES``; ``only``: the one of that (name, B)),
+    drawn as the phase draws them."""
+    import chip_smoke as cs
+
+    cs.SEED = seed
+    rng = cs.phase_rng("streamed_paths")
+    out = {}
+    for shape in cs.PATH_SHAPES:
+        problem = cs.real_problem(shape[0], shape[1], "cpu", rng)
+        if only in (None, shape[:2]):
+            for k, v in _wave_readings(problem, shape[2], shape[3],
+                                       True).items():
+                out[f"{shape[0]} B={shape[1]}, {k}"] = v
+        if only == shape[:2]:
+            break
+    return out
+
+
+def big_shape_readings(seed, B=300):
+    """``_wave_readings`` at phase 9's B=300 shapes of the real frames with
+    certificate rules (configs 3, 4b, 2), drawn as the phase draws them."""
+    import chip_smoke as cs
+
+    cs.SEED = seed
+    rng = cs.phase_rng("streamed")
+    out = {}
+    for name, (n, m) in cs.BIG_SHAPES.items():
+        for b in cs.BIG_BATCHES:
+            problem = (cs.real_problem(name, b, "cpu", rng)
+                       if name in cs.REAL_CONFIGS
+                       else cs.random_problem(n, m, b, "cpu", rng))
+            if b == B and name in cs.CERT_FRAMES:
+                for k, v in _wave_readings(problem, 100, 100,
+                                           False).items():
+                    out[f"{name} B={B}, {k}"] = v
+    return out
+
+
+def one_pass_readings(seed=0):
+    """{stage: errors} of the split phase against itself after a one-ulp
+    change of q, one pass and three (see the module docstring)."""
+    import chip_smoke as cs
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+
+    cs.SEED = seed
+    rng = cs.phase_rng("mixed_schedule")
+    out = {}
+    for N in (20, 27):
+        _, _, spec, _, f, h, lb, ub = cs.problem(N, 4096, "cpu", rng)
+        kq = ca.kernel_qp_for(spec)
+        for passes in (1, 3):
+            a, b = (ca.admm_solve_plain(kq, q, h, lb, ub, iters=100,
+                                        low_frac=1.0, lo_passes=passes)
+                    for q in (f, f * (1 + 2.0 ** -23)))
+            out[f"N={N}, {passes} pass(es), one ulp of q"] = {
+                k: v for k, v in _errors(a, b).items() if k in ("obj", "x")}
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=300)
@@ -331,16 +472,24 @@ def main(argv=None):
     ap.add_argument("--served", action="store_true")
     ap.add_argument("--decentralized", action="store_true")
     ap.add_argument("--strong-branching", action="store_true")
+    ap.add_argument("--config4b", action="store_true")
+    ap.add_argument("--one-pass", action="store_true")
+    ap.add_argument("--paths", action="store_true")
+    ap.add_argument("--big-shapes", action="store_true")
     a = ap.parse_args(argv)
     torch.set_num_threads(4)
     got = (stagewise_readings(a.seed) if a.stagewise
            else served_readings(a.seed) if a.served
            else decentralized_readings(a.seed) if a.decentralized
            else strong_branching_readings(a.seed) if a.strong_branching
+           else path_wave_readings(a.seed, ("config4b", 1024)) if a.config4b
+           else path_wave_readings(a.seed) if a.paths
+           else big_shape_readings(a.seed) if a.big_shapes
+           else one_pass_readings(a.seed) if a.one_pass
            else readings(a.batch, a.seed))
     for stage, errs in got.items():
         if isinstance(errs, float):
-            print(f"{stage}: {errs:.3f}")
+            print(f"{stage}: {errs:.3g}")
         else:
             print(f"{stage}: " + " ".join(f"{k}={v:.2e}"
                                           for k, v in errs.items()))
