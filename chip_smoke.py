@@ -281,7 +281,30 @@ Run from the root of a checkout. It builds the kernels of
      the one-pass kernels' own outputs after one iteration
      ("mixed_iterates_1pass"), the objectives against a full-precision K1
      solve beside the bench's 1e-4 gate (a reading), each case timed
-     beside its bound.
+     beside its bound;
+ 35. K5's grouped and global-state variants (the FLEX instantiations the
+     plan takes where a group has more than 8 scenarios or a scenario's
+     state outgrows a CTA's shared memory), run with the kernel phases
+     (after 22): at each shape the two paths below run them at, a wave of
+     nodes, 20 iterations from the kernel's own relaxation against the
+     plain loop ("k5_flex", "k5_flex_wide" at the hull model's b=13), the
+     plan's variant checked, the double integrator also with every array
+     in device memory (global_all, forced); at config 6's long-arm wave the
+     grouped, global and global_all variants forced against the shared
+     one, a whole relaxation warm, bitwise; each variant timed alone, as a
+     wrapper and as the plain loop, at the held and the relaxation's
+     iterations, beside its bound and chain floor;
+ 36. long horizons and wide trees (after 21), two paths, with the plain
+     loop and sweeps made to raise: ``long_horizon``, one stagewise
+     ``MpcController.feedback`` of the double integrator at N=1000 (N·nv
+     3,000) and of the PWA hull model at N=300, each relaxation or probe
+     one launch of the global variant, the first input printed beside the
+     plan's fp64 feasibility (1e-3) where found; ``wide_tree``, config 6's
+     long arm at S=16, 27 and 64 scenarios through the stagewise tree MIQP
+     (probe prep at ρ·10; waves capped at 4), one launch of the grouped
+     variant a relaxation or probe, u₀'s spread over the scenarios below
+     5e-3, the plan feasible in fp64 with the budget row where found; the
+     found share of each path.
 
 Each phase prints its wall time, and the run its total. Launch counts are
 kept per path (PATHS): set to 0 just before each served request set, the
@@ -291,14 +314,17 @@ and the served stagewise requests, each ``run`` invocation, the
 checkpoint/resume study, each micro-grid run, the decentralized run and
 the examples, each path of the multi-device phase (summed over its
 ranks, each rank's counts set to 0 just before and read just after) and
-the mixed schedule's calls, and read just after it; launches made to compare a kernel with its
+the mixed schedule's calls, the long-horizon solves and the wide trees,
+and read just after it; launches made to compare a kernel with its
 plain version or with enumeration fall in none of them.
 A kernel's ``launches`` is its sum over these paths, ``launches_by_path``
 the counts apart, and ``on_main_path`` says whether a served request
 launched it. Every kernel launches on some path, but for the L2-streamed
-K1 (FORCED_ONLY), which must launch on none: no driven path gates a wave
-of a frame that no cluster holds. On one card every stagewise solve runs
-K5, K4's sweep inside it; K4 launches on its own on the stagewise tree
+K1 and K5 with every array in device memory (FORCED_ONLY), which must
+launch on none: no driven path gates a wave of a frame that no cluster
+holds, nor reaches a horizon past N≈3,300. On one card every stagewise
+solve runs K5 (config 6's paths its shared variant, the long horizons its
+global one, the wide trees its grouped one), K4's sweep inside it; K4 launches on its own on the stagewise tree
 over ranks (phase 33). The L2-streamed K2 launches on the 4-agent
 micro-grid only.
 
@@ -349,7 +375,13 @@ SOURCES = {"admm_k1": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
                "pyhybridcontrol_tpu_torch/csrc/admm_mixed.cu",
            "admm_k1_split_1pass": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
            "stagewise_k4": "pyhybridcontrol_tpu_torch/csrc/stagewise.cu",
-           "stagewise_k5": "pyhybridcontrol_tpu_torch/csrc/stagewise.cu"}
+           "stagewise_k5": "pyhybridcontrol_tpu_torch/csrc/stagewise.cu",
+           "stagewise_k5_grouped":
+               "pyhybridcontrol_tpu_torch/csrc/stagewise.cu",
+           "stagewise_k5_global":
+               "pyhybridcontrol_tpu_torch/csrc/stagewise.cu",
+           "stagewise_k5_global_all":
+               "pyhybridcontrol_tpu_torch/csrc/stagewise.cu"}
 REPLACES = {"admm_k1": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
             "admm_k2": "pyhybridcontrol_tpu/ops/pallas_admm.py:357",
             "admm_k1_mixed": "pyhybridcontrol_tpu/ops/pallas_admm.py:180",
@@ -366,7 +398,14 @@ REPLACES = {"admm_k1": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
             # sweep is the plain-XLA lax.scan pair of _solve_K, its
             # stagewise ADMM loop a plain-XLA fori_loop
             "stagewise_k4": "pyhybridcontrol_tpu/ops/stagewise.py:586",
-            "stagewise_k5": "pyhybridcontrol_tpu/ops/stagewise.py:1011"}
+            "stagewise_k5": "pyhybridcontrol_tpu/ops/stagewise.py:1011",
+            # K5's FLEX variants: the same loop at the shapes the shared
+            # variant cannot hold (more than 8 scenarios a group, a
+            # scenario's state past a CTA's shared memory)
+            "stagewise_k5_grouped": "pyhybridcontrol_tpu/ops/stagewise.py:1011",
+            "stagewise_k5_global": "pyhybridcontrol_tpu/ops/stagewise.py:1011",
+            "stagewise_k5_global_all":
+                "pyhybridcontrol_tpu/ops/stagewise.py:1011"}
 # K1 with the constants streamed from L2 in every iteration: the plan
 # takes it only where a cluster cannot hold the constants (the 4-agent
 # micro-grid's K2 waves do; no driven path gates a wave there),
@@ -374,7 +413,9 @@ REPLACES = {"admm_k1": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
 # against it; it must launch on no path. (K4, the standalone sweep, runs
 # inside K5 on one card and on its own under a scenario mesh: the
 # stagewise tree over ranks launches it once an iteration.)
-FORCED_ONLY = ("admm_k1_streamed",)
+# K5 with every scenario array in device memory takes horizons from about
+# N=3,300 (b=5) on, which no path drives: phase 35 forces it.
+FORCED_ONLY = ("admm_k1_streamed", "stagewise_k5_global_all")
 # the driven paths, in order; SERVED are the served requests
 SERVED = ("serve_config1", "serve_batch_request", "config2_serve",
           "serve_stagewise")
@@ -392,7 +433,7 @@ PATHS = SERVED + ("pooled_bench_spec", "pooled_carried_incumbents",
                   "microgrid_M4", "decentralized", "examples",
                   "md_config5_pool", "md_di_pool", "md_feedback_batch",
                   "md_condense", "md_consensus_tree", "md_stagewise_tree",
-                  "md_nccl", "mixed_schedule")
+                  "md_nccl", "mixed_schedule", "long_horizon", "wide_tree")
 # peak rates of one H100 SXM at 700 W (NVIDIA data sheet): fp32 outside
 # the tensor cores, dense bf16 in them, HBM3
 PEAK = dict(fp32=67e12, bf16=989e12, hbm=3.35e12)
@@ -498,6 +539,22 @@ LIMITS = {
     # at the infeasible wave, whose y grows every iteration (dy = y⁺ − y
     # carries y's rounding): x 1.55e-5, z 3.98e-5, y 1.72e-4, dy 1.83
     "k5_infeasible": dict(x=4.7e-5, z=1.2e-4, y=5.2e-4, dy=5.5),
+    # K5's grouped and global-state variants against the plain loop (phase
+    # 35): 20 iterations from the kernel's own relaxation at the
+    # long_horizon and wide_tree paths' shapes (b=5: the double integrator
+    # at N=1000, config 6's tree at S=16, 27, 64; "k5_flex_wide": the hull
+    # model, b=13, N=300); 3x the largest reading of seeds 0-7 on an H100
+    # 80GB HBM3 at 700 W (tools/k4_readings.py --flex): x 1.43e-6, z
+    # 2.74e-6, y 9.54e-6, dy 1.53e-2, z_e 9.52e-6 / x 5.36e-6, z 1.06e-5,
+    # y 3.34e-5, dy 8.76e-3, where the plain loop's own float32 against
+    # float64, or against itself after a one-ulp change of q, reads up to x
+    # 2.1e-6 / 3.2e-6, z 4.7e-6 / 7.9e-6, y 9.5e-6 / 2.5e-5, dy 1.5e-2 /
+    # 7.5e-3, z_e 2.6e-5 (tools/plain_noise.py --flex, seeds 0-7, CPU).
+    # y_e and dy_e read 0 (the budget row does not bind there): "k5"'s
+    # limits
+    "k5_flex": dict(x=4.3e-6, z=8.2e-6, y=2.9e-5, dy=4.6e-2, z_e=2.9e-5,
+                    y_e=3.5e-5, dy_e=3.8e-2),
+    "k5_flex_wide": dict(x=1.6e-5, z=3.2e-5, y=1e-4, dy=2.6e-2),
     # K2 at the surfaces' waves (phase 23), relaxation and probe, 3x the
     # largest reading of seeds 0-7 on an H100 (tools/surface_readings.py):
     # the micro-grid coordinator's aggregate frames (3 and 4 agents, N=24;
@@ -624,7 +681,8 @@ KERNEL_FUNCTIONS = (("admm", "phc_admm_k1"), ("admm", "phc_admm_k1_1pass"),
                     ("admm_mixed", "phc_admm_k1_mixed"),
                     ("admm_mixed", "phc_admm_k1_mixed_1pass"),
                     ("stagewise", "phc_sw_solve_k"),
-                    ("stagewise", "phc_sw_admm"))
+                    ("stagewise", "phc_sw_admm"),
+                    ("stagewise", "phc_sw_admm_flex"))
 
 
 def kernel_ms(fn, reps=5):
@@ -4761,15 +4819,16 @@ def stagewise_value(sw, q, model, x0, V):
                  + (q.double() * xi).sum())
 
 
-def only_k5(path, multiple, solves):
-    """Every launch on ``path`` was K5's, one a relaxation or probe (of
-    ``solves``), each at a P that is a multiple of ``multiple``."""
+def only_k5(path, multiple, solves, kernel="stagewise_k5"):
+    """Every launch on ``path`` was K5's in the variant ``kernel`` (the
+    shared one by default), one a relaxation or probe (of ``solves``), each
+    at a P that is a multiple of ``multiple``."""
     got = PATH_LAUNCHES[path]
-    check(got["stagewise_k5"] == solves > 0 and all(
-        v == 0 for k, v in got.items() if k != "stagewise_k5"),
-        f"{path}: K5 once a relaxation or probe ({solves}) and nothing "
-        f"else must launch, launches {got}")
-    sizes = PATH_BATCHES[path]["stagewise_k5"]
+    check(got[kernel] == solves > 0 and all(
+        v == 0 for k, v in got.items() if k != kernel),
+        f"{path}: K5 ({kernel}) once a relaxation or probe ({solves}) and "
+        f"nothing else must launch, launches {got}")
+    sizes = PATH_BATCHES[path][kernel]
     check(all(P % multiple == 0 for P in sizes),
           f"{path}: K5 launched at P = {sorted(sizes)}, not multiples of "
           f"{multiple}")
@@ -4993,6 +5052,367 @@ def phase_config6(dev):
     check(bool(got.found) and bool(ref.found) and rel <= 1e-3 and du <= 3e-2,
           "stagewise transforms: the card's solve is off the CPU's")
     out["transforms"] = dict(ms=ms, obj=float(got.obj), cpu_obj=float(ref.obj))
+    return out
+
+
+# ---- K5 at every stagewise shape: the grouped and global-state variants
+# (phases 35-36, paths long_horizon and wide_tree) -------------------------
+
+# K5's variants by the name each launch counts under (cuda_stagewise's
+# ADMM_LAUNCH): the shared one of config 6's paths, then the FLEX ones
+K5_FAMILY = ("stagewise_k5", "stagewise_k5_grouped", "stagewise_k5_global",
+             "stagewise_k5_global_all")
+# long_horizon: the double integrator at N=1000 (N·nv = 3000, past the
+# reference's "N·nv in the thousands") and the PWA hull model at N=300, each
+# one stagewise feedback from X0_LONG with a bounded search
+LONG_DI_N, LONG_HULL_N = 1000, 300
+X0_LONG = {"di": (2.0, 0.0), "hull": (1.0, 0.0)}
+LONG_SPEC = dict(capacity=64, wave_size=8, max_waves=8, qp_iters=300,
+                 probe_iters=1000)
+# wide_tree: config 6's long arm (N=120, Σu ≤ 60, tree-consistent paths of
+# sd 0.2) with more scenarios: (S, branch steps); 27 = 3³ leaves a group
+# that does not divide over the CTAs; waves capped as the split trees were
+WIDE_TREES = ((16, (1, 30, 60, 90)), (27, (1, 40, 80)),
+              (64, (1, 20, 40, 60, 80, 100)))
+WIDE_SPEC = dict(CFG6_SPEC, max_waves=4)
+U0_SPREAD = 5e-3          # u₀ over the scenarios (tests/test_stagewise_tree.py)
+# the kernel against its plain version: 20 iterations from the kernel's
+# own relaxation (the plain loop on the card costs ~10 ms an iteration at
+# N=120), timed at the whole relaxation's count too
+FLEX_HOLD_ITERS = 20
+
+
+def wide_tree(S, steps):
+    """Config 6's tree with S scenarios branching at ``steps`` (factor
+    S^(1/len(steps))), tree-consistent paths of sd 0.2 from
+    default_rng(S)."""
+    import numpy as np
+
+    from pyhybridcontrol_tpu_torch.ops.scenario_tree import (
+        ScenarioTree, tree_consistent_paths)
+
+    rng = np.random.default_rng(S)
+    return ScenarioTree.from_branching(
+        tree_consistent_paths(rng, S, CFG6_N, steps, sd=0.2),
+        branch_steps=steps)
+
+
+def long_controller(key, dev):
+    """The stagewise controller of a long_horizon solve: the double
+    integrator at LONG_DI_N or the PWA hull model (on/off actuator, as
+    config 2) at LONG_HULL_N, with LONG_SPEC."""
+    from pyhybridcontrol_tpu_torch.control.mpc import MpcController
+    from pyhybridcontrol_tpu_torch.models import (
+        di_default_weights, switched_double_integrator)
+    from pyhybridcontrol_tpu_torch.models.pwa_examples import (
+        pwa_spring_mld, pwa_weights)
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    if key == "di":
+        model, N, w = switched_double_integrator(), LONG_DI_N, \
+            di_default_weights()
+    else:
+        model, N, w = pwa_spring_mld(on_off=True, formulation="hull"), \
+            LONG_HULL_N, pwa_weights()
+    return MpcController(model, N, w, solver="stagewise",
+                         bnb_spec=BnbSpec(**LONG_SPEC), device=dev).build()
+
+
+def flex_waves(dev, rng):
+    """(tag, key, backend, f, h, lb, ub, variant) of a wave of nodes at
+    each shape the FLEX variants run on a path: the long_horizon
+    controllers' frames (LONG_SPEC's wave) and the wide trees' (WIDE_SPEC's
+    wave × S), K4_HOLD_FIX of the branching coordinates fixed at random;
+    ``variant`` the one the plan picks."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops.stagewise import (
+        assemble_stagewise, assemble_stagewise_ext)
+    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+        assemble_stagewise_tree_ext)
+    from pyhybridcontrol_tpu_torch.solver.bnb_stagewise import (
+        StagewiseBackend, pack_stagewise_data)
+
+    out = []
+    for key in ("di", "hull"):
+        c = long_controller(key, dev)
+        xt = torch.tensor(X0_LONG[key], device=dev)
+        eu = assemble_stagewise_ext(c._sw, xt) if c._sw.n_ext else None
+        be = StagewiseBackend(c._sw, ext_u=eu)
+        f, h = pack_stagewise_data(*assemble_stagewise(c._sw, xt))
+        out.append((f"{key} N={c._sw.N}", key, be,
+                    *wave_boxes(be, f, h, LONG_SPEC["wave_size"], rng,
+                                K4_HOLD_FIX), "stagewise_k5_global"))
+    x0 = torch.tensor(X0_6, device=dev)
+    for S, steps in WIDE_TREES:
+        swt = config6_preps(dev, wide_tree(S, steps), config6_extra(CFG6_N))[0]
+        eu = assemble_stagewise_tree_ext(swt, x0)
+        out.append((f"config 6's tree at S={S}", f"tree{S}",
+                    *node_wave(swt, eu, rng, WIDE_SPEC["wave_size"],
+                               K4_HOLD_FIX), "stagewise_k5_grouped"))
+    return out
+
+
+def with_warm(args, out, iters):
+    """``sw_admm_cuda``'s arguments ``args`` warm from the carries ``out``
+    (those it returned), for ``iters`` iterations."""
+    a = list(args)
+    a[4:9] = (out[0], out[1], out[2], out[4], out[5])
+    a[10] = iters
+    return tuple(a)
+
+
+def phase_k5_flex(dev, rng, recs):
+    """K5's FLEX variants against the plain loop (``_admm_iterations``, the
+    plain sweeps, on the card) at every shape a path runs them at
+    (``flex_waves``): FLEX_HOLD_ITERS iterations from the kernel's own
+    relaxation (K5_RELAX iterations, cold), within "k5" ("k5_wide" at the
+    hull model's b=13); the plan's variant must be the one named; at the
+    double integrator also global_all forced. At config 6's long-arm wave
+    the grouped, global and global_all variants forced against the shared
+    one (the plan's there), a whole relaxation warm: x, z, y, dy and the
+    extra rows' carries bitwise equal (each row's update is the same
+    thread's in the same order; the group mean skips zero weights). Times
+    of each variant alone, of its wrapper and of the plain loop (held
+    iterations), the kernel also at K5_RELAX iterations, the bound and the
+    chain floor."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
+    from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
+    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+        assemble_stagewise_tree_ext)
+
+    names = ("x", "z", "y", "dy", "z_e", "y_e", "dy_e")
+    print("K5's grouped and global-state variants vs the plain loop:",
+          flush=True)
+
+    def plan_of(args, variant=None):
+        sw, M = args[0], args[11]
+        P = args[1].numel() // (sw.N * sw.b)
+        mean = M is not None and sw.n_cons > 0
+        return P, cs.plan_admm(P, sw.N, sw.b, sw.m_k,
+                               M.shape[0] if mean else 1, sw.n_blk,
+                               sw.n_ext, sw.n_cons, mean, variant=variant)
+
+    def err_into(rec, got, ref):
+        rec["max_abs_err"] = max(
+            [rec.get("max_abs_err", 0.0)]
+            + [float((g - r).abs().max()) for g, r in zip(got, ref)
+               if g is not None])
+
+    for tag, key, be, fb, hb, lb, ub, kernel in flex_waves(dev, rng):
+        with k5_calls() as calls:
+            be.solve(fb, hb, lb, ub, K5_RELAX)
+        args = calls[0]
+        P, pl = plan_of(args)
+        sw = args[0]
+        check(cs.ADMM_LAUNCH[pl.variant] == kernel,
+              f"{tag}: the plan is {pl}, not {kernel}")
+        out = cs.sw_admm_cuda(*args)
+        held_args = with_warm(args, out, FLEX_HOLD_ITERS)
+        ref = tsw._admm_iterations(*held_args)
+        rec = recs[kernel]
+        variants = (None, "global_all") if key == "di" else (None,)
+        for variant in variants:
+            pv = plan_of(args, variant)[1]
+            got = cs.sw_admm_cuda(*held_args, variant=variant)
+            held_at = [v for k, v in sw.cache.items()
+                       if k[0] == "k5_clusters" and k[1] == pv]
+            held(f"{tag}, P={P} m={sw.m_k} ({FLEX_HOLD_ITERS} it warm); "
+                 f"{pv.variant}, bmax {pv.bmax}, "
+                 f"{'staged' if pv.staged else 'factors through L2'}, "
+                 f"{32 * pv.warps} threads and {pv.smem} bytes a CTA, "
+                 f"{pv.spc} scenario(s) a CTA, clusters of {pv.cluster}"
+                 + (f" ({held_at[0]} at once on the card)" if held_at
+                    else ""),
+                 "k5_flex_wide" if sw.b > 8 else "k5_flex",
+                 {k: (g, r) for k, g, r in zip(names, got, ref)
+                  if g is not None})
+            err_into(recs[cs.ADMM_LAUNCH[pv.variant]], got, ref)
+        if not TIMINGS:
+            continue
+        pre = "" if key in ("di", "tree64") else key + "_"
+        plain_ms = None            # the shape's plain loop, timed once
+        for variant in variants:
+            r = recs[cs.ADMM_LAUNCH[variant or pl.variant]]
+
+            def wrapper():
+                return cs.sw_admm_cuda(*held_args, variant=variant)
+
+            if plain_ms is None:
+                by = timed(r, pre, wrapper,
+                           lambda: tsw._admm_iterations(*held_args),
+                           k5_work(held_args))
+                plain_ms = r[pre + "plain_ms"]
+            else:
+                r[pre + "ms"] = cuda_ms(wrapper)
+                r[pre + "kernel_ms"] = kernel_ms(wrapper)
+                r[pre + "plain_ms"] = plain_ms
+                r[pre + "bound_ms"], by = bound(*k5_work(held_args))
+                print(f"  {variant}: wrapper {r[pre + 'ms']:.3f} ms, kernel "
+                      f"alone {r[pre + 'kernel_ms']:.3f} ms (the plain loop "
+                      f"and the bound as above)", flush=True)
+            r[pre + "relax_kernel_ms"] = kernel_ms(
+                lambda: cs.sw_admm_cuda(*args, variant=variant))
+            r[pre + "relax_bound_ms"] = bound(*k5_work(args))[0]
+            r[pre + "chain_ms"] = K5_RELAX * k4_chain_ms(sw.N, sw.b)
+            if not pre:
+                r["bound_by"] = by
+                r["library_ms"] = None   # no PyTorch call runs an ADMM loop
+            print(f"  {variant or pl.variant}: the relaxation "
+                  f"({K5_RELAX} it) alone {r[pre + 'relax_kernel_ms']:.3f} "
+                  f"ms, bound {r[pre + 'relax_bound_ms']:.4f} ms, chain "
+                  f"floor {r[pre + 'chain_ms']:.3f} ms", flush=True)
+
+    # the forced variants at config 6's long-arm wave against the shared one
+    tree_l = config6_trees()[1]
+    swt, _ = config6_preps(dev, tree_l, config6_extra(CFG6_N))
+    eu = assemble_stagewise_tree_ext(swt, torch.tensor(X0_6, device=dev))
+    be, fb, hb, lb, ub = node_wave(swt, eu, rng, CFG6_SPEC["wave_size"],
+                                   K4_HOLD_FIX)
+    with k5_calls() as calls:
+        r0 = be.solve(fb, hb, lb, ub, K5_RELAX)
+        be.solve(fb, hb, lb, ub, K5_RELAX, warm=(r0.x, r0.z, r0.y))
+    args = calls[1]
+    P, pl = plan_of(args)
+    check(pl.variant == "shared", f"config 6's long arm left the shared "
+          f"variant: {pl}")
+    want = cs.sw_admm_cuda(*args)
+    for variant in ("grouped", "global", "global_all"):
+        pv = plan_of(args, variant)[1]
+        got = cs.sw_admm_cuda(*args, variant=variant)
+        same = [k for k, g, w in zip(names, got, want)
+                if g is not None and torch.equal(g, w)]
+        print(f"  config 6 long arm, P={P}, relaxation warm ({K5_RELAX} "
+              f"it): {variant} ({32 * pv.warps} threads, {pv.smem} bytes "
+              f"a CTA, clusters of {pv.cluster}) bitwise the shared "
+              f"variant's on {same}", flush=True)
+        check(len(same) == sum(g is not None for g in got),
+              f"config 6 long arm: the {variant} variant differs from the "
+              f"shared one")
+        BITWISE[0] += 1
+        if TIMINGS:
+            r = recs[cs.ADMM_LAUNCH[variant]]
+            r["cfg6_forced_kernel_ms"] = kernel_ms(
+                lambda: cs.sw_admm_cuda(*args, variant=variant))
+            print(f"    alone {r['cfg6_forced_kernel_ms']:.3f} ms, the "
+                  f"shared variant {kernel_ms(lambda: cs.sw_admm_cuda(*args)):.3f} "
+                  f"ms", flush=True)
+
+
+def sw_plan_feasible(tag, model, x0, xi, tol=FEAS_TOL):
+    """A single-scenario stagewise plan xi (N, b) in fp64
+    (``plan6_feasible`` with one scenario and no disturbance)."""
+    import numpy as np
+
+    N = xi.shape[0]
+    one = types.SimpleNamespace(
+        S=1, N=N, omega_paths=np.zeros((1, N, model.info.nomega)),
+        groups=np.zeros((1, N), dtype=int))
+    plan6_feasible(tag, model, one, x0, np.asarray(xi)[None], tol=tol)
+
+
+def phase_wide_paths(dev):
+    """The paths of K5's FLEX variants, through the entry points a user
+    calls, with the plain loop and sweeps made to raise. long_horizon:
+    ``MpcController(..., solver="stagewise").feedback(x0)`` for the double
+    integrator at N=1000 and the PWA hull model at N=300 (LONG_SPEC), one
+    K5 launch (global) a relaxation or probe; the first input beside the
+    plan's fp64 feasibility. wide_tree: config 6's long arm at S = 16, 27
+    and 64 (WIDE_TREES) through the stagewise tree MIQP with its probe
+    prep at ρ·10 (as phase 21), one K5 launch (grouped) a relaxation or
+    probe, at P a multiple of S; u₀'s spread over the scenarios within
+    U0_SPREAD, the plan feasible in fp64 with the budget row. Each solve
+    prints its found share, nodes, waves and wall time."""
+    import numpy as np
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+        assemble_stagewise_tree, assemble_stagewise_tree_ext,
+        solve_tree_miqp_stagewise)
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    out = {}
+    ctrls = {k: long_controller(k, dev) for k in ("di", "hull")}
+
+    def long_solves():
+        res = {}
+        for k, c in ctrls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = c.feedback(list(X0_LONG[k]))
+            torch.cuda.synchronize()
+            res[k] = (r, time.perf_counter() - t0)
+        return res
+
+    with no_plain_sweep(), solve_calls() as n_long:
+        res, _ = drive("long_horizon", long_solves)
+    only_k5("long_horizon", 1, n_long[0], kernel="stagewise_k5_global")
+    found = 0
+    for k, (r, sec) in res.items():
+        c = ctrls[k]
+        found += bool(r.found)
+        print(f"long_horizon, {k} N={c.N} (b={c._sw.b}, m={c._sw.m_k}, "
+              f"N·nv={c.N * c.model.info.nv}): {sec:.2f} s, found "
+              f"{bool(r.found)}, {int(r.nodes)} nodes, obj "
+              f"{float(r.obj):.6f}, u0 {r.u.cpu().numpy().tolist()}",
+              flush=True)
+        if r.found:
+            xi = torch.cat([r.v_seq, r.x_seq], dim=1).double().cpu()
+            sw_plan_feasible(f"long_horizon {k} plan", c.model, X0_LONG[k],
+                             xi.numpy())
+        out[k] = dict(N=c.N, s=sec, found=bool(r.found),
+                      obj=float(r.obj), nodes=int(r.nodes))
+    print(f"long_horizon: found share {found / len(res):.2f}", flush=True)
+
+    x0 = torch.tensor(X0_6, device=dev)
+    model = omega_model()
+    trees = []
+    for S, steps in WIDE_TREES:
+        tree = wide_tree(S, steps)
+        swt, swtp = config6_preps(dev, tree, config6_extra(CFG6_N))
+        trees.append((S, tree, swt, swtp, assemble_stagewise_tree(swt, x0),
+                      assemble_stagewise_tree_ext(swt, x0)))
+
+    def tree_solves():
+        res = {}
+        for S, tree, swt, swtp, data, eu in trees:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = solve_tree_miqp_stagewise(swt, *data, BnbSpec(**WIDE_SPEC),
+                                          swt_probe=swtp, ext_u=eu)
+            torch.cuda.synchronize()
+            res[S] = (r, time.perf_counter() - t0)
+        return res
+
+    with no_plain_sweep(), solve_calls() as n_tree:
+        res, _ = drive("wide_tree", tree_solves)
+    only_k5("wide_tree", 1, n_tree[0], kernel="stagewise_k5_grouped")
+    sizes = PATH_BATCHES["wide_tree"]["stagewise_k5_grouped"]
+    check(all(any(P % S == 0 and P // S <= WIDE_SPEC["wave_size"]
+                  for S, *_ in WIDE_TREES) for P in sizes),
+          f"wide_tree: K5 launched at P = {sorted(sizes)}")
+    found = 0
+    for S, tree, swt, *_ in trees:
+        r, sec = res[S]
+        found += bool(r.found)
+        xi = r.x.reshape(S, CFG6_N, swt.sw.b)
+        u0 = xi[:, 0, 0]
+        spread = float(u0.max() - u0.min())
+        print(f"wide_tree S={S}: {sec:.2f} s, found {bool(r.found)}, "
+              f"{int(r.nodes_solved)} nodes, {r.waves} waves, obj "
+              f"{float(r.obj):.6f}, u0 {float(u0.mean()):.6f}, spread over "
+              f"the scenarios {spread:.2e} (limit {U0_SPREAD:g})", flush=True)
+        check(spread < U0_SPREAD, f"wide_tree S={S}: u0 differs over the "
+              f"scenarios by {spread:.3e}")
+        if r.found:
+            plan6_feasible(f"wide_tree S={S} plan", model, tree, X0_6,
+                           xi.cpu(), budget=CFG6_BUDGET)
+        out[f"tree{S}"] = dict(S=S, s=sec, found=bool(r.found),
+                               obj=float(r.obj), waves=r.waves,
+                               nodes=int(r.nodes_solved), u0_spread=spread)
+    print(f"wide_tree: found share {found / len(trees):.2f}", flush=True)
     return out
 
 
@@ -6017,6 +6437,7 @@ def main(argv=None):
                          recs["admm_k1_split"])
     phase("K4", phase_k4, dev, phase_rng("k4"), recs["stagewise_k4"])
     phase("K5", phase_k5, dev, phase_rng("k5"), recs["stagewise_k5"])
+    phase("K5 variants", phase_k5_flex, dev, phase_rng("k5_flex"), recs)
     phase("K2 at the surfaces' waves", phase_surface_shapes, dev,
           phase_rng("surface_shapes"), recs)
     phase("K1 at the strong-branching batch", phase_sb_batch, dev,
@@ -6060,6 +6481,8 @@ def main(argv=None):
                                    dev, recs)
     phase("tree hold", phase_tree_hold, dev)
     calls["config6"] = phase("config 6", phase_config6, dev)
+    calls["wide"] = phase("long horizons and wide trees", phase_wide_paths,
+                          dev)
     calls["run"] = phase("run CLI", phase_run_cli, dev)
     calls["micro_grid"] = phase("micro-grid", phase_micro_grid, dev)
     calls["decentralized"] = phase("decentralized micro-grid",

@@ -112,6 +112,16 @@
 //    computing the same update from the same sums in the same order.
 //  - J and Mc are staged with rows padded to BMAX words and read as
 //    16-byte broadcasts.
+//  - That is the shared variant, and it needs a scenario's state in one
+//    CTA's shared memory (N ≲ 700 at b=5, 240 at b=13) and a group in one
+//    portable cluster (S ≤ 8). Past either, the same kernel runs in its
+//    FLEX instantiations (below the layout): a group of up to 16
+//    scenarios one non-portable cluster, above 16 several scenarios a CTA
+//    (each on its own share of the CTA's warps, their sweeps side by side
+//    as K4 runs one problem a warp); and the state in device memory in the
+//    same layout, so that a warp's stages coalesce. The bound stays the
+//    chain; the state's loads move off chip, the factors come through L2
+//    once they no longer fit beside it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -126,6 +136,7 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxWarps = 4;
 constexpr int kRMax = 4;          // extra (horizon-coupled) rows K5 takes
+constexpr int kMaxCluster = 16;   // CTAs a K5 cluster (non-portable above 8)
 // the most threads a K5 CTA has: 512 at BMAX 8, 256 at 16 (the per-stage
 // register arrays double)
 constexpr int admm_max_threads(int bmax) { return bmax <= 8 ? 512 : 256; }
@@ -603,93 +614,217 @@ __device__ inline void group_sum(float (&v)[BMAX], int tps) {
     for (int c = 0; c < BMAX; ++c) v[c] += __shfl_xor_sync(kFull, v[c], o);
 }
 
-template <int BMAX, int B0, bool STAGED>
+// ---- K5's grouped and global-state variants (FLEX) ----
+//
+// Where a node's S scenarios are more than a portable cluster holds, or a
+// scenario's state outgrows a CTA's shared memory, the same iteration runs
+// with a placement chosen at launch (AdmmFlex):
+//  - spc scenarios a CTA, a group one cluster of C ≤ 16 CTAs (above 8 a
+//    non-portable size), C·spc ≥ S: scenario s of a group in CTA s / spc,
+//    slot s mod spc; the slots past S (a group that does not divide evenly)
+//    pass the barriers and compute nothing. The CTA's warps are dealt to
+//    the slots in turn (warp w to slot w mod spc), so that the slots'
+//    sweep warps (their first) are warps 0 … spc−1, one a scheduler; each
+//    slot is, to its threads, the whole CTA of the shared variant.
+//  - place 0: every scenario array in shared memory, one slot after the
+//    other behind the constants; place 1: z, y, l and u in device memory
+//    (the wrapper's scratch, by row then stage as in shared memory, so that
+//    a warp's 32 stages read 128 contiguous bytes; only their owner thread
+//    reads or writes them, so no barrier is added); place 2: also t, mb, x,
+//    the consensus buffers, and the horizon-sized constants (ties, Aext,
+//    KiU) read where they lie. Words of scratch a problem: flex_layout.
+//  - the group mean's weights are read from device memory (a slot's row
+//    of S·N words would not fit beside its state), zero weights skipped;
+//    a peer scenario's buffer is read over DSMEM (place < 2) or from the
+//    scratch through L2 (place 2, after a fence). The sum over the S
+//    scenarios runs in scenario order, as the shared variant's does, so a
+//    launch is deterministic.
+struct AdmmFlex {
+  int spc;          // scenarios a CTA
+  int cluster;      // CTAs a group (1 without a group mean)
+  int place;        // 0, 1 or 2 (above)
+  float* scratch;   // device memory, gwords words a problem (place ≥ 1)
+};
+
+// word offsets of a FLEX CTA's shared memory (the constants, then spc
+// slots of `slot` words) and of a problem's scratch: z … cb in the slot or
+// in the scratch by place, corr and red always in the slot
+struct FlexLayout {
+  size_t L, U, C, J, Mc, tie, blk, Aext, KiU, Cw, rho_e, slots, slot, z, y,
+      l, u, t, mb, xb, cb, corr, red, gwords, total;
+};
+
+__host__ __device__ inline FlexLayout flex_layout(int N, int b, int m,
+                                                  int n_blk, int r,
+                                                  int n_cons, int mean,
+                                                  int warps_slot, int staged,
+                                                  int bmax, int spc,
+                                                  int place) {
+  FlexLayout a;
+  size_t o = 0;
+  const size_t f = staged ? pad4((size_t)N * b * b) : 0;
+  const bool hz = place < 2;                    // horizon constants staged
+  a.L = o; o += f;
+  a.U = o; o += f;
+  a.C = o; o += f;
+  a.J = o; o += pad4((size_t)m * bmax);
+  a.Mc = o; o += pad4((size_t)m * bmax);
+  a.tie = o; o += hz ? pad4((size_t)N * n_blk) : 0;
+  a.blk = o; o += pad4(n_blk);
+  a.Aext = o; o += hz ? pad4((size_t)r * N * b) : 0;
+  a.KiU = o; o += hz ? pad4((size_t)N * b * r) : 0;
+  a.Cw = o; o += pad4((size_t)r * r);
+  a.rho_e = o; o += pad4(r);
+  a.slots = o;
+  const size_t zn = pad4((size_t)m * N), tn = pad4((size_t)N * b);
+  const size_t cn = mean ? 2 * pad4((size_t)N * n_cons) : 0;
+  size_t sl = 0, g = 0;
+  size_t& zo = place >= 1 ? g : sl;             // z, y, l, u
+  size_t& to = place >= 2 ? g : sl;             // t, mb, x, cb
+  a.z = zo; zo += zn;
+  a.y = zo; zo += zn;
+  a.l = zo; zo += zn;
+  a.u = zo; zo += zn;
+  a.t = to; to += tn;
+  a.mb = to; to += tn;
+  a.xb = to; to += tn;
+  a.cb = to; to += cn;
+  a.corr = sl; sl += kRMax;
+  a.red = sl; sl += (size_t)kRMax * warps_slot;
+  a.slot = sl;
+  a.gwords = g;
+  a.total = o + (size_t)spc * sl;
+  return a;
+}
+
+template <int BMAX, int B0, bool STAGED, bool FLEX>
 __global__ void __launch_bounds__(BMAX <= 8 ? 512 : 256)
-sw_admm_kernel(const PhcSwAdmmArgs a, int tps) {
+sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
   extern __shared__ __align__(16) float smem[];
   const int N = a.N, b = a.b, m = a.m, S = a.S, r = a.n_ext;
   const int nb = a.n_blk, nc = a.n_cons;
   const int mc = a.mean ? m - nc : m;           // first group-mean row
-  const int tid = threadIdx.x, T = blockDim.x, W = T >> 5;
+  // the CTA's threads (tc of TC) and, with FLEX, its slot j: the slot's
+  // threads are to it what a CTA's are to the shared variant (tid of T)
+  const int spc = FLEX ? fx.spc : 1;
+  const int tc = threadIdx.x, TC = blockDim.x;
+  const int j = FLEX ? (tc >> 5) % spc : 0;
+  const int tid = FLEX ? ((tc >> 5) / spc) * 32 + (tc & 31) : tc;
+  const int T = TC / spc, W = T >> 5;
   const int warp = tid >> 5, lane = tid & 31;
   const int G = T / tps;                        // stages a round
   const int g = tid / tps, jl = tid - g * tps;  // group, lane in the group
   constexpr int NB = B0 ? B0 : BMAX;            // columns a row's products
-  const AdmmLayout lay = admm_layout(N, b, m, S, nb, r, nc, a.mean, W,
-                                     STAGED, BMAX);
-  const size_t p = blockIdx.x;                  // this CTA's problem
-  const int s = a.mean ? (int)(p % S) : 0;      // its scenario in the group
+  // this slot's problem p, its scenario s in the group; with FLEX a group
+  // is a cluster of fx.cluster CTAs, spc scenarios each
+  const int C = FLEX && a.mean ? fx.cluster : 1;
+  const size_t grp = FLEX ? blockIdx.x / C : 0;
+  const int crank = FLEX ? (int)(blockIdx.x - grp * C) : 0;
+  const int s = FLEX ? crank * spc + j
+                     : (a.mean ? (int)(blockIdx.x % S) : 0);
+  const bool live = !FLEX || s < S;             // slots past S idle
+  const size_t p = FLEX ? grp * S + s : blockIdx.x;
+
+  // ---- where every array lies ----
+  size_t oL, oU, oC, oJ, oMc, otie, oblk, oAext, oKiU, oCw, orho;
+  float *zs, *ysc, *ls, *us, *tb, *mb, *xb, *cb0, *corr, *red;
+  const float* gM;                              // gM[s, t, k] at [t·N + k]
+  size_t fslots = 0, fslot = 0, fcb = 0, fgw = 0;
+  bool hz = true;                               // horizon constants staged
+  if constexpr (FLEX) {
+    const FlexLayout f = flex_layout(N, b, m, nb, r, nc, a.mean, W, STAGED,
+                                     BMAX, spc, fx.place);
+    oL = f.L; oU = f.U; oC = f.C; oJ = f.J; oMc = f.Mc; otie = f.tie;
+    oblk = f.blk; oAext = f.Aext; oKiU = f.KiU; oCw = f.Cw; orho = f.rho_e;
+    fslots = f.slots; fslot = f.slot; fcb = f.cb; fgw = f.gwords;
+    hz = fx.place < 2;
+    float* sl = smem + f.slots + (size_t)j * f.slot;
+    float* gl = fx.place >= 1 ? fx.scratch + (live ? p : 0) * f.gwords : sl;
+    float* zb = fx.place >= 1 ? gl : sl;
+    float* tbase = fx.place >= 2 ? gl : sl;
+    zs = zb + f.z; ysc = zb + f.y; ls = zb + f.l; us = zb + f.u;
+    tb = tbase + f.t; mb = tbase + f.mb; xb = tbase + f.xb;
+    cb0 = tbase + f.cb;
+    corr = sl + f.corr; red = sl + f.red;
+    gM = a.gM + (size_t)(live ? s : 0) * S * N;
+  } else {
+    const AdmmLayout lay = admm_layout(N, b, m, S, nb, r, nc, a.mean, W,
+                                       STAGED, BMAX);
+    oL = lay.L; oU = lay.U; oC = lay.C; oJ = lay.J; oMc = lay.Mc;
+    otie = lay.tie; oblk = lay.blk; oAext = lay.Aext; oKiU = lay.KiU;
+    oCw = lay.Cw; orho = lay.rho_e;
+    zs = smem + lay.z; ysc = smem + lay.y; ls = smem + lay.l;
+    us = smem + lay.u; tb = smem + lay.t; mb = smem + lay.mb;
+    xb = smem + lay.xb; cb0 = smem + lay.cb; corr = smem + lay.corr;
+    red = smem + lay.red;
+    gM = smem + lay.gM;
+  }
 
   // ---- constants into shared memory, once per launch ----
   const float* L = a.L;
   const float* U = a.U;
-  const float* C = a.C;
+  const float* Cf = a.C;
   if (STAGED) {
-    copy_in(smem + lay.L, a.L, N * b * b, tid, T);
-    copy_in(smem + lay.U, a.U, N * b * b, tid, T);
-    copy_in(smem + lay.C, a.C, N * b * b, tid, T);
-    L = smem + lay.L;
-    U = smem + lay.U;
-    C = smem + lay.C;
+    copy_in(smem + oL, a.L, N * b * b, tc, TC);
+    copy_in(smem + oU, a.U, N * b * b, tc, TC);
+    copy_in(smem + oC, a.C, N * b * b, tc, TC);
+    L = smem + oL;
+    U = smem + oU;
+    Cf = smem + oC;
   }
-  float* J = smem + lay.J;
-  float* Mc = smem + lay.Mc;
-  for (int e = tid; e < m * BMAX; e += T) {
+  float* J = smem + oJ;
+  float* Mc = smem + oMc;
+  for (int e = tc; e < m * BMAX; e += TC) {
     const int i = e / BMAX, c = e - i * BMAX;
     J[e] = c < b ? __ldg(a.J + i * b + c) : 0.0f;
     Mc[e] = c < b ? __ldg(a.Mc + i * b + c) : 0.0f;
   }
-  float* tie = smem + lay.tie;
-  int* blk = reinterpret_cast<int*>(smem + lay.blk);
-  if (nb) copy_in(tie, a.tie, N * nb, tid, T);
-  for (int j = tid; j < nb; j += T) blk[j] = __ldg(a.blk + j);
-  float* Aext = smem + lay.Aext;
-  float* KiU = smem + lay.KiU;
-  float* Cw = smem + lay.Cw;
-  float* rho_e = smem + lay.rho_e;
+  const float* tie = hz ? smem + otie : a.tie;
+  int* blk = reinterpret_cast<int*>(smem + oblk);
+  if (nb && hz) copy_in(smem + otie, a.tie, N * nb, tc, TC);
+  for (int e = tc; e < nb; e += TC) blk[e] = __ldg(a.blk + e);
+  const float* Aext = hz ? smem + oAext : a.Aext;
+  const float* KiU = hz ? smem + oKiU : a.KiU;
+  float* Cw = smem + oCw;
+  float* rho_e = smem + orho;
   if (r) {
-    copy_in(Aext, a.Aext, r * N * b, tid, T);
-    copy_in(KiU, a.KiU, N * b * r, tid, T);
-    copy_in(Cw, a.Cw, r * r, tid, T);
-    copy_in(rho_e, a.rho_e, r, tid, T);
+    if (hz) {
+      copy_in(smem + oAext, a.Aext, r * N * b, tc, TC);
+      copy_in(smem + oKiU, a.KiU, N * b * r, tc, TC);
+    }
+    copy_in(Cw, a.Cw, r * r, tc, TC);
+    copy_in(rho_e, a.rho_e, r, tc, TC);
   }
-  float* gM = smem + lay.gM;                    // gM[s, t, k] as [t·N + k]
-  if (a.mean) copy_in(gM, a.gM + (size_t)s * S * N, S * N, tid, T);
+  if (!FLEX && a.mean)
+    copy_in(smem + (gM - smem), a.gM + (size_t)s * S * N, S * N, tc, TC);
 
   // ---- the warm state ----
-  float* zs = smem + lay.z;
-  float* ysc = smem + lay.y;
-  float* ls = smem + lay.l;
-  float* us = smem + lay.u;
-  float* tb = smem + lay.t;
-  float* mb = smem + lay.mb;
-  float* xb = smem + lay.xb;
-  float* corr = smem + lay.corr;
-  float* red = smem + lay.red;
   const size_t ncb = pad4((size_t)N * nc);
   const float* rho_t = a.rows;
   const float* lin_t = rho_t + (size_t)m * N;
   const float* quad_t = lin_t + (size_t)m * N;
   const float* qp = a.q + p * N * b;
-  for (int e = tid; e < N * b; e += T) {
-    xb[e] = __ldg(a.x0 + p * N * b + e);
-    mb[e] = 0.0f;
-  }
-  if (tid < kRMax) corr[tid] = 0.0f;
-  for (int k = g; k < N; k += G) {
-    const size_t o = (p * N + k) * m;
-    for (int i = jl; i < m; i += tps) {
-      zs[i * N + k] = __ldg(a.z0 + o + i);
-      ysc[i * N + k] = __ldg(a.y0 + o + i);
-      ls[i * N + k] = __ldg(a.l + o + i);
-      us[i * N + k] = __ldg(a.u + o + i);
+  if (live) {
+    for (int e = tid; e < N * b; e += T) {
+      xb[e] = __ldg(a.x0 + p * N * b + e);
+      mb[e] = 0.0f;
+    }
+    if (tid < kRMax) corr[tid] = 0.0f;
+    for (int k = g; k < N; k += G) {
+      const size_t o = (p * N + k) * m;
+      for (int i = jl; i < m; i += tps) {
+        zs[i * N + k] = __ldg(a.z0 + o + i);
+        ysc[i * N + k] = __ldg(a.y0 + o + i);
+        ls[i * N + k] = __ldg(a.l + o + i);
+        us[i * N + k] = __ldg(a.u + o + i);
+      }
     }
   }
   float ze[kRMax], ye[kRMax];
 #pragma unroll
-  for (int j = 0; j < kRMax; ++j) {
-    ze[j] = j < r ? __ldg(a.ze0 + p * r + j) : 0.0f;
-    ye[j] = j < r ? __ldg(a.ye0 + p * r + j) : 0.0f;
+  for (int e = 0; e < kRMax; ++e) {
+    ze[e] = live && e < r ? __ldg(a.ze0 + p * r + e) : 0.0f;
+    ye[e] = live && e < r ? __ldg(a.ye0 + p * r + e) : 0.0f;
   }
   __syncthreads();
 
@@ -697,148 +832,28 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps) {
   // A stage's rows are dealt to the tps lanes of its group (lane jl owns
   // rows jl, jl + tps, …); the rounds over the stages are as many for
   // every lane, so that the group sums reach every lane of a warp.
-  for (int k0 = 0; k0 < N; k0 += G) {
-    const int k = k0 + g;
-    const bool on = k < N;
-    float xk[BMAX], acc[BMAX], mm[BMAX], jr[BMAX], mr[BMAX];
-#pragma unroll
-    for (int c = 0; c < BMAX; ++c) acc[c] = mm[c] = 0.0f;
-    if (on) {
-      x_stage<BMAX>(xk, xb, KiU, corr, k, b, r);
-      if (jl == 0) {
-#pragma unroll
-        for (int c = 0; c < BMAX; ++c)
-          if (c < b) acc[c] = a.sigma * xk[c] - __ldg(qp + k * b + c);
-        add_ext<BMAX>(acc, Aext, rho_e, ze, ye, k, N, b, r);
-      }
-      for (int i = jl; i < m; i += tps) {
-        load_row<BMAX>(jr, J + i * BMAX);
-        load_row<BMAX>(mr, Mc + i * BMAX);
-        const float w =
-            __ldg(rho_t + i * N + k) * zs[i * N + k] - ysc[i * N + k];
-        row_transpose<BMAX, NB>(acc, mm, jr, mr, w, k, i, tie, blk, nb,
-                                a.blk0);
-      }
-    }
-    group_sum<BMAX>(acc, tps);
-    group_sum<BMAX>(mm, tps);
-    if (on && jl == 0) {
-#pragma unroll
-      for (int c = 0; c < BMAX; ++c) {
-        if (c < b) {
-          tb[k * b + c] = acc[c];
-          if (k >= 1) mb[(k - 1) * b + c] = mm[c];
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  for (int it = 0; it < a.iters; ++it) {
-    const bool last = it == a.iters - 1;
-    float* cb = smem + lay.cb + (it & 1) * ncb;   // this iteration's buffer
-    // ---- x = K⁻¹t (warp 0), the Woodbury coefficient ----
-    if (warp == 0) {
-      block_sweep<BMAX, B0, true>(tb, mb, L, U, C, xb, N, b, lane);
-      if (r) {
-        __syncwarp();
-        float sv[kRMax];
-#pragma unroll
-        for (int j = 0; j < kRMax; ++j) sv[j] = 0.0f;
-        for (int e = lane; e < N * b; e += 32) {
-          const float xe = xb[e];
-#pragma unroll
-          for (int j = 0; j < kRMax; ++j)
-            if (j < r) sv[j] = fmaf(Aext[j * N * b + e], xe, sv[j]);
-        }
-#pragma unroll
-        for (int j = 0; j < kRMax; ++j)
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1)
-            sv[j] += __shfl_xor_sync(kFull, sv[j], o);
-        if (lane < r) {
-          float cv = 0.0f;
-#pragma unroll
-          for (int j = 0; j < kRMax; ++j)
-            if (j < r) cv = fmaf(Cw[lane * r + j], sv[j], cv);
-          corr[lane] = cv;
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- the rows: zr, the z and y updates, and the new w into t ----
-    float pe[kRMax];
-#pragma unroll
-    for (int j = 0; j < kRMax; ++j) pe[j] = 0.0f;
+  if (live) {
     for (int k0 = 0; k0 < N; k0 += G) {
       const int k = k0 + g;
       const bool on = k < N;
-      float xk[BMAX], xm[BMAX], acc[BMAX], mm[BMAX], jr[BMAX], mr[BMAX];
+      float xk[BMAX], acc[BMAX], mm[BMAX], jr[BMAX], mr[BMAX];
 #pragma unroll
       for (int c = 0; c < BMAX; ++c) acc[c] = mm[c] = 0.0f;
       if (on) {
         x_stage<BMAX>(xk, xb, KiU, corr, k, b, r);
-        if (k >= 1) {
-          x_stage<BMAX>(xm, xb, KiU, corr, k - 1, b, r);
-        } else {
-#pragma unroll
-          for (int c = 0; c < BMAX; ++c) xm[c] = 0.0f;
-        }
         if (jl == 0) {
-#pragma unroll
-          for (int j = 0; j < kRMax; ++j)
-            if (j < r)
-#pragma unroll
-              for (int c = 0; c < BMAX; ++c)
-                if (c < b)
-                  pe[j] = fmaf(Aext[(j * N + k) * b + c], xk[c], pe[j]);
 #pragma unroll
           for (int c = 0; c < BMAX; ++c)
             if (c < b) acc[c] = a.sigma * xk[c] - __ldg(qp + k * b + c);
+          add_ext<BMAX>(acc, Aext, rho_e, ze, ye, k, N, b, r);
         }
         for (int i = jl; i < m; i += tps) {
           load_row<BMAX>(jr, J + i * BMAX);
           load_row<BMAX>(mr, Mc + i * BMAX);
-          // J ξ_k and M_k ξ_{k−1} in two chains
-          float ax = 0.0f, am = 0.0f;
-#pragma unroll
-          for (int c = 0; c < NB; ++c) ax = fmaf(jr[c], xk[c], ax);
-          if (k >= 1) {
-#pragma unroll
-            for (int c = 0; c < NB; ++c) am = fmaf(mr[c], xm[c], am);
-            const int j = i - a.blk0;
-            if (j >= 0 && j < nb) {
-              const int cj = blk[j];
-              float xv = 0.0f;
-#pragma unroll
-              for (int c = 0; c < BMAX; ++c)
-                if (c == cj) xv = xm[c];
-              am = fmaf(-tie[k * nb + j], xv, am);
-            }
-          }
-          const int o = i * N + k;
-          const float z = zs[o], y = ysc[o], rho = __ldg(rho_t + o);
-          const float lo = ls[o], hi = us[o];
-          const float lin = __ldg(lin_t + o), quad = __ldg(quad_t + o);
-          const float zr = a.alpha * (ax + am) + (1.0f - a.alpha) * z;
-          const float sv = zr + y / rho;
-          // every row kind computed, one kept: no divergence in a group
-          // the penalty prox: min lin·t + quad·t² + ρ/2(z−s)², t = (z−u)₊
-          const float tt = (rho * (sv - hi) - lin) / (rho + 2.0f * quad);
-          const float zsoft = sv > hi ? hi + fmaxf(tt, 0.0f) : fmaxf(sv, lo);
-          const float zbox = fminf(fmaxf(sv, lo), hi);
-          const bool cons = i >= mc;   // the group mean waits for every
-                                       // scenario (phase below)
-          const float zn = (lin > 0.0f || quad > 0.0f) ? zsoft : zbox;
-          const float yn = y + rho * (zr - zn);
-          if (cons) cb[k * nc + (i - mc)] = sv;
-          if (last && !cons) a.dy[(p * N + k) * m + i] = yn - y;
-          zs[o] = cons ? zr : zn;
-          ysc[o] = cons ? y : yn;
-          row_transpose<BMAX, NB>(acc, mm, jr, mr,
-                                  cons ? 0.0f : rho * zn - yn, k, i, tie,
-                                  blk, nb, a.blk0);
+          const float w =
+              __ldg(rho_t + i * N + k) * zs[i * N + k] - ysc[i * N + k];
+          row_transpose<BMAX, NB>(acc, mm, jr, mr, w, k, i, tie, blk, nb,
+                                  a.blk0);
         }
       }
       group_sum<BMAX>(acc, tps);
@@ -853,21 +868,149 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps) {
         }
       }
     }
-    if (r) {
+  }
+  __syncthreads();
+
+  for (int it = 0; it < a.iters; ++it) {
+    const bool last = it == a.iters - 1;
+    float* cb = cb0 + (it & 1) * ncb;           // this iteration's buffer
+    // ---- x = K⁻¹t (the slot's warp 0), the Woodbury coefficient ----
+    if (live && warp == 0) {
+      block_sweep<BMAX, B0, true>(tb, mb, L, U, Cf, xb, N, b, lane);
+      if (r) {
+        __syncwarp();
+        float sv[kRMax];
 #pragma unroll
-      for (int j = 0; j < kRMax; ++j)
+        for (int e = 0; e < kRMax; ++e) sv[e] = 0.0f;
+        for (int e = lane; e < N * b; e += 32) {
+          const float xe = xb[e];
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          pe[j] += __shfl_xor_sync(kFull, pe[j], o);
-      if (lane < r) {
-        float v = 0.0f;
+          for (int q = 0; q < kRMax; ++q)
+            if (q < r) sv[q] = fmaf(Aext[q * N * b + e], xe, sv[q]);
+        }
 #pragma unroll
-        for (int j = 0; j < kRMax; ++j)
-          if (j == lane) v = pe[j];
-        red[warp * kRMax + lane] = v;
+        for (int q = 0; q < kRMax; ++q)
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            sv[q] += __shfl_xor_sync(kFull, sv[q], o);
+        if (lane < r) {
+          float cv = 0.0f;
+#pragma unroll
+          for (int q = 0; q < kRMax; ++q)
+            if (q < r) cv = fmaf(Cw[lane * r + q], sv[q], cv);
+          corr[lane] = cv;
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- the rows: zr, the z and y updates, and the new w into t ----
+    float pe[kRMax];
+#pragma unroll
+    for (int e = 0; e < kRMax; ++e) pe[e] = 0.0f;
+    if (live) {
+      for (int k0 = 0; k0 < N; k0 += G) {
+        const int k = k0 + g;
+        const bool on = k < N;
+        float xk[BMAX], xm[BMAX], acc[BMAX], mm[BMAX], jr[BMAX], mr[BMAX];
+#pragma unroll
+        for (int c = 0; c < BMAX; ++c) acc[c] = mm[c] = 0.0f;
+        if (on) {
+          x_stage<BMAX>(xk, xb, KiU, corr, k, b, r);
+          if (k >= 1) {
+            x_stage<BMAX>(xm, xb, KiU, corr, k - 1, b, r);
+          } else {
+#pragma unroll
+            for (int c = 0; c < BMAX; ++c) xm[c] = 0.0f;
+          }
+          if (jl == 0) {
+#pragma unroll
+            for (int q = 0; q < kRMax; ++q)
+              if (q < r)
+#pragma unroll
+                for (int c = 0; c < BMAX; ++c)
+                  if (c < b)
+                    pe[q] = fmaf(Aext[(q * N + k) * b + c], xk[c], pe[q]);
+#pragma unroll
+            for (int c = 0; c < BMAX; ++c)
+              if (c < b) acc[c] = a.sigma * xk[c] - __ldg(qp + k * b + c);
+          }
+          for (int i = jl; i < m; i += tps) {
+            load_row<BMAX>(jr, J + i * BMAX);
+            load_row<BMAX>(mr, Mc + i * BMAX);
+            // J ξ_k and M_k ξ_{k−1} in two chains
+            float ax = 0.0f, am = 0.0f;
+#pragma unroll
+            for (int c = 0; c < NB; ++c) ax = fmaf(jr[c], xk[c], ax);
+            if (k >= 1) {
+#pragma unroll
+              for (int c = 0; c < NB; ++c) am = fmaf(mr[c], xm[c], am);
+              const int jb = i - a.blk0;
+              if (jb >= 0 && jb < nb) {
+                const int cj = blk[jb];
+                float xv = 0.0f;
+#pragma unroll
+                for (int c = 0; c < BMAX; ++c)
+                  if (c == cj) xv = xm[c];
+                am = fmaf(-tie[k * nb + jb], xv, am);
+              }
+            }
+            const int o = i * N + k;
+            const float z = zs[o], y = ysc[o], rho = __ldg(rho_t + o);
+            const float lo = ls[o], hi = us[o];
+            const float lin = __ldg(lin_t + o), quad = __ldg(quad_t + o);
+            const float zr = a.alpha * (ax + am) + (1.0f - a.alpha) * z;
+            const float sv = zr + y / rho;
+            // every row kind computed, one kept: no divergence in a group
+            // the penalty prox: min lin·t + quad·t² + ρ/2(z−s)², t = (z−u)₊
+            const float tt = (rho * (sv - hi) - lin) / (rho + 2.0f * quad);
+            const float zsoft =
+                sv > hi ? hi + fmaxf(tt, 0.0f) : fmaxf(sv, lo);
+            const float zbox = fminf(fmaxf(sv, lo), hi);
+            const bool cons = i >= mc;   // the group mean waits for every
+                                         // scenario (phase below)
+            const float zn = (lin > 0.0f || quad > 0.0f) ? zsoft : zbox;
+            const float yn = y + rho * (zr - zn);
+            if (cons) cb[k * nc + (i - mc)] = sv;
+            if (last && !cons) a.dy[(p * N + k) * m + i] = yn - y;
+            zs[o] = cons ? zr : zn;
+            ysc[o] = cons ? y : yn;
+            row_transpose<BMAX, NB>(acc, mm, jr, mr,
+                                    cons ? 0.0f : rho * zn - yn, k, i, tie,
+                                    blk, nb, a.blk0);
+          }
+        }
+        group_sum<BMAX>(acc, tps);
+        group_sum<BMAX>(mm, tps);
+        if (on && jl == 0) {
+#pragma unroll
+          for (int c = 0; c < BMAX; ++c) {
+            if (c < b) {
+              tb[k * b + c] = acc[c];
+              if (k >= 1) mb[(k - 1) * b + c] = mm[c];
+            }
+          }
+        }
+      }
+      if (r) {
+#pragma unroll
+        for (int q = 0; q < kRMax; ++q)
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            pe[q] += __shfl_xor_sync(kFull, pe[q], o);
+        if (lane < r) {
+          float v = 0.0f;
+#pragma unroll
+          for (int q = 0; q < kRMax; ++q)
+            if (q == lane) v = pe[q];
+          red[warp * kRMax + lane] = v;
+        }
       }
     }
     if (a.mean) {
+      // place 2: the consensus buffers are in device memory, read by the
+      // peers through L2
+      if (FLEX && !hz) __threadfence();
       cg::this_cluster().sync();   // every scenario's zr + y/ρ is out
     } else if (r) {
       __syncthreads();
@@ -876,88 +1019,113 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps) {
       continue;                    // t is complete
     }
 
-    // ---- the extra rows (every thread, the same sums) ----
+    // ---- the extra rows (every thread of the slot, the same sums) ----
+    if (live) {
 #pragma unroll
-    for (int j = 0; j < kRMax; ++j) {
-      if (j < r) {
-        float axe = 0.0f;
-        for (int w = 0; w < W; ++w) axe += red[w * kRMax + j];
-        const float zr = a.alpha * axe + (1.0f - a.alpha) * ze[j];
-        const float zn = fminf(zr + ye[j] / rho_e[j],
-                               __ldg(a.ext_u + p * r + j));
-        const float yn = ye[j] + rho_e[j] * (zr - zn);
-        if (last && tid == 0) a.dye[p * r + j] = yn - ye[j];
-        ze[j] = zn;
-        ye[j] = yn;
+      for (int q = 0; q < kRMax; ++q) {
+        if (q < r) {
+          float axe = 0.0f;
+          for (int w = 0; w < W; ++w) axe += red[w * kRMax + q];
+          const float zr = a.alpha * axe + (1.0f - a.alpha) * ze[q];
+          const float zn = fminf(zr + ye[q] / rho_e[q],
+                                 __ldg(a.ext_u + p * r + q));
+          const float yn = ye[q] + rho_e[q] * (zr - zn);
+          if (last && tid == 0) a.dye[p * r + q] = yn - ye[q];
+          ze[q] = zn;
+          ye[q] = yn;
+        }
       }
     }
     // ---- the group mean over the scenarios' buffers, and t completed ----
     cg::cluster_group cl = cg::this_cluster();
-    for (int k0 = 0; k0 < N; k0 += G) {
-      const int k = k0 + g;
-      const bool on = k < N;
-      float acc[BMAX], jr[BMAX];
+    if (live) {
+      for (int k0 = 0; k0 < N; k0 += G) {
+        const int k = k0 + g;
+        const bool on = k < N;
+        float acc[BMAX], jr[BMAX];
 #pragma unroll
-      for (int c = 0; c < BMAX; ++c) acc[c] = 0.0f;
-      if (on && a.mean) {
-        for (int i = mc + (jl + tps - mc % tps) % tps; i < m; i += tps) {
-          const int jc = i - mc;   // the consensus rows this lane owns
-          float zn = 0.0f;
-          for (int t = 0; t < S; ++t) {
-            const float* cbt =
-                t == s ? cb : cl.map_shared_rank(cb, (unsigned)t);
-            zn = fmaf(gM[t * N + k], cbt[k * nc + jc], zn);
+        for (int c = 0; c < BMAX; ++c) acc[c] = 0.0f;
+        if (on && a.mean) {
+          for (int i = mc + (jl + tps - mc % tps) % tps; i < m; i += tps) {
+            const int jc = i - mc;   // the consensus rows this lane owns
+            float zn = 0.0f;
+            if constexpr (FLEX) {
+              const size_t e = (size_t)(it & 1) * ncb + k * nc + jc;
+              for (int t = 0; t < S; ++t) {
+                const float wt = __ldg(gM + t * N + k);
+                if (wt == 0.0f) continue;   // outside this stage's group
+                float v;
+                if (!hz) {
+                  v = __ldcg(fx.scratch + (grp * S + t) * fgw + fcb + e);
+                } else {
+                  float* pt = smem + fslots + (size_t)(t % spc) * fslot +
+                              fcb + e;
+                  const int rt = t / spc;
+                  v = rt == crank ? *pt
+                                  : *cl.map_shared_rank(pt, (unsigned)rt);
+                }
+                zn = fmaf(wt, v, zn);
+              }
+            } else {
+              for (int t = 0; t < S; ++t) {
+                const float* cbt =
+                    t == s ? cb : cl.map_shared_rank(cb, (unsigned)t);
+                zn = fmaf(gM[t * N + k], cbt[k * nc + jc], zn);
+              }
+            }
+            const int o = i * N + k;
+            const float zr = zs[o], y = ysc[o], rho = __ldg(rho_t + o);
+            const float yn = y + rho * (zr - zn);
+            if (last) a.dy[(p * N + k) * m + i] = yn - y;
+            zs[o] = zn;
+            ysc[o] = yn;
+            // the consensus rows have no M part: Jᵀw alone
+            load_row<BMAX>(jr, J + i * BMAX);
+            const float w = rho * zn - yn;
+#pragma unroll
+            for (int c = 0; c < NB; ++c) acc[c] = fmaf(jr[c], w, acc[c]);
           }
-          const int o = i * N + k;
-          const float zr = zs[o], y = ysc[o], rho = __ldg(rho_t + o);
-          const float yn = y + rho * (zr - zn);
-          if (last) a.dy[(p * N + k) * m + i] = yn - y;
-          zs[o] = zn;
-          ysc[o] = yn;
-          // the consensus rows have no M part: Jᵀw alone
-          load_row<BMAX>(jr, J + i * BMAX);
-          const float w = rho * zn - yn;
-#pragma unroll
-          for (int c = 0; c < NB; ++c) acc[c] = fmaf(jr[c], w, acc[c]);
         }
-      }
-      if (a.mean) group_sum<BMAX>(acc, tps);
-      if (on && jl == 0) {
+        if (a.mean) group_sum<BMAX>(acc, tps);
+        if (on && jl == 0) {
 #pragma unroll
-        for (int c = 0; c < BMAX; ++c)
-          if (c < b) acc[c] += tb[k * b + c];
-        add_ext<BMAX>(acc, Aext, rho_e, ze, ye, k, N, b, r);
+          for (int c = 0; c < BMAX; ++c)
+            if (c < b) acc[c] += tb[k * b + c];
+          add_ext<BMAX>(acc, Aext, rho_e, ze, ye, k, N, b, r);
 #pragma unroll
-        for (int c = 0; c < BMAX; ++c)
-          if (c < b) tb[k * b + c] = acc[c];
+          for (int c = 0; c < BMAX; ++c)
+            if (c < b) tb[k * b + c] = acc[c];
+        }
       }
     }
     __syncthreads();
   }
 
   // ---- out: x, z, y (and dy, dy_e when no iteration ran) ----
-  for (int k = g; k < N; k += G) {
-    if (jl == 0) {
-      float xk[BMAX];
-      x_stage<BMAX>(xk, xb, KiU, corr, k, b, r);
+  if (live) {
+    for (int k = g; k < N; k += G) {
+      if (jl == 0) {
+        float xk[BMAX];
+        x_stage<BMAX>(xk, xb, KiU, corr, k, b, r);
 #pragma unroll
-      for (int c = 0; c < BMAX; ++c)
-        if (c < b) a.x[(p * N + k) * b + c] = xk[c];
+        for (int c = 0; c < BMAX; ++c)
+          if (c < b) a.x[(p * N + k) * b + c] = xk[c];
+      }
+      const size_t o = (p * N + k) * m;
+      for (int i = jl; i < m; i += tps) {
+        a.z[o + i] = zs[i * N + k];
+        a.y[o + i] = ysc[i * N + k];
+        if (a.iters == 0) a.dy[o + i] = 0.0f;
+      }
     }
-    const size_t o = (p * N + k) * m;
-    for (int i = jl; i < m; i += tps) {
-      a.z[o + i] = zs[i * N + k];
-      a.y[o + i] = ysc[i * N + k];
-      if (a.iters == 0) a.dy[o + i] = 0.0f;
-    }
-  }
-  if (tid == 0) {
+    if (tid == 0) {
 #pragma unroll
-    for (int j = 0; j < kRMax; ++j) {
-      if (j < r) {
-        a.ze[p * r + j] = ze[j];
-        a.ye[p * r + j] = ye[j];
-        if (a.iters == 0) a.dye[p * r + j] = 0.0f;
+      for (int q = 0; q < kRMax; ++q) {
+        if (q < r) {
+          a.ze[p * r + q] = ze[q];
+          a.ye[p * r + q] = ye[q];
+          if (a.iters == 0) a.dye[p * r + q] = 0.0f;
+        }
       }
     }
   }
@@ -977,7 +1145,7 @@ size_t admm_smem_bytes(int N, int b, int m, int S, int n_blk, int r,
 template <int BMAX, int B0, bool STAGED>
 int launch_admm(const PhcSwAdmmArgs& a, int warps, int tps,
                 cudaStream_t stream) {
-  auto kernel = sw_admm_kernel<BMAX, B0, STAGED>;
+  auto kernel = sw_admm_kernel<BMAX, B0, STAGED, false>;
   const size_t bytes = admm_smem_bytes(a.N, a.b, a.m, a.S, a.n_blk, a.n_ext,
                                        a.n_cons, a.mean, warps, STAGED, BMAX);
   if (bytes > 48 * 1024) {
@@ -997,7 +1165,8 @@ int launch_admm(const PhcSwAdmmArgs& a, int warps, int tps,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const int rc = (int)cudaLaunchKernelEx(&cfg, kernel, a, tps);
+  const AdmmFlex none = {1, 1, 0, nullptr};
+  const int rc = (int)cudaLaunchKernelEx(&cfg, kernel, a, tps, none);
   return rc ? rc : (int)cudaGetLastError();
 }
 
@@ -1009,6 +1178,95 @@ int launch_admm_b(const PhcSwAdmmArgs& a, int warps, int tps, int staged,
                   : launch_admm<8, 5, false>(a, warps, tps, s);
   return staged ? launch_admm<BMAX, 0, true>(a, warps, tps, s)
                 : launch_admm<BMAX, 0, false>(a, warps, tps, s);
+}
+
+size_t flex_smem_bytes(const PhcSwAdmmArgs& a, int warps, int staged,
+                       int bmax, const AdmmFlex& fx) {
+  return sizeof(float) * flex_layout(a.N, a.b, a.m, a.n_blk, a.n_ext,
+                                     a.n_cons, a.mean, warps / fx.spc,
+                                     staged, bmax, fx.spc, fx.place).total;
+}
+
+// a FLEX launch: groups of S scenarios over clusters of fx.cluster CTAs
+// of fx.spc scenarios each (one CTA a problem without a group mean); or,
+// if `max_clusters`, how many such clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters)
+template <int BMAX, int B0, bool STAGED>
+int launch_flex(const PhcSwAdmmArgs& a, int warps, int tps,
+                const AdmmFlex& fx, cudaStream_t stream, int* max_clusters) {
+  auto kernel = sw_admm_kernel<BMAX, B0, STAGED, true>;
+  const size_t bytes = flex_smem_bytes(a, warps, STAGED, BMAX, fx);
+  if (bytes > 48 * 1024) {
+    const int rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (rc) return rc;
+  }
+  const int C = a.mean ? fx.cluster : 1;
+  if (C > 8) {
+    const int rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (rc) return rc;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(a.mean ? a.P / a.S * C : a.P), 1, 1);
+  cfg.blockDim = dim3((unsigned)(32 * warps), 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters) {
+    cfg.gridDim = dim3((unsigned)C, 1, 1);
+    return (int)cudaOccupancyMaxActiveClusters(max_clusters,
+                                               (const void*)kernel, &cfg);
+  }
+  const int rc = (int)cudaLaunchKernelEx(&cfg, kernel, a, tps, fx);
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+template <int BMAX>
+int launch_flex_b(const PhcSwAdmmArgs& a, int warps, int tps, int staged,
+                  const AdmmFlex& fx, cudaStream_t s, int* maxc) {
+  if (BMAX == 8 && a.b == 5)
+    return staged ? launch_flex<8, 5, true>(a, warps, tps, fx, s, maxc)
+                  : launch_flex<8, 5, false>(a, warps, tps, fx, s, maxc);
+  return staged ? launch_flex<BMAX, 0, true>(a, warps, tps, fx, s, maxc)
+                : launch_flex<BMAX, 0, false>(a, warps, tps, fx, s, maxc);
+}
+
+// the checks common to every K5 launch
+bool admm_args_ok(const PhcSwAdmmArgs* a, int warps, int tps, int bmax) {
+  return !(a->P < 1 || a->N < 1 || a->b < 1 || a->b > bmax || a->m < 1 ||
+           a->S < 1 || a->P % a->S || a->n_ext < 0 || a->n_ext > kRMax ||
+           a->iters < 0 || warps < 1 ||
+           32 * warps > admm_max_threads(bmax) || tps < 1 || tps > 32 ||
+           (tps & (tps - 1)) ||
+           (a->mean && (a->n_cons < 1 || a->n_cons > a->m)));
+}
+
+// the placement of a FLEX launch: a cluster of at most 16 CTAs whose slots
+// cover the group with no CTA left empty, whole warps a slot, scratch
+// where a place keeps arrays in device memory
+bool flex_ok(const PhcSwAdmmArgs* a, int warps, const AdmmFlex& fx) {
+  if (fx.spc < 1 || warps % fx.spc || fx.place < 0 || fx.place > 2 ||
+      (fx.place && !fx.scratch))
+    return false;
+  if (!a->mean) return fx.spc == 1 && fx.cluster == 1 && a->S == 1;
+  return fx.cluster >= 1 && fx.cluster <= kMaxCluster &&
+         fx.cluster * fx.spc >= a->S && (fx.cluster - 1) * fx.spc < a->S;
+}
+
+int flex_dispatch(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
+                  int bmax, const AdmmFlex& fx, cudaStream_t s, int* maxc) {
+  switch (bmax) {
+    case 8: return launch_flex_b<8>(*a, warps, tps, staged, fx, s, maxc);
+    case 16: return launch_flex_b<16>(*a, warps, tps, staged, fx, s, maxc);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1053,12 +1311,7 @@ int phc_sw_admm_smem_bytes(int N, int b, int m, int S, int n_blk, int n_ext,
 // mean; bmax = the compiled bound on b (8 or 16)
 int phc_sw_admm(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
                 int bmax, void* stream) {
-  if (a->P < 1 || a->N < 1 || a->b < 1 || a->b > bmax || a->m < 1 ||
-      a->S < 1 || a->S > 8 || a->P % a->S || a->n_ext < 0 ||
-      a->n_ext > kRMax || a->iters < 0 || warps < 1 ||
-      32 * warps > admm_max_threads(bmax) || tps < 1 || tps > 32 ||
-      (tps & (tps - 1)) ||
-      (a->mean && (a->n_cons < 1 || a->n_cons > a->m)))
+  if (!admm_args_ok(a, warps, tps, bmax) || a->S > 8)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (bmax) {
@@ -1066,6 +1319,48 @@ int phc_sw_admm(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
     case 16: return launch_admm_b<16>(*a, warps, tps, staged, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// dynamic shared memory of one FLEX CTA (flex_layout), and the words of
+// device memory a problem's scratch takes; warps = the CTA's
+int phc_sw_admm_flex_smem_bytes(int N, int b, int m, int n_blk, int n_ext,
+                                int n_cons, int mean, int warps, int staged,
+                                int bmax, int spc, int place) {
+  return (int)(sizeof(float) *
+               flex_layout(N, b, m, n_blk, n_ext, n_cons, mean, warps / spc,
+                           staged, bmax, spc, place).total);
+}
+
+long long phc_sw_admm_flex_scratch_words(int N, int b, int m, int n_cons,
+                                         int mean, int place) {
+  return (long long)flex_layout(N, b, m, 0, 0, n_cons, mean, 1, 0, 8, 1,
+                                place).gwords;
+}
+
+// K5's FLEX variants (grouped, global state): as phc_sw_admm, with spc
+// scenarios a CTA, groups of a->S over clusters of `cluster` CTAs, arrays
+// placed by `place`, `scratch` the device memory of place ≥ 1
+int phc_sw_admm_flex(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
+                     int bmax, int spc, int cluster, int place,
+                     float* scratch, void* stream) {
+  const AdmmFlex fx = {spc, cluster, place, scratch};
+  if (!admm_args_ok(a, warps, tps, bmax) || !flex_ok(a, warps, fx))
+    return (int)cudaErrorInvalidValue;
+  return flex_dispatch(a, warps, tps, staged, bmax, fx, (cudaStream_t)stream,
+                       nullptr);
+}
+
+// clusters of a FLEX plan the card holds at once, or −(the CUDA error)
+int phc_sw_admm_max_clusters(const PhcSwAdmmArgs* a, int warps, int tps,
+                             int staged, int bmax, int spc, int cluster,
+                             int place) {
+  float dummy = 0.0f;
+  const AdmmFlex fx = {spc, cluster, place, &dummy};
+  if (!admm_args_ok(a, warps, tps, bmax) || !flex_ok(a, warps, fx))
+    return -(int)cudaErrorInvalidValue;
+  int n = 0;
+  const int rc = flex_dispatch(a, warps, tps, staged, bmax, fx, nullptr, &n);
+  return rc ? -rc : n;
 }
 
 const char* phc_error_string(int code) {

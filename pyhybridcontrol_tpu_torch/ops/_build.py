@@ -148,6 +148,19 @@ def _bind_stagewise(lib):
     # lanes a stage, staged, bmax, stream
     lib.phc_sw_admm.argtypes = [P, I, I, I, I, P]
     lib.phc_sw_admm.restype = I
+    # N b m n_blk n_ext n_cons mean warps staged bmax spc place
+    lib.phc_sw_admm_flex_smem_bytes.argtypes = [I] * 12
+    lib.phc_sw_admm_flex_smem_bytes.restype = I
+    # N b m n_cons mean place
+    lib.phc_sw_admm_flex_scratch_words.argtypes = [I] * 6
+    lib.phc_sw_admm_flex_scratch_words.restype = ctypes.c_longlong
+    # the struct, warps, lanes a stage, staged, bmax, scenarios a CTA,
+    # cluster, place, scratch, stream
+    lib.phc_sw_admm_flex.argtypes = [P] + [I] * 7 + [P, P]
+    lib.phc_sw_admm_flex.restype = I
+    # the struct, warps, lanes a stage, staged, bmax, spc, cluster, place
+    lib.phc_sw_admm_max_clusters.argtypes = [P] + [I] * 7
+    lib.phc_sw_admm_max_clusters.restype = I
 
 
 _BINDERS = {"admm": _bind_admm, "admm_mixed": _bind_admm_mixed,

@@ -15,8 +15,9 @@ launches K5 once (``sw_admm_cuda``) or raises. K4 keeps its standalone
 launch (``sw_solve_k_cuda``, r (…, N, b) fp32, the factors (L, U⁻¹, C)
 (N, b, b) fp32 on the same device, shared by every problem of the batch);
 no solve calls it any more, and K5 runs its sweep as a device routine.
-Each launch counts once in ``cuda_admm.LAUNCHES["stagewise_k4"]`` or
-``["stagewise_k5"]`` (and its problem count P in ``LAUNCH_BATCHES``).
+Each launch counts once in ``cuda_admm.LAUNCHES["stagewise_k4"]`` or,
+K5, under its variant's name (``ADMM_LAUNCH``; its problem count P in
+``LAUNCH_BATCHES``).
 
 ``plan_sweep`` picks K4's instantiation from the shapes alone: the compiled
 bound on the block size (8, 16, 32, 64 or 128, the smallest at or above b),
@@ -28,12 +29,21 @@ block, has no instantiation and raises.
 ``plan_admm`` picks K5's from the shapes alone: the bound on b (8 or 16, as
 K4's ladder starts), the lanes a stage (the most, a power of 2 up to 32,
 that the CTA's 512 threads, 256 at 16, give every stage at once) and the
-warps a CTA, and staged factors where they fit its shared memory beside the
-scenario's z, y, l, u and buffers. A CTA holds one problem (a scenario); a
-group of S scenarios with a group mean (a tree node) is one cluster of S
-CTAs. b above 16, more than 4 extra rows, a group above the 8 CTAs of a
-portable cluster, or a scenario whose state does not fit a CTA's shared
-memory have no instantiation and raise.
+warps a CTA, staged factors where they fit its shared memory, and one of
+four variants. "shared" (the first design): one CTA a problem (a
+scenario), a group of S ≤ 8 scenarios with a group mean (a tree node) one
+portable cluster, the scenario's z, y, l, u and buffers in shared memory.
+Where that does not fit, the FLEX variants of the same kernel:
+"grouped", a group of up to 16 scenarios one cluster of S CTAs (above 8
+a non-portable size) and above 16 scenarios ⌈S/16⌉ scenarios a CTA, each
+on its own share of the CTA's warps, the state still in shared memory;
+"global", z, y, l and u in device memory (a scratch the wrapper
+allocates); "global_all", also t, its M part, x, the consensus buffers and
+the horizon-sized constants. Each counts its launches under its own name
+(``ADMM_LAUNCH``). b above 16, more than 4 extra rows, or a shape that
+fits no variant's shared memory (forced staged factors past it, a group
+whose CTAs would give a scenario less than a warp) have no instantiation
+and raise.
 """
 
 from __future__ import annotations
@@ -56,8 +66,17 @@ SWEEP_WARPS = (4, 2, 1)          # problems (warps) a block, most first
 SWEEP_BMAX = (8, 16, 32, 64, 128)   # compiled bounds on the block size
 ADMM_BMAX = (8, 16)              # K5's compiled bounds on the block size
 ADMM_THREADS = {8: 512, 16: 256}   # the most threads a K5 CTA has
-ADMM_CLUSTER = 8                 # the most scenarios a group (a portable cluster)
+ADMM_CLUSTER = 8                 # the shared variant's most scenarios a group
+ADMM_CLUSTER_MAX = 16            # the most CTAs a FLEX cluster (non-portable)
 ADMM_RMAX = 4                    # extra rows K5 takes
+# K5's variants: the shared one, then the FLEX ones by the place of their
+# arrays (0: shared memory, 1: z/y/l/u in device memory, 2: also t, mb, x,
+# the consensus buffers and the horizon-sized constants), in the order the
+# plan tries them; and the name each launch counts under
+ADMM_PLACES = {"grouped": 0, "global": 1, "global_all": 2}
+ADMM_LAUNCH = {"shared": "stagewise_k5", "grouped": "stagewise_k5_grouped",
+               "global": "stagewise_k5_global",
+               "global_all": "stagewise_k5_global_all"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,7 +175,8 @@ def sw_solve_k_cuda(r, factors, staged: Optional[bool] = None):
 class AdmmPlan:
     """Instantiation of K5 for one call: the compiled bound on b, staged
     factors, warps a CTA, lanes a stage (its rows dealt over them), CTAs a
-    cluster and dynamic shared memory a CTA (bytes)."""
+    cluster, dynamic shared memory a CTA (bytes), scenarios a CTA and the
+    variant (``ADMM_LAUNCH``'s keys)."""
 
     bmax: int
     staged: bool
@@ -164,18 +184,21 @@ class AdmmPlan:
     tps: int
     cluster: int
     smem: int
+    spc: int = 1
+    variant: str = "shared"
 
 
 def admm_smem_bytes(N: int, b: int, m: int, S: int, n_blk: int, n_ext: int,
                     n_cons: int, mean: bool, warps: int, staged: bool,
                     bmax: int) -> int:
-    """Shared memory of one K5 CTA (``phc_sw_admm_smem_bytes`` gives the
-    same): the factors if staged, J and Mc with rows of bmax words, the
-    blocking rows' ties and columns, Aext, KiU, Cw and ρₑ, the scenario's
-    row of group-mean weights, its z, y, l and u (m·N words each), t, its
-    M part and x (N·b words each), two consensus-row buffers with a group
-    mean, and 4·(1 + warps) words of Woodbury coefficient and sums; each
-    array padded to a multiple of 4 words."""
+    """Shared memory of one CTA of the shared variant
+    (``phc_sw_admm_smem_bytes`` gives the same): the factors if staged, J
+    and Mc with rows of bmax words, the blocking rows' ties and columns,
+    Aext, KiU, Cw and ρₑ, the scenario's row of group-mean weights, its z,
+    y, l and u (m·N words each), t, its M part and x (N·b words each), two
+    consensus-row buffers with a group mean, and 4·(1 + warps) words of
+    Woodbury coefficient and sums; each array padded to a multiple of 4
+    words."""
     f = _pad4(N * b * b) if staged else 0
     words = (3 * f + 2 * _pad4(m * bmax) + _pad4(N * n_blk) + _pad4(n_blk)
              + 2 * _pad4(n_ext * N * b) + _pad4(n_ext * n_ext) + _pad4(n_ext)
@@ -185,18 +208,71 @@ def admm_smem_bytes(N: int, b: int, m: int, S: int, n_blk: int, n_ext: int,
     return 4 * words
 
 
+def _flex_words(N, b, m, n_cons, mean, place):
+    """(words of a scenario's arrays in its slot, words in device memory)
+    of a FLEX variant, without the slot's Woodbury coefficient and sums:
+    z, y, l, u (m·N words each) in the slot at place 0, else in device
+    memory; t, mb, x (N·b each) and the two consensus buffers in the slot
+    below place 2."""
+    zyl = 4 * _pad4(m * N)
+    tmx = 3 * _pad4(N * b) + (2 * _pad4(N * n_cons) if mean else 0)
+    slot = (zyl if place < 1 else 0) + (tmx if place < 2 else 0)
+    return slot, (zyl if place >= 1 else 0) + (tmx if place >= 2 else 0)
+
+
+def flex_smem_bytes(N: int, b: int, m: int, n_blk: int, n_ext: int,
+                    n_cons: int, mean: bool, warps: int, staged: bool,
+                    bmax: int, spc: int, place: int) -> int:
+    """Shared memory of one CTA of a FLEX variant
+    (``phc_sw_admm_flex_smem_bytes`` gives the same): the constants as the
+    shared variant's (the ties, Aext and KiU only below place 2; no
+    group-mean weights: they are read from device memory), then ``spc``
+    slots of a scenario's shared arrays (``_flex_words``) and 4·(1 + its
+    warps) words of Woodbury coefficient and sums; ``warps`` the CTA's."""
+    f = _pad4(N * b * b) if staged else 0
+    hz = place < 2
+    const = (3 * f + 2 * _pad4(m * bmax) + (_pad4(N * n_blk) if hz else 0)
+             + _pad4(n_blk) + (2 * _pad4(n_ext * N * b) if hz else 0)
+             + _pad4(n_ext * n_ext) + _pad4(n_ext))
+    slot = (_flex_words(N, b, m, n_cons, mean, place)[0]
+            + ADMM_RMAX * (1 + warps // spc))
+    return 4 * (const + spc * slot)
+
+
+def flex_scratch_words(N: int, b: int, m: int, n_cons: int, mean: bool,
+                       place: int) -> int:
+    """Words of device memory a problem's scratch takes in a FLEX variant
+    (``phc_sw_admm_flex_scratch_words`` gives the same)."""
+    return _flex_words(N, b, m, n_cons, mean, place)[1]
+
+
+def _lanes(N: int, threads: int):
+    """(lanes a stage, warps) of ``threads`` threads over N stages: the
+    most lanes (a power of 2 up to 32) with every stage in one round, and
+    no more warps than that takes."""
+    tps = 32
+    while tps > 1 and N * tps > threads:
+        tps //= 2
+    return tps, min(threads, -(-N * tps // 32) * 32) // 32
+
+
 def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
               n_ext: int = 0, n_cons: int = 0, mean: bool = False,
-              staged: Optional[bool] = None) -> AdmmPlan:
+              staged: Optional[bool] = None,
+              variant: Optional[str] = None) -> AdmmPlan:
     """The instantiation K5 runs P problems with: horizon N, block b, m rows
     a stage, n_blk blocking rows and n_ext extra rows; with ``mean``, in
     groups of S scenarios (a group mean over the trailing n_cons rows), a
     cluster each. A stage's rows over ``tps`` lanes, the most (a power of
-    2 up to 32) with every stage in one round of the CTA's threads, staged
-    factors where they fit. ``staged`` forces one variant: no path sets
-    it, ``chip_smoke.py`` holds the unstaged one with it at shapes whose
-    factors fit (as it does K4's). Raises ValueError, with the shape,
-    where nothing fits: there is no other path."""
+    2 up to 32) with every stage in one round of the CTA's (or its slot's)
+    threads. The variants in turn, staged factors before unstaged in each:
+    the shared one (S ≤ 8); grouped, global, global_all (module doc). The
+    FLEX variants deal a group over ⌈S/16⌉ scenarios a CTA, in a cluster
+    of ⌈S/spc⌉ CTAs. ``staged`` and ``variant`` force one: no path sets
+    them, ``chip_smoke.py`` holds the unstaged and the global-state
+    variants with them at shapes that fit the shared one. Raises
+    ValueError, with the shape, where nothing fits: there is no other
+    path."""
     shape = (f"P={P}, N={N}, b={b}, m={m}, S={S}, n_blk={n_blk}, "
              f"n_ext={n_ext}, n_cons={n_cons}")
     what = f"K5 (stagewise ADMM) at {shape}"
@@ -216,21 +292,40 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
                          f"mean")
     if P % S:
         raise ValueError(f"{what}: P is no multiple of the group of S")
-    if S > ADMM_CLUSTER:
-        raise ValueError(f"{what}: a group of S={S} scenarios is a cluster "
-                         f"of {S} CTAs, above the {ADMM_CLUSTER} of a "
-                         f"portable cluster")
+    if variant is not None and variant not in ADMM_LAUNCH:
+        raise ValueError(f"{what}: no variant {variant!r}")
     most = ADMM_THREADS[bmax]
-    tps = 32
-    while tps > 1 and N * tps > most:
-        tps //= 2
-    warps = min(most, -(-N * tps // 32) * 32) // 32
-    for st in ((True, False) if staged is None else (bool(staged),)):
-        smem = admm_smem_bytes(N, b, m, S, n_blk, n_ext, n_cons, mean, warps,
-                               st, bmax)
-        if smem <= SMEM_MAX:
-            return AdmmPlan(bmax=bmax, staged=st, warps=warps, tps=tps,
-                            cluster=S, smem=smem)
+    sts = (True, False) if staged is None else (bool(staged),)
+    smem = None
+    if variant in (None, "shared") and S <= ADMM_CLUSTER:
+        tps, warps = _lanes(N, most)
+        for st in sts:
+            smem = admm_smem_bytes(N, b, m, S, n_blk, n_ext, n_cons, mean,
+                                   warps, st, bmax)
+            if smem <= SMEM_MAX:
+                return AdmmPlan(bmax=bmax, staged=st, warps=warps, tps=tps,
+                                cluster=S, smem=smem)
+    if variant == "shared":
+        raise ValueError(
+            f"{what}: the shared variant " + (
+                f"needs {smem} bytes of shared memory a CTA, above the "
+                f"{SMEM_MAX} an sm_90 CTA has" if smem else
+                f"takes groups of at most {ADMM_CLUSTER} scenarios"))
+    spc = -(-S // ADMM_CLUSTER_MAX)
+    sub = most // spc // 32 * 32        # threads a scenario's slot
+    if sub < 32:
+        raise ValueError(f"{what}: {spc} scenarios a CTA leave less than a "
+                         f"warp each")
+    tps, w = _lanes(N, sub)
+    names = ADMM_PLACES if variant is None else (variant,)
+    for name in names:
+        for st in sts:
+            smem = flex_smem_bytes(N, b, m, n_blk, n_ext, n_cons, mean,
+                                   w * spc, st, bmax, spc, ADMM_PLACES[name])
+            if smem <= SMEM_MAX:
+                return AdmmPlan(bmax=bmax, staged=st, warps=w * spc,
+                                tps=tps, cluster=-(-S // spc), smem=smem,
+                                spc=spc, variant=name)
     raise ValueError(f"{what}: needs {smem} bytes of shared memory a CTA, "
                      f"above the {SMEM_MAX} an sm_90 CTA has")
 
@@ -293,16 +388,45 @@ class _AdmmArgs(ctypes.Structure):
         + [(k, ctypes.c_float) for k in ("sigma", "alpha")])
 
 
+def admm_cluster_capacity(sw, args, pl: AdmmPlan) -> int:
+    """Clusters of the FLEX plan ``pl`` the card holds at once
+    (cudaOccupancyMaxActiveClusters for ``args``, the launch's
+    ``_AdmmArgs``; memoized on the prep). Raises where it holds none or the
+    query fails: such a plan cannot run, and nothing shrinks the cluster
+    or falls back."""
+    from pyhybridcontrol_tpu_torch.ops._build import load_library
+
+    key = ("k5_clusters", pl, args.N, args.m, args.n_blk, args.n_ext,
+           args.n_cons)
+    got = sw.cache.get(key)
+    if got is None:
+        lib = load_library("stagewise")
+        got = lib.phc_sw_admm_max_clusters(
+            ctypes.addressof(args), pl.warps, pl.tps, int(pl.staged),
+            pl.bmax, pl.spc, pl.cluster, ADMM_PLACES[pl.variant])
+        if got < 0:
+            _raise_on(lib, -got, "K5 (stagewise ADMM) occupancy query")
+        if got == 0:
+            raise RuntimeError(
+                f"K5 ({pl.variant}): the card holds no cluster of "
+                f"{pl.cluster} CTAs of {32 * pl.warps} threads and "
+                f"{pl.smem} bytes of shared memory")
+        sw.cache[key] = got
+    return got
+
+
 def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
-                 consensus_M=None, staged: Optional[bool] = None):
+                 consensus_M=None, staged: Optional[bool] = None,
+                 variant: Optional[str] = None):
     """K5 on the card: ``iters`` stagewise ADMM iterations of the prep
     ``sw`` in one launch, from the warm carries. x and q (…, N, b), z, y,
     l and u (…, N, m_k) with one batch (z already inside [l, u]); with
     extra rows z_e, y_e and ext_u (…, n_ext); ``consensus_M`` (S, S, N)
-    the group mean over the last batch axis (S scenarios); ``staged``
-    forces one variant (``plan_admm``). Returns (x, z, y, dy, z_e, y_e,
-    dy_e) as ``ops/stagewise._admm_iterations`` does. Checks, allocates
-    the outputs and launches once."""
+    the group mean over the last batch axis (S scenarios); ``staged`` and
+    ``variant`` force one instantiation (``plan_admm``). Returns (x, z, y,
+    dy, z_e, y_e, dy_e) as ``ops/stagewise._admm_iterations`` does.
+    Checks, allocates the outputs (and a FLEX variant's scratch), checks a
+    FLEX cluster against the card's occupancy and launches once."""
     from pyhybridcontrol_tpu_torch.ops._build import load_library
 
     dev = x.device
@@ -330,7 +454,8 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
     c = admm_constants(sw)
     for name, f in zip(("L", "Uinv", "C"), sw.factors):
         _check(name, f, (N, b, b), dev)
-    pl = plan_admm(P, N, b, m, S, sw.n_blk, r, sw.n_cons, mean, staged)
+    pl = plan_admm(P, N, b, m, S, sw.n_blk, r, sw.n_cons, mean, staged,
+                   variant)
     out = [torch.empty((P, N, b), dtype=torch.float32, device=dev)]
     out += [torch.empty((P, N, m), dtype=torch.float32, device=dev)
             for _ in range(3)]
@@ -356,11 +481,23 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
     lib = load_library("stagewise")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.phc_sw_admm(ctypes.addressof(args), pl.warps, pl.tps,
-                             int(pl.staged), pl.bmax,
-                             ctypes.c_void_p(stream))
-    _raise_on(lib, rc, "K5 (stagewise ADMM)")
-    _count_launch("stagewise_k5", P)
+        if pl.variant == "shared":
+            rc = lib.phc_sw_admm(ctypes.addressof(args), pl.warps, pl.tps,
+                                 int(pl.staged), pl.bmax,
+                                 ctypes.c_void_p(stream))
+        else:
+            place = ADMM_PLACES[pl.variant]
+            if mean:
+                admm_cluster_capacity(sw, args, pl)
+            scratch = torch.empty(
+                P * flex_scratch_words(N, b, m, sw.n_cons, mean, place)
+                if place else 0, dtype=torch.float32, device=dev)
+            rc = lib.phc_sw_admm_flex(
+                ctypes.addressof(args), pl.warps, pl.tps, int(pl.staged),
+                pl.bmax, pl.spc, pl.cluster, place,
+                _ptr(scratch if place else None), ctypes.c_void_p(stream))
+    _raise_on(lib, rc, f"K5 (stagewise ADMM, {pl.variant})")
+    _count_launch(ADMM_LAUNCH[pl.variant], P)
     shapes = ((N, b), (N, m), (N, m), (N, m))
     res = [t.reshape(batch + sh) for t, sh in zip(out, shapes)]
     if r:

@@ -37,7 +37,7 @@ class StructDict(dict):
         return f"{type(self).__name__}({items})"
 
     def copy(self):
-        return type(self)(self)
+        return self._of(self)
 
     def update_new(self, *args, **kwargs):
         """Return a copy with the given updates applied (functional update)."""
@@ -47,7 +47,14 @@ class StructDict(dict):
 
     def sub_struct(self, keys):
         """Return a StructDict of this type restricted to ``keys``."""
-        return type(self)({k: self[k] for k in keys})
+        return self._of({k: self[k] for k in keys})
+
+    def _of(self, items):
+        """A new dict of this type holding ``items`` as they are: built
+        past ``__init__``, which a named class maps onto its fields."""
+        out = type(self).__new__(type(self))
+        dict.update(out, items)
+        return out
 
 
 def _short(v):

@@ -298,11 +298,20 @@ def test_named_struct_dict_matches_reference():
     assert T._fields == J._fields == ("Q", "R")
     assert type(t).__name__ == "Weights" and isinstance(t, tsd.StructDict)
     assert t.R == 2.0 and repr(t) == "Weights(Q=1.0, R=2.0, S=3.0)"
-    for op in (lambda s: s.copy(), lambda s: s.update_new(R=4.0),
-               lambda s: s.sub_struct(["R"])):
+    # the fields themselves, not the reference's result: its named class
+    # maps the one dict that copy and sub_struct pass onto the first field
+    for op, want in ((lambda s: s.copy(), {"Q": 1.0, "R": 2.0, "S": 3.0}),
+                     (lambda s: s.update_new(R=4.0),
+                      {"Q": 1.0, "R": 4.0, "S": 3.0}),
+                     (lambda s: s.sub_struct(["R"]), {"R": 2.0})):
         got = op(t)
         assert type(got) is T and type(got).__name__ == "Weights"
-        assert dict(got) == dict(op(j))
+        assert dict(got) == want
+    P = tsd.named_struct_dict("P", "a", "b")
+    assert type(P(1, 2).copy()) is P and dict(P(1, 2).copy()) == {"a": 1,
+                                                                   "b": 2}
+    assert dict(P(1, 2).sub_struct(["b"])) == {"b": 2}
+    assert type(P(1, 2).sub_struct(["b"])) is P
     assert dict(T(1.0)) == dict(J(1.0)) == {"Q": 1.0}
     for C in (J, T):
         with pytest.raises(TypeError, match="at most 2 positional"):

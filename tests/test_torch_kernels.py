@@ -1169,6 +1169,42 @@ def test_admm_binding_mirrors_the_kernel_source():
         len(lib.phc_admm_k1.argtypes)
 
 
+def test_stagewise_binding_mirrors_the_kernel_source():
+    """The ctypes binding of ``stagewise.cu`` gives each exported function
+    its parameters in the source's order (pointers as c_void_p, ints as
+    c_int) and the scratch size its 64-bit result; K5's wrapper passes each
+    launch (the shared variant's and the FLEX one's) as many arguments."""
+    from pyhybridcontrol_tpu_torch.ops import _build
+    from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
+
+    src = open(os.path.join(_REPO, "pyhybridcontrol_tpu_torch", "csrc",
+                            "stagewise.cu")).read()
+    src = src[src.rindex('extern "C" {'):]
+    found = re.findall(r"\n\w[\w\s\*]*?\b(phc_(?!error)\w+)\(([^)]*)\)",
+                       src)
+    assert {name for name, _ in found} == {
+        "phc_sw_smem_bytes", "phc_sw_solve_k", "phc_sw_admm_smem_bytes",
+        "phc_sw_admm", "phc_sw_admm_flex_smem_bytes",
+        "phc_sw_admm_flex_scratch_words", "phc_sw_admm_flex",
+        "phc_sw_admm_max_clusters"}
+    lib = types.SimpleNamespace(**{
+        name: types.SimpleNamespace() for name, _ in found})
+    _build._bind_stagewise(lib)
+    for name, params in found:
+        want = [ctypes.c_void_p if "*" in decl else ctypes.c_int
+                for decl in params.split(",")]
+        assert getattr(lib, name).argtypes == want, name
+    assert lib.phc_sw_admm_flex_scratch_words.restype == ctypes.c_longlong
+    assert "long long phc_sw_admm_flex_scratch_words(" in src
+    call = inspect.getsource(cs.sw_admm_cuda)
+    for name in ("phc_sw_admm", "phc_sw_admm_flex"):
+        args = re.search(rf"lib\.{name}\((.*?)\)\n", call, re.S).group(1)
+        n = len(re.findall(r"ctypes\.addressof\(args\)|pl\.\w+[,)]|"
+                           r"int\(pl\.staged\)|\bplace,|_ptr\(|"
+                           r"ctypes\.c_void_p\(stream\)", args))
+        assert n == len(getattr(lib, name).argtypes), (name, n)
+
+
 def test_device_layout_carries_the_padded_strides(prob):
     """Â_G and Mᵀ lie in device memory with the shared-memory row strides
     (zero in the pad columns): the staged kernels copy them flat, the

@@ -535,23 +535,180 @@ def test_admm_plan_at_the_wider_blocks(key):
     assert pl.smem - st.smem == 4 * 3 * (-(-N_ * b * b // 4) * 4)
 
 
+# (P, N, b, m, S, n_blk, n_ext, n_cons, mean), staged, and the plan the
+# shared variant had before the FLEX variants came (bmax, staged, warps,
+# lanes a stage, cluster, shared memory): every shape that planned then
+# keeps its instantiation. The driven shapes and the wider blocks, forced
+# unstaged where phase 22 forces it, and the largest horizons the shared
+# variant holds (the double integrator at N=696, the hull model at N=240,
+# config 6's tree at N=300)
+KEPT = {
+    "config6_long": ((64, 120, 5, 19, 8, 0, 1, 2, True), None,
+                     (8, True, 15, 4, 8, 91744)),
+    "config6_long_unstaged": ((64, 120, 5, 19, 8, 0, 1, 2, True), False,
+                              (8, False, 15, 4, 8, 55744)),
+    "config6_parity": ((64, 4, 5, 19, 2, 0, 0, 2, True), None,
+                       (8, True, 4, 32, 2, 4048)),
+    "serve_stagewise": ((32, 10, 5, 17, 1, 0, 0, 0, False), None,
+                        (8, True, 10, 32, 1, 7664)),
+    "transforms": ((16, 8, 5, 19, 1, 1, 1, 0, False), None,
+                   (8, True, 8, 32, 1, 7072)),
+    "hull_N20": ((64, 20, 13, 49, 1, 0, 0, 0, False), None,
+                 (16, True, 5, 8, 1, 65728)),
+    "hull_N20_unstaged": ((64, 20, 13, 49, 1, 0, 0, 0, False), False,
+                          (16, False, 5, 8, 1, 25168)),
+    "di_two_forces": ((16, 10, 6, 20, 1, 0, 0, 0, False), None,
+                      (8, True, 10, 32, 1, 9696)),
+    "soft_box": ((16, 10, 5, 17, 1, 0, 0, 0, False), None,
+                 (8, True, 10, 32, 1, 7664)),
+    "di_N696": ((64, 696, 5, 17, 1, 0, 0, 0, False), None,
+                (8, False, 16, 1, 1, 232432)),
+    "hull_N240": ((64, 240, 13, 49, 1, 0, 0, 0, False), None,
+                  (16, False, 8, 1, 1, 232016)),
+    "config6_tree_N300": ((64, 300, 5, 19, 8, 0, 1, 2, True), None,
+                          (8, True, 10, 1, 8, 227024)),
+}
+
+
+@pytest.mark.parametrize("key", list(KEPT))
+def test_admm_plan_keeps_every_shape_that_planned(key):
+    shape, staged, want = KEPT[key]
+    pl = cs.plan_admm(*shape, staged=staged)
+    assert pl == cs.AdmmPlan(*want)
+    assert (pl.spc, pl.variant) == (1, "shared")
+    assert cs.ADMM_LAUNCH[pl.variant] == "stagewise_k5"
+
+
+# (P, N, b, m, S, n_blk, n_ext, n_cons, mean) the shared variant refused:
+# the double integrator (configs 1, 6) from its first refused horizon to
+# N=20,000, the PWA hull model (config 2) likewise, and config 6's long
+# arm with 9 to 64 scenarios (a wave of 8 nodes); and the variant, spc
+# and cluster the plan picks
+REACHED = {
+    "di_N704": ((64, 704, 5, 17, 1, 0, 0, 0, False), ("global", 1, 1)),
+    "di_N1000": ((64, 1000, 5, 17, 1, 0, 0, 0, False), ("global", 1, 1)),
+    "di_N4000": ((64, 4000, 5, 17, 1, 0, 0, 0, False),
+                 ("global_all", 1, 1)),
+    "di_N20000": ((64, 20000, 5, 17, 1, 0, 0, 0, False),
+                  ("global_all", 1, 1)),
+    "hull_N248": ((64, 248, 13, 49, 1, 0, 0, 0, False), ("global", 1, 1)),
+    "hull_N300": ((64, 300, 13, 49, 1, 0, 0, 0, False), ("global", 1, 1)),
+    "hull_N1000": ((64, 1000, 13, 49, 1, 0, 0, 0, False), ("global", 1, 1)),
+    "hull_N20000": ((64, 20000, 13, 49, 1, 0, 0, 0, False),
+                    ("global_all", 1, 1)),
+    "tree_S9": ((72, 120, 5, 19, 9, 0, 1, 2, True), ("grouped", 1, 9)),
+    "tree_S16": ((128, 120, 5, 19, 16, 0, 1, 2, True), ("grouped", 1, 16)),
+    "tree_S27": ((216, 120, 5, 19, 27, 0, 1, 2, True), ("grouped", 2, 14)),
+    "tree_S64": ((512, 120, 5, 19, 64, 0, 1, 2, True), ("grouped", 4, 16)),
+    "tree_S64_N2000": ((512, 2000, 5, 19, 64, 0, 1, 2, True),
+                       ("global_all", 4, 16)),
+}
+
+
+@pytest.mark.parametrize("key", list(REACHED))
+def test_admm_plan_reaches_every_horizon_and_group(key):
+    """The plan of each shape the shared variant refused: a FLEX variant
+    whose CTA fits, a cluster of at most 16 CTAs whose slots cover the
+    group with no CTA left empty, whole warps a slot, every stage's lanes
+    in one round of a slot's threads, and the shared memory of
+    ``flex_smem_bytes``."""
+    shape, want = REACHED[key]
+    P, N_, b, m, S, n_blk, n_ext, n_cons, mean = shape
+    pl = cs.plan_admm(*shape)
+    assert (pl.variant, pl.spc, pl.cluster) == want
+    assert pl.cluster <= cs.ADMM_CLUSTER_MAX
+    assert pl.cluster * pl.spc >= S > (pl.cluster - 1) * pl.spc
+    assert pl.warps % pl.spc == 0
+    assert 32 * pl.warps <= cs.ADMM_THREADS[pl.bmax]
+    slot = 32 * pl.warps // pl.spc
+    assert slot >= min(N_ * pl.tps, slot) and 32 % pl.tps == 0
+    assert (N_ * pl.tps <= slot) or pl.tps == 1
+    assert pl.smem == cs.flex_smem_bytes(
+        N_, b, m, n_blk, n_ext, n_cons, mean, pl.warps, pl.staged, pl.bmax,
+        pl.spc, cs.ADMM_PLACES[pl.variant]) <= ca.SMEM_MAX
+    # the plan depends on the shapes alone, not on how many groups
+    assert cs.plan_admm(S, *shape[1:]) == pl
+    # an earlier place of the same factors would not have fit
+    for place in range(cs.ADMM_PLACES[pl.variant]):
+        assert cs.flex_smem_bytes(N_, b, m, n_blk, n_ext, n_cons, mean,
+                                  pl.warps, pl.staged, pl.bmax, pl.spc,
+                                  place) > ca.SMEM_MAX
+
+
+@pytest.mark.parametrize("S", [9, 16, 27, 64])
+def test_k5_slots_cover_each_group_once(S):
+    """The FLEX kernel's mapping, mirrored: CTA c of a group's cluster and
+    warp w hold slot w mod spc and the slot's local warp w div spc; slot j
+    of CTA c runs scenario c·spc + j, idle from S on. Every scenario of the
+    group runs in exactly one slot, each slot on W whole warps, the slots'
+    sweep warps (local warp 0) are warps 0 … spc−1 of the CTA, and only
+    the last CTA has idle slots."""
+    pl = cs.plan_admm(8 * S, 120, 5, 19, S, 0, 1, 2, True)
+    spc, C, warps = pl.spc, pl.cluster, pl.warps
+    seen = []
+    for c in range(C):
+        idle = 0
+        for w in range(warps):
+            j, local = w % spc, w // spc
+            s = c * spc + j
+            if local == 0:
+                assert w == j       # one sweep warp a scheduler
+            if s >= S:
+                idle += 1
+            elif local == 0:
+                seen.append(s)
+        assert idle == 0 or c == C - 1
+    assert sorted(seen) == list(range(S))
+
+
+def test_admm_long_horizon_matches_reference():
+    """The plain loop at N=720 (a horizon the shared variant refuses, N·nv
+    2,160), 30 iterations from cold, against the reference's
+    ``stagewise_admm_solve`` on its prep carried across: objective within
+    1e-4 relative; x within 1e-3 (the largest difference printed)."""
+    js = jsw.prepare_stagewise(jdi.switched_double_integrator(), 720,
+                               jdi.default_weights())
+    ts = convert.stagewise_qp(js, "cpu")
+    x0 = np.array([2.0, 0.0], np.float32)
+    jd = jsw.assemble_stagewise(js, jnp.asarray(x0))
+    td = tsw.assemble_stagewise(ts, torch.as_tensor(x0))
+    jr = jsw.stagewise_admm_solve(js, *jd, iters=30)
+    tr = tsw.stagewise_admm_solve(ts, *td, iters=30)
+    _close(tr.obj.numpy(), jr.obj, 1e-4)
+    dx = float(np.abs(tr.x.numpy() - np.asarray(jr.x)).max())
+    print(f"N=720: objective {float(tr.obj):.9f} (reference "
+          f"{float(jr.obj):.9f}), max |Δx| {dx:.2e}")
+    _close(tr.x.numpy(), jr.x, 1e-3)
+
+
 def test_admm_plan_refuses_what_has_no_instantiation():
     with pytest.raises(ValueError, match=r"P=4, N=10, b=17.*above the 16"):
         cs.plan_admm(4, 10, 17, 30)
     with pytest.raises(ValueError, match="extra rows"):
         cs.plan_admm(4, 10, 5, 17, n_ext=5)
-    with pytest.raises(ValueError, match="S=16 scenarios.*portable"):
-        cs.plan_admm(64, 10, 5, 19, S=16, n_cons=2, mean=True)
+    # the shared variant takes a portable cluster and a scenario's state in
+    # shared memory; forced past either, it refuses (the plan does not:
+    # test_admm_plan_reaches_every_horizon_and_group)
+    with pytest.raises(ValueError, match="S=16.*at most 8 scenarios"):
+        cs.plan_admm(64, 10, 5, 19, S=16, n_cons=2, mean=True,
+                     variant="shared")
+    with pytest.raises(ValueError, match=r"N=2000.*shared variant.*shared "
+                                         r"memory"):
+        cs.plan_admm(8, 2000, 5, 19, S=8, n_cons=2, mean=True,
+                     variant="shared")
+    with pytest.raises(ValueError, match="no variant"):
+        cs.plan_admm(8, 10, 5, 17, variant="resident")
     with pytest.raises(ValueError, match="group mean"):
         cs.plan_admm(16, 10, 5, 17, S=2)
     with pytest.raises(ValueError, match="multiple"):
         cs.plan_admm(9, 10, 5, 19, S=2, n_cons=2, mean=True)
     with pytest.raises(ValueError, match="empty"):
         cs.plan_admm(0, 10, 5, 17)
-    with pytest.raises(ValueError, match=r"N=2000.*shared memory"):
-        cs.plan_admm(8, 2000, 5, 19, S=8, n_cons=2, mean=True)
+    # staged factors of 3·N·b² words past any CTA, whatever the state's place
     with pytest.raises(ValueError, match="shared memory"):
-        cs.plan_admm(8, 600, 5, 17, staged=True)
+        cs.plan_admm(8, 20000, 5, 17, staged=True)
+    with pytest.raises(ValueError, match="less than a warp"):
+        cs.plan_admm(272, 10, 13, 49, S=272, n_cons=2, mean=True)
 
 
 def test_admm_smem_mirrors_the_kernel_source():
@@ -584,11 +741,51 @@ def test_admm_smem_mirrors_the_kernel_source():
             "a.red = o; o += (size_t)kRMax * warps;",
             "constexpr int kRMax = 4;",
             "return bmax <= 8 ? 512 : 256;",
-            "a->S > 8"):
+            "a->S > 8",
+            # the FLEX variants' layout (flex_layout)
+            "const bool hz = place < 2;                    // horizon "
+            "constants staged",
+            "a.tie = o; o += hz ? pad4((size_t)N * n_blk) : 0;",
+            "a.Aext = o; o += hz ? pad4((size_t)r * N * b) : 0;",
+            "a.KiU = o; o += hz ? pad4((size_t)N * b * r) : 0;",
+            "const size_t cn = mean ? 2 * pad4((size_t)N * n_cons) : 0;",
+            "size_t& zo = place >= 1 ? g : sl;             // z, y, l, u",
+            "size_t& to = place >= 2 ? g : sl;             // t, mb, x, cb",
+            "a.red = sl; sl += (size_t)kRMax * warps_slot;",
+            "a.total = o + (size_t)spc * sl;",
+            "constexpr int kMaxCluster = 16;",
+            "fx.cluster * fx.spc >= a->S && (fx.cluster - 1) * fx.spc < a->S",
+            "if (C > 8) {"):
         assert line in src, line
     for m in cs.ADMM_BMAX:
         assert f"case {m}: return launch_admm_b<{m}>" in src
-    assert (cs.ADMM_RMAX, cs.ADMM_CLUSTER) == (4, 8)
+        assert f"case {m}: return launch_flex_b<{m}>" in src
+    assert (cs.ADMM_RMAX, cs.ADMM_CLUSTER, cs.ADMM_CLUSTER_MAX) == (4, 8, 16)
+    assert cs.ADMM_PLACES == {"grouped": 0, "global": 1, "global_all": 2}
+    assert set(cs.ADMM_LAUNCH.values()) <= set(ca.LAUNCHES)
+    # the slots: warp w of a CTA to slot w mod spc, the slot's rank within
+    # it ((w div spc)·32 + lane), the scenario crank·spc + slot
+    for line in ("const int j = FLEX ? (tc >> 5) % spc : 0;",
+                 "const int tid = FLEX ? ((tc >> 5) / spc) * 32 + (tc & 31) "
+                 ": tc;",
+                 "const int s = FLEX ? crank * spc + j"):
+        assert line in src, line
+    # every export the wrapper calls is bound
+    bind = open(os.path.join(os.path.dirname(__file__), "..",
+                             "pyhybridcontrol_tpu_torch", "ops",
+                             "_build.py")).read()
+    for fn in ("phc_sw_admm_flex_smem_bytes", "phc_sw_admm_flex_scratch_words",
+               "phc_sw_admm_flex", "phc_sw_admm_max_clusters"):
+        assert f"\n{'long long' if 'scratch' in fn else 'int'} {fn}(" in src
+        assert f"lib.{fn}.argtypes" in bind
+    # the slot's words (config 6's tree at S=64, four scenarios a CTA, four
+    # warps each): constants 3·3000 + 2·152 + 2·600 + 4 + 4, and a slot's
+    # z/y/l/u 4·2280, t/mb/x 3·600, the consensus buffers 2·240, 4·(1 + 4)
+    assert cs.flex_smem_bytes(120, 5, 19, 0, 1, 2, True, 16, True, 8, 4,
+                              0) == \
+        4 * (10512 + 4 * (9120 + 1800 + 480 + 20))
+    assert cs.flex_scratch_words(120, 5, 19, 2, True, 1) == 9120
+    assert cs.flex_scratch_words(120, 5, 19, 2, True, 2) == 9120 + 1800 + 480
     assert cs.ADMM_THREADS == {8: 512, 16: 256}
     # config 6's long arm, word by word: factors 3·3000, J/Mc 2·152,
     # Aext/KiU 2·600, Cw 4, ρₑ 4, the group mean's row 960, z/y/l/u
@@ -852,3 +1049,30 @@ def test_k5_matches_its_plain_version_on_the_card():
         for g, w in zip(got, want):
             _close(g.cpu().numpy(), w.cpu().numpy(), 1e-3)
         x, z, y, _, ze, ye, _ = want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["grouped", "global", "global_all"])
+def test_k5_variants_match_the_plain_version_on_the_card(variant):
+    """Each FLEX variant forced on the card launches once (counted under
+    its name) and agrees with the plain loop as the shared one does (60
+    iterations cold, 1e-3 relative, floor 1), with every row kind and the
+    group mean."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    _, (q, l, u), ue, M = _k5_problem("all", 1.0, np.random.default_rng(3))
+    ts = tsw.prepare_stagewise(TM, N, tdi.default_weights(), device="cuda",
+                               **K5_FEATURES["all"])
+    q, l, u, ue, M = (a.cuda() for a in (q, l, u, ue, M))
+    x = torch.zeros_like(q)
+    z = torch.clamp(torch.zeros_like(l), l, u)
+    y = torch.zeros_like(l)
+    ze = torch.clamp_max(torch.zeros_like(ue), ue)
+    ye = torch.zeros_like(ue)
+    ca.reset_launch_counts()
+    got = cs.sw_admm_cuda(ts, q, l, u, x, z, y, ze, ye, ue, 60, M,
+                          variant=variant)
+    assert ca.LAUNCHES[cs.ADMM_LAUNCH[variant]] == 1
+    want = tsw._admm_iterations(ts, q, l, u, x, z, y, ze, ye, ue, 60, M)
+    for g, w in zip(got, want):
+        _close(g.cpu().numpy(), w.cpu().numpy(), 1e-3)

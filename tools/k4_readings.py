@@ -4,6 +4,7 @@ whole-solve holds of its phase 20 are set):
 
     python tools/k4_readings.py [--seeds 0-7] [--config6] [--plain-solve]
                                 [--profile]
+    python tools/k4_readings.py --flex [--seeds 0-7] [--probes N,...]
 
 Builds the kernels, then runs ``chip_smoke.phase_k4`` and
 ``chip_smoke.phase_k5`` (both timed at the first seed only) once per seed
@@ -17,6 +18,15 @@ that loop again and through K5 again (each route warmed up first), then
 one through the torch loop with the plain sweeps; ``--profile`` profiles
 one whole solve of the long arm through K5 (device operations, busy time,
 idle share).
+
+``--flex`` runs ``chip_smoke.phase_k5_flex`` instead (K5's grouped and
+global-state variants against the plain loop at the long_horizon and
+wide_tree paths' shapes, and forced against the shared variant at config
+6's; timed at the first seed only) once per seed, as above (how the
+"k5_flex" limits are set), then the long_horizon and wide_tree paths
+once; ``--probes N,...`` then runs the hull model's long_horizon solve
+again at each probe iteration count (its found share against the probe's
+length).
 """
 
 from __future__ import annotations
@@ -122,6 +132,8 @@ def main(argv=None):
     ap.add_argument("--config6", action="store_true")
     ap.add_argument("--plain-solve", action="store_true")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--flex", action="store_true")
+    ap.add_argument("--probes", default="")
     a = ap.parse_args(argv)
     lo, _, hi = a.seeds.partition("-")
     seeds = range(int(lo), int(hi or lo) + 1)
@@ -138,7 +150,8 @@ def main(argv=None):
     print(cs.gpu_line(), flush=True)
     t0 = time.perf_counter()
     _build.load_library("stagewise")
-    print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"build {time.perf_counter() - t0:.1f} s (every library, side by "
+          f"side)", flush=True)
     for line in cs.ptxas_report(_build.BUILD_INFO.get("log", "")):
         print(f"  ptxas: {line}", flush=True)
     cs.READINGS_ONLY = True
@@ -146,6 +159,11 @@ def main(argv=None):
         cs.SEED = seed
         cs.TIMINGS = seed == seeds[0]       # the times at the first seed
         print(f"seed {seed}:", flush=True)
+        if a.flex:
+            recs = {k: {} for k in cs.K5_FAMILY}
+            cs.phase("k5_flex", cs.phase_k5_flex, dev,
+                     cs.phase_rng("k5_flex"), recs)
+            continue
         for name, fn in (("k4", cs.phase_k4), ("k5", cs.phase_k5)):
             cs.phase(name, fn, dev, cs.phase_rng(name), {})
     for regime, seen in cs.READINGS.items():
@@ -154,6 +172,15 @@ def main(argv=None):
                          for k, v in seen.items()), flush=True)
     print("off their limits: " + ("; ".join(cs.OVER) or "none"), flush=True)
     cs.READINGS_ONLY = False
+    if a.flex:
+        cs.phase("long horizons and wide trees", cs.phase_wide_paths, dev)
+    for n in filter(None, a.probes.split(",")):
+        cs.LONG_SPEC = dict(cs.LONG_SPEC, probe_iters=int(n))
+        c = cs.long_controller("hull", dev)
+        res, sec = time_solve(lambda: c.feedback(list(cs.X0_LONG["hull"])))
+        print(f"hull N={c.N}, probe_iters {n}: {sec:.2f} s, found "
+              f"{bool(res.found)}, {int(res.nodes)} nodes, obj "
+              f"{float(res.obj):.6f}", flush=True)
     if a.config6:
         cs.phase("config 6", cs.phase_config6, dev)
     if a.plain_solve:

@@ -40,7 +40,10 @@ phase 21 instead (its checks included): config 6's parity arm (ms), its
 long arm (a warm-up and the median of 3 solves, ms a solve), the three
 served ``--solver stagewise`` requests (the replies' ms) and the
 stagewise transforms hold (ms), with the device's idle share over one
-long-arm wave's relaxation.
+long-arm wave's relaxation; then phase 22 (K5 against its plain version
+at every driven stagewise shape) for K5's times alone there (the long
+arm's relaxation and probe, the parity arm, the served frame, the
+transforms hold); and each tree's ``-Xptxas -v`` lines of K5.
 
 Prints one JSON line per run and a table at the end.
 """
@@ -233,14 +236,24 @@ from pyhybridcontrol_tpu_torch.ops import _build
 
 for lib in _build.LIBRARIES:
     _build.load_library(lib)
-out = cs.phase_config6(torch.device("cuda"))
+dev = torch.device("cuda")
+out = cs.phase_config6(dev)
+rec = {}
+cs.phase_k5(dev, cs.phase_rng("k5"), rec)
 print("SW " + json.dumps({
     "parity ms": out["parity"]["ms"],
     "long arm ms a solve": out["long"]["ms_per_solve"],
     "long arm s": out["long"]["seconds"],
     "long arm wave idle share": out["long"]["profile"]["idle_share"],
     "served ms": out["serve_ms"],
-    "transforms ms": out["transforms"]["ms"]}), flush=True)
+    "transforms ms": out["transforms"]["ms"],
+    "K5 alone ms, long arm relaxation": rec["kernel_ms"],
+    "K5 alone ms, long arm probe": rec["cfg6_probe_kernel_ms"],
+    "K5 alone ms, parity arm": rec["cfg6_parity_kernel_ms"],
+    "K5 alone ms, served frame": rec["serve_sw_kernel_ms"],
+    "K5 alone ms, transforms hold": rec["transforms_kernel_ms"],
+    "ptxas": [ln for ln in cs.ptxas_report(_build.BUILD_INFO.get("log", ""))
+              if "sw_admm" in ln]}), flush=True)
 """
 
 

@@ -13,6 +13,7 @@ runs on the CPU):
     python tools/plain_noise.py --paths [--seed S]
     python tools/plain_noise.py --big-shapes [--seed S]
     python tools/plain_noise.py --one-pass [--seed S]
+    python tools/plain_noise.py --flex [--seed S]
 
 Builds config 4c's dense joint frame (the reference bench's tree: S=4,
 N=10, branching at steps 1 and 5), draws B seeded states and B&B-node
@@ -36,6 +37,15 @@ seeded by S): the stagewise tree relaxation (150 iterations) and the probe
 warm from the relaxation) through the plain sweeps, in float32 against
 float64, and the probe again after a one-ulp change of q — what phase 20
 of ``chip_smoke.py`` holds K4's whole solve to.
+
+``--flex``: the waves ``chip_smoke.flex_waves`` draws at ``--seed``
+(the long_horizon controllers' frames, the double integrator at N=1000
+and the PWA hull model at N=300, and config 6's tree at S = 16, 27 and
+64): the plain loop's relaxation (``chip_smoke.K5_RELAX`` iterations,
+cold, float32), then ``chip_smoke.FLEX_HOLD_ITERS`` iterations from it in
+float32 against float64, and again after a one-ulp change of q (float32
+both), on x, z, y, dy and the extra rows' carries — what phase 35 holds
+K5's grouped and global-state variants to ("k5_flex").
 
 ``--served``: config 2's real frame (``chip_smoke.real_problem``, 64
 seeded states and node boxes, seeded by S) and the wave a served request
@@ -247,6 +257,53 @@ def stagewise_readings(seed=5):
         p32)
     out["probe converged share (r_prim_rel < 1e-3)"] = float(
         (p32.r_prim_rel < 1e-3).float().mean())
+    return out
+
+
+def flex_readings(seed=5):
+    """{shape and stage: {field: error}} of float32 against float64 at the
+    FLEX variants' shapes (see the module docstring)."""
+    import chip_smoke as cs
+
+    from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
+
+    floor = dict(cs.FLOOR)
+    names = ("x", "z", "y", "dy", "z_e", "y_e", "dy_e")
+
+    def errors(got, ref):
+        return {k: float(((g.double() - r.double()).abs()
+                          / r.double().abs().clamp_min(floor[k])).max())
+                for k, g, r in zip(names, got, ref) if g is not None}
+
+    def double(args):
+        a = [t.double() if isinstance(t, torch.Tensor) else t for t in args]
+        a[0] = tsw.stagewise_double(args[0])
+        return tuple(a)
+
+    orig, calls = tsw._admm_iterations, []
+
+    def record(*a, **kw):
+        calls.append(a)
+        return orig(*a, **kw)
+
+    out = {}
+    cpu = torch.device("cpu")
+    for tag, key, be, fb, hb, lb, ub, _ in cs.flex_waves(
+            cpu, np.random.default_rng(seed)):
+        calls.clear()
+        tsw._admm_iterations = record
+        try:
+            be.solve(fb, hb, lb, ub, cs.K5_RELAX)
+        finally:
+            tsw._admm_iterations = orig
+        args = calls[0]
+        held = cs.with_warm(args, orig(*args), cs.FLEX_HOLD_ITERS)
+        r32 = orig(*held)
+        out[f"{tag}, {cs.FLEX_HOLD_ITERS} it warm"] = errors(
+            r32, orig(*double(held)))
+        a = list(held)
+        a[1] = held[1] * (1 + 2.0 ** -23)
+        out[f"{tag}, one ulp of q (float32 both)"] = errors(orig(*a), r32)
     return out
 
 
@@ -476,9 +533,11 @@ def main(argv=None):
     ap.add_argument("--one-pass", action="store_true")
     ap.add_argument("--paths", action="store_true")
     ap.add_argument("--big-shapes", action="store_true")
+    ap.add_argument("--flex", action="store_true")
     a = ap.parse_args(argv)
     torch.set_num_threads(4)
     got = (stagewise_readings(a.seed) if a.stagewise
+           else flex_readings(a.seed) if a.flex
            else served_readings(a.seed) if a.served
            else decentralized_readings(a.seed) if a.decentralized
            else strong_branching_readings(a.seed) if a.strong_branching
