@@ -304,7 +304,29 @@ Run from the root of a checkout. It builds the kernels of
      (probe prep at ρ·10; waves capped at 4), one launch of the grouped
      variant a relaxation or probe, u₀'s spread over the scenarios below
      5e-3, the plan feasible in fp64 with the budget row where found; the
-     found share of each path.
+     found share of each path;
+ 37. K5 at any b and any number of extra rows (the runtime-r
+     instantiations, with the kernel phases after 35): a wave of nodes at
+     each shape past the register path, 20 iterations from the kernel's
+     own relaxation against the plain loop ("k5_any" at bmax 32 to 128,
+     "k5_rt" at b=5): fleets of 5 (b=20, N=8; also forced through grouped,
+     global and global_all), 8 (b=32, N=96: the battery_fleet path's
+     shape), 16 (b=64, N=48) and 32 batteries (b=128, N=24); four of
+     config 6's ω double integrators aggregated (b=20) in a tree of S=16
+     (grouped); config 6's long arm with 5, 20 and 300 extra rows (the last
+     with Aext, KiU and Cw in device memory); the plan's variant and
+     placement printed; the time of each alone, of its wrapper and of the
+     plain loop, the bound and the chain floor; then config 6's long arm
+     (one extra row) forced through the runtime-r path, bitwise the
+     register path's;
+ 38. the battery_fleet path (after 36): eight batteries aggregated, N=96,
+     20 horizon-coupled rows, the TOU price (``fleet_controller``), one
+     stagewise ``MpcController.feedback`` with the plain loop and sweeps
+     made to raise, every relaxation and probe one launch of K5's global
+     variant at bmax 32; found, objective (beside the JAX package's
+     FLEET_REF_OBJ), nodes, relaxations and probes, u₀, the solve's time,
+     a relaxation's and a probe's kernel time, and the plan's fp64
+     feasibility, extra rows included.
 
 Each phase prints its wall time, and the run its total. Launch counts are
 kept per path (PATHS): set to 0 just before each served request set, the
@@ -314,8 +336,8 @@ and the served stagewise requests, each ``run`` invocation, the
 checkpoint/resume study, each micro-grid run, the decentralized run and
 the examples, each path of the multi-device phase (summed over its
 ranks, each rank's counts set to 0 just before and read just after) and
-the mixed schedule's calls, the long-horizon solves and the wide trees,
-and read just after it; launches made to compare a kernel with its
+the mixed schedule's calls, the long-horizon solves, the wide trees and
+the battery fleet, and read just after it; launches made to compare a kernel with its
 plain version or with enumeration fall in none of them.
 A kernel's ``launches`` is its sum over these paths, ``launches_by_path``
 the counts apart, and ``on_main_path`` says whether a served request
@@ -323,8 +345,9 @@ launched it. Every kernel launches on some path, but for the L2-streamed
 K1 and K5 with every array in device memory (FORCED_ONLY), which must
 launch on none: no driven path gates a wave of a frame that no cluster
 holds, nor reaches a horizon past N≈3,300. On one card every stagewise
-solve runs K5 (config 6's paths its shared variant, the long horizons its
-global one, the wide trees its grouped one), K4's sweep inside it; K4 launches on its own on the stagewise tree
+solve runs K5 (config 6's paths its shared variant, the long horizons and
+the battery fleet its global one, the wide trees its grouped one), K4's
+sweep inside it; K4 launches on its own on the stagewise tree
 over ranks (phase 33). The L2-streamed K2 launches on the 4-agent
 micro-grid only.
 
@@ -433,7 +456,8 @@ PATHS = SERVED + ("pooled_bench_spec", "pooled_carried_incumbents",
                   "microgrid_M4", "decentralized", "examples",
                   "md_config5_pool", "md_di_pool", "md_feedback_batch",
                   "md_condense", "md_consensus_tree", "md_stagewise_tree",
-                  "md_nccl", "mixed_schedule", "long_horizon", "wide_tree")
+                  "md_nccl", "mixed_schedule", "long_horizon", "wide_tree",
+                  "battery_fleet")
 # peak rates of one H100 SXM at 700 W (NVIDIA data sheet): fp32 outside
 # the tensor cores, dense bf16 in them, HBM3
 PEAK = dict(fp32=67e12, bf16=989e12, hbm=3.35e12)
@@ -555,6 +579,24 @@ LIMITS = {
     "k5_flex": dict(x=4.3e-6, z=8.2e-6, y=2.9e-5, dy=4.6e-2, z_e=2.9e-5,
                     y_e=3.5e-5, dy_e=3.8e-2),
     "k5_flex_wide": dict(x=1.6e-5, z=3.2e-5, y=1e-4, dy=2.6e-2),
+    # K5 past its register path against the plain loop (phase 37): 20
+    # iterations from the kernel's own relaxation; 3x the largest reading
+    # of seeds 0-7 on an H100 80GB HBM3 at 700 W (tools/k4_readings.py
+    # --any). "k5_any": bmax 32 to 128 (the battery fleets at b = 20, 32,
+    # 64, 128; the ω double integrators' tree at b = 20): x 2.55e-5, z
+    # 8.80e-5, y 3.24e-5, dy 4.58e-2, z_e 1.84e-4, where the plain loop's
+    # own float32 against float64, or against itself after a one-ulp
+    # change of q, reads up to x 2.2e-5, z 9.1e-5, y 3.3e-5, dy 3.1e-2, z_e
+    # 3.5e-4 (tools/plain_noise.py --any, seeds 0-7, CPU); y_e and dy_e
+    # read 0 there (no budget row binds): "k5"'s limits. "k5_rt": b = 5
+    # with 5, 20 and 300 extra rows (config 6's long arm): x 1.91e-6, z
+    # 2.50e-6, y 8.05e-6, dy 1.91e-2, z_e 2.80e-6, y_e 2.53e-6, dy_e
+    # 9.54e-4, the plain loop's own up to x 1.4e-6, z 2.1e-6, y 8.3e-6, dy
+    # 1.3e-2, z_e 3.2e-6, y_e 2.0e-6, dy_e 9.8e-4
+    "k5_any": dict(x=7.7e-5, z=2.7e-4, y=9.8e-5, dy=0.14, z_e=5.6e-4,
+                   y_e=3.5e-5, dy_e=3.8e-2),
+    "k5_rt": dict(x=5.8e-6, z=7.5e-6, y=2.5e-5, dy=5.8e-2, z_e=8.4e-6,
+                  y_e=7.6e-6, dy_e=2.9e-3),
     # K2 at the surfaces' waves (phase 23), relaxation and probe, 3x the
     # largest reading of seeds 0-7 on an H100 (tools/surface_readings.py):
     # the micro-grid coordinator's aggregate frames (3 and 4 agents, N=24;
@@ -682,7 +724,11 @@ KERNEL_FUNCTIONS = (("admm", "phc_admm_k1"), ("admm", "phc_admm_k1_1pass"),
                     ("admm_mixed", "phc_admm_k1_mixed_1pass"),
                     ("stagewise", "phc_sw_solve_k"),
                     ("stagewise", "phc_sw_admm"),
-                    ("stagewise", "phc_sw_admm_flex"))
+                    ("stagewise", "phc_sw_admm_flex"),
+                    ("stagewise_wide", "phc_sw_admm"),
+                    ("stagewise_wide", "phc_sw_admm_flex"),
+                    ("stagewise_extra", "phc_sw_admm"),
+                    ("stagewise_extra", "phc_sw_admm_flex"))
 
 
 def kernel_ms(fn, reps=5):
@@ -708,7 +754,7 @@ def kernel_ms(fn, reps=5):
         return call
 
     saved = [(_build.load_library(lib), name) for lib, name in
-             KERNEL_FUNCTIONS]
+             KERNEL_FUNCTIONS if lib in _build.LIBRARIES]
     saved = [(lib, name, getattr(lib, name)) for lib, name in saved]
     fn()
     for lib, name, orig in saved:
@@ -5153,6 +5199,30 @@ def flex_waves(dev, rng):
     return out
 
 
+K5_FIELDS = ("x", "z", "y", "dy", "z_e", "y_e", "dy_e")
+
+
+def k5_plan_of(args, variant=None, runtime_r=None):
+    """(P, the plan) of a K5 call on ``args`` (those of ``sw_admm_cuda``),
+    ``variant`` and ``runtime_r`` forced as the wrapper's."""
+    from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
+
+    sw, M = args[0], args[11]
+    P = args[1].numel() // (sw.N * sw.b)
+    mean = M is not None and sw.n_cons > 0
+    return P, cs.plan_admm(P, sw.N, sw.b, sw.m_k, M.shape[0] if mean else 1,
+                           sw.n_blk, sw.n_ext, sw.n_cons, mean,
+                           variant=variant, runtime_r=runtime_r)
+
+
+def k5_err_into(rec, got, ref):
+    """The record's max_abs_err raised to the largest |got − ref|."""
+    rec["max_abs_err"] = max(
+        [rec.get("max_abs_err", 0.0)]
+        + [float((g - r).abs().max()) for g, r in zip(got, ref)
+           if g is not None])
+
+
 def with_warm(args, out, iters):
     """``sw_admm_cuda``'s arguments ``args`` warm from the carries ``out``
     (those it returned), for ``iters`` iterations."""
@@ -5183,23 +5253,10 @@ def phase_k5_flex(dev, rng, recs):
     from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
         assemble_stagewise_tree_ext)
 
-    names = ("x", "z", "y", "dy", "z_e", "y_e", "dy_e")
+    names = K5_FIELDS
+    plan_of, err_into = k5_plan_of, k5_err_into
     print("K5's grouped and global-state variants vs the plain loop:",
           flush=True)
-
-    def plan_of(args, variant=None):
-        sw, M = args[0], args[11]
-        P = args[1].numel() // (sw.N * sw.b)
-        mean = M is not None and sw.n_cons > 0
-        return P, cs.plan_admm(P, sw.N, sw.b, sw.m_k,
-                               M.shape[0] if mean else 1, sw.n_blk,
-                               sw.n_ext, sw.n_cons, mean, variant=variant)
-
-    def err_into(rec, got, ref):
-        rec["max_abs_err"] = max(
-            [rec.get("max_abs_err", 0.0)]
-            + [float((g - r).abs().max()) for g, r in zip(got, ref)
-               if g is not None])
 
     for tag, key, be, fb, hb, lb, ub, kernel in flex_waves(dev, rng):
         with k5_calls() as calls:
@@ -5301,6 +5358,351 @@ def phase_k5_flex(dev, rng, recs):
                   f"ms", flush=True)
 
 
+# battery_fleet: fleet dispatch of storage over a day, the use the
+# stagewise frame is for (docs/MIGRATION.md:131-151, long horizons). Eight
+# default batteries (models/battery.py: nx 1, nv 3, b 4 each) aggregated
+# (mld/compose.aggregate_mld) with the feeder limit |Σ_i p_i| ≤
+# FLEET_FEEDER kW as coupling rows: b = 32, m = 122 a stage, 8 binaries a
+# stage; a day at BatteryParams.Ts_h (N = 96) on the stagewise frame; the
+# horizon-coupled rows one export cap a battery (−Σ_k p_i,k ≤
+# FLEET_EXPORT) and one import cap a window of FLEET_WINDOW steps (Σ over
+# the window and the batteries ≤ FLEET_IMPORT), 8 + 12 = 20; the TOU price
+# of models/grid.default_tou_profile on each p; SoC from 0.3 to 0.7.
+FLEET_M, FLEET_N = 8, 96
+FLEET_FEEDER, FLEET_EXPORT, FLEET_IMPORT, FLEET_WINDOW = 20.0, 20.0, 96.0, 8
+FLEET_SPEC = dict(capacity=256, wave_size=8, max_waves=8, qp_iters=150,
+                  probe_iters=1000)
+# the JAX package's objective on this setup on the CPU (a reading printed
+# beside the port's; JAX_PLATFORMS=cpu python tools/fleet_reference.py)
+FLEET_REF_OBJ = -24.408065795898438
+
+
+# ---- K5 at any b and r -----------------------------------------------------
+
+# the shapes past the register path (phase 37): battery fleets (M
+# batteries, N steps; fleet_controller) at b = 20, 32 (battery_fleet's),
+# 64 and 128; the first also forced through ANY_FORCED
+ANY_FLEETS = ((5, 8), (8, FLEET_N), (16, 48), (32, 24))
+ANY_FORCED = ("grouped", "global", "global_all")
+# four of config 6's ω double integrators aggregated (b = 20, nω = 4) in a
+# tree of S = 16 branching at ANY_TREE_STEPS of N = ANY_TREE_N, a budget
+# Σ_k u_i,k ≤ ANY_TREE_BUDGET a unit (4 extra rows)
+ANY_TREE_UNITS, ANY_TREE_S, ANY_TREE_N = 4, 16, 24
+ANY_TREE_STEPS, ANY_TREE_BUDGET = (1, 6, 12, 18), 12.0
+# config 6's long arm with this many extra rows (config6_rows)
+CFG6_EXT_ROWS = (5, 20, 300)
+
+
+def config6_rows(r, N=CFG6_N):
+    """``r`` horizon-coupled rows on config 6's u: Σ_k u_k over a window
+    at most the window's share of CFG6_BUDGET; r ≤ N windows tile the
+    horizon, past N row j takes 1 + j div N steps from step j mod N."""
+    import numpy as np
+
+    A_v, b = np.zeros((r, N * 3)), np.zeros(r)
+    for j in range(r):
+        k0, k1 = ((j * N // r, (j + 1) * N // r) if r <= N
+                  else (j % N, min(N, j % N + 1 + j // N)))
+        A_v[j, 3 * k0:3 * k1:3] = 1.0
+        b[j] = CFG6_BUDGET * (k1 - k0) / N
+    return (A_v, b, None, None)
+
+
+def omega_fleet_tree(dev):
+    """(stagewise tree prep, x0) of ANY_TREE_UNITS of config 6's ω double
+    integrators aggregated, on a tree of ANY_TREE_S scenarios
+    (tree-consistent paths of sd 0.2 from default_rng(ANY_TREE_S), one
+    disturbance channel a unit) with a budget row a unit."""
+    import numpy as np
+
+    from pyhybridcontrol_tpu_torch.mld.compose import aggregate_mld
+    from pyhybridcontrol_tpu_torch.models import di_default_weights
+    from pyhybridcontrol_tpu_torch.ops.condense import MpcWeights
+    from pyhybridcontrol_tpu_torch.ops.scenario_tree import (
+        ScenarioTree, tree_consistent_paths)
+    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+        prepare_stagewise_tree)
+
+    n, N = ANY_TREE_UNITS, ANY_TREE_N
+    model = aggregate_mld([omega_model() for _ in range(n)])
+    w0 = di_default_weights()
+    w = MpcWeights(Qx=np.tile(w0.Qx, n), QxN=np.tile(w0.QxN, n),
+                   Ru=np.tile(w0.Ru, n), qdelta=np.tile(w0.qdelta, n))
+    rng = np.random.default_rng(ANY_TREE_S)
+    tree = ScenarioTree.from_branching(
+        tree_consistent_paths(rng, ANY_TREE_S, N, ANY_TREE_STEPS, sd=0.2,
+                              nomega=n), branch_steps=ANY_TREE_STEPS)
+    nv = model.info.nv
+    A_v = np.zeros((n, N * nv))
+    for i in range(n):
+        A_v[i, i::nv] = 1.0
+    swt = prepare_stagewise_tree(
+        model, tree, w, device=dev,
+        extra=(A_v, np.full(n, ANY_TREE_BUDGET), None, None))
+    x0 = np.concatenate([[2.0 * f, 0.0] for f in np.linspace(0.5, 1.4, n)])
+    return swt, x0
+
+
+def fleet_wave(dev, rng, M, N):
+    """(controller, backend, f, h, lb, ub): a wave of FLEET_SPEC's size at
+    an M-battery fleet's frame (its price and x0), K4_HOLD_FIX of the
+    binaries fixed at random."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops.stagewise import (
+        assemble_stagewise, assemble_stagewise_ext)
+    from pyhybridcontrol_tpu_torch.solver.bnb_stagewise import (
+        StagewiseBackend, pack_stagewise_data)
+
+    c, price, x0, _ = fleet_controller(M, N, dev)
+    xt = torch.as_tensor(x0, dtype=torch.float32, device=dev)
+    pt = torch.as_tensor(price, dtype=torch.float32, device=dev)
+    be = StagewiseBackend(c._sw, ext_u=assemble_stagewise_ext(c._sw, xt))
+    f, h = pack_stagewise_data(*assemble_stagewise(c._sw, xt, price_seq=pt))
+    return (c, be, *wave_boxes(be, f, h, FLEET_SPEC["wave_size"], rng,
+                               K4_HOLD_FIX))
+
+
+def any_waves(dev, rng):
+    """(tag, backend, f, h, lb, ub, variant, forced, regime) of a wave of
+    nodes at each shape of phase 37: the plan's variant expected, the
+    variants also held forced, the limits."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+        StagewiseTreeBackend, assemble_stagewise_tree,
+        assemble_stagewise_tree_ext, pack_stagewise_tree_data)
+
+    out = []
+    for M, N in ANY_FLEETS:
+        c, be, fb, hb, lb, ub = fleet_wave(dev, rng, M, N)
+        out.append((f"{M} batteries, N={N}", be, fb, hb, lb, ub,
+                    "shared" if M == 5 else "global",
+                    ANY_FORCED if M == 5 else (), "k5_any"))
+    swt, x0 = omega_fleet_tree(dev)
+    xt = torch.as_tensor(x0, dtype=torch.float32, device=dev)
+    be = StagewiseTreeBackend(swt,
+                              ext_u=assemble_stagewise_tree_ext(swt, xt))
+    f, h = pack_stagewise_tree_data(*assemble_stagewise_tree(swt, xt))
+    out.append((f"{ANY_TREE_UNITS} ω double integrators, S={ANY_TREE_S}, "
+                f"N={ANY_TREE_N}", be,
+                *wave_boxes(be, f, h, 8, rng, K4_HOLD_FIX), "grouped", (),
+                "k5_any"))
+    tree_l = config6_trees()[1]
+    x6 = torch.tensor(X0_6, device=dev)
+    for r in CFG6_EXT_ROWS:
+        swt = config6_preps(dev, tree_l, config6_rows(r))[0]
+        eu = assemble_stagewise_tree_ext(swt, x6)
+        out.append((f"config 6 long arm, {r} extra rows",
+                    *node_wave(swt, eu, rng, CFG6_SPEC["wave_size"],
+                               K4_HOLD_FIX), "shared", (), "k5_rt"))
+    return out
+
+
+def describe_plan(pl):
+    """A K5 plan in words."""
+    where = [n for bit, n in ((2, "Aext/KiU"), (4, "Cw"), (16, "J/Mc"),
+                              (8, "the r-vectors")) if pl.ext & bit]
+    return (f"{pl.variant}, bmax {pl.bmax}, "
+            + ("register path" if not pl.ext else "runtime r" + (
+                f" ({', '.join(where)} in device memory)" if where else ""))
+            + f", {'staged' if pl.staged else 'factors through L2'}, "
+            f"{32 * pl.warps} threads and {pl.smem} bytes a CTA, "
+            f"{pl.spc} scenario(s) a CTA, clusters of {pl.cluster}")
+
+
+def phase_k5_any(dev, rng, recs):
+    """K5 past its register path against the plain loop
+    (``_admm_iterations``, the plain sweeps, on the card) at every shape
+    of ``any_waves``: FLEX_HOLD_ITERS iterations from the kernel's own
+    relaxation (K5_RELAX iterations, cold), within "k5_any" (bmax 32 to
+    128) or "k5_rt" (b = 5 with more than 4 extra rows); the plan's
+    variant must be the one named, on the runtime-r path; at the five
+    batteries also grouped, global and global_all forced. Each held
+    instantiation goes into its variant's record (``instantiations``),
+    with (TIMINGS) its time alone and around the wrapper at the held
+    iterations and alone at a relaxation's, the plain loop's, the bounds
+    and the chain floors. Then config 6's long-arm wave (one extra row)
+    through the runtime-r path forced against the register path, a whole
+    relaxation warm: every carry bitwise equal (each sum the same in the
+    same order; b = 5 runs in bmax 8's generic instantiation, whose padded
+    columns add exact zeros)."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
+    from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
+    from pyhybridcontrol_tpu_torch.ops.cuda_stagewise import sw_solve_k_cuda
+    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+        assemble_stagewise_tree_ext)
+
+    print("K5 at any b and any number of extra rows vs the plain loop:",
+          flush=True)
+    for tag, be, fb, hb, lb, ub, want, forced, regime in any_waves(dev,
+                                                                  rng):
+        with k5_calls() as calls:
+            be.solve(fb, hb, lb, ub, K5_RELAX)
+        args = calls[0]
+        sw = args[0]
+        P, pl = k5_plan_of(args)
+        check(pl.variant == want and pl.ext,
+              f"{tag}: the plan is {pl}, not {want} on the runtime-r path")
+        out = cs.sw_admm_cuda(*args)
+        held_args = with_warm(args, out, FLEX_HOLD_ITERS)
+        ref = tsw._admm_iterations(*held_args)
+        plain_ms = (cuda_ms(lambda: tsw._admm_iterations(*held_args))
+                    if TIMINGS else None)
+        for variant in (None,) + forced:
+            pv = k5_plan_of(args, variant)[1]
+            got = cs.sw_admm_cuda(*held_args, variant=variant)
+            held(f"{tag} (b={sw.b}, m={sw.m_k}, n_ext={sw.n_ext}), P={P} "
+                 f"({FLEX_HOLD_ITERS} it warm); {describe_plan(pv)}", regime,
+                 {k: (g, r) for k, g, r in zip(K5_FIELDS, got, ref)
+                  if g is not None})
+            rec = recs[cs.ADMM_LAUNCH[pv.variant]]
+            k5_err_into(rec, got, ref)
+            entry = dict(shape=tag, b=sw.b, N=sw.N, m=sw.m_k,
+                         n_ext=sw.n_ext, P=P, variant=pv.variant,
+                         bmax=pv.bmax, ext=pv.ext, staged=pv.staged,
+                         threads=32 * pv.warps, smem=pv.smem,
+                         max_abs_err=max(float((g - r).abs().max())
+                                         for g, r in zip(got, ref)
+                                         if g is not None))
+            rec.setdefault("instantiations", []).append(entry)
+            if not TIMINGS:
+                continue
+
+            def wrapper():
+                return cs.sw_admm_cuda(*held_args, variant=variant)
+
+            entry.update(
+                ms=cuda_ms(wrapper), kernel_ms=kernel_ms(wrapper),
+                plain_ms=plain_ms, bound_ms=bound(*k5_work(held_args))[0],
+                chain_ms=FLEX_HOLD_ITERS * k4_chain_ms(sw.N, sw.b),
+                relax_kernel_ms=kernel_ms(
+                    lambda: cs.sw_admm_cuda(*args, variant=variant), reps=3),
+                relax_bound_ms=bound(*k5_work(args))[0],
+                relax_chain_ms=K5_RELAX * k4_chain_ms(sw.N, sw.b))
+            print(f"    {pv.variant}: wrapper {entry['ms']:.3f} ms, alone "
+                  f"{entry['kernel_ms']:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"bound {entry['bound_ms']:.4f} ms, chain floor "
+                  f"{entry['chain_ms']:.3f} ms ({FLEX_HOLD_ITERS} it); the "
+                  f"relaxation ({K5_RELAX} it) alone "
+                  f"{entry['relax_kernel_ms']:.3f} ms, bound "
+                  f"{entry['relax_bound_ms']:.4f} ms, chain floor "
+                  f"{entry['relax_chain_ms']:.3f} ms", flush=True)
+            if variant is None:
+                # the share of an iteration that is its sweep: K4 alone
+                # on the same factors (staged as K5's plan), one solve
+                t = torch.randn((P, sw.N, sw.b), device=dev)
+                entry["k4_sweep_ms"] = kernel_ms(
+                    lambda: sw_solve_k_cuda(t, sw.factors, pv.staged))
+                print(f"    K4's sweep alone on these factors "
+                      f"({'staged' if pv.staged else 'through L2'}): "
+                      f"{1e3 * entry['k4_sweep_ms']:.1f} µs a solve, K5 "
+                      f"{1e3 * entry['kernel_ms'] / FLEX_HOLD_ITERS:.1f} µs "
+                      f"an iteration", flush=True)
+
+    # the runtime-r path forced at config 6's long arm against the
+    # register path
+    tree_l = config6_trees()[1]
+    swt, _ = config6_preps(dev, tree_l, config6_extra(CFG6_N))
+    eu = assemble_stagewise_tree_ext(swt, torch.tensor(X0_6, device=dev))
+    be, fb, hb, lb, ub = node_wave(swt, eu, rng, CFG6_SPEC["wave_size"],
+                                   K4_HOLD_FIX)
+    with k5_calls() as calls:
+        r0 = be.solve(fb, hb, lb, ub, K5_RELAX)
+        be.solve(fb, hb, lb, ub, K5_RELAX, warm=(r0.x, r0.z, r0.y))
+    args = calls[1]
+    P, pl = k5_plan_of(args)
+    pr = k5_plan_of(args, runtime_r=True)[1]
+    check(pl.variant == "shared" and not pl.ext and pr.ext,
+          f"config 6's long arm: plans {pl} / {pr}")
+    want = cs.sw_admm_cuda(*args)
+    got = cs.sw_admm_cuda(*args, runtime_r=True)
+    same = [k for k, g, w in zip(K5_FIELDS, got, want)
+            if g is not None and torch.equal(g, w)]
+    print(f"  config 6 long arm, P={P}, relaxation warm ({K5_RELAX} it): "
+          f"the runtime-r path ({describe_plan(pr)}) bitwise the register "
+          f"path's on {same}", flush=True)
+    check(len(same) == sum(g is not None for g in got),
+          "config 6 long arm: the runtime-r path differs from the register "
+          "path at one extra row")
+    BITWISE[0] += 1
+    if TIMINGS:
+        r = recs["stagewise_k5"]
+        r["cfg6_runtime_r_kernel_ms"] = kernel_ms(
+            lambda: cs.sw_admm_cuda(*args, runtime_r=True))
+        r["cfg6_register_kernel_ms"] = kernel_ms(
+            lambda: cs.sw_admm_cuda(*args))
+        print(f"    alone {r['cfg6_runtime_r_kernel_ms']:.3f} ms, the "
+              f"register path {r['cfg6_register_kernel_ms']:.3f} ms",
+              flush=True)
+
+
+def phase_battery_fleet(dev):
+    """The battery_fleet path through the entry point a user calls, with
+    the plain loop and sweeps made to raise: ``fleet_controller``'s
+    eight-battery fleet (N=96, 20 extra rows, b=32), one stagewise
+    ``MpcController.feedback`` from its x0 with its TOU price; every
+    relaxation and probe one launch of K5's global variant (bmax 32, the
+    runtime-r path). Prints found, the objective beside the JAX package's
+    (FLEET_REF_OBJ), nodes, relaxations and probes, u₀ and the solve's
+    time; then a relaxation's and a probe's kernel time (their recorded
+    launches again); the plan in fp64 (dynamics, stage rows, binaries,
+    box, and the 20 extra rows) within FEAS_TOL."""
+    import numpy as np
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
+
+    c, price, x0, (A_v, b_e) = fleet_controller(FLEET_M, FLEET_N, dev)
+    sw = c._sw
+
+    def solve():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = c.feedback(x0, price_seq=price)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    with no_plain_sweep(), solve_calls() as n, k5_calls() as calls:
+        (r, sec), _ = drive("battery_fleet", solve)
+    only_k5("battery_fleet", 1, n[0], kernel="stagewise_k5_global")
+    its = [a[10] for a in calls]
+    relax = [a for a in calls if a[10] == FLEET_SPEC["qp_iters"]]
+    probes = [a for a in calls if a[10] == FLEET_SPEC["probe_iters"]]
+    pl = k5_plan_of(calls[0])[1]
+    obj = float(r.obj)
+    rel = abs(obj - FLEET_REF_OBJ) / abs(FLEET_REF_OBJ)
+    print(f"battery_fleet, {FLEET_M} batteries N={FLEET_N} (b={sw.b}, "
+          f"m={sw.m_k}, n_ext={sw.n_ext}; {describe_plan(pl)}): "
+          f"{sec:.2f} s, found {bool(r.found)}, {int(r.nodes)} nodes, "
+          f"{len(relax)} relaxations and {len(probes)} probes (iterations "
+          f"{sorted(set(its))}), objective {obj:.6f} (the JAX package on "
+          f"the CPU: {FLEET_REF_OBJ:.6f}, relative difference {rel:.2e}), "
+          f"u0 {r.u.cpu().numpy().tolist()}", flush=True)
+    check(bool(r.found), "battery_fleet: no plan found")
+    ms = {}
+    for key, group in (("relaxation", relax), ("probe", probes)):
+        if group:
+            ms[key] = kernel_ms(lambda: cs.sw_admm_cuda(*group[0]), reps=3)
+    print(f"  battery_fleet: {1e3 * sec:.1f} ms a solve; K5 alone "
+          + ", ".join(f"{v:.3f} ms a {k}" for k, v in ms.items()),
+          flush=True)
+    xi = torch.cat([r.v_seq, r.x_seq], dim=1).double().cpu().numpy()
+    sw_plan_feasible("battery_fleet plan", c.model, x0, xi)
+    over = float((A_v @ xi[:, :sw.nv].reshape(-1) - b_e).max())
+    print(f"  battery_fleet plan: extra rows max(A_v·V − b) = {over:.2e} "
+          f"(limit {FEAS_TOL:g})", flush=True)
+    check(over <= FEAS_TOL, "battery_fleet: the plan breaks an extra row")
+    return dict(M=FLEET_M, N=FLEET_N, s=sec, found=bool(r.found), obj=obj,
+                ref_obj=FLEET_REF_OBJ, nodes=int(r.nodes),
+                relaxations=len(relax), probes=len(probes),
+                u0=r.u.cpu().numpy().tolist(),
+                relax_kernel_ms=ms.get("relaxation"),
+                probe_kernel_ms=ms.get("probe"), extra_rows_over=over)
+
+
 def sw_plan_feasible(tag, model, x0, xi, tol=FEAS_TOL):
     """A single-scenario stagewise plan xi (N, b) in fp64
     (``plan6_feasible`` with one scenario and no disturbance)."""
@@ -5311,6 +5713,59 @@ def sw_plan_feasible(tag, model, x0, xi, tol=FEAS_TOL):
         S=1, N=N, omega_paths=np.zeros((1, N, model.info.nomega)),
         groups=np.zeros((1, N), dtype=int))
     plan6_feasible(tag, model, one, x0, np.asarray(xi)[None], tol=tol)
+
+
+def fleet_arrays(M, N, nv, tou, Ts_h, window=FLEET_WINDOW):
+    """The numpy pieces of an M-battery fleet (shared with
+    tools/fleet_reference.py, which builds the same on the JAX package):
+    the coupling rows' F1 (2, M) and f5 (2,); the extra rows' A_v
+    (n_ext, N·nv) over v stacked by step (p_i,k at k·nv + i) and b
+    (n_ext,); price_seq (N, nv) (tou·Ts_h on each p); x0 (M,)."""
+    import numpy as np
+
+    rows = []
+    for i in range(M):
+        a = np.zeros(N * nv)
+        a[np.arange(N) * nv + i] = -1.0
+        rows.append(a)
+    for k0 in range(0, N, window):
+        a = np.zeros(N * nv)
+        for k in range(k0, min(N, k0 + window)):
+            a[k * nv:k * nv + M] = 1.0
+        rows.append(a)
+    rhs = np.array([FLEET_EXPORT] * M + [FLEET_IMPORT] * (len(rows) - M))
+    price = np.zeros((N, nv))
+    price[:, :M] = (np.asarray(tou, np.float64) * Ts_h)[:, None]
+    return (np.vstack([np.ones(M), -np.ones(M)]), np.full(2, FLEET_FEEDER),
+            np.array(rows), rhs, price, np.linspace(0.3, 0.7, M))
+
+
+def fleet_controller(M, N, dev, window=FLEET_WINDOW, spec=FLEET_SPEC):
+    """(built stagewise MpcController, price_seq, x0, (A_v, b)) of an
+    M-battery fleet over N steps (``fleet_arrays``)."""
+    import numpy as np
+
+    from pyhybridcontrol_tpu_torch.control.mpc import MpcController
+    from pyhybridcontrol_tpu_torch.mld.compose import aggregate_mld
+    from pyhybridcontrol_tpu_torch.models.battery import (
+        BatteryParams, battery_model, battery_weights)
+    from pyhybridcontrol_tpu_torch.models.grid import default_tou_profile
+    from pyhybridcontrol_tpu_torch.ops.condense import MpcWeights
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    p = BatteryParams()
+    one = battery_model(p)
+    F1, f5, A_v, b_e, price, x0 = fleet_arrays(
+        M, N, M * one.info.nv, default_tou_profile(N), p.Ts_h, window)
+    model = aggregate_mld([battery_model(p) for _ in range(M)],
+                          coupling_F1=F1, coupling_f5=f5)
+    bw = battery_weights()
+    w = MpcWeights(Qx=np.tile(bw.Qx, M), x_ref=np.tile(bw.x_ref, M),
+                   Ru=np.tile(bw.Ru, M))
+    c = MpcController(model, N, w, solver="stagewise",
+                      bnb_spec=BnbSpec(**spec), device=dev)
+    c.set_extra_constraints(A_v, b_e)
+    return c.build(), price, x0, (A_v, b_e)
 
 
 def phase_wide_paths(dev):
@@ -6438,6 +6893,7 @@ def main(argv=None):
     phase("K4", phase_k4, dev, phase_rng("k4"), recs["stagewise_k4"])
     phase("K5", phase_k5, dev, phase_rng("k5"), recs["stagewise_k5"])
     phase("K5 variants", phase_k5_flex, dev, phase_rng("k5_flex"), recs)
+    phase("K5 at any b and r", phase_k5_any, dev, phase_rng("k5_any"), recs)
     phase("K2 at the surfaces' waves", phase_surface_shapes, dev,
           phase_rng("surface_shapes"), recs)
     phase("K1 at the strong-branching batch", phase_sb_batch, dev,
@@ -6483,6 +6939,8 @@ def main(argv=None):
     calls["config6"] = phase("config 6", phase_config6, dev)
     calls["wide"] = phase("long horizons and wide trees", phase_wide_paths,
                           dev)
+    calls["battery_fleet"] = phase("battery fleet", phase_battery_fleet,
+                                   dev)
     calls["run"] = phase("run CLI", phase_run_cli, dev)
     calls["micro_grid"] = phase("micro-grid", phase_micro_grid, dev)
     calls["decentralized"] = phase("decentralized micro-grid",

@@ -122,9 +122,42 @@
 //    same layout, so that a warp's stages coalesce. The bound stays the
 //    chain; the state's loads move off chip, the factors come through L2
 //    once they no longer fit beside it.
+//
+// K5 at any b and r (the runtime-r path, RDYN). The register path holds
+// six bmax-wide arrays a thread in its row work and the extra rows in
+// kRMax-sized registers, which caps it at bmax 16 (231–249 registers
+// there) and r ≤ 4. Past either the same kernel runs its runtime-r
+// instantiations:
+//  - z_e, y_e, the Woodbury coefficient corr and wsum = Aext·K⁻¹t are
+//    r-word arrays. wsum takes one warp a row of Aext, corr one thread a
+//    row of Cw, then x is corrected in place; pe = Aext·x is summed in the
+//    register path's order (each thread its stages, a warp's lanes, the
+//    warps in turn) by one warp that emulates the slot's warps, and the
+//    same warp updates that row's z_e, y_e. Four barriers an iteration
+//    more; at r = 1 every sum is the register path's, in its order.
+//  - Aext and KiU, Cw, and the r-vectors (with ρₑ) lie in shared memory
+//    where they fit beside the state, else in device memory (ext's bits,
+//    which the plan sets by size; no cap on r).
+//  - Above bmax 16 (WIDE) the row work changes layout: a stage's rows over
+//    its lane group, each row's J ξ_k + M_k ξ_{k−1} summed over the b
+//    columns of x where it lies, its w = ρz − y kept in an array beside z;
+//    then, after the group's __syncwarp, the stage's columns over the
+//    same lanes in fours, each summing its share of t_k and mb_{k−1} over
+//    the rows. J and Mc are rows of b words (in shared memory where they
+//    fit). No thread holds a bmax-wide array; the sweep is K4's
+//    sweep_wide.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+// Which of K5's instantiations this library holds (admm_dispatch): 0, this
+// source built alone, K4 and K5's register path at bmax 8 and 16; 1
+// (stagewise_wide.cu) K5 at bmax 32, 64 and 128; 2 (stagewise_extra.cu)
+// K5's runtime-r path at bmax 8 and 16. Three libraries, so that nvcc
+// builds the parts side by side.
+#ifndef PHC_SW_PART
+#define PHC_SW_PART 0
+#endif
 
 #include <cstddef>
 #include <cstdint>
@@ -135,8 +168,16 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxWarps = 4;
-constexpr int kRMax = 4;          // extra (horizon-coupled) rows K5 takes
+constexpr int kRMax = 4;          // extra rows K5's register path takes
 constexpr int kMaxCluster = 16;   // CTAs a K5 cluster (non-portable above 8)
+// K5's runtime-r path (any number of extra rows; every bmax above 16):
+// the bit that selects it, and the arrays it reads from device memory
+// where they do not fit beside the state (the plan sets them by size)
+constexpr int kExtRt = 1;    // r at runtime: z_e, y_e, sv, corr in arrays
+constexpr int kExtAK = 2;    // Aext and KiU read from device memory
+constexpr int kExtCw = 4;    // Cw read from device memory
+constexpr int kExtVec = 8;   // ρₑ, and z_e, y_e, sv, corr in ext_ws
+constexpr int kExtJM = 16;   // bmax above 16: J and Mc in device memory
 // the most threads a K5 CTA has: 512 at BMAX 8, 256 at 16 (the per-stage
 // register arrays double)
 constexpr int admm_max_threads(int bmax) { return bmax <= 8 ? 512 : 256; }
@@ -449,6 +490,9 @@ extern "C" {
 // and quadratic penalties, by row then stage; Aext (n_ext, N, b), KiU
 // (N, b, n_ext), Cw (n_ext, n_ext), rho_e (n_ext); gM (S, S, N) the group
 // mean's weights (mean = 1; problem p is scenario p mod S of its group).
+// ext 0 runs the register path (n_ext ≤ 4, bmax 8 or 16); else kExtRt and
+// the placement bits; ext_ws (P, 4·pad4(n_ext)) holds the runtime-r
+// path's vectors where kExtVec is set.
 struct PhcSwAdmmArgs {
   const float* q;
   const float* l;
@@ -481,53 +525,73 @@ struct PhcSwAdmmArgs {
   float* dye;
   int P, N, b, m, S, n_blk, blk0, n_ext, n_cons, mean, iters;
   float sigma, alpha;
+  float* ext_ws;
+  int ext;
 };
 
 }  // extern "C"
 
 namespace {
 
+// words of J and of Mc in shared memory: rows of bmax words up to bmax 16
+// (read as 16-byte broadcasts into registers), rows of b words above
+// (read where they lie), none where ext reads them from device memory
+__host__ __device__ inline size_t jm_words(int m, int b, int bmax, int ext) {
+  return bmax <= 16 ? pad4((size_t)m * bmax)
+                    : (ext & kExtJM ? 0 : pad4((size_t)m * b));
+}
+
+// words of a scenario's Woodbury coefficient and extra-row vectors in
+// shared memory: kRMax on the register path; corr, sv, z_e and y_e (r
+// each) on the runtime-r path, none where they are in ext_ws
+__host__ __device__ inline size_t vec_words(int r, int ext) {
+  return !ext ? kRMax : (ext & kExtVec ? 0 : 4 * pad4(r));
+}
+
 // word offsets of a K5 CTA's shared memory; every array starts at a
 // multiple of 4 words: the constants, the scenario's group-mean weights,
-// its z, y, l, u (by row, then stage), t (y in place), mb, x, the
-// consensus rows' buffers (two, with a group mean), the Woodbury
-// coefficient and the per-warp sums
+// its z, y, l, u (by row, then stage; above bmax 16 also w = ρz − y), t
+// (y in place), mb, x, the consensus rows' buffers (two, with a group
+// mean), the Woodbury coefficient and the per-warp sums (the register
+// path) or the runtime-r vectors; ext's arrays in device memory take none
 struct AdmmLayout {
-  size_t L, U, C, J, Mc, tie, blk, Aext, KiU, Cw, rho_e, gM, z, y, l, u, t,
-      mb, xb, cb, corr, red, total;
+  size_t L, U, C, J, Mc, tie, blk, Aext, KiU, Cw, rho_e, gM, z, y, l, u, w,
+      t, mb, xb, cb, corr, red, total;
 };
 
 __host__ __device__ inline AdmmLayout admm_layout(int N, int b, int m, int S,
                                                   int n_blk, int r,
                                                   int n_cons, int mean,
                                                   int warps, int staged,
-                                                  int bmax) {
+                                                  int bmax, int ext) {
   AdmmLayout a;
   size_t o = 0;
   const size_t f = staged ? pad4((size_t)N * b * b) : 0;
   const size_t zn = pad4((size_t)m * N), tn = pad4((size_t)N * b);
+  const bool ak = !(ext & kExtAK);              // Aext and KiU staged
   a.L = o; o += f;
   a.U = o; o += f;
   a.C = o; o += f;
-  a.J = o; o += pad4((size_t)m * bmax);
-  a.Mc = o; o += pad4((size_t)m * bmax);
+  a.J = o; o += jm_words(m, b, bmax, ext);
+  a.Mc = o; o += jm_words(m, b, bmax, ext);
   a.tie = o; o += pad4((size_t)N * n_blk);
   a.blk = o; o += pad4(n_blk);
-  a.Aext = o; o += pad4((size_t)r * N * b);
-  a.KiU = o; o += pad4((size_t)N * b * r);
-  a.Cw = o; o += pad4((size_t)r * r);
-  a.rho_e = o; o += pad4(r);
+  a.Aext = o; o += ak ? pad4((size_t)r * N * b) : 0;
+  a.KiU = o; o += ak ? pad4((size_t)N * b * r) : 0;
+  a.Cw = o; o += ext & kExtCw ? 0 : pad4((size_t)r * r);
+  a.rho_e = o; o += ext & kExtVec ? 0 : pad4(r);
   a.gM = o; o += mean ? pad4((size_t)S * N) : 0;
   a.z = o; o += zn;
   a.y = o; o += zn;
   a.l = o; o += zn;
   a.u = o; o += zn;
+  a.w = o; o += bmax > 16 ? zn : 0;
   a.t = o; o += tn;
   a.mb = o; o += tn;
   a.xb = o; o += tn;
   a.cb = o; o += mean ? 2 * pad4((size_t)N * n_cons) : 0;
-  a.corr = o; o += kRMax;
-  a.red = o; o += (size_t)kRMax * warps;
+  a.corr = o; o += vec_words(r, ext);
+  a.red = o; o += ext ? 0 : (size_t)kRMax * warps;
   a.total = o;
   return a;
 }
@@ -614,6 +678,49 @@ __device__ inline void group_sum(float (&v)[BMAX], int tps) {
     for (int c = 0; c < BMAX; ++c) v[c] += __shfl_xor_sync(kFull, v[c], o);
 }
 
+// add_ext of the runtime-r path: z_e and y_e in arrays, r at runtime, the
+// same sums in the same order
+template <int BMAX>
+__device__ inline void add_ext_rt(float (&acc)[BMAX], const float* Aext,
+                                  const float* rho_e, const float* ze,
+                                  const float* ye, int k, int N, int b,
+                                  int r) {
+  for (int j = 0; j < r; ++j) {
+    const float we = rho_e[j] * ze[j] - ye[j];
+#pragma unroll
+    for (int c = 0; c < BMAX; ++c)
+      if (c < b) acc[c] = fmaf(Aext[(j * N + k) * b + c], we, acc[c]);
+  }
+}
+
+// Σ_c a[c]·x[c] over the b columns in order (16-byte loads where b is a
+// multiple of 4; a and x then 16-byte aligned)
+__device__ inline float dot_cols(const float* a, const float* x, int b) {
+  float s = 0.0f;
+  if ((b & 3) == 0) {
+    for (int c = 0; c < b; c += 4) {
+      const float4 u = *reinterpret_cast<const float4*>(a + c);
+      const float4 v = *reinterpret_cast<const float4*>(x + c);
+      s = fmaf(u.x, v.x, s);
+      s = fmaf(u.y, v.y, s);
+      s = fmaf(u.z, v.z, s);
+      s = fmaf(u.w, v.w, s);
+    }
+  } else {
+    for (int c = 0; c < b; ++c) s = fmaf(a[c], x[c], s);
+  }
+  return s;
+}
+
+// four entries of a row from c0 on (16-byte loads where b is a multiple of
+// 4), zero past b
+__device__ inline float4 load4(const float* row, int c0, int b) {
+  if ((b & 3) == 0) return *reinterpret_cast<const float4*>(row + c0);
+  return make_float4(c0 < b ? row[c0] : 0.0f, c0 + 1 < b ? row[c0 + 1] : 0.0f,
+                     c0 + 2 < b ? row[c0 + 2] : 0.0f,
+                     c0 + 3 < b ? row[c0 + 3] : 0.0f);
+}
+
 // ---- K5's grouped and global-state variants (FLEX) ----
 //
 // Where a node's S scenarios are more than a portable cluster holds, or a
@@ -647,11 +754,12 @@ struct AdmmFlex {
 };
 
 // word offsets of a FLEX CTA's shared memory (the constants, then spc
-// slots of `slot` words) and of a problem's scratch: z … cb in the slot or
-// in the scratch by place, corr and red always in the slot
+// slots of `slot` words) and of a problem's scratch: z … cb (w with z
+// above bmax 16) in the slot or in the scratch by place, corr and red in
+// the slot (the runtime-r vectors in ext_ws where ext says so)
 struct FlexLayout {
   size_t L, U, C, J, Mc, tie, blk, Aext, KiU, Cw, rho_e, slots, slot, z, y,
-      l, u, t, mb, xb, cb, corr, red, gwords, total;
+      l, u, w, t, mb, xb, cb, corr, red, gwords, total;
 };
 
 __host__ __device__ inline FlexLayout flex_layout(int N, int b, int m,
@@ -659,22 +767,24 @@ __host__ __device__ inline FlexLayout flex_layout(int N, int b, int m,
                                                   int n_cons, int mean,
                                                   int warps_slot, int staged,
                                                   int bmax, int spc,
-                                                  int place) {
+                                                  int place, int ext) {
   FlexLayout a;
   size_t o = 0;
   const size_t f = staged ? pad4((size_t)N * b * b) : 0;
   const bool hz = place < 2;                    // horizon constants staged
+  const bool hx = hz && !(ext & kExtAK);        // Aext and KiU staged
+  const size_t jn = jm_words(m, b, bmax, ext);
   a.L = o; o += f;
   a.U = o; o += f;
   a.C = o; o += f;
-  a.J = o; o += pad4((size_t)m * bmax);
-  a.Mc = o; o += pad4((size_t)m * bmax);
+  a.J = o; o += jn;
+  a.Mc = o; o += jn;
   a.tie = o; o += hz ? pad4((size_t)N * n_blk) : 0;
   a.blk = o; o += pad4(n_blk);
-  a.Aext = o; o += hz ? pad4((size_t)r * N * b) : 0;
-  a.KiU = o; o += hz ? pad4((size_t)N * b * r) : 0;
-  a.Cw = o; o += pad4((size_t)r * r);
-  a.rho_e = o; o += pad4(r);
+  a.Aext = o; o += hx ? pad4((size_t)r * N * b) : 0;
+  a.KiU = o; o += hx ? pad4((size_t)N * b * r) : 0;
+  a.Cw = o; o += ext & kExtCw ? 0 : pad4((size_t)r * r);
+  a.rho_e = o; o += ext & kExtVec ? 0 : pad4(r);
   a.slots = o;
   const size_t zn = pad4((size_t)m * N), tn = pad4((size_t)N * b);
   const size_t cn = mean ? 2 * pad4((size_t)N * n_cons) : 0;
@@ -685,24 +795,144 @@ __host__ __device__ inline FlexLayout flex_layout(int N, int b, int m,
   a.y = zo; zo += zn;
   a.l = zo; zo += zn;
   a.u = zo; zo += zn;
+  a.w = zo; zo += bmax > 16 ? zn : 0;
   a.t = to; to += tn;
   a.mb = to; to += tn;
   a.xb = to; to += tn;
   a.cb = to; to += cn;
-  a.corr = sl; sl += kRMax;
-  a.red = sl; sl += (size_t)kRMax * warps_slot;
+  a.corr = sl; sl += vec_words(r, ext);
+  a.red = sl; sl += ext ? 0 : (size_t)kRMax * warps_slot;
   a.slot = sl;
   a.gwords = g;
   a.total = o + (size_t)spc * sl;
   return a;
 }
 
-template <int BMAX, int B0, bool STAGED, bool FLEX>
+// The wide row work (bmax above 16): a stage's arrays as the kernel placed
+// them (shared or device memory), and the lane jl of the stage's group of
+// tps lanes.
+struct WideRows {
+  const float *J, *Mc, *tie;
+  const int* blk;
+  const float *Aext, *rho_e, *ze, *ye, *q, *rho, *lin, *quad;
+  float *x, *t, *mb, *w, *z, *y, *l, *u, *dy;
+  int N, b, m, mc, nb, blk0, nc, r, tps, jl;
+  float sigma, alpha;
+  size_t p;
+};
+
+// the stage's columns over the group's lanes in fours (4·jl, 4·jl + 4·tps,
+// …), each column's share of t_k = σx_k − q_k + Σ_i J_iᵀw_i and, with
+// k ≥ 1, of mb_{k−1} = Σ_i M_kᵀw_i (Mc's rows, then the blocking rows'
+// −tie[k, j] on column blk[j]), summed over the rows in order, w from
+// s.w. mode 0: the warm t (every row, then the extra rows' term); 1: an
+// iteration's rows [0, mc); 2: the consensus rows [mc, m) added to the t
+// already there, with the extra rows' term (no M part)
+__device__ inline void wide_cols(const WideRows& s, int k, int mode) {
+  const int N = s.N, b = s.b;
+  const int i0 = mode == 2 ? s.mc : 0, i1 = mode == 0 ? s.m : s.mc;
+  const int i2 = mode == 2 ? s.m : i1;
+  const bool mpart = mode < 2 && k >= 1;
+  for (int c0 = 4 * s.jl; c0 < b; c0 += 4 * s.tps) {
+    float t4[4], m4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int c = c0 + u;
+      t4[u] = mode < 2 && c < b
+                  ? s.sigma * s.x[k * b + c] - __ldg(s.q + k * b + c)
+                  : 0.0f;
+    }
+    for (int i = i0; i < i2; ++i) {
+      const float w = s.w[i * N + k];
+      const float4 jv = load4(s.J + (size_t)i * b, c0, b);
+      t4[0] = fmaf(jv.x, w, t4[0]);
+      t4[1] = fmaf(jv.y, w, t4[1]);
+      t4[2] = fmaf(jv.z, w, t4[2]);
+      t4[3] = fmaf(jv.w, w, t4[3]);
+      if (mpart) {
+        const float4 mv = load4(s.Mc + (size_t)i * b, c0, b);
+        m4[0] = fmaf(mv.x, w, m4[0]);
+        m4[1] = fmaf(mv.y, w, m4[1]);
+        m4[2] = fmaf(mv.z, w, m4[2]);
+        m4[3] = fmaf(mv.w, w, m4[3]);
+      }
+    }
+    if (mpart)
+      for (int jb = 0; jb < s.nb; ++jb) {
+        const int cj = s.blk[jb] - c0;
+        if (cj < 0 || cj > 3 || s.blk0 + jb >= i1) continue;
+        const float tw = -s.tie[k * s.nb + jb];
+        const float w = s.w[(s.blk0 + jb) * N + k];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (u == cj) m4[u] = fmaf(tw, w, m4[u]);
+      }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int c = c0 + u;
+      if (c >= b) continue;
+      if (mode == 2) t4[u] += s.t[k * b + c];
+      if (mode != 1)
+        for (int q = 0; q < s.r; ++q)
+          t4[u] = fmaf(s.Aext[(q * N + k) * b + c],
+                       s.rho_e[q] * s.ze[q] - s.ye[q], t4[u]);
+      s.t[k * b + c] = t4[u];
+      if (mpart) s.mb[(k - 1) * b + c] = m4[u];
+    }
+  }
+}
+
+// the stage's rows over the group's lanes (lane jl owns rows jl, jl + tps,
+// …), each row's J ξ_k + M_k ξ_{k−1} summed over its b columns from x
+// where it lies, then the row's update (the narrow row work's, term for
+// term: kept apart so that the register path's code stays as it was),
+// its w = ρz − y into s.w; the consensus rows leave their zr + y/ρ in cb
+__device__ inline void wide_rows(const WideRows& s, int k, float* cb,
+                                 bool last) {
+  const int N = s.N, b = s.b;
+  const float* xk = s.x + k * b;
+  for (int i = s.jl; i < s.m; i += s.tps) {
+    const float ax = dot_cols(s.J + (size_t)i * b, xk, b);
+    float am = 0.0f;
+    if (k >= 1) {
+      const float* xm = xk - b;
+      am = dot_cols(s.Mc + (size_t)i * b, xm, b);
+      const int jb = i - s.blk0;
+      if (jb >= 0 && jb < s.nb)
+        am = fmaf(-s.tie[k * s.nb + jb], xm[s.blk[jb]], am);
+    }
+    const int o = i * N + k;
+    const float z = s.z[o], y = s.y[o], rho = __ldg(s.rho + o);
+    const float lo = s.l[o], hi = s.u[o];
+    const float lin = __ldg(s.lin + o), quad = __ldg(s.quad + o);
+    const float zr = s.alpha * (ax + am) + (1.0f - s.alpha) * z;
+    const float sv = zr + y / rho;
+    const float tt = (rho * (sv - hi) - lin) / (rho + 2.0f * quad);
+    const float zsoft = sv > hi ? hi + fmaxf(tt, 0.0f) : fmaxf(sv, lo);
+    const float zbox = fminf(fmaxf(sv, lo), hi);
+    const bool cons = i >= s.mc;
+    const float zn = (lin > 0.0f || quad > 0.0f) ? zsoft : zbox;
+    const float yn = y + rho * (zr - zn);
+    if (cons) cb[k * s.nc + (i - s.mc)] = sv;
+    if (last && !cons) s.dy[(s.p * N + k) * s.m + i] = yn - y;
+    s.z[o] = cons ? zr : zn;
+    s.y[o] = cons ? y : yn;
+    if (!cons) s.w[o] = rho * zn - yn;
+  }
+}
+
+// RDYN: the runtime-r path (see "K5 at any b and r" in the header). Above
+// bmax 16 (WIDE) it also runs the row work that holds no bmax-wide array
+// in a thread.
+template <int BMAX, int B0, bool STAGED, bool FLEX, bool RDYN>
 __global__ void __launch_bounds__(BMAX <= 8 ? 512 : 256)
 sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
+  constexpr bool WIDE = BMAX > 16;
+  static_assert(RDYN || !WIDE, "bmax above 16 runs the runtime-r path");
   extern __shared__ __align__(16) float smem[];
   const int N = a.N, b = a.b, m = a.m, S = a.S, r = a.n_ext;
   const int nb = a.n_blk, nc = a.n_cons;
+  const int ext = RDYN ? a.ext : 0;             // placements (kExt…)
   const int mc = a.mean ? m - nc : m;           // first group-mean row
   // the CTA's threads (tc of TC) and, with FLEX, its slot j: the slot's
   // threads are to it what a CTA's are to the shared variant (tid of T)
@@ -727,13 +957,13 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
 
   // ---- where every array lies ----
   size_t oL, oU, oC, oJ, oMc, otie, oblk, oAext, oKiU, oCw, orho;
-  float *zs, *ysc, *ls, *us, *tb, *mb, *xb, *cb0, *corr, *red;
+  float *zs, *ysc, *ls, *us, *wb, *tb, *mb, *xb, *cb0, *corr, *red;
   const float* gM;                              // gM[s, t, k] at [t·N + k]
   size_t fslots = 0, fslot = 0, fcb = 0, fgw = 0;
   bool hz = true;                               // horizon constants staged
   if constexpr (FLEX) {
     const FlexLayout f = flex_layout(N, b, m, nb, r, nc, a.mean, W, STAGED,
-                                     BMAX, spc, fx.place);
+                                     BMAX, spc, fx.place, ext);
     oL = f.L; oU = f.U; oC = f.C; oJ = f.J; oMc = f.Mc; otie = f.tie;
     oblk = f.blk; oAext = f.Aext; oKiU = f.KiU; oCw = f.Cw; orho = f.rho_e;
     fslots = f.slots; fslot = f.slot; fcb = f.cb; fgw = f.gwords;
@@ -743,22 +973,31 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
     float* zb = fx.place >= 1 ? gl : sl;
     float* tbase = fx.place >= 2 ? gl : sl;
     zs = zb + f.z; ysc = zb + f.y; ls = zb + f.l; us = zb + f.u;
+    wb = zb + f.w;
     tb = tbase + f.t; mb = tbase + f.mb; xb = tbase + f.xb;
     cb0 = tbase + f.cb;
     corr = sl + f.corr; red = sl + f.red;
     gM = a.gM + (size_t)(live ? s : 0) * S * N;
   } else {
     const AdmmLayout lay = admm_layout(N, b, m, S, nb, r, nc, a.mean, W,
-                                       STAGED, BMAX);
+                                       STAGED, BMAX, ext);
     oL = lay.L; oU = lay.U; oC = lay.C; oJ = lay.J; oMc = lay.Mc;
     otie = lay.tie; oblk = lay.blk; oAext = lay.Aext; oKiU = lay.KiU;
     oCw = lay.Cw; orho = lay.rho_e;
     zs = smem + lay.z; ysc = smem + lay.y; ls = smem + lay.l;
-    us = smem + lay.u; tb = smem + lay.t; mb = smem + lay.mb;
+    us = smem + lay.u; wb = smem + lay.w; tb = smem + lay.t;
+    mb = smem + lay.mb;
     xb = smem + lay.xb; cb0 = smem + lay.cb; corr = smem + lay.corr;
     red = smem + lay.red;
     gM = smem + lay.gM;
   }
+  // the runtime-r path's vectors, r words each: the Woodbury coefficient,
+  // wsum = Aext·K⁻¹t, z_e and y_e (in the slot, or in ext_ws)
+  if constexpr (RDYN)
+    if (ext & kExtVec) corr = a.ext_ws + (live ? p : 0) * 4 * pad4(r);
+  float* wsum = corr + pad4(r);
+  float* zev = corr + 2 * pad4(r);
+  float* yev = corr + 3 * pad4(r);
 
   // ---- constants into shared memory, once per launch ----
   const float* L = a.L;
@@ -774,11 +1013,21 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
   }
   float* J = smem + oJ;
   float* Mc = smem + oMc;
-  for (int e = tc; e < m * BMAX; e += TC) {
-    const int i = e / BMAX, c = e - i * BMAX;
-    J[e] = c < b ? __ldg(a.J + i * b + c) : 0.0f;
-    Mc[e] = c < b ? __ldg(a.Mc + i * b + c) : 0.0f;
+  if constexpr (WIDE) {
+    if (!(ext & kExtJM)) {
+      copy_in(J, a.J, m * b, tc, TC);
+      copy_in(Mc, a.Mc, m * b, tc, TC);
+    }
+  } else {
+    for (int e = tc; e < m * BMAX; e += TC) {
+      const int i = e / BMAX, c = e - i * BMAX;
+      J[e] = c < b ? __ldg(a.J + i * b + c) : 0.0f;
+      Mc[e] = c < b ? __ldg(a.Mc + i * b + c) : 0.0f;
+    }
   }
+  // above bmax 16: rows of b words, in shared or device memory
+  const float* Jw = WIDE && (ext & kExtJM) ? a.J : J;
+  const float* Mw = WIDE && (ext & kExtJM) ? a.Mc : Mc;
   const float* tie = hz ? smem + otie : a.tie;
   int* blk = reinterpret_cast<int*>(smem + oblk);
   if (nb && hz) copy_in(smem + otie, a.tie, N * nb, tc, TC);
@@ -787,13 +1036,20 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
   const float* KiU = hz ? smem + oKiU : a.KiU;
   float* Cw = smem + oCw;
   float* rho_e = smem + orho;
+  // the runtime-r path's own (ext's arrays read where they lie), apart
+  // from the register path's, whose loads stay those of shared memory
+  const bool hx = hz && !(ext & kExtAK);        // Aext and KiU staged
+  const float* Aext_r = hx ? Aext : a.Aext;
+  const float* KiU_r = hx ? KiU : a.KiU;
+  const float* Cw_r = ext & kExtCw ? a.Cw : Cw;
+  const float* rho_r = ext & kExtVec ? a.rho_e : rho_e;
   if (r) {
-    if (hz) {
+    if (hx) {
       copy_in(smem + oAext, a.Aext, r * N * b, tc, TC);
       copy_in(smem + oKiU, a.KiU, N * b * r, tc, TC);
     }
-    copy_in(Cw, a.Cw, r * r, tc, TC);
-    copy_in(rho_e, a.rho_e, r, tc, TC);
+    if (!(ext & kExtCw)) copy_in(Cw, a.Cw, r * r, tc, TC);
+    if (!(ext & kExtVec)) copy_in(rho_e, a.rho_e, r, tc, TC);
   }
   if (!FLEX && a.mean)
     copy_in(smem + (gM - smem), a.gM + (size_t)s * S * N, S * N, tc, TC);
@@ -809,7 +1065,14 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
       xb[e] = __ldg(a.x0 + p * N * b + e);
       mb[e] = 0.0f;
     }
-    if (tid < kRMax) corr[tid] = 0.0f;
+    if constexpr (RDYN) {
+      for (int q = tid; q < r; q += T) {
+        zev[q] = __ldg(a.ze0 + p * r + q);
+        yev[q] = __ldg(a.ye0 + p * r + q);
+      }
+    } else {
+      if (tid < kRMax) corr[tid] = 0.0f;
+    }
     for (int k = g; k < N; k += G) {
       const size_t o = (p * N + k) * m;
       for (int i = jl; i < m; i += tps) {
@@ -823,16 +1086,39 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
   float ze[kRMax], ye[kRMax];
 #pragma unroll
   for (int e = 0; e < kRMax; ++e) {
-    ze[e] = live && e < r ? __ldg(a.ze0 + p * r + e) : 0.0f;
-    ye[e] = live && e < r ? __ldg(a.ye0 + p * r + e) : 0.0f;
+    ze[e] = !RDYN && live && e < r ? __ldg(a.ze0 + p * r + e) : 0.0f;
+    ye[e] = !RDYN && live && e < r ? __ldg(a.ye0 + p * r + e) : 0.0f;
   }
   __syncthreads();
+
+  // ---- above bmax 16: the row work in two passes a stage (WideRows) ----
+  WideRows wr{};
+  if constexpr (WIDE)
+    wr = WideRows{Jw, Mw, tie, blk, Aext_r, rho_r, zev, yev, qp, rho_t, lin_t,
+                  quad_t, xb, tb, mb, wb, zs, ysc, ls, us, a.dy,
+                  N, b, m, mc, nb, a.blk0, nc, r, tps, jl, a.sigma, a.alpha,
+                  p};
+
+  // ---- t of the warm state, above bmax 16 ----
+  if constexpr (WIDE) if (live) {
+    for (int k0 = 0; k0 < N; k0 += G) {
+      const int k = k0 + g;
+      if (k < N)
+        for (int i = jl; i < m; i += tps) {
+          const int o = i * N + k;
+          wb[o] = __ldg(rho_t + o) * zs[o] - ysc[o];
+        }
+      __syncwarp();
+      if (k < N) wide_cols(wr, k, 0);
+    }
+  }
 
   // ---- t of the warm state ----
   // A stage's rows are dealt to the tps lanes of its group (lane jl owns
   // rows jl, jl + tps, …); the rounds over the stages are as many for
-  // every lane, so that the group sums reach every lane of a warp.
-  if (live) {
+  // every lane, so that the group sums reach every lane of a warp. (The
+  // runtime-r path's x is corrected in place, so x_stage adds nothing.)
+  if constexpr (!WIDE) if (live) {
     for (int k0 = 0; k0 < N; k0 += G) {
       const int k = k0 + g;
       const bool on = k < N;
@@ -840,12 +1126,15 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
 #pragma unroll
       for (int c = 0; c < BMAX; ++c) acc[c] = mm[c] = 0.0f;
       if (on) {
-        x_stage<BMAX>(xk, xb, KiU, corr, k, b, r);
+        x_stage<BMAX>(xk, xb, KiU, corr, k, b, RDYN ? 0 : r);
         if (jl == 0) {
 #pragma unroll
           for (int c = 0; c < BMAX; ++c)
             if (c < b) acc[c] = a.sigma * xk[c] - __ldg(qp + k * b + c);
-          add_ext<BMAX>(acc, Aext, rho_e, ze, ye, k, N, b, r);
+          if constexpr (RDYN)
+            add_ext_rt<BMAX>(acc, Aext_r, rho_r, zev, yev, k, N, b, r);
+          else
+            add_ext<BMAX>(acc, Aext, rho_e, ze, ye, k, N, b, r);
         }
         for (int i = jl; i < m; i += tps) {
           load_row<BMAX>(jr, J + i * BMAX);
@@ -877,7 +1166,7 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
     // ---- x = K⁻¹t (the slot's warp 0), the Woodbury coefficient ----
     if (live && warp == 0) {
       block_sweep<BMAX, B0, true>(tb, mb, L, U, Cf, xb, N, b, lane);
-      if (r) {
+      if (!RDYN && r) {
         __syncwarp();
         float sv[kRMax];
 #pragma unroll
@@ -904,11 +1193,80 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
     }
     __syncthreads();
 
+    // ---- the runtime-r path: the Woodbury term and the extra rows ----
+    // Each sum in the register path's order: wsum[q] over the lanes of one
+    // warp (warp w takes rows q ≡ w of Aext), corr[q] over Cw's row q; x
+    // then corrected in place; and pe[q] = Aext_q·x as the register path
+    // sums it (each thread its stages, the lanes of a warp, the warps in
+    // order), one warp emulating the slot's warps in turn, followed at
+    // once by the row's z_e, y_e update (the rows below read neither)
+    if constexpr (RDYN) if (r) {
+      if (live)
+        for (int q = warp; q < r; q += W) {
+          float s = 0.0f;
+          for (int e = lane; e < N * b; e += 32)
+            s = fmaf(Aext_r[(size_t)q * N * b + e], xb[e], s);
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+          if (lane == 0) wsum[q] = s;
+        }
+      __syncthreads();
+      if (live)
+        for (int q = tid; q < r; q += T) {
+          float cv = 0.0f;
+          for (int e = 0; e < r; ++e)
+            cv = fmaf(Cw_r[(size_t)q * r + e], wsum[e], cv);
+          corr[q] = cv;
+        }
+      __syncthreads();
+      if (live)
+        for (int e = tid; e < N * b; e += T) {
+          float cr = 0.0f;
+          for (int q = 0; q < r; ++q)
+            cr = fmaf(KiU_r[(size_t)e * r + q], corr[q], cr);
+          xb[e] = xb[e] - cr;
+        }
+      __syncthreads();
+      if (live)
+        for (int q = warp; q < r; q += W) {
+          float axe = 0.0f;
+          for (int w = 0; w < W; ++w) {
+            const int t = w * 32 + lane, gt = t / tps;
+            float s = 0.0f;
+            if (t == gt * tps)
+              for (int k = gt; k < N; k += G)
+                for (int c = 0; c < b; ++c)
+                  s = fmaf(Aext_r[(q * N + k) * b + c], xb[k * b + c], s);
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1)
+              s += __shfl_xor_sync(kFull, s, o);
+            axe += s;
+          }
+          if (lane == 0) {
+            const float zr = a.alpha * axe + (1.0f - a.alpha) * zev[q];
+            const float zn = fminf(zr + yev[q] / rho_r[q],
+                                   __ldg(a.ext_u + p * r + q));
+            const float yn = yev[q] + rho_r[q] * (zr - zn);
+            if (last) a.dye[p * r + q] = yn - yev[q];
+            zev[q] = zn;
+            yev[q] = yn;
+          }
+        }
+    }
+
     // ---- the rows: zr, the z and y updates, and the new w into t ----
+    if constexpr (WIDE) if (live) {
+      for (int k0 = 0; k0 < N; k0 += G) {
+        const int k = k0 + g;
+        if (k < N) wide_rows(wr, k, cb, last);
+        __syncwarp();
+        if (k < N) wide_cols(wr, k, 1);
+      }
+    }
     float pe[kRMax];
 #pragma unroll
     for (int e = 0; e < kRMax; ++e) pe[e] = 0.0f;
-    if (live) {
+    if constexpr (!WIDE) if (live) {
       for (int k0 = 0; k0 < N; k0 += G) {
         const int k = k0 + g;
         const bool on = k < N;
@@ -916,9 +1274,9 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
 #pragma unroll
         for (int c = 0; c < BMAX; ++c) acc[c] = mm[c] = 0.0f;
         if (on) {
-          x_stage<BMAX>(xk, xb, KiU, corr, k, b, r);
+          x_stage<BMAX>(xk, xb, KiU, corr, k, b, RDYN ? 0 : r);
           if (k >= 1) {
-            x_stage<BMAX>(xm, xb, KiU, corr, k - 1, b, r);
+            x_stage<BMAX>(xm, xb, KiU, corr, k - 1, b, RDYN ? 0 : r);
           } else {
 #pragma unroll
             for (int c = 0; c < BMAX; ++c) xm[c] = 0.0f;
@@ -926,7 +1284,7 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
           if (jl == 0) {
 #pragma unroll
             for (int q = 0; q < kRMax; ++q)
-              if (q < r)
+              if (!RDYN && q < r)
 #pragma unroll
                 for (int c = 0; c < BMAX; ++c)
                   if (c < b)
@@ -992,7 +1350,7 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
           }
         }
       }
-      if (r) {
+      if (!RDYN && r) {
 #pragma unroll
         for (int q = 0; q < kRMax; ++q)
 #pragma unroll
@@ -1020,7 +1378,7 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
     }
 
     // ---- the extra rows (every thread of the slot, the same sums) ----
-    if (live) {
+    if (!RDYN && live) {
 #pragma unroll
       for (int q = 0; q < kRMax; ++q) {
         if (q < r) {
@@ -1042,9 +1400,11 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
       for (int k0 = 0; k0 < N; k0 += G) {
         const int k = k0 + g;
         const bool on = k < N;
-        float acc[BMAX], jr[BMAX];
+        float acc[WIDE ? 1 : BMAX], jr[WIDE ? 1 : BMAX];
+        if constexpr (!WIDE) {
 #pragma unroll
-        for (int c = 0; c < BMAX; ++c) acc[c] = 0.0f;
+          for (int c = 0; c < BMAX; ++c) acc[c] = 0.0f;
+        }
         if (on && a.mean) {
           for (int i = mc + (jl + tps - mc % tps) % tps; i < m; i += tps) {
             const int jc = i - mc;   // the consensus rows this lane owns
@@ -1079,22 +1439,34 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
             if (last) a.dy[(p * N + k) * m + i] = yn - y;
             zs[o] = zn;
             ysc[o] = yn;
-            // the consensus rows have no M part: Jᵀw alone
-            load_row<BMAX>(jr, J + i * BMAX);
-            const float w = rho * zn - yn;
+            if constexpr (WIDE) {
+              wb[o] = rho * zn - yn;
+            } else {
+              // the consensus rows have no M part: Jᵀw alone
+              load_row<BMAX>(jr, J + i * BMAX);
+              const float w = rho * zn - yn;
 #pragma unroll
-            for (int c = 0; c < NB; ++c) acc[c] = fmaf(jr[c], w, acc[c]);
+              for (int c = 0; c < NB; ++c) acc[c] = fmaf(jr[c], w, acc[c]);
+            }
           }
         }
-        if (a.mean) group_sum<BMAX>(acc, tps);
-        if (on && jl == 0) {
+        if constexpr (WIDE) {
+          __syncwarp();
+          if (on) wide_cols(wr, k, 2);
+        } else {
+          if (a.mean) group_sum<BMAX>(acc, tps);
+          if (on && jl == 0) {
 #pragma unroll
-          for (int c = 0; c < BMAX; ++c)
-            if (c < b) acc[c] += tb[k * b + c];
-          add_ext<BMAX>(acc, Aext, rho_e, ze, ye, k, N, b, r);
+            for (int c = 0; c < BMAX; ++c)
+              if (c < b) acc[c] += tb[k * b + c];
+            if constexpr (RDYN)
+              add_ext_rt<BMAX>(acc, Aext_r, rho_r, zev, yev, k, N, b, r);
+            else
+              add_ext<BMAX>(acc, Aext, rho_e, ze, ye, k, N, b, r);
 #pragma unroll
-          for (int c = 0; c < BMAX; ++c)
-            if (c < b) tb[k * b + c] = acc[c];
+            for (int c = 0; c < BMAX; ++c)
+              if (c < b) tb[k * b + c] = acc[c];
+          }
         }
       }
     }
@@ -1103,13 +1475,18 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
 
   // ---- out: x, z, y (and dy, dy_e when no iteration ran) ----
   if (live) {
+    if constexpr (RDYN) {           // x is corrected in place
+      for (int e = tid; e < N * b; e += T) a.x[p * N * b + e] = xb[e];
+    }
     for (int k = g; k < N; k += G) {
-      if (jl == 0) {
-        float xk[BMAX];
-        x_stage<BMAX>(xk, xb, KiU, corr, k, b, r);
+      if (!RDYN && jl == 0) {
+        float xk[WIDE ? 1 : BMAX];
+        if constexpr (!WIDE) {
+          x_stage<BMAX>(xk, xb, KiU, corr, k, b, r);
 #pragma unroll
-        for (int c = 0; c < BMAX; ++c)
-          if (c < b) a.x[(p * N + k) * b + c] = xk[c];
+          for (int c = 0; c < BMAX; ++c)
+            if (c < b) a.x[(p * N + k) * b + c] = xk[c];
+        }
       }
       const size_t o = (p * N + k) * m;
       for (int i = jl; i < m; i += tps) {
@@ -1118,7 +1495,13 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
         if (a.iters == 0) a.dy[o + i] = 0.0f;
       }
     }
-    if (tid == 0) {
+    if constexpr (RDYN) {
+      for (int q = tid; q < r; q += T) {
+        a.ze[p * r + q] = zev[q];
+        a.ye[p * r + q] = yev[q];
+        if (a.iters == 0) a.dye[p * r + q] = 0.0f;
+      }
+    } else if (tid == 0) {
 #pragma unroll
       for (int q = 0; q < kRMax; ++q) {
         if (q < r) {
@@ -1135,19 +1518,20 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
 
 size_t admm_smem_bytes(int N, int b, int m, int S, int n_blk, int r,
                        int n_cons, int mean, int warps, int staged,
-                       int bmax) {
+                       int bmax, int ext) {
   return sizeof(float) * admm_layout(N, b, m, S, n_blk, r, n_cons, mean,
-                                     warps, staged, bmax).total;
+                                     warps, staged, bmax, ext).total;
 }
 
 // one CTA a problem, 32·warps threads in groups of tps a stage, clusters of
 // S CTAs with a group mean
-template <int BMAX, int B0, bool STAGED>
+template <int BMAX, int B0, bool STAGED, bool RDYN>
 int launch_admm(const PhcSwAdmmArgs& a, int warps, int tps,
                 cudaStream_t stream) {
-  auto kernel = sw_admm_kernel<BMAX, B0, STAGED, false>;
+  auto kernel = sw_admm_kernel<BMAX, B0, STAGED, false, RDYN>;
   const size_t bytes = admm_smem_bytes(a.N, a.b, a.m, a.S, a.n_blk, a.n_ext,
-                                       a.n_cons, a.mean, warps, STAGED, BMAX);
+                                       a.n_cons, a.mean, warps, STAGED, BMAX,
+                                       a.ext);
   if (bytes > 48 * 1024) {
     const int rc = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1170,31 +1554,35 @@ int launch_admm(const PhcSwAdmmArgs& a, int warps, int tps,
   return rc ? rc : (int)cudaGetLastError();
 }
 
-template <int BMAX>
+// b = 5 has an instantiation of its own on the register path; the
+// runtime-r path runs it in bmax 8's (the padded columns add exact zeros)
+template <int BMAX, bool RDYN>
 int launch_admm_b(const PhcSwAdmmArgs& a, int warps, int tps, int staged,
                   cudaStream_t s) {
-  if (BMAX == 8 && a.b == 5)
-    return staged ? launch_admm<8, 5, true>(a, warps, tps, s)
-                  : launch_admm<8, 5, false>(a, warps, tps, s);
-  return staged ? launch_admm<BMAX, 0, true>(a, warps, tps, s)
-                : launch_admm<BMAX, 0, false>(a, warps, tps, s);
+  if constexpr (BMAX == 8 && !RDYN)
+    if (a.b == 5)
+      return staged ? launch_admm<8, 5, true, RDYN>(a, warps, tps, s)
+                    : launch_admm<8, 5, false, RDYN>(a, warps, tps, s);
+  return staged ? launch_admm<BMAX, 0, true, RDYN>(a, warps, tps, s)
+                : launch_admm<BMAX, 0, false, RDYN>(a, warps, tps, s);
 }
 
 size_t flex_smem_bytes(const PhcSwAdmmArgs& a, int warps, int staged,
                        int bmax, const AdmmFlex& fx) {
   return sizeof(float) * flex_layout(a.N, a.b, a.m, a.n_blk, a.n_ext,
                                      a.n_cons, a.mean, warps / fx.spc,
-                                     staged, bmax, fx.spc, fx.place).total;
+                                     staged, bmax, fx.spc, fx.place,
+                                     a.ext).total;
 }
 
 // a FLEX launch: groups of S scenarios over clusters of fx.cluster CTAs
 // of fx.spc scenarios each (one CTA a problem without a group mean); or,
 // if `max_clusters`, how many such clusters the card holds at once
 // (cudaOccupancyMaxActiveClusters)
-template <int BMAX, int B0, bool STAGED>
+template <int BMAX, int B0, bool STAGED, bool RDYN>
 int launch_flex(const PhcSwAdmmArgs& a, int warps, int tps,
                 const AdmmFlex& fx, cudaStream_t stream, int* max_clusters) {
-  auto kernel = sw_admm_kernel<BMAX, B0, STAGED, true>;
+  auto kernel = sw_admm_kernel<BMAX, B0, STAGED, true, RDYN>;
   const size_t bytes = flex_smem_bytes(a, warps, STAGED, BMAX, fx);
   if (bytes > 48 * 1024) {
     const int rc = (int)cudaFuncSetAttribute(
@@ -1228,20 +1616,31 @@ int launch_flex(const PhcSwAdmmArgs& a, int warps, int tps,
   return rc ? rc : (int)cudaGetLastError();
 }
 
-template <int BMAX>
+template <int BMAX, bool RDYN>
 int launch_flex_b(const PhcSwAdmmArgs& a, int warps, int tps, int staged,
                   const AdmmFlex& fx, cudaStream_t s, int* maxc) {
-  if (BMAX == 8 && a.b == 5)
-    return staged ? launch_flex<8, 5, true>(a, warps, tps, fx, s, maxc)
-                  : launch_flex<8, 5, false>(a, warps, tps, fx, s, maxc);
-  return staged ? launch_flex<BMAX, 0, true>(a, warps, tps, fx, s, maxc)
-                : launch_flex<BMAX, 0, false>(a, warps, tps, fx, s, maxc);
+  if constexpr (BMAX == 8 && !RDYN)
+    if (a.b == 5)
+      return staged
+                 ? launch_flex<8, 5, true, RDYN>(a, warps, tps, fx, s, maxc)
+                 : launch_flex<8, 5, false, RDYN>(a, warps, tps, fx, s, maxc);
+  return staged
+             ? launch_flex<BMAX, 0, true, RDYN>(a, warps, tps, fx, s, maxc)
+             : launch_flex<BMAX, 0, false, RDYN>(a, warps, tps, fx, s, maxc);
 }
 
-// the checks common to every K5 launch
+// the checks common to every K5 launch: the register path up to kRMax
+// extra rows at bmax 8 and 16; the runtime-r path with known placement
+// bits (J and Mc in device memory only above bmax 16, the vectors there
+// only with ext_ws)
 bool admm_args_ok(const PhcSwAdmmArgs* a, int warps, int tps, int bmax) {
+  const int e = a->ext;
+  const bool ext_ok =
+      e ? (e & kExtRt) && !(e & ~31) && (bmax > 16 || !(e & kExtJM)) &&
+              (!(e & kExtVec) || a->ext_ws)
+        : a->n_ext <= kRMax && bmax <= 16;
   return !(a->P < 1 || a->N < 1 || a->b < 1 || a->b > bmax || a->m < 1 ||
-           a->S < 1 || a->P % a->S || a->n_ext < 0 || a->n_ext > kRMax ||
+           a->S < 1 || a->P % a->S || a->n_ext < 0 || !ext_ok ||
            a->iters < 0 || warps < 1 ||
            32 * warps > admm_max_threads(bmax) || tps < 1 || tps > 32 ||
            (tps & (tps - 1)) ||
@@ -1260,19 +1659,67 @@ bool flex_ok(const PhcSwAdmmArgs* a, int warps, const AdmmFlex& fx) {
          fx.cluster * fx.spc >= a->S && (fx.cluster - 1) * fx.spc < a->S;
 }
 
+// Each library holds one part of K5's instantiations (PHC_SW_PART, the
+// head of the file): this source alone the register path at bmax 8 and 16,
+// stagewise_wide.cu bmax 32 to 128, stagewise_extra.cu the runtime-r path
+// at bmax 8 and 16. A launch of another part's is refused.
+int admm_dispatch(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
+                  int bmax, cudaStream_t s) {
+#if PHC_SW_PART == 0
+  if (!a->ext) switch (bmax) {
+      case 8: return launch_admm_b<8, false>(*a, warps, tps, staged, s);
+      case 16: return launch_admm_b<16, false>(*a, warps, tps, staged, s);
+    }
+#elif PHC_SW_PART == 1
+  if (a->ext) switch (bmax) {
+      case 32: return launch_admm_b<32, true>(*a, warps, tps, staged, s);
+      case 64: return launch_admm_b<64, true>(*a, warps, tps, staged, s);
+      case 128: return launch_admm_b<128, true>(*a, warps, tps, staged, s);
+    }
+#else
+  if (a->ext) switch (bmax) {
+      case 8: return launch_admm_b<8, true>(*a, warps, tps, staged, s);
+      case 16: return launch_admm_b<16, true>(*a, warps, tps, staged, s);
+    }
+#endif
+  return (int)cudaErrorInvalidValue;
+}
+
 int flex_dispatch(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
                   int bmax, const AdmmFlex& fx, cudaStream_t s, int* maxc) {
-  switch (bmax) {
-    case 8: return launch_flex_b<8>(*a, warps, tps, staged, fx, s, maxc);
-    case 16: return launch_flex_b<16>(*a, warps, tps, staged, fx, s, maxc);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const PhcSwAdmmArgs& r = *a;
+#if PHC_SW_PART == 0
+  if (!a->ext) switch (bmax) {
+      case 8: return launch_flex_b<8, false>(r, warps, tps, staged, fx, s,
+                                             maxc);
+      case 16: return launch_flex_b<16, false>(r, warps, tps, staged, fx, s,
+                                               maxc);
+    }
+#elif PHC_SW_PART == 1
+  if (a->ext) switch (bmax) {
+      case 32: return launch_flex_b<32, true>(r, warps, tps, staged, fx, s,
+                                              maxc);
+      case 64: return launch_flex_b<64, true>(r, warps, tps, staged, fx, s,
+                                              maxc);
+      case 128: return launch_flex_b<128, true>(r, warps, tps, staged, fx,
+                                                s, maxc);
+    }
+#else
+  if (a->ext) switch (bmax) {
+      case 8: return launch_flex_b<8, true>(r, warps, tps, staged, fx, s,
+                                            maxc);
+      case 16: return launch_flex_b<16, true>(r, warps, tps, staged, fx, s,
+                                              maxc);
+    }
+#endif
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
+#if PHC_SW_PART == 0
 // dynamic shared memory of one block: the warps' r/y buffers, and the three
 // factor arrays when staged (each array padded to a multiple of 4 words)
 int phc_sw_smem_bytes(int N, int b, int warps, int staged) {
@@ -1296,45 +1743,41 @@ int phc_sw_solve_k(const float* r, const float* L, const float* U,
     default: return (int)cudaErrorInvalidValue;
   }
 }
+#endif
 
 // dynamic shared memory of one K5 CTA (admm_layout)
 int phc_sw_admm_smem_bytes(int N, int b, int m, int S, int n_blk, int n_ext,
                            int n_cons, int mean, int warps, int staged,
-                           int bmax) {
+                           int bmax, int ext) {
   return (int)admm_smem_bytes(N, b, m, S, n_blk, n_ext, n_cons, mean, warps,
-                              staged, bmax);
+                              staged, bmax, ext);
 }
 
 // K5: a->iters stagewise ADMM iterations for a->P problems in one launch,
 // one CTA of 32·warps threads a problem, a stage's rows over the tps lanes
 // of a group (a power of 2 up to 32), clusters of a->S CTAs with a group
-// mean; bmax = the compiled bound on b (8 or 16)
+// mean; bmax = the compiled bound on b (8, 16, 32, 64 or 128, the part's)
 int phc_sw_admm(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
                 int bmax, void* stream) {
   if (!admm_args_ok(a, warps, tps, bmax) || a->S > 8)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (bmax) {
-    case 8: return launch_admm_b<8>(*a, warps, tps, staged, s);
-    case 16: return launch_admm_b<16>(*a, warps, tps, staged, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return admm_dispatch(a, warps, tps, staged, bmax, (cudaStream_t)stream);
 }
 
 // dynamic shared memory of one FLEX CTA (flex_layout), and the words of
 // device memory a problem's scratch takes; warps = the CTA's
 int phc_sw_admm_flex_smem_bytes(int N, int b, int m, int n_blk, int n_ext,
                                 int n_cons, int mean, int warps, int staged,
-                                int bmax, int spc, int place) {
+                                int bmax, int spc, int place, int ext) {
   return (int)(sizeof(float) *
                flex_layout(N, b, m, n_blk, n_ext, n_cons, mean, warps / spc,
-                           staged, bmax, spc, place).total);
+                           staged, bmax, spc, place, ext).total);
 }
 
 long long phc_sw_admm_flex_scratch_words(int N, int b, int m, int n_cons,
-                                         int mean, int place) {
-  return (long long)flex_layout(N, b, m, 0, 0, n_cons, mean, 1, 0, 8, 1,
-                                place).gwords;
+                                         int mean, int place, int bmax) {
+  return (long long)flex_layout(N, b, m, 0, 0, n_cons, mean, 1, 0, bmax, 1,
+                                place, 0).gwords;
 }
 
 // K5's FLEX variants (grouped, global state): as phc_sw_admm, with spc

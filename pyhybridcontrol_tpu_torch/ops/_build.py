@@ -18,6 +18,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,10 +27,15 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 # library name -> source; K1/K2 in admm.cu, K1's split-precision phase
 # (tensor cores) in admm_mixed.cu, K4 (the stagewise sweep) and K5 (the
-# stagewise ADMM loop) in stagewise.cu
+# stagewise ADMM loop) in stagewise.cu, K5's other instantiations in the
+# two sources that build stagewise.cu's other parts (bmax 32 to 128; the
+# runtime-r path at bmax 8 and 16), each its own library so that the
+# compilers run side by side
 LIBRARIES = {"admm": PKG_DIR / "csrc" / "admm.cu",
              "admm_mixed": PKG_DIR / "csrc" / "admm_mixed.cu",
-             "stagewise": PKG_DIR / "csrc" / "stagewise.cu"}
+             "stagewise": PKG_DIR / "csrc" / "stagewise.cu",
+             "stagewise_wide": PKG_DIR / "csrc" / "stagewise_wide.cu",
+             "stagewise_extra": PKG_DIR / "csrc" / "stagewise_extra.cu"}
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 DEFAULT_CUDA_HOMES = ("/usr/local/cuda",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -57,8 +63,13 @@ def find_nvcc(environ=None):
 
 
 def _digest(src: Path) -> str:
+    """Hash of a source, of the sources it includes by a quoted name
+    (beside it) and of the flags."""
     h = hashlib.sha256()
-    h.update(src.read_bytes())
+    text = src.read_bytes()
+    h.update(text)
+    for name in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        h.update((src.parent / name.decode()).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -141,18 +152,24 @@ def _bind_stagewise(lib):
     # r L Uinv C | x, then P N b warps staged bmax stream
     lib.phc_sw_solve_k.argtypes = [P] * 5 + [I] * 6 + [P]
     lib.phc_sw_solve_k.restype = I
-    # N b m S n_blk n_ext n_cons mean warps staged bmax
-    lib.phc_sw_admm_smem_bytes.argtypes = [I] * 11
+    _bind_stagewise_k5(lib)
+
+
+def _bind_stagewise_k5(lib):
+    """K5's exports, which every part of stagewise.cu has."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    # N b m S n_blk n_ext n_cons mean warps staged bmax ext
+    lib.phc_sw_admm_smem_bytes.argtypes = [I] * 12
     lib.phc_sw_admm_smem_bytes.restype = I
     # struct PhcSwAdmmArgs (ops/cuda_stagewise.py mirrors it), warps,
     # lanes a stage, staged, bmax, stream
     lib.phc_sw_admm.argtypes = [P, I, I, I, I, P]
     lib.phc_sw_admm.restype = I
-    # N b m n_blk n_ext n_cons mean warps staged bmax spc place
-    lib.phc_sw_admm_flex_smem_bytes.argtypes = [I] * 12
+    # N b m n_blk n_ext n_cons mean warps staged bmax spc place ext
+    lib.phc_sw_admm_flex_smem_bytes.argtypes = [I] * 13
     lib.phc_sw_admm_flex_smem_bytes.restype = I
-    # N b m n_cons mean place
-    lib.phc_sw_admm_flex_scratch_words.argtypes = [I] * 6
+    # N b m n_cons mean place bmax
+    lib.phc_sw_admm_flex_scratch_words.argtypes = [I] * 7
     lib.phc_sw_admm_flex_scratch_words.restype = ctypes.c_longlong
     # the struct, warps, lanes a stage, staged, bmax, scenarios a CTA,
     # cluster, place, scratch, stream
@@ -164,7 +181,9 @@ def _bind_stagewise(lib):
 
 
 _BINDERS = {"admm": _bind_admm, "admm_mixed": _bind_admm_mixed,
-            "stagewise": _bind_stagewise}
+            "stagewise": _bind_stagewise,
+            "stagewise_wide": _bind_stagewise_k5,
+            "stagewise_extra": _bind_stagewise_k5}
 
 
 def load_library(name: str = "admm"):

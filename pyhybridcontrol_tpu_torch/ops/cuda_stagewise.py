@@ -26,13 +26,14 @@ warps' r/y buffers, and the warps (problems) a block: 4, 2 or 1, the most
 that fit. b above 128, or a horizon whose r/y buffer does not fit one
 block, has no instantiation and raises.
 
-``plan_admm`` picks K5's from the shapes alone: the bound on b (8 or 16, as
-K4's ladder starts), the lanes a stage (the most, a power of 2 up to 32,
-that the CTA's 512 threads, 256 at 16, give every stage at once) and the
-warps a CTA, staged factors where they fit its shared memory, and one of
-four variants. "shared" (the first design): one CTA a problem (a
-scenario), a group of S ≤ 8 scenarios with a group mean (a tree node) one
-portable cluster, the scenario's z, y, l, u and buffers in shared memory.
+``plan_admm`` picks K5's from the shapes alone: the bound on b (8, 16, 32,
+64 or 128, K4's ladder), the lanes a stage (the most, a power of 2 up to
+32, that the CTA's 512 threads, 256 from bmax 16, give every stage at
+once) and the warps a CTA, staged factors where they fit its shared
+memory, the path of the extra rows, and one of four variants. "shared"
+(the first design): one CTA a problem (a scenario), a group of S ≤ 8
+scenarios with a group mean (a tree node) one portable cluster, the
+scenario's z, y, l, u and buffers in shared memory.
 Where that does not fit, the FLEX variants of the same kernel:
 "grouped", a group of up to 16 scenarios one cluster of S CTAs (above 8
 a non-portable size) and above 16 scenarios ⌈S/16⌉ scenarios a CTA, each
@@ -40,10 +41,16 @@ on its own share of the CTA's warps, the state still in shared memory;
 "global", z, y, l and u in device memory (a scratch the wrapper
 allocates); "global_all", also t, its M part, x, the consensus buffers and
 the horizon-sized constants. Each counts its launches under its own name
-(``ADMM_LAUNCH``). b above 16, more than 4 extra rows, or a shape that
-fits no variant's shared memory (forced staged factors past it, a group
-whose CTAs would give a scenario less than a warp) have no instantiation
-and raise.
+(``ADMM_LAUNCH``). Up to 4 extra rows at bmax 8 and 16 the register
+path runs (library "stagewise"); more extra rows, or b above 16, run the
+runtime-r path ("stagewise_extra" at bmax 8 and 16, "stagewise_wide" at
+32 to 128, the wide row work there), whose Woodbury arrays (Aext and KiU,
+Cw), whose J and Mc above bmax 16, and whose r-word vectors the plan
+moves to device memory in turn, the largest first, until the CTA fits
+(``AdmmPlan.ext``; ``EXT_*``). b above 128, or a shape that fits no
+variant's shared memory (forced staged factors past it, a group whose
+CTAs would give a scenario less than a warp) have no instantiation and
+raise.
 """
 
 from __future__ import annotations
@@ -64,11 +71,17 @@ from pyhybridcontrol_tpu_torch.ops.cuda_admm import (
 
 SWEEP_WARPS = (4, 2, 1)          # problems (warps) a block, most first
 SWEEP_BMAX = (8, 16, 32, 64, 128)   # compiled bounds on the block size
-ADMM_BMAX = (8, 16)              # K5's compiled bounds on the block size
-ADMM_THREADS = {8: 512, 16: 256}   # the most threads a K5 CTA has
+ADMM_BMAX = (8, 16, 32, 64, 128)   # K5's compiled bounds on the block size
+# the most threads a K5 CTA has (from bmax 16 the kernel's launch bound)
+ADMM_THREADS = {8: 512, 16: 256, 32: 256, 64: 256, 128: 256}
 ADMM_CLUSTER = 8                 # the shared variant's most scenarios a group
 ADMM_CLUSTER_MAX = 16            # the most CTAs a FLEX cluster (non-portable)
-ADMM_RMAX = 4                    # extra rows K5 takes
+ADMM_RMAX = 4                    # extra rows the register path takes
+# the runtime-r path (csrc/stagewise.cu kExt…): its bit, and the arrays it
+# reads from device memory: Aext and KiU, Cw, the r-word vectors (z_e, y_e,
+# the Woodbury sums and coefficient, ρₑ; in a per-problem scratch), and
+# above bmax 16 J and Mc
+EXT_RT, EXT_AK, EXT_CW, EXT_VEC, EXT_JM = 1, 2, 4, 8, 16
 # K5's variants: the shared one, then the FLEX ones by the place of their
 # arrays (0: shared memory, 1: z/y/l/u in device memory, 2: also t, mb, x,
 # the consensus buffers and the horizon-sized constants), in the order the
@@ -175,8 +188,10 @@ def sw_solve_k_cuda(r, factors, staged: Optional[bool] = None):
 class AdmmPlan:
     """Instantiation of K5 for one call: the compiled bound on b, staged
     factors, warps a CTA, lanes a stage (its rows dealt over them), CTAs a
-    cluster, dynamic shared memory a CTA (bytes), scenarios a CTA and the
-    variant (``ADMM_LAUNCH``'s keys)."""
+    cluster, dynamic shared memory a CTA (bytes), scenarios a CTA, the
+    variant (``ADMM_LAUNCH``'s keys) and the extra rows' path (0: the
+    register path; else EXT_RT and the bits of what lies in device
+    memory)."""
 
     bmax: int
     staged: bool
@@ -186,35 +201,73 @@ class AdmmPlan:
     smem: int
     spc: int = 1
     variant: str = "shared"
+    ext: int = 0
+
+    @property
+    def library(self) -> str:
+        """The kernel library holding this instantiation."""
+        if not self.ext:
+            return "stagewise"
+        return "stagewise_wide" if self.bmax > 16 else "stagewise_extra"
+
+
+def _jm_words(m, b, bmax, ext):
+    """Words of J and of Mc in shared memory (``jm_words``): rows of bmax
+    words up to bmax 16, of b words above, none in device memory."""
+    if bmax <= 16:
+        return _pad4(m * bmax)
+    return 0 if ext & EXT_JM else _pad4(m * b)
+
+
+def _vec_words(n_ext, ext):
+    """Words of a scenario's Woodbury coefficient and extra-row vectors in
+    shared memory (``vec_words``): 4 on the register path, 4 arrays of
+    n_ext words on the runtime-r path, none in device memory."""
+    if not ext:
+        return ADMM_RMAX
+    return 0 if ext & EXT_VEC else 4 * _pad4(n_ext)
+
+
+def _const_words(N, b, m, n_blk, n_ext, staged, bmax, ext, hz=True):
+    """Words of the constants a CTA stages: the factors if staged, J and
+    Mc, the blocking rows' ties (``hz``) and columns, Aext and KiU (``hz``,
+    unless in device memory), Cw and ρₑ (unless in device memory)."""
+    f = _pad4(N * b * b) if staged else 0
+    ak = 0 if (ext & EXT_AK or not hz) else _pad4(n_ext * N * b)
+    return (3 * f + 2 * _jm_words(m, b, bmax, ext)
+            + (_pad4(N * n_blk) if hz else 0) + _pad4(n_blk) + 2 * ak
+            + (0 if ext & EXT_CW else _pad4(n_ext * n_ext))
+            + (0 if ext & EXT_VEC else _pad4(n_ext)))
 
 
 def admm_smem_bytes(N: int, b: int, m: int, S: int, n_blk: int, n_ext: int,
                     n_cons: int, mean: bool, warps: int, staged: bool,
-                    bmax: int) -> int:
+                    bmax: int, ext: int = 0) -> int:
     """Shared memory of one CTA of the shared variant
     (``phc_sw_admm_smem_bytes`` gives the same): the factors if staged, J
-    and Mc with rows of bmax words, the blocking rows' ties and columns,
-    Aext, KiU, Cw and ρₑ, the scenario's row of group-mean weights, its z,
-    y, l and u (m·N words each), t, its M part and x (N·b words each), two
-    consensus-row buffers with a group mean, and 4·(1 + warps) words of
-    Woodbury coefficient and sums; each array padded to a multiple of 4
-    words."""
-    f = _pad4(N * b * b) if staged else 0
-    words = (3 * f + 2 * _pad4(m * bmax) + _pad4(N * n_blk) + _pad4(n_blk)
-             + 2 * _pad4(n_ext * N * b) + _pad4(n_ext * n_ext) + _pad4(n_ext)
-             + (_pad4(S * N) if mean else 0) + 4 * _pad4(m * N)
+    and Mc (rows of bmax words to bmax 16, of b words above), the blocking
+    rows' ties and columns, Aext, KiU, Cw and ρₑ (those ``ext`` does not
+    put in device memory), the scenario's row of group-mean weights, its
+    z, y, l and u (m·N words each; above bmax 16 also w), t, its M part and
+    x (N·b words each), two consensus-row buffers with a group mean, and on
+    the register path 4·(1 + warps) words of Woodbury coefficient and
+    sums, on the runtime-r one its four r-word vectors; each array padded
+    to a multiple of 4 words."""
+    words = (_const_words(N, b, m, n_blk, n_ext, staged, bmax, ext)
+             + (_pad4(S * N) if mean else 0)
+             + (5 if bmax > 16 else 4) * _pad4(m * N)
              + 3 * _pad4(N * b) + (2 * _pad4(N * n_cons) if mean else 0)
-             + ADMM_RMAX * (1 + warps))
+             + _vec_words(n_ext, ext) + (0 if ext else ADMM_RMAX * warps))
     return 4 * words
 
 
-def _flex_words(N, b, m, n_cons, mean, place):
+def _flex_words(N, b, m, n_cons, mean, place, bmax=8):
     """(words of a scenario's arrays in its slot, words in device memory)
     of a FLEX variant, without the slot's Woodbury coefficient and sums:
-    z, y, l, u (m·N words each) in the slot at place 0, else in device
-    memory; t, mb, x (N·b each) and the two consensus buffers in the slot
-    below place 2."""
-    zyl = 4 * _pad4(m * N)
+    z, y, l, u (m·N words each; above bmax 16 also w) in the slot at place
+    0, else in device memory; t, mb, x (N·b each) and the two consensus
+    buffers in the slot below place 2."""
+    zyl = (5 if bmax > 16 else 4) * _pad4(m * N)
     tmx = 3 * _pad4(N * b) + (2 * _pad4(N * n_cons) if mean else 0)
     slot = (zyl if place < 1 else 0) + (tmx if place < 2 else 0)
     return slot, (zyl if place >= 1 else 0) + (tmx if place >= 2 else 0)
@@ -222,28 +275,53 @@ def _flex_words(N, b, m, n_cons, mean, place):
 
 def flex_smem_bytes(N: int, b: int, m: int, n_blk: int, n_ext: int,
                     n_cons: int, mean: bool, warps: int, staged: bool,
-                    bmax: int, spc: int, place: int) -> int:
+                    bmax: int, spc: int, place: int, ext: int = 0) -> int:
     """Shared memory of one CTA of a FLEX variant
     (``phc_sw_admm_flex_smem_bytes`` gives the same): the constants as the
     shared variant's (the ties, Aext and KiU only below place 2; no
     group-mean weights: they are read from device memory), then ``spc``
-    slots of a scenario's shared arrays (``_flex_words``) and 4·(1 + its
-    warps) words of Woodbury coefficient and sums; ``warps`` the CTA's."""
-    f = _pad4(N * b * b) if staged else 0
-    hz = place < 2
-    const = (3 * f + 2 * _pad4(m * bmax) + (_pad4(N * n_blk) if hz else 0)
-             + _pad4(n_blk) + (2 * _pad4(n_ext * N * b) if hz else 0)
-             + _pad4(n_ext * n_ext) + _pad4(n_ext))
-    slot = (_flex_words(N, b, m, n_cons, mean, place)[0]
-            + ADMM_RMAX * (1 + warps // spc))
+    slots of a scenario's shared arrays (``_flex_words``) and its Woodbury
+    coefficient and sums or runtime-r vectors; ``warps`` the CTA's."""
+    const = _const_words(N, b, m, n_blk, n_ext, staged, bmax, ext,
+                         hz=place < 2)
+    slot = (_flex_words(N, b, m, n_cons, mean, place, bmax)[0]
+            + _vec_words(n_ext, ext)
+            + (0 if ext else ADMM_RMAX * (warps // spc)))
     return 4 * (const + spc * slot)
 
 
 def flex_scratch_words(N: int, b: int, m: int, n_cons: int, mean: bool,
-                       place: int) -> int:
+                       place: int, bmax: int = 8) -> int:
     """Words of device memory a problem's scratch takes in a FLEX variant
     (``phc_sw_admm_flex_scratch_words`` gives the same)."""
-    return _flex_words(N, b, m, n_cons, mean, place)[1]
+    return _flex_words(N, b, m, n_cons, mean, place, bmax)[1]
+
+
+def ext_scratch_words(n_ext: int) -> int:
+    """Words of device memory a problem's runtime-r vectors take where
+    EXT_VEC puts them there (the kernel's ``4·pad4(r)``)."""
+    return 4 * _pad4(n_ext)
+
+
+def _ext_ladder(N: int, b: int, m: int, n_ext: int, bmax: int,
+                runtime_r: bool):
+    """The extra rows' paths the plan tries, in turn: the register path
+    alone, or the runtime-r path with its arrays moved to device memory
+    one kind at a time, the largest first of the Woodbury arrays (Aext
+    with KiU, Cw), then J with Mc (above bmax 16; read N times an
+    iteration), then the r-word vectors (read in every stage)."""
+    if not runtime_r:
+        return (0,)
+    ext, out = EXT_RT, [EXT_RT]
+    for _, bit in sorted(((2 * n_ext * N * b, EXT_AK),
+                          (n_ext * n_ext, EXT_CW)), key=lambda t: -t[0]):
+        ext |= bit
+        out.append(ext)
+    if bmax > 16:
+        ext |= EXT_JM
+        out.append(ext)
+    out.append(ext | EXT_VEC)
+    return tuple(out)
 
 
 def _lanes(N: int, threads: int):
@@ -259,32 +337,39 @@ def _lanes(N: int, threads: int):
 def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
               n_ext: int = 0, n_cons: int = 0, mean: bool = False,
               staged: Optional[bool] = None,
-              variant: Optional[str] = None) -> AdmmPlan:
+              variant: Optional[str] = None,
+              runtime_r: Optional[bool] = None) -> AdmmPlan:
     """The instantiation K5 runs P problems with: horizon N, block b, m rows
     a stage, n_blk blocking rows and n_ext extra rows; with ``mean``, in
     groups of S scenarios (a group mean over the trailing n_cons rows), a
     cluster each. A stage's rows over ``tps`` lanes, the most (a power of
     2 up to 32) with every stage in one round of the CTA's (or its slot's)
-    threads. The variants in turn, staged factors before unstaged in each:
-    the shared one (S ≤ 8); grouped, global, global_all (module doc). The
-    FLEX variants deal a group over ⌈S/16⌉ scenarios a CTA, in a cluster
-    of ⌈S/spc⌉ CTAs. ``staged`` and ``variant`` force one: no path sets
-    them, ``chip_smoke.py`` holds the unstaged and the global-state
-    variants with them at shapes that fit the shared one. Raises
-    ValueError, with the shape, where nothing fits: there is no other
-    path."""
+    threads. The variants in turn, staged factors before unstaged in each,
+    and in each the extra rows' placements of ``_ext_ladder`` (the register
+    path up to ADMM_RMAX extra rows at bmax 8 and 16, else the runtime-r
+    path, its arrays moved to device memory the largest first): the shared
+    one (S ≤ 8); grouped, global, global_all (module doc). The FLEX
+    variants deal a group over ⌈S/16⌉ scenarios a CTA, in a cluster of
+    ⌈S/spc⌉ CTAs. ``staged``, ``variant`` and ``runtime_r`` force one: no
+    path sets them, ``chip_smoke.py`` holds the unstaged, the global-state
+    and the runtime-r instantiations with them at shapes the plan gives
+    others. Raises ValueError, with the shape, where nothing fits: there is
+    no other path."""
     shape = (f"P={P}, N={N}, b={b}, m={m}, S={S}, n_blk={n_blk}, "
              f"n_ext={n_ext}, n_cons={n_cons}")
     what = f"K5 (stagewise ADMM) at {shape}"
-    if min(P, N, b, m, S) < 1:
+    if min(P, N, b, m, S) < 1 or n_ext < 0:
         raise ValueError(f"{what}: empty shape")
     bmax = next((v for v in ADMM_BMAX if b <= v), None)
     if bmax is None:
         raise ValueError(f"{what}: block size b={b} above the "
                          f"{ADMM_BMAX[-1]} the kernel is built for")
-    if n_ext > ADMM_RMAX:
-        raise ValueError(f"{what}: {n_ext} extra rows, above the "
-                         f"{ADMM_RMAX} the kernel takes")
+    needs_rt = bmax > 16 or n_ext > ADMM_RMAX
+    if runtime_r is None:
+        runtime_r = needs_rt
+    elif needs_rt and not runtime_r:
+        raise ValueError(f"{what}: the register path takes at most "
+                         f"{ADMM_RMAX} extra rows and b up to 16")
     if mean and not 1 <= n_cons <= m:
         raise ValueError(f"{what}: a group mean needs 1 to m consensus rows")
     if not mean and S != 1:
@@ -296,15 +381,17 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
         raise ValueError(f"{what}: no variant {variant!r}")
     most = ADMM_THREADS[bmax]
     sts = (True, False) if staged is None else (bool(staged),)
+    exts = _ext_ladder(N, b, m, n_ext, bmax, runtime_r)
     smem = None
     if variant in (None, "shared") and S <= ADMM_CLUSTER:
         tps, warps = _lanes(N, most)
         for st in sts:
-            smem = admm_smem_bytes(N, b, m, S, n_blk, n_ext, n_cons, mean,
-                                   warps, st, bmax)
-            if smem <= SMEM_MAX:
-                return AdmmPlan(bmax=bmax, staged=st, warps=warps, tps=tps,
-                                cluster=S, smem=smem)
+            for ext in exts:
+                smem = admm_smem_bytes(N, b, m, S, n_blk, n_ext, n_cons,
+                                       mean, warps, st, bmax, ext)
+                if smem <= SMEM_MAX:
+                    return AdmmPlan(bmax=bmax, staged=st, warps=warps,
+                                    tps=tps, cluster=S, smem=smem, ext=ext)
     if variant == "shared":
         raise ValueError(
             f"{what}: the shared variant " + (
@@ -320,12 +407,15 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
     names = ADMM_PLACES if variant is None else (variant,)
     for name in names:
         for st in sts:
-            smem = flex_smem_bytes(N, b, m, n_blk, n_ext, n_cons, mean,
-                                   w * spc, st, bmax, spc, ADMM_PLACES[name])
-            if smem <= SMEM_MAX:
-                return AdmmPlan(bmax=bmax, staged=st, warps=w * spc,
-                                tps=tps, cluster=-(-S // spc), smem=smem,
-                                spc=spc, variant=name)
+            for ext in exts:
+                smem = flex_smem_bytes(N, b, m, n_blk, n_ext, n_cons, mean,
+                                       w * spc, st, bmax, spc,
+                                       ADMM_PLACES[name], ext)
+                if smem <= SMEM_MAX:
+                    return AdmmPlan(bmax=bmax, staged=st, warps=w * spc,
+                                    tps=tps, cluster=-(-S // spc),
+                                    smem=smem, spc=spc, variant=name,
+                                    ext=ext)
     raise ValueError(f"{what}: needs {smem} bytes of shared memory a CTA, "
                      f"above the {SMEM_MAX} an sm_90 CTA has")
 
@@ -385,7 +475,8 @@ class _AdmmArgs(ctypes.Structure):
         + [(k, ctypes.c_int) for k in (
             "P", "N", "b", "m", "S", "n_blk", "blk0", "n_ext", "n_cons",
             "mean", "iters")]
-        + [(k, ctypes.c_float) for k in ("sigma", "alpha")])
+        + [(k, ctypes.c_float) for k in ("sigma", "alpha")]
+        + [("ext_ws", ctypes.c_void_p), ("ext", ctypes.c_int)])
 
 
 def admm_cluster_capacity(sw, args, pl: AdmmPlan) -> int:
@@ -400,7 +491,7 @@ def admm_cluster_capacity(sw, args, pl: AdmmPlan) -> int:
            args.n_cons)
     got = sw.cache.get(key)
     if got is None:
-        lib = load_library("stagewise")
+        lib = load_library(pl.library)
         got = lib.phc_sw_admm_max_clusters(
             ctypes.addressof(args), pl.warps, pl.tps, int(pl.staged),
             pl.bmax, pl.spc, pl.cluster, ADMM_PLACES[pl.variant])
@@ -417,16 +508,19 @@ def admm_cluster_capacity(sw, args, pl: AdmmPlan) -> int:
 
 def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
                  consensus_M=None, staged: Optional[bool] = None,
-                 variant: Optional[str] = None):
+                 variant: Optional[str] = None,
+                 runtime_r: Optional[bool] = None):
     """K5 on the card: ``iters`` stagewise ADMM iterations of the prep
     ``sw`` in one launch, from the warm carries. x and q (…, N, b), z, y,
     l and u (…, N, m_k) with one batch (z already inside [l, u]); with
     extra rows z_e, y_e and ext_u (…, n_ext); ``consensus_M`` (S, S, N)
-    the group mean over the last batch axis (S scenarios); ``staged`` and
-    ``variant`` force one instantiation (``plan_admm``). Returns (x, z, y,
-    dy, z_e, y_e, dy_e) as ``ops/stagewise._admm_iterations`` does.
-    Checks, allocates the outputs (and a FLEX variant's scratch), checks a
-    FLEX cluster against the card's occupancy and launches once."""
+    the group mean over the last batch axis (S scenarios); ``staged``,
+    ``variant`` and ``runtime_r`` force one instantiation (``plan_admm``).
+    Returns (x, z, y, dy, z_e, y_e, dy_e) as
+    ``ops/stagewise._admm_iterations`` does. Checks, allocates the outputs
+    (and a FLEX variant's scratch, and the runtime-r vectors' where they
+    lie in device memory), checks a FLEX cluster against the card's
+    occupancy and launches once."""
     from pyhybridcontrol_tpu_torch.ops._build import load_library
 
     dev = x.device
@@ -455,7 +549,7 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
     for name, f in zip(("L", "Uinv", "C"), sw.factors):
         _check(name, f, (N, b, b), dev)
     pl = plan_admm(P, N, b, m, S, sw.n_blk, r, sw.n_cons, mean, staged,
-                   variant)
+                   variant, runtime_r)
     out = [torch.empty((P, N, b), dtype=torch.float32, device=dev)]
     out += [torch.empty((P, N, m), dtype=torch.float32, device=dev)
             for _ in range(3)]
@@ -468,17 +562,19 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
     gM = consensus_M.float().contiguous() if mean else None
     if mean:
         _check("consensus_M", gM, (S, S, N), dev)
+    ext_ws = (torch.empty(P * ext_scratch_words(r), dtype=torch.float32,
+                          device=dev) if pl.ext & EXT_VEC else None)
     ptrs = dict(q=q, l=l, u=u, x0=x0, z0=z0, y0=y0, L=sw.L, U=sw.Uinv,
                 C=sw.C, J=c["J"], Mc=c["Mc"], tie=c["tie"], blk=c["blk"],
                 rows=c["rows"], Aext=c.get("Aext"), KiU=c.get("KiU"),
                 Cw=c.get("Cw"), rho_e=c.get("rho_ext"), gM=gM, x=out[0],
-                z=out[1], y=out[2], dy=out[3], **ext)
+                z=out[1], y=out[2], dy=out[3], ext_ws=ext_ws, **ext)
     args = _AdmmArgs(**{k: _ptr(v).value for k, v in ptrs.items()},
                      P=P, N=N, b=b, m=m, S=S, n_blk=sw.n_blk,
                      blk0=c["blk0"], n_ext=r, n_cons=sw.n_cons,
                      mean=int(mean), iters=int(iters), sigma=sw.sigma,
-                     alpha=sw.alpha)
-    lib = load_library("stagewise")
+                     alpha=sw.alpha, ext=pl.ext)
+    lib = load_library(pl.library)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if pl.variant == "shared":
@@ -490,7 +586,8 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
             if mean:
                 admm_cluster_capacity(sw, args, pl)
             scratch = torch.empty(
-                P * flex_scratch_words(N, b, m, sw.n_cons, mean, place)
+                P * flex_scratch_words(N, b, m, sw.n_cons, mean, place,
+                                       pl.bmax)
                 if place else 0, dtype=torch.float32, device=dev)
             rc = lib.phc_sw_admm_flex(
                 ctypes.addressof(args), pl.warps, pl.tps, int(pl.staged),

@@ -681,11 +681,49 @@ def test_admm_long_horizon_matches_reference():
     _close(tr.x.numpy(), jr.x, 1e-3)
 
 
+# the shapes past the register path (b > 16, more than 4 extra rows): (P,
+# N, b, m, S, n_blk, n_ext, n_cons, mean) and the plan's (bmax, variant,
+# ext); the battery fleets of chip_smoke.py (5 at N=8, 8 at N=96, 16 at
+# N=48, 32 at N=24), random blocks of b = 17, 33 and 100 at N=10, and
+# config 6's long arm with 5, 20, 64 and 300 extra rows
+PAST = {
+    "b17": ((4, 10, 17, 30), (32, "shared", cs.EXT_RT)),
+    "fleet5_b20": ((8, 8, 20, 77, 1, 0, 6), (32, "shared", cs.EXT_RT)),
+    "fleet8_b32": ((8, 96, 32, 122, 1, 0, 20),
+                   (32, "global", cs.EXT_RT | cs.EXT_AK)),
+    "b33": ((4, 10, 33, 40), (64, "shared", cs.EXT_RT)),
+    "fleet16_b64": ((8, 48, 64, 242, 1, 0, 22),
+                    (64, "global", cs.EXT_RT | cs.EXT_AK)),
+    "b100": ((4, 10, 100, 120), (128, "shared", cs.EXT_RT)),
+    "fleet32_b128": ((8, 24, 128, 482, 1, 0, 35),
+                     (128, "global", cs.EXT_RT | cs.EXT_AK | cs.EXT_CW
+                      | cs.EXT_JM)),
+    "cfg6_r5": ((64, 120, 5, 19, 8, 0, 5, 2, True), (8, "shared", cs.EXT_RT)),
+    "cfg6_r20": ((64, 120, 5, 19, 8, 0, 20, 2, True),
+                 (8, "shared", cs.EXT_RT)),
+    "cfg6_r64": ((64, 120, 5, 19, 8, 0, 64, 2, True),
+                 (8, "shared", cs.EXT_RT | cs.EXT_AK)),
+    "cfg6_r300": ((64, 120, 5, 19, 8, 0, 300, 2, True),
+                  (8, "shared", cs.EXT_RT | cs.EXT_AK | cs.EXT_CW)),
+}
+
+
 def test_admm_plan_refuses_what_has_no_instantiation():
-    with pytest.raises(ValueError, match=r"P=4, N=10, b=17.*above the 16"):
-        cs.plan_admm(4, 10, 17, 30)
-    with pytest.raises(ValueError, match="extra rows"):
-        cs.plan_admm(4, 10, 5, 17, n_ext=5)
+    """Past the register path the plan takes every b up to 128 (bmax 32,
+    64, 128) and any number of extra rows (the runtime-r path, its arrays
+    in device memory where they do not fit), and raises on b = 129; the
+    register path forced past it refuses; the other refusals."""
+    for key, (shape, want) in PAST.items():
+        pl = cs.plan_admm(*shape)
+        assert (pl.bmax, pl.variant, pl.ext) == want, (key, pl)
+        assert pl.library == ("stagewise_wide" if pl.bmax > 16
+                              else "stagewise_extra")
+    with pytest.raises(ValueError, match=r"P=4, N=10, b=129.*above the 128"):
+        cs.plan_admm(4, 10, 129, 150)
+    with pytest.raises(ValueError, match="register path"):
+        cs.plan_admm(4, 10, 5, 17, n_ext=5, runtime_r=False)
+    with pytest.raises(ValueError, match="register path"):
+        cs.plan_admm(4, 10, 20, 30, runtime_r=False)
     # the shared variant takes a portable cluster and a scenario's state in
     # shared memory; forced past either, it refuses (the plan does not:
     # test_admm_plan_reaches_every_horizon_and_group)
@@ -714,9 +752,10 @@ def test_admm_plan_refuses_what_has_no_instantiation():
 def test_admm_smem_mirrors_the_kernel_source():
     """``admm_smem_bytes`` mirrors ``admm_layout`` of csrc/stagewise.cu
     array by array (each padded to a multiple of 4 words, J and Mc in rows
-    of bmax words); the warp, cluster and extra-row caps and the dispatched
-    bounds are the kernel's; ``_AdmmArgs`` is the C struct field by
-    field."""
+    of bmax words to bmax 16, of b words above; the runtime-r path's
+    arrays in device memory by ext's bits); the warp, cluster and
+    register-path caps and the bounds each part of the source dispatches
+    are the kernel's; ``_AdmmArgs`` is the C struct field by field."""
     import os
 
     src = open(os.path.join(os.path.dirname(__file__), "..",
@@ -725,41 +764,68 @@ def test_admm_smem_mirrors_the_kernel_source():
     for line in (
             "const size_t f = staged ? pad4((size_t)N * b * b) : 0;",
             "const size_t zn = pad4((size_t)m * N), tn = pad4((size_t)N * b);",
-            "a.J = o; o += pad4((size_t)m * bmax);",
-            "a.Mc = o; o += pad4((size_t)m * bmax);",
+            "return bmax <= 16 ? pad4((size_t)m * bmax)",
+            ": (ext & kExtJM ? 0 : pad4((size_t)m * b));",
+            "return !ext ? kRMax : (ext & kExtVec ? 0 : 4 * pad4(r));",
+            "const bool ak = !(ext & kExtAK);              // Aext and KiU "
+            "staged",
+            "a.J = o; o += jm_words(m, b, bmax, ext);",
+            "a.Mc = o; o += jm_words(m, b, bmax, ext);",
             "a.tie = o; o += pad4((size_t)N * n_blk);",
             "a.blk = o; o += pad4(n_blk);",
-            "a.Aext = o; o += pad4((size_t)r * N * b);",
-            "a.KiU = o; o += pad4((size_t)N * b * r);",
-            "a.Cw = o; o += pad4((size_t)r * r);",
-            "a.rho_e = o; o += pad4(r);",
+            "a.Aext = o; o += ak ? pad4((size_t)r * N * b) : 0;",
+            "a.KiU = o; o += ak ? pad4((size_t)N * b * r) : 0;",
+            "a.Cw = o; o += ext & kExtCw ? 0 : pad4((size_t)r * r);",
+            "a.rho_e = o; o += ext & kExtVec ? 0 : pad4(r);",
             "a.gM = o; o += mean ? pad4((size_t)S * N) : 0;",
             "a.u = o; o += zn;",
+            "a.w = o; o += bmax > 16 ? zn : 0;",
             "a.xb = o; o += tn;",
             "a.cb = o; o += mean ? 2 * pad4((size_t)N * n_cons) : 0;",
-            "a.corr = o; o += kRMax;",
-            "a.red = o; o += (size_t)kRMax * warps;",
+            "a.corr = o; o += vec_words(r, ext);",
+            "a.red = o; o += ext ? 0 : (size_t)kRMax * warps;",
             "constexpr int kRMax = 4;",
+            "constexpr int kExtRt = 1;",
+            "constexpr int kExtAK = 2;",
+            "constexpr int kExtCw = 4;",
+            "constexpr int kExtVec = 8;",
+            "constexpr int kExtJM = 16;",
             "return bmax <= 8 ? 512 : 256;",
             "a->S > 8",
             # the FLEX variants' layout (flex_layout)
             "const bool hz = place < 2;                    // horizon "
             "constants staged",
+            "const bool hx = hz && !(ext & kExtAK);        // Aext and KiU "
+            "staged",
             "a.tie = o; o += hz ? pad4((size_t)N * n_blk) : 0;",
-            "a.Aext = o; o += hz ? pad4((size_t)r * N * b) : 0;",
-            "a.KiU = o; o += hz ? pad4((size_t)N * b * r) : 0;",
+            "a.Aext = o; o += hx ? pad4((size_t)r * N * b) : 0;",
+            "a.KiU = o; o += hx ? pad4((size_t)N * b * r) : 0;",
+            "a.w = zo; zo += bmax > 16 ? zn : 0;",
             "const size_t cn = mean ? 2 * pad4((size_t)N * n_cons) : 0;",
             "size_t& zo = place >= 1 ? g : sl;             // z, y, l, u",
             "size_t& to = place >= 2 ? g : sl;             // t, mb, x, cb",
-            "a.red = sl; sl += (size_t)kRMax * warps_slot;",
+            "a.corr = sl; sl += vec_words(r, ext);",
+            "a.red = sl; sl += ext ? 0 : (size_t)kRMax * warps_slot;",
             "a.total = o + (size_t)spc * sl;",
             "constexpr int kMaxCluster = 16;",
             "fx.cluster * fx.spc >= a->S && (fx.cluster - 1) * fx.spc < a->S",
             "if (C > 8) {"):
         assert line in src, line
+    # the register path at bmax 8 and 16 (this source alone), the runtime-r
+    # path at every bmax (bmax 8 and 16 in stagewise_extra.cu, 32 to 128 in
+    # stagewise_wide.cu): each part dispatches its bounds
     for m in cs.ADMM_BMAX:
-        assert f"case {m}: return launch_admm_b<{m}>" in src
-        assert f"case {m}: return launch_flex_b<{m}>" in src
+        for rdyn in (("false", "true") if m <= 16 else ("true",)):
+            assert f"case {m}: return launch_admm_b<{m}, {rdyn}>" in src
+            assert f"case {m}: return launch_flex_b<{m}, {rdyn}>" in src
+    csrc = os.path.join(os.path.dirname(__file__), "..",
+                        "pyhybridcontrol_tpu_torch", "csrc")
+    for part, name in ((1, "stagewise_wide.cu"), (2, "stagewise_extra.cu")):
+        part_src = open(os.path.join(csrc, name)).read()
+        assert f"#define PHC_SW_PART {part}" in part_src
+        assert '#include "stagewise.cu"' in part_src
+    assert (cs.EXT_RT, cs.EXT_AK, cs.EXT_CW, cs.EXT_VEC, cs.EXT_JM) == \
+        (1, 2, 4, 8, 16)
     assert (cs.ADMM_RMAX, cs.ADMM_CLUSTER, cs.ADMM_CLUSTER_MAX) == (4, 8, 16)
     assert cs.ADMM_PLACES == {"grouped": 0, "global": 1, "global_all": 2}
     assert set(cs.ADMM_LAUNCH.values()) <= set(ca.LAUNCHES)
@@ -786,7 +852,7 @@ def test_admm_smem_mirrors_the_kernel_source():
         4 * (10512 + 4 * (9120 + 1800 + 480 + 20))
     assert cs.flex_scratch_words(120, 5, 19, 2, True, 1) == 9120
     assert cs.flex_scratch_words(120, 5, 19, 2, True, 2) == 9120 + 1800 + 480
-    assert cs.ADMM_THREADS == {8: 512, 16: 256}
+    assert cs.ADMM_THREADS == {8: 512, 16: 256, 32: 256, 64: 256, 128: 256}
     # config 6's long arm, word by word: factors 3·3000, J/Mc 2·152,
     # Aext/KiU 2·600, Cw 4, ρₑ 4, the group mean's row 960, z/y/l/u
     # 4·2280, t/mb/x 3·600, the consensus buffers 2·240, 4·(1+15)
@@ -799,9 +865,11 @@ def test_admm_smem_mirrors_the_kernel_source():
     assert names[:29] == [ln.strip().rstrip(";").split("*")[-1].strip()
                           for ln in body.splitlines()[1:30]]
     assert names[29:] == ["P", "N", "b", "m", "S", "n_blk", "blk0", "n_ext",
-                          "n_cons", "mean", "iters", "sigma", "alpha"]
+                          "n_cons", "mean", "iters", "sigma", "alpha",
+                          "ext_ws", "ext"]
     assert "int P, N, b, m, S, n_blk, blk0, n_ext, n_cons, mean, iters;" in \
         body and "float sigma, alpha;" in body
+    assert body.rstrip().endswith("float* ext_ws;\n  int ext;")
 
 
 def test_admm_dispatch_follows_the_device(monkeypatch):

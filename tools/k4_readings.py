@@ -5,6 +5,7 @@ whole-solve holds of its phase 20 are set):
     python tools/k4_readings.py [--seeds 0-7] [--config6] [--plain-solve]
                                 [--profile]
     python tools/k4_readings.py --flex [--seeds 0-7] [--probes N,...]
+    python tools/k4_readings.py --any [--seeds 0-7]
 
 Builds the kernels, then runs ``chip_smoke.phase_k4`` and
 ``chip_smoke.phase_k5`` (both timed at the first seed only) once per seed
@@ -27,6 +28,11 @@ wide_tree paths' shapes, and forced against the shared variant at config
 once; ``--probes N,...`` then runs the hull model's long_horizon solve
 again at each probe iteration count (its found share against the probe's
 length).
+
+``--any`` runs ``chip_smoke.phase_k5_any`` (K5 past its register path:
+b above 16 and more than 4 extra rows, against the plain loop; timed at
+the first seed only) once per seed, as above (how the "k5_any" and
+"k5_rt" limits are set), then the battery_fleet path once.
 """
 
 from __future__ import annotations
@@ -133,6 +139,7 @@ def main(argv=None):
     ap.add_argument("--plain-solve", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--flex", action="store_true")
+    ap.add_argument("--any", action="store_true")
     ap.add_argument("--probes", default="")
     a = ap.parse_args(argv)
     lo, _, hi = a.seeds.partition("-")
@@ -159,6 +166,10 @@ def main(argv=None):
         cs.SEED = seed
         cs.TIMINGS = seed == seeds[0]       # the times at the first seed
         print(f"seed {seed}:", flush=True)
+        if a.any:
+            cs.phase("k5_any", cs.phase_k5_any, dev, cs.phase_rng("k5_any"),
+                     {k: {} for k in cs.K5_FAMILY})
+            continue
         if a.flex:
             recs = {k: {} for k in cs.K5_FAMILY}
             cs.phase("k5_flex", cs.phase_k5_flex, dev,
@@ -172,7 +183,9 @@ def main(argv=None):
                          for k, v in seen.items()), flush=True)
     print("off their limits: " + ("; ".join(cs.OVER) or "none"), flush=True)
     cs.READINGS_ONLY = False
-    if a.flex:
+    if a.any:
+        cs.phase("battery fleet", cs.phase_battery_fleet, dev)
+    elif a.flex:
         cs.phase("long horizons and wide trees", cs.phase_wide_paths, dev)
     for n in filter(None, a.probes.split(",")):
         cs.LONG_SPEC = dict(cs.LONG_SPEC, probe_iters=int(n))

@@ -14,6 +14,7 @@ runs on the CPU):
     python tools/plain_noise.py --big-shapes [--seed S]
     python tools/plain_noise.py --one-pass [--seed S]
     python tools/plain_noise.py --flex [--seed S]
+    python tools/plain_noise.py --any [--seed S]
 
 Builds config 4c's dense joint frame (the reference bench's tree: S=4,
 N=10, branching at steps 1 and 5), draws B seeded states and B&B-node
@@ -46,6 +47,12 @@ cold, float32), then ``chip_smoke.FLEX_HOLD_ITERS`` iterations from it in
 float32 against float64, and again after a one-ulp change of q (float32
 both), on x, z, y, dy and the extra rows' carries — what phase 35 holds
 K5's grouped and global-state variants to ("k5_flex").
+
+``--any``: the same at the waves ``chip_smoke.any_waves`` draws at
+``--seed`` (the battery fleets at b = 20, 32, 64 and 128, four ω double
+integrators in a tree of S = 16, config 6's long arm with 5, 20 and 300
+extra rows): what phase 37 holds K5 past its register path to ("k5_any",
+"k5_rt").
 
 ``--served``: config 2's real frame (``chip_smoke.real_problem``, 64
 seeded states and node boxes, seeded by S) and the wave a served request
@@ -265,6 +272,27 @@ def flex_readings(seed=5):
     FLEX variants' shapes (see the module docstring)."""
     import chip_smoke as cs
 
+    return _k5_wave_readings(
+        (w[0],) + tuple(w[2:7]) for w in cs.flex_waves(
+            torch.device("cpu"), np.random.default_rng(seed)))
+
+
+def any_readings(seed=5):
+    """The same at K5's shapes past its register path (``--any``)."""
+    import chip_smoke as cs
+
+    return _k5_wave_readings(
+        w[:6] for w in cs.any_waves(torch.device("cpu"),
+                                    np.random.default_rng(seed)))
+
+
+def _k5_wave_readings(waves):
+    """{shape and stage: {field: error}}: for each (tag, backend, f, h, lb,
+    ub) of ``waves``, the plain loop's relaxation (K5_RELAX iterations,
+    cold, float32), then FLEX_HOLD_ITERS iterations from it in float32
+    against float64, and again after a one-ulp change of q."""
+    import chip_smoke as cs
+
     from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
 
     floor = dict(cs.FLOOR)
@@ -287,9 +315,7 @@ def flex_readings(seed=5):
         return orig(*a, **kw)
 
     out = {}
-    cpu = torch.device("cpu")
-    for tag, key, be, fb, hb, lb, ub, _ in cs.flex_waves(
-            cpu, np.random.default_rng(seed)):
+    for tag, be, fb, hb, lb, ub in waves:
         calls.clear()
         tsw._admm_iterations = record
         try:
@@ -534,10 +560,12 @@ def main(argv=None):
     ap.add_argument("--paths", action="store_true")
     ap.add_argument("--big-shapes", action="store_true")
     ap.add_argument("--flex", action="store_true")
+    ap.add_argument("--any", action="store_true")
     a = ap.parse_args(argv)
     torch.set_num_threads(4)
     got = (stagewise_readings(a.seed) if a.stagewise
            else flex_readings(a.seed) if a.flex
+           else any_readings(a.seed) if a.any
            else served_readings(a.seed) if a.served
            else decentralized_readings(a.seed) if a.decentralized
            else strong_branching_readings(a.seed) if a.strong_branching
