@@ -4251,9 +4251,13 @@ def k4_frames(dev):
     return out
 
 
-# the wider instantiations (bmax 32, 64, 128), which no model of the repo
-# reaches yet: random factors of a stable recursion, held but not timed
+# the wider instantiations (bmax 32, 64, 128): random factors of a stable
+# recursion, held staged and through L2, and timed (TIMINGS) beside the
+# battery fleets' factors (K4_FLEETS)
 K4_WIDE = ((20, 8), (40, 6), (100, 4))        # (b, N), each at P=8
+# (batteries, N) of the fleets whose factors K4 is timed on at P=8:
+# battery_fleet's (b=32) and phase 37's at b=64 and b=128
+K4_FLEETS = ((8, 96), (16, 48), (32, 24))
 
 
 def k4_wide(dev, rng):
@@ -4289,6 +4293,51 @@ def k4_chain_ms(N, b):
     FMAs, at the 1.98 GHz boost clock."""
     stage = SWEEP_STAGE_CYCLES + SWEEP_FMA5_CYCLES * (b - 5) / 5
     return 1e3 * 2 * N * stage / 1.98e9
+
+
+def dense_K_of(factors):
+    """K as a dense (N·b, N·b) fp64 matrix from its block LU factors
+    (L, U⁻¹, C): the inverse of K⁻¹, the plain sweeps applied to the unit
+    vectors (for factors with no prep behind them)."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
+
+    N, b = factors[0].shape[:2]
+    n = N * b
+    f64 = tuple(f.double() for f in factors)
+    E = torch.eye(n, dtype=torch.float64, device=factors[0].device)
+    Kinv = tsw._solve_K(None, E.reshape(n, N, b), f64).reshape(n, n).T
+    return torch.linalg.inv(Kinv)
+
+
+def k4_wide_timed(rec, pre, tag, factors, r, K):
+    """K4 at a wide shape, timed into ``rec`` under ``pre``: alone and
+    around its wrapper, the plain sweeps, the bound (``k4_work``), the
+    chain floor and ``torch.linalg.lu_solve`` on the dense LU of K (fp32)
+    for the same right-hand sides."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
+    from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
+
+    P, N, b = r.shape
+    pl = cs.plan_sweep(P, N, b)
+    print(f"  {tag}, P={P} (bmax {pl.bmax}, "
+          + (f"staged, {pl.warps} warps a block" if pl.staged
+             else f"a ring of {pl.ring} blocks a warp, 1 warp a block")
+          + f", {pl.smem} bytes):", flush=True)
+    timed(rec, pre, lambda: cs.sw_solve_k_cuda(r, factors),
+          lambda: tsw._solve_K(None, r, factors), k4_work(P, N, b))
+    rec[pre + "chain_ms"] = k4_chain_ms(N, b)
+    LU, piv = torch.linalg.lu_factor(K.float())
+    rhs = r.reshape(P, N * b).T.contiguous()
+    rec[pre + "library_ms"] = cuda_ms(
+        lambda: torch.linalg.lu_solve(LU, piv, rhs))
+    print(f"    chain floor {rec[pre + 'chain_ms']:.4f} ms (2N={2 * N} "
+          f"stages); torch.linalg.lu_solve on the dense LU of K "
+          f"({N * b}², {P} right-hand sides): "
+          f"{rec[pre + 'library_ms']:.3f} ms", flush=True)
 
 
 def dense_K(sw):
@@ -4465,7 +4514,9 @@ def phase_k4(dev, rng, rec):
     against the torch loop with the plain sweeps, certificate bits
     identical. Times of K4 alone, of its wrapper and of the plain sweeps,
     its bound, its chain floor and ``torch.linalg.lu_solve`` on the dense
-    LU of K at every shape."""
+    LU of K at every shape, the wide ones (``K4_WIDE``, and the battery
+    fleets' factors of ``K4_FLEETS``, whose difference from the plain
+    sweeps is printed) included (``k4_wide_timed``)."""
     import torch
 
     from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
@@ -4523,6 +4574,24 @@ def phase_k4(dev, rng, rec):
             held(f"{tag} P={P} (bmax {pl.bmax}, "
                  f"{'staged' if st else 'through L2'})", "sweep_wide",
                  {"x": (cs.sw_solve_k_cuda(r, factors, staged=st), ref)})
+        if TIMINGS:
+            k4_wide_timed(rec, f"wide_b{b}_N{N}_", tag, factors, r,
+                          dense_K_of(factors))
+    # the fleets' factors (K5's sweep at battery_fleet and phase 37's b=64
+    # and b=128; K5 is held there): timed, with K4's difference from the
+    # plain sweeps printed (the right-hand sides from a generator of their
+    # own, so that the holds above and below keep their inputs)
+    frng = phase_rng("k4_fleets")
+    for M, N in (K4_FLEETS if TIMINGS else ()):
+        sw = fleet_controller(M, N, dev)[0]._sw
+        r = torch.as_tensor(frng.normal(size=(8, N, sw.b)),
+                            dtype=torch.float32, device=dev)
+        ref = tsw._solve_K(sw, r)
+        err = float((cs.sw_solve_k_cuda(r, sw.factors) - ref).abs().max()
+                    / ref.abs().max())
+        k4_wide_timed(rec, f"fleet{M}_", f"{M} batteries' factors, N={N}, "
+                      f"b={sw.b} (max |Δ| / max |x| against the plain "
+                      f"sweeps {err:.2e})", sw.factors, r, dense_K(sw))
 
     tree_l = config6_trees()[1]
     swt, swtp = config6_preps(dev, tree_l, config6_extra(CFG6_N))

@@ -29,7 +29,7 @@
 // anything. What bounds it is the dependent chain: 2·N stages, each a
 // b-row matrix-vector product on the previous stage's result.
 //
-// The design (block_sweep below, which K5 runs too):
+// The design (sweep_rows below, which K5 runs too, up to BMAX 16):
 //  - One warp per problem. Lane i owns rows i, i+32, … of each block; the
 //    block size is bounded at compile time (BMAX: 8, 16, 32, 64 or 128, the
 //    smallest at or above b) so that the column loops unroll, and the lanes
@@ -48,6 +48,16 @@
 //    (STAGED = false). The wrapper's plan (ops/cuda_stagewise.plan_sweep)
 //    picks BMAX, the variant and the warps a block (4, 2 or 1) from the
 //    shapes alone. Shared-memory arrays start at multiples of 4 words.
+//  - Above BMAX 16 (the wide sweep, "the wide sweep" below) a lane owns
+//    R = BMAX/32 rows and a block's b² coefficients no longer fit a lane's
+//    registers, so the design changes: the factors are packed by block
+//    column-major (conflict-free, one 128-byte line a warp and column);
+//    where they are not staged, a ring of D stage blocks in shared memory
+//    is kept filled by bulk copies (TMA) D stages ahead of the chain; and
+//    U⁻¹_k y_k, which needs only the forward sweep's y, is a pass of its
+//    own between the sweeps (in K5 over every warp of the slot), so that
+//    the backward chain is x_k = a_k − C_k x_{k+1}. The sums are the same
+//    in the same order, so the outputs are what the row-major sweep gave.
 //
 // ---- K5: the stagewise ADMM loop -----------------------------------------
 //
@@ -85,7 +95,7 @@
 // The design:
 //  - One CTA per problem (scenario), a node's S scenarios one thread-block
 //    cluster (S ≤ 8, the portable size). Warp 0 runs the sweep
-//    (block_sweep, K4's code) out of shared memory; the factors are staged
+//    (sweep_rows, K4's code) out of shared memory; the factors are staged
 //    there once per launch where they fit (STAGED), not once per
 //    iteration. A CTA of its own per scenario keeps every sweep warp alone
 //    with its SM's shared-memory pipe, and spreads the row work over S
@@ -144,8 +154,11 @@
 //    then, after the group's __syncwarp, the stage's columns over the
 //    same lanes in fours, each summing its share of t_k and mb_{k−1} over
 //    the rows. J and Mc are rows of b words (in shared memory where they
-//    fit). No thread holds a bmax-wide array; the sweep is K4's
-//    sweep_wide.
+//    fit). No thread holds a bmax-wide array; the sweep is K4's wide
+//    sweep: warp 0's forward sweep through its ring (unstaged; the ring's
+//    fills run on across the iterations, so the next iteration's first
+//    blocks land during the row work), a barrier, U⁻¹_k y_k over all the
+//    slot's warps, a barrier, warp 0's backward sweep.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -298,114 +311,265 @@ __device__ inline void sweep_rows(float* ys, const float* add,
   }
 }
 
-// the same sweep for BMAX 32 to 128: lane i owns rows i, i+32, …, each
-// stage's coefficients read where they are used
-template <int BMAX, bool ADD>
-__device__ inline void sweep_wide(float* ys, const float* add,
-                                  const float* L, const float* U,
-                                  const float* C, float* xp, int N, int b,
-                                  int lane) {
-  constexpr int R = (BMAX + 31) / 32;           // rows a lane owns
-  const int bb = b * b;
+// ---- the wide sweep (BMAX 32 to 128) ----
+//
+// The wrapper packs each factor (L, U⁻¹, C) for it by stage block, each
+// block column-major (element (i, j) at j·b + i) and padded to a multiple
+// of 4 words (ops/cuda_stagewise.pack_wide): lane i's reads of a column are
+// consecutive words, so a warp's read of one column is one 128-byte line
+// and hits 32 banks (row-major blocks put the 32 lanes b words apart, a
+// 32-way bank conflict at b = 32, 64 and 128), and every block starts
+// 16-byte aligned, as a bulk copy needs.
+__host__ __device__ inline size_t wide_block(int b) {
+  return pad4((size_t)b * b);
+}
 
-  // ---- forward sweep: y_k = r_k − L_k y_{k−1}, in place over r_k ----
-  float prev[R];
+// words of one factor array as the kernels read it: N·b² words up to bmax
+// 16, N packed blocks above
+__host__ __device__ inline size_t factor_words(int N, int b, int bmax) {
+  return bmax <= 16 ? pad4((size_t)N * b * b) : (size_t)N * wide_block(b);
+}
+
+// words of a ring of D packed blocks in shared memory behind its D
+// mbarriers (two words each); none without a ring
+__host__ __device__ inline size_t ring_words(int D, int b) {
+  return D ? pad4(2 * (size_t)D) + (size_t)D * wide_block(b) : 0;
+}
+
+// A ring of D stage blocks (D = 2, 4 or 8) in shared memory that lane 0 of
+// the one warp reading it keeps filled by bulk copies (TMA, one elected
+// thread, completion on the slot's mbarrier) from the packed factors in
+// device memory, where they are not staged. The fills run in a fixed
+// sequence n = 0, 1, …: the parts in the order the warp reads them (L
+// forward, in K4 U⁻¹ forward, C backward), over and over. The warp waits
+// for fill n, reads its slot and only then (every lane's reads used, after
+// a __syncwarp) lane 0 issues fill n + D into the same slot: a slot has one
+// fill in flight at most, so the phase to wait for is (n div D) mod 2. No
+// fill is issued at or past `stop`, so none is in flight when the kernel
+// ends.
+struct FactorRing {
+  float* buf;                  // D blocks of bs words
+  unsigned long long* bar;     // D mbarriers
+  const float *p0, *p1, *p2;   // the parts (no array: the ring stays in
+                               // registers, not in local memory)
+  size_t bs;
+  int parts, N, lgD;
+  unsigned bytes, n, stop;     // bytes a block, the next fill read, the end
+  unsigned nf;                 // lane 0: the next fill to issue, its part
+  int fp, fk;                  // and stage
+};
+
+__device__ inline unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ inline FactorRing ring_of(float* base, int D, int b, int N,
+                                     const float* p0, const float* p1,
+                                     const float* p2, int parts,
+                                     unsigned stop) {
+  FactorRing g;
+  g.bar = reinterpret_cast<unsigned long long*>(base);
+  g.buf = base + pad4(2 * (size_t)D);
+  g.p0 = p0;
+  g.p1 = p1;
+  g.p2 = p2;
+  g.bs = wide_block(b);
+  g.parts = parts;
+  g.N = N;
+  g.lgD = D >= 8 ? 3 : (D >= 4 ? 2 : 1);
+  g.bytes = (unsigned)(sizeof(float) * g.bs);
+  g.n = 0;
+  g.stop = stop;
+  g.nf = 0;
+  g.fp = 0;
+  g.fk = 0;
+  return g;
+}
+
+// lane 0: the next fill into its slot, and the cursor past it
+__device__ inline void ring_fill(FactorRing& g) {
+  const float* src = (g.fp == 0 ? g.p0 : g.fp == 1 ? g.p1 : g.p2) +
+                     (size_t)g.fk * g.bs;
+  const unsigned slot = g.nf & ((1u << g.lgD) - 1u);
+  const unsigned bar = smem_u32(g.bar + slot);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(bar), "r"(g.bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(g.buf + slot * g.bs)), "l"(src), "r"(g.bytes),
+        "r"(bar)
+      : "memory");
+  ++g.nf;
+  const bool back = g.fp == g.parts - 1;     // the last part runs backward
+  if (back ? --g.fk < 0 : ++g.fk == g.N) {
+    g.fp = g.fp + 1 == g.parts ? 0 : g.fp + 1;
+    g.fk = g.fp == g.parts - 1 ? g.N - 1 : 0;
+  }
+}
+
+// the ring's mbarriers initialised and its first D fills issued (lane 0),
+// before any lane waits
+__device__ inline void ring_start(FactorRing& g, int lane) {
+  if (lane == 0) {
+    for (int s = 0; s < (1 << g.lgD); ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   ::"r"(smem_u32(g.bar + s)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    while (g.nf < (1u << g.lgD) && g.nf < g.stop) ring_fill(g);
+  }
+  __syncwarp();
+}
+
+// the slot of fill g.n, once its bytes have landed (every lane waits)
+__device__ inline const float* ring_wait(const FactorRing& g) {
+  const unsigned slot = g.n & ((1u << g.lgD) - 1u);
+  const unsigned bar = smem_u32(g.bar + slot);
+  const unsigned parity = (g.n >> g.lgD) & 1u;
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+  return g.buf + slot * g.bs;
+}
+
+// fill g.n read by every lane: lane 0 refills its slot with fill n + D
+__device__ inline void ring_next(FactorRing& g, int lane) {
+  __syncwarp();
+  if (lane == 0 && g.nf < g.stop) ring_fill(g);
+  ++g.n;
+}
+
+// The wide sweep's three passes (the factors packed; lane i owns rows i,
+// i + 32, …, R = BMAX/32 of them, each read at its row clamped into the
+// block, so that the rows past b read valid words that no one uses). Each
+// row is summed over its b columns in column order with no predicate on
+// the chain, the previous stage's vector read back from shared memory as
+// broadcasts (no shuffles); the coefficients past b that the row-major
+// sweep summed as well were zeros times zeros (the vector past b is 0),
+// which leave a sum as it is but for a −0 they turn into +0: one add of +0
+// does the same (pad_zero). So every output is bit for bit what it was. A
+// pass reads its blocks from the ring g where RING, else from F (staged in
+// shared memory, or in device memory).
+template <int BMAX>
+__device__ inline void pad_zero(float (&v)[BMAX / 32], int b) {
+  if (b < BMAX)
 #pragma unroll
-  for (int t = 0; t < R; ++t) prev[t] = 0.0f;
+    for (int t = 0; t < BMAX / 32; ++t) v[t] = __fadd_rn(v[t], 0.0f);
+}
+
+// a lane's rows of a block, clamped into it: ic[t] = min(32·t + lane, b − 1)
+template <int R>
+__device__ inline void lane_rows(int (&ic)[R], int lane, int b) {
+#pragma unroll
+  for (int t = 0; t < R; ++t) ic[t] = min(t * 32 + lane, b - 1);
+}
+
+// acc[t] += Σ_{j<b} blk[j·b + ic[t]] · v[j] in column order, v read as
+// broadcasts (0 where zero: a chain's first stage)
+template <int R>
+__device__ inline void row_sums(float (&acc)[R], const float* blk,
+                                const float* v, bool zero,
+                                const int (&ic)[R], int b) {
+#pragma unroll 16
+  for (int j = 0; j < b; ++j) {
+    const float vj = zero ? 0.0f : v[j];
+#pragma unroll
+    for (int t = 0; t < R; ++t)
+      acc[t] = fmaf(blk[j * b + ic[t]], vj, acc[t]);
+  }
+}
+
+// forward: y_k = r_k − L_k y_{k−1} in place over r_k (ys), plus add where
+// ADD (K5's M part of t); y_{k−1} read back from ys, after the __syncwarp
+// that ends each stage
+template <int BMAX, bool ADD, bool RING>
+__device__ inline void wide_forward(float* ys, const float* add,
+                                    const float* F, FactorRing* g, int N,
+                                    int b, int lane) {
+  constexpr int R = BMAX / 32;
+  const size_t bs = wide_block(b);
+  int ic[R];
+  lane_rows<R>(ic, lane, b);
   for (int k = 0; k < N; ++k) {
-    const float* Lk = L + (size_t)k * bb;
+    const float* Lk = RING ? ring_wait(*g) : F + (size_t)k * bs;
+    float acc[R] = {};
+    row_sums<R>(acc, Lk, k ? ys + (k - 1) * b : ys, k == 0, ic, b);
+    pad_zero<BMAX>(acc, b);
     float* yk = ys + k * b;
-    float acc[R];
-#pragma unroll
-    for (int t = 0; t < R; ++t) acc[t] = 0.0f;
-#pragma unroll
-    for (int s = 0; s < R; ++s) {
-#pragma unroll
-      for (int l = 0; l < (BMAX - 32 * s < 32 ? BMAX - 32 * s : 32); ++l) {
-        const int j = s * 32 + l;
-        const float yj = __shfl_sync(kFull, prev[s], l);
-#pragma unroll
-        for (int t = 0; t < R; ++t) {
-          const int i = t * 32 + lane;
-          const float Lij = (i < b && j < b) ? Lk[i * b + j] : 0.0f;
-          acc[t] = fmaf(Lij, yj, acc[t]);
-        }
-      }
-    }
 #pragma unroll
     for (int t = 0; t < R; ++t) {
       const int i = t * 32 + lane;
       if (i < b) {
         const float rk = ADD ? yk[i] + add[k * b + i] : yk[i];
-        prev[t] = rk - acc[t];
-        yk[i] = prev[t];
-      } else {
-        prev[t] = 0.0f;
+        yk[i] = rk - acc[t];
       }
     }
+    __syncwarp();                // y_k in place before the next stage
+    if (RING) ring_next(*g, lane);
   }
-  __syncwarp();
+}
 
-  // ---- backward sweep: x_k = U⁻¹_k y_k − C_k x_{k+1} ----
-  float nxt[R];
-#pragma unroll
-  for (int t = 0; t < R; ++t) nxt[t] = 0.0f;
-  for (int k = N - 1; k >= 0; --k) {
-    const float* Uk = U + (size_t)k * bb;
-    const float* Ck = C + (size_t)k * bb;
-    const float* yk = ys + k * b;
-    float a[R], c[R];
+// a_k = U⁻¹_k y_k over stages k0, k0 + step, … (one warp a stage; from the
+// ring (K4) in its order), in place over y_k: no stage depends on another,
+// so the product is off the chain
+template <int BMAX, bool RING>
+__device__ inline void wide_u_pass(float* ys, const float* F, FactorRing* g,
+                                   int N, int b, int k0, int step,
+                                   int lane) {
+  constexpr int R = BMAX / 32;
+  const size_t bs = wide_block(b);
+  int ic[R];
+  lane_rows<R>(ic, lane, b);
+  for (int k = k0; k < N; k += step) {
+    const float* Uk = RING ? ring_wait(*g) : F + (size_t)k * bs;
+    float* yk = ys + k * b;
+    float a[R] = {};
+    row_sums<R>(a, Uk, yk, false, ic, b);
+    pad_zero<BMAX>(a, b);
+    __syncwarp();                // every lane's y_k read before a_k lands
 #pragma unroll
     for (int t = 0; t < R; ++t) {
-      a[t] = 0.0f;
-      c[t] = 0.0f;
+      const int i = t * 32 + lane;
+      if (i < b) yk[i] = a[t];
     }
-#pragma unroll
-    for (int j = 0; j < BMAX; ++j) {
-      const float yj = j < b ? yk[j] : 0.0f;
-#pragma unroll
-      for (int t = 0; t < R; ++t) {
-        const int i = t * 32 + lane;
-        const float Uij = (i < b && j < b) ? Uk[i * b + j] : 0.0f;
-        a[t] = fmaf(Uij, yj, a[t]);
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < R; ++s) {
-#pragma unroll
-      for (int l = 0; l < (BMAX - 32 * s < 32 ? BMAX - 32 * s : 32); ++l) {
-        const int j = s * 32 + l;
-        const float xj = __shfl_sync(kFull, nxt[s], l);
-#pragma unroll
-        for (int t = 0; t < R; ++t) {
-          const int i = t * 32 + lane;
-          const float Cij = (i < b && j < b) ? Ck[i * b + j] : 0.0f;
-          c[t] = fmaf(Cij, xj, c[t]);
-        }
-      }
-    }
+    if (RING) ring_next(*g, lane);
+  }
+}
+
+// backward: x_k = a_k − C_k x_{k+1} (a_k in ys), x_k into xp and over a_k
+// in ys, where the next stage reads it back
+template <int BMAX, bool RING>
+__device__ inline void wide_backward(float* ys, const float* F,
+                                     FactorRing* g, float* xp, int N, int b,
+                                     int lane) {
+  constexpr int R = BMAX / 32;
+  const size_t bs = wide_block(b);
+  int ic[R];
+  lane_rows<R>(ic, lane, b);
+  for (int k = N - 1; k >= 0; --k) {
+    const float* Ck = RING ? ring_wait(*g) : F + (size_t)k * bs;
+    float c[R] = {};
+    row_sums<R>(c, Ck, k < N - 1 ? ys + (k + 1) * b : ys, k == N - 1, ic,
+                b);
+    pad_zero<BMAX>(c, b);
 #pragma unroll
     for (int t = 0; t < R; ++t) {
       const int i = t * 32 + lane;
       if (i < b) {
-        nxt[t] = a[t] - c[t];
-        xp[(size_t)k * b + i] = nxt[t];
-      } else {
-        nxt[t] = 0.0f;
+        const float x = ys[k * b + i] - c[t];
+        xp[(size_t)k * b + i] = x;
+        ys[k * b + i] = x;
       }
     }
+    __syncwarp();                // x_k in place before the next stage
+    if (RING) ring_next(*g, lane);
   }
-}
-
-template <int BMAX, int B0, bool ADD>
-__device__ inline void block_sweep(float* ys, const float* add,
-                                   const float* L, const float* U,
-                                   const float* C, float* xp, int N, int b,
-                                   int lane) {
-  if constexpr (BMAX <= 16)
-    sweep_rows<BMAX, B0, ADD>(ys, add, L, U, C, xp, N, b, lane);
-  else
-    sweep_wide<BMAX, ADD>(ys, add, L, U, C, xp, N, b, lane);
 }
 
 template <int BMAX, int B0, bool STAGED>
@@ -437,27 +601,103 @@ sw_solve_k_kernel(const float* __restrict__ r, const float* __restrict__ Lg,
   if (p < P) copy_in(ys, r + (size_t)p * N * b, N * b, lane, 32);
   __syncthreads();
   if (p >= P) return;  // whole warps leave, after the block's only barrier
-  block_sweep<BMAX, B0, false>(ys, nullptr, L, U, C, x + (size_t)p * N * b,
-                               N, b, lane);
+  sweep_rows<BMAX, B0, false>(ys, nullptr, L, U, C, x + (size_t)p * N * b,
+                              N, b, lane);
 }
 
-size_t smem_bytes(int N, int b, int warps, int staged) {
-  return sizeof(float) * ((staged ? 3 * pad4((size_t)N * b * b) : 0) +
-                          (size_t)warps * pad4((size_t)N * b));
+// K4 at BMAX 32 to 128, on the packed factors: one warp a problem, its
+// forward sweep, the U pass (a_k = U⁻¹_k y_k, stage after stage, no chain
+// between them) and the backward sweep out of its r/y buffer in shared
+// memory. The factors staged in shared memory (STAGED), else streamed
+// through the warp's ring of `ring` blocks behind its buffer (fills: L
+// forward, U⁻¹ forward, C backward).
+template <int BMAX, bool STAGED>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+sw_solve_k_wide_kernel(const float* __restrict__ r,
+                       const float* __restrict__ Lg,
+                       const float* __restrict__ Ug,
+                       const float* __restrict__ Cg, float* __restrict__ x,
+                       int P, int N, int b, int ring) {
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const size_t fw = factor_words(N, b, BMAX), yn = pad4((size_t)N * b);
+  const float* L = Lg;
+  const float* U = Ug;
+  const float* C = Cg;
+  float* ys = smem;
+  if (STAGED) {
+    copy_in(smem, Lg, (int)fw, threadIdx.x, blockDim.x);
+    copy_in(smem + fw, Ug, (int)fw, threadIdx.x, blockDim.x);
+    copy_in(smem + 2 * fw, Cg, (int)fw, threadIdx.x, blockDim.x);
+    L = smem;
+    U = smem + fw;
+    C = smem + 2 * fw;
+    ys = smem + 3 * fw;
+  }
+  const int p = blockIdx.x * warps + warp;
+  ys += warp * (yn + ring_words(STAGED ? 0 : ring, b));
+  if (p < P) copy_in(ys, r + (size_t)p * N * b, N * b, lane, 32);
+  __syncthreads();
+  if (p >= P) return;  // whole warps leave, after the block's only barrier
+  float* xp = x + (size_t)p * N * b;
+  if constexpr (STAGED) {
+    wide_forward<BMAX, false, false>(ys, nullptr, L, nullptr, N, b, lane);
+    __syncwarp();
+    wide_u_pass<BMAX, false>(ys, U, nullptr, N, b, 0, 1, lane);
+    __syncwarp();
+    wide_backward<BMAX, false>(ys, C, nullptr, xp, N, b, lane);
+  } else {
+    FactorRing g = ring_of(ys + yn, ring, b, N, L, U, C, 3, 3u * N);
+    ring_start(g, lane);
+    wide_forward<BMAX, false, true>(ys, nullptr, nullptr, &g, N, b, lane);
+    __syncwarp();
+    wide_u_pass<BMAX, true>(ys, nullptr, &g, N, b, 0, 1, lane);
+    __syncwarp();
+    wide_backward<BMAX, true>(ys, nullptr, &g, xp, N, b, lane);
+  }
+}
+
+// K4's dynamic shared memory a block: the factors when staged, then a
+// warp's r/y buffer and, with a ring (unstaged above bmax 16), its ring
+size_t smem_bytes(int N, int b, int warps, int staged, int bmax, int ring) {
+  return sizeof(float) *
+         ((staged ? 3 * factor_words(N, b, bmax) : 0) +
+          (size_t)warps * (pad4((size_t)N * b) + ring_words(ring, b)));
+}
+
+// a ring's depth: 2, 4 or 8 blocks where bmax is above 16 and the factors
+// are not staged, none else
+bool ring_ok(int bmax, int staged, int ring) {
+  return bmax > 16 && !staged ? ring == 2 || ring == 4 || ring == 8
+                              : ring == 0;
 }
 
 template <int BMAX, int B0, bool STAGED>
 int launch(const float* r, const float* L, const float* U, const float* C,
-           float* x, int P, int N, int b, int warps, cudaStream_t stream) {
-  auto kernel = sw_solve_k_kernel<BMAX, B0, STAGED>;
-  const size_t bytes = smem_bytes(N, b, warps, STAGED);
-  if (bytes > 48 * 1024) {
-    const int rc = (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (rc) return rc;
-  }
+           float* x, int P, int N, int b, int warps, int ring,
+           cudaStream_t stream) {
+  const size_t bytes = smem_bytes(N, b, warps, STAGED, BMAX, ring);
   const int blocks = (P + warps - 1) / warps;
-  kernel<<<blocks, 32 * warps, bytes, stream>>>(r, L, U, C, x, P, N, b);
+  if constexpr (BMAX <= 16) {
+    auto kernel = sw_solve_k_kernel<BMAX, B0, STAGED>;
+    if (bytes > 48 * 1024) {
+      const int rc = (int)cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (rc) return rc;
+    }
+    kernel<<<blocks, 32 * warps, bytes, stream>>>(r, L, U, C, x, P, N, b);
+  } else {
+    auto kernel = sw_solve_k_wide_kernel<BMAX, STAGED>;
+    if (bytes > 48 * 1024) {
+      const int rc = (int)cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (rc) return rc;
+    }
+    kernel<<<blocks, 32 * warps, bytes, stream>>>(r, L, U, C, x, P, N, b,
+                                                  ring);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -465,14 +705,16 @@ int launch(const float* r, const float* L, const float* U, const float* C,
 // instantiation of its own, with no padded column on the chain
 template <int BMAX>
 int launch_b(const float* r, const float* L, const float* U, const float* C,
-             float* x, int P, int N, int b, int warps, int staged,
+             float* x, int P, int N, int b, int warps, int staged, int ring,
              cudaStream_t stream) {
   if (BMAX == 8 && b == 5)
-    return staged ? launch<8, 5, true>(r, L, U, C, x, P, N, b, warps, stream)
-                  : launch<8, 5, false>(r, L, U, C, x, P, N, b, warps,
+    return staged ? launch<8, 5, true>(r, L, U, C, x, P, N, b, warps, 0,
+                                       stream)
+                  : launch<8, 5, false>(r, L, U, C, x, P, N, b, warps, 0,
                                         stream);
-  return staged ? launch<BMAX, 0, true>(r, L, U, C, x, P, N, b, warps, stream)
-                : launch<BMAX, 0, false>(r, L, U, C, x, P, N, b, warps,
+  return staged ? launch<BMAX, 0, true>(r, L, U, C, x, P, N, b, warps, ring,
+                                        stream)
+                : launch<BMAX, 0, false>(r, L, U, C, x, P, N, b, warps, ring,
                                          stream);
 }
 
@@ -492,7 +734,9 @@ extern "C" {
 // mean's weights (mean = 1; problem p is scenario p mod S of its group).
 // ext 0 runs the register path (n_ext ≤ 4, bmax 8 or 16); else kExtRt and
 // the placement bits; ext_ws (P, 4·pad4(n_ext)) holds the runtime-r
-// path's vectors where kExtVec is set.
+// path's vectors where kExtVec is set. ring: the depth of the factor ring
+// of a slot's sweep warp where bmax is above 16 and the factors are not
+// staged (2, 4 or 8), else 0.
 struct PhcSwAdmmArgs {
   const float* q;
   const float* l;
@@ -527,6 +771,7 @@ struct PhcSwAdmmArgs {
   float sigma, alpha;
   float* ext_ws;
   int ext;
+  int ring;
 };
 
 }  // extern "C"
@@ -553,7 +798,9 @@ __host__ __device__ inline size_t vec_words(int r, int ext) {
 // its z, y, l, u (by row, then stage; above bmax 16 also w = ρz − y), t
 // (y in place), mb, x, the consensus rows' buffers (two, with a group
 // mean), the Woodbury coefficient and the per-warp sums (the register
-// path) or the runtime-r vectors; ext's arrays in device memory take none
+// path) or the runtime-r vectors; ext's arrays in device memory take none.
+// The sweep warp's factor ring (above bmax 16 unstaged) lies behind them,
+// from `total` on (admm_smem_bytes)
 struct AdmmLayout {
   size_t L, U, C, J, Mc, tie, blk, Aext, KiU, Cw, rho_e, gM, z, y, l, u, w,
       t, mb, xb, cb, corr, red, total;
@@ -756,10 +1003,11 @@ struct AdmmFlex {
 // word offsets of a FLEX CTA's shared memory (the constants, then spc
 // slots of `slot` words) and of a problem's scratch: z … cb (w with z
 // above bmax 16) in the slot or in the scratch by place, corr and red in
-// the slot (the runtime-r vectors in ext_ws where ext says so)
+// the slot (the runtime-r vectors in ext_ws where ext says so), then the
+// slot's factor ring (ring blocks, above bmax 16 unstaged)
 struct FlexLayout {
   size_t L, U, C, J, Mc, tie, blk, Aext, KiU, Cw, rho_e, slots, slot, z, y,
-      l, u, w, t, mb, xb, cb, corr, red, gwords, total;
+      l, u, w, t, mb, xb, cb, corr, red, ring, gwords, total;
 };
 
 __host__ __device__ inline FlexLayout flex_layout(int N, int b, int m,
@@ -767,7 +1015,8 @@ __host__ __device__ inline FlexLayout flex_layout(int N, int b, int m,
                                                   int n_cons, int mean,
                                                   int warps_slot, int staged,
                                                   int bmax, int spc,
-                                                  int place, int ext) {
+                                                  int place, int ext,
+                                                  int ring) {
   FlexLayout a;
   size_t o = 0;
   const size_t f = staged ? pad4((size_t)N * b * b) : 0;
@@ -802,6 +1051,7 @@ __host__ __device__ inline FlexLayout flex_layout(int N, int b, int m,
   a.cb = to; to += cn;
   a.corr = sl; sl += vec_words(r, ext);
   a.red = sl; sl += ext ? 0 : (size_t)kRMax * warps_slot;
+  a.ring = sl; sl += ring_words(ring, b);
   a.slot = sl;
   a.gwords = g;
   a.total = o + (size_t)spc * sl;
@@ -954,16 +1204,19 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
                      : (a.mean ? (int)(blockIdx.x % S) : 0);
   const bool live = !FLEX || s < S;             // slots past S idle
   const size_t p = FLEX ? grp * S + s : blockIdx.x;
+  // above bmax 16 unstaged: the depth of the sweep warp's factor ring
+  constexpr bool RING = WIDE && !STAGED;
+  const int ring = RING ? a.ring : 0;
 
   // ---- where every array lies ----
   size_t oL, oU, oC, oJ, oMc, otie, oblk, oAext, oKiU, oCw, orho;
-  float *zs, *ysc, *ls, *us, *wb, *tb, *mb, *xb, *cb0, *corr, *red;
+  float *zs, *ysc, *ls, *us, *wb, *tb, *mb, *xb, *cb0, *corr, *red, *rb;
   const float* gM;                              // gM[s, t, k] at [t·N + k]
   size_t fslots = 0, fslot = 0, fcb = 0, fgw = 0;
   bool hz = true;                               // horizon constants staged
   if constexpr (FLEX) {
     const FlexLayout f = flex_layout(N, b, m, nb, r, nc, a.mean, W, STAGED,
-                                     BMAX, spc, fx.place, ext);
+                                     BMAX, spc, fx.place, ext, ring);
     oL = f.L; oU = f.U; oC = f.C; oJ = f.J; oMc = f.Mc; otie = f.tie;
     oblk = f.blk; oAext = f.Aext; oKiU = f.KiU; oCw = f.Cw; orho = f.rho_e;
     fslots = f.slots; fslot = f.slot; fcb = f.cb; fgw = f.gwords;
@@ -977,6 +1230,7 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
     tb = tbase + f.t; mb = tbase + f.mb; xb = tbase + f.xb;
     cb0 = tbase + f.cb;
     corr = sl + f.corr; red = sl + f.red;
+    if constexpr (RING) rb = sl + f.ring;
     gM = a.gM + (size_t)(live ? s : 0) * S * N;
   } else {
     const AdmmLayout lay = admm_layout(N, b, m, S, nb, r, nc, a.mean, W,
@@ -989,6 +1243,7 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
     mb = smem + lay.mb;
     xb = smem + lay.xb; cb0 = smem + lay.cb; corr = smem + lay.corr;
     red = smem + lay.red;
+    if constexpr (RING) rb = smem + lay.total;
     gM = smem + lay.gM;
   }
   // the runtime-r path's vectors, r words each: the Woodbury coefficient,
@@ -1004,6 +1259,7 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
   const float* U = a.U;
   const float* Cf = a.C;
   if (STAGED) {
+    // above bmax 16 the packed blocks, b even (no padding between them)
     copy_in(smem + oL, a.L, N * b * b, tc, TC);
     copy_in(smem + oU, a.U, N * b * b, tc, TC);
     copy_in(smem + oC, a.C, N * b * b, tc, TC);
@@ -1089,6 +1345,16 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
     ze[e] = !RDYN && live && e < r ? __ldg(a.ze0 + p * r + e) : 0.0f;
     ye[e] = !RDYN && live && e < r ? __ldg(a.ye0 + p * r + e) : 0.0f;
   }
+  // the sweep warp's factor ring (RING): its fills run L forward, C
+  // backward, iteration after iteration, the next iteration's first blocks
+  // in flight during this one's row work; 2·N·iters fills in all
+  FactorRing fr{};
+  if constexpr (RING)
+    if (live && warp == 0) {
+      fr = ring_of(rb, ring, b, N, a.L, a.C, nullptr, 2,
+                   2u * (unsigned)N * (unsigned)a.iters);
+      ring_start(fr, lane);
+    }
   __syncthreads();
 
   // ---- above bmax 16: the row work in two passes a stage (WideRows) ----
@@ -1164,8 +1430,19 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
     const bool last = it == a.iters - 1;
     float* cb = cb0 + (it & 1) * ncb;           // this iteration's buffer
     // ---- x = K⁻¹t (the slot's warp 0), the Woodbury coefficient ----
-    if (live && warp == 0) {
-      block_sweep<BMAX, B0, true>(tb, mb, L, U, Cf, xb, N, b, lane);
+    if constexpr (WIDE) {
+      // the forward sweep (warp 0), a_k = U⁻¹_k y_k over the slot's
+      // warps, the backward sweep (warp 0)
+      if (live && warp == 0)
+        wide_forward<BMAX, true, RING>(tb, mb, L, &fr, N, b, lane);
+      __syncthreads();
+      if (live)
+        wide_u_pass<BMAX, false>(tb, U, nullptr, N, b, warp, W, lane);
+      __syncthreads();
+      if (live && warp == 0)
+        wide_backward<BMAX, RING>(tb, Cf, &fr, xb, N, b, lane);
+    } else if (live && warp == 0) {
+      sweep_rows<BMAX, B0, true>(tb, mb, L, U, Cf, xb, N, b, lane);
       if (!RDYN && r) {
         __syncwarp();
         float sv[kRMax];
@@ -1518,9 +1795,10 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
 
 size_t admm_smem_bytes(int N, int b, int m, int S, int n_blk, int r,
                        int n_cons, int mean, int warps, int staged,
-                       int bmax, int ext) {
-  return sizeof(float) * admm_layout(N, b, m, S, n_blk, r, n_cons, mean,
-                                     warps, staged, bmax, ext).total;
+                       int bmax, int ext, int ring) {
+  return sizeof(float) * (admm_layout(N, b, m, S, n_blk, r, n_cons, mean,
+                                      warps, staged, bmax, ext).total +
+                          ring_words(ring, b));
 }
 
 // one CTA a problem, 32·warps threads in groups of tps a stage, clusters of
@@ -1531,7 +1809,7 @@ int launch_admm(const PhcSwAdmmArgs& a, int warps, int tps,
   auto kernel = sw_admm_kernel<BMAX, B0, STAGED, false, RDYN>;
   const size_t bytes = admm_smem_bytes(a.N, a.b, a.m, a.S, a.n_blk, a.n_ext,
                                        a.n_cons, a.mean, warps, STAGED, BMAX,
-                                       a.ext);
+                                       a.ext, a.ring);
   if (bytes > 48 * 1024) {
     const int rc = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1572,7 +1850,7 @@ size_t flex_smem_bytes(const PhcSwAdmmArgs& a, int warps, int staged,
   return sizeof(float) * flex_layout(a.N, a.b, a.m, a.n_blk, a.n_ext,
                                      a.n_cons, a.mean, warps / fx.spc,
                                      staged, bmax, fx.spc, fx.place,
-                                     a.ext).total;
+                                     a.ext, a.ring).total;
 }
 
 // a FLEX launch: groups of S scenarios over clusters of fx.cluster CTAs
@@ -1633,7 +1911,8 @@ int launch_flex_b(const PhcSwAdmmArgs& a, int warps, int tps, int staged,
 // extra rows at bmax 8 and 16; the runtime-r path with known placement
 // bits (J and Mc in device memory only above bmax 16, the vectors there
 // only with ext_ws)
-bool admm_args_ok(const PhcSwAdmmArgs* a, int warps, int tps, int bmax) {
+bool admm_args_ok(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
+                  int bmax) {
   const int e = a->ext;
   const bool ext_ok =
       e ? (e & kExtRt) && !(e & ~31) && (bmax > 16 || !(e & kExtJM)) &&
@@ -1643,7 +1922,8 @@ bool admm_args_ok(const PhcSwAdmmArgs* a, int warps, int tps, int bmax) {
            a->S < 1 || a->P % a->S || a->n_ext < 0 || !ext_ok ||
            a->iters < 0 || warps < 1 ||
            32 * warps > admm_max_threads(bmax) || tps < 1 || tps > 32 ||
-           (tps & (tps - 1)) ||
+           (tps & (tps - 1)) || !ring_ok(bmax, staged, a->ring) ||
+           (bmax > 16 && staged && (a->b & 1)) ||
            (a->mean && (a->n_cons < 1 || a->n_cons > a->m)));
 }
 
@@ -1720,26 +2000,34 @@ int flex_dispatch(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
 extern "C" {
 
 #if PHC_SW_PART == 0
-// dynamic shared memory of one block: the warps' r/y buffers, and the three
-// factor arrays when staged (each array padded to a multiple of 4 words)
-int phc_sw_smem_bytes(int N, int b, int warps, int staged) {
-  return (int)smem_bytes(N, b, warps, staged);
+// dynamic shared memory of one block: the warps' r/y buffers (and rings),
+// and the three factor arrays when staged (each array padded to a
+// multiple of 4 words; above bmax 16 N packed blocks, each padded)
+int phc_sw_smem_bytes(int N, int b, int warps, int staged, int bmax,
+                      int ring) {
+  return (int)smem_bytes(N, b, warps, staged, bmax, ring);
 }
 
 // x = K⁻¹ r for P problems; bmax = the compiled bound on b (8, 16, 32, 64
-// or 128, at least b)
+// or 128, at least b); above 16 the factors packed (wide_block) and, not
+// staged, read through a ring of `ring` blocks a warp (ring_ok)
 int phc_sw_solve_k(const float* r, const float* L, const float* U,
                    const float* C, float* x, int P, int N, int b, int warps,
-                   int staged, int bmax, void* stream) {
-  if (P < 1 || N < 1 || b < 1 || b > bmax || warps < 1 || warps > kMaxWarps)
+                   int staged, int bmax, int ring, void* stream) {
+  if (P < 1 || N < 1 || b < 1 || b > bmax || warps < 1 ||
+      warps > kMaxWarps || !ring_ok(bmax, staged, ring))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (bmax) {
-    case 8: return launch_b<8>(r, L, U, C, x, P, N, b, warps, staged, s);
-    case 16: return launch_b<16>(r, L, U, C, x, P, N, b, warps, staged, s);
-    case 32: return launch_b<32>(r, L, U, C, x, P, N, b, warps, staged, s);
-    case 64: return launch_b<64>(r, L, U, C, x, P, N, b, warps, staged, s);
-    case 128: return launch_b<128>(r, L, U, C, x, P, N, b, warps, staged, s);
+    case 8: return launch_b<8>(r, L, U, C, x, P, N, b, warps, staged, 0, s);
+    case 16: return launch_b<16>(r, L, U, C, x, P, N, b, warps, staged, 0,
+                                 s);
+    case 32: return launch_b<32>(r, L, U, C, x, P, N, b, warps, staged, ring,
+                                 s);
+    case 64: return launch_b<64>(r, L, U, C, x, P, N, b, warps, staged, ring,
+                                 s);
+    case 128: return launch_b<128>(r, L, U, C, x, P, N, b, warps, staged,
+                                   ring, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1748,9 +2036,9 @@ int phc_sw_solve_k(const float* r, const float* L, const float* U,
 // dynamic shared memory of one K5 CTA (admm_layout)
 int phc_sw_admm_smem_bytes(int N, int b, int m, int S, int n_blk, int n_ext,
                            int n_cons, int mean, int warps, int staged,
-                           int bmax, int ext) {
+                           int bmax, int ext, int ring) {
   return (int)admm_smem_bytes(N, b, m, S, n_blk, n_ext, n_cons, mean, warps,
-                              staged, bmax, ext);
+                              staged, bmax, ext, ring);
 }
 
 // K5: a->iters stagewise ADMM iterations for a->P problems in one launch,
@@ -1759,7 +2047,7 @@ int phc_sw_admm_smem_bytes(int N, int b, int m, int S, int n_blk, int n_ext,
 // mean; bmax = the compiled bound on b (8, 16, 32, 64 or 128, the part's)
 int phc_sw_admm(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
                 int bmax, void* stream) {
-  if (!admm_args_ok(a, warps, tps, bmax) || a->S > 8)
+  if (!admm_args_ok(a, warps, tps, staged, bmax) || a->S > 8)
     return (int)cudaErrorInvalidValue;
   return admm_dispatch(a, warps, tps, staged, bmax, (cudaStream_t)stream);
 }
@@ -1768,16 +2056,17 @@ int phc_sw_admm(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
 // device memory a problem's scratch takes; warps = the CTA's
 int phc_sw_admm_flex_smem_bytes(int N, int b, int m, int n_blk, int n_ext,
                                 int n_cons, int mean, int warps, int staged,
-                                int bmax, int spc, int place, int ext) {
+                                int bmax, int spc, int place, int ext,
+                                int ring) {
   return (int)(sizeof(float) *
                flex_layout(N, b, m, n_blk, n_ext, n_cons, mean, warps / spc,
-                           staged, bmax, spc, place, ext).total);
+                           staged, bmax, spc, place, ext, ring).total);
 }
 
 long long phc_sw_admm_flex_scratch_words(int N, int b, int m, int n_cons,
                                          int mean, int place, int bmax) {
   return (long long)flex_layout(N, b, m, 0, 0, n_cons, mean, 1, 0, bmax, 1,
-                                place, 0).gwords;
+                                place, 0, 0).gwords;
 }
 
 // K5's FLEX variants (grouped, global state): as phc_sw_admm, with spc
@@ -1787,7 +2076,7 @@ int phc_sw_admm_flex(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
                      int bmax, int spc, int cluster, int place,
                      float* scratch, void* stream) {
   const AdmmFlex fx = {spc, cluster, place, scratch};
-  if (!admm_args_ok(a, warps, tps, bmax) || !flex_ok(a, warps, fx))
+  if (!admm_args_ok(a, warps, tps, staged, bmax) || !flex_ok(a, warps, fx))
     return (int)cudaErrorInvalidValue;
   return flex_dispatch(a, warps, tps, staged, bmax, fx, (cudaStream_t)stream,
                        nullptr);
@@ -1799,7 +2088,7 @@ int phc_sw_admm_max_clusters(const PhcSwAdmmArgs* a, int warps, int tps,
                              int place) {
   float dummy = 0.0f;
   const AdmmFlex fx = {spc, cluster, place, &dummy};
-  if (!admm_args_ok(a, warps, tps, bmax) || !flex_ok(a, warps, fx))
+  if (!admm_args_ok(a, warps, tps, staged, bmax) || !flex_ok(a, warps, fx))
     return -(int)cudaErrorInvalidValue;
   int n = 0;
   const int rc = flex_dispatch(a, warps, tps, staged, bmax, fx, nullptr, &n);

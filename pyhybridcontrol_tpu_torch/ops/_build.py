@@ -147,10 +147,11 @@ def _bind_admm_mixed(lib):
 
 def _bind_stagewise(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.phc_sw_smem_bytes.argtypes = [I, I, I, I]   # N, b, warps, staged
+    # N, b, warps, staged, bmax, ring
+    lib.phc_sw_smem_bytes.argtypes = [I] * 6
     lib.phc_sw_smem_bytes.restype = I
-    # r L Uinv C | x, then P N b warps staged bmax stream
-    lib.phc_sw_solve_k.argtypes = [P] * 5 + [I] * 6 + [P]
+    # r L Uinv C | x, then P N b warps staged bmax ring stream
+    lib.phc_sw_solve_k.argtypes = [P] * 5 + [I] * 7 + [P]
     lib.phc_sw_solve_k.restype = I
     _bind_stagewise_k5(lib)
 
@@ -158,15 +159,15 @@ def _bind_stagewise(lib):
 def _bind_stagewise_k5(lib):
     """K5's exports, which every part of stagewise.cu has."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    # N b m S n_blk n_ext n_cons mean warps staged bmax ext
-    lib.phc_sw_admm_smem_bytes.argtypes = [I] * 12
+    # N b m S n_blk n_ext n_cons mean warps staged bmax ext ring
+    lib.phc_sw_admm_smem_bytes.argtypes = [I] * 13
     lib.phc_sw_admm_smem_bytes.restype = I
     # struct PhcSwAdmmArgs (ops/cuda_stagewise.py mirrors it), warps,
     # lanes a stage, staged, bmax, stream
     lib.phc_sw_admm.argtypes = [P, I, I, I, I, P]
     lib.phc_sw_admm.restype = I
-    # N b m n_blk n_ext n_cons mean warps staged bmax spc place ext
-    lib.phc_sw_admm_flex_smem_bytes.argtypes = [I] * 13
+    # N b m n_blk n_ext n_cons mean warps staged bmax spc place ext ring
+    lib.phc_sw_admm_flex_smem_bytes.argtypes = [I] * 14
     lib.phc_sw_admm_flex_smem_bytes.restype = I
     # N b m n_cons mean place bmax
     lib.phc_sw_admm_flex_scratch_words.argtypes = [I] * 7

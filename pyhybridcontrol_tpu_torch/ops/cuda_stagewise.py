@@ -26,6 +26,15 @@ warps' r/y buffers, and the warps (problems) a block: 4, 2 or 1, the most
 that fit. b above 128, or a horizon whose r/y buffer does not fit one
 block, has no instantiation and raises.
 
+Above bmax 16 (the wide sweep) both kernels read the factors packed
+(``pack_wide``: each stage block column-major, padded to a multiple of 4
+words), which the wrappers build once per prep (K5, ``admm_constants``) or
+per factor tuple (K4, ``_WIDE_PACKED``). Unstaged there, the sweep warp
+reads them through a ring of D blocks in shared memory that bulk copies
+keep filled (``RING_DEPTHS``: the deepest that fits); K4 then runs one
+problem a block, so that each ring has its SM's copy engine and L2
+bandwidth to itself. A shape whose ring does not fit raises.
+
 ``plan_admm`` picks K5's from the shapes alone: the bound on b (8, 16, 32,
 64 or 128, K4's ladder), the lanes a stage (the most, a power of 2 up to
 32, that the CTA's 512 threads, 256 from bmax 16, give every stage at
@@ -77,6 +86,8 @@ ADMM_THREADS = {8: 512, 16: 256, 32: 256, 64: 256, 128: 256}
 ADMM_CLUSTER = 8                 # the shared variant's most scenarios a group
 ADMM_CLUSTER_MAX = 16            # the most CTAs a FLEX cluster (non-portable)
 ADMM_RMAX = 4                    # extra rows the register path takes
+# depths of the wide sweep's factor ring (blocks in flight), deepest first
+RING_DEPTHS = (8, 4, 2)
 # the runtime-r path (csrc/stagewise.cu kExt…): its bit, and the arrays it
 # reads from device memory: Aext and KiU, Cw, the r-word vectors (z_e, y_e,
 # the Woodbury sums and coefficient, ρₑ; in a per-problem scratch), and
@@ -95,33 +106,61 @@ ADMM_LAUNCH = {"shared": "stagewise_k5", "grouped": "stagewise_k5_grouped",
 @dataclasses.dataclass(frozen=True)
 class SweepPlan:
     """Instantiation of K4 for one call: the compiled bound on b, staged
-    factors, warps a block and dynamic shared memory (bytes)."""
+    factors, warps a block, dynamic shared memory (bytes) and the depth of
+    a warp's factor ring (above bmax 16 unstaged; else 0)."""
 
     bmax: int
     staged: bool
     warps: int
     smem: int
+    ring: int = 0
 
 
 def _pad4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
-def sweep_smem_bytes(N: int, b: int, warps: int, staged: bool) -> int:
+def wide_block_words(b: int) -> int:
+    """Words of one packed stage block of the wide sweep (``wide_block``):
+    b² padded to a multiple of 4."""
+    return _pad4(b * b)
+
+
+def factor_words(N: int, b: int, bmax: int) -> int:
+    """Words of one factor array as the kernels read it (``factor_words``):
+    N·b² padded to a multiple of 4 up to bmax 16, N packed blocks above."""
+    return _pad4(N * b * b) if bmax <= 16 else N * wide_block_words(b)
+
+
+def ring_words(depth: int, b: int) -> int:
+    """Words of a factor ring of ``depth`` packed blocks behind its
+    mbarriers (two words each; ``ring_words``), none at depth 0."""
+    return (_pad4(2 * depth) + depth * wide_block_words(b)) if depth else 0
+
+
+def _ring_depths(bmax: int, staged: bool):
+    """The ring depths a plan tries: RING_DEPTHS above bmax 16 unstaged,
+    else none (0)."""
+    return RING_DEPTHS if bmax > 16 and not staged else (0,)
+
+
+def sweep_smem_bytes(N: int, b: int, warps: int, staged: bool,
+                     bmax: int = 8, ring: int = 0) -> int:
     """Shared memory of one K4 block (``phc_sw_smem_bytes`` gives the
-    same): N·b words of r/y a warp, plus 3·N·b² words of factors if staged,
-    each array padded to a multiple of 4 words."""
-    return 4 * ((3 * _pad4(N * b * b) if staged else 0)
-                + warps * _pad4(N * b))
+    same): N·b words of r/y a warp and its factor ring, plus the three
+    factor arrays if staged, each array padded to a multiple of 4 words."""
+    return 4 * ((3 * factor_words(N, b, bmax) if staged else 0)
+                + warps * (_pad4(N * b) + ring_words(ring, b)))
 
 
 def plan_sweep(P: int, N: int, b: int,
                staged: Optional[bool] = None) -> SweepPlan:
     """The instantiation K4 runs P problems of horizon N and block b with:
     staged factors where they fit a block beside at least one warp's y
-    buffer (with the most warps that fit), else factors read through L2.
-    ``staged`` asks for one variant. Raises ValueError where nothing fits:
-    there is no other path."""
+    buffer (with the most warps that fit), else factors read through L2;
+    above bmax 16 unstaged, one warp a block with the deepest factor ring
+    of RING_DEPTHS that fits. ``staged`` asks for one variant. Raises
+    ValueError where nothing fits: there is no other path."""
     what = "K4 (stagewise sweep)"
     if P < 1 or N < 1 or b < 1:
         raise ValueError(f"{what}: empty shape P={P}, N={N}, b={b}")
@@ -130,13 +169,19 @@ def plan_sweep(P: int, N: int, b: int,
         raise ValueError(f"{what}: block size b={b} above the "
                          f"{SWEEP_BMAX[-1]} the kernel is built for")
     for st in ((True, False) if staged is None else (bool(staged),)):
-        for w in SWEEP_WARPS:
-            smem = sweep_smem_bytes(N, b, w, st)
-            if smem <= SMEM_MAX:
-                return SweepPlan(bmax=bmax, staged=st, warps=w, smem=smem)
+        ring = _ring_depths(bmax, st)
+        for w in (1,) if ring[0] else SWEEP_WARPS:
+            for d in ring:
+                smem = sweep_smem_bytes(N, b, w, st, bmax, d)
+                if smem <= SMEM_MAX:
+                    return SweepPlan(bmax=bmax, staged=st, warps=w,
+                                     smem=smem, ring=d)
+    least = _ring_depths(bmax, False)[-1]
     raise ValueError(
-        f"{what}: N={N}, b={b} needs {sweep_smem_bytes(N, b, 1, False)} "
-        f"bytes of shared memory for one warp's r/y buffer"
+        f"{what}: N={N}, b={b} needs "
+        f"{sweep_smem_bytes(N, b, 1, False, bmax, least)} bytes of shared "
+        f"memory for one warp's r/y buffer"
+        + (" and its factor ring" if least else "")
         + (" and the staged factors" if staged else "")
         + f", above the {SMEM_MAX} an sm_90 block has")
 
@@ -154,10 +199,48 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def pack_wide(factors) -> torch.Tensor:
+    """The factors (L, U⁻¹, C), each (N, b, b), as the wide sweep reads
+    them: (3, N, ``wide_block_words(b)``) fp32, each stage block
+    column-major (element (i, j) at word j·b + i, so that a warp's lanes
+    read a column as consecutive words) and zero-padded to a multiple of 4
+    words (every block 16-byte aligned, as a bulk copy needs)."""
+    F = torch.stack([f.to(torch.float32) for f in factors])
+    _, N, b, _ = F.shape
+    out = torch.zeros((3, N, wide_block_words(b)), dtype=torch.float32,
+                      device=F.device)
+    out[:, :, :b * b] = F.transpose(-1, -2).reshape(3, N, b * b)
+    return out
+
+
+# K4's packed factors of the last few factor tuples it ran at bmax 32 to
+# 128: (the tuple, its tensors' versions, the packed tensor). The entries
+# hold the tensors, so that an id in the key is never another tensor's.
+_WIDE_PACKED: list = []
+_WIDE_PACKED_KEEP = 4
+
+
+def _packed_for_k4(factors) -> torch.Tensor:
+    """``pack_wide(factors)``, built once per factor tuple (while none of
+    its tensors changes in place)."""
+    vers = tuple(f._version for f in factors)
+    for i, (fs, v, packed) in enumerate(_WIDE_PACKED):
+        if len(fs) == len(factors) and all(
+                a is b for a, b in zip(fs, factors)) and v == vers:
+            _WIDE_PACKED.insert(0, _WIDE_PACKED.pop(i))
+            return packed
+    packed = pack_wide(factors)
+    _WIDE_PACKED.insert(0, (tuple(factors), vers, packed))
+    del _WIDE_PACKED[_WIDE_PACKED_KEEP:]
+    return packed
+
+
 def sw_solve_k_cuda(r, factors, staged: Optional[bool] = None):
     """K4 on the card: x = K⁻¹ r for r (…, N, b) from the factors
-    (L, U⁻¹, C), each (N, b, b). ``staged`` asks for one variant instead of
-    the plan's. Checks, allocates x and launches once."""
+    (L, U⁻¹, C), each (N, b, b); above bmax 16 read packed
+    (``pack_wide``, built once per factor tuple). ``staged`` asks for one
+    variant instead of the plan's. Checks, allocates x and launches
+    once."""
     from pyhybridcontrol_tpu_torch.ops._build import load_library
 
     if r.device.type != "cuda":
@@ -171,12 +254,14 @@ def sw_solve_k_cuda(r, factors, staged: Optional[bool] = None):
         _check(name, f, (N, b, b), r.device)
     P = rr.shape[0]
     pl = plan_sweep(P, N, b, staged)
+    if pl.bmax > 16:
+        factors = tuple(_packed_for_k4(factors).unbind(0))
     x = torch.empty_like(rr)
     lib = load_library("stagewise")
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         rc = lib.phc_sw_solve_k(*map(_ptr, (rr, *factors, x)), P, N, b,
-                                pl.warps, int(pl.staged), pl.bmax,
+                                pl.warps, int(pl.staged), pl.bmax, pl.ring,
                                 ctypes.c_void_p(stream))
     _raise_on(lib, rc, "K4 (stagewise sweep)")
     _count_launch("stagewise_k4", P)
@@ -189,9 +274,10 @@ class AdmmPlan:
     """Instantiation of K5 for one call: the compiled bound on b, staged
     factors, warps a CTA, lanes a stage (its rows dealt over them), CTAs a
     cluster, dynamic shared memory a CTA (bytes), scenarios a CTA, the
-    variant (``ADMM_LAUNCH``'s keys) and the extra rows' path (0: the
+    variant (``ADMM_LAUNCH``'s keys), the extra rows' path (0: the
     register path; else EXT_RT and the bits of what lies in device
-    memory)."""
+    memory) and the depth of a slot's factor ring (above bmax 16
+    unstaged; else 0)."""
 
     bmax: int
     staged: bool
@@ -202,6 +288,7 @@ class AdmmPlan:
     spc: int = 1
     variant: str = "shared"
     ext: int = 0
+    ring: int = 0
 
     @property
     def library(self) -> str:
@@ -229,9 +316,11 @@ def _vec_words(n_ext, ext):
 
 
 def _const_words(N, b, m, n_blk, n_ext, staged, bmax, ext, hz=True):
-    """Words of the constants a CTA stages: the factors if staged, J and
-    Mc, the blocking rows' ties (``hz``) and columns, Aext and KiU (``hz``,
-    unless in device memory), Cw and ρₑ (unless in device memory)."""
+    """Words of the constants a CTA stages: the factors if staged (above
+    bmax 16 the packed blocks of an even b, which fill N·b² words with no
+    padding: an odd b there is never staged), J and Mc, the blocking rows'
+    ties (``hz``) and columns, Aext and KiU (``hz``, unless in device
+    memory), Cw and ρₑ (unless in device memory)."""
     f = _pad4(N * b * b) if staged else 0
     ak = 0 if (ext & EXT_AK or not hz) else _pad4(n_ext * N * b)
     return (3 * f + 2 * _jm_words(m, b, bmax, ext)
@@ -242,7 +331,7 @@ def _const_words(N, b, m, n_blk, n_ext, staged, bmax, ext, hz=True):
 
 def admm_smem_bytes(N: int, b: int, m: int, S: int, n_blk: int, n_ext: int,
                     n_cons: int, mean: bool, warps: int, staged: bool,
-                    bmax: int, ext: int = 0) -> int:
+                    bmax: int, ext: int = 0, ring: int = 0) -> int:
     """Shared memory of one CTA of the shared variant
     (``phc_sw_admm_smem_bytes`` gives the same): the factors if staged, J
     and Mc (rows of bmax words to bmax 16, of b words above), the blocking
@@ -251,13 +340,15 @@ def admm_smem_bytes(N: int, b: int, m: int, S: int, n_blk: int, n_ext: int,
     z, y, l and u (m·N words each; above bmax 16 also w), t, its M part and
     x (N·b words each), two consensus-row buffers with a group mean, and on
     the register path 4·(1 + warps) words of Woodbury coefficient and
-    sums, on the runtime-r one its four r-word vectors; each array padded
-    to a multiple of 4 words."""
+    sums, on the runtime-r one its four r-word vectors, and the sweep
+    warp's factor ring of ``ring`` blocks; each array padded to a multiple
+    of 4 words."""
     words = (_const_words(N, b, m, n_blk, n_ext, staged, bmax, ext)
              + (_pad4(S * N) if mean else 0)
              + (5 if bmax > 16 else 4) * _pad4(m * N)
              + 3 * _pad4(N * b) + (2 * _pad4(N * n_cons) if mean else 0)
-             + _vec_words(n_ext, ext) + (0 if ext else ADMM_RMAX * warps))
+             + _vec_words(n_ext, ext) + (0 if ext else ADMM_RMAX * warps)
+             + ring_words(ring, b))
     return 4 * words
 
 
@@ -275,18 +366,21 @@ def _flex_words(N, b, m, n_cons, mean, place, bmax=8):
 
 def flex_smem_bytes(N: int, b: int, m: int, n_blk: int, n_ext: int,
                     n_cons: int, mean: bool, warps: int, staged: bool,
-                    bmax: int, spc: int, place: int, ext: int = 0) -> int:
+                    bmax: int, spc: int, place: int, ext: int = 0,
+                    ring: int = 0) -> int:
     """Shared memory of one CTA of a FLEX variant
     (``phc_sw_admm_flex_smem_bytes`` gives the same): the constants as the
     shared variant's (the ties, Aext and KiU only below place 2; no
     group-mean weights: they are read from device memory), then ``spc``
-    slots of a scenario's shared arrays (``_flex_words``) and its Woodbury
-    coefficient and sums or runtime-r vectors; ``warps`` the CTA's."""
+    slots of a scenario's shared arrays (``_flex_words``), its Woodbury
+    coefficient and sums or runtime-r vectors and its sweep warp's factor
+    ring of ``ring`` blocks; ``warps`` the CTA's."""
     const = _const_words(N, b, m, n_blk, n_ext, staged, bmax, ext,
                          hz=place < 2)
     slot = (_flex_words(N, b, m, n_cons, mean, place, bmax)[0]
             + _vec_words(n_ext, ext)
-            + (0 if ext else ADMM_RMAX * (warps // spc)))
+            + (0 if ext else ADMM_RMAX * (warps // spc))
+            + ring_words(ring, b))
     return 4 * (const + spc * slot)
 
 
@@ -347,8 +441,10 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
     threads. The variants in turn, staged factors before unstaged in each,
     and in each the extra rows' placements of ``_ext_ladder`` (the register
     path up to ADMM_RMAX extra rows at bmax 8 and 16, else the runtime-r
-    path, its arrays moved to device memory the largest first): the shared
-    one (S ≤ 8); grouped, global, global_all (module doc). The FLEX
+    path, its arrays moved to device memory the largest first), and in
+    each above bmax 16 unstaged the deepest factor ring of RING_DEPTHS
+    that fits: the shared one (S ≤ 8); grouped, global, global_all
+    (module doc). The FLEX
     variants deal a group over ⌈S/16⌉ scenarios a CTA, in a cluster of
     ⌈S/spc⌉ CTAs. ``staged``, ``variant`` and ``runtime_r`` force one: no
     path sets them, ``chip_smoke.py`` holds the unstaged, the global-state
@@ -380,18 +476,26 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
     if variant is not None and variant not in ADMM_LAUNCH:
         raise ValueError(f"{what}: no variant {variant!r}")
     most = ADMM_THREADS[bmax]
-    sts = (True, False) if staged is None else (bool(staged),)
+    # above bmax 16 an odd b's packed blocks are padded apart, which the
+    # staged layout does not hold: such a shape streams them (the ring)
+    odd_wide = bmax > 16 and b % 2 == 1
+    if staged and odd_wide:
+        raise ValueError(f"{what}: an odd b above 16 is not staged")
+    sts = ((False,) if odd_wide else (True, False)) if staged is None \
+        else (bool(staged),)
     exts = _ext_ladder(N, b, m, n_ext, bmax, runtime_r)
     smem = None
     if variant in (None, "shared") and S <= ADMM_CLUSTER:
         tps, warps = _lanes(N, most)
         for st in sts:
             for ext in exts:
-                smem = admm_smem_bytes(N, b, m, S, n_blk, n_ext, n_cons,
-                                       mean, warps, st, bmax, ext)
-                if smem <= SMEM_MAX:
-                    return AdmmPlan(bmax=bmax, staged=st, warps=warps,
-                                    tps=tps, cluster=S, smem=smem, ext=ext)
+                for d in _ring_depths(bmax, st):
+                    smem = admm_smem_bytes(N, b, m, S, n_blk, n_ext, n_cons,
+                                           mean, warps, st, bmax, ext, d)
+                    if smem <= SMEM_MAX:
+                        return AdmmPlan(bmax=bmax, staged=st, warps=warps,
+                                        tps=tps, cluster=S, smem=smem,
+                                        ext=ext, ring=d)
     if variant == "shared":
         raise ValueError(
             f"{what}: the shared variant " + (
@@ -408,14 +512,16 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
     for name in names:
         for st in sts:
             for ext in exts:
-                smem = flex_smem_bytes(N, b, m, n_blk, n_ext, n_cons, mean,
-                                       w * spc, st, bmax, spc,
-                                       ADMM_PLACES[name], ext)
-                if smem <= SMEM_MAX:
-                    return AdmmPlan(bmax=bmax, staged=st, warps=w * spc,
-                                    tps=tps, cluster=-(-S // spc),
-                                    smem=smem, spc=spc, variant=name,
-                                    ext=ext)
+                for d in _ring_depths(bmax, st):
+                    smem = flex_smem_bytes(N, b, m, n_blk, n_ext, n_cons,
+                                           mean, w * spc, st, bmax, spc,
+                                           ADMM_PLACES[name], ext, d)
+                    if smem <= SMEM_MAX:
+                        return AdmmPlan(bmax=bmax, staged=st,
+                                        warps=w * spc, tps=tps,
+                                        cluster=-(-S // spc), smem=smem,
+                                        spc=spc, variant=name, ext=ext,
+                                        ring=d)
     raise ValueError(f"{what}: needs {smem} bytes of shared memory a CTA, "
                      f"above the {SMEM_MAX} an sm_90 CTA has")
 
@@ -428,7 +534,9 @@ def admm_constants(sw) -> dict:
     E on x_k), whose −tie[k, j] on column blk[j] the kernel adds (tie
     (N, n_blk), blk (n_blk,) int32, blk0 their first row); rows (3, m, N):
     ρ, the soft rows' linear and quadratic penalties, by row then stage;
-    and with extra rows Aext (n_ext, N, b), KiU (N, b, n_ext), Cw and ρₑ."""
+    with extra rows Aext (n_ext, N, b), KiU (N, b, n_ext), Cw and ρₑ; and
+    above b = 16 the factors packed for the wide sweep (``pack_wide``) as
+    "wide"."""
     key = ("k5", sw.device)
     got = sw.cache.get(key)
     if got is not None:
@@ -455,6 +563,8 @@ def admm_constants(sw) -> dict:
                                device=sw.device) if sw.n_blk else None),
              rows=torch.stack([sw.rho_rows.T, sw.soft_lin.T,
                                sw.soft_quad.T]).float().contiguous())
+    if b > 16:
+        c["wide"] = pack_wide(sw.factors)
     if sw.n_ext:
         c.update(Aext=sw.Aext.float().contiguous(),
                  KiU=sw.KiU.float().contiguous(),
@@ -476,7 +586,8 @@ class _AdmmArgs(ctypes.Structure):
             "P", "N", "b", "m", "S", "n_blk", "blk0", "n_ext", "n_cons",
             "mean", "iters")]
         + [(k, ctypes.c_float) for k in ("sigma", "alpha")]
-        + [("ext_ws", ctypes.c_void_p), ("ext", ctypes.c_int)])
+        + [("ext_ws", ctypes.c_void_p), ("ext", ctypes.c_int),
+           ("ring", ctypes.c_int)])
 
 
 def admm_cluster_capacity(sw, args, pl: AdmmPlan) -> int:
@@ -564,8 +675,9 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
         _check("consensus_M", gM, (S, S, N), dev)
     ext_ws = (torch.empty(P * ext_scratch_words(r), dtype=torch.float32,
                           device=dev) if pl.ext & EXT_VEC else None)
-    ptrs = dict(q=q, l=l, u=u, x0=x0, z0=z0, y0=y0, L=sw.L, U=sw.Uinv,
-                C=sw.C, J=c["J"], Mc=c["Mc"], tie=c["tie"], blk=c["blk"],
+    LUC = c["wide"].unbind(0) if pl.bmax > 16 else sw.factors
+    ptrs = dict(q=q, l=l, u=u, x0=x0, z0=z0, y0=y0, L=LUC[0], U=LUC[1],
+                C=LUC[2], J=c["J"], Mc=c["Mc"], tie=c["tie"], blk=c["blk"],
                 rows=c["rows"], Aext=c.get("Aext"), KiU=c.get("KiU"),
                 Cw=c.get("Cw"), rho_e=c.get("rho_ext"), gM=gM, x=out[0],
                 z=out[1], y=out[2], dy=out[3], ext_ws=ext_ws, **ext)
@@ -573,7 +685,7 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
                      P=P, N=N, b=b, m=m, S=S, n_blk=sw.n_blk,
                      blk0=c["blk0"], n_ext=r, n_cons=sw.n_cons,
                      mean=int(mean), iters=int(iters), sigma=sw.sigma,
-                     alpha=sw.alpha, ext=pl.ext)
+                     alpha=sw.alpha, ext=pl.ext, ring=pl.ring)
     lib = load_library(pl.library)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

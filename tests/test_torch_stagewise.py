@@ -360,13 +360,17 @@ def test_extra_rows_refuse_a_missing_forecast():
     (1, 40, 5, 8, True, 4),
     (64, 20, 13, 16, True, 4),     # the PWA hull model (config 2)
     (8, 10, 40, 64, True, 4),
-    (8, 200, 30, 32, False, 4),    # factors above the block's shared memory
+    # factors above the block's shared memory: above bmax 16 one warp a
+    # block, its factor ring 8 blocks deep
+    (8, 200, 30, 32, False, 1),
     (8, 2000, 13, 16, False, 2),   # r/y buffers of four warps do not fit
 ])
 def test_sweep_plan_at_the_main_shapes(P, N_, b, bmax, staged, warps):
     pl = cs.plan_sweep(P, N_, b)
     assert (pl.bmax, pl.staged, pl.warps) == (bmax, staged, warps)
-    assert pl.smem == cs.sweep_smem_bytes(N_, b, warps, staged)
+    assert pl.ring == (8 if bmax > 16 and not staged else 0)
+    assert pl.smem == cs.sweep_smem_bytes(N_, b, warps, staged, bmax,
+                                          pl.ring)
     assert pl.smem <= ca.SMEM_MAX
     # the plan depends on the shapes alone, not on P
     assert cs.plan_sweep(1, N_, b) == cs.plan_sweep(P + 7, N_, b)
@@ -391,8 +395,11 @@ def test_sweep_smem_mirrors_the_kernel_source():
     src = open(os.path.join(os.path.dirname(__file__), "..",
                             "pyhybridcontrol_tpu_torch", "csrc",
                             "stagewise.cu")).read()
-    assert "(staged ? 3 * pad4((size_t)N * b * b) : 0)" in src
-    assert "(size_t)warps * pad4((size_t)N * b)" in src
+    assert "((staged ? 3 * factor_words(N, b, bmax) : 0) +" in src
+    assert "(size_t)warps * (pad4((size_t)N * b) + ring_words(ring, b)));" \
+        in src
+    assert "return bmax <= 16 ? pad4((size_t)N * b * b) : (size_t)N * " \
+        "wide_block(b);" in src
     for m in cs.SWEEP_BMAX:
         assert f"case {m}: return launch_b<{m}>" in src
     assert cs.sweep_smem_bytes(120, 5, 4, True) == 4 * (3 * 3000 + 4 * 600)
@@ -866,10 +873,10 @@ def test_admm_smem_mirrors_the_kernel_source():
                           for ln in body.splitlines()[1:30]]
     assert names[29:] == ["P", "N", "b", "m", "S", "n_blk", "blk0", "n_ext",
                           "n_cons", "mean", "iters", "sigma", "alpha",
-                          "ext_ws", "ext"]
+                          "ext_ws", "ext", "ring"]
     assert "int P, N, b, m, S, n_blk, blk0, n_ext, n_cons, mean, iters;" in \
         body and "float sigma, alpha;" in body
-    assert body.rstrip().endswith("float* ext_ws;\n  int ext;")
+    assert body.rstrip().endswith("float* ext_ws;\n  int ext;\n  int ring;")
 
 
 def test_admm_dispatch_follows_the_device(monkeypatch):

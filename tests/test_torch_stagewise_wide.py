@@ -220,3 +220,253 @@ def test_runtime_r_wrapper_refuses_a_cpu_tensor():
         cs.sw_admm_cuda(sw, q, l, u, torch.zeros_like(q), z,
                         torch.zeros_like(l), torch.zeros_like(eu),
                         torch.zeros_like(eu), eu, 5)
+
+
+# ---- the wide sweep (bmax 32 to 128): packed factors, its order, its ring
+# (csrc/stagewise.cu "the wide sweep"; the kernels run only on the card) ----
+
+
+def _random_factors(N, b, seed):
+    """(L, U⁻¹, C), each (N, b, b) fp32, entries of N(0, 0.3²/b)."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.normal(0.0, 0.3 / b ** 0.5, (N, b, b)),
+                                 dtype=torch.float32) for _ in range(3))
+
+
+@pytest.mark.parametrize("b", [20, 32, 33, 64, 128])
+def test_wide_packing_rebuilds_the_factors(b):
+    """``pack_wide``'s buffer read at the kernels' flat offsets (factor f,
+    stage k, row i, column j at word (f·N + k)·pad4(b²) + j·b + i) gives L,
+    U⁻¹ and C back exactly; each block's padding is zero and every block
+    starts at a multiple of 4 words (16 bytes, as a bulk copy needs)."""
+    N = 3
+    F = _random_factors(N, b, b)
+    packed = cs.pack_wide(F)
+    bs = cs.wide_block_words(b)
+    assert bs % 4 == 0 and b * b <= bs < b * b + 4
+    assert tuple(packed.shape) == (3, N, bs) and packed.is_contiguous()
+    assert cs.factor_words(N, b, 32) == N * bs
+    flat = packed.reshape(-1).numpy()
+    i, j = np.arange(b)[:, None], np.arange(b)[None, :]
+    for f in range(3):
+        for k in range(N):
+            base = (f * N + k) * bs
+            np.testing.assert_array_equal(flat[base + j * b + i],
+                                          F[f][k].numpy())
+            assert not flat[base + b * b:base + bs].any()
+
+
+def _wide_sweep_emulated(packed, r):
+    """x = K⁻¹ r in the wide sweep's order on its packed buffer, in fp32:
+    the forward chain y_k = r_k − L_k y_{k−1}, then a_k = U⁻¹_k y_k for
+    every k, then the backward chain x_k = a_k − C_k x_{k+1}; each row
+    summed over the columns in order, as the kernels sum it."""
+    flat = packed.reshape(-1).numpy()
+    P, N, b = r.shape
+    bs = cs.wide_block_words(b)
+
+    def block(f, k):               # (i, j) from word j·b + i
+        base = (f * N + k) * bs
+        return flat[base:base + b * b].reshape(b, b).T
+
+    def rows(M, v):                # Σ_j M[i, j] v[j], j = 0 … b−1 in order
+        acc = np.zeros((P, b), np.float32)
+        for j in range(b):
+            acc = acc + M[:, j][None, :] * v[:, j:j + 1]
+        return acc
+
+    y = np.zeros((P, N, b), np.float32)
+    prev = np.zeros((P, b), np.float32)
+    for k in range(N):
+        prev = r[:, k] - rows(block(0, k), prev)
+        y[:, k] = prev
+    a = np.stack([rows(block(1, k), y[:, k]) for k in range(N)], axis=1)
+    x = np.zeros_like(y)
+    nxt = np.zeros((P, b), np.float32)
+    for k in range(N - 1, -1, -1):
+        nxt = a[:, k] - rows(block(2, k), nxt)
+        x[:, k] = nxt
+    return x
+
+
+@pytest.mark.parametrize("key", list(FLEETS))
+def test_wide_sweep_order_matches_solve_K(key):
+    """The wide sweep's order (forward chain, then U⁻¹_k y_k off the chain,
+    then x_k = a_k − C_k x_{k+1}), emulated in fp32 on the packed factors,
+    against the port's ``_solve_K`` (K4's plain version) and the JAX
+    package's ``_solve_K`` at the five-battery (b = 20) and fleet (b = 32)
+    frames: within 2e-5 of max |x| (fp32 rounding of the same factors
+    summed in other orders; cond of the sweeps ~1e2 at these frames)."""
+    M, N, window = FLEETS[key]
+    model, w, extra, price, x0 = _fleet_ref(M, N, window)
+    js = jsw.prepare_stagewise(model, N, w, extra=extra)
+    ts = convert.stagewise_qp(js, "cpu")
+    r = np.random.default_rng(M).normal(size=(4, N, ts.b)).astype(np.float32)
+    got = _wide_sweep_emulated(cs.pack_wide(ts.factors), r)
+    port = tsw._solve_K(ts, torch.as_tensor(r)).numpy()
+    ref = np.asarray(jsw._solve_K(js, jnp.asarray(r)))
+    scale = np.abs(ref).max()
+    assert np.abs(port - ref).max() <= 2e-5 * scale
+    assert np.abs(got - port).max() <= 2e-5 * scale
+    assert np.abs(got - ref).max() <= 2e-5 * scale
+
+
+def test_k4_packs_once_per_factor_tuple():
+    """K4's wrapper packs a factor tuple once and reuses it while none of
+    its tensors changes in place; another tuple, or an in-place change,
+    packs anew."""
+    F = _random_factors(4, 20, 0)
+    a = cs._packed_for_k4(F)
+    assert cs._packed_for_k4(F) is a
+    assert torch.equal(a, cs.pack_wide(F))
+    G = tuple(f.clone() for f in F)
+    assert cs._packed_for_k4(G) is not a
+    F[1].mul_(2.0)
+    b = cs._packed_for_k4(F)
+    assert b is not a and torch.equal(b, cs.pack_wide(F))
+
+
+# (P, N, b, m, S, n_blk, n_ext, n_cons, mean) -> the variant, the ring's
+# depth and the CTA's bytes without the ring (the plan each shape had
+# before the ring):
+# the fleet (N = 96, b = 32), sixteen (b = 64) and thirty-two batteries (b
+# = 128), global with factors through L2; five batteries (b = 20) and the ω
+# tree (b = 20, S = 16), staged, so no ring
+RING_PLANS = {
+    "fleet_b32": ((8, 96, 32, 122, 1, 0, 20, 0, False), ("global", 8, 70096)),
+    "b64": ((8, 48, 64, 242, 1, 0, 22, 0, False), ("global", 4, 163184)),
+    "b128": ((8, 24, 128, 482, 1, 0, 35, 0, False), ("global", 2, 37584)),
+    "b20_shared": ((8, 8, 20, 77, 1, 0, 6, 0, False), ("shared", 0, 72944)),
+    "omega_tree": ((128, 24, 20, 76, 16, 0, 4, 4, True),
+                   ("grouped", 0, 185872)),
+}
+
+
+@pytest.mark.parametrize("key", list(RING_PLANS))
+def test_wide_plan_ring_depth_and_bytes(key):
+    """Above bmax 16 with the factors through L2, K5's plan adds the
+    deepest ring of RING_DEPTHS that fits beside what the plan held before
+    (8 at the fleet, 4 at b = 64, 2 at b = 128, whose next depth does not
+    fit); staged shapes keep their plan and take no ring; the bytes are
+    ``ring_words`` (the mbarriers, then the blocks)."""
+    shape, (variant, depth, held) = RING_PLANS[key]
+    P, N, b, m, S, n_blk, n_ext, n_cons, mean = shape
+    pl = cs.plan_admm(*shape)
+    assert (pl.variant, pl.ring, pl.staged) == (variant, depth, depth == 0)
+    assert pl.smem == held + 4 * cs.ring_words(depth, b) <= ca.SMEM_MAX
+    if pl.variant == "shared":
+        bare = cs.admm_smem_bytes(N, b, m, S, n_blk, n_ext, n_cons, mean,
+                                  pl.warps, pl.staged, pl.bmax, pl.ext)
+    else:
+        bare = cs.flex_smem_bytes(N, b, m, n_blk, n_ext, n_cons, mean,
+                                  pl.warps, pl.staged, pl.bmax, pl.spc,
+                                  cs.ADMM_PLACES[pl.variant], pl.ext)
+    assert bare == held
+    if depth:
+        assert cs.ring_words(depth, b) == 2 * depth + depth * b * b
+        deeper = [d for d in cs.RING_DEPTHS if d > depth]
+        assert all(held + 4 * cs.ring_words(d, b) > ca.SMEM_MAX
+                   for d in deeper)
+
+
+def test_wide_odd_b_is_never_staged():
+    """Above bmax 16 the packed blocks of an odd b are padded apart, which
+    K5's staged layout (N·b² words) does not hold: the plan streams them
+    through the ring, and forcing the staged variant raises; an even b
+    stages as before (its blocks need no padding)."""
+    for b in (17, 33, 127):
+        pl = cs.plan_admm(4, 10, b, 2 * b)
+        assert not pl.staged and pl.ring in cs.RING_DEPTHS, (b, pl)
+        with pytest.raises(ValueError, match="odd b"):
+            cs.plan_admm(4, 10, b, 2 * b, staged=True)
+        assert cs.wide_block_words(b) > b * b
+    for b in (20, 32, 34):
+        assert cs.wide_block_words(b) == b * b
+        assert cs.plan_admm(4, 10, b, 2 * b).staged
+
+
+def test_wide_k4_plan_ring():
+    """K4 above bmax 16 unstaged: one warp a block (each ring its own SM's
+    copy engine and L2 bandwidth), the deepest ring that fits beside the
+    warp's r/y buffer: 8 at the fleet's factors and at b = 64 (N = 48), 2
+    at b = 128 (N = 24); staged shapes take none."""
+    for (N, b), (depth, staged) in {(96, 32): (8, False),
+                                    (48, 64): (8, False),
+                                    (24, 128): (2, False),
+                                    (8, 20): (0, True)}.items():
+        pl = cs.plan_sweep(8, N, b)
+        assert (pl.ring, pl.staged) == (depth, staged)
+        assert pl.warps == (1 if depth else 4)
+        assert pl.smem == cs.sweep_smem_bytes(N, b, pl.warps, pl.staged,
+                                              pl.bmax, pl.ring)
+    assert cs.plan_sweep(8, 96, 32).smem == 4 * (96 * 32 + 16 + 8 * 1024)
+
+
+def test_wide_ring_mirrors_the_kernel_source():
+    """The ring's words, its depths and where it lies in each layout are
+    the kernel's (``ring_words``, ``ring_ok``, behind ``admm_layout``'s
+    arrays, in ``flex_layout``'s slot, K4's ``smem_bytes``); the packed
+    blocks' words are
+    ``wide_block``; each export takes the ring."""
+    import os
+
+    src = open(os.path.join(os.path.dirname(__file__), "..",
+                            "pyhybridcontrol_tpu_torch", "csrc",
+                            "stagewise.cu")).read()
+    for line in (
+            "return pad4((size_t)b * b);",
+            "return D ? pad4(2 * (size_t)D) + (size_t)D * wide_block(b) : 0;",
+            "return bmax > 16 && !staged ? ring == 2 || ring == 4 || ring == 8",
+            "warps, staged, bmax, ext).total +\n                          ring_words(ring, b));",
+            "if constexpr (RING) rb = smem + lay.total;",
+            "a.ring = sl; sl += ring_words(ring, b);",
+            "constexpr bool RING = WIDE && !STAGED;",
+            "const int ring = RING ? a.ring : 0;",
+            "2u * (unsigned)N * (unsigned)a.iters);",
+            "FactorRing g = ring_of(ys + yn, ring, b, N, L, U, C, 3, 3u * N);",
+            "int bmax, int ext, int ring) {",
+            "int staged, int bmax, int ring, void* stream) {"):
+        assert line in src, line
+    assert cs.RING_DEPTHS == (8, 4, 2)
+    assert [cs.ring_words(d, 5) for d in (0, 2, 4, 8)] == [0, 4 + 56,
+                                                           8 + 112, 16 + 224]
+
+
+def _ring_schedule(N, D, parts, iters):
+    """The ring's fills and waits as the kernels run them, mirrored: the
+    D fills issued first, then per read fill n (in the order the sweeps
+    read: per iteration ``parts`` passes of N blocks) fill n + D issued
+    below stop = parts·N·iters. Returns (block read, block filled) of
+    every read, and the fills issued."""
+    stop = parts * N * iters
+    issued = list(range(min(D, stop)))
+    reads = []
+
+    def block(n):
+        m = n % (parts * N)
+        p, j = divmod(m, N)
+        return p, (N - 1 - j if p == parts - 1 else j)
+
+    for n in range(stop):
+        assert n in issued, "a wait on a fill never issued"
+        # the slot's previous fill was read before this one was issued
+        assert issued.index(n) < D or n - D < n
+        reads.append(block(n))
+        if n + D < stop:
+            issued.append(n + D)
+    return reads, issued
+
+
+@pytest.mark.parametrize("N,D,parts,iters", [(96, 8, 2, 3), (5, 8, 2, 2),
+                                             (24, 2, 3, 1), (3, 4, 3, 1)])
+def test_wide_ring_reads_the_sweeps_blocks_in_order(N, D, parts, iters):
+    """Every fill the sweeps wait on has been issued, each once, every
+    issued fill is read (none in flight at the end), and the blocks come
+    in the sweeps' order: L_0 … L_{N−1}, (K4) U⁻¹_0 … U⁻¹_{N−1}, C_{N−1} …
+    C_0, iteration after iteration."""
+    reads, issued = _ring_schedule(N, D, parts, iters)
+    assert sorted(issued) == list(range(parts * N * iters))
+    one = ([(0, k) for k in range(N)]
+           + ([(1, k) for k in range(N)] if parts == 3 else [])
+           + [(parts - 1, k) for k in range(N - 1, -1, -1)])
+    assert reads == one * iters

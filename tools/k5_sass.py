@@ -1,21 +1,25 @@
-"""K5's register-path machine code of two checkouts, compared function by
-function (a development tool, not part of the package; needs the CUDA
-toolkit, so it runs on the card's machine):
+"""The register path's machine code (K5 and K4 at bmax 8 and 16) of two
+checkouts, compared function by function (a development tool, not part of
+the package; needs the CUDA toolkit, so it runs on the card's machine):
 
-    python tools/k5_sass.py --parent DIR
+    python tools/k5_sass.py --parent DIR [--show N]
 
 Run from the root of a checkout ("change"); DIR is a checkout of the commit
 to compare with (for example ``git archive`` of it unpacked into a
 directory that .gitignore lists). Compiles each tree's
 ``pyhybridcontrol_tpu_torch/csrc/stagewise.cu`` alone (the library that
-holds K4 and K5's register path) to a cubin with the flags of
-``ops/_build.py``, disassembles it with ``cuobjdump -sass`` and compares the
-instructions of every ``sw_admm_kernel`` instantiation of the parent with
-the change's of the same template arguments (BMAX, B0, STAGED, FLEX; the
-change's runtime-r flag false). Kernel-parameter offsets (``c[0x0][…]``)
-and symbol names are masked, so a parameter struct that grew at its end
-does not count. Prints, per instantiation, "same" or the two instruction
-counts and the number of differing lines; exits 1 if any differs.
+holds K4 and K5's register path) and its ``stagewise_extra.cu`` (K5's
+runtime-r path at bmax 8 and 16) to cubins with the flags of
+``ops/_build.py``, disassembles them with ``cuobjdump -sass`` and compares
+the instructions of every ``sw_admm_kernel`` and ``sw_solve_k_kernel``
+instantiation at bmax 8 and 16 of the parent with the change's of the same
+source and template arguments (K5: BMAX, B0, STAGED, FLEX, RDYN; K4: BMAX,
+B0, STAGED). The wide instantiations (bmax 32 to 128) are not compared.
+Kernel-parameter offsets (``c[0x0][…]``) and symbol names are masked, so a
+parameter struct that grew at its end does not count. Prints, per
+instantiation, "same" or the two instruction counts and the number of
+differing lines (``--show N``: and the first N of them, parent | change);
+exits 1 if any differs.
 """
 
 from __future__ import annotations
@@ -31,12 +35,16 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-SOURCE = Path("pyhybridcontrol_tpu_torch") / "csrc" / "stagewise.cu"
+CSRC = Path("pyhybridcontrol_tpu_torch") / "csrc"
+SOURCES = ("stagewise.cu", "stagewise_extra.cu")
+# kernel name -> its template arguments in the mangled name
+KERNELS = (("sw_admm_kernel", r"ILi(\d+)ELi(\d+)ELb(\d)ELb(\d)(?:ELb(\d))?E"),
+           ("sw_solve_k_kernel", r"ILi(\d+)ELi(\d+)ELb(\d)E"))
 
 
 def sass(tree: Path, work: Path) -> dict:
-    """{(BMAX, B0, STAGED, FLEX): [instruction, …]} of the tree's K5
-    register-path instantiations."""
+    """{(source, kernel, template arguments…): [instruction, …]} of the
+    tree's register-path instantiations (bmax 8 and 16)."""
     from pyhybridcontrol_tpu_torch.ops import _build
 
     nvcc = _build.find_nvcc()
@@ -45,34 +53,40 @@ def sass(tree: Path, work: Path) -> dict:
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-fPIC")
              and f != "-Xcompiler"]
     work.mkdir(parents=True)
-    src = work / "stagewise.cu"
-    shutil.copy(tree / SOURCE, src)
-    cubin = work / "k.cubin"
-    subprocess.run([nvcc, *flags, "-cubin", "-o", str(cubin), str(src)],
-                   check=True, capture_output=True)
-    out = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass",
-                          str(cubin)], check=True, capture_output=True,
-                         text=True).stdout
-    funcs, cur = {}, None
-    for line in out.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            k = re.search(r"sw_admm_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)"
-                          r"(?:ELb(\d))?E", m.group(1))
-            cur = None
-            if k and (k.group(5) or "0") == "0":
-                cur = funcs.setdefault(tuple(map(int, k.groups()[:4])), [])
-            continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
-        if cur is not None and m:
-            ins = re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][X]", m.group(1))
-            cur.append(re.sub(r"_ZN\w*", "SYM", ins.strip()))
+    for name in SOURCES:          # the extra part includes stagewise.cu
+        shutil.copy(tree / CSRC / name, work / name)
+    funcs = {}
+    for name in SOURCES:
+        cubin = work / (name + ".cubin")
+        subprocess.run([nvcc, *flags, "-cubin", "-o", str(cubin),
+                        str(work / name)], check=True, capture_output=True)
+        out = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass",
+                              str(cubin)], check=True, capture_output=True,
+                             text=True).stdout
+        cur = None
+        for line in out.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                cur = None
+                for kernel, args in KERNELS:
+                    k = re.search(kernel + args, m.group(1))
+                    if k and int(k.group(1)) <= 16:
+                        key = (name, kernel) + tuple(
+                            int(v or 0) for v in k.groups())
+                        cur = funcs.setdefault(key, [])
+                continue
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+            if cur is not None and m:
+                ins = re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][X]",
+                             m.group(1))
+                cur.append(re.sub(r"_ZN\w*", "SYM", ins.strip()))
     return funcs
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True)
+    ap.add_argument("--show", type=int, default=0)
     a = ap.parse_args(argv)
     with tempfile.TemporaryDirectory() as tmp, \
             ThreadPoolExecutor(2) as pool:       # the two builds side by side
@@ -89,8 +103,12 @@ def main(argv=None):
             verdict = ("missing" if c is None else
                        f"{len(p)} vs {len(c)} instructions, "
                        f"{sum(x != y for x, y in zip(p, c))} lines differ")
-        print("BMAX %d, B0 %d, STAGED %d, FLEX %d: " % key + verdict,
-              flush=True)
+        print(f"{key[0]} {key[1]}<" + ", ".join(map(str, key[2:])) + ">: "
+              + verdict, flush=True)
+        if c is not None and p != c:
+            for x, y in [(x, y) for x, y in zip(p, c) if x != y][:a.show]:
+                print(f"    {x} | {y}", flush=True)
+    print(f"{len(par)} instantiations compared, {differ} differ", flush=True)
     return 1 if differ else 0
 
 

@@ -4,6 +4,7 @@ frames' paths (a development tool, not part of the package):
 
     python tools/kernel_ab.py --parent DIR [--ablate] [--e2e]
     python tools/kernel_ab.py --parent DIR --stagewise
+    python tools/kernel_ab.py --parent DIR --wide
 
 Run from the root of a checkout ("change"); DIR is a checkout of the commit
 to compare with ("parent", for example ``git archive`` of it unpacked into
@@ -44,6 +45,20 @@ long-arm wave's relaxation; then phase 22 (K5 against its plain version
 at every driven stagewise shape) for K5's times alone there (the long
 arm's relaxation and probe, the parity arm, the served frame, the
 transforms hold); and each tree's ``-Xptxas -v`` lines of K5.
+
+``--wide`` runs, per tree and in the same order, K4 and K5 on the same
+inputs at the wide sweep's shapes (bmax 32 to 128): the battery fleets of
+``chip_smoke.py`` at b = 32 (``battery_fleet``'s frame, N = 96), 20 (five
+batteries, shared), 64 and 128, and the ω tree (b = 20, S = 16, grouped),
+each K5 launch the wave's cold relaxation (150 iterations) as its B&B
+makes it and then 20 iterations warm from it, K4 on the same factors (P =
+8), and K4 at phase 20's random wide factors, staged and through L2. It
+times each alone (CUDA events around the library calls, median), runs
+the ``battery_fleet`` path once (solve seconds, a relaxation's and a
+probe's K5 time), profiles one more of its solves (device busy time, idle
+share), and reports, against the first parent run, whether every output
+of every launch (K4's x; K5's x, z, y, dy, z_e, y_e, dy_e) is bitwise
+equal, and whether the inputs were (a digest of each).
 
 Prints one JSON line per run and a table at the end.
 """
@@ -257,6 +272,182 @@ print("SW " + json.dumps({
 """
 
 
+WIDE_WORKER = r"""
+import hashlib, json, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from pyhybridcontrol_tpu_torch.ops import _build
+from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as k
+from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+    StagewiseTreeBackend, assemble_stagewise_tree,
+    assemble_stagewise_tree_ext, pack_stagewise_tree_data)
+from pyhybridcontrol_tpu_torch.profile_serve import profile_request
+
+for lib in _build.LIBRARIES:
+    _build.load_library(lib)
+dev = torch.device("cuda")
+saved, res = {}, {}
+
+
+def digest(ts):
+    h = hashlib.sha256()
+    for t in ts:
+        if isinstance(t, torch.Tensor):
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def waves():
+    rng = cs.phase_rng("kernel_ab_wide")
+    for M, N in ((cs.FLEET_M, cs.FLEET_N), (5, 8), (16, 48), (32, 24)):
+        _, be, fb, hb, lb, ub = cs.fleet_wave(dev, rng, M, N)
+        yield f"{M} batteries N={N}", be, fb, hb, lb, ub
+    swt, x0 = cs.omega_fleet_tree(dev)
+    xt = torch.as_tensor(x0, dtype=torch.float32, device=dev)
+    be = StagewiseTreeBackend(swt, ext_u=assemble_stagewise_tree_ext(swt, xt))
+    f, h = pack_stagewise_tree_data(*assemble_stagewise_tree(swt, xt))
+    yield (f"omega tree S={cs.ANY_TREE_S} N={cs.ANY_TREE_N}", be,
+           *cs.wave_boxes(be, f, h, 8, rng, cs.K4_HOLD_FIX))
+
+
+for tag, be, fb, hb, lb, ub in waves():
+    with cs.k5_calls() as calls:
+        be.solve(fb, hb, lb, ub, cs.K5_RELAX)
+    args = calls[0]
+    sw = args[0]
+    P, pl = cs.k5_plan_of(args)
+    relax = k.sw_admm_cuda(*args)
+    held = cs.with_warm(args, relax, 20)
+    saved[tag + ", K5 relaxation"] = relax
+    saved[tag + ", K5 20 it warm"] = k.sw_admm_cuda(*held)
+    t = torch.as_tensor(np.random.default_rng(sw.b).normal(
+        size=(8, sw.N, sw.b)), dtype=torch.float32, device=dev)
+    saved[tag + ", K4"] = (k.sw_solve_k_cuda(t, sw.factors),)
+    res[tag] = dict(
+        inputs=digest(list(args[1:10]) + [t] + list(sw.factors)),
+        plan=str(pl), k4_plan=str(k.plan_sweep(8, sw.N, sw.b)),
+        k4_ms=cs.kernel_ms(lambda: k.sw_solve_k_cuda(t, sw.factors), 7),
+        k5_20_ms=cs.kernel_ms(lambda: k.sw_admm_cuda(*held), 7),
+        k5_relax_ms=cs.kernel_ms(lambda: k.sw_admm_cuda(*args), 3))
+    print(tag, json.dumps(res[tag]), flush=True)
+for tag, factors, P in cs.k4_wide(dev, cs.phase_rng("kernel_ab_k4")):
+    N, b = factors[0].shape[:2]
+    t = torch.as_tensor(np.random.default_rng(b).normal(size=(P, N, b)),
+                        dtype=torch.float32, device=dev)
+    for st in ((True, False) if k.plan_sweep(P, N, b).staged else (False,)):
+        name = f"{tag}, K4 {'staged' if st else 'through L2'}"
+        saved[name] = (k.sw_solve_k_cuda(t, factors, staged=st),)
+        res[name] = dict(inputs=digest([t, *factors]),
+                         k4_ms=cs.kernel_ms(
+                             lambda: k.sw_solve_k_cuda(t, factors, st), 7))
+fleet = cs.phase_battery_fleet(dev)
+res["battery_fleet"] = {key: fleet[key] for key in (
+    "s", "obj", "nodes", "relax_kernel_ms", "probe_kernel_ms")}
+c, price, x0, _ = cs.fleet_controller(cs.FLEET_M, cs.FLEET_N, dev)
+
+
+def solve():
+    return c.feedback(x0, price_seq=price)
+
+
+solve()
+times = []
+for _ in range(3):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solve()
+    torch.cuda.synchronize()
+    times.append(1e3 * (time.perf_counter() - t0))
+prof = profile_request(solve)
+prof["ms"] = sorted(times)[1]
+prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["ms"]
+res["battery_fleet"]["profile"] = prof
+torch.save({key: tuple(None if v is None else v.cpu() for v in val)
+            for key, val in saved.items()}, sys.argv[1])
+print("WIDE " + json.dumps(res), flush=True)
+"""
+
+
+def run_wide(copy: Path, out: Path) -> dict:
+    """The wide worker in ``copy`` (a tree's package and chip_smoke.py,
+    its kernels built there at the first run): its times and, in ``out``,
+    every output it computed."""
+    got = subprocess.run([sys.executable, "-c", WIDE_WORKER, str(out)],
+                         cwd=copy, capture_output=True, text=True)
+    for line in got.stdout.splitlines():
+        if line.startswith("WIDE "):
+            return json.loads(line[5:])
+    raise RuntimeError(f"{copy}: wide worker failed:\n"
+                       f"{got.stdout[-3000:]}\n{got.stderr[-3000:]}")
+
+
+def bitwise(a, b) -> str:
+    """"bitwise" where every tensor of the two outputs has the same bits
+    (None where both are None), else the fields that differ with their
+    largest |Δ|."""
+    import torch
+
+    names = ("x", "z", "y", "dy", "z_e", "y_e", "dy_e")
+    off = []
+    for name, u, v in zip(names, a, b):
+        if u is None or v is None:
+            if (u is None) != (v is None):
+                off.append(f"{name}: missing")
+            continue
+        if u.shape != v.shape or not torch.equal(u.view(torch.int32),
+                                                 v.view(torch.int32)):
+            d = ((u - v).abs().max().item() if u.shape == v.shape
+                 else float("nan"))
+            off.append(f"{name}: max |Δ| {d:.3e}")
+    return "bitwise" if not off else "; ".join(off)
+
+
+def main_wide(trees, gpu) -> int:
+    import torch
+
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="phc_ab_") as tmp:
+        copies = {}
+        for name, tree in trees.items():
+            copies[name] = Path(tmp) / name
+            shutil.copytree(tree / "pyhybridcontrol_tpu_torch",
+                            copies[name] / "pyhybridcontrol_tpu_torch")
+            shutil.copy(tree / "chip_smoke.py", copies[name])
+        for i, name in enumerate(("parent", "change", "change", "parent")):
+            out = Path(tmp) / f"{i}_{name}.pt"
+            res = run_wide(copies[name], out)
+            runs.append((name, res, torch.load(out)))
+            print(json.dumps({"tree": name, "wide": res}), flush=True)
+    print(f"\n{gpu}\nthe wide sweep, kernel alone (ms), parent / change / "
+          f"change / parent")
+    base, differ = runs[0], 0
+    for tag in base[1]:
+        if tag == "battery_fleet":
+            continue
+        r = [res[tag] for _, res, _ in runs]
+        for key in ("k4_ms", "k5_20_ms", "k5_relax_ms"):
+            if key in r[0]:
+                print(f"  {tag}: {key} " + " / ".join(
+                    f"{x[key]:.4f}" for x in r))
+        same_in = all(x["inputs"] == r[0]["inputs"] for x in r)
+        print(f"  {tag}: inputs {'the same' if same_in else 'DIFFER'}; plan "
+              f"{r[1].get('plan', '')} (parent {r[0].get('plan', '')})")
+        differ += not same_in
+    for key, val in base[2].items():
+        for name, _, outs in runs[1:]:
+            verdict = bitwise(val, outs[key])
+            differ += verdict != "bitwise"
+            print(f"  {key}: {name} vs parent: {verdict}")
+    print("  battery_fleet: " + " | ".join(
+        f"{name} {json.dumps(res['battery_fleet'])}"
+        for name, res, _ in runs))
+    print("every output bitwise the parent's" if not differ
+          else f"{differ} outputs or inputs differ")
+    return 1 if differ else 0
+
+
 def run_stagewise(tree: Path) -> dict:
     """Phase 21 of ``tree``'s chip_smoke.py in a copy of it: its times."""
     with tempfile.TemporaryDirectory(prefix="phc_ab_") as tmp:
@@ -310,6 +501,7 @@ def main() -> int:
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--e2e", action="store_true")
     ap.add_argument("--stagewise", action="store_true")
+    ap.add_argument("--wide", action="store_true")
     args = ap.parse_args()
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -317,6 +509,8 @@ def main() -> int:
         check=True).stdout.strip()
     print(gpu, flush=True)
     trees = {"parent": args.parent.resolve(), "change": ROOT}
+    if args.wide:
+        return main_wide(trees, gpu)
     if args.stagewise:
         runs = []
         for name in ("parent", "change", "change", "parent"):
