@@ -404,6 +404,8 @@ SOURCES = {"admm_k1": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
            "stagewise_k5_global":
                "pyhybridcontrol_tpu_torch/csrc/stagewise.cu",
            "stagewise_k5_global_all":
+               "pyhybridcontrol_tpu_torch/csrc/stagewise.cu",
+           "stagewise_k5_horizon":
                "pyhybridcontrol_tpu_torch/csrc/stagewise.cu"}
 REPLACES = {"admm_k1": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
             "admm_k2": "pyhybridcontrol_tpu/ops/pallas_admm.py:357",
@@ -428,6 +430,11 @@ REPLACES = {"admm_k1": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
             "stagewise_k5_grouped": "pyhybridcontrol_tpu/ops/stagewise.py:1011",
             "stagewise_k5_global": "pyhybridcontrol_tpu/ops/stagewise.py:1011",
             "stagewise_k5_global_all":
+                "pyhybridcontrol_tpu/ops/stagewise.py:1011",
+            # the horizon variant: the same loop, a problem's horizon in
+            # windows over a cluster; its parallel sweep also stands for
+            # the reference's log-depth sweeps (_solve_K_assoc, :632)
+            "stagewise_k5_horizon":
                 "pyhybridcontrol_tpu/ops/stagewise.py:1011"}
 # K1 with the constants streamed from L2 in every iteration: the plan
 # takes it only where a cluster cannot hold the constants (the 4-agent
@@ -579,6 +586,16 @@ LIMITS = {
     "k5_flex": dict(x=4.3e-6, z=8.2e-6, y=2.9e-5, dy=4.6e-2, z_e=2.9e-5,
                     y_e=3.5e-5, dy_e=3.8e-2),
     "k5_flex_wide": dict(x=1.6e-5, z=3.2e-5, y=1e-4, dy=2.6e-2),
+    # K5's horizon variant in its parallel sweep against its plain version
+    # (the plain loop with _solve_K_windowed on the plan's windows), 20
+    # iterations from the sequential relaxation at the long_horizon waves
+    # ("_wide": the hull model, b=13); 3x the largest reading of seeds 0-7
+    # on an H100 80GB HBM3 at 700 W (tools/k4_readings.py --flex): x
+    # 8.94e-7, z 1.25e-6, y 5.72e-6, dy 1.34e-2 / x 4.74e-6, z 8.31e-6, y
+    # 3.28e-5, dy 5.72e-3 (the plain loop's own fp32-vs-fp64 spread there,
+    # tools/plain_noise.py --flex, seeds 0-7: x up to 8.3e-7 / 2.9e-6)
+    "k5_horizon_par": dict(x=2.7e-6, z=3.8e-6, y=1.7e-5, dy=4.0e-2),
+    "k5_horizon_par_wide": dict(x=1.4e-5, z=2.5e-5, y=9.8e-5, dy=1.7e-2),
     # K5 past its register path against the plain loop (phase 37): 20
     # iterations from the kernel's own relaxation; 3x the largest reading
     # of seeds 0-7 on an H100 80GB HBM3 at 700 W (tools/k4_readings.py
@@ -728,7 +745,8 @@ KERNEL_FUNCTIONS = (("admm", "phc_admm_k1"), ("admm", "phc_admm_k1_1pass"),
                     ("stagewise_wide", "phc_sw_admm"),
                     ("stagewise_wide", "phc_sw_admm_flex"),
                     ("stagewise_extra", "phc_sw_admm"),
-                    ("stagewise_extra", "phc_sw_admm_flex"))
+                    ("stagewise_extra", "phc_sw_admm_flex"),
+                    ("stagewise_horizon", "phc_sw_admm_horizon"))
 
 
 def kernel_ms(fn, reps=5):
@@ -4295,6 +4313,14 @@ def k4_chain_ms(N, b):
     return 1e3 * 2 * N * stage / 1.98e9
 
 
+def horizon_chain_ms(N, b, C):
+    """Floor of the horizon variant's parallel sweep a problem and
+    iteration: each window's 2·⌈N/C⌉ stages and the 2·(C−1) carry steps
+    (a b×b product each, costed as a stage), K4's stage as
+    ``k4_chain_ms``."""
+    return k4_chain_ms(-(-N // C) + C - 1, b)
+
+
 def dense_K_of(factors):
     """K as a dense (N·b, N·b) fp64 matrix from its block LU factors
     (L, U⁻¹, C): the inverse of K⁻¹, the plain sweeps applied to the unit
@@ -4385,30 +4411,40 @@ def no_plain_sweep():
     path on the card that reached them would fail."""
     from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
 
-    orig = tsw._solve_K, tsw._admm_iterations
+    names = ("_solve_K", "_admm_iterations", "_solve_K_assoc",
+             "_solve_K_windowed")
+    orig = [getattr(tsw, n) for n in names]
 
     def refuse(*a, **kw):
         raise AssertionError("a stagewise solve on the card ran the plain "
                              "loop or sweeps, not K5")
 
-    tsw._solve_K = tsw._admm_iterations = refuse
+    for n in names:
+        setattr(tsw, n, refuse)
     try:
         yield
     finally:
-        tsw._solve_K, tsw._admm_iterations = orig
+        for n, f in zip(names, orig):
+            setattr(tsw, n, f)
 
 
 @contextlib.contextmanager
 def k5_calls():
     """Inside: the arguments of every K5 launch of the stagewise solves
-    are recorded in the list yielded (the launches run)."""
+    are recorded in the list yielded (the launches run), their keywords
+    (the parallel sweep's) in its ``kw``."""
     from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
 
-    orig, calls = tsw.sw_admm_cuda, []
+    class Calls(list):
+        kw: list
 
-    def record(*a):
+    orig, calls = tsw.sw_admm_cuda, Calls()
+    calls.kw = []
+
+    def record(*a, **kw):
         calls.append(a)
-        return orig(*a)
+        calls.kw.append(kw)
+        return orig(*a, **kw)
 
     tsw.sw_admm_cuda = record
     try:
@@ -5176,7 +5212,7 @@ def phase_config6(dev):
 # K5's variants by the name each launch counts under (cuda_stagewise's
 # ADMM_LAUNCH): the shared one of config 6's paths, then the FLEX ones
 K5_FAMILY = ("stagewise_k5", "stagewise_k5_grouped", "stagewise_k5_global",
-             "stagewise_k5_global_all")
+             "stagewise_k5_global_all", "stagewise_k5_horizon")
 # long_horizon: the double integrator at N=1000 (N·nv = 3000, past the
 # reference's "N·nv in the thousands") and the PWA hull model at N=300, each
 # one stagewise feedback from X0_LONG with a bounded search
@@ -5212,10 +5248,11 @@ def wide_tree(S, steps):
         branch_steps=steps)
 
 
-def long_controller(key, dev):
+def long_controller(key, dev, parallel=False):
     """The stagewise controller of a long_horizon solve: the double
     integrator at LONG_DI_N or the PWA hull model (on/off actuator, as
-    config 2) at LONG_HULL_N, with LONG_SPEC."""
+    config 2) at LONG_HULL_N, with LONG_SPEC; ``parallel``: its
+    ``sw_parallel`` twin (the horizon-parallel sweeps)."""
     from pyhybridcontrol_tpu_torch.control.mpc import MpcController
     from pyhybridcontrol_tpu_torch.models import (
         di_default_weights, switched_double_integrator)
@@ -5230,15 +5267,17 @@ def long_controller(key, dev):
         model, N, w = pwa_spring_mld(on_off=True, formulation="hull"), \
             LONG_HULL_N, pwa_weights()
     return MpcController(model, N, w, solver="stagewise",
-                         bnb_spec=BnbSpec(**LONG_SPEC), device=dev).build()
+                         bnb_spec=BnbSpec(**LONG_SPEC), sw_parallel=parallel,
+                         device=dev).build()
 
 
 def flex_waves(dev, rng):
     """(tag, key, backend, f, h, lb, ub, variant) of a wave of nodes at
-    each shape the FLEX variants run on a path: the long_horizon
-    controllers' frames (LONG_SPEC's wave) and the wide trees' (WIDE_SPEC's
-    wave × S), K4_HOLD_FIX of the branching coordinates fixed at random;
-    ``variant`` the one the plan picks."""
+    each shape the FLEX and horizon variants run on a path: the
+    long_horizon controllers' frames (LONG_SPEC's wave; the horizon
+    variant) and the wide trees' (WIDE_SPEC's wave × S; grouped),
+    K4_HOLD_FIX of the branching coordinates fixed at random; ``variant``
+    the one the plan picks."""
     import torch
 
     from pyhybridcontrol_tpu_torch.ops.stagewise import (
@@ -5257,7 +5296,7 @@ def flex_waves(dev, rng):
         f, h = pack_stagewise_data(*assemble_stagewise(c._sw, xt))
         out.append((f"{key} N={c._sw.N}", key, be,
                     *wave_boxes(be, f, h, LONG_SPEC["wave_size"], rng,
-                                K4_HOLD_FIX), "stagewise_k5_global"))
+                                K4_HOLD_FIX), "stagewise_k5_horizon"))
     x0 = torch.tensor(X0_6, device=dev)
     for S, steps in WIDE_TREES:
         swt = config6_preps(dev, wide_tree(S, steps), config6_extra(CFG6_N))[0]
@@ -5301,12 +5340,86 @@ def with_warm(args, out, iters):
     return tuple(a)
 
 
+def horizon_holds(tag, key, args, out, held_args, pl, rec):
+    """At a long_horizon wave (``args`` its relaxation, ``out`` the horizon
+    variant's result of it, ``held_args`` FLEX_HOLD_ITERS iterations more
+    from it): the sequential sweep bitwise the global variant's forced at
+    the same lanes a stage, on every carry of both calls; the parallel
+    sweep against its plain version (``_admm_iterations`` with
+    ``_solve_K_windowed`` on the plan's windows) within "k5_horizon_par"
+    ("k5_horizon_par_wide" at b=13); the window maps' largest norms.
+    Times (TIMINGS) of the parallel sweep alone (held iterations and the
+    relaxation), its wrapper, its plain version (one run), the bound and
+    the chain floor, into ``rec`` under "par_" ("hull_par_")."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
+    from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
+
+    sw = args[0]
+    P = args[1].numel() // (sw.N * sw.b)
+    for a, what in ((args, f"the relaxation ({K5_RELAX} it)"),
+                    (held_args, f"{FLEX_HOLD_ITERS} it warm from it")):
+        want = cs.sw_admm_cuda(*a, variant="global", tps=pl.tps)
+        got = out if a is args else cs.sw_admm_cuda(*a)
+        same = [k for k, g, w in zip(K5_FIELDS, got, want)
+                if g is not None and torch.equal(g, w)]
+        print(f"  {tag}, P={P}, {what}: the horizon variant's sequential "
+              f"sweep (C={pl.cluster}, {pl.tps} lanes a stage) bitwise the "
+              f"global variant's at {pl.tps} lanes on {same}", flush=True)
+        check(len(same) == sum(g is not None for g in got),
+              f"{tag}: the horizon variant's sequential sweep differs from "
+              f"the global variant's")
+        BITWISE[0] += 1
+    win = cs.horizon_windows(sw.N, pl.cluster)
+
+    def plain():
+        return tsw._admm_iterations(
+            *held_args, sweep=lambda s, t: tsw._solve_K_windowed(s, t, win))
+
+    def wrapper():
+        return cs.sw_admm_cuda(*held_args, parallel=True)
+
+    got, ref = wrapper(), plain()
+    Pi, Psi = tsw.window_maps(sw, win)
+    norm = [float(torch.linalg.matrix_norm(M.double(), ord=2).max())
+            for M in (Pi, Psi)]
+    held(f"{tag}, P={P} ({FLEX_HOLD_ITERS} it warm); the parallel sweep, "
+         f"{pl.cluster} windows of {win[1]}–{-(-sw.N // pl.cluster)} stages, "
+         f"max ‖Π_k‖ {norm[0]:.4f}, max ‖Ψ_k‖ {norm[1]:.4f}",
+         "k5_horizon_par_wide" if sw.b > 8 else "k5_horizon_par",
+         {k: (g, r) for k, g, r in zip(K5_FIELDS, got, ref) if g is not None})
+    k5_err_into(rec, got, ref)
+    rec[("hull_" if key == "hull" else "") + "window_map_norms"] = norm
+    if not TIMINGS:
+        return
+    pre = "par_" if key == "di" else f"{key}_par_"
+    rec[pre + "ms"] = cuda_ms(wrapper)
+    rec[pre + "kernel_ms"] = kernel_ms(wrapper)
+    rec[pre + "plain_ms"] = cuda_ms(plain, reps=1)
+    rec[pre + "bound_ms"], by = bound(*k5_work(held_args))
+    rec[pre + "relax_kernel_ms"] = kernel_ms(
+        lambda: cs.sw_admm_cuda(*args, parallel=True))
+    rec[pre + "relax_bound_ms"] = bound(*k5_work(args))[0]
+    rec[pre + "chain_ms"] = K5_RELAX * horizon_chain_ms(sw.N, sw.b,
+                                                        pl.cluster)
+    print(f"  the parallel sweep: wrapper {rec[pre + 'ms']:.3f} ms, kernel "
+          f"alone {rec[pre + 'kernel_ms']:.3f} ms, plain "
+          f"{rec[pre + 'plain_ms']:.3f} ms, bound {rec[pre + 'bound_ms']:.4f} "
+          f"ms ({by}) ({FLEX_HOLD_ITERS} it); the relaxation ({K5_RELAX} "
+          f"it) alone {rec[pre + 'relax_kernel_ms']:.3f} ms, bound "
+          f"{rec[pre + 'relax_bound_ms']:.4f} ms, chain floor "
+          f"{rec[pre + 'chain_ms']:.3f} ms", flush=True)
+
+
 def phase_k5_flex(dev, rng, recs):
-    """K5's FLEX variants against the plain loop (``_admm_iterations``, the
-    plain sweeps, on the card) at every shape a path runs them at
-    (``flex_waves``): FLEX_HOLD_ITERS iterations from the kernel's own
-    relaxation (K5_RELAX iterations, cold), within "k5" ("k5_wide" at the
-    hull model's b=13); the plan's variant must be the one named; at the
+    """K5's FLEX and horizon variants against the plain loop
+    (``_admm_iterations``, the plain sweeps, on the card) at every shape a
+    path runs them at (``flex_waves``): FLEX_HOLD_ITERS iterations from the
+    kernel's own relaxation (K5_RELAX iterations, cold), within "k5_flex"
+    ("k5_flex_wide" at the hull model's b=13); the plan's variant must be
+    the one named; at the long horizons also the global variant forced
+    (the one the horizon variant replaced) and ``horizon_holds``; at the
     double integrator also global_all forced. At config 6's long-arm wave
     the grouped, global and global_all variants forced against the shared
     one (the plan's there), a whole relaxation warm: x, z, y, dy and the
@@ -5339,7 +5452,9 @@ def phase_k5_flex(dev, rng, recs):
         held_args = with_warm(args, out, FLEX_HOLD_ITERS)
         ref = tsw._admm_iterations(*held_args)
         rec = recs[kernel]
-        variants = (None, "global_all") if key == "di" else (None,)
+        hz = pl.variant == "horizon"
+        variants = ((None,) + (("global",) if hz else ())
+                    + (("global_all",) if key == "di" else ()))
         for variant in variants:
             pv = plan_of(args, variant)[1]
             got = cs.sw_admm_cuda(*held_args, variant=variant)
@@ -5356,6 +5471,8 @@ def phase_k5_flex(dev, rng, recs):
                  {k: (g, r) for k, g, r in zip(names, got, ref)
                   if g is not None})
             err_into(recs[cs.ADMM_LAUNCH[pv.variant]], got, ref)
+        if hz:
+            horizon_holds(tag, key, args, out, held_args, pl, rec)
         if not TIMINGS:
             continue
         pre = "" if key in ("di", "tree64") else key + "_"
@@ -5838,12 +5955,16 @@ def fleet_controller(M, N, dev, window=FLEET_WINDOW, spec=FLEET_SPEC):
 
 
 def phase_wide_paths(dev):
-    """The paths of K5's FLEX variants, through the entry points a user
-    calls, with the plain loop and sweeps made to raise. long_horizon:
-    ``MpcController(..., solver="stagewise").feedback(x0)`` for the double
-    integrator at N=1000 and the PWA hull model at N=300 (LONG_SPEC), one
-    K5 launch (global) a relaxation or probe; the first input beside the
-    plan's fp64 feasibility. wide_tree: config 6's long arm at S = 16, 27
+    """The paths of K5's FLEX and horizon variants, through the entry
+    points a user calls, with the plain loop and sweeps made to raise.
+    long_horizon: ``MpcController(..., solver="stagewise").feedback(x0)``
+    for the double integrator at N=1000 and the PWA hull model at N=300
+    (LONG_SPEC), then each one's ``sw_parallel=True`` twin, one K5 launch
+    (horizon: the sequential sweep, the twins' the parallel one) a
+    relaxation or probe; each found plan feasible in fp64, each twin's
+    objective, found flag and nodes beside its sequential solve's; then
+    one more solve of each under torch.profiler (device busy time, idle
+    share against the path's own wall time). wide_tree: config 6's long arm at S = 16, 27
     and 64 (WIDE_TREES) through the stagewise tree MIQP with its probe
     prep at ρ·10 (as phase 21), one K5 launch (grouped) a relaxation or
     probe, at P a multiple of S; u₀'s spread over the scenarios within
@@ -5857,38 +5978,77 @@ def phase_wide_paths(dev):
         solve_tree_miqp_stagewise)
     from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
 
+    from pyhybridcontrol_tpu_torch.profile_serve import profile_request
+
     out = {}
-    ctrls = {k: long_controller(k, dev) for k in ("di", "hull")}
+    ctrls = {(k, par): long_controller(k, dev, parallel=par)
+             for k in ("di", "hull") for par in (False, True)}
 
     def long_solves():
         res = {}
-        for k, c in ctrls.items():
+        for key, c in ctrls.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            r = c.feedback(list(X0_LONG[k]))
+            r = c.feedback(list(X0_LONG[key[0]]))
             torch.cuda.synchronize()
-            res[k] = (r, time.perf_counter() - t0)
+            res[key] = (r, time.perf_counter() - t0)
         return res
 
-    with no_plain_sweep(), solve_calls() as n_long:
+    with no_plain_sweep(), solve_calls() as n_long, k5_calls() as calls:
         res, _ = drive("long_horizon", long_solves)
-    only_k5("long_horizon", 1, n_long[0], kernel="stagewise_k5_global")
+    only_k5("long_horizon", 1, n_long[0], kernel="stagewise_k5_horizon")
+    n_par = sum(bool(kw.get("parallel")) for kw in calls.kw)
+    check(0 < n_par < len(calls) == n_long[0],
+          f"long_horizon: {n_par} of {len(calls)} K5 calls in the parallel "
+          f"sweep, {n_long[0]} solves")
     found = 0
-    for k, (r, sec) in res.items():
-        c = ctrls[k]
+    for (k, par), (r, sec) in res.items():
+        c = ctrls[k, par]
         found += bool(r.found)
+        name = f"{k}{'_parallel' if par else ''}"
         print(f"long_horizon, {k} N={c.N} (b={c._sw.b}, m={c._sw.m_k}, "
-              f"N·nv={c.N * c.model.info.nv}): {sec:.2f} s, found "
-              f"{bool(r.found)}, {int(r.nodes)} nodes, obj "
-              f"{float(r.obj):.6f}, u0 {r.u.cpu().numpy().tolist()}",
-              flush=True)
+              f"N·nv={c.N * c.model.info.nv})"
+              + (", sw_parallel twin" if par else "")
+              + f": {sec:.2f} s, found {bool(r.found)}, {int(r.nodes)} "
+              f"nodes, obj {float(r.obj):.6f}, u0 "
+              f"{r.u.cpu().numpy().tolist()}", flush=True)
         if r.found:
             xi = torch.cat([r.v_seq, r.x_seq], dim=1).double().cpu()
-            sw_plan_feasible(f"long_horizon {k} plan", c.model, X0_LONG[k],
-                             xi.numpy())
-        out[k] = dict(N=c.N, s=sec, found=bool(r.found),
-                      obj=float(r.obj), nodes=int(r.nodes))
-    print(f"long_horizon: found share {found / len(res):.2f}", flush=True)
+            sw_plan_feasible(f"long_horizon {name} plan", c.model,
+                             X0_LONG[k], xi.numpy())
+        out[name] = dict(N=c.N, s=sec, found=bool(r.found),
+                         obj=float(r.obj), nodes=int(r.nodes))
+    for k in ("di", "hull"):
+        a, b = out[k], out[k + "_parallel"]
+        print(f"long_horizon, {k}: sequential obj {a['obj']:.6f}, found "
+              f"{a['found']}, {a['nodes']} nodes, {a['s']:.2f} s; the "
+              f"sw_parallel twin obj {b['obj']:.6f}, found {b['found']}, "
+              f"{b['nodes']} nodes, {b['s']:.2f} s", flush=True)
+    print(f"long_horizon: found share {found / len(res):.2f} (sequential "
+          f"{sum(out[k]['found'] for k in ('di', 'hull')) / 2:.2f}, twins "
+          f"{sum(out[k + '_parallel']['found'] for k in ('di', 'hull')) / 2:.2f})",
+          flush=True)
+    for (k, par), c in ctrls.items():
+        name = f"{k}{'_parallel' if par else ''}"
+
+        def solve():
+            return c.feedback(list(X0_LONG[k]))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        prof = profile_request(solve)
+        prof["ms"] = ms
+        prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["ms"]
+        out[name]["profile"] = prof
+        print(f"  long_horizon, {name} again (warm): {prof['ms']:.1f} ms; "
+              f"under torch.profiler {prof['device_ops']} device "
+              f"operations, busy {prof['device_busy_ms']:.1f} ms: idle "
+              f"share {prof['idle_share']:.4f}; K5 {prof['k5_launches']} "
+              f"launches, {prof['k5_device_ms']:.1f} ms on the device",
+              flush=True)
 
     x0 = torch.tensor(X0_6, device=dev)
     model = omega_model()

@@ -67,8 +67,9 @@ class MpcController:
         self.bnb_spec = bnb_spec or BnbSpec(qp_iters=qp_iters)
         self.qp_iters = qp_iters
         self.rho = rho
-        # stagewise only: the log-depth sweeps (ops/stagewise.py
-        # _solve_K_assoc) instead of the sequential ones
+        # stagewise only: the horizon-parallel sweeps instead of the
+        # sequential ones (parallel_sweeps of ops/stagewise.py's
+        # stagewise_admm_solve)
         self.sw_parallel = sw_parallel
         self.device = resolve_device(device)
         self._soft = None          # (rows, lin_pen, quad_pen)

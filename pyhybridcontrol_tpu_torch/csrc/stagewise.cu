@@ -160,14 +160,47 @@
 //    blocks land during the row work), a barrier, U⁻¹_k y_k over all the
 //    slot's warps, a barrier, warp 0's backward sweep.
 
+// K5's horizon variant (PHC_SW_PART 3, stagewise_horizon.cu), the global
+// variant redesigned where a scenario's horizon outgrows a CTA: one
+// problem (S = 1, no extra rows, bmax 8 or 16) a cluster of C CTAs
+// (C = 2, 4 or 8, portable), CTA c owning the window of stages
+// [c·N/C, (c+1)·N/C). The window's factors (staged where they fit), its
+// z, y, l, u, t, mb and x live in its shared memory for the launch, and
+// its rows are dealt over its own threads: the row work runs on C SMs, no
+// state word and no staged factor is read from device memory on the chain.
+// Across a window's first stage s: its rows need x_{s−1}, which the CTA
+// before pushes into a halo (xh) after its backward sweep, and stage s's
+// M_sᵀw goes into that CTA's mb over DSMEM; cluster barriers after the
+// sweeps and after the rows order both. Two sweeps, by launch argument:
+//  - sequential: warp 0 of CTA c runs its window's forward stages once CTA
+//    c−1 has handed it y_{s−1} (b words stored over DSMEM, then one remote
+//    mbarrier arrive, release at cluster scope; every lane waits on the
+//    phase of the iteration, acquire at cluster scope), and hands its last
+//    y on; the backward sweep runs in reverse window order with x_{e}. The
+//    stages are sweep_rows' stages in its order (window_forward and
+//    window_backward are its halves over a window, from a carry), and the
+//    row work is the global variant's, so at the same lanes a stage the
+//    outputs are the global variant's bit for bit. The chain stays 2·N
+//    stages, plus 2·(C−1) handoffs.
+//  - parallel (the reference's parallel_sweeps=True, another algorithm):
+//    every window sweeps from a zero carry at once (N/C stages), publishes
+//    its last y⁰ (first x⁰), and after a cluster barrier warp 0 of each CTA
+//    composes its carry from the earlier (later) windows' with the host's
+//    window maps, Π_k = (−L_k)⋯(−L_s) and Ψ_k = (−C_k)⋯(−C_{e−1}) (fp64
+//    products rounded to fp32, ops/stagewise.window_maps); every thread
+//    then corrects y_k += Π_k·carry (x_k += Ψ_k·carry) with no chain. Its
+//    plain version is ops/stagewise._solve_K_windowed inside
+//    _admm_iterations.
+
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 // Which of K5's instantiations this library holds (admm_dispatch): 0, this
 // source built alone, K4 and K5's register path at bmax 8 and 16; 1
 // (stagewise_wide.cu) K5 at bmax 32, 64 and 128; 2 (stagewise_extra.cu)
-// K5's runtime-r path at bmax 8 and 16. Three libraries, so that nvcc
-// builds the parts side by side.
+// K5's runtime-r path at bmax 8 and 16; 3 (stagewise_horizon.cu) K5's
+// horizon variant. Four libraries, so that nvcc builds the parts side by
+// side.
 #ifndef PHC_SW_PART
 #define PHC_SW_PART 0
 #endif
@@ -1956,7 +1989,7 @@ int admm_dispatch(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
       case 64: return launch_admm_b<64, true>(*a, warps, tps, staged, s);
       case 128: return launch_admm_b<128, true>(*a, warps, tps, staged, s);
     }
-#else
+#elif PHC_SW_PART == 2
   if (a->ext) switch (bmax) {
       case 8: return launch_admm_b<8, true>(*a, warps, tps, staged, s);
       case 16: return launch_admm_b<16, true>(*a, warps, tps, staged, s);
@@ -1984,7 +2017,7 @@ int flex_dispatch(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
       case 128: return launch_flex_b<128, true>(r, warps, tps, staged, fx,
                                                 s, maxc);
     }
-#else
+#elif PHC_SW_PART == 2
   if (a->ext) switch (bmax) {
       case 8: return launch_flex_b<8, true>(r, warps, tps, staged, fx, s,
                                             maxc);
@@ -1994,6 +2027,575 @@ int flex_dispatch(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
 #endif
   return (int)cudaErrorInvalidValue;
 }
+
+#if PHC_SW_PART == 3
+// ---- K5's horizon variant (the head of the file) ----
+
+// the first stage of window c of C over N stages (window c is
+// [hz_lo(N, C, c), hz_lo(N, C, c + 1)), one stage longer than the
+// shortest where C does not divide N)
+__host__ __device__ inline int hz_lo(int N, int C, int c) {
+  return (int)((long long)c * N / C);
+}
+
+// the launch's own arguments beside PhcSwAdmmArgs: the window maps of the
+// parallel sweep ((N, b, b) each, read through L2 off the chain), the
+// windows a problem and the sweep
+struct HorizonArgs {
+  const float* Pi;    // Π_k = (−L_k)⋯(−L_s), s the first stage of k's window
+  const float* Psi;   // Ψ_k = (−C_k)⋯(−C_{e−1}), e the end of k's window
+  int C;              // CTAs a cluster, one window each
+  int parallel;       // 0: the sequential sweep, 1: the parallel one
+};
+
+// word offsets of a horizon CTA's shared memory, every CTA of a cluster
+// alike (windows of up to nw stages), so that a peer's array lies at the
+// same offset: the two handoff mbarriers (forward in, backward in), the
+// window's factors when staged, J and Mc (rows of bmax words), z, y, l, u
+// (by row, then stage), t (y in place), mb, x, five b-word vectors (the
+// halo x_{s−1}, the carries in (y_{s−1}, x_e) and, for the parallel
+// sweep, the window's published y⁰ at its last stage and x⁰ at its
+// first) and, for the parallel sweep, the carries' maps (Π at each
+// window's last stage and Ψ at each window's first: 2·C blocks of b²) and
+// the peers' published vectors a carry reads (C·b words)
+struct HorizonLayout {
+  size_t bar, L, U, C, J, Mc, z, y, l, u, t, mb, xb, xh, yin, xin, py, px,
+      cm, vb, total;
+};
+
+__host__ __device__ inline HorizonLayout horizon_layout(int nw, int b, int m,
+                                                        int staged, int bmax,
+                                                        int C) {
+  HorizonLayout a;
+  size_t o = 0;
+  const size_t f = staged ? pad4((size_t)nw * b * b) : 0;
+  const size_t zn = pad4((size_t)m * nw), tn = pad4((size_t)nw * b);
+  const size_t vn = pad4(b);
+  a.bar = o; o += 4;
+  a.L = o; o += f;
+  a.U = o; o += f;
+  a.C = o; o += f;
+  a.J = o; o += pad4((size_t)m * bmax);
+  a.Mc = o; o += pad4((size_t)m * bmax);
+  a.z = o; o += zn;
+  a.y = o; o += zn;
+  a.l = o; o += zn;
+  a.u = o; o += zn;
+  a.t = o; o += tn;
+  a.mb = o; o += tn;
+  a.xb = o; o += tn;
+  a.xh = o; o += vn;
+  a.yin = o; o += vn;
+  a.xin = o; o += vn;
+  a.py = o; o += vn;
+  a.px = o; o += vn;
+  a.cm = o; o += pad4((size_t)2 * C * b * b);
+  a.vb = o; o += pad4((size_t)C * b);
+  a.total = o;
+  return a;
+}
+
+// every calling thread waits for the completion of phase `parity` of the
+// mbarrier (acquire at cluster scope: a peer's stores before its arrive
+// are visible after); a handoff that never comes traps (a launch error)
+// rather than hang the card
+__device__ inline void hz_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  unsigned done;
+  for (unsigned spins = 0;; ++spins) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (spins > (1u << 28)) __trap();
+  }
+}
+
+// one thread: b words of src into `dst` of the cluster's CTA `rank` (the
+// same offset there), then one arrive on that CTA's mbarrier `bar`
+// (release at cluster scope, after the stores)
+__device__ inline void hz_hand(const float* src, float* dst,
+                               unsigned long long* bar, int b, int rank) {
+  float* rd = cg::this_cluster().map_shared_rank(dst, (unsigned)rank);
+  for (int j = 0; j < b; ++j) rd[j] = src[j];
+  unsigned rb;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(rb) : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
+               ::"r"(rb) : "memory");
+}
+
+// sweep_rows' forward half over a window of n stages (L its first stage's
+// block), y_{s−1} from `cin` (b words; none: a zero carry): the same sums
+// in the same order, so that from the true carry y is sweep_rows' bit for
+// bit. The schedule differs: the next stage's loads are issued with no
+// branch around them (the last stage reloads its own, unused) and r_k + its
+// M part is added only after the stage's chain, so that no instruction in
+// front of the shuffles waits on a load (a warp issues in order)
+template <int BMAX, int B0>
+__device__ inline void window_forward(float* ys, const float* add,
+                                      const float* L, int n, int b, int lane,
+                                      const float* cin) {
+  constexpr int NB = B0 ? B0 : BMAX;
+  const int bb = b * b;
+  const bool row = lane < b;
+  const int lo = row ? lane * b : 0;
+  const int lr = row ? lane : 0;
+  float Lc[NB], Ln[NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) Lc[j] = (row && j < b) ? L[lo + j] : 0.0f;
+  float rc = row ? ys[lr] + add[lr] : 0.0f;
+  float prev = (cin && row) ? cin[lane] : 0.0f;
+#pragma unroll 2
+  for (int k = 0; k < n; ++k) {
+    const int kn = k + 1 < n ? k + 1 : k;
+    const float* Lk = L + (size_t)kn * bb + lo;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) Ln[j] = (row && j < b) ? Lk[j] : 0.0f;
+    const float yv = row ? ys[kn * b + lr] : 0.0f;
+    const float av = row ? add[kn * b + lr] : 0.0f;
+    float acc = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      acc = fmaf(Lc[j], __shfl_sync(kFull, prev, j), acc);
+    prev = rc - acc;
+    if (row) ys[k * b + lane] = prev;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) Lc[j] = Ln[j];
+    rc = yv + av;
+  }
+}
+
+// sweep_rows' backward half over a window of n stages (U, C its first
+// stage's blocks), x_e from `cin` (none: a zero carry), x into xp; the
+// previous stage's loads with no branch around them, as window_forward's
+template <int BMAX, int B0>
+__device__ inline void window_backward(const float* ys, const float* U,
+                                       const float* C, float* xp, int n,
+                                       int b, int lane, const float* cin) {
+  constexpr int NB = B0 ? B0 : BMAX;
+  const int bb = b * b;
+  const bool row = lane < b;
+  const int lo = row ? lane * b : 0;
+  float Uc[NB], Cc[NB], yc[NB], Un[NB], Cn[NB], yn[NB];
+  {
+    const size_t o = (size_t)(n - 1) * bb + lo;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      Uc[j] = (row && j < b) ? U[o + j] : 0.0f;
+      Cc[j] = (row && j < b) ? C[o + j] : 0.0f;
+      yc[j] = j < b ? ys[(n - 1) * b + j] : 0.0f;
+    }
+  }
+  float nxt = (cin && row) ? cin[lane] : 0.0f;
+#pragma unroll 2
+  for (int k = n - 1; k >= 0; --k) {
+    const int kp = k >= 1 ? k - 1 : 0;
+    const size_t o = (size_t)kp * bb + lo;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      Un[j] = (row && j < b) ? U[o + j] : 0.0f;
+      Cn[j] = (row && j < b) ? C[o + j] : 0.0f;
+      yn[j] = j < b ? ys[kp * b + j] : 0.0f;
+    }
+    float a = 0.0f, c = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) a = fmaf(Uc[j], yc[j], a);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      c = fmaf(Cc[j], __shfl_sync(kFull, nxt, j), c);
+    nxt = a - c;
+    if (row) xp[(size_t)k * b + lane] = nxt;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      Uc[j] = Un[j];
+      Cc[j] = Cn[j];
+      yc[j] = yn[j];
+    }
+  }
+}
+
+// warp 0, lanes < b: the carry into a window, composed over the windows
+// before it (forward: j = 0 … c−1, Π at window j's last stage, each
+// window's published y⁰) or after it (backward: j = C−1 … c+1, Ψ at its
+// first stage, its published x⁰): carry = M_j·carry + v_j from zero, as
+// _solve_K_windowed composes them; into `out`. The maps are staged (cm:
+// window j's Π at block j, its Ψ at block C + j), and the peers' vectors
+// are copied into vb over DSMEM, one word a lane, before the chain starts
+// (one round trip, not one a step)
+template <int BMAX>
+__device__ inline void hz_carry(float* out, const float* cm, float* vb,
+                                const float* pub, int C, int c, int b,
+                                int lane, bool forward) {
+  cg::cluster_group cl = cg::this_cluster();
+  const bool row = lane < b;
+  const int steps = forward ? c : C - 1 - c;
+  for (int e = lane; e < steps * b; e += 32) {
+    const int t = e / b;
+    vb[e] = cl.map_shared_rank(pub, (unsigned)(forward ? t : C - 1 - t))
+                [e - t * b];
+  }
+  __syncwarp();
+  float cv = 0.0f;
+  for (int t = 0; t < steps; ++t) {
+    const int j = forward ? t : C - 1 - t;
+    const float* M = cm + (size_t)(forward ? j : C + j) * b * b +
+                     (row ? lane * b : 0);
+    float acc = 0.0f;
+#pragma unroll
+    for (int l = 0; l < BMAX; ++l) {
+      const float w = __shfl_sync(kFull, cv, l);
+      if (row && l < b) acc = fmaf(M[l], w, acc);
+    }
+    cv = row ? acc + vb[t * b + lane] : 0.0f;
+  }
+  if (row) out[lane] = cv;
+}
+
+// every thread of the CTA: v_k += maps_k·carry over the window's n stages
+// (v (n, b) in shared memory, maps from the window's first stage s)
+__device__ inline void hz_correct(float* v, const float* maps,
+                                  const float* carry, int s, int n, int b,
+                                  int tid, int T) {
+  for (int e = tid; e < n * b; e += T) {
+    const int kl = e / b;
+    const float* M = maps + ((size_t)(s + kl) * b + (e - kl * b)) * b;
+    float acc = 0.0f;
+    for (int l = 0; l < b; ++l) acc = fmaf(__ldg(M + l), carry[l], acc);
+    v[e] = v[e] + acc;
+  }
+}
+
+template <int BMAX, int B0, bool STAGED>
+__global__ void __launch_bounds__(BMAX <= 8 ? 512 : 256)
+sw_admm_horizon_kernel(const PhcSwAdmmArgs a, int tps, HorizonArgs h) {
+  extern __shared__ __align__(16) float smem[];
+  const int N = a.N, b = a.b, m = a.m, nb = a.n_blk, C = h.C;
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int G = T / tps;                        // stages a round
+  const int g = tid / tps, jl = tid - g * tps;  // group, lane in the group
+  constexpr int NB = B0 ? B0 : BMAX;
+  cg::cluster_group cl = cg::this_cluster();
+  const int c = (int)cl.block_rank();           // this CTA's window
+  const size_t p = blockIdx.x / C;
+  const int s0 = hz_lo(N, C, c), n = hz_lo(N, C, c + 1) - s0;
+  const int np = c ? s0 - hz_lo(N, C, c - 1) : 0;   // the window before
+  const HorizonLayout lay = horizon_layout((N + C - 1) / C, b, m, STAGED,
+                                           BMAX, C);
+  unsigned long long* bar =                     // [0] y in, [1] x in
+      reinterpret_cast<unsigned long long*>(smem + lay.bar);
+  float* zs = smem + lay.z;
+  float* ysc = smem + lay.y;
+  float* ls = smem + lay.l;
+  float* us = smem + lay.u;
+  float* tb = smem + lay.t;
+  float* mb = smem + lay.mb;
+  float* xb = smem + lay.xb;
+  float* xh = smem + lay.xh;
+  float* yin = smem + lay.yin;
+  float* xin = smem + lay.xin;
+  float* py = smem + lay.py;
+  float* px = smem + lay.px;
+  const int nw = (N + C - 1) / C;
+
+  // ---- constants into shared memory, once per launch ----
+  const size_t fo = (size_t)s0 * b * b;         // the window's factors
+  const float* L = a.L + fo;
+  const float* U = a.U + fo;
+  const float* Cf = a.C + fo;
+  if (STAGED) {
+    copy_in(smem + lay.L, L, n * b * b, tid, T);
+    copy_in(smem + lay.U, U, n * b * b, tid, T);
+    copy_in(smem + lay.C, Cf, n * b * b, tid, T);
+    L = smem + lay.L;
+    U = smem + lay.U;
+    Cf = smem + lay.C;
+  }
+  float* J = smem + lay.J;
+  float* Mc = smem + lay.Mc;
+  for (int e = tid; e < m * BMAX; e += T) {
+    const int i = e / BMAX, cc = e - i * BMAX;
+    J[e] = cc < b ? __ldg(a.J + i * b + cc) : 0.0f;
+    Mc[e] = cc < b ? __ldg(a.Mc + i * b + cc) : 0.0f;
+  }
+  const float* tie = a.tie;
+  const int* blk = a.blk;
+  float* cm = smem + lay.cm;                    // the carries' maps
+  float* vb = smem + lay.vb;                    // and the peers' vectors
+  if (h.parallel)
+    for (int e = tid; e < 2 * C * b * b; e += T) {
+      const int q = e / (b * b), j = q % C;
+      const int k = q < C ? hz_lo(N, C, j + 1) - 1 : hz_lo(N, C, j);
+      cm[e] = __ldg((q < C ? h.Pi : h.Psi) + (size_t)k * b * b +
+                    (e - q * b * b));
+    }
+
+  // ---- the warm state of the window ----
+  const float* rho_t = a.rows;
+  const float* lin_t = rho_t + (size_t)m * N;
+  const float* quad_t = lin_t + (size_t)m * N;
+  const float* qp = a.q + p * N * b;
+  for (int e = tid; e < n * b; e += T) {
+    xb[e] = __ldg(a.x0 + (p * N + s0) * b + e);
+    mb[e] = 0.0f;
+  }
+  for (int kl = g; kl < n; kl += G) {
+    const size_t o = (p * N + s0 + kl) * m;
+    for (int i = jl; i < m; i += tps) {
+      zs[i * nw + kl] = __ldg(a.z0 + o + i);
+      ysc[i * nw + kl] = __ldg(a.y0 + o + i);
+      ls[i * nw + kl] = __ldg(a.l + o + i);
+      us[i * nw + kl] = __ldg(a.u + o + i);
+    }
+  }
+  if (tid == 0) {
+    for (int q = 0; q < 2; ++q)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   ::"r"(smem_u32(bar + q)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // every CTA of the cluster running, its mb zeroed and its barriers set,
+  // before a peer writes into it
+  cl.sync();
+  // stage s0's M part goes to the window before, at its last stage
+  float* mb_prev = c ? cl.map_shared_rank(mb, (unsigned)(c - 1)) +
+                           (size_t)(np - 1) * b
+                     : nullptr;
+
+  // ---- t of the warm state (as the global variant's) ----
+  for (int k0 = 0; k0 < n; k0 += G) {
+    const int kl = k0 + g, k = s0 + kl;
+    const bool on = kl < n;
+    float xk[BMAX], acc[BMAX], mm[BMAX], jr[BMAX], mr[BMAX];
+#pragma unroll
+    for (int cc = 0; cc < BMAX; ++cc) acc[cc] = mm[cc] = 0.0f;
+    if (on) {
+#pragma unroll
+      for (int cc = 0; cc < BMAX; ++cc) xk[cc] = cc < b ? xb[kl * b + cc] : 0.0f;
+      if (jl == 0) {
+#pragma unroll
+        for (int cc = 0; cc < BMAX; ++cc)
+          if (cc < b) acc[cc] = a.sigma * xk[cc] - __ldg(qp + k * b + cc);
+      }
+      for (int i = jl; i < m; i += tps) {
+        load_row<BMAX>(jr, J + i * BMAX);
+        load_row<BMAX>(mr, Mc + i * BMAX);
+        const float w =
+            __ldg(rho_t + i * N + k) * zs[i * nw + kl] - ysc[i * nw + kl];
+        row_transpose<BMAX, NB>(acc, mm, jr, mr, w, k, i, tie, blk, nb,
+                                a.blk0);
+      }
+    }
+    group_sum<BMAX>(acc, tps);
+    group_sum<BMAX>(mm, tps);
+    if (on && jl == 0) {
+      float* mo = kl ? mb + (kl - 1) * b : mb_prev;
+#pragma unroll
+      for (int cc = 0; cc < BMAX; ++cc) {
+        if (cc < b) {
+          tb[kl * b + cc] = acc[cc];
+          if (k >= 1) mo[cc] = mm[cc];
+        }
+      }
+    }
+  }
+  cl.sync();
+
+  for (int it = 0; it < a.iters; ++it) {
+    const bool last = it == a.iters - 1;
+    const unsigned par = (unsigned)it & 1u;     // the handoffs' phase
+    // ---- x = K⁻¹t over the windows ----
+    if (!h.parallel) {
+      if (warp == 0) {
+        if (c > 0) hz_wait(bar, par);
+        window_forward<BMAX, B0>(tb, mb, L, n, b, lane, c > 0 ? yin : nullptr);
+        __syncwarp();
+        if (c < C - 1 && lane == 0) hz_hand(tb + (n - 1) * b, yin, bar, b, c + 1);
+        if (c < C - 1) hz_wait(bar + 1, par);
+        window_backward<BMAX, B0>(tb, U, Cf, xb, n, b, lane,
+                                  c < C - 1 ? xin : nullptr);
+        __syncwarp();
+        if (c > 0 && lane == 0) hz_hand(xb, xin, bar + 1, b, c - 1);
+      }
+    } else {
+      if (warp == 0) {
+        window_forward<BMAX, B0>(tb, mb, L, n, b, lane, nullptr);
+        __syncwarp();
+        if (lane < b) py[lane] = tb[(n - 1) * b + lane];
+      }
+      cl.sync();                        // every window's y⁰ published
+      if (warp == 0) hz_carry<BMAX>(yin, cm, vb, py, C, c, b, lane, true);
+      __syncthreads();
+      if (c > 0) hz_correct(tb, h.Pi, yin, s0, n, b, tid, T);
+      __syncthreads();
+      if (warp == 0) {
+        window_backward<BMAX, B0>(tb, U, Cf, xb, n, b, lane, nullptr);
+        __syncwarp();
+        if (lane < b) px[lane] = xb[lane];
+      }
+      cl.sync();                        // every window's x⁰ published
+      if (warp == 0) hz_carry<BMAX>(xin, cm, vb, px, C, c, b, lane, false);
+      __syncthreads();
+      if (c < C - 1) hz_correct(xb, h.Psi, xin, s0, n, b, tid, T);
+      __syncthreads();
+    }
+    // x_{e−1} into the next window's halo
+    if (c < C - 1 && warp == 0 && lane < b)
+      cl.map_shared_rank(xh, (unsigned)(c + 1))[lane] = xb[(n - 1) * b + lane];
+    cl.sync();                          // x and the halos complete
+
+    // ---- the window's rows: zr, z, y and the new w into t and mb ----
+    for (int k0 = 0; k0 < n; k0 += G) {
+      const int kl = k0 + g, k = s0 + kl;
+      const bool on = kl < n;
+      float xk[BMAX], xm[BMAX], acc[BMAX], mm[BMAX], jr[BMAX], mr[BMAX];
+#pragma unroll
+      for (int cc = 0; cc < BMAX; ++cc) acc[cc] = mm[cc] = 0.0f;
+      if (on) {
+        const float* xmp = kl ? xb + (kl - 1) * b : xh;
+#pragma unroll
+        for (int cc = 0; cc < BMAX; ++cc) {
+          xk[cc] = cc < b ? xb[kl * b + cc] : 0.0f;
+          xm[cc] = cc < b && k >= 1 ? xmp[cc] : 0.0f;
+        }
+        if (jl == 0) {
+#pragma unroll
+          for (int cc = 0; cc < BMAX; ++cc)
+            if (cc < b) acc[cc] = a.sigma * xk[cc] - __ldg(qp + k * b + cc);
+        }
+        for (int i = jl; i < m; i += tps) {
+          load_row<BMAX>(jr, J + i * BMAX);
+          load_row<BMAX>(mr, Mc + i * BMAX);
+          // J ξ_k and M_k ξ_{k−1} in two chains
+          float ax = 0.0f, am = 0.0f;
+#pragma unroll
+          for (int cc = 0; cc < NB; ++cc) ax = fmaf(jr[cc], xk[cc], ax);
+          if (k >= 1) {
+#pragma unroll
+            for (int cc = 0; cc < NB; ++cc) am = fmaf(mr[cc], xm[cc], am);
+            const int jb = i - a.blk0;
+            if (jb >= 0 && jb < nb) {
+              const int cj = blk[jb];
+              float xv = 0.0f;
+#pragma unroll
+              for (int cc = 0; cc < BMAX; ++cc)
+                if (cc == cj) xv = xm[cc];
+              am = fmaf(-tie[k * nb + jb], xv, am);
+            }
+          }
+          const int o = i * nw + kl;
+          const int og = i * N + k;
+          const float z = zs[o], y = ysc[o], rho = __ldg(rho_t + og);
+          const float lo = ls[o], hi = us[o];
+          const float lin = __ldg(lin_t + og), quad = __ldg(quad_t + og);
+          const float zr = a.alpha * (ax + am) + (1.0f - a.alpha) * z;
+          const float sv = zr + y / rho;
+          const float tt = (rho * (sv - hi) - lin) / (rho + 2.0f * quad);
+          const float zsoft = sv > hi ? hi + fmaxf(tt, 0.0f) : fmaxf(sv, lo);
+          const float zbox = fminf(fmaxf(sv, lo), hi);
+          const float zn = (lin > 0.0f || quad > 0.0f) ? zsoft : zbox;
+          const float yn = y + rho * (zr - zn);
+          if (last) a.dy[(p * N + k) * m + i] = yn - y;
+          zs[o] = zn;
+          ysc[o] = yn;
+          row_transpose<BMAX, NB>(acc, mm, jr, mr, rho * zn - yn, k, i, tie,
+                                  blk, nb, a.blk0);
+        }
+      }
+      group_sum<BMAX>(acc, tps);
+      group_sum<BMAX>(mm, tps);
+      if (on && jl == 0) {
+        float* mo = kl ? mb + (kl - 1) * b : mb_prev;
+#pragma unroll
+        for (int cc = 0; cc < BMAX; ++cc) {
+          if (cc < b) {
+            tb[kl * b + cc] = acc[cc];
+            if (k >= 1) mo[cc] = mm[cc];
+          }
+        }
+      }
+    }
+    cl.sync();                          // t and the peers' M parts complete
+  }
+
+  // ---- out: x, z, y (and dy when no iteration ran) ----
+  for (int kl = g; kl < n; kl += G) {
+    const int k = s0 + kl;
+    if (jl == 0)
+      for (int cc = 0; cc < b; ++cc)
+        a.x[(p * N + k) * b + cc] = xb[kl * b + cc];
+    const size_t o = (p * N + k) * m;
+    for (int i = jl; i < m; i += tps) {
+      a.z[o + i] = zs[i * nw + kl];
+      a.y[o + i] = ysc[i * nw + kl];
+      if (a.iters == 0) a.dy[o + i] = 0.0f;
+    }
+  }
+}
+
+size_t horizon_smem_bytes(int N, int b, int m, int staged, int bmax, int C) {
+  return sizeof(float) *
+         horizon_layout((N + C - 1) / C, b, m, staged, bmax, C).total;
+}
+
+// P problems, one cluster of h.C CTAs each; or, if `max_clusters`, how
+// many such clusters the card holds at once
+template <int BMAX, int B0, bool STAGED>
+int launch_horizon(const PhcSwAdmmArgs& a, const HorizonArgs& h, int warps,
+                   int tps, cudaStream_t stream, int* max_clusters) {
+  auto kernel = sw_admm_horizon_kernel<BMAX, B0, STAGED>;
+  const size_t bytes = horizon_smem_bytes(a.N, a.b, a.m, STAGED, BMAX, h.C);
+  if (bytes > 48 * 1024) {
+    const int rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (rc) return rc;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(a.P * h.C), 1, 1);
+  cfg.blockDim = dim3((unsigned)(32 * warps), 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)h.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters) {
+    cfg.gridDim = dim3((unsigned)h.C, 1, 1);
+    return (int)cudaOccupancyMaxActiveClusters(max_clusters,
+                                               (const void*)kernel, &cfg);
+  }
+  const int rc = (int)cudaLaunchKernelEx(&cfg, kernel, a, tps, h);
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+// the horizon variant's shapes: one problem a cluster of 1, 2, 4 or 8
+// CTAs (portable) with no group mean and no extra rows, on the register
+// path's bounds, and the window maps with the parallel sweep
+int horizon_dispatch(const PhcSwAdmmArgs* a, const HorizonArgs& h, int warps,
+                     int tps, int staged, int bmax, cudaStream_t s,
+                     int* maxc) {
+  if (!admm_args_ok(a, warps, tps, staged, bmax) || a->S != 1 || a->mean ||
+      a->n_ext || a->ext || bmax > 16 ||
+      !(h.C == 1 || h.C == 2 || h.C == 4 || h.C == 8) || h.C > a->N ||
+      (h.parallel && !maxc && (!h.Pi || !h.Psi)))
+    return (int)cudaErrorInvalidValue;
+  if (bmax == 8 && a->b == 5)
+    return staged ? launch_horizon<8, 5, true>(*a, h, warps, tps, s, maxc)
+                  : launch_horizon<8, 5, false>(*a, h, warps, tps, s, maxc);
+  if (bmax == 8)
+    return staged ? launch_horizon<8, 0, true>(*a, h, warps, tps, s, maxc)
+                  : launch_horizon<8, 0, false>(*a, h, warps, tps, s, maxc);
+  return staged ? launch_horizon<16, 0, true>(*a, h, warps, tps, s, maxc)
+                : launch_horizon<16, 0, false>(*a, h, warps, tps, s, maxc);
+}
+#endif
 
 }  // namespace
 
@@ -2094,6 +2696,36 @@ int phc_sw_admm_max_clusters(const PhcSwAdmmArgs* a, int warps, int tps,
   const int rc = flex_dispatch(a, warps, tps, staged, bmax, fx, nullptr, &n);
   return rc ? -rc : n;
 }
+
+#if PHC_SW_PART == 3
+// dynamic shared memory of one CTA of the horizon variant (horizon_layout)
+int phc_sw_admm_horizon_smem_bytes(int N, int b, int m, int staged, int bmax,
+                                   int C) {
+  return (int)horizon_smem_bytes(N, b, m, staged, bmax, C);
+}
+
+// K5's horizon variant: a->iters iterations for a->P problems (S = 1, no
+// extra rows), one cluster of C CTAs a problem, CTA c the window of stages
+// [c·N/C, (c+1)·N/C); the sequential sweep, or with `parallel` the
+// windowed one on the window maps Pi and Psi ((N, b, b) each)
+int phc_sw_admm_horizon(const PhcSwAdmmArgs* a, const float* Pi,
+                        const float* Psi, int warps, int tps, int staged,
+                        int bmax, int C, int parallel, void* stream) {
+  const HorizonArgs h = {Pi, Psi, C, parallel};
+  return horizon_dispatch(a, h, warps, tps, staged, bmax,
+                          (cudaStream_t)stream, nullptr);
+}
+
+// clusters of a horizon plan the card holds at once, or −(the CUDA error)
+int phc_sw_admm_horizon_max_clusters(const PhcSwAdmmArgs* a, int warps,
+                                     int tps, int staged, int bmax, int C) {
+  const HorizonArgs h = {nullptr, nullptr, C, 0};
+  int n = 0;
+  const int rc = horizon_dispatch(a, h, warps, tps, staged, bmax, nullptr,
+                                  &n);
+  return rc ? -rc : n;
+}
+#endif
 
 const char* phc_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

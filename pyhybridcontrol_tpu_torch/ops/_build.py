@@ -28,14 +28,15 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 # library name -> source; K1/K2 in admm.cu, K1's split-precision phase
 # (tensor cores) in admm_mixed.cu, K4 (the stagewise sweep) and K5 (the
 # stagewise ADMM loop) in stagewise.cu, K5's other instantiations in the
-# two sources that build stagewise.cu's other parts (bmax 32 to 128; the
-# runtime-r path at bmax 8 and 16), each its own library so that the
-# compilers run side by side
+# three sources that build stagewise.cu's other parts (bmax 32 to 128; the
+# runtime-r path at bmax 8 and 16; the horizon variant), each its own
+# library so that the compilers run side by side
 LIBRARIES = {"admm": PKG_DIR / "csrc" / "admm.cu",
              "admm_mixed": PKG_DIR / "csrc" / "admm_mixed.cu",
              "stagewise": PKG_DIR / "csrc" / "stagewise.cu",
              "stagewise_wide": PKG_DIR / "csrc" / "stagewise_wide.cu",
-             "stagewise_extra": PKG_DIR / "csrc" / "stagewise_extra.cu"}
+             "stagewise_extra": PKG_DIR / "csrc" / "stagewise_extra.cu",
+             "stagewise_horizon": PKG_DIR / "csrc" / "stagewise_horizon.cu"}
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 DEFAULT_CUDA_HOMES = ("/usr/local/cuda",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -181,10 +182,27 @@ def _bind_stagewise_k5(lib):
     lib.phc_sw_admm_max_clusters.restype = I
 
 
+def _bind_stagewise_horizon(lib):
+    """K5's exports and the horizon variant's (stagewise_horizon.cu)."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    _bind_stagewise_k5(lib)
+    # N b m staged bmax C
+    lib.phc_sw_admm_horizon_smem_bytes.argtypes = [I] * 6
+    lib.phc_sw_admm_horizon_smem_bytes.restype = I
+    # the struct, Pi, Psi, warps, lanes a stage, staged, bmax, C,
+    # parallel, stream
+    lib.phc_sw_admm_horizon.argtypes = [P, P, P] + [I] * 6 + [P]
+    lib.phc_sw_admm_horizon.restype = I
+    # the struct, warps, lanes a stage, staged, bmax, C
+    lib.phc_sw_admm_horizon_max_clusters.argtypes = [P] + [I] * 5
+    lib.phc_sw_admm_horizon_max_clusters.restype = I
+
+
 _BINDERS = {"admm": _bind_admm, "admm_mixed": _bind_admm_mixed,
             "stagewise": _bind_stagewise,
             "stagewise_wide": _bind_stagewise_k5,
-            "stagewise_extra": _bind_stagewise_k5}
+            "stagewise_extra": _bind_stagewise_k5,
+            "stagewise_horizon": _bind_stagewise_horizon}
 
 
 def load_library(name: str = "admm"):

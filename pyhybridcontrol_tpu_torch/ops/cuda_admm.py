@@ -113,7 +113,8 @@ LAUNCHES = {"admm_k1": 0, "admm_k2": 0, "admm_k1_mixed": 0,
             "admm_k1_streamed": 0, "admm_k2_streamed": 0, "admm_k1_split": 0,
             "admm_k1_mixed_1pass": 0, "admm_k1_split_1pass": 0,
             "stagewise_k4": 0, "stagewise_k5": 0, "stagewise_k5_grouped": 0,
-            "stagewise_k5_global": 0, "stagewise_k5_global_all": 0}
+            "stagewise_k5_global": 0, "stagewise_k5_global_all": 0,
+            "stagewise_k5_horizon": 0}
 # batch size -> launches, per kernel wrapper (same events as LAUNCHES)
 LAUNCH_BATCHES = {k: {} for k in LAUNCHES}
 

@@ -60,6 +60,20 @@ moves to device memory in turn, the largest first, until the CTA fits
 variant's shared memory (forced staged factors past it, a group whose
 CTAs would give a scenario less than a warp) have no instantiation and
 raise.
+
+Where the plan picks "global" for one scenario with no extra rows at bmax
+8 or 16, it takes the "horizon" variant instead (library
+"stagewise_horizon", ``horizon_plan``): one problem a cluster of C CTAs
+(``HORIZON_CLUSTERS``), CTA c the window of stages ``horizon_windows(N,
+C)[c:c+2]``, its factors (staged where they fit), state and buffers in its
+shared memory; the most CTAs a problem whose P·C CTAs fit one wave
+(``HORIZON_WAVE``), else the fewest whose window fits. It runs the
+sequential sweep over the windows, or with ``parallel`` (the reference's
+``parallel_sweeps=True``, wherever ``horizon_applies``) every window's
+sweep at once, joined by carries through the window maps
+(``ops/stagewise.window_maps``). ``tps`` forces the lanes a stage of any
+variant (the sequential horizon sweep is the global variant's bit for bit
+at the same lanes).
 """
 
 from __future__ import annotations
@@ -100,7 +114,14 @@ EXT_RT, EXT_AK, EXT_CW, EXT_VEC, EXT_JM = 1, 2, 4, 8, 16
 ADMM_PLACES = {"grouped": 0, "global": 1, "global_all": 2}
 ADMM_LAUNCH = {"shared": "stagewise_k5", "grouped": "stagewise_k5_grouped",
                "global": "stagewise_k5_global",
-               "global_all": "stagewise_k5_global_all"}
+               "global_all": "stagewise_k5_global_all",
+               "horizon": "stagewise_k5_horizon"}
+# the horizon variant: CTAs a cluster (one window each; portable sizes),
+# most first, and the CTAs one wave of its clusters is reckoned to hold
+# (one CTA an SM: 16 clusters of 8, 32 of 4, 64 of 2 of the H100's 132
+# SMs; the wrapper checks the card's cudaOccupancyMaxActiveClusters)
+HORIZON_CLUSTERS = (8, 4, 2)
+HORIZON_WAVE = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,8 +297,9 @@ class AdmmPlan:
     cluster, dynamic shared memory a CTA (bytes), scenarios a CTA, the
     variant (``ADMM_LAUNCH``'s keys), the extra rows' path (0: the
     register path; else EXT_RT and the bits of what lies in device
-    memory) and the depth of a slot's factor ring (above bmax 16
-    unstaged; else 0)."""
+    memory), the depth of a slot's factor ring (above bmax 16
+    unstaged; else 0) and, for the horizon variant (``cluster`` CTAs a
+    problem, one window each), whether it runs the parallel sweep."""
 
     bmax: int
     staged: bool
@@ -289,10 +311,13 @@ class AdmmPlan:
     variant: str = "shared"
     ext: int = 0
     ring: int = 0
+    parallel: bool = False
 
     @property
     def library(self) -> str:
         """The kernel library holding this instantiation."""
+        if self.variant == "horizon":
+            return "stagewise_horizon"
         if not self.ext:
             return "stagewise"
         return "stagewise_wide" if self.bmax > 16 else "stagewise_extra"
@@ -418,21 +443,83 @@ def _ext_ladder(N: int, b: int, m: int, n_ext: int, bmax: int,
     return tuple(out)
 
 
-def _lanes(N: int, threads: int):
+def _lanes(N: int, threads: int, tps: Optional[int] = None):
     """(lanes a stage, warps) of ``threads`` threads over N stages: the
-    most lanes (a power of 2 up to 32) with every stage in one round, and
-    no more warps than that takes."""
-    tps = 32
-    while tps > 1 and N * tps > threads:
-        tps //= 2
+    most lanes (a power of 2 up to 32) with every stage in one round, or
+    ``tps`` where given, and no more warps than that takes."""
+    if tps is None:
+        tps = 32
+        while tps > 1 and N * tps > threads:
+            tps //= 2
     return tps, min(threads, -(-N * tps // 32) * 32) // 32
+
+
+def horizon_windows(N: int, C: int) -> tuple:
+    """The stage bounds of the horizon variant's C windows over N stages
+    (``hz_lo``): window c is [w[c], w[c+1]), w[c] = c·N div C."""
+    return tuple(c * N // C for c in range(C + 1))
+
+
+def horizon_smem_bytes(N: int, b: int, m: int, staged: bool, bmax: int,
+                       C: int) -> int:
+    """Shared memory of one CTA of the horizon variant
+    (``phc_sw_admm_horizon_smem_bytes`` gives the same), laid out for
+    windows of nw = ⌈N/C⌉ stages: two mbarriers (4 words), the window's
+    factors if staged, J and Mc in rows of bmax words, z, y, l and u (m·nw
+    words each), t, mb and x (nw·b each), five b-word vectors (the halo,
+    two carries in, the two published ones), the carries' 2·C window maps
+    (b² words each) and the peers' vectors a carry reads (C·b words), each
+    array padded to a multiple of 4 words."""
+    nw = -(-N // C)
+    f = _pad4(nw * b * b) if staged else 0
+    return 4 * (4 + 3 * f + 2 * _pad4(m * bmax) + 4 * _pad4(m * nw)
+                + 3 * _pad4(nw * b) + 5 * _pad4(b) + _pad4(2 * C * b * b)
+                + _pad4(C * b))
+
+
+def horizon_applies(b: int, S: int = 1, mean: bool = False,
+                    n_ext: int = 0) -> bool:
+    """Whether the horizon variant takes the shape: one scenario (no group
+    mean), no extra rows, b up to 16."""
+    return b <= 16 and S == 1 and not mean and n_ext == 0
+
+
+def horizon_plan(P: int, N: int, b: int, m: int,
+                 staged: Optional[bool] = None, parallel: bool = False,
+                 tps: Optional[int] = None) -> Optional[AdmmPlan]:
+    """The horizon variant's instantiation for P problems (``horizon_applies``
+    must hold), or None where no window fits a CTA: C of HORIZON_CLUSTERS
+    (at most N; 1 for N = 1), the most whose P·C CTAs fit HORIZON_WAVE,
+    else the fewest whose window fits; in each staged factors before
+    unstaged (``staged`` forces one); a window's stages over the most
+    lanes that take them in one round (``tps`` forces them)."""
+    bmax = next(v for v in ADMM_BMAX if b <= v)
+    cands = [C for C in HORIZON_CLUSTERS if C <= N] or [1]
+    sts = (True, False) if staged is None else (bool(staged),)
+
+    def fit(C):
+        lanes, warps = _lanes(-(-N // C), ADMM_THREADS[bmax], tps)
+        for st in sts:
+            smem = horizon_smem_bytes(N, b, m, st, bmax, C)
+            if smem <= SMEM_MAX:
+                return AdmmPlan(bmax=bmax, staged=st, warps=warps, tps=lanes,
+                                cluster=C, smem=smem, variant="horizon",
+                                parallel=parallel)
+        return None
+
+    fits = {C: fit(C) for C in cands}
+    wave = [fits[C] for C in cands if P * C <= HORIZON_WAVE and fits[C]]
+    # most CTAs a problem in one wave, else the fewest whose window fits
+    return wave[0] if wave else next(
+        (fits[C] for C in reversed(cands) if fits[C]), None)
 
 
 def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
               n_ext: int = 0, n_cons: int = 0, mean: bool = False,
               staged: Optional[bool] = None,
               variant: Optional[str] = None,
-              runtime_r: Optional[bool] = None) -> AdmmPlan:
+              runtime_r: Optional[bool] = None, parallel: bool = False,
+              tps: Optional[int] = None) -> AdmmPlan:
     """The instantiation K5 runs P problems with: horizon N, block b, m rows
     a stage, n_blk blocking rows and n_ext extra rows; with ``mean``, in
     groups of S scenarios (a group mean over the trailing n_cons rows), a
@@ -446,11 +533,14 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
     that fits: the shared one (S ≤ 8); grouped, global, global_all
     (module doc). The FLEX
     variants deal a group over ⌈S/16⌉ scenarios a CTA, in a cluster of
-    ⌈S/spc⌉ CTAs. ``staged``, ``variant`` and ``runtime_r`` force one: no
-    path sets them, ``chip_smoke.py`` holds the unstaged, the global-state
-    and the runtime-r instantiations with them at shapes the plan gives
-    others. Raises ValueError, with the shape, where nothing fits: there is
-    no other path."""
+    ⌈S/spc⌉ CTAs. Where that picks "global" and ``horizon_applies``, the
+    horizon variant (``horizon_plan``) where a window fits. ``parallel``
+    (the parallel sweep) plans the horizon variant alone. ``staged``,
+    ``variant``, ``runtime_r`` and ``tps`` force one: no path sets them,
+    ``chip_smoke.py`` holds the unstaged, the global-state and the
+    runtime-r instantiations with them at shapes the plan gives others.
+    Raises ValueError, with the shape, where nothing fits: there is no
+    other path."""
     shape = (f"P={P}, N={N}, b={b}, m={m}, S={S}, n_blk={n_blk}, "
              f"n_ext={n_ext}, n_cons={n_cons}")
     what = f"K5 (stagewise ADMM) at {shape}"
@@ -475,6 +565,19 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
         raise ValueError(f"{what}: P is no multiple of the group of S")
     if variant is not None and variant not in ADMM_LAUNCH:
         raise ValueError(f"{what}: no variant {variant!r}")
+    if tps is not None and (tps not in (1, 2, 4, 8, 16, 32)):
+        raise ValueError(f"{what}: {tps} lanes a stage is no power of 2 up "
+                         f"to 32")
+    hz = horizon_applies(b, S, mean, n_ext) and not runtime_r
+    if parallel or variant == "horizon":
+        if not hz:
+            raise ValueError(f"{what}: the horizon variant takes one "
+                             f"scenario, no extra rows and b up to 16")
+        pl = horizon_plan(P, N, b, m, staged, parallel, tps)
+        if pl is None:
+            raise ValueError(f"{what}: no window of the horizon variant fits "
+                             f"a CTA's {SMEM_MAX} bytes of shared memory")
+        return pl
     most = ADMM_THREADS[bmax]
     # above bmax 16 an odd b's packed blocks are padded apart, which the
     # staged layout does not hold: such a shape streams them (the ring)
@@ -486,7 +589,7 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
     exts = _ext_ladder(N, b, m, n_ext, bmax, runtime_r)
     smem = None
     if variant in (None, "shared") and S <= ADMM_CLUSTER:
-        tps, warps = _lanes(N, most)
+        lanes, warps = _lanes(N, most, tps)
         for st in sts:
             for ext in exts:
                 for d in _ring_depths(bmax, st):
@@ -494,7 +597,7 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
                                            mean, warps, st, bmax, ext, d)
                     if smem <= SMEM_MAX:
                         return AdmmPlan(bmax=bmax, staged=st, warps=warps,
-                                        tps=tps, cluster=S, smem=smem,
+                                        tps=lanes, cluster=S, smem=smem,
                                         ext=ext, ring=d)
     if variant == "shared":
         raise ValueError(
@@ -507,7 +610,7 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
     if sub < 32:
         raise ValueError(f"{what}: {spc} scenarios a CTA leave less than a "
                          f"warp each")
-    tps, w = _lanes(N, sub)
+    lanes, w = _lanes(N, sub, tps)
     names = ADMM_PLACES if variant is None else (variant,)
     for name in names:
         for st in sts:
@@ -516,12 +619,17 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
                     smem = flex_smem_bytes(N, b, m, n_blk, n_ext, n_cons,
                                            mean, w * spc, st, bmax, spc,
                                            ADMM_PLACES[name], ext, d)
-                    if smem <= SMEM_MAX:
-                        return AdmmPlan(bmax=bmax, staged=st,
-                                        warps=w * spc, tps=tps,
-                                        cluster=-(-S // spc), smem=smem,
-                                        spc=spc, variant=name, ext=ext,
-                                        ring=d)
+                    if smem > SMEM_MAX:
+                        continue
+                    if name == "global" and variant is None and hz \
+                            and not ext:
+                        got = horizon_plan(P, N, b, m, staged, False, tps)
+                        if got is not None:
+                            return got
+                    return AdmmPlan(bmax=bmax, staged=st, warps=w * spc,
+                                    tps=lanes, cluster=-(-S // spc),
+                                    smem=smem, spc=spc, variant=name,
+                                    ext=ext, ring=d)
     raise ValueError(f"{what}: needs {smem} bytes of shared memory a CTA, "
                      f"above the {SMEM_MAX} an sm_90 CTA has")
 
@@ -603,9 +711,14 @@ def admm_cluster_capacity(sw, args, pl: AdmmPlan) -> int:
     got = sw.cache.get(key)
     if got is None:
         lib = load_library(pl.library)
-        got = lib.phc_sw_admm_max_clusters(
-            ctypes.addressof(args), pl.warps, pl.tps, int(pl.staged),
-            pl.bmax, pl.spc, pl.cluster, ADMM_PLACES[pl.variant])
+        if pl.variant == "horizon":
+            got = lib.phc_sw_admm_horizon_max_clusters(
+                ctypes.addressof(args), pl.warps, pl.tps, int(pl.staged),
+                pl.bmax, pl.cluster)
+        else:
+            got = lib.phc_sw_admm_max_clusters(
+                ctypes.addressof(args), pl.warps, pl.tps, int(pl.staged),
+                pl.bmax, pl.spc, pl.cluster, ADMM_PLACES[pl.variant])
         if got < 0:
             _raise_on(lib, -got, "K5 (stagewise ADMM) occupancy query")
         if got == 0:
@@ -620,18 +733,22 @@ def admm_cluster_capacity(sw, args, pl: AdmmPlan) -> int:
 def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
                  consensus_M=None, staged: Optional[bool] = None,
                  variant: Optional[str] = None,
-                 runtime_r: Optional[bool] = None):
+                 runtime_r: Optional[bool] = None, parallel: bool = False,
+                 tps: Optional[int] = None):
     """K5 on the card: ``iters`` stagewise ADMM iterations of the prep
     ``sw`` in one launch, from the warm carries. x and q (…, N, b), z, y,
     l and u (…, N, m_k) with one batch (z already inside [l, u]); with
     extra rows z_e, y_e and ext_u (…, n_ext); ``consensus_M`` (S, S, N)
-    the group mean over the last batch axis (S scenarios); ``staged``,
-    ``variant`` and ``runtime_r`` force one instantiation (``plan_admm``).
-    Returns (x, z, y, dy, z_e, y_e, dy_e) as
-    ``ops/stagewise._admm_iterations`` does. Checks, allocates the outputs
-    (and a FLEX variant's scratch, and the runtime-r vectors' where they
-    lie in device memory), checks a FLEX cluster against the card's
-    occupancy and launches once."""
+    the group mean over the last batch axis (S scenarios); ``parallel``
+    the horizon variant's parallel sweep (``_admm_iterations`` with
+    ``_solve_K_windowed`` on the plan's windows is its plain version);
+    ``staged``, ``variant``, ``runtime_r`` and ``tps`` force one
+    instantiation (``plan_admm``). Returns (x, z, y, dy, z_e, y_e, dy_e)
+    as ``ops/stagewise._admm_iterations`` does. Checks, allocates the
+    outputs (and a FLEX variant's scratch, and the runtime-r vectors'
+    where they lie in device memory), checks a FLEX cluster with a group
+    mean and a horizon cluster against the card's occupancy and launches
+    once."""
     from pyhybridcontrol_tpu_torch.ops._build import load_library
 
     dev = x.device
@@ -660,7 +777,7 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
     for name, f in zip(("L", "Uinv", "C"), sw.factors):
         _check(name, f, (N, b, b), dev)
     pl = plan_admm(P, N, b, m, S, sw.n_blk, r, sw.n_cons, mean, staged,
-                   variant, runtime_r)
+                   variant, runtime_r, parallel, tps)
     out = [torch.empty((P, N, b), dtype=torch.float32, device=dev)]
     out += [torch.empty((P, N, m), dtype=torch.float32, device=dev)
             for _ in range(3)]
@@ -693,6 +810,16 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
             rc = lib.phc_sw_admm(ctypes.addressof(args), pl.warps, pl.tps,
                                  int(pl.staged), pl.bmax,
                                  ctypes.c_void_p(stream))
+        elif pl.variant == "horizon":
+            from pyhybridcontrol_tpu_torch.ops.stagewise import window_maps
+
+            maps = (window_maps(sw, horizon_windows(N, pl.cluster))
+                    if pl.parallel else (None, None))
+            admm_cluster_capacity(sw, args, pl)
+            rc = lib.phc_sw_admm_horizon(
+                ctypes.addressof(args), _ptr(maps[0]), _ptr(maps[1]),
+                pl.warps, pl.tps, int(pl.staged), pl.bmax, pl.cluster,
+                int(pl.parallel), ctypes.c_void_p(stream))
         else:
             place = ADMM_PLACES[pl.variant]
             if mean:

@@ -41,15 +41,24 @@ Cw = (diag(1/ρₑ) + Aext K⁻¹ Aextᵀ)⁻¹ prefactored on the host.
 Port decisions:
 - ``_solve_K`` is a Python loop over the stages: the plain version of K4.
   ``_admm_iterations`` is the ADMM loop in torch around a sweep the caller
-  names (``_solve_K`` or ``_solve_K_assoc``): the plain version of K5.
+  names (``_solve_K``, ``_solve_K_assoc`` or ``_solve_K_windowed``): the
+  plain version of K5.
   ``stagewise_admm_solve`` dispatches the loop on the tensor's device: a
   CUDA tensor launches K5 once (``cuda_stagewise.sw_admm_cuda``) or
   raises, a CPU tensor runs ``_admm_iterations`` with ``_solve_K``; the
   set-up before the loop and the residuals, objective and certificate
   after it stay in torch.
-- ``_solve_K_assoc`` (``parallel_sweeps=True``) is a log-depth prefix over
-  affine maps in torch: another algorithm the caller picks, not a
-  fallback, so it runs the plain loop on either device.
+- ``parallel_sweeps=True`` is another algorithm the caller picks, not a
+  fallback. On a CPU tensor it runs the plain loop with ``_solve_K_assoc``,
+  the reference's log-depth prefix over affine maps. On a CUDA tensor,
+  wherever K5's horizon variant takes the shape (one scenario, no extra
+  rows, b ≤ 16, ``cuda_stagewise.horizon_applies``, and a window that
+  fits a CTA, ``horizon_plan``), it launches that
+  variant's parallel sweep once (the horizon in C windows, each swept from
+  a zero carry, joined by carries through the window maps; its plain
+  version is ``_admm_iterations`` with ``_solve_K_windowed``); elsewhere
+  (extra rows, a group mean) the plain loop with ``_solve_K_assoc``. The
+  choice is the shape's, never a failure's.
 - The objective, the infeasibility certificate's support and gap sums and
   the dual bound's sums accumulate in float64, as in ops/admm.py.
 """
@@ -66,7 +75,8 @@ import torch.nn.functional as F
 from pyhybridcontrol_tpu_torch.mld.model import MldModel
 from pyhybridcontrol_tpu_torch.ops.admm import AdmmResult, _implied_box
 from pyhybridcontrol_tpu_torch.ops.condense import MpcWeights, _sq, _vec
-from pyhybridcontrol_tpu_torch.ops.cuda_stagewise import sw_admm_cuda
+from pyhybridcontrol_tpu_torch.ops.cuda_stagewise import (
+    horizon_applies, horizon_plan, sw_admm_cuda)
 from pyhybridcontrol_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 BIG = 1e30
@@ -594,6 +604,79 @@ def _solve_K_assoc(sw: StagewiseQP, r, factors=None):
     return torch.movedim(xs, 0, -2)
 
 
+def window_maps(sw: StagewiseQP, windows, factors=None):
+    """(Π, Ψ), each (N, b, b), of the windows ``windows`` (stage bounds
+    w[0] = 0 < … < w[C] = N): for k in window [s, e), Π_k = (−L_k)⋯(−L_s)
+    and Ψ_k = (−C_k)⋯(−C_{e−1}), so that y_k = y⁰_k + Π_k y_{s−1} and x_k =
+    x⁰_k + Ψ_k x_e, y⁰ and x⁰ the window's sweeps from a zero carry. Products
+    in float64 on the host from the factors (the prep's, or ``factors``),
+    returned in their dtype on their device; the prep's cached per window
+    split (K5's horizon variant reads them, ``cuda_stagewise``)."""
+    Lf, _, Cf = factors if factors is not None else sw.factors
+    key = ("window_maps", tuple(windows), Lf.dtype, Lf.device)
+    got = None if factors is not None else sw.cache.get(key)
+    if got is not None:
+        return got
+    Ld = -Lf.detach().double().cpu().numpy()
+    Cd = -Cf.detach().double().cpu().numpy()
+    Pi, Psi = np.zeros_like(Ld), np.zeros_like(Cd)
+    for s, e in zip(windows[:-1], windows[1:]):
+        Pi[s] = Ld[s]
+        for k in range(s + 1, e):
+            Pi[k] = Ld[k] @ Pi[k - 1]
+        Psi[e - 1] = Cd[e - 1]
+        for k in range(e - 2, s - 1, -1):
+            Psi[k] = Cd[k] @ Psi[k + 1]
+    got = tuple(torch.as_tensor(a, dtype=Lf.dtype, device=Lf.device)
+                for a in (Pi, Psi))
+    if factors is None:
+        sw.cache[key] = got
+    return got
+
+
+def _solve_K_windowed(sw: StagewiseQP, r, windows, factors=None):
+    """K⁻¹ r with the horizon in windows (stage bounds ``windows``, as
+    ``cuda_stagewise.horizon_windows`` gives them): the plain version of
+    K5's parallel sweep, step for step. Each window runs ``_solve_K``'s
+    forward sweep from a zero carry; the carries y_{s−1} compose over the
+    windows in order (carry ← Π_{e−1}·carry + y⁰_{e−1}, from zero); every
+    stage is corrected, y_k = y⁰_k + Π_k·carry; then the same backward
+    (x⁰ from zero, carries x_e over the windows in reverse, carry ←
+    Ψ_s·carry + x⁰_s, x_k = x⁰_k + Ψ_k·carry). Window maps from
+    ``window_maps``; r (…, N, b) → (…, N, b)."""
+    Lf, Uf, Cf = factors if factors is not None else sw.factors
+    Pi, Psi = window_maps(sw, windows, factors)
+    N, b = r.shape[-2:]
+    rr = r.reshape(-1, N, b)
+    bounds = list(zip(windows[:-1], windows[1:]))
+    zero = torch.zeros_like(rr[:, 0])
+    ys = [None] * N
+    for s, e in bounds:                # y⁰ over each window
+        prev = zero
+        for k in range(s, e):
+            prev = torch.addmm(rr[:, k], prev, Lf[k].T, alpha=-1)
+            ys[k] = prev
+    cin, carry = [], zero              # the carry into each window
+    for s, e in bounds:
+        cin += [carry] * (e - s)
+        carry = carry @ Pi[e - 1].T + ys[e - 1]
+    Y = torch.stack(ys, dim=1)
+    Y = Y + torch.einsum("kij,pkj->pki", Pi, torch.stack(cin, dim=1))
+    xs = [None] * N
+    for s, e in bounds:                # x⁰ over each window
+        nxt = zero
+        for k in range(e - 1, s - 1, -1):
+            nxt = torch.addmm(Y[:, k] @ Uf[k].T, nxt, Cf[k].T, alpha=-1)
+            xs[k] = nxt
+    xin, carry = [None] * N, zero      # the carry x_e into each window
+    for s, e in reversed(bounds):
+        xin[s:e] = [carry] * (e - s)
+        carry = carry @ Psi[s].T + xs[s]
+    X = torch.stack(xs, dim=1)
+    X = X + torch.einsum("kij,pkj->pki", Psi, torch.stack(xin, dim=1))
+    return X.reshape(r.shape)
+
+
 def _exclusive_carries(maps, dtype):
     """Carry-in of each block of a chained affine recurrence: ``maps`` is
     the pair (M (P, b, b), v (P, …, b)) of the blocks' whole maps
@@ -1006,9 +1089,11 @@ def stagewise_admm_solve(sw: StagewiseQP, q, l, u, iters: int = 200,
     (x, z, y) of a prior result in this frame. The iterations run as one
     launch of K5 on a CUDA tensor and as ``_admm_iterations`` (torch, the
     plain sweeps) on a CPU tensor; another device raises.
-    ``parallel_sweeps``: solve Kξ = t by ``_solve_K_assoc`` instead of the
-    sweeps, an algorithm of its own that runs the torch loop on either
-    device. ``consensus_M`` (S, S, N): the p-weighted group-mean weights
+    ``parallel_sweeps``: the horizon-parallel sweeps, an algorithm of its
+    own (module doc): on a CUDA tensor one launch of K5's horizon variant
+    in its parallel sweep wherever that variant takes the shape, else
+    (and on the CPU) the torch loop with ``_solve_K_assoc``.
+    ``consensus_M`` (S, S, N): the p-weighted group-mean weights
     (``StagewiseTreeQP.M``) that replace the z-update on the trailing
     ``n_cons`` rows over the scenario axis, dim −3 (their residual then
     measures |Ax − z| and their dy leaves the certificate); a function in
@@ -1054,7 +1139,13 @@ def stagewise_admm_solve(sw: StagewiseQP, q, l, u, iters: int = 200,
     mc = sw.m_k - sw.n_cons                           # consensus rows
 
     carries = (sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters, consensus_M)
-    if parallel_sweeps:
+    mean = consensus_M is not None and sw.n_cons > 0
+    if parallel_sweeps and q.device.type == "cuda" and horizon_applies(
+            sw.b, mean=mean, n_ext=r_ext) and horizon_plan(
+                int(np.prod(batch)), sw.N, sw.b, sw.m_k,
+                parallel=True) is not None:
+        out = sw_admm_cuda(*carries, parallel=True)
+    elif parallel_sweeps:
         out = _admm_iterations(*carries, sweep=_solve_K_assoc)
     elif callable(consensus_M) and q.device.type == "cuda":
         out = _admm_iterations(*carries, sweep=_k4_sweep)

@@ -1173,7 +1173,8 @@ def test_stagewise_binding_mirrors_the_kernel_source():
     """The ctypes binding of ``stagewise.cu`` gives each exported function
     its parameters in the source's order (pointers as c_void_p, ints as
     c_int) and the scratch size its 64-bit result; K5's wrapper passes each
-    launch (the shared variant's and the FLEX one's) as many arguments."""
+    launch (the shared variant's, the FLEX one's and the horizon one's) as
+    many arguments."""
     from pyhybridcontrol_tpu_torch.ops import _build
     from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
 
@@ -1186,10 +1187,12 @@ def test_stagewise_binding_mirrors_the_kernel_source():
         "phc_sw_smem_bytes", "phc_sw_solve_k", "phc_sw_admm_smem_bytes",
         "phc_sw_admm", "phc_sw_admm_flex_smem_bytes",
         "phc_sw_admm_flex_scratch_words", "phc_sw_admm_flex",
-        "phc_sw_admm_max_clusters"}
+        "phc_sw_admm_max_clusters", "phc_sw_admm_horizon_smem_bytes",
+        "phc_sw_admm_horizon", "phc_sw_admm_horizon_max_clusters"}
     lib = types.SimpleNamespace(**{
         name: types.SimpleNamespace() for name, _ in found})
     _build._bind_stagewise(lib)
+    _build._bind_stagewise_horizon(lib)
     for name, params in found:
         want = [ctypes.c_void_p if "*" in decl else ctypes.c_int
                 for decl in params.split(",")]
@@ -1197,7 +1200,7 @@ def test_stagewise_binding_mirrors_the_kernel_source():
     assert lib.phc_sw_admm_flex_scratch_words.restype == ctypes.c_longlong
     assert "long long phc_sw_admm_flex_scratch_words(" in src
     call = inspect.getsource(cs.sw_admm_cuda)
-    for name in ("phc_sw_admm", "phc_sw_admm_flex"):
+    for name in ("phc_sw_admm", "phc_sw_admm_flex", "phc_sw_admm_horizon"):
         args = re.search(rf"lib\.{name}\((.*?)\)\n", call, re.S).group(1)
         n = len(re.findall(r"ctypes\.addressof\(args\)|pl\.\w+[,)]|"
                            r"int\(pl\.staged\)|\bplace,|_ptr\(|"

@@ -590,17 +590,20 @@ def test_admm_plan_keeps_every_shape_that_planned(key):
 # the double integrator (configs 1, 6) from its first refused horizon to
 # N=20,000, the PWA hull model (config 2) likewise, and config 6's long
 # arm with 9 to 64 scenarios (a wave of 8 nodes); and the variant, spc
-# and cluster the plan picks
+# and cluster the plan picks (where it picked the global variant, one
+# scenario with no extra rows, the horizon variant: one problem a cluster
+# of C windows, tests/test_torch_stagewise_horizon.py)
 REACHED = {
-    "di_N704": ((64, 704, 5, 17, 1, 0, 0, 0, False), ("global", 1, 1)),
-    "di_N1000": ((64, 1000, 5, 17, 1, 0, 0, 0, False), ("global", 1, 1)),
+    "di_N704": ((64, 704, 5, 17, 1, 0, 0, 0, False), ("horizon", 1, 2)),
+    "di_N1000": ((64, 1000, 5, 17, 1, 0, 0, 0, False), ("horizon", 1, 2)),
     "di_N4000": ((64, 4000, 5, 17, 1, 0, 0, 0, False),
                  ("global_all", 1, 1)),
     "di_N20000": ((64, 20000, 5, 17, 1, 0, 0, 0, False),
                   ("global_all", 1, 1)),
-    "hull_N248": ((64, 248, 13, 49, 1, 0, 0, 0, False), ("global", 1, 1)),
-    "hull_N300": ((64, 300, 13, 49, 1, 0, 0, 0, False), ("global", 1, 1)),
-    "hull_N1000": ((64, 1000, 13, 49, 1, 0, 0, 0, False), ("global", 1, 1)),
+    "hull_N248": ((64, 248, 13, 49, 1, 0, 0, 0, False), ("horizon", 1, 2)),
+    "hull_N300": ((64, 300, 13, 49, 1, 0, 0, 0, False), ("horizon", 1, 2)),
+    "hull_N1000": ((64, 1000, 13, 49, 1, 0, 0, 0, False),
+                   ("horizon", 1, 8)),
     "hull_N20000": ((64, 20000, 13, 49, 1, 0, 0, 0, False),
                     ("global_all", 1, 1)),
     "tree_S9": ((72, 120, 5, 19, 9, 0, 1, 2, True), ("grouped", 1, 9)),
@@ -618,11 +621,20 @@ def test_admm_plan_reaches_every_horizon_and_group(key):
     whose CTA fits, a cluster of at most 16 CTAs whose slots cover the
     group with no CTA left empty, whole warps a slot, every stage's lanes
     in one round of a slot's threads, and the shared memory of
-    ``flex_smem_bytes``."""
+    ``flex_smem_bytes``. Where the plan takes the horizon variant, the
+    global variant it replaced still plans, forced, as before, and the
+    same checks hold of it."""
     shape, want = REACHED[key]
     P, N_, b, m, S, n_blk, n_ext, n_cons, mean = shape
     pl = cs.plan_admm(*shape)
     assert (pl.variant, pl.spc, pl.cluster) == want
+    forced = None
+    if pl.variant == "horizon":
+        assert pl.smem == cs.horizon_smem_bytes(N_, b, m, pl.staged,
+                                                pl.bmax, pl.cluster)
+        forced = "global"
+        pl = cs.plan_admm(*shape, variant=forced)
+        assert (pl.variant, pl.spc, pl.cluster) == ("global", 1, 1)
     assert pl.cluster <= cs.ADMM_CLUSTER_MAX
     assert pl.cluster * pl.spc >= S > (pl.cluster - 1) * pl.spc
     assert pl.warps % pl.spc == 0
@@ -634,7 +646,7 @@ def test_admm_plan_reaches_every_horizon_and_group(key):
         N_, b, m, n_blk, n_ext, n_cons, mean, pl.warps, pl.staged, pl.bmax,
         pl.spc, cs.ADMM_PLACES[pl.variant]) <= ca.SMEM_MAX
     # the plan depends on the shapes alone, not on how many groups
-    assert cs.plan_admm(S, *shape[1:]) == pl
+    assert cs.plan_admm(S, *shape[1:], variant=forced) == pl
     # an earlier place of the same factors would not have fit
     for place in range(cs.ADMM_PLACES[pl.variant]):
         assert cs.flex_smem_bytes(N_, b, m, n_blk, n_ext, n_cons, mean,

@@ -20,12 +20,13 @@ one through the torch loop with the plain sweeps; ``--profile`` profiles
 one whole solve of the long arm through K5 (device operations, busy time,
 idle share).
 
-``--flex`` runs ``chip_smoke.phase_k5_flex`` instead (K5's grouped and
-global-state variants against the plain loop at the long_horizon and
-wide_tree paths' shapes, and forced against the shared variant at config
-6's; timed at the first seed only) once per seed, as above (how the
-"k5_flex" limits are set), then the long_horizon and wide_tree paths
-once; ``--probes N,...`` then runs the hull model's long_horizon solve
+``--flex`` runs ``chip_smoke.phase_k5_flex`` instead (K5's grouped,
+global-state and horizon variants against the plain loop at the
+long_horizon and wide_tree paths' shapes, the horizon variant's parallel
+sweep against its windowed plain loop, and the others forced against the
+shared variant at config 6's; timed at the first seed only) once per
+seed, as above (how the "k5_flex" and "k5_horizon_par" limits are set),
+then the long_horizon and wide_tree paths once; ``--probes N,...`` then runs the hull model's long_horizon solve
 again at each probe iteration count (its found share against the probe's
 length).
 

@@ -1,6 +1,6 @@
-"""The register path's machine code (K5 and K4 at bmax 8 and 16) of two
-checkouts, compared function by function (a development tool, not part of
-the package; needs the CUDA toolkit, so it runs on the card's machine):
+"""K5's and K4's machine code of two checkouts, compared function by
+function (a development tool, not part of the package; needs the CUDA
+toolkit, so it runs on the card's machine):
 
     python tools/k5_sass.py --parent DIR [--show N]
 
@@ -8,13 +8,16 @@ Run from the root of a checkout ("change"); DIR is a checkout of the commit
 to compare with (for example ``git archive`` of it unpacked into a
 directory that .gitignore lists). Compiles each tree's
 ``pyhybridcontrol_tpu_torch/csrc/stagewise.cu`` alone (the library that
-holds K4 and K5's register path) and its ``stagewise_extra.cu`` (K5's
-runtime-r path at bmax 8 and 16) to cubins with the flags of
-``ops/_build.py``, disassembles them with ``cuobjdump -sass`` and compares
-the instructions of every ``sw_admm_kernel`` and ``sw_solve_k_kernel``
-instantiation at bmax 8 and 16 of the parent with the change's of the same
-source and template arguments (K5: BMAX, B0, STAGED, FLEX, RDYN; K4: BMAX,
-B0, STAGED). The wide instantiations (bmax 32 to 128) are not compared.
+holds K4 and K5's register path: the shared, grouped and global-state
+instantiations at bmax 8 and 16), its ``stagewise_extra.cu`` (K5's
+runtime-r path at bmax 8 and 16) and its ``stagewise_wide.cu`` (K5 at bmax
+32 to 128) to cubins with the flags of ``ops/_build.py``, all six builds
+side by side, disassembles them with ``cuobjdump -sass`` and compares the
+instructions of every ``sw_admm_kernel`` and ``sw_solve_k_kernel``
+instantiation of the parent with the change's of the same source and
+template arguments (K5: BMAX, B0, STAGED, FLEX, RDYN; K4: BMAX, B0,
+STAGED). Kernels the parent has not (the horizon variant's) are not
+compared.
 Kernel-parameter offsets (``c[0x0][…]``) and symbol names are masked, so a
 parameter struct that grew at its end does not count. Prints, per
 instantiation, "same" or the two instruction counts and the number of
@@ -36,15 +39,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 CSRC = Path("pyhybridcontrol_tpu_torch") / "csrc"
-SOURCES = ("stagewise.cu", "stagewise_extra.cu")
+SOURCES = ("stagewise.cu", "stagewise_extra.cu", "stagewise_wide.cu")
 # kernel name -> its template arguments in the mangled name
 KERNELS = (("sw_admm_kernel", r"ILi(\d+)ELi(\d+)ELb(\d)ELb(\d)(?:ELb(\d))?E"),
            ("sw_solve_k_kernel", r"ILi(\d+)ELi(\d+)ELb(\d)E"))
 
 
-def sass(tree: Path, work: Path) -> dict:
+def sass(tree: Path, work: Path, pool) -> dict:
     """{(source, kernel, template arguments…): [instruction, …]} of the
-    tree's register-path instantiations (bmax 8 and 16)."""
+    tree's K4 and K5 instantiations, its sources compiled on ``pool``."""
     from pyhybridcontrol_tpu_torch.ops import _build
 
     nvcc = _build.find_nvcc()
@@ -56,13 +59,16 @@ def sass(tree: Path, work: Path) -> dict:
     for name in SOURCES:          # the extra part includes stagewise.cu
         shutil.copy(tree / CSRC / name, work / name)
     funcs = {}
-    for name in SOURCES:
+
+    def disassemble(name):
         cubin = work / (name + ".cubin")
         subprocess.run([nvcc, *flags, "-cubin", "-o", str(cubin),
                         str(work / name)], check=True, capture_output=True)
-        out = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass",
-                              str(cubin)], check=True, capture_output=True,
-                             text=True).stdout
+        return subprocess.run([str(Path(nvcc).parent / "cuobjdump"),
+                               "-sass", str(cubin)], check=True,
+                              capture_output=True, text=True).stdout
+
+    for name, out in zip(SOURCES, pool.map(disassemble, SOURCES)):
         cur = None
         for line in out.splitlines():
             m = re.search(r"Function : (\S+)", line)
@@ -70,7 +76,7 @@ def sass(tree: Path, work: Path) -> dict:
                 cur = None
                 for kernel, args in KERNELS:
                     k = re.search(kernel + args, m.group(1))
-                    if k and int(k.group(1)) <= 16:
+                    if k:
                         key = (name, kernel) + tuple(
                             int(v or 0) for v in k.groups())
                         cur = funcs.setdefault(key, [])
@@ -89,9 +95,11 @@ def main(argv=None):
     ap.add_argument("--show", type=int, default=0)
     a = ap.parse_args(argv)
     with tempfile.TemporaryDirectory() as tmp, \
-            ThreadPoolExecutor(2) as pool:       # the two builds side by side
-        fp = pool.submit(sass, Path(a.parent).resolve(), Path(tmp) / "parent")
-        fc = pool.submit(sass, ROOT, Path(tmp) / "change")
+            ThreadPoolExecutor(2) as trees, \
+            ThreadPoolExecutor(2 * len(SOURCES)) as pool:   # every build
+        fp = trees.submit(sass, Path(a.parent).resolve(),
+                          Path(tmp) / "parent", pool)
+        fc = trees.submit(sass, ROOT, Path(tmp) / "change", pool)
         par, chg = fp.result(), fc.result()
     differ = 0
     for key in sorted(par):

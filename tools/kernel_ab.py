@@ -5,6 +5,7 @@ frames' paths (a development tool, not part of the package):
     python tools/kernel_ab.py --parent DIR [--ablate] [--e2e]
     python tools/kernel_ab.py --parent DIR --stagewise
     python tools/kernel_ab.py --parent DIR --wide
+    python tools/kernel_ab.py --parent DIR --flex
 
 Run from the root of a checkout ("change"); DIR is a checkout of the commit
 to compare with ("parent", for example ``git archive`` of it unpacked into
@@ -59,6 +60,18 @@ probe's K5 time), profiles one more of its solves (device busy time, idle
 share), and reports, against the first parent run, whether every output
 of every launch (K4's x; K5's x, z, y, dy, z_e, y_e, dy_e) is bitwise
 equal, and whether the inputs were (a digest of each).
+
+``--flex`` runs, per tree and in the same order, K5 on the same inputs at
+``chip_smoke.flex_waves``' long_horizon waves (the double integrator at
+N=1000, the hull model at N=300, 8 nodes each): the wave's cold
+relaxation (150 iterations) as its B&B makes it and 20 iterations warm
+from it, in the variant each tree's plan takes there (the global variant
+in the parent, the horizon variant's sequential sweep here, forced at the
+parent's lanes a stage, the global plan's), each alone at 20 and 150
+iterations; where the tree has the horizon variant, also at its plan's
+lanes and in its parallel sweep. It reports, against the first parent
+run, whether the seven carries of each launch are bitwise equal and
+whether the inputs were.
 
 Prints one JSON line per run and a table at the end.
 """
@@ -370,16 +383,71 @@ print("WIDE " + json.dumps(res), flush=True)
 """
 
 
-def run_wide(copy: Path, out: Path) -> dict:
-    """The wide worker in ``copy`` (a tree's package and chip_smoke.py,
-    its kernels built there at the first run): its times and, in ``out``,
-    every output it computed."""
-    got = subprocess.run([sys.executable, "-c", WIDE_WORKER, str(out)],
+FLEX_WORKER = r"""
+import hashlib, json, sys
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from pyhybridcontrol_tpu_torch.ops import _build
+from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as k
+
+for lib in _build.LIBRARIES:
+    _build.load_library(lib)
+dev = torch.device("cuda")
+saved, res = {}, {}
+horizon = "horizon" in k.ADMM_LAUNCH
+
+
+def digest(ts):
+    h = hashlib.sha256()
+    for t in ts:
+        if isinstance(t, torch.Tensor):
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+for tag, key, be, fb, hb, lb, ub, _ in cs.flex_waves(
+        dev, cs.phase_rng("kernel_ab_flex")):
+    if key not in ("di", "hull"):
+        continue
+    with cs.k5_calls() as calls:
+        be.solve(fb, hb, lb, ub, cs.K5_RELAX)
+    args = calls[0]
+    sw = args[0]
+    P, pl = cs.k5_plan_of(args)
+    glob = k.plan_admm(P, sw.N, sw.b, sw.m_k, variant="global")
+    kw = dict(tps=glob.tps) if horizon else {}
+    relax = k.sw_admm_cuda(*args, **kw)
+    held = cs.with_warm(args, relax, 20)
+    saved[tag + ", K5 relaxation"] = relax
+    saved[tag + ", K5 20 it warm"] = k.sw_admm_cuda(*held, **kw)
+    r = res[tag] = dict(
+        inputs=digest(list(args[1:10]) + list(sw.factors)), plan=str(pl),
+        k5_20_ms=cs.kernel_ms(lambda: k.sw_admm_cuda(*held, **kw), 7),
+        k5_relax_ms=cs.kernel_ms(lambda: k.sw_admm_cuda(*args, **kw), 3))
+    if horizon:
+        for name, kw2 in (("plan", {}), ("parallel", dict(parallel=True))):
+            r[f"k5_20_ms_{name}"] = cs.kernel_ms(
+                lambda: k.sw_admm_cuda(*held, **kw2), 7)
+            r[f"k5_relax_ms_{name}"] = cs.kernel_ms(
+                lambda: k.sw_admm_cuda(*args, **kw2), 3)
+    print(tag, json.dumps(r), flush=True)
+torch.save({key: tuple(None if v is None else v.cpu() for v in val)
+            for key, val in saved.items()}, sys.argv[1])
+print("FLEX " + json.dumps(res), flush=True)
+"""
+
+
+def run_worker(copy: Path, out: Path, worker: str, marker: str) -> dict:
+    """A worker in ``copy`` (a tree's package and chip_smoke.py, its
+    kernels built there at the first run): its times (the JSON after
+    ``marker``) and, in ``out``, every output it computed."""
+    got = subprocess.run([sys.executable, "-c", worker, str(out)],
                          cwd=copy, capture_output=True, text=True)
     for line in got.stdout.splitlines():
-        if line.startswith("WIDE "):
-            return json.loads(line[5:])
-    raise RuntimeError(f"{copy}: wide worker failed:\n"
+        if line.startswith(marker + " "):
+            return json.loads(line[len(marker) + 1:])
+    raise RuntimeError(f"{copy}: {marker} worker failed:\n"
                        f"{got.stdout[-3000:]}\n{got.stderr[-3000:]}")
 
 
@@ -404,7 +472,8 @@ def bitwise(a, b) -> str:
     return "bitwise" if not off else "; ".join(off)
 
 
-def main_wide(trees, gpu) -> int:
+def main_wide(trees, gpu, worker=WIDE_WORKER, marker="WIDE",
+              title="the wide sweep") -> int:
     import torch
 
     runs = []
@@ -417,10 +486,11 @@ def main_wide(trees, gpu) -> int:
             shutil.copy(tree / "chip_smoke.py", copies[name])
         for i, name in enumerate(("parent", "change", "change", "parent")):
             out = Path(tmp) / f"{i}_{name}.pt"
-            res = run_wide(copies[name], out)
+            res = run_worker(copies[name], out, worker, marker)
             runs.append((name, res, torch.load(out)))
-            print(json.dumps({"tree": name, "wide": res}), flush=True)
-    print(f"\n{gpu}\nthe wide sweep, kernel alone (ms), parent / change / "
+            print(json.dumps({"tree": name, marker.lower(): res}),
+                  flush=True)
+    print(f"\n{gpu}\n{title}, kernel alone (ms), parent / change / "
           f"change / parent")
     base, differ = runs[0], 0
     for tag in base[1]:
@@ -431,6 +501,10 @@ def main_wide(trees, gpu) -> int:
             if key in r[0]:
                 print(f"  {tag}: {key} " + " / ".join(
                     f"{x[key]:.4f}" for x in r))
+        for key in sorted(set(r[1]) - set(r[0])):
+            if "_ms" in key:
+                print(f"  {tag}: {key} (change only) " + " / ".join(
+                    f"{x[key]:.4f}" for x in r if key in x))
         same_in = all(x["inputs"] == r[0]["inputs"] for x in r)
         print(f"  {tag}: inputs {'the same' if same_in else 'DIFFER'}; plan "
               f"{r[1].get('plan', '')} (parent {r[0].get('plan', '')})")
@@ -440,9 +514,10 @@ def main_wide(trees, gpu) -> int:
             verdict = bitwise(val, outs[key])
             differ += verdict != "bitwise"
             print(f"  {key}: {name} vs parent: {verdict}")
-    print("  battery_fleet: " + " | ".join(
-        f"{name} {json.dumps(res['battery_fleet'])}"
-        for name, res, _ in runs))
+    if "battery_fleet" in base[1]:
+        print("  battery_fleet: " + " | ".join(
+            f"{name} {json.dumps(res['battery_fleet'])}"
+            for name, res, _ in runs))
     print("every output bitwise the parent's" if not differ
           else f"{differ} outputs or inputs differ")
     return 1 if differ else 0
@@ -502,6 +577,7 @@ def main() -> int:
     ap.add_argument("--e2e", action="store_true")
     ap.add_argument("--stagewise", action="store_true")
     ap.add_argument("--wide", action="store_true")
+    ap.add_argument("--flex", action="store_true")
     args = ap.parse_args()
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -511,6 +587,9 @@ def main() -> int:
     trees = {"parent": args.parent.resolve(), "change": ROOT}
     if args.wide:
         return main_wide(trees, gpu)
+    if args.flex:
+        return main_wide(trees, gpu, FLEX_WORKER, "FLEX",
+                         "K5 at the long horizons")
     if args.stagewise:
         runs = []
         for name in ("parent", "change", "change", "parent"):

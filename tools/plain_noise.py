@@ -46,7 +46,10 @@ and the PWA hull model at N=300, and config 6's tree at S = 16, 27 and
 cold, float32), then ``chip_smoke.FLEX_HOLD_ITERS`` iterations from it in
 float32 against float64, and again after a one-ulp change of q (float32
 both), on x, z, y, dy and the extra rows' carries — what phase 35 holds
-K5's grouped and global-state variants to ("k5_flex").
+K5's grouped, global-state and horizon variants to ("k5_flex"); at the
+long_horizon frames also the same with the windowed sweep
+(``_solve_K_windowed`` on the horizon plan's windows), what it holds the
+horizon variant's parallel sweep to ("k5_horizon_par").
 
 ``--any``: the same at the waves ``chip_smoke.any_waves`` draws at
 ``--seed`` (the battery fleets at b = 20, 32, 64 and 128, four ω double
@@ -273,8 +276,9 @@ def flex_readings(seed=5):
     import chip_smoke as cs
 
     return _k5_wave_readings(
-        (w[0],) + tuple(w[2:7]) for w in cs.flex_waves(
-            torch.device("cpu"), np.random.default_rng(seed)))
+        ((w[0],) + tuple(w[2:7]) for w in cs.flex_waves(
+            torch.device("cpu"), np.random.default_rng(seed))),
+        windowed=True)
 
 
 def any_readings(seed=5):
@@ -286,13 +290,16 @@ def any_readings(seed=5):
                                     np.random.default_rng(seed)))
 
 
-def _k5_wave_readings(waves):
+def _k5_wave_readings(waves, windowed=False):
     """{shape and stage: {field: error}}: for each (tag, backend, f, h, lb,
     ub) of ``waves``, the plain loop's relaxation (K5_RELAX iterations,
     cold, float32), then FLEX_HOLD_ITERS iterations from it in float32
-    against float64, and again after a one-ulp change of q."""
+    against float64, and again after a one-ulp change of q; ``windowed``:
+    where the horizon variant takes the shape, both also with
+    ``_solve_K_windowed`` on its plan's windows."""
     import chip_smoke as cs
 
+    from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cst
     from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
 
     floor = dict(cs.FLOOR)
@@ -330,6 +337,23 @@ def _k5_wave_readings(waves):
         a = list(held)
         a[1] = held[1] * (1 + 2.0 ** -23)
         out[f"{tag}, one ulp of q (float32 both)"] = errors(orig(*a), r32)
+        sw = args[0]
+        mean = args[11] is not None and sw.n_cons > 0
+        if not (windowed and cst.horizon_applies(sw.b, mean=mean,
+                                                 n_ext=sw.n_ext)):
+            continue
+        P = args[1].numel() // (sw.N * sw.b)
+        C = cst.plan_admm(P, sw.N, sw.b, sw.m_k, parallel=True).cluster
+        win = cst.horizon_windows(sw.N, C)
+
+        def sweep(s, t):
+            return tsw._solve_K_windowed(s, t, win)
+
+        r32 = orig(*held, sweep=sweep)
+        out[f"{tag}, {cs.FLEX_HOLD_ITERS} it warm, {C} windows"] = errors(
+            r32, orig(*double(held), sweep=sweep))
+        out[f"{tag}, {C} windows, one ulp of q (float32 both)"] = errors(
+            orig(*a, sweep=sweep), r32)
     return out
 
 
