@@ -4453,6 +4453,96 @@ def k5_calls():
         tsw.sw_admm_cuda = orig
 
 
+@contextlib.contextmanager
+def k5_launch_log():
+    """Inside: every K5 launch of the stagewise solves is logged in the list
+    yielded, as a dict: P, iters, the parallel sweep, the plan's variant
+    and clusters, the clusters the card holds at once (a horizon plan's
+    ``horizon_capacity``) and, once the block has ended, the device time
+    between CUDA events recorded around the call (ms)."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
+    from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
+
+    orig, log, events = tsw.sw_admm_cuda, [], []
+
+    def record(*a, **kw):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = orig(*a, **kw)
+        e1.record()
+        events.append((e0, e1))
+        P, pl = k5_plan_of(a, kw.get("variant"),
+                           parallel=bool(kw.get("parallel")))
+        sw = a[0]
+        log.append(dict(
+            P=P, iters=int(a[10]), parallel=bool(kw.get("parallel")),
+            variant=pl.variant, cluster=pl.cluster,
+            held=(cs.horizon_capacity(sw.N, sw.b, sw.m_k, pl, a[1].device)
+                  if pl.variant == "horizon" else None)))
+        return out
+
+    tsw.sw_admm_cuda = record
+    try:
+        yield log
+    finally:
+        tsw.sw_admm_cuda = orig
+        torch.cuda.synchronize()
+        for rec, (e0, e1) in zip(log, events):
+            rec["ms"] = e0.elapsed_time(e1)
+
+
+def launch_log_line(log) -> str:
+    """K5's launches of a ``k5_launch_log`` by (iters, sweep): count, the
+    sum and the range of their device times; with P, the clusters and the
+    card's clusters at once."""
+    groups = {}
+    for r in log:
+        groups.setdefault((r["iters"], r["parallel"]), []).append(r["ms"])
+    shapes = sorted({(r["P"], r["variant"], r["cluster"], r["held"])
+                     for r in log}, key=str)
+    return (f"K5 {len(log)} launches, {sum(r['ms'] for r in log):.1f} ms "
+            "(events): " + "; ".join(
+                f"{len(v)} × {it} it{' parallel' if par else ''} "
+                f"{sum(v):.1f} ms ({min(v):.2f}–{max(v):.2f})"
+                for (it, par), v in sorted(groups.items()))
+            + " at " + ", ".join(f"P={P} {v} C={C}"
+                                 + (f" ({h} clusters at once)" if h else "")
+                                 for P, v, C, h in shapes))
+
+
+def long_warm_reading(name, solve) -> dict:
+    """A warm ``long_horizon`` solve read twice: once on the host clock and
+    once under torch.profiler (device operations, busy time, the idle
+    share against that run's own wall time), each with its K5 launches
+    logged (``k5_launch_log``). Prints one line a run and returns the
+    profile, with both wall times and both logs."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.profile_serve import profile_request
+
+    with k5_launch_log() as timed:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    with k5_launch_log() as profiled:
+        prof = profile_request(solve)
+    prof.update(ms=ms, timed_launches=timed, profiled_launches=profiled,
+                idle_share=1.0 - prof["device_busy_ms"] / prof["wall_ms"])
+    print(f"  long_horizon, {name} again (warm): {ms:.1f} ms; "
+          + launch_log_line(timed), flush=True)
+    print(f"  long_horizon, {name} under torch.profiler: {prof['wall_ms']:.1f}"
+          f" ms, {prof['device_ops']} device operations, busy "
+          f"{prof['device_busy_ms']:.1f} ms: idle share "
+          f"{prof['idle_share']:.4f}; K5 {prof['k5_launches']} launches, "
+          f"{prof['k5_device_ms']:.1f} ms on the device (profiler); "
+          + launch_log_line(profiled), flush=True)
+    return prof
+
+
 def k5_cert_near(args, ref, shape):
     """Mask (``shape``, the solve's certificate's) of the problems of a K5
     call (``args``, those of ``sw_admm_cuda``) whose certificate ratios,
@@ -5310,9 +5400,9 @@ def flex_waves(dev, rng):
 K5_FIELDS = ("x", "z", "y", "dy", "z_e", "y_e", "dy_e")
 
 
-def k5_plan_of(args, variant=None, runtime_r=None):
+def k5_plan_of(args, variant=None, runtime_r=None, parallel=False):
     """(P, the plan) of a K5 call on ``args`` (those of ``sw_admm_cuda``),
-    ``variant`` and ``runtime_r`` forced as the wrapper's."""
+    ``variant``, ``runtime_r`` and ``parallel`` as the wrapper's."""
     from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
 
     sw, M = args[0], args[11]
@@ -5320,7 +5410,8 @@ def k5_plan_of(args, variant=None, runtime_r=None):
     mean = M is not None and sw.n_cons > 0
     return P, cs.plan_admm(P, sw.N, sw.b, sw.m_k, M.shape[0] if mean else 1,
                            sw.n_blk, sw.n_ext, sw.n_cons, mean,
-                           variant=variant, runtime_r=runtime_r)
+                           variant=variant, runtime_r=runtime_r,
+                           parallel=parallel, device=args[1].device)
 
 
 def k5_err_into(rec, got, ref):
@@ -5458,8 +5549,11 @@ def phase_k5_flex(dev, rng, recs):
         for variant in variants:
             pv = plan_of(args, variant)[1]
             got = cs.sw_admm_cuda(*held_args, variant=variant)
-            held_at = [v for k, v in sw.cache.items()
-                       if k[0] == "k5_clusters" and k[1] == pv]
+            held_at = ([cs.horizon_capacity(sw.N, sw.b, sw.m_k, pv,
+                                            args[1].device)]
+                       if pv.variant == "horizon" else
+                       [v for k, v in sw.cache.items()
+                        if k[0] == "k5_clusters" and k[1] == pv])
             held(f"{tag}, P={P} m={sw.m_k} ({FLEX_HOLD_ITERS} it warm); "
                  f"{pv.variant}, bmax {pv.bmax}, "
                  f"{'staged' if pv.staged else 'factors through L2'}, "
@@ -5963,8 +6057,9 @@ def phase_wide_paths(dev):
     (horizon: the sequential sweep, the twins' the parallel one) a
     relaxation or probe; each found plan feasible in fp64, each twin's
     objective, found flag and nodes beside its sequential solve's; then
-    one more solve of each under torch.profiler (device busy time, idle
-    share against the path's own wall time). wide_tree: config 6's long arm at S = 16, 27
+    each again warm, timed and under torch.profiler (``long_warm_reading``:
+    device busy time, the idle share against the profiled run's own wall
+    time, each K5 launch's iterations, clusters and device time). wide_tree: config 6's long arm at S = 16, 27
     and 64 (WIDE_TREES) through the stagewise tree MIQP with its probe
     prep at ρ·10 (as phase 21), one K5 launch (grouped) a relaxation or
     probe, at P a multiple of S; u₀'s spread over the scenarios within
@@ -5977,8 +6072,6 @@ def phase_wide_paths(dev):
         assemble_stagewise_tree, assemble_stagewise_tree_ext,
         solve_tree_miqp_stagewise)
     from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
-
-    from pyhybridcontrol_tpu_torch.profile_serve import profile_request
 
     out = {}
     ctrls = {(k, par): long_controller(k, dev, parallel=par)
@@ -6030,25 +6123,8 @@ def phase_wide_paths(dev):
           flush=True)
     for (k, par), c in ctrls.items():
         name = f"{k}{'_parallel' if par else ''}"
-
-        def solve():
-            return c.feedback(list(X0_LONG[k]))
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        solve()
-        torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0)
-        prof = profile_request(solve)
-        prof["ms"] = ms
-        prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["ms"]
-        out[name]["profile"] = prof
-        print(f"  long_horizon, {name} again (warm): {prof['ms']:.1f} ms; "
-              f"under torch.profiler {prof['device_ops']} device "
-              f"operations, busy {prof['device_busy_ms']:.1f} ms: idle "
-              f"share {prof['idle_share']:.4f}; K5 {prof['k5_launches']} "
-              f"launches, {prof['k5_device_ms']:.1f} ms on the device",
-              flush=True)
+        out[name]["profile"] = long_warm_reading(
+            name, lambda: c.feedback(list(X0_LONG[k])))
 
     x0 = torch.tensor(X0_6, device=dev)
     model = omega_model()

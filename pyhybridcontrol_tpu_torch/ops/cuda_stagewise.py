@@ -66,8 +66,10 @@ Where the plan picks "global" for one scenario with no extra rows at bmax
 "stagewise_horizon", ``horizon_plan``): one problem a cluster of C CTAs
 (``HORIZON_CLUSTERS``), CTA c the window of stages ``horizon_windows(N,
 C)[c:c+2]``, its factors (staged where they fit), state and buffers in its
-shared memory; the most CTAs a problem whose P·C CTAs fit one wave
-(``HORIZON_WAVE``), else the fewest whose window fits. It runs the
+shared memory; the most CTAs a problem whose P clusters the card holds
+at once (``horizon_capacity``, cudaOccupancyMaxActiveClusters; planned
+without a card, ``HORIZON_WAVE`` CTAs), else the fewest whose window fits,
+which then runs in more than one wave (the wrapper warns). It runs the
 sequential sweep over the windows, or with ``parallel`` (the reference's
 ``parallel_sweeps=True``, wherever ``horizon_applies``) every window's
 sweep at once, joined by carries through the window maps
@@ -80,6 +82,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -118,10 +121,12 @@ ADMM_LAUNCH = {"shared": "stagewise_k5", "grouped": "stagewise_k5_grouped",
                "horizon": "stagewise_k5_horizon"}
 # the horizon variant: CTAs a cluster (one window each; portable sizes),
 # most first, and the CTAs one wave of its clusters is reckoned to hold
-# (one CTA an SM: 16 clusters of 8, 32 of 4, 64 of 2 of the H100's 132
-# SMs; the wrapper checks the card's cudaOccupancyMaxActiveClusters)
+# where the plan is made without a card (one CTA an SM: 16 clusters of 8,
+# 32 of 4, 64 of 2 of the H100's 132 SMs); on the card the plan reads
+# cudaOccupancyMaxActiveClusters (``horizon_capacity``)
 HORIZON_CLUSTERS = (8, 4, 2)
 HORIZON_WAVE = 128
+_HORIZON_CAPACITY: dict = {}     # (plan, N, b, m, device) -> clusters
 
 
 @dataclasses.dataclass(frozen=True)
@@ -486,13 +491,15 @@ def horizon_applies(b: int, S: int = 1, mean: bool = False,
 
 def horizon_plan(P: int, N: int, b: int, m: int,
                  staged: Optional[bool] = None, parallel: bool = False,
-                 tps: Optional[int] = None) -> Optional[AdmmPlan]:
+                 tps: Optional[int] = None,
+                 device: Optional[torch.device] = None) -> Optional[AdmmPlan]:
     """The horizon variant's instantiation for P problems (``horizon_applies``
     must hold), or None where no window fits a CTA: C of HORIZON_CLUSTERS
-    (at most N; 1 for N = 1), the most whose P·C CTAs fit HORIZON_WAVE,
-    else the fewest whose window fits; in each staged factors before
-    unstaged (``staged`` forces one); a window's stages over the most
-    lanes that take them in one round (``tps`` forces them)."""
+    (at most N; 1 for N = 1), the most whose P clusters the card holds at
+    once (``horizon_capacity`` on a CUDA ``device``; else the reckoned
+    HORIZON_WAVE CTAs), else the fewest whose window fits; in each staged
+    factors before unstaged (``staged`` forces one); a window's stages over
+    the most lanes that take them in one round (``tps`` forces them)."""
     bmax = next(v for v in ADMM_BMAX if b <= v)
     cands = [C for C in HORIZON_CLUSTERS if C <= N] or [1]
     sts = (True, False) if staged is None else (bool(staged),)
@@ -507,8 +514,13 @@ def horizon_plan(P: int, N: int, b: int, m: int,
                                 parallel=parallel)
         return None
 
+    def held(pl):
+        if device is not None and torch.device(device).type == "cuda":
+            return horizon_capacity(N, b, m, pl, device)
+        return HORIZON_WAVE // pl.cluster
+
     fits = {C: fit(C) for C in cands}
-    wave = [fits[C] for C in cands if P * C <= HORIZON_WAVE and fits[C]]
+    wave = [fits[C] for C in cands if fits[C] and P <= held(fits[C])]
     # most CTAs a problem in one wave, else the fewest whose window fits
     return wave[0] if wave else next(
         (fits[C] for C in reversed(cands) if fits[C]), None)
@@ -519,7 +531,8 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
               staged: Optional[bool] = None,
               variant: Optional[str] = None,
               runtime_r: Optional[bool] = None, parallel: bool = False,
-              tps: Optional[int] = None) -> AdmmPlan:
+              tps: Optional[int] = None,
+              device: Optional[torch.device] = None) -> AdmmPlan:
     """The instantiation K5 runs P problems with: horizon N, block b, m rows
     a stage, n_blk blocking rows and n_ext extra rows; with ``mean``, in
     groups of S scenarios (a group mean over the trailing n_cons rows), a
@@ -534,8 +547,9 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
     (module doc). The FLEX
     variants deal a group over ⌈S/16⌉ scenarios a CTA, in a cluster of
     ⌈S/spc⌉ CTAs. Where that picks "global" and ``horizon_applies``, the
-    horizon variant (``horizon_plan``) where a window fits. ``parallel``
-    (the parallel sweep) plans the horizon variant alone. ``staged``,
+    horizon variant (``horizon_plan``; its cluster from the occupancy of
+    a CUDA ``device``) where a window fits. ``parallel`` (the parallel
+    sweep) plans the horizon variant alone. ``staged``,
     ``variant``, ``runtime_r`` and ``tps`` force one: no path sets them,
     ``chip_smoke.py`` holds the unstaged, the global-state and the
     runtime-r instantiations with them at shapes the plan gives others.
@@ -573,7 +587,7 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
         if not hz:
             raise ValueError(f"{what}: the horizon variant takes one "
                              f"scenario, no extra rows and b up to 16")
-        pl = horizon_plan(P, N, b, m, staged, parallel, tps)
+        pl = horizon_plan(P, N, b, m, staged, parallel, tps, device)
         if pl is None:
             raise ValueError(f"{what}: no window of the horizon variant fits "
                              f"a CTA's {SMEM_MAX} bytes of shared memory")
@@ -623,7 +637,8 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
                         continue
                     if name == "global" and variant is None and hz \
                             and not ext:
-                        got = horizon_plan(P, N, b, m, staged, False, tps)
+                        got = horizon_plan(P, N, b, m, staged, False,
+                                           tps, device)
                         if got is not None:
                             return got
                     return AdmmPlan(bmax=bmax, staged=st, warps=w * spc,
@@ -711,22 +726,46 @@ def admm_cluster_capacity(sw, args, pl: AdmmPlan) -> int:
     got = sw.cache.get(key)
     if got is None:
         lib = load_library(pl.library)
-        if pl.variant == "horizon":
-            got = lib.phc_sw_admm_horizon_max_clusters(
-                ctypes.addressof(args), pl.warps, pl.tps, int(pl.staged),
-                pl.bmax, pl.cluster)
-        else:
-            got = lib.phc_sw_admm_max_clusters(
-                ctypes.addressof(args), pl.warps, pl.tps, int(pl.staged),
-                pl.bmax, pl.spc, pl.cluster, ADMM_PLACES[pl.variant])
-        if got < 0:
-            _raise_on(lib, -got, "K5 (stagewise ADMM) occupancy query")
-        if got == 0:
-            raise RuntimeError(
-                f"K5 ({pl.variant}): the card holds no cluster of "
-                f"{pl.cluster} CTAs of {32 * pl.warps} threads and "
-                f"{pl.smem} bytes of shared memory")
+        got = _held(lib, lib.phc_sw_admm_max_clusters(
+            ctypes.addressof(args), pl.warps, pl.tps, int(pl.staged),
+            pl.bmax, pl.spc, pl.cluster, ADMM_PLACES[pl.variant]), pl)
         sw.cache[key] = got
+    return got
+
+
+def _held(lib, got: int, pl: AdmmPlan) -> int:
+    """An occupancy query's answer: raises on an error code, or where the
+    card holds no cluster of ``pl``."""
+    if got < 0:
+        _raise_on(lib, -got, "K5 (stagewise ADMM) occupancy query")
+    if got == 0:
+        raise RuntimeError(
+            f"K5 ({pl.variant}): the card holds no cluster of "
+            f"{pl.cluster} CTAs of {32 * pl.warps} threads and "
+            f"{pl.smem} bytes of shared memory")
+    return got
+
+
+def horizon_capacity(N: int, b: int, m: int, pl: AdmmPlan,
+                     device=None) -> int:
+    """Clusters of the horizon plan ``pl`` (horizon N, block b, m rows a
+    stage) that the card ``device`` holds at once: cudaOccupancyMaxActive
+    Clusters, read once per plan, shape and card. Raises where it holds
+    none or the query fails."""
+    from pyhybridcontrol_tpu_torch.ops._build import load_library
+
+    dev = torch.device("cuda" if device is None else device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (dataclasses.replace(pl, parallel=False), N, b, m, index)
+    got = _HORIZON_CAPACITY.get(key)
+    if got is None:
+        lib = load_library(pl.library)
+        args = _AdmmArgs(P=1, N=N, b=b, m=m, S=1)
+        with torch.cuda.device(index):
+            got = _held(lib, lib.phc_sw_admm_horizon_max_clusters(
+                ctypes.addressof(args), pl.warps, pl.tps, int(pl.staged),
+                pl.bmax, pl.cluster), pl)
+        _HORIZON_CAPACITY[key] = got
     return got
 
 
@@ -747,8 +786,9 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
     as ``ops/stagewise._admm_iterations`` does. Checks, allocates the
     outputs (and a FLEX variant's scratch, and the runtime-r vectors'
     where they lie in device memory), checks a FLEX cluster with a group
-    mean and a horizon cluster against the card's occupancy and launches
-    once."""
+    mean against the card's occupancy, warns where a horizon plan's P
+    clusters exceed what the card holds at once (more than one wave), and
+    launches once."""
     from pyhybridcontrol_tpu_torch.ops._build import load_library
 
     dev = x.device
@@ -777,7 +817,7 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
     for name, f in zip(("L", "Uinv", "C"), sw.factors):
         _check(name, f, (N, b, b), dev)
     pl = plan_admm(P, N, b, m, S, sw.n_blk, r, sw.n_cons, mean, staged,
-                   variant, runtime_r, parallel, tps)
+                   variant, runtime_r, parallel, tps, dev)
     out = [torch.empty((P, N, b), dtype=torch.float32, device=dev)]
     out += [torch.empty((P, N, m), dtype=torch.float32, device=dev)
             for _ in range(3)]
@@ -815,7 +855,12 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
 
             maps = (window_maps(sw, horizon_windows(N, pl.cluster))
                     if pl.parallel else (None, None))
-            admm_cluster_capacity(sw, args, pl)
+            held = horizon_capacity(N, b, m, pl, dev)
+            if P > held:
+                warnings.warn(
+                    f"K5 (horizon): {P} clusters of {pl.cluster} CTAs, the "
+                    f"card holds {held} at once: {-(-P // held)} waves",
+                    stacklevel=2)
             rc = lib.phc_sw_admm_horizon(
                 ctypes.addressof(args), _ptr(maps[0]), _ptr(maps[1]),
                 pl.warps, pl.tps, int(pl.staged), pl.bmax, pl.cluster,

@@ -50,15 +50,16 @@ Port decisions:
   after it stay in torch.
 - ``parallel_sweeps=True`` is another algorithm the caller picks, not a
   fallback. On a CPU tensor it runs the plain loop with ``_solve_K_assoc``,
-  the reference's log-depth prefix over affine maps. On a CUDA tensor,
-  wherever K5's horizon variant takes the shape (one scenario, no extra
-  rows, b ≤ 16, ``cuda_stagewise.horizon_applies``, and a window that
-  fits a CTA, ``horizon_plan``), it launches that
-  variant's parallel sweep once (the horizon in C windows, each swept from
-  a zero carry, joined by carries through the window maps; its plain
-  version is ``_admm_iterations`` with ``_solve_K_windowed``); elsewhere
-  (extra rows, a group mean) the plain loop with ``_solve_K_assoc``. The
-  choice is the shape's, never a failure's.
+  the reference's log-depth prefix over affine maps. On a CUDA tensor it
+  launches K5's horizon variant in its parallel sweep once (the horizon in
+  C windows, each swept from a zero carry, joined by carries through the
+  window maps; its plain version is ``_admm_iterations`` with
+  ``_solve_K_windowed``). That variant takes one scenario, no extra rows
+  and b ≤ 16 (``cuda_stagewise.horizon_applies``) with a window that fits
+  a CTA (``horizon_plan``); at any other shape (extra rows, a group mean)
+  the call raises ValueError with the shape, as K5's plan does where
+  nothing fits: no kernel runs that sweep there, and the plain loop never
+  runs on the card in its place (``_admm_route``).
 - The objective, the infeasibility certificate's support and gap sums and
   the dual bound's sums accumulate in float64, as in ops/admm.py.
 """
@@ -76,7 +77,7 @@ from pyhybridcontrol_tpu_torch.mld.model import MldModel
 from pyhybridcontrol_tpu_torch.ops.admm import AdmmResult, _implied_box
 from pyhybridcontrol_tpu_torch.ops.condense import MpcWeights, _sq, _vec
 from pyhybridcontrol_tpu_torch.ops.cuda_stagewise import (
-    horizon_applies, horizon_plan, sw_admm_cuda)
+    horizon_applies, sw_admm_cuda)
 from pyhybridcontrol_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 BIG = 1e30
@@ -649,6 +650,10 @@ def _solve_K_windowed(sw: StagewiseQP, r, windows, factors=None):
     N, b = r.shape[-2:]
     rr = r.reshape(-1, N, b)
     bounds = list(zip(windows[:-1], windows[1:]))
+    lo, hi = list(windows[:-1]), [e - 1 for e in windows[1:]]
+    at = torch.repeat_interleave(         # each stage's window
+        torch.arange(len(bounds), device=r.device),
+        torch.tensor([e - s for s, e in bounds], device=r.device))
     zero = torch.zeros_like(rr[:, 0])
     ys = [None] * N
     for s, e in bounds:                # y⁰ over each window
@@ -656,25 +661,20 @@ def _solve_K_windowed(sw: StagewiseQP, r, windows, factors=None):
         for k in range(s, e):
             prev = torch.addmm(rr[:, k], prev, Lf[k].T, alpha=-1)
             ys[k] = prev
-    cin, carry = [], zero              # the carry into each window
-    for s, e in bounds:
-        cin += [carry] * (e - s)
-        carry = carry @ Pi[e - 1].T + ys[e - 1]
-    Y = torch.stack(ys, dim=1)
-    Y = Y + torch.einsum("kij,pkj->pki", Pi, torch.stack(cin, dim=1))
+    Y = torch.stack(ys)                # (N, …, b)
+    cin = _exclusive_carries((Pi[hi], Y[hi]), Y.dtype)
+    Y = Y + torch.einsum("kij,kpj->kpi", Pi, cin[at])
     xs = [None] * N
     for s, e in bounds:                # x⁰ over each window
         nxt = zero
         for k in range(e - 1, s - 1, -1):
-            nxt = torch.addmm(Y[:, k] @ Uf[k].T, nxt, Cf[k].T, alpha=-1)
+            nxt = torch.addmm(Y[k] @ Uf[k].T, nxt, Cf[k].T, alpha=-1)
             xs[k] = nxt
-    xin, carry = [None] * N, zero      # the carry x_e into each window
-    for s, e in reversed(bounds):
-        xin[s:e] = [carry] * (e - s)
-        carry = carry @ Psi[s].T + xs[s]
-    X = torch.stack(xs, dim=1)
-    X = X + torch.einsum("kij,pkj->pki", Psi, torch.stack(xin, dim=1))
-    return X.reshape(r.shape)
+    X = torch.stack(xs)                # carries x_e in reverse window order
+    xin = _exclusive_carries((Psi[lo].flip(0), X[lo].flip(0)),
+                             X.dtype).flip(0)
+    X = X + torch.einsum("kij,kpj->kpi", Psi, xin[at])
+    return X.transpose(0, 1).reshape(r.shape)
 
 
 def _exclusive_carries(maps, dtype):
@@ -1078,6 +1078,36 @@ def _certificate(sw: StagewiseQP, dy, dy_e, l, u, ext_u):
     return cert, torch.stack([Atdy / dn, support / dn, -gap_term / dn], -1)
 
 
+def _admm_route(sw: StagewiseQP, device, parallel_sweeps: bool,
+                consensus_M=None):
+    """(function, keywords) that run a solve's iterations on ``device``: on
+    the CPU the plain loop, its sweep ``_solve_K`` or, with
+    ``parallel_sweeps``, ``_solve_K_assoc``; on the card one launch of K5
+    (``sw_admm_cuda``; with ``parallel_sweeps`` its horizon variant's
+    parallel sweep), or the torch loop with K4 where ``consensus_M`` is a
+    function (a group mean across ranks). Raises ValueError for another
+    device, and for ``parallel_sweeps`` on the card at a shape the horizon
+    variant does not take."""
+    mean = consensus_M is not None and sw.n_cons > 0
+    if device.type == "cpu":
+        return _admm_iterations, dict(
+            sweep=_solve_K_assoc if parallel_sweeps else _solve_K)
+    if device.type != "cuda":
+        raise ValueError(f"no stagewise ADMM for device {device}")
+    if parallel_sweeps:
+        if not horizon_applies(sw.b, mean=mean, n_ext=sw.n_ext):
+            raise ValueError(
+                f"parallel_sweeps on the card: K5's horizon variant takes "
+                f"one scenario, no extra rows and b up to 16, not b={sw.b}, "
+                f"n_ext={sw.n_ext}" + (f", a group mean over "
+                                       f"{sw.n_cons} rows" if mean else "")
+                + "; pass parallel_sweeps=False (K5's sequential sweep)")
+        return sw_admm_cuda, dict(parallel=True)
+    if callable(consensus_M):
+        return _admm_iterations, dict(sweep=_k4_sweep)
+    return sw_admm_cuda, {}
+
+
 def stagewise_admm_solve(sw: StagewiseQP, q, l, u, iters: int = 200,
                          lb_xi=None, ub_xi=None, warm=None,
                          parallel_sweeps: bool = False,
@@ -1091,8 +1121,8 @@ def stagewise_admm_solve(sw: StagewiseQP, q, l, u, iters: int = 200,
     plain sweeps) on a CPU tensor; another device raises.
     ``parallel_sweeps``: the horizon-parallel sweeps, an algorithm of its
     own (module doc): on a CUDA tensor one launch of K5's horizon variant
-    in its parallel sweep wherever that variant takes the shape, else
-    (and on the CPU) the torch loop with ``_solve_K_assoc``.
+    in its parallel sweep (a ValueError at a shape it does not take), on
+    the CPU the torch loop with ``_solve_K_assoc``.
     ``consensus_M`` (S, S, N): the p-weighted group-mean weights
     (``StagewiseTreeQP.M``) that replace the z-update on the trailing
     ``n_cons`` rows over the scenario axis, dim −3 (their residual then
@@ -1139,23 +1169,8 @@ def stagewise_admm_solve(sw: StagewiseQP, q, l, u, iters: int = 200,
     mc = sw.m_k - sw.n_cons                           # consensus rows
 
     carries = (sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters, consensus_M)
-    mean = consensus_M is not None and sw.n_cons > 0
-    if parallel_sweeps and q.device.type == "cuda" and horizon_applies(
-            sw.b, mean=mean, n_ext=r_ext) and horizon_plan(
-                int(np.prod(batch)), sw.N, sw.b, sw.m_k,
-                parallel=True) is not None:
-        out = sw_admm_cuda(*carries, parallel=True)
-    elif parallel_sweeps:
-        out = _admm_iterations(*carries, sweep=_solve_K_assoc)
-    elif callable(consensus_M) and q.device.type == "cuda":
-        out = _admm_iterations(*carries, sweep=_k4_sweep)
-    elif q.device.type == "cpu":
-        out = _admm_iterations(*carries, sweep=_solve_K)
-    elif q.device.type == "cuda":
-        out = sw_admm_cuda(*carries)
-    else:
-        raise ValueError(f"no stagewise ADMM for device {q.device}")
-    x, z, y, dy, z_e, y_e, dy_e = out
+    run, kw = _admm_route(sw, q.device, parallel_sweeps, consensus_M)
+    x, z, y, dy, z_e, y_e, dy_e = run(*carries, **kw)
 
     Ax = _apply_A(sw, x)
     # hard rows: distance to the box; soft rows: the split gap |Ax − z|

@@ -88,16 +88,21 @@ def _busy_us(events) -> float:
 
 def profile_request(run) -> dict:
     """``run()`` once under torch.profiler: device operations, K1/K2/K4/K5
-    launches and device time, device busy time."""
+    launches and device time, device busy time, and the run's wall time
+    under the profiler (from the call to the device's last operation)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    out = {"device_ops": len(dev), "device_busy_ms": _busy_us(dev) / 1e3}
+    out = {"device_ops": len(dev), "device_busy_ms": _busy_us(dev) / 1e3,
+           "wall_ms": 1e3 * wall}
     for k, name in (("k1", "admm_k1"), ("k2", "admm_k2"),
                     ("k4", "sw_solve_k"), ("k5", "sw_admm")):
         ev = [e for e in dev if name in e.name]

@@ -59,7 +59,8 @@ def _close(got, want, tol, floor=1.0):
 def test_horizon_plan_takes_the_long_horizons(key, P):
     """Where the plan picked the global variant (one scenario, no extra
     rows, bmax 8 or 16) it picks the horizon one: C of HORIZON_CLUSTERS,
-    the most whose P·C CTAs fit one wave, else the fewest whose window
+    the most whose P·C CTAs fit the reckoned wave (planned without a card;
+    on one, its occupancy), else the fewest whose window
     fits; the window's lanes in one round of the CTA's threads; the shared
     memory of ``horizon_smem_bytes`` within SMEM_MAX; staged factors where
     they fit. The global variant stays reachable, forced, as the parent
@@ -103,6 +104,116 @@ def test_horizon_plan_at_long_horizons_wave():
                                                                  5)
 
 
+# the card's clusters at once (cudaOccupancyMaxActiveClusters) by C, the
+# problems of a launch, and the C the plan should pick: the most whose P
+# clusters the card holds at once, else the fewest whose window fits
+HELD = {
+    "di_one_wave_at_8": ("di_N1000", {8: 15, 4: 31, 2: 64}, 8, 8),
+    "di_fewer_clusters_of_8": ("di_N1000", {8: 7, 4: 31, 2: 64}, 8, 4),
+    "di_only_pairs": ("di_N1000", {8: 7, 4: 7, 2: 64}, 8, 2),
+    "di_no_wave_fits": ("di_N1000", {8: 15, 4: 31, 2: 64}, 100, 2),
+    "hull_one_wave_at_8": ("hull_N300", {8: 15, 4: 31, 2: 64}, 8, 8),
+    "hull_no_wave_fits": ("hull_N300", {8: 1, 4: 1, 2: 1}, 8, 2),
+    "hull_N1000_only_8_fits": ("hull_N1000", {8: 1}, 8, 8),
+    "di_N3000_only_8_fits": ("di_N3000", {8: 15}, 64, 8),
+}
+
+
+@pytest.mark.parametrize("key", list(HELD))
+def test_horizon_plan_reads_the_cards_occupancy(monkeypatch, key):
+    """Planned for a CUDA device, the horizon variant's cluster follows the
+    card's occupancy (``horizon_capacity``, asked once per candidate plan
+    that fits, here a stand-in): the most CTAs a problem whose P clusters
+    the card holds at once, else the fewest whose window fits; the
+    sequential and the parallel plan alike. Without a device the plan
+    keeps the reckoned wave (HORIZON_WAVE CTAs)."""
+    shape, held, P, want = HELD[key]
+    N, b, m = LONG[shape]
+    asked = []
+
+    def capacity(N_, b_, m_, pl, device):
+        assert (N_, b_, m_) == (N, b, m) and device.type == "cuda"
+        assert pl.smem <= ca.SMEM_MAX
+        asked.append(pl.cluster)
+        return held[pl.cluster]
+
+    monkeypatch.setattr(cs, "horizon_capacity", capacity)
+    dev = torch.device("cuda")
+    pl = cs.plan_admm(P, N, b, m, device=dev)
+    assert pl.variant == "horizon" and pl.cluster == want
+    assert set(asked) <= set(held)
+    par = cs.plan_admm(P, N, b, m, parallel=True, device=dev)
+    assert par == cs.AdmmPlan(**{**pl.__dict__, "parallel": True})
+    assert cs.plan_admm(P, N, b, m) == cs.horizon_plan(P, N, b, m)
+
+
+def test_horizon_capacity_mirrors_the_kernel_source():
+    """The occupancy query the plan reads exists in the kernel source with
+    the arguments ``horizon_capacity`` passes (the args, warps, lanes,
+    staged, bmax, C), and asks for a grid of one cluster."""
+    src = " ".join(open(SRC).read().split())
+    assert ("int phc_sw_admm_horizon_max_clusters(const PhcSwAdmmArgs* a, "
+            "int warps, int tps, int staged, int bmax, int C)") in src
+    assert "cfg.gridDim = dim3((unsigned)h.C, 1, 1);" in src
+    assert "cudaOccupancyMaxActiveClusters(max_clusters," in src
+
+
+def _route_prep(feature):
+    """A small double integrator prep (N=12) with ``feature``'s rows."""
+    import pyhybridcontrol_tpu_torch.models.double_integrator as tdi
+
+    model, N = tdi.switched_double_integrator(), 12
+    kw = {}
+    if feature == "extra":
+        A = np.zeros((1, N * model.info.nv))
+        A[0, 0::model.info.nv] = 1.0
+        kw["extra"] = (A, np.array([3.0]))
+    elif feature == "mean":
+        kw["consensus"] = 1
+    return tsw.prepare_stagewise(model, N, tdi.default_weights(),
+                                 device="cpu", **kw)
+
+
+@pytest.mark.parametrize("feature", ["extra", "mean", "mean_over_ranks"])
+def test_parallel_sweeps_on_the_card_refuse_other_shapes(monkeypatch,
+                                                         feature):
+    """On a CUDA device ``parallel_sweeps=True`` at a shape the horizon
+    variant does not take (extra rows, a group mean, a group mean over
+    ranks) raises ValueError with the shape: neither the torch loop
+    (``_admm_iterations``) nor K5 is reached, where the plain loop ran on
+    the card before."""
+    monkeypatch.setattr(tsw, "_admm_iterations",
+                        lambda *a, **k: pytest.fail("plain loop reached"))
+    monkeypatch.setattr(tsw, "sw_admm_cuda",
+                        lambda *a, **k: pytest.fail("K5 reached"))
+    ts = _route_prep("extra" if feature == "extra" else "mean")
+    M = None
+    if feature == "mean":
+        M = torch.full((2, 2, ts.N), 0.5)
+    elif feature == "mean_over_ranks":
+        M = lambda s: s                                     # noqa: E731
+    with pytest.raises(ValueError, match="parallel_sweeps on the card") as e:
+        tsw._admm_route(ts, torch.device("cuda"), True, M)
+    assert f"n_ext={ts.n_ext}" in str(e.value)
+    fn, kw = tsw._admm_route(ts, torch.device("cpu"), True, M)
+    assert (fn, kw) == (tsw._admm_iterations, dict(sweep=tsw._solve_K_assoc))
+
+
+@pytest.mark.parametrize("parallel", [False, True])
+def test_admm_route_at_a_horizon_shape(monkeypatch, parallel):
+    """At a shape the horizon variant takes, a CUDA device routes to one K5
+    launch (the parallel sweep with ``parallel_sweeps``), a CPU device to
+    the plain loop with the reference's sweep; another device raises."""
+    ts = _route_prep("plain")
+    assert tsw._admm_route(ts, torch.device("cuda"), parallel) == (
+        tsw.sw_admm_cuda, dict(parallel=True) if parallel else {})
+    assert tsw._admm_route(ts, torch.device("cpu"), parallel) == (
+        tsw._admm_iterations,
+        dict(sweep=tsw._solve_K_assoc if parallel else tsw._solve_K))
+    with pytest.raises(ValueError, match="no stagewise ADMM for device"):
+        tsw._admm_route(ts, torch.device("meta"), parallel)
+
+
 # shapes the horizon variant leaves to the others: (P, N, b, m, S, n_blk,
 # n_ext, n_cons, mean) and the variant the plan keeps
 LEFT = {
@@ -123,7 +234,7 @@ def test_horizon_plan_leaves_the_other_shapes(key):
     """Extra rows, a group mean, b above 16 or a shape the global variant
     did not get plan as before (the variant and its fields equal to the
     plan forced to that variant), and the parallel sweep refuses them
-    (stagewise_admm_solve runs the torch loop there)."""
+    (on the card stagewise_admm_solve raises there, ``_admm_route``)."""
     shape, want = LEFT[key]
     pl = cs.plan_admm(*shape)
     assert pl.variant == want and not pl.parallel

@@ -6,6 +6,7 @@ whole-solve holds of its phase 20 are set):
                                 [--profile]
     python tools/k4_readings.py --flex [--seeds 0-7] [--probes N,...]
     python tools/k4_readings.py --any [--seeds 0-7]
+    python tools/k4_readings.py --long-repeat R
 
 Builds the kernels, then runs ``chip_smoke.phase_k4`` and
 ``chip_smoke.phase_k5`` (both timed at the first seed only) once per seed
@@ -34,6 +35,14 @@ length).
 b above 16 and more than 4 extra rows, against the plain loop; timed at
 the first seed only) once per seed, as above (how the "k5_any" and
 "k5_rt" limits are set), then the battery_fleet path once.
+
+``--long-repeat R`` runs none of the phases: it reads the long_horizon
+path's four solves (the double integrator and the hull model, each with
+its ``sw_parallel`` twin) R times each after a warm-up, as chip_smoke.py
+reads them once (``chip_smoke.long_warm_reading``: a timed solve and one
+under torch.profiler, every K5 launch's iterations, plan, the card's
+clusters at once and device time logged), then the spread of each
+solve's K5 device time over the readings.
 """
 
 from __future__ import annotations
@@ -133,6 +142,40 @@ def profile_config6_solve(dev):
     return prof
 
 
+def long_repeat(dev, reps):
+    """``reps`` warm readings of each long_horizon solve
+    (``chip_smoke.long_warm_reading``) after one warm-up solve, and the
+    spread of K5's device time: on CUDA events in the timed runs, and on
+    events and in the profiler's trace in the profiled ones."""
+    import chip_smoke as cs
+
+    for key, par in (("hull", False), ("hull", True), ("di", False),
+                     ("di", True)):
+        c = cs.long_controller(key, dev, parallel=par)
+        x0 = list(cs.X0_LONG[key])
+        c.feedback(x0)
+        name = key + ("_parallel" if par else "")
+        reads = [cs.long_warm_reading(name, lambda: c.feedback(x0))
+                 for _ in range(reps)]
+
+        def spread(vals):
+            return (f"{min(vals):.1f}–{max(vals):.1f} ms "
+                    f"({', '.join(f'{v:.1f}' for v in vals)})")
+
+        print(f"{name}, {reps} readings: timed wall "
+              + spread([r["ms"] for r in reads]) + "; timed K5 (events) "
+              + spread([sum(x["ms"] for x in r["timed_launches"])
+                        for r in reads])
+              + "; profiled wall " + spread([r["wall_ms"] for r in reads])
+              + "; profiled K5 (events) "
+              + spread([sum(x["ms"] for x in r["profiled_launches"])
+                        for r in reads])
+              + "; profiled K5 (profiler) "
+              + spread([r["k5_device_ms"] for r in reads])
+              + "; idle share " + ", ".join(f"{r['idle_share']:.4f}"
+                                            for r in reads), flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", default="0-7")
@@ -142,6 +185,7 @@ def main(argv=None):
     ap.add_argument("--flex", action="store_true")
     ap.add_argument("--any", action="store_true")
     ap.add_argument("--probes", default="")
+    ap.add_argument("--long-repeat", type=int, default=0)
     a = ap.parse_args(argv)
     lo, _, hi = a.seeds.partition("-")
     seeds = range(int(lo), int(hi or lo) + 1)
@@ -162,6 +206,9 @@ def main(argv=None):
           f"side)", flush=True)
     for line in cs.ptxas_report(_build.BUILD_INFO.get("log", "")):
         print(f"  ptxas: {line}", flush=True)
+    if a.long_repeat:
+        cs.phase("long_horizon readings", long_repeat, dev, a.long_repeat)
+        return 1 if cs.OVER else 0
     cs.READINGS_ONLY = True
     for seed in seeds:
         cs.SEED = seed

@@ -476,7 +476,7 @@ def horizon_stamps(dev) -> None:
         for par in (False, True):
             pl = cst.plan_admm(args[1].numel() // (args[0].N * args[0].b),
                                args[0].N, args[0].b, args[0].m_k,
-                               parallel=par)
+                               parallel=par, device=args[1].device)
             ms = cs.kernel_ms(lambda: cst.sw_admm_cuda(*args, parallel=par))
             stamps = (ctypes.c_longlong * (8 * 16))()
             lib.phc_hz_phases(ctypes.addressof(stamps))

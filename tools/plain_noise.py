@@ -343,7 +343,8 @@ def _k5_wave_readings(waves, windowed=False):
                                                  n_ext=sw.n_ext)):
             continue
         P = args[1].numel() // (sw.N * sw.b)
-        C = cst.plan_admm(P, sw.N, sw.b, sw.m_k, parallel=True).cluster
+        C = cst.plan_admm(P, sw.N, sw.b, sw.m_k, parallel=True,
+                          device=args[1].device).cluster
         win = cst.horizon_windows(sw.N, C)
 
         def sweep(s, t):
