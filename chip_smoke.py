@@ -289,7 +289,12 @@ Run from the root of a checkout. It builds the kernels of
      nodes, 20 iterations from the kernel's own relaxation against the
      plain loop ("k5_flex", "k5_flex_wide" at the hull model's b=13), the
      plan's variant checked, the double integrator also with every array
-     in device memory (global_all, forced); at config 6's long-arm wave the
+     in device memory (global_all, forced), the wide trees' waves in one
+     wave of portable clusters (checked against the clusters the card
+     holds) and also at the grouped variant's earlier placement (⌈S/16⌉
+     scenarios a CTA, non-portable clusters, forced), each placement
+     logged (scenarios a CTA, cluster, place, threads, bytes, member
+     lists, clusters the card holds, waves); at config 6's long-arm wave the
      grouped, global and global_all variants forced against the shared
      one, a whole relaxation warm, bitwise; each variant timed alone, as a
      wrapper and as the plain loop, at the held and the relaxation's
@@ -302,9 +307,11 @@ Run from the root of a checkout. It builds the kernels of
      plan's fp64 feasibility (1e-3) where found; ``wide_tree``, config 6's
      long arm at S=16, 27 and 64 scenarios through the stagewise tree MIQP
      (probe prep at ρ·10; waves capped at 4), one launch of the grouped
-     variant a relaxation or probe, u₀'s spread over the scenarios below
-     5e-3, the plan feasible in fp64 with the budget row where found; the
-     found share of each path;
+     variant (the global one at S=64) a relaxation or probe, u₀'s spread
+     over the scenarios below 5e-3, the plan feasible in fp64 with the
+     budget row where found; the found share of each path; each solve again
+     warm, timed (K5's launches, iterations and CUDA-event time) and under
+     torch.profiler (the idle share against its own wall time);
  37. K5 at any b and any number of extra rows (the runtime-r
      instantiations, with the kernel phases after 35): a wave of nodes at
      each shape past the register path, 20 iterations from the kernel's
@@ -346,7 +353,8 @@ K1 and K5 with every array in device memory (FORCED_ONLY), which must
 launch on none: no driven path gates a wave of a frame that no cluster
 holds, nor reaches a horizon past N≈3,300. On one card every stagewise
 solve runs K5 (config 6's paths its shared variant, the long horizons and
-the battery fleet its global one, the wide trees its grouped one), K4's
+the battery fleet its global one, the wide trees its grouped one and
+the global one at S=64), K4's
 sweep inside it; K4 launches on its own on the stagewise tree
 over ranks (phase 33). The L2-streamed K2 launches on the 4-agent
 micro-grid only.
@@ -4458,8 +4466,9 @@ def k5_launch_log():
     """Inside: every K5 launch of the stagewise solves is logged in the list
     yielded, as a dict: P, iters, the parallel sweep, the plan's variant
     and clusters, the clusters the card holds at once (a horizon plan's
-    ``horizon_capacity``) and, once the block has ended, the device time
-    between CUDA events recorded around the call (ms)."""
+    ``horizon_capacity``, a group mean's ``admm_cluster_capacity``) and,
+    once the block has ended, the device time between CUDA events
+    recorded around the call (ms)."""
     import torch
 
     from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
@@ -4480,7 +4489,9 @@ def k5_launch_log():
             P=P, iters=int(a[10]), parallel=bool(kw.get("parallel")),
             variant=pl.variant, cluster=pl.cluster,
             held=(cs.horizon_capacity(sw.N, sw.b, sw.m_k, pl, a[1].device)
-                  if pl.variant == "horizon" else None)))
+                  if pl.variant == "horizon" else next(
+                      (v for k, v in sw.cache.items()
+                       if k[0] == "k5_clusters" and k[1] == pl), None))))
         return out
 
     tsw.sw_admm_cuda = record
@@ -4512,8 +4523,8 @@ def launch_log_line(log) -> str:
                                  for P, v, C, h in shapes))
 
 
-def long_warm_reading(name, solve) -> dict:
-    """A warm ``long_horizon`` solve read twice: once on the host clock and
+def long_warm_reading(name, solve, path="long_horizon") -> dict:
+    """A warm solve of ``path`` read twice: once on the host clock and
     once under torch.profiler (device operations, busy time, the idle
     share against that run's own wall time), each with its K5 launches
     logged (``k5_launch_log``). Prints one line a run and returns the
@@ -4532,9 +4543,9 @@ def long_warm_reading(name, solve) -> dict:
         prof = profile_request(solve)
     prof.update(ms=ms, timed_launches=timed, profiled_launches=profiled,
                 idle_share=1.0 - prof["device_busy_ms"] / prof["wall_ms"])
-    print(f"  long_horizon, {name} again (warm): {ms:.1f} ms; "
+    print(f"  {path}, {name} again (warm): {ms:.1f} ms; "
           + launch_log_line(timed), flush=True)
-    print(f"  long_horizon, {name} under torch.profiler: {prof['wall_ms']:.1f}"
+    print(f"  {path}, {name} under torch.profiler: {prof['wall_ms']:.1f}"
           f" ms, {prof['device_ops']} device operations, busy "
           f"{prof['device_busy_ms']:.1f} ms: idle share "
           f"{prof['idle_share']:.4f}; K5 {prof['k5_launches']} launches, "
@@ -5315,6 +5326,11 @@ LONG_SPEC = dict(capacity=64, wave_size=8, max_waves=8, qp_iters=300,
 # that does not divide over the CTAs; waves capped as the split trees were
 WIDE_TREES = ((16, (1, 30, 60, 90)), (27, (1, 40, 80)),
               (64, (1, 20, 40, 60, 80, 100)))
+# the variant K5's plan takes at each wide tree: portable clusters of
+# ⌈S/8⌉ scenarios a CTA, the state in shared memory where those slots fit
+# it, else z, y, l and u in device memory (S=64)
+WIDE_VARIANT = {16: "stagewise_k5_grouped", 27: "stagewise_k5_grouped",
+                64: "stagewise_k5_global"}
 WIDE_SPEC = dict(CFG6_SPEC, max_waves=4)
 U0_SPREAD = 5e-3          # u₀ over the scenarios (tests/test_stagewise_tree.py)
 # the kernel against its plain version: 20 iterations from the kernel's
@@ -5365,7 +5381,7 @@ def flex_waves(dev, rng):
     """(tag, key, backend, f, h, lb, ub, variant) of a wave of nodes at
     each shape the FLEX and horizon variants run on a path: the
     long_horizon controllers' frames (LONG_SPEC's wave; the horizon
-    variant) and the wide trees' (WIDE_SPEC's wave × S; grouped),
+    variant) and the wide trees' (WIDE_SPEC's wave × S; WIDE_VARIANT),
     K4_HOLD_FIX of the branching coordinates fixed at random; ``variant``
     the one the plan picks."""
     import torch
@@ -5393,25 +5409,30 @@ def flex_waves(dev, rng):
         eu = assemble_stagewise_tree_ext(swt, x0)
         out.append((f"config 6's tree at S={S}", f"tree{S}",
                     *node_wave(swt, eu, rng, WIDE_SPEC["wave_size"],
-                               K4_HOLD_FIX), "stagewise_k5_grouped"))
+                               K4_HOLD_FIX), WIDE_VARIANT[S]))
     return out
 
 
 K5_FIELDS = ("x", "z", "y", "dy", "z_e", "y_e", "dy_e")
 
 
-def k5_plan_of(args, variant=None, runtime_r=None, parallel=False):
+def k5_plan_of(args, variant=None, runtime_r=None, parallel=False,
+               spc=None):
     """(P, the plan) of a K5 call on ``args`` (those of ``sw_admm_cuda``),
-    ``variant``, ``runtime_r`` and ``parallel`` as the wrapper's."""
+    ``variant``, ``runtime_r``, ``parallel`` and ``spc`` as the
+    wrapper's (with a group mean, its member lists' words)."""
     from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
 
     sw, M = args[0], args[11]
     P = args[1].numel() // (sw.N * sw.b)
     mean = M is not None and sw.n_cons > 0
+    members = cs.admm_members(sw, M.float().contiguous()).numel() \
+        if mean else 0
     return P, cs.plan_admm(P, sw.N, sw.b, sw.m_k, M.shape[0] if mean else 1,
                            sw.n_blk, sw.n_ext, sw.n_cons, mean,
                            variant=variant, runtime_r=runtime_r,
-                           parallel=parallel, device=args[1].device)
+                           parallel=parallel, device=args[1].device,
+                           members=members, spc=spc)
 
 
 def k5_err_into(rec, got, ref):
@@ -5511,7 +5532,10 @@ def phase_k5_flex(dev, rng, recs):
     ("k5_flex_wide" at the hull model's b=13); the plan's variant must be
     the one named; at the long horizons also the global variant forced
     (the one the horizon variant replaced) and ``horizon_holds``; at the
-    double integrator also global_all forced. At config 6's long-arm wave
+    double integrator also global_all forced; at the wide trees the plan
+    must run the wave's P/S clusters, portable, in one wave of the card,
+    and the grouped variant's earlier placement (⌈S/16⌉ scenarios a CTA)
+    is held too, forced. At config 6's long-arm wave
     the grouped, global and global_all variants forced against the shared
     one (the plan's there), a whole relaxation warm: x, z, y, dy and the
     extra rows' carries bitwise equal (each row's update is the same
@@ -5544,38 +5568,60 @@ def phase_k5_flex(dev, rng, recs):
         ref = tsw._admm_iterations(*held_args)
         rec = recs[kernel]
         hz = pl.variant == "horizon"
-        variants = ((None,) + (("global",) if hz else ())
-                    + (("global_all",) if key == "di" else ()))
-        for variant in variants:
-            pv = plan_of(args, variant)[1]
-            got = cs.sw_admm_cuda(*held_args, variant=variant)
+        S = args[11].shape[0] if key.startswith("tree") else 1
+        # (the forced plan's record prefix, its keywords): the plan's; the
+        # global variant the horizon one replaced; global_all; at the wide
+        # trees the grouped variant's earlier placement (⌈S/16⌉ scenarios
+        # a CTA, non-portable clusters)
+        forcings = ([("", {})] + ([("", dict(variant="global"))] if hz else [])
+                    + ([("", dict(variant="global_all"))] if key == "di"
+                       else [])
+                    + ([("parent_", dict(variant="grouped",
+                                          spc=-(-S // cs.ADMM_CLUSTER_MAX)))]
+                       if S > 1 else []))
+        for _, kw in forcings:
+            pv = plan_of(args, **kw)[1]
+            got = cs.sw_admm_cuda(*held_args, **kw)
             held_at = ([cs.horizon_capacity(sw.N, sw.b, sw.m_k, pv,
                                             args[1].device)]
                        if pv.variant == "horizon" else
                        [v for k, v in sw.cache.items()
                         if k[0] == "k5_clusters" and k[1] == pv])
+            waves = f", {-(-(P // S) // held_at[0])} wave(s) of {P // S}" \
+                if held_at and S > 1 else ""
             held(f"{tag}, P={P} m={sw.m_k} ({FLEX_HOLD_ITERS} it warm); "
-                 f"{pv.variant}, bmax {pv.bmax}, "
+                 + ("forced " if kw else "the plan: ")
+                 + f"{pv.variant} (place {cs.ADMM_PLACES.get(pv.variant)}), "
+                 f"bmax {pv.bmax}, "
                  f"{'staged' if pv.staged else 'factors through L2'}, "
                  f"{32 * pv.warps} threads and {pv.smem} bytes a CTA, "
                  f"{pv.spc} scenario(s) a CTA, clusters of {pv.cluster}"
-                 + (f" ({held_at[0]} at once on the card)" if held_at
+                 + (f", member lists {'staged' if pv.lists else 'in device memory'}"
+                    if S > 1 else "")
+                 + (f" ({held_at[0]} at once on the card{waves})" if held_at
                     else ""),
                  "k5_flex_wide" if sw.b > 8 else "k5_flex",
                  {k: (g, r) for k, g, r in zip(names, got, ref)
                   if g is not None})
             err_into(recs[cs.ADMM_LAUNCH[pv.variant]], got, ref)
+            if S > 1 and not kw:
+                check(pv.cluster <= cs.ADMM_CLUSTER and held_at
+                      and P // S <= held_at[0],
+                      f"{tag}: the plan {pv} does not run P/S = {P // S} "
+                      f"portable clusters in one wave ({held_at})")
         if hz:
             horizon_holds(tag, key, args, out, held_args, pl, rec)
         if not TIMINGS:
             continue
-        pre = "" if key in ("di", "tree64") else key + "_"
         plain_ms = None            # the shape's plain loop, timed once
-        for variant in variants:
-            r = recs[cs.ADMM_LAUNCH[variant or pl.variant]]
+        for parent, kw in forcings:
+            r = recs[cs.ADMM_LAUNCH[kw.get("variant") or pl.variant]]
+            # each record's first shape is its main one (no prefix)
+            pre = ("" if not parent and "kernel_ms" not in r
+                   else f"{key}_{parent}")
 
             def wrapper():
-                return cs.sw_admm_cuda(*held_args, variant=variant)
+                return cs.sw_admm_cuda(*held_args, **kw)
 
             if plain_ms is None:
                 by = timed(r, pre, wrapper,
@@ -5587,17 +5633,17 @@ def phase_k5_flex(dev, rng, recs):
                 r[pre + "kernel_ms"] = kernel_ms(wrapper)
                 r[pre + "plain_ms"] = plain_ms
                 r[pre + "bound_ms"], by = bound(*k5_work(held_args))
-                print(f"  {variant}: wrapper {r[pre + 'ms']:.3f} ms, kernel "
-                      f"alone {r[pre + 'kernel_ms']:.3f} ms (the plain loop "
-                      f"and the bound as above)", flush=True)
+                print(f"  {kw or 'the plan'}: wrapper {r[pre + 'ms']:.3f} ms, "
+                      f"kernel alone {r[pre + 'kernel_ms']:.3f} ms (the plain "
+                      f"loop and the bound as above)", flush=True)
             r[pre + "relax_kernel_ms"] = kernel_ms(
-                lambda: cs.sw_admm_cuda(*args, variant=variant))
+                lambda: cs.sw_admm_cuda(*args, **kw))
             r[pre + "relax_bound_ms"] = bound(*k5_work(args))[0]
             r[pre + "chain_ms"] = K5_RELAX * k4_chain_ms(sw.N, sw.b)
             if not pre:
                 r["bound_by"] = by
                 r["library_ms"] = None   # no PyTorch call runs an ADMM loop
-            print(f"  {variant or pl.variant}: the relaxation "
+            print(f"  {kw or pl.variant}: the relaxation "
                   f"({K5_RELAX} it) alone {r[pre + 'relax_kernel_ms']:.3f} "
                   f"ms, bound {r[pre + 'relax_bound_ms']:.4f} ms, chain "
                   f"floor {r[pre + 'chain_ms']:.3f} ms", flush=True)
@@ -6061,10 +6107,12 @@ def phase_wide_paths(dev):
     device busy time, the idle share against the profiled run's own wall
     time, each K5 launch's iterations, clusters and device time). wide_tree: config 6's long arm at S = 16, 27
     and 64 (WIDE_TREES) through the stagewise tree MIQP with its probe
-    prep at ρ·10 (as phase 21), one K5 launch (grouped) a relaxation or
-    probe, at P a multiple of S; u₀'s spread over the scenarios within
+    prep at ρ·10 (as phase 21), one K5 launch (WIDE_VARIANT) a relaxation
+    or probe, at P a multiple of S; u₀'s spread over the scenarios within
     U0_SPREAD, the plan feasible in fp64 with the budget row. Each solve
-    prints its found share, nodes, waves and wall time."""
+    prints its found share, nodes, waves and wall time, then is read again
+    warm (``long_warm_reading``: K5's launches, iterations and event time,
+    the idle share)."""
     import numpy as np
     import torch
 
@@ -6148,11 +6196,19 @@ def phase_wide_paths(dev):
 
     with no_plain_sweep(), solve_calls() as n_tree:
         res, _ = drive("wide_tree", tree_solves)
-    only_k5("wide_tree", 1, n_tree[0], kernel="stagewise_k5_grouped")
-    sizes = PATH_BATCHES["wide_tree"]["stagewise_k5_grouped"]
-    check(all(any(P % S == 0 and P // S <= WIDE_SPEC["wave_size"]
-                  for S, *_ in WIDE_TREES) for P in sizes),
-          f"wide_tree: K5 launched at P = {sorted(sizes)}")
+    got = PATH_LAUNCHES["wide_tree"]
+    kernels = set(WIDE_VARIANT.values())
+    check(sum(got[k] for k in kernels) == n_tree[0] > 0
+          and all(v == 0 for k, v in got.items() if k not in kernels),
+          f"wide_tree: K5 ({sorted(kernels)}) once a relaxation or probe "
+          f"({n_tree[0]}) and nothing else must launch, launches {got}")
+    for k in kernels:
+        check(got[k] > 0, f"wide_tree: {k} never launched")
+        sizes = PATH_BATCHES["wide_tree"][k]
+        check(all(any(P % S == 0 and P // S <= WIDE_SPEC["wave_size"]
+                      for S, *_ in WIDE_TREES if WIDE_VARIANT[S] == k)
+                  for P in sizes),
+              f"wide_tree: {k} launched at P = {sorted(sizes)}")
     found = 0
     for S, tree, swt, *_ in trees:
         r, sec = res[S]
@@ -6173,6 +6229,11 @@ def phase_wide_paths(dev):
                                obj=float(r.obj), waves=r.waves,
                                nodes=int(r.nodes_solved), u0_spread=spread)
     print(f"wide_tree: found share {found / len(trees):.2f}", flush=True)
+    for S, tree, swt, swtp, data, eu in trees:
+        out[f"tree{S}"]["profile"] = long_warm_reading(
+            f"S={S}", lambda: solve_tree_miqp_stagewise(
+                swt, *data, BnbSpec(**WIDE_SPEC), swt_probe=swtp, ext_u=eu),
+            path="wide_tree")
     return out
 
 

@@ -125,13 +125,16 @@
 //  - That is the shared variant, and it needs a scenario's state in one
 //    CTA's shared memory (N ≲ 700 at b=5, 240 at b=13) and a group in one
 //    portable cluster (S ≤ 8). Past either, the same kernel runs in its
-//    FLEX instantiations (below the layout): a group of up to 16
-//    scenarios one non-portable cluster, above 16 several scenarios a CTA
-//    (each on its own share of the CTA's warps, their sweeps side by side
-//    as K4 runs one problem a warp); and the state in device memory in the
-//    same layout, so that a warp's stages coalesce. The bound stays the
-//    chain; the state's loads move off chip, the factors come through L2
-//    once they no longer fit beside it.
+//    FLEX instantiations (below the layout): a group of S > 8 scenarios
+//    one portable cluster of ⌈S/spc⌉ CTAs with spc = ⌈S/8⌉ scenarios a
+//    CTA (each on its own share of the CTA's warps, their sweeps side by
+//    side as K4 runs one problem a warp), so that a B&B wave's clusters
+//    run in one wave on the card (clusters of 16 left a wave of 8 nodes
+//    two waves), the group mean over the node's members alone; and the
+//    state in device memory in the same layout, so that a warp's stages
+//    coalesce, where the slots do not fit. The bound stays the chain; the
+//    state's loads move off chip, the factors come through L2 once they
+//    no longer fit beside it.
 //
 // K5 at any b and r (the runtime-r path, RDYN). The register path holds
 // six bmax-wide arrays a thread in its row work and the extra rows in
@@ -1020,27 +1023,43 @@ __device__ inline float4 load4(const float* row, int c0, int b) {
 //    reads or writes them, so no barrier is added); place 2: also t, mb, x,
 //    the consensus buffers, and the horizon-sized constants (ties, Aext,
 //    KiU) read where they lie. Words of scratch a problem: flex_layout.
-//  - the group mean's weights are read from device memory (a slot's row
-//    of S·N words would not fit beside its state), zero weights skipped;
-//    a peer scenario's buffer is read over DSMEM (place < 2) or from the
-//    scratch through L2 (place 2, after a fence). The sum over the S
-//    scenarios runs in scenario order, as the shared variant's does, so a
-//    launch is deterministic.
+//  - the group mean runs over the members of the scenario's node alone:
+//    the wrapper's member lists (ops/cuda_stagewise.group_members: for
+//    each stage the run of stages it lies in, for each scenario of a run
+//    the list of its row's nonzero (t, weight) pairs in ascending t),
+//    staged behind the constants where they fit, else read from device
+//    memory. A node at wide_tree's branch steps has ~11 members of 64, and
+//    a slot's row of S·N weights would not fit beside its state. A CTA
+//    computes each of its nodes' means once, over all its threads (the
+//    root's 64 members no longer wait on one lane that also carries a
+//    stage of 32), into the free half of the node's first scenario's
+//    buffer, one block barrier before its slots read them. A peer
+//    scenario's buffer is read over DSMEM (place < 2) or from the scratch
+//    through L2 (place 2, after a fence), at an address from a table of
+//    the S buffers, four members' loads issued before their sums. The sum
+//    runs in scenario order with the zero weights left out, so a launch
+//    is deterministic and each element's sum is the one over all S
+//    scenarios that skips zero weights, whichever thread sums it.
 struct AdmmFlex {
   int spc;          // scenarios a CTA
   int cluster;      // CTAs a group (1 without a group mean)
   int place;        // 0, 1 or 2 (above)
   float* scratch;   // device memory, gwords words a problem (place ≥ 1)
+  const int* members;   // the member lists in device memory (a group mean)
+  int lwords;       // their words staged in shared memory (0: read there)
 };
 
-// word offsets of a FLEX CTA's shared memory (the constants, then spc
+// word offsets of a FLEX CTA's shared memory (the constants, the lwords
+// staged words of the member lists and, with a group mean, the address of
+// each of the group's S consensus buffers (two words each), then spc
 // slots of `slot` words) and of a problem's scratch: z … cb (w with z
-// above bmax 16) in the slot or in the scratch by place, corr and red in
-// the slot (the runtime-r vectors in ext_ws where ext says so), then the
-// slot's factor ring (ring blocks, above bmax 16 unstaged)
+// above bmax 16) in
+// the slot or in the scratch by place, corr and red in the slot (the
+// runtime-r vectors in ext_ws where ext says so), then the slot's factor
+// ring (ring blocks, above bmax 16 unstaged)
 struct FlexLayout {
-  size_t L, U, C, J, Mc, tie, blk, Aext, KiU, Cw, rho_e, slots, slot, z, y,
-      l, u, w, t, mb, xb, cb, corr, red, ring, gwords, total;
+  size_t L, U, C, J, Mc, tie, blk, Aext, KiU, Cw, rho_e, lists, peers, slots,
+      slot, z, y, l, u, w, t, mb, xb, cb, corr, red, ring, gwords, total;
 };
 
 __host__ __device__ inline FlexLayout flex_layout(int N, int b, int m,
@@ -1049,7 +1068,8 @@ __host__ __device__ inline FlexLayout flex_layout(int N, int b, int m,
                                                   int warps_slot, int staged,
                                                   int bmax, int spc,
                                                   int place, int ext,
-                                                  int ring) {
+                                                  int ring, int lwords,
+                                                  int S) {
   FlexLayout a;
   size_t o = 0;
   const size_t f = staged ? pad4((size_t)N * b * b) : 0;
@@ -1067,6 +1087,8 @@ __host__ __device__ inline FlexLayout flex_layout(int N, int b, int m,
   a.KiU = o; o += hx ? pad4((size_t)N * b * r) : 0;
   a.Cw = o; o += ext & kExtCw ? 0 : pad4((size_t)r * r);
   a.rho_e = o; o += ext & kExtVec ? 0 : pad4(r);
+  a.lists = o; o += pad4(lwords);
+  a.peers = o; o += mean ? pad4(2 * (size_t)S) : 0;
   a.slots = o;
   const size_t zn = pad4((size_t)m * N), tn = pad4((size_t)N * b);
   const size_t cn = mean ? 2 * pad4((size_t)N * n_cons) : 0;
@@ -1204,6 +1226,43 @@ __device__ inline void wide_rows(const WideRows& s, int k, float* cb,
   }
 }
 
+// the group mean of one consensus element over a member list (words
+// [q0, q1) of ml: (t, weight) pairs in ascending t): Σ w_t·v_t in the
+// list's order, v_t at peers[t] + e (L2: read through L2, the scratch of
+// place 2; else a generic load, DSMEM or this CTA's shared memory).
+// kMembers members a step: their loads issued first (past the list's end
+// the step reloads its first member), then their sums in order
+constexpr int kMembers = 4;
+template <bool L2>
+__device__ inline float member_sum(const int* ml, int q0, int q1,
+                                   float* const* peers, size_t e) {
+  float zn = 0.0f;
+  for (int q = q0; q < q1; q += 2 * kMembers) {
+    float wt[kMembers], v[kMembers];
+#pragma unroll
+    for (int u = 0; u < kMembers; ++u) {
+      const int2 tw = *reinterpret_cast<const int2*>(
+          ml + (q + 2 * u < q1 ? q + 2 * u : q));
+      const float* pv = peers[tw.x] + e;
+      wt[u] = __int_as_float(tw.y);
+      v[u] = L2 ? __ldcg(pv) : *pv;
+    }
+#pragma unroll
+    for (int u = 0; u < kMembers; ++u)
+      if (q + 2 * u < q1) zn = fmaf(wt[u], v[u], zn);
+  }
+  return zn;
+}
+
+// the first of the scenarios s0 … s of a CTA whose member list at stage k
+// is scenario s's (the scenarios of one node share one list)
+__device__ inline int node_first(const int* ml, int k, int s, int s0) {
+  const int* run = ml + ml[k];
+  const int q0 = run[2 * s];
+  while (run[2 * s0] != q0) ++s0;
+  return s0;
+}
+
 // RDYN: the runtime-r path (see "K5 at any b and r" in the header). Above
 // bmax 16 (WIDE) it also runs the row work that holds no bmax-wide array
 // in a thread.
@@ -1245,14 +1304,17 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
   size_t oL, oU, oC, oJ, oMc, otie, oblk, oAext, oKiU, oCw, orho;
   float *zs, *ysc, *ls, *us, *wb, *tb, *mb, *xb, *cb0, *corr, *red, *rb;
   const float* gM;                              // gM[s, t, k] at [t·N + k]
-  size_t fslots = 0, fslot = 0, fcb = 0, fgw = 0;
+  size_t fslots = 0, fslot = 0, fcb = 0, fgw = 0, flists = 0, fpeers = 0;
   bool hz = true;                               // horizon constants staged
   if constexpr (FLEX) {
     const FlexLayout f = flex_layout(N, b, m, nb, r, nc, a.mean, W, STAGED,
-                                     BMAX, spc, fx.place, ext, ring);
+                                     BMAX, spc, fx.place, ext, ring,
+                                     fx.lwords, S);
     oL = f.L; oU = f.U; oC = f.C; oJ = f.J; oMc = f.Mc; otie = f.tie;
     oblk = f.blk; oAext = f.Aext; oKiU = f.KiU; oCw = f.Cw; orho = f.rho_e;
     fslots = f.slots; fslot = f.slot; fcb = f.cb; fgw = f.gwords;
+    flists = f.lists;
+    fpeers = f.peers;
     hz = fx.place < 2;
     float* sl = smem + f.slots + (size_t)j * f.slot;
     float* gl = fx.place >= 1 ? fx.scratch + (live ? p : 0) * f.gwords : sl;
@@ -1264,7 +1326,7 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
     cb0 = tbase + f.cb;
     corr = sl + f.corr; red = sl + f.red;
     if constexpr (RING) rb = sl + f.ring;
-    gM = a.gM + (size_t)(live ? s : 0) * S * N;
+    gM = nullptr;                               // the member lists instead
   } else {
     const AdmmLayout lay = admm_layout(N, b, m, S, nb, r, nc, a.mean, W,
                                        STAGED, BMAX, ext);
@@ -1342,6 +1404,30 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
   }
   if (!FLEX && a.mean)
     copy_in(smem + (gM - smem), a.gM + (size_t)s * S * N, S * N, tc, TC);
+  // the group mean's member lists (FLEX), staged where the plan fits
+  // them, and the address of scenario t's consensus buffers: over DSMEM in
+  // CTA t / spc, slot t mod spc (place < 2; this CTA's own directly), or
+  // in its scratch (place 2)
+  const int* ml = nullptr;
+  float** peers = nullptr;
+  if constexpr (FLEX) {
+    ml = fx.members;
+    if (a.mean && fx.lwords) {
+      copy_in(smem + flists, reinterpret_cast<const float*>(fx.members),
+              fx.lwords, tc, TC);
+      ml = reinterpret_cast<const int*>(smem + flists);
+    }
+    peers = reinterpret_cast<float**>(smem + fpeers);
+    if (a.mean)
+      for (int t = tc; t < S; t += TC) {
+        const int rt = t / spc;
+        float* pt = smem + fslots + (size_t)(t - rt * spc) * fslot + fcb;
+        peers[t] = !hz ? fx.scratch + (grp * S + t) * fgw + fcb
+                   : rt == crank
+                       ? pt
+                       : cg::this_cluster().map_shared_rank(pt, (unsigned)rt);
+      }
+  }
 
   // ---- the warm state ----
   const size_t ncb = pad4((size_t)N * nc);
@@ -1706,6 +1792,23 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
     }
     // ---- the group mean over the scenarios' buffers, and t completed ----
     cg::cluster_group cl = cg::this_cluster();
+    if constexpr (FLEX) if (a.mean) {
+      // each node's means once a CTA, over all its threads: its first
+      // scenario here (node_first) sums them into its buffers' free half
+      // (the peers read only the half of `it`; the next iteration's rows
+      // refill it), where the node's other scenarios here read them
+      for (int q = tc; q < spc * N * nc; q += TC) {
+        const int jq = q / (N * nc), k = (q - jq * N * nc) / nc;
+        const int jc = q - jq * N * nc - k * nc, sq = crank * spc + jq;
+        if (sq >= S || node_first(ml, k, sq, crank * spc) != sq) continue;
+        const int2 qr = *reinterpret_cast<const int2*>(ml + ml[k] + 2 * sq);
+        const size_t e = (size_t)(it & 1) * ncb + k * nc + jc;
+        peers[sq][(size_t)((it + 1) & 1) * ncb + k * nc + jc] =
+            hz ? member_sum<false>(ml, qr.x, qr.y, peers, e)
+               : member_sum<true>(ml, qr.x, qr.y, peers, e);
+      }
+      __syncthreads();
+    }
     if (live) {
       for (int k0 = 0; k0 < N; k0 += G) {
         const int k = k0 + g;
@@ -1716,26 +1819,16 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
           for (int c = 0; c < BMAX; ++c) acc[c] = 0.0f;
         }
         if (on && a.mean) {
+          // FLEX: the means' CTA copy, at the first scenario of the node
+          const float* mn = nullptr;
+          if constexpr (FLEX)
+            mn = peers[node_first(ml, k, s, crank * spc)] +
+                 (size_t)((it + 1) & 1) * ncb;
           for (int i = mc + (jl + tps - mc % tps) % tps; i < m; i += tps) {
             const int jc = i - mc;   // the consensus rows this lane owns
             float zn = 0.0f;
             if constexpr (FLEX) {
-              const size_t e = (size_t)(it & 1) * ncb + k * nc + jc;
-              for (int t = 0; t < S; ++t) {
-                const float wt = __ldg(gM + t * N + k);
-                if (wt == 0.0f) continue;   // outside this stage's group
-                float v;
-                if (!hz) {
-                  v = __ldcg(fx.scratch + (grp * S + t) * fgw + fcb + e);
-                } else {
-                  float* pt = smem + fslots + (size_t)(t % spc) * fslot +
-                              fcb + e;
-                  const int rt = t / spc;
-                  v = rt == crank ? *pt
-                                  : *cl.map_shared_rank(pt, (unsigned)rt);
-                }
-                zn = fmaf(wt, v, zn);
-              }
+              zn = mn[k * nc + jc];
             } else {
               for (int t = 0; t < S; ++t) {
                 const float* cbt =
@@ -1883,7 +1976,8 @@ size_t flex_smem_bytes(const PhcSwAdmmArgs& a, int warps, int staged,
   return sizeof(float) * flex_layout(a.N, a.b, a.m, a.n_blk, a.n_ext,
                                      a.n_cons, a.mean, warps / fx.spc,
                                      staged, bmax, fx.spc, fx.place,
-                                     a.ext, a.ring).total;
+                                     a.ext, a.ring,
+                                     a.mean ? fx.lwords : 0, a.S).total;
 }
 
 // a FLEX launch: groups of S scenarios over clusters of fx.cluster CTAs
@@ -1962,10 +2056,12 @@ bool admm_args_ok(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
 
 // the placement of a FLEX launch: a cluster of at most 16 CTAs whose slots
 // cover the group with no CTA left empty, whole warps a slot, scratch
-// where a place keeps arrays in device memory
+// where a place keeps arrays in device memory, member lists with a group
+// mean
 bool flex_ok(const PhcSwAdmmArgs* a, int warps, const AdmmFlex& fx) {
   if (fx.spc < 1 || warps % fx.spc || fx.place < 0 || fx.place > 2 ||
-      (fx.place && !fx.scratch))
+      (fx.place && !fx.scratch) || fx.lwords < 0 ||
+      (a->mean && !fx.members))
     return false;
   if (!a->mean) return fx.spc == 1 && fx.cluster == 1 && a->S == 1;
   return fx.cluster >= 1 && fx.cluster <= kMaxCluster &&
@@ -2654,30 +2750,35 @@ int phc_sw_admm(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
   return admm_dispatch(a, warps, tps, staged, bmax, (cudaStream_t)stream);
 }
 
-// dynamic shared memory of one FLEX CTA (flex_layout), and the words of
+// dynamic shared memory of one FLEX CTA (flex_layout; lists the member
+// lists' words it stages, S the group's scenarios), and the words of
 // device memory a problem's scratch takes; warps = the CTA's
 int phc_sw_admm_flex_smem_bytes(int N, int b, int m, int n_blk, int n_ext,
                                 int n_cons, int mean, int warps, int staged,
                                 int bmax, int spc, int place, int ext,
-                                int ring) {
+                                int ring, int lists, int S) {
   return (int)(sizeof(float) *
                flex_layout(N, b, m, n_blk, n_ext, n_cons, mean, warps / spc,
-                           staged, bmax, spc, place, ext, ring).total);
+                           staged, bmax, spc, place, ext, ring,
+                           mean ? lists : 0, S).total);
 }
 
 long long phc_sw_admm_flex_scratch_words(int N, int b, int m, int n_cons,
                                          int mean, int place, int bmax) {
   return (long long)flex_layout(N, b, m, 0, 0, n_cons, mean, 1, 0, bmax, 1,
-                                place, 0, 0).gwords;
+                                place, 0, 0, 0, 1).gwords;
 }
 
 // K5's FLEX variants (grouped, global state): as phc_sw_admm, with spc
 // scenarios a CTA, groups of a->S over clusters of `cluster` CTAs, arrays
-// placed by `place`, `scratch` the device memory of place ≥ 1
+// placed by `place`, `scratch` the device memory of place ≥ 1, `members`
+// the group mean's member lists (lwords of their words staged, 0: read
+// from device memory)
 int phc_sw_admm_flex(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
                      int bmax, int spc, int cluster, int place,
-                     float* scratch, void* stream) {
-  const AdmmFlex fx = {spc, cluster, place, scratch};
+                     float* scratch, const int* members, int lwords,
+                     void* stream) {
+  const AdmmFlex fx = {spc, cluster, place, scratch, members, lwords};
   if (!admm_args_ok(a, warps, tps, staged, bmax) || !flex_ok(a, warps, fx))
     return (int)cudaErrorInvalidValue;
   return flex_dispatch(a, warps, tps, staged, bmax, fx, (cudaStream_t)stream,
@@ -2687,9 +2788,10 @@ int phc_sw_admm_flex(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
 // clusters of a FLEX plan the card holds at once, or −(the CUDA error)
 int phc_sw_admm_max_clusters(const PhcSwAdmmArgs* a, int warps, int tps,
                              int staged, int bmax, int spc, int cluster,
-                             int place) {
+                             int place, int lwords) {
   float dummy = 0.0f;
-  const AdmmFlex fx = {spc, cluster, place, &dummy};
+  const int none = 0;
+  const AdmmFlex fx = {spc, cluster, place, &dummy, &none, lwords};
   if (!admm_args_ok(a, warps, tps, staged, bmax) || !flex_ok(a, warps, fx))
     return -(int)cudaErrorInvalidValue;
   int n = 0;

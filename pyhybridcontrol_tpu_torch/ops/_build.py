@@ -168,17 +168,20 @@ def _bind_stagewise_k5(lib):
     lib.phc_sw_admm.argtypes = [P, I, I, I, I, P]
     lib.phc_sw_admm.restype = I
     # N b m n_blk n_ext n_cons mean warps staged bmax spc place ext ring
-    lib.phc_sw_admm_flex_smem_bytes.argtypes = [I] * 14
+    # lists (the member lists' words staged) S
+    lib.phc_sw_admm_flex_smem_bytes.argtypes = [I] * 16
     lib.phc_sw_admm_flex_smem_bytes.restype = I
     # N b m n_cons mean place bmax
     lib.phc_sw_admm_flex_scratch_words.argtypes = [I] * 7
     lib.phc_sw_admm_flex_scratch_words.restype = ctypes.c_longlong
     # the struct, warps, lanes a stage, staged, bmax, scenarios a CTA,
-    # cluster, place, scratch, stream
-    lib.phc_sw_admm_flex.argtypes = [P] + [I] * 7 + [P, P]
+    # cluster, place, scratch, the member lists and their words staged,
+    # stream
+    lib.phc_sw_admm_flex.argtypes = [P] + [I] * 7 + [P, P, I, P]
     lib.phc_sw_admm_flex.restype = I
-    # the struct, warps, lanes a stage, staged, bmax, spc, cluster, place
-    lib.phc_sw_admm_max_clusters.argtypes = [P] + [I] * 7
+    # the struct, warps, lanes a stage, staged, bmax, spc, cluster, place,
+    # the member lists' words staged
+    lib.phc_sw_admm_max_clusters.argtypes = [P] + [I] * 8
     lib.phc_sw_admm_max_clusters.restype = I
 
 

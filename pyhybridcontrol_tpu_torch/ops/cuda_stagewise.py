@@ -43,17 +43,19 @@ memory, the path of the extra rows, and one of four variants. "shared"
 (the first design): one CTA a problem (a scenario), a group of S ≤ 8
 scenarios with a group mean (a tree node) one portable cluster, the
 scenario's z, y, l, u and buffers in shared memory.
-Where that does not fit, the FLEX variants of the same kernel:
-"grouped", a group of up to 16 scenarios one cluster of S CTAs (above 8
-a non-portable size) and above 16 scenarios ⌈S/16⌉ scenarios a CTA, each
-on its own share of the CTA's warps, the state still in shared memory;
-"global", z, y, l and u in device memory (a scratch the wrapper
-allocates); "global_all", also t, its M part, x, the consensus buffers and
-the horizon-sized constants. Each counts its launches under its own name
-(``ADMM_LAUNCH``). Up to 4 extra rows at bmax 8 and 16 the register
-path runs (library "stagewise"); more extra rows, or b above 16, run the
-runtime-r path ("stagewise_extra" at bmax 8 and 16, "stagewise_wide" at
-32 to 128, the wide row work there), whose Woodbury arrays (Aext and KiU,
+Where that does not fit, the FLEX variants of the same kernel, a group
+of S scenarios one portable cluster of ⌈S/spc⌉ CTAs, spc = ⌈S/8⌉
+scenarios a CTA, each on its own share of the CTA's warps (so that a B&B
+wave's clusters fit the card at once), the group mean over the members of
+a scenario's node alone (``group_members``, built once per prep): by
+where the state lies, "grouped", in shared memory; "global", z, y, l and
+u in device memory (a scratch the wrapper allocates); "global_all", also
+t, its M part, x, the consensus buffers and the horizon-sized constants.
+Each counts its launches under its own name (``ADMM_LAUNCH``). Up to 4
+extra rows at bmax 8 and 16 the register path runs (library
+"stagewise"); more extra rows, or b above 16, run the runtime-r path
+("stagewise_extra" at bmax 8 and 16, "stagewise_wide" at 32 to 128, the
+wide row work there), whose Woodbury arrays (Aext and KiU,
 Cw), whose J and Mc above bmax 16, and whose r-word vectors the plan
 moves to device memory in turn, the largest first, until the CTA fits
 (``AdmmPlan.ext``; ``EXT_*``). b above 128, or a shape that fits no
@@ -100,7 +102,9 @@ SWEEP_BMAX = (8, 16, 32, 64, 128)   # compiled bounds on the block size
 ADMM_BMAX = (8, 16, 32, 64, 128)   # K5's compiled bounds on the block size
 # the most threads a K5 CTA has (from bmax 16 the kernel's launch bound)
 ADMM_THREADS = {8: 512, 16: 256, 32: 256, 64: 256, 128: 256}
-ADMM_CLUSTER = 8                 # the shared variant's most scenarios a group
+# the most CTAs a portable cluster: the shared variant's most scenarios a
+# group, and a FLEX group's cluster where its slots hold a warp each
+ADMM_CLUSTER = 8
 ADMM_CLUSTER_MAX = 16            # the most CTAs a FLEX cluster (non-portable)
 ADMM_RMAX = 4                    # extra rows the register path takes
 # depths of the wide sweep's factor ring (blocks in flight), deepest first
@@ -303,8 +307,10 @@ class AdmmPlan:
     variant (``ADMM_LAUNCH``'s keys), the extra rows' path (0: the
     register path; else EXT_RT and the bits of what lies in device
     memory), the depth of a slot's factor ring (above bmax 16
-    unstaged; else 0) and, for the horizon variant (``cluster`` CTAs a
-    problem, one window each), whether it runs the parallel sweep."""
+    unstaged; else 0), for the horizon variant (``cluster`` CTAs a
+    problem, one window each) whether it runs the parallel sweep, and for
+    a FLEX variant with a group mean the words of the member lists
+    (``group_members``) its CTAs stage (0: read from device memory)."""
 
     bmax: int
     staged: bool
@@ -317,6 +323,7 @@ class AdmmPlan:
     ext: int = 0
     ring: int = 0
     parallel: bool = False
+    lists: int = 0
 
     @property
     def library(self) -> str:
@@ -397,16 +404,19 @@ def _flex_words(N, b, m, n_cons, mean, place, bmax=8):
 def flex_smem_bytes(N: int, b: int, m: int, n_blk: int, n_ext: int,
                     n_cons: int, mean: bool, warps: int, staged: bool,
                     bmax: int, spc: int, place: int, ext: int = 0,
-                    ring: int = 0) -> int:
+                    ring: int = 0, lists: int = 0, S: int = 1) -> int:
     """Shared memory of one CTA of a FLEX variant
     (``phc_sw_admm_flex_smem_bytes`` gives the same): the constants as the
     shared variant's (the ties, Aext and KiU only below place 2; no
-    group-mean weights: they are read from device memory), then ``spc``
-    slots of a scenario's shared arrays (``_flex_words``), its Woodbury
-    coefficient and sums or runtime-r vectors and its sweep warp's factor
-    ring of ``ring`` blocks; ``warps`` the CTA's."""
-    const = _const_words(N, b, m, n_blk, n_ext, staged, bmax, ext,
-                         hz=place < 2)
+    group-mean weights), the ``lists`` words of the group mean's member
+    lists it stages and, with a group mean, the address of each of the S
+    scenarios' consensus buffers (two words each), then ``spc`` slots of a
+    scenario's shared arrays (``_flex_words``), its Woodbury coefficient
+    and sums or runtime-r vectors and its sweep warp's factor ring of
+    ``ring`` blocks; ``warps`` the CTA's."""
+    const = (_const_words(N, b, m, n_blk, n_ext, staged, bmax, ext,
+                          hz=place < 2) + _pad4(lists)
+             + (_pad4(2 * S) if mean else 0))
     slot = (_flex_words(N, b, m, n_cons, mean, place, bmax)[0]
             + _vec_words(n_ext, ext)
             + (0 if ext else ADMM_RMAX * (warps // spc))
@@ -532,7 +542,8 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
               variant: Optional[str] = None,
               runtime_r: Optional[bool] = None, parallel: bool = False,
               tps: Optional[int] = None,
-              device: Optional[torch.device] = None) -> AdmmPlan:
+              device: Optional[torch.device] = None,
+              members: int = 0, spc: Optional[int] = None) -> AdmmPlan:
     """The instantiation K5 runs P problems with: horizon N, block b, m rows
     a stage, n_blk blocking rows and n_ext extra rows; with ``mean``, in
     groups of S scenarios (a group mean over the trailing n_cons rows), a
@@ -544,15 +555,20 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
     path, its arrays moved to device memory the largest first), and in
     each above bmax 16 unstaged the deepest factor ring of RING_DEPTHS
     that fits: the shared one (S ≤ 8); grouped, global, global_all
-    (module doc). The FLEX
-    variants deal a group over ⌈S/16⌉ scenarios a CTA, in a cluster of
-    ⌈S/spc⌉ CTAs. Where that picks "global" and ``horizon_applies``, the
+    (module doc). The FLEX variants deal a group over spc = ⌈S/8⌉
+    scenarios a CTA, in a portable cluster of ⌈S/spc⌉ ≤ 8 CTAs (above
+    S = 128, or 64 from bmax 16, where that leaves a slot less than a
+    warp: ⌈S/16⌉, a non-portable cluster of up to 16), with the group
+    mean's ``members`` words of member lists (``group_members``) staged
+    where they fit beside a candidate, else read from device memory.
+    Where that picks "global" and ``horizon_applies``, the
     horizon variant (``horizon_plan``; its cluster from the occupancy of
     a CUDA ``device``) where a window fits. ``parallel`` (the parallel
     sweep) plans the horizon variant alone. ``staged``,
-    ``variant``, ``runtime_r`` and ``tps`` force one: no path sets them,
-    ``chip_smoke.py`` holds the unstaged, the global-state and the
-    runtime-r instantiations with them at shapes the plan gives others.
+    ``variant``, ``runtime_r``, ``tps`` and ``spc`` force one: no path
+    sets them, ``chip_smoke.py`` holds the unstaged, the global-state,
+    the runtime-r instantiations and the grouped variant's earlier
+    placement (spc = ⌈S/16⌉) with them at shapes the plan gives others.
     Raises ValueError, with the shape, where nothing fits: there is no
     other path."""
     shape = (f"P={P}, N={N}, b={b}, m={m}, S={S}, n_blk={n_blk}, "
@@ -619,20 +635,33 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
                 f"needs {smem} bytes of shared memory a CTA, above the "
                 f"{SMEM_MAX} an sm_90 CTA has" if smem else
                 f"takes groups of at most {ADMM_CLUSTER} scenarios"))
-    spc = -(-S // ADMM_CLUSTER_MAX)
+    if spc is None:
+        # portable clusters, unless their slots would be under a warp
+        spc = -(-S // ADMM_CLUSTER)
+        if most // spc < 32:
+            spc = -(-S // ADMM_CLUSTER_MAX)
+    elif not 1 <= spc <= S or -(-S // spc) > ADMM_CLUSTER_MAX:
+        raise ValueError(f"{what}: {spc} scenarios a CTA give no cluster of "
+                         f"at most {ADMM_CLUSTER_MAX} CTAs")
     sub = most // spc // 32 * 32        # threads a scenario's slot
     if sub < 32:
         raise ValueError(f"{what}: {spc} scenarios a CTA leave less than a "
                          f"warp each")
     lanes, w = _lanes(N, sub, tps)
+    lists = members if mean else 0
     names = ADMM_PLACES if variant is None else (variant,)
     for name in names:
         for st in sts:
             for ext in exts:
                 for d in _ring_depths(bmax, st):
-                    smem = flex_smem_bytes(N, b, m, n_blk, n_ext, n_cons,
-                                           mean, w * spc, st, bmax, spc,
-                                           ADMM_PLACES[name], ext, d)
+                    # the member lists staged where they fit, else read
+                    # from device memory
+                    for ls in dict.fromkeys((lists, 0)):
+                        smem = flex_smem_bytes(
+                            N, b, m, n_blk, n_ext, n_cons, mean, w * spc,
+                            st, bmax, spc, ADMM_PLACES[name], ext, d, ls, S)
+                        if smem <= SMEM_MAX:
+                            break
                     if smem > SMEM_MAX:
                         continue
                     if name == "global" and variant is None and hz \
@@ -644,9 +673,62 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
                     return AdmmPlan(bmax=bmax, staged=st, warps=w * spc,
                                     tps=lanes, cluster=-(-S // spc),
                                     smem=smem, spc=spc, variant=name,
-                                    ext=ext, ring=d)
+                                    ext=ext, ring=d, lists=ls)
     raise ValueError(f"{what}: needs {smem} bytes of shared memory a CTA, "
                      f"above the {SMEM_MAX} an sm_90 CTA has")
+
+
+def group_members(M: torch.Tensor) -> torch.Tensor:
+    """The group mean of ``M`` (S, S, N; z_s,k = Σ_t M[s, t, k]·v_t,k) as
+    K5's FLEX variants read it: int32 words, exact for any M. The stages
+    fall into runs over which M[:, :, k] is bitwise equal; in a run, the
+    scenarios whose rows are bitwise equal (a tree's node) share one list
+    of their row's nonzero (t, weight) pairs in ascending t, the weight's
+    fp32 bits as they are in M. Words [0, N): for stage k, the offset o_k
+    of its run's block; block words o_k + 2s, o_k + 2s + 1: the words
+    [begin, end) of scenario s's list; the lists, two words a pair (t,
+    then the weight), every pair at an even word. Summing w·v over
+    a list in its order is the mean over all S scenarios in scenario order
+    with the zero weights left out."""
+    Mn = M.detach().to("cpu", torch.float32).contiguous().numpy()
+    S, _, N = Mn.shape
+    bits = Mn.view(np.uint32)
+    new = np.ones(N, bool)
+    new[1:] = (bits[:, :, 1:] != bits[:, :, :-1]).any(axis=(0, 1))
+    starts = np.flatnonzero(new)
+    head = _pad4(N)
+    pos = head + 2 * S * len(starts)
+    ranges = np.zeros((len(starts), S, 2), np.uint32)
+    pairs = []
+    for r, k in enumerate(starts):
+        seen = {}
+        for s in range(S):
+            key = bits[s, :, k].tobytes()
+            if key not in seen:
+                t = np.flatnonzero(Mn[s, :, k] != 0).astype(np.uint32)
+                pairs.append(np.stack([t, bits[s, t, k]], 1).ravel())
+                seen[key] = (pos, pos + pairs[-1].size)
+                pos += pairs[-1].size
+            ranges[r, s] = seen[key]
+    out = np.zeros(pos, np.uint32)
+    out[:N] = head + 2 * S * (np.cumsum(new) - 1)
+    out[head:head + ranges.size] = ranges.ravel()
+    if pairs:
+        out[head + ranges.size:] = np.concatenate(pairs)
+    return torch.from_numpy(out.view(np.int32)).to(M.device)
+
+
+def admm_members(sw, M: torch.Tensor) -> torch.Tensor:
+    """``group_members(M)`` on M's device, built once for the prep ``sw``
+    while M is the same tensor, unchanged in place (cached on the
+    prep)."""
+    key = ("k5_members", M.device)
+    got = sw.cache.get(key)
+    if got is not None and got[0] is M and got[1] == M._version:
+        return got[2]
+    lists = group_members(M)
+    sw.cache[key] = (M, M._version, lists)
+    return lists
 
 
 def admm_constants(sw) -> dict:
@@ -728,7 +810,8 @@ def admm_cluster_capacity(sw, args, pl: AdmmPlan) -> int:
         lib = load_library(pl.library)
         got = _held(lib, lib.phc_sw_admm_max_clusters(
             ctypes.addressof(args), pl.warps, pl.tps, int(pl.staged),
-            pl.bmax, pl.spc, pl.cluster, ADMM_PLACES[pl.variant]), pl)
+            pl.bmax, pl.spc, pl.cluster, ADMM_PLACES[pl.variant],
+            pl.lists), pl)
         sw.cache[key] = got
     return got
 
@@ -769,11 +852,25 @@ def horizon_capacity(N: int, b: int, m: int, pl: AdmmPlan,
     return got
 
 
+def _warn_waves(sw, pl: AdmmPlan, clusters: int, held: int) -> None:
+    """Warns, once for the plan ``pl`` and this count on the prep ``sw``,
+    where a launch's ``clusters`` exceed the ``held`` the card runs at
+    once: the launch runs in more than one wave."""
+    key = ("k5_waves", pl, clusters)
+    if clusters <= held or key in sw.cache:
+        return
+    sw.cache[key] = True
+    warnings.warn(
+        f"K5 ({pl.variant}): {clusters} clusters of {pl.cluster} CTAs, the "
+        f"card holds {held} at once: {-(-clusters // held)} waves",
+        stacklevel=3)
+
+
 def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
                  consensus_M=None, staged: Optional[bool] = None,
                  variant: Optional[str] = None,
                  runtime_r: Optional[bool] = None, parallel: bool = False,
-                 tps: Optional[int] = None):
+                 tps: Optional[int] = None, spc: Optional[int] = None):
     """K5 on the card: ``iters`` stagewise ADMM iterations of the prep
     ``sw`` in one launch, from the warm carries. x and q (…, N, b), z, y,
     l and u (…, N, m_k) with one batch (z already inside [l, u]); with
@@ -781,14 +878,15 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
     the group mean over the last batch axis (S scenarios); ``parallel``
     the horizon variant's parallel sweep (``_admm_iterations`` with
     ``_solve_K_windowed`` on the plan's windows is its plain version);
-    ``staged``, ``variant``, ``runtime_r`` and ``tps`` force one
+    ``staged``, ``variant``, ``runtime_r``, ``tps`` and ``spc`` force one
     instantiation (``plan_admm``). Returns (x, z, y, dy, z_e, y_e, dy_e)
     as ``ops/stagewise._admm_iterations`` does. Checks, allocates the
     outputs (and a FLEX variant's scratch, and the runtime-r vectors'
-    where they lie in device memory), checks a FLEX cluster with a group
-    mean against the card's occupancy, warns where a horizon plan's P
-    clusters exceed what the card holds at once (more than one wave), and
-    launches once."""
+    where they lie in device memory), builds a FLEX variant's member
+    lists of ``consensus_M`` once (``admm_members``), checks a FLEX cluster
+    with a group mean against the card's occupancy, warns once a plan
+    where its clusters (a horizon plan's P, a group mean's P/S) exceed what
+    the card holds at once (more than one wave), and launches once."""
     from pyhybridcontrol_tpu_torch.ops._build import load_library
 
     dev = x.device
@@ -816,8 +914,13 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
     c = admm_constants(sw)
     for name, f in zip(("L", "Uinv", "C"), sw.factors):
         _check(name, f, (N, b, b), dev)
+    gM = consensus_M.float().contiguous() if mean else None
+    if mean:
+        _check("consensus_M", gM, (S, S, N), dev)
+    members = admm_members(sw, gM) if mean else None
     pl = plan_admm(P, N, b, m, S, sw.n_blk, r, sw.n_cons, mean, staged,
-                   variant, runtime_r, parallel, tps, dev)
+                   variant, runtime_r, parallel, tps, dev,
+                   0 if members is None else members.numel(), spc)
     out = [torch.empty((P, N, b), dtype=torch.float32, device=dev)]
     out += [torch.empty((P, N, m), dtype=torch.float32, device=dev)
             for _ in range(3)]
@@ -827,9 +930,6 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
                    ext_u=flat("ext_u", ext_u, (r,)))
         ext.update({k: torch.empty((P, r), dtype=torch.float32, device=dev)
                     for k in ("ze", "ye", "dye")})
-    gM = consensus_M.float().contiguous() if mean else None
-    if mean:
-        _check("consensus_M", gM, (S, S, N), dev)
     ext_ws = (torch.empty(P * ext_scratch_words(r), dtype=torch.float32,
                           device=dev) if pl.ext & EXT_VEC else None)
     LUC = c["wide"].unbind(0) if pl.bmax > 16 else sw.factors
@@ -855,12 +955,7 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
 
             maps = (window_maps(sw, horizon_windows(N, pl.cluster))
                     if pl.parallel else (None, None))
-            held = horizon_capacity(N, b, m, pl, dev)
-            if P > held:
-                warnings.warn(
-                    f"K5 (horizon): {P} clusters of {pl.cluster} CTAs, the "
-                    f"card holds {held} at once: {-(-P // held)} waves",
-                    stacklevel=2)
+            _warn_waves(sw, pl, P, horizon_capacity(N, b, m, pl, dev))
             rc = lib.phc_sw_admm_horizon(
                 ctypes.addressof(args), _ptr(maps[0]), _ptr(maps[1]),
                 pl.warps, pl.tps, int(pl.staged), pl.bmax, pl.cluster,
@@ -868,7 +963,8 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
         else:
             place = ADMM_PLACES[pl.variant]
             if mean:
-                admm_cluster_capacity(sw, args, pl)
+                _warn_waves(sw, pl, P // S,
+                            admm_cluster_capacity(sw, args, pl))
             scratch = torch.empty(
                 P * flex_scratch_words(N, b, m, sw.n_cons, mean, place,
                                        pl.bmax)
@@ -876,7 +972,8 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
             rc = lib.phc_sw_admm_flex(
                 ctypes.addressof(args), pl.warps, pl.tps, int(pl.staged),
                 pl.bmax, pl.spc, pl.cluster, place,
-                _ptr(scratch if place else None), ctypes.c_void_p(stream))
+                _ptr(scratch if place else None), _ptr(members), pl.lists,
+                ctypes.c_void_p(stream))
     _raise_on(lib, rc, f"K5 (stagewise ADMM, {pl.variant})")
     _count_launch(ADMM_LAUNCH[pl.variant], P)
     shapes = ((N, b), (N, m), (N, m), (N, m))

@@ -592,7 +592,9 @@ def test_admm_plan_keeps_every_shape_that_planned(key):
 # arm with 9 to 64 scenarios (a wave of 8 nodes); and the variant, spc
 # and cluster the plan picks (where it picked the global variant, one
 # scenario with no extra rows, the horizon variant: one problem a cluster
-# of C windows, tests/test_torch_stagewise_horizon.py)
+# of C windows, tests/test_torch_stagewise_horizon.py; a group, ⌈S/8⌉
+# scenarios a CTA in a portable cluster, in device memory at S=64 where 8
+# slots do not fit a CTA's shared memory)
 REACHED = {
     "di_N704": ((64, 704, 5, 17, 1, 0, 0, 0, False), ("horizon", 1, 2)),
     "di_N1000": ((64, 1000, 5, 17, 1, 0, 0, 0, False), ("horizon", 1, 2)),
@@ -606,24 +608,24 @@ REACHED = {
                    ("horizon", 1, 8)),
     "hull_N20000": ((64, 20000, 13, 49, 1, 0, 0, 0, False),
                     ("global_all", 1, 1)),
-    "tree_S9": ((72, 120, 5, 19, 9, 0, 1, 2, True), ("grouped", 1, 9)),
-    "tree_S16": ((128, 120, 5, 19, 16, 0, 1, 2, True), ("grouped", 1, 16)),
-    "tree_S27": ((216, 120, 5, 19, 27, 0, 1, 2, True), ("grouped", 2, 14)),
-    "tree_S64": ((512, 120, 5, 19, 64, 0, 1, 2, True), ("grouped", 4, 16)),
+    "tree_S9": ((72, 120, 5, 19, 9, 0, 1, 2, True), ("grouped", 2, 5)),
+    "tree_S16": ((128, 120, 5, 19, 16, 0, 1, 2, True), ("grouped", 2, 8)),
+    "tree_S27": ((216, 120, 5, 19, 27, 0, 1, 2, True), ("grouped", 4, 7)),
+    "tree_S64": ((512, 120, 5, 19, 64, 0, 1, 2, True), ("global", 8, 8)),
     "tree_S64_N2000": ((512, 2000, 5, 19, 64, 0, 1, 2, True),
-                       ("global_all", 4, 16)),
+                       ("global_all", 8, 8)),
 }
 
 
 @pytest.mark.parametrize("key", list(REACHED))
 def test_admm_plan_reaches_every_horizon_and_group(key):
     """The plan of each shape the shared variant refused: a FLEX variant
-    whose CTA fits, a cluster of at most 16 CTAs whose slots cover the
-    group with no CTA left empty, whole warps a slot, every stage's lanes
-    in one round of a slot's threads, and the shared memory of
-    ``flex_smem_bytes``. Where the plan takes the horizon variant, the
-    global variant it replaced still plans, forced, as before, and the
-    same checks hold of it."""
+    whose CTA fits, a portable cluster (at most 8 CTAs) whose slots cover
+    the group with no CTA left empty, whole warps a slot, every stage's
+    lanes in one round of a slot's threads or one lane a stage, and the
+    shared memory of ``flex_smem_bytes``. Where the plan takes the horizon
+    variant, the global variant it replaced still plans, forced, as
+    before, and the same checks hold of it."""
     shape, want = REACHED[key]
     P, N_, b, m, S, n_blk, n_ext, n_cons, mean = shape
     pl = cs.plan_admm(*shape)
@@ -635,7 +637,7 @@ def test_admm_plan_reaches_every_horizon_and_group(key):
         forced = "global"
         pl = cs.plan_admm(*shape, variant=forced)
         assert (pl.variant, pl.spc, pl.cluster) == ("global", 1, 1)
-    assert pl.cluster <= cs.ADMM_CLUSTER_MAX
+    assert pl.cluster <= cs.ADMM_CLUSTER
     assert pl.cluster * pl.spc >= S > (pl.cluster - 1) * pl.spc
     assert pl.warps % pl.spc == 0
     assert 32 * pl.warps <= cs.ADMM_THREADS[pl.bmax]
@@ -644,14 +646,15 @@ def test_admm_plan_reaches_every_horizon_and_group(key):
     assert (N_ * pl.tps <= slot) or pl.tps == 1
     assert pl.smem == cs.flex_smem_bytes(
         N_, b, m, n_blk, n_ext, n_cons, mean, pl.warps, pl.staged, pl.bmax,
-        pl.spc, cs.ADMM_PLACES[pl.variant]) <= ca.SMEM_MAX
-    # the plan depends on the shapes alone, not on how many groups
+        pl.spc, cs.ADMM_PLACES[pl.variant], S=S) <= ca.SMEM_MAX
+    # the plan depends on the shapes alone, not on how many groups: one
+    # wave wherever the card holds the launch's P/S portable clusters
     assert cs.plan_admm(S, *shape[1:], variant=forced) == pl
     # an earlier place of the same factors would not have fit
     for place in range(cs.ADMM_PLACES[pl.variant]):
         assert cs.flex_smem_bytes(N_, b, m, n_blk, n_ext, n_cons, mean,
                                   pl.warps, pl.staged, pl.bmax, pl.spc,
-                                  place) > ca.SMEM_MAX
+                                  place, S=S) > ca.SMEM_MAX
 
 
 @pytest.mark.parametrize("S", [9, 16, 27, 64])
@@ -864,11 +867,12 @@ def test_admm_smem_mirrors_the_kernel_source():
         assert f"\n{'long long' if 'scratch' in fn else 'int'} {fn}(" in src
         assert f"lib.{fn}.argtypes" in bind
     # the slot's words (config 6's tree at S=64, four scenarios a CTA, four
-    # warps each): constants 3·3000 + 2·152 + 2·600 + 4 + 4, and a slot's
+    # warps each): constants 3·3000 + 2·152 + 2·600 + 4 + 4, the member
+    # lists' 1912, the 64 peers' buffer addresses 2·64, and a slot's
     # z/y/l/u 4·2280, t/mb/x 3·600, the consensus buffers 2·240, 4·(1 + 4)
     assert cs.flex_smem_bytes(120, 5, 19, 0, 1, 2, True, 16, True, 8, 4,
-                              0) == \
-        4 * (10512 + 4 * (9120 + 1800 + 480 + 20))
+                              0, lists=1912, S=64) == \
+        4 * (10512 + 1912 + 128 + 4 * (9120 + 1800 + 480 + 20))
     assert cs.flex_scratch_words(120, 5, 19, 2, True, 1) == 9120
     assert cs.flex_scratch_words(120, 5, 19, 2, True, 2) == 9120 + 1800 + 480
     assert cs.ADMM_THREADS == {8: 512, 16: 256, 32: 256, 64: 256, 128: 256}

@@ -338,7 +338,7 @@ RING_PLANS = {
     "b128": ((8, 24, 128, 482, 1, 0, 35, 0, False), ("global", 2, 37584)),
     "b20_shared": ((8, 8, 20, 77, 1, 0, 6, 0, False), ("shared", 0, 72944)),
     "omega_tree": ((128, 24, 20, 76, 16, 0, 4, 4, True),
-                   ("grouped", 0, 185872)),
+                   ("grouped", 0, 229072)),
 }
 
 
@@ -360,7 +360,7 @@ def test_wide_plan_ring_depth_and_bytes(key):
     else:
         bare = cs.flex_smem_bytes(N, b, m, n_blk, n_ext, n_cons, mean,
                                   pl.warps, pl.staged, pl.bmax, pl.spc,
-                                  cs.ADMM_PLACES[pl.variant], pl.ext)
+                                  cs.ADMM_PLACES[pl.variant], pl.ext, S=S)
     assert bare == held
     if depth:
         assert cs.ring_words(depth, b) == 2 * depth + depth * b * b

@@ -27,7 +27,8 @@ tree.
 
 ``--flex`` stamps the narrow iteration as the default mode does, at each
 shape of ``chip_smoke.flex_waves`` (the ``long_horizon`` waves on the
-global variant, forced, the ``wide_tree`` waves on the grouped one), and
+global variant, forced, the ``wide_tree`` waves on their plan and at the
+grouped variant's earlier placement, ⌈S/16⌉ scenarios a CTA), and
 also the sweep inside ``sweep_rows`` (its forward and backward halves,
 cycles a stage); one relaxation (the wave's cold launch) at each. Then it
 stamps the horizon variant (``csrc/stagewise_horizon.cu``) at the two
@@ -534,30 +535,36 @@ def flex_main() -> int:
         with cs.k5_calls() as calls:
             be.solve(fb, hb, lb, ub, cs.K5_RELAX)
         args = calls[0]
-        variant = "global" if key in ("di", "hull") else None
-        P, pl = cs.k5_plan_of(args, variant)
-        ms = cs.kernel_ms(lambda: cst.sw_admm_cuda(*args, variant=variant))
-        zero = (ctypes.c_longlong * 3)()
-        lib.phc_k5_sweep(ctypes.addressof(zero), 1)
-        cst.sw_admm_cuda(*args, variant=variant)
-        torch.cuda.synchronize()
-        sweep = (ctypes.c_longlong * 3)()
-        lib.phc_k5_sweep(ctypes.addressof(sweep), 0)
-        stamps = (ctypes.c_longlong * 8)()
-        lib.phc_k5_phases(ctypes.addressof(stamps))
-        it, N = args[10], args[0].N
-        n = max(sweep[2], 1)
-        print(f"{tag} ({pl.variant}, bmax {pl.bmax}, tps {pl.tps}, "
-              f"{32 * pl.warps} threads), {it} iterations: "
-              f"{1e3 * ms / it:.2f} us an iteration (stamped kernel "
-              f"alone); cycles an iteration: " + ", ".join(
-                  f"{nm} {stamps[i] / it:.0f}"
-                  for i, nm in enumerate(PHASES))
-              + f"; all {stamps[6] / it:.0f}; in sweep_rows: forward "
-              f"{sweep[0] / n:.0f} ({sweep[0] / n / N:.1f} a stage), "
-              f"backward {sweep[1] / n:.0f} ({sweep[1] / n / N:.1f} a "
-              f"stage) over {sweep[2]} sweeps (SM clock now {sm_clock()})",
-              flush=True)
+        # the long horizons on the global variant; the trees on their plan
+        # and at the grouped variant's earlier placement (⌈S/16⌉
+        # scenarios a CTA)
+        runs = [dict(variant="global")] if key in ("di", "hull") else [
+            {}, dict(variant="grouped", spc=-(-args[11].shape[0] // 16))]
+        for kw in runs:
+            P, pl = cs.k5_plan_of(args, **kw)
+            ms = cs.kernel_ms(lambda: cst.sw_admm_cuda(*args, **kw))
+            zero = (ctypes.c_longlong * 3)()
+            lib.phc_k5_sweep(ctypes.addressof(zero), 1)
+            cst.sw_admm_cuda(*args, **kw)
+            torch.cuda.synchronize()
+            sweep = (ctypes.c_longlong * 3)()
+            lib.phc_k5_sweep(ctypes.addressof(sweep), 0)
+            stamps = (ctypes.c_longlong * 8)()
+            lib.phc_k5_phases(ctypes.addressof(stamps))
+            it, N = args[10], args[0].N
+            n = max(sweep[2], 1)
+            print(f"{tag} ({pl.variant}, bmax {pl.bmax}, tps {pl.tps}, "
+                  f"{32 * pl.warps} threads, {pl.spc} scenario(s) a CTA, "
+                  f"clusters of {pl.cluster}), {it} iterations: "
+                  f"{1e3 * ms / it:.2f} us an iteration (stamped kernel "
+                  f"alone); cycles an iteration: " + ", ".join(
+                      f"{nm} {stamps[i] / it:.0f}"
+                      for i, nm in enumerate(PHASES))
+                  + f"; all {stamps[6] / it:.0f}; in sweep_rows: forward "
+                  f"{sweep[0] / n:.0f} ({sweep[0] / n / N:.1f} a stage), "
+                  f"backward {sweep[1] / n:.0f} ({sweep[1] / n / N:.1f} a "
+                  f"stage) over {sweep[2]} sweeps (SM clock now "
+                  f"{sm_clock()})", flush=True)
     horizon_stamps(dev)
     return 0
 

@@ -69,9 +69,18 @@ from it, in the variant each tree's plan takes there (the global variant
 in the parent, the horizon variant's sequential sweep here, forced at the
 parent's lanes a stage, the global plan's), each alone at 20 and 150
 iterations; where the tree has the horizon variant, also at its plan's
-lanes and in its parallel sweep. It reports, against the first parent
-run, whether the seven carries of each launch are bitwise equal and
-whether the inputs were.
+lanes and in its parallel sweep; at the wide trees' waves (config 6's
+tree at S = 16, 27, 64) the same two launches at the grouped variant's
+placement of the parent (⌈S/16⌉ scenarios a CTA: the parent's plan, forced
+in a tree whose plan deals portable clusters), each alone at 20 and 150
+iterations, and in such a tree also its plan's (with the clusters the card
+holds at once); then each wide tree's stagewise tree MIQP solved four
+times (``chip_smoke.py``'s ``wide_tree``: a warm-up and three on the host
+clock, its objective, found flag, nodes and waves, the last one's K5
+launches, iterations and CUDA-event time) and once more under
+torch.profiler (the idle share against that run's wall time). It
+reports, against the first parent run, whether the seven carries of each
+launch are bitwise equal and whether the inputs were.
 
 Prints one JSON line per run and a table at the end.
 """
@@ -384,7 +393,7 @@ print("WIDE " + json.dumps(res), flush=True)
 
 
 FLEX_WORKER = r"""
-import hashlib, json, sys
+import hashlib, json, sys, time
 import torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
@@ -406,9 +415,37 @@ def digest(ts):
     return h.hexdigest()[:16]
 
 
+# a tree whose cuda_stagewise builds member lists has the grouped plan of
+# portable clusters; the parent's placement is then forced (⌈S/16⌉
+# scenarios a CTA, the grouped variant)
+members = hasattr(k, "group_members")
 for tag, key, be, fb, hb, lb, ub, _ in cs.flex_waves(
         dev, cs.phase_rng("kernel_ab_flex")):
-    if key not in ("di", "hull"):
+    if key.startswith("tree"):
+        with cs.k5_calls() as calls:
+            be.solve(fb, hb, lb, ub, cs.K5_RELAX)
+        args = calls[0]
+        sw, S = args[0], args[11].shape[0]
+        kw = dict(variant="grouped", spc=-(-S // 16)) if members else {}
+        relax = k.sw_admm_cuda(*args, **kw)
+        held = cs.with_warm(args, relax, 20)
+        saved[tag + ", K5 relaxation at the parent's placement"] = relax
+        saved[tag + ", K5 20 it warm at the parent's placement"] = \
+            k.sw_admm_cuda(*held, **kw)
+        P, pl = cs.k5_plan_of(args)
+        r = res[tag] = dict(
+            inputs=digest(list(args[1:10]) + list(sw.factors) + [args[11]]),
+            plan=str(pl),
+            k5_20_ms=cs.kernel_ms(lambda: k.sw_admm_cuda(*held, **kw), 7),
+            k5_relax_ms=cs.kernel_ms(lambda: k.sw_admm_cuda(*args, **kw), 3))
+        if members:
+            r["k5_20_ms_plan"] = cs.kernel_ms(
+                lambda: k.sw_admm_cuda(*held), 7)
+            r["k5_relax_ms_plan"] = cs.kernel_ms(
+                lambda: k.sw_admm_cuda(*args), 3)
+            r["held"] = [v for c, v in sw.cache.items()
+                         if c[0] == "k5_clusters"]
+        print(tag, json.dumps(r), flush=True)
         continue
     with cs.k5_calls() as calls:
         be.solve(fb, hb, lb, ub, cs.K5_RELAX)
@@ -432,6 +469,40 @@ for tag, key, be, fb, hb, lb, ub, _ in cs.flex_waves(
             r[f"k5_relax_ms_{name}"] = cs.kernel_ms(
                 lambda: k.sw_admm_cuda(*args, **kw2), 3)
     print(tag, json.dumps(r), flush=True)
+from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+    assemble_stagewise_tree, assemble_stagewise_tree_ext,
+    solve_tree_miqp_stagewise)
+from pyhybridcontrol_tpu_torch.profile_serve import profile_request
+from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+x0 = torch.tensor(cs.X0_6, device=dev)
+for S, steps in cs.WIDE_TREES:
+    swt, swtp = cs.config6_preps(dev, cs.wide_tree(S, steps),
+                                 cs.config6_extra(cs.CFG6_N))
+    data = assemble_stagewise_tree(swt, x0)
+    eu = assemble_stagewise_tree_ext(swt, x0)
+    def solve():
+        return solve_tree_miqp_stagewise(swt, *data, BnbSpec(**cs.WIDE_SPEC),
+                                         swt_probe=swtp, ext_u=eu)
+
+    secs = []
+    for rep in range(4):             # a warm-up, then three timed
+        with cs.k5_launch_log() as log:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = solve()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    prof = profile_request(solve)
+    res[f"wide_tree S={S}"] = dict(
+        solve_s=secs[1:], obj=float(got.obj), found=bool(got.found),
+        nodes=int(got.nodes_solved), waves=int(got.waves),
+        k5_launches=len(log), k5_iters=sum(r["iters"] for r in log),
+        k5_event_ms=sum(r["ms"] for r in log),
+        profiled_wall_ms=prof["wall_ms"],
+        idle_share=1.0 - prof["device_busy_ms"] / prof["wall_ms"])
+    print(f"wide_tree S={S}", json.dumps(res[f"wide_tree S={S}"]),
+          flush=True)
 torch.save({key: tuple(None if v is None else v.cpu() for v in val)
             for key, val in saved.items()}, sys.argv[1])
 print("FLEX " + json.dumps(res), flush=True)
@@ -494,7 +565,7 @@ def main_wide(trees, gpu, worker=WIDE_WORKER, marker="WIDE",
           f"change / parent")
     base, differ = runs[0], 0
     for tag in base[1]:
-        if tag == "battery_fleet":
+        if tag == "battery_fleet" or tag.startswith("wide_tree"):
             continue
         r = [res[tag] for _, res, _ in runs]
         for key in ("k4_ms", "k5_20_ms", "k5_relax_ms"):
@@ -514,10 +585,10 @@ def main_wide(trees, gpu, worker=WIDE_WORKER, marker="WIDE",
             verdict = bitwise(val, outs[key])
             differ += verdict != "bitwise"
             print(f"  {key}: {name} vs parent: {verdict}")
-    if "battery_fleet" in base[1]:
-        print("  battery_fleet: " + " | ".join(
-            f"{name} {json.dumps(res['battery_fleet'])}"
-            for name, res, _ in runs))
+    for tag in base[1]:
+        if tag == "battery_fleet" or tag.startswith("wide_tree"):
+            print(f"  {tag}: " + " | ".join(
+                f"{name} {json.dumps(res[tag])}" for name, res, _ in runs))
     print("every output bitwise the parent's" if not differ
           else f"{differ} outputs or inputs differ")
     return 1 if differ else 0
