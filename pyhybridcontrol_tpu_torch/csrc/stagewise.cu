@@ -1255,11 +1255,13 @@ __device__ inline float member_sum(const int* ml, int q0, int q1,
 }
 
 // the first of the scenarios s0 … s of a CTA whose member list at stage k
-// is scenario s's (the scenarios of one node share one list)
+// is scenario s's (the scenarios of one node share one list): both words,
+// in one load, since an empty list (an all-zero row) begins where the
+// next one does
 __device__ inline int node_first(const int* ml, int k, int s, int s0) {
-  const int* run = ml + ml[k];
-  const int q0 = run[2 * s];
-  while (run[2 * s0] != q0) ++s0;
+  const int2* run = reinterpret_cast<const int2*>(ml + ml[k]);
+  const int2 q = run[s];
+  while (run[s0].x != q.x || run[s0].y != q.y) ++s0;
   return s0;
 }
 

@@ -46,7 +46,8 @@ scenario's z, y, l, u and buffers in shared memory.
 Where that does not fit, the FLEX variants of the same kernel, a group
 of S scenarios one portable cluster of ⌈S/spc⌉ CTAs, spc = ⌈S/8⌉
 scenarios a CTA, each on its own share of the CTA's warps (so that a B&B
-wave's clusters fit the card at once), the group mean over the members of
+wave's clusters fit the card at once; ⌈S/16⌉, a cluster of up to 16, where
+a slot would be under a warp or no place fits), the group mean over the members of
 a scenario's node alone (``group_members``, built once per prep): by
 where the state lies, "grouped", in shared memory; "global", z, y, l and
 u in device memory (a scratch the wrapper allocates); "global_all", also
@@ -556,10 +557,11 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
     each above bmax 16 unstaged the deepest factor ring of RING_DEPTHS
     that fits: the shared one (S ≤ 8); grouped, global, global_all
     (module doc). The FLEX variants deal a group over spc = ⌈S/8⌉
-    scenarios a CTA, in a portable cluster of ⌈S/spc⌉ ≤ 8 CTAs (above
-    S = 128, or 64 from bmax 16, where that leaves a slot less than a
-    warp: ⌈S/16⌉, a non-portable cluster of up to 16), with the group
-    mean's ``members`` words of member lists (``group_members``) staged
+    scenarios a CTA, in a portable cluster of ⌈S/spc⌉ ≤ 8 CTAs (where
+    that leaves a slot less than a warp, above S = 128 or 64 from bmax 16,
+    or where no place fits its slots, as a slot's own factor ring above
+    bmax 32 may not: ⌈S/16⌉, a non-portable cluster of up to 16), with the
+    group mean's ``members`` words of member lists (``group_members``) staged
     where they fit beside a candidate, else read from device memory.
     Where that picks "global" and ``horizon_applies``, the
     horizon variant (``horizon_plan``; its cluster from the occupancy of
@@ -635,45 +637,51 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
                 f"needs {smem} bytes of shared memory a CTA, above the "
                 f"{SMEM_MAX} an sm_90 CTA has" if smem else
                 f"takes groups of at most {ADMM_CLUSTER} scenarios"))
-    if spc is None:
-        # portable clusters, unless their slots would be under a warp
-        spc = -(-S // ADMM_CLUSTER)
-        if most // spc < 32:
-            spc = -(-S // ADMM_CLUSTER_MAX)
-    elif not 1 <= spc <= S or -(-S // spc) > ADMM_CLUSTER_MAX:
-        raise ValueError(f"{what}: {spc} scenarios a CTA give no cluster of "
-                         f"at most {ADMM_CLUSTER_MAX} CTAs")
-    sub = most // spc // 32 * 32        # threads a scenario's slot
-    if sub < 32:
-        raise ValueError(f"{what}: {spc} scenarios a CTA leave less than a "
-                         f"warp each")
-    lanes, w = _lanes(N, sub, tps)
+    if spc is not None:
+        if not 1 <= spc <= S or -(-S // spc) > ADMM_CLUSTER_MAX:
+            raise ValueError(f"{what}: {spc} scenarios a CTA give no "
+                             f"cluster of at most {ADMM_CLUSTER_MAX} CTAs")
+        spcs = (spc,)
+    else:
+        # portable clusters where their slots hold a warp each and some
+        # place fits, else clusters of up to 16
+        spcs = tuple(dict.fromkeys((-(-S // ADMM_CLUSTER),
+                                    -(-S // ADMM_CLUSTER_MAX))))
     lists = members if mean else 0
     names = ADMM_PLACES if variant is None else (variant,)
-    for name in names:
-        for st in sts:
-            for ext in exts:
-                for d in _ring_depths(bmax, st):
-                    # the member lists staged where they fit, else read
-                    # from device memory
-                    for ls in dict.fromkeys((lists, 0)):
-                        smem = flex_smem_bytes(
-                            N, b, m, n_blk, n_ext, n_cons, mean, w * spc,
-                            st, bmax, spc, ADMM_PLACES[name], ext, d, ls, S)
-                        if smem <= SMEM_MAX:
-                            break
-                    if smem > SMEM_MAX:
-                        continue
-                    if name == "global" and variant is None and hz \
-                            and not ext:
-                        got = horizon_plan(P, N, b, m, staged, False,
-                                           tps, device)
-                        if got is not None:
-                            return got
-                    return AdmmPlan(bmax=bmax, staged=st, warps=w * spc,
-                                    tps=lanes, cluster=-(-S // spc),
-                                    smem=smem, spc=spc, variant=name,
-                                    ext=ext, ring=d, lists=ls)
+    for spc in spcs:
+        sub = most // spc // 32 * 32        # threads a scenario's slot
+        if sub < 32:
+            if spc == spcs[-1]:
+                raise ValueError(f"{what}: {spc} scenarios a CTA leave "
+                                 f"less than a warp each")
+            continue
+        lanes, w = _lanes(N, sub, tps)
+        for name in names:
+            for st in sts:
+                for ext in exts:
+                    for d in _ring_depths(bmax, st):
+                        # the member lists staged where they fit, else
+                        # read from device memory
+                        for ls in dict.fromkeys((lists, 0)):
+                            smem = flex_smem_bytes(
+                                N, b, m, n_blk, n_ext, n_cons, mean,
+                                w * spc, st, bmax, spc, ADMM_PLACES[name],
+                                ext, d, ls, S)
+                            if smem <= SMEM_MAX:
+                                break
+                        if smem > SMEM_MAX:
+                            continue
+                        if name == "global" and variant is None and hz \
+                                and not ext:
+                            got = horizon_plan(P, N, b, m, staged, False,
+                                               tps, device)
+                            if got is not None:
+                                return got
+                        return AdmmPlan(bmax=bmax, staged=st, warps=w * spc,
+                                        tps=lanes, cluster=-(-S // spc),
+                                        smem=smem, spc=spc, variant=name,
+                                        ext=ext, ring=d, lists=ls)
     raise ValueError(f"{what}: needs {smem} bytes of shared memory a CTA, "
                      f"above the {SMEM_MAX} an sm_90 CTA has")
 

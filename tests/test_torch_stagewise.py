@@ -594,7 +594,8 @@ def test_admm_plan_keeps_every_shape_that_planned(key):
 # scenario with no extra rows, the horizon variant: one problem a cluster
 # of C windows, tests/test_torch_stagewise_horizon.py; a group, ⌈S/8⌉
 # scenarios a CTA in a portable cluster, in device memory at S=64 where 8
-# slots do not fit a CTA's shared memory)
+# slots do not fit a CTA's shared memory; above bmax 32, where no place
+# holds ⌈S/8⌉ slots' factor rings, ⌈S/16⌉ in a cluster of 16)
 REACHED = {
     "di_N704": ((64, 704, 5, 17, 1, 0, 0, 0, False), ("horizon", 1, 2)),
     "di_N1000": ((64, 1000, 5, 17, 1, 0, 0, 0, False), ("horizon", 1, 2)),
@@ -614,14 +615,19 @@ REACHED = {
     "tree_S64": ((512, 120, 5, 19, 64, 0, 1, 2, True), ("global", 8, 8)),
     "tree_S64_N2000": ((512, 2000, 5, 19, 64, 0, 1, 2, True),
                        ("global_all", 8, 8)),
+    "tree_b64_S64": ((512, 120, 64, 258, 64, 0, 1, 2, True),
+                     ("global_all", 4, 16)),
+    "tree_b128_S16": ((128, 24, 128, 258, 16, 0, 1, 2, True),
+                      ("global", 1, 16)),
 }
 
 
 @pytest.mark.parametrize("key", list(REACHED))
 def test_admm_plan_reaches_every_horizon_and_group(key):
     """The plan of each shape the shared variant refused: a FLEX variant
-    whose CTA fits, a portable cluster (at most 8 CTAs) whose slots cover
-    the group with no CTA left empty, whole warps a slot, every stage's
+    whose CTA fits, a portable cluster (at most 8 CTAs; up to 16, at
+    ⌈S/16⌉ scenarios a CTA, only where no place fits ⌈S/8⌉) whose slots
+    cover the group with no CTA left empty, whole warps a slot, every stage's
     lanes in one round of a slot's threads or one lane a stage, and the
     shared memory of ``flex_smem_bytes``. Where the plan takes the horizon
     variant, the global variant it replaced still plans, forced, as
@@ -637,7 +643,14 @@ def test_admm_plan_reaches_every_horizon_and_group(key):
         forced = "global"
         pl = cs.plan_admm(*shape, variant=forced)
         assert (pl.variant, pl.spc, pl.cluster) == ("global", 1, 1)
-    assert pl.cluster <= cs.ADMM_CLUSTER
+    wide = -(-S // cs.ADMM_CLUSTER)
+    if pl.spc == wide:
+        assert pl.cluster <= cs.ADMM_CLUSTER
+    else:
+        assert pl.spc == -(-S // cs.ADMM_CLUSTER_MAX)
+        assert pl.cluster <= cs.ADMM_CLUSTER_MAX
+        with pytest.raises(ValueError, match="shared memory"):
+            cs.plan_admm(*shape, spc=wide)
     assert pl.cluster * pl.spc >= S > (pl.cluster - 1) * pl.spc
     assert pl.warps % pl.spc == 0
     assert 32 * pl.warps <= cs.ADMM_THREADS[pl.bmax]
@@ -646,7 +659,8 @@ def test_admm_plan_reaches_every_horizon_and_group(key):
     assert (N_ * pl.tps <= slot) or pl.tps == 1
     assert pl.smem == cs.flex_smem_bytes(
         N_, b, m, n_blk, n_ext, n_cons, mean, pl.warps, pl.staged, pl.bmax,
-        pl.spc, cs.ADMM_PLACES[pl.variant], S=S) <= ca.SMEM_MAX
+        pl.spc, cs.ADMM_PLACES[pl.variant], pl.ext, pl.ring,
+        S=S) <= ca.SMEM_MAX
     # the plan depends on the shapes alone, not on how many groups: one
     # wave wherever the card holds the launch's P/S portable clusters
     assert cs.plan_admm(S, *shape[1:], variant=forced) == pl
@@ -654,7 +668,8 @@ def test_admm_plan_reaches_every_horizon_and_group(key):
     for place in range(cs.ADMM_PLACES[pl.variant]):
         assert cs.flex_smem_bytes(N_, b, m, n_blk, n_ext, n_cons, mean,
                                   pl.warps, pl.staged, pl.bmax, pl.spc,
-                                  place, S=S) > ca.SMEM_MAX
+                                  place, pl.ext, pl.ring,
+                                  S=S) > ca.SMEM_MAX
 
 
 @pytest.mark.parametrize("S", [9, 16, 27, 64])

@@ -10,6 +10,7 @@ package's ``_group_mean`` (an fp32 einsum in another order); the tree
 relaxation as ``test_tree_of_16_scenarios_matches_reference``
 (tests/test_torch_stagewise_tree.py: objective 1e-4 relative, x 1e-3)."""
 
+import pathlib
 import types
 
 import jax.numpy as jnp
@@ -50,6 +51,7 @@ def _omega_model():
         C=m.C, E=m.E, F1=m.F1, F2=m.F2, F3=m.F3, f5=m.f5)
 
 
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 JM = _omega_model()
 TM = convert.mld_model(JM)
 JW = jdi.default_weights()
@@ -149,6 +151,76 @@ def test_member_order_mean_matches_reference_group_mean(key):
     err = float(np.abs(got - want).max())
     print(f"{key}: max |Δ| {err:.2e} (max |v| {np.abs(v).max():.3f})")
     assert err <= 1e-6 * float(np.abs(v).max())
+
+
+def _zero_rows_M(S=9, N=5, seed=11):
+    """Weights where some scenarios' rows are all zero at some stages: an
+    empty member list, which begins where the next new row's list does
+    (scenario 1 at stage 0, between two distinct rows; scenarios 4 and 7
+    at stage 2, a −0 row among them; the whole of stage 4)."""
+    M = _random_M(S, N, seed).numpy()
+    M[1, :, 0] = 0.0
+    M[4, :, 2] = 0.0
+    M[7, :, 2] = -0.0
+    M[:, :, 4] = 0.0
+    return torch.from_numpy(M)
+
+
+def _node_first(w, k, s, s0):
+    """csrc/stagewise.cu ``node_first``, mirrored: the first of the
+    scenarios s0 … s whose list at stage k is scenario s's, by both of
+    its words."""
+    run = int(w[k])
+    q0, q1 = w[run + 2 * s], w[run + 2 * s + 1]
+    while w[run + 2 * s0] != q0 or w[run + 2 * s0 + 1] != q1:
+        s0 += 1
+    return s0
+
+
+def test_node_first_mirrors_the_kernel_source():
+    """The emulation's search is the kernel's: it compares a list's begin
+    and end words."""
+    src = (ROOT / "pyhybridcontrol_tpu_torch" / "csrc"
+           / "stagewise.cu").read_text()
+    assert "while (run[s0].x != q.x || run[s0].y != q.y) ++s0;" in src
+
+
+@pytest.mark.parametrize("key", ["zero_rows", "wide27", "random"])
+@pytest.mark.parametrize("spc", [1, 2, 4, 9])
+def test_shared_node_mean_matches_reference_group_mean(key, spc):
+    """The FLEX kernel's mean as a CTA of ``spc`` scenarios shares it: at
+    each stage, the first scenario of a node in the CTA (``node_first``)
+    sums its list in fp32 fma order, and the node's other scenarios there
+    read that sum; against the JAX package's ``_group_mean`` on the same
+    weights and a seeded consensus block, within 1e-6 of max |input|. An
+    all-zero row's empty list, which begins where the next list does,
+    is a node of its own."""
+    M = {"zero_rows": _zero_rows_M, "random": _random_M,
+         "wide27": lambda: _tree_M("wide27")}[key]()
+    S, _, N = M.shape
+    v = np.random.default_rng(spc).normal(
+        size=(S, N, 2)).astype(np.float32)
+    words = cs.group_members(M)
+    w = words.numpy()
+    lists = _lists(words, S, N)
+    got = np.full_like(v, np.nan)
+    for c0 in range(0, S, spc):
+        sums = {}
+        for s in range(c0, min(c0 + spc, S)):
+            for k in range(N):
+                f = _node_first(w, k, s, c0)
+                if f == s:
+                    zn = np.zeros(2, np.float32)
+                    t, wt = lists[k, s]
+                    for tj, wj in zip(t, wt):
+                        zn = (np.float64(wj) * v[tj, k].astype(np.float64)
+                              + zn.astype(np.float64)).astype(np.float32)
+                    sums[k, s] = zn
+                got[s, k] = sums[k, f]
+    mean = jst._group_mean(types.SimpleNamespace(M=jnp.asarray(M.numpy())))
+    want = np.asarray(mean(jnp.asarray(v[None])))[0]
+    err = float(np.abs(got - want).max())
+    assert err <= 1e-6 * float(np.abs(v).max()), err
 
 
 def test_group_plan_stages_the_lists_where_they_fit():

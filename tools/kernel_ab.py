@@ -78,7 +78,8 @@ holds at once); then each wide tree's stagewise tree MIQP solved four
 times (``chip_smoke.py``'s ``wide_tree``: a warm-up and three on the host
 clock, its objective, found flag, nodes and waves, the last one's K5
 launches, iterations and CUDA-event time) and once more under
-torch.profiler (the idle share against that run's wall time). It
+torch.profiler (the idle share against that run's wall time), the last
+two as ``chip_smoke.long_warm_reading`` reads them. It
 reports, against the first parent run, whether the seven carries of each
 launch are bitwise equal and whether the inputs were.
 
@@ -472,7 +473,6 @@ for tag, key, be, fb, hb, lb, ub, _ in cs.flex_waves(
 from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
     assemble_stagewise_tree, assemble_stagewise_tree_ext,
     solve_tree_miqp_stagewise)
-from pyhybridcontrol_tpu_torch.profile_serve import profile_request
 from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
 
 x0 = torch.tensor(cs.X0_6, device=dev)
@@ -486,21 +486,22 @@ for S, steps in cs.WIDE_TREES:
                                          swt_probe=swtp, ext_u=eu)
 
     secs = []
-    for rep in range(4):             # a warm-up, then three timed
-        with cs.k5_launch_log() as log:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = solve()
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-    prof = profile_request(solve)
+    for rep in range(3):             # a warm-up, then two timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = solve()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    # the third timed solve, its K5 launches, and a profiled one
+    w = cs.long_warm_reading(f"wide_tree S={S}", solve)
+    log = w["timed_launches"]
     res[f"wide_tree S={S}"] = dict(
-        solve_s=secs[1:], obj=float(got.obj), found=bool(got.found),
-        nodes=int(got.nodes_solved), waves=int(got.waves),
-        k5_launches=len(log), k5_iters=sum(r["iters"] for r in log),
+        solve_s=secs[1:] + [w["ms"] / 1e3], obj=float(got.obj),
+        found=bool(got.found), nodes=int(got.nodes_solved),
+        waves=int(got.waves), k5_launches=len(log),
+        k5_iters=sum(r["iters"] for r in log),
         k5_event_ms=sum(r["ms"] for r in log),
-        profiled_wall_ms=prof["wall_ms"],
-        idle_share=1.0 - prof["device_busy_ms"] / prof["wall_ms"])
+        profiled_wall_ms=w["wall_ms"], idle_share=w["idle_share"])
     print(f"wide_tree S={S}", json.dumps(res[f"wide_tree S={S}"]),
           flush=True)
 torch.save({key: tuple(None if v is None else v.cpu() for v in val)
