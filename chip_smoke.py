@@ -170,7 +170,13 @@ Run from the root of a checkout. It builds the kernels of
      condensed enumeration plan valued in the stagewise frame; and the
      stagewise controller with soft rows, move blocking, a terminal set
      and a budget row at once (N=8), on the card within 1e-3 of the same
-     on the CPU (each served and held path also K5 once a solve);
+     on the CPU (each served and held path also K5 once a solve); then the
+     long arm's ``parallel_sweeps=True`` twin (path config6_long_par):
+     every relaxation and probe one launch of K5's parallel sweep in the
+     shared variant, found as the sequential solve, its objective within
+     1e-3 of that solve's and of the JAX package's with the log-depth
+     sweeps (CFG6_REF_OBJ_PAR), its plan feasible in fp64, read again warm
+     (K5's launches, iterations and event time, the idle share);
  22. K5, the stagewise ADMM loop (``csrc/stagewise.cu``), against its
      plain version (``ops/stagewise._admm_iterations``: the torch loop
      with the plain sweeps, on the card), run with the kernel phases
@@ -333,7 +339,30 @@ Run from the root of a checkout. It builds the kernels of
      variant at bmax 32; found, objective (beside the JAX package's
      FLEET_REF_OBJ), nodes, relaxations and probes, u₀, the solve's time,
      a relaxation's and a probe's kernel time, and the plan's fp64
-     feasibility, extra rows included.
+     feasibility, extra rows included; then its ``sw_parallel=True`` twin
+     (path battery_fleet_par): every relaxation and probe one launch of
+     K5's parallel sweep in the global variant, found as the sequential
+     solve, its objective within 1e-3 of that solve's and of the JAX
+     package's with the log-depth sweeps (FLEET_REF_OBJ_PAR), the kernel
+     times beside the sequential ones, the plan in fp64 with the extra
+     rows, read again warm; and (in 36) the wide trees' twins (path
+     wide_tree_par) with their sequential solves' checks and u₀ spread,
+     and the long horizons' solves beside the JAX package's objectives
+     (LONG_REF_OBJ: the hull model finds no plan there either);
+ 39. K5's parallel sweep inside the shared and FLEX variants (the "_par"
+     libraries; after 37), against its plain version (the plain loop with
+     ``_solve_K_windowed`` on the plan's windows): at each shape the twins
+     launch (config 6's relaxation and probe preps, the fleet's, the three
+     wide trees) and two more (config 6's long arm with 5 extra rows, the
+     runtime-r path at bmax 8; 32 batteries, bmax 128), 20 iterations from
+     the sequential relaxation ("k5_par", "k5_par_rt", "k5_par_any"); the
+     parallel plan checked to be the sequential one with its windows; at
+     config 6 grouped, global and global_all forced; each timed alone, as a
+     wrapper and as the plain loop, beside its bound and both chain floors,
+     and the relaxation alone in both sweeps, in turns; then held only at
+     phase 22's short and wider shapes (windows of one or two stages at
+     N=4 and 10, every row kind, b=6 and 13; "k5_par_small") and phase
+     37's staged wide ones (five batteries, the ω tree).
 
 Each phase prints its wall time, and the run its total. Launch counts are
 kept per path (PATHS): set to 0 just before each served request set, the
@@ -414,6 +443,13 @@ SOURCES = {"admm_k1": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
            "stagewise_k5_global_all":
                "pyhybridcontrol_tpu_torch/csrc/stagewise.cu",
            "stagewise_k5_horizon":
+               "pyhybridcontrol_tpu_torch/csrc/stagewise.cu",
+           "stagewise_k5_par": "pyhybridcontrol_tpu_torch/csrc/stagewise.cu",
+           "stagewise_k5_grouped_par":
+               "pyhybridcontrol_tpu_torch/csrc/stagewise.cu",
+           "stagewise_k5_global_par":
+               "pyhybridcontrol_tpu_torch/csrc/stagewise.cu",
+           "stagewise_k5_global_all_par":
                "pyhybridcontrol_tpu_torch/csrc/stagewise.cu"}
 REPLACES = {"admm_k1": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
             "admm_k2": "pyhybridcontrol_tpu/ops/pallas_admm.py:357",
@@ -443,6 +479,16 @@ REPLACES = {"admm_k1": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
             # windows over a cluster; its parallel sweep also stands for
             # the reference's log-depth sweeps (_solve_K_assoc, :632)
             "stagewise_k5_horizon":
+                "pyhybridcontrol_tpu/ops/stagewise.py:1011",
+            # the parallel sweep inside the shared and FLEX variants: the
+            # same loop with the reference's parallel_sweeps=True
+            # (_solve_K_bordered over _solve_K_assoc, :650-664, :995)
+            "stagewise_k5_par": "pyhybridcontrol_tpu/ops/stagewise.py:1011",
+            "stagewise_k5_grouped_par":
+                "pyhybridcontrol_tpu/ops/stagewise.py:1011",
+            "stagewise_k5_global_par":
+                "pyhybridcontrol_tpu/ops/stagewise.py:1011",
+            "stagewise_k5_global_all_par":
                 "pyhybridcontrol_tpu/ops/stagewise.py:1011"}
 # K1 with the constants streamed from L2 in every iteration: the plan
 # takes it only where a cluster cannot hold the constants (the 4-agent
@@ -453,7 +499,8 @@ REPLACES = {"admm_k1": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
 # stagewise tree over ranks launches it once an iteration.)
 # K5 with every scenario array in device memory takes horizons from about
 # N=3,300 (b=5) on, which no path drives: phase 35 forces it.
-FORCED_ONLY = ("admm_k1_streamed", "stagewise_k5_global_all")
+FORCED_ONLY = ("admm_k1_streamed", "stagewise_k5_global_all",
+               "stagewise_k5_global_all_par")
 # the driven paths, in order; SERVED are the served requests
 SERVED = ("serve_config1", "serve_batch_request", "config2_serve",
           "serve_stagewise")
@@ -465,14 +512,15 @@ PATHS = SERVED + ("pooled_bench_spec", "pooled_carried_incumbents",
                   "config2_sb_e", "config2_sb_f", "config2_cut",
                   "config3_loop",
                   "config4b_loop", "config4c_call", "config4c_feedback",
-                  "config6_parity", "config6_long", "stagewise_transforms",
+                  "config6_parity", "config6_long", "config6_long_par",
+                  "stagewise_transforms",
                   "run_config1", "run_config3", "run_config2", "run_config4",
                   "run_config5", "run_checkpoint_resume", "microgrid_M3",
                   "microgrid_M4", "decentralized", "examples",
                   "md_config5_pool", "md_di_pool", "md_feedback_batch",
                   "md_condense", "md_consensus_tree", "md_stagewise_tree",
                   "md_nccl", "mixed_schedule", "long_horizon", "wide_tree",
-                  "battery_fleet")
+                  "wide_tree_par", "battery_fleet", "battery_fleet_par")
 # peak rates of one H100 SXM at 700 W (NVIDIA data sheet): fp32 outside
 # the tensor cores, dense bf16 in them, HBM3
 PEAK = dict(fp32=67e12, bf16=989e12, hbm=3.35e12)
@@ -620,6 +668,34 @@ LIMITS = {
     # 1.3e-2, z_e 3.2e-6, y_e 2.0e-6, dy_e 9.8e-4
     "k5_any": dict(x=7.7e-5, z=2.7e-4, y=9.8e-5, dy=0.14, z_e=5.6e-4,
                    y_e=3.5e-5, dy_e=3.8e-2),
+    # K5's parallel sweep inside the shared and FLEX variants against its
+    # plain version (the plain loop with _solve_K_windowed on the plan's
+    # windows; phase 39): 20 iterations from the sequential relaxation;
+    # 3x the largest reading of seeds 0-7 on an H100 80GB HBM3 at 700 W
+    # (tools/k4_readings.py --par). "k5_par" (b=5: config 6's long arm at
+    # ρ and at the probes' ρ·10, also forced grouped/global/global_all;
+    # the wide trees): x 1.98e-6, z 2.56e-6, y 7.45e-5, dy 0.119, z_e
+    # 1.04e-5 (y and dy largest at the ρ·10 prep, whose dual steps carry
+    # ten times the rounding of the relaxation's: 6.3e-6 and 9.5e-3
+    # there); "k5_par_rt" (5 extra rows): x 1.04e-6, z 1.97e-6, y 6.56e-6,
+    # dy 1.19e-2, z_e 2.15e-6; "k5_par_any" (the fleet at ρ and ρ·10, b=32;
+    # 32 batteries, b=128; held only, staged at b=20: five batteries and
+    # the ω tree): x 2.50e-5, z 8.88e-5, y 6.68e-5, dy 0.244, z_e
+    # 2.77e-4 (dy 2.1e-2 at ρ). y_e and dy_e read 0 (no budget row binds):
+    # "k5"'s and "k5_rt"'s limits
+    "k5_par": dict(x=6e-6, z=7.7e-6, y=2.3e-4, dy=0.36, z_e=3.2e-5,
+                   y_e=3.5e-5, dy_e=3.8e-2),
+    "k5_par_rt": dict(x=3.2e-6, z=6e-6, y=2e-5, dy=3.6e-2, z_e=6.5e-6,
+                      y_e=7.6e-6, dy_e=2.9e-3),
+    "k5_par_any": dict(x=7.5e-5, z=2.7e-4, y=2e-4, dy=0.74, z_e=8.4e-4,
+                       y_e=3.5e-5, dy_e=3.8e-2),
+    # the shapes of PAR_SMALL (windows of one or two stages, every row
+    # kind, b = 6 and 13), 3x the largest reading of seeds 0-7 (the same
+    # tool): x 8.36e-6, z 1.02e-5, y 3.16e-5, dy 7.63e-2 (the soft state
+    # box's prox at most), z_e 8.94e-7, y_e 5.96e-7, dy_e 6.56e-4 (the
+    # transforms hold's budget row)
+    "k5_par_small": dict(x=2.5e-5, z=3.1e-5, y=9.5e-5, dy=0.23, z_e=2.7e-6,
+                         y_e=1.8e-6, dy_e=2e-3),
     "k5_rt": dict(x=5.8e-6, z=7.5e-6, y=2.5e-5, dy=5.8e-2, z_e=8.4e-6,
                   y_e=7.6e-6, dy_e=2.9e-3),
     # K2 at the surfaces' waves (phase 23), relaxation and probe, 3x the
@@ -754,7 +830,13 @@ KERNEL_FUNCTIONS = (("admm", "phc_admm_k1"), ("admm", "phc_admm_k1_1pass"),
                     ("stagewise_wide", "phc_sw_admm_flex"),
                     ("stagewise_extra", "phc_sw_admm"),
                     ("stagewise_extra", "phc_sw_admm_flex"),
-                    ("stagewise_horizon", "phc_sw_admm_horizon"))
+                    ("stagewise_horizon", "phc_sw_admm_horizon"),
+                    ("stagewise_par", "phc_sw_admm"),
+                    ("stagewise_par", "phc_sw_admm_flex"),
+                    ("stagewise_wide_par", "phc_sw_admm"),
+                    ("stagewise_wide_par", "phc_sw_admm_flex"),
+                    ("stagewise_extra_par", "phc_sw_admm"),
+                    ("stagewise_extra_par", "phc_sw_admm_flex"))
 
 
 def kernel_ms(fn, reps=5):
@@ -4159,6 +4241,9 @@ CFG6_PARITY_SPEC = dict(capacity=512, wave_size=32, qp_iters=600,
 # the JAX package's objective of the long arm (tools/config6_reference.py,
 # on the CPU): the port is held within 1e-3 relative of it
 CFG6_REF_OBJ = 6.9574198722839355
+# the same with parallel_sweeps=True (the log-depth sweeps;
+# JAX_PLATFORMS=cpu python tools/config6_reference.py --parallel)
+CFG6_REF_OBJ_PAR = 6.957419395446777
 CFG6_REPS = 3
 X0_6 = (2.0, 0.0)
 SERVE_SW_STATES = STATES[:3]
@@ -4487,7 +4572,7 @@ def k5_launch_log():
         sw = a[0]
         log.append(dict(
             P=P, iters=int(a[10]), parallel=bool(kw.get("parallel")),
-            variant=pl.variant, cluster=pl.cluster,
+            variant=pl.variant, cluster=pl.cluster, windows=pl.windows,
             held=(cs.horizon_capacity(sw.N, sw.b, sw.m_k, pl, a[1].device)
                   if pl.variant == "horizon" else next(
                       (v for k, v in sw.cache.items()
@@ -4511,16 +4596,17 @@ def launch_log_line(log) -> str:
     groups = {}
     for r in log:
         groups.setdefault((r["iters"], r["parallel"]), []).append(r["ms"])
-    shapes = sorted({(r["P"], r["variant"], r["cluster"], r["held"])
-                     for r in log}, key=str)
+    shapes = sorted({(r["P"], r["variant"], r["cluster"], r["held"],
+                      r["windows"]) for r in log}, key=str)
     return (f"K5 {len(log)} launches, {sum(r['ms'] for r in log):.1f} ms "
             "(events): " + "; ".join(
                 f"{len(v)} × {it} it{' parallel' if par else ''} "
                 f"{sum(v):.1f} ms ({min(v):.2f}–{max(v):.2f})"
                 for (it, par), v in sorted(groups.items()))
             + " at " + ", ".join(f"P={P} {v} C={C}"
+                                 + (f", {w} windows" if w else "")
                                  + (f" ({h} clusters at once)" if h else "")
-                                 for P, v, C, h in shapes))
+                                 for P, v, C, h, w in shapes))
 
 
 def long_warm_reading(name, solve, path="long_horizon") -> dict:
@@ -5128,6 +5214,59 @@ def profile_wave(swt, eu):
     return prof
 
 
+def config6_parallel_twin(model, tree_l, swt, swtp, data, eu, res):
+    """Config 6's long arm with ``parallel_sweeps=True`` (the path
+    config6_long_par): every relaxation and probe one launch of K5's
+    parallel sweep in the shared variant, at a multiple of S; found as the
+    sequential solve ``res``, its objective within 1e-3 of that solve's and
+    of the JAX package's (CFG6_REF_OBJ_PAR, with the log-depth sweeps), its
+    plan feasible in fp64; then read again warm (``long_warm_reading``)."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+        solve_tree_miqp_stagewise)
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    spec = BnbSpec(**CFG6_SPEC)
+
+    def solve():
+        return solve_tree_miqp_stagewise(swt, *data, spec, swt_probe=swtp,
+                                         ext_u=eu, parallel_sweeps=True)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with solve_calls() as n, k5_calls() as calls:
+        r, _ = drive("config6_long_par", solve)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    only_k5("config6_long_par", CFG6_S, n[0], kernel="stagewise_k5_par")
+    check(all(kw.get("parallel") for kw in calls.kw) and calls,
+          "config 6 long arm twin: a K5 call without the parallel sweep")
+    obj, seq = float(r.obj), float(res.obj)
+    rel = abs(obj - seq) / max(1.0, abs(seq))
+    rel_ref = abs(obj - CFG6_REF_OBJ_PAR) / max(1.0, abs(CFG6_REF_OBJ_PAR))
+    pl = k5_plan_of(calls[0], parallel=True)[1]
+    print(f"config 6 long arm, the parallel_sweeps twin ({pl.windows} "
+          f"windows a problem, {describe_plan(pl)}): {sec:.3f} s, found "
+          f"{bool(r.found)}, {int(r.nodes_solved)} nodes, {r.waves} waves, "
+          f"{len(calls)} K5 launches; objective {obj:.7f} against the "
+          f"sequential solve's {seq:.7f} (relative {rel:.2e}) and the JAX "
+          f"package's with parallel_sweeps {CFG6_REF_OBJ_PAR:.7f} (relative "
+          f"{rel_ref:.2e}; limit 1e-3 each)", flush=True)
+    check(bool(r.found) == bool(res.found) and rel <= 1e-3
+          and rel_ref <= 1e-3,
+          "config 6 long arm twin: off the sequential solve or the JAX "
+          "package's")
+    plan6_feasible("config 6 long arm twin plan", model, tree_l, X0_6,
+                   r.x.reshape(CFG6_S, CFG6_N, swt.sw.b).cpu(),
+                   budget=CFG6_BUDGET)
+    return dict(s=sec, found=bool(r.found), obj=obj, seq_obj=seq,
+                ref_obj=CFG6_REF_OBJ_PAR, nodes=int(r.nodes_solved),
+                waves=r.waves, windows=pl.windows, k5_launches=len(calls),
+                profile=long_warm_reading("the parallel_sweeps twin", solve,
+                                          path="config6_long_par"))
+
+
 def phase_config6(dev):
     """Config 6 of the reference bench (bench.py:742-816) through the port,
     nothing cut, with the plain sweeps made to raise: the parity arm
@@ -5234,6 +5373,8 @@ def phase_config6(dev):
                            seconds=times, nodes=int(res.nodes_solved),
                            waves=res.waves, found=bool(res.found),
                            objective=obj, k5_launches=k5, profile=prof)
+        out["long_parallel"] = config6_parallel_twin(
+            model, tree_l, swt, swtp, data, eu, res)
 
         # (c) the single-instance path: serve --solver stagewise
         print("serve --config double_integrator --solver stagewise:",
@@ -5321,6 +5462,11 @@ LONG_DI_N, LONG_HULL_N = 1000, 300
 X0_LONG = {"di": (2.0, 0.0), "hull": (1.0, 0.0)}
 LONG_SPEC = dict(capacity=64, wave_size=8, max_waves=8, qp_iters=300,
                  probe_iters=1000)
+# the JAX package's objectives on the same controllers on the CPU (readings
+# printed beside the port's; None: it finds no plan, 47 nodes at the hull
+# model; JAX_PLATFORMS=cpu python tools/long_reference.py [--parallel])
+LONG_REF_OBJ = {"di": 5.313244342803955, "hull": None}
+LONG_REF_OBJ_PAR = {"di": 5.313243865966797, "hull": None}
 # wide_tree: config 6's long arm (N=120, Σu ≤ 60, tree-consistent paths of
 # sd 0.2) with more scenarios: (S, branch steps); 27 = 3³ leaves a group
 # that does not divide over the CTAs; waves capped as the split trees were
@@ -5684,6 +5830,222 @@ def phase_k5_flex(dev, rng, recs):
                   f"ms", flush=True)
 
 
+def par_work(args, windows):
+    """(bytes, {type: operations}) of one K5 call with the parallel sweep
+    over ``windows`` windows (``k5_work`` plus its own): the window maps Π
+    and Ψ read once (2·N·b² words); per problem and iteration the carries
+    (2·(C−1) b×b products) and the corrections (a b×b product at each
+    stage past the first window, forward, and before the last, backward:
+    2·N·b² FMAs at most)."""
+    nbytes, ops = k5_work(args)
+    sw, q, iters = args[0], args[1], args[10]
+    N, b = sw.N, sw.b
+    P = q.numel() // (N * b)
+    extra = P * iters * 2 * (2 * (windows - 1) * b * b + 2 * N * b * b)
+    return nbytes + 4 * 2 * N * b * b, dict(fp32=ops["fp32"] + extra)
+
+
+def par_waves(dev, rng):
+    """(tag, key, backend, f, h, lb, ub, variant, regime) of a wave of
+    nodes at each shape K5's parallel sweep runs on a path, and two more:
+    config 6's long arm (its relaxation's prep and its probes' at ρ·10;
+    the shared variant), the same with 5 extra rows (the runtime-r path
+    at bmax 8), the battery fleet (its relaxation's prep and its probes';
+    the global variant at bmax 32), the three wide trees (WIDE_VARIANT)
+    and 32 batteries at N=24 (b = 128, the global variant at bmax 128);
+    ``variant`` the one the plan picks, ``regime`` the limits."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+        assemble_stagewise_tree_ext)
+    from pyhybridcontrol_tpu_torch.solver.bnb_stagewise import (
+        StagewiseBackend)
+
+    out = []
+    x6 = torch.tensor(X0_6, device=dev)
+    tree_l = config6_trees()[1]
+    swt, swtp = config6_preps(dev, tree_l, config6_extra(CFG6_N))
+    eu = assemble_stagewise_tree_ext(swt, x6)
+    wave = node_wave(swt, eu, rng, CFG6_SPEC["wave_size"], K4_HOLD_FIX)
+    out.append(("config 6 long arm, relaxation", "cfg6", *wave, "shared",
+                "k5_par"))
+    probe = node_wave(swtp, eu, rng, CFG6_SPEC["wave_size"], K4_HOLD_FIX)
+    out.append(("config 6 long arm, probe (ρ·10)", "cfg6_probe", *probe,
+                "shared", "k5_par"))
+    swt5 = config6_preps(dev, tree_l, config6_rows(5))[0]
+    out.append(("config 6 long arm, 5 extra rows", "cfg6_rt",
+                *node_wave(swt5, assemble_stagewise_tree_ext(swt5, x6), rng,
+                           CFG6_SPEC["wave_size"], K4_HOLD_FIX), "shared",
+                "k5_par_rt"))
+    c, be, fb, hb, lb, ub = fleet_wave(dev, rng, FLEET_M, FLEET_N)
+    out.append((f"battery_fleet ({FLEET_M} batteries, N={FLEET_N}), "
+                f"relaxation", "fleet", be, fb, hb, lb, ub, "global",
+                "k5_par_any"))
+    out.append(("battery_fleet, probe (ρ·10)", "fleet_probe",
+                StagewiseBackend(c._sw_probe, ext_u=be.ext_u), fb, hb, lb,
+                ub, "global", "k5_par_any"))
+    for S, steps in WIDE_TREES:
+        swt = config6_preps(dev, wide_tree(S, steps), config6_extra(CFG6_N))[0]
+        out.append((f"config 6's tree at S={S}", f"tree{S}",
+                    *node_wave(swt, assemble_stagewise_tree_ext(swt, x6),
+                               rng, WIDE_SPEC["wave_size"], K4_HOLD_FIX),
+                    WIDE_VARIANT[S].replace("stagewise_k5_", ""), "k5_par"))
+    out.append(("32 batteries, N=24 (b=128)", "fleet128",
+                *fleet_wave(dev, rng, 32, 24)[1:], "global", "k5_par_any"))
+    return out
+
+
+# the shapes phase 22 holds the sequential sweep at that the parallel one
+# is held at too (k5_waves' keys): windows of one stage (the parity arm,
+# N=4) and of one or two (the served double integrator, N=10), soft rows,
+# blocking, a terminal set and a budget row, bmax 16 (the hull model,
+# b=13) and bmax 8 without b=5's instantiation (b=6)
+PAR_SMALL = ("cfg6_parity", "serve_sw", "transforms", "soft_box", "hull",
+             "di_two_forces")
+
+
+def phase_k5_par(dev, rng, recs):
+    """K5's parallel sweep inside the shared and FLEX variants against its
+    plain version (``_admm_iterations`` with ``_solve_K_windowed`` on the
+    plan's windows, on the card) at every shape of ``par_waves``:
+    FLEX_HOLD_ITERS iterations from the sequential sweep's own relaxation
+    (K5_RELAX iterations, cold), within the regime's limits ("k5_par",
+    "k5_par_rt", "k5_par_any"); the parallel plan must be the sequential
+    plan's variant, placement and extra-row path, with at least 2 windows
+    and no factor ring. Each held shape goes into its record
+    (``instantiations``), with (TIMINGS) the parallel sweep's time alone
+    and around its wrapper at the held iterations, the plain version's,
+    the bound (``par_work``) and both chain floors (``horizon_chain_ms``
+    at the plan's windows, ``k4_chain_ms`` for the sequential sweep); and
+    the relaxation alone in both sweeps, in turns (sequential, parallel,
+    parallel, sequential). Then, held only, at the shapes of PAR_SMALL
+    ("k5_par_small") and the staged wide ones of phase 37 (five batteries,
+    b=20; the ω tree, S=16 grouped; "k5_par_any")."""
+    from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
+    from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
+
+    print("K5's parallel sweep inside the shared and FLEX variants vs its "
+          "plain version:", flush=True)
+    for tag, key, be, fb, hb, lb, ub, want, regime in par_waves(dev, rng):
+        with k5_calls() as calls:
+            be.solve(fb, hb, lb, ub, K5_RELAX)
+        args = calls[0]
+        sw = args[0]
+        P, seq = k5_plan_of(args)
+        check(seq.variant == want, f"{tag}: the plan is {seq}, not {want}")
+        out = cs.sw_admm_cuda(*args)
+        held_args = with_warm(args, out, FLEX_HOLD_ITERS)
+        # the plan's variant, and at config 6's long arm the FLEX ones
+        # forced (global_all runs on no path)
+        for variant in (None,) + (ANY_FORCED if key == "cfg6" else ()):
+            sq = k5_plan_of(args, variant)[1]
+            pl = k5_plan_of(args, variant, parallel=True)[1]
+            check(pl.variant == sq.variant and pl.windows >= 2
+                  and pl.ring == 0
+                  and (pl.spc, pl.cluster, pl.staged, pl.ext, pl.warps,
+                       pl.tps) == (sq.spc, sq.cluster, sq.staged, sq.ext,
+                                   sq.warps, sq.tps),
+                  f"{tag}: the parallel plan {pl} is not the sequential "
+                  f"plan {sq} with its windows")
+            win = cs.horizon_windows(sw.N, pl.windows)
+
+            def plain(a=held_args, w=win):
+                return tsw._admm_iterations(
+                    *a, sweep=lambda s, t: tsw._solve_K_windowed(s, t, w))
+
+            def wrapper(a=held_args, v=variant):
+                return cs.sw_admm_cuda(*a, variant=v, parallel=True)
+
+            got, ref = wrapper(), plain()
+            held(f"{tag} (b={sw.b}, m={sw.m_k}, n_ext={sw.n_ext}), P={P} "
+                 f"({FLEX_HOLD_ITERS} it warm); "
+                 + ("forced " if variant else "")
+                 + f"the parallel sweep, {pl.windows} windows of "
+                 f"{win[1]}–{-(-sw.N // pl.windows)} stages, in "
+                 f"{describe_plan(pl)}", regime,
+                 {k: (g, r) for k, g, r in zip(K5_FIELDS, got, ref)
+                  if g is not None})
+            rec = recs[pl.launch]
+            k5_err_into(rec, got, ref)
+            entry = dict(shape=tag, b=sw.b, N=sw.N, m=sw.m_k,
+                         n_ext=sw.n_ext, P=P, variant=pl.variant,
+                         bmax=pl.bmax, ext=pl.ext, staged=pl.staged,
+                         threads=32 * pl.warps, smem=pl.smem,
+                         windows=pl.windows, max_abs_err=max(
+                             float((g - r).abs().max())
+                             for g, r in zip(got, ref) if g is not None))
+            rec.setdefault("instantiations", []).append(entry)
+            if not TIMINGS:
+                continue
+            pre = "" if "kernel_ms" not in rec else f"{key}_"
+            by = timed(rec, pre, wrapper, plain,
+                       par_work(held_args, pl.windows))
+            rec[pre + "chain_ms"] = FLEX_HOLD_ITERS * horizon_chain_ms(
+                sw.N, sw.b, pl.windows)
+            if not pre:
+                rec["bound_by"] = by
+                rec["library_ms"] = None   # no PyTorch call runs an ADMM loop
+            relax = [kernel_ms(lambda: cs.sw_admm_cuda(
+                *args, variant=variant, parallel=par), reps=3)
+                for par in (False, True, True, False)]
+            entry.update(
+                ms=rec[pre + "ms"], kernel_ms=rec[pre + "kernel_ms"],
+                plain_ms=rec[pre + "plain_ms"],
+                bound_ms=rec[pre + "bound_ms"], chain_ms=rec[pre + "chain_ms"],
+                seq_kernel_ms=kernel_ms(lambda: cs.sw_admm_cuda(
+                    *held_args, variant=variant)),
+                seq_chain_ms=FLEX_HOLD_ITERS * k4_chain_ms(sw.N, sw.b),
+                relax_seq_kernel_ms=[relax[0], relax[3]],
+                relax_par_kernel_ms=relax[1:3],
+                relax_bound_ms=bound(*par_work(args, pl.windows))[0],
+                relax_chain_ms=K5_RELAX * horizon_chain_ms(sw.N, sw.b,
+                                                           pl.windows),
+                relax_seq_chain_ms=K5_RELAX * k4_chain_ms(sw.N, sw.b))
+            print(f"    the sequential sweep alone "
+                  f"{entry['seq_kernel_ms']:.3f} ms ({FLEX_HOLD_ITERS} it), "
+                  f"chain floor {entry['seq_chain_ms']:.3f} ms against the "
+                  f"parallel {entry['chain_ms']:.3f} ms; the relaxation "
+                  f"({K5_RELAX} it) alone, sequential / parallel / parallel "
+                  f"/ sequential: " + " / ".join(f"{v:.3f}" for v in relax)
+                  + f" ms, bound {entry['relax_bound_ms']:.4f} ms, chain "
+                  f"floors {entry['relax_seq_chain_ms']:.3f} / "
+                  f"{entry['relax_chain_ms']:.3f} ms", flush=True)
+
+    small = [(t, be, *w) for t, key, be, _, *w in k5_waves(dev, rng)
+             if key in PAR_SMALL]
+    small += [(t, be, fb, hb, lb, ub) for t, be, fb, hb, lb, ub, *_ in
+              any_waves(dev, rng)
+              if t.startswith(("5 batteries", f"{ANY_TREE_UNITS} ω"))]
+    for tag, be, fb, hb, lb, ub in small:
+        with k5_calls() as calls:
+            be.solve(fb, hb, lb, ub, K5_RELAX)
+        args = calls[0]
+        sw = args[0]
+        P, pl = k5_plan_of(args, parallel=True)
+        check(pl.windows >= min(2, sw.N), f"{tag}: the plan {pl}")
+        held_args = with_warm(args, cs.sw_admm_cuda(*args), FLEX_HOLD_ITERS)
+        win = cs.horizon_windows(sw.N, pl.windows)
+        got = cs.sw_admm_cuda(*held_args, parallel=True)
+        ref = tsw._admm_iterations(
+            *held_args, sweep=lambda s, t, w=win: tsw._solve_K_windowed(
+                s, t, w))
+        held(f"{tag} (N={sw.N}, b={sw.b}, m={sw.m_k}, n_ext={sw.n_ext}), "
+             f"P={P} ({FLEX_HOLD_ITERS} it warm); the parallel sweep, "
+             f"{pl.windows} windows of {win[1]}–{-(-sw.N // pl.windows)} "
+             f"stages, in {describe_plan(pl)}",
+             "k5_par_any" if sw.b > 16 else "k5_par_small",
+             {k: (g, r) for k, g, r in zip(K5_FIELDS, got, ref)
+              if g is not None})
+        rec = recs[pl.launch]
+        k5_err_into(rec, got, ref)
+        rec.setdefault("instantiations", []).append(dict(
+            shape=tag, b=sw.b, N=sw.N, m=sw.m_k, n_ext=sw.n_ext, P=P,
+            variant=pl.variant, bmax=pl.bmax, ext=pl.ext, staged=pl.staged,
+            threads=32 * pl.warps, smem=pl.smem, windows=pl.windows,
+            max_abs_err=max(float((g - r).abs().max())
+                            for g, r in zip(got, ref) if g is not None)))
+
+
 # battery_fleet: fleet dispatch of storage over a day, the use the
 # stagewise frame is for (docs/MIGRATION.md:131-151, long horizons). Eight
 # default batteries (models/battery.py: nx 1, nv 3, b 4 each) aggregated
@@ -5701,6 +6063,9 @@ FLEET_SPEC = dict(capacity=256, wave_size=8, max_waves=8, qp_iters=150,
 # the JAX package's objective on this setup on the CPU (a reading printed
 # beside the port's; JAX_PLATFORMS=cpu python tools/fleet_reference.py)
 FLEET_REF_OBJ = -24.408065795898438
+# the same with sw_parallel=True (the log-depth sweeps;
+# JAX_PLATFORMS=cpu python tools/fleet_reference.py --parallel)
+FLEET_REF_OBJ_PAR = -24.408023834228516
 
 
 # ---- K5 at any b and r -----------------------------------------------------
@@ -6026,7 +6391,79 @@ def phase_battery_fleet(dev):
                 relaxations=len(relax), probes=len(probes),
                 u0=r.u.cpu().numpy().tolist(),
                 relax_kernel_ms=ms.get("relaxation"),
-                probe_kernel_ms=ms.get("probe"), extra_rows_over=over)
+                probe_kernel_ms=ms.get("probe"), extra_rows_over=over,
+                parallel=fleet_parallel_twin(dev, r, sec, ms))
+
+
+def fleet_parallel_twin(dev, res, seq_s, seq_ms):
+    """battery_fleet's ``sw_parallel=True`` twin (the path
+    battery_fleet_par): the same feedback, every relaxation and probe one
+    launch of K5's parallel sweep in the global variant (bmax 32, the
+    runtime-r path); found as the sequential solve ``res``, its objective
+    within 1e-3 of that solve's and of the JAX package's with the log-depth
+    sweeps (FLEET_REF_OBJ_PAR); a relaxation's and a probe's kernel time
+    beside the sequential ones (``seq_ms``); the plan in fp64 with the 20
+    extra rows; then read again warm (``long_warm_reading``)."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
+
+    c, price, x0, (A_v, b_e) = fleet_controller(FLEET_M, FLEET_N, dev,
+                                                 parallel=True)
+    sw = c._sw
+
+    def solve():
+        return c.feedback(x0, price_seq=price)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with no_plain_sweep(), solve_calls() as n, k5_calls() as calls:
+        r, _ = drive("battery_fleet_par", solve)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    only_k5("battery_fleet_par", 1, n[0], kernel="stagewise_k5_global_par")
+    check(all(kw.get("parallel") for kw in calls.kw) and calls,
+          "battery_fleet twin: a K5 call without the parallel sweep")
+    pl = k5_plan_of(calls[0], parallel=True)[1]
+    obj, seq = float(r.obj), float(res.obj)
+    rel = abs(obj - seq) / max(1.0, abs(seq))
+    rel_ref = abs(obj - FLEET_REF_OBJ_PAR) / abs(FLEET_REF_OBJ_PAR)
+    ms = {}
+    for key, its in (("relaxation", FLEET_SPEC["qp_iters"]),
+                     ("probe", FLEET_SPEC["probe_iters"])):
+        group = [a for a in calls if a[10] == its]
+        if group:
+            ms[key] = kernel_ms(lambda: cs.sw_admm_cuda(*group[0],
+                                                        parallel=True),
+                                reps=3)
+    print(f"battery_fleet, the sw_parallel twin ({pl.windows} windows, "
+          f"{describe_plan(pl)}): {sec:.2f} s (sequential {seq_s:.2f} s), "
+          f"found {bool(r.found)}, {int(r.nodes)} nodes, {len(calls)} K5 "
+          f"launches; objective {obj:.6f} against the sequential solve's "
+          f"{seq:.6f} (relative {rel:.2e}) and the JAX package's with "
+          f"sw_parallel {FLEET_REF_OBJ_PAR:.6f} (relative {rel_ref:.2e}; "
+          f"limit 1e-3 each); K5 alone "
+          + ", ".join(f"{v:.3f} ms a {k} (sequential "
+                      f"{seq_ms.get(k, float('nan')):.3f})"
+                      for k, v in ms.items()), flush=True)
+    check(bool(r.found) == bool(res.found) and rel <= 1e-3
+          and rel_ref <= 1e-3,
+          "battery_fleet twin: off the sequential solve or the JAX "
+          "package's")
+    xi = torch.cat([r.v_seq, r.x_seq], dim=1).double().cpu().numpy()
+    sw_plan_feasible("battery_fleet twin plan", c.model, x0, xi)
+    over = float((A_v @ xi[:, :sw.nv].reshape(-1) - b_e).max())
+    print(f"  battery_fleet twin plan: extra rows max(A_v·V − b) = "
+          f"{over:.2e} (limit {FEAS_TOL:g})", flush=True)
+    check(over <= FEAS_TOL, "battery_fleet twin: the plan breaks an extra "
+          "row")
+    return dict(s=sec, found=bool(r.found), obj=obj, seq_obj=seq,
+                ref_obj=FLEET_REF_OBJ_PAR, nodes=int(r.nodes),
+                windows=pl.windows, k5_launches=len(calls),
+                relax_kernel_ms=ms.get("relaxation"),
+                probe_kernel_ms=ms.get("probe"), extra_rows_over=over,
+                profile=long_warm_reading("the sw_parallel twin", solve,
+                                          path="battery_fleet_par"))
 
 
 def sw_plan_feasible(tag, model, x0, xi, tol=FEAS_TOL):
@@ -6066,9 +6503,11 @@ def fleet_arrays(M, N, nv, tou, Ts_h, window=FLEET_WINDOW):
             np.array(rows), rhs, price, np.linspace(0.3, 0.7, M))
 
 
-def fleet_controller(M, N, dev, window=FLEET_WINDOW, spec=FLEET_SPEC):
+def fleet_controller(M, N, dev, window=FLEET_WINDOW, spec=FLEET_SPEC,
+                     parallel=False):
     """(built stagewise MpcController, price_seq, x0, (A_v, b)) of an
-    M-battery fleet over N steps (``fleet_arrays``)."""
+    M-battery fleet over N steps (``fleet_arrays``); ``parallel``: its
+    ``sw_parallel`` twin (the horizon-parallel sweeps)."""
     import numpy as np
 
     from pyhybridcontrol_tpu_torch.control.mpc import MpcController
@@ -6089,7 +6528,8 @@ def fleet_controller(M, N, dev, window=FLEET_WINDOW, spec=FLEET_SPEC):
     w = MpcWeights(Qx=np.tile(bw.Qx, M), x_ref=np.tile(bw.x_ref, M),
                    Ru=np.tile(bw.Ru, M))
     c = MpcController(model, N, w, solver="stagewise",
-                      bnb_spec=BnbSpec(**spec), device=dev)
+                      bnb_spec=BnbSpec(**spec), sw_parallel=parallel,
+                      device=dev)
     c.set_extra_constraints(A_v, b_e)
     return c.build(), price, x0, (A_v, b_e)
 
@@ -6161,10 +6601,13 @@ def phase_wide_paths(dev):
                          obj=float(r.obj), nodes=int(r.nodes))
     for k in ("di", "hull"):
         a, b = out[k], out[k + "_parallel"]
+        ref = [("no plan" if v is None else f"{v:.6f}")
+               for v in (LONG_REF_OBJ[k], LONG_REF_OBJ_PAR[k])]
         print(f"long_horizon, {k}: sequential obj {a['obj']:.6f}, found "
               f"{a['found']}, {a['nodes']} nodes, {a['s']:.2f} s; the "
               f"sw_parallel twin obj {b['obj']:.6f}, found {b['found']}, "
-              f"{b['nodes']} nodes, {b['s']:.2f} s", flush=True)
+              f"{b['nodes']} nodes, {b['s']:.2f} s; the JAX package on the "
+              f"CPU {ref[0]} (with sw_parallel {ref[1]})", flush=True)
     print(f"long_horizon: found share {found / len(res):.2f} (sequential "
           f"{sum(out[k]['found'] for k in ('di', 'hull')) / 2:.2f}, twins "
           f"{sum(out[k + '_parallel']['found'] for k in ('di', 'hull')) / 2:.2f})",
@@ -6234,7 +6677,80 @@ def phase_wide_paths(dev):
             f"S={S}", lambda: solve_tree_miqp_stagewise(
                 swt, *data, BnbSpec(**WIDE_SPEC), swt_probe=swtp, ext_u=eu),
             path="wide_tree")
+    wide_tree_twins(model, trees, out)
     return out
+
+
+def wide_tree_twins(model, trees, out):
+    """The wide trees' ``parallel_sweeps=True`` twins (the path
+    wide_tree_par): every relaxation and probe one launch of K5's parallel
+    sweep in the plan's variant (WIDE_VARIANT's, "_par"), at P a multiple
+    of S; each found as its sequential solve (``out``), its objective
+    within 1e-3 of that solve's, u₀'s spread over the scenarios within
+    U0_SPREAD, the plan feasible in fp64 with the budget row; then each
+    read again warm (``long_warm_reading``)."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
+    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+        solve_tree_miqp_stagewise)
+    from pyhybridcontrol_tpu_torch.solver.bnb import BnbSpec
+
+    def twin(swt, swtp, data, eu):
+        return solve_tree_miqp_stagewise(swt, *data, BnbSpec(**WIDE_SPEC),
+                                         swt_probe=swtp, ext_u=eu,
+                                         parallel_sweeps=True)
+
+    def tree_solves():
+        res = {}
+        for S, tree, swt, swtp, data, eu in trees:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = twin(swt, swtp, data, eu)
+            torch.cuda.synchronize()
+            res[S] = (r, time.perf_counter() - t0)
+        return res
+
+    with no_plain_sweep(), solve_calls() as n, k5_calls() as calls:
+        res, _ = drive("wide_tree_par", tree_solves)
+    got = PATH_LAUNCHES["wide_tree_par"]
+    kernels = {v + cs.PAR_SUFFIX for v in WIDE_VARIANT.values()}
+    check(sum(got[k] for k in kernels) == n[0] > 0
+          and all(v == 0 for k, v in got.items() if k not in kernels)
+          and all(kw.get("parallel") for kw in calls.kw),
+          f"wide_tree_par: K5's parallel sweep ({sorted(kernels)}) once a "
+          f"relaxation or probe ({n[0]}) and nothing else must launch, "
+          f"launches {got}")
+    for S, tree, swt, *_ in trees:
+        r, sec = res[S]
+        a = out[f"tree{S}"]
+        xi = r.x.reshape(S, CFG6_N, swt.sw.b)
+        u0 = xi[:, 0, 0]
+        spread = float(u0.max() - u0.min())
+        obj = float(r.obj)
+        rel = abs(obj - a["obj"]) / max(1.0, abs(a["obj"]))
+        wins = sorted({k5_plan_of(c, parallel=True)[1].windows
+                       for c in calls if c[0] is swt.sw})
+        print(f"wide_tree S={S}, the parallel_sweeps twin ({wins} windows "
+              f"a problem): {sec:.2f} s (sequential {a['s']:.2f} s), found "
+              f"{bool(r.found)}, {int(r.nodes_solved)} nodes, {r.waves} "
+              f"waves, obj {obj:.6f} against the sequential solve's "
+              f"{a['obj']:.6f} (relative {rel:.2e}, limit 1e-3), u0 spread "
+              f"over the scenarios {spread:.2e} (limit {U0_SPREAD:g})",
+              flush=True)
+        check(bool(r.found) == a["found"] and rel <= 1e-3
+              and spread < U0_SPREAD,
+              f"wide_tree S={S} twin: off its sequential solve")
+        if r.found:
+            plan6_feasible(f"wide_tree S={S} twin plan", model, tree, X0_6,
+                           xi.cpu(), budget=CFG6_BUDGET)
+        out[f"tree{S}_parallel"] = dict(
+            S=S, s=sec, found=bool(r.found), obj=obj, waves=r.waves,
+            nodes=int(r.nodes_solved), u0_spread=spread, windows=wins)
+    for S, tree, swt, swtp, data, eu in trees:
+        out[f"tree{S}_parallel"]["profile"] = long_warm_reading(
+            f"S={S}, the parallel_sweeps twin",
+            lambda: twin(swt, swtp, data, eu), path="wide_tree_par")
 
 
 # ---- the user-facing surfaces ----------------------------------------------
@@ -7260,6 +7776,8 @@ def main(argv=None):
     phase("K5", phase_k5, dev, phase_rng("k5"), recs["stagewise_k5"])
     phase("K5 variants", phase_k5_flex, dev, phase_rng("k5_flex"), recs)
     phase("K5 at any b and r", phase_k5_any, dev, phase_rng("k5_any"), recs)
+    phase("K5's parallel sweep", phase_k5_par, dev, phase_rng("k5_par"),
+          recs)
     phase("K2 at the surfaces' waves", phase_surface_shapes, dev,
           phase_rng("surface_shapes"), recs)
     phase("K1 at the strong-branching batch", phase_sb_batch, dev,

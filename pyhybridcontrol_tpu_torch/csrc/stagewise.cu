@@ -202,10 +202,15 @@
 // source built alone, K4 and K5's register path at bmax 8 and 16; 1
 // (stagewise_wide.cu) K5 at bmax 32, 64 and 128; 2 (stagewise_extra.cu)
 // K5's runtime-r path at bmax 8 and 16; 3 (stagewise_horizon.cu) K5's
-// horizon variant. Four libraries, so that nvcc builds the parts side by
-// side.
+// horizon variant. PHC_SW_PAR 1: parts 0 to 2 with the parallel sweep in
+// place of the sequential one (stagewise_par.cu, stagewise_wide_par.cu,
+// stagewise_extra_par.cu; no K4). Seven libraries, so that nvcc builds the
+// parts side by side.
 #ifndef PHC_SW_PART
 #define PHC_SW_PART 0
+#endif
+#ifndef PHC_SW_PAR
+#define PHC_SW_PAR 0
 #endif
 
 #include <cstddef>
@@ -219,6 +224,10 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxWarps = 4;
 constexpr int kRMax = 4;          // extra rows K5's register path takes
 constexpr int kMaxCluster = 16;   // CTAs a K5 cluster (non-portable above 8)
+// K5's parallel sweep: this library's instantiations run it (PHC_SW_PAR),
+// over at most kMaxWindows windows a problem
+constexpr bool kPar = PHC_SW_PAR != 0;
+constexpr int kMaxWindows = 8;
 // K5's runtime-r path (any number of extra rows; every bmax above 16):
 // the bit that selects it, and the arrays it reads from device memory
 // where they do not fit beside the state (the plan sets them by size)
@@ -772,7 +781,10 @@ extern "C" {
 // the placement bits; ext_ws (P, 4·pad4(n_ext)) holds the runtime-r
 // path's vectors where kExtVec is set. ring: the depth of the factor ring
 // of a slot's sweep warp where bmax is above 16 and the factors are not
-// staged (2, 4 or 8), else 0.
+// staged (2, 4 or 8), else 0. windows: 0 for the sequential sweep; the
+// parallel sweep's C ≥ 1 windows (the libraries built with PHC_SW_PAR),
+// Pi and Psi its window maps (N, b, b), row-major up to bmax 16,
+// column-major above.
 struct PhcSwAdmmArgs {
   const float* q;
   const float* l;
@@ -808,6 +820,9 @@ struct PhcSwAdmmArgs {
   float* ext_ws;
   int ext;
   int ring;
+  const float* Pi;
+  const float* Psi;
+  int windows;
 };
 
 }  // extern "C"
@@ -835,18 +850,20 @@ __host__ __device__ inline size_t vec_words(int r, int ext) {
 // (y in place), mb, x, the consensus rows' buffers (two, with a group
 // mean), the Woodbury coefficient and the per-warp sums (the register
 // path) or the runtime-r vectors; ext's arrays in device memory take none.
-// The sweep warp's factor ring (above bmax 16 unstaged) lies behind them,
-// from `total` on (admm_smem_bytes)
+// The parallel sweep's carries (C·b words, `windows` C) come last; the
+// sweep warp's factor ring (above bmax 16 unstaged) lies behind them, from
+// `total` on (admm_smem_bytes)
 struct AdmmLayout {
   size_t L, U, C, J, Mc, tie, blk, Aext, KiU, Cw, rho_e, gM, z, y, l, u, w,
-      t, mb, xb, cb, corr, red, total;
+      t, mb, xb, cb, corr, red, cw, total;
 };
 
 __host__ __device__ inline AdmmLayout admm_layout(int N, int b, int m, int S,
                                                   int n_blk, int r,
                                                   int n_cons, int mean,
                                                   int warps, int staged,
-                                                  int bmax, int ext) {
+                                                  int bmax, int ext,
+                                                  int windows = 0) {
   AdmmLayout a;
   size_t o = 0;
   const size_t f = staged ? pad4((size_t)N * b * b) : 0;
@@ -875,6 +892,7 @@ __host__ __device__ inline AdmmLayout admm_layout(int N, int b, int m, int S,
   a.cb = o; o += mean ? 2 * pad4((size_t)N * n_cons) : 0;
   a.corr = o; o += vec_words(r, ext);
   a.red = o; o += ext ? 0 : (size_t)kRMax * warps;
+  a.cw = o; o += pad4((size_t)windows * b);
   a.total = o;
   return a;
 }
@@ -1056,10 +1074,11 @@ struct AdmmFlex {
 // above bmax 16) in
 // the slot or in the scratch by place, corr and red in the slot (the
 // runtime-r vectors in ext_ws where ext says so), then the slot's factor
-// ring (ring blocks, above bmax 16 unstaged)
+// ring (ring blocks, above bmax 16 unstaged) and the parallel sweep's
+// carries (C·b words, `windows` C)
 struct FlexLayout {
   size_t L, U, C, J, Mc, tie, blk, Aext, KiU, Cw, rho_e, lists, peers, slots,
-      slot, z, y, l, u, w, t, mb, xb, cb, corr, red, ring, gwords, total;
+      slot, z, y, l, u, w, t, mb, xb, cb, corr, red, ring, cw, gwords, total;
 };
 
 __host__ __device__ inline FlexLayout flex_layout(int N, int b, int m,
@@ -1069,7 +1088,7 @@ __host__ __device__ inline FlexLayout flex_layout(int N, int b, int m,
                                                   int bmax, int spc,
                                                   int place, int ext,
                                                   int ring, int lwords,
-                                                  int S) {
+                                                  int S, int windows) {
   FlexLayout a;
   size_t o = 0;
   const size_t f = staged ? pad4((size_t)N * b * b) : 0;
@@ -1107,6 +1126,7 @@ __host__ __device__ inline FlexLayout flex_layout(int N, int b, int m,
   a.corr = sl; sl += vec_words(r, ext);
   a.red = sl; sl += ext ? 0 : (size_t)kRMax * warps_slot;
   a.ring = sl; sl += ring_words(ring, b);
+  a.cw = sl; sl += pad4((size_t)windows * b);
   a.slot = sl;
   a.gwords = g;
   a.total = o + (size_t)spc * sl;
@@ -1265,10 +1285,227 @@ __device__ inline int node_first(const int* ml, int k, int s, int s0) {
   return s0;
 }
 
+// the first stage of window c of C over N stages (window c is
+// [hz_lo(N, C, c), hz_lo(N, C, c + 1)), one stage longer than the
+// shortest where C does not divide N)
+__host__ __device__ inline int hz_lo(int N, int C, int c) {
+  return (int)((long long)c * N / C);
+}
+
+// sweep_rows' forward half over a window of n stages (L its first stage's
+// block), y_{s−1} from `cin` (b words; none: a zero carry): the same sums
+// in the same order, so that from the true carry y is sweep_rows' bit for
+// bit. The schedule differs: the next stage's loads are issued with no
+// branch around them (the last stage reloads its own, unused) and r_k + its
+// M part is added only after the stage's chain, so that no instruction in
+// front of the shuffles waits on a load (a warp issues in order)
+template <int BMAX, int B0>
+__device__ inline void window_forward(float* ys, const float* add,
+                                      const float* L, int n, int b, int lane,
+                                      const float* cin) {
+  constexpr int NB = B0 ? B0 : BMAX;
+  const int bb = b * b;
+  const bool row = lane < b;
+  const int lo = row ? lane * b : 0;
+  const int lr = row ? lane : 0;
+  float Lc[NB], Ln[NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) Lc[j] = (row && j < b) ? L[lo + j] : 0.0f;
+  float rc = row ? ys[lr] + add[lr] : 0.0f;
+  float prev = (cin && row) ? cin[lane] : 0.0f;
+#pragma unroll 2
+  for (int k = 0; k < n; ++k) {
+    const int kn = k + 1 < n ? k + 1 : k;
+    const float* Lk = L + (size_t)kn * bb + lo;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) Ln[j] = (row && j < b) ? Lk[j] : 0.0f;
+    const float yv = row ? ys[kn * b + lr] : 0.0f;
+    const float av = row ? add[kn * b + lr] : 0.0f;
+    float acc = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      acc = fmaf(Lc[j], __shfl_sync(kFull, prev, j), acc);
+    prev = rc - acc;
+    if (row) ys[k * b + lane] = prev;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) Lc[j] = Ln[j];
+    rc = yv + av;
+  }
+}
+
+// sweep_rows' backward half over a window of n stages (U, C its first
+// stage's blocks), x_e from `cin` (none: a zero carry), x into xp; the
+// previous stage's loads with no branch around them, as window_forward's
+template <int BMAX, int B0>
+__device__ inline void window_backward(const float* ys, const float* U,
+                                       const float* C, float* xp, int n,
+                                       int b, int lane, const float* cin) {
+  constexpr int NB = B0 ? B0 : BMAX;
+  const int bb = b * b;
+  const bool row = lane < b;
+  const int lo = row ? lane * b : 0;
+  float Uc[NB], Cc[NB], yc[NB], Un[NB], Cn[NB], yn[NB];
+  {
+    const size_t o = (size_t)(n - 1) * bb + lo;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      Uc[j] = (row && j < b) ? U[o + j] : 0.0f;
+      Cc[j] = (row && j < b) ? C[o + j] : 0.0f;
+      yc[j] = j < b ? ys[(n - 1) * b + j] : 0.0f;
+    }
+  }
+  float nxt = (cin && row) ? cin[lane] : 0.0f;
+#pragma unroll 2
+  for (int k = n - 1; k >= 0; --k) {
+    const int kp = k >= 1 ? k - 1 : 0;
+    const size_t o = (size_t)kp * bb + lo;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      Un[j] = (row && j < b) ? U[o + j] : 0.0f;
+      Cn[j] = (row && j < b) ? C[o + j] : 0.0f;
+      yn[j] = j < b ? ys[kp * b + j] : 0.0f;
+    }
+    float a = 0.0f, c = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) a = fmaf(Uc[j], yc[j], a);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      c = fmaf(Cc[j], __shfl_sync(kFull, nxt, j), c);
+    nxt = a - c;
+    if (row) xp[(size_t)k * b + lane] = nxt;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      Uc[j] = Un[j];
+      Cc[j] = Cn[j];
+      yc[j] = yn[j];
+    }
+  }
+}
+
+// ---- K5's parallel sweep (PAR: the reference's parallel_sweeps=True) ----
+//
+// Inside the main kernel (below) the horizon of a slot's problem in C
+// windows (hz_lo), C ≤ 8 from the slot's warps, warp w sweeping windows w,
+// w + W, …: each window's forward sweep from a zero carry (y⁰), a slot
+// barrier, one warp composing the carries into every window with Π at the
+// window ends (win_carries, the recurrence of the horizon variant's
+// hz_carry, from shared memory), a barrier, every thread correcting
+// y_k += Π_k·carry (win_correct), and the same backward with Ψ. The maps
+// Π and Ψ ((N, b, b) each, ops/stagewise.window_maps, one pair per prep
+// shared by every problem) are read through L2, row-major up to bmax 16,
+// column-major above (as the wide factors, so that a warp's lanes read a
+// column as consecutive words). The chain is 2·⌈N/C⌉ stages plus 2·(C−1)
+// carry steps, against 2·N.
+
+// the window of stage k among C windows over N stages (hz_lo's inverse;
+// (k + 1)·C stays far below 2³¹ at any horizon K5 plans)
+__device__ inline int win_of(int k, int N, int C) {
+  return ((k + 1) * C - 1) / N;
+}
+
+// one warp: the carry into each of the C windows, cw[c·b … c·b + b) (zero
+// into the first window, forward; into the last, backward), composed over
+// the windows in chain order, carry ← M·carry + v at the stage that ends
+// (forward: y⁰ at a window's last stage, Π there) or begins (backward: x⁰
+// at a window's first stage, Ψ there) the window before it in the chain.
+// Up to bmax 16 lane i holds row i of the next step's map in registers
+// while the current step runs, the carry in lanes < b (shuffles); above,
+// a lane's rows R = BMAX/32 (clamped into the block), the carry read back
+// from cw as broadcasts
+template <int BMAX>
+__device__ inline void win_carries(float* cw, const float* maps,
+                                   const float* v, int N, int C, int b,
+                                   int lane, bool forward) {
+  if (C < 2) return;
+  const int bb = b * b;
+  const int first = forward ? 0 : C - 1;
+  // step t carries from window src(t) into dst(t), at stage at(t)
+  auto at = [&](int t) {
+    return forward ? hz_lo(N, C, t + 1) - 1 : hz_lo(N, C, C - 1 - t);
+  };
+  auto dst = [&](int t) { return forward ? t + 1 : C - 2 - t; };
+  if constexpr (BMAX <= 16) {
+    const bool row = lane < b;
+    const int lo = row ? lane * b : 0;
+    float Mc[BMAX], Mn[BMAX];
+    int k = at(0);
+#pragma unroll
+    for (int j = 0; j < BMAX; ++j)
+      Mc[j] = (row && j < b) ? __ldg(maps + (size_t)k * bb + lo + j) : 0.0f;
+    float vc = row ? v[k * b + lane] : 0.0f;
+    float cv = 0.0f;
+    if (row) cw[first * b + lane] = 0.0f;
+    for (int t = 0; t < C - 1; ++t) {
+      const int kn = at(t + 1 < C - 1 ? t + 1 : t);
+#pragma unroll
+      for (int j = 0; j < BMAX; ++j)
+        Mn[j] = (row && j < b) ? __ldg(maps + (size_t)kn * bb + lo + j)
+                               : 0.0f;
+      const float vn = row ? v[kn * b + lane] : 0.0f;
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < BMAX; ++j)
+        acc = fmaf(Mc[j], __shfl_sync(kFull, cv, j), acc);
+      cv = row ? acc + vc : 0.0f;
+      if (row) cw[dst(t) * b + lane] = cv;
+#pragma unroll
+      for (int j = 0; j < BMAX; ++j) Mc[j] = Mn[j];
+      vc = vn;
+    }
+  } else {
+    constexpr int R = BMAX / 32;
+    int ic[R];
+    lane_rows<R>(ic, lane, b);
+    for (int i = lane; i < b; i += 32) cw[first * b + i] = 0.0f;
+    __syncwarp();
+    for (int t = 0; t < C - 1; ++t) {
+      const int k = at(t);
+      const float* M = maps + (size_t)k * bb;     // column-major
+      const float* cin = cw + (forward ? t : C - 1 - t) * b;
+      float acc[R] = {};
+      for (int l = 0; l < b; ++l) {
+        const float cl = cin[l];
+#pragma unroll
+        for (int q = 0; q < R; ++q)
+          acc[q] = fmaf(__ldg(M + (size_t)l * b + ic[q]), cl, acc[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int i = q * 32 + lane;
+        if (i < b) cw[dst(t) * b + i] = acc[q] + v[k * b + i];
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// every thread of the slot: v_k += maps_k·carry_{window of k} over the
+// stages that have a carry (every window but the first, forward; but the
+// last, backward); CM: the maps column-major (above bmax 16)
+template <bool CM>
+__device__ inline void win_correct(float* v, const float* maps,
+                                   const float* cw, int N, int C, int b,
+                                   int tid, int T, bool forward) {
+  const int k0 = forward ? hz_lo(N, C, 1) : 0;
+  const int k1 = forward ? N : hz_lo(N, C, C - 1);
+  for (int e = k0 * b + tid; e < k1 * b; e += T) {
+    const int k = e / b, i = e - k * b;
+    const float* M = maps + (size_t)k * b * b;
+    const float* c = cw + win_of(k, N, C) * b;
+    float acc = 0.0f;
+    for (int l = 0; l < b; ++l)
+      acc = fmaf(__ldg(M + (CM ? (size_t)l * b + i : (size_t)i * b + l)),
+                 c[l], acc);
+    v[e] += acc;
+  }
+}
+
 // RDYN: the runtime-r path (see "K5 at any b and r" in the header). Above
 // bmax 16 (WIDE) it also runs the row work that holds no bmax-wide array
-// in a thread.
-template <int BMAX, int B0, bool STAGED, bool FLEX, bool RDYN>
+// in a thread. PAR: the parallel sweep (above win_carries) in place of the
+// sequential one, in instantiations of their own (the libraries built with
+// PHC_SW_PAR), so that the sequential ones keep their machine code.
+template <int BMAX, int B0, bool STAGED, bool FLEX, bool RDYN, bool PAR>
 __global__ void __launch_bounds__(BMAX <= 8 ? 512 : 256)
 sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
   constexpr bool WIDE = BMAX > 16;
@@ -1298,20 +1535,23 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
                      : (a.mean ? (int)(blockIdx.x % S) : 0);
   const bool live = !FLEX || s < S;             // slots past S idle
   const size_t p = FLEX ? grp * S + s : blockIdx.x;
-  // above bmax 16 unstaged: the depth of the sweep warp's factor ring
+  // above bmax 16 unstaged: the depth of the sweep warp's factor ring (0
+  // in the parallel sweep's plans: its windows read the factors where
+  // they lie)
   constexpr bool RING = WIDE && !STAGED;
   const int ring = RING ? a.ring : 0;
+  const int nwin = PAR ? a.windows : 0;         // the parallel sweep's C
 
   // ---- where every array lies ----
   size_t oL, oU, oC, oJ, oMc, otie, oblk, oAext, oKiU, oCw, orho;
-  float *zs, *ysc, *ls, *us, *wb, *tb, *mb, *xb, *cb0, *corr, *red, *rb;
+  float *zs, *ysc, *ls, *us, *wb, *tb, *mb, *xb, *cb0, *corr, *red, *rb, *cw;
   const float* gM;                              // gM[s, t, k] at [t·N + k]
   size_t fslots = 0, fslot = 0, fcb = 0, fgw = 0, flists = 0, fpeers = 0;
   bool hz = true;                               // horizon constants staged
   if constexpr (FLEX) {
     const FlexLayout f = flex_layout(N, b, m, nb, r, nc, a.mean, W, STAGED,
                                      BMAX, spc, fx.place, ext, ring,
-                                     fx.lwords, S);
+                                     fx.lwords, S, nwin);
     oL = f.L; oU = f.U; oC = f.C; oJ = f.J; oMc = f.Mc; otie = f.tie;
     oblk = f.blk; oAext = f.Aext; oKiU = f.KiU; oCw = f.Cw; orho = f.rho_e;
     fslots = f.slots; fslot = f.slot; fcb = f.cb; fgw = f.gwords;
@@ -1328,10 +1568,11 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
     cb0 = tbase + f.cb;
     corr = sl + f.corr; red = sl + f.red;
     if constexpr (RING) rb = sl + f.ring;
+    cw = sl + f.cw;
     gM = nullptr;                               // the member lists instead
   } else {
     const AdmmLayout lay = admm_layout(N, b, m, S, nb, r, nc, a.mean, W,
-                                       STAGED, BMAX, ext);
+                                       STAGED, BMAX, ext, nwin);
     oL = lay.L; oU = lay.U; oC = lay.C; oJ = lay.J; oMc = lay.Mc;
     otie = lay.tie; oblk = lay.blk; oAext = lay.Aext; oKiU = lay.KiU;
     oCw = lay.Cw; orho = lay.rho_e;
@@ -1341,6 +1582,7 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
     xb = smem + lay.xb; cb0 = smem + lay.cb; corr = smem + lay.corr;
     red = smem + lay.red;
     if constexpr (RING) rb = smem + lay.total;
+    cw = smem + lay.cw;
     gM = smem + lay.gM;
   }
   // the runtime-r path's vectors, r words each: the Woodbury coefficient,
@@ -1470,7 +1712,7 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
   // backward, iteration after iteration, the next iteration's first blocks
   // in flight during this one's row work; 2·N·iters fills in all
   FactorRing fr{};
-  if constexpr (RING)
+  if constexpr (RING && !PAR)
     if (live && warp == 0) {
       fr = ring_of(rb, ring, b, N, a.L, a.C, nullptr, 2,
                    2u * (unsigned)N * (unsigned)a.iters);
@@ -1551,7 +1793,79 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
     const bool last = it == a.iters - 1;
     float* cb = cb0 + (it & 1) * ncb;           // this iteration's buffer
     // ---- x = K⁻¹t (the slot's warp 0), the Woodbury coefficient ----
-    if constexpr (WIDE) {
+    if constexpr (PAR) {
+      // the parallel sweep: the windows from a zero carry, the carries
+      // (one warp), every stage corrected; above bmax 16 the U pass over
+      // the slot's warps between the two, as in the sequential sweep
+      const int C = nwin, bb = b * b;
+      const size_t fs = WIDE ? wide_block(b) : (size_t)bb;  // a stage's
+      if (live)                                               // block
+        for (int c = warp; c < C; c += W) {
+          const int s0 = hz_lo(N, C, c), n = hz_lo(N, C, c + 1) - s0;
+          if constexpr (WIDE)
+            wide_forward<BMAX, true, false>(tb + s0 * b, mb + s0 * b,
+                                            L + s0 * fs, nullptr, n, b,
+                                            lane);
+          else
+            window_forward<BMAX, B0>(tb + s0 * b, mb + s0 * b, L + s0 * fs,
+                                     n, b, lane, nullptr);
+        }
+      __syncthreads();
+      if (live && warp == 0)
+        win_carries<BMAX>(cw, a.Pi, tb, N, C, b, lane, true);
+      __syncthreads();
+      if (live) win_correct<WIDE>(tb, a.Pi, cw, N, C, b, tid, T, true);
+      __syncthreads();
+      if constexpr (WIDE) {
+        if (live)
+          wide_u_pass<BMAX, false>(tb, U, nullptr, N, b, warp, W, lane);
+        __syncthreads();
+      }
+      if (live)
+        for (int c = warp; c < C; c += W) {
+          const int s0 = hz_lo(N, C, c), n = hz_lo(N, C, c + 1) - s0;
+          if constexpr (WIDE)
+            wide_backward<BMAX, false>(tb + s0 * b, Cf + s0 * fs, nullptr,
+                                       xb + s0 * b, n, b, lane);
+          else
+            window_backward<BMAX, B0>(tb + s0 * b, U + s0 * fs, Cf + s0 * fs,
+                                      xb + s0 * b, n, b, lane, nullptr);
+        }
+      __syncthreads();
+      if (live && warp == 0)
+        win_carries<BMAX>(cw, a.Psi, xb, N, C, b, lane, false);
+      __syncthreads();
+      if (live) win_correct<WIDE>(xb, a.Psi, cw, N, C, b, tid, T, false);
+      // the register path's Woodbury coefficient, from the corrected x
+      // (the sequential branch's block below, copied rather than shared so
+      // that the sequential instantiations keep their machine code)
+      if constexpr (!RDYN) if (r) {
+        __syncthreads();
+        if (live && warp == 0) {
+          float sv[kRMax];
+#pragma unroll
+          for (int e = 0; e < kRMax; ++e) sv[e] = 0.0f;
+          for (int e = lane; e < N * b; e += 32) {
+            const float xe = xb[e];
+#pragma unroll
+            for (int q = 0; q < kRMax; ++q)
+              if (q < r) sv[q] = fmaf(Aext[q * N * b + e], xe, sv[q]);
+          }
+#pragma unroll
+          for (int q = 0; q < kRMax; ++q)
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1)
+              sv[q] += __shfl_xor_sync(kFull, sv[q], o);
+          if (lane < r) {
+            float cv = 0.0f;
+#pragma unroll
+            for (int q = 0; q < kRMax; ++q)
+              if (q < r) cv = fmaf(Cw[lane * r + q], sv[q], cv);
+            corr[lane] = cv;
+          }
+        }
+      }
+    } else if constexpr (WIDE) {
       // the forward sweep (warp 0), a_k = U⁻¹_k y_k over the slot's
       // warps, the backward sweep (warp 0)
       if (live && warp == 0)
@@ -1923,8 +2237,9 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
 
 size_t admm_smem_bytes(int N, int b, int m, int S, int n_blk, int r,
                        int n_cons, int mean, int warps, int staged,
-                       int bmax, int ext, int ring) {
-  return sizeof(float) * (admm_layout(N, b, m, S, n_blk, r, n_cons, mean,
+                       int windows, int bmax, int ext, int ring) {
+  return sizeof(float) * (pad4((size_t)windows * b) +
+                          admm_layout(N, b, m, S, n_blk, r, n_cons, mean,
                                       warps, staged, bmax, ext).total +
                           ring_words(ring, b));
 }
@@ -1934,10 +2249,10 @@ size_t admm_smem_bytes(int N, int b, int m, int S, int n_blk, int r,
 template <int BMAX, int B0, bool STAGED, bool RDYN>
 int launch_admm(const PhcSwAdmmArgs& a, int warps, int tps,
                 cudaStream_t stream) {
-  auto kernel = sw_admm_kernel<BMAX, B0, STAGED, false, RDYN>;
+  auto kernel = sw_admm_kernel<BMAX, B0, STAGED, false, RDYN, kPar>;
   const size_t bytes = admm_smem_bytes(a.N, a.b, a.m, a.S, a.n_blk, a.n_ext,
-                                       a.n_cons, a.mean, warps, STAGED, BMAX,
-                                       a.ext, a.ring);
+                                       a.n_cons, a.mean, warps, STAGED,
+                                       a.windows, BMAX, a.ext, a.ring);
   if (bytes > 48 * 1024) {
     const int rc = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1979,7 +2294,8 @@ size_t flex_smem_bytes(const PhcSwAdmmArgs& a, int warps, int staged,
                                      a.n_cons, a.mean, warps / fx.spc,
                                      staged, bmax, fx.spc, fx.place,
                                      a.ext, a.ring,
-                                     a.mean ? fx.lwords : 0, a.S).total;
+                                     a.mean ? fx.lwords : 0, a.S,
+                                     a.windows).total;
 }
 
 // a FLEX launch: groups of S scenarios over clusters of fx.cluster CTAs
@@ -1989,7 +2305,7 @@ size_t flex_smem_bytes(const PhcSwAdmmArgs& a, int warps, int staged,
 template <int BMAX, int B0, bool STAGED, bool RDYN>
 int launch_flex(const PhcSwAdmmArgs& a, int warps, int tps,
                 const AdmmFlex& fx, cudaStream_t stream, int* max_clusters) {
-  auto kernel = sw_admm_kernel<BMAX, B0, STAGED, true, RDYN>;
+  auto kernel = sw_admm_kernel<BMAX, B0, STAGED, true, RDYN, kPar>;
   const size_t bytes = flex_smem_bytes(a, warps, STAGED, BMAX, fx);
   if (bytes > 48 * 1024) {
     const int rc = (int)cudaFuncSetAttribute(
@@ -2047,11 +2363,18 @@ bool admm_args_ok(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
       e ? (e & kExtRt) && !(e & ~31) && (bmax > 16 || !(e & kExtJM)) &&
               (!(e & kExtVec) || a->ext_ws)
         : a->n_ext <= kRMax && bmax <= 16;
+  // the parallel sweep's libraries: 1 to kMaxWindows windows (at most N),
+  // their maps beyond one, no factor ring; the others: no windows
+  const bool sweep_ok =
+      kPar ? a->windows >= 1 && a->windows <= kMaxWindows &&
+                 a->windows <= a->N && a->ring == 0 &&
+                 (a->windows == 1 || (a->Pi && a->Psi))
+           : a->windows == 0 && ring_ok(bmax, staged, a->ring);
   return !(a->P < 1 || a->N < 1 || a->b < 1 || a->b > bmax || a->m < 1 ||
            a->S < 1 || a->P % a->S || a->n_ext < 0 || !ext_ok ||
            a->iters < 0 || warps < 1 ||
            32 * warps > admm_max_threads(bmax) || tps < 1 || tps > 32 ||
-           (tps & (tps - 1)) || !ring_ok(bmax, staged, a->ring) ||
+           (tps & (tps - 1)) || !sweep_ok ||
            (bmax > 16 && staged && (a->b & 1)) ||
            (a->mean && (a->n_cons < 1 || a->n_cons > a->m)));
 }
@@ -2073,7 +2396,9 @@ bool flex_ok(const PhcSwAdmmArgs* a, int warps, const AdmmFlex& fx) {
 // Each library holds one part of K5's instantiations (PHC_SW_PART, the
 // head of the file): this source alone the register path at bmax 8 and 16,
 // stagewise_wide.cu bmax 32 to 128, stagewise_extra.cu the runtime-r path
-// at bmax 8 and 16. A launch of another part's is refused.
+// at bmax 8 and 16; each with the sequential sweep, or the parallel one
+// where built with PHC_SW_PAR (kPar; admm_args_ok checks the windows). A
+// launch of another part's is refused.
 int admm_dispatch(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
                   int bmax, cudaStream_t s) {
 #if PHC_SW_PART == 0
@@ -2128,13 +2453,6 @@ int flex_dispatch(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
 
 #if PHC_SW_PART == 3
 // ---- K5's horizon variant (the head of the file) ----
-
-// the first stage of window c of C over N stages (window c is
-// [hz_lo(N, C, c), hz_lo(N, C, c + 1)), one stage longer than the
-// shortest where C does not divide N)
-__host__ __device__ inline int hz_lo(int N, int C, int c) {
-  return (int)((long long)c * N / C);
-}
 
 // the launch's own arguments beside PhcSwAdmmArgs: the window maps of the
 // parallel sweep ((N, b, b) each, read through L2 off the chain), the
@@ -2224,96 +2542,6 @@ __device__ inline void hz_hand(const float* src, float* dst,
                : "=r"(rb) : "r"(smem_u32(bar)), "r"(rank));
   asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
                ::"r"(rb) : "memory");
-}
-
-// sweep_rows' forward half over a window of n stages (L its first stage's
-// block), y_{s−1} from `cin` (b words; none: a zero carry): the same sums
-// in the same order, so that from the true carry y is sweep_rows' bit for
-// bit. The schedule differs: the next stage's loads are issued with no
-// branch around them (the last stage reloads its own, unused) and r_k + its
-// M part is added only after the stage's chain, so that no instruction in
-// front of the shuffles waits on a load (a warp issues in order)
-template <int BMAX, int B0>
-__device__ inline void window_forward(float* ys, const float* add,
-                                      const float* L, int n, int b, int lane,
-                                      const float* cin) {
-  constexpr int NB = B0 ? B0 : BMAX;
-  const int bb = b * b;
-  const bool row = lane < b;
-  const int lo = row ? lane * b : 0;
-  const int lr = row ? lane : 0;
-  float Lc[NB], Ln[NB];
-#pragma unroll
-  for (int j = 0; j < NB; ++j) Lc[j] = (row && j < b) ? L[lo + j] : 0.0f;
-  float rc = row ? ys[lr] + add[lr] : 0.0f;
-  float prev = (cin && row) ? cin[lane] : 0.0f;
-#pragma unroll 2
-  for (int k = 0; k < n; ++k) {
-    const int kn = k + 1 < n ? k + 1 : k;
-    const float* Lk = L + (size_t)kn * bb + lo;
-#pragma unroll
-    for (int j = 0; j < NB; ++j) Ln[j] = (row && j < b) ? Lk[j] : 0.0f;
-    const float yv = row ? ys[kn * b + lr] : 0.0f;
-    const float av = row ? add[kn * b + lr] : 0.0f;
-    float acc = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-      acc = fmaf(Lc[j], __shfl_sync(kFull, prev, j), acc);
-    prev = rc - acc;
-    if (row) ys[k * b + lane] = prev;
-#pragma unroll
-    for (int j = 0; j < NB; ++j) Lc[j] = Ln[j];
-    rc = yv + av;
-  }
-}
-
-// sweep_rows' backward half over a window of n stages (U, C its first
-// stage's blocks), x_e from `cin` (none: a zero carry), x into xp; the
-// previous stage's loads with no branch around them, as window_forward's
-template <int BMAX, int B0>
-__device__ inline void window_backward(const float* ys, const float* U,
-                                       const float* C, float* xp, int n,
-                                       int b, int lane, const float* cin) {
-  constexpr int NB = B0 ? B0 : BMAX;
-  const int bb = b * b;
-  const bool row = lane < b;
-  const int lo = row ? lane * b : 0;
-  float Uc[NB], Cc[NB], yc[NB], Un[NB], Cn[NB], yn[NB];
-  {
-    const size_t o = (size_t)(n - 1) * bb + lo;
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      Uc[j] = (row && j < b) ? U[o + j] : 0.0f;
-      Cc[j] = (row && j < b) ? C[o + j] : 0.0f;
-      yc[j] = j < b ? ys[(n - 1) * b + j] : 0.0f;
-    }
-  }
-  float nxt = (cin && row) ? cin[lane] : 0.0f;
-#pragma unroll 2
-  for (int k = n - 1; k >= 0; --k) {
-    const int kp = k >= 1 ? k - 1 : 0;
-    const size_t o = (size_t)kp * bb + lo;
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      Un[j] = (row && j < b) ? U[o + j] : 0.0f;
-      Cn[j] = (row && j < b) ? C[o + j] : 0.0f;
-      yn[j] = j < b ? ys[kp * b + j] : 0.0f;
-    }
-    float a = 0.0f, c = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NB; ++j) a = fmaf(Uc[j], yc[j], a);
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-      c = fmaf(Cc[j], __shfl_sync(kFull, nxt, j), c);
-    nxt = a - c;
-    if (row) xp[(size_t)k * b + lane] = nxt;
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      Uc[j] = Un[j];
-      Cc[j] = Cn[j];
-      yc[j] = yn[j];
-    }
-  }
 }
 
 // warp 0, lanes < b: the carry into a window, composed over the windows
@@ -2699,7 +2927,7 @@ int horizon_dispatch(const PhcSwAdmmArgs* a, const HorizonArgs& h, int warps,
 
 extern "C" {
 
-#if PHC_SW_PART == 0
+#if PHC_SW_PART == 0 && !PHC_SW_PAR
 // dynamic shared memory of one block: the warps' r/y buffers (and rings),
 // and the three factor arrays when staged (each array padded to a
 // multiple of 4 words; above bmax 16 N packed blocks, each padded)
@@ -2736,9 +2964,9 @@ int phc_sw_solve_k(const float* r, const float* L, const float* U,
 // dynamic shared memory of one K5 CTA (admm_layout)
 int phc_sw_admm_smem_bytes(int N, int b, int m, int S, int n_blk, int n_ext,
                            int n_cons, int mean, int warps, int staged,
-                           int bmax, int ext, int ring) {
+                           int bmax, int ext, int ring, int windows) {
   return (int)admm_smem_bytes(N, b, m, S, n_blk, n_ext, n_cons, mean, warps,
-                              staged, bmax, ext, ring);
+                              staged, windows, bmax, ext, ring);
 }
 
 // K5: a->iters stagewise ADMM iterations for a->P problems in one launch,
@@ -2753,22 +2981,23 @@ int phc_sw_admm(const PhcSwAdmmArgs* a, int warps, int tps, int staged,
 }
 
 // dynamic shared memory of one FLEX CTA (flex_layout; lists the member
-// lists' words it stages, S the group's scenarios), and the words of
-// device memory a problem's scratch takes; warps = the CTA's
+// lists' words it stages, S the group's scenarios, windows the parallel
+// sweep's), and the words of device memory a problem's scratch takes;
+// warps = the CTA's
 int phc_sw_admm_flex_smem_bytes(int N, int b, int m, int n_blk, int n_ext,
                                 int n_cons, int mean, int warps, int staged,
                                 int bmax, int spc, int place, int ext,
-                                int ring, int lists, int S) {
+                                int ring, int lists, int S, int windows) {
   return (int)(sizeof(float) *
                flex_layout(N, b, m, n_blk, n_ext, n_cons, mean, warps / spc,
                            staged, bmax, spc, place, ext, ring,
-                           mean ? lists : 0, S).total);
+                           mean ? lists : 0, S, windows).total);
 }
 
 long long phc_sw_admm_flex_scratch_words(int N, int b, int m, int n_cons,
                                          int mean, int place, int bmax) {
   return (long long)flex_layout(N, b, m, 0, 0, n_cons, mean, 1, 0, bmax, 1,
-                                place, 0, 0, 0, 1).gwords;
+                                place, 0, 0, 0, 1, 0).gwords;
 }
 
 // K5's FLEX variants (grouped, global state): as phc_sw_admm, with spc

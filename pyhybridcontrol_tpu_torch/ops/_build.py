@@ -29,14 +29,18 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 # (tensor cores) in admm_mixed.cu, K4 (the stagewise sweep) and K5 (the
 # stagewise ADMM loop) in stagewise.cu, K5's other instantiations in the
 # three sources that build stagewise.cu's other parts (bmax 32 to 128; the
-# runtime-r path at bmax 8 and 16; the horizon variant), each its own
-# library so that the compilers run side by side
+# runtime-r path at bmax 8 and 16; the horizon variant) and in the three
+# that build parts 0 to 2 with the parallel sweep (the "_par" ones), each
+# its own library so that the compilers run side by side
 LIBRARIES = {"admm": PKG_DIR / "csrc" / "admm.cu",
              "admm_mixed": PKG_DIR / "csrc" / "admm_mixed.cu",
              "stagewise": PKG_DIR / "csrc" / "stagewise.cu",
              "stagewise_wide": PKG_DIR / "csrc" / "stagewise_wide.cu",
              "stagewise_extra": PKG_DIR / "csrc" / "stagewise_extra.cu",
-             "stagewise_horizon": PKG_DIR / "csrc" / "stagewise_horizon.cu"}
+             "stagewise_horizon": PKG_DIR / "csrc" / "stagewise_horizon.cu",
+             "stagewise_par": PKG_DIR / "csrc" / "stagewise_par.cu",
+             "stagewise_wide_par": PKG_DIR / "csrc" / "stagewise_wide_par.cu",
+             "stagewise_extra_par": PKG_DIR / "csrc" / "stagewise_extra_par.cu"}
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 DEFAULT_CUDA_HOMES = ("/usr/local/cuda",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -160,16 +164,16 @@ def _bind_stagewise(lib):
 def _bind_stagewise_k5(lib):
     """K5's exports, which every part of stagewise.cu has."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    # N b m S n_blk n_ext n_cons mean warps staged bmax ext ring
-    lib.phc_sw_admm_smem_bytes.argtypes = [I] * 13
+    # N b m S n_blk n_ext n_cons mean warps staged bmax ext ring windows
+    lib.phc_sw_admm_smem_bytes.argtypes = [I] * 14
     lib.phc_sw_admm_smem_bytes.restype = I
     # struct PhcSwAdmmArgs (ops/cuda_stagewise.py mirrors it), warps,
     # lanes a stage, staged, bmax, stream
     lib.phc_sw_admm.argtypes = [P, I, I, I, I, P]
     lib.phc_sw_admm.restype = I
     # N b m n_blk n_ext n_cons mean warps staged bmax spc place ext ring
-    # lists (the member lists' words staged) S
-    lib.phc_sw_admm_flex_smem_bytes.argtypes = [I] * 16
+    # lists (the member lists' words staged) S windows
+    lib.phc_sw_admm_flex_smem_bytes.argtypes = [I] * 17
     lib.phc_sw_admm_flex_smem_bytes.restype = I
     # N b m n_cons mean place bmax
     lib.phc_sw_admm_flex_scratch_words.argtypes = [I] * 7
@@ -205,7 +209,10 @@ _BINDERS = {"admm": _bind_admm, "admm_mixed": _bind_admm_mixed,
             "stagewise": _bind_stagewise,
             "stagewise_wide": _bind_stagewise_k5,
             "stagewise_extra": _bind_stagewise_k5,
-            "stagewise_horizon": _bind_stagewise_horizon}
+            "stagewise_horizon": _bind_stagewise_horizon,
+            "stagewise_par": _bind_stagewise_k5,
+            "stagewise_wide_par": _bind_stagewise_k5,
+            "stagewise_extra_par": _bind_stagewise_k5}
 
 
 def load_library(name: str = "admm"):

@@ -74,11 +74,21 @@ at once (``horizon_capacity``, cudaOccupancyMaxActiveClusters; planned
 without a card, ``HORIZON_WAVE`` CTAs), else the fewest whose window fits,
 which then runs in more than one wave (the wrapper warns). It runs the
 sequential sweep over the windows, or with ``parallel`` (the reference's
-``parallel_sweeps=True``, wherever ``horizon_applies``) every window's
-sweep at once, joined by carries through the window maps
-(``ops/stagewise.window_maps``). ``tps`` forces the lanes a stage of any
-variant (the sequential horizon sweep is the global variant's bit for bit
-at the same lanes).
+``parallel_sweeps=True``) every window's sweep at once, joined by carries
+through the window maps (``ops/stagewise.window_maps``). ``tps`` forces
+the lanes a stage of any variant (the sequential horizon sweep is the
+global variant's bit for bit at the same lanes).
+
+At every other shape ``parallel`` runs the same algorithm inside the
+variant the ladder picks (``AdmmPlan.windows`` = C, ``par_windows``): the
+slot's warps sweep the C windows of its problem from a zero carry, one
+warp composes the carries through the window maps (``par_maps``: one pair
+a prep, read through L2), every thread corrects its stages, and the
+Woodbury step, the rows and the group mean read the corrected x. Those
+instantiations are the "_par" libraries (``stagewise_par``,
+``stagewise_wide_par``, ``stagewise_extra_par``: parts 0 to 2 built with
+PHC_SW_PAR), so that the sequential ones keep their machine code; their
+launches count under the variant's name with PAR_SUFFIX.
 """
 
 from __future__ import annotations
@@ -124,6 +134,12 @@ ADMM_LAUNCH = {"shared": "stagewise_k5", "grouped": "stagewise_k5_grouped",
                "global": "stagewise_k5_global",
                "global_all": "stagewise_k5_global_all",
                "horizon": "stagewise_k5_horizon"}
+# the parallel sweep inside the shared and FLEX variants counts under the
+# variant's name with this suffix (the horizon variant's under its own)
+PAR_SUFFIX = "_par"
+# the parallel sweep's windows a problem: the slot's warps, at least 2
+# (where N ≥ 2) and at most PAR_WINDOWS (the kernel's kMaxWindows)
+PAR_WINDOWS = 8
 # the horizon variant: CTAs a cluster (one window each; portable sizes),
 # most first, and the CTAs one wave of its clusters is reckoned to hold
 # where the plan is made without a card (one CTA an SM: 16 clusters of 8,
@@ -311,7 +327,9 @@ class AdmmPlan:
     unstaged; else 0), for the horizon variant (``cluster`` CTAs a
     problem, one window each) whether it runs the parallel sweep, and for
     a FLEX variant with a group mean the words of the member lists
-    (``group_members``) its CTAs stage (0: read from device memory)."""
+    (``group_members``) its CTAs stage (0: read from device memory); for
+    the parallel sweep inside the other variants (``parallel``), its
+    windows a problem (0: the sequential sweep)."""
 
     bmax: int
     staged: bool
@@ -325,15 +343,26 @@ class AdmmPlan:
     ring: int = 0
     parallel: bool = False
     lists: int = 0
+    windows: int = 0
 
     @property
     def library(self) -> str:
-        """The kernel library holding this instantiation."""
+        """The kernel library holding this instantiation (the parallel
+        sweep's in the "_par" twin of its part)."""
         if self.variant == "horizon":
             return "stagewise_horizon"
         if not self.ext:
-            return "stagewise"
-        return "stagewise_wide" if self.bmax > 16 else "stagewise_extra"
+            name = "stagewise"
+        else:
+            name = "stagewise_wide" if self.bmax > 16 else "stagewise_extra"
+        return name + ("_par" if self.windows else "")
+
+    @property
+    def launch(self) -> str:
+        """The name this plan's launches count under (``ADMM_LAUNCH``, with
+        PAR_SUFFIX for the parallel sweep outside the horizon variant)."""
+        return ADMM_LAUNCH[self.variant] + (PAR_SUFFIX if self.windows
+                                            else "")
 
 
 def _jm_words(m, b, bmax, ext):
@@ -369,7 +398,8 @@ def _const_words(N, b, m, n_blk, n_ext, staged, bmax, ext, hz=True):
 
 def admm_smem_bytes(N: int, b: int, m: int, S: int, n_blk: int, n_ext: int,
                     n_cons: int, mean: bool, warps: int, staged: bool,
-                    bmax: int, ext: int = 0, ring: int = 0) -> int:
+                    bmax: int, ext: int = 0, ring: int = 0,
+                    windows: int = 0) -> int:
     """Shared memory of one CTA of the shared variant
     (``phc_sw_admm_smem_bytes`` gives the same): the factors if staged, J
     and Mc (rows of bmax words to bmax 16, of b words above), the blocking
@@ -378,7 +408,8 @@ def admm_smem_bytes(N: int, b: int, m: int, S: int, n_blk: int, n_ext: int,
     z, y, l and u (m·N words each; above bmax 16 also w), t, its M part and
     x (N·b words each), two consensus-row buffers with a group mean, and on
     the register path 4·(1 + warps) words of Woodbury coefficient and
-    sums, on the runtime-r one its four r-word vectors, and the sweep
+    sums, on the runtime-r one its four r-word vectors, the parallel
+    sweep's carries (b words each of its ``windows`` windows) and the sweep
     warp's factor ring of ``ring`` blocks; each array padded to a multiple
     of 4 words."""
     words = (_const_words(N, b, m, n_blk, n_ext, staged, bmax, ext)
@@ -386,7 +417,7 @@ def admm_smem_bytes(N: int, b: int, m: int, S: int, n_blk: int, n_ext: int,
              + (5 if bmax > 16 else 4) * _pad4(m * N)
              + 3 * _pad4(N * b) + (2 * _pad4(N * n_cons) if mean else 0)
              + _vec_words(n_ext, ext) + (0 if ext else ADMM_RMAX * warps)
-             + ring_words(ring, b))
+             + _pad4(windows * b) + ring_words(ring, b))
     return 4 * words
 
 
@@ -405,7 +436,8 @@ def _flex_words(N, b, m, n_cons, mean, place, bmax=8):
 def flex_smem_bytes(N: int, b: int, m: int, n_blk: int, n_ext: int,
                     n_cons: int, mean: bool, warps: int, staged: bool,
                     bmax: int, spc: int, place: int, ext: int = 0,
-                    ring: int = 0, lists: int = 0, S: int = 1) -> int:
+                    ring: int = 0, lists: int = 0, S: int = 1,
+                    windows: int = 0) -> int:
     """Shared memory of one CTA of a FLEX variant
     (``phc_sw_admm_flex_smem_bytes`` gives the same): the constants as the
     shared variant's (the ties, Aext and KiU only below place 2; no
@@ -413,15 +445,16 @@ def flex_smem_bytes(N: int, b: int, m: int, n_blk: int, n_ext: int,
     lists it stages and, with a group mean, the address of each of the S
     scenarios' consensus buffers (two words each), then ``spc`` slots of a
     scenario's shared arrays (``_flex_words``), its Woodbury coefficient
-    and sums or runtime-r vectors and its sweep warp's factor ring of
-    ``ring`` blocks; ``warps`` the CTA's."""
+    and sums or runtime-r vectors, its sweep warp's factor ring of
+    ``ring`` blocks and the parallel sweep's carries (b words each of its
+    ``windows`` windows); ``warps`` the CTA's."""
     const = (_const_words(N, b, m, n_blk, n_ext, staged, bmax, ext,
                           hz=place < 2) + _pad4(lists)
              + (_pad4(2 * S) if mean else 0))
     slot = (_flex_words(N, b, m, n_cons, mean, place, bmax)[0]
             + _vec_words(n_ext, ext)
             + (0 if ext else ADMM_RMAX * (warps // spc))
-            + ring_words(ring, b))
+            + ring_words(ring, b) + _pad4(windows * b))
     return 4 * (const + spc * slot)
 
 
@@ -537,6 +570,13 @@ def horizon_plan(P: int, N: int, b: int, m: int,
         (fits[C] for C in reversed(cands) if fits[C]), None)
 
 
+def par_windows(warps: int, N: int) -> int:
+    """The parallel sweep's windows for a problem of horizon N on a slot
+    of ``warps`` warps (one window a warp): at least 2 where N ≥ 2, at most
+    N and PAR_WINDOWS."""
+    return min(max(warps, 2), N, PAR_WINDOWS)
+
+
 def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
               n_ext: int = 0, n_cons: int = 0, mean: bool = False,
               staged: Optional[bool] = None,
@@ -565,8 +605,12 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
     where they fit beside a candidate, else read from device memory.
     Where that picks "global" and ``horizon_applies``, the
     horizon variant (``horizon_plan``; its cluster from the occupancy of
-    a CUDA ``device``) where a window fits. ``parallel`` (the parallel
-    sweep) plans the horizon variant alone. ``staged``,
+    a CUDA ``device``) where a window fits. ``parallel`` (the reference's
+    ``parallel_sweeps=True``): the same ladder with the parallel sweep,
+    in the horizon variant where it takes the shape, else inside the
+    variant the ladder picks (``windows`` from the slot's warps,
+    ``par_windows``; no factor ring, the carries beside the state; the
+    "_par" libraries). ``staged``,
     ``variant``, ``runtime_r``, ``tps`` and ``spc`` force one: no path
     sets them, ``chip_smoke.py`` holds the unstaged, the global-state,
     the runtime-r instantiations and the grouped variant's earlier
@@ -601,7 +645,7 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
         raise ValueError(f"{what}: {tps} lanes a stage is no power of 2 up "
                          f"to 32")
     hz = horizon_applies(b, S, mean, n_ext) and not runtime_r
-    if parallel or variant == "horizon":
+    if variant == "horizon":
         if not hz:
             raise ValueError(f"{what}: the horizon variant takes one "
                              f"scenario, no extra rows and b up to 16")
@@ -611,6 +655,16 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
                              f"a CTA's {SMEM_MAX} bytes of shared memory")
         return pl
     most = ADMM_THREADS[bmax]
+
+    # the parallel sweep reads the factors where they lie (no ring) and
+    # keeps its windows' carries beside the state: C windows for a slot of
+    # w warps (``par_windows``)
+    def rings(st):
+        return (0,) if parallel else _ring_depths(bmax, st)
+
+    def wins(w):
+        return par_windows(w, N) if parallel else 0
+
     # above bmax 16 an odd b's packed blocks are padded apart, which the
     # staged layout does not hold: such a shape streams them (the ring)
     odd_wide = bmax > 16 and b % 2 == 1
@@ -624,13 +678,15 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
         lanes, warps = _lanes(N, most, tps)
         for st in sts:
             for ext in exts:
-                for d in _ring_depths(bmax, st):
+                for d in rings(st):
                     smem = admm_smem_bytes(N, b, m, S, n_blk, n_ext, n_cons,
-                                           mean, warps, st, bmax, ext, d)
+                                           mean, warps, st, bmax, ext, d,
+                                           wins(warps))
                     if smem <= SMEM_MAX:
                         return AdmmPlan(bmax=bmax, staged=st, warps=warps,
                                         tps=lanes, cluster=S, smem=smem,
-                                        ext=ext, ring=d)
+                                        ext=ext, ring=d, parallel=parallel,
+                                        windows=wins(warps))
     if variant == "shared":
         raise ValueError(
             f"{what}: the shared variant " + (
@@ -660,28 +716,29 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
         for name in names:
             for st in sts:
                 for ext in exts:
-                    for d in _ring_depths(bmax, st):
+                    for d in rings(st):
                         # the member lists staged where they fit, else
                         # read from device memory
                         for ls in dict.fromkeys((lists, 0)):
                             smem = flex_smem_bytes(
                                 N, b, m, n_blk, n_ext, n_cons, mean,
                                 w * spc, st, bmax, spc, ADMM_PLACES[name],
-                                ext, d, ls, S)
+                                ext, d, ls, S, wins(w))
                             if smem <= SMEM_MAX:
                                 break
                         if smem > SMEM_MAX:
                             continue
                         if name == "global" and variant is None and hz \
                                 and not ext:
-                            got = horizon_plan(P, N, b, m, staged, False,
+                            got = horizon_plan(P, N, b, m, staged, parallel,
                                                tps, device)
                             if got is not None:
                                 return got
                         return AdmmPlan(bmax=bmax, staged=st, warps=w * spc,
                                         tps=lanes, cluster=-(-S // spc),
                                         smem=smem, spc=spc, variant=name,
-                                        ext=ext, ring=d, lists=ls)
+                                        ext=ext, ring=d, lists=ls,
+                                        parallel=parallel, windows=wins(w))
     raise ValueError(f"{what}: needs {smem} bytes of shared memory a CTA, "
                      f"above the {SMEM_MAX} an sm_90 CTA has")
 
@@ -800,7 +857,26 @@ class _AdmmArgs(ctypes.Structure):
             "mean", "iters")]
         + [(k, ctypes.c_float) for k in ("sigma", "alpha")]
         + [("ext_ws", ctypes.c_void_p), ("ext", ctypes.c_int),
-           ("ring", ctypes.c_int)])
+           ("ring", ctypes.c_int), ("Pi", ctypes.c_void_p),
+           ("Psi", ctypes.c_void_p), ("windows", ctypes.c_int)])
+
+
+def par_maps(sw, windows: int, bmax: int):
+    """(Π, Ψ) of the parallel sweep's ``windows`` windows over the prep
+    ``sw`` (``ops/stagewise.window_maps`` of ``horizon_windows``), as the
+    kernel reads them: row-major up to bmax 16, each block column-major
+    above (cached on the prep)."""
+    from pyhybridcontrol_tpu_torch.ops.stagewise import window_maps
+
+    maps = window_maps(sw, horizon_windows(sw.N, windows))
+    if bmax <= 16:
+        return maps
+    key = ("k5_par_maps", windows)
+    got = sw.cache.get(key)
+    if got is None:
+        got = tuple(M.transpose(-1, -2).contiguous() for M in maps)
+        sw.cache[key] = got
+    return got
 
 
 def admm_cluster_capacity(sw, args, pl: AdmmPlan) -> int:
@@ -884,10 +960,13 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
     l and u (…, N, m_k) with one batch (z already inside [l, u]); with
     extra rows z_e, y_e and ext_u (…, n_ext); ``consensus_M`` (S, S, N)
     the group mean over the last batch axis (S scenarios); ``parallel``
-    the horizon variant's parallel sweep (``_admm_iterations`` with
-    ``_solve_K_windowed`` on the plan's windows is its plain version);
+    the parallel sweep (``_admm_iterations`` with ``_solve_K_windowed`` on
+    the plan's windows is its plain version): in the horizon variant where
+    the plan takes it;
     ``staged``, ``variant``, ``runtime_r``, ``tps`` and ``spc`` force one
-    instantiation (``plan_admm``). Returns (x, z, y, dy, z_e, y_e, dy_e)
+    instantiation (``plan_admm``); ``parallel`` elsewhere the parallel
+    sweep inside the variant the plan picks (``par_maps`` on the plan's
+    windows). Returns (x, z, y, dy, z_e, y_e, dy_e)
     as ``ops/stagewise._admm_iterations`` does. Checks, allocates the
     outputs (and a FLEX variant's scratch, and the runtime-r vectors'
     where they lie in device memory), builds a FLEX variant's member
@@ -941,16 +1020,20 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
     ext_ws = (torch.empty(P * ext_scratch_words(r), dtype=torch.float32,
                           device=dev) if pl.ext & EXT_VEC else None)
     LUC = c["wide"].unbind(0) if pl.bmax > 16 else sw.factors
+    Pi, Psi = (par_maps(sw, pl.windows, pl.bmax) if pl.windows > 1
+               else (None, None))
     ptrs = dict(q=q, l=l, u=u, x0=x0, z0=z0, y0=y0, L=LUC[0], U=LUC[1],
                 C=LUC[2], J=c["J"], Mc=c["Mc"], tie=c["tie"], blk=c["blk"],
                 rows=c["rows"], Aext=c.get("Aext"), KiU=c.get("KiU"),
                 Cw=c.get("Cw"), rho_e=c.get("rho_ext"), gM=gM, x=out[0],
-                z=out[1], y=out[2], dy=out[3], ext_ws=ext_ws, **ext)
+                z=out[1], y=out[2], dy=out[3], ext_ws=ext_ws, Pi=Pi, Psi=Psi,
+                **ext)
     args = _AdmmArgs(**{k: _ptr(v).value for k, v in ptrs.items()},
                      P=P, N=N, b=b, m=m, S=S, n_blk=sw.n_blk,
                      blk0=c["blk0"], n_ext=r, n_cons=sw.n_cons,
                      mean=int(mean), iters=int(iters), sigma=sw.sigma,
-                     alpha=sw.alpha, ext=pl.ext, ring=pl.ring)
+                     alpha=sw.alpha, ext=pl.ext, ring=pl.ring,
+                     windows=pl.windows)
     lib = load_library(pl.library)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -982,8 +1065,9 @@ def sw_admm_cuda(sw, q, l, u, x, z, y, z_e, y_e, ext_u, iters: int,
                 pl.bmax, pl.spc, pl.cluster, place,
                 _ptr(scratch if place else None), _ptr(members), pl.lists,
                 ctypes.c_void_p(stream))
-    _raise_on(lib, rc, f"K5 (stagewise ADMM, {pl.variant})")
-    _count_launch(ADMM_LAUNCH[pl.variant], P)
+    _raise_on(lib, rc, f"K5 (stagewise ADMM, {pl.variant}"
+              + (", parallel sweep)" if pl.windows else ")"))
+    _count_launch(pl.launch, P)
     shapes = ((N, b), (N, m), (N, m), (N, m))
     res = [t.reshape(batch + sh) for t, sh in zip(out, shapes)]
     if r:

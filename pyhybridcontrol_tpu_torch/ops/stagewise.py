@@ -51,15 +51,17 @@ Port decisions:
 - ``parallel_sweeps=True`` is another algorithm the caller picks, not a
   fallback. On a CPU tensor it runs the plain loop with ``_solve_K_assoc``,
   the reference's log-depth prefix over affine maps. On a CUDA tensor it
-  launches K5's horizon variant in its parallel sweep once (the horizon in
-  C windows, each swept from a zero carry, joined by carries through the
-  window maps; its plain version is ``_admm_iterations`` with
-  ``_solve_K_windowed``). That variant takes one scenario, no extra rows
-  and b ≤ 16 (``cuda_stagewise.horizon_applies``) with a window that fits
-  a CTA (``horizon_plan``); at any other shape (extra rows, a group mean)
-  the call raises ValueError with the shape, as K5's plan does where
-  nothing fits: no kernel runs that sweep there, and the plain loop never
-  runs on the card in its place (``_admm_route``).
+  launches K5 once with its parallel sweep (the horizon in C windows, each
+  swept from a zero carry, joined by carries through the window maps; its
+  plain version is ``_admm_iterations`` with ``_solve_K_windowed``): in
+  the horizon variant where that takes the shape (one scenario, no extra
+  rows, b ≤ 16, ``cuda_stagewise.horizon_applies``), else inside the
+  variant K5's plan picks (extra rows, a group mean, b up to 128), the
+  Woodbury step, the rows and the group mean then reading the corrected
+  x. It raises ValueError with the shape where K5's plan raises (b above
+  128) and for a group mean over ranks (``consensus_M`` a function: that
+  loop is torch with K4 as its sweep, and no windowed K4 exists); the
+  plain loop never runs on the card in its place (``_admm_route``).
 - The objective, the infeasibility certificate's support and gap sums and
   the dual bound's sums accumulate in float64, as in ops/admm.py.
 """
@@ -76,8 +78,7 @@ import torch.nn.functional as F
 from pyhybridcontrol_tpu_torch.mld.model import MldModel
 from pyhybridcontrol_tpu_torch.ops.admm import AdmmResult, _implied_box
 from pyhybridcontrol_tpu_torch.ops.condense import MpcWeights, _sq, _vec
-from pyhybridcontrol_tpu_torch.ops.cuda_stagewise import (
-    horizon_applies, sw_admm_cuda)
+from pyhybridcontrol_tpu_torch.ops.cuda_stagewise import sw_admm_cuda
 from pyhybridcontrol_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 BIG = 1e30
@@ -1083,25 +1084,23 @@ def _admm_route(sw: StagewiseQP, device, parallel_sweeps: bool,
     """(function, keywords) that run a solve's iterations on ``device``: on
     the CPU the plain loop, its sweep ``_solve_K`` or, with
     ``parallel_sweeps``, ``_solve_K_assoc``; on the card one launch of K5
-    (``sw_admm_cuda``; with ``parallel_sweeps`` its horizon variant's
-    parallel sweep), or the torch loop with K4 where ``consensus_M`` is a
-    function (a group mean across ranks). Raises ValueError for another
-    device, and for ``parallel_sweeps`` on the card at a shape the horizon
-    variant does not take."""
-    mean = consensus_M is not None and sw.n_cons > 0
+    (``sw_admm_cuda``; with ``parallel_sweeps`` its parallel sweep, at
+    every shape K5 plans), or the torch loop with K4 where ``consensus_M``
+    is a function (a group mean across ranks). Raises ValueError for
+    another device, and for ``parallel_sweeps`` on the card with a group
+    mean across ranks (no windowed K4)."""
     if device.type == "cpu":
         return _admm_iterations, dict(
             sweep=_solve_K_assoc if parallel_sweeps else _solve_K)
     if device.type != "cuda":
         raise ValueError(f"no stagewise ADMM for device {device}")
     if parallel_sweeps:
-        if not horizon_applies(sw.b, mean=mean, n_ext=sw.n_ext):
+        if callable(consensus_M):
             raise ValueError(
-                f"parallel_sweeps on the card: K5's horizon variant takes "
-                f"one scenario, no extra rows and b up to 16, not b={sw.b}, "
-                f"n_ext={sw.n_ext}" + (f", a group mean over "
-                                       f"{sw.n_cons} rows" if mean else "")
-                + "; pass parallel_sweeps=False (K5's sequential sweep)")
+                f"parallel_sweeps on the card: a group mean over ranks runs "
+                f"the torch loop with K4 as its sweep, which has no windowed "
+                f"form (b={sw.b}, n_ext={sw.n_ext}, a group mean over "
+                f"{sw.n_cons} rows); pass parallel_sweeps=False")
         return sw_admm_cuda, dict(parallel=True)
     if callable(consensus_M):
         return _admm_iterations, dict(sweep=_k4_sweep)
@@ -1120,9 +1119,9 @@ def stagewise_admm_solve(sw: StagewiseQP, q, l, u, iters: int = 200,
     launch of K5 on a CUDA tensor and as ``_admm_iterations`` (torch, the
     plain sweeps) on a CPU tensor; another device raises.
     ``parallel_sweeps``: the horizon-parallel sweeps, an algorithm of its
-    own (module doc): on a CUDA tensor one launch of K5's horizon variant
-    in its parallel sweep (a ValueError at a shape it does not take), on
-    the CPU the torch loop with ``_solve_K_assoc``.
+    own (module doc): on a CUDA tensor one launch of K5 with its parallel
+    sweep (a ValueError with a group mean over ranks), on the CPU the
+    torch loop with ``_solve_K_assoc``.
     ``consensus_M`` (S, S, N): the p-weighted group-mean weights
     (``StagewiseTreeQP.M``) that replace the z-update on the trailing
     ``n_cons`` rows over the scenario axis, dim −3 (their residual then

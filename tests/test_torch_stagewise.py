@@ -904,10 +904,12 @@ def test_admm_smem_mirrors_the_kernel_source():
                           for ln in body.splitlines()[1:30]]
     assert names[29:] == ["P", "N", "b", "m", "S", "n_blk", "blk0", "n_ext",
                           "n_cons", "mean", "iters", "sigma", "alpha",
-                          "ext_ws", "ext", "ring"]
+                          "ext_ws", "ext", "ring", "Pi", "Psi", "windows"]
     assert "int P, N, b, m, S, n_blk, blk0, n_ext, n_cons, mean, iters;" in \
         body and "float sigma, alpha;" in body
-    assert body.rstrip().endswith("float* ext_ws;\n  int ext;\n  int ring;")
+    assert body.rstrip().endswith(
+        "float* ext_ws;\n  int ext;\n  int ring;\n  const float* Pi;\n"
+        "  const float* Psi;\n  int windows;")
 
 
 def test_admm_dispatch_follows_the_device(monkeypatch):

@@ -174,14 +174,15 @@ def _route_prep(feature):
                                  device="cpu", **kw)
 
 
-@pytest.mark.parametrize("feature", ["extra", "mean", "mean_over_ranks"])
+@pytest.mark.parametrize("feature", ["mean_over_ranks"])
 def test_parallel_sweeps_on_the_card_refuse_other_shapes(monkeypatch,
                                                          feature):
-    """On a CUDA device ``parallel_sweeps=True`` at a shape the horizon
-    variant does not take (extra rows, a group mean, a group mean over
-    ranks) raises ValueError with the shape: neither the torch loop
-    (``_admm_iterations``) nor K5 is reached, where the plain loop ran on
-    the card before."""
+    """On a CUDA device ``parallel_sweeps=True`` with a group mean over
+    ranks (``consensus_M`` a function: the torch loop with K4 as its
+    sweep, which has no windowed form) raises ValueError with the shape:
+    neither the torch loop (``_admm_iterations``) nor K5 is reached. (Extra
+    rows and a group mean on one card reach K5's parallel sweep:
+    tests/test_torch_stagewise_parallel.py.)"""
     monkeypatch.setattr(tsw, "_admm_iterations",
                         lambda *a, **k: pytest.fail("plain loop reached"))
     monkeypatch.setattr(tsw, "sw_admm_cuda",
@@ -233,18 +234,21 @@ LEFT = {
 def test_horizon_plan_leaves_the_other_shapes(key):
     """Extra rows, a group mean, b above 16 or a shape the global variant
     did not get plan as before (the variant and its fields equal to the
-    plan forced to that variant), and the parallel sweep refuses them
-    (on the card stagewise_admm_solve raises there, ``_admm_route``)."""
+    plan forced to that variant); the parallel sweep runs there inside
+    that variant (its windows from the slot's warps), and the horizon
+    variant forced refuses the shapes it does not take."""
     shape, want = LEFT[key]
     pl = cs.plan_admm(*shape)
     assert pl.variant == want and not pl.parallel
     assert pl == cs.plan_admm(*shape, variant=want)
+    pp = cs.plan_admm(*shape, parallel=True)
+    assert pp.variant == want and pp.parallel and pp.windows >= 2
     b, S = shape[2], (shape[4] if len(shape) > 4 else 1)
     n_ext = shape[6] if len(shape) > 6 else 0
     mean = shape[8] if len(shape) > 8 else False
     if not cs.horizon_applies(b, S, mean, n_ext):
         with pytest.raises(ValueError, match="horizon variant takes"):
-            cs.plan_admm(*shape, parallel=True)
+            cs.plan_admm(*shape, variant="horizon", parallel=True)
 
 
 @pytest.mark.parametrize("N,C", [(1, 1), (2, 2), (7, 4), (37, 8), (300, 8),

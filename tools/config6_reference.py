@@ -3,6 +3,7 @@
 of the reference side, run on the CPU:
 
     JAX_PLATFORMS=cpu python tools/config6_reference.py [--reps R]
+        [--parallel]
 
 Builds config 6 as the reference bench does (bench.py:742-816): the
 double integrator with a velocity disturbance, the S=2, N=4 tree drawn
@@ -12,6 +13,8 @@ row Σ_k u_k ≤ 60, the bench's spec (capacity 64, wave 8, 6 waves, 150
 relaxation and 1000 probe iterations at ρ·10, gap 1e-3), from x0 = [2, 0];
 solves it R times with ``solve_tree_miqp_stagewise`` and prints the
 objective (full precision), nodes, waves, found and seconds per solve.
+``--parallel``: the solves with ``parallel_sweeps=True`` (the log-depth
+sweeps), as ``MpcController(sw_parallel=True)`` runs them.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--parallel", action="store_true")
     a = ap.parse_args(argv)
 
     import jax.numpy as jnp
@@ -70,7 +74,8 @@ def main(argv=None):
     for _ in range(a.reps):
         t0 = time.perf_counter()
         r = solve_tree_miqp_stagewise(swt, q, l, u, spec, swt_probe=swtp,
-                                      ext_u=ext_u)
+                                      ext_u=ext_u,
+                                      parallel_sweeps=a.parallel)
         r.obj.block_until_ready()
         print(f"objective {float(r.obj)!r}, nodes {int(r.nodes_solved)}, "
               f"found {bool(r.found)}, {time.perf_counter() - t0:.2f} s",

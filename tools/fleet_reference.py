@@ -3,6 +3,7 @@
 development tool of the reference side, run on the CPU:
 
     JAX_PLATFORMS=cpu python tools/fleet_reference.py [--reps R] [--port]
+        [--parallel]
 
 Twin of ``tools/config2_reference.py``. Builds ``chip_smoke.py``'s
 ``battery_fleet`` setup on the JAX package: eight default batteries
@@ -14,6 +15,8 @@ iterations), from SoC linspace(0.3, 0.7, 8); runs ``feedback`` R times and
 prints one JSON line a run: objective (full precision), nodes, found, u₀
 and seconds (the first run compiles). ``--port`` also runs the port's
 ``chip_smoke.fleet_controller`` with ``device="cpu"`` on the same setup.
+``--parallel``: both controllers with ``sw_parallel=True`` (the
+log-depth sweeps).
 A reading, not a gate: the search order may differ between the packages.
 """
 
@@ -32,6 +35,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=1)
     ap.add_argument("--port", action="store_true")
+    ap.add_argument("--parallel", action="store_true")
     a = ap.parse_args(argv)
 
     import numpy as np
@@ -56,19 +60,21 @@ def main(argv=None):
     w = MpcWeights(Qx=np.tile(bw.Qx, M), x_ref=np.tile(bw.x_ref, M),
                    Ru=np.tile(bw.Ru, M))
     c = MpcController(model, N, w, solver="stagewise",
-                      bnb_spec=BnbSpec(**cs.FLEET_SPEC))
+                      bnb_spec=BnbSpec(**cs.FLEET_SPEC),
+                      sw_parallel=a.parallel)
     c.set_extra_constraints(A_v, b_e)
     c.build()
     for _ in range(a.reps):
         t0 = time.perf_counter()
         r = c.feedback(x0, price_seq=price)
         obj = float(r.obj)
-        print(json.dumps(dict(package="jax", obj=obj, nodes=int(r.nodes),
+        print(json.dumps(dict(package="jax", parallel=a.parallel, obj=obj, nodes=int(r.nodes),
                               found=bool(r.found),
                               u0=np.asarray(r.u).tolist(),
                               s=time.perf_counter() - t0)), flush=True)
     if a.port:
-        tc, tprice, tx0, _ = cs.fleet_controller(M, N, "cpu")
+        tc, tprice, tx0, _ = cs.fleet_controller(M, N, "cpu",
+                                                 parallel=a.parallel)
         t0 = time.perf_counter()
         r = tc.feedback(tx0, price_seq=tprice)
         print(json.dumps(dict(package="port (cpu)", obj=float(r.obj),

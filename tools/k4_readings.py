@@ -6,6 +6,7 @@ whole-solve holds of its phase 20 are set):
                                 [--profile]
     python tools/k4_readings.py --flex [--seeds 0-7] [--probes N,...]
     python tools/k4_readings.py --any [--seeds 0-7]
+    python tools/k4_readings.py --par [--seeds 0-7]
     python tools/k4_readings.py --long-repeat R
 
 Builds the kernels, then runs ``chip_smoke.phase_k4`` and
@@ -35,6 +36,13 @@ length).
 b above 16 and more than 4 extra rows, against the plain loop; timed at
 the first seed only) once per seed, as above (how the "k5_any" and
 "k5_rt" limits are set), then the battery_fleet path once.
+
+``--par`` runs ``chip_smoke.phase_k5_par`` (K5's parallel sweep inside
+the shared and FLEX variants against its windowed plain loop at every
+shape its paths launch; timed at the first seed only) once per seed, as
+above (how the "k5_par", "k5_par_rt" and "k5_par_any" limits are set),
+then the paths with their ``parallel_sweeps`` twins once: config 6's two
+arms (phase 21), battery_fleet, long_horizon and wide_tree.
 
 ``--long-repeat R`` runs none of the phases: it reads the long_horizon
 path's four solves (the double integrator and the hull model, each with
@@ -184,6 +192,7 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--flex", action="store_true")
     ap.add_argument("--any", action="store_true")
+    ap.add_argument("--par", action="store_true")
     ap.add_argument("--probes", default="")
     ap.add_argument("--long-repeat", type=int, default=0)
     a = ap.parse_args(argv)
@@ -218,6 +227,10 @@ def main(argv=None):
             cs.phase("k5_any", cs.phase_k5_any, dev, cs.phase_rng("k5_any"),
                      {k: {} for k in cs.K5_FAMILY})
             continue
+        if a.par:
+            cs.phase("k5_par", cs.phase_k5_par, dev, cs.phase_rng("k5_par"),
+                     {k: {} for k in cs.REPLACES})
+            continue
         if a.flex:
             recs = {k: {} for k in cs.K5_FAMILY}
             cs.phase("k5_flex", cs.phase_k5_flex, dev,
@@ -233,6 +246,12 @@ def main(argv=None):
     cs.READINGS_ONLY = False
     if a.any:
         cs.phase("battery fleet", cs.phase_battery_fleet, dev)
+    elif a.par:
+        for name, fn in (("config 6", cs.phase_config6),
+                         ("battery fleet", cs.phase_battery_fleet),
+                         ("long horizons and wide trees",
+                          cs.phase_wide_paths)):
+            cs.phase(name, fn, dev)
     elif a.flex:
         cs.phase("long horizons and wide trees", cs.phase_wide_paths, dev)
     for n in filter(None, a.probes.split(",")):

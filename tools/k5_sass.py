@@ -10,14 +10,17 @@ directory that .gitignore lists). Compiles each tree's
 ``pyhybridcontrol_tpu_torch/csrc/stagewise.cu`` alone (the library that
 holds K4 and K5's register path: the shared, grouped and global-state
 instantiations at bmax 8 and 16), its ``stagewise_extra.cu`` (K5's
-runtime-r path at bmax 8 and 16) and its ``stagewise_wide.cu`` (K5 at bmax
-32 to 128) to cubins with the flags of ``ops/_build.py``, all six builds
-side by side, disassembles them with ``cuobjdump -sass`` and compares the
-instructions of every ``sw_admm_kernel`` and ``sw_solve_k_kernel``
-instantiation of the parent with the change's of the same source and
-template arguments (K5: BMAX, B0, STAGED, FLEX, RDYN; K4: BMAX, B0,
-STAGED). Kernels the parent has not (the horizon variant's) are not
-compared.
+runtime-r path at bmax 8 and 16), its ``stagewise_wide.cu`` (K5 at bmax
+32 to 128) and its ``stagewise_horizon.cu`` (K5's horizon variant) to
+cubins with the flags of ``ops/_build.py``, all eight builds side by
+side, disassembles them with ``cuobjdump -sass`` and compares the
+instructions of every ``sw_admm_kernel``, ``sw_admm_horizon_kernel`` and
+``sw_solve_k_kernel`` instantiation of the parent with the change's of
+the same source and template arguments (K5: BMAX, B0, STAGED, FLEX, RDYN
+and PAR, the last read as 0 where a parent's kernel has no such
+argument; the horizon variant and K4: BMAX, B0, STAGED). Kernels the
+parent has not (the parallel sweep's inside the other variants, built
+from sources of their own) are not compared.
 Kernel-parameter offsets (``c[0x0][…]``) and symbol names are masked, so a
 parameter struct that grew at its end does not count. Prints, per
 instantiation, "same" or the two instruction counts and the number of
@@ -39,9 +42,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 CSRC = Path("pyhybridcontrol_tpu_torch") / "csrc"
-SOURCES = ("stagewise.cu", "stagewise_extra.cu", "stagewise_wide.cu")
+SOURCES = ("stagewise.cu", "stagewise_extra.cu", "stagewise_wide.cu",
+           "stagewise_horizon.cu")
 # kernel name -> its template arguments in the mangled name
-KERNELS = (("sw_admm_kernel", r"ILi(\d+)ELi(\d+)ELb(\d)ELb(\d)(?:ELb(\d))?E"),
+KERNELS = (("sw_admm_kernel",
+             r"ILi(\d+)ELi(\d+)ELb(\d)ELb(\d)(?:ELb(\d))?(?:ELb(\d))?E"),
+           ("sw_admm_horizon_kernel", r"ILi(\d+)ELi(\d+)ELb(\d)E"),
            ("sw_solve_k_kernel", r"ILi(\d+)ELi(\d+)ELb(\d)E"))
 
 
