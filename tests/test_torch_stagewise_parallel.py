@@ -17,8 +17,8 @@ tests/test_torch_stagewise_horizon.py holds the horizon variant's. Shapes:
 one extra row (the register path's sizes), six (the runtime-r path's),
 five batteries (b = 20, bmax 32) and a stagewise tree with a group mean
 and a coupled row. ``MpcController(sw_parallel=True)`` on a small tree
-with a coupled row matches the JAX package's: objective 1e-3 relative,
-the same found flag. The parallel plan is the sequential one with at
+with a coupled row matches the JAX package's: both find a plan, the
+objective within 1e-3 relative. The parallel plan is the sequential one with at
 least 2 windows at every shape the horizon variant leaves to the others,
 its shared memory mirrors the kernel source, and the card's route reaches
 K5 with the parallel sweep (the kernel itself runs only on the card:
@@ -221,7 +221,7 @@ def test_controller_sw_parallel_matches_reference_on_a_tree(monkeypatch):
     """``MpcController(solver="stagewise", sw_parallel=True)`` on a tree
     (S=2, N=4) with a coupled row Σ_k u_k ≤ 3, the port's solves running
     K5's plain parallel sweep, against the JAX package's controller with
-    ``sw_parallel=True``: the same found flag, the objective within 1e-3
+    ``sw_parallel=True``: both find a plan, the objective within 1e-3
     (relative, floor 1)."""
     N = 4
     paths = np.random.default_rng(5).normal(0.0, 0.3, size=(2, N, 1))
@@ -229,8 +229,8 @@ def test_controller_sw_parallel_matches_reference_on_a_tree(monkeypatch):
     A_v = np.zeros((1, N * 3))
     A_v[0, 0::3] = 1.0
     b_e = np.array([3.0])
-    spec = dict(capacity=128, wave_size=16, max_waves=16, qp_iters=200,
-                probe_iters=1000)
+    spec = dict(capacity=64, wave_size=8, max_waves=8, qp_iters=150,
+                probe_iters=300)
     jm = _omega_model()
     jc = JController(jm, N, jdi.default_weights(), solver="stagewise",
                      bnb_spec=JSpec(**spec), sw_parallel=True)
@@ -245,14 +245,13 @@ def test_controller_sw_parallel_matches_reference_on_a_tree(monkeypatch):
     tc.set_extra_constraints(A_v, b_e)
     tc.build()
     sw = tc.stagewise.sw
-    pl = cs.plan_admm(16 * 2, N, sw.b, sw.m_k, 2, sw.n_blk, sw.n_ext,
+    pl = cs.plan_admm(8 * 2, N, sw.b, sw.m_k, 2, sw.n_blk, sw.n_ext,
                       sw.n_cons, True, parallel=True)
     _windowed(monkeypatch, pl.windows)
     tr = tc.feedback(x0)
-    assert bool(tr.found) == bool(jr.found)
-    if bool(jr.found):
-        rel = abs(float(tr.obj) - float(jr.obj)) / max(1.0, abs(float(jr.obj)))
-        assert rel <= 1e-3, rel
+    assert bool(tr.found) and bool(jr.found)
+    rel = abs(float(tr.obj) - float(jr.obj)) / max(1.0, abs(float(jr.obj)))
+    assert rel <= 1e-3, rel
 
 
 # the shapes the horizon variant leaves to the others (as
