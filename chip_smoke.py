@@ -355,13 +355,16 @@ Run from the root of a checkout. It builds the kernels of
      launch (config 6's relaxation and probe preps, the fleet's, the three
      wide trees) and two more (config 6's long arm with 5 extra rows, the
      runtime-r path at bmax 8; 32 batteries, bmax 128), 20 iterations from
-     the sequential relaxation ("k5_par", "k5_par_rt", "k5_par_any"); the
+     the sequential relaxation ("k5_par", "k5_par_probe", "k5_par_rt",
+     "k5_par_any", "k5_par_any_probe": each prep its own); the
      parallel plan checked to be the sequential one with its windows; at
      config 6 grouped, global and global_all forced; each timed alone, as a
      wrapper and as the plain loop, beside its bound and both chain floors,
      and the relaxation alone in both sweeps, in turns; then held only at
      phase 22's short and wider shapes (windows of one or two stages at
-     N=4 and 10, every row kind, b=6 and 13; "k5_par_small") and phase
+     N=4 and 10, every row kind, b=6 and 13; "k5_par_small"; where the
+     parallel plan is the horizon variant's, one scenario, the sweep
+     inside the shared variant forced and timed against it) and phase
      37's staged wide ones (five batteries, the ω tree).
 
 Each phase prints its wall time, and the run its total. Launch counts are
@@ -672,23 +675,30 @@ LIMITS = {
     # plain version (the plain loop with _solve_K_windowed on the plan's
     # windows; phase 39): 20 iterations from the sequential relaxation;
     # 3x the largest reading of seeds 0-7 on an H100 80GB HBM3 at 700 W
-    # (tools/k4_readings.py --par). "k5_par" (b=5: config 6's long arm at
-    # ρ and at the probes' ρ·10, also forced grouped/global/global_all;
-    # the wide trees): x 1.98e-6, z 2.56e-6, y 7.45e-5, dy 0.119, z_e
-    # 1.04e-5 (y and dy largest at the ρ·10 prep, whose dual steps carry
-    # ten times the rounding of the relaxation's: 6.3e-6 and 9.5e-3
-    # there); "k5_par_rt" (5 extra rows): x 1.04e-6, z 1.97e-6, y 6.56e-6,
-    # dy 1.19e-2, z_e 2.15e-6; "k5_par_any" (the fleet at ρ and ρ·10, b=32;
-    # 32 batteries, b=128; held only, staged at b=20: five batteries and
-    # the ω tree): x 2.50e-5, z 8.88e-5, y 6.68e-5, dy 0.244, z_e
-    # 2.77e-4 (dy 2.1e-2 at ρ). y_e and dy_e read 0 (no budget row binds):
-    # "k5"'s and "k5_rt"'s limits
-    "k5_par": dict(x=6e-6, z=7.7e-6, y=2.3e-4, dy=0.36, z_e=3.2e-5,
+    # (tools/k4_readings.py --par), each prep in a regime of its own: the
+    # probes' ρ·10 prep carries ten times the rounding of the relaxation's
+    # in its dual steps. "k5_par" (b=5, the relaxation's prep: config 6's
+    # long arm, also forced grouped/global/global_all; the wide trees): x
+    # 1.98e-6, z 2.56e-6, y 9.54e-6, dy 1.53e-2, z_e 1.04e-5;
+    # "k5_par_probe" (config 6's long arm at ρ·10): x 1.49e-6, z 2.31e-6,
+    # y 7.45e-5, dy 0.119, z_e 6.50e-6; "k5_par_rt" (5 extra rows): x
+    # 1.04e-6, z 1.97e-6, y 6.56e-6, dy 1.19e-2, z_e 2.15e-6; "k5_par_any"
+    # (b > 16 at the relaxation's prep: the fleet, b=32; 32 batteries,
+    # b=128; held only, staged at b=20: five batteries and the ω tree): x
+    # 2.50e-5, z 8.88e-5, y 4.34e-5, dy 3.81e-2, z_e 2.77e-4;
+    # "k5_par_any_probe" (the fleet at ρ·10): x 1.31e-5, z 1.48e-5, y
+    # 6.68e-5, dy 0.244, z_e 1.26e-4. y_e and dy_e read 0 (no budget row
+    # binds): "k5"'s and "k5_rt"'s limits
+    "k5_par": dict(x=6e-6, z=7.7e-6, y=2.9e-5, dy=4.6e-2, z_e=3.2e-5,
                    y_e=3.5e-5, dy_e=3.8e-2),
+    "k5_par_probe": dict(x=4.5e-6, z=7e-6, y=2.3e-4, dy=0.36, z_e=2e-5,
+                         y_e=3.5e-5, dy_e=3.8e-2),
     "k5_par_rt": dict(x=3.2e-6, z=6e-6, y=2e-5, dy=3.6e-2, z_e=6.5e-6,
                       y_e=7.6e-6, dy_e=2.9e-3),
-    "k5_par_any": dict(x=7.5e-5, z=2.7e-4, y=2e-4, dy=0.74, z_e=8.4e-4,
+    "k5_par_any": dict(x=7.5e-5, z=2.7e-4, y=1.3e-4, dy=0.12, z_e=8.4e-4,
                        y_e=3.5e-5, dy_e=3.8e-2),
+    "k5_par_any_probe": dict(x=4e-5, z=4.5e-5, y=2.1e-4, dy=0.74,
+                             z_e=3.8e-4, y_e=3.5e-5, dy_e=3.8e-2),
     # the shapes of PAR_SMALL (windows of one or two stages, every row
     # kind, b = 6 and 13), 3x the largest reading of seeds 0-7 (the same
     # tool): x 8.36e-6, z 1.02e-5, y 3.16e-5, dy 7.63e-2 (the soft state
@@ -5830,19 +5840,34 @@ def phase_k5_flex(dev, rng, recs):
                   f"ms", flush=True)
 
 
-def par_work(args, windows):
-    """(bytes, {type: operations}) of one K5 call with the parallel sweep
-    over ``windows`` windows (``k5_work`` plus its own): the window maps Π
-    and Ψ read once (2·N·b² words); per problem and iteration the carries
-    (2·(C−1) b×b products) and the corrections (a b×b product at each
-    stage past the first window, forward, and before the last, backward:
-    2·N·b² FMAs at most)."""
-    nbytes, ops = k5_work(args)
+def par_overhead(args, windows):
+    """(bytes, {type: operations}) that K5's parallel sweep over
+    ``windows`` windows does beyond the function's own work (``k5_work``,
+    which is what its bound counts), as the kernel does it: per problem and
+    iteration the carries, C−1 b×b products each way, and the corrections,
+    a b×b product at each stage past the first window (forward) and before
+    the last (backward), each product b² FMAs and b adds; the window maps
+    read once, Π at those stages and at the first window's end, Ψ at those
+    and at the last window's start."""
+    from pyhybridcontrol_tpu_torch.ops.cuda_stagewise import horizon_windows
+
     sw, q, iters = args[0], args[1], args[10]
     N, b = sw.N, sw.b
+    if windows < 2:
+        return 0, dict(fp32=0)
     P = q.numel() // (N * b)
-    extra = P * iters * 2 * (2 * (windows - 1) * b * b + 2 * N * b * b)
-    return nbytes + 4 * 2 * N * b * b, dict(fp32=ops["fp32"] + extra)
+    w = horizon_windows(N, windows)
+    fwd, bwd = N - w[1], w[windows - 1]
+    products = 2 * (windows - 1) + fwd + bwd
+    return (4 * (fwd + bwd + 2) * b * b,
+            dict(fp32=P * iters * products * (2 * b * b + b)))
+
+
+def windowed_bound_ms(args, windows):
+    """The bound of K5's parallel sweep with its windowed work counted
+    too (``k5_work`` plus ``par_overhead``)."""
+    (nb, ops), (ob, oo) = k5_work(args), par_overhead(args, windows)
+    return bound(nb + ob, dict(fp32=ops["fp32"] + oo["fp32"]))[0]
 
 
 def par_waves(dev, rng):
@@ -5871,7 +5896,7 @@ def par_waves(dev, rng):
                 "k5_par"))
     probe = node_wave(swtp, eu, rng, CFG6_SPEC["wave_size"], K4_HOLD_FIX)
     out.append(("config 6 long arm, probe (ρ·10)", "cfg6_probe", *probe,
-                "shared", "k5_par"))
+                "shared", "k5_par_probe"))
     swt5 = config6_preps(dev, tree_l, config6_rows(5))[0]
     out.append(("config 6 long arm, 5 extra rows", "cfg6_rt",
                 *node_wave(swt5, assemble_stagewise_tree_ext(swt5, x6), rng,
@@ -5883,7 +5908,7 @@ def par_waves(dev, rng):
                 "k5_par_any"))
     out.append(("battery_fleet, probe (ρ·10)", "fleet_probe",
                 StagewiseBackend(c._sw_probe, ext_u=be.ext_u), fb, hb, lb,
-                ub, "global", "k5_par_any"))
+                ub, "global", "k5_par_any_probe"))
     for S, steps in WIDE_TREES:
         swt = config6_preps(dev, wide_tree(S, steps), config6_extra(CFG6_N))[0]
         out.append((f"config 6's tree at S={S}", f"tree{S}",
@@ -5910,17 +5935,22 @@ def phase_k5_par(dev, rng, recs):
     plan's windows, on the card) at every shape of ``par_waves``:
     FLEX_HOLD_ITERS iterations from the sequential sweep's own relaxation
     (K5_RELAX iterations, cold), within the regime's limits ("k5_par",
-    "k5_par_rt", "k5_par_any"); the parallel plan must be the sequential
+    "k5_par_probe", "k5_par_rt", "k5_par_any", "k5_par_any_probe"); the
+    parallel plan must be the sequential
     plan's variant, placement and extra-row path, with at least 2 windows
     and no factor ring. Each held shape goes into its record
     (``instantiations``), with (TIMINGS) the parallel sweep's time alone
     and around its wrapper at the held iterations, the plain version's,
-    the bound (``par_work``) and both chain floors (``horizon_chain_ms``
+    the bound (``k5_work``: the function's own work; with the windowed
+    work counted too, ``windowed_bound_ms``) and both chain floors (``horizon_chain_ms``
     at the plan's windows, ``k4_chain_ms`` for the sequential sweep); and
     the relaxation alone in both sweeps, in turns (sequential, parallel,
     parallel, sequential). Then, held only, at the shapes of PAR_SMALL
-    ("k5_par_small") and the staged wide ones of phase 37 (five batteries,
-    b=20; the ω tree, S=16 grouped; "k5_par_any")."""
+    ("k5_par_small"; at the single scenarios, whose parallel plan is the
+    horizon variant's, the sequential plan's variant forced, its
+    relaxation timed against the horizon variant's in turns) and the
+    staged wide ones of phase 37 (five batteries, b=20; the ω tree, S=16
+    grouped; "k5_par_any")."""
     from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
     from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
 
@@ -5978,8 +6008,9 @@ def phase_k5_par(dev, rng, recs):
             if not TIMINGS:
                 continue
             pre = "" if "kernel_ms" not in rec else f"{key}_"
-            by = timed(rec, pre, wrapper, plain,
-                       par_work(held_args, pl.windows))
+            by = timed(rec, pre, wrapper, plain, k5_work(held_args))
+            rec[pre + "windowed_bound_ms"] = windowed_bound_ms(held_args,
+                                                               pl.windows)
             rec[pre + "chain_ms"] = FLEX_HOLD_ITERS * horizon_chain_ms(
                 sw.N, sw.b, pl.windows)
             if not pre:
@@ -5992,15 +6023,21 @@ def phase_k5_par(dev, rng, recs):
                 ms=rec[pre + "ms"], kernel_ms=rec[pre + "kernel_ms"],
                 plain_ms=rec[pre + "plain_ms"],
                 bound_ms=rec[pre + "bound_ms"], chain_ms=rec[pre + "chain_ms"],
+                windowed_bound_ms=rec[pre + "windowed_bound_ms"],
                 seq_kernel_ms=kernel_ms(lambda: cs.sw_admm_cuda(
                     *held_args, variant=variant)),
                 seq_chain_ms=FLEX_HOLD_ITERS * k4_chain_ms(sw.N, sw.b),
                 relax_seq_kernel_ms=[relax[0], relax[3]],
                 relax_par_kernel_ms=relax[1:3],
-                relax_bound_ms=bound(*par_work(args, pl.windows))[0],
+                relax_bound_ms=bound(*k5_work(args))[0],
+                relax_windowed_bound_ms=windowed_bound_ms(args, pl.windows),
                 relax_chain_ms=K5_RELAX * horizon_chain_ms(sw.N, sw.b,
                                                            pl.windows),
                 relax_seq_chain_ms=K5_RELAX * k4_chain_ms(sw.N, sw.b))
+            print(f"    with the windowed work counted too, bound "
+                  f"{entry['windowed_bound_ms']:.4f} ms ({FLEX_HOLD_ITERS} "
+                  f"it), {entry['relax_windowed_bound_ms']:.4f} ms "
+                  f"({K5_RELAX} it)", flush=True)
             print(f"    the sequential sweep alone "
                   f"{entry['seq_kernel_ms']:.3f} ms ({FLEX_HOLD_ITERS} it), "
                   f"chain floor {entry['seq_chain_ms']:.3f} ms against the "
@@ -6021,29 +6058,51 @@ def phase_k5_par(dev, rng, recs):
             be.solve(fb, hb, lb, ub, K5_RELAX)
         args = calls[0]
         sw = args[0]
-        P, pl = k5_plan_of(args, parallel=True)
+        # where the parallel plan is the horizon variant's (one scenario),
+        # the parallel sweep inside the sequential plan's variant forced
+        forced = k5_plan_of(args)[1].variant \
+            if k5_plan_of(args, parallel=True)[1].variant == "horizon" \
+            else None
+        P, pl = k5_plan_of(args, forced, parallel=True)
         check(pl.windows >= min(2, sw.N), f"{tag}: the plan {pl}")
         held_args = with_warm(args, cs.sw_admm_cuda(*args), FLEX_HOLD_ITERS)
         win = cs.horizon_windows(sw.N, pl.windows)
-        got = cs.sw_admm_cuda(*held_args, parallel=True)
+        got = cs.sw_admm_cuda(*held_args, parallel=True, variant=forced)
         ref = tsw._admm_iterations(
             *held_args, sweep=lambda s, t, w=win: tsw._solve_K_windowed(
                 s, t, w))
         held(f"{tag} (N={sw.N}, b={sw.b}, m={sw.m_k}, n_ext={sw.n_ext}), "
              f"P={P} ({FLEX_HOLD_ITERS} it warm); the parallel sweep, "
              f"{pl.windows} windows of {win[1]}–{-(-sw.N // pl.windows)} "
-             f"stages, in {describe_plan(pl)}",
+             f"stages, in " + ("forced " if forced else "")
+             + describe_plan(pl),
              "k5_par_any" if sw.b > 16 else "k5_par_small",
              {k: (g, r) for k, g, r in zip(K5_FIELDS, got, ref)
               if g is not None})
         rec = recs[pl.launch]
         k5_err_into(rec, got, ref)
-        rec.setdefault("instantiations", []).append(dict(
+        entry = dict(
             shape=tag, b=sw.b, N=sw.N, m=sw.m_k, n_ext=sw.n_ext, P=P,
             variant=pl.variant, bmax=pl.bmax, ext=pl.ext, staged=pl.staged,
             threads=32 * pl.warps, smem=pl.smem, windows=pl.windows,
             max_abs_err=max(float((g - r).abs().max())
-                            for g, r in zip(got, ref) if g is not None)))
+                            for g, r in zip(got, ref) if g is not None))
+        rec.setdefault("instantiations", []).append(entry)
+        if TIMINGS and forced:
+            # the parallel plan (the horizon variant's cluster sweep)
+            # against the parallel sweep inside the sequential plan's
+            # variant, the relaxation alone in turns
+            hz = k5_plan_of(args, parallel=True)[1]
+            t = [kernel_ms(lambda: cs.sw_admm_cuda(
+                *args, parallel=True, variant=v), reps=3)
+                for v in ("horizon", forced, forced, "horizon")]
+            entry.update(relax_horizon_par_kernel_ms=[t[0], t[3]],
+                         relax_par_kernel_ms=t[1:3])
+            print(f"    the relaxation ({K5_RELAX} it) alone, the horizon "
+                  f"variant's parallel sweep ({describe_plan(hz)}) / "
+                  f"{pl.variant}'s / {pl.variant}'s / the horizon "
+                  f"variant's: " + " / ".join(f"{v:.3f}" for v in t)
+                  + " ms", flush=True)
 
 
 # battery_fleet: fleet dispatch of storage over a day, the use the

@@ -1382,6 +1382,34 @@ __device__ inline void window_backward(const float* ys, const float* U,
   }
 }
 
+// one warp: the register path's Woodbury coefficient corr = Cw·(Aext·x)
+// over r ≤ kRMax extra rows, the sums Aext·x over the lanes by shuffles
+// (xb, Aext, Cw, corr, N, b, r and lane in scope). A macro, not a
+// function: both sweeps share its text and the sequential instantiations
+// keep their machine code (an inlined function moves their registers)
+#define PHC_WOODBURY_CORR                                                   \
+  float sv[kRMax];                                                          \
+  _Pragma("unroll")                                                         \
+  for (int e = 0; e < kRMax; ++e) sv[e] = 0.0f;                             \
+  for (int e = lane; e < N * b; e += 32) {                                  \
+    const float xe = xb[e];                                                 \
+    _Pragma("unroll")                                                       \
+    for (int q = 0; q < kRMax; ++q)                                         \
+      if (q < r) sv[q] = fmaf(Aext[q * N * b + e], xe, sv[q]);              \
+  }                                                                         \
+  _Pragma("unroll")                                                         \
+  for (int q = 0; q < kRMax; ++q)                                           \
+    _Pragma("unroll")                                                       \
+    for (int o = 16; o > 0; o >>= 1)                                        \
+      sv[q] += __shfl_xor_sync(kFull, sv[q], o);                            \
+  if (lane < r) {                                                           \
+    float cv = 0.0f;                                                        \
+    _Pragma("unroll")                                                       \
+    for (int q = 0; q < kRMax; ++q)                                         \
+      if (q < r) cv = fmaf(Cw[lane * r + q], sv[q], cv);                    \
+    corr[lane] = cv;                                                        \
+  }
+
 // ---- K5's parallel sweep (PAR: the reference's parallel_sweeps=True) ----
 //
 // Inside the main kernel (below) the horizon of a slot's problem in C
@@ -1837,32 +1865,10 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
       __syncthreads();
       if (live) win_correct<WIDE>(xb, a.Psi, cw, N, C, b, tid, T, false);
       // the register path's Woodbury coefficient, from the corrected x
-      // (the sequential branch's block below, copied rather than shared so
-      // that the sequential instantiations keep their machine code)
       if constexpr (!RDYN) if (r) {
         __syncthreads();
         if (live && warp == 0) {
-          float sv[kRMax];
-#pragma unroll
-          for (int e = 0; e < kRMax; ++e) sv[e] = 0.0f;
-          for (int e = lane; e < N * b; e += 32) {
-            const float xe = xb[e];
-#pragma unroll
-            for (int q = 0; q < kRMax; ++q)
-              if (q < r) sv[q] = fmaf(Aext[q * N * b + e], xe, sv[q]);
-          }
-#pragma unroll
-          for (int q = 0; q < kRMax; ++q)
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1)
-              sv[q] += __shfl_xor_sync(kFull, sv[q], o);
-          if (lane < r) {
-            float cv = 0.0f;
-#pragma unroll
-            for (int q = 0; q < kRMax; ++q)
-              if (q < r) cv = fmaf(Cw[lane * r + q], sv[q], cv);
-            corr[lane] = cv;
-          }
+          PHC_WOODBURY_CORR
         }
       }
     } else if constexpr (WIDE) {
@@ -1880,27 +1886,7 @@ sw_admm_kernel(const PhcSwAdmmArgs a, int tps, AdmmFlex fx) {
       sweep_rows<BMAX, B0, true>(tb, mb, L, U, Cf, xb, N, b, lane);
       if (!RDYN && r) {
         __syncwarp();
-        float sv[kRMax];
-#pragma unroll
-        for (int e = 0; e < kRMax; ++e) sv[e] = 0.0f;
-        for (int e = lane; e < N * b; e += 32) {
-          const float xe = xb[e];
-#pragma unroll
-          for (int q = 0; q < kRMax; ++q)
-            if (q < r) sv[q] = fmaf(Aext[q * N * b + e], xe, sv[q]);
-        }
-#pragma unroll
-        for (int q = 0; q < kRMax; ++q)
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1)
-            sv[q] += __shfl_xor_sync(kFull, sv[q], o);
-        if (lane < r) {
-          float cv = 0.0f;
-#pragma unroll
-          for (int q = 0; q < kRMax; ++q)
-            if (q < r) cv = fmaf(Cw[lane * r + q], sv[q], cv);
-          corr[lane] = cv;
-        }
+        PHC_WOODBURY_CORR
       }
     }
     __syncthreads();

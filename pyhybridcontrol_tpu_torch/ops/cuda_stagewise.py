@@ -75,7 +75,9 @@ without a card, ``HORIZON_WAVE`` CTAs), else the fewest whose window fits,
 which then runs in more than one wave (the wrapper warns). It runs the
 sequential sweep over the windows, or with ``parallel`` (the reference's
 ``parallel_sweeps=True``) every window's sweep at once, joined by carries
-through the window maps (``ops/stagewise.window_maps``). ``tps`` forces
+through the window maps (``ops/stagewise.window_maps``); the parallel
+sweep takes it at every such shape a window fits, whatever variant the
+ladder picks (faster there than the windows inside one CTA). ``tps`` forces
 the lanes a stage of any variant (the sequential horizon sweep is the
 global variant's bit for bit at the same lanes).
 
@@ -606,8 +608,8 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
     Where that picks "global" and ``horizon_applies``, the
     horizon variant (``horizon_plan``; its cluster from the occupancy of
     a CUDA ``device``) where a window fits. ``parallel`` (the reference's
-    ``parallel_sweeps=True``): the same ladder with the parallel sweep,
-    in the horizon variant where it takes the shape, else inside the
+    ``parallel_sweeps=True``): the parallel sweep in the horizon variant
+    wherever that takes the shape and a window fits, else inside the
     variant the ladder picks (``windows`` from the slot's warps,
     ``par_windows``; no factor ring, the carries beside the state; the
     "_par" libraries). ``staged``,
@@ -654,6 +656,14 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
             raise ValueError(f"{what}: no window of the horizon variant fits "
                              f"a CTA's {SMEM_MAX} bytes of shared memory")
         return pl
+    if parallel and variant is None and hz:
+        # the parallel sweep in the horizon variant's cluster wherever that
+        # takes the shape and a window fits (the sequential ladder's plan
+        # where it picks "global"; at the short single scenarios timed,
+        # faster than the windows inside the shared variant's one CTA)
+        pl = horizon_plan(P, N, b, m, staged, parallel, tps, device)
+        if pl is not None:
+            return pl
     most = ADMM_THREADS[bmax]
 
     # the parallel sweep reads the factors where they lie (no ring) and

@@ -234,19 +234,22 @@ LEFT = {
 def test_horizon_plan_leaves_the_other_shapes(key):
     """Extra rows, a group mean, b above 16 or a shape the global variant
     did not get plan as before (the variant and its fields equal to the
-    plan forced to that variant); the parallel sweep runs there inside
-    that variant (its windows from the slot's warps), and the horizon
-    variant forced refuses the shapes it does not take."""
+    plan forced to that variant); the parallel sweep runs in the horizon
+    variant where that takes the shape, else inside the plan's variant
+    (its windows from the slot's warps), and the horizon variant forced
+    refuses the shapes it does not take."""
     shape, want = LEFT[key]
     pl = cs.plan_admm(*shape)
     assert pl.variant == want and not pl.parallel
     assert pl == cs.plan_admm(*shape, variant=want)
     pp = cs.plan_admm(*shape, parallel=True)
-    assert pp.variant == want and pp.parallel and pp.windows >= 2
     b, S = shape[2], (shape[4] if len(shape) > 4 else 1)
     n_ext = shape[6] if len(shape) > 6 else 0
     mean = shape[8] if len(shape) > 8 else False
-    if not cs.horizon_applies(b, S, mean, n_ext):
+    if cs.horizon_applies(b, S, mean, n_ext):
+        assert pp.variant == "horizon" and pp.parallel
+    else:
+        assert pp.variant == want and pp.parallel and pp.windows >= 2
         with pytest.raises(ValueError, match="horizon variant takes"):
             cs.plan_admm(*shape, variant="horizon", parallel=True)
 

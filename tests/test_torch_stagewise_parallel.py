@@ -20,7 +20,8 @@ and a coupled row. ``MpcController(sw_parallel=True)`` on a small tree
 with a coupled row matches the JAX package's: both find a plan, the
 objective within 1e-3 relative. The parallel plan is the sequential one with at
 least 2 windows at every shape the horizon variant leaves to the others,
-its shared memory mirrors the kernel source, and the card's route reaches
+and the horizon variant's at the single scenarios it takes; its shared
+memory mirrors the kernel source, and the card's route reaches
 K5 with the parallel sweep (the kernel itself runs only on the card:
 ``chip_smoke.py``, phase "K5's parallel sweep")."""
 
@@ -255,8 +256,10 @@ def test_controller_sw_parallel_matches_reference_on_a_tree(monkeypatch):
 
 
 # the shapes the horizon variant leaves to the others (as
-# tests/test_torch_stagewise_horizon.py's LEFT): (P, N, b, m, S, n_blk,
-# n_ext, n_cons, mean) and the variant the sequential plan keeps
+# tests/test_torch_stagewise_horizon.py's LEFT, but for the single
+# scenarios it takes, which the parallel plan gives it: HORIZON): (P, N, b,
+# m, S, n_blk, n_ext, n_cons, mean) and the variant the sequential plan
+# keeps
 LEFT = {
     "di_N1000_one_extra_row": ((8, 1000, 5, 17, 1, 0, 1), "global"),
     "hull_N300_two_extra_rows": ((8, 300, 13, 49, 1, 0, 2), "global"),
@@ -265,8 +268,15 @@ LEFT = {
     "tree_S8_N1000": ((64, 1000, 5, 19, 8, 0, 1, 2, True), "global"),
     "fleet8_b32": ((8, 96, 32, 122, 1, 0, 20), "global"),
     "config6_long_arm": ((64, 120, 5, 19, 8, 0, 1, 2, True), "shared"),
+}
+# one scenario, no extra rows, b up to 16: the sequential plan's variant,
+# and the parallel plan the horizon variant's wherever a window fits
+HORIZON = {
+    "di_N1000": ((8, 1000, 5, 17), "horizon"),
+    "hull_N300": ((8, 300, 13, 49), "horizon"),
     "di_N4000": ((64, 4000, 5, 17), "global_all"),
     "served_di_N10": ((32, 10, 5, 17), "shared"),
+    "served_hull_N20": ((64, 20, 13, 49), "shared"),
 }
 
 
@@ -315,18 +325,24 @@ def test_par_windows_take_the_slots_warps(warps, N, C):
     assert cs.par_windows(warps, N) == C
 
 
-def test_horizon_shapes_keep_the_horizon_variant():
-    """Where the sequential plan takes the horizon variant (one scenario,
-    no extra rows, bmax 8–16, past a CTA), the parallel plan is that
-    variant's parallel sweep, as before: the sequential plan with
-    ``parallel`` set, no "_par" library."""
-    seq = cs.plan_admm(8, 1000, 5, 17)
-    pl = cs.plan_admm(8, 1000, 5, 17, parallel=True)
-    assert seq.variant == pl.variant == "horizon"
+@pytest.mark.parametrize("key", list(HORIZON))
+def test_horizon_shapes_keep_the_horizon_variant(key):
+    """Where the horizon variant takes the shape (one scenario, no extra
+    rows, bmax 8–16), the parallel plan is that variant's parallel sweep,
+    as before, whatever the sequential plan picks: the horizon plan with
+    ``parallel`` set, no "_par" library; the parallel sweep inside the
+    sequential plan's variant only forced."""
+    shape, want = HORIZON[key]
+    seq = cs.plan_admm(*shape)
+    pl = cs.plan_admm(*shape, parallel=True)
+    assert seq.variant == want and pl.variant == "horizon"
     assert pl.parallel and not pl.windows and pl.library == \
         "stagewise_horizon"
-    assert pl == cs.plan_admm(8, 1000, 5, 17, variant="horizon",
-                              parallel=True)
+    assert pl == cs.plan_admm(*shape, variant="horizon", parallel=True)
+    if want != "horizon":
+        forced = cs.plan_admm(*shape, variant=want, parallel=True)
+        assert forced.variant == want and forced.windows >= 2
+        assert forced.library == seq.library + "_par"
 
 
 def test_parallel_plan_raises_where_the_sequential_plan_raises():

@@ -40,7 +40,7 @@ the first seed only) once per seed, as above (how the "k5_any" and
 ``--par`` runs ``chip_smoke.phase_k5_par`` (K5's parallel sweep inside
 the shared and FLEX variants against its windowed plain loop at every
 shape its paths launch; timed at the first seed only) once per seed, as
-above (how the "k5_par", "k5_par_rt" and "k5_par_any" limits are set),
+above (how the "k5_par*" limits are set),
 then the paths with their ``parallel_sweeps`` twins once: config 6's two
 arms (phase 21), battery_fleet, long_horizon and wide_tree.
 

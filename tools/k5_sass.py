@@ -11,10 +11,11 @@ directory that .gitignore lists). Compiles each tree's
 holds K4 and K5's register path: the shared, grouped and global-state
 instantiations at bmax 8 and 16), its ``stagewise_extra.cu`` (K5's
 runtime-r path at bmax 8 and 16), its ``stagewise_wide.cu`` (K5 at bmax
-32 to 128) and its ``stagewise_horizon.cu`` (K5's horizon variant) to
-cubins with the flags of ``ops/_build.py``, all eight builds side by
-side, disassembles them with ``cuobjdump -sass`` and compares the
-instructions of every ``sw_admm_kernel``, ``sw_admm_horizon_kernel`` and
+32 to 128), its ``stagewise_horizon.cu`` (K5's horizon variant) and,
+where the tree has them, the parallel sweep's ``stagewise_par.cu``,
+``stagewise_extra_par.cu`` and ``stagewise_wide_par.cu`` to cubins with
+the flags of ``ops/_build.py``, every build side by side, disassembles
+them with ``cuobjdump -sass`` and compares the instructions of every ``sw_admm_kernel``, ``sw_admm_horizon_kernel`` and
 ``sw_solve_k_kernel`` instantiation of the parent with the change's of
 the same source and template arguments (K5: BMAX, B0, STAGED, FLEX, RDYN
 and PAR, the last read as 0 where a parent's kernel has no such
@@ -43,7 +44,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 CSRC = Path("pyhybridcontrol_tpu_torch") / "csrc"
 SOURCES = ("stagewise.cu", "stagewise_extra.cu", "stagewise_wide.cu",
-           "stagewise_horizon.cu")
+           "stagewise_horizon.cu", "stagewise_par.cu",
+           "stagewise_extra_par.cu", "stagewise_wide_par.cu")
 # kernel name -> its template arguments in the mangled name
 KERNELS = (("sw_admm_kernel",
              r"ILi(\d+)ELi(\d+)ELb(\d)ELb(\d)(?:ELb(\d))?(?:ELb(\d))?E"),
@@ -62,7 +64,8 @@ def sass(tree: Path, work: Path, pool) -> dict:
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-fPIC")
              and f != "-Xcompiler"]
     work.mkdir(parents=True)
-    for name in SOURCES:          # the extra part includes stagewise.cu
+    names = [n for n in SOURCES if (tree / CSRC / n).exists()]
+    for name in names:            # the other parts include stagewise.cu
         shutil.copy(tree / CSRC / name, work / name)
     funcs = {}
 
@@ -74,7 +77,7 @@ def sass(tree: Path, work: Path, pool) -> dict:
                                "-sass", str(cubin)], check=True,
                               capture_output=True, text=True).stdout
 
-    for name, out in zip(SOURCES, pool.map(disassemble, SOURCES)):
+    for name, out in zip(names, pool.map(disassemble, names)):
         cur = None
         for line in out.splitlines():
             m = re.search(r"Function : (\S+)", line)
