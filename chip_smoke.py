@@ -123,7 +123,7 @@ Run from the root of a checkout. It builds the kernels of
  18. config 4c of the reference bench (bench.py:654-701): 256 scenario-tree
      MIQPs (the double integrator with a velocity disturbance, S=4, N=10,
      branching at steps 1 and 5) through ``feedback_batch(engine=
-     "pooled")`` with rep-map branching, 3 repetitions: the wave path by
+     "pooled")`` with rep-map branching, 2 repetitions: the wave path by
      its true name ("unfused K1 relax + probe": every K1 launch at
      B=1024, no K2), found share 1.0, 32 plans feasible in fp64 against the
      port's joint frame (non-anticipativity rows included), 16 instances
@@ -269,7 +269,11 @@ Run from the root of a checkout. It builds the kernels of
      4 ranks within 5e-3 of one card (4 waves of 300 + 600 iterations);
      config 6's long arm over 2 ranks (the torch loop with K4 an
      iteration, one all_reduce an iteration; 3 waves) within 1e-3 of K5's
-     objective on one card at the same cap; then a one-rank NCCL
+     objective on one card at the same cap, and with
+     ``parallel_sweeps=True`` (path md_stagewise_tree_par: K6's windowed
+     sweep an iteration, no K4 or K5 on any rank; obj, found and x the same
+     on every rank) within 1e-3 of K5's parallel sweep on one card; then a
+     one-rank NCCL
      world whose sharded B&B is the unsharded loop bitwise. Per path: the
      ranks, waves, ms a wave, collective calls, bytes and ms, K1, K2 and
      K4 launches a rank. Eight ranks time-slicing one card measure the
@@ -365,7 +369,29 @@ Run from the root of a checkout. It builds the kernels of
      N=4 and 10, every row kind, b=6 and 13; "k5_par_small"; where the
      parallel plan is the horizon variant's, one scenario, the sweep
      inside the shared variant forced and timed against it) and phase
-     37's staged wide ones (five batteries, the ω tree).
+     37's staged wide ones (five batteries, the ω tree);
+ 40. K6, the stagewise sweep at any b and over windows
+     (``csrc/stagewise_any.cu``; after 20), against its plain versions
+     (``_solve_K``; ``_solve_K_windowed`` over ``any_windows(N)``
+     windows, N a multiple of none) at config 6's long arm (b=5, N=120),
+     the fleets' factors (b=32, N=96; b=128 and 160, N=24) and random
+     factors (b=129, 137 odd, 256), each at P=1 and 64 (and fleet_b160's
+     P=8), "k6" / "k6_random" limits; each timed alone, as a wrapper and
+     as the plain version beside its bound (``k6_work``: factors, window
+     maps, r and x at 3.35 TB/s), its chain floor and
+     ``torch.linalg.lu_solve`` on the dense LU of K; then a tree past K5's
+     clusters (S=272, b=5, N=8, a budget row), 20 iterations through the
+     route (the torch loop with K4, or K6 over windows) against the plain
+     loop on the same tensors ("k5_flex", "k5_par");
+ 41. the fleet_b160 paths (after 38): 40 batteries over N=24 (b=160, 43
+     extra rows; ``fleet_controller``), one stagewise feedback, then its
+     ``sw_parallel=True`` twin (fleet_b160_par), with K5 and the plain
+     sweeps made to raise: the torch loop with K6 every relaxation and
+     probe; found, nodes, relaxations and probes, the objective within
+     1e-3 of the JAX package's CPU reading (FLEET_B160_REF_OBJ, _PAR), the
+     plan in fp64 with its extra rows, K6's launches and none of K5's, a
+     warm re-solve's time and idle share under torch.profiler (the
+     sequential one; ``tools/k4_readings.py --k6`` profiles both).
 
 Each phase prints its wall time, and the run its total. Launch counts are
 kept per path (PATHS): set to 0 just before each served request set, the
@@ -387,8 +413,10 @@ holds, nor reaches a horizon past N≈3,300. On one card every stagewise
 solve runs K5 (config 6's paths its shared variant, the long horizons and
 the battery fleet its global one, the wide trees its grouped one and
 the global one at S=64), K4's
-sweep inside it; K4 launches on its own on the stagewise tree
-over ranks (phase 33). The L2-streamed K2 launches on the 4-agent
+sweep inside it, wherever K5 has an instantiation; past it (b above 128:
+fleet_b160) and with the scenario axis over ranks the torch loop runs with
+K4's sweep (the stagewise tree over ranks, phase 33) or K6's
+(md_stagewise_tree_par, fleet_b160 and its twin). The L2-streamed K2 launches on the 4-agent
 micro-grid only.
 
 Every kernel result is held against its plain version field by field:
@@ -453,7 +481,8 @@ SOURCES = {"admm_k1": "pyhybridcontrol_tpu_torch/csrc/admm.cu",
            "stagewise_k5_global_par":
                "pyhybridcontrol_tpu_torch/csrc/stagewise.cu",
            "stagewise_k5_global_all_par":
-               "pyhybridcontrol_tpu_torch/csrc/stagewise.cu"}
+               "pyhybridcontrol_tpu_torch/csrc/stagewise.cu",
+           "stagewise_k6": "pyhybridcontrol_tpu_torch/csrc/stagewise_any.cu"}
 REPLACES = {"admm_k1": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
             "admm_k2": "pyhybridcontrol_tpu/ops/pallas_admm.py:357",
             "admm_k1_mixed": "pyhybridcontrol_tpu/ops/pallas_admm.py:180",
@@ -492,7 +521,11 @@ REPLACES = {"admm_k1": "pyhybridcontrol_tpu/ops/pallas_admm.py:312",
             "stagewise_k5_global_par":
                 "pyhybridcontrol_tpu/ops/stagewise.py:1011",
             "stagewise_k5_global_all_par":
-                "pyhybridcontrol_tpu/ops/stagewise.py:1011"}
+                "pyhybridcontrol_tpu/ops/stagewise.py:1011",
+            # K6, the sweep at any b (sequential: _solve_K, :586) and over
+            # windows (for the reference's log-depth _solve_K_assoc, :632),
+            # in the torch loop wherever K5 has no instantiation
+            "stagewise_k6": "pyhybridcontrol_tpu/ops/stagewise.py:586,632"}
 # K1 with the constants streamed from L2 in every iteration: the plan
 # takes it only where a cluster cannot hold the constants (the 4-agent
 # micro-grid's K2 waves do; no driven path gates a wave there),
@@ -523,7 +556,8 @@ PATHS = SERVED + ("pooled_bench_spec", "pooled_carried_incumbents",
                   "md_config5_pool", "md_di_pool", "md_feedback_batch",
                   "md_condense", "md_consensus_tree", "md_stagewise_tree",
                   "md_nccl", "mixed_schedule", "long_horizon", "wide_tree",
-                  "wide_tree_par", "battery_fleet", "battery_fleet_par")
+                  "wide_tree_par", "battery_fleet", "battery_fleet_par",
+                  "md_stagewise_tree_par", "fleet_b160", "fleet_b160_par")
 # peak rates of one H100 SXM at 700 W (NVIDIA data sheet): fp32 outside
 # the tensor cores, dense bf16 in them, HBM3
 PEAK = dict(fp32=67e12, bf16=989e12, hbm=3.35e12)
@@ -708,6 +742,14 @@ LIMITS = {
                          y_e=1.8e-6, dy_e=2e-3),
     "k5_rt": dict(x=5.8e-6, z=7.5e-6, y=2.5e-5, dy=5.8e-2, z_e=8.4e-6,
                   y_e=7.6e-6, dy_e=2.9e-3),
+    # K6 against its plain versions (``_solve_K`` for one window,
+    # ``_solve_K_windowed`` over ``any_windows(N)``; phase "K6 vs plain"),
+    # 3x the largest reading of seeds 0-7 on an H100 80GB HBM3 at 700 W
+    # (tools/k4_readings.py --k6): "k6" at the preps' factors (config 6's
+    # long arm, b=5; the fleets, b=32, 128 and 160), x 7.75e-7; "k6_random"
+    # at random factors (b=129, 137, 256; longer rows), x 1.85e-6
+    "k6": dict(x=2.4e-6),
+    "k6_random": dict(x=5.6e-6),
     # K2 at the surfaces' waves (phase 23), relaxation and probe, 3x the
     # largest reading of seeds 0-7 on an H100 (tools/surface_readings.py):
     # the micro-grid coordinator's aggregate frames (3 and 4 agents, N=24;
@@ -846,7 +888,8 @@ KERNEL_FUNCTIONS = (("admm", "phc_admm_k1"), ("admm", "phc_admm_k1_1pass"),
                     ("stagewise_wide_par", "phc_sw_admm"),
                     ("stagewise_wide_par", "phc_sw_admm_flex"),
                     ("stagewise_extra_par", "phc_sw_admm"),
-                    ("stagewise_extra_par", "phc_sw_admm_flex"))
+                    ("stagewise_extra_par", "phc_sw_admm_flex"),
+                    ("stagewise_any", "phc_sw_solve_k_any"))
 
 
 def kernel_ms(fn, reps=5):
@@ -1910,7 +1953,7 @@ def timed(rec, pre, wrapper, plain, work):
           f"{rec[pre + 'ms']:.3f} ms, kernel alone "
           f"{rec[pre + 'kernel_ms']:.3f} ms, plain "
           f"{rec[pre + 'plain_ms']:.3f} ms, bound "
-          f"{rec[pre + 'bound_ms']:.4f} ms ({by})", flush=True)
+          f"{rec[pre + 'bound_ms']:.3g} ms ({by})", flush=True)
     return by
 
 
@@ -3036,7 +3079,9 @@ def phase_tree_shapes(dev, rng, recs):
 CFG4C_B = 256
 CFG4C_SPEC = dict(capacity=1024, wave_size=64, max_waves=64, qp_iters=100,
                   probe_iters=400, probe_patience=3)
-CFG4C_REPS = 3
+# repetitions of the call (the same waves each; ~30 s each on the card):
+# two, so that the whole script keeps its time limit
+CFG4C_REPS = 2
 CFG4C_PLANS = tuple(range(0, CFG4C_B, 8))     # 32 plans held in fp64
 CFG4C_HELD = tuple(range(0, CFG4C_B, 16))     # 16 held to single feedback
 # the mean objective the reference recorded for this call
@@ -4508,19 +4553,19 @@ def torch_loop(sweep=None):
         tsw.sw_admm_cuda = orig
 
 
+PLAIN_SWEEPS = ("_solve_K", "_solve_K_assoc", "_solve_K_windowed")
+
+
 @contextlib.contextmanager
-def no_plain_sweep():
-    """Inside: the plain loop and the plain sweeps raise, so a stagewise
-    path on the card that reached them would fail."""
+def refused(names, what):
+    """Inside: the functions ``names`` of ops/stagewise.py raise (``what``
+    says what a stagewise path on the card that reached them ran)."""
     from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
 
-    names = ("_solve_K", "_admm_iterations", "_solve_K_assoc",
-             "_solve_K_windowed")
     orig = [getattr(tsw, n) for n in names]
 
     def refuse(*a, **kw):
-        raise AssertionError("a stagewise solve on the card ran the plain "
-                             "loop or sweeps, not K5")
+        raise AssertionError(f"a stagewise solve on the card ran {what}")
 
     for n in names:
         setattr(tsw, n, refuse)
@@ -4529,6 +4574,13 @@ def no_plain_sweep():
     finally:
         for n, f in zip(names, orig):
             setattr(tsw, n, f)
+
+
+def no_plain_sweep():
+    """Inside: the plain loop and the plain sweeps raise, so a stagewise
+    path on the card that reached them would fail."""
+    return refused(("_admm_iterations",) + PLAIN_SWEEPS,
+                   "the plain loop or sweeps, not K5")
 
 
 @contextlib.contextmanager
@@ -4862,6 +4914,207 @@ def phase_k4(dev, rng, rec):
     print(f"  the relaxation ({iters} it, P={W * CFG6_S}), each warm, median "
           f"of 3: {t_k4:.3f} s through the torch loop with K4, {t_plain:.3f} "
           "s with the plain sweeps", flush=True)
+
+
+# ---- K6: the sweep at any b and over windows -------------------------------
+
+# K6's holds (phase "K6 vs plain", after K4's): (tag, b, N, the factors:
+# "cfg6" config 6's long arm, "fleet" fleet_controller(b/4, N)'s, "random"
+# ``random_factors``), each at P = K6_BATCHES (and the fleet_b160 path's
+# wave, P=8, at b=160), sequential and over ``any_windows(N)`` windows (16,
+# 14, 7, 7, 7, 7, 5: N a multiple of none)
+K6_SHAPES = (("config 6 long arm", 5, CFG6_N, "cfg6"),
+             ("8 batteries", 32, 96, "fleet"),
+             ("32 batteries", 128, 24, "fleet"),
+             ("random", 129, 24, "random"),
+             ("random, odd", 137, 20, "random"),
+             ("40 batteries", 160, 24, "fleet"),
+             ("random", 256, 12, "random"))
+K6_BATCHES = (1, 64)
+# the shape fleet_b160's relaxations give K6 (a wave of 8 nodes): the
+# kernels line's times
+K6_MAIN = (160, 24, 8)
+# the third class of shapes K5 has no instantiation for: a tree of
+# K6_TREE_S scenarios of config 6's ω double integrator (branching at step
+# 1, its budget row), N=K6_TREE_N, b=5: one relaxation of K6_TREE_ITERS
+# iterations through the route, both sweeps
+K6_TREE_S, K6_TREE_N, K6_TREE_ITERS = 272, 8, 20
+
+
+def random_factors(rng, N, b, dev, dtype=None):
+    """(L, U⁻¹, C) on ``dev`` (fp32, or ``dtype``) of a random symmetric
+    positive definite block-tridiagonal K (diagonal blocks I + GGᵀ/b,
+    off-diagonal blocks of N(0, 0.3²/b)), by the host fp64 block LU
+    (tests/test_torch_stagewise_any.py takes them in fp64)."""
+    import numpy as np
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops.stagewise import block_lu
+
+    G = rng.normal(size=(N, b, b))
+    diag = np.eye(b) + G @ G.transpose(0, 2, 1) / b
+    off = rng.normal(0.0, 0.3 / b ** 0.5, (N, b, b))
+    off[0] = 0.0
+    return tuple(torch.as_tensor(f, dtype=dtype or torch.float32,
+                                 device=dev) for f in block_lu(diag, off))
+
+
+def k6_factors(dev, rng, key, b, N):
+    """A prep-like namespace (``factors`` and a ``cache`` that
+    ``window_maps`` fills once) of K6_SHAPES' ``key``."""
+    if key == "cfg6":
+        f = config6_preps(dev, config6_trees()[1],
+                          config6_extra(CFG6_N))[0].sw.factors
+    elif key == "fleet":
+        f = fleet_controller(b // 4, N, dev)[0]._sw.factors
+    else:
+        f = random_factors(rng, N, b, dev)
+    return types.SimpleNamespace(factors=f, cache={})
+
+
+def k6_work(P, N, b, C):
+    """(bytes, {type: operations}) of one K6 call: ``k4_work``'s (r and x
+    once, the three factor arrays once; the sweeps' operations), and over
+    C > 1 windows the two window maps (2·N·b² words) once."""
+    nbytes, ops = k4_work(P, N, b)
+    return nbytes + (8 * N * b * b if C > 1 else 0), ops
+
+
+def k6_chain_ms(N, b, C):
+    """The chain floor of one problem in K6: ``k4_chain_ms``'s 2·N stages,
+    over C > 1 windows ``horizon_chain_ms``'s (a window's stages and the
+    carry steps)."""
+    return k4_chain_ms(N, b) if C == 1 else horizon_chain_ms(N, b, C)
+
+
+def phase_k6(dev, rng, rec):
+    """K6 against its plain versions on the card (``_solve_K`` for one
+    window, ``_solve_K_windowed`` over ``any_windows(N)``) at every shape
+    of K6_SHAPES ("k6" at the preps' factors, "k6_random" at the random
+    ones); each timed alone, around its wrapper and as the plain version,
+    beside its bound (``k6_work``), its chain floor (``k6_chain_ms``) and
+    ``torch.linalg.lu_solve`` on the dense LU of K (fp32) for the same
+    right-hand sides. Then the third class (``k6_tree_hold``)."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
+    from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
+
+    print("K6 (stagewise sweep at any b) vs plain:", flush=True)
+    for tag, b, N, key in K6_SHAPES:
+        sw = k6_factors(dev, rng, key, b, N)
+        C = cs.any_windows(N)
+        bounds = cs.horizon_windows(N, C)
+        maps = cs.pack_wide(tsw.window_maps(sw, bounds))
+        regime = "k6_random" if key == "random" else "k6"
+        K = None
+        for P in K6_BATCHES + ((K6_MAIN[2],) if (b, N) == K6_MAIN[:2]
+                               else ()):
+            r = torch.as_tensor(rng.normal(size=(P, N, b)),
+                                dtype=torch.float32, device=dev)
+            for w in (1, C):
+                def wrapper(w=w):
+                    return cs.sw_solve_k_any_cuda(
+                        r, sw.factors, windows=w,
+                        maps=maps if w > 1 else None)
+
+                def plain(w=w):
+                    return (tsw._solve_K(sw, r) if w == 1 else
+                            tsw._solve_K_windowed(sw, r, bounds))
+
+                pl = cs.plan_sweep_any(P, N, b, w)
+                got, ref = wrapper(), plain()
+                held(f"{tag} b={b} N={N} P={P} C={w} ({pl.threads} threads "
+                     f"a CTA)", regime, {"x": (got, ref)})
+                rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0),
+                                         float((got - ref).abs().max()))
+                if not TIMINGS:
+                    continue
+                pre = f"b{b}_N{N}_P{P}_C{w}_"
+                by = timed(rec, pre, wrapper, plain, k6_work(P, N, b, w))
+                rec[pre + "chain_ms"] = k6_chain_ms(N, b, w)
+                if (b, N, P, w) == K6_MAIN + (1,):
+                    rec["bound_by"] = by
+                    for k in ("ms", "kernel_ms", "plain_ms", "bound_ms"):
+                        rec[k] = rec[pre + k]
+            if not TIMINGS:
+                continue
+            K = dense_K_of(sw.factors) if K is None else K
+            LU, piv = torch.linalg.lu_factor(K.float())
+            rhs = r.reshape(P, N * b).T.contiguous()
+            lib = f"b{b}_N{N}_P{P}_library_ms"
+            rec[lib] = cuda_ms(lambda: torch.linalg.lu_solve(LU, piv, rhs))
+            if (b, N, P) == K6_MAIN:
+                rec["library_ms"] = rec[lib]
+            print(f"  b={b} N={N} P={P}: chain floor "
+                  f"{k6_chain_ms(N, b, 1):.4f} ms (C=1) / "
+                  f"{k6_chain_ms(N, b, C):.4f} ms (C={C}); "
+                  f"torch.linalg.lu_solve on the dense LU of K ({N * b}², "
+                  f"{P} right-hand sides): {rec[lib]:.3f} ms", flush=True)
+    k6_tree_hold(dev, rng, rec)
+
+
+def k6_tree_hold(dev, rng, rec):
+    """The third class of shapes K5 has no instantiation for: a tree past
+    K5's clusters (K6_TREE_S scenarios at b=5; ``k5_plan`` None), one
+    relaxation of K6_TREE_ITERS iterations from cold through the route
+    (``_admm_route``: the torch loop with K4's sweep, or with
+    ``parallel_sweeps`` K6's windowed one) against ``_admm_iterations``
+    with the plain sweep (``_solve_K``; ``_solve_K_windowed`` on the same
+    windows) on the same CUDA tensors, within K5's limits ("k5_flex",
+    "k5_par"); the route's kernel launched once an iteration, K5 never."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.models import di_default_weights
+    from pyhybridcontrol_tpu_torch.ops import cuda_admm as ca
+    from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
+    from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
+    from pyhybridcontrol_tpu_torch.ops.scenario_tree import ScenarioTree
+    from pyhybridcontrol_tpu_torch.ops.stagewise_tree import (
+        assemble_stagewise_tree, assemble_stagewise_tree_ext,
+        prepare_stagewise_tree)
+
+    S, N = K6_TREE_S, K6_TREE_N
+    tree = ScenarioTree.from_branching(rng.normal(0.0, 0.3, (S, N, 1)),
+                                       branch_steps=(1,))
+    swt = prepare_stagewise_tree(omega_model(), tree, di_default_weights(),
+                                 extra=config6_extra(N), device=dev)
+    sw, M = swt.sw, swt.M
+    x0 = torch.tensor(X0_6, device=dev)
+    q, l, u = assemble_stagewise_tree(swt, x0)
+    eu = assemble_stagewise_tree_ext(swt, x0)
+    batch = torch.broadcast_shapes(q.shape[:-2], l.shape[:-2])
+    z_e = torch.clamp_max(q.new_zeros(batch + (sw.n_ext,)), eu)
+    carries = (sw, q, l, u, q.new_zeros(batch + (sw.N, sw.b)),
+               torch.clamp(q.new_zeros(batch + (sw.N, sw.m_k)), l, u),
+               q.new_zeros(batch + (sw.N, sw.m_k)), z_e,
+               torch.zeros_like(z_e), eu, K6_TREE_ITERS, M)
+    C = cs.any_windows(N)
+    for par, kernel, regime in ((False, "stagewise_k4", "k5_flex"),
+                                (True, "stagewise_k6", "k5_par")):
+        check(cs.k5_plan(N, sw.b, sw.m_k, S, sw.n_blk, sw.n_ext, sw.n_cons,
+                         True, par) is None,
+              f"a tree of S={S}: K5 plans it")
+        run, kw = tsw._admm_route(sw, dev, par, M)
+        ca.reset_launch_counts()
+        got = run(*carries, **kw)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in ca.LAUNCHES.items() if v}
+        bounds = cs.horizon_windows(N, C)
+        plain = ((lambda s, t: tsw._solve_K_windowed(s, t, bounds)) if par
+                 else tsw._solve_K)
+        ref = tsw._admm_iterations(*carries, sweep=plain)
+        held(f"a tree of S={S}, N={N}, b={sw.b} ({sw.n_ext} extra row), "
+             f"{K6_TREE_ITERS} it through the route "
+             f"({'parallel, ' + str(C) + ' windows' if par else 'sequential'}"
+             f"; launches {launched})", regime,
+             {k: (g, r) for k, g, r in zip(K5_FIELDS, got, ref)
+              if g is not None})
+        check(launched == {kernel: K6_TREE_ITERS},
+              f"a tree of S={S}: the route launched {launched}, not "
+              f"{kernel} once an iteration")
+        if par:
+            k5_err_into(rec, got, ref)
 
 
 # K5's holds: a whole relaxation (config 6's 150 iterations) cold and warm
@@ -6097,12 +6350,20 @@ def phase_k5_par(dev, rng, recs):
                 *args, parallel=True, variant=v), reps=3)
                 for v in ("horizon", forced, forced, "horizon")]
             entry.update(relax_horizon_par_kernel_ms=[t[0], t[3]],
-                         relax_par_kernel_ms=t[1:3])
+                         relax_par_kernel_ms=t[1:3],
+                         relax_bound_ms=bound(*k5_work(args))[0],
+                         relax_horizon_chain_ms=K5_RELAX * horizon_chain_ms(
+                             sw.N, sw.b, hz.cluster),
+                         relax_chain_ms=K5_RELAX * horizon_chain_ms(
+                             sw.N, sw.b, pl.windows))
             print(f"    the relaxation ({K5_RELAX} it) alone, the horizon "
                   f"variant's parallel sweep ({describe_plan(hz)}) / "
                   f"{pl.variant}'s / {pl.variant}'s / the horizon "
                   f"variant's: " + " / ".join(f"{v:.3f}" for v in t)
-                  + " ms", flush=True)
+                  + f" ms; bound {entry['relax_bound_ms']:.3g} ms, chain "
+                  f"floors {entry['relax_horizon_chain_ms']:.4f} (C="
+                  f"{hz.cluster}) / {entry['relax_chain_ms']:.4f} ms (C="
+                  f"{pl.windows})", flush=True)
 
 
 # battery_fleet: fleet dispatch of storage over a day, the use the
@@ -6523,6 +6784,111 @@ def fleet_parallel_twin(dev, res, seq_s, seq_ms):
                 probe_kernel_ms=ms.get("probe"), extra_rows_over=over,
                 profile=long_warm_reading("the sw_parallel twin", solve,
                                           path="battery_fleet_par"))
+
+
+# fleet_b160 and its sw_parallel twin: fleet_controller(*FLEET_B160) (40
+# batteries over N=24: b=160, 40 export rows and 3 import windows as extra
+# rows), the FLEET_SPEC search; past K5's bmax 128, so the torch loop with
+# K6 on the card
+FLEET_B160 = (40, 24)
+# the JAX package's objectives on this setup on the CPU, both sweeps (47
+# nodes each; held within 1e-3 where both find a plan):
+#   JAX_PLATFORMS=cpu python tools/fleet_reference.py --batteries 40 \
+#       --horizon 24 [--parallel]
+FLEET_B160_REF_OBJ = -35.68117904663086
+FLEET_B160_REF_OBJ_PAR = -35.685585021972656
+
+
+def no_k5_nor_plain_sweep():
+    """Inside: K5's wrapper and the three plain sweeps raise, so a stagewise
+    path on the card that reached them would fail (the torch loop itself
+    may run: it is what carries K4's and K6's sweeps)."""
+    return refused(("sw_admm_cuda",) + PLAIN_SWEEPS,
+                   "K5 or a plain sweep past K5's shapes")
+
+
+def phase_fleet_b160(dev, profiled=("fleet_b160", "fleet_b160_par")):
+    """The fleet_b160 paths through the entry point a user calls: one
+    stagewise ``MpcController.feedback`` of ``fleet_controller(40, 24)``
+    (b=160, 43 extra rows) at FLEET_SPEC, then the same with
+    ``sw_parallel=True`` (fleet_b160_par), with K5 and the three plain
+    sweeps made to raise: every relaxation and probe the torch loop on the
+    card with K6's sweep (sequential; over ``any_windows(24)`` windows).
+    Prints and holds found, nodes, the relaxations and probes run, the
+    objective within 1e-3 of the JAX package's CPU reading (where both find
+    a plan), the plan in fp64 with its extra rows (FEAS_TOL), K6's launches
+    (one a relaxation or probe, no K5's); then, for the paths of
+    ``profiled``, a warm re-solve's time and its idle share under
+    torch.profiler (``profile_request``, the device's activity alone: the
+    torch loop's ~51 operations an iteration would add millions of host
+    events). ``main`` profiles fleet_b160 alone (each profiled re-solve
+    costs ~30 s of the script's time limit), tools/k4_readings.py --k6
+    both."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
+    from pyhybridcontrol_tpu_torch.profile_serve import profile_request
+
+    M, N = FLEET_B160
+    out = {}
+    for par, path, ref_obj in ((False, "fleet_b160", FLEET_B160_REF_OBJ),
+                               (True, "fleet_b160_par",
+                                FLEET_B160_REF_OBJ_PAR)):
+        c, price, x0, (A_v, b_e) = fleet_controller(M, N, dev,
+                                                     parallel=par)
+        sw = c._sw
+
+        def solve():
+            return c.feedback(x0, price_seq=price)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_k5_nor_plain_sweep(), solve_calls() as n:
+            r, _ = drive(path, solve)
+        sec = time.perf_counter() - t0
+        got = PATH_LAUNCHES[path]
+        C = cs.any_windows(N) if par else 1
+        obj = float(r.obj)
+        rel = abs(obj - ref_obj) / max(1.0, abs(ref_obj))
+        print(f"{path}: {M} batteries N={N} (b={sw.b}, m={sw.m_k}, "
+              f"n_ext={sw.n_ext}; the torch loop with K6, "
+              f"{'C=' + str(C) + ' windows' if par else 'sequential'}): "
+              f"{sec:.2f} s, found {bool(r.found)}, {int(r.nodes)} nodes, "
+              f"{n[0]} relaxations and probes, K6 {got['stagewise_k6']} "
+              f"launches (batch sizes {PATH_BATCHES[path]}); objective "
+              f"{obj:.6f} (the JAX package on the CPU: {ref_obj:.6f}, "
+              f"relative {rel:.2e}, limit 1e-3), u0 "
+              f"{r.u.cpu().numpy().tolist()}", flush=True)
+        check(bool(r.found), f"{path}: no plan found")
+        check(rel <= 1e-3, f"{path}: objective off the JAX package's")
+        check(got["stagewise_k6"] > 0 and all(
+            v == 0 for k, v in got.items() if k != "stagewise_k6"),
+            f"{path}: K6 and nothing else must launch, launches {got}")
+        xi = torch.cat([r.v_seq, r.x_seq], dim=1).double().cpu().numpy()
+        sw_plan_feasible(f"{path} plan", c.model, x0, xi)
+        over = float((A_v @ xi[:, :sw.nv].reshape(-1) - b_e).max())
+        print(f"  {path} plan: extra rows max(A_v·V − b) = {over:.2e} "
+              f"(limit {FEAS_TOL:g})", flush=True)
+        check(over <= FEAS_TOL, f"{path}: the plan breaks an extra row")
+        out[path] = dict(M=M, N=N, b=sw.b, windows=C, s=sec,
+                         found=bool(r.found), obj=obj, ref_obj=ref_obj,
+                         nodes=int(r.nodes), solves=n[0],
+                         k6_launches=got["stagewise_k6"],
+                         u0=r.u.cpu().numpy().tolist(),
+                         extra_rows_over=over)
+        if path not in profiled:
+            continue
+        with no_k5_nor_plain_sweep():
+            prof = profile_request(solve, cpu=False)
+        prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["wall_ms"]
+        print(f"  {path}, the solve again (warm) under torch.profiler "
+              f"(device activity): "
+              f"{prof['wall_ms']:.1f} ms, {prof['device_ops']} device "
+              f"operations, busy {prof['device_busy_ms']:.1f} ms: idle share "
+              f"{prof['idle_share']:.4f}; K6 {prof['k6_launches']} kernels, "
+              f"{prof['k6_device_ms']:.1f} ms on the device", flush=True)
+        out[path]["profile"] = prof
+    return out
 
 
 def sw_plan_feasible(tag, model, x0, xi, tol=FEAS_TOL):
@@ -7482,6 +7848,11 @@ def md_rank_body(x0s_fb):
             solve_tree_miqp_stagewise(swt, *data, BnbSpec(**MD_CFG6_SPEC),
                                       swt_probe=swtp, ext_u=eu,
                                       scen_mesh=(scen[2], "scen"))))
+        path("md_stagewise_tree_par", scen[2], lambda: md_bnb(
+            solve_tree_miqp_stagewise(swt, *data, BnbSpec(**MD_CFG6_SPEC),
+                                      swt_probe=swtp, ext_u=eu,
+                                      scen_mesh=(scen[2], "scen"),
+                                      parallel_sweeps=True)))
     return out
 
 
@@ -7543,8 +7914,8 @@ def md_record(name, ranks):
     wall = max(p["wall"] for p in recs)
     line = (f"  {name}: {len(recs)} ranks, {wall:.2f} s; "
             f"K1 {per_rank(K1_VARIANTS)}, "
-            f"K2 {per_rank(K2_VARIANTS)}, K4 {per_rank(('stagewise_k4',))} "
-            f"launches a rank (batch sizes {batches}); rank 0's collectives "
+            f"K2 {per_rank(K2_VARIANTS)}, K4 {per_rank(('stagewise_k4',))}, "
+            f"K6 {per_rank(('stagewise_k6',))} launches a rank (batch sizes {batches}); rank 0's collectives "
             f"{st['calls']} calls, {st['bytes']} bytes, "
             f"{1e3 * st['seconds']:.1f} ms")
     if waves:
@@ -7608,6 +7979,9 @@ def phase_multi_device(dev):
     swt, swtp, data, eu = md_cfg6(dev)
     ref["cfg6"] = md_bnb(solve_tree_miqp_stagewise(
         swt, *data, BnbSpec(**MD_CFG6_SPEC), swt_probe=swtp, ext_u=eu))
+    ref["cfg6_par"] = md_bnb(solve_tree_miqp_stagewise(
+        swt, *data, BnbSpec(**MD_CFG6_SPEC), swt_probe=swtp, ext_u=eu,
+        parallel_sweeps=True))
     host = CondensedMpc(omega_model(), CFG6_N, di_default_weights()).pred
     del ctrl, swt, swtp, data
     torch.cuda.empty_cache()
@@ -7715,6 +8089,27 @@ def phase_multi_device(dev):
     out["config6_tree"] = dict(obj=r["obj"], k5_obj=s["obj"],
                                wall_s=max(p["wall"] for p in recs),
                                stats=recs[0]["stats"])
+
+    # the same with parallel_sweeps=True: K6's windowed sweep an iteration
+    recs = md_record("md_stagewise_tree_par", ranks)
+    md_same("md_stagewise_tree_par", recs, ("obj", "found", "x"))
+    r, s = recs[0]["res"], ref["cfg6_par"]
+    rel = abs(r["obj"] - s["obj"]) / max(1.0, abs(s["obj"]))
+    print(f"  config 6 tree over 2 ranks, parallel_sweeps (K6 over "
+          f"windows): objective {r['obj']:.6f}, {r['nodes']} nodes, "
+          f"{r['waves']} waves; one card (K5's parallel sweep) "
+          f"{s['obj']:.6f}, relative {rel:.2e} (limit 1e-3)", flush=True)
+    check(r["found"] and s["found"] and rel <= 1e-3,
+          "config 6 tree over ranks with parallel_sweeps off K5's")
+    for p in recs:
+        check(p["launches"]["stagewise_k6"] > 0 and all(
+            v == 0 for k, v in p["launches"].items()
+            if k.startswith("stagewise_k") and k != "stagewise_k6"),
+            f"md_stagewise_tree_par: K6 and no K4 or K5 on every rank, "
+            f"launches {p['launches']}")
+    out["config6_tree_par"] = dict(obj=r["obj"], k5_obj=s["obj"],
+                                   wall_s=max(p["wall"] for p in recs),
+                                   stats=recs[0]["stats"])
 
     # a one-rank NCCL world
     check(backend_for(1, "cuda") == "nccl", "one rank on its card: not NCCL")
@@ -7832,6 +8227,8 @@ def main(argv=None):
     sweep27_args = phase("split mode", phase_split, dev, phase_rng("split"),
                          recs["admm_k1_split"])
     phase("K4", phase_k4, dev, phase_rng("k4"), recs["stagewise_k4"])
+    phase("K6 vs plain", phase_k6, dev, phase_rng("k6"),
+          recs["stagewise_k6"])
     phase("K5", phase_k5, dev, phase_rng("k5"), recs["stagewise_k5"])
     phase("K5 variants", phase_k5_flex, dev, phase_rng("k5_flex"), recs)
     phase("K5 at any b and r", phase_k5_any, dev, phase_rng("k5_any"), recs)
@@ -7884,6 +8281,8 @@ def main(argv=None):
                           dev)
     calls["battery_fleet"] = phase("battery fleet", phase_battery_fleet,
                                    dev)
+    calls["fleet_b160"] = phase("fleet b=160", phase_fleet_b160, dev,
+                                ("fleet_b160",))
     calls["run"] = phase("run CLI", phase_run_cli, dev)
     calls["micro_grid"] = phase("micro-grid", phase_micro_grid, dev)
     calls["decentralized"] = phase("decentralized micro-grid",

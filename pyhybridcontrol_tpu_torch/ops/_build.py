@@ -30,8 +30,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 # stagewise ADMM loop) in stagewise.cu, K5's other instantiations in the
 # three sources that build stagewise.cu's other parts (bmax 32 to 128; the
 # runtime-r path at bmax 8 and 16; the horizon variant) and in the three
-# that build parts 0 to 2 with the parallel sweep (the "_par" ones), each
-# its own library so that the compilers run side by side
+# that build parts 0 to 2 with the parallel sweep (the "_par" ones), and
+# K6 (the sweep at any b and over windows) in stagewise_any.cu, each its
+# own library so that the compilers run side by side
 LIBRARIES = {"admm": PKG_DIR / "csrc" / "admm.cu",
              "admm_mixed": PKG_DIR / "csrc" / "admm_mixed.cu",
              "stagewise": PKG_DIR / "csrc" / "stagewise.cu",
@@ -40,7 +41,8 @@ LIBRARIES = {"admm": PKG_DIR / "csrc" / "admm.cu",
              "stagewise_horizon": PKG_DIR / "csrc" / "stagewise_horizon.cu",
              "stagewise_par": PKG_DIR / "csrc" / "stagewise_par.cu",
              "stagewise_wide_par": PKG_DIR / "csrc" / "stagewise_wide_par.cu",
-             "stagewise_extra_par": PKG_DIR / "csrc" / "stagewise_extra_par.cu"}
+             "stagewise_extra_par": PKG_DIR / "csrc" / "stagewise_extra_par.cu",
+             "stagewise_any": PKG_DIR / "csrc" / "stagewise_any.cu"}
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 DEFAULT_CUDA_HOMES = ("/usr/local/cuda",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -205,6 +207,13 @@ def _bind_stagewise_horizon(lib):
     lib.phc_sw_admm_horizon_max_clusters.restype = I
 
 
+def _bind_stagewise_any(lib):
+    P, I = ctypes.c_void_p, ctypes.c_int
+    # r L U C Pi Psi | x yend xbeg, then P N b windows threads stream
+    lib.phc_sw_solve_k_any.argtypes = [P] * 9 + [I] * 5 + [P]
+    lib.phc_sw_solve_k_any.restype = I
+
+
 _BINDERS = {"admm": _bind_admm, "admm_mixed": _bind_admm_mixed,
             "stagewise": _bind_stagewise,
             "stagewise_wide": _bind_stagewise_k5,
@@ -212,7 +221,8 @@ _BINDERS = {"admm": _bind_admm, "admm_mixed": _bind_admm_mixed,
             "stagewise_horizon": _bind_stagewise_horizon,
             "stagewise_par": _bind_stagewise_k5,
             "stagewise_wide_par": _bind_stagewise_k5,
-            "stagewise_extra_par": _bind_stagewise_k5}
+            "stagewise_extra_par": _bind_stagewise_k5,
+            "stagewise_any": _bind_stagewise_any}
 
 
 def load_library(name: str = "admm"):

@@ -106,8 +106,8 @@ from pyhybridcontrol_tpu_torch.ops.admm import (
 )
 
 # launches per kernel wrapper (incremented only where the kernel launches;
-# "stagewise_k4" and the K5 variants "stagewise_k5*", their parallel
-# sweep "…_par", by ops/cuda_stagewise.py)
+# "stagewise_k4", the K5 variants "stagewise_k5*", their parallel sweep
+# "…_par", and K6 "stagewise_k6", by ops/cuda_stagewise.py)
 LAUNCHES = {"admm_k1": 0, "admm_k2": 0, "admm_k1_mixed": 0,
             "admm_k1_resident": 0, "admm_k2_resident": 0,
             "admm_k1_streamed": 0, "admm_k2_streamed": 0, "admm_k1_split": 0,
@@ -116,7 +116,7 @@ LAUNCHES = {"admm_k1": 0, "admm_k2": 0, "admm_k1_mixed": 0,
             "stagewise_k5_global": 0, "stagewise_k5_global_all": 0,
             "stagewise_k5_horizon": 0, "stagewise_k5_par": 0,
             "stagewise_k5_grouped_par": 0, "stagewise_k5_global_par": 0,
-            "stagewise_k5_global_all_par": 0}
+            "stagewise_k5_global_all_par": 0, "stagewise_k6": 0}
 # batch size -> launches, per kernel wrapper (same events as LAUNCHES)
 LAUNCH_BATCHES = {k: {} for k in LAUNCHES}
 

@@ -1,30 +1,47 @@
-"""The stagewise frame's kernels (CUDA C++, ``csrc/stagewise.cu``): K4, the
-block-tridiagonal sweep K⁻¹r, and K5, the fused stagewise ADMM loop; their
-plans and their wrappers.
+"""The stagewise frame's kernels (CUDA C++, ``csrc/stagewise.cu`` and
+``csrc/stagewise_any.cu``): K4, the block-tridiagonal sweep K⁻¹r; K5, the
+fused stagewise ADMM loop; K6, the sweep at any block size, sequential or
+over windows; their plans and their wrappers.
 
-No TPU kernel stands behind either. The reference runs the sweep as two
-``lax.scan`` loops (``pyhybridcontrol_tpu/ops/stagewise.py::_solve_K``) and
-the ADMM iterations as one ``jax.lax.fori_loop`` (``stagewise_admm_solve``,
-``:1011``) that XLA compiles into one device loop. K4's plain version is
+No TPU kernel stands behind them. The reference runs the sweep as two
+``lax.scan`` loops (``pyhybridcontrol_tpu/ops/stagewise.py::_solve_K``),
+or with ``parallel_sweeps=True`` as log-depth prefixes
+(``_solve_K_assoc``), and the ADMM iterations as one
+``jax.lax.fori_loop`` (``stagewise_admm_solve``, ``:1011``) that XLA
+compiles into one device loop. K4's plain version is
 ``ops/stagewise.py::_solve_K``, a Python loop over the stages; K5's is
-``ops/stagewise.py::_admm_iterations``, torch ops around the plain sweeps.
+``ops/stagewise.py::_admm_iterations``, torch ops around the plain sweeps;
+K6's are ``_solve_K`` and ``_solve_K_windowed``.
 
 ``ops/stagewise.stagewise_admm_solve`` dispatches on the tensor's device
-and on nothing else: a CPU tensor runs the plain loop, a CUDA tensor
-launches K5 once (``sw_admm_cuda``) or raises. K4 keeps its standalone
-launch (``sw_solve_k_cuda``, r (…, N, b) fp32, the factors (L, U⁻¹, C)
-(N, b, b) fp32 on the same device, shared by every problem of the batch);
-no solve calls it any more, and K5 runs its sweep as a device routine.
-Each launch counts once in ``cuda_admm.LAUNCHES["stagewise_k4"]`` or,
-K5, under its variant's name (``ADMM_LAUNCH``; its problem count P in
+and the shapes (``_admm_route``): a CPU tensor runs the plain loop; a CUDA
+tensor launches K5 once (``sw_admm_cuda``) wherever K5 has an
+instantiation (``k5_plan``), and elsewhere (b above 128, a tree past K5's
+clusters, a group mean over ranks) runs the torch loop on the card around
+K4's standalone sweep (``sw_solve_k_cuda``, sequential, where ``k4_plan``
+takes the shape) or K6's (``sw_solve_k_any_cuda``: any b, any N; over
+``any_windows(N)`` windows with ``parallel_sweeps``). Both take r (…, N,
+b) fp32 and the factors (L, U⁻¹, C) (N, b, b) fp32 on the same device,
+shared by every problem of the batch. Each launch counts once in
+``cuda_admm.LAUNCHES["stagewise_k4"]``, ``["stagewise_k6"]`` or, K5,
+under its variant's name (``ADMM_LAUNCH``; its problem count P in
 ``LAUNCH_BATCHES``).
+
+``plan_sweep_any`` picks K6's launch from the shapes alone: one CTA a
+problem and window, b rows over b rounded up to a warp (at most 256)
+threads, C = 1 or ``any_windows(N)`` windows (⌈√(2N)⌉, at most 16 and N);
+r, y and x in device memory, four b-word vectors in shared memory, so it
+raises only where those do not fit a CTA (b above 14,528). The factors
+and window maps are read packed column-major (``pack_wide``; the factors
+once per factor tuple, the maps cached on the prep, ``any_maps``).
 
 ``plan_sweep`` picks K4's instantiation from the shapes alone: the compiled
 bound on the block size (8, 16, 32, 64 or 128, the smallest at or above b),
 whether a block stages the three factor arrays in shared memory beside its
 warps' r/y buffers, and the warps (problems) a block: 4, 2 or 1, the most
 that fit. b above 128, or a horizon whose r/y buffer does not fit one
-block, has no instantiation and raises.
+block, has no instantiation and raises ``NoInstantiation`` (``k4_plan``
+reads it as None, and the route takes K6 there).
 
 Above bmax 16 (the wide sweep) both kernels read the factors packed
 (``pack_wide``: each stage block column-major, padded to a multiple of 4
@@ -62,7 +79,8 @@ moves to device memory in turn, the largest first, until the CTA fits
 (``AdmmPlan.ext``; ``EXT_*``). b above 128, or a shape that fits no
 variant's shared memory (forced staged factors past it, a group whose
 CTAs would give a scenario less than a warp) have no instantiation and
-raise.
+raise (``NoInstantiation`` where no argument was forced: ``k5_plan``
+reads it as None, and the route runs the torch loop with K4 or K6).
 
 Where the plan picks "global" for one scenario with no extra rows at bmax
 8 or 16, it takes the "horizon" variant instead (library
@@ -152,6 +170,12 @@ HORIZON_WAVE = 128
 _HORIZON_CAPACITY: dict = {}     # (plan, N, b, m, device) -> clusters
 
 
+class NoInstantiation(ValueError):
+    """A shape no instantiation of a kernel takes (as opposed to a forced
+    argument that does not fit): ``plan_sweep`` and ``plan_admm`` raise it,
+    ``k4_plan`` and ``k5_plan`` read it as None."""
+
+
 @dataclasses.dataclass(frozen=True)
 class SweepPlan:
     """Instantiation of K4 for one call: the compiled bound on b, staged
@@ -215,8 +239,8 @@ def plan_sweep(P: int, N: int, b: int,
         raise ValueError(f"{what}: empty shape P={P}, N={N}, b={b}")
     bmax = next((m for m in SWEEP_BMAX if b <= m), None)
     if bmax is None:
-        raise ValueError(f"{what}: block size b={b} above the "
-                         f"{SWEEP_BMAX[-1]} the kernel is built for")
+        raise NoInstantiation(f"{what}: block size b={b} above the "
+                              f"{SWEEP_BMAX[-1]} the kernel is built for")
     for st in ((True, False) if staged is None else (bool(staged),)):
         ring = _ring_depths(bmax, st)
         for w in (1,) if ring[0] else SWEEP_WARPS:
@@ -226,7 +250,7 @@ def plan_sweep(P: int, N: int, b: int,
                     return SweepPlan(bmax=bmax, staged=st, warps=w,
                                      smem=smem, ring=d)
     least = _ring_depths(bmax, False)[-1]
-    raise ValueError(
+    raise NoInstantiation(
         f"{what}: N={N}, b={b} needs "
         f"{sweep_smem_bytes(N, b, 1, False, bmax, least)} bytes of shared "
         f"memory for one warp's r/y buffer"
@@ -249,16 +273,17 @@ def _check(name, t, shape, device):
 
 
 def pack_wide(factors) -> torch.Tensor:
-    """The factors (L, U⁻¹, C), each (N, b, b), as the wide sweep reads
-    them: (3, N, ``wide_block_words(b)``) fp32, each stage block
+    """The factors (L, U⁻¹, C), each (N, b, b), as the wide sweep and K6
+    read them (and K6's window maps (Π, Ψ) the same way): (n, N,
+    ``wide_block_words(b)``) fp32 for n arrays, each stage block
     column-major (element (i, j) at word j·b + i, so that a warp's lanes
     read a column as consecutive words) and zero-padded to a multiple of 4
     words (every block 16-byte aligned, as a bulk copy needs)."""
     F = torch.stack([f.to(torch.float32) for f in factors])
-    _, N, b, _ = F.shape
-    out = torch.zeros((3, N, wide_block_words(b)), dtype=torch.float32,
+    n, N, b, _ = F.shape
+    out = torch.zeros((n, N, wide_block_words(b)), dtype=torch.float32,
                       device=F.device)
-    out[:, :, :b * b] = F.transpose(-1, -2).reshape(3, N, b * b)
+    out[:, :, :b * b] = F.transpose(-1, -2).reshape(n, N, b * b)
     return out
 
 
@@ -271,7 +296,7 @@ _WIDE_PACKED_KEEP = 4
 
 def _packed_for_k4(factors) -> torch.Tensor:
     """``pack_wide(factors)``, built once per factor tuple (while none of
-    its tensors changes in place)."""
+    its tensors changes in place); K4 above bmax 16 and K6 read it."""
     vers = tuple(f._version for f in factors)
     for i, (fs, v, packed) in enumerate(_WIDE_PACKED):
         if len(fs) == len(factors) and all(
@@ -314,6 +339,128 @@ def sw_solve_k_cuda(r, factors, staged: Optional[bool] = None):
                                 ctypes.c_void_p(stream))
     _raise_on(lib, rc, "K4 (stagewise sweep)")
     _count_launch("stagewise_k4", P)
+    return x.reshape(r.shape)
+
+
+# ---- K6: the sweep at any b, sequential or over windows -------------------
+
+ANY_THREADS = 256    # the most threads a K6 CTA (csrc/stagewise_any.cu)
+ANY_WINDOWS = 16     # the most windows plan_sweep_any gives a problem
+
+
+@dataclasses.dataclass(frozen=True)
+class AnyPlan:
+    """K6's launch for one call: threads a CTA (b rounded up to a warp, at
+    most ANY_THREADS; one CTA a problem and window), windows a problem (1:
+    the sequential sweep) and dynamic shared memory a CTA (bytes)."""
+
+    threads: int
+    windows: int
+    smem: int
+
+
+def any_windows(N: int) -> int:
+    """The windowed sweep's C for a horizon of N stages: ⌈√(2N)⌉, at least 2
+    and at most ANY_WINDOWS and N (1 for N = 1). A window's chain is
+    2·⌈N/C⌉ stages and the carries' 2·(C−1) steps; the two corrections add
+    about 2·⌈N/C⌉ stage-sized products a thread where b fills the CTA, so
+    the sum is least near √(2N). b does not enter: every term scales as
+    b²."""
+    c = 2
+    while c * c < 2 * N:
+        c += 1
+    return min(c, ANY_WINDOWS, N)
+
+
+def any_smem_bytes(b: int) -> int:
+    """Shared memory of one K6 CTA (csrc/stagewise_any.cu ``smem_bytes``):
+    four b-word vectors."""
+    return 16 * b
+
+
+def plan_sweep_any(P: int, N: int, b: int, windows: int = 1) -> AnyPlan:
+    """K6's launch for P problems of horizon N and block b over C =
+    ``windows`` windows (1: the sequential sweep; the parallel sweep takes
+    ``any_windows(N)``). Raises ValueError, with the shape, only where a
+    stage's vectors do not fit a CTA's shared memory (b above 14,528) or C
+    is not 1 to N."""
+    what = f"K6 (stagewise sweep at any b) at P={P}, N={N}, b={b}"
+    if P < 1 or N < 1 or b < 1:
+        raise ValueError(f"{what}: empty shape")
+    C = windows
+    if not 1 <= C <= N:
+        raise ValueError(f"{what}: {C} windows, not 1 to N")
+    smem = any_smem_bytes(b)
+    if smem > SMEM_MAX:
+        raise ValueError(f"{what}: a stage's vectors need {smem} bytes of "
+                         f"shared memory, above the {SMEM_MAX} a CTA has")
+    return AnyPlan(threads=min(ANY_THREADS, -(-b // 32) * 32), windows=C,
+                   smem=smem)
+
+
+def any_maps(sw, windows: int) -> torch.Tensor:
+    """The window maps (Π, Ψ) of ``windows`` windows over the prep ``sw``
+    (``ops/stagewise.window_maps`` of ``horizon_windows``) as K6 reads
+    them: (2, N, ``wide_block_words(b)``), each block column-major
+    (``pack_wide``; cached on the prep)."""
+    from pyhybridcontrol_tpu_torch.ops.stagewise import window_maps
+
+    key = ("k6_maps", windows)
+    got = sw.cache.get(key)
+    if got is None:
+        got = pack_wide(window_maps(sw, horizon_windows(sw.N, windows)))
+        sw.cache[key] = got
+    return got
+
+
+def sw_solve_k_any_cuda(r, factors, windows: Optional[int] = None,
+                        maps: Optional[torch.Tensor] = None):
+    """K6 on the card: x = K⁻¹ r for r (…, N, b) from the factors (L, U⁻¹,
+    C), each (N, b, b), at any b; sequential, or over ``windows`` windows
+    (the algorithm of ``ops/stagewise._solve_K_windowed``, its plain
+    version; ``_solve_K`` is the sequential one's) with the window maps
+    ``maps`` (``any_maps``; else computed from the factors). The factors
+    are read packed (``pack_wide``, built once per factor tuple). Checks,
+    allocates x (and the windows' two side buffers) and launches once: one
+    kernel sequential, three windowed."""
+    from pyhybridcontrol_tpu_torch.ops._build import load_library
+
+    what = "K6 (stagewise sweep at any b)"
+    if r.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {r.device}")
+    if r.ndim < 2:
+        raise ValueError(f"{what}: r must be (..., N, b), got "
+                         f"{tuple(r.shape)}")
+    N, b = r.shape[-2:]
+    rr = r.reshape(-1, N, b)
+    _check("r", rr, rr.shape, r.device)
+    for name, f in zip(("L", "Uinv", "C"), factors):
+        _check(name, f, (N, b, b), r.device)
+    P = rr.shape[0]
+    pl = plan_sweep_any(P, N, b, 1 if windows is None else windows)
+    L, U, C = _packed_for_k4(factors).unbind(0)
+    x = torch.empty_like(rr)
+    Pi = Psi = side = None
+    if pl.windows > 1:
+        if maps is None:
+            from pyhybridcontrol_tpu_torch.ops.stagewise import window_maps
+
+            maps = pack_wide(window_maps(
+                None, horizon_windows(N, pl.windows), factors))
+        _check("maps", maps, (2, N, wide_block_words(b)), r.device)
+        Pi, Psi = maps.unbind(0)
+        side = torch.empty((2, P, pl.windows, b), dtype=torch.float32,
+                           device=r.device)
+    lib = load_library("stagewise_any")
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        rc = lib.phc_sw_solve_k_any(
+            *map(_ptr, (rr, L, U, C, Pi, Psi, x,
+                        None if side is None else side[0],
+                        None if side is None else side[1])),
+            P, N, b, pl.windows, pl.threads, ctypes.c_void_p(stream))
+    _raise_on(lib, rc, what)
+    _count_launch("stagewise_k6", P)
     return x.reshape(r.shape)
 
 
@@ -626,8 +773,8 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
         raise ValueError(f"{what}: empty shape")
     bmax = next((v for v in ADMM_BMAX if b <= v), None)
     if bmax is None:
-        raise ValueError(f"{what}: block size b={b} above the "
-                         f"{ADMM_BMAX[-1]} the kernel is built for")
+        raise NoInstantiation(f"{what}: block size b={b} above the "
+                              f"{ADMM_BMAX[-1]} the kernel is built for")
     needs_rt = bmax > 16 or n_ext > ADMM_RMAX
     if runtime_r is None:
         runtime_r = needs_rt
@@ -719,8 +866,8 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
         sub = most // spc // 32 * 32        # threads a scenario's slot
         if sub < 32:
             if spc == spcs[-1]:
-                raise ValueError(f"{what}: {spc} scenarios a CTA leave "
-                                 f"less than a warp each")
+                raise NoInstantiation(f"{what}: {spc} scenarios a CTA "
+                                      f"leave less than a warp each")
             continue
         lanes, w = _lanes(N, sub, tps)
         for name in names:
@@ -749,8 +896,34 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
                                         smem=smem, spc=spc, variant=name,
                                         ext=ext, ring=d, lists=ls,
                                         parallel=parallel, windows=wins(w))
-    raise ValueError(f"{what}: needs {smem} bytes of shared memory a CTA, "
-                     f"above the {SMEM_MAX} an sm_90 CTA has")
+    raise NoInstantiation(f"{what}: needs {smem} bytes of shared memory a "
+                          f"CTA, above the {SMEM_MAX} an sm_90 CTA has")
+
+
+def k5_plan(N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
+            n_ext: int = 0, n_cons: int = 0, mean: bool = False,
+            parallel: bool = False) -> Optional[AdmmPlan]:
+    """K5's plan for one group of the shape (``plan_admm`` at P = S, the
+    plan's own choices, no card read), or None where K5 has no
+    instantiation for it (b above 128, a group that leaves a scenario
+    under a warp, no variant's shared memory fits): the shapes the torch
+    loop takes on the card (``ops/stagewise._admm_route``). Whether a plan
+    exists does not depend on P, only which horizon cluster it takes."""
+    try:
+        return plan_admm(S, N, b, m, S, n_blk, n_ext, n_cons, mean,
+                         parallel=parallel)
+    except NoInstantiation:
+        return None
+
+
+def k4_plan(N: int, b: int) -> Optional[SweepPlan]:
+    """K4's plan for the shape (``plan_sweep``, which does not depend on
+    P), or None where K4 has no instantiation (b above 128, one problem's
+    r/y buffer past a block)."""
+    try:
+        return plan_sweep(1, N, b)
+    except NoInstantiation:
+        return None
 
 
 def group_members(M: torch.Tensor) -> torch.Tensor:

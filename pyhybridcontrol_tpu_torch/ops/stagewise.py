@@ -6,7 +6,9 @@ terminal and consensus rows, the bordered Woodbury factors of horizon-coupled
 rows) is the reference's numpy float64 code; the device half is plain torch
 on fp32 data around one kernel on the card: K5, the whole fixed-iteration
 ADMM loop in one launch (``ops/cuda_stagewise.py``, ``csrc/stagewise.cu``),
-which runs the block-tridiagonal sweep K⁻¹r of K4 as its inner routine.
+which runs the block-tridiagonal sweep K⁻¹r of K4 as its inner routine;
+where K5 has no instantiation, the torch loop around K4's or K6's sweep
+(``csrc/stagewise_any.cu``: any b, sequential or over windows).
 
 Formulation. Stage variables ξ_k = [v_k; x_{k+1}], k = 0…N−1 (block size
 b = nv + nx; states are not eliminated). OSQP-form rows per stage:
@@ -43,11 +45,14 @@ Port decisions:
   ``_admm_iterations`` is the ADMM loop in torch around a sweep the caller
   names (``_solve_K``, ``_solve_K_assoc`` or ``_solve_K_windowed``): the
   plain version of K5.
-  ``stagewise_admm_solve`` dispatches the loop on the tensor's device: a
-  CUDA tensor launches K5 once (``cuda_stagewise.sw_admm_cuda``) or
-  raises, a CPU tensor runs ``_admm_iterations`` with ``_solve_K``; the
-  set-up before the loop and the residuals, objective and certificate
-  after it stay in torch.
+  ``stagewise_admm_solve`` dispatches the loop on the tensor's device and
+  the shapes (``_admm_route``): a CUDA tensor launches K5 once
+  (``cuda_stagewise.sw_admm_cuda``) wherever K5 has an instantiation
+  (``cuda_stagewise.k5_plan``), else runs ``_admm_iterations`` on the
+  card with a hand-written sweep: K4 (``_k4_sweep``) where its plan takes
+  the shape, K6 (``_k6_sweep``, any b) where it does not; a CPU tensor
+  runs ``_admm_iterations`` with ``_solve_K``. The set-up before the loop
+  and the residuals, objective and certificate after it stay in torch.
 - ``parallel_sweeps=True`` is another algorithm the caller picks, not a
   fallback. On a CPU tensor it runs the plain loop with ``_solve_K_assoc``,
   the reference's log-depth prefix over affine maps. On a CUDA tensor it
@@ -58,10 +63,11 @@ Port decisions:
   rows, b ≤ 16, ``cuda_stagewise.horizon_applies``), else inside the
   variant K5's plan picks (extra rows, a group mean, b up to 128), the
   Woodbury step, the rows and the group mean then reading the corrected
-  x. It raises ValueError with the shape where K5's plan raises (b above
-  128) and for a group mean over ranks (``consensus_M`` a function: that
-  loop is torch with K4 as its sweep, and no windowed K4 exists); the
-  plain loop never runs on the card in its place (``_admm_route``).
+  x. Where K5 has no instantiation (b above 128, a tree past its
+  clusters) and for a group mean over ranks (``consensus_M`` a function)
+  the torch loop runs with K6's windowed sweep (``_k6_windowed_sweep``,
+  ``cuda_stagewise.any_windows(N)`` windows; its plain version
+  ``_solve_K_windowed``). The plain sweeps never run on the card.
 - The objective, the infeasibility certificate's support and gap sums and
   the dual bound's sums accumulate in float64, as in ops/admm.py.
 """
@@ -78,6 +84,7 @@ import torch.nn.functional as F
 from pyhybridcontrol_tpu_torch.mld.model import MldModel
 from pyhybridcontrol_tpu_torch.ops.admm import AdmmResult, _implied_box
 from pyhybridcontrol_tpu_torch.ops.condense import MpcWeights, _sq, _vec
+from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
 from pyhybridcontrol_tpu_torch.ops.cuda_stagewise import sw_admm_cuda
 from pyhybridcontrol_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -749,6 +756,21 @@ def _k4_sweep(sw: StagewiseQP, t):
     return sw_solve_k_cuda(t.contiguous(), sw.factors)
 
 
+def _k6_sweep(sw: StagewiseQP, t):
+    """K⁻¹t through K6 (the sweep at any b), sequential, on the card: its
+    plain version is ``_solve_K``."""
+    return cs.sw_solve_k_any_cuda(t.contiguous(), sw.factors)
+
+
+def _k6_windowed_sweep(sw: StagewiseQP, t):
+    """K⁻¹t through K6 over ``cuda_stagewise.any_windows(N)`` windows on the
+    card (the window maps cached on the prep): its plain version is
+    ``_solve_K_windowed`` on those windows."""
+    C = cs.any_windows(sw.N)
+    return cs.sw_solve_k_any_cuda(t.contiguous(), sw.factors, windows=C,
+                                  maps=cs.any_maps(sw, C) if C > 1 else None)
+
+
 def _solve_K_bordered(sw: StagewiseQP, t, sweep):
     """(K + Aextᵀ diag(ρₑ) Aext)⁻¹ t, the x-update solve: Woodbury on top
     of the sweeps, x = K⁻¹t − KiU·(Cw·(Aext·K⁻¹t)), with the prepared
@@ -1081,30 +1103,35 @@ def _certificate(sw: StagewiseQP, dy, dy_e, l, u, ext_u):
 
 def _admm_route(sw: StagewiseQP, device, parallel_sweeps: bool,
                 consensus_M=None):
-    """(function, keywords) that run a solve's iterations on ``device``: on
-    the CPU the plain loop, its sweep ``_solve_K`` or, with
-    ``parallel_sweeps``, ``_solve_K_assoc``; on the card one launch of K5
-    (``sw_admm_cuda``; with ``parallel_sweeps`` its parallel sweep, at
-    every shape K5 plans), or the torch loop with K4 where ``consensus_M``
-    is a function (a group mean across ranks). Raises ValueError for
-    another device, and for ``parallel_sweeps`` on the card with a group
-    mean across ranks (no windowed K4)."""
+    """(function, keywords) that run a solve's iterations on ``device``,
+    decided from the shapes before any launch: on the CPU the plain loop,
+    its sweep ``_solve_K`` or, with ``parallel_sweeps``,
+    ``_solve_K_assoc``. On the card one launch of K5 (``sw_admm_cuda``;
+    with ``parallel_sweeps`` its parallel sweep) wherever K5 has an
+    instantiation for the shape (``cuda_stagewise.k5_plan``); elsewhere
+    (b above 128, a group that would leave a scenario under a warp, a
+    group mean over ranks: ``consensus_M`` a function) the torch loop
+    ``_admm_iterations`` with a hand-written sweep: K6 over windows with
+    ``parallel_sweeps``, else K4 where it has a plan
+    (``cuda_stagewise.k4_plan``) and K6 where it has none. Raises
+    ValueError for another device."""
     if device.type == "cpu":
         return _admm_iterations, dict(
             sweep=_solve_K_assoc if parallel_sweeps else _solve_K)
     if device.type != "cuda":
         raise ValueError(f"no stagewise ADMM for device {device}")
+    if not callable(consensus_M):
+        mean = consensus_M is not None and sw.n_cons > 0
+        S = consensus_M.shape[0] if mean else 1
+        if cs.k5_plan(sw.N, sw.b, sw.m_k, S, sw.n_blk, sw.n_ext, sw.n_cons,
+                      mean, parallel_sweeps) is not None:
+            return sw_admm_cuda, (dict(parallel=True) if parallel_sweeps
+                                  else {})
     if parallel_sweeps:
-        if callable(consensus_M):
-            raise ValueError(
-                f"parallel_sweeps on the card: a group mean over ranks runs "
-                f"the torch loop with K4 as its sweep, which has no windowed "
-                f"form (b={sw.b}, n_ext={sw.n_ext}, a group mean over "
-                f"{sw.n_cons} rows); pass parallel_sweeps=False")
-        return sw_admm_cuda, dict(parallel=True)
-    if callable(consensus_M):
+        return _admm_iterations, dict(sweep=_k6_windowed_sweep)
+    if cs.k4_plan(sw.N, sw.b) is not None:
         return _admm_iterations, dict(sweep=_k4_sweep)
-    return sw_admm_cuda, {}
+    return _admm_iterations, dict(sweep=_k6_sweep)
 
 
 def stagewise_admm_solve(sw: StagewiseQP, q, l, u, iters: int = 200,
@@ -1117,18 +1144,21 @@ def stagewise_admm_solve(sw: StagewiseQP, q, l, u, iters: int = 200,
     lb_xi/ub_xi (…, N, b) override the box-row bounds (B&B); ``warm``:
     (x, z, y) of a prior result in this frame. The iterations run as one
     launch of K5 on a CUDA tensor and as ``_admm_iterations`` (torch, the
-    plain sweeps) on a CPU tensor; another device raises.
+    plain sweeps) on a CPU tensor; another device raises. Where K5 has no
+    instantiation for the shape, a CUDA tensor runs the torch loop with
+    K4's or K6's sweep (``_admm_route``).
     ``parallel_sweeps``: the horizon-parallel sweeps, an algorithm of its
     own (module doc): on a CUDA tensor one launch of K5 with its parallel
-    sweep (a ValueError with a group mean over ranks), on the CPU the
-    torch loop with ``_solve_K_assoc``.
+    sweep, or the torch loop with K6's windowed sweep where K5 has no
+    instantiation (a group mean over ranks included); on the CPU the torch
+    loop with ``_solve_K_assoc``.
     ``consensus_M`` (S, S, N): the p-weighted group-mean weights
     (``StagewiseTreeQP.M``) that replace the z-update on the trailing
     ``n_cons`` rows over the scenario axis, dim −3 (their residual then
     measures |Ax − z| and their dy leaves the certificate); a function in
     its place computes the means itself (the scenario axis split over
     ranks): no one launch holds a mean that crosses ranks, so then the
-    torch loop runs, its sweep K4 on the card. ``consensus_z``: the
+    torch loop runs, its sweep K4 or K6 on the card. ``consensus_z``: the
     reference's name for such a function (the group-mean prox of the
     consensus rows, ``s[..., mc:]`` ↦ z); it takes ``consensus_M``'s place.
     ``ext_u``

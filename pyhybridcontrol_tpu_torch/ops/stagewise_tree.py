@@ -35,7 +35,12 @@ holds S/P scenarios of every node (P must divide S). The group mean then
 crosses ranks in every ADMM iteration: a local partial sum over the rank's
 scenarios, one ``all_reduce(SUM)``, the rank's own rows. K5 keeps a
 node's scenarios in one cluster and cannot hold that, so the iterations
-run as the torch loop with K4 as its sweep (ops/stagewise.py). After the
+run as the torch loop on the card with a hand-written sweep
+(ops/stagewise.py ``_admm_route``): K4 where its plan takes the shape, K6
+(any b) where it does not, and K6 over windows with
+``parallel_sweeps=True``. The same loop takes a tree on one card whose
+group K5 has no instantiation for (S above 256 at b = 5, above 128 from
+bmax 16; b above 128). After the
 solve one all_gather returns every scenario's iterates and statistics to
 every rank, and the B&B loop runs replicated over the joint decision, on
 data broadcast from the first rank, so every rank takes the same waves.

@@ -28,6 +28,7 @@ import contextlib
 import json
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -86,28 +87,45 @@ def _busy_us(events) -> float:
     return busy
 
 
-def profile_request(run) -> dict:
-    """``run()`` once under torch.profiler: device operations, K1/K2/K4/K5
-    launches and device time, device busy time, and the run's wall time
-    under the profiler (from the call to the device's last operation)."""
+def _device_events(prof) -> list:
+    """The device operations of a finished torch.profiler run as (name,
+    time_range) records (µs), read from its raw kineto results: the
+    FunctionEvent tree that ``prof.events()`` builds takes minutes at the
+    hundreds of thousands of operations of a long solve."""
     from torch.autograd import DeviceType
+
+    return [SimpleNamespace(name=e.name(), time_range=SimpleNamespace(
+        start=e.start_ns() / 1e3, end=e.end_ns() / 1e3))
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == DeviceType.CUDA]
+
+
+def profile_request(run, cpu: bool = True) -> dict:
+    """``run()`` once under torch.profiler: device operations, K1/K2/K4/K5/K6
+    launches (K6: its kernels, one to three a sweep) and device time,
+    device busy time, and the run's wall time under the profiler (from the
+    call to the device's last operation). ``cpu=False`` records the device
+    activity alone: a host-bound loop of hundreds of thousands of small
+    operations would add millions of host events, which cost the profiler
+    tens of seconds to record and to finish."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = _device_events(prof)
     out = {"device_ops": len(dev), "device_busy_ms": _busy_us(dev) / 1e3,
            "wall_ms": 1e3 * wall}
     for k, name in (("k1", "admm_k1"), ("k2", "admm_k2"),
-                    ("k4", "sw_solve_k"), ("k5", "sw_admm")):
+                    ("k4", "sw_solve_k"), ("k5", "sw_admm"),
+                    ("k6", "sw_any_")):
         ev = [e for e in dev if name in e.name]
         out[f"{k}_launches"] = len(ev)
-        out[f"{k}_device_ms"] = sum(e.time_range.elapsed_us()
+        out[f"{k}_device_ms"] = sum(e.time_range.end - e.time_range.start
                                     for e in ev) / 1e3
     return out
 

@@ -133,6 +133,30 @@ def test_profile_serve_busy_time_and_refusal_without_card():
         assert profile_serve.main([]) == 1
 
 
+def test_profile_reads_device_events_from_the_kineto_results():
+    """The profile reads the device operations straight from the raw
+    kineto results (not ``prof.events()``, which builds a FunctionEvent
+    tree): the CUDA ones only, as (name, time range in µs)."""
+    from types import SimpleNamespace as NS
+
+    from torch.autograd import DeviceType
+
+    from pyhybridcontrol_tpu_torch import profile_serve
+
+    def ev(name, dev, a, b):
+        return NS(name=lambda: name, device_type=lambda: dev,
+                  start_ns=lambda: a, end_ns=lambda: b)
+
+    raw = [ev("cudaLaunchKernel", DeviceType.CPU, 0, 9000),
+           ev("sw_any_forward", DeviceType.CUDA, 1000, 4000),
+           ev("sw_admm_kernel", DeviceType.CUDA, 3000, 5000)]
+    prof = NS(profiler=NS(kineto_results=NS(events=lambda: raw)))
+    got = profile_serve._device_events(prof)
+    assert [(e.name, e.time_range.start, e.time_range.end) for e in got] == [
+        ("sw_any_forward", 1.0, 4.0), ("sw_admm_kernel", 3.0, 5.0)]
+    assert profile_serve._busy_us(got) == 4.0
+
+
 def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
     """No nvcc → a clear error, never a silent CPU fallback."""
     from pyhybridcontrol_tpu_torch.ops import _build

@@ -17,7 +17,8 @@ batch as tests/test_sharded_scenarios.py holds it (states rtol 1e-2, atol
 consensus tree's fixed-iteration ADMM as tests/test_torch_consensus_tree.py
 holds ``tree_admm_solve`` (objective 1e-4 relative, x 1e-3, certificate
 bits equal) and its B&B within 5e-3 (tests/test_consensus_tree.py); the
-stagewise tree's ADMM as the consensus tree's, its B&B within 1e-3."""
+stagewise tree's ADMM as the consensus tree's, with either sweep
+(``parallel_sweeps``), its B&B within 1e-3."""
 
 import concurrent.futures
 
@@ -113,6 +114,11 @@ def _j_trees(m2, m4):
                                        ext_u=ue, scen_mesh=(m2, "scen"))
     out["sw_admm"] = dict(x=np.asarray(s.x), obj=float(s.obj),
                           y_ext=np.asarray(s.y_ext))
+    s = jswt.stagewise_tree_admm_solve(ts, q, l, u, iters=R.TREE_ITERS,
+                                       ext_u=ue, scen_mesh=(m2, "scen"),
+                                       parallel_sweeps=True)
+    out["sw_admm_par"] = dict(x=np.asarray(s.x), obj=float(s.obj),
+                              y_ext=np.asarray(s.y_ext))
     b = jswt.solve_tree_miqp_stagewise(ts, q, l, u,
                                        JSpec(**R.SW_TREE_SPEC),
                                        swt_probe=tsp, ext_u=ue,
@@ -212,6 +218,23 @@ def test_stagewise_tree_admm_over_ranks(world):
                                    atol=1e-3)
         np.testing.assert_allclose(got["y_ext"], want["y_ext"], rtol=1e-3,
                                    atol=1e-3)
+
+
+def test_stagewise_tree_parallel_admm_over_ranks(world):
+    """The stagewise tree's ADMM with ``parallel_sweeps=True`` and the
+    scenario axis over two ranks (on the card the torch loop with K6's
+    windowed sweep; here the reference's log-depth sweeps) against the JAX
+    package's, sharded over two devices with ``parallel_sweeps=True``, and
+    the port's unsharded parallel run; every rank returns the same."""
+    res, ref = world
+    got = res[0]["tree2"]["sw_admm_par"]
+    for want in (ref["trees"]["sw_admm_par"], res[3]["tree1"]["sw_admm_par"]):
+        assert _rel(got["obj"], want["obj"]) <= 1e-4
+        np.testing.assert_allclose(got["x"], want["x"], rtol=1e-3,
+                                   atol=1e-3)
+        np.testing.assert_allclose(got["y_ext"], want["y_ext"], rtol=1e-3,
+                                   atol=1e-3)
+    assert res[1]["tree2"]["sw_admm_par"]["obj"] == got["obj"]
 
 
 def test_stagewise_tree_bnb_over_ranks(world):

@@ -178,24 +178,22 @@ def _route_prep(feature):
 def test_parallel_sweeps_on_the_card_refuse_other_shapes(monkeypatch,
                                                          feature):
     """On a CUDA device ``parallel_sweeps=True`` with a group mean over
-    ranks (``consensus_M`` a function: the torch loop with K4 as its
-    sweep, which has no windowed form) raises ValueError with the shape:
-    neither the torch loop (``_admm_iterations``) nor K5 is reached. (Extra
-    rows and a group mean on one card reach K5's parallel sweep:
-    tests/test_torch_stagewise_parallel.py.)"""
-    monkeypatch.setattr(tsw, "_admm_iterations",
-                        lambda *a, **k: pytest.fail("plain loop reached"))
+    ranks (``consensus_M`` a function), which raised until K6 took it,
+    routes to the torch loop with K6's windowed sweep: neither K5 nor a
+    kernel is launched while the route decides, and the CPU keeps the
+    reference's ``_solve_K_assoc``. (Extra rows and a group mean on one
+    card reach K5's parallel sweep: tests/test_torch_stagewise_parallel.py;
+    the other shapes K5 has no instantiation for:
+    tests/test_torch_stagewise_any.py.)"""
     monkeypatch.setattr(tsw, "sw_admm_cuda",
                         lambda *a, **k: pytest.fail("K5 reached"))
-    ts = _route_prep("extra" if feature == "extra" else "mean")
-    M = None
-    if feature == "mean":
-        M = torch.full((2, 2, ts.N), 0.5)
-    elif feature == "mean_over_ranks":
-        M = lambda s: s                                     # noqa: E731
-    with pytest.raises(ValueError, match="parallel_sweeps on the card") as e:
-        tsw._admm_route(ts, torch.device("cuda"), True, M)
-    assert f"n_ext={ts.n_ext}" in str(e.value)
+    monkeypatch.setattr(cs, "sw_solve_k_any_cuda",
+                        lambda *a, **k: pytest.fail("K6 launched"))
+    ts = _route_prep("mean")
+    M = lambda s: s                                         # noqa: E731
+    assert feature == "mean_over_ranks"
+    assert tsw._admm_route(ts, torch.device("cuda"), True, M) == (
+        tsw._admm_iterations, dict(sweep=tsw._k6_windowed_sweep))
     fn, kw = tsw._admm_route(ts, torch.device("cpu"), True, M)
     assert (fn, kw) == (tsw._admm_iterations, dict(sweep=tsw._solve_K_assoc))
 

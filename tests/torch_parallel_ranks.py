@@ -284,7 +284,8 @@ def batch_cases(meshes, unsharded: bool):
 def tree_cases(mesh, stagewise: bool = True):
     """Over ``mesh`` ((mesh, "scen")), or whole where mesh is None: the
     consensus tree's fixed-iteration ADMM and, with ``stagewise``, the
-    stagewise tree's (with a budget row) and its B&B."""
+    stagewise tree's (with a budget row; also with ``parallel_sweeps``)
+    and its B&B."""
     from pyhybridcontrol_tpu_torch.ops import consensus_tree as tct
     from pyhybridcontrol_tpu_torch.ops import stagewise_tree as tst
 
@@ -315,6 +316,11 @@ def tree_cases(mesh, stagewise: bool = True):
                                       ext_u=ue, scen_mesh=sm)
     out["sw_admm"] = dict(x=s.x.numpy(), obj=float(s.obj),
                           r_prim=float(s.r_prim), y_ext=s.y_ext.numpy())
+    s = tst.stagewise_tree_admm_solve(ts, q, l, u, iters=TREE_ITERS,
+                                      ext_u=ue, scen_mesh=sm,
+                                      parallel_sweeps=True)
+    out["sw_admm_par"] = dict(x=s.x.numpy(), obj=float(s.obj),
+                              y_ext=s.y_ext.numpy())
     r = tst.solve_tree_miqp_stagewise(ts, q, l, u, BnbSpec(**SW_TREE_SPEC),
                                       swt_probe=tsp, ext_u=ue, scen_mesh=sm)
     out["sw_bnb"] = result(r)

@@ -3,7 +3,7 @@
 development tool of the reference side, run on the CPU:
 
     JAX_PLATFORMS=cpu python tools/fleet_reference.py [--reps R] [--port]
-        [--parallel]
+        [--parallel] [--batteries M --horizon N]
 
 Twin of ``tools/config2_reference.py``. Builds ``chip_smoke.py``'s
 ``battery_fleet`` setup on the JAX package: eight default batteries
@@ -16,7 +16,9 @@ prints one JSON line a run: objective (full precision), nodes, found, u₀
 and seconds (the first run compiles). ``--port`` also runs the port's
 ``chip_smoke.fleet_controller`` with ``device="cpu"`` on the same setup.
 ``--parallel``: both controllers with ``sw_parallel=True`` (the
-log-depth sweeps).
+log-depth sweeps). ``--batteries M --horizon N``: another fleet of the
+same make (default 8 and 96; 40 and 24 give ``fleet_b160``'s b = 160,
+``chip_smoke.FLEET_B160_REF_OBJ``).
 A reading, not a gate: the search order may differ between the packages.
 """
 
@@ -36,6 +38,8 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=1)
     ap.add_argument("--port", action="store_true")
     ap.add_argument("--parallel", action="store_true")
+    ap.add_argument("--batteries", type=int, default=None)
+    ap.add_argument("--horizon", type=int, default=None)
     a = ap.parse_args(argv)
 
     import numpy as np
@@ -49,7 +53,8 @@ def main(argv=None):
     from pyhybridcontrol_tpu.ops.condense import MpcWeights
     from pyhybridcontrol_tpu.solver.bnb import BnbSpec
 
-    M, N = cs.FLEET_M, cs.FLEET_N
+    M = cs.FLEET_M if a.batteries is None else a.batteries
+    N = cs.FLEET_N if a.horizon is None else a.horizon
     p = BatteryParams()
     one = battery_model(p)
     F1, f5, A_v, b_e, price, x0 = cs.fleet_arrays(
@@ -68,8 +73,9 @@ def main(argv=None):
         t0 = time.perf_counter()
         r = c.feedback(x0, price_seq=price)
         obj = float(r.obj)
-        print(json.dumps(dict(package="jax", parallel=a.parallel, obj=obj, nodes=int(r.nodes),
-                              found=bool(r.found),
+        print(json.dumps(dict(package="jax", parallel=a.parallel,
+                              batteries=M, horizon=N, obj=obj,
+                              nodes=int(r.nodes), found=bool(r.found),
                               u0=np.asarray(r.u).tolist(),
                               s=time.perf_counter() - t0)), flush=True)
     if a.port:

@@ -7,6 +7,7 @@ whole-solve holds of its phase 20 are set):
     python tools/k4_readings.py --flex [--seeds 0-7] [--probes N,...]
     python tools/k4_readings.py --any [--seeds 0-7]
     python tools/k4_readings.py --par [--seeds 0-7]
+    python tools/k4_readings.py --k6 [--seeds 0-7]
     python tools/k4_readings.py --long-repeat R
 
 Builds the kernels, then runs ``chip_smoke.phase_k4`` and
@@ -43,6 +44,12 @@ shape its paths launch; timed at the first seed only) once per seed, as
 above (how the "k5_par*" limits are set),
 then the paths with their ``parallel_sweeps`` twins once: config 6's two
 arms (phase 21), battery_fleet, long_horizon and wide_tree.
+
+``--k6`` runs ``chip_smoke.phase_k6`` (K6, the sweep at any b and over
+windows, against its plain versions at K6_SHAPES, then the tree past K5's
+clusters through the route; timed at the first seed only) once per seed,
+as above (how the "k6" and "k6_random" limits are set), then the
+fleet_b160 paths once.
 
 ``--long-repeat R`` runs none of the phases: it reads the long_horizon
 path's four solves (the double integrator and the hull model, each with
@@ -193,6 +200,7 @@ def main(argv=None):
     ap.add_argument("--flex", action="store_true")
     ap.add_argument("--any", action="store_true")
     ap.add_argument("--par", action="store_true")
+    ap.add_argument("--k6", action="store_true")
     ap.add_argument("--probes", default="")
     ap.add_argument("--long-repeat", type=int, default=0)
     a = ap.parse_args(argv)
@@ -231,6 +239,9 @@ def main(argv=None):
             cs.phase("k5_par", cs.phase_k5_par, dev, cs.phase_rng("k5_par"),
                      {k: {} for k in cs.REPLACES})
             continue
+        if a.k6:
+            cs.phase("k6", cs.phase_k6, dev, cs.phase_rng("k6"), {})
+            continue
         if a.flex:
             recs = {k: {} for k in cs.K5_FAMILY}
             cs.phase("k5_flex", cs.phase_k5_flex, dev,
@@ -254,6 +265,8 @@ def main(argv=None):
             cs.phase(name, fn, dev)
     elif a.flex:
         cs.phase("long horizons and wide trees", cs.phase_wide_paths, dev)
+    elif a.k6:
+        cs.phase("fleet b=160", cs.phase_fleet_b160, dev)
     for n in filter(None, a.probes.split(",")):
         cs.LONG_SPEC = dict(cs.LONG_SPEC, probe_iters=int(n))
         c = cs.long_controller("hull", dev)
