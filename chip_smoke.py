@@ -123,7 +123,7 @@ Run from the root of a checkout. It builds the kernels of
  18. config 4c of the reference bench (bench.py:654-701): 256 scenario-tree
      MIQPs (the double integrator with a velocity disturbance, S=4, N=10,
      branching at steps 1 and 5) through ``feedback_batch(engine=
-     "pooled")`` with rep-map branching, 2 repetitions: the wave path by
+     "pooled")`` with rep-map branching, 3 repetitions: the wave path by
      its true name ("unfused K1 relax + probe": every K1 launch at
      B=1024, no K2), found share 1.0, 32 plans feasible in fp64 against the
      port's joint frame (non-anticipativity rows included), 16 instances
@@ -377,8 +377,9 @@ Run from the root of a checkout. It builds the kernels of
      the fleets' factors (b=32, N=96; b=128 and 160, N=24) and random
      factors (b=129, 137 odd, 256), each at P=1 and 64 (and fleet_b160's
      P=8), "k6" / "k6_random" limits; each timed alone, as a wrapper and
-     as the plain version beside its bound (``k6_work``: factors, window
-     maps, r and x at 3.35 TB/s), its chain floor and
+     as the plain version beside its bound (``k4_work``: factors, r and x
+     at 3.35 TB/s; over windows also with the maps, carries and
+     corrections counted, ``k6_windowed_bound_ms``), its chain floor and
      ``torch.linalg.lu_solve`` on the dense LU of K; then a tree past K5's
      clusters (S=272, b=5, N=8, a budget row), 20 iterations through the
      route (the torch loop with K4, or K6 over windows) against the plain
@@ -3079,9 +3080,8 @@ def phase_tree_shapes(dev, rng, recs):
 CFG4C_B = 256
 CFG4C_SPEC = dict(capacity=1024, wave_size=64, max_waves=64, qp_iters=100,
                   probe_iters=400, probe_patience=3)
-# repetitions of the call (the same waves each; ~30 s each on the card):
-# two, so that the whole script keeps its time limit
-CFG4C_REPS = 2
+# repetitions of the call (the same waves each; ~30 s each on the card)
+CFG4C_REPS = 3
 CFG4C_PLANS = tuple(range(0, CFG4C_B, 8))     # 32 plans held in fp64
 CFG4C_HELD = tuple(range(0, CFG4C_B, 16))     # 16 held to single feedback
 # the mean objective the reference recorded for this call
@@ -4960,8 +4960,8 @@ def random_factors(rng, N, b, dev, dtype=None):
 
 
 def k6_factors(dev, rng, key, b, N):
-    """A prep-like namespace (``factors`` and a ``cache`` that
-    ``window_maps`` fills once) of K6_SHAPES' ``key``."""
+    """A prep-like namespace (N, ``factors`` and the ``cache`` that
+    ``cuda_stagewise.any_maps`` fills once) of K6_SHAPES' ``key``."""
     if key == "cfg6":
         f = config6_preps(dev, config6_trees()[1],
                           config6_extra(CFG6_N))[0].sw.factors
@@ -4969,15 +4969,17 @@ def k6_factors(dev, rng, key, b, N):
         f = fleet_controller(b // 4, N, dev)[0]._sw.factors
     else:
         f = random_factors(rng, N, b, dev)
-    return types.SimpleNamespace(factors=f, cache={})
+    return types.SimpleNamespace(N=N, factors=f, cache={})
 
 
-def k6_work(P, N, b, C):
-    """(bytes, {type: operations}) of one K6 call: ``k4_work``'s (r and x
-    once, the three factor arrays once; the sweeps' operations), and over
-    C > 1 windows the two window maps (2·N·b² words) once."""
-    nbytes, ops = k4_work(P, N, b)
-    return nbytes + (8 * N * b * b if C > 1 else 0), ops
+def k6_windowed_bound_ms(P, N, b, C):
+    """The bound of K6 over C windows with its windowed work counted too
+    (``k4_work``, the function's own work and what ``bound_ms`` counts,
+    plus ``window_overhead``: the carries composed once, C−1 products each
+    way; K6 composes each window's carry in that window's CTA, c products
+    for window c, and those repeats are not counted)."""
+    (nb, ops), (ob, oo) = k4_work(P, N, b), window_overhead(P, N, b, C)
+    return bound(nb + ob, dict(fp32=ops["fp32"] + oo["fp32"]))[0]
 
 
 def k6_chain_ms(N, b, C):
@@ -4992,7 +4994,8 @@ def phase_k6(dev, rng, rec):
     window, ``_solve_K_windowed`` over ``any_windows(N)``) at every shape
     of K6_SHAPES ("k6" at the preps' factors, "k6_random" at the random
     ones); each timed alone, around its wrapper and as the plain version,
-    beside its bound (``k6_work``), its chain floor (``k6_chain_ms``) and
+    beside its bound (``k4_work``, the function's own work; over windows
+    also ``k6_windowed_bound_ms``), its chain floor (``k6_chain_ms``) and
     ``torch.linalg.lu_solve`` on the dense LU of K (fp32) for the same
     right-hand sides. Then the third class (``k6_tree_hold``)."""
     import torch
@@ -5005,7 +5008,7 @@ def phase_k6(dev, rng, rec):
         sw = k6_factors(dev, rng, key, b, N)
         C = cs.any_windows(N)
         bounds = cs.horizon_windows(N, C)
-        maps = cs.pack_wide(tsw.window_maps(sw, bounds))
+        maps = cs.any_maps(sw, C)
         regime = "k6_random" if key == "random" else "k6"
         K = None
         for P in K6_BATCHES + ((K6_MAIN[2],) if (b, N) == K6_MAIN[:2]
@@ -5031,8 +5034,14 @@ def phase_k6(dev, rng, rec):
                 if not TIMINGS:
                     continue
                 pre = f"b{b}_N{N}_P{P}_C{w}_"
-                by = timed(rec, pre, wrapper, plain, k6_work(P, N, b, w))
+                by = timed(rec, pre, wrapper, plain, k4_work(P, N, b))
                 rec[pre + "chain_ms"] = k6_chain_ms(N, b, w)
+                if w > 1:
+                    rec[pre + "windowed_bound_ms"] = k6_windowed_bound_ms(
+                        P, N, b, w)
+                    print(f"    with the windowed work counted too: "
+                          f"{rec[pre + 'windowed_bound_ms']:.3g} ms",
+                          flush=True)
                 if (b, N, P, w) == K6_MAIN + (1,):
                     rec["bound_by"] = by
                     for k in ("ms", "kernel_ms", "plain_ms", "bound_ms"):
@@ -6093,27 +6102,34 @@ def phase_k5_flex(dev, rng, recs):
                   f"ms", flush=True)
 
 
-def par_overhead(args, windows):
-    """(bytes, {type: operations}) that K5's parallel sweep over
-    ``windows`` windows does beyond the function's own work (``k5_work``,
-    which is what its bound counts), as the kernel does it: per problem and
-    iteration the carries, C−1 b×b products each way, and the corrections,
-    a b×b product at each stage past the first window (forward) and before
+def window_overhead(P, N, b, windows):
+    """(bytes, {type: operations}) that one window-parallel sweep of P
+    problems over ``windows`` windows does beyond the sequential one: per
+    problem the carries, C−1 b×b products each way, and the corrections, a
+    b×b product at each stage past the first window (forward) and before
     the last (backward), each product b² FMAs and b adds; the window maps
     read once, Π at those stages and at the first window's end, Ψ at those
     and at the last window's start."""
     from pyhybridcontrol_tpu_torch.ops.cuda_stagewise import horizon_windows
 
-    sw, q, iters = args[0], args[1], args[10]
-    N, b = sw.N, sw.b
     if windows < 2:
         return 0, dict(fp32=0)
-    P = q.numel() // (N * b)
     w = horizon_windows(N, windows)
     fwd, bwd = N - w[1], w[windows - 1]
     products = 2 * (windows - 1) + fwd + bwd
     return (4 * (fwd + bwd + 2) * b * b,
-            dict(fp32=P * iters * products * (2 * b * b + b)))
+            dict(fp32=P * products * (2 * b * b + b)))
+
+
+def par_overhead(args, windows):
+    """(bytes, {type: operations}) that K5's parallel sweep over
+    ``windows`` windows does beyond the function's own work (``k5_work``,
+    which is what its bound counts), as the kernel does it:
+    ``window_overhead``'s operations every iteration, its maps read once."""
+    sw, q, iters = args[0], args[1], args[10]
+    nbytes, ops = window_overhead(q.numel() // (sw.N * sw.b), sw.N, sw.b,
+                                  windows)
+    return nbytes, dict(fp32=iters * ops["fp32"])
 
 
 def windowed_bound_ms(args, windows):
@@ -6878,11 +6894,14 @@ def phase_fleet_b160(dev, profiled=("fleet_b160", "fleet_b160_par")):
                          extra_rows_over=over)
         if path not in profiled:
             continue
+        t0 = time.perf_counter()
         with no_k5_nor_plain_sweep():
             prof = profile_request(solve, cpu=False)
         prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["wall_ms"]
+        prof["reading_s"] = time.perf_counter() - t0
         print(f"  {path}, the solve again (warm) under torch.profiler "
-              f"(device activity): "
+              f"(device activity; {prof['reading_s']:.1f} s with the "
+              f"profiler's start and its events read): "
               f"{prof['wall_ms']:.1f} ms, {prof['device_ops']} device "
               f"operations, busy {prof['device_busy_ms']:.1f} ms: idle share "
               f"{prof['idle_share']:.4f}; K6 {prof['k6_launches']} kernels, "

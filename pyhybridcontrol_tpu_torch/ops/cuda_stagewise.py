@@ -115,6 +115,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import warnings
 from typing import Optional
 
@@ -419,13 +420,16 @@ def sw_solve_k_any_cuda(r, factors, windows: Optional[int] = None,
     C), each (N, b, b), at any b; sequential, or over ``windows`` windows
     (the algorithm of ``ops/stagewise._solve_K_windowed``, its plain
     version; ``_solve_K`` is the sequential one's) with the window maps
-    ``maps`` (``any_maps``; else computed from the factors). The factors
-    are read packed (``pack_wide``, built once per factor tuple). Checks,
-    allocates x (and the windows' two side buffers) and launches once: one
-    kernel sequential, three windowed."""
+    ``maps`` (``any_maps`` of the prep; required with more than one
+    window). The factors are read packed (``pack_wide``, built once per
+    factor tuple). Checks, allocates x (and the windows' two side buffers)
+    and launches once: one kernel sequential, three windowed."""
     from pyhybridcontrol_tpu_torch.ops._build import load_library
 
     what = "K6 (stagewise sweep at any b)"
+    if windows not in (None, 1) and maps is None:
+        raise ValueError(f"{what}: {windows} windows need the window maps "
+                         f"(cuda_stagewise.any_maps of the prep)")
     if r.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {r.device}")
     if r.ndim < 2:
@@ -442,11 +446,6 @@ def sw_solve_k_any_cuda(r, factors, windows: Optional[int] = None,
     x = torch.empty_like(rr)
     Pi = Psi = side = None
     if pl.windows > 1:
-        if maps is None:
-            from pyhybridcontrol_tpu_torch.ops.stagewise import window_maps
-
-            maps = pack_wide(window_maps(
-                None, horizon_windows(N, pl.windows), factors))
         _check("maps", maps, (2, N, wide_block_words(b)), r.device)
         Pi, Psi = maps.unbind(0)
         side = torch.empty((2, P, pl.windows, b), dtype=torch.float32,
@@ -900,6 +899,7 @@ def plan_admm(P: int, N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
                           f"CTA, above the {SMEM_MAX} an sm_90 CTA has")
 
 
+@functools.lru_cache(maxsize=256)
 def k5_plan(N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
             n_ext: int = 0, n_cons: int = 0, mean: bool = False,
             parallel: bool = False) -> Optional[AdmmPlan]:
@@ -908,7 +908,9 @@ def k5_plan(N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
     instantiation for it (b above 128, a group that leaves a scenario
     under a warp, no variant's shared memory fits): the shapes the torch
     loop takes on the card (``ops/stagewise._admm_route``). Whether a plan
-    exists does not depend on P, only which horizon cluster it takes."""
+    exists does not depend on P, only which horizon cluster it takes. A
+    pure function of its arguments, memoized: the route asks it on every
+    solve."""
     try:
         return plan_admm(S, N, b, m, S, n_blk, n_ext, n_cons, mean,
                          parallel=parallel)
@@ -916,10 +918,11 @@ def k5_plan(N: int, b: int, m: int, S: int = 1, n_blk: int = 0,
         return None
 
 
+@functools.lru_cache(maxsize=256)
 def k4_plan(N: int, b: int) -> Optional[SweepPlan]:
     """K4's plan for the shape (``plan_sweep``, which does not depend on
     P), or None where K4 has no instantiation (b above 128, one problem's
-    r/y buffer past a block)."""
+    r/y buffer past a block); memoized, as ``k5_plan``."""
     try:
         return plan_sweep(1, N, b)
     except NoInstantiation:

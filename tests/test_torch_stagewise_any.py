@@ -157,6 +157,51 @@ def test_k6_wrapper_refuses_a_cpu_tensor():
     assert ca.LAUNCHES == before
 
 
+def test_k6_wrapper_needs_the_window_maps():
+    """Over more than one window the wrapper takes the prep's packed window
+    maps (``any_maps``) and builds none of its own: without them it raises,
+    before any launch, and counts nothing."""
+    before = dict(ca.LAUNCHES)
+    f = tuple(t.float() for t in _factors(3, 129, 0))
+    with pytest.raises(ValueError, match="need the window maps"):
+        cs.sw_solve_k_any_cuda(torch.zeros(2, 3, 129), f, windows=3)
+    assert ca.LAUNCHES == before
+
+
+def test_route_plans_are_memoized():
+    """``k5_plan`` and ``k4_plan``, which the route asks on every solve,
+    are memoized and give what the plans give: K5's at P = S (None where
+    it has no instantiation), K4's at any P."""
+    args = (120, 5, 19, 4, 0, 1, 2, True, False)
+    first = cs.k5_plan(*args)
+    hits = cs.k5_plan.cache_info().hits
+    assert cs.k5_plan(*args) is first and first == cs.plan_admm(
+        4, *args[:-1], parallel=args[-1])
+    assert cs.k5_plan.cache_info().hits == hits + 1
+    assert cs.k5_plan(24, 160, 602, 1, 0, 43) is None
+    assert cs.k4_plan(24, 128) == cs.plan_sweep(8, 24, 128)
+    assert cs.k4_plan(24, 160) is None and cs.k4_plan(24, 128) is \
+        cs.k4_plan(24, 128)
+
+
+def test_k6_bound_counts_the_functions_own_work():
+    """K6's bound (chip_smoke.py "K6 vs plain") is ``k4_work``, K⁻¹r's own
+    bytes and operations, in both modes; over windows the maps, the
+    carries and the corrections go to a bound of their own
+    (``k6_windowed_bound_ms``), which ``par_overhead`` shares with K5's
+    parallel sweep."""
+    P, N, b, C = 8, 24, 160, cs.any_windows(24)
+    own = SMOKE.bound(*SMOKE.k4_work(P, N, b))[0]
+    nbytes, ops = SMOKE.window_overhead(P, N, b, C)
+    w = cs.horizon_windows(N, C)
+    fwd, bwd = N - w[1], w[C - 1]
+    assert nbytes == 4 * (fwd + bwd + 2) * b * b
+    assert ops["fp32"] == P * (2 * (C - 1) + fwd + bwd) * (2 * b * b + b)
+    assert SMOKE.window_overhead(P, N, b, 1) == (0, dict(fp32=0))
+    assert SMOKE.k6_windowed_bound_ms(P, N, b, C) > own
+    assert SMOKE.k6_windowed_bound_ms(P, N, b, 1) == own
+
+
 def _shape(N, b, m, n_ext=0, n_cons=0, n_blk=0):
     """The fields of a stagewise prep the route reads."""
     return types.SimpleNamespace(N=N, b=b, m_k=m, n_ext=n_ext,
