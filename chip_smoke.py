@@ -375,8 +375,12 @@ Run from the root of a checkout. It builds the kernels of
      (``_solve_K``; ``_solve_K_windowed`` over ``any_windows(N)``
      windows, N a multiple of none) at config 6's long arm (b=5, N=120),
      the fleets' factors (b=32, N=96; b=128 and 160, N=24) and random
-     factors (b=129, 137 odd, 256), each at P=1 and 64 (and fleet_b160's
-     P=8), "k6" / "k6_random" limits; each timed alone, as a wrapper and
+     factors (b=129, 137 odd, 256; b=700, P=3, the "l2" variant), each
+     at P=1 and 64 (and fleet_b160's P=8), "k6" / "k6_random" limits,
+     every plan variant (narrow, ring, l2; one launch and five) held and
+     its shared memory against the kernel's count; at fleet_b160's wave
+     every variant forced, bitwise the plan's output, and k6_wide's
+     cycles a step by part; each timed alone, as a wrapper and
      as the plain version beside its bound (``k4_work``: factors, r and x
      at 3.35 TB/s; over windows also with the maps, carries and
      corrections counted, ``k6_windowed_bound_ms``), its chain floor and
@@ -4932,8 +4936,12 @@ K6_SHAPES = (("config 6 long arm", 5, CFG6_N, "cfg6"),
              ("random", 256, 12, "random"))
 K6_BATCHES = (1, 64)
 # the shape fleet_b160's relaxations give K6 (a wave of 8 nodes): the
-# kernels line's times
+# kernels line's times, and every variant forced there ("ring" and "l2",
+# sequential and over windows, the windows also in five launches)
 K6_MAIN = (160, 24, 8)
+# the shapes no K6_SHAPES row takes to a plan variant: (tag, b, N, P) of
+# random factors; b=700 runs "l2" (no two row slices fit a CTA)
+K6_VARIANT_HOLDS = (("random, l2", 700, 4, 3),)
 # the third class of shapes K5 has no instantiation for: a tree of
 # K6_TREE_S scenarios of config 6's ω double integrator (branching at step
 # 1, its budget row), N=K6_TREE_N, b=5: one relaxation of K6_TREE_ITERS
@@ -4989,32 +4997,125 @@ def k6_chain_ms(N, b, C):
     return k4_chain_ms(N, b) if C == 1 else horizon_chain_ms(N, b, C)
 
 
+def k6_smem_held(pl, N, b):
+    """The plan's shared memory a CTA against the kernel's own count
+    (``phc_k6_smem_bytes``, csrc/stagewise_any.cu)."""
+    from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
+    from pyhybridcontrol_tpu_torch.ops._build import load_library
+
+    got = load_library("stagewise_any").phc_k6_smem_bytes(
+        cs.ANY_VARIANTS.index(pl.variant), N, b, pl.windows, pl.lanes,
+        pl.rows, pl.problems, pl.ring)
+    check(got == pl.smem, f"K6 at N={N}, b={b}: the plan's {pl.smem} bytes "
+          f"a CTA, the kernel's {got}")
+
+
+def k6_plan_text(pl, launches):
+    """A K6 plan as phase 40 prints it."""
+    if pl.variant == "narrow":
+        return (f"narrow, {pl.problems} problems and {pl.windows} windows a "
+                f"CTA of {pl.threads} threads, {pl.lanes} lanes a slot, "
+                f"{pl.smem} bytes, {launches} launch")
+    return (f"{pl.variant}, clusters of {pl.cluster} CTAs of {pl.rows} rows, "
+            f"{pl.problems} problems a cluster, ring "
+            f"{pl.ring} slices, {pl.threads} threads, {pl.smem} bytes, "
+            f"{pl.clusters} clusters, {launches} launch"
+            + ("es" if launches > 1 else ""))
+
+
+def k6_stamps(rec, pre, r, sw, w, maps):
+    """k6_wide's cycles a step by part (thread 0 of every CTA: waiting for
+    its ring slot, its FMAs, its DSMEM stores, the barrier) at one shape,
+    into ``rec`` under ``pre``."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
+
+    st = torch.zeros(5, dtype=torch.int64, device=r.device)
+    cs._k6_launch(r, sw.factors, w, maps if w > 1 else None, stamps=st)
+    s = st.tolist()
+    split = {k: s[i] / max(s[4], 1) for i, k in enumerate(
+        ("ring_wait", "fma", "dsmem", "barrier"))}
+    rec[pre + "stage_cycles"] = split
+    print("    cycles a step (thread 0 of each CTA): " + ", ".join(
+        f"{k} {v:.0f}" for k, v in split.items()) + f" ({s[4]} steps)",
+        flush=True)
+
+
+def k6_forced(dev, rng, rec, sw, r, maps, C, plan_out):
+    """Every variant forced at fleet_b160's wave (K6_MAIN): "ring" and
+    "l2", sequential and over C windows, the windows also in five launches;
+    each within "k6" of its plain version and bitwise the plan's output
+    (the same FMAs in the same order), timed alone."""
+    import torch
+
+    from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
+    from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
+
+    b, N, P = K6_MAIN
+    bounds = cs.horizon_windows(N, C)
+    for w in (1, C):
+        ref = (tsw._solve_K(sw, r) if w == 1
+               else tsw._solve_K_windowed(sw, r, bounds))
+        for v in ("ring", "l2"):
+            for multi in ((False, True) if w > 1 else (False,)):
+                def run(v=v, multi=multi, w=w):
+                    return cs._k6_launch(r, sw.factors, w,
+                                         maps if w > 1 else None, v, multi)
+                got, n = run()
+                pl = cs.plan_sweep_any(P, N, b, w, v)
+                k6_smem_held(pl, N, b)
+                tag = (f"fleet_b160's wave forced {v}{' in five launches' if multi else ''}, "
+                       f"C={w} ({k6_plan_text(pl, n)})")
+                held(tag, "k6", {"x": (got, ref)})
+                check(torch.equal(got.view(torch.int32),
+                                  plan_out[w].view(torch.int32)),
+                      f"{tag}: not bitwise the plan's output")
+                check(n == (5 if multi else 1),
+                      f"{tag}: {n} launches")
+                if TIMINGS:
+                    key = f"b{b}_N{N}_P{P}_C{w}_{v}{'_multi' if multi else ''}_kernel_ms"
+                    rec[key] = kernel_ms(run)
+                    print(f"    kernel alone {rec[key]:.4f} ms", flush=True)
+
+
 def phase_k6(dev, rng, rec):
     """K6 against its plain versions on the card (``_solve_K`` for one
     window, ``_solve_K_windowed`` over ``any_windows(N)``) at every shape
     of K6_SHAPES ("k6" at the preps' factors, "k6_random" at the random
-    ones); each timed alone, around its wrapper and as the plain version,
-    beside its bound (``k4_work``, the function's own work; over windows
-    also ``k6_windowed_bound_ms``), its chain floor (``k6_chain_ms``) and
+    ones) and of K6_VARIANT_HOLDS, each with its plan (variant, cluster,
+    ring, problems a cluster; its shared memory held against the kernel's
+    count) and the launches a call; each timed alone,
+    around its wrapper and as the plain version, beside its bound
+    (``k4_work``, the function's own work; over windows also
+    ``k6_windowed_bound_ms``), its chain floor (``k6_chain_ms``) and
     ``torch.linalg.lu_solve`` on the dense LU of K (fp32) for the same
-    right-hand sides. Then the third class (``k6_tree_hold``)."""
+    right-hand sides; at fleet_b160's wave k6_wide's cycles by part
+    (``k6_stamps``) and every variant forced (``k6_forced``). Then the
+    third class (``k6_tree_hold``)."""
     import torch
 
     from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as cs
     from pyhybridcontrol_tpu_torch.ops import stagewise as tsw
 
     print("K6 (stagewise sweep at any b) vs plain:", flush=True)
-    for tag, b, N, key in K6_SHAPES:
+    shapes = [(tag, b, N, key, K6_BATCHES + ((K6_MAIN[2],)
+                                             if (b, N) == K6_MAIN[:2] else ()))
+              for tag, b, N, key in K6_SHAPES]
+    shapes += [(tag, b, N, "random", (P,)) for tag, b, N, P in
+               K6_VARIANT_HOLDS]
+    variants = set()
+    for tag, b, N, key, batches in shapes:
         sw = k6_factors(dev, rng, key, b, N)
         C = cs.any_windows(N)
         bounds = cs.horizon_windows(N, C)
         maps = cs.any_maps(sw, C)
         regime = "k6_random" if key == "random" else "k6"
         K = None
-        for P in K6_BATCHES + ((K6_MAIN[2],) if (b, N) == K6_MAIN[:2]
-                               else ()):
+        for P in batches:
             r = torch.as_tensor(rng.normal(size=(P, N, b)),
                                 dtype=torch.float32, device=dev)
+            plan_out = {}
             for w in (1, C):
                 def wrapper(w=w):
                     return cs.sw_solve_k_any_cuda(
@@ -5026,14 +5127,20 @@ def phase_k6(dev, rng, rec):
                             tsw._solve_K_windowed(sw, r, bounds))
 
                 pl = cs.plan_sweep_any(P, N, b, w)
-                got, ref = wrapper(), plain()
-                held(f"{tag} b={b} N={N} P={P} C={w} ({pl.threads} threads "
-                     f"a CTA)", regime, {"x": (got, ref)})
+                k6_smem_held(pl, N, b)
+                got, n = cs._k6_launch(r, sw.factors, w,
+                                       maps if w > 1 else None)
+                plan_out[w] = got
+                ref = plain()
+                variants.add((pl.variant, w > 1, n))
+                held(f"{tag} b={b} N={N} P={P} C={w} ({k6_plan_text(pl, n)})",
+                     regime, {"x": (got, ref)})
                 rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0),
                                          float((got - ref).abs().max()))
                 if not TIMINGS:
                     continue
                 pre = f"b{b}_N{N}_P{P}_C{w}_"
+                rec[pre + "plan"] = k6_plan_text(pl, n)
                 by = timed(rec, pre, wrapper, plain, k4_work(P, N, b))
                 rec[pre + "chain_ms"] = k6_chain_ms(N, b, w)
                 if w > 1:
@@ -5042,10 +5149,14 @@ def phase_k6(dev, rng, rec):
                     print(f"    with the windowed work counted too: "
                           f"{rec[pre + 'windowed_bound_ms']:.3g} ms",
                           flush=True)
+                if pl.variant != "narrow" and (b, N, P) == K6_MAIN:
+                    k6_stamps(rec, pre, r, sw, w, maps)
                 if (b, N, P, w) == K6_MAIN + (1,):
                     rec["bound_by"] = by
                     for k in ("ms", "kernel_ms", "plain_ms", "bound_ms"):
                         rec[k] = rec[pre + k]
+            if (b, N, P) == K6_MAIN:
+                k6_forced(dev, rng, rec, sw, r, maps, C, plan_out)
             if not TIMINGS:
                 continue
             K = dense_K_of(sw.factors) if K is None else K
@@ -5060,6 +5171,18 @@ def phase_k6(dev, rng, rec):
                   f"{k6_chain_ms(N, b, C):.4f} ms (C={C}); "
                   f"torch.linalg.lu_solve on the dense LU of K ({N * b}², "
                   f"{P} right-hand sides): {rec[lib]:.3f} ms", flush=True)
+    # every variant of the plan held at some shape: narrow, ring and l2,
+    # sequential and over windows, and the windowed k6_wide sweep both in
+    # one launch and in five
+    for want in (("narrow", False), ("narrow", True), ("ring", False),
+                 ("ring", True), ("l2", False), ("l2", True)):
+        check(any(v[:2] == want for v in variants),
+              f"K6: no hold reached the {want[0]} variant "
+              f"{'over windows' if want[1] else 'sequential'}")
+    for n in (1, 5):
+        check(any(v[0] != "narrow" and v[1] and v[2] == n
+                  for v in variants),
+              f"K6: no windowed k6_wide hold ran in {n} launch(es)")
     k6_tree_hold(dev, rng, rec)
 
 

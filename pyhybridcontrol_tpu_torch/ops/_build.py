@@ -209,8 +209,14 @@ def _bind_stagewise_horizon(lib):
 
 def _bind_stagewise_any(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
-    # r L U C Pi Psi | x yend xbeg, then P N b windows threads stream
-    lib.phc_sw_solve_k_any.argtypes = [P] * 9 + [I] * 5 + [P]
+    # variant N b C lanes rows G ring
+    lib.phc_k6_smem_bytes.argtypes = [I] * 8
+    lib.phc_k6_smem_bytes.restype = I
+    # r | x, the factors and maps (packed or in row slices), the
+    # workspace, the stamps, then P N b windows variant cluster rows G
+    # lanes ring threads, the epoch, force_multi, the launches made, stream
+    lib.phc_sw_solve_k_any.argtypes = ([P] * 6 + [I] * 11 + [
+        ctypes.c_uint, I, ctypes.POINTER(ctypes.c_int), P])
     lib.phc_sw_solve_k_any.restype = I
 
 

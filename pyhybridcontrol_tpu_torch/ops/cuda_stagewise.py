@@ -27,13 +27,18 @@ shared by every problem of the batch. Each launch counts once in
 under its variant's name (``ADMM_LAUNCH``; its problem count P in
 ``LAUNCH_BATCHES``).
 
-``plan_sweep_any`` picks K6's launch from the shapes alone: one CTA a
-problem and window, b rows over b rounded up to a warp (at most 256)
-threads, C = 1 or ``any_windows(N)`` windows (⌈√(2N)⌉, at most 16 and N);
-r, y and x in device memory, four b-word vectors in shared memory, so it
-raises only where those do not fit a CTA (b above 14,528). The factors
-and window maps are read packed column-major (``pack_wide``; the factors
-once per factor tuple, the maps cached on the prep, ``any_maps``).
+``plan_sweep_any`` picks K6's launch from the shapes alone, C = 1 or
+``any_windows(N)`` windows (⌈√(2N)⌉, at most 16 and N): "narrow"
+(k6_narrow) where b is up to 32 and the horizon's factors (and maps),
+packed column-major (``pack_wide``), fit one CTA; else k6_wide, a
+stage's rows over a cluster of up to 16 CTAs, its factors and maps read
+as row slices (``pack_slices``, built once per packed tensor) through a
+ring of bulk copies ("ring") or from device memory where two slices do
+not fit ("l2"). It raises only where one problem's three vectors do not
+fit a CTA (b above 19,364). The factors are packed once per factor
+tuple, the maps cached on the prep (``any_maps``); a windowed k6_wide
+sweep keeps its ends, carries and counters in a workspace per (device,
+stream, shape).
 
 ``plan_sweep`` picks K4's instantiation from the shapes alone: the compiled
 bound on the block size (8, 16, 32, 64 or 128, the smallest at or above b),
@@ -347,63 +352,215 @@ def sw_solve_k_cuda(r, factors, staged: Optional[bool] = None):
 
 ANY_THREADS = 256    # the most threads a K6 CTA (csrc/stagewise_any.cu)
 ANY_WINDOWS = 16     # the most windows plan_sweep_any gives a problem
+ANY_CLUSTER = 16     # the largest cluster of k6_wide (16: non-portable)
+ANY_GROUP = 8        # the problems a k6_wide cluster takes at least
+ANY_WAVE = 112       # the CTAs of clusters the plan counts on the card
+                     # holding at once (7 clusters of 16, 14 of 8, …)
+ANY_RING = 48        # the deepest ring (slices) of k6_wide
+ANY_ROWS = 16        # the rows a k6_wide CTA takes where a cluster allows
+# the variants, by their number in phc_sw_solve_k_any
+ANY_VARIANTS = ("narrow", "ring", "l2")
 
 
 @dataclasses.dataclass(frozen=True)
 class AnyPlan:
-    """K6's launch for one call: threads a CTA (b rounded up to a warp, at
-    most ANY_THREADS; one CTA a problem and window), windows a problem (1:
-    the sequential sweep) and dynamic shared memory a CTA (bytes)."""
+    """K6's launch for one call (csrc/stagewise_any.cu): the variant
+    ("narrow": k6_narrow, b up to 32 with the horizon staged in one CTA;
+    "ring" or "l2": k6_wide, a stage's rows over a cluster, the row slices
+    through a ring of bulk copies or from device memory), windows a
+    problem (1: the sequential sweep), CTAs a cluster (narrow: 1), rows a
+    CTA (narrow: b), problems a cluster (narrow: a CTA), lanes a slot
+    (narrow; else 0), the ring's depth in slices (0 but "ring"), threads
+    and dynamic shared memory a CTA (bytes), and the clusters (narrow:
+    CTAs) of the sweep."""
 
-    threads: int
+    variant: str
     windows: int
+    cluster: int
+    rows: int
+    problems: int
+    lanes: int
+    ring: int
+    threads: int
     smem: int
+    clusters: int
 
 
 def any_windows(N: int) -> int:
     """The windowed sweep's C for a horizon of N stages: ⌈√(2N)⌉, at least 2
     and at most ANY_WINDOWS and N (1 for N = 1). A window's chain is
-    2·⌈N/C⌉ stages and the carries' 2·(C−1) steps; the two corrections add
-    about 2·⌈N/C⌉ stage-sized products a thread where b fills the CTA, so
-    the sum is least near √(2N). b does not enter: every term scales as
-    b²."""
+    2·⌈N/C⌉ stages and the carries' 2·(C−1) steps, so the sum is least near
+    √(2N). b does not enter: every term scales alike in b."""
     c = 2
     while c * c < 2 * N:
         c += 1
     return min(c, ANY_WINDOWS, N)
 
 
-def any_smem_bytes(b: int) -> int:
-    """Shared memory of one K6 CTA (csrc/stagewise_any.cu ``smem_bytes``):
-    four b-word vectors."""
-    return 16 * b
+def _odd_quads(n: int) -> int:
+    """n rounded up to a multiple of 4 words whose quarter is odd
+    (``odd_quads``: eight such rows' 16-byte reads cover the 32 banks)."""
+    w = _pad4(n)
+    return w if (w // 4) % 2 else w + 4
 
 
-def plan_sweep_any(P: int, N: int, b: int, windows: int = 1) -> AnyPlan:
+def any_rows(b: int) -> tuple:
+    """k6_wide's cluster for block size b: the fewest CTAs, a power of 2 up
+    to ANY_CLUSTER, that leave a CTA at most ANY_ROWS rows (ANY_CLUSTER
+    above 256), and the rows a CTA, ⌈b/CTAs⌉. Every problem of a CTA
+    reads the CTA's row slice from shared memory, so fewer rows a CTA is
+    fewer bytes read a stage."""
+    cl = 1
+    while cl < ANY_CLUSTER and -(-b // cl) > ANY_ROWS:
+        cl *= 2
+    return cl, -(-b // cl)
+
+
+def any_slices(N: int, C: int) -> int:
+    """The most row slices a k6_wide CTA reads for a horizon of N over C
+    windows (its ring needs no more): its window's L (but the first stage)
+    and C (but the last), U⁻¹ (window 0 in its forward sweep, the others in
+    their corrections), and over windows Π and Ψ of the corrections and of
+    the carries (C − 2 maps each way: the first step multiplies zero)."""
+    w = horizon_windows(N, C)
+    most = 0
+    for c in range(C):
+        ne = w[c + 1] - w[c]
+        n = 3 * ne - 2
+        if C > 1:
+            n += ((C - 2) * (c == 0) + ne * (c > 0) + (C - 2) * (c == C - 1)
+                  + ne * (c < C - 1))
+        most = max(most, n)
+    return most
+
+
+def any_smem_bytes(variant: str, N: int, b: int, C: int, lanes: int = 0,
+                   rows: int = 0, G: int = 1, ring: int = 0) -> int:
+    """Shared memory of one K6 CTA (``phc_k6_smem_bytes`` gives the same).
+    "narrow": its mbarrier (4 words), the staged arrays (L, U⁻¹, C and over
+    windows Π, Ψ: N packed blocks each), its problems' r and x (G·N·b words
+    each, padded to 4) and four ``lanes``-word vectors a slot (a stride of
+    4·lanes + 1 words; G·C slots);
+    "ring" and "l2": D + 2 mbarriers (the ring's and the exchange's, 2
+    words each, padded to 4) and D = ``ring`` row slices (``rows`` rows of
+    ``_odd_quads(b)`` words), then three vector buffers (two for the
+    exchange, one for a carry) of G problems' vectors (``_odd_quads(b)``
+    words each)."""
+    if variant == "narrow":
+        return 4 * (4 + (5 if C > 1 else 3) * N * wide_block_words(b)
+                    + 2 * _pad4(G * N * b) + G * C * (4 * lanes + 1))
+    D = ring if variant == "ring" else 0
+    return 4 * (_pad4(2 * (D + 2)) + D * rows * _odd_quads(b)
+                + 3 * G * _odd_quads(b))
+
+
+def _narrow_plan(P, N, b, C):
+    """k6_narrow's launch, or None where b is above 32 or the staged
+    horizon does not fit a CTA: a slot of L lanes (b rounded up to a power
+    of 2) a problem and window, all windows of a problem in one CTA; as
+    many problems as one warp holds where a problem's slots fit one warp,
+    else one problem a CTA (C·L ≤ 512 threads)."""
+    if b > 32:
+        return None
+    L = 1
+    while L < b:
+        L *= 2
+    if C * L <= 32:
+        G, threads = min(P, 32 // (C * L)), 32
+    else:
+        G, threads = 1, -(-C * L // 32) * 32
+    smem = any_smem_bytes("narrow", N, b, C, lanes=L, G=G)
+    if smem > SMEM_MAX:
+        return None
+    return AnyPlan("narrow", C, 1, b, G, L, 0, threads, smem, -(-P // G))
+
+
+def _wide_plan(P, N, b, C, variant):
+    """k6_wide's launch ("ring" where two row slices fit beside the
+    vectors, else "l2"; ``variant`` forces one), or None where not even
+    one problem's vectors fit a CTA. The problems a cluster: ANY_GROUP, or
+    more where that leaves the sweep more clusters than one wave of the
+    card holds (ANY_WAVE CTAs; over windows every cluster must be resident
+    for the one-launch form), fewer where their vectors or the ring do not
+    fit; a thread a row of a problem (several where the rows pass
+    ANY_THREADS − 32), the ring as deep as fits, at most ANY_RING and the
+    slices a CTA reads (then the whole sweep's slices are staged), and
+    with a ring one warp more, whose lane 0 keeps it filled."""
+    cl, R = any_rows(b)
+    wave = max(1, ANY_WAVE // cl // C)          # groups in one wave
+    base = min(P, ANY_GROUP)
+    for G in sorted({max(base, -(-P // wave)), base}, reverse=True):
+        while G > 1 and any_smem_bytes("l2", N, b, C, rows=R,
+                                       G=G) > SMEM_MAX:
+            G = max(1, G // 2)
+        vec = any_smem_bytes("l2", N, b, C, rows=R, G=G)
+        if vec > SMEM_MAX:
+            return None
+        rows = -(-G * R // 32) * 32   # threads with rows
+        clusters = -(-P // G) * C
+        if variant != "l2":
+            D = max(2, min(any_slices(N, C), ANY_RING))
+            while D >= 2 and any_smem_bytes("ring", N, b, C, rows=R, G=G,
+                                            ring=D) > SMEM_MAX:
+                D -= 1
+            if D >= 2:
+                return AnyPlan("ring", C, cl, R, G, 0, D,
+                               min(ANY_THREADS - 32, rows) + 32,
+                               any_smem_bytes("ring", N, b, C, rows=R, G=G,
+                                              ring=D), clusters)
+            if variant == "ring" and G == base:
+                return None
+            if G != base:
+                continue          # the ring at the smaller group first
+        return AnyPlan("l2", C, cl, R, G, 0, 0, min(ANY_THREADS, rows), vec,
+                       clusters)
+    return None
+
+
+def plan_sweep_any(P: int, N: int, b: int, windows: int = 1,
+                   variant: Optional[str] = None) -> AnyPlan:
     """K6's launch for P problems of horizon N and block b over C =
     ``windows`` windows (1: the sequential sweep; the parallel sweep takes
-    ``any_windows(N)``). Raises ValueError, with the shape, only where a
-    stage's vectors do not fit a CTA's shared memory (b above 14,528) or C
-    is not 1 to N."""
+    ``any_windows(N)``), from the shapes alone: "narrow" where b is up to
+    32 and the horizon's factors (and maps) fit one CTA, else "ring" where
+    two row slices fit beside the vectors, else "l2".
+    ``variant`` forces one. Whether a windowed k6_wide sweep is one launch
+    or five is decided on the card (``phc_sw_solve_k_any``: every cluster
+    resident at once). Raises ValueError, with the shape, where C is not 1
+    to N, on an empty shape, and where nothing fits: a forced variant that
+    does not, or b whose three vectors do not fit a CTA (above 19,364)."""
     what = f"K6 (stagewise sweep at any b) at P={P}, N={N}, b={b}"
     if P < 1 or N < 1 or b < 1:
         raise ValueError(f"{what}: empty shape")
     C = windows
     if not 1 <= C <= N:
         raise ValueError(f"{what}: {C} windows, not 1 to N")
-    smem = any_smem_bytes(b)
-    if smem > SMEM_MAX:
-        raise ValueError(f"{what}: a stage's vectors need {smem} bytes of "
+    if variant not in (None,) + ANY_VARIANTS:
+        raise ValueError(f"{what}: no variant {variant!r}")
+    if variant in (None, "narrow"):
+        pl = _narrow_plan(P, N, b, C)
+        if pl is not None:
+            return pl
+        if variant == "narrow":
+            raise ValueError(f"{what}, C={C}: the narrow variant takes b up "
+                             f"to 32 whose staged horizon fits a CTA")
+    pl = _wide_plan(P, N, b, C, variant)
+    if pl is None:
+        if variant == "ring":
+            raise ValueError(f"{what}, C={C}: no ring of two steps fits a "
+                             f"CTA's {SMEM_MAX} bytes of shared memory")
+        need = any_smem_bytes("l2", N, b, C, rows=any_rows(b)[1])
+        raise ValueError(f"{what}: a stage's vectors need {need} bytes of "
                          f"shared memory, above the {SMEM_MAX} a CTA has")
-    return AnyPlan(threads=min(ANY_THREADS, -(-b // 32) * 32), windows=C,
-                   smem=smem)
+    return pl
 
 
 def any_maps(sw, windows: int) -> torch.Tensor:
     """The window maps (Π, Ψ) of ``windows`` windows over the prep ``sw``
     (``ops/stagewise.window_maps`` of ``horizon_windows``) as K6 reads
     them: (2, N, ``wide_block_words(b)``), each block column-major
-    (``pack_wide``; cached on the prep)."""
+    (``pack_wide``; cached on the prep; k6_wide reads their row slices,
+    ``pack_slices``, built once a tensor)."""
     from pyhybridcontrol_tpu_torch.ops.stagewise import window_maps
 
     key = ("k6_maps", windows)
@@ -414,16 +571,71 @@ def any_maps(sw, windows: int) -> torch.Tensor:
     return got
 
 
-def sw_solve_k_any_cuda(r, factors, windows: Optional[int] = None,
-                        maps: Optional[torch.Tensor] = None):
-    """K6 on the card: x = K⁻¹ r for r (…, N, b) from the factors (L, U⁻¹,
-    C), each (N, b, b), at any b; sequential, or over ``windows`` windows
-    (the algorithm of ``ops/stagewise._solve_K_windowed``, its plain
-    version; ``_solve_K`` is the sequential one's) with the window maps
-    ``maps`` (``any_maps`` of the prep; required with more than one
-    window). The factors are read packed (``pack_wide``, built once per
-    factor tuple). Checks, allocates x (and the windows' two side buffers)
-    and launches once: one kernel sequential, three windowed."""
+def pack_slices(packed: torch.Tensor, b: int, cluster: int) -> torch.Tensor:
+    """k6_wide's row slices of packed blocks (``pack_wide``'s (n, N,
+    ``wide_block_words(b)``)): (n, N, cluster, R, ``_odd_quads(b)``), R =
+    ⌈b/cluster⌉, slice [a, k, q] the rows q·R … q·R + R − 1 of block (a, k)
+    row-major (element (i, j) of the block at [a, k, i div R, i mod R, j]),
+    zero past b in either direction: one bulk copy a slice, each 16-byte
+    aligned."""
+    n, N = packed.shape[:2]
+    R = -(-b // cluster)
+    out = torch.zeros((n, N, cluster * R, _odd_quads(b)), dtype=torch.float32,
+                      device=packed.device)
+    out[:, :, :b, :b] = packed[:, :, :b * b].reshape(n, N, b, b).transpose(
+        -1, -2)
+    return out.reshape(n, N, cluster, R, _odd_quads(b))
+
+
+# k6_wide's row slices of the last few packed tensors it read (the packed
+# factors of ``_packed_for_k4``, the maps of ``any_maps``): (the tensor, its
+# version, the cluster, the slices). The entries hold the tensors, so that
+# an id in the key is never another tensor's.
+_K6_SLICES: list = []
+_K6_SLICES_KEEP = 6
+
+
+def _slices_of(packed: torch.Tensor, b: int, cluster: int) -> torch.Tensor:
+    """``pack_slices(packed, b, cluster)``, built once per packed tensor
+    (while it does not change in place)."""
+    for i, (t, v, cl, got) in enumerate(_K6_SLICES):
+        if t is packed and v == packed._version and cl == cluster:
+            _K6_SLICES.insert(0, _K6_SLICES.pop(i))
+            return got
+    got = pack_slices(packed, b, cluster)
+    _K6_SLICES.insert(0, (packed, packed._version, cluster, got))
+    del _K6_SLICES[_K6_SLICES_KEEP:]
+    return got
+
+
+# the windowed k6_wide sweep's workspace a (device, stream, shape): [the
+# (4, P, C, b) words of the windows' ends and carries followed by the
+# (⌈P/G⌉, C, 4) counters, zeroed once; the epoch of the last call that ran
+# as one launch]. Such a call leaves every counter it uses at
+# epoch·cluster, so none is ever reset (the five-launch form uses none).
+_K6_WORK: dict = {}
+_K6_WORK_KEEP = 8
+
+
+def _k6_work(dev, stream: int, P: int, b: int, pl: AnyPlan):
+    key = (dev, stream, P, b, pl.windows, pl.cluster, pl.problems)
+    got = _K6_WORK.pop(key, None)
+    if got is None:
+        words = 4 * P * pl.windows * b + -(-P // pl.problems) * pl.windows * 4
+        got = [torch.zeros(words, dtype=torch.float32, device=dev), 0]
+    _K6_WORK[key] = got
+    while len(_K6_WORK) > _K6_WORK_KEEP:
+        del _K6_WORK[next(iter(_K6_WORK))]
+    return got
+
+
+def _k6_launch(r, factors, windows=None, maps=None, variant=None,
+               multi=False, stamps=None):
+    """K6 on the card, as ``sw_solve_k_any_cuda``, with the variant forced
+    (``variant``; ``multi``: a windowed k6_wide sweep in five launches even
+    where one fits) and ``stamps`` (None, or five uint64 counters on the
+    card, k6_wide's cycles by part). Returns x and the kernel launches the
+    call made."""
     from pyhybridcontrol_tpu_torch.ops._build import load_library
 
     what = "K6 (stagewise sweep at any b)"
@@ -441,26 +653,49 @@ def sw_solve_k_any_cuda(r, factors, windows: Optional[int] = None,
     for name, f in zip(("L", "Uinv", "C"), factors):
         _check(name, f, (N, b, b), r.device)
     P = rr.shape[0]
-    pl = plan_sweep_any(P, N, b, 1 if windows is None else windows)
-    L, U, C = _packed_for_k4(factors).unbind(0)
-    x = torch.empty_like(rr)
-    Pi = Psi = side = None
+    pl = plan_sweep_any(P, N, b, 1 if windows is None else windows, variant)
+    F, M = _packed_for_k4(factors), None
     if pl.windows > 1:
         _check("maps", maps, (2, N, wide_block_words(b)), r.device)
-        Pi, Psi = maps.unbind(0)
-        side = torch.empty((2, P, pl.windows, b), dtype=torch.float32,
-                           device=r.device)
+        M = maps
+    if pl.variant != "narrow":
+        F = _slices_of(F, b, pl.cluster)
+        M = None if M is None else _slices_of(M, b, pl.cluster)
+    x = torch.empty_like(rr)
     lib = load_library("stagewise_any")
+    launches = ctypes.c_int(0)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
+        work = None
+        if pl.variant != "narrow" and pl.windows > 1:
+            work = _k6_work(r.device, stream, P, b, pl)
         rc = lib.phc_sw_solve_k_any(
-            *map(_ptr, (rr, L, U, C, Pi, Psi, x,
-                        None if side is None else side[0],
-                        None if side is None else side[1])),
-            P, N, b, pl.windows, pl.threads, ctypes.c_void_p(stream))
+            *map(_ptr, (rr, x, F, M, None if work is None else work[0],
+                        stamps)), P, N, b, pl.windows,
+            ANY_VARIANTS.index(pl.variant), pl.cluster, pl.rows, pl.problems,
+            pl.lanes, pl.ring, pl.threads,
+            0 if work is None else work[1] + 1, int(multi),
+            ctypes.byref(launches), ctypes.c_void_p(stream))
     _raise_on(lib, rc, what)
+    if work is not None and launches.value == 1:
+        work[1] += 1
     _count_launch("stagewise_k6", P)
-    return x.reshape(r.shape)
+    return x.reshape(r.shape), launches.value
+
+
+def sw_solve_k_any_cuda(r, factors, windows: Optional[int] = None,
+                        maps: Optional[torch.Tensor] = None):
+    """K6 on the card: x = K⁻¹ r for r (…, N, b) from the factors (L, U⁻¹,
+    C), each (N, b, b), at any b; sequential, or over ``windows`` windows
+    (the algorithm of ``ops/stagewise._solve_K_windowed``, its plain
+    version; ``_solve_K`` is the sequential one's) with the window maps
+    ``maps`` (``any_maps`` of the prep; required with more than one
+    window). The factors are read packed (``pack_wide``, built once per
+    factor tuple) or in row slices (``pack_slices``, built once per packed
+    tensor), as ``plan_sweep_any`` picks. Checks, allocates x and launches
+    once: one kernel, or five for a windowed k6_wide sweep whose clusters
+    are not all resident at once."""
+    return _k6_launch(r, factors, windows, maps)[0]
 
 
 

@@ -102,7 +102,9 @@ def _device_events(prof) -> list:
 
 def profile_request(run, cpu: bool = True) -> dict:
     """``run()`` once under torch.profiler: device operations, K1/K2/K4/K5/K6
-    launches (K6: its kernels, one to three a sweep) and device time,
+    launches (K6: its kernels, k6_narrow or k6_wide, one a sweep, or five
+    for a windowed sweep whose clusters the card cannot hold at once) and
+    device time,
     device busy time, and the run's wall time under the profiler (from the
     call to the device's last operation). ``cpu=False`` records the device
     activity alone: a host-bound loop of hundreds of thousands of small
@@ -122,7 +124,7 @@ def profile_request(run, cpu: bool = True) -> dict:
            "wall_ms": 1e3 * wall}
     for k, name in (("k1", "admm_k1"), ("k2", "admm_k2"),
                     ("k4", "sw_solve_k"), ("k5", "sw_admm"),
-                    ("k6", "sw_any_")):
+                    ("k6", "k6_")):
         ev = [e for e in dev if name in e.name]
         out[f"{k}_launches"] = len(ev)
         out[f"{k}_device_ms"] = sum(e.time_range.end - e.time_range.start

@@ -108,25 +108,53 @@ def test_sweeps_past_128_match_both_packages(b, N, C):
 
 
 def test_any_plan_takes_every_block_size():
-    """K6's launch: b rounded up to a warp (at most 256 threads), C = 1 or
-    ``any_windows(N)`` (⌈√(2N)⌉, at most 16 and N), four b-word vectors of
-    shared memory; it raises only where those do not fit a CTA, where C is
-    not 1 to N, and on an empty shape. K4's and K5's plans still raise at
-    b = 129."""
+    """K6's launch: "narrow" (k6_narrow) where b is up to 32 and the
+    horizon's factors (and maps) fit one CTA, one warp a CTA where a
+    problem's slots fit one (else a problem a CTA); "ring" (k6_wide) where
+    two row slices fit beside the vectors, the cluster the fewest CTAs that
+    leave a CTA 16 rows (16 CTAs above b=256), 8 problems a cluster or as
+    many more as put the sweep's clusters in one wave of ANY_WAVE CTAs, a
+    thread a row of a problem and a producer warp, the ring as deep as
+    fits (at most ANY_RING and the slices a CTA reads); "l2" above. C = 1
+    or ``any_windows(N)`` (⌈√(2N)⌉, at most 16 and N). It
+    raises only where a stage's vectors do not fit a CTA (b above 19,364),
+    where C is not 1 to N, and on an empty shape. K4's and K5's plans
+    still raise at b = 129."""
     assert [cs.any_windows(N) for N in (1, 2, 3, 8, 24, 96, 120, 1000)] == [
         1, 2, 3, 4, 7, 14, 16, 16]
-    for b, threads in ((1, 32), (5, 32), (33, 64), (129, 160), (160, 160),
-                       (256, 256), (1000, 256)):
-        pl = cs.plan_sweep_any(7, 24, b)
-        assert (pl.threads, pl.windows, pl.smem) == (threads, 1, 16 * b)
-        assert cs.plan_sweep_any(7, 24, b, cs.any_windows(24)).windows == 7
+    pl = cs.plan_sweep_any(64, 120, 5)
+    assert (pl.variant, pl.lanes, pl.problems, pl.threads, pl.clusters,
+            pl.smem) == ("narrow", 8, 4, 32, 16, 4 * (
+                4 + 3 * 120 * 28 + 2 * 4 * 600 + 4 * (4 * 8 + 1)))
+    pl = cs.plan_sweep_any(32, 120, 5, 16)
+    assert (pl.variant, pl.windows, pl.problems, pl.threads,
+            pl.clusters) == ("narrow", 16, 1, 128, 32)
+    for (P, N, b, C), want in {
+            (8, 24, 160, 1): ("ring", 16, 10, 8, 32, 128, 1),
+            (8, 24, 160, 7): ("ring", 16, 10, 8, 19, 128, 7),
+            (64, 24, 160, 1): ("ring", 16, 10, 10, 32, 160, 7),
+            (64, 24, 160, 7): ("ring", 16, 10, 64, 16, 256, 7),
+            (64, 96, 32, 1): ("ring", 2, 16, 8, 48, 160, 8),
+            (64, 24, 128, 1): ("ring", 8, 16, 8, 25, 160, 8),
+            (64, 12, 256, 5): ("ring", 16, 16, 8, 12, 160, 40),
+            (1, 1, 200, 1): ("ring", 16, 13, 1, 2, 64, 1),
+            (2, 4, 700, 1): ("l2", 16, 44, 2, 0, 96, 1)}.items():
+        pl = cs.plan_sweep_any(P, N, b, C)
+        assert (pl.variant, pl.cluster, pl.rows, pl.problems, pl.ring,
+                pl.threads, pl.clusters) == want, (P, N, b, C)
+        assert pl.smem == cs.any_smem_bytes(
+            pl.variant, N, b, C, pl.lanes, pl.rows, pl.problems,
+            pl.ring) <= cs.SMEM_MAX
     assert cs.plan_sweep_any(1, 5, 160, 5).windows == 5
     for C in (6, 0):
         with pytest.raises(ValueError, match="windows, not 1 to N"):
             cs.plan_sweep_any(1, 5, 160, C)
-    assert cs.plan_sweep_any(1, 3, cs.SMEM_MAX // 16).smem <= cs.SMEM_MAX
-    with pytest.raises(ValueError, match="b=14529.*shared memory"):
-        cs.plan_sweep_any(1, 3, 14529)
+    for b in (14528, 19364):
+        pl = cs.plan_sweep_any(1, 3, b)
+        assert (pl.variant, pl.cluster, pl.problems) == ("l2", 16, 1)
+        assert pl.smem <= cs.SMEM_MAX and pl.threads == cs.ANY_THREADS
+    with pytest.raises(ValueError, match="b=19365.*shared memory"):
+        cs.plan_sweep_any(1, 3, 19365)
     with pytest.raises(ValueError, match="empty shape"):
         cs.plan_sweep_any(0, 3, 5)
     with pytest.raises(ValueError, match="above the 128"):
@@ -136,15 +164,162 @@ def test_any_plan_takes_every_block_size():
     assert cs.k5_plan(24, 129, 500) is None and cs.k4_plan(24, 129) is None
 
 
+def _first_plan_takes(P, N, b, C):
+    """Whether K6's first plan took the shape (one CTA a problem and window,
+    four b-word vectors in its shared memory): 1 ≤ C ≤ N, P, N, b ≥ 1."""
+    return P >= 1 and N >= 1 and 1 <= b and 16 * b <= cs.SMEM_MAX and \
+        1 <= C <= N
+
+
+def _check_any_plan(pl, P, N, b, C):
+    """A plan's own consistency: the kernel's bounds on its arguments."""
+    assert pl.windows == C and pl.smem <= cs.SMEM_MAX
+    assert pl.threads % 32 == 0 and 32 <= pl.threads <= cs.ANY_THREADS
+    assert pl.smem == cs.any_smem_bytes(pl.variant, N, b, C, pl.lanes,
+                                        pl.rows, pl.problems, pl.ring)
+    if pl.variant == "narrow":
+        assert b <= pl.lanes <= 32 and 32 % pl.lanes == 0
+        assert pl.problems * C * pl.lanes <= pl.threads
+        assert pl.clusters == -(-P // pl.problems)
+    else:
+        cl, R = cs.any_rows(b)
+        assert (pl.cluster, pl.rows) == (cl, R) and R * cl >= b
+        assert pl.cluster in (1, 2, 4, 8, 16) and pl.problems >= 1
+        wave = max(1, cs.ANY_WAVE // pl.cluster // C)
+        assert pl.problems <= max(cs.ANY_GROUP, -(-P // wave))
+        assert (pl.ring >= 2) == (pl.variant == "ring")
+        rows = -(-pl.problems * pl.rows // 32) * 32
+        assert pl.threads == (min(cs.ANY_THREADS - 32, rows) + 32
+                              if pl.variant == "ring"
+                              else min(cs.ANY_THREADS, rows))
+        assert pl.clusters == -(-P // pl.problems) * C
+
+
+@pytest.mark.parametrize("axis", ["b", "N", "P"])
+def test_any_plan_takes_every_shape_the_first_plan_took(axis):
+    """Every shape K6's first plan took (b 1–1000, N 1–120, P 1–300, C 1 and
+    ``any_windows(N)``) still has a plan, and each plan is one the kernel
+    takes (``_check_any_plan``): along b at N in (1, 3, 24, 120) and P in
+    (1, 8, 300); along N at b in (1, 5, 32, 33, 160, 1000) and P in (1,
+    64); along P at (N, b) in ((120, 5), (96, 32), (24, 160), (3, 1000))."""
+    if axis == "b":
+        shapes = [(P, N, b) for b in range(1, 1001) for N in (1, 3, 24, 120)
+                  for P in (1, 8, 300)]
+    elif axis == "N":
+        shapes = [(P, N, b) for N in range(1, 121)
+                  for b in (1, 5, 32, 33, 160, 1000) for P in (1, 64)]
+    else:
+        shapes = [(P, N, b) for P in range(1, 301)
+                  for N, b in ((120, 5), (96, 32), (24, 160), (3, 1000))]
+    for P, N, b in shapes:
+        for C in sorted({1, cs.any_windows(N)}):
+            assert _first_plan_takes(P, N, b, C)
+            _check_any_plan(cs.plan_sweep_any(P, N, b, C), P, N, b, C)
+
+
+def test_any_plan_picks_its_variant_by_shape():
+    """The plan's pick, from the shapes alone: narrow at b ≤ 32 whose
+    staged horizon fits (config 6's b=5 at N=120, sequential and over 16
+    windows), ring where it does not (b=5 at N=1000, b=32 at N=96) and at
+    the fleets' b (128, 160) and random b up to 600, l2 from b=700. A
+    forced variant is taken where it fits (ring and l2 at fleet_b160's
+    wave, sequential and over windows; ring at config 6's shape) and
+    raises where not (narrow above b=32 or past a CTA; ring at b=700)."""
+    for (P, N, b, C), want in {
+            (64, 120, 5, 1): "narrow", (64, 120, 5, 16): "narrow",
+            (32, 4, 32, 3): "narrow", (8, 1000, 5, 1): "ring",
+            (64, 96, 32, 14): "ring", (8, 24, 128, 1): "ring",
+            (8, 24, 160, 7): "ring", (64, 12, 256, 1): "ring",
+            (2, 4, 600, 1): "ring", (2, 4, 700, 1): "l2",
+            (1, 3, 14528, 1): "l2"}.items():
+        assert cs.plan_sweep_any(P, N, b, C).variant == want, (P, N, b, C)
+    for C in (1, 7):
+        for v in ("ring", "l2"):
+            pl = cs.plan_sweep_any(8, 24, 160, C, v)
+            assert pl.variant == v
+            _check_any_plan(pl, 8, 24, 160, C)
+    assert cs.plan_sweep_any(64, 120, 5, 1, "ring").variant == "ring"
+    for shape in ((8, 24, 33, 1), (8, 1000, 5, 1)):
+        with pytest.raises(ValueError, match="narrow variant takes"):
+            cs.plan_sweep_any(*shape, variant="narrow")
+    with pytest.raises(ValueError, match="no ring of two"):
+        cs.plan_sweep_any(2, 4, 700, 1, "ring")
+    with pytest.raises(ValueError, match="no variant"):
+        cs.plan_sweep_any(2, 4, 5, 1, "wide")
+
+
+def test_row_slices_read_back_as_the_packed_blocks():
+    """``pack_slices`` of ``pack_wide``'s blocks (n, N, cluster, R,
+    ``_odd_quads(b)``): slice [a, k, q] holds rows q·R … q·R + R − 1 of
+    block (a, k) row-major, zero past b; every slice a multiple of 16
+    bytes; the wrapper's cache gives the same tensor while the packed one
+    is unchanged."""
+    rng = np.random.default_rng(3)
+    for b, N, n in ((5, 3, 3), (33, 2, 2), (160, 2, 3), (137, 1, 2)):
+        blocks = torch.as_tensor(rng.normal(size=(n, N, b, b)),
+                                 dtype=torch.float32)
+        packed = cs.pack_wide(tuple(blocks))
+        cl, R = cs.any_rows(b)
+        RS = cs._odd_quads(b)
+        sl = cs.pack_slices(packed, b, cl)
+        assert sl.shape == (n, N, cl, R, RS) and (R * RS) % 4 == 0
+        assert RS >= b and (RS // 4) % 2 == 1
+        rows = sl.reshape(n, N, cl * R, RS)
+        assert torch.equal(rows[:, :, :b, :b], blocks)
+        assert not rows[:, :, b:].any() and not rows[:, :, :, b:].any()
+        for a_, k, q in ((0, 0, 0), (n - 1, N - 1, cl - 1)):
+            want = torch.zeros(R, RS)
+            got = blocks[a_, k, q * R:(q + 1) * R]
+            want[:got.shape[0], :b] = got
+            assert torch.equal(sl[a_, k, q], want)
+        assert cs._slices_of(packed, b, cl) is cs._slices_of(packed, b, cl)
+        assert torch.equal(cs._slices_of(packed, b, cl), sl)
+
+
 def test_any_smem_mirrors_the_kernel_source():
-    """``any_smem_bytes`` (16·b) and the CTA's thread bound mirror
-    csrc/stagewise_any.cu (smem_bytes: four b-word vectors; kMaxThreads)."""
+    """``any_smem_bytes``, the CTA's thread bound and the row stride mirror
+    csrc/stagewise_any.cu (narrow_smem_words, wide_smem_words, odd_quads,
+    kMaxThreads)."""
     src = open(os.path.join(os.path.dirname(__file__), "..",
                             "pyhybridcontrol_tpu_torch", "csrc",
                             "stagewise_any.cu")).read()
-    assert "return sizeof(float) * 4 * (size_t)b;" in src
     assert f"constexpr int kMaxThreads = {cs.ANY_THREADS};" in src
-    assert cs.any_smem_bytes(160) == 4 * 4 * 160
+    assert ("return 4 + (size_t)(C > 1 ? 5 : 3) * N * block_words(b) +\n"
+            "         2 * pad4((size_t)G * N * b) + (size_t)G * C * (4 * L + 1);"
+            ) in src
+    assert ("return pad4(2 * ((size_t)D + 2)) + (size_t)D * R * RS +\n"
+            "         3 * (size_t)G * odd_quads(b);") in src
+    assert "return (w / 4) % 2 ? w : w + 4;" in src
+    assert cs.any_smem_bytes("narrow", 120, 5, 16, lanes=8) == 4 * (
+        4 + 5 * 120 * 28 + 2 * 600 + 16 * 33)
+    assert cs.any_smem_bytes("ring", 24, 160, 1, rows=10, G=8,
+                             ring=32) == 4 * (68 + 32 * 10 * 164
+                                              + 3 * 8 * 164)
+    assert cs.any_smem_bytes("l2", 24, 160, 1, rows=10, G=8,
+                             ring=32) == 4 * (4 + 3 * 8 * 164)
+
+
+def test_profile_counts_k6_by_its_kernels():
+    """``profile_serve.profile_request`` counts K6's device time by a name
+    that both kernels of csrc/stagewise_any.cu carry and no other kernel
+    of csrc/ does, so that phase 41's "K6 ... ms on the device" reads
+    k6_narrow and k6_wide and nothing else."""
+    import re
+
+    root = os.path.join(os.path.dirname(__file__), "..",
+                        "pyhybridcontrol_tpu_torch")
+    prof = open(os.path.join(root, "profile_serve.py")).read()
+    assert '("k6", "k6_")' in prof
+    names = {}
+    for f in os.listdir(os.path.join(root, "csrc")):
+        src = open(os.path.join(root, "csrc", f)).read()
+        names[f] = set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(",
+            src))
+    assert {"k6_wide", "k6_narrow"} <= names["stagewise_any.cu"]
+    assert all("k6_" in n for n in names["stagewise_any.cu"])
+    assert not any("k6_" in n for f, ns in names.items() for n in ns
+                   if f != "stagewise_any.cu")
 
 
 def test_k6_wrapper_refuses_a_cpu_tensor():

@@ -6,6 +6,7 @@ frames' paths (a development tool, not part of the package):
     python tools/kernel_ab.py --parent DIR --stagewise
     python tools/kernel_ab.py --parent DIR --wide
     python tools/kernel_ab.py --parent DIR --flex
+    python tools/kernel_ab.py --parent DIR --k6 [--e2e]
 
 Run from the root of a checkout ("change"); DIR is a checkout of the commit
 to compare with ("parent", for example ``git archive`` of it unpacked into
@@ -82,6 +83,18 @@ torch.profiler (the idle share against that run's wall time), the last
 two as ``chip_smoke.long_warm_reading`` reads them. It
 reports, against the first parent run, whether the seven carries of each
 launch are bitwise equal and whether the inputs were.
+
+``--k6`` runs, per tree and in the same order, K6 (the stagewise sweep
+at any b, ``csrc/stagewise_any.cu``; only that library is built) on the
+same inputs at every shape of ``chip_smoke.K6_SHAPES`` (P = 1 and 64, and
+fleet_b160's wave P = 8 at b = 160), sequential and over
+``any_windows(N)`` windows, each timed alone (CUDA events around the
+library call, median of 7), and reports, against the first parent run,
+whether every output is bitwise equal (else its largest |Δ|) and whether
+the inputs were. With ``--e2e`` each run then drives ``chip_smoke.py``'s
+phase 41 (fleet_b160 and its ``parallel_sweeps`` twin: seconds a solve,
+objective, nodes, K6's launches, and a warm re-solve under
+torch.profiler: idle share and K6's device milliseconds).
 
 Prints one JSON line per run and a table at the end.
 """
@@ -510,6 +523,67 @@ print("FLEX " + json.dumps(res), flush=True)
 """
 
 
+K6_WORKER = r"""
+import hashlib, json, sys
+import numpy as np
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from pyhybridcontrol_tpu_torch.ops import _build
+from pyhybridcontrol_tpu_torch.ops import cuda_stagewise as k
+
+_build.LIBRARIES = {"stagewise_any": _build.LIBRARIES["stagewise_any"]}
+_build.load_library("stagewise_any")
+dev = torch.device("cuda")
+saved, res = {}, {}
+
+
+def digest(ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+rng = cs.phase_rng("kernel_ab_k6")
+for tag, b, N, key in cs.K6_SHAPES:
+    sw = cs.k6_factors(dev, rng, key, b, N)
+    C = k.any_windows(N)
+    maps = k.any_maps(sw, C)
+    for P in cs.K6_BATCHES + ((cs.K6_MAIN[2],) if (b, N) == cs.K6_MAIN[:2]
+                              else ()):
+        r = torch.as_tensor(np.random.default_rng(1000 * b + 10 * N + P)
+                            .normal(size=(P, N, b)), dtype=torch.float32,
+                            device=dev)
+        for w in (1, C):
+            def fn(w=w):
+                return k.sw_solve_k_any_cuda(r, sw.factors, windows=w,
+                                             maps=maps if w > 1 else None)
+
+            name = f"{tag} b={b} N={N} P={P} C={w}"
+            saved[name] = (fn(),)
+            res[name] = dict(
+                inputs=digest([r, *sw.factors] + ([maps] if w > 1 else [])),
+                plan=str(k.plan_sweep_any(P, N, b, w)),
+                k6_ms=cs.kernel_ms(fn, 7))
+            print(name, json.dumps(res[name]), flush=True)
+if E2E:
+    got = cs.phase_fleet_b160(dev)
+    for path, r in got.items():
+        prof = r.get("profile", {})
+        res[path] = dict(s=r["s"], obj=r["obj"], nodes=r["nodes"],
+                         k6_launches=r["k6_launches"],
+                         wall_ms=prof.get("wall_ms"),
+                         idle_share=prof.get("idle_share"),
+                         k6_device_ms=prof.get("k6_device_ms"),
+                         device_busy_ms=prof.get("device_busy_ms"))
+        print(path, json.dumps(res[path]), flush=True)
+torch.save({key: tuple(v.cpu() for v in val) for key, val in saved.items()},
+           sys.argv[1])
+print("K6 " + json.dumps(res), flush=True)
+"""
+
+
 def run_worker(copy: Path, out: Path, worker: str, marker: str) -> dict:
     """A worker in ``copy`` (a tree's package and chip_smoke.py, its
     kernels built there at the first run): its times (the JSON after
@@ -565,11 +639,12 @@ def main_wide(trees, gpu, worker=WIDE_WORKER, marker="WIDE",
     print(f"\n{gpu}\n{title}, kernel alone (ms), parent / change / "
           f"change / parent")
     base, differ = runs[0], 0
+    whole = ("battery_fleet", "wide_tree", "fleet_b160")
     for tag in base[1]:
-        if tag == "battery_fleet" or tag.startswith("wide_tree"):
+        if tag.startswith(whole):
             continue
         r = [res[tag] for _, res, _ in runs]
-        for key in ("k4_ms", "k5_20_ms", "k5_relax_ms"):
+        for key in ("k4_ms", "k5_20_ms", "k5_relax_ms", "k6_ms"):
             if key in r[0]:
                 print(f"  {tag}: {key} " + " / ".join(
                     f"{x[key]:.4f}" for x in r))
@@ -587,7 +662,7 @@ def main_wide(trees, gpu, worker=WIDE_WORKER, marker="WIDE",
             differ += verdict != "bitwise"
             print(f"  {key}: {name} vs parent: {verdict}")
     for tag in base[1]:
-        if tag == "battery_fleet" or tag.startswith("wide_tree"):
+        if tag.startswith(whole):
             print(f"  {tag}: " + " | ".join(
                 f"{name} {json.dumps(res[tag])}" for name, res, _ in runs))
     print("every output bitwise the parent's" if not differ
@@ -650,6 +725,7 @@ def main() -> int:
     ap.add_argument("--stagewise", action="store_true")
     ap.add_argument("--wide", action="store_true")
     ap.add_argument("--flex", action="store_true")
+    ap.add_argument("--k6", action="store_true")
     args = ap.parse_args()
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -662,6 +738,9 @@ def main() -> int:
     if args.flex:
         return main_wide(trees, gpu, FLEX_WORKER, "FLEX",
                          "K5 at the long horizons")
+    if args.k6:
+        return main_wide(trees, gpu, f"E2E = {args.e2e}\n" + K6_WORKER,
+                         "K6", "K6, the sweep at any b")
     if args.stagewise:
         runs = []
         for name in ("parent", "change", "change", "parent"):
